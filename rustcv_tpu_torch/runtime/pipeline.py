@@ -1,0 +1,167 @@
+"""Per-tick pipeline builder (port of ``rustcv_tpu.runtime.pipeline``, the
+YUYV device path).
+
+``raw u8 [N, H*W*2] → decode → (filter) → (overlay) → outputs`` for a batch
+of N streams, as a plain function on tensors. The stages run as the plain
+PyTorch ops of :mod:`rustcv_tpu_torch.ops` or, where a spec selects them,
+as the CUDA kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
+
+* ``stencil_impl`` ``"pallas"``, ``"pallas_v1"`` or ``"pallas_v2"`` runs the
+  blur_sobel filter as the stencil kernel (K1); ``"xla"`` runs the plain chain.
+* ``RUSTCV_DECODE=pallas`` decodes with the fused decode+overlay kernel (K4)
+  for the gray filters; ``RUSTCV_DECODE=pallas_tick`` runs the whole
+  blur_sobel tick as one kernel (K5). Unset or ``xla``: the plain decode.
+
+Specs this port does not run yet raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Optional, Tuple
+
+import torch
+
+from rustcv_tpu.core.pixel_format import PixelFormat
+
+from ..ops import color as _color
+from ..ops import draw as _draw
+from ..ops import filters as _filters
+from ..ops import kernels as _kernels
+
+STENCIL_IMPLS = ("xla", "pallas", "pallas_v1", "pallas_v2")
+FILTERS = ("none", "gaussian", "sobel_mag", "blur_sobel")
+
+
+@dataclass(frozen=True)
+class PipelineSpec:
+    """Static description of one pipeline variant (same fields as the
+    reference's, so a spec means the same thing in both packages)."""
+
+    pixel_format: PixelFormat
+    width: int
+    height: int
+    resize_to: Optional[Tuple[int, int]] = None  # (w, h) after convert
+    filter: str = "none"  # none | gaussian | sobel_mag | blur_sobel
+    overlay: bool = False  # rectangle overlay on the BGR output
+    emit_bgr: bool = True  # return the BGR image
+    emit_filtered: bool = True  # return the filter output (if any)
+    stencil_impl: str = "xla"  # xla | pallas | pallas_v1 | pallas_v2
+    mjpeg_hybrid: bool = False
+    mjpeg_packed: bool = False
+    coeff_geometry: Tuple[Tuple[int, int], ...] = ()
+    mjpeg_staged_bgr: bool = False
+    encode_jpeg: int = 0
+    encode_subsampling: str = "4:2:0"
+    encode_packed: int = 0
+    encode_dense_cap: int = 0
+
+
+def decode_mode() -> str:
+    """The ``RUSTCV_DECODE`` mode, read as the reference reads it."""
+    return os.environ.get("RUSTCV_DECODE", "xla")
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to rustcv_tpu_torch yet (ROADMAP queue 1)")
+
+
+def _check_ported(spec: PipelineSpec, mode: str) -> None:
+    if spec.pixel_format != PixelFormat.YUYV:
+        raise not_ported(f"pixel format {spec.pixel_format.value}")
+    if spec.mjpeg_hybrid or spec.mjpeg_packed:
+        raise not_ported("hybrid MJPEG")
+    if spec.resize_to is not None:
+        raise not_ported("resize_to")
+    if spec.encode_jpeg or spec.encode_packed:
+        raise not_ported("encode_jpeg")
+    if spec.filter not in FILTERS:
+        if spec.filter in ("canny", "harris", "harris_points"):
+            raise not_ported(f"filter {spec.filter!r}")
+        raise ValueError(f"unknown filter {spec.filter!r}")
+    if spec.stencil_impl not in STENCIL_IMPLS:
+        raise ValueError(f"unknown stencil_impl {spec.stencil_impl!r}")
+    if mode == "xla_fused":
+        raise not_ported("RUSTCV_DECODE=xla_fused")
+    if spec.width % 2:
+        raise ValueError(f"YUYV needs an even width, got {spec.width}")
+
+
+def _build(spec: PipelineSpec, mode: str):
+    _check_ported(spec, mode)
+    w, h = spec.width, spec.height
+    fused_decode = mode == "pallas" and spec.filter in ("sobel_mag", "blur_sobel")
+    fused_tick = (
+        mode == "pallas_tick" and spec.filter == "blur_sobel"
+        and spec.emit_bgr and spec.emit_filtered
+    )
+
+    def run(raw, rects, rect_colors, thickness):
+        """raw u8 [N, H*W*2]; rects int32 [N, 4], rect_colors u8 [N, 3] and
+        an int thickness (read only with spec.overlay) → dict of outputs."""
+        if fused_tick:
+            bgr, filtered = _kernels.yuyv_tick_fused(
+                raw, w, h, rects, rect_colors, thickness, overlay=spec.overlay)
+            return {"bgr": bgr, "filtered": filtered, "_sync": bgr.reshape(-1)[:1]}
+        overlay_done = False
+        if fused_decode:
+            bgr, gray = _kernels.yuyv_decode_interleave(
+                raw, w, h, rects, rect_colors, thickness, overlay=spec.overlay)
+            overlay_done = True
+        else:
+            bgr = _color.yuyv_to_bgr_packed(raw, w, h)
+            gray = None
+
+        def gray_plane():
+            return gray if gray is not None else _color.yuyv_to_gray(raw, w, h)
+
+        if spec.filter == "gaussian":
+            # Packed rows would blur across channels: blur the (H, W, 3) view.
+            filtered = _filters.gaussian5_u8(bgr.reshape(*bgr.shape[:-1], w, 3))
+        elif spec.filter == "sobel_mag":
+            filtered = _filters.gradient_magnitude_u8(*_filters.sobel3_gray(gray_plane()))
+        elif spec.filter == "blur_sobel":
+            if spec.stencil_impl == "xla":
+                filtered = _filters.blur_sobel_mag_u8(gray_plane())
+            else:
+                filtered = _kernels.blur_sobel_mag(gray_plane())
+        else:
+            filtered = None
+
+        if spec.overlay and not overlay_done:
+            bgr = _draw.rectangle_packed(bgr, rects, rect_colors, thickness)
+        out = {}
+        if spec.emit_bgr:
+            out["bgr"] = bgr
+        if spec.emit_filtered and filtered is not None:
+            out["filtered"] = filtered
+        if not out:
+            raise ValueError("the spec emits no output (emit_bgr=False and no filter)")
+        # One-element completion token: fetching it waits for the tick.
+        probe = out["bgr"] if spec.emit_bgr else out["filtered"]
+        out["_sync"] = probe.reshape(-1)[:1]
+        return out
+
+    return run
+
+
+@lru_cache(maxsize=64)
+def _cached(spec: PipelineSpec, mode: str):
+    return _build(spec, mode)
+
+
+def get_pipeline(spec: PipelineSpec):
+    """The pipeline function for ``spec`` under the current ``RUSTCV_DECODE``
+    mode (cached by both, so a changed mode never serves a stale pipeline)."""
+    return _cached(spec, decode_mode())
+
+
+def make_dummy_overlay(n: int, device="cpu"):
+    """Placeholder overlay args for specs with overlay=False."""
+    return (
+        torch.zeros((n, 4), dtype=torch.int32, device=device),
+        torch.zeros((n, 3), dtype=torch.uint8, device=device),
+        0,
+    )

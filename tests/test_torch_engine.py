@@ -1,0 +1,245 @@
+"""The port's MultiStreamEngine (device="cpu") against the JAX engine,
+tick for tick and bit-exact: decode modes, stencil implementations,
+sub-batching, the overlay cache, the frame pool, and state carried across
+the two packages.
+
+RUSTCV_DECODE is set on both engines with monkeypatch. The JAX package's
+get_pipeline is cached by spec alone and reads the variable only when it
+builds, so its cache is cleared whenever the variable changes here; the
+port's get_pipeline keys its cache by the mode as well."""
+
+import numpy as np
+import pytest
+import torch
+
+import rustcv_tpu.runtime.pipeline as jax_pipeline
+from rustcv_tpu.capture import SimulationDriver as JaxDriver
+from rustcv_tpu.core import PixelFormat, SimpleConfig
+from rustcv_tpu.runtime import MultiStreamEngine as JaxEngine
+from rustcv_tpu_torch.capture import SimulationDriver
+from rustcv_tpu_torch.ops import kernels
+from rustcv_tpu_torch.runtime import MultiStreamEngine
+from rustcv_tpu_torch.runtime import pipeline as port_pipeline
+
+torch.set_num_threads(2)
+
+
+def _cfg(w, h, fmt=PixelFormat.YUYV):
+    return SimpleConfig(width=w, height=h, fps=60, pixel_format=fmt)
+
+
+def _overlay(n, seed=0):
+    rng = np.random.default_rng(seed)
+    rects = np.stack([rng.integers(-10, 40, n), rng.integers(-10, 30, n),
+                      rng.integers(0, 60, n), rng.integers(0, 50, n)], 1).astype(np.int32)
+    return rects, rng.integers(0, 256, (n, 3), np.uint8)
+
+
+def _jax(w, h, n, n_unique=0, **kw):
+    return JaxEngine(JaxDriver(device_count=n, paced=False, n_unique_frames=n_unique), n,
+                     _cfg(w, h), device_sim=True, **kw)
+
+
+def _port(w, h, n, n_unique=0, **kw):
+    return MultiStreamEngine(SimulationDriver(device_count=n, paced=False,
+                                              n_unique_frames=n_unique), n,
+                             _cfg(w, h), device_sim=True, device="cpu", **kw)
+
+
+def _ticks(eng, k, rects=None, colors=None):
+    out = []
+    for _ in range(k):
+        res = eng.tick(rects=rects, rect_colors=colors, block=True)
+        out.append({key: res.numpy(key) for key in ("bgr", "filtered") if key in res.outputs}
+                   | {"seqs": np.asarray(res.sequences)})
+    return out
+
+
+def _assert_same(port_ticks, jax_ticks):
+    assert len(port_ticks) == len(jax_ticks)
+    for i, (p, j) in enumerate(zip(port_ticks, jax_ticks)):
+        assert set(p) == set(j)
+        for key in j:
+            np.testing.assert_array_equal(p[key], j[key], err_msg=f"tick {i} {key}")
+
+
+def _set_mode(monkeypatch, mode):
+    if mode is None:
+        monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    else:
+        monkeypatch.setenv("RUSTCV_DECODE", mode)
+    jax_pipeline.get_pipeline.cache_clear()
+
+
+@pytest.mark.parametrize("mode", [None, "pallas", "pallas_tick"])
+@pytest.mark.parametrize("w,h,n", [(64, 48, 3), (160, 120, 4)])
+def test_engine_matches_jax_in_each_decode_mode(jax_cpu, monkeypatch, mode, w, h, n):
+    _set_mode(monkeypatch, mode)
+    rects, colors = _overlay(n, seed=w)
+    kw = dict(filter="blur_sobel", overlay=True)
+    ref = _ticks(_jax(w, h, n, **kw), 3, rects, colors)
+    kernels.reset_launch_counts()
+    port = _port(w, h, n, **kw)
+    assert port.spec.stencil_impl == "xla"  # the CPU default
+    _assert_same(_ticks(port, 3, rects, colors), ref)
+    # on the CPU the kernel wrappers take their plain versions: no launches
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("mode", ["pallas", "pallas_tick"])
+@pytest.mark.parametrize("impl", ["pallas", "pallas_v1", "pallas_v2"])
+def test_kernel_modes_and_stencil_impls_match_jax(jax_cpu, monkeypatch, mode, impl):
+    """Every (decode mode, Pallas stencil) pair in both engines."""
+    _set_mode(monkeypatch, mode)
+    rects, colors = _overlay(2, seed=3)
+    kw = dict(filter="blur_sobel", overlay=True, stencil_impl=impl)
+    _assert_same(_ticks(_port(64, 48, 2, **kw), 2, rects, colors),
+                 _ticks(_jax(64, 48, 2, **kw), 2, rects, colors))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_v1", "pallas_v2"])
+def test_every_stencil_impl_matches_jax(jax_cpu, monkeypatch, impl):
+    _set_mode(monkeypatch, None)
+    rects, colors = _overlay(3, seed=1)
+    kw = dict(filter="blur_sobel", overlay=True, stencil_impl=impl)
+    _assert_same(_ticks(_port(64, 48, 3, **kw), 3, rects, colors),
+                 _ticks(_jax(64, 48, 3, **kw), 3, rects, colors))
+
+
+@pytest.mark.parametrize("filt", ["none", "gaussian", "sobel_mag"])
+@pytest.mark.parametrize("mode", [None, "pallas"])
+def test_other_filters_match_jax(jax_cpu, monkeypatch, filt, mode):
+    _set_mode(monkeypatch, mode)
+    rects, colors = _overlay(2, seed=2)
+    kw = dict(filter=filt, overlay=True)
+    _assert_same(_ticks(_port(64, 48, 2, **kw), 2, rects, colors),
+                 _ticks(_jax(64, 48, 2, **kw), 2, rects, colors))
+
+
+def test_sub_batch_matches_monolithic_and_jax(jax_cpu, monkeypatch):
+    _set_mode(monkeypatch, None)
+    rects, colors = _overlay(4, seed=4)
+    kw = dict(filter="blur_sobel", overlay=True)
+    sub = _ticks(_port(64, 48, 4, sub_batch=2, **kw), 3, rects, colors)
+    _assert_same(sub, _ticks(_port(64, 48, 4, **kw), 3, rects, colors))
+    _assert_same(sub, _ticks(_jax(64, 48, 4, sub_batch=2, **kw), 3, rects, colors))
+
+
+def test_frame_pool_matches_jax(jax_cpu, monkeypatch):
+    """n_unique_frames > 0: ticks gather from a pool made once on the device."""
+    _set_mode(monkeypatch, None)
+    kw = dict(filter="blur_sobel", overlay=False)
+    _assert_same(_ticks(_port(64, 48, 2, n_unique=3, **kw), 5),
+                 _ticks(_jax(64, 48, 2, n_unique=3, **kw), 5))
+
+
+def test_overlay_cache_uploads_again_after_a_rect_change(jax_cpu, monkeypatch):
+    _set_mode(monkeypatch, None)
+    rects, colors = _overlay(3, seed=5)
+    kw = dict(filter="blur_sobel", overlay=True)
+    port, ref = _port(64, 48, 3, **kw), _jax(64, 48, 3, **kw)
+    before = _ticks(port, 1, rects, colors)
+    _assert_same(before, _ticks(ref, 1, rects, colors))
+    cached = port._overlay_cache[1][0]
+    rects[:, 0] += 7  # mutate the caller's array in place
+    after = _ticks(port, 1, rects, colors)
+    assert port._overlay_cache[1][0] is not cached
+    _assert_same(after, _ticks(ref, 1, rects, colors))
+    # unchanged content reuses the cached device args
+    _ticks(port, 1, rects.copy(), colors.copy())
+    assert port._overlay_cache[1][0] is not cached
+    again = port._overlay_cache[1][0]
+    _ticks(port, 1, rects.copy(), colors.copy())
+    assert port._overlay_cache[1][0] is again
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_state_carries_across_packages(jax_cpu, monkeypatch, direction):
+    _set_mode(monkeypatch, None)
+    rects, colors = _overlay(3, seed=6)
+    kw = dict(filter="blur_sobel", overlay=True)
+    first, second = (_jax, _port) if direction == "jax_to_port" else (_port, _jax)
+    a = first(64, 48, 3, **kw)
+    _ticks(a, 2, rects, colors)
+    state = a.export_state()
+    if direction == "jax_to_port":
+        b = MultiStreamEngine.from_state(state, device="cpu")
+    else:
+        b = JaxEngine.from_state(state)
+    assert b.export_state() == state
+    _assert_same(_ticks(b, 2, rects, colors), _ticks(a, 2, rects, colors))
+
+
+def test_export_state_has_the_reference_keys(jax_cpu):
+    assert set(_port(64, 48, 2).export_state()) == set(_jax(64, 48, 2).export_state())
+
+
+def test_run_reports_frames_and_no_drops():
+    eng = _port(64, 48, 2, filter="blur_sobel", overlay=True)
+    rects, colors = _overlay(2)
+    stats = eng.run(4, warmup=1, rects=rects, rect_colors=colors)
+    assert (stats.ticks, stats.frames, stats.dropped_frames) == (4, 8, 0)
+    assert len(stats.latencies_ms) == 4 and stats.fps_total > 0
+    stats = eng.run(3, warmup=0, measure_latency=False)
+    assert stats.frames == 6 and stats.latencies_ms == []
+    assert eng.export_state()["sequences"] == [8, 8]
+    eng.close()
+
+
+def test_tick_outputs_and_layout():
+    with _port(64, 48, 2, filter="blur_sobel", overlay=True) as eng:
+        res = eng.tick(block=True)
+        assert set(res.outputs) == {"bgr", "filtered", "_sync", "_next_seqs"}
+        assert tuple(res.outputs["bgr"].shape) == (2, 48, 64 * 3)
+        assert res.numpy("bgr").shape == (2, 48, 64, 3)
+        assert res.outputs["_sync"].numel() == 1
+        assert res.outputs["_next_seqs"].tolist() == [1, 1]
+
+
+def test_cuda_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MultiStreamEngine(SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48),
+                          device_sim=True)
+
+
+def test_pipeline_cache_keys_the_decode_mode(monkeypatch):
+    spec = port_pipeline.PipelineSpec(PixelFormat.YUYV, 64, 48, filter="blur_sobel")
+    monkeypatch.setenv("RUSTCV_DECODE", "pallas")
+    a = port_pipeline.get_pipeline(spec)
+    monkeypatch.setenv("RUSTCV_DECODE", "pallas_tick")
+    b = port_pipeline.get_pipeline(spec)
+    monkeypatch.setenv("RUSTCV_DECODE", "pallas")
+    assert a is not b and port_pipeline.get_pipeline(spec) is a
+
+
+def _decode_xla_fused(monkeypatch):
+    monkeypatch.setenv("RUSTCV_DECODE", "xla_fused")
+    _port(64, 48, 1, filter="blur_sobel", overlay=True)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        pytest.param(lambda mp: _port(64, 48, 1, resize_to=(32, 24)), id="resize_to"),
+        pytest.param(lambda mp: MultiStreamEngine(
+            SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48), device="cpu"),
+            id="host-staged"),
+        pytest.param(lambda mp: _port(64, 48, 1, mesh=object()), id="mesh"),
+        pytest.param(lambda mp: _port(64, 48, 1).tick(text="hi"), id="text"),
+        pytest.param(lambda mp: _port(64, 48, 1).set_resolution(160, 120), id="set_resolution"),
+        pytest.param(lambda mp: _port(64, 48, 1).run_chained(4), id="run_chained"),
+        pytest.param(lambda mp: _port(64, 48, 1).run_encoded(4), id="run_encoded"),
+        pytest.param(lambda mp: _port(64, 48, 1).stream_encoded(4), id="stream_encoded"),
+        pytest.param(_decode_xla_fused, id="xla_fused"),
+        pytest.param(lambda mp: _port(64, 48, 1, filter="canny"), id="canny"),
+        pytest.param(lambda mp: _port(64, 48, 1, filter="harris"), id="harris"),
+        pytest.param(lambda mp: MultiStreamEngine(
+            SimulationDriver(device_count=1, paced=False), 1,
+            _cfg(64, 48, PixelFormat.NV12), device_sim=True, device="cpu"), id="nv12"),
+    ],
+)
+def test_unported_specs_raise(monkeypatch, make):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make(monkeypatch)

@@ -1,0 +1,71 @@
+"""The PyTorch port imports and ticks with jax and Pillow absent.
+
+A GPU machine that runs the port need have neither package, so the port
+and the part of ``rustcv_tpu`` it shares (``rustcv_tpu.core``) must not need
+them. A subprocess blocks both imports and runs one CPU tick."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import rustcv_tpu_torch
+    from rustcv_tpu.core import PixelFormat, SimpleConfig
+    from rustcv_tpu_torch.capture import SimulationDriver
+    from rustcv_tpu_torch.runtime import MultiStreamEngine
+    import rustcv_tpu_torch.ops.kernels
+
+    eng = MultiStreamEngine(
+        SimulationDriver(device_count=2, paced=False), 2,
+        SimpleConfig(width=64, height=48, fps=60, pixel_format=PixelFormat.YUYV),
+        filter="blur_sobel", overlay=True, device_sim=True, device="cpu",
+    )
+    res = eng.tick(rects=np.array([[4, 4, 20, 10]] * 2, np.int32),
+                   rect_colors=np.array([[0, 255, 0]] * 2, np.uint8), block=True)
+    assert res.numpy("bgr").shape == (2, 48, 64, 3)
+    assert res.numpy("filtered").shape == (2, 48, 64)
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "PIL" or m.startswith("PIL.")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    # rustcv_tpu's package __init__ loads core and version, nothing more
+    jax_side = [m for m in sys.modules if m.startswith("rustcv_tpu.")
+                and not m.startswith(("rustcv_tpu.core", "rustcv_tpu.version"))]
+    assert not jax_side, jax_side
+    print("OK")
+    """
+)
+
+
+def test_port_imports_and_ticks_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_package_import_is_light():
+    """``import rustcv_tpu_torch`` alone loads neither torch nor jax."""
+    script = (
+        "import sys; sys.modules['jax'] = None; import rustcv_tpu_torch; "
+        "import rustcv_tpu_torch.capture; "
+        "assert 'torch' not in sys.modules, 'torch imported'; print('OK')"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
