@@ -3,22 +3,40 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-The main path is the headline tick: 8 simulated streams of 1920×1080 YUYV
-through ``MultiStreamEngine(device_sim=True, filter="blur_sobel",
-overlay=True)``, in each of its three decode modes (default, and
-``RUSTCV_DECODE=pallas`` / ``pallas_tick``). Phases:
+Three paths, each driven with the launch counts set to 0 just before it
+and read just after:
+
+* the headline tick: 8 simulated streams of 1920×1080 YUYV through
+  ``MultiStreamEngine(device_sim=True, filter="blur_sobel", overlay=True)``
+  in each of its three decode modes (default, and ``RUSTCV_DECODE=pallas``
+  / ``pallas_tick``): K1, K4, K5;
+* BASELINE config 4, Harris corners + NMS on one 1920×1080 YUYV stream,
+  through ``rustcv_tpu_torch.models.get_model("config4_harris_1080p")
+  .engine()``, as its ``harris`` mask and as ``harris_points`` corner
+  lists, in the default and ``pallas`` modes: the Harris kernel's int32
+  form (K6), and K4 under ``pallas``;
+* config 4's response surface: ``ops.features.harris_response`` (the
+  float32 API behind ``cv2.cornerHarris``) on the stream's frames: the
+  Harris kernel's float32 form (K6 proper).
+
+Phases:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
    and the build of the CUDA kernels from ``rustcv_tpu_torch/csrc``;
-2. each kernel (K1 stencil, K4 decode+interleave, K5 fused tick) against
-   its plain PyTorch version on the card, bit-exact, at 8×1920×1080 and at
-   small ragged shapes, with rectangles across tiles and the frame edge;
-3. the engine for 20 ticks in each decode mode, every output identical to
-   a plain engine's (``stencil_impl="xla"``) on the card, the first and
-   last ticks identical to the plain pipeline on the CPU fed by the host
-   frame generator, and every kernel launched by that run;
-4. ms/tick (CUDA events) and frames/s per mode, and each kernel's time
-   beside its plain version's at 8×1920×1080.
+2. each kernel (K1 stencil, K4 decode+interleave, K5 fused tick, both
+   Harris forms) against its plain PyTorch version on the card, at
+   8×1920×1080 and at small ragged shapes: bit-exact, except the float32
+   Harris response, within rtol 2e-4, atol 1e-6;
+3. the paths for 20 ticks (frames) each: the headline engine in every
+   decode mode identical to a plain engine's (``stencil_impl="xla"``) on
+   the card; config 4's masks and corner lists identical to the plain
+   functions on the same frames on the card; the first and last ticks of
+   both identical to the plain pipeline on the CPU fed by the host frame
+   generator; and every kernel launched by its path;
+4. ms/tick (CUDA events) and frames/s per mode for both engines, config
+   4's device time per tick and idle share (profiler), and each kernel's
+   time beside its plain version's at 8×1920×1080 (the Harris forms at
+   1×1920×1080 too).
 
 It imports no jax and, of the JAX package, only what the port shares
 (``rustcv_tpu.core``, through ``rustcv_tpu_torch.core``). Any mismatch or
@@ -41,6 +59,13 @@ N, W, H = 8, 1920, 1080
 RECT, COLOR, THICKNESS = (100, 100, 400, 300), (0, 255, 0), 2  # bench.py's overlay
 TICKS = 20
 MODES = ("default", "pallas", "pallas_tick")
+C4 = "config4_harris_1080p"
+# pallas_tick runs the plain decode for the Harris filters (K5 serves
+# blur_sobel only), so it is the default path again.
+C4_MODES = ("default", "pallas")
+C4_FILTERS = ("harris", "harris_points")
+HARRIS_TOL = {"rtol": 2e-4, "atol": 1e-6}  # the reference's, tests/test_pallas_harris.py
+PROFILE_TICKS = 20
 
 KERNELS = {  # name → (source, the Pallas kernel it replaces: file:line of pallas_call)
     "blur_sobel_mag": ("rustcv_tpu_torch/csrc/stencil.cu",
@@ -49,7 +74,12 @@ KERNELS = {  # name → (source, the Pallas kernel it replaces: file:line of pal
                                "rustcv_tpu/ops/pallas/decode_interleave.py:217"),
     "yuyv_tick_fused": ("rustcv_tpu_torch/csrc/yuyv_tick.cu",
                         "rustcv_tpu/ops/pallas/tick_fused.py:250"),
+    "harris_response_f32": ("rustcv_tpu_torch/csrc/harris.cu",
+                            "rustcv_tpu/ops/pallas/harris.py:138"),
+    "harris_response_i32": ("rustcv_tpu_torch/csrc/harris.cu",
+                            "rustcv_tpu/ops/pallas/harris.py:138"),
 }
+HEADLINE_KERNELS = ("blur_sobel_mag", "yuyv_decode_interleave", "yuyv_tick_fused")
 
 
 class SmokeFailure(Exception):
@@ -100,11 +130,17 @@ def overlay_args(w, h, n, dev, rng):
     return rects, colors
 
 
+def harris_f32_errs(got, want) -> tuple:
+    """Max abs and max rel difference of two float32 responses."""
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff / want.abs().clamp_min(1e-30)).max())
+
+
 def check_kernels(dev) -> dict:
     """Phase 2: every kernel vs its plain version on the card."""
     import torch
 
-    from rustcv_tpu_torch.ops.kernels import decode_interleave, stencil, tick_fused
+    from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
 
     errs = {name: 0 for name in KERNELS}
     for (w, h, n) in ((W, H, N), (130, 50, 3), (64, 48, 2), (2, 1, 1)):
@@ -123,11 +159,20 @@ def check_kernels(dev) -> dict:
             got = tick_fused.yuyv_tick_fused(*args)
             want = tick_fused.yuyv_tick_fused_plain(*args)
             e["yuyv_tick_fused"] = max(e.get("yuyv_tick_fused", 0), *map(max_abs_err, got, want))
+        e["harris_response_i32"] = max(
+            max_abs_err(harris.harris_response_i32(gray, k_num),
+                        harris.harris_response_i32_plain(gray, k_num)) for k_num in (41, 61))
+        got, want = harris.harris_response(gray), harris.harris_response_plain(gray)
+        e["harris_response_f32"], rel = harris_f32_errs(got, want)
         torch.cuda.synchronize()
-        print(f"kernels vs plain at N={n} {w}x{h}: max|diff| {e}", flush=True)
+        print(f"kernels vs plain at N={n} {w}x{h}: max|diff| {e}; float32 Harris max rel "
+              f"diff {rel:.3e}, bit-identical {torch.equal(got, want)}", flush=True)
+        expect(torch.allclose(got, want, **HARRIS_TOL),
+               f"float32 Harris at N={n} {w}x{h} outside rtol 2e-4, atol 1e-6")
         for name, v in e.items():
             errs[name] = max(errs[name], v)
-    expect(all(v == 0 for v in errs.values()), f"kernel disagrees with its plain version: {errs}")
+    exact = {k: v for k, v in errs.items() if k != "harris_response_f32"}
+    expect(all(v == 0 for v in exact.values()), f"kernel disagrees with its plain version: {errs}")
     return errs
 
 
@@ -150,7 +195,7 @@ def bench_overlay():
     return rects, colors
 
 
-def host_reference(seq: int):
+def host_reference(seq: int, filt: str = "blur_sobel", overlay: bool = True):
     """The plain pipeline on the CPU, fed the host generator's frame."""
     import torch
 
@@ -159,7 +204,7 @@ def host_reference(seq: int):
     from rustcv_tpu_torch.runtime.pipeline import PipelineSpec, get_pipeline
 
     set_mode("default")
-    fn = get_pipeline(PipelineSpec(PixelFormat.YUYV, W, H, filter="blur_sobel", overlay=True))
+    fn = get_pipeline(PipelineSpec(PixelFormat.YUYV, W, H, filter=filt, overlay=overlay))
     raw = torch.from_numpy(synth_raw(W, H, PixelFormat.YUYV, seq))[None]
     rects, colors = bench_overlay()
     return fn(raw, torch.from_numpy(rects[:1]), torch.from_numpy(colors[:1]), THICKNESS)
@@ -216,8 +261,109 @@ def run_main_path() -> dict:
     expect(per_mode["pallas"]["blur_sobel_mag"] > 0, "pallas mode never ran the stencil kernel")
     expect(per_mode["pallas"]["yuyv_decode_interleave"] > 0, "pallas mode never ran K4")
     expect(per_mode["pallas_tick"]["yuyv_tick_fused"] > 0, "pallas_tick mode never ran K5")
-    expect(all(v > 0 for v in totals.values()), f"a kernel of the path never launched: {totals}")
+    expect(all(totals[k] > 0 for k in HEADLINE_KERNELS),
+           f"a kernel of the path never launched: {totals}")
     return totals
+
+
+def make_c4(mode: str, filt: str = "harris"):
+    """Config 4's engine through the zoo, as a user builds it."""
+    from rustcv_tpu_torch.models import get_model
+
+    set_mode(mode)
+    return get_model(C4).engine(filter=filt)
+
+
+def plain_c4(raw, filt: str) -> dict:
+    """Config 4's outputs by the plain functions (no kernel) on raw's device."""
+    from rustcv_tpu_torch.ops import color, features
+    from rustcv_tpu_torch.ops.kernels import harris
+    from rustcv_tpu_torch.runtime.pipeline import HARRIS_POINTS
+
+    resp = harris.harris_response_i32_plain(color.yuyv_to_gray(raw, W, H))
+    mask = features._corner_mask(resp, 0.01, 1)
+    if filt == "harris":
+        return {"filtered": mask}
+    corners, valid = features._top_corners(resp, mask, HARRIS_POINTS)
+    return {"corners": corners, "corners_valid": valid}
+
+
+def run_config4() -> dict:
+    """Phase 3b: config 4 through the zoo in each of its modes, its mask and
+    its corner lists; returns the path's launches."""
+    import torch
+
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import kernels, synth
+
+    host = {}
+    kernels.reset_launch_counts()  # config 4's path starts here
+    for filt in C4_FILTERS:
+        for mode in C4_MODES:
+            before = kernels.launch_counts()
+            eng = make_c4(mode, filt)
+            expect(eng.n == 1 and (eng.spec.width, eng.spec.height) == (W, H), "config 4's shape")
+            found = 0
+            for t in range(TICKS):
+                res = eng.tick()
+                seqs = torch.from_numpy(res.sequences.astype(np.int32)).to(res.outputs["bgr"].device)
+                want = plain_c4(synth.synth_raw(seqs, W, H, PixelFormat.YUYV), filt)
+                for key, v in want.items():
+                    expect(torch.equal(res.outputs[key], v),
+                           f"config 4 {filt} mode {mode} tick {t}: {key} differs from the plain "
+                           "functions on the same frame")
+                found += int(want["filtered" if filt == "harris" else "corners_valid"].sum())
+                if t in (0, TICKS - 1):
+                    seq = int(res.sequences[0])
+                    if (filt, seq) not in host:
+                        host[filt, seq] = host_reference(seq, filt, overlay=False)
+                    for key in ("bgr", *want):
+                        expect(torch.equal(res.outputs[key].cpu(), host[filt, seq][key]),
+                               f"config 4 {filt} mode {mode} tick {t}: {key} differs from the "
+                               "host generator + CPU pipeline")
+            torch.cuda.synchronize()
+            eng.close()
+            expect(found > 0, f"config 4 {filt} mode {mode} found no corner in {TICKS} frames")
+            after = kernels.launch_counts()
+            per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            expect(per.get("harris_response_i32", 0) > 0, f"{filt} mode {mode} never ran Harris")
+            if mode == "pallas":
+                expect(per.get("yuyv_decode_interleave", 0) > 0, f"{filt} mode pallas never ran K4")
+            print(f"config 4 {filt} mode {mode}: {TICKS} ticks identical to the plain functions "
+                  f"(ticks 0 and {TICKS - 1} to the CPU pipeline); {found} corners; "
+                  f"launches {per}", flush=True)
+    return kernels.launch_counts()  # read just after config 4's run
+
+
+def run_response_surface(dev) -> dict:
+    """Phase 3c: the float32 response of config 4's frames, one frame per
+    call, each within tolerance of the plain version; returns the path's
+    launches."""
+    import torch
+
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import color, features, kernels, synth
+    from rustcv_tpu_torch.ops.kernels import harris
+
+    frames = color.yuyv_to_gray(
+        synth.synth_raw(torch.arange(TICKS, dtype=torch.int32, device=dev), W, H,
+                        PixelFormat.YUYV), W, H)
+    kernels.reset_launch_counts()  # the response-surface path starts here
+    got = [features.harris_response(frames[i]) for i in range(TICKS)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()  # read just after
+    worst = (0.0, 0.0)
+    for i, r in enumerate(got):
+        want = harris.harris_response_plain(frames[i])
+        expect(r.shape == (H, W) and r.dtype == torch.float32 and bool(r.isfinite().all()),
+               f"response {i}: {tuple(r.shape)} {r.dtype}")
+        expect(torch.allclose(r, want, **HARRIS_TOL), f"response {i} outside rtol 2e-4, atol 1e-6")
+        worst = max(worst, harris_f32_errs(r, want))
+    expect(counts["harris_response_f32"] == TICKS, f"response surface launches {counts}")
+    print(f"response surface: {TICKS} frames within tolerance of the plain version "
+          f"(max abs {worst[0]:.3e}, rel {worst[1]:.3e}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return counts
 
 
 def time_engines() -> dict:
@@ -243,12 +389,110 @@ def time_engines() -> dict:
     return result
 
 
-def time_kernels() -> dict:
-    """Phase 4b: each kernel and its plain version at 8×1920×1080, in turns
-    (plain, kernel, kernel, plain); returns name → (kernel ms, plain ms)."""
+def time_config4() -> dict:
+    """Phase 4b: config 4's ms/tick (CUDA events) and frames/s per mode and
+    filter, in two rounds of opposite order."""
+    order = [(filt, mode) for filt in C4_FILTERS for mode in C4_MODES]
+    result = {key: [] for key in order}
+    for rnd in (order, order[::-1]):
+        for filt, mode in rnd:
+            eng = make_c4(mode, filt)
+            for _ in range(5):
+                eng.tick()
+            ms = cuda_ms(eng.tick, 50)
+            stats = eng.run(50, warmup=2, measure_latency=False)
+            eng.close()
+            result[filt, mode].append({"ms_per_tick": ms, "fps_events": 1e3 / ms,
+                                       "fps_run": stats.fps_total})
+    for (filt, mode), runs in result.items():
+        print(f"config 4 {filt} mode {mode}: " + "; ".join(
+            f"{r['ms_per_tick']:.4f} ms/tick, {r['fps_events']:.1f} frames/s (events), "
+            f"{r['fps_run']:.1f} frames/s (run)" for r in runs), flush=True)
+    return result
+
+
+def _merged_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def time_config4_stages() -> None:
+    """Phase 4c: config 4's stages alone at 1 × 1920×1080 (CUDA events, 20
+    calls each): what each costs in a tick whose host issues every op."""
     import torch
 
-    from rustcv_tpu_torch.ops.kernels import decode_interleave, stencil, tick_fused
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import color, features, kernels, synth
+    from rustcv_tpu_torch.runtime.pipeline import HARRIS_POINTS
+
+    seqs = torch.zeros(1, dtype=torch.int32, device="cuda")
+    raw = synth.synth_raw(seqs, W, H, PixelFormat.YUYV)
+    gray = color.yuyv_to_gray(raw, W, H)
+    resp = kernels.harris_response_i32(gray)
+    mask = features._corner_mask(resp, 0.01, 1)
+    stages = {
+        "plain synth": lambda: synth.synth_raw(seqs, W, H, PixelFormat.YUYV),
+        "plain yuyv_to_bgr_packed": lambda: color.yuyv_to_bgr_packed(raw, W, H),
+        "plain yuyv_to_gray": lambda: color.yuyv_to_gray(raw, W, H),
+        "K4 decode+gray": lambda: kernels.yuyv_decode_interleave(raw, W, H),
+        "Harris kernel (int32)": lambda: kernels.harris_response_i32(gray),
+        "corner mask (threshold + NMS)": lambda: features._corner_mask(resp, 0.01, 1),
+        "top-K corners": lambda: features._top_corners(resp, mask, HARRIS_POINTS),
+    }
+    print("config 4 stages alone at N=1 1920x1080: " + "; ".join(
+        f"{name} {cuda_ms(fn, 20):.4f} ms" for name, fn in stages.items()), flush=True)
+
+
+def profile_config4() -> None:
+    """Phase 4d: config 4's device time per tick against the host's, per
+    mode (torch.profiler over PROFILE_TICKS steady ticks)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for mode in C4_MODES:
+        eng = make_c4(mode)
+        for _ in range(5):
+            eng.tick()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_TICKS):
+                eng.tick()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        eng.close()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not kern:
+            print(f"config 4 mode {mode}: the profiler saw no device time (not measured)", flush=True)
+            continue
+        busy = _merged_us((e.time_range.start, e.time_range.end) for e in kern)
+        harris_us = sum(e.time_range.end - e.time_range.start for e in kern
+                        if "harris_kernel" in e.name)
+        print(f"config 4 mode {mode} (profiler, {PROFILE_TICKS} ticks): host {wall_us / PROFILE_TICKS / 1e3:.4f}"
+              f" ms/tick, device busy {busy / PROFILE_TICKS / 1e3:.4f} ms/tick "
+              f"({len(kern) / PROFILE_TICKS:.1f} kernels/tick), Harris kernel "
+              f"{harris_us / PROFILE_TICKS / 1e3:.4f} ms/tick, device idle {1 - busy / wall_us:.1%}",
+              flush=True)
+        ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                     key=lambda e: -e.self_device_time_total)[:6]
+        print("  busiest ops (own device time per tick, calls per tick): " + "; ".join(
+            f"{e.key} {e.self_device_time_total / PROFILE_TICKS / 1e3:.4f} ms, "
+            f"{e.count / PROFILE_TICKS:g}" for e in ops), flush=True)
+
+
+def time_kernels() -> dict:
+    """Phase 4e: each kernel and its plain version at 8×1920×1080 (the
+    Harris forms at 1×1920×1080 too), in turns (plain, kernel, kernel,
+    plain); returns name → (kernel ms, plain ms) at the main path's shape."""
+    import torch
+
+    from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -257,20 +501,28 @@ def time_kernels() -> dict:
     rects = torch.tensor([RECT] * N, dtype=torch.int32, device=dev)
     colors = torch.tensor([COLOR] * N, dtype=torch.uint8, device=dev)
     args = (src, W, H, rects, colors, THICKNESS, True)
-    pairs = {
-        "blur_sobel_mag": (lambda: stencil.blur_sobel_mag(gray),
-                           lambda: stencil.blur_sobel_mag_plain(gray)),
-        "yuyv_decode_interleave": (lambda: decode_interleave.yuyv_decode_interleave(*args),
-                                   lambda: decode_interleave.yuyv_decode_interleave_plain(*args)),
-        "yuyv_tick_fused": (lambda: tick_fused.yuyv_tick_fused(*args),
-                            lambda: tick_fused.yuyv_tick_fused_plain(*args)),
-    }
+    one = gray[:1].contiguous()  # config 4 gives the Harris kernel one 1080p frame per tick
+    pairs = [  # (name, N, kernel, plain); a kernel's first row is its main path's shape
+        ("blur_sobel_mag", N, lambda: stencil.blur_sobel_mag(gray),
+         lambda: stencil.blur_sobel_mag_plain(gray)),
+        ("yuyv_decode_interleave", N, lambda: decode_interleave.yuyv_decode_interleave(*args),
+         lambda: decode_interleave.yuyv_decode_interleave_plain(*args)),
+        ("yuyv_tick_fused", N, lambda: tick_fused.yuyv_tick_fused(*args),
+         lambda: tick_fused.yuyv_tick_fused_plain(*args)),
+    ]
+    for g in (one, gray):
+        pairs += [
+            ("harris_response_f32", g.shape[0], lambda g=g: harris.harris_response(g),
+             lambda g=g: harris.harris_response_plain(g)),
+            ("harris_response_i32", g.shape[0], lambda g=g: harris.harris_response_i32(g),
+             lambda g=g: harris.harris_response_i32_plain(g)),
+        ]
     times = {}
-    for name, (kern, plain) in pairs.items():
+    for name, n, kern, plain in pairs:
         p1, k1, k2, p2 = (cuda_ms(plain, 10), cuda_ms(kern, 50), cuda_ms(kern, 50),
                           cuda_ms(plain, 10))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"{name} at N={N} {W}x{H}: kernel {k1:.4f} / {k2:.4f} ms, "
+        times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
+        print(f"{name} at N={n} {W}x{H}: kernel {k1:.4f} / {k2:.4f} ms, "
               f"plain {p1:.4f} / {p2:.4f} ms", flush=True)
     return times
 
@@ -303,8 +555,15 @@ def main() -> int:
     dev = torch.device("cuda")
     try:
         errs = check_kernels(dev)
-        launches = run_main_path()
+        launches = {name: 0 for name in KERNELS}
+        for path in (run_main_path, run_config4, lambda: run_response_surface(dev)):
+            for name, count in path().items():
+                launches[name] += count
+        expect(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
         time_engines()
+        time_config4()
+        time_config4_stages()
+        profile_config4()
         times = time_kernels()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

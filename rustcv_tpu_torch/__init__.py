@@ -1,7 +1,7 @@
 """rustcv_tpu_torch — the PyTorch/CUDA port of :mod:`rustcv_tpu`.
 
 The JAX package ``rustcv_tpu`` stays the reference; this package mirrors its
-module names (``capture``, ``ops``, ``runtime``) and computes the same bytes
+module names (``capture``, ``models``, ``ops``, ``runtime``) and computes the same bytes
 with PyTorch for the glue and hand-written CUDA kernels (``csrc/``) where the
 reference used Pallas. It shares ``rustcv_tpu.core`` (configs, pixel formats,
 errors, frames), which is numpy-only, and imports nothing else of the JAX
@@ -14,12 +14,12 @@ Importing this package is light: no torch and no kernel build until a
 submodule that needs them is used.
 """
 
-__all__ = ["capture", "core", "ops", "runtime"]
+__all__ = ["capture", "core", "models", "ops", "runtime"]
 
 
 def __getattr__(name):
     import importlib
 
-    if name in ("capture", "core", "ops", "runtime"):
+    if name in __all__:
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

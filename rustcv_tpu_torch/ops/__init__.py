@@ -1,7 +1,7 @@
 """Device ops of the port (PyTorch): frame synthesis, YUYV colour, the
-blur/Sobel filters, the rectangle overlay, and the CUDA kernels in
-:mod:`.kernels`."""
+blur/Sobel and Canny filters, Harris corners, the rectangle overlay, and
+the CUDA kernels in :mod:`.kernels`."""
 
-from . import color, draw, filters, kernels, synth
+from . import color, draw, features, filters, kernels, synth
 
-__all__ = ["color", "draw", "filters", "kernels", "synth"]
+__all__ = ["color", "draw", "features", "filters", "kernels", "synth"]

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``rustcv_tpu_torch/csrc``).
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and links the objects into one
 shared library with a plain C interface, which is loaded with ``ctypes``
 (no PyTorch headers, so the build takes seconds). The library is cached in
 ``build/rustcv_tpu_torch/`` beside the package, under a name made from a
@@ -20,23 +21,25 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "rustcv_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C function → argument types (pointers and the stream as c_void_p).
 _SIGNATURES = {
     "rcv_blur_sobel_mag": (_P, _P, _I, _I, _I, _P),
     "rcv_yuyv_decode_interleave": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
     "rcv_yuyv_tick_fused": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
+    "rcv_harris_response_f32": (_P, _P, _I, _I, _I, _F, _P),
+    "rcv_harris_response_i32": (_P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -70,19 +73,36 @@ def _compile() -> Path:
         build_info.update(path=str(lib_path), seconds=0.0, log="(cached)")
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            procs = list(pool.map(_run, compiles))  # one nvcc per source, in parallel
+        procs.append(_run(link))
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    log = "\n".join(p.stderr for p in procs)
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
-    build_info.update(path=str(lib_path), seconds=seconds, log=proc.stderr)
+    build_info.update(path=str(lib_path), seconds=seconds, log=log)
     return lib_path
+
+
+def _run(cmd) -> subprocess.CompletedProcess:
+    """Run one nvcc command; raise with its output if it fails."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    return proc
 
 
 def library() -> ctypes.CDLL:

@@ -172,8 +172,7 @@ class MultiStreamEngine:
                         out[key] = torch.empty((self.n, *v.shape[1:]), dtype=v.dtype,
                                                device=v.device)
                     out[key][lo:lo + sub].copy_(v)
-            probe = out["bgr"] if "bgr" in out else out["filtered"]
-            out["_sync"] = probe.reshape(-1)[:1]
+            out["_sync"] = next(iter(out.values())).reshape(-1)[:1]  # the pipeline's probe
         # Self-advancing stream clock: the next tick takes this as input.
         out["_next_seqs"] = seqs + 1
         return out

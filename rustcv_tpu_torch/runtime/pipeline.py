@@ -8,6 +8,8 @@ as the CUDA kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
 
 * ``stencil_impl`` ``"pallas"``, ``"pallas_v1"`` or ``"pallas_v2"`` runs the
   blur_sobel filter as the stencil kernel (K1); ``"xla"`` runs the plain chain.
+* ``harris`` and ``harris_points`` run the Harris kernel (K6, int32 form)
+  for the response, then the plain threshold, NMS and top-K.
 * ``RUSTCV_DECODE=pallas`` decodes with the fused decode+overlay kernel (K4)
   for the gray filters; ``RUSTCV_DECODE=pallas_tick`` runs the whole
   blur_sobel tick as one kernel (K5). Unset or ``xla``: the plain decode.
@@ -28,11 +30,15 @@ from rustcv_tpu.core.pixel_format import PixelFormat
 
 from ..ops import color as _color
 from ..ops import draw as _draw
+from ..ops import features as _features
 from ..ops import filters as _filters
 from ..ops import kernels as _kernels
 
 STENCIL_IMPLS = ("xla", "pallas", "pallas_v1", "pallas_v2")
-FILTERS = ("none", "gaussian", "sobel_mag", "blur_sobel")
+FILTERS = ("none", "gaussian", "sobel_mag", "blur_sobel", "canny", "harris", "harris_points")
+# Filters that read the gray plane, which K4 emits beside the BGR image.
+GRAY_FILTERS = ("sobel_mag", "blur_sobel", "canny", "harris", "harris_points")
+HARRIS_POINTS = 256  # corners per stream of the harris_points filter
 
 
 @dataclass(frozen=True)
@@ -44,7 +50,7 @@ class PipelineSpec:
     width: int
     height: int
     resize_to: Optional[Tuple[int, int]] = None  # (w, h) after convert
-    filter: str = "none"  # none | gaussian | sobel_mag | blur_sobel
+    filter: str = "none"  # one of FILTERS
     overlay: bool = False  # rectangle overlay on the BGR output
     emit_bgr: bool = True  # return the BGR image
     emit_filtered: bool = True  # return the filter output (if any)
@@ -78,8 +84,6 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
     if spec.encode_jpeg or spec.encode_packed:
         raise not_ported("encode_jpeg")
     if spec.filter not in FILTERS:
-        if spec.filter in ("canny", "harris", "harris_points"):
-            raise not_ported(f"filter {spec.filter!r}")
         raise ValueError(f"unknown filter {spec.filter!r}")
     if spec.stencil_impl not in STENCIL_IMPLS:
         raise ValueError(f"unknown stencil_impl {spec.stencil_impl!r}")
@@ -92,7 +96,7 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
 def _build(spec: PipelineSpec, mode: str):
     _check_ported(spec, mode)
     w, h = spec.width, spec.height
-    fused_decode = mode == "pallas" and spec.filter in ("sobel_mag", "blur_sobel")
+    fused_decode = mode == "pallas" and spec.filter in GRAY_FILTERS
     fused_tick = (
         mode == "pallas_tick" and spec.filter == "blur_sobel"
         and spec.emit_bgr and spec.emit_filtered
@@ -127,6 +131,10 @@ def _build(spec: PipelineSpec, mode: str):
                 filtered = _filters.blur_sobel_mag_u8(gray_plane())
             else:
                 filtered = _kernels.blur_sobel_mag(gray_plane())
+        elif spec.filter == "canny":
+            filtered = _filters.canny_u8(gray_plane())
+        elif spec.filter == "harris":
+            filtered = _features.harris_corners(gray_plane())
         else:
             filtered = None
 
@@ -137,11 +145,16 @@ def _build(spec: PipelineSpec, mode: str):
             out["bgr"] = bgr
         if spec.emit_filtered and filtered is not None:
             out["filtered"] = filtered
+        if spec.filter == "harris_points":
+            # Fixed-size top-K corners + validity per stream (no mask).
+            out["corners"], out["corners_valid"] = _features.harris_corner_list(
+                gray_plane(), max_corners=HARRIS_POINTS)
         if not out:
             raise ValueError("the spec emits no output (emit_bgr=False and no filter)")
-        # One-element completion token: fetching it waits for the tick.
-        probe = out["bgr"] if spec.emit_bgr else out["filtered"]
-        out["_sync"] = probe.reshape(-1)[:1]
+        # One-element completion token: fetching it waits for the tick. The
+        # probe is the first output, as the reference picks it: bgr, else
+        # filtered, else the corners.
+        out["_sync"] = next(iter(out.values())).reshape(-1)[:1]
         return out
 
     return run

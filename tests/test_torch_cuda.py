@@ -1,10 +1,13 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version on the same CUDA tensors, bit-exact, and the engine's
-decode modes against each other.
+PyTorch version on the same CUDA tensors (bit-exact; the float32 Harris
+response within the reference's rtol 2e-4, atol 1e-6), and the engine's
+decode modes against each other and against the CPU.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -12,8 +15,9 @@ import torch
 
 from rustcv_tpu.core import PixelFormat, SimpleConfig
 from rustcv_tpu_torch.capture import SimulationDriver
+from rustcv_tpu_torch.models import get_model
 from rustcv_tpu_torch.ops import kernels
-from rustcv_tpu_torch.ops.kernels import decode_interleave, stencil, tick_fused
+from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
 from rustcv_tpu_torch.runtime import MultiStreamEngine
 
 pytestmark = pytest.mark.cuda
@@ -51,7 +55,45 @@ def test_kernels_match_plain_versions(cuda, w, h, n):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
-        "blur_sobel_mag": 1, "yuyv_decode_interleave": 2, "yuyv_tick_fused": 2}
+        "blur_sobel_mag": 1, "yuyv_decode_interleave": 2, "yuyv_tick_fused": 2,
+        "harris_response_f32": 0, "harris_response_i32": 0}
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 48, 64), (3, 50, 130), (1, 1, 2), (1, 2, 1),
+                                   (1, 5, 5), (1, 33, 31), (8, 1080, 1920)])
+def test_harris_kernel_matches_plain_versions(cuda, n, h, w):
+    gray = torch.from_numpy(np.random.default_rng(h * w).integers(0, 256, (n, h, w), np.uint8)).to(cuda)
+    kernels.reset_launch_counts()
+    for k_num in (41, 61):
+        assert torch.equal(harris.harris_response_i32(gray, k_num),
+                           harris.harris_response_i32_plain(gray, k_num))
+    for k in (0.04, 0.06):
+        torch.testing.assert_close(harris.harris_response(gray, k),
+                                   harris.harris_response_plain(gray, k), rtol=2e-4, atol=1e-6)
+    # a 2-D image is one plane
+    assert torch.equal(harris.harris_response_i32(gray[0]), harris.harris_response_i32_plain(gray[0]))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["harris_response_i32"], counts["harris_response_f32"]) == (3, 2)
+
+
+@pytest.mark.parametrize("filt", ["harris", "harris_points", "canny"])
+def test_config4_engine_on_the_card_matches_the_cpu(cuda, monkeypatch, filt):
+    model = dataclasses.replace(get_model("config4_harris_1080p"), width=160, height=120,
+                                n_streams=2)
+    keys = ("filtered",) if filt != "harris_points" else ("corners", "corners_valid")
+    results = {}
+    for mode in ("xla", "pallas"):
+        monkeypatch.setenv("RUSTCV_DECODE", mode)
+        for dev in ("cpu", cuda):
+            eng = model.engine(device=dev, filter=filt)
+            res = [eng.tick(block=True) for _ in range(3)]
+            results[mode, str(dev)] = [[r.numpy(k) for k in keys] for r in res]
+    ref = results["xla", "cpu"]
+    for key, ticks in results.items():
+        for got, want in zip(ticks, ref):
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b, err_msg=str(key))
 
 
 def test_misaligned_words_are_refused(cuda):

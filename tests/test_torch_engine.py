@@ -1,27 +1,33 @@
 """The port's MultiStreamEngine (device="cpu") against the JAX engine,
-tick for tick and bit-exact: decode modes, stencil implementations,
-sub-batching, the overlay cache, the frame pool, and state carried across
-the two packages.
+tick for tick and bit-exact: decode modes, stencil implementations, the
+Canny and Harris filters, sub-batching, the overlay cache, the frame pool,
+the model zoo, and state carried across the two packages.
 
 RUSTCV_DECODE is set on both engines with monkeypatch. The JAX package's
 get_pipeline is cached by spec alone and reads the variable only when it
 builds, so its cache is cleared whenever the variable changes here; the
 port's get_pipeline keys its cache by the mode as well."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import rustcv_tpu.models as jax_models
 import rustcv_tpu.runtime.pipeline as jax_pipeline
 from rustcv_tpu.capture import SimulationDriver as JaxDriver
 from rustcv_tpu.core import PixelFormat, SimpleConfig
 from rustcv_tpu.runtime import MultiStreamEngine as JaxEngine
+from rustcv_tpu_torch import models
 from rustcv_tpu_torch.capture import SimulationDriver
 from rustcv_tpu_torch.ops import kernels
 from rustcv_tpu_torch.runtime import MultiStreamEngine
 from rustcv_tpu_torch.runtime import pipeline as port_pipeline
 
 torch.set_num_threads(2)
+
+OUTPUTS = ("bgr", "filtered", "corners", "corners_valid")
 
 
 def _cfg(w, h, fmt=PixelFormat.YUYV):
@@ -50,7 +56,7 @@ def _ticks(eng, k, rects=None, colors=None):
     out = []
     for _ in range(k):
         res = eng.tick(rects=rects, rect_colors=colors, block=True)
-        out.append({key: res.numpy(key) for key in ("bgr", "filtered") if key in res.outputs}
+        out.append({key: res.numpy(key) for key in OUTPUTS if key in res.outputs}
                    | {"seqs": np.asarray(res.sequences)})
     return out
 
@@ -116,6 +122,41 @@ def test_other_filters_match_jax(jax_cpu, monkeypatch, filt, mode):
                  _ticks(_jax(64, 48, 2, **kw), 2, rects, colors))
 
 
+@pytest.mark.parametrize("filt", ["canny", "harris", "harris_points"])
+@pytest.mark.parametrize("mode", [None, "pallas", "pallas_tick"])
+def test_feature_filters_match_jax(jax_cpu, monkeypatch, filt, mode):
+    """Under pallas the gray comes from K4; under pallas_tick (K5 serves
+    blur_sobel only) from the plain decode, as in the reference."""
+    _set_mode(monkeypatch, mode)
+    rects, colors = _overlay(2, seed=8)
+    kw = dict(filter=filt, overlay=True)
+    port = _ticks(_port(64, 48, 2, **kw), 3, rects, colors)
+    _assert_same(port, _ticks(_jax(64, 48, 2, **kw), 3, rects, colors))
+    if filt == "harris_points":
+        assert port[0]["corners"].shape == (2, 256, 2) and port[0]["corners"].dtype == np.int32
+        assert port[0]["corners_valid"].shape == (2, 256) and port[0]["corners_valid"].any()
+        assert "filtered" not in port[0]
+    else:
+        assert port[0]["filtered"].shape == (2, 48, 64)
+
+
+@pytest.mark.parametrize("filt", ["harris", "harris_points"])
+def test_feature_filters_in_sub_batches_without_bgr(jax_cpu, monkeypatch, filt):
+    """emit_bgr=False leaves no bgr to probe for the _sync token: the probe
+    is the first output (filtered, or the corners), in the pipeline and in
+    the sub-batch loop alike."""
+    _set_mode(monkeypatch, None)
+    kw = dict(filter=filt, emit_bgr=False)
+    port = _port(64, 48, 4, sub_batch=2, **kw)
+    res = port.tick(block=True)
+    first = "filtered" if filt == "harris" else "corners"
+    assert next(iter(res.outputs)) == first and "bgr" not in res.outputs
+    assert torch.equal(res.outputs["_sync"], res.outputs[first].reshape(-1)[:1])
+    ref = _jax(64, 48, 4, sub_batch=2, **kw)
+    _assert_same([_ticks(port, 2)[-1]], [_ticks(ref, 3)[-1]])
+    _assert_same(_ticks(_port(64, 48, 4, **kw), 3), _ticks(_jax(64, 48, 4, **kw), 3))
+
+
 def test_sub_batch_matches_monolithic_and_jax(jax_cpu, monkeypatch):
     _set_mode(monkeypatch, None)
     rects, colors = _overlay(4, seed=4)
@@ -153,11 +194,12 @@ def test_overlay_cache_uploads_again_after_a_rect_change(jax_cpu, monkeypatch):
     assert port._overlay_cache[1][0] is again
 
 
+@pytest.mark.parametrize("filt", ["blur_sobel", "harris"])
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
-def test_state_carries_across_packages(jax_cpu, monkeypatch, direction):
+def test_state_carries_across_packages(jax_cpu, monkeypatch, direction, filt):
     _set_mode(monkeypatch, None)
     rects, colors = _overlay(3, seed=6)
-    kw = dict(filter="blur_sobel", overlay=True)
+    kw = dict(filter=filt, overlay=True)
     first, second = (_jax, _port) if direction == "jax_to_port" else (_port, _jax)
     a = first(64, 48, 3, **kw)
     _ticks(a, 2, rects, colors)
@@ -233,8 +275,12 @@ def _decode_xla_fused(monkeypatch):
         pytest.param(lambda mp: _port(64, 48, 1).run_encoded(4), id="run_encoded"),
         pytest.param(lambda mp: _port(64, 48, 1).stream_encoded(4), id="stream_encoded"),
         pytest.param(_decode_xla_fused, id="xla_fused"),
-        pytest.param(lambda mp: _port(64, 48, 1, filter="canny"), id="canny"),
-        pytest.param(lambda mp: _port(64, 48, 1, filter="harris"), id="harris"),
+        pytest.param(lambda mp: MultiStreamEngine(
+            SimulationDriver(device_count=1, paced=False), 1,
+            _cfg(64, 48, PixelFormat.UYVY), device_sim=True, device="cpu"), id="uyvy"),
+        pytest.param(lambda mp: MultiStreamEngine(
+            SimulationDriver(device_count=1, paced=False), 1,
+            _cfg(64, 48, PixelFormat.BGRA32), device_sim=True, device="cpu"), id="bgra32"),
         pytest.param(lambda mp: MultiStreamEngine(
             SimulationDriver(device_count=1, paced=False), 1,
             _cfg(64, 48, PixelFormat.NV12), device_sim=True, device="cpu"), id="nv12"),
@@ -243,3 +289,50 @@ def _decode_xla_fused(monkeypatch):
 def test_unported_specs_raise(monkeypatch, make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make(monkeypatch)
+
+
+def _small(model, w=160, h=120, n=2):
+    return dataclasses.replace(model, width=w, height=h, n_streams=n)
+
+
+def test_config4_through_the_zoo_matches_jax(jax_cpu, monkeypatch):
+    """Config 4 at 160×120 with 2 streams, 3 ticks, both zoos; then a port
+    engine rebuilt from the JAX engine's export_state() continues it."""
+    _set_mode(monkeypatch, None)
+    port_model = _small(models.get_model("config4_harris_1080p"))
+    jax_model = _small(jax_models.get_model("config4_harris_1080p"))
+    ref_eng = jax_model.engine()
+    ref = _ticks(ref_eng, 3)
+    port = port_model.engine(device="cpu")
+    assert port.spec.filter == "harris" and port._sub_batch is None
+    _assert_same(_ticks(port, 3), ref)
+    resumed = MultiStreamEngine.from_state(ref_eng.export_state(), device="cpu")
+    assert resumed.spec.filter == "harris"
+    _assert_same(_ticks(resumed, 2), _ticks(ref_eng, 2))
+
+
+def test_zoo_models_match_the_reference():
+    assert list(models.MODELS) == list(jax_models.MODELS)
+    for name, ref in jax_models.MODELS.items():
+        port = models.get_model(name)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
+    with pytest.raises(KeyError, match="unknown model"):
+        models.get_model("config9")
+
+
+@pytest.mark.parametrize("name", ["config1_convert_overlay", "config3_blur_sobel_4k",
+                                  "config4_harris_1080p", "config5_end_to_end_4k"])
+def test_zoo_raw_models_build_their_engines(name):
+    model = models.get_model(name)
+    small = _small(model, 64, 48, n=2 * model.sub_batch if model.sub_batch else 1)
+    with small.engine(device="cpu") as eng:
+        assert (eng.spec.filter, eng.spec.overlay) == (model.filter, model.overlay)
+        assert eng._sub_batch == model.sub_batch  # the reference passes it as is
+        out = eng.tick(block=True).outputs
+        assert "bgr" in out and ("filtered" in out) == (model.filter != "none")
+
+
+@pytest.mark.parametrize("name", ["config2_mjpeg_resize", "config6_transcode"])
+def test_zoo_unported_models_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        models.get_model(name).engine(device="cpu")

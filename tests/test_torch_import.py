@@ -1,4 +1,5 @@
-"""The PyTorch port imports and ticks with jax and Pillow absent.
+"""The PyTorch port imports and ticks (the headline and config 4 through
+the zoo) with jax and Pillow absent.
 
 A GPU machine that runs the port need have neither package, so the port
 and the part of ``rustcv_tpu`` it shares (``rustcv_tpu.core``) must not need
@@ -35,6 +36,12 @@ _SCRIPT = textwrap.dedent(
                    rect_colors=np.array([[0, 255, 0]] * 2, np.uint8), block=True)
     assert res.numpy("bgr").shape == (2, 48, 64, 3)
     assert res.numpy("filtered").shape == (2, 48, 64)
+    import dataclasses
+    from rustcv_tpu_torch.models import get_model
+    model = dataclasses.replace(get_model("config4_harris_1080p"), width=64, height=48)
+    for filt in ("harris", "harris_points", "canny"):
+        res = model.engine(device="cpu", filter=filt).tick(block=True)
+        assert res.outputs["_sync"].numel() == 1
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "PIL" or m.startswith("PIL.")
            if sys.modules[m] is not None]

@@ -1,6 +1,9 @@
 """The port's kernel modules on the CPU: each wrapper's plain version (what
-a CPU tensor runs) against the JAX package's Pallas kernels K1–K5, run as
-that package's own tests run them here (interpret mode), bit-exact.
+a CPU tensor runs) against the JAX package's Pallas kernels K1–K6, run as
+that package's own tests run them here (interpret mode): bit-exact for
+K1–K5, and for K6's float32 response within the reference's tolerance
+(rtol 2e-4, atol 1e-6). K6's int32 form has no Pallas twin; it is held
+bit-exact against the frozen oracle ``golden.harris_response_i32``.
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
 and chip_smoke.py compare them with these plain versions there)."""
@@ -13,13 +16,16 @@ import torch
 from rustcv_tpu.ops import color as JC
 from rustcv_tpu.ops import draw as JD
 from rustcv_tpu.ops import filters as JF
+from rustcv_tpu.ops import golden
+from rustcv_tpu.ops.pallas.harris import harris_response_pallas
 from rustcv_tpu.ops.pallas.decode_interleave import yuyv_decode_interleave as j_decode
 from rustcv_tpu.ops.pallas.stencil import blur_sobel_mag_pallas
 from rustcv_tpu.ops.pallas.stencil_v2 import blur_sobel_mag_pallas_v2
 from rustcv_tpu.ops.pallas.stencil_v3 import blur_sobel_mag_pallas_v3
 from rustcv_tpu.ops.pallas.tick_fused import yuyv_tick_fused as j_tick
+from rustcv_tpu_torch.ops import filters as TF
 from rustcv_tpu_torch.ops import kernels
-from rustcv_tpu_torch.ops.kernels import decode_interleave, stencil, tick_fused
+from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
 
 torch.set_num_threads(2)
 
@@ -115,14 +121,48 @@ def test_ragged_height_matches_xla_fallback(jax_cpu, w, h):
     _eq(gray, ref_gray, "decode gray")
 
 
+@pytest.mark.parametrize("w,h", [(64, 48), (130, 100), (256, 135), (128, 6), (5, 2), (1, 1)])
+def test_harris_plain_matches_pallas_and_golden(jax_cpu, w, h):
+    """Tiny and ragged shapes too: the window replicates the products, not
+    the gray, at every edge and at a partial last tile."""
+    gray = np.random.default_rng(w * h).integers(0, 256, (2, h, w), np.uint8)
+    f32 = harris.harris_response(torch.from_numpy(gray))
+    assert f32.dtype == torch.float32
+    ref = harris_response_pallas(jnp.asarray(gray), tile_rows=32)
+    np.testing.assert_allclose(f32.numpy(), np.asarray(ref), rtol=2e-4, atol=1e-6)
+    i32 = harris.harris_response_i32(torch.from_numpy(gray), 41)
+    _eq(i32, np.stack([golden.harris_response_i32(g, 41) for g in gray]))
+    # a 2-D image is one plane
+    _eq(harris.harris_response_i32(torch.from_numpy(gray[1])), i32[1].numpy())
+    _eq(harris.harris_response(torch.from_numpy(gray[1])), f32[1].numpy())
+
+
+def test_harris_i32_wraps_like_int32_tensors():
+    """A large k_num overflows the last step; the plain version (and the
+    kernel, in unsigned arithmetic) wraps as int32 tensors do."""
+    gray = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (1, 24, 40), np.uint8))
+    got = harris.harris_response_i32(gray, 100_000).long()
+    gx, gy = (g.long() for g in TF.sobel3_gray(gray))
+    s5 = [((TF._taps(TF._taps(m, 2, TF.GAUSS5, 2), 1, TF.GAUSS5, 2) + 128) >> 8) >> 5
+          for m in (gx * gx, gy * gy, gx * gy)]
+    det = s5[0] * s5[1] - s5[2] * s5[2]
+    exact = det - 100_000 * ((((s5[0] + s5[1]) >> 1) ** 2) >> 8)
+    wrapped = (exact + 2**31) % 2**32 - 2**31
+    assert torch.equal(got, wrapped)
+    assert not torch.equal(exact, wrapped)  # the case does overflow
+
+
 def test_cpu_wrappers_count_no_launch():
     kernels.reset_launch_counts()
     src, rects, colors = _inputs(64, 48, 2, seed=0)
     kernels.yuyv_tick_fused(*_t(src), 64, 48, *_t(rects, colors), 2, overlay=True)
     kernels.yuyv_decode_interleave(*_t(src), 64, 48, *_t(rects, colors), 2, overlay=True)
     kernels.blur_sobel_mag(torch.zeros((1, 8, 8), dtype=torch.uint8))
+    kernels.harris_response(torch.zeros((1, 8, 8), dtype=torch.uint8))
+    kernels.harris_response_i32(torch.zeros((8, 8), dtype=torch.uint8))
     assert kernels.launch_counts() == {
-        "blur_sobel_mag": 0, "yuyv_decode_interleave": 0, "yuyv_tick_fused": 0}
+        "blur_sobel_mag": 0, "yuyv_decode_interleave": 0, "yuyv_tick_fused": 0,
+        "harris_response_f32": 0, "harris_response_i32": 0}
 
 
 def _src(w=64, h=48, n=2):
@@ -146,6 +186,16 @@ _C = torch.zeros((2, 3), dtype=torch.uint8)
                      id="stencil-2d"),
         pytest.param(lambda: kernels.blur_sobel_mag(torch.zeros((0, 8, 8), dtype=torch.uint8)),
                      id="stencil-empty"),
+        pytest.param(lambda: kernels.harris_response(torch.zeros((1, 8, 8), dtype=torch.int32)),
+                     id="harris-dtype"),
+        pytest.param(lambda: kernels.harris_response_i32(torch.zeros((1, 1, 8, 8), dtype=torch.uint8)),
+                     id="harris-rank"),
+        pytest.param(lambda: kernels.harris_response_i32(torch.zeros((8, 8, 2), dtype=torch.uint8)[..., 0]),
+                     id="harris-noncontiguous"),
+        pytest.param(lambda: kernels.harris_response(torch.zeros((0, 8, 8), dtype=torch.uint8)),
+                     id="harris-empty"),
+        pytest.param(lambda: kernels.harris_response_i32(torch.zeros((1, 8, 8), dtype=torch.uint8),
+                                                         2**31), id="harris-k_num"),
         pytest.param(lambda: kernels.yuyv_decode_interleave(_src(63), 63, 48), id="odd-width"),
         pytest.param(lambda: kernels.yuyv_decode_interleave(_src(), 64, 47), id="size-mismatch"),
         pytest.param(lambda: kernels.yuyv_decode_interleave(_src().float(), 64, 48), id="src-dtype"),
