@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Three paths, each driven with the launch counts set to 0 just before it
+Five paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -17,36 +17,52 @@ and read just after:
   form (K6), and K4 under ``pallas``;
 * config 4's response surface: ``ops.features.harris_response`` (the
   float32 API behind ``cv2.cornerHarris``) on the stream's frames: the
-  Harris kernel's float32 form (K6 proper).
+  Harris kernel's float32 form (K6 proper);
+* the Mosaic lane-shuffle probe through its entry point
+  (``rustcv_tpu_torch.probes.mosaic_shuffle``): its 13 cases (K7);
+* config 6, the MJPEG-out transcode: 8 × 1920×1080 YUYV → 640×480,
+  blur/Sobel, overlay and a q85 4:2:0 JPEG per stream, through
+  ``get_model("config6_transcode").engine().stream_encoded()``, in the
+  default and ``pallas`` modes (K1; K4 and K5 do not run with a resize).
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
-   and the build of the CUDA kernels from ``rustcv_tpu_torch/csrc``;
+   the build of the CUDA kernels from ``rustcv_tpu_torch/csrc`` and of the
+   shared C++ coder ``rustcv_tpu.native`` (g++);
 2. each kernel (K1 stencil, K4 decode+interleave, K5 fused tick, both
    Harris forms) against its plain PyTorch version on the card, at
    8×1920×1080 and at small ragged shapes: bit-exact, except the float32
-   Harris response, within rtol 2e-4, atol 1e-6;
+   Harris response, within rtol 2e-4, atol 1e-6; each K7 case: kernel,
+   plain version and the case's numpy ref, exact;
 3. the paths for 20 ticks (frames) each: the headline engine in every
    decode mode identical to a plain engine's (``stencil_impl="xla"``) on
    the card; config 4's masks and corner lists identical to the plain
-   functions on the same frames on the card; the first and last ticks of
-   both identical to the plain pipeline on the CPU fed by the host frame
-   generator; and every kernel launched by its path;
-4. ms/tick (CUDA events) and frames/s per mode for both engines, config
-   4's device time per tick and idle share (profiler), and each kernel's
-   time beside its plain version's at 8×1920×1080 (the Harris forms at
-   1×1920×1080 too).
+   functions on the same frames on the card; config 6's images and
+   coefficients identical to a plain engine's on the card; the first and
+   last ticks of all three identical to the plain pipeline on the CPU fed
+   by the host frame generator (config 6's coefficients within the
+   reference's tolerance, max |diff| <= 1 on < 0.5 %); config 6's JPEG
+   payloads entropy-decode (``native.jpeg_entropy_decode``: Huffman coding
+   is lossless, and the card's machine has no Pillow) to the card's
+   coefficients and quant tables, and packed and dense payloads are the
+   same bytes; and every kernel launched by its path;
+4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
+   delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
+   time per tick and idle share (profiler), and each kernel's time beside
+   its plain version's at 8×1920×1080 (K1 at 8×640×480, the Harris forms
+   at 1×1920×1080 too; K7 as its 13 cases per call).
 
 It imports no jax and, of the JAX package, only what the port shares
-(``rustcv_tpu.core``, through ``rustcv_tpu_torch.core``). Any mismatch or
-error exits non-zero before the last line; the last line is the JSON
-verdict, and the line before it the JSON list of kernels with their
-launches, errors and times.
+(``rustcv_tpu.core``, through ``rustcv_tpu_torch.core``, and the C++
+coder ``rustcv_tpu.native``). Any mismatch or error exits non-zero before
+the last line; the last line is the JSON verdict, and the line before it
+the JSON list of kernels with their launches, errors and times.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,6 +82,12 @@ C4_MODES = ("default", "pallas")
 C4_FILTERS = ("harris", "harris_points")
 HARRIS_TOL = {"rtol": 2e-4, "atol": 1e-6}  # the reference's, tests/test_pallas_harris.py
 PROFILE_TICKS = 20
+C6 = "config6_transcode"
+C6_W, C6_H = 640, 480  # config 6's resize_to
+# pallas_tick and pallas decode at the input size: with a resize and an
+# encode both run the default path, so one kernel mode is driven.
+C6_MODES = ("default", "pallas")
+ENC_KEYS = ("enc_y", "enc_cb", "enc_cr")
 
 KERNELS = {  # name → (source, the Pallas kernel it replaces: file:line of pallas_call)
     "blur_sobel_mag": ("rustcv_tpu_torch/csrc/stencil.cu",
@@ -78,6 +100,7 @@ KERNELS = {  # name → (source, the Pallas kernel it replaces: file:line of pal
                             "rustcv_tpu/ops/pallas/harris.py:138"),
     "harris_response_i32": ("rustcv_tpu_torch/csrc/harris.cu",
                             "rustcv_tpu/ops/pallas/harris.py:138"),
+    "mosaic_shuffle": ("rustcv_tpu_torch/csrc/mosaic_shuffle.cu", "probe_mosaic_shuffle.py:166"),
 }
 HEADLINE_KERNELS = ("blur_sobel_mag", "yuyv_decode_interleave", "yuyv_tick_fused")
 
@@ -366,6 +389,168 @@ def run_response_surface(dev) -> dict:
     return counts
 
 
+def build_native() -> None:
+    """Phase 1b: build (g++) or load the shared C++ coder; config 6 cannot
+    finish its payloads without it."""
+    t0 = time.perf_counter()
+    from rustcv_tpu import native
+
+    ok = native.available()
+    print(f"native coder {'built or loaded' if ok else 'UNAVAILABLE'} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    expect(ok, f"rustcv_tpu.native is unavailable: {native.build_error()}")
+
+
+def run_mosaic_probe(dev) -> tuple:
+    """Phase 2b and K7's path: the probe's entry point runs every case on
+    the card (kernel vs plain version vs ref, exact); returns the path's
+    launches and the kernels' max |diff| from their plain versions."""
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.probes import mosaic_shuffle as probe
+
+    kernels.reset_launch_counts()  # K7's path starts here
+    rc = probe.main([])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()  # read just after
+    expect(rc == 0, "a Mosaic probe case mismatched")
+    expect(counts["mosaic_shuffle"] == len(probe.PROBES), f"K7 launches {counts}")
+    err = 0
+    for name in probe.PROBES:
+        r = probe.run_case(name, dev)
+        err = max(err, int(np.abs(r["kernel"].astype(np.int64) - r["plain"].astype(np.int64)).max()))
+    print(f"Mosaic probe: {len(probe.PROBES)} cases exact (kernel, plain, ref); max|diff| "
+          f"kernel vs plain {err}; launches {counts['mosaic_shuffle']}", flush=True)
+    return {k: v for k, v in counts.items() if k == "mosaic_shuffle"}, err
+
+
+def make_c6(mode: str, **overrides):
+    """Config 6's engine through the zoo, as a user builds it."""
+    from rustcv_tpu_torch.models import get_model
+
+    set_mode(mode)
+    return get_model(C6).engine(**overrides)
+
+
+def c6_host_reference(spec, seq: int):
+    """Config 6's plain pipeline on the CPU, fed the host generator's frame."""
+    import torch
+
+    from rustcv_tpu_torch.capture.simulation import synth_raw
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.runtime.pipeline import get_pipeline
+
+    set_mode("default")
+    fn = get_pipeline(dataclasses.replace(spec, stencil_impl="xla"))
+    raw = torch.from_numpy(synth_raw(spec.width, spec.height, PixelFormat.YUYV, seq))[None]
+    rects, colors = bench_overlay()
+    return fn(raw, torch.from_numpy(rects[:1]), torch.from_numpy(colors[:1]), THICKNESS)
+
+
+def coeff_diff(got, want) -> tuple:
+    """Max |diff| and the share of coefficients that differ."""
+    d = (got.to("cpu").int() - want.to("cpu").int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def check_payloads(eng, res, payloads) -> None:
+    """Every stream's JFIF decodes to the tick's coefficients and the q85
+    tables, and the dense coder makes the same bytes as the packed one."""
+    from rustcv_tpu import native
+    from rustcv_tpu_torch.ops.jpeg_encode import quant_tables
+
+    expect(len(payloads) == N, f"{len(payloads)} payloads for {N} streams")
+    coeffs = [res.outputs[k].cpu().numpy() for k in ENC_KEYS]
+    qts = quant_tables(85)
+    for i, p in enumerate(payloads):
+        info, dec, qt = native.jpeg_entropy_decode(p)
+        expect((info["width"], info["height"], info["ncomp"]) == (C6_W, C6_H, 3), f"JFIF {info}")
+        for c in range(3):
+            expect(np.array_equal(dec[c].reshape(-1, 64), coeffs[c][i]),
+                   f"stream {i} component {c}: the payload does not decode to the coefficients")
+            expect(np.array_equal(qt[c].reshape(-1), qts[min(c, 1)]), "quant tables differ")
+    expect(eng._encode_from_host(*coeffs) == payloads, "packed and dense payloads differ")
+
+
+def run_config6() -> dict:
+    """Phase 3d: config 6 through the zoo, its delivery path
+    (``stream_encoded``) in each mode; returns the path's launches."""
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    rects, colors = bench_overlay()
+    plain = make_c6("default", stencil_impl="xla")
+    kernels.reset_launch_counts()
+    ref = []
+    for _ in range(TICKS):
+        out = plain.tick(rects=rects, rect_colors=colors, thickness=THICKNESS).outputs
+        ref.append({k: v for k, v in out.items() if not k.startswith("_")})
+    torch.cuda.synchronize()
+    expect(sum(kernels.launch_counts().values()) == 0, "config 6's plain engine launched a kernel")
+    spec = plain.spec
+    plain.close()
+    # 4:2:0 at 640×480: 4,800 + 1,200 + 1,200 blocks, 450 dense rows, and a
+    # blob of 275,404 B per stream (idx, val, ids, rows, count).
+    nbt = (C6_W // 8) * (C6_H // 8) * 3 // 2
+    cap = min(nbt, max(128, nbt // 16))
+    expect((spec.resize_to, spec.encode_jpeg, spec.encode_packed, spec.encode_dense_cap)
+           == ((C6_W, C6_H), 85, 10, cap), f"config 6's spec {spec}")
+    shapes = {k: tuple(v.shape) for k, v in ref[0].items()}
+    expect(shapes["bgr"] == (N, C6_H, 3 * C6_W) and shapes["filtered"] == (N, C6_H, C6_W)
+           and shapes["enc_y"] == (N, nbt * 2 // 3, 64)
+           and shapes["enc_blob"] == (N, nbt * 30 + cap * 132 + 4),
+           f"config 6 output shapes {shapes}")
+    host = {t: (s, c6_host_reference(spec, t)) for t, s in ((0, 0), (TICKS - 1, N - 1))}
+
+    kernels.reset_launch_counts()  # config 6's path starts here
+    for mode in C6_MODES:
+        before = kernels.launch_counts()
+        eng = make_c6(mode)
+        expect(eng.spec == dataclasses.replace(spec, stencil_impl="pallas"),
+               f"config 6's engine in mode {mode}: {eng.spec}")
+        worst = (0, 0.0)
+        busy = []  # blocks with more than K nonzeros, per stream and tick
+        for t, (res, payloads) in enumerate(eng.stream_encoded(
+                max_ticks=TICKS, rects=rects, rect_colors=colors, thickness=THICKNESS)):
+            expect(res.tick_index == t and int(res.sequences[0]) == t, f"tick {res.tick_index}")
+            busy += res.outputs["enc_ndense"].tolist()
+            for key, want in ref[t].items():
+                if not torch.equal(res.outputs[key], want):
+                    if key in ENC_KEYS:
+                        print(f"config 6 mode {mode} tick {t} {key}: max|diff| and share "
+                              f"{coeff_diff(res.outputs[key], want)}", flush=True)
+                    raise SmokeFailure(f"config 6 mode {mode} tick {t}: {key} differs from the "
+                                       "plain engine")
+            if t in host:
+                s, cpu = host[t]
+                for key in ("bgr", "filtered"):
+                    expect(torch.equal(res.outputs[key][s:s + 1].cpu(), cpu[key]),
+                           f"config 6 mode {mode} tick {t} stream {s}: {key} differs from the "
+                           "host generator + CPU pipeline")
+                for key in ENC_KEYS:
+                    d = coeff_diff(res.outputs[key][s:s + 1], cpu[key])
+                    worst = max(worst, d)
+                    expect(d[0] <= 1 and d[1] < 5e-3, f"config 6 mode {mode} tick {t} {key}: "
+                           f"max|diff| {d[0]}, share {d[1]:.2e} from the CPU pipeline")
+                check_payloads(eng, res, payloads)
+        torch.cuda.synchronize()
+        eng.close()
+        after = kernels.launch_counts()
+        per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        expect(per.get("blur_sobel_mag", 0) > 0, f"config 6 mode {mode} never ran K1")
+        expect(not per.get("yuyv_decode_interleave") and not per.get("yuyv_tick_fused"),
+               f"config 6 mode {mode} ran a fused decode: {per}")
+        print(f"config 6 mode {mode}: {TICKS} ticks identical to the plain engine (ticks 0 and "
+              f"{TICKS - 1}: images identical to the CPU pipeline, coefficients max|diff| "
+              f"{worst[0]}, share {worst[1]:.2e}; payloads decode to the coefficients, packed == "
+              f"dense); over-capacity ticks {eng.encode_dense_fallbacks} (busy blocks per stream "
+              f"{min(busy)}-{max(busy)}, dense rows {spec.encode_dense_cap}); launches {per}",
+              flush=True)
+    return kernels.launch_counts()  # read just after config 6's run
+
+
 def time_engines() -> dict:
     """Phase 4a: ms/tick (CUDA events) and frames/s per mode, plain engine
     included, in two rounds of opposite order."""
@@ -448,51 +633,147 @@ def time_config4_stages() -> None:
         f"{name} {cuda_ms(fn, 20):.4f} ms" for name, fn in stages.items()), flush=True)
 
 
-def profile_config4() -> None:
-    """Phase 4d: config 4's device time per tick against the host's, per
-    mode (torch.profiler over PROFILE_TICKS steady ticks)."""
+def profile_ticks(label: str, tick, kernel: str, kernel_label: str) -> None:
+    """Device time per tick against the host's over PROFILE_TICKS steady
+    calls of ``tick`` (torch.profiler), and the device time of the kernels
+    whose name holds ``kernel``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(5):
+        tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_TICKS):
+            tick()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        print(f"{label}: the profiler saw no device time (not measured)", flush=True)
+        return
+    busy = _merged_us((e.time_range.start, e.time_range.end) for e in kern)
+    kernel_us = sum(e.time_range.end - e.time_range.start for e in kern if kernel in e.name)
+    print(f"{label} (profiler, {PROFILE_TICKS} ticks): host {wall_us / PROFILE_TICKS / 1e3:.4f}"
+          f" ms/tick, device busy {busy / PROFILE_TICKS / 1e3:.4f} ms/tick "
+          f"({len(kern) / PROFILE_TICKS:.1f} kernels/tick), {kernel_label} "
+          f"{kernel_us / PROFILE_TICKS / 1e3:.4f} ms/tick, device idle {1 - busy / wall_us:.1%}",
+          flush=True)
+    ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    print("  busiest ops (own device time per tick, calls per tick): " + "; ".join(
+        f"{e.key} {e.self_device_time_total / PROFILE_TICKS / 1e3:.4f} ms, "
+        f"{e.count / PROFILE_TICKS:g}" for e in ops), flush=True)
+
+
+def profile_config4() -> None:
+    """Phase 4d: config 4's device time per tick against the host's, per mode."""
     for mode in C4_MODES:
         eng = make_c4(mode)
-        for _ in range(5):
-            eng.tick()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_TICKS):
-                eng.tick()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        profile_ticks(f"config 4 mode {mode}", eng.tick, "harris_kernel", "Harris kernel")
         eng.close()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kern:
-            print(f"config 4 mode {mode}: the profiler saw no device time (not measured)", flush=True)
-            continue
-        busy = _merged_us((e.time_range.start, e.time_range.end) for e in kern)
-        harris_us = sum(e.time_range.end - e.time_range.start for e in kern
-                        if "harris_kernel" in e.name)
-        print(f"config 4 mode {mode} (profiler, {PROFILE_TICKS} ticks): host {wall_us / PROFILE_TICKS / 1e3:.4f}"
-              f" ms/tick, device busy {busy / PROFILE_TICKS / 1e3:.4f} ms/tick "
-              f"({len(kern) / PROFILE_TICKS:.1f} kernels/tick), Harris kernel "
-              f"{harris_us / PROFILE_TICKS / 1e3:.4f} ms/tick, device idle {1 - busy / wall_us:.1%}",
-              flush=True)
-        ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
-                     key=lambda e: -e.self_device_time_total)[:6]
-        print("  busiest ops (own device time per tick, calls per tick): " + "; ".join(
-            f"{e.key} {e.self_device_time_total / PROFILE_TICKS / 1e3:.4f} ms, "
-            f"{e.count / PROFILE_TICKS:g}" for e in ops), flush=True)
+
+
+def time_config6() -> dict:
+    """Phase 4e: config 6's ms/tick (CUDA events, 50 steady ticks) and its
+    delivered JPEG frames/s and payload MB/tick (``run_encoded(50)``: frames
+    whose bytes reached the host), its own engine beside a plain one
+    (``stencil_impl="xla"``), in two rounds of opposite order."""
+    rects, colors = bench_overlay()
+    order = [("plain", "xla"), ("default", None)]
+    result = {name: [] for name, _ in order}
+    for rnd in (order, order[::-1]):
+        for name, impl in rnd:
+            eng = make_c6("default", stencil_impl=impl)
+            for _ in range(5):
+                eng.tick(rects=rects, rect_colors=colors, thickness=THICKNESS)
+            ms = cuda_ms(lambda: eng.tick(rects=rects, rect_colors=colors, thickness=THICKNESS), 50)
+            stats, mb = eng.run_encoded(50, warmup=2, rects=rects, rect_colors=colors)
+            result[name].append({"ms_per_tick": ms, "fps_events": N * 1e3 / ms,
+                                 "fps_delivered": stats.fps_total, "mb_per_tick": mb,
+                                 "over_capacity": eng.encode_dense_fallbacks})
+            eng.close()
+    for name, runs in result.items():
+        print(f"config 6 {name}: " + "; ".join(
+            f"{r['ms_per_tick']:.4f} ms/tick, {r['fps_events']:.1f} frames/s (events), "
+            f"{r['fps_delivered']:.1f} JPEG frames/s delivered, {r['mb_per_tick']:.6f} MB/tick "
+            f"payload, {r['over_capacity']} over-capacity ticks" for r in runs), flush=True)
+    return result
+
+
+def time_config6_stages() -> None:
+    """Phase 4f: config 6's stages alone at 8 × 1920×1080 → 640×480 (CUDA
+    events, 20 calls each), and the host coder per tick (host clock)."""
+    import torch
+
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import color, draw, jpeg_encode, kernels, resize, synth
+
+    dev = torch.device("cuda")
+    seqs = torch.zeros(N, dtype=torch.int32, device=dev)
+    raw = synth.synth_raw(seqs, W, H, PixelFormat.YUYV)
+    bgr = color.yuyv_to_bgr_packed(raw, W, H)
+    small = resize.resize_bilinear_packed(bgr, W, H, C6_W, C6_H)
+    hwc = small.reshape(N, C6_H, C6_W, 3)
+    gray = color.bgr_to_gray_packed_rows(small, C6_W, C6_H)
+    rects = torch.tensor([RECT] * N, dtype=torch.int32, device=dev)
+    colors = torch.tensor([COLOR] * N, dtype=torch.uint8, device=dev)
+    coeffs = jpeg_encode.encode_coeffs(hwc, 85)
+    allc = torch.cat(coeffs, dim=-2)
+    eng = make_c6("default")
+    k, cap = eng.spec.encode_packed, eng.spec.encode_dense_cap
+    packed = jpeg_encode.pack_coeff_rows(allc, k, cap)
+    stages = {
+        "plain synth": lambda: synth.synth_raw(seqs, W, H, PixelFormat.YUYV),
+        "plain yuyv_to_bgr_packed": lambda: color.yuyv_to_bgr_packed(raw, W, H),
+        "resize to 640x480": lambda: resize.resize_bilinear_packed(bgr, W, H, C6_W, C6_H),
+        "gray of the resized image": lambda: color.bgr_to_gray_packed_rows(small, C6_W, C6_H),
+        "K1": lambda: kernels.blur_sobel_mag(gray),
+        "overlay": lambda: draw.rectangle_packed(small, rects, colors, THICKNESS),
+        "encode (colour, subsample, DCT, quantize)": lambda: jpeg_encode.encode_coeffs(hwc, 85),
+        "block pack": lambda: jpeg_encode.pack_coeff_rows(allc, k, cap),
+        "blob": lambda: jpeg_encode.blob_from_packed(*packed),
+    }
+    print(f"config 6 stages alone at N={N} {W}x{H} -> {C6_W}x{C6_H}: " + "; ".join(
+        f"{name} {cuda_ms(fn, 20):.4f} ms" for name, fn in stages.items()), flush=True)
+    dense = [c.cpu().numpy() for c in coeffs]
+    host = [a.cpu().numpy() for a in packed[:4]]
+    # The packed rows of an over-capacity tick lack blocks: their bytes
+    # are not a frame, only the coder's time is read.
+    coders = {"dense": lambda: eng._encode_from_host(*dense),
+              "packed": lambda: eng._encode_from_host_packed(*host)}
+    for name, fn in coders.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        print(f"config 6 host coder, {N} streams from {name} rows: "
+              f"{(time.perf_counter() - t0) / 5 * 1e3:.4f} ms/tick", flush=True)
+    eng.close()
+
+
+def profile_config6() -> None:
+    """Phase 4f: config 6's device time per tick against the host's."""
+    rects, colors = bench_overlay()
+    eng = make_c6("default")
+    profile_ticks("config 6 mode default",
+                  lambda: eng.tick(rects=rects, rect_colors=colors, thickness=THICKNESS),
+                  "blur_sobel_kernel", "K1")
+    eng.close()
 
 
 def time_kernels() -> dict:
-    """Phase 4e: each kernel and its plain version at 8×1920×1080 (the
-    Harris forms at 1×1920×1080 too), in turns (plain, kernel, kernel,
-    plain); returns name → (kernel ms, plain ms) at the main path's shape."""
+    """Phase 4g: each kernel and its plain version at 8×1920×1080 (K1 at
+    config 6's 8×640×480 too, the Harris forms at 1×1920×1080 too, K7 as
+    its 13 cases per call), in turns (plain, kernel, kernel, plain);
+    returns name → (kernel ms, plain ms) at the main path's shape."""
     import torch
 
-    from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
+    from rustcv_tpu_torch.ops.kernels import (decode_interleave, harris, mosaic_shuffle,
+                                              stencil, tick_fused)
+    from rustcv_tpu_torch.probes.mosaic_shuffle import PROBES
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -502,27 +783,37 @@ def time_kernels() -> dict:
     colors = torch.tensor([COLOR] * N, dtype=torch.uint8, device=dev)
     args = (src, W, H, rects, colors, THICKNESS, True)
     one = gray[:1].contiguous()  # config 4 gives the Harris kernel one 1080p frame per tick
-    pairs = [  # (name, N, kernel, plain); a kernel's first row is its main path's shape
-        ("blur_sobel_mag", N, lambda: stencil.blur_sobel_mag(gray),
+    vga = gray[:, :C6_H, :C6_W].contiguous()  # config 6's resized gray
+    k7_inputs = {name: [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in p.inputs()]
+                 for name, p in PROBES.items()}
+    pairs = [  # (name, shape, kernel, plain); a kernel's first row is its main path's shape
+        ("blur_sobel_mag", f"N={N} {W}x{H}", lambda: stencil.blur_sobel_mag(gray),
          lambda: stencil.blur_sobel_mag_plain(gray)),
-        ("yuyv_decode_interleave", N, lambda: decode_interleave.yuyv_decode_interleave(*args),
+        ("blur_sobel_mag", f"N={N} {C6_W}x{C6_H}", lambda: stencil.blur_sobel_mag(vga),
+         lambda: stencil.blur_sobel_mag_plain(vga)),
+        ("yuyv_decode_interleave", f"N={N} {W}x{H}",
+         lambda: decode_interleave.yuyv_decode_interleave(*args),
          lambda: decode_interleave.yuyv_decode_interleave_plain(*args)),
-        ("yuyv_tick_fused", N, lambda: tick_fused.yuyv_tick_fused(*args),
+        ("yuyv_tick_fused", f"N={N} {W}x{H}", lambda: tick_fused.yuyv_tick_fused(*args),
          lambda: tick_fused.yuyv_tick_fused_plain(*args)),
     ]
     for g in (one, gray):
         pairs += [
-            ("harris_response_f32", g.shape[0], lambda g=g: harris.harris_response(g),
+            ("harris_response_f32", f"N={g.shape[0]} {W}x{H}", lambda g=g: harris.harris_response(g),
              lambda g=g: harris.harris_response_plain(g)),
-            ("harris_response_i32", g.shape[0], lambda g=g: harris.harris_response_i32(g),
+            ("harris_response_i32", f"N={g.shape[0]} {W}x{H}",
+             lambda g=g: harris.harris_response_i32(g),
              lambda g=g: harris.harris_response_i32_plain(g)),
         ]
+    pairs.append(("mosaic_shuffle", f"its {len(PROBES)} cases",
+                  lambda: [mosaic_shuffle.mosaic_shuffle(k, *v) for k, v in k7_inputs.items()],
+                  lambda: [mosaic_shuffle.mosaic_shuffle_plain(k, *v) for k, v in k7_inputs.items()]))
     times = {}
-    for name, n, kern, plain in pairs:
+    for name, shape, kern, plain in pairs:
         p1, k1, k2, p2 = (cuda_ms(plain, 10), cuda_ms(kern, 50), cuda_ms(kern, 50),
                           cuda_ms(plain, 10))
         times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
-        print(f"{name} at N={n} {W}x{H}: kernel {k1:.4f} / {k2:.4f} ms, "
+        print(f"{name} at {shape}: kernel {k1:.4f} / {k2:.4f} ms, "
               f"plain {p1:.4f} / {p2:.4f} ms", flush=True)
     return times
 
@@ -553,18 +844,32 @@ def main() -> int:
             print("  ptxas: " + line.strip(), flush=True)
 
     dev = torch.device("cuda")
+
+    def done(phase: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] {phase} done", flush=True)
+
     try:
+        build_native()
         errs = check_kernels(dev)
+        k7_launches, errs["mosaic_shuffle"] = run_mosaic_probe(dev)
+        done("phases 1-2")
         launches = {name: 0 for name in KERNELS}
-        for path in (run_main_path, run_config4, lambda: run_response_surface(dev)):
+        for path in (run_main_path, run_config4, lambda: run_response_surface(dev),
+                     lambda: k7_launches, run_config6):
             for name, count in path().items():
                 launches[name] += count
         expect(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+        done("phase 3")
         time_engines()
         time_config4()
         time_config4_stages()
         profile_config4()
+        done("phase 4, headline and config 4")
+        time_config6()
+        time_config6_stages()
+        profile_config6()
         times = time_kernels()
+        done("phase 4")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

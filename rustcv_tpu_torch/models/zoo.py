@@ -9,11 +9,14 @@ BASELINE.json "configs" (quoted in SURVEY.md §6):
 5. End-to-end 8-stream pipeline at 4K: capture-sim → decode → convert →
    filter → overlay, sustained multi-batch throughput.
 
-The six models carry the reference's field values. Configs 1, 3, 4 and 5
-run; 2 (MJPEG decode) and 6 (resize + JPEG encode) raise
-``NotImplementedError`` until ROADMAP queue 1 items 11 and 12 are ported.
+The six models carry the reference's field values. Configs 1, 3, 4, 5
+and 6 (8 × 1080p → 640×480, blur/Sobel, overlay and a q85 JPEG encode per
+stream) run; 2 (MJPEG decode) raises ``NotImplementedError`` until ROADMAP
+queue 1 items 11 and 12 are ported.
 
     eng = get_model("config4_harris_1080p").engine(device="cuda")
+    eng = get_model("config6_transcode").engine(device="cuda")
+    for res, jpegs in eng.stream_encoded(max_ticks=100): ...
 """
 
 from __future__ import annotations
@@ -58,14 +61,13 @@ class PipelineModel:
 
         if self.pixel_format == PixelFormat.MJPEG:
             raise not_ported(f"model {self.name}: MJPEG decode (item 12)")
-        if self.encode_jpeg_quality:
-            raise not_ported(f"model {self.name}: the fused JPEG encode (item 12)")
         if driver is None:
             driver = SimulationDriver(device_count=self.n_streams, paced=False)
         kwargs = dict(
             filter=self.filter,
             resize_to=self.resize_to,
             overlay=self.overlay,
+            encode_jpeg_quality=self.encode_jpeg_quality,
             device_sim=device_sim,
             mesh=mesh,
             device=device,

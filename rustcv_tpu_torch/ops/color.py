@@ -1,5 +1,7 @@
-"""YUYV colour conversions (port of the main-path subset of
-``rustcv_tpu.ops.color``), bit-exact with the reference's integer BT.601.
+"""YUYV colour conversions and packed-BGR helpers (port of the pipeline's
+subset of ``rustcv_tpu.ops.color``), bit-exact with the reference's integer
+BT.601 and luma. The packed-BGR helpers work on the (..., H, W, 3) view,
+where the reference bitcasts 4-pixel groups into three u32 words.
 
 All arithmetic is int32. The four bytes of each YUYV word are read from a
 u8 view ``(..., H, W/2, 4)`` widened to int32 (torch has little uint32
@@ -65,6 +67,40 @@ def yuyv_to_gray(src: torch.Tensor, width: int, height: int) -> torch.Tensor:
     y0, u, y1, v = _unpack_yuyv_words(src, width, height)
     b0, g0, r0, b1, g1, r1 = _bt601_pair(y0, y1, u, v)
     # frozen integer luma (77R + 150G + 29B + 128) >> 8
-    gr0 = (77 * r0 + 150 * g0 + 29 * b0 + 128) >> 8
-    gr1 = (77 * r1 + 150 * g1 + 29 * b1 + 128) >> 8
-    return _pack_gray_pairs(gr0, gr1, width, height)
+    return _pack_gray_pairs(_luma(r0, g0, b0), _luma(r1, g1, b1), width, height)
+
+
+def _luma(r, g, b):
+    """The frozen integer luma (77R + 150G + 29B + 128) >> 8 on int32."""
+    return (77 * r + 150 * g + 29 * b + 128) >> 8
+
+
+def _hwc(src: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Packed rows, (..., H, W*3) or flat (..., H*W*3) → the (..., H, W, 3)
+    view. The reference reads a last axis of H*W*3 as flat; where H == 1
+    makes both readings fit, this takes the rows."""
+    rows = src.ndim >= 2 and tuple(src.shape[-2:]) == (height, width * 3)
+    batch = src.shape[:-2] if rows else src.shape[:-1]
+    return src.reshape(*batch, height, width, 3)
+
+
+def bgr_to_gray_packed_rows(src: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Packed BGR rows → gray u8 (..., H, W), equal to ``bgr_to_gray`` on
+    the (..., H, W, 3) view. Any width (the reference's word trick needs
+    width % 4 == 0; the values are the same)."""
+    q = _hwc(src, width, height).to(torch.int32)
+    return _luma(q[..., 2], q[..., 1], q[..., 0]).to(torch.uint8)
+
+
+def unpack_bgr_planes(src: torch.Tensor, width: int, height: int):
+    """Packed BGR rows → int32 planes (b, g, r), each (..., H, W). Inverse
+    of :func:`interleave_bgr_planes`."""
+    q = _hwc(src, width, height).to(torch.int32)
+    return q[..., 0], q[..., 1], q[..., 2]
+
+
+def interleave_bgr_planes(b, g, r, width: int, height: int) -> torch.Tensor:
+    """u8-valued planes (..., H, W), any integer dtype → packed BGR rows u8
+    (..., H, W*3)."""
+    packed = torch.stack([b, g, r], dim=-1).to(torch.uint8)
+    return packed.reshape(*packed.shape[:-3], height, width * 3)

@@ -51,6 +51,10 @@ def rectangle_packed(img: torch.Tensor, rect_xywh, color_bgr, thickness) -> torc
     h, w3 = img.shape[-2], img.shape[-1]
     w = w3 // 3
     rect_xywh = torch.as_tensor(rect_xywh, dtype=torch.int32, device=dev)
+    # A Python int is filled on the device: copying it from the host would
+    # wait for all the work queued on the stream (once per tick).
+    if isinstance(thickness, int):
+        thickness = torch.full((), thickness, dtype=torch.int32, device=dev)
     thickness = torch.as_tensor(thickness, dtype=torch.int32, device=dev)
     color_bgr = torch.as_tensor(color_bgr, dtype=torch.uint8, device=dev)
 

@@ -6,7 +6,7 @@ kernel. The CUDA sources live in ``rustcv_tpu_torch/csrc`` and build at
 first use (:mod:`._build`).
 """
 
-from . import decode_interleave, harris, stencil, tick_fused
+from . import decode_interleave, harris, mosaic_shuffle, stencil, tick_fused
 from .decode_interleave import yuyv_decode_interleave
 from .harris import harris_response, harris_response_i32
 from .stencil import blur_sobel_mag
@@ -19,6 +19,7 @@ _MODULES = {
     "yuyv_tick_fused": (tick_fused, "launches"),
     "harris_response_f32": (harris, "launches_f32"),
     "harris_response_i32": (harris, "launches_i32"),
+    "mosaic_shuffle": (mosaic_shuffle, "launches"),
 }
 
 
@@ -34,5 +35,5 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "blur_sobel_mag", "harris_response", "harris_response_i32", "launch_counts",
-    "reset_launch_counts", "yuyv_decode_interleave", "yuyv_tick_fused",
+    "mosaic_shuffle", "reset_launch_counts", "yuyv_decode_interleave", "yuyv_tick_fused",
 ]

@@ -1,0 +1,2 @@
+"""On-card probes of the port: :mod:`.mosaic_shuffle`, the counterpart of
+``probe_mosaic_shuffle.py`` (``python -m rustcv_tpu_torch.probes.mosaic_shuffle``)."""

@@ -16,9 +16,12 @@ keys, so a stream clock continues across the two packages tick for tick.
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +31,11 @@ from rustcv_tpu.core.errors import CameraError
 from rustcv_tpu.core.pixel_format import PixelFormat
 
 from ..capture.source import Driver, FrameSource
+from ..ops import jpeg_encode as _jenc
 from ..ops import synth as _synth
 from .pipeline import PipelineSpec, get_pipeline, make_dummy_overlay, not_ported
+
+_ENC_KEYS = ("enc_y", "enc_cb", "enc_cr")  # the dense coefficient rows, per component
 
 
 @dataclass
@@ -85,6 +91,9 @@ class MultiStreamEngine:
         mesh=None,
         device_sim: bool = False,
         stencil_impl: Optional[str] = None,
+        encode_jpeg_quality: int = 0,
+        encode_subsampling: str = "4:2:0",
+        encode_packed: Optional[bool] = None,
         sub_batch: Optional[int] = None,
         device="cuda",
     ):
@@ -92,7 +101,15 @@ class MultiStreamEngine:
         path ported so far. ``sub_batch`` runs the stream batch as chunks of
         that size, one after another, writing into preallocated outputs
         (must divide ``n_streams``). ``stencil_impl=None`` picks the stencil
-        kernel on a CUDA device and the plain chain on the CPU."""
+        kernel on a CUDA device and the plain chain on the CPU.
+
+        ``encode_jpeg_quality > 0`` adds the JPEG encoder's numeric half to
+        every tick (after the overlay), which :meth:`encode_payloads`,
+        :meth:`stream_encoded` and :meth:`run_encoded` finish into one JFIF
+        per stream with the host coder. ``encode_packed`` (default: when the
+        native coder is available) block-packs the coefficients on the
+        device with the reference's K = 10 slots per block and
+        ``min(blocks, max(128, blocks // 16))`` dense rows."""
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
         if not device_sim:
@@ -113,6 +130,18 @@ class MultiStreamEngine:
             raise CameraError("device_sim does not support MJPEG streams")
         if stencil_impl is None:
             stencil_impl = "pallas" if self.device.type == "cuda" else "xla"
+        pack_k = pack_cap = 0
+        if int(encode_jpeg_quality) > 0:
+            if encode_packed is None:
+                from rustcv_tpu import native
+
+                encode_packed = native.available()
+            if encode_packed:
+                dw, dh = resize_to if resize_to is not None else (rc.width, rc.height)
+                nbt = sum(bh * bw for bh, bw in
+                          _jenc._geometry(dw, dh, encode_subsampling)["blocks"])
+                pack_k = 10
+                pack_cap = min(nbt, max(128, nbt // 16))
         self.spec = PipelineSpec(
             pixel_format=rc.pixel_format,
             width=rc.width,
@@ -122,8 +151,19 @@ class MultiStreamEngine:
             overlay=overlay,
             emit_bgr=emit_bgr,
             stencil_impl=stencil_impl,
+            encode_jpeg=int(encode_jpeg_quality),
+            encode_subsampling=encode_subsampling,
+            encode_packed=pack_k,
+            encode_dense_cap=pack_cap,
         )
         self._fn = get_pipeline(self.spec)
+        # Ticks whose busy blocks overflowed the dense rows, so their
+        # payloads were coded from the dense coefficient grids instead.
+        self.encode_dense_fallbacks = 0
+        self._lock = threading.Lock()  # the count above and the pools below
+        self._encode_pool: Optional[ThreadPoolExecutor] = None  # the coder, per stream
+        self._fetch_pool: Optional[ThreadPoolExecutor] = None  # finishes ticks in turn
+        self._side_stream = None  # CUDA stream of the over-capacity copies
         if sub_batch is not None:
             if n_streams % sub_batch:
                 raise ValueError(f"sub_batch={sub_batch} must divide n_streams={n_streams}")
@@ -313,16 +353,196 @@ class MultiStreamEngine:
             stats.dropped_frames = max(0, expected - stats.frames)
         return stats
 
+    # -- JPEG transcode delivery -----------------------------------------
+
+    def _require_encode(self) -> None:
+        if not self.spec.encode_jpeg:
+            raise CameraError("engine was built without encode_jpeg_quality; no transcode outputs")
+
+    def _pool(self, attr: str, workers: int, prefix: str) -> ThreadPoolExecutor:
+        with self._lock:
+            if getattr(self, attr) is None:
+                setattr(self, attr, ThreadPoolExecutor(max_workers=workers,
+                                                       thread_name_prefix=prefix))
+            return getattr(self, attr)
+
+    def _count_fallback(self) -> None:
+        with self._lock:
+            self.encode_dense_fallbacks += 1
+
+    def encode_payloads(self, res: TickResult) -> List[bytes]:
+        """Finish a tick's JPEG transcode: one JFIF byte string per stream.
+
+        Fetches the block-packed coefficients (the dense grids without
+        packing, or on a tick whose busy blocks overflow the dense rows)
+        and runs the host Huffman coder per stream; waits for the tick."""
+        self._require_encode()
+        out = res.outputs
+        if self.spec.encode_packed:
+            if (out["enc_ndense"].cpu().numpy() <= self.spec.encode_dense_cap).all():
+                return self._encode_from_host_packed(*(
+                    out[k].cpu().numpy()
+                    for k in ("enc_idx", "enc_val", "enc_dense_ids", "enc_dense_rows")))
+            self._count_fallback()
+        return self._encode_from_host(*(out[k].cpu().numpy() for k in _ENC_KEYS))
+
+    def _enc_geometry(self):
+        dw, dh = self.spec.resize_to or (self.spec.width, self.spec.height)
+        g = _jenc._geometry(dw, dh, self.spec.encode_subsampling)
+        qy, qc = _jenc.quant_tables(self.spec.encode_jpeg)
+        return dw, dh, g, qy, qc
+
+    def _encode_pool_map(self, fn) -> List[bytes]:
+        """``fn`` over the streams; the ctypes coder releases the GIL, so
+        streams are coded in parallel on a pool of up to 8 threads."""
+        if self.n == 1:
+            return [fn(0)]
+        pool = self._pool("_encode_pool", min(8, self.n), "rustcv-encode")
+        return list(pool.map(fn, range(self.n)))
+
+    def _encode_from_host_packed(self, idx, val, dense_ids, dense_rows) -> List[bytes]:
+        """Host Huffman coding straight from the packed slot and dense rows."""
+        from rustcv_tpu import native
+
+        dw, dh, g, qy, qc = self._enc_geometry()
+        return self._encode_pool_map(lambda i: native.jpeg_entropy_encode_packed(
+            idx[i], val[i], dense_ids[i], dense_rows[i],
+            g["blocks"], [qy, qc, qc], dw, dh, g["h_samp"], g["v_samp"]))
+
+    def _encode_from_host(self, cy, cb, cr) -> List[bytes]:
+        """Host Huffman coding of fetched dense coefficient rows."""
+        from rustcv_tpu import native
+
+        dw, dh, g, qy, qc = self._enc_geometry()
+        return self._encode_pool_map(lambda i: native.jpeg_entropy_encode(
+            [arr[i].reshape(*g["blocks"][c], 64) for c, arr in enumerate((cy, cb, cr))],
+            [qy, qc, qc], dw, dh, g["h_samp"], g["v_samp"]))
+
+    def _copy_out(self, res: TickResult, keys, ring: list, slot: int):
+        """Start the device→host copy of ``res``'s ``keys`` into the pinned
+        buffers ``ring[slot]`` (made at first use) and record a CUDA event
+        after it; returns (host tensors, event). On the CPU the outputs are
+        the host tensors and there is no event."""
+        outs = [res.outputs[key] for key in keys]
+        if self.device.type != "cuda":
+            return outs, None
+        if len(ring) <= slot:
+            ring.append([torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs])
+        stream = torch.cuda.current_stream(self.device)
+        for host, t in zip(ring[slot], outs):
+            host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+        return ring[slot], event
+
+    def _finish_encoded(self, res: TickResult, hosts, event) -> List[bytes]:
+        """Wait for one tick's copy (its event only) and code its payloads."""
+        if event is not None:
+            event.synchronize()
+        vals = [h.numpy() for h in hosts]
+        if self.spec.encode_packed:
+            idx, val, ids, rows, nd = _jenc.split_blob(
+                vals[0], res.outputs["enc_idx"].shape[-2], self.spec.encode_packed,
+                self.spec.encode_dense_cap)
+            if (nd <= self.spec.encode_dense_cap).all():
+                return self._encode_from_host_packed(idx, val, ids, rows)
+            # Over-capacity tick: the dense grids are outputs too.
+            self._count_fallback()
+            vals = self._fetch_dense(res)
+        return self._encode_from_host(*vals)
+
+    def _fetch_dense(self, res: TickResult) -> list:
+        """Copy a finished tick's dense coefficient grids to the host. On a
+        CUDA device the copy runs on a side stream: on the tick's own stream
+        it would wait for the ticks issued after it."""
+        outs = [res.outputs[k] for k in _ENC_KEYS]
+        if self.device.type != "cuda":
+            return [t.numpy() for t in outs]
+        with self._lock:
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+        with torch.cuda.stream(self._side_stream):
+            for host, t in zip(hosts, outs):
+                host.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._side_stream)
+        event.synchronize()
+        return [h.numpy() for h in hosts]
+
+    def stream_encoded(
+        self,
+        *,
+        depth: int = 2,
+        rects: Optional[np.ndarray] = None,
+        rect_colors: Optional[np.ndarray] = None,
+        thickness: int = 2,
+        stop=None,
+        max_ticks: Optional[int] = None,
+    ):
+        """Generator of ``(TickResult, [JFIF bytes per stream])``: the
+        pipelined encoded-delivery path (the reference's JPEG fan-out,
+        ``web_streaming.rs:44-100``, with the encoder's numeric half in the
+        tick).
+
+        Per iteration: issue tick k, start the copy of its payload outputs
+        (the packed blob, else the dense grids) into pinned host buffers
+        with ``non_blocking=True`` and record a CUDA event after it; a
+        worker thread waits for that event and Huffman-codes the tick on
+        the coder pool; then tick k − ``depth`` is yielded. Device work,
+        copies and host coding of different ticks overlap, and nothing
+        waits for the whole device. ``stop`` (a ``threading.Event``) or
+        ``max_ticks`` ends the stream; the ticks in flight are yielded."""
+        self._require_encode()
+        if depth < 0:
+            raise ValueError(f"depth must be >= 0, got {depth}")
+        keys = ("enc_blob",) if self.spec.encode_packed else _ENC_KEYS
+        fetch = self._pool("_fetch_pool", 1, "rustcv-fetch")
+        ring: list = []  # depth + 1 sets of pinned buffers, reused in turn
+        inflight = deque()
+        k = 0
+        while (max_ticks is None or k < max_ticks) and (stop is None or not stop.is_set()):
+            res = self.tick(rects=rects, rect_colors=rect_colors, thickness=thickness, block=False)
+            # Slot k % (depth+1) last held tick k-depth-1, already yielded.
+            hosts, event = self._copy_out(res, keys, ring, k % (depth + 1))
+            inflight.append((res, fetch.submit(self._finish_encoded, res, hosts, event)))
+            if len(inflight) > depth:
+                done, fut = inflight.popleft()
+                yield done, fut.result()
+            k += 1
+        while inflight:
+            done, fut = inflight.popleft()
+            yield done, fut.result()
+
+    def run_encoded(
+        self,
+        n_ticks: int,
+        *,
+        warmup: int = 3,
+        rects: Optional[np.ndarray] = None,
+        rect_colors: Optional[np.ndarray] = None,
+    ) -> Tuple[EngineStats, float]:
+        """Sustained encoded delivery: drives :meth:`stream_encoded` for
+        ``n_ticks`` and returns ``(EngineStats, payload MB per tick)``;
+        frames count ticks whose JPEG bytes reached the host."""
+        for _ in range(warmup):
+            self.tick(rects=rects, rect_colors=rect_colors, block=True)
+        stats = EngineStats()
+        payload_bytes = n_out = 0
+        t0 = time.perf_counter()
+        for _res, payloads in self.stream_encoded(rects=rects, rect_colors=rect_colors,
+                                                  max_ticks=n_ticks):
+            payload_bytes += sum(len(p) for p in payloads)
+            n_out += 1
+        stats.wall_s = time.perf_counter() - t0
+        stats.ticks = n_out
+        stats.frames = n_out * self.n
+        return stats, payload_bytes / max(1, n_out) / 1e6
+
     # -- not ported yet -------------------------------------------------
 
     def run_chained(self, *args, **kwargs):
         raise not_ported("run_chained")
-
-    def run_encoded(self, *args, **kwargs):
-        raise not_ported("run_encoded (JPEG encode)")
-
-    def stream_encoded(self, *args, **kwargs):
-        raise not_ported("stream_encoded (JPEG encode)")
 
     def set_resolution(self, width: int, height: int) -> None:
         raise not_ported("set_resolution")
@@ -349,9 +569,12 @@ class MultiStreamEngine:
         }
 
     @classmethod
-    def from_state(cls, state: dict, driver=None, device="cuda") -> "MultiStreamEngine":
+    def from_state(cls, state: dict, driver=None, device="cuda",
+                   **overrides) -> "MultiStreamEngine":
         """Rebuild an engine from an :meth:`export_state` snapshot of this
-        engine or of the reference's; stream clocks resume where it left."""
+        engine or of the reference's; stream clocks resume where it left.
+        The snapshot holds no encode settings (the reference's keys):
+        ``overrides`` (e.g. ``encode_jpeg_quality=85``) go to the engine."""
         from ..capture import SimulationDriver
 
         if driver is None:
@@ -368,6 +591,7 @@ class MultiStreamEngine:
             overlay=state["overlay"],
             device_sim=state["device_sim"],
             device=device,
+            **overrides,
         )
         eng._seqs = np.array(state["sequences"], np.int64)
         eng._seqs_dev = None
@@ -377,6 +601,11 @@ class MultiStreamEngine:
     def close(self) -> None:
         for s in self._sources:
             s.stop()
+        with self._lock:
+            for attr in ("_encode_pool", "_fetch_pool"):
+                if getattr(self, attr) is not None:
+                    getattr(self, attr).shutdown(wait=False)
+                    setattr(self, attr, None)
 
     def __enter__(self) -> "MultiStreamEngine":
         return self

@@ -1,10 +1,12 @@
 """Per-tick pipeline builder (port of ``rustcv_tpu.runtime.pipeline``, the
 YUYV device path).
 
-``raw u8 [N, H*W*2] → decode → (filter) → (overlay) → outputs`` for a batch
-of N streams, as a plain function on tensors. The stages run as the plain
-PyTorch ops of :mod:`rustcv_tpu_torch.ops` or, where a spec selects them,
-as the CUDA kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
+``raw u8 [N, H*W*2] → decode → (resize) → (filter) → (overlay) → (JPEG
+encode) → outputs`` for a batch of N streams, as a plain function on
+tensors. The filter reads the resized image before the overlay; the
+encoder reads it after. The stages run as the plain PyTorch ops of
+:mod:`rustcv_tpu_torch.ops` or, where a spec selects them, as the CUDA
+kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
 
 * ``stencil_impl`` ``"pallas"``, ``"pallas_v1"`` or ``"pallas_v2"`` runs the
   blur_sobel filter as the stencil kernel (K1); ``"xla"`` runs the plain chain.
@@ -13,8 +15,14 @@ as the CUDA kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
 * ``RUSTCV_DECODE=pallas`` decodes with the fused decode+overlay kernel (K4)
   for the gray filters; ``RUSTCV_DECODE=pallas_tick`` runs the whole
   blur_sobel tick as one kernel (K5). Unset or ``xla``: the plain decode.
+  Neither kernel runs with ``resize_to`` or ``encode_jpeg``.
+* ``encode_jpeg`` > 0 adds the encoder's numeric half (``enc_y``,
+  ``enc_cb``, ``enc_cr``: int16 coefficient rows) and, with
+  ``encode_packed``, their block-packed form and its byte blob for the
+  host Huffman coder; plain PyTorch, the DCT a float32 ``torch.matmul``.
 
-Specs this port does not run yet raise ``NotImplementedError``.
+Specs this port does not run yet (MJPEG input, pixel formats other than
+YUYV) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +40,9 @@ from ..ops import color as _color
 from ..ops import draw as _draw
 from ..ops import features as _features
 from ..ops import filters as _filters
+from ..ops import jpeg_encode as _jenc
 from ..ops import kernels as _kernels
+from ..ops import resize as _resize
 
 STENCIL_IMPLS = ("xla", "pallas", "pallas_v1", "pallas_v2")
 FILTERS = ("none", "gaussian", "sobel_mag", "blur_sobel", "canny", "harris", "harris_points")
@@ -79,10 +89,12 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
         raise not_ported(f"pixel format {spec.pixel_format.value}")
     if spec.mjpeg_hybrid or spec.mjpeg_packed:
         raise not_ported("hybrid MJPEG")
-    if spec.resize_to is not None:
-        raise not_ported("resize_to")
-    if spec.encode_jpeg or spec.encode_packed:
-        raise not_ported("encode_jpeg")
+    if spec.resize_to is not None and min(spec.resize_to) < 1:
+        raise ValueError(f"resize_to must be positive, got {spec.resize_to}")
+    if spec.encode_jpeg and spec.encode_subsampling not in _jenc.SUBSAMPLINGS:
+        raise ValueError(f"unknown encode_subsampling {spec.encode_subsampling!r}")
+    if spec.encode_packed and (not spec.encode_jpeg or spec.encode_dense_cap < 1):
+        raise ValueError("encode_packed needs encode_jpeg > 0 and encode_dense_cap >= 1")
     if spec.filter not in FILTERS:
         raise ValueError(f"unknown filter {spec.filter!r}")
     if spec.stencil_impl not in STENCIL_IMPLS:
@@ -96,11 +108,18 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
 def _build(spec: PipelineSpec, mode: str):
     _check_ported(spec, mode)
     w, h = spec.width, spec.height
-    fused_decode = mode == "pallas" and spec.filter in GRAY_FILTERS
+    # K4 and K5 decode at the input size: neither runs with a resize or an
+    # encode, as in the reference.
+    plain_size = spec.resize_to is None and not spec.encode_jpeg
+    fused_decode = plain_size and mode == "pallas" and spec.filter in GRAY_FILTERS
     fused_tick = (
-        mode == "pallas_tick" and spec.filter == "blur_sobel"
+        plain_size and mode == "pallas_tick" and spec.filter == "blur_sobel"
         and spec.emit_bgr and spec.emit_filtered
     )
+    cur_w, cur_h = (w, h) if spec.resize_to is None else spec.resize_to
+    # The reference emits a resized image as packed rows only when both
+    # widths are multiples of 4, else as (N, H, W, 3): the same bytes.
+    packed_out = spec.resize_to is None or (w % 4 == 0 and cur_w % 4 == 0)
 
     def run(raw, rects, rect_colors, thickness):
         """raw u8 [N, H*W*2]; rects int32 [N, 4], rect_colors u8 [N, 3] and
@@ -117,13 +136,20 @@ def _build(spec: PipelineSpec, mode: str):
         else:
             bgr = _color.yuyv_to_bgr_packed(raw, w, h)
             gray = None
+        if spec.resize_to is not None:
+            bgr = _resize.resize_bilinear_packed(bgr, w, h, cur_w, cur_h)
+        decoded = bgr  # the filters read the image before the overlay
 
         def gray_plane():
-            return gray if gray is not None else _color.yuyv_to_gray(raw, w, h)
+            if gray is not None:
+                return gray
+            if spec.resize_to is None:
+                return _color.yuyv_to_gray(raw, w, h)
+            return _color.bgr_to_gray_packed_rows(decoded, cur_w, cur_h)
 
         if spec.filter == "gaussian":
             # Packed rows would blur across channels: blur the (H, W, 3) view.
-            filtered = _filters.gaussian5_u8(bgr.reshape(*bgr.shape[:-1], w, 3))
+            filtered = _filters.gaussian5_u8(bgr.reshape(*bgr.shape[:-1], cur_w, 3))
         elif spec.filter == "sobel_mag":
             filtered = _filters.gradient_magnitude_u8(*_filters.sobel3_gray(gray_plane()))
         elif spec.filter == "blur_sobel":
@@ -142,22 +168,41 @@ def _build(spec: PipelineSpec, mode: str):
             bgr = _draw.rectangle_packed(bgr, rects, rect_colors, thickness)
         out = {}
         if spec.emit_bgr:
-            out["bgr"] = bgr
+            out["bgr"] = bgr if packed_out else bgr.reshape(*bgr.shape[:-1], cur_w, 3)
         if spec.emit_filtered and filtered is not None:
             out["filtered"] = filtered
         if spec.filter == "harris_points":
             # Fixed-size top-K corners + validity per stream (no mask).
             out["corners"], out["corners_valid"] = _features.harris_corner_list(
                 gray_plane(), max_corners=HARRIS_POINTS)
+        if spec.encode_jpeg:
+            # The encoder reads the image after the overlay.
+            out.update(_encode(bgr, cur_w, spec))
         if not out:
             raise ValueError("the spec emits no output (emit_bgr=False and no filter)")
         # One-element completion token: fetching it waits for the tick. The
         # probe is the first output, as the reference picks it: bgr, else
-        # filtered, else the corners.
+        # filtered, else the corners or the coefficients.
         out["_sync"] = next(iter(out.values())).reshape(-1)[:1]
         return out
 
     return run
+
+
+def _encode(bgr, w: int, spec: PipelineSpec) -> dict:
+    """The encoder's numeric half on packed rows: enc_y/enc_cb/enc_cr
+    coefficient rows and, with ``spec.encode_packed``, their block-packed
+    form and its one-copy blob (layout: ``jpeg_encode.split_blob``)."""
+    cy, ccb, ccr = _jenc.encode_coeffs(bgr.reshape(*bgr.shape[:-1], w, 3),
+                                       spec.encode_jpeg, spec.encode_subsampling)
+    out = {"enc_y": cy, "enc_cb": ccb, "enc_cr": ccr}
+    if spec.encode_packed:
+        packed = _jenc.pack_coeff_rows(torch.cat([cy, ccb, ccr], dim=-2),
+                                       spec.encode_packed, spec.encode_dense_cap)
+        out.update(zip(("enc_idx", "enc_val", "enc_dense_ids", "enc_dense_rows", "enc_ndense"),
+                       packed))
+        out["enc_blob"] = _jenc.blob_from_packed(*packed)
+    return out
 
 
 @lru_cache(maxsize=64)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same CUDA tensors (bit-exact; the float32 Harris
-response within the reference's rtol 2e-4, atol 1e-6), and the engine's
-decode modes against each other and against the CPU.
+response within the reference's rtol 2e-4, atol 1e-6), the Mosaic probe's
+cases (K7) against their numpy refs too, and the engine's decode modes and
+config 6's transcode against each other and against the CPU.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -17,7 +18,8 @@ from rustcv_tpu.core import PixelFormat, SimpleConfig
 from rustcv_tpu_torch.capture import SimulationDriver
 from rustcv_tpu_torch.models import get_model
 from rustcv_tpu_torch.ops import kernels
-from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
+from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, mosaic_shuffle, stencil, tick_fused
+from rustcv_tpu_torch.probes import mosaic_shuffle as probe
 from rustcv_tpu_torch.runtime import MultiStreamEngine
 
 pytestmark = pytest.mark.cuda
@@ -56,7 +58,7 @@ def test_kernels_match_plain_versions(cuda, w, h, n):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "blur_sobel_mag": 1, "yuyv_decode_interleave": 2, "yuyv_tick_fused": 2,
-        "harris_response_f32": 0, "harris_response_i32": 0}
+        "harris_response_f32": 0, "harris_response_i32": 0, "mosaic_shuffle": 0}
 
 
 @pytest.mark.parametrize("n,h,w", [(2, 48, 64), (3, 50, 130), (1, 1, 2), (1, 2, 1),
@@ -120,3 +122,37 @@ def test_engine_decode_modes_agree(cuda, monkeypatch):
         for (b, f), (rb, rf) in zip(ticks, ref):
             np.testing.assert_array_equal(b, rb, err_msg=str(key))
             np.testing.assert_array_equal(f, rf, err_msg=str(key))
+
+
+@pytest.mark.parametrize("name", list(mosaic_shuffle.CASES))
+def test_mosaic_shuffle_kernels_match_plain_and_ref(cuda, name):
+    kernels.reset_launch_counts()
+    result = probe.run_case(name, cuda)
+    torch.cuda.synchronize()
+    assert probe.exact(result), name
+    assert kernels.launch_counts()["mosaic_shuffle"] == 1
+
+
+def test_config6_on_the_card_matches_the_cpu(cuda):
+    """Config 6 cut to 2 streams of 128×96 → 64×48: bgr and filtered equal
+    to the CPU's, coefficients within the reference's tolerance (max |diff|
+    <= 1 on < 0.5 %), and every payload decodes to the card's coefficients."""
+    from rustcv_tpu import native
+
+    if not native.available():
+        pytest.skip(f"native coder unavailable: {native.build_error()}")
+    model = dataclasses.replace(get_model("config6_transcode"), width=128, height=96,
+                                n_streams=2, resize_to=(64, 48))
+    card, cpu = model.engine(device=cuda), model.engine(device="cpu")
+    for res, payloads in card.stream_encoded(max_ticks=3):
+        ref = cpu.tick(block=True)
+        for key in ("bgr", "filtered"):
+            np.testing.assert_array_equal(res.numpy(key), ref.numpy(key))
+        for c, key in enumerate(("enc_y", "enc_cb", "enc_cr")):
+            got = res.numpy(key)
+            d = np.abs(got.astype(np.int32) - ref.numpy(key).astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() < 5e-3
+            for i, p in enumerate(payloads):
+                np.testing.assert_array_equal(native.jpeg_entropy_decode(p)[1][c].reshape(-1, 64),
+                                              got[i])
+    card.close()

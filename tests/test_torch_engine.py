@@ -264,7 +264,10 @@ def _decode_xla_fused(monkeypatch):
 @pytest.mark.parametrize(
     "make",
     [
-        pytest.param(lambda mp: _port(64, 48, 1, resize_to=(32, 24)), id="resize_to"),
+        pytest.param(lambda mp: port_pipeline.get_pipeline(port_pipeline.PipelineSpec(
+            PixelFormat.YUYV, 64, 48, mjpeg_hybrid=True)), id="mjpeg_hybrid"),
+        pytest.param(lambda mp: port_pipeline.get_pipeline(port_pipeline.PipelineSpec(
+            PixelFormat.YUYV, 64, 48, mjpeg_packed=True)), id="mjpeg_packed"),
         pytest.param(lambda mp: MultiStreamEngine(
             SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48), device="cpu"),
             id="host-staged"),
@@ -272,8 +275,6 @@ def _decode_xla_fused(monkeypatch):
         pytest.param(lambda mp: _port(64, 48, 1).tick(text="hi"), id="text"),
         pytest.param(lambda mp: _port(64, 48, 1).set_resolution(160, 120), id="set_resolution"),
         pytest.param(lambda mp: _port(64, 48, 1).run_chained(4), id="run_chained"),
-        pytest.param(lambda mp: _port(64, 48, 1).run_encoded(4), id="run_encoded"),
-        pytest.param(lambda mp: _port(64, 48, 1).stream_encoded(4), id="stream_encoded"),
         pytest.param(_decode_xla_fused, id="xla_fused"),
         pytest.param(lambda mp: MultiStreamEngine(
             SimulationDriver(device_count=1, paced=False), 1,
@@ -284,6 +285,9 @@ def _decode_xla_fused(monkeypatch):
         pytest.param(lambda mp: MultiStreamEngine(
             SimulationDriver(device_count=1, paced=False), 1,
             _cfg(64, 48, PixelFormat.NV12), device_sim=True, device="cpu"), id="nv12"),
+        pytest.param(lambda mp: MultiStreamEngine(
+            SimulationDriver(device_count=1, paced=False), 1,
+            _cfg(64, 48, PixelFormat.YV12), device_sim=True, device="cpu"), id="yv12"),
     ],
 )
 def test_unported_specs_raise(monkeypatch, make):
@@ -321,7 +325,8 @@ def test_zoo_models_match_the_reference():
 
 
 @pytest.mark.parametrize("name", ["config1_convert_overlay", "config3_blur_sobel_4k",
-                                  "config4_harris_1080p", "config5_end_to_end_4k"])
+                                  "config4_harris_1080p", "config5_end_to_end_4k",
+                                  "config6_transcode"])
 def test_zoo_raw_models_build_their_engines(name):
     model = models.get_model(name)
     small = _small(model, 64, 48, n=2 * model.sub_batch if model.sub_batch else 1)
@@ -332,7 +337,7 @@ def test_zoo_raw_models_build_their_engines(name):
         assert "bgr" in out and ("filtered" in out) == (model.filter != "none")
 
 
-@pytest.mark.parametrize("name", ["config2_mjpeg_resize", "config6_transcode"])
+@pytest.mark.parametrize("name", ["config2_mjpeg_resize"])
 def test_zoo_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.get_model(name).engine(device="cpu")

@@ -1,9 +1,11 @@
-"""The PyTorch port imports and ticks (the headline and config 4 through
-the zoo) with jax and Pillow absent.
+"""The PyTorch port imports and ticks (the headline, and configs 4 and 6
+through the zoo, config 6 with its JPEG payloads) with jax and Pillow
+absent.
 
 A GPU machine that runs the port need have neither package, so the port
-and the part of ``rustcv_tpu`` it shares (``rustcv_tpu.core``) must not need
-them. A subprocess blocks both imports and runs one CPU tick."""
+and the parts of ``rustcv_tpu`` it shares (``rustcv_tpu.core`` and the
+native C++ coder ``rustcv_tpu.native``) must not need them. A subprocess
+blocks both imports and runs small CPU ticks."""
 
 import os
 import subprocess
@@ -26,6 +28,10 @@ _SCRIPT = textwrap.dedent(
     from rustcv_tpu_torch.capture import SimulationDriver
     from rustcv_tpu_torch.runtime import MultiStreamEngine
     import rustcv_tpu_torch.ops.kernels
+    import rustcv_tpu_torch.ops.jpeg_encode
+    import rustcv_tpu_torch.ops.resize
+    import rustcv_tpu_torch.probes.mosaic_shuffle
+    from rustcv_tpu import native
 
     eng = MultiStreamEngine(
         SimulationDriver(device_count=2, paced=False), 2,
@@ -42,13 +48,23 @@ _SCRIPT = textwrap.dedent(
     for filt in ("harris", "harris_points", "canny"):
         res = model.engine(device="cpu", filter=filt).tick(block=True)
         assert res.outputs["_sync"].numel() == 1
+    model = dataclasses.replace(get_model("config6_transcode"), width=64, height=48,
+                                n_streams=2, resize_to=(32, 24))
+    eng = model.engine(device="cpu")
+    res = eng.tick(block=True)
+    for i, payload in enumerate(eng.encode_payloads(res)):
+        info, coeffs, qts = native.jpeg_entropy_decode(payload)
+        assert (info["width"], info["height"]) == (32, 24)
+        assert (coeffs[0].reshape(-1, 64) == res.outputs["enc_y"][i].numpy()).all()
+    eng.close()
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "PIL" or m.startswith("PIL.")
            if sys.modules[m] is not None]
     assert not bad, bad
-    # rustcv_tpu's package __init__ loads core and version, nothing more
+    # rustcv_tpu's package __init__ loads core and version; the port adds native
     jax_side = [m for m in sys.modules if m.startswith("rustcv_tpu.")
-                and not m.startswith(("rustcv_tpu.core", "rustcv_tpu.version"))]
+                and not m.startswith(("rustcv_tpu.core", "rustcv_tpu.version",
+                                      "rustcv_tpu.native"))]
     assert not jax_side, jax_side
     print("OK")
     """

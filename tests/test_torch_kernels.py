@@ -160,9 +160,10 @@ def test_cpu_wrappers_count_no_launch():
     kernels.blur_sobel_mag(torch.zeros((1, 8, 8), dtype=torch.uint8))
     kernels.harris_response(torch.zeros((1, 8, 8), dtype=torch.uint8))
     kernels.harris_response_i32(torch.zeros((8, 8), dtype=torch.uint8))
+    kernels.mosaic_shuffle.mosaic_shuffle("lane_roll", torch.zeros((8, 128), dtype=torch.int32))
     assert kernels.launch_counts() == {
         "blur_sobel_mag": 0, "yuyv_decode_interleave": 0, "yuyv_tick_fused": 0,
-        "harris_response_f32": 0, "harris_response_i32": 0}
+        "harris_response_f32": 0, "harris_response_i32": 0, "mosaic_shuffle": 0}
 
 
 def _src(w=64, h=48, n=2):
