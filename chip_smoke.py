@@ -29,7 +29,7 @@ Phases:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
    the build of the CUDA kernels from ``rustcv_tpu_torch/csrc`` and of the
-   shared C++ coder ``rustcv_tpu.native`` (g++);
+   port's C++ JPEG coder ``rustcv_tpu_torch.native`` (g++);
 2. each kernel (K1 stencil, K4 decode+interleave, K5 fused tick, both
    Harris forms) against its plain PyTorch version on the card, at
    8×1920×1080 and at small ragged shapes: bit-exact, except the float32
@@ -53,9 +53,7 @@ Phases:
    its plain version's at 8×1920×1080 (K1 at 8×640×480, the Harris forms
    at 1×1920×1080 too; K7 as its 13 cases per call).
 
-It imports no jax and, of the JAX package, only what the port shares
-(``rustcv_tpu.core``, through ``rustcv_tpu_torch.core``, and the C++
-coder ``rustcv_tpu.native``). Any mismatch or error exits non-zero before
+It imports no jax and nothing of the JAX package. Any mismatch or error exits non-zero before
 the last line; the last line is the JSON verdict, and the line before it
 the JSON list of kernels with their launches, errors and times.
 """
@@ -390,15 +388,16 @@ def run_response_surface(dev) -> dict:
 
 
 def build_native() -> None:
-    """Phase 1b: build (g++) or load the shared C++ coder; config 6 cannot
-    finish its payloads without it."""
+    """Phase 1b: build (g++) or load the port's C++ JPEG coder; config 6
+    cannot finish its payloads without it."""
     t0 = time.perf_counter()
-    from rustcv_tpu import native
+    from rustcv_tpu_torch import native
 
     ok = native.available()
     print(f"native coder {'built or loaded' if ok else 'UNAVAILABLE'} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    expect(ok, f"rustcv_tpu.native is unavailable: {native.build_error()}")
+          f"{time.perf_counter() - t0:.2f} s (g++ {native.build_info.get('seconds', 0.0):.2f} s): "
+          f"{native.build_info.get('path')}", flush=True)
+    expect(ok, f"rustcv_tpu_torch.native is unavailable: {native.build_error()}")
 
 
 def run_mosaic_probe(dev) -> tuple:
@@ -457,7 +456,7 @@ def coeff_diff(got, want) -> tuple:
 def check_payloads(eng, res, payloads) -> None:
     """Every stream's JFIF decodes to the tick's coefficients and the q85
     tables, and the dense coder makes the same bytes as the packed one."""
-    from rustcv_tpu import native
+    from rustcv_tpu_torch import native
     from rustcv_tpu_torch.ops.jpeg_encode import quant_tables
 
     expect(len(payloads) == N, f"{len(payloads)} payloads for {N} streams")

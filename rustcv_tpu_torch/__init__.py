@@ -3,9 +3,8 @@
 The JAX package ``rustcv_tpu`` stays the reference; this package mirrors its
 module names (``capture``, ``models``, ``ops``, ``runtime``) and computes the same bytes
 with PyTorch for the glue and hand-written CUDA kernels (``csrc/``) where the
-reference used Pallas. It shares ``rustcv_tpu.core`` (configs, pixel formats,
-errors, frames), which is numpy-only, and imports nothing else of the JAX
-package.
+reference used Pallas. It imports nothing of the JAX package: its core
+types (``core``) and its host JPEG coder (``native``) are its own copies.
 
     from rustcv_tpu_torch.capture import SimulationDriver
     from rustcv_tpu_torch.runtime import MultiStreamEngine
@@ -14,7 +13,7 @@ Importing this package is light: no torch and no kernel build until a
 submodule that needs them is used.
 """
 
-__all__ = ["capture", "core", "models", "ops", "runtime"]
+__all__ = ["capture", "core", "models", "native", "ops", "runtime"]
 
 
 def __getattr__(name):

@@ -25,9 +25,9 @@ from __future__ import annotations
 
 from typing import Iterable, Optional, Tuple
 
-from rustcv_tpu.core.config import CameraConfig, Priority, ResolvedConfig, SimpleConfig
-from rustcv_tpu.core.errors import FormatNotSupported, ResolutionNotSupported
-from rustcv_tpu.core.pixel_format import PixelFormat
+from ..core.config import CameraConfig, Priority, ResolvedConfig, SimpleConfig
+from ..core.errors import FormatNotSupported, ResolutionNotSupported
+from ..core.pixel_format import PixelFormat
 
 from .source import ModeDescriptor
 

@@ -31,18 +31,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from rustcv_tpu.core.config import CameraConfig, ResolvedConfig, SimpleConfig
-from rustcv_tpu.core.errors import (
+from ..core.config import CameraConfig, ResolvedConfig, SimpleConfig
+from ..core.errors import (
     BandwidthExceeded,
     CameraError,
     DeviceNotFound,
     SimulationError,
     StreamNotStarted,
 )
-from rustcv_tpu.core.frame import Frame, FrameMetadata, Timestamp
-from rustcv_tpu.core.pixel_format import PixelFormat
-from rustcv_tpu.core.telemetry import DeviceTelemetry
-from rustcv_tpu.core.time_sync import ClockSynchronizer
+from ..core.frame import Frame, FrameMetadata, Timestamp
+from ..core.pixel_format import PixelFormat
+from ..core.telemetry import DeviceTelemetry
+from ..core.time_sync import ClockSynchronizer
 
 from .negotiate import negotiate, resolve
 from .source import (

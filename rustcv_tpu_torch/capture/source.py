@@ -20,10 +20,10 @@ import enum
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
-from rustcv_tpu.core.config import CameraConfig, ResolvedConfig
-from rustcv_tpu.core.frame import Frame
-from rustcv_tpu.core.pixel_format import PixelFormat
-from rustcv_tpu.core.telemetry import DeviceTelemetry
+from ..core.config import CameraConfig, ResolvedConfig
+from ..core.frame import Frame
+from ..core.pixel_format import PixelFormat
+from ..core.telemetry import DeviceTelemetry
 
 
 @dataclass(frozen=True)
@@ -88,7 +88,7 @@ class FrameSource(abc.ABC):
         """Simulation/fault-injection hook (traits.rs:119-121). The reference
         declares this behind the ``simulation`` feature but never implements
         it; sources here may override (SimulationSource does)."""
-        from rustcv_tpu.core.errors import SimulationError
+        from ..core.errors import SimulationError
 
         raise SimulationError(f"inject_frame not supported by {type(self).__name__}")
 

@@ -24,8 +24,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-from rustcv_tpu.core.config import SimpleConfig
-from rustcv_tpu.core.pixel_format import PixelFormat
+from ..core.config import SimpleConfig
+from ..core.pixel_format import PixelFormat
 
 from ..runtime.pipeline import not_ported
 

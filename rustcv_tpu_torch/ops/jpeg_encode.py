@@ -1,8 +1,8 @@
 """JPEG encode, the numeric half on the device (port of
 ``rustcv_tpu.ops.jpeg_encode``): BGR → YCbCr → chroma subsampling →
 forward DCT as one ``[nblocks, 64] @ [64, 64]`` product → quantization.
-The host half, the Huffman coding into JFIF bytes, is the shared C++ coder
-:func:`rustcv_tpu.native.jpeg_entropy_encode` (``_packed``).
+The host half, the Huffman coding into JFIF bytes, is the port's C++ coder
+:func:`rustcv_tpu_torch.native.jpeg_entropy_encode` (``_packed``).
 
 The frozen encode spec is the reference's (its float64 oracle is
 ``encode_coeffs_numpy`` there): edge-replicate padding to whole MCUs;
@@ -215,7 +215,7 @@ def encode_coeffs_gray(gray: torch.Tensor, quality: int = 90) -> torch.Tensor:
 
 
 def _jfif(comps, quality: int, w: int, h: int, g: dict) -> bytes:
-    from rustcv_tpu import native
+    from .. import native
 
     qy, qc = quant_tables(quality)
     grids = [np.asarray(c).reshape(*g["blocks"][i], 64) for i, c in enumerate(comps)]

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from rustcv_tpu.core.pixel_format import PixelFormat
+from ..core.pixel_format import PixelFormat
 
 from ..capture.simulation import _BAR_COLORS_BGR
 

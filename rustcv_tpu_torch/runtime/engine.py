@@ -26,11 +26,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rustcv_tpu.core.config import ResolvedConfig, SimpleConfig
-from rustcv_tpu.core.errors import CameraError
-from rustcv_tpu.core.pixel_format import PixelFormat
-
+from .. import native
 from ..capture.source import Driver, FrameSource
+from ..core.config import ResolvedConfig, SimpleConfig
+from ..core.errors import CameraError
+from ..core.pixel_format import PixelFormat
 from ..ops import jpeg_encode as _jenc
 from ..ops import synth as _synth
 from .pipeline import PipelineSpec, get_pipeline, make_dummy_overlay, not_ported
@@ -133,8 +133,6 @@ class MultiStreamEngine:
         pack_k = pack_cap = 0
         if int(encode_jpeg_quality) > 0:
             if encode_packed is None:
-                from rustcv_tpu import native
-
                 encode_packed = native.available()
             if encode_packed:
                 dw, dh = resize_to if resize_to is not None else (rc.width, rc.height)
@@ -402,8 +400,6 @@ class MultiStreamEngine:
 
     def _encode_from_host_packed(self, idx, val, dense_ids, dense_rows) -> List[bytes]:
         """Host Huffman coding straight from the packed slot and dense rows."""
-        from rustcv_tpu import native
-
         dw, dh, g, qy, qc = self._enc_geometry()
         return self._encode_pool_map(lambda i: native.jpeg_entropy_encode_packed(
             idx[i], val[i], dense_ids[i], dense_rows[i],
@@ -411,8 +407,6 @@ class MultiStreamEngine:
 
     def _encode_from_host(self, cy, cb, cr) -> List[bytes]:
         """Host Huffman coding of fetched dense coefficient rows."""
-        from rustcv_tpu import native
-
         dw, dh, g, qy, qc = self._enc_geometry()
         return self._encode_pool_map(lambda i: native.jpeg_entropy_encode(
             [arr[i].reshape(*g["blocks"][c], 64) for c, arr in enumerate((cy, cb, cr))],

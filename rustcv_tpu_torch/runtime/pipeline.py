@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from rustcv_tpu.core.pixel_format import PixelFormat
+from ..core.pixel_format import PixelFormat
 
 from ..ops import color as _color
 from ..ops import draw as _draw

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from rustcv_tpu.core import PixelFormat, SimpleConfig
+from rustcv_tpu_torch import native
 from rustcv_tpu_torch.capture import SimulationDriver
+from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
 from rustcv_tpu_torch.models import get_model
 from rustcv_tpu_torch.ops import kernels
 from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, mosaic_shuffle, stencil, tick_fused
@@ -137,10 +138,7 @@ def test_config6_on_the_card_matches_the_cpu(cuda):
     """Config 6 cut to 2 streams of 128×96 → 64×48: bgr and filtered equal
     to the CPU's, coefficients within the reference's tolerance (max |diff|
     <= 1 on < 0.5 %), and every payload decodes to the card's coefficients."""
-    from rustcv_tpu import native
-
-    if not native.available():
-        pytest.skip(f"native coder unavailable: {native.build_error()}")
+    assert native.available(), native.build_error()
     model = dataclasses.replace(get_model("config6_transcode"), width=128, height=96,
                                 n_streams=2, resize_to=(64, 48))
     card, cpu = model.engine(device=cuda), model.engine(device="cpu")

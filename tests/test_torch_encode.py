@@ -6,10 +6,11 @@ bit-exact with the JAX functions and the frozen oracles. The float32 colour
 and DCT may round an ulp apart from XLA's (which contracts into FMAs), so
 coefficients are held to the reference's own tolerance
 (tests/test_jpeg_encode.py:115-128): max |diff| <= 1 on a share < 5e-3.
-Payloads are checked by the native entropy decoder, which returns the
-quantized coefficients exactly (Huffman coding is lossless)."""
+Payloads are checked by the port's native entropy decoder, which returns
+the quantized coefficients exactly (Huffman coding is lossless)."""
 
 import dataclasses
+import enum
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,15 +19,15 @@ import torch
 
 import rustcv_tpu.models as jax_models
 import rustcv_tpu.runtime.pipeline as jax_pipeline
-from rustcv_tpu import native
-from rustcv_tpu.core import PixelFormat
+from rustcv_tpu.core import PixelFormat as JaxPixelFormat
 from rustcv_tpu.ops import color as JC
 from rustcv_tpu.ops import golden
 from rustcv_tpu.ops import jpeg_encode as JE
 from rustcv_tpu.ops import jpeg_tpu as JT
 from rustcv_tpu.ops import resize as JR
-from rustcv_tpu_torch import models
+from rustcv_tpu_torch import models, native
 from rustcv_tpu_torch.capture.simulation import synth_bgr
+from rustcv_tpu_torch.core import PixelFormat
 from rustcv_tpu_torch.ops import color as TC
 from rustcv_tpu_torch.ops import jpeg_encode as TE
 from rustcv_tpu_torch.ops import kernels
@@ -235,6 +236,13 @@ def test_payloads_are_the_native_coders_bytes(subsampling):
 # -- config 6 as a slice ----------------------------------------------------------
 
 
+def _fields(spec) -> dict:
+    """A spec's fields, each enum as its value (the two packages have their
+    own PixelFormat classes with the same values)."""
+    return {k: v.value if isinstance(v, enum.Enum) else v
+            for k, v in dataclasses.asdict(spec).items()}
+
+
 def _small(model):
     return dataclasses.replace(model, width=128, height=96, n_streams=2, resize_to=(64, 48))
 
@@ -273,7 +281,7 @@ def test_config6_slice_matches_jax(jax_cpu, monkeypatch):
     rects, colors = _overlay()
     ref_eng = _small(jax_models.get_model("config6_transcode")).engine()
     port = _small(models.get_model("config6_transcode")).engine(device="cpu")
-    assert dataclasses.asdict(port.spec) == dataclasses.asdict(ref_eng.spec)
+    assert _fields(port.spec) == _fields(ref_eng.spec)
     assert (port.spec.encode_jpeg, port.spec.encode_packed) == (85, 10)
     for _ in range(3):
         p = port.tick(rects=rects, rect_colors=colors, block=True)
@@ -364,13 +372,13 @@ def test_resize_layouts_match_jax(jax_cpu, monkeypatch, w, h, dw, dh):
     """A width not a multiple of 4 gives (N, H, W, 3) in both packages
     (the same bytes); gray filters read the resized image."""
     _set_mode(monkeypatch, None)
-    spec = dict(pixel_format=PixelFormat.YUYV, width=w, height=h, resize_to=(dw, dh),
-                filter="sobel_mag", overlay=True, encode_jpeg=90)
+    spec = dict(width=w, height=h, resize_to=(dw, dh), filter="sobel_mag", overlay=True,
+                encode_jpeg=90)
     raw = np.random.default_rng(w).integers(0, 256, (2, h * w * 2), np.uint8)
     rects, colors = _overlay()
-    port = port_pipeline.get_pipeline(port_pipeline.PipelineSpec(**spec))(
+    port = port_pipeline.get_pipeline(port_pipeline.PipelineSpec(PixelFormat.YUYV, **spec))(
         torch.from_numpy(raw), torch.from_numpy(rects), torch.from_numpy(colors), 2)
-    ref = jax_pipeline.get_pipeline(jax_pipeline.PipelineSpec(**spec))(
+    ref = jax_pipeline.get_pipeline(jax_pipeline.PipelineSpec(JaxPixelFormat.YUYV, **spec))(
         jnp.asarray(raw), jnp.asarray(rects), jnp.asarray(colors), 2)
     assert set(port) == set(ref)
     for key in ("bgr", "filtered", "_sync"):

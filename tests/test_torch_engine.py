@@ -9,17 +9,19 @@ builds, so its cache is cleared whenever the variable changes here; the
 port's get_pipeline keys its cache by the mode as well."""
 
 import dataclasses
+import enum
 
 import numpy as np
 import pytest
 import torch
 
+import rustcv_tpu.core as jax_core
 import rustcv_tpu.models as jax_models
 import rustcv_tpu.runtime.pipeline as jax_pipeline
 from rustcv_tpu.capture import SimulationDriver as JaxDriver
-from rustcv_tpu.core import PixelFormat, SimpleConfig
 from rustcv_tpu.runtime import MultiStreamEngine as JaxEngine
-from rustcv_tpu_torch import models
+from rustcv_tpu_torch import core, models
+from rustcv_tpu_torch.core import PixelFormat
 from rustcv_tpu_torch.capture import SimulationDriver
 from rustcv_tpu_torch.ops import kernels
 from rustcv_tpu_torch.runtime import MultiStreamEngine
@@ -30,8 +32,10 @@ torch.set_num_threads(2)
 OUTPUTS = ("bgr", "filtered", "corners", "corners_valid")
 
 
-def _cfg(w, h, fmt=PixelFormat.YUYV):
-    return SimpleConfig(width=w, height=h, fps=60, pixel_format=fmt)
+def _cfg(w, h, fmt=PixelFormat.YUYV, pkg=core):
+    """A SimpleConfig of ``pkg``'s core types: the port's, or the JAX
+    package's for its engine."""
+    return pkg.SimpleConfig(width=w, height=h, fps=60, pixel_format=pkg.PixelFormat(fmt.value))
 
 
 def _overlay(n, seed=0):
@@ -43,7 +47,7 @@ def _overlay(n, seed=0):
 
 def _jax(w, h, n, n_unique=0, **kw):
     return JaxEngine(JaxDriver(device_count=n, paced=False, n_unique_frames=n_unique), n,
-                     _cfg(w, h), device_sim=True, **kw)
+                     _cfg(w, h, pkg=jax_core), device_sim=True, **kw)
 
 
 def _port(w, h, n, n_unique=0, **kw):
@@ -315,11 +319,18 @@ def test_config4_through_the_zoo_matches_jax(jax_cpu, monkeypatch):
     _assert_same(_ticks(resumed, 2), _ticks(ref_eng, 2))
 
 
+def _fields(model) -> dict:
+    """A model's fields, each enum as its value (the two packages have
+    their own PixelFormat classes with the same values)."""
+    return {k: v.value if isinstance(v, enum.Enum) else v
+            for k, v in dataclasses.asdict(model).items()}
+
+
 def test_zoo_models_match_the_reference():
     assert list(models.MODELS) == list(jax_models.MODELS)
     for name, ref in jax_models.MODELS.items():
         port = models.get_model(name)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
+        assert _fields(port) == _fields(ref), name
     with pytest.raises(KeyError, match="unknown model"):
         models.get_model("config9")
 

@@ -1,11 +1,11 @@
 """The PyTorch port imports and ticks (the headline, and configs 4 and 6
-through the zoo, config 6 with its JPEG payloads) with jax and Pillow
-absent.
+through the zoo, config 6 with its JPEG payloads) with jax, Pillow and the
+JAX package ``rustcv_tpu`` absent.
 
-A GPU machine that runs the port need have neither package, so the port
-and the parts of ``rustcv_tpu`` it shares (``rustcv_tpu.core`` and the
-native C++ coder ``rustcv_tpu.native``) must not need them. A subprocess
-blocks both imports and runs small CPU ticks."""
+A GPU machine that runs the port need have neither jax nor Pillow, and the
+port imports nothing of the JAX package: its core types and its C++ coder
+are its own. A subprocess blocks all three imports and runs small CPU
+ticks."""
 
 import os
 import subprocess
@@ -20,18 +20,19 @@ _SCRIPT = textwrap.dedent(
     import sys
     sys.modules["jax"] = None
     sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
     import numpy as np
     import torch
     torch.set_num_threads(1)
     import rustcv_tpu_torch
-    from rustcv_tpu.core import PixelFormat, SimpleConfig
+    from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
     from rustcv_tpu_torch.capture import SimulationDriver
     from rustcv_tpu_torch.runtime import MultiStreamEngine
     import rustcv_tpu_torch.ops.kernels
     import rustcv_tpu_torch.ops.jpeg_encode
     import rustcv_tpu_torch.ops.resize
     import rustcv_tpu_torch.probes.mosaic_shuffle
-    from rustcv_tpu import native
+    from rustcv_tpu_torch import native
 
     eng = MultiStreamEngine(
         SimulationDriver(device_count=2, paced=False), 2,
@@ -57,15 +58,9 @@ _SCRIPT = textwrap.dedent(
         assert (info["width"], info["height"]) == (32, 24)
         assert (coeffs[0].reshape(-1, 64) == res.outputs["enc_y"][i].numpy()).all()
     eng.close()
-    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-           or m == "PIL" or m.startswith("PIL.")
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
     assert not bad, bad
-    # rustcv_tpu's package __init__ loads core and version; the port adds native
-    jax_side = [m for m in sys.modules if m.startswith("rustcv_tpu.")
-                and not m.startswith(("rustcv_tpu.core", "rustcv_tpu.version",
-                                      "rustcv_tpu.native"))]
-    assert not jax_side, jax_side
     print("OK")
     """
 )

@@ -10,12 +10,13 @@ import pytest
 import torch
 
 from rustcv_tpu.capture import simulation as jsim
-from rustcv_tpu.core import PixelFormat
+from rustcv_tpu.core import PixelFormat as JaxPixelFormat
 from rustcv_tpu.ops import color as JC
 from rustcv_tpu.ops import draw as JD
 from rustcv_tpu.ops import filters as JF
 from rustcv_tpu.ops import synth as JS
 from rustcv_tpu_torch.capture import simulation as tsim
+from rustcv_tpu_torch.core import PixelFormat
 from rustcv_tpu_torch.ops import color as TC
 from rustcv_tpu_torch.ops import draw as TD
 from rustcv_tpu_torch.ops import filters as TF
@@ -44,7 +45,7 @@ def _eq(port, ref):
 )
 def test_synth_raw_matches_jax(w, h, seqs):
     port = TS.synth_raw(torch.tensor(seqs, dtype=torch.int32), w, h, PixelFormat.YUYV)
-    ref = JS.synth_raw(jnp.asarray(seqs, jnp.int32), w, h, PixelFormat.YUYV)
+    ref = JS.synth_raw(jnp.asarray(seqs, jnp.int32), w, h, JaxPixelFormat.YUYV)
     assert port.dtype == torch.uint8 and tuple(port.shape) == (len(seqs), h * w * 2)
     _eq(port, ref)
 
@@ -65,7 +66,7 @@ def test_host_generators_byte_identical(fmt):
     """The port's jax-free host generator emits the reference's bytes."""
     for seq in (0, 5, 321):
         np.testing.assert_array_equal(tsim.synth_raw(64, 48, fmt, seq),
-                                      jsim.synth_raw(64, 48, fmt, seq))
+                                      jsim.synth_raw(64, 48, JaxPixelFormat(fmt.value), seq))
 
 
 def test_synth_unported_formats_raise():
