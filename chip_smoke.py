@@ -140,12 +140,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def overlay_args(w, h, n, dev, rng):
-    """Per-stream rects: inside and across tiles, over the frame edges,
-    thinner than the thickness; random colours."""
+    """Per-stream rects: inside and across strips of rows, over the frame
+    edges, thinner than the thickness; random colours."""
     import torch
 
     pool = [list(RECT), [-9, -5, w // 2 + 20, h // 3], [w - 50, h - 30, 200, 200],
-            [w // 3, h // 3, 63, 33], [5, 5, 1, 1]]
+            [w // 3, h // 3, 63, 33], [5, 5, 1, 1], [1, 30, w - 2, 45]]
     rects = torch.tensor([pool[i % len(pool)] for i in range(n)], dtype=torch.int32, device=dev)
     colors = torch.from_numpy(rng.integers(0, 256, (n, 3), np.uint8)).to(dev)
     return rects, colors
@@ -157,29 +157,53 @@ def harris_f32_errs(got, want) -> tuple:
     return float(diff.max()), float((diff / want.abs().clamp_min(1e-30)).max())
 
 
+# (W, H, N) of phase 2: the main path's shape, then ragged and tiny ones:
+# W % 8 in every residue, W % 4 != 0 (the kernels' byte forms), images
+# smaller than the ±3 halo.
+CHECK_SHAPES = ((W, H, N), (C6_W, C6_H, N), (130, 50, 3), (64, 48, 2), (2, 1, 1), (131, 37, 3),
+                (134, 9, 2), (6, 3, 1), (1, 2, 1), (129, 70, 1), (132, 33, 2), (133, 8, 1),
+                (135, 40, 1), (136, 41, 2))
+
+
+def misaligned(t, offset: int = 1):
+    """A contiguous copy of ``t`` that starts ``offset`` bytes past an
+    allocation's start (as ``buf[1:]``)."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=torch.uint8, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_kernels(dev) -> dict:
-    """Phase 2: every kernel vs its plain version on the card."""
+    """Phase 2: every kernel vs its plain version on the card, at the main
+    path's shapes, ragged and tiny shapes and misaligned views; K5 and K4
+    also with a rectangle thicker than a strip of rows."""
     import torch
 
     from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
 
     errs = {name: 0 for name in KERNELS}
-    for (w, h, n) in ((W, H, N), (130, 50, 3), (64, 48, 2), (2, 1, 1)):
+    for (w, h, n) in CHECK_SHAPES:
         rng = np.random.default_rng(w * 7919 + h)
-        src = torch.from_numpy(rng.integers(0, 256, (n, h * w * 2), np.uint8)).to(dev)
         gray = torch.from_numpy(rng.integers(0, 256, (n, h, w), np.uint8)).to(dev)
-        rects, colors = overlay_args(w, h, n, dev, rng)
-        e = {"blur_sobel_mag": max_abs_err(stencil.blur_sobel_mag(gray),
-                                           stencil.blur_sobel_mag_plain(gray))}
-        for overlay in (True, False):
-            args = (src, w, h, rects, colors, THICKNESS, overlay)
-            got = decode_interleave.yuyv_decode_interleave(*args)
-            want = decode_interleave.yuyv_decode_interleave_plain(*args)
-            e["yuyv_decode_interleave"] = max(e.get("yuyv_decode_interleave", 0),
-                                              *map(max_abs_err, got, want))
-            got = tick_fused.yuyv_tick_fused(*args)
-            want = tick_fused.yuyv_tick_fused_plain(*args)
-            e["yuyv_tick_fused"] = max(e.get("yuyv_tick_fused", 0), *map(max_abs_err, got, want))
+        e = {"blur_sobel_mag": max(max_abs_err(stencil.blur_sobel_mag(g), stencil.blur_sobel_mag_plain(g))
+                                   for g in (gray, misaligned(gray)))}
+        if w % 2 == 0:
+            src = torch.from_numpy(rng.integers(0, 256, (n, h * w * 2), np.uint8)).to(dev)
+            rects, colors = overlay_args(w, h, n, dev, rng)
+            for overlay, thickness in ((True, THICKNESS), (False, THICKNESS), (True, 40)):
+                args = (src, w, h, rects, colors, thickness, overlay)
+                got = decode_interleave.yuyv_decode_interleave(*args)
+                want = decode_interleave.yuyv_decode_interleave_plain(*args)
+                e["yuyv_decode_interleave"] = max(e.get("yuyv_decode_interleave", 0),
+                                                  *map(max_abs_err, got, want))
+                want = tick_fused.yuyv_tick_fused_plain(*args)
+                for s in (src, misaligned(src), misaligned(src, 2)):
+                    got = tick_fused.yuyv_tick_fused(s, *args[1:])
+                    e["yuyv_tick_fused"] = max(e.get("yuyv_tick_fused", 0),
+                                               *map(max_abs_err, got, want))
         e["harris_response_i32"] = max(
             max_abs_err(harris.harris_response_i32(gray, k_num),
                         harris.harris_response_i32_plain(gray, k_num)) for k_num in (41, 61))
@@ -763,11 +787,79 @@ def profile_config6() -> None:
     eng.close()
 
 
+# The card's peaks (H100 SXM at 700 W, the published data sheet's): HBM
+# bytes/s and float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# The float32 Harris response per pixel: Sobel gx, gy (10), the products
+# (3), three 3×3 box sums (24), det, trace and k·trace² (7).
+HARRIS_F32_FLOP_PER_PX = 44
+COLD_BYTES = 64e6  # cold-L2 rotation: inputs together above the 50 MB L2
+
+
+def bound_ms(nbytes: float, flops: float = 0.0) -> tuple:
+    """Least ms the card could take, and what bounds it: each input byte
+    read once and each output byte written once at the HBM rate, or the
+    float32 operations at the peak rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def device_ms(fn, inputs, reps: int) -> float:
+    """Mean device ms per call of ``fn(x)``, x rotating over ``inputs`` (one
+    input: warm; copies together larger than the L2: cold). The calls queue
+    behind a spin kernel longer than their issue takes, so the events time
+    the device alone, not the host's pace of wrapper calls."""
+    import torch
+
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(inputs[(i + 1) % len(inputs)])
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(issue_s * 2 * 2e9) + 100_000)  # cycles, at up to 2 GHz
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(inputs[(i + 1) % len(inputs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cold_copies(t) -> list:
+    """``t`` and copies of it, together at least COLD_BYTES."""
+    k = max(2, -(-int(COLD_BYTES) // (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(k - 1)]
+
+
+def k7_library_calls(dev) -> dict:
+    """The K7 cases that one PyTorch call computes: case → that call (timed
+    beside the kernel only; the port never calls it)."""
+    import torch
+
+    idx = {n: torch.arange(n, device=dev) // 3 for n in (128, 384)}
+    return {
+        "strided_load": lambda x: x[:, ::2].contiguous(),
+        "lane_gather": lambda x: torch.index_select(x, 1, idx[384]),
+        "lane_roll": lambda x: torch.roll(x, 1, 1),
+        "u8_astype": lambda x: x.to(torch.uint8),
+        "gather_128": lambda x: torch.index_select(x, 1, idx[128]),
+        "unaligned_slice": lambda x: x[:, 42:170].contiguous(),
+        "repeat_lanes": lambda x: torch.repeat_interleave(x, 3, dim=1),
+    }
+
+
 def time_kernels() -> dict:
     """Phase 4g: each kernel and its plain version at 8×1920×1080 (K1 at
     config 6's 8×640×480 too, the Harris forms at 1×1920×1080 too, K7 as
-    its 13 cases per call), in turns (plain, kernel, kernel, plain);
-    returns name → (kernel ms, plain ms) at the main path's shape."""
+    its 13 cases per call), in turns (plain, kernel, kernel, plain), warm,
+    then the kernel with its input cold (rotating over copies beyond the
+    L2); each beside its bound. Device time (``device_ms``): the calls queue
+    behind a spin kernel, so the wrappers' host cost does not pace them. Returns name → its numbers at the main
+    path's shape (the first row of each kernel)."""
     import torch
 
     from rustcv_tpu_torch.ops.kernels import (decode_interleave, harris, mosaic_shuffle,
@@ -780,40 +872,63 @@ def time_kernels() -> dict:
     gray = torch.from_numpy(rng.integers(0, 256, (N, H, W), np.uint8)).to(dev)
     rects = torch.tensor([RECT] * N, dtype=torch.int32, device=dev)
     colors = torch.tensor([COLOR] * N, dtype=torch.uint8, device=dev)
-    args = (src, W, H, rects, colors, THICKNESS, True)
+    yuyv = (W, H, rects, colors, THICKNESS, True)
     one = gray[:1].contiguous()  # config 4 gives the Harris kernel one 1080p frame per tick
     vga = gray[:, :C6_H, :C6_W].contiguous()  # config 6's resized gray
+    rows = [  # (name, kernel(x), plain(x), x, bytes and float32 ops per pixel); main path first
+        ("blur_sobel_mag", stencil.blur_sobel_mag, stencil.blur_sobel_mag_plain, gray, 2, 0),
+        ("blur_sobel_mag", stencil.blur_sobel_mag, stencil.blur_sobel_mag_plain, vga, 2, 0),
+        ("yuyv_decode_interleave", lambda x: decode_interleave.yuyv_decode_interleave(x, *yuyv),
+         lambda x: decode_interleave.yuyv_decode_interleave_plain(x, *yuyv), src, 6, 0),
+        ("yuyv_tick_fused", lambda x: tick_fused.yuyv_tick_fused(x, *yuyv),
+         lambda x: tick_fused.yuyv_tick_fused_plain(x, *yuyv), src, 6, 0),
+    ]
+    for g in (one, gray):  # 1 B in, 4 B (float32 or int32) out per pixel
+        rows += [("harris_response_f32", harris.harris_response, harris.harris_response_plain, g,
+                  5, HARRIS_F32_FLOP_PER_PX),
+                 ("harris_response_i32", harris.harris_response_i32,
+                  harris.harris_response_i32_plain, g, 5, 0)]
+    times = {}
+    for name, kern, plain, x, bytes_per_px, flop_per_px in rows:
+        px = x.numel() if x is not src else x.numel() // 2
+        shape = f"N={x.shape[0]} {W if x is src else x.shape[2]}x{H if x is src else x.shape[1]}"
+        p1, k1, k2, p2 = (device_ms(plain, [x], 10), device_ms(kern, [x], 50),
+                          device_ms(kern, [x], 50), device_ms(plain, [x], 10))
+        cold = device_ms(kern, cold_copies(x), 50)
+        bound, by = bound_ms(px * bytes_per_px, px * flop_per_px)
+        times.setdefault(name, {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "cold_ms": cold,
+                                "bound_ms": bound, "bound_by": by, "library_ms": None})
+        torch.cuda.empty_cache()
+        print(f"{name} at {shape}: kernel {k1:.4f} / {k2:.4f} ms warm, {cold:.4f} ms cold L2, "
+              f"plain {p1:.4f} / {p2:.4f} ms; bound {bound:.4f} ms ({px * bytes_per_px / 1e6:.1f} "
+              f"MB), warm share of bound {bound / ((k1 + k2) / 2):.1%}", flush=True)
+
     k7_inputs = {name: [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in p.inputs()]
                  for name, p in PROBES.items()}
-    pairs = [  # (name, shape, kernel, plain); a kernel's first row is its main path's shape
-        ("blur_sobel_mag", f"N={N} {W}x{H}", lambda: stencil.blur_sobel_mag(gray),
-         lambda: stencil.blur_sobel_mag_plain(gray)),
-        ("blur_sobel_mag", f"N={N} {C6_W}x{C6_H}", lambda: stencil.blur_sobel_mag(vga),
-         lambda: stencil.blur_sobel_mag_plain(vga)),
-        ("yuyv_decode_interleave", f"N={N} {W}x{H}",
-         lambda: decode_interleave.yuyv_decode_interleave(*args),
-         lambda: decode_interleave.yuyv_decode_interleave_plain(*args)),
-        ("yuyv_tick_fused", f"N={N} {W}x{H}", lambda: tick_fused.yuyv_tick_fused(*args),
-         lambda: tick_fused.yuyv_tick_fused_plain(*args)),
-    ]
-    for g in (one, gray):
-        pairs += [
-            ("harris_response_f32", f"N={g.shape[0]} {W}x{H}", lambda g=g: harris.harris_response(g),
-             lambda g=g: harris.harris_response_plain(g)),
-            ("harris_response_i32", f"N={g.shape[0]} {W}x{H}",
-             lambda g=g: harris.harris_response_i32(g),
-             lambda g=g: harris.harris_response_i32_plain(g)),
-        ]
-    pairs.append(("mosaic_shuffle", f"its {len(PROBES)} cases",
-                  lambda: [mosaic_shuffle.mosaic_shuffle(k, *v) for k, v in k7_inputs.items()],
-                  lambda: [mosaic_shuffle.mosaic_shuffle_plain(k, *v) for k, v in k7_inputs.items()]))
-    times = {}
-    for name, shape, kern, plain in pairs:
-        p1, k1, k2, p2 = (cuda_ms(plain, 10), cuda_ms(kern, 50), cuda_ms(kern, 50),
-                          cuda_ms(plain, 10))
-        times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
-        print(f"{name} at {shape}: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms", flush=True)
+    k7_bytes = sum(t.numel() * t.element_size() for v in k7_inputs.values() for t in v) + sum(
+        mosaic_shuffle.mosaic_shuffle_plain(k, *v).numel()
+        * mosaic_shuffle.mosaic_shuffle_plain(k, *v).element_size() for k, v in k7_inputs.items())
+    kern = lambda: [mosaic_shuffle.mosaic_shuffle(k, *v) for k, v in k7_inputs.items()]  # noqa: E731
+    plain = lambda: [mosaic_shuffle.mosaic_shuffle_plain(k, *v) for k, v in k7_inputs.items()]  # noqa: E731
+    p1, k1, k2, p2 = (device_ms(lambda _: plain(), [None], 10), device_ms(lambda _: kern(), [None], 50),
+                      device_ms(lambda _: kern(), [None], 50), device_ms(lambda _: plain(), [None], 10))
+    lib = {}
+    for case, call in k7_library_calls(dev).items():
+        x = k7_inputs[case][0]
+        same = torch.equal(call(x), mosaic_shuffle.mosaic_shuffle(case, x))
+        lib[case] = device_ms(call, [x], 50) if same else None
+        print(f"mosaic_shuffle {case}: kernel "
+              f"{device_ms(lambda t: mosaic_shuffle.mosaic_shuffle(case, t), [x], 50):.4f} ms, plain "
+              f"{device_ms(lambda t: mosaic_shuffle.mosaic_shuffle_plain(case, t), [x], 50):.4f} ms, "
+              f"one PyTorch call {f'{lib[case]:.4f} ms' if same else 'gives other values'}",
+              flush=True)
+    bound, by = bound_ms(k7_bytes)
+    times["mosaic_shuffle"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "cold_ms": None,
+                               "bound_ms": bound, "bound_by": by, "library_ms": None,
+                               "library_ms_cases": lib}
+    print(f"mosaic_shuffle, its {len(PROBES)} cases per call: kernel {k1:.4f} / {k2:.4f} ms, "
+          f"plain {p1:.4f} / {p2:.4f} ms; bound {bound:.6f} ms ({k7_bytes} B, {len(PROBES)} "
+          "launches: launch latency, not bytes, sets its floor)", flush=True)
     return times
 
 
@@ -878,8 +993,7 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": launches[name], "max_abs_err": errs[name], **times[name]}
         for name, (src, rep) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

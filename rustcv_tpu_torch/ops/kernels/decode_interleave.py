@@ -33,8 +33,6 @@ def check_yuyv_args(src, width: int, height: int, rects, colors, overlay: bool) 
     if not 1 <= n <= 65535 or height > 65535:
         raise ValueError(f"need 1 <= N <= 65535 and H <= 65535, got N={n}, H={height}")
     _build.expect(src, "src", torch.uint8, (n, height * width * 2))
-    if src.device.type == "cuda" and src.data_ptr() % 4:
-        raise ValueError("src must be 4-byte aligned (the kernels read 32-bit words)")
     if overlay:
         _build.expect(rects, "rects", torch.int32, (n, 4), src.device)
         _build.expect(colors, "colors", torch.uint8, (n, 3), src.device)
@@ -61,6 +59,8 @@ def yuyv_decode_interleave(src: torch.Tensor, width: int, height: int,
     tensor launches the kernel on the current stream."""
     global launches
     n = check_yuyv_args(src, width, height, rects, colors, overlay)
+    if src.device.type == "cuda" and src.data_ptr() % 4:
+        raise ValueError("src must be 4-byte aligned (the kernel reads 32-bit words)")
     thickness = int(thickness)
     if src.device.type == "cpu":
         return yuyv_decode_interleave_plain(src, width, height, rects, colors,

@@ -5,10 +5,12 @@ Replaces the Pallas kernels ``rustcv_tpu/ops/pallas/stencil_v3.py``
 (v2); the three compute the same function, so ``stencil_impl`` values
 ``pallas``, ``pallas_v1`` and ``pallas_v2`` all run this kernel.
 
-Bound on the card: bytes (1 B read, 1 B written per pixel). The kernel keeps
-the gray tile with its ±3 halo and the blurred tile in shared memory, so no
-intermediate reaches device memory; the plain version below writes and
-re-reads int32 planes between its passes.
+Bound on the card: bytes (1 B read, 1 B written per pixel), with the integer
+arithmetic close behind. The kernel marches a warp down a strip of rows,
+each lane 4 columns, with the horizontal and vertical sums in 16-bit lanes
+of registers and the neighbours by warp shuffles, so no intermediate
+reaches device memory; the plain version below writes and re-reads int32
+planes between its passes. Any H and W, at any address.
 """
 
 from __future__ import annotations

@@ -4,13 +4,13 @@ store and blur + Sobel |∇| (``csrc/yuyv_tick.cu``).
 Replaces the Pallas kernel ``rustcv_tpu/ops/pallas/tick_fused.py``
 (``yuyv_tick_fused``).
 
-Bound on the card: bytes (2 B read, 4 B written per pixel). Each block
-decodes the gray of its tile ±3 rows and columns straight from the wire
-words into shared memory and runs K1's stencil code on it, so gray never
-reaches device memory; the same block stores the overlaid BGR of its own
-pixel pairs. The plain version below is K4's plain version followed by
-K1's. Any even W and any H (the Pallas kernel needed 8 | H and returned
-None otherwise, leaving the caller to run the unfused chain).
+Bound on the card: bytes (2 B read, 4 B written per pixel). It runs K1's
+row march (``csrc/stencil.cuh``) on gray rows decoded in registers from
+the wire words, so gray never reaches device memory; each lane decodes its
+own words once per row and stores their overlaid BGR from the same decode.
+The plain version below is K4's plain version followed by K1's. Any even
+W, any H and words at any address (the Pallas kernel needed 8 | H and
+returned None otherwise, leaving the caller to run the unfused chain).
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ cases (K7) against their numpy refs too, and the engine's decode modes and
 config 6's transcode against each other and against the CPU.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
-Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
+Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
+--noconftest`` (the suite's conftest imports jax, which that machine lacks).
 """
 
 import dataclasses
@@ -60,6 +61,53 @@ def test_kernels_match_plain_versions(cuda, w, h, n):
     assert kernels.launch_counts() == {
         "blur_sobel_mag": 1, "yuyv_decode_interleave": 2, "yuyv_tick_fused": 2,
         "harris_response_f32": 0, "harris_response_i32": 0, "mosaic_shuffle": 0}
+
+
+def _misaligned(t, offset=1):
+    """A contiguous copy of ``t`` starting ``offset`` bytes into a buffer."""
+    buf = torch.empty(t.numel() + offset, dtype=torch.uint8, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (W, H, N): W % 8 in every residue, images smaller than the ±3 halo, the
+# main path's shapes.
+K1_SHAPES = [(131, 37, 3), (134, 9, 2), (6, 3, 1), (2, 1, 1), (1, 2, 1), (129, 70, 1),
+             (132, 33, 2), (133, 8, 1), (135, 40, 1), (136, 41, 2), (640, 480, 8),
+             (1920, 1080, 8)]
+K5_SHAPES = [(134, 9, 2), (6, 3, 1), (2, 1, 1), (130, 50, 3), (132, 33, 2), (136, 41, 2),
+             (258, 70, 1), (1920, 1080, 8)]
+
+
+@pytest.mark.parametrize("w,h,n", K1_SHAPES)
+def test_blur_sobel_kernel_matches_plain_version(cuda, w, h, n):
+    """K1 bit-exact, at an aligned address and one byte past it."""
+    gray = torch.from_numpy(np.random.default_rng(w * h).integers(0, 256, (n, h, w), np.uint8)).to(cuda)
+    kernels.reset_launch_counts()
+    for g in (gray, _misaligned(gray)):
+        assert torch.equal(stencil.blur_sobel_mag(g), stencil.blur_sobel_mag_plain(g))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["blur_sobel_mag"] == 2
+
+
+@pytest.mark.parametrize("w,h,n", K5_SHAPES)
+def test_tick_fused_kernel_matches_plain_version(cuda, w, h, n):
+    """K5 bit-exact with and without the overlay, with rectangles across
+    strip edges and a thickness above a strip's rows, for words at any
+    address."""
+    src, _, colors = _inputs(w, h, n, cuda, seed=w * 3 + h)
+    pool = [[w // 3, h // 4, w // 2, h // 2], [-9, -5, w + 20, h // 3], [w - 3, h - 2, 9, 9],
+            [1, 30, w - 2, 45], [0, 7, 3, 100]]
+    rects = torch.tensor([pool[i % len(pool)] for i in range(n)], dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    for overlay, thickness in ((True, 2), (True, 70), (False, 0)):
+        want = tick_fused.yuyv_tick_fused_plain(src, w, h, rects, colors, thickness, overlay)
+        for s in (src, _misaligned(src), _misaligned(src, 2)):
+            got = tick_fused.yuyv_tick_fused(s, w, h, rects, colors, thickness, overlay)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (overlay, thickness)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["yuyv_tick_fused"] == 9
 
 
 @pytest.mark.parametrize("n,h,w", [(2, 48, 64), (3, 50, 130), (1, 1, 2), (1, 2, 1),
