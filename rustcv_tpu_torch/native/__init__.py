@@ -141,12 +141,6 @@ def _info(lib, buf: np.ndarray) -> tuple:
     return info, [(bh[c], bw[c]) for c in range(n)]
 
 
-def jpeg_entropy_info(data: "np.ndarray | bytes") -> dict:
-    """Header-only parse: geometry + per-component padded block grids."""
-    info, blocks = _info(_need_lib(), _as_u8_buf(data))
-    return {**info, "blocks": blocks}
-
-
 def jpeg_entropy_decode(data: "np.ndarray | bytes"):
     """Baseline-JPEG entropy decode → coefficient grids + quant tables.
 

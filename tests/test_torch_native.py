@@ -56,7 +56,6 @@ def test_dense_payloads_are_the_references_bytes(coders, w, h, sub, quality):
         assert got == ref.jpeg_entropy_encode(grids, *args)
         info, dec, qts = native.jpeg_entropy_decode(got)
         assert (info["width"], info["height"], info["ncomp"]) == (w, h, 3)
-        assert native.jpeg_entropy_info(got) == ref.jpeg_entropy_info(got)
         for c in range(3):
             np.testing.assert_array_equal(dec[c].reshape(grids[c].shape), grids[c])
             np.testing.assert_array_equal(qts[c].reshape(-1), (qy, qc, qc)[c])
