@@ -32,9 +32,10 @@ Phases:
    port's C++ JPEG coder ``rustcv_tpu_torch.native`` (g++);
 2. each kernel (K1 stencil, K4 decode+interleave, K5 fused tick, both
    Harris forms) against its plain PyTorch version on the card, at
-   8×1920×1080 and at small ragged shapes: bit-exact, except the float32
-   Harris response, within rtol 2e-4, atol 1e-6; each K7 case: kernel,
-   plain version and the case's numpy ref, exact;
+   8×1920×1080 and at small ragged shapes, on aligned and misaligned
+   inputs: bit-exact, the float32 Harris response bit-identical too (and
+   within rtol 2e-4, atol 1e-6); each K7 case: kernel, plain version and
+   the case's numpy ref, exact;
 3. the paths for 20 ticks (frames) each: the headline engine in every
    decode mode identical to a plain engine's (``stencil_impl="xla"``) on
    the card; config 4's masks and corner lists identical to the plain
@@ -178,8 +179,10 @@ def misaligned(t, offset: int = 1):
 
 def check_kernels(dev) -> dict:
     """Phase 2: every kernel vs its plain version on the card, at the main
-    path's shapes, ragged and tiny shapes and misaligned views; K5 and K4
-    also with a rectangle thicker than a strip of rows."""
+    path's shapes, ragged and tiny shapes and misaligned views (K1, K4, K5
+    on words 1 and 2 bytes past an allocation's start, both Harris forms on
+    a misaligned plane); K5 and K4 also with a rectangle thicker than a
+    strip of rows."""
     import torch
 
     from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, stencil, tick_fused
@@ -195,25 +198,31 @@ def check_kernels(dev) -> dict:
             rects, colors = overlay_args(w, h, n, dev, rng)
             for overlay, thickness in ((True, THICKNESS), (False, THICKNESS), (True, 40)):
                 args = (src, w, h, rects, colors, thickness, overlay)
-                got = decode_interleave.yuyv_decode_interleave(*args)
-                want = decode_interleave.yuyv_decode_interleave_plain(*args)
-                e["yuyv_decode_interleave"] = max(e.get("yuyv_decode_interleave", 0),
-                                                  *map(max_abs_err, got, want))
-                want = tick_fused.yuyv_tick_fused_plain(*args)
-                for s in (src, misaligned(src), misaligned(src, 2)):
-                    got = tick_fused.yuyv_tick_fused(s, *args[1:])
-                    e["yuyv_tick_fused"] = max(e.get("yuyv_tick_fused", 0),
-                                               *map(max_abs_err, got, want))
+                for name, kern, plain in (
+                        ("yuyv_decode_interleave", decode_interleave.yuyv_decode_interleave,
+                         decode_interleave.yuyv_decode_interleave_plain),
+                        ("yuyv_tick_fused", tick_fused.yuyv_tick_fused,
+                         tick_fused.yuyv_tick_fused_plain)):
+                    want = plain(*args)
+                    for s in (src, misaligned(src), misaligned(src, 2)):
+                        e[name] = max(e.get(name, 0), *map(max_abs_err, kern(s, *args[1:]), want))
         e["harris_response_i32"] = max(
-            max_abs_err(harris.harris_response_i32(gray, k_num),
-                        harris.harris_response_i32_plain(gray, k_num)) for k_num in (41, 61))
-        got, want = harris.harris_response(gray), harris.harris_response_plain(gray)
-        e["harris_response_f32"], rel = harris_f32_errs(got, want)
+            max_abs_err(harris.harris_response_i32(g, k_num),
+                        harris.harris_response_i32_plain(gray, k_num))
+            for k_num in (41, 61) for g in (gray, misaligned(gray)))
+        want = harris.harris_response_plain(gray)
+        rel, same = 0.0, True
+        for g in (gray, misaligned(gray)):
+            got = harris.harris_response(g)
+            err, r = harris_f32_errs(got, want)
+            e["harris_response_f32"] = max(e.get("harris_response_f32", 0.0), err)
+            rel, same = max(rel, r), same and torch.equal(got, want)
+            expect(torch.allclose(got, want, **HARRIS_TOL),
+                   f"float32 Harris at N={n} {w}x{h} outside rtol 2e-4, atol 1e-6")
         torch.cuda.synchronize()
-        print(f"kernels vs plain at N={n} {w}x{h}: max|diff| {e}; float32 Harris max rel "
-              f"diff {rel:.3e}, bit-identical {torch.equal(got, want)}", flush=True)
-        expect(torch.allclose(got, want, **HARRIS_TOL),
-               f"float32 Harris at N={n} {w}x{h} outside rtol 2e-4, atol 1e-6")
+        print(f"kernels vs plain at N={n} {w}x{h} (aligned and misaligned): max|diff| {e}; "
+              f"float32 Harris max rel diff {rel:.3e}, bit-identical {same}", flush=True)
+        expect(same, f"float32 Harris at N={n} {w}x{h} is not bit-identical to its plain version")
         for name, v in e.items():
             errs[name] = max(errs[name], v)
     exact = {k: v for k, v in errs.items() if k != "harris_response_f32"}

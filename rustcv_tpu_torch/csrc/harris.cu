@@ -14,17 +14,27 @@
 //            the clamped position, not a product of replicated gray):
 //            horizontal taps first, then vertical;
 //   float32: taps /16 summed left to right, R = det − (k·tr)·tr;
-//   int32:   s5 = ((Σ + 128) >> 8) >> 5 (arithmetic shifts),
-//            R = det − k_num·((((sxx5 + syy5) >> 1)²) >> 8).
+//   int32:   s5 = ((Σ + 128) >> 8) >> 5 = (Σ + 128) >> 13 (arithmetic
+//            shifts compose), R = det − k_num·((((sxx5 + syy5) >> 1)²) >> 8).
 //
-// Bound: bytes. The response reads 1 B and writes 4 B per pixel; the plain
-// chain writes and re-reads int32 / float32 planes between ~20 passes.
-// Design: one block per (32×32 output tile, image). The block reads its
-// gray tile with a ±3 halo once, at clamped coordinates, into shared
-// memory; computes the Sobel and the three products at the CLAMPED centres
-// of the tile ±2 (so the window's replicate border falls out of the
-// indexing, for any H and W and a partial last tile); keeps the product
-// planes and the horizontal sums in shared memory; writes only R.
+// Bound: the response reads 1 B and writes 4 B per pixel, but its
+// arithmetic (about 65 instructions per pixel at 8 × 1080p, most of them on
+// the half-rate integer pipes in the int32 form) is the nearer limit. The
+// design is the row march of stencil.cuh: a warp walks a strip of 11 to 24
+// output rows, a lane owns C = 4 adjacent columns (8 when the batch fills
+// the card twice over; lanes 0 and 31 only supply the halo), and the
+// neighbours' gray comes by warp shuffles; no shared memory, no barrier.
+// Per gray row a lane takes its gray as 16-bit pairs and keeps the
+// vertical Sobel sums as [1, 1] cascades; per product row it forms gx, gy
+// at its C columns ±2 in 16-bit lanes (PRMT selectors fixed per lane
+// replicate them, and so the products, past the image's edges), the three
+// products on the FP32 pipe, and their horizontal 5-tap; the vertical
+// 5-tap is a cascade of four partial sums per column and product, each
+// summed oldest row first, which keeps the float32 form's order of
+// roundings with no register moves. The int32 form computes each product
+// as the bits of gx·gy + 1.5·2²³ (exact: |gx·gy| < 2²⁰), so its sums run in
+// wrapping integers, each carrying a constant bias that the final shift
+// removes.
 //
 // C interface for ctypes: each launcher returns cudaGetLastError().
 
@@ -32,77 +42,91 @@
 
 namespace rcv {
 
-constexpr int kHarrisTile = 32;     // output rows and columns per block
-constexpr int kHarrisThreads = 256;
-constexpr int kHarrisHalo = 3;      // Sobel radius 1 + window radius 2
-constexpr int kHarrisGray = kHarrisTile + 2 * kHarrisHalo;  // gray tile side
-constexpr int kHarrisProd = kHarrisTile + 4;                // product tile side
-
-template <typename T>
-struct HarrisSmem {
-  // gray[r][c] = gray[clamp(ty0 - 3 + r)][clamp(tx0 - 3 + c)]
-  uint8_t gray[kHarrisGray][kHarrisGray];
-  // prod[q][r][c] = product q (xx, yy, xy) at centre
-  //                 (clamp(ty0 - 2 + r), clamp(tx0 - 2 + c))
-  T prod[3][kHarrisProd][kHarrisProd];
-  // hsum[q][r][c] = horizontal window sum of prod[q][r] at output column c
-  T hsum[3][kHarrisProd][kHarrisTile];
-};
-
 // float32 form (K6). One IEEE rounding per operation, in the plain
 // version's order; the _rn intrinsics keep nvcc from contracting a
-// multiply and an add into an FMA.
+// multiply and an add into an FMA. The taps run on values 16 times the
+// plain version's, weights (1, 4, 6, 4, 1) for (1, 4, 6, 4, 1)/16: scaling
+// by a power of two commutes with every rounding (no value here comes near
+// float32's overflow or subnormal range), so each sum is exactly 16 times
+// the plain one, the windows 256 times, the response 65536 times, and one
+// exact multiply by 2⁻¹⁶ gives the plain response bit for bit. A weight of
+// 4 or 1 scales exactly, so fmaf with it rounds once, as the plain
+// multiply and add do.
 struct HarrisF32 {
   using T = float;
+  using Out = float;
   float k;
 
-  __device__ __forceinline__ void products(int gx, int gy, float& xx, float& yy,
+  __device__ __forceinline__ void products(float gx, float gy, float& xx, float& yy,
                                            float& xy) const {
     const float norm = static_cast<float>(1.0 / (255.0 * 4.0));
-    const float fx = __fmul_rn(static_cast<float>(gx), norm);
-    const float fy = __fmul_rn(static_cast<float>(gy), norm);
+    const float fx = __fmul_rn(gx, norm);
+    const float fy = __fmul_rn(gy, norm);
     xx = __fmul_rn(fx, fx);
     yy = __fmul_rn(fy, fy);
     xy = __fmul_rn(fx, fy);
   }
-  // Σ w_i·p[i·stride], w = (1, 4, 6, 4, 1)/16 (exact in float32).
-  __device__ __forceinline__ float taps(const float* p, int stride) const {
-    float acc = __fmul_rn(0.0625f, p[0]);
-    acc = __fadd_rn(acc, __fmul_rn(0.25f, p[stride]));
-    acc = __fadd_rn(acc, __fmul_rn(0.375f, p[2 * stride]));
-    acc = __fadd_rn(acc, __fmul_rn(0.25f, p[3 * stride]));
-    return __fadd_rn(acc, __fmul_rn(0.0625f, p[4 * stride]));
+  // 16 · (1, 4, 6, 4, 1)/16 · p, summed left to right.
+  __device__ __forceinline__ float hsum(float p0, float p1, float p2, float p3, float p4) const {
+    float acc = fmaf(4.0f, p1, p0);
+    acc = __fadd_rn(acc, __fmul_rn(6.0f, p2));
+    acc = fmaf(4.0f, p3, acc);
+    return __fadd_rn(acc, p4);
   }
-  __device__ __forceinline__ float window(float acc) const { return acc; }
+  // A new row into the vertical cascade: q[j] holds the sum of the first
+  // j+1 terms of a window that started j rows ago; returns the window that
+  // the new row completes.
+  __device__ __forceinline__ float feed(float (&q)[4], float v) const {
+    const float out = __fadd_rn(q[3], v);
+    q[3] = fmaf(4.0f, v, q[2]);
+    q[2] = __fadd_rn(q[1], __fmul_rn(6.0f, v));
+    q[1] = fmaf(4.0f, v, q[0]);
+    q[0] = v;
+    return out;
+  }
   __device__ __forceinline__ float response(float sxx, float syy, float sxy) const {
     const float det = __fsub_rn(__fmul_rn(sxx, syy), __fmul_rn(sxy, sxy));
     const float tr = __fadd_rn(sxx, syy);
-    return __fsub_rn(det, __fmul_rn(__fmul_rn(k, tr), tr));
+    return __fmul_rn(__fsub_rn(det, __fmul_rn(__fmul_rn(k, tr), tr)), 1.0f / 65536.0f);
   }
 };
 
-// int32 form. |product| <= 1,040,400, a window sum <= 256 times that, and
-// after >> 5 every product below fits int32 (golden.harris_response_i32).
-// Only k_num·(...) may exceed it for a large k_num: that step wraps in
-// unsigned arithmetic, as int32 tensors do.
+// int32 form. A product is carried as its biased bits b = p + 0x4B400000
+// (the bits of the float p + 1.5·2²³, exact for |p| ≤ 1020² < 2²²); the
+// window's weights sum to 256, so the window sum is Σ + 256·0x4B400000 =
+// Σ + 0x40000000 modulo 2³². Σ is at most 256·1020² < 2³¹, so the window
+// is exact, and after >> 13 every product below fits int32
+// (golden.harris_response_i32). Only k_num·(...) may exceed it for a large
+// k_num: that step wraps in unsigned arithmetic, as int32 tensors do.
 struct HarrisI32 {
-  using T = int;
+  using T = uint32_t;
+  using Out = int;
   int k_num;
 
-  __device__ __forceinline__ void products(int gx, int gy, int& xx, int& yy,
-                                           int& xy) const {
-    xx = gx * gx;
-    yy = gy * gy;
-    xy = gx * gy;
+  __device__ __forceinline__ void products(float gx, float gy, uint32_t& xx, uint32_t& yy,
+                                           uint32_t& xy) const {
+    xx = __float_as_uint(fmaf(gx, gx, kRoundMagic));
+    yy = __float_as_uint(fmaf(gy, gy, kRoundMagic));
+    xy = __float_as_uint(fmaf(gx, gy, kRoundMagic));
   }
-  __device__ __forceinline__ int taps(const int* p, int stride) const {
-    return p[0] + 4 * p[stride] + 6 * p[2 * stride] + 4 * p[3 * stride] +
-           p[4 * stride];
+  __device__ __forceinline__ uint32_t hsum(uint32_t p0, uint32_t p1, uint32_t p2, uint32_t p3,
+                                           uint32_t p4) const {
+    return p0 + p4 + 4 * (p1 + p3) + 6 * p2;
   }
-  __device__ __forceinline__ int window(int acc) const {
-    return ((acc + 128) >> 8) >> 5;
+  __device__ __forceinline__ uint32_t feed(uint32_t (&q)[4], uint32_t v) const {
+    const uint32_t out = q[3] + v;
+    q[3] = q[2] + 4 * v;
+    q[2] = q[1] + 6 * v;
+    q[1] = q[0] + 4 * v;
+    q[0] = v;
+    return out;
   }
-  __device__ __forceinline__ int response(int sxx5, int syy5, int sxy5) const {
+  // (Σ + 128) >> 13 from the biased window sum.
+  __device__ __forceinline__ static int window(uint32_t acc) {
+    return static_cast<int>(acc + (128u - 0x40000000u)) >> 13;
+  }
+  __device__ __forceinline__ int response(uint32_t axx, uint32_t ayy, uint32_t axy) const {
+    const int sxx5 = window(axx), syy5 = window(ayy), sxy5 = window(axy);
     const int det = sxx5 * syy5 - sxy5 * sxy5;
     const int trh = (sxx5 + syy5) >> 1;
     const unsigned penalty =
@@ -111,91 +135,263 @@ struct HarrisI32 {
   }
 };
 
-template <typename P>
-__global__ void __launch_bounds__(kHarrisThreads)
-    harris_kernel(const uint8_t* __restrict__ gray,
-                  typename P::T* __restrict__ out, int h, int w, P pol) {
+// One lane's march over a strip: C output columns x0 .. x0+C-1. Gray pairs
+// k = 0 .. C/2+2 hold columns (x0-3+2k, x0-2+2k) as 16-bit lanes; product
+// columns j = 0 .. C+3 are x0-2+j.
+template <class P, class Src>
+struct HarrisMarch {
+  static constexpr int C = Src::kCols;
+  static constexpr int kG = C / 2 + 3;  // gray pairs
+  static constexpr int kQ = C + 4;      // product columns
   using T = typename P::T;
-  __shared__ HarrisSmem<T> sm;
-  const int tx0 = blockIdx.x * kHarrisTile;
-  const int ty0 = blockIdx.y * kHarrisTile;
-  const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
-  const uint8_t* g = gray + plane;
+  const Src& src;
+  const P& pol;
+  int h;
+  // PRMT selectors that replicate the products at the image's edges, fixed
+  // for the march: pair k of gx (and of gy) takes its lanes from itself or
+  // from pair k-1 once fixed (bytes 4-7), identity 0x3210 away from the
+  // edges. Replicating gx and gy at a column replicates its products.
+  uint32_t fix[kQ / 2];
+  decltype(src.load(0)) next;
+  uint32_t g1[kG] = {}, a1[kG] = {}, d1[kG] = {};  // the gray cascade at the last row
+  uint32_t sm[kG], df[kG];  // vertical smooth (<= 1020) and difference (+ 510) per pair
+  T q[3][C][4] = {};        // the vertical cascades per product and column
 
-  // 1. The gray tile ±3 at clamped coordinates.
-  for (int i = threadIdx.x; i < kHarrisGray * kHarrisGray; i += kHarrisThreads) {
-    const int r = i / kHarrisGray;
-    const int c = i - r * kHarrisGray;
-    const int yy = clampi(ty0 - kHarrisHalo + r, 0, h - 1);
-    const int xx = clampi(tx0 - kHarrisHalo + c, 0, w - 1);
-    sm.gray[r][c] = g[static_cast<size_t>(yy) * w + xx];
+  __device__ __forceinline__ HarrisMarch(const Src& s, const P& p, int h_, int w, int x0, int g0)
+      : src(s), pol(p), h(h_), next(s.load(clampi(g0, 0, h_ - 1))) {
+    const int last = w - 1 - (x0 - 2);  // the product column of image column w-1
+#pragma unroll
+    for (int k = 1; k < kQ / 2; ++k) {
+      // columns beyond w-1 take column w-1: the pair's high lane from its
+      // low one, or both lanes from the previous pair's high lane
+      fix[k] = 2 * k + 1 <= last ? 0x3210 : 2 * k == last ? 0x1010 : 0x7676;
+    }
+    fix[0] = x0 == 0 ? 0x5454 : 0x3210;  // columns -2, -1 take column 0 (pair 1's low lane)
   }
-  __syncthreads();
 
-  // 2. Sobel and products at the clamped centres of the tile ±2. The
-  //    centre's gray row sr and column sc lie in [1, kHarrisGray - 2], and
-  //    gray rows sr±1 hold image rows clamp(centre ± 1).
-  for (int i = threadIdx.x; i < kHarrisProd * kHarrisProd; i += kHarrisThreads) {
-    const int r = i / kHarrisProd;
-    const int c = i - r * kHarrisProd;
-    const int sr = clampi(ty0 - 2 + r, 0, h - 1) - (ty0 - kHarrisHalo);
-    const int sc = clampi(tx0 - 2 + c, 0, w - 1) - (tx0 - kHarrisHalo);
-    const uint8_t* top = sm.gray[sr - 1];
-    const uint8_t* mid = sm.gray[sr];
-    const uint8_t* bot = sm.gray[sr + 1];
-    const int smooth_l = top[sc - 1] + 2 * mid[sc - 1] + bot[sc - 1];
-    const int smooth_r = top[sc + 1] + 2 * mid[sc + 1] + bot[sc + 1];
-    const int gx = smooth_r - smooth_l;
-    const int gy = (bot[sc - 1] - top[sc - 1]) + 2 * (bot[sc] - top[sc]) +
-                   (bot[sc + 1] - top[sc + 1]);
-    pol.products(gx, gy, sm.prod[0][r][c], sm.prod[1][r][c], sm.prod[2][r][c]);
+  // Gray row g (the next one of the march): sm and df then hold the
+  // vertical Sobel sums centred at g-1 over rows clamp(g-2 .. g).
+  __device__ __forceinline__ void gray_row(int g) {
+    const auto raw = next;
+    next = src.load(clampi(g + 1, 0, h - 1));
+    const GrayWords<C> c = src.gray(raw, clampi(g, 0, h - 1), false);
+    uint32_t wd[C / 4 + 2];
+    wd[0] = __shfl_up_sync(0xFFFFFFFFu, c.v[C / 4 - 1], 1);
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) wd[i + 1] = c.v[i];
+    wd[C / 4 + 1] = __shfl_down_sync(0xFFFFFFFFu, c.v[0], 1);
+#pragma unroll
+    for (int k = 0; k < kG; ++k) {
+      // bytes 1+2k, 2+2k of wd as the low bytes of two 16-bit lanes
+      const int b = 1 + 2 * k;
+      const uint32_t t = b % 4 == 1 ? wd[b / 4] : __funnelshift_r(wd[b / 4], wd[b / 4 + 1], 24);
+      const uint32_t p = __byte_perm(t, 0, b % 4 == 1 ? 0x4241 : 0x4140);
+      const uint32_t a = p + g1[k];
+      const uint32_t d = p + 0x00FF00FFu - g1[k];
+      sm[k] = a + a1[k];
+      df[k] = d + d1[k];
+      g1[k] = p;
+      a1[k] = a;
+      d1[k] = d;
+    }
   }
-  __syncthreads();
 
-  // 3. Horizontal window taps: output column c reads product columns c..c+4,
-  //    which hold image columns clamp(x - 2) .. clamp(x + 2).
-  for (int i = threadIdx.x; i < 3 * kHarrisProd * kHarrisTile; i += kHarrisThreads) {
-    const int q = i / (kHarrisProd * kHarrisTile);
-    const int rest = i - q * (kHarrisProd * kHarrisTile);
-    const int r = rest / kHarrisTile;
-    const int c = rest - r * kHarrisTile;
-    sm.hsum[q][r][c] = pol.taps(&sm.prod[q][r][c], 1);
+  // The products at the centre of sm, df, at columns clamp(x0-2 .. x0+C+1),
+  // and their horizontal window sums at x0 .. x0+C-1.
+  __device__ __forceinline__ void product_row(T (&hs)[3][C], uint32_t magic) const {
+    uint32_t gx[kQ / 2], gy[kQ / 2];
+#pragma unroll
+    for (int k = 0; k < kQ / 2; ++k) {  // product columns 2k, 2k+1
+      gx[k] = sm[k + 1] + 0x03FC03FCu - sm[k];  // gx + 1020 per lane
+      gy[k] = df[k] + 2 * __byte_perm(df[k], df[k + 1], 0x5432) + df[k + 1];  // + 2040
+    }
+#pragma unroll
+    for (int k = 1; k < kQ / 2; ++k) {
+      gx[k] = __byte_perm(gx[k], gx[k - 1], fix[k]);
+      gy[k] = __byte_perm(gy[k], gy[k - 1], fix[k]);
+    }
+    gx[0] = __byte_perm(gx[0], gx[1], fix[0]);
+    gy[0] = __byte_perm(gy[0], gy[1], fix[0]);
+    T pr[3][kQ];
+#pragma unroll
+    for (int k = 0; k < kQ / 2; ++k) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t sel = half ? 0x7432 : 0x7410;  // the lane under the magic exponent
+        const float fx = __uint_as_float(__byte_perm(gx[k], magic, sel)) - (kMagic + 1020.0f);
+        const float fy = __uint_as_float(__byte_perm(gy[k], magic, sel)) - (kMagic + 2040.0f);
+        pol.products(fx, fy, pr[0][2 * k + half], pr[1][2 * k + half], pr[2][2 * k + half]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        hs[m][i] = pol.hsum(pr[m][i], pr[m][i + 1], pr[m][i + 2], pr[m][i + 3], pr[m][i + 4]);
+      }
+    }
   }
-  __syncthreads();
 
-  // 4. Vertical taps (rows r..r+4), then the response.
-  T* o = out + plane;
-  for (int i = threadIdx.x; i < kHarrisTile * kHarrisTile; i += kHarrisThreads) {
-    const int r = i / kHarrisTile;
-    const int c = i - r * kHarrisTile;
-    const int y = ty0 + r;
-    const int x = tx0 + c;
-    if (y >= h || x >= w) continue;
-    const T sxx = pol.window(pol.taps(&sm.hsum[0][r][c], kHarrisTile));
-    const T syy = pol.window(pol.taps(&sm.hsum[1][r][c], kHarrisTile));
-    const T sxy = pol.window(pol.taps(&sm.hsum[2][r][c], kHarrisTile));
-    o[static_cast<size_t>(y) * w + x] = pol.response(sxx, syy, sxy);
+  // One product row's sums into the vertical cascades; out gets the
+  // windows it completes.
+  __device__ __forceinline__ void feed(const T (&hs)[3][C], T (&out)[3][C]) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) out[m][i] = pol.feed(q[m][i], hs[m][i]);
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t out_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t out_bits(int v) { return static_cast<uint32_t>(v); }
+
+// One warp's strip: output rows y0 .. y1-1 of the [h, w] plane; the lane's
+// columns x0 .. x0+C-1, stored when `owner`. Product rows y0-2 .. y1+1 at
+// clamped rows: the centres above the image take row 0 (fed three times
+// when y0 == 0), those below it repeat row h-1. The main loop computes
+// one product row and one output row per step, with no branch.
+// kStore: w % 4 == 0 and `out` 16-byte aligned, so C outputs go out as
+// 16-byte stores. Every lane of the warp must call it (shuffles).
+template <bool kStore, class P, class Src>
+__device__ __forceinline__ void harris_strip(const Src& src, const P& pol,
+                                             typename P::Out* __restrict__ out, int h, int w,
+                                             int x0, int y0, int y1, bool owner, uint32_t magic) {
+  constexpr int C = Src::kCols;
+  using T = typename P::T;
+  using Out = typename P::Out;
+  HarrisMarch<P, Src> m(src, pol, h, w, x0, y0 - 3);
+  m.gray_row(y0 - 3);
+  m.gray_row(y0 - 2);
+  T hs[3][C], acc[3][C];
+  for (int c = y0 - 2; c < y0 + 2; ++c) {  // the first four product rows
+    if (c < h) {
+      m.gray_row(c + 1);
+      if (c < 0) continue;
+      m.product_row(hs, magic);
+    }
+    for (int r = c == 0 ? 3 - y0 : 1; r > 0; --r) m.feed(hs, acc);
+  }
+  Out* row = out + static_cast<size_t>(y0) * w + x0;
+  const auto put = [&] {
+    Out v[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) v[i] = pol.response(acc[0][i], acc[1][i], acc[2][i]);
+    if (kStore) {
+#pragma unroll
+      for (int i = 0; i < C / 4; ++i) {
+        if (owner && x0 + 4 * i < w) {
+          reinterpret_cast<uint4*>(row)[i] = make_uint4(out_bits(v[4 * i]), out_bits(v[4 * i + 1]),
+                                                        out_bits(v[4 * i + 2]),
+                                                        out_bits(v[4 * i + 3]));
+        }
+      }
+    } else if (owner) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        if (x0 + i < w) row[i] = v[i];
+      }
+    }
+    row += w;
+  };
+  const int y_end = min(y1, h - 2);  // rows whose last product row lies in the image
+  int y = y0;
+#pragma unroll 2
+  for (; y < y_end; ++y) {
+    m.gray_row(y + 3);
+    m.product_row(hs, magic);
+    m.feed(hs, acc);
+    put();
+  }
+  for (; y < y1; ++y) {  // the bottom rows repeat product row h-1
+    m.feed(hs, acc);
+    put();
   }
 }
 
-template <typename P>
-int launch_harris(const void* gray, void* out, int n, int h, int w, P pol,
-                  void* stream) {
-  const dim3 grid((w + kHarrisTile - 1) / kHarrisTile,
-                  (h + kHarrisTile - 1) / kHarrisTile, n);
-  harris_kernel<P><<<grid, kHarrisThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(gray), static_cast<typename P::T*>(out), h, w, pol);
+// At most 128 registers a thread at 4 columns per lane: 4 blocks (16
+// warps) per SM.
+template <bool kWords, int C, class P>
+__global__ void __launch_bounds__(kLanes * kWarps, 16 / C)
+    harris_kernel(const uint8_t* __restrict__ gray, typename P::Out* __restrict__ out, int h,
+                  int w, int rows, P pol, uint32_t magic) {
+  int y0, y1, x0;
+  bool owner;
+  if (!warp_strip(C, h, rows, y0, y1, x0, owner)) return;  // the whole warp
+  const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
+  harris_strip<kWords>(GrayRows<kWords, C>(gray + plane, w, x0), pol, out + plane, h, w, x0, y0,
+                       y1, owner, magic);
+}
+
+constexpr int kHarrisCols = 4;  // columns per lane, unless the batch is large
+// Strip heights the launcher picks from, by balanced_rows: a strip
+// computes rows + 4 product rows, so shorter strips pay more halo, and
+// taller ones leave too few warps to hide the march's latency
+// (probes/harris_sweep.py measures both).
+constexpr int kHarrisMinRows = 11;
+constexpr int kHarrisMaxRows = 24;
+
+template <int C, class P>
+int launch_harris_cols(const void* gray, void* out, int n, int h, int w, P pol, int rows,
+                       cudaStream_t st) {
+  static int sms = 0;  // read from the card at first use
+  const bool words = w % 4 == 0 && reinterpret_cast<uintptr_t>(gray) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 block(kLanes, kWarps);
+  const auto* in = static_cast<const uint8_t*>(gray);
+  auto* o = static_cast<typename P::Out*>(out);
+  const int out_cols = (kLanes - 2) * C;
+  if (rows <= 0) {
+    const long col_warps = static_cast<long>(n) * ((w + out_cols - 1) / out_cols);
+    rows = balanced_rows(sms, col_warps, h, 4, kHarrisMinRows, kHarrisMaxRows);
+  }
+  if (words) {
+    harris_kernel<true, C, P><<<strip_grid(C, n, h, w, rows), block, 0, st>>>(in, o, h, w, rows,
+                                                                              pol, kMagicBits);
+  } else {
+    harris_kernel<false, C, P><<<strip_grid(C, n, h, w, rows), block, 0, st>>>(in, o, h, w, rows,
+                                                                               pol, kMagicBits);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// cols, rows: columns per lane (4 or 8) and strip height; 0 picks the
+// defaults: 8 columns where the batch's strips at kHarrisMaxRows fill the
+// card's resident warps of that kernel at least twice over (fewer product
+// columns per output, 1.5 for 2, where there are warps enough to spare the
+// registers), else 4; the strip height of balanced_rows.
+template <class P>
+int launch_harris(const void* gray, void* out, int n, int h, int w, P pol, int cols, int rows,
+                  void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (cols == 0) {
+    static int resident8 = 0;  // read from the card at first use
+    const long warps8 = static_cast<long>(n) * ((w + (kLanes - 2) * 8 - 1) / ((kLanes - 2) * 8)) *
+                        ((h + kHarrisMaxRows - 1) / kHarrisMaxRows);
+    cols = warps8 >= 2L * resident_warps(harris_kernel<true, 8, P>, resident8) ? 8 : kHarrisCols;
+  }
+  if (cols == 8) return launch_harris_cols<8>(gray, out, n, h, w, pol, rows, st);
+  return launch_harris_cols<4>(gray, out, n, h, w, pol, rows, st);
 }
 
 }  // namespace rcv
 
-extern "C" int rcv_harris_response_f32(const void* gray, void* out, int n, int h,
-                                       int w, float k, void* stream) {
-  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisF32{k}, stream);
+extern "C" int rcv_harris_response_f32(const void* gray, void* out, int n, int h, int w, float k,
+                                       void* stream) {
+  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisF32{k}, 0, 0, stream);
 }
 
-extern "C" int rcv_harris_response_i32(const void* gray, void* out, int n, int h,
-                                       int w, int k_num, void* stream) {
-  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisI32{k_num}, stream);
+extern "C" int rcv_harris_response_i32(const void* gray, void* out, int n, int h, int w,
+                                       int k_num, void* stream) {
+  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisI32{k_num}, 0, 0, stream);
+}
+
+// Either form with its grid shape given (the strip sweep of
+// rustcv_tpu_torch/probes/harris_sweep.py): form 0 float32 (k), 1 int32
+// (k_num); cols 4 or 8 per lane, `rows` per strip.
+extern "C" int rcv_harris_response_shaped(int form, const void* gray, void* out, int n, int h,
+                                          int w, float k, int k_num, int cols, int rows,
+                                          void* stream) {
+  if (form == 0) return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisF32{k}, cols, rows, stream);
+  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisI32{k_num}, cols, rows, stream);
 }

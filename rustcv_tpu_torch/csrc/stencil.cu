@@ -28,52 +28,6 @@ constexpr int kGrayCols = 8;  // columns per lane
 // 112-register build at 4 blocks, though ptxas spills a few bytes for it.
 constexpr int kGrayMinBlocks = 5;
 
-// Gray words of a [h, w] u8 plane for one lane at columns x0 .. x0+7,
-// clamped. kWords: w % 4 == 0 and the plane 4-byte aligned, so the lane
-// loads each aligned word at clamp(x, 0, w-4) and, off the image's edges,
-// repeats its edge byte (PRMT selectors fixed for the march); otherwise it
-// loads bytes at clamped columns.
-template <bool kWords>
-struct GrayRows {
-  static constexpr int kCols = kGrayCols;
-  const uint8_t* __restrict__ plane;
-  int w, x0;
-  uint32_t sel[kCols / 4];
-
-  __device__ __forceinline__ GrayRows(const uint8_t* p, int w_, int x0_)
-      : plane(p), w(w_), x0(x0_) {
-#pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
-      const int x = x0_ + 4 * i;
-      sel[i] = x < 0 ? 0x0000 : x >= w_ ? 0x3333 : 0x3210;
-    }
-  }
-  __device__ __forceinline__ GrayWords<kCols> load(int yc) const {
-    const uint8_t* row = plane + static_cast<size_t>(yc) * w;
-    GrayWords<kCols> v;
-#pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
-      if (kWords) {
-        v.v[i] = __ldg(reinterpret_cast<const uint32_t*>(row + clampi(x0 + 4 * i, 0, w - 4)));
-      } else {
-        v.v[i] = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          v.v[i] |= static_cast<uint32_t>(row[clampi(x0 + 4 * i + b, 0, w - 1)]) << (8 * b);
-        }
-      }
-    }
-    return v;
-  }
-  __device__ __forceinline__ GrayWords<kCols> gray(GrayWords<kCols> raw, int, bool) const {
-    if (kWords) {
-#pragma unroll
-      for (int i = 0; i < kCols / 4; ++i) raw.v[i] = __byte_perm(raw.v[i], 0, sel[i]);
-    }
-    return raw;
-  }
-};
-
 template <bool kWords>
 __global__ void __launch_bounds__(kLanes * kWarps, kGrayMinBlocks)
     blur_sobel_kernel(const uint8_t* __restrict__ gray, uint8_t* __restrict__ out,
@@ -82,8 +36,8 @@ __global__ void __launch_bounds__(kLanes * kWarps, kGrayMinBlocks)
   bool owner;
   if (!warp_strip(kGrayCols, h, rows, y0, y1, x0, owner)) return;  // the whole warp
   const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
-  blur_sobel_strip<kWords>(GrayRows<kWords>(gray + plane, w, x0), out + plane, h, w, x0, y0, y1,
-                           owner, magic);
+  blur_sobel_strip<kWords>(GrayRows<kWords, kGrayCols>(gray + plane, w, x0), out + plane, h, w,
+                           x0, y0, y1, owner, magic);
 }
 
 }  // namespace rcv

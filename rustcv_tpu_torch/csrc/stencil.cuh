@@ -297,22 +297,55 @@ __device__ __forceinline__ void blur_sobel_strip(const Src& src, uint8_t* __rest
   put();
 }
 
-// Output rows per strip: as many strips as give the card its resident
-// warps once (one wave, no tail), within 8 .. 64 rows (the halo costs
-// (rows + 6) / rows). `kernel` is the kernel to launch, for its occupancy;
-// `resident_warps` caches the card's number for it (0: not yet read).
+// The warps of `kernel` (blocks of kLanes × kWarps threads) the card holds
+// at once; `cache` keeps the number (0: not yet read from the card).
 template <class Kernel>
-inline int strip_rows(Kernel kernel, int& resident_warps, int cols, int n, int h, int w) {
-  if (resident_warps == 0) {
+inline int resident_warps(Kernel kernel, int& cache) {
+  if (cache == 0) {
     int dev = 0, sms = 0, blocks = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLanes * kWarps, 0);
-    resident_warps = max(sms * blocks * kWarps, 1);
+    cache = max(sms * blocks * kWarps, kWarps);
   }
+  return cache;
+}
+
+// Rows per strip, within lo .. hi, that least load the busiest SM when
+// the strips (kWarps to a block) spread evenly over the card's SMs: the
+// SM that gets ceil(blocks / SMs) blocks works (rows + halo) rows per
+// warp of each. For a grid of about one wave this beats filling the card
+// to the brim; `sms` caches the card's number of SMs (0: not yet read).
+inline int balanced_rows(int& sms, long col_warps, int h, int halo, int lo, int hi) {
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    sms = max(sms, 1);
+  }
+  int best = lo;
+  long best_cost = -1;
+  for (int rows = lo; rows <= hi; ++rows) {
+    const long strips = (h + rows - 1) / rows;
+    const long blocks = col_warps * ((strips + kWarps - 1) / kWarps);
+    const long cost = (blocks + sms - 1) / sms * (rows + halo);
+    if (best_cost < 0 || cost < best_cost) {
+      best = rows;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Output rows per strip of the row march: as many strips as fill the
+// card's resident blocks once (one wave, no tail), within 8 .. 64 rows (the
+// halo costs (rows + 6) / rows). `kernel` is the kernel to launch, for its
+// occupancy; `cache` as for resident_warps.
+template <class Kernel>
+inline int strip_rows(Kernel kernel, int& cache, int cols, int n, int h, int w) {
   const int out_cols = (kLanes - 2) * cols;
   const long col_warps = static_cast<long>(n) * ((w + out_cols - 1) / out_cols);
-  const long strips = max(resident_warps / col_warps, 1L);
+  const long strips = max(resident_warps(kernel, cache) / kWarps / col_warps, 1L) * kWarps;
   return static_cast<int>(min(max((h + strips - 1) / strips, 8L), 64L));
 }
 
@@ -321,6 +354,52 @@ inline dim3 strip_grid(int cols, int n, int h, int w, int rows) {
   const int out_cols = (kLanes - 2) * cols;
   return dim3((w + out_cols - 1) / out_cols, (strips + kWarps - 1) / kWarps, n);
 }
+
+// Gray words of a [h, w] u8 plane for one lane at columns x0 .. x0+C-1,
+// clamped (K1 and K6). kWords: w % 4 == 0 and the plane 4-byte aligned, so
+// the lane loads each aligned word at clamp(x, 0, w-4) and, off the
+// image's edges, repeats its edge byte (PRMT selectors fixed for the
+// march); otherwise it loads bytes at clamped columns.
+template <bool kWords, int C>
+struct GrayRows {
+  static constexpr int kCols = C;
+  const uint8_t* __restrict__ plane;
+  int w, x0;
+  uint32_t sel[C / 4];
+
+  __device__ __forceinline__ GrayRows(const uint8_t* p, int w_, int x0_)
+      : plane(p), w(w_), x0(x0_) {
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) {
+      const int x = x0_ + 4 * i;
+      sel[i] = x < 0 ? 0x0000 : x >= w_ ? 0x3333 : 0x3210;
+    }
+  }
+  __device__ __forceinline__ GrayWords<C> load(int yc) const {
+    const uint8_t* row = plane + static_cast<size_t>(yc) * w;
+    GrayWords<C> v;
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) {
+      if (kWords) {
+        v.v[i] = __ldg(reinterpret_cast<const uint32_t*>(row + clampi(x0 + 4 * i, 0, w - 4)));
+      } else {
+        v.v[i] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          v.v[i] |= static_cast<uint32_t>(row[clampi(x0 + 4 * i + b, 0, w - 1)]) << (8 * b);
+        }
+      }
+    }
+    return v;
+  }
+  __device__ __forceinline__ GrayWords<C> gray(GrayWords<C> raw, int, bool) const {
+    if (kWords) {
+#pragma unroll
+      for (int i = 0; i < C / 4; ++i) raw.v[i] = __byte_perm(raw.v[i], 0, sel[i]);
+    }
+    return raw;
+  }
+};
 
 // The warp's strip and this lane's first column, or false when the strip
 // lies below the image (the whole warp returns). A warp outputs 30·cols

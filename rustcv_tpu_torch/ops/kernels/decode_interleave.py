@@ -6,11 +6,18 @@ Replaces the Pallas kernel ``rustcv_tpu/ops/pallas/decode_interleave.py``
 overlay applied, and the gray plane of the frame before the overlay (the
 input of the gray filters).
 
-Bound on the card: bytes (2 B read, 4 B written per pixel). One thread
-decodes one YUYV word and stores the pair's 6 BGR bytes and 2 gray bytes
-directly; the plain version below makes int32 planes, stacks them and
-draws the overlay in a second pass over the BGR image. Any even W and
-any H (the Pallas kernel needed 8 | H and fell back otherwise).
+Bound on the card: bytes (2 B read, 4 B written per pixel). A warp walks
+2 rows of one stream; a lane owns 8 pixels (4 words) of a row, loads them
+as one 16-byte word and prefetches the next row's, decodes on the FP32
+pipe (as K5), takes luma with ``dp4a``, overlays with masks classified
+once per lane and once per row, and stores 8 gray bytes and 24 BGR bytes,
+the warp's BGR staged in shared memory so that every store instruction
+covers whole sectors. Where W % 8 != 0 or the words do not
+start on a 16-byte boundary, the kernel's second form reads words (or
+bytes) and stores 16-bit pairs. Any even W, any H, words at any address
+(the Pallas kernel needed 8 | H and fell back otherwise). The plain
+version below makes int32 planes, stacks them and draws the overlay in a
+second pass over the BGR image.
 """
 
 from __future__ import annotations
@@ -59,8 +66,6 @@ def yuyv_decode_interleave(src: torch.Tensor, width: int, height: int,
     tensor launches the kernel on the current stream."""
     global launches
     n = check_yuyv_args(src, width, height, rects, colors, overlay)
-    if src.device.type == "cuda" and src.data_ptr() % 4:
-        raise ValueError("src must be 4-byte aligned (the kernel reads 32-bit words)")
     thickness = int(thickness)
     if src.device.type == "cpu":
         return yuyv_decode_interleave_plain(src, width, height, rects, colors,

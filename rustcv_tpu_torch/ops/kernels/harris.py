@@ -15,10 +15,15 @@ products, a separable 5×5 (1, 4, 6, 4, 1) window over the replicate-padded
 * int32: taps summed, ``(Σ + 128) >> 8`` then ``>> 5``,
   ``det − k_num·(((sxx5 + syy5) >> 1)² >> 8)``.
 
-Bound on the card: bytes (1 B read, 4 B written per pixel). The kernel
-keeps the gray tile, the three product planes and the horizontal pass in
-shared memory; the plain versions below write and re-read int32 or float32
-planes between some twenty passes.
+Bound on the card: the response reads 1 B and writes 4 B per pixel, but
+its arithmetic (about 65 instructions per pixel) is the nearer limit. The
+kernel is a register row march (``csrc/stencil.cuh``): a warp walks a
+strip of 11 to 24 rows, a lane owns 4 columns (8 in a batch that fills
+the card twice over), neighbours come by warp shuffles, the vertical
+Sobel sums and the vertical window are cascades held in registers, and
+the products run on the FP32 pipe (the int32 form as the exact bits of
+``p + 1.5·2²³``). No shared memory, no barrier. The plain versions below
+write and re-read int32 or float32 planes between some twenty passes.
 """
 
 from __future__ import annotations
@@ -29,6 +34,11 @@ import torch
 
 from .. import filters
 from . import _build
+
+# The kernel's grid: strips of at least MIN_ROWS rows, 4 strips per block,
+# at most 65535 blocks down a plane.
+MIN_ROWS = 11
+MAX_H = 65535 * 4 * MIN_ROWS
 
 # Kernel launches since the last reset (see kernels.reset_launch_counts).
 launches_f32 = 0
@@ -85,9 +95,9 @@ def _check(gray) -> tuple:
         raise ValueError("gray must be a u8 tensor [N, H, W] or [H, W]")
     n, h, w = (1, *gray.shape) if gray.ndim == 2 else gray.shape
     _build.expect(gray, "gray", torch.uint8, gray.shape)
-    if min(n, h, w) < 1 or n > 65535 or h > 65535 * 32:
+    if min(n, h, w) < 1 or n > 65535 or h > MAX_H:
         raise ValueError(f"gray shape {tuple(gray.shape)}: need 1 <= N <= 65535, "
-                         f"1 <= H <= {65535 * 32} and W >= 1")
+                         f"1 <= H <= {MAX_H} (strips of {MIN_ROWS} rows) and W >= 1")
     return n, h, w
 
 

@@ -1,2 +1,4 @@
 """On-card probes of the port: :mod:`.mosaic_shuffle`, the counterpart of
-``probe_mosaic_shuffle.py`` (``python -m rustcv_tpu_torch.probes.mosaic_shuffle``)."""
+``probe_mosaic_shuffle.py`` (``python -m rustcv_tpu_torch.probes.mosaic_shuffle``);
+:mod:`.kernel_ab`, this checkout's kernels timed beside another checkout's;
+:mod:`.harris_sweep`, the Harris kernel's grid shapes timed."""

@@ -1,5 +1,6 @@
-"""Time this checkout's stencil kernels (K1 blur + Sobel, K5 fused tick)
-beside another checkout's, on one CUDA card, in one process.
+"""Time this checkout's kernels (K1 blur + Sobel, K4 decode + interleave,
+K5 fused tick, K6 Harris response in both forms) beside another
+checkout's, on one CUDA card, in one process.
 
     python -m rustcv_tpu_torch.probes.kernel_ab OTHER_ROOT
 
@@ -18,6 +19,7 @@ the times; it exits non-zero on a mismatch or without a card.
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
 import subprocess
@@ -79,7 +81,7 @@ def _cold(t) -> list:
 def main(argv=None) -> int:
     import torch
 
-    from rustcv_tpu_torch.ops.kernels import _build, stencil, tick_fused
+    from rustcv_tpu_torch.ops.kernels import _build, decode_interleave, harris, stencil, tick_fused
 
     args = list(sys.argv[1:] if argv is None else argv)
     if len(args) != 1:
@@ -129,11 +131,47 @@ def main(argv=None) -> int:
             return bgr, filt
         return run
 
+    def k4(lib):
+        bgr = torch.empty((N, H, 3 * W), dtype=torch.uint8, device=dev)
+        g = torch.empty((N, H, W), dtype=torch.uint8, device=dev)
+
+        def run(s):
+            _check(lib.rcv_yuyv_decode_interleave(s.data_ptr(), rects.data_ptr(),
+                                                  colors.data_ptr(), THICKNESS, 1, bgr.data_ptr(),
+                                                  g.data_ptr(), N, H, W, stream))
+            return bgr, g
+        return run
+
+    def k6(form, dtype):
+        def make(lib):
+            def run(g):
+                n, h, w = g.shape
+                out = torch.empty(g.shape, dtype=dtype, device=dev)
+                if form == "i32":
+                    _check(lib.rcv_harris_response_i32(g.data_ptr(), out.data_ptr(), n, h, w, 41,
+                                                       stream))
+                else:
+                    _check(lib.rcv_harris_response_f32(g.data_ptr(), out.data_ptr(), n, h, w,
+                                                       ctypes.c_float(0.04), stream))
+                return out
+            return run
+        return make
+
+    one = gray[:1].contiguous()
     cases = [
         ("K1 blur_sobel_mag N=8 1920x1080", k1, gray, lambda x: (stencil.blur_sobel_mag_plain(x),)),
         ("K1 blur_sobel_mag N=8 640x480", k1, vga, lambda x: (stencil.blur_sobel_mag_plain(x),)),
+        ("K4 yuyv_decode_interleave N=8 1920x1080", k4, src,
+         lambda x: decode_interleave.yuyv_decode_interleave_plain(x, W, H, rects, colors, THICKNESS,
+                                                                  True)),
         ("K5 yuyv_tick_fused N=8 1920x1080", k5, src,
          lambda x: tick_fused.yuyv_tick_fused_plain(x, W, H, rects, colors, THICKNESS, True)),
+        ("K6 harris_response_i32 N=1 1920x1080", k6("i32", torch.int32), one,
+         lambda x: (harris.harris_response_i32_plain(x, 41),)),
+        ("K6 harris_response_i32 N=8 1920x1080", k6("i32", torch.int32), gray,
+         lambda x: (harris.harris_response_i32_plain(x, 41),)),
+        ("K6 harris_response_f32 N=8 1920x1080", k6("f32", torch.float32), gray,
+         lambda x: (harris.harris_response_plain(x, 0.04),)),
     ]
     result = {"card": smi}
     ok = True

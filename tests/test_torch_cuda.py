@@ -71,6 +71,14 @@ def _misaligned(t, offset=1):
     return view
 
 
+def _overlay_pool(w, h, n, device):
+    """Per-stream rects inside and across strips of rows, over the frame
+    edges, and one rectangle taller than a strip."""
+    pool = [[w // 3, h // 4, w // 2, h // 2], [-9, -5, w + 20, h // 3], [w - 3, h - 2, 9, 9],
+            [1, 30, w - 2, 45], [0, 7, 3, 100]]
+    return torch.tensor([pool[i % len(pool)] for i in range(n)], dtype=torch.int32, device=device)
+
+
 # (W, H, N): W % 8 in every residue, images smaller than the ±3 halo, the
 # main path's shapes.
 K1_SHAPES = [(131, 37, 3), (134, 9, 2), (6, 3, 1), (2, 1, 1), (1, 2, 1), (129, 70, 1),
@@ -97,9 +105,7 @@ def test_tick_fused_kernel_matches_plain_version(cuda, w, h, n):
     strip edges and a thickness above a strip's rows, for words at any
     address."""
     src, _, colors = _inputs(w, h, n, cuda, seed=w * 3 + h)
-    pool = [[w // 3, h // 4, w // 2, h // 2], [-9, -5, w + 20, h // 3], [w - 3, h - 2, 9, 9],
-            [1, 30, w - 2, 45], [0, 7, 3, 100]]
-    rects = torch.tensor([pool[i % len(pool)] for i in range(n)], dtype=torch.int32, device=cuda)
+    rects = _overlay_pool(w, h, n, cuda)
     kernels.reset_launch_counts()
     for overlay, thickness in ((True, 2), (True, 70), (False, 0)):
         want = tick_fused.yuyv_tick_fused_plain(src, w, h, rects, colors, thickness, overlay)
@@ -147,10 +153,53 @@ def test_config4_engine_on_the_card_matches_the_cpu(cuda, monkeypatch, filt):
                 np.testing.assert_array_equal(a, b, err_msg=str(key))
 
 
-def test_misaligned_words_are_refused(cuda):
-    src = torch.zeros(64 * 48 * 2 + 1, dtype=torch.uint8, device=cuda)[1:].reshape(1, -1)
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.yuyv_decode_interleave(src, 64, 48)
+# (W, H, N): W % 8 in every even residue, H below a strip's rows, the main
+# path's shape.
+K4_SHAPES = [(2, 1, 1), (6, 3, 1), (130, 5, 2), (132, 33, 2), (134, 9, 2), (136, 41, 2),
+             (258, 70, 1), (520, 7, 3), (1920, 1080, 8)]
+
+
+@pytest.mark.parametrize("w,h,n", K4_SHAPES)
+def test_decode_interleave_kernel_matches_plain_version(cuda, w, h, n):
+    """K4 bit-exact with and without the overlay, with rectangles across
+    strip edges and a thickness above a strip's rows, for words at any
+    address."""
+    src, _, colors = _inputs(w, h, n, cuda, seed=w * 5 + h)
+    rects = _overlay_pool(w, h, n, cuda)
+    kernels.reset_launch_counts()
+    for overlay, thickness in ((True, 2), (True, 70), (False, 0)):
+        want = decode_interleave.yuyv_decode_interleave_plain(src, w, h, rects, colors, thickness,
+                                                              overlay)
+        for s in (src, _misaligned(src), _misaligned(src, 2)):
+            got = decode_interleave.yuyv_decode_interleave(s, w, h, rects, colors, thickness, overlay)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (overlay, thickness)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["yuyv_decode_interleave"] == 9
+
+
+# (N, H, W): H around the kernel's strip heights (12 .. 24 rows) and below
+# the ±3 halo, W % 4 in every residue, config 4's 1 × 1080p and 8 × 1080p.
+K6_SHAPES = [(1, 1, 5), (1, 3, 6), (2, 6, 7), (1, 11, 64), (2, 12, 65), (1, 13, 66),
+             (3, 23, 131), (1, 24, 130), (2, 25, 129), (1, 49, 132), (1, 1080, 1920),
+             (8, 1080, 1920)]
+
+
+@pytest.mark.parametrize("n,h,w", K6_SHAPES)
+def test_harris_kernel_strip_edges(cuda, n, h, w):
+    """Both Harris forms bit-exact with their plain versions across strip
+    edges, on an aligned and a misaligned plane, for k_num 41, 61 and
+    100,000 (where k_num·(...) wraps) and float32 k 0.04 and 0.06."""
+    gray = torch.from_numpy(np.random.default_rng(n * h + w).integers(0, 256, (n, h, w), np.uint8)).to(cuda)
+    kernels.reset_launch_counts()
+    for g in (gray, _misaligned(gray)):
+        for k_num in (41, 61, 100_000):
+            assert torch.equal(harris.harris_response_i32(g, k_num),
+                               harris.harris_response_i32_plain(gray, k_num)), k_num
+        for k in (0.04, 0.06):
+            assert torch.equal(harris.harris_response(g, k), harris.harris_response_plain(gray, k)), k
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["harris_response_i32"], counts["harris_response_f32"]) == (6, 4)
 
 
 def test_engine_decode_modes_agree(cuda, monkeypatch):
