@@ -21,12 +21,12 @@
 // arithmetic (about 65 instructions per pixel at 8 × 1080p, most of them on
 // the half-rate integer pipes in the int32 form) is the nearer limit. The
 // design is the row march of stencil.cuh: a warp walks a strip of 11 to 24
-// output rows, a lane owns C = 4 adjacent columns (8 when the batch fills
-// the card twice over; lanes 0 and 31 only supply the halo), and the
-// neighbours' gray comes by warp shuffles; no shared memory, no barrier.
+// output rows, a lane owns 4 adjacent columns (lanes 0 and 31 only supply
+// the halo), and the neighbours' gray comes by warp shuffles; no shared
+// memory, no barrier.
 // Per gray row a lane takes its gray as 16-bit pairs and keeps the
 // vertical Sobel sums as [1, 1] cascades; per product row it forms gx, gy
-// at its C columns ±2 in 16-bit lanes (PRMT selectors fixed per lane
+// at its columns ±2 in 16-bit lanes (PRMT selectors fixed per lane
 // replicate them, and so the products, past the image's edges), the three
 // products on the FP32 pipe, and their horizontal 5-tap; the vertical
 // 5-tap is a cascade of four partial sums per column and product, each
@@ -309,89 +309,82 @@ __device__ __forceinline__ void harris_strip(const Src& src, const P& pol,
   }
 }
 
-// At most 128 registers a thread at 4 columns per lane: 4 blocks (16
-// warps) per SM.
-template <bool kWords, int C, class P>
-__global__ void __launch_bounds__(kLanes * kWarps, 16 / C)
+constexpr int kHarrisCols = 4;  // columns per lane
+// Strip heights the launcher picks from: a strip computes rows + 4 product
+// rows, so shorter strips pay more halo, and taller ones leave too few
+// warps to hide the march's latency (on the H100 the fastest fixed heights
+// lay within this range at 1 and at 8 × 1080p).
+constexpr int kHarrisMinRows = 11;
+constexpr int kHarrisMaxRows = 24;
+
+// At most 128 registers a thread: 4 blocks (16 warps) per SM.
+template <bool kWords, class P>
+__global__ void __launch_bounds__(kLanes * kWarps, 4)
     harris_kernel(const uint8_t* __restrict__ gray, typename P::Out* __restrict__ out, int h,
                   int w, int rows, P pol, uint32_t magic) {
   int y0, y1, x0;
   bool owner;
-  if (!warp_strip(C, h, rows, y0, y1, x0, owner)) return;  // the whole warp
+  if (!warp_strip(kHarrisCols, h, rows, y0, y1, x0, owner)) return;  // the whole warp
   const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
-  harris_strip<kWords>(GrayRows<kWords, C>(gray + plane, w, x0), pol, out + plane, h, w, x0, y0,
-                       y1, owner, magic);
+  harris_strip<kWords>(GrayRows<kWords, kHarrisCols>(gray + plane, w, x0), pol, out + plane, h,
+                       w, x0, y0, y1, owner, magic);
 }
 
-constexpr int kHarrisCols = 4;  // columns per lane, unless the batch is large
-// Strip heights the launcher picks from, by balanced_rows: a strip
-// computes rows + 4 product rows, so shorter strips pay more halo, and
-// taller ones leave too few warps to hide the march's latency
-// (probes/harris_sweep.py measures both).
-constexpr int kHarrisMinRows = 11;
-constexpr int kHarrisMaxRows = 24;
+// Rows per strip, within kHarrisMinRows .. kHarrisMaxRows, that least load
+// the busiest SM when the strips (kWarps to a block) spread evenly over
+// the card's SMs: the SM that gets ceil(blocks / SMs) blocks works rows + 4
+// product rows per warp of each. For a grid of about one wave this beats
+// filling the card to the brim; `sms` caches the card's number of SMs (0:
+// not yet read).
+inline int harris_rows(int& sms, long col_warps, int h) {
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    sms = max(sms, 1);
+  }
+  int best = kHarrisMinRows;
+  long best_cost = -1;
+  for (int rows = kHarrisMinRows; rows <= kHarrisMaxRows; ++rows) {
+    const long strips = (h + rows - 1) / rows;
+    const long blocks = col_warps * ((strips + kWarps - 1) / kWarps);
+    const long cost = (blocks + sms - 1) / sms * (rows + 4);
+    if (best_cost < 0 || cost < best_cost) {
+      best = rows;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
 
-template <int C, class P>
-int launch_harris_cols(const void* gray, void* out, int n, int h, int w, P pol, int rows,
-                       cudaStream_t st) {
+template <class P>
+int launch_harris(const void* gray, void* out, int n, int h, int w, P pol, void* stream) {
   static int sms = 0;  // read from the card at first use
+  const auto st = static_cast<cudaStream_t>(stream);
   const bool words = w % 4 == 0 && reinterpret_cast<uintptr_t>(gray) % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const dim3 block(kLanes, kWarps);
   const auto* in = static_cast<const uint8_t*>(gray);
   auto* o = static_cast<typename P::Out*>(out);
-  const int out_cols = (kLanes - 2) * C;
-  if (rows <= 0) {
-    const long col_warps = static_cast<long>(n) * ((w + out_cols - 1) / out_cols);
-    rows = balanced_rows(sms, col_warps, h, 4, kHarrisMinRows, kHarrisMaxRows);
-  }
+  const int out_cols = (kLanes - 2) * kHarrisCols;
+  const int rows = harris_rows(sms, static_cast<long>(n) * ((w + out_cols - 1) / out_cols), h);
+  const dim3 grid = strip_grid(kHarrisCols, n, h, w, rows);
   if (words) {
-    harris_kernel<true, C, P><<<strip_grid(C, n, h, w, rows), block, 0, st>>>(in, o, h, w, rows,
-                                                                              pol, kMagicBits);
+    harris_kernel<true, P><<<grid, block, 0, st>>>(in, o, h, w, rows, pol, kMagicBits);
   } else {
-    harris_kernel<false, C, P><<<strip_grid(C, n, h, w, rows), block, 0, st>>>(in, o, h, w, rows,
-                                                                               pol, kMagicBits);
+    harris_kernel<false, P><<<grid, block, 0, st>>>(in, o, h, w, rows, pol, kMagicBits);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// cols, rows: columns per lane (4 or 8) and strip height; 0 picks the
-// defaults: 8 columns where the batch's strips at kHarrisMaxRows fill the
-// card's resident warps of that kernel at least twice over (fewer product
-// columns per output, 1.5 for 2, where there are warps enough to spare the
-// registers), else 4; the strip height of balanced_rows.
-template <class P>
-int launch_harris(const void* gray, void* out, int n, int h, int w, P pol, int cols, int rows,
-                  void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (cols == 0) {
-    static int resident8 = 0;  // read from the card at first use
-    const long warps8 = static_cast<long>(n) * ((w + (kLanes - 2) * 8 - 1) / ((kLanes - 2) * 8)) *
-                        ((h + kHarrisMaxRows - 1) / kHarrisMaxRows);
-    cols = warps8 >= 2L * resident_warps(harris_kernel<true, 8, P>, resident8) ? 8 : kHarrisCols;
-  }
-  if (cols == 8) return launch_harris_cols<8>(gray, out, n, h, w, pol, rows, st);
-  return launch_harris_cols<4>(gray, out, n, h, w, pol, rows, st);
 }
 
 }  // namespace rcv
 
 extern "C" int rcv_harris_response_f32(const void* gray, void* out, int n, int h, int w, float k,
                                        void* stream) {
-  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisF32{k}, 0, 0, stream);
+  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisF32{k}, stream);
 }
 
 extern "C" int rcv_harris_response_i32(const void* gray, void* out, int n, int h, int w,
                                        int k_num, void* stream) {
-  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisI32{k_num}, 0, 0, stream);
-}
-
-// Either form with its grid shape given (the strip sweep of
-// rustcv_tpu_torch/probes/harris_sweep.py): form 0 float32 (k), 1 int32
-// (k_num); cols 4 or 8 per lane, `rows` per strip.
-extern "C" int rcv_harris_response_shaped(int form, const void* gray, void* out, int n, int h,
-                                          int w, float k, int k_num, int cols, int rows,
-                                          void* stream) {
-  if (form == 0) return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisF32{k}, cols, rows, stream);
-  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisI32{k_num}, cols, rows, stream);
+  return rcv::launch_harris(gray, out, n, h, w, rcv::HarrisI32{k_num}, stream);
 }

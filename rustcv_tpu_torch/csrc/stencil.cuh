@@ -297,55 +297,22 @@ __device__ __forceinline__ void blur_sobel_strip(const Src& src, uint8_t* __rest
   put();
 }
 
-// The warps of `kernel` (blocks of kLanes × kWarps threads) the card holds
-// at once; `cache` keeps the number (0: not yet read from the card).
+// Output rows per strip: as many strips as give the card its resident
+// warps once (one wave, no tail), within 8 .. 64 rows (the halo costs
+// (rows + 6) / rows). `kernel` is the kernel to launch, for its occupancy;
+// `resident_warps` caches the card's number for it (0: not yet read).
 template <class Kernel>
-inline int resident_warps(Kernel kernel, int& cache) {
-  if (cache == 0) {
+inline int strip_rows(Kernel kernel, int& resident_warps, int cols, int n, int h, int w) {
+  if (resident_warps == 0) {
     int dev = 0, sms = 0, blocks = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLanes * kWarps, 0);
-    cache = max(sms * blocks * kWarps, kWarps);
+    resident_warps = max(sms * blocks * kWarps, 1);
   }
-  return cache;
-}
-
-// Rows per strip, within lo .. hi, that least load the busiest SM when
-// the strips (kWarps to a block) spread evenly over the card's SMs: the
-// SM that gets ceil(blocks / SMs) blocks works (rows + halo) rows per
-// warp of each. For a grid of about one wave this beats filling the card
-// to the brim; `sms` caches the card's number of SMs (0: not yet read).
-inline int balanced_rows(int& sms, long col_warps, int h, int halo, int lo, int hi) {
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    sms = max(sms, 1);
-  }
-  int best = lo;
-  long best_cost = -1;
-  for (int rows = lo; rows <= hi; ++rows) {
-    const long strips = (h + rows - 1) / rows;
-    const long blocks = col_warps * ((strips + kWarps - 1) / kWarps);
-    const long cost = (blocks + sms - 1) / sms * (rows + halo);
-    if (best_cost < 0 || cost < best_cost) {
-      best = rows;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-// Output rows per strip of the row march: as many strips as fill the
-// card's resident blocks once (one wave, no tail), within 8 .. 64 rows (the
-// halo costs (rows + 6) / rows). `kernel` is the kernel to launch, for its
-// occupancy; `cache` as for resident_warps.
-template <class Kernel>
-inline int strip_rows(Kernel kernel, int& cache, int cols, int n, int h, int w) {
   const int out_cols = (kLanes - 2) * cols;
   const long col_warps = static_cast<long>(n) * ((w + out_cols - 1) / out_cols);
-  const long strips = max(resident_warps(kernel, cache) / kWarps / col_warps, 1L) * kWarps;
+  const long strips = max(resident_warps / col_warps, 1L);
   return static_cast<int>(min(max((h + strips - 1) / strips, 8L), 64L));
 }
 

@@ -204,7 +204,7 @@ __global__ void __launch_bounds__(kLanes * kWarps)
   uint4 next = live ? decode_load<kVec>(in, y0, i0, wp, aligned4) : uint4{0, 0, 0, 0};
   for (int y = y0; y < y1; ++y) {
     const uint4 cur = next;
-    if (live) next = decode_load<kVec>(in, min(y + 1, y1 - 1), i0, wp, aligned4);
+    if (live && y + 1 < y1) next = decode_load<kVec>(in, y + 1, i0, wp, aligned4);
     uint32_t p[8];
     decode_word(cur.x, magic, p[0], p[1]);
     decode_word(cur.y, magic, p[2], p[3]);

@@ -40,7 +40,6 @@ _SIGNATURES = {
     "rcv_yuyv_tick_fused": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
     "rcv_harris_response_f32": (_P, _P, _I, _I, _I, _F, _P),
     "rcv_harris_response_i32": (_P, _P, _I, _I, _I, _I, _P),
-    "rcv_harris_response_shaped": (_I, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
     "rcv_mosaic_shuffle": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 

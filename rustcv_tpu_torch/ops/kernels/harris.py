@@ -18,12 +18,12 @@ products, a separable 5×5 (1, 4, 6, 4, 1) window over the replicate-padded
 Bound on the card: the response reads 1 B and writes 4 B per pixel, but
 its arithmetic (about 65 instructions per pixel) is the nearer limit. The
 kernel is a register row march (``csrc/stencil.cuh``): a warp walks a
-strip of 11 to 24 rows, a lane owns 4 columns (8 in a batch that fills
-the card twice over), neighbours come by warp shuffles, the vertical
-Sobel sums and the vertical window are cascades held in registers, and
-the products run on the FP32 pipe (the int32 form as the exact bits of
-``p + 1.5·2²³``). No shared memory, no barrier. The plain versions below
-write and re-read int32 or float32 planes between some twenty passes.
+strip of 11 to 24 rows, a lane owns 4 columns, neighbours come by warp
+shuffles, the vertical Sobel sums and the vertical window are cascades
+held in registers, and the products run on the FP32 pipe (the int32 form
+as the exact bits of ``p + 1.5·2²³``). No shared memory, no barrier. The
+plain versions below write and re-read int32 or float32 planes between
+some twenty passes.
 """
 
 from __future__ import annotations

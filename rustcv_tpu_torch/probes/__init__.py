@@ -1,4 +1,3 @@
 """On-card probes of the port: :mod:`.mosaic_shuffle`, the counterpart of
 ``probe_mosaic_shuffle.py`` (``python -m rustcv_tpu_torch.probes.mosaic_shuffle``);
-:mod:`.kernel_ab`, this checkout's kernels timed beside another checkout's;
-:mod:`.harris_sweep`, the Harris kernel's grid shapes timed."""
+:mod:`.kernel_ab`, this checkout's kernels timed beside another checkout's."""

@@ -177,7 +177,7 @@ def test_decode_interleave_kernel_matches_plain_version(cuda, w, h, n):
     assert kernels.launch_counts()["yuyv_decode_interleave"] == 9
 
 
-# (N, H, W): H around the kernel's strip heights (12 .. 24 rows) and below
+# (N, H, W): H around the kernel's strip heights (11 .. 24 rows) and below
 # the ±3 halo, W % 4 in every residue, config 4's 1 × 1080p and 8 × 1080p.
 K6_SHAPES = [(1, 1, 5), (1, 3, 6), (2, 6, 7), (1, 11, 64), (2, 12, 65), (1, 13, 66),
              (3, 23, 131), (1, 24, 130), (2, 25, 129), (1, 49, 132), (1, 1080, 1920),
