@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Five paths, each driven with the launch counts set to 0 just before it
+Seven paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -23,7 +23,17 @@ and read just after:
 * config 6, the MJPEG-out transcode: 8 × 1920×1080 YUYV → 640×480,
   blur/Sobel, overlay and a q85 4:2:0 JPEG per stream, through
   ``get_model("config6_transcode").engine().stream_encoded()``, in the
-  default and ``pallas`` modes (K1; K4 and K5 do not run with a resize).
+  default and ``pallas`` modes (K1; K4 and K5 do not run with a resize);
+* the host-staged path: the headline's 8 × 1920×1080 YUYV streams gathered
+  on the host (``SimulationDriver(n_unique_frames=8)``,
+  ``device_sim=False``, bench.py's ``host_path_fps`` shape) into pinned
+  staging and uploaded, in every decode mode, by blocking ticks and by
+  ``run``'s prefetching loop: K1, K4, K5;
+* BASELINE config 2, the hybrid MJPEG decode: 8 × 1920×1080 MJPEG →
+  640×480 through ``get_model("config2_mjpeg_resize").engine()`` (host
+  entropy decode into block-packed staging, the rest on the card), with
+  one forced over-capacity tick on the dense program; and the same 8
+  MJPEG streams at 1080p with ``blur_sobel`` and the overlay: K1.
 
 Phases:
 
@@ -47,12 +57,21 @@ Phases:
    payloads entropy-decode (``native.jpeg_entropy_decode``: Huffman coding
    is lossless, and the card's machine has no Pillow) to the card's
    coefficients and quant tables, and packed and dense payloads are the
-   same bytes; and every kernel launched by its path;
+   same bytes; the host path's blocking and prefetched ticks identical to
+   the device-sim engine's ticks of the same sequences and to the CPU
+   pipeline, with the kernels' launches per tick counted; config 2's
+   streams within max |diff| <= 2 on < 1 % of bytes of the port's float64
+   oracle ``decode_jpeg_numpy`` resized by the plain resize, its dense
+   tick identical to the packed program's; the MJPEG ``blur_sobel``
+   engine identical to a plain one; and every kernel launched by its path;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
-   time per tick and idle share (profiler), and each kernel's time beside
-   its plain version's at 8×1920×1080 (K1 at 8×640×480, the Harris forms
-   at 1×1920×1080 too; K7 as its 13 cases per call).
+   time per tick and idle share (profiler), the host path's frames/s (one
+   discarded warm run of 6 ticks, three runs of 20, as bench.py times it),
+   gather ms and idle share per mode, config 2's ms/tick, frames/s, H2D MB
+   per tick and gather ms, and each kernel's time beside its plain
+   version's at 8×1920×1080 (K1 at 8×640×480, the Harris forms at
+   1×1920×1080 too; K7 as its 13 cases per call).
 
 It imports no jax and nothing of the JAX package. Any mismatch or error exits non-zero before
 the last line; the last line is the JSON verdict, and the line before it
@@ -87,6 +106,14 @@ C6_W, C6_H = 640, 480  # config 6's resize_to
 # encode both run the default path, so one kernel mode is driven.
 C6_MODES = ("default", "pallas")
 ENC_KEYS = ("enc_y", "enc_cb", "enc_cr")
+C2 = "config2_mjpeg_resize"
+UNIQUE = 8  # bench.py's n_unique_frames: the sources cycle 8 frames
+HOST_TICKS = 12  # ticks of the host path's prefetching run, per mode
+# Launches per tick of the host path's kernels, per mode.
+HOST_LAUNCHES = {"default": {"blur_sobel_mag": 1},
+                 "pallas": {"blur_sobel_mag": 1, "yuyv_decode_interleave": 1},
+                 "pallas_tick": {"yuyv_tick_fused": 1}}
+ORACLE_TOL = (2, 1e-2)  # config 2 vs the float64 oracle: max |diff|, share of bytes
 
 KERNELS = {  # name → (source, the Pallas kernel it replaces: file:line of pallas_call)
     "blur_sobel_mag": ("rustcv_tpu_torch/csrc/stencil.cu",
@@ -583,6 +610,178 @@ def run_config6() -> dict:
     return kernels.launch_counts()  # read just after config 6's run
 
 
+def make_host_engine(mode: str, stencil_impl=None, device_sim: bool = False):
+    """The headline's streams on the host-staged path (bench.py's
+    ``host_path_fps`` engine), or on the device-sim path with the same
+    8-frame cycle."""
+    from rustcv_tpu_torch.capture import SimulationDriver
+    from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
+    from rustcv_tpu_torch.runtime import MultiStreamEngine
+
+    set_mode(mode)
+    return MultiStreamEngine(
+        SimulationDriver(device_count=N, paced=False, n_unique_frames=UNIQUE), N,
+        SimpleConfig(width=W, height=H, fps=60, pixel_format=PixelFormat.YUYV),
+        filter="blur_sobel", overlay=True, device_sim=device_sim, stencil_impl=stencil_impl,
+    )
+
+
+def recording(eng) -> list:
+    """Keep every TickResult that ``eng`` makes, ``run``'s included."""
+    seen = []
+    tick = eng.tick
+
+    def recorded(*args, **kwargs):
+        res = tick(*args, **kwargs)
+        seen.append(res)
+        return res
+
+    eng.tick = recorded
+    return seen
+
+
+def run_host_path() -> dict:
+    """Phase 3e: the host-staged path in every decode mode, blocking ticks
+    and a prefetching ``run``, each tick identical to the device-sim
+    engine's tick of the same sequences; returns the path's launches."""
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    rects, colors = bench_overlay()
+    sim = make_host_engine("default", stencil_impl="xla", device_sim=True)
+    ref = [sim.tick(rects=rects, rect_colors=colors).outputs for _ in range(UNIQUE)]
+    torch.cuda.synchronize()
+    sim.close()
+    host = {seq: host_reference(seq) for seq in (0, UNIQUE - 1)}
+
+    def check(res, what):
+        seqs = res.sequences.tolist()
+        expect(len(set(seqs)) == 1 and seqs[0] >= 0, f"{what}: sequences {seqs}")
+        for key in ("bgr", "filtered"):
+            expect(torch.equal(res.outputs[key], ref[seqs[0] % UNIQUE][key]),
+                   f"{what} (seq {seqs[0]}): {key} differs from the device-sim engine")
+        if seqs[0] in host:
+            for s in (0, N - 1):
+                for key in ("bgr", "filtered"):
+                    expect(torch.equal(res.outputs[key][s:s + 1].cpu(), host[seqs[0]][key]),
+                           f"{what} stream {s}: {key} differs from the host generator + "
+                           "CPU pipeline")
+
+    kernels.reset_launch_counts()  # the host path's run starts here
+    for mode in MODES:
+        before = kernels.launch_counts()
+        eng = make_host_engine(mode)
+        pinned = all(t.is_pinned() for slot in eng._staging for t, _ in slot)
+        expect(pinned and eng._gather_pool is not None, f"host path {mode}: staging not pinned")
+        blocking = [eng.tick(rects=rects, rect_colors=colors, block=True) for _ in range(UNIQUE)]
+        seen = recording(eng)
+        stats = eng.run(HOST_TICKS, warmup=0, measure_latency=False, rects=rects,
+                        rect_colors=colors)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        ticks = UNIQUE + HOST_TICKS
+        expect(len(seen) == HOST_TICKS and stats.dropped_frames == 0,
+               f"host path {mode}: {len(seen)} ticks recorded, {stats.dropped_frames} dropped")
+        expect(per == {k: v * ticks for k, v in HOST_LAUNCHES[mode].items()},
+               f"host path {mode}: launches {per} in {ticks} ticks")
+        for t, res in enumerate(blocking):
+            check(res, f"host path {mode} blocking tick {t}")
+        for t, res in enumerate(seen):
+            check(res, f"host path {mode} prefetched tick {t}")
+        print(f"host path mode {mode}: {UNIQUE} blocking and {HOST_TICKS} prefetched ticks "
+              f"identical to the device-sim engine (seqs 0 and {UNIQUE - 1}: to the CPU "
+              f"pipeline); gathers that waited for their buffer's upload {eng.staging_waits}; "
+              f"launches {per} in {ticks} ticks", flush=True)
+        eng.close()
+    return kernels.launch_counts()  # read just after the host path's run
+
+
+def make_c2(**overrides):
+    """Config 2's engine through the zoo, its sources cycling 8 frames."""
+    from rustcv_tpu_torch.capture import SimulationDriver
+    from rustcv_tpu_torch.models import get_model
+
+    set_mode("default")
+    driver = SimulationDriver(device_count=N, paced=False, n_unique_frames=UNIQUE)
+    return get_model(C2).engine(driver=driver, **overrides)
+
+
+def h2d_mb(eng) -> float:
+    """MB one packed tick uploads: a staging slot."""
+    return sum(t.numel() * t.element_size() for t, _ in eng._staging[0]) / 1e6
+
+
+def run_config2() -> dict:
+    """Phase 3f: config 2 through the zoo, every stream within the oracle's
+    tolerance; a forced over-capacity tick identical to the packed
+    program's; then MJPEG with blur_sobel and the overlay at 1080p against
+    a plain engine. Returns the paths' launches."""
+    import torch
+
+    from rustcv_tpu_torch.capture.simulation import synth_raw
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import kernels, resize
+    from rustcv_tpu_torch.ops.jpeg_tpu import decode_jpeg_numpy
+
+    kernels.reset_launch_counts()  # config 2's path starts here
+    eng = make_c2()
+    expect(eng._mjpeg_hybrid and not eng._device_sim, "config 2 is not on the hybrid path")
+    outs = [eng.tick(block=True) for _ in range(TICKS)]
+    spec = eng.spec
+    expect(spec.mjpeg_packed and spec.resize_to == (C6_W, C6_H), f"config 2's spec {spec}")
+    worst = (0, 0.0)
+    for t in (0, 1):
+        seq = int(outs[t].sequences[0])
+        want = resize.resize_bilinear(torch.from_numpy(decode_jpeg_numpy(
+            synth_raw(W, H, PixelFormat.MJPEG, seq))), C6_W, C6_H).numpy().astype(np.int64)
+        got = outs[t].numpy("bgr")
+        expect(got.shape == (N, C6_H, C6_W, 3), f"config 2 bgr {got.shape}")
+        for i in range(N):
+            d = np.abs(got[i].astype(np.int64) - want)
+            worst = max(worst, (int(d.max()), float((d > 0).mean())))
+    expect(worst[0] <= ORACLE_TOL[0] and worst[1] < ORACLE_TOL[1],
+           f"config 2 vs the oracle: max|diff| {worst[0]}, share {worst[1]:.2e}")
+    expect(all(outs[t].sequences.tolist() == [t] * N for t in range(TICKS)), "config 2 sequences")
+    dense = make_c2()
+    dense.tick(block=True)
+    dense._dense_cap = 0  # every busy block over capacity: the dense program
+    forced = dense.tick(block=True)
+    expect(forced.sequences.tolist() == [1] * N and torch.equal(forced.outputs["bgr"],
+                                                                 outs[1].outputs["bgr"]),
+           "config 2's dense tick differs from the packed program's")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()  # read just after config 2's run
+    print(f"config 2: {TICKS} ticks, every stream of ticks 0 and 1 within max|diff| "
+          f"{worst[0]}, share {worst[1]:.2e} of the oracle resized; packed K = "
+          f"{eng._packed_k}, {eng._dense_cap} dense rows, {h2d_mb(eng):.3f} MB per tick; the "
+          f"forced dense tick identical to the packed program's; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    eng.close()
+    dense.close()
+
+    rects, colors = bench_overlay()
+    kw = dict(resize_to=None, filter="blur_sobel", overlay=True)
+    plain = make_c2(stencil_impl="xla", **kw)
+    ref = [plain.tick(rects=rects, rect_colors=colors).outputs for _ in range(4)]
+    plain.close()
+    kernels.reset_launch_counts()  # the MJPEG blur_sobel path starts here
+    eng = make_c2(**kw)
+    got = [eng.tick(rects=rects, rect_colors=colors).outputs for _ in range(4)]
+    torch.cuda.synchronize()
+    mjpeg_counts = kernels.launch_counts()  # read just after
+    eng.close()
+    for t in range(4):
+        for key in ("bgr", "filtered"):
+            expect(torch.equal(got[t][key], ref[t][key]),
+                   f"MJPEG blur_sobel tick {t}: {key} differs from the plain engine")
+    expect(mjpeg_counts["blur_sobel_mag"] == 4, f"MJPEG blur_sobel launches {mjpeg_counts}")
+    print(f"MJPEG 8 x 1080p blur_sobel + overlay: 4 ticks identical to the plain engine; "
+          f"launches { {k: v for k, v in mjpeg_counts.items() if v} }", flush=True)
+    return {k: counts[k] + mjpeg_counts[k] for k in counts}
+
+
 def time_engines() -> dict:
     """Phase 4a: ms/tick (CUDA events) and frames/s per mode, plain engine
     included, in two rounds of opposite order."""
@@ -669,17 +868,22 @@ def profile_ticks(label: str, tick, kernel: str, kernel_label: str) -> None:
     """Device time per tick against the host's over PROFILE_TICKS steady
     calls of ``tick`` (torch.profiler), and the device time of the kernels
     whose name holds ``kernel``."""
+    for _ in range(5):
+        tick()
+    profile_steps(label, lambda: [tick() for _ in range(PROFILE_TICKS)], kernel, kernel_label)
+
+
+def profile_steps(label: str, steps, kernel: str, kernel_label: str) -> None:
+    """As :func:`profile_ticks`, for ``steps()`` making PROFILE_TICKS ticks
+    at once (a prefetching ``run``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(5):
-        tick()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_TICKS):
-            tick()
+        steps()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -793,6 +997,44 @@ def profile_config6() -> None:
     profile_ticks("config 6 mode default",
                   lambda: eng.tick(rects=rects, rect_colors=colors, thickness=THICKNESS),
                   "blur_sobel_kernel", "K1")
+    eng.close()
+
+
+def time_host_path() -> None:
+    """Phase 4h: the host path per mode as bench.py times it (a discarded
+    warm run of 6 ticks, then 3 prefetching runs of 20), and its device
+    idle share over a prefetching run (profiler)."""
+    rects, colors = bench_overlay()
+    for mode in MODES:
+        eng = make_host_engine(mode)
+        eng.run(6, warmup=5, measure_latency=False, rects=rects, rect_colors=colors)
+        runs = [eng.run(20, warmup=0, measure_latency=False, rects=rects, rect_colors=colors)
+                for _ in range(3)]
+        print(f"host path mode {mode}: " + "; ".join(
+            f"{r.fps_total:.2f} frames/s, {r.wall_s / r.ticks * 1e3:.4f} ms/tick, gather "
+            f"{r.host_gather_ms:.4f} ms" for r in runs) + f"; waits {eng.staging_waits}",
+            flush=True)
+        profile_steps(f"host path mode {mode}", lambda: eng.run(
+            PROFILE_TICKS, warmup=0, measure_latency=False, rects=rects, rect_colors=colors),
+            "blur_sobel" if mode != "pallas_tick" else "tick_fused", "its kernel")
+        eng.close()
+
+
+def time_config2() -> None:
+    """Phase 4i: config 2's ms/tick and frames/s (prefetching runs of 20),
+    blocking-tick latency, H2D MB per tick, gather ms, and its idle share."""
+    eng = make_c2()
+    eng.run(6, warmup=3, measure_latency=False)
+    for _ in range(2):
+        r = eng.run(20, warmup=0, measure_latency=False)
+        lat = eng.run(20, warmup=0, measure_latency=True)
+        print(f"config 2: {r.wall_s / r.ticks * 1e3:.4f} ms/tick, {r.fps_total:.2f} frames/s, "
+              f"gather {r.host_gather_ms:.4f} ms (prefetched); blocking ticks p50 "
+              f"{lat.p50_latency_ms:.4f} ms, p99 {lat.p99_latency_ms:.4f} ms, gather "
+              f"{lat.host_gather_ms:.4f} ms; H2D {h2d_mb(eng):.3f} MB per tick; waits "
+              f"{eng.staging_waits}; dense ticks {eng.mjpeg_dense_ticks}", flush=True)
+    profile_steps("config 2", lambda: eng.run(PROFILE_TICKS, warmup=0, measure_latency=False),
+                  "gemm", "its IDCT products")
     eng.close()
 
 
@@ -977,10 +1219,13 @@ def main() -> int:
         k7_launches, errs["mosaic_shuffle"] = run_mosaic_probe(dev)
         done("phases 1-2")
         launches = {name: 0 for name in KERNELS}
-        for path in (run_main_path, run_config4, lambda: run_response_surface(dev),
-                     lambda: k7_launches, run_config6):
+        for label, path in (("headline", run_main_path), ("config 4", run_config4),
+                            ("response surface", lambda: run_response_surface(dev)),
+                            ("K7 probe", lambda: k7_launches), ("config 6", run_config6),
+                            ("host path", run_host_path), ("config 2", run_config2)):
             for name, count in path().items():
                 launches[name] += count
+            done(f"phase 3, {label}")
         expect(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
         done("phase 3")
         time_engines()
@@ -991,6 +1236,9 @@ def main() -> int:
         time_config6()
         time_config6_stages()
         profile_config6()
+        time_host_path()
+        time_config2()
+        done("phase 4, config 6, host path and config 2")
         times = time_kernels()
         done("phase 4")
     except SmokeFailure as e:

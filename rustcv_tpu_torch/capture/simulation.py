@@ -1,5 +1,6 @@
 """Deterministic simulation frame source (the PyTorch port's jax-free copy
-of ``rustcv_tpu.capture.simulation``; frames are byte-identical).
+of ``rustcv_tpu.capture.simulation``; raw frames are byte-identical, MJPEG
+frames come from the port's own encoder instead of Pillow).
 
 The reference only sketched simulation (empty ``rustcv-simulation`` crate,
 ``Stream::inject_frame`` unimplemented — ``rustcv-core/src/traits.rs:119-121``);
@@ -24,7 +25,6 @@ detection signal the reference benches rely on
 
 from __future__ import annotations
 
-import io
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -182,11 +182,13 @@ def encode_rgb(bgr: np.ndarray) -> np.ndarray:
 
 
 def encode_mjpeg(bgr: np.ndarray, quality: int = 90) -> np.ndarray:
-    from PIL import Image
+    """BGR → baseline JFIF bytes, 4:2:0, by the port's own encoder (the
+    numeric half on the CPU, then its C++ coder). The reference encodes with
+    Pillow, so the bytes differ from its frames; both decode to the same
+    picture within the codec's loss."""
+    from ..ops.jpeg_encode import encode_jpeg
 
-    buf = io.BytesIO()
-    Image.fromarray(bgr[..., ::-1]).save(buf, "JPEG", quality=quality)
-    return np.frombuffer(buf.getvalue(), dtype=np.uint8)
+    return np.frombuffer(encode_jpeg(np.ascontiguousarray(bgr), quality, "4:2:0"), np.uint8)
 
 
 def _bayer_encoder(pattern: str):
@@ -264,7 +266,9 @@ class SimulationSource(FrameSource):
     maximum rate with contiguous sequence numbers (bench mode).
     ``n_unique_frames > 0`` precomputes that many encoded frames and cycles
     them — removes host synthesis cost from throughput measurements, like a
-    camera that DMAs at line rate regardless of scene content.
+    camera that DMAs at line rate regardless of scene content. A
+    ``frame_cache`` dict (the driver's) shares them, read-only, between the
+    sources of one configuration.
     """
 
     def __init__(
@@ -274,6 +278,7 @@ class SimulationSource(FrameSource):
         paced: bool = True,
         n_unique_frames: int = 0,
         start_seq: int = 0,
+        frame_cache: Optional[Dict[tuple, List[np.ndarray]]] = None,
     ):
         self._cfg = resolved
         self._paced = paced
@@ -292,10 +297,15 @@ class SimulationSource(FrameSource):
         n_slots = max(2, resolved.buffer_count)
         self._cache: List[np.ndarray] = []
         if n_unique_frames > 0:
-            self._cache = [
-                synth_raw(resolved.width, resolved.height, resolved.pixel_format, s)
-                for s in range(n_unique_frames)
-            ]
+            cache = frame_cache if frame_cache is not None else {}
+            key = (resolved.width, resolved.height, resolved.pixel_format, n_unique_frames)
+            if key not in cache:
+                frames = [synth_raw(resolved.width, resolved.height, resolved.pixel_format, s)
+                          for s in range(n_unique_frames)]
+                for f in frames:
+                    f.setflags(write=False)
+                cache[key] = frames
+            self._cache = cache[key]
         # Ring slots sized for the largest raw frame we may hold.
         self._slots: List[Optional[np.ndarray]] = [None] * n_slots
         self._slot_idx = 0
@@ -517,6 +527,9 @@ class SimulationDriver(Driver):
         # exceeds it raises BandwidthExceeded with a structured suggestion
         # (the reference's error contract, rustcv-core/src/error.rs).
         self.bandwidth_limit_mbps = bandwidth_limit_mbps
+        # The n_unique_frames frames per configuration, made once and shared
+        # by every source this driver opens.
+        self._frames: Dict[tuple, List[np.ndarray]] = {}
 
     def _check_bandwidth(self, resolved: ResolvedConfig) -> None:
         if self.bandwidth_limit_mbps is None:
@@ -558,7 +571,7 @@ class SimulationDriver(Driver):
         self._check_bandwidth(resolved)
         src = SimulationSource(
             resolved, paced=self.paced, n_unique_frames=self.n_unique_frames,
-            start_seq=0,
+            start_seq=0, frame_cache=self._frames,
         )
         sensor = SimSensorControl()
         lens = SimLensControl()
@@ -571,7 +584,8 @@ class SimulationDriver(Driver):
         resolved = resolve(config, self.modes)
         self._check_bandwidth(resolved)
         src = SimulationSource(
-            resolved, paced=self.paced, n_unique_frames=self.n_unique_frames
+            resolved, paced=self.paced, n_unique_frames=self.n_unique_frames,
+            frame_cache=self._frames,
         )
         sensor = SimSensorControl()
         lens = SimLensControl()

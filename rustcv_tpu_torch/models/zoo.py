@@ -9,11 +9,12 @@ BASELINE.json "configs" (quoted in SURVEY.md §6):
 5. End-to-end 8-stream pipeline at 4K: capture-sim → decode → convert →
    filter → overlay, sustained multi-batch throughput.
 
-The six models carry the reference's field values. Configs 1, 3, 4, 5
-and 6 (8 × 1080p → 640×480, blur/Sobel, overlay and a q85 JPEG encode per
-stream) run; 2 (MJPEG decode) raises ``NotImplementedError`` until ROADMAP
-queue 1 items 11 and 12 are ported.
+The six models carry the reference's field values, and all six run:
+config 2 through the hybrid MJPEG decode (host entropy decode, the rest on
+the device), config 6 (8 × 1080p → 640×480, blur/Sobel, overlay and a q85
+JPEG encode per stream) through the encoded delivery.
 
+    eng = get_model("config2_mjpeg_resize").engine(device="cuda")
     eng = get_model("config4_harris_1080p").engine(device="cuda")
     eng = get_model("config6_transcode").engine(device="cuda")
     for res, jpegs in eng.stream_encoded(max_ticks=100): ...
@@ -25,9 +26,19 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 from ..core.config import SimpleConfig
+from ..core.errors import CameraError
 from ..core.pixel_format import PixelFormat
 
-from ..runtime.pipeline import not_ported
+
+def default_mjpeg_backend() -> str:
+    """Backend of the MJPEG models: the block-packed hybrid decode, which
+    needs the port's native coder. The reference falls back to the
+    full-host decode without it; the port has none, so it raises."""
+    from .. import native
+
+    if not native.available():
+        raise CameraError(f"MJPEG needs the native coder: {native.build_error()}")
+    return "hybrid"
 
 
 @dataclass(frozen=True)
@@ -49,20 +60,21 @@ class PipelineModel:
     # optimum on its chip: 8 at 1080p, 4 at 4K)
     sub_batch: Optional[int] = None
 
-    def engine(self, driver=None, *, device_sim: bool = True, mesh=None, device="cuda",
-               **overrides):
+    def engine(self, driver=None, *, device_sim: Optional[bool] = None, mesh=None,
+               device="cuda", **overrides):
         """Build the port's MultiStreamEngine for this model on ``device``.
 
-        ``device_sim`` (frames made on the device) is the reference's
-        default for the raw formats, the only ones ported; ``overrides``
-        are passed to the engine last."""
+        ``device_sim`` defaults to True for the raw formats (frames made on
+        the device) and False for MJPEG, whose entropy decode is host work;
+        MJPEG takes :func:`default_mjpeg_backend`. ``overrides`` are passed
+        to the engine last."""
         from ..capture import SimulationDriver
         from ..runtime import MultiStreamEngine
 
-        if self.pixel_format == PixelFormat.MJPEG:
-            raise not_ported(f"model {self.name}: MJPEG decode (item 12)")
         if driver is None:
             driver = SimulationDriver(device_count=self.n_streams, paced=False)
+        if device_sim is None:
+            device_sim = self.pixel_format != PixelFormat.MJPEG
         kwargs = dict(
             filter=self.filter,
             resize_to=self.resize_to,
@@ -74,6 +86,8 @@ class PipelineModel:
         )
         if self.sub_batch is not None and device_sim and mesh is None:
             kwargs["sub_batch"] = self.sub_batch
+        if self.pixel_format == PixelFormat.MJPEG and "mjpeg_backend" not in overrides:
+            kwargs["mjpeg_backend"] = default_mjpeg_backend()
         kwargs.update(overrides)
         return MultiStreamEngine(
             driver,

@@ -4,7 +4,8 @@ with ctypes.
 Two self-contained sources: ``jpeg_encode.cpp`` (quantized coefficient
 grids, dense or block-packed, → baseline JFIF bytes, Annex K Huffman
 tables) and ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and
-quant tables, which checks a payload exactly: Huffman coding is lossless).
+quant tables, which checks a payload exactly: Huffman coding is lossless; and
+the flat- and block-packed forms that feed the hybrid MJPEG decode).
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -68,8 +69,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     intp = ctypes.POINTER(ctypes.c_int)
     lib.rcv_jpeg_info.restype = ctypes.c_int
     lib.rcv_jpeg_info.argtypes = [u8p, ctypes.c_long, intp, intp, intp, intp, intp, intp, intp]
+    longp = ctypes.POINTER(ctypes.c_long)
     lib.rcv_jpeg_coeffs.restype = ctypes.c_int
     lib.rcv_jpeg_coeffs.argtypes = [u8p, ctypes.c_long, i16p, i16p, i16p, u16p, u16p, u16p]
+    lib.rcv_jpeg_coeffs_packed.restype = ctypes.c_int
+    lib.rcv_jpeg_coeffs_packed.argtypes = [u8p, ctypes.c_long, i32p, i16p, ctypes.c_long,
+                                           u16p, u16p, u16p, longp]
+    lib.rcv_jpeg_coeffs_blockpacked.restype = ctypes.c_int
+    lib.rcv_jpeg_coeffs_blockpacked.argtypes = [
+        u8p, ctypes.c_long, u8p, i16p, ctypes.c_int, i32p, i16p, ctypes.c_long,
+        u16p, u16p, u16p, longp,
+    ]
     lib.rcv_jpeg_entropy_encode.restype = ctypes.c_long
     lib.rcv_jpeg_entropy_encode.argtypes = [
         i16p, i16p, i16p, ctypes.c_int, intp, intp, intp, intp,
@@ -162,6 +172,111 @@ def jpeg_entropy_decode(data: "np.ndarray | bytes"):
         raise ValueError(f"JPEG entropy decode failed (rc={rc})")
     coeffs = [outs[c].reshape(*blocks[c], 8, 8) for c in range(ncomp)]
     return info, coeffs, [qs[c].reshape(8, 8) for c in range(ncomp)]
+
+
+def jpeg_entropy_info(data: "np.ndarray | bytes") -> dict:
+    """Header-only parse: geometry and the per-component padded block grids
+    (``blocks``: (bh, bw) per component)."""
+    info, blocks = _info(_need_lib(), _as_u8_buf(data))
+    info["blocks"] = blocks
+    return info
+
+
+_OVER_CAPACITY = -24  # the decoder's return code when the packed buffers are full
+
+
+def _u16_tables():
+    return [np.zeros(64, np.uint16) for _ in range(3)]
+
+
+def jpeg_entropy_decode_packed(data: "np.ndarray | bytes", capacity: int):
+    """Entropy decode to FLAT-packed nonzero coefficients.
+
+    Returns ``(info, pos, val, nnz, qts)``: ``pos`` (int32) / ``val`` (int16)
+    hold ``capacity`` entries whose first ``nnz`` are the nonzeros as flat
+    indices into the concatenated dense per-component layout (a scatter-add
+    of ``val`` into zeros gives :func:`jpeg_entropy_decode`'s grids); the
+    rest are zero. Returns ``None`` when the frame has more than
+    ``capacity`` nonzeros (the caller decodes dense instead)."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    info, blocks = _info(lib, buf)
+    info["blocks"] = blocks
+    pos = np.zeros(capacity, np.int32)
+    val = np.zeros(capacity, np.int16)
+    qs = _u16_tables()
+    nnz = ctypes.c_long()
+    rc = lib.rcv_jpeg_coeffs_packed(_ptr(buf), buf.size, _ptr(pos, ctypes.c_int32),
+                                    _ptr(val, ctypes.c_int16), capacity,
+                                    *(_ptr(q, ctypes.c_uint16) for q in qs), ctypes.byref(nnz))
+    if rc == _OVER_CAPACITY:
+        return None
+    if rc != 0:
+        raise ValueError(f"JPEG packed entropy decode failed (rc={rc})")
+    return info, pos, val, int(nnz.value), [qs[c].reshape(8, 8) for c in range(info["ncomp"])]
+
+
+def jpeg_entropy_decode_blockpacked(
+    data: "np.ndarray | bytes",
+    k: int,
+    dense_cap: int,
+    out_idx: Optional[np.ndarray] = None,
+    out_val: Optional[np.ndarray] = None,
+    out_dense_ids: Optional[np.ndarray] = None,
+    out_dense_rows: Optional[np.ndarray] = None,
+):
+    """Entropy decode to BLOCK-packed coefficients.
+
+    ``idx``/``val`` are ``[total_blocks, k]`` (uint8 natural coefficient
+    index / int16 value; unused slots zero) over the concatenated
+    per-component block grid. Blocks with more than ``k`` nonzeros take the
+    dense-row escape: ``dense_ids`` (int32 global block id) and
+    ``dense_rows`` (int16 [dense_cap, 64]). Entries past ``dense_n`` carry
+    id == total_blocks and zero rows, so the arrays unpack as they are.
+    ``out_*`` buffers (C-contiguous, of those shapes and dtypes) are
+    written in place instead of new arrays; the dense ones may hold more
+    than ``dense_cap`` rows.
+
+    Returns ``(info, idx, val, dense_ids, dense_rows, dense_n, qts)``, or
+    ``None`` when the busy blocks exceed ``dense_cap`` (the caller decodes
+    dense instead). A buffer of another block grid (the geometry or the
+    subsampling changed) raises ValueError."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    info, blocks = _info(lib, buf)
+    info["blocks"] = blocks
+    nblocks = sum(bh * bw for bh, bw in blocks)
+
+    def out(given, shape, dtype, rows_at_least=False):
+        if given is None:
+            return np.zeros(shape, dtype)
+        fits = (given.shape[1:] == shape[1:] and given.shape[0] >= shape[0] if rows_at_least
+                else given.shape == shape)
+        if not fits or given.dtype != dtype or not given.flags.c_contiguous:
+            raise ValueError(
+                f"staging {given.shape} {given.dtype} != frame's {shape} {np.dtype(dtype)} "
+                "(geometry or subsampling changed mid-stream)")
+        return given
+
+    idx = out(out_idx, (nblocks, k), np.uint8)
+    val = out(out_val, (nblocks, k), np.int16)
+    dense_ids = out(out_dense_ids, (dense_cap,), np.int32, rows_at_least=True)
+    dense_rows = out(out_dense_rows, (dense_cap, 64), np.int16, rows_at_least=True)
+    qs = _u16_tables()
+    dense_n = ctypes.c_long()
+    rc = lib.rcv_jpeg_coeffs_blockpacked(
+        _ptr(buf), buf.size, _ptr(idx), _ptr(val, ctypes.c_int16), k,
+        _ptr(dense_ids, ctypes.c_int32), _ptr(dense_rows, ctypes.c_int16), dense_cap,
+        *(_ptr(q, ctypes.c_uint16) for q in qs), ctypes.byref(dense_n))
+    if rc == _OVER_CAPACITY:
+        return None
+    if rc != 0:
+        raise ValueError(f"JPEG blockpacked entropy decode failed (rc={rc})")
+    n = int(dense_n.value)
+    dense_ids[n:] = nblocks  # the scratch-row id (buffers are reused across ticks)
+    dense_rows[n:] = 0
+    qts = [qs[c].reshape(8, 8) for c in range(info["ncomp"])]
+    return info, idx, val, dense_ids, dense_rows, n, qts
 
 
 def _geometry(ncomp: int, blocks, h_samp, v_samp) -> tuple:

@@ -15,8 +15,8 @@ reference; the float32 colour and transform may differ from it by an ulp
 reference's own tolerance: max |diff| ≤ 1 on < 0.5 % of them.
 
 This module also holds the DCT basis (``idct_basis``, ``idct_kmat``: the
-reference's ``rustcv_tpu/ops/jpeg_tpu.py:32-53``), for the MJPEG decode
-to import when it is ported. The numpy helpers ``split_blob`` and
+reference's ``rustcv_tpu/ops/jpeg_tpu.py:32-53``), which the MJPEG decode
+(:mod:`.jpeg_tpu`) imports. The numpy helpers ``split_blob`` and
 ``unpack_coeff_rows_numpy`` are copies, because importing the JAX module
 loads jax.
 """

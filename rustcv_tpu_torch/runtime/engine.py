@@ -1,12 +1,32 @@
-"""MultiStreamEngine — batched execution of N simulated capture streams on
-one CUDA device (port of ``rustcv_tpu.runtime.engine``, the device-sim path).
+"""MultiStreamEngine — batched execution of N capture streams on one CUDA
+device (port of ``rustcv_tpu.runtime.engine``).
 
-Each tick synthesizes every stream's wire-format frame on the device from
-its sequence number (:mod:`rustcv_tpu_torch.ops.synth`), runs the pipeline
-of :mod:`.pipeline` on the batch, and advances the stream clock on the
-device: the next sequence numbers are an output that the next tick takes
-as input, and the overlay arguments are cached by content, so a steady
-tick uploads nothing.
+Three ways a tick gets its frames:
+
+* ``device_sim=True``: each stream's wire-format frame is synthesized on
+  the device from its sequence number (:mod:`rustcv_tpu_torch.ops.synth`),
+  and the stream clock advances on the device: the next sequence numbers
+  are an output that the next tick takes as input, so a steady tick
+  uploads nothing.
+* the host-staged path (``device_sim=False``, YUYV): a thread pool pulls one
+  frame per stream into a staging block ``[N, raw_bytes]`` on the host,
+  and one copy uploads it. The staging is double-buffered and, on a CUDA
+  device, pinned: the copy is ``non_blocking`` and a CUDA event recorded
+  after it stays with its buffer, and the gather that next reuses that
+  buffer waits for that event alone. In :meth:`run`'s throughput mode a
+  prefetch thread gathers tick k+1 while tick k is uploaded and computed.
+* the hybrid MJPEG path (``mjpeg_backend="hybrid"``): the host does only
+  the sequential entropy decode, with the port's C++ decoder, into
+  block-packed coefficient staging (the first frame sizes it: K slots per
+  block and a dense-row escape for busy blocks), uploaded the same way;
+  the device does the rest (:mod:`rustcv_tpu_torch.ops.jpeg_tpu`). A tick
+  whose busy blocks overflow the escape runs a second program on the
+  dense coefficient grids.
+
+A failing source does not end a host tick: its stream reuses its previous
+staging row, the fault is counted in ``stream_errors`` and the tick reports
+``seq = -1`` for it. The overlay arguments are cached on the device by
+content.
 
 The engine takes an explicit ``device`` (``"cuda"`` by default, which
 raises where CUDA is absent; tests pass ``"cpu"``). Its snapshot
@@ -16,11 +36,12 @@ keys, so a stream clock continues across the two packages tick for tick.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,13 +50,15 @@ import torch
 from .. import native
 from ..capture.source import Driver, FrameSource
 from ..core.config import ResolvedConfig, SimpleConfig
-from ..core.errors import CameraError
+from ..core.errors import CameraError, DecodeError
 from ..core.pixel_format import PixelFormat
 from ..ops import jpeg_encode as _jenc
+from ..ops import jpeg_tpu as _jpeg
 from ..ops import synth as _synth
 from .pipeline import PipelineSpec, get_pipeline, make_dummy_overlay, not_ported
 
 _ENC_KEYS = ("enc_y", "enc_cb", "enc_cr")  # the dense coefficient rows, per component
+_log = logging.getLogger("rustcv_tpu_torch")
 
 
 @dataclass
@@ -43,7 +66,7 @@ class TickResult:
     """Outputs of one engine tick (device tensors unless fetched)."""
 
     outputs: Dict[str, torch.Tensor]
-    sequences: np.ndarray  # [N] per-stream frame sequence numbers
+    sequences: np.ndarray  # [N] per-stream frame sequence numbers (-1: a contained fault)
     tick_index: int
 
     def numpy(self, key: str = "bgr") -> np.ndarray:
@@ -89,19 +112,25 @@ class MultiStreamEngine:
         overlay: bool = False,
         emit_bgr: bool = True,
         mesh=None,
+        decode_workers: int = 8,
         device_sim: bool = False,
         stencil_impl: Optional[str] = None,
+        mjpeg_backend: str = "host",
         encode_jpeg_quality: int = 0,
         encode_subsampling: str = "4:2:0",
         encode_packed: Optional[bool] = None,
         sub_batch: Optional[int] = None,
         device="cuda",
     ):
-        """``device_sim=True`` synthesizes frames on the device — the only
-        path ported so far. ``sub_batch`` runs the stream batch as chunks of
-        that size, one after another, writing into preallocated outputs
-        (must divide ``n_streams``). ``stencil_impl=None`` picks the stencil
-        kernel on a CUDA device and the plain chain on the CPU.
+        """``device_sim=True`` synthesizes frames on the device; otherwise
+        frames come from the sources through host staging (YUYV) or, for
+        MJPEG, through the host entropy decode (``mjpeg_backend="hybrid"``;
+        the full-host decode, ``"host"``, is not ported). ``decode_workers``
+        threads gather the streams. ``sub_batch`` (device-sim only) runs the
+        stream batch as chunks of that size, one after another, writing into
+        preallocated outputs (must divide ``n_streams``). ``stencil_impl=None``
+        picks the stencil kernel on a CUDA device and the plain chain on the
+        CPU.
 
         ``encode_jpeg_quality > 0`` adds the JPEG encoder's numeric half to
         every tick (after the overlay), which :meth:`encode_payloads`,
@@ -112,10 +141,10 @@ class MultiStreamEngine:
         ``min(blocks, max(128, blocks // 16))`` dense rows."""
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
-        if not device_sim:
-            raise not_ported("the host-staged engine path (device_sim=False)")
         if mesh is not None:
             raise not_ported("mesh (multi-device) execution")
+        if mjpeg_backend not in ("host", "hybrid"):
+            raise ValueError(f"unknown mjpeg_backend {mjpeg_backend!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but torch.cuda.is_available() is False")
@@ -126,8 +155,14 @@ class MultiStreamEngine:
 
         rc = self._sources[0].resolved_config()
         self._resolved = rc
-        if rc.pixel_format == PixelFormat.MJPEG:
+        mjpeg = rc.pixel_format == PixelFormat.MJPEG
+        if mjpeg and device_sim:
             raise CameraError("device_sim does not support MJPEG streams")
+        self._mjpeg_hybrid = mjpeg and mjpeg_backend == "hybrid"
+        if mjpeg and not self._mjpeg_hybrid:
+            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')")
+        if self._mjpeg_hybrid and not native.available():
+            raise CameraError(f"mjpeg_backend='hybrid' needs the native coder: {native.build_error()}")
         if stencil_impl is None:
             stencil_impl = "pallas" if self.device.type == "cuda" else "xla"
         pack_k = pack_cap = 0
@@ -149,6 +184,7 @@ class MultiStreamEngine:
             overlay=overlay,
             emit_bgr=emit_bgr,
             stencil_impl=stencil_impl,
+            mjpeg_hybrid=self._mjpeg_hybrid,
             encode_jpeg=int(encode_jpeg_quality),
             encode_subsampling=encode_subsampling,
             encode_packed=pack_k,
@@ -161,26 +197,56 @@ class MultiStreamEngine:
         self._lock = threading.Lock()  # the count above and the pools below
         self._encode_pool: Optional[ThreadPoolExecutor] = None  # the coder, per stream
         self._fetch_pool: Optional[ThreadPoolExecutor] = None  # finishes ticks in turn
+        self._prefetch_pool: Optional[ThreadPoolExecutor] = None  # run()'s next gather
         self._side_stream = None  # CUDA stream of the over-capacity copies
+        self.stream_errors = np.zeros(self.n, np.int64)  # contained faults per stream
+        # Gathers that found their staging buffer's upload still in flight
+        # and waited for it (a host path outrunning the device).
+        self.staging_waits = 0
+        # Hybrid MJPEG ticks that ran the dense program (a stream's busy
+        # blocks overflowed the dense rows).
+        self.mjpeg_dense_ticks = 0
+        self._device_sim = device_sim
         if sub_batch is not None:
+            if not device_sim:
+                raise ValueError("sub_batch requires device_sim=True")
             if n_streams % sub_batch:
                 raise ValueError(f"sub_batch={sub_batch} must divide n_streams={n_streams}")
             if sub_batch == n_streams:
                 sub_batch = None  # monolithic anyway
         self._sub_batch = sub_batch
-        self._seqs = np.zeros(self.n, np.int64)
+        self._seqs = np.zeros(self.n, np.int64)  # the device-sim stream clock
         self._seqs_dev = None
         self._overlay_cache = None  # (content key, device args)
         self._sim_t0 = time.monotonic()
         self._frame_pool = None
-        pool_k = getattr(self._driver, "n_unique_frames", 0)
-        if pool_k > 0:
-            # K wire-format frames made once on the device; ticks gather
-            # from the pool like a camera's DMA ring.
-            self._frame_pool = _synth.synth_raw(
-                torch.arange(pool_k, dtype=torch.int32, device=self.device),
-                rc.width, rc.height, rc.pixel_format,
-            )
+        # Host staging: two slots, each a list of (tensor, numpy view) pairs
+        # (pinned on a CUDA device), and per slot the event recorded after
+        # its last upload. The hybrid slots are sized by the first frame.
+        self._staging: List[list] = []
+        self._staging_events: list = [None, None]
+        self._staging_idx = 0
+        self._coeff_staging = None  # hybrid: the dense grids of over-capacity ticks
+        self._fn_dense = None  # hybrid: the dense-grid program
+        self._qts = None  # hybrid: (luma, chroma) quant tables on the device
+        self._gather_pool: Optional[ThreadPoolExecutor] = None
+        self._last_gather_s = 0.0
+        if device_sim:
+            pool_k = getattr(self._driver, "n_unique_frames", 0)
+            if pool_k > 0:
+                # K wire-format frames made once on the device; ticks gather
+                # from the pool like a camera's DMA ring.
+                self._frame_pool = _synth.synth_raw(
+                    torch.arange(pool_k, dtype=torch.int32, device=self.device),
+                    rc.width, rc.height, rc.pixel_format,
+                )
+        else:
+            if not self._mjpeg_hybrid:
+                shape = (self.n, self.spec.raw_bytes())
+                self._staging = [[self._host_buffer(shape, np.uint8)] for _ in range(2)]
+            if mjpeg or self.n > 1:
+                self._gather_pool = ThreadPoolExecutor(max_workers=decode_workers,
+                                                       thread_name_prefix="rustcv-decode")
         self._tick_index = 0
 
     def _one_tick(self, seqs, rects, colors, thickness):
@@ -242,6 +308,243 @@ class MultiStreamEngine:
     def sources(self) -> Sequence[FrameSource]:
         return tuple(self._sources)
 
+    # -- host staging ----------------------------------------------------
+
+    def _host_buffer(self, shape, dtype) -> tuple:
+        """A staging buffer as (tensor, numpy view of the same memory):
+        pinned on a CUDA device, so its upload can be ``non_blocking``."""
+        if self.device.type != "cuda":
+            arr = np.zeros(shape, dtype)
+            return torch.from_numpy(arr), arr
+        t = torch.zeros(shape, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, pin_memory=True)
+        return t, t.numpy()
+
+    def _claim_slot(self) -> int:
+        """The staging slot the next gather fills. Its last upload may still
+        be reading it: wait for that upload's event (and nothing else)."""
+        slot = self._staging_idx
+        self._staging_idx ^= 1
+        event = self._staging_events[slot]
+        if event is not None and not event.query():
+            self.staging_waits += 1
+            event.synchronize()
+        return slot
+
+    def _upload(self, slot: int) -> list:
+        """Start the host→device copy of staging ``slot`` and record the
+        event the slot's next gather waits for. On the CPU the staging
+        tensors are the inputs."""
+        hosts = [t for t, _ in self._staging[slot]]
+        if self.device.type != "cuda":
+            return hosts
+        outs = [t.to(self.device, non_blocking=True) for t in hosts]
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._staging_events[slot] = event
+        return outs
+
+    def _gather_row(self, i: int, staging: np.ndarray, prev: np.ndarray, seqs: np.ndarray) -> None:
+        """Fill stream i's staging row. Per-stream fault containment: a
+        failing source does not end the tick; its stream reuses its last
+        good frame (the previous buffer's row), the error is counted and its
+        sequence is -1."""
+        try:
+            frame = self._sources[i].next_frame()
+            seqs[i] = frame.sequence
+            staging[i] = frame.data.reshape(-1)
+        except CameraError as e:
+            self.stream_errors[i] += 1
+            seqs[i] = -1
+            staging[i] = prev[i]
+            _log.warning("stream %d capture failed (reusing last frame): %s", i, e)
+
+    def _map_streams(self, fn, first: int = 0) -> None:
+        """``fn(i)`` for streams ``first``..N-1, on the gather pool when there
+        is one; every result is read, so an error is raised here."""
+        if self._gather_pool is None:
+            for i in range(first, self.n):
+                fn(i)
+            return
+        for fut in [self._gather_pool.submit(fn, i) for i in range(first, self.n)]:
+            fut.result()
+
+    def gather(self) -> Tuple[int, np.ndarray]:
+        """Pull one frame per stream into the next staging slot; returns the
+        slot and the sequences."""
+        slot = self._claim_slot()
+        staging, prev = self._staging[slot][0][1], self._staging[slot ^ 1][0][1]
+        seqs = np.zeros(self.n, np.int64)
+        self._map_streams(lambda i: self._gather_row(i, staging, prev, seqs))
+        return slot, seqs
+
+    # -- hybrid MJPEG gather (C++ entropy decode → coefficient staging) ----
+
+    def _check_geometry(self, i: int, info: dict) -> None:
+        if (info["width"], info["height"]) != (self._resolved.width, self._resolved.height):
+            raise CameraError(f"stream {i} geometry {info['width']}x{info['height']} != negotiated")
+
+    def _entropy_decode_checked(self, i: int):
+        frame = self._sources[i].next_frame()
+        info, coeffs, qts = native.jpeg_entropy_decode(frame.data)
+        self._check_geometry(i, info)
+        return frame.sequence, coeffs, qts
+
+    def _init_hybrid(self) -> tuple:
+        """Sizing pass: stream 0's first frame fixes the coefficient geometry
+        (subsampling), the quant tables and the packed capacity, and selects
+        the packed program. Returns (seq, dense coefficients) of that frame
+        for the first tick."""
+        seq, coeffs, qts = self._entropy_decode_checked(0)
+        if len(coeffs) != 3 or coeffs[1].shape != coeffs[2].shape:
+            raise CameraError("hybrid MJPEG expects three components, Cb and Cr alike")
+        nblocks = int(sum(c.shape[0] * c.shape[1] for c in coeffs))
+        nnzb = np.concatenate([(c != 0).sum(axis=(2, 3)).reshape(-1) for c in coeffs])
+        self._packed_k, self._dense_cap = _jpeg.choose_block_packing(nnzb)
+        k, cap = self._packed_k, self._dense_cap
+        tables = []
+        for q in qts[:2]:
+            t, _ = self._host_buffer((8, 8), np.int32)
+            t.copy_(torch.from_numpy(q.astype(np.int32)))
+            tables.append(t.to(self.device, non_blocking=True))
+        self._qts = tuple(tables)
+        # The dense grids serve only over-capacity ticks: plain arrays,
+        # whose pages stay unallocated until such a tick writes them.
+        self._coeff_staging = [[np.zeros((self.n, *c.shape), np.int16) for c in coeffs]
+                               for _ in range(2)]
+        staging = []
+        for _ in range(2):
+            bufs = [self._host_buffer(s, d) for s, d in (
+                ((self.n, nblocks, k), np.uint8), ((self.n, nblocks, k), np.int16),
+                ((self.n, cap), np.int32), ((self.n, cap, 64), np.int16))]
+            bufs[2][1][:] = nblocks  # the scratch-row id
+            staging.append(bufs)
+        self._staging = staging
+        self._fn_dense = self._fn
+        geom = tuple((int(c.shape[0]), int(c.shape[1])) for c in coeffs)
+        self.spec = replace(self.spec, mjpeg_packed=True, coeff_geometry=geom)
+        self._fn = get_pipeline(self.spec)
+        return seq, coeffs
+
+    def _pack_dense_host(self, i: int, coeffs, staging) -> bool:
+        """Block-pack dense grids into stream i's packed rows on the host
+        (the encoder's packing; its busy blocks come in another order than
+        the decoder's, which the unpack does not see). Returns False if the
+        busy blocks exceed the dense-row capacity."""
+        blocks = torch.from_numpy(np.concatenate([c.reshape(-1, 64) for c in coeffs]))
+        *packed, n_dense = _jenc.pack_coeff_rows(blocks, self._packed_k, self._dense_cap)
+        if int(n_dense) > self._dense_cap:
+            return False
+        for dst, src in zip(staging, packed):
+            dst[i] = src.numpy()
+        return True
+
+    def _gather_row_hybrid(self, i, staging, prev_staging, dense_bufs, seqs, dense_flags):
+        """Block-packed entropy decode of stream i's frame into its staging
+        rows; a frame whose busy blocks exceed the capacity decodes dense
+        instead and flags the tick. Faults are contained as in
+        :meth:`_gather_row`: the previous tick's packed rows are reused."""
+        try:
+            frame = self._sources[i].next_frame()
+            seqs[i] = frame.sequence
+            try:
+                r = native.jpeg_entropy_decode_blockpacked(
+                    frame.data, self._packed_k, self._dense_cap,
+                    out_idx=staging[0][i], out_val=staging[1][i],
+                    out_dense_ids=staging[2][i], out_dense_rows=staging[3][i])
+            except ValueError as e:  # a corrupt frame, or another block grid
+                raise DecodeError(str(e)) from e
+            if r is None:  # busy blocks over capacity: decode dense, same bytes
+                # The aborted packed decode left the rows half written:
+                # restore the last good ones, which a later fault reuses.
+                for cur, prev in zip(staging, prev_staging):
+                    cur[i] = prev[i]
+                try:
+                    info, coeffs, _ = native.jpeg_entropy_decode(frame.data)
+                except ValueError as e:
+                    raise DecodeError(str(e)) from e
+                self._check_geometry(i, info)
+                for c in range(3):
+                    if len(coeffs) != 3 or dense_bufs[c][i].shape != coeffs[c].shape:
+                        raise DecodeError(
+                            f"stream {i} coefficient grids {[a.shape for a in coeffs]} != "
+                            "negotiated (subsampling changed)")
+                for c in range(3):
+                    dense_bufs[c][i] = coeffs[c]
+                dense_flags[i] = True
+                return
+            self._check_geometry(i, r[0])
+        except CameraError as e:
+            self.stream_errors[i] += 1
+            seqs[i] = -1
+            for cur, prev in zip(staging, prev_staging):
+                cur[i] = prev[i]  # the last good packed rows
+            _log.warning("stream %d hybrid capture failed (reusing last frame): %s", i, e)
+
+    def gather_hybrid(self) -> Tuple[str, int, np.ndarray]:
+        """One frame per stream → block-packed coefficient staging (the host
+        does only the entropy decode, which releases the GIL, so streams
+        decode in parallel). Returns ``(kind, slot, seqs)``: kind
+        ``"packed"``, or ``"dense"`` when a stream overflowed the dense-row
+        capacity and the whole batch runs the dense program from the
+        slot's dense grids."""
+        seqs = np.zeros(self.n, np.int64)
+        seed = None
+        if self._coeff_staging is None:
+            seqs[0], seed = self._init_hybrid()
+        slot = self._claim_slot()
+        staging = [a for _, a in self._staging[slot]]
+        prev_staging = [a for _, a in self._staging[slot ^ 1]]
+        dense_bufs = self._coeff_staging[slot]
+        dense_flags = np.zeros(self.n, bool)
+        if seed is not None and not self._pack_dense_host(0, seed, staging):
+            for c in range(3):
+                dense_bufs[c][0] = seed[c]
+            dense_flags[0] = True
+        self._map_streams(lambda i: self._gather_row_hybrid(
+            i, staging, prev_staging, dense_bufs, seqs, dense_flags),
+            first=0 if seed is None else 1)
+        if not dense_flags.any():
+            return "packed", slot, seqs
+        # A rare tick: the packed streams' dense grids are made on the host
+        # (the same unpack as the device's), and the batch runs dense.
+        for i in np.flatnonzero(~dense_flags):
+            row = _jpeg.unpack_block_coeffs(*(torch.from_numpy(a[i]) for a in staging))
+            row = row.reshape(-1).numpy()
+            off = 0
+            for b in dense_bufs:
+                b[i] = row[off:off + b[i].size].reshape(b[i].shape)
+                off += b[i].size
+        return "dense", slot, seqs
+
+    def _gather_any(self) -> tuple:
+        """One frame per stream, tagged for :meth:`tick`'s ``pregathered``:
+        ``(kind, slot, seqs)``."""
+        if self._mjpeg_hybrid:
+            return self.gather_hybrid()
+        slot, seqs = self.gather()
+        return "raw", slot, seqs
+
+    def _timed_gather(self):
+        t = time.perf_counter()
+        pre = self._gather_any()
+        return pre, time.perf_counter() - t
+
+    def _staged_inputs(self, pregathered):
+        """Gather (unless ``pregathered``) and upload: (pipeline, its input,
+        sequences)."""
+        if pregathered is None:
+            pregathered, self._last_gather_s = self._timed_gather()
+        kind, slot, seqs = pregathered
+        if kind == "raw":
+            return self._fn, self._upload(slot)[0], seqs
+        if kind == "packed":
+            return self._fn, tuple(self._upload(slot)) + self._qts, seqs
+        # Over-capacity tick: the dense grids are plain host arrays, so their
+        # copy returns once the bytes have left them.
+        self.mjpeg_dense_ticks += 1
+        grids = tuple(torch.from_numpy(b).to(self.device) for b in self._coeff_staging[slot])
+        return self._fn_dense, grids + self._qts, seqs
+
     # ------------------------------------------------------------------
 
     def _overlay_args(self, rects, rect_colors, thickness):
@@ -273,33 +576,38 @@ class MultiStreamEngine:
         thickness: int = 2,
         block: bool = False,
         text: Optional[str] = None,
+        pregathered=None,
     ) -> TickResult:
         """One batched step. ``block=False`` leaves the outputs in flight on
         the device's stream; ``block=True`` waits for them by fetching the
-        one-element ``_sync`` output.
+        one-element ``_sync`` output. ``pregathered`` (host paths) is a
+        gather made ahead, as :meth:`run`'s prefetch thread makes it.
 
         Overlay args are cached by content: a changed value is uploaded
         again, an unchanged one costs no transfer."""
         if text is not None:
             raise not_ported("text overlay (text=)")
-        paced = getattr(self._driver, "paced", False)
-        if paced:
-            # Sensor-timed sequences: the wall clock drives seq, so a slow
-            # consumer sees gaps (drop semantics kept on the device path).
-            seq_now = int((time.monotonic() - self._sim_t0) * self._resolved.fps)
-            seqs = np.maximum(self._seqs, seq_now)
-            self._seqs_dev = None  # clock jumped: must upload
-        else:
-            seqs = self._seqs.copy()
-        if self._seqs_dev is not None:
-            x = self._seqs_dev  # device-resident, fed back from the last tick
-        else:
-            x = torch.from_numpy(seqs.astype(np.int32)).to(self.device)
-        self._seqs = seqs + 1
-
         r, c, th = self._overlay_args(rects, rect_colors, thickness)
-        out = self._sim_tick(x, r, c, th)
-        self._seqs_dev = out["_next_seqs"]
+        if self._device_sim:
+            if getattr(self._driver, "paced", False):
+                # Sensor-timed sequences: the wall clock drives seq, so a
+                # slow consumer sees gaps (drop semantics kept on the device
+                # path).
+                seq_now = int((time.monotonic() - self._sim_t0) * self._resolved.fps)
+                seqs = np.maximum(self._seqs, seq_now)
+                self._seqs_dev = None  # clock jumped: must upload
+            else:
+                seqs = self._seqs.copy()
+            if self._seqs_dev is not None:
+                x = self._seqs_dev  # device-resident, fed back from the last tick
+            else:
+                x = torch.from_numpy(seqs.astype(np.int32)).to(self.device)
+            self._seqs = seqs + 1
+            out = self._sim_tick(x, r, c, th)
+            self._seqs_dev = out["_next_seqs"]
+        else:
+            fn, x, seqs = self._staged_inputs(pregathered)
+            out = fn(x, r, c, th)
         if block:
             out["_sync"].cpu()  # a device→host copy waits for the tick
         res = TickResult(out, seqs, self._tick_index)
@@ -316,22 +624,50 @@ class MultiStreamEngine:
         rect_colors: Optional[np.ndarray] = None,
     ) -> EngineStats:
         """Sustained throughput + latency harness: FPS, P50/P99 tick latency
-        (host clock around a blocking tick) and dropped frames."""
+        (host clock around a blocking tick), host gather ms per tick and
+        dropped frames.
+
+        With ``measure_latency=False`` on a host path, a prefetch thread
+        gathers tick k+1 while tick k is uploaded and computed, and
+        ``host_gather_ms`` is that (mostly hidden) gather's time. Drops are
+        counted per stream between its first and last good sequence; a
+        contained fault's ``-1`` enters neither."""
         stats = EngineStats()
         for _ in range(warmup):
             self.tick(rects=rects, rect_colors=rect_colors, block=True)
 
+        first_seqs = np.full(self.n, -1, np.int64)
+        last_seqs = np.full(self.n, -1, np.int64)
+        good_counts = np.zeros(self.n, np.int64)
         lat: List[float] = []
-        first = None
+        prefetch = not measure_latency and not self._device_sim and n_ticks > 0
+        if prefetch:
+            with self._lock:
+                if self._prefetch_pool is None:
+                    self._prefetch_pool = ThreadPoolExecutor(max_workers=1,
+                                                             thread_name_prefix="rustcv-prefetch")
         res = None
+        gather_total = 0.0
         t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            t_s = time.perf_counter()
-            res = self.tick(rects=rects, rect_colors=rect_colors, block=measure_latency)
+        gfut = self._prefetch_pool.submit(self._timed_gather) if prefetch else None
+        for k in range(n_ticks):
+            self._last_gather_s = 0.0
             if measure_latency:
+                t_s = time.perf_counter()
+                res = self.tick(rects=rects, rect_colors=rect_colors, block=True)
                 lat.append((time.perf_counter() - t_s) * 1e3)
-            if first is None:
-                first = res.sequences
+            elif prefetch:
+                pre, self._last_gather_s = gfut.result()
+                if k + 1 < n_ticks:
+                    gfut = self._prefetch_pool.submit(self._timed_gather)
+                res = self.tick(rects=rects, rect_colors=rect_colors, pregathered=pre)
+            else:
+                res = self.tick(rects=rects, rect_colors=rect_colors)
+            gather_total += self._last_gather_s
+            good = res.sequences >= 0
+            first_seqs = np.where((first_seqs < 0) & good, res.sequences, first_seqs)
+            last_seqs = np.where(good, res.sequences, last_seqs)
+            good_counts += good
         if res is not None:
             # One stream runs the ticks in order: the last tick's token
             # bounds the whole run.
@@ -341,14 +677,16 @@ class MultiStreamEngine:
         stats.ticks = n_ticks
         stats.frames = n_ticks * self.n
         stats.wall_s = wall
+        stats.host_gather_ms = gather_total * 1e3 / max(1, n_ticks)
         if lat:
             stats.latencies_ms = lat
             stats.p50_latency_ms = float(np.percentile(lat, 50))
             stats.p99_latency_ms = float(np.percentile(lat, 99))
-        if res is not None:
+        valid = first_seqs >= 0
+        if valid.any():
             # A paced clock skips the sequences a slow consumer missed.
-            expected = int((res.sequences - first + 1).sum())
-            stats.dropped_frames = max(0, expected - stats.frames)
+            expected = (last_seqs[valid] - first_seqs[valid] + 1).sum()
+            stats.dropped_frames = int(max(0, expected - good_counts[valid].sum()))
         return stats
 
     # -- JPEG transcode delivery -----------------------------------------
@@ -545,7 +883,9 @@ class MultiStreamEngine:
 
     def export_state(self) -> dict:
         """JSON-serializable snapshot of the configuration and stream
-        positions, with the reference engine's keys."""
+        positions, with the reference engine's keys. ``sequences`` is the
+        device-sim stream clock; a host path's positions are its sources'
+        own, as in the reference."""
         rc = self._resolved
         return {
             "n_streams": self.n,
@@ -557,7 +897,7 @@ class MultiStreamEngine:
             "filter": self.spec.filter,
             "resize_to": list(self.spec.resize_to) if self.spec.resize_to else None,
             "overlay": self.spec.overlay,
-            "device_sim": True,
+            "device_sim": self._device_sim,
             "sequences": [int(s) for s in self._seqs],
             "tick_index": self._tick_index,
         }
@@ -566,9 +906,11 @@ class MultiStreamEngine:
     def from_state(cls, state: dict, driver=None, device="cuda",
                    **overrides) -> "MultiStreamEngine":
         """Rebuild an engine from an :meth:`export_state` snapshot of this
-        engine or of the reference's; stream clocks resume where it left.
-        The snapshot holds no encode settings (the reference's keys):
-        ``overrides`` (e.g. ``encode_jpeg_quality=85``) go to the engine."""
+        engine or of the reference's; device-sim stream clocks resume where
+        it left, a host path opens its sources anew. The snapshot holds no
+        encode or MJPEG settings (the reference's keys): ``overrides`` (e.g.
+        ``encode_jpeg_quality=85``, ``mjpeg_backend="hybrid"``) go to the
+        engine."""
         from ..capture import SimulationDriver
 
         if driver is None:
@@ -596,7 +938,7 @@ class MultiStreamEngine:
         for s in self._sources:
             s.stop()
         with self._lock:
-            for attr in ("_encode_pool", "_fetch_pool"):
+            for attr in ("_gather_pool", "_prefetch_pool", "_encode_pool", "_fetch_pool"):
                 if getattr(self, attr) is not None:
                     getattr(self, attr).shutdown(wait=False)
                     setattr(self, attr, None)

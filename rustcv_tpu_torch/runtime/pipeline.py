@@ -1,9 +1,13 @@
-"""Per-tick pipeline builder (port of ``rustcv_tpu.runtime.pipeline``, the
-YUYV device path).
+"""Per-tick pipeline builder (port of ``rustcv_tpu.runtime.pipeline``: the
+YUYV device path and the hybrid MJPEG reconstruction).
 
 ``raw u8 [N, H*W*2] → decode → (resize) → (filter) → (overlay) → (JPEG
 encode) → outputs`` for a batch of N streams, as a plain function on
-tensors. The filter reads the resized image before the overlay; the
+tensors. With ``mjpeg_hybrid`` the input is the host entropy decoder's
+coefficients instead (block-packed with ``mjpeg_packed``, else dense
+grids), and the decode is :mod:`rustcv_tpu_torch.ops.jpeg_tpu`'s
+dequantize → IDCT → upsample → colour, resized in plane form. The filter
+reads the resized image before the overlay; the
 encoder reads it after. The stages run as the plain PyTorch ops of
 :mod:`rustcv_tpu_torch.ops` or, where a spec selects them, as the CUDA
 kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
@@ -15,14 +19,14 @@ kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
 * ``RUSTCV_DECODE=pallas`` decodes with the fused decode+overlay kernel (K4)
   for the gray filters; ``RUSTCV_DECODE=pallas_tick`` runs the whole
   blur_sobel tick as one kernel (K5). Unset or ``xla``: the plain decode.
-  Neither kernel runs with ``resize_to`` or ``encode_jpeg``.
+  Neither kernel runs with ``resize_to``, ``encode_jpeg`` or MJPEG.
 * ``encode_jpeg`` > 0 adds the encoder's numeric half (``enc_y``,
   ``enc_cb``, ``enc_cr``: int16 coefficient rows) and, with
   ``encode_packed``, their block-packed form and its byte blob for the
   host Huffman coder; plain PyTorch, the DCT a float32 ``torch.matmul``.
 
-Specs this port does not run yet (MJPEG input, pixel formats other than
-YUYV) raise ``NotImplementedError``.
+Specs this port does not run yet (the full-host MJPEG decode, pixel
+formats other than YUYV and MJPEG) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..ops import draw as _draw
 from ..ops import features as _features
 from ..ops import filters as _filters
 from ..ops import jpeg_encode as _jenc
+from ..ops import jpeg_tpu as _jpeg
 from ..ops import kernels as _kernels
 from ..ops import resize as _resize
 
@@ -74,6 +79,20 @@ class PipelineSpec:
     encode_packed: int = 0
     encode_dense_cap: int = 0
 
+    def raw_bytes(self) -> int:
+        """Bytes of one stream's staging row: BGR for MJPEG (the full-host
+        decode stages BGR or RGB), else the wire format's size."""
+        if self.pixel_format == PixelFormat.MJPEG:
+            return self.width * self.height * 3
+        return self.pixel_format.buffer_size(self.width, self.height)
+
+    def staged_format(self) -> PixelFormat:
+        """The format of the staged bytes (the full-host MJPEG decode's
+        output, else the wire format)."""
+        if self.pixel_format == PixelFormat.MJPEG:
+            return PixelFormat.BGR24 if self.mjpeg_staged_bgr else PixelFormat.RGB24
+        return self.pixel_format
+
 
 def decode_mode() -> str:
     """The ``RUSTCV_DECODE`` mode, read as the reference reads it."""
@@ -85,10 +104,15 @@ def not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(spec: PipelineSpec, mode: str) -> None:
-    if spec.pixel_format != PixelFormat.YUYV:
+    if spec.pixel_format == PixelFormat.MJPEG:
+        if spec.mjpeg_staged_bgr or not spec.mjpeg_hybrid:
+            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')")
+        if spec.mjpeg_packed and len(spec.coeff_geometry) != 3:
+            raise ValueError("mjpeg_packed needs coeff_geometry: (bh, bw) of Y, Cb and Cr")
+    elif spec.pixel_format != PixelFormat.YUYV:
         raise not_ported(f"pixel format {spec.pixel_format.value}")
-    if spec.mjpeg_hybrid or spec.mjpeg_packed:
-        raise not_ported("hybrid MJPEG")
+    elif spec.mjpeg_hybrid or spec.mjpeg_packed:
+        raise ValueError("mjpeg_hybrid and mjpeg_packed need pixel_format MJPEG")
     if spec.resize_to is not None and min(spec.resize_to) < 1:
         raise ValueError(f"resize_to must be positive, got {spec.resize_to}")
     if spec.encode_jpeg and spec.encode_subsampling not in _jenc.SUBSAMPLINGS:
@@ -101,29 +125,61 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
         raise ValueError(f"unknown stencil_impl {spec.stencil_impl!r}")
     if mode == "xla_fused":
         raise not_ported("RUSTCV_DECODE=xla_fused")
-    if spec.width % 2:
+    if spec.pixel_format == PixelFormat.YUYV and spec.width % 2:
         raise ValueError(f"YUYV needs an even width, got {spec.width}")
 
 
 def _build(spec: PipelineSpec, mode: str):
     _check_ported(spec, mode)
     w, h = spec.width, spec.height
-    # K4 and K5 decode at the input size: neither runs with a resize or an
-    # encode, as in the reference.
-    plain_size = spec.resize_to is None and not spec.encode_jpeg
+    hybrid = spec.mjpeg_hybrid
+    # K4 and K5 decode YUYV at the input size: neither runs with a resize
+    # or an encode, as in the reference.
+    plain_size = not hybrid and spec.resize_to is None and not spec.encode_jpeg
     fused_decode = plain_size and mode == "pallas" and spec.filter in GRAY_FILTERS
     fused_tick = (
         plain_size and mode == "pallas_tick" and spec.filter == "blur_sobel"
         and spec.emit_bgr and spec.emit_filtered
     )
     cur_w, cur_h = (w, h) if spec.resize_to is None else spec.resize_to
-    # The reference emits a resized image as packed rows only when both
-    # widths are multiples of 4, else as (N, H, W, 3): the same bytes.
-    packed_out = spec.resize_to is None or (w % 4 == 0 and cur_w % 4 == 0)
+    # The reference emits a resized YUYV image as packed rows only when both
+    # widths are multiples of 4, a hybrid MJPEG image only when the output
+    # width is, else as (N, H, W, 3): the same bytes.
+    if hybrid:
+        packed_out = cur_w % 4 == 0
+    else:
+        packed_out = spec.resize_to is None or (w % 4 == 0 and cur_w % 4 == 0)
+
+    def reconstruct_mjpeg(x):
+        """Coefficients → packed BGR rows at the output size. ``x`` is
+        ``(idx, val, dense_ids, dense_rows, qty, qtc)`` with mjpeg_packed,
+        else the dense grids ``(y, cb, cr, qty, qtc)``, (N, bh, bw, 8, 8)
+        int16 each; the quant tables (8, 8) are shared by the batch."""
+        if spec.mjpeg_packed:
+            idx, val, dense_ids, dense_rows, qty, qtc = x
+            dense = _jpeg.unpack_block_coeffs(idx, val, dense_ids, dense_rows)
+            comps, off = [], 0
+            for bh, bw in spec.coeff_geometry:
+                comps.append(dense[:, off:off + bh * bw].reshape(-1, bh, bw, 8, 8))
+                off += bh * bw
+        else:
+            *comps, qty, qtc = x
+        planes = [_jpeg.dequant_idct_plane(c, qt) for c, qt in zip(comps, (qty, qtc, qtc))]
+        # upsampling factors from the planes' shapes
+        fy = planes[0].shape[-2] // planes[1].shape[-2]
+        fx = planes[0].shape[-1] // planes[1].shape[-1]
+        cb, cr = (_jpeg.upsample(p, fx, fy)[..., :h, :w] for p in planes[1:])
+        b, g, r = _jpeg.ycbcr_to_bgr_planes(planes[0][..., :h, :w], cb, cr)
+        if spec.resize_to is not None:
+            b, g, r = _resize.resize_bilinear_plane(torch.stack([b, g, r], dim=-3),
+                                                     cur_w, cur_h).unbind(-3)
+        return _color.interleave_bgr_planes(b, g, r, cur_w, cur_h)
 
     def run(raw, rects, rect_colors, thickness):
-        """raw u8 [N, H*W*2]; rects int32 [N, 4], rect_colors u8 [N, 3] and
-        an int thickness (read only with spec.overlay) → dict of outputs."""
+        """raw u8 [N, H*W*2] (the coefficient tuple of
+        :func:`reconstruct_mjpeg` for hybrid MJPEG); rects int32 [N, 4],
+        rect_colors u8 [N, 3] and an int thickness (read only with
+        spec.overlay) → dict of outputs."""
         if fused_tick:
             bgr, filtered = _kernels.yuyv_tick_fused(
                 raw, w, h, rects, rect_colors, thickness, overlay=spec.overlay)
@@ -133,17 +189,20 @@ def _build(spec: PipelineSpec, mode: str):
             bgr, gray = _kernels.yuyv_decode_interleave(
                 raw, w, h, rects, rect_colors, thickness, overlay=spec.overlay)
             overlay_done = True
+        elif hybrid:
+            bgr = reconstruct_mjpeg(raw)  # resized inside, in plane form
+            gray = None
         else:
             bgr = _color.yuyv_to_bgr_packed(raw, w, h)
             gray = None
-        if spec.resize_to is not None:
+        if spec.resize_to is not None and not hybrid:
             bgr = _resize.resize_bilinear_packed(bgr, w, h, cur_w, cur_h)
         decoded = bgr  # the filters read the image before the overlay
 
         def gray_plane():
             if gray is not None:
                 return gray
-            if spec.resize_to is None:
+            if spec.resize_to is None and not hybrid:
                 return _color.yuyv_to_gray(raw, w, h)
             return _color.bgr_to_gray_packed_rows(decoded, cur_w, cur_h)
 

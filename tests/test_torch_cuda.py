@@ -251,3 +251,114 @@ def test_config6_on_the_card_matches_the_cpu(cuda):
                 np.testing.assert_array_equal(native.jpeg_entropy_decode(p)[1][c].reshape(-1, 64),
                                               got[i])
     card.close()
+
+
+def _host_engine(device, fmt=PixelFormat.YUYV, n=3, **kw):
+    cfg = SimpleConfig(width=160, height=120, fps=60, pixel_format=fmt)
+    if fmt == PixelFormat.MJPEG:
+        kw.setdefault("mjpeg_backend", "hybrid")
+    return MultiStreamEngine(SimulationDriver(device_count=n, paced=False), n, cfg,
+                             device_sim=False, device=device, **kw)
+
+
+def _close_bytes(got, want):
+    """max |diff| <= 1 on < 0.5 % of bytes (the float32 IDCT's ties)."""
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert d.max() <= 1 and (d > 0).mean() < 5e-3, (d.max(), (d > 0).mean())
+
+
+@pytest.mark.parametrize("fmt", [PixelFormat.YUYV, PixelFormat.MJPEG])
+def test_host_path_stages_in_pinned_memory_and_matches_the_cpu(cuda, monkeypatch, fmt):
+    monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    kw = dict(filter="blur_sobel", overlay=True)
+    rects = np.array([[20, 10, 60, 40]] * 3, np.int32)
+    colors = np.array([[0, 255, 0]] * 3, np.uint8)
+    card, cpu = _host_engine(cuda, fmt, **kw), _host_engine("cpu", fmt, **kw)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        got = card.tick(rects=rects, rect_colors=colors, block=True)
+        want = cpu.tick(rects=rects, rect_colors=colors, block=True)
+        assert got.sequences.tolist() == want.sequences.tolist()
+        for key in ("bgr", "filtered"):
+            if fmt == PixelFormat.YUYV:
+                np.testing.assert_array_equal(got.numpy(key), want.numpy(key))
+            else:
+                _close_bytes(got.numpy(key), want.numpy(key))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["blur_sobel_mag"] == 3
+    assert all(t.is_pinned() and t.device.type == "cpu" for slot in card._staging for t, _ in slot)
+    assert all(e is not None for e in card._staging_events)
+    card.close()
+
+
+@pytest.mark.parametrize("fmt", [PixelFormat.YUYV, PixelFormat.MJPEG])
+def test_prefetch_reuse_under_load(cuda, monkeypatch, fmt):
+    """A spin kernel ahead of every upload keeps each copy in flight while the
+    prefetch thread gathers the next ticks, so the gather for tick k+2 finds
+    tick k's copy still reading its buffer: it must wait for that copy's
+    event, and every tick of the run equals the CPU's sequential ticks."""
+    monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    card = _host_engine(cuda, fmt, n=2, filter="sobel_mag")
+    upload = card._upload
+
+    def slow_upload(slot):
+        torch.cuda._sleep(200_000_000)  # about 100 ms of device time
+        return upload(slot)
+
+    card._upload = slow_upload
+    seen = []
+    tick = card.tick
+
+    def recorded(*args, **kwargs):
+        res = tick(*args, **kwargs)
+        seen.append(res)
+        return res
+
+    card.tick = recorded
+    card.run(8, warmup=0, measure_latency=False)
+    assert card.staging_waits > 0  # the hazard was there
+    cpu = _host_engine("cpu", fmt, n=2, filter="sobel_mag")
+    for res in seen:
+        want = cpu.tick(block=True)
+        assert res.sequences.tolist() == want.sequences.tolist()
+        for key in ("bgr", "filtered"):
+            if fmt == PixelFormat.YUYV:
+                np.testing.assert_array_equal(res.numpy(key), want.numpy(key))
+            else:
+                _close_bytes(res.numpy(key), want.numpy(key))
+    card.close()
+
+
+@pytest.mark.parametrize("fmt", [PixelFormat.YUYV, PixelFormat.MJPEG])
+def test_steady_host_ticks_do_not_synchronize(cuda, monkeypatch, fmt):
+    """After warm-up, a host tick, blocking gather or prefetched, issues no
+    call that waits for the device (torch's sync debug mode raises on one):
+    the upload and the pipeline stay queued behind the device's work."""
+    monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    eng = _host_engine(cuda, fmt, n=2, filter="blur_sobel", overlay=True)
+    for _ in range(3):
+        eng.tick(block=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            eng.tick()
+            eng.tick(pregathered=eng._gather_any())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    eng.close()
+
+
+def test_config2_on_the_card_matches_the_cpu(cuda):
+    """Config 2 cut to 2 streams of 160×120 → 64×48, packed and forced
+    dense, against the CPU's ticks of the same frames."""
+    model = dataclasses.replace(get_model("config2_mjpeg_resize"), width=160, height=120,
+                                n_streams=2, resize_to=(64, 48))
+    card, cpu = model.engine(device=cuda), model.engine(device="cpu")
+    for t in range(3):
+        if t == 2:
+            card._dense_cap = 0  # every busy block over capacity: the dense program
+        got, want = card.tick(block=True), cpu.tick(block=True)
+        assert got.sequences.tolist() == want.sequences.tolist() == [t, t]
+        _close_bytes(got.numpy("bgr"), want.numpy("bgr"))
+    card.close()

@@ -268,13 +268,12 @@ def _decode_xla_fused(monkeypatch):
 @pytest.mark.parametrize(
     "make",
     [
-        pytest.param(lambda mp: port_pipeline.get_pipeline(port_pipeline.PipelineSpec(
-            PixelFormat.YUYV, 64, 48, mjpeg_hybrid=True)), id="mjpeg_hybrid"),
-        pytest.param(lambda mp: port_pipeline.get_pipeline(port_pipeline.PipelineSpec(
-            PixelFormat.YUYV, 64, 48, mjpeg_packed=True)), id="mjpeg_packed"),
         pytest.param(lambda mp: MultiStreamEngine(
-            SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48), device="cpu"),
-            id="host-staged"),
+            SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48, PixelFormat.MJPEG),
+            mjpeg_backend="host", device="cpu"), id="mjpeg_host"),
+        pytest.param(lambda mp: MultiStreamEngine(
+            SimulationDriver(device_count=2, paced=False), 2, _cfg(64, 48, PixelFormat.UYVY),
+            device="cpu"), id="host-staged-uyvy"),
         pytest.param(lambda mp: _port(64, 48, 1, mesh=object()), id="mesh"),
         pytest.param(lambda mp: _port(64, 48, 1).tick(text="hi"), id="text"),
         pytest.param(lambda mp: _port(64, 48, 1).set_resolution(160, 120), id="set_resolution"),
@@ -348,7 +347,21 @@ def test_zoo_raw_models_build_their_engines(name):
         assert "bgr" in out and ("filtered" in out) == (model.filter != "none")
 
 
-@pytest.mark.parametrize("name", ["config2_mjpeg_resize"])
-def test_zoo_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.get_model(name).engine(device="cpu")
+def test_device_sim_mjpeg_raises():
+    """MJPEG has no device-sim form: its entropy decode is host work, as in
+    the reference."""
+    with pytest.raises(core.CameraError, match="device_sim"):
+        MultiStreamEngine(SimulationDriver(device_count=1, paced=False), 1,
+                          _cfg(64, 48, PixelFormat.MJPEG), device_sim=True,
+                          mjpeg_backend="hybrid", device="cpu")
+
+
+def test_zoo_config2_builds_its_hybrid_engine_and_ticks():
+    model = _small(models.get_model("config2_mjpeg_resize"), 64, 48, n=2)
+    small = dataclasses.replace(model, resize_to=(32, 24))
+    with small.engine(device="cpu") as eng:
+        assert eng._mjpeg_hybrid and not eng._device_sim
+        res = eng.tick(block=True)
+        assert eng.spec.mjpeg_packed and len(eng.spec.coeff_geometry) == 3
+        assert res.numpy("bgr").shape == (2, 24, 32, 3) and res.sequences.tolist() == [0, 0]
+        assert eng.export_state()["device_sim"] is False

@@ -1,6 +1,7 @@
-"""The PyTorch port imports and ticks (the headline, and configs 4 and 6
-through the zoo, config 6 with its JPEG payloads) with jax, Pillow and the
-JAX package ``rustcv_tpu`` absent.
+"""The PyTorch port imports and ticks (the headline, configs 4 and 6
+through the zoo, config 6 with its JPEG payloads, the host-staged path and
+config 2's hybrid MJPEG decode) with jax, Pillow and the JAX package
+``rustcv_tpu`` absent.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -57,6 +58,25 @@ _SCRIPT = textwrap.dedent(
         info, coeffs, qts = native.jpeg_entropy_decode(payload)
         assert (info["width"], info["height"]) == (32, 24)
         assert (coeffs[0].reshape(-1, 64) == res.outputs["enc_y"][i].numpy()).all()
+    eng.close()
+    # the host-staged path and config 2 (hybrid MJPEG: frames from the
+    # port's encoder, entropy-decoded by the port's coder)
+    eng = MultiStreamEngine(
+        SimulationDriver(device_count=2, paced=False, n_unique_frames=2), 2,
+        SimpleConfig(width=64, height=48, fps=60, pixel_format=PixelFormat.YUYV),
+        filter="blur_sobel", overlay=True, device_sim=False, device="cpu",
+    )
+    stats = eng.run(3, warmup=1, measure_latency=False)
+    assert stats.frames == 6 and stats.dropped_frames == 0 and stats.host_gather_ms > 0
+    eng.close()
+    model = dataclasses.replace(get_model("config2_mjpeg_resize"), width=64, height=48,
+                                n_streams=2, resize_to=(32, 24))
+    eng = model.engine(device="cpu")
+    res = eng.tick(block=True)
+    assert res.numpy("bgr").shape == (2, 24, 32, 3) and eng.spec.mjpeg_packed
+    from rustcv_tpu_torch.ops.jpeg_tpu import decode_jpeg_numpy
+    from rustcv_tpu_torch.capture.simulation import synth_raw
+    assert decode_jpeg_numpy(synth_raw(64, 48, PixelFormat.MJPEG, 0)).shape == (48, 64, 3)
     eng.close()
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
