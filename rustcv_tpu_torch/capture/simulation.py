@@ -267,8 +267,9 @@ class SimulationSource(FrameSource):
     ``n_unique_frames > 0`` precomputes that many encoded frames and cycles
     them — removes host synthesis cost from throughput measurements, like a
     camera that DMAs at line rate regardless of scene content. A
-    ``frame_cache`` dict (the driver's) shares them, read-only, between the
-    sources of one configuration.
+    ``frame_cache`` dict (the driver's) shares the encoding between the
+    sources of one configuration; each source still cycles its own read-only
+    copy, as each camera DMAs into buffers of its own.
     """
 
     def __init__(
@@ -300,12 +301,13 @@ class SimulationSource(FrameSource):
             cache = frame_cache if frame_cache is not None else {}
             key = (resolved.width, resolved.height, resolved.pixel_format, n_unique_frames)
             if key not in cache:
-                frames = [synth_raw(resolved.width, resolved.height, resolved.pixel_format, s)
-                          for s in range(n_unique_frames)]
-                for f in frames:
-                    f.setflags(write=False)
-                cache[key] = frames
-            self._cache = cache[key]
+                cache[key] = [synth_raw(resolved.width, resolved.height, resolved.pixel_format, s)
+                              for s in range(n_unique_frames)]
+            # A copy costs far less than an encode, and keeps the memory a
+            # gather reads per tick that of separate cameras.
+            self._cache = [f.copy() for f in cache[key]]
+            for f in self._cache:
+                f.setflags(write=False)
         # Ring slots sized for the largest raw frame we may hold.
         self._slots: List[Optional[np.ndarray]] = [None] * n_slots
         self._slot_idx = 0
@@ -527,8 +529,8 @@ class SimulationDriver(Driver):
         # exceeds it raises BandwidthExceeded with a structured suggestion
         # (the reference's error contract, rustcv-core/src/error.rs).
         self.bandwidth_limit_mbps = bandwidth_limit_mbps
-        # The n_unique_frames frames per configuration, made once and shared
-        # by every source this driver opens.
+        # The n_unique_frames frames per configuration, encoded once for
+        # every source this driver opens (each source copies them).
         self._frames: Dict[tuple, List[np.ndarray]] = {}
 
     def _check_bandwidth(self, resolved: ResolvedConfig) -> None:

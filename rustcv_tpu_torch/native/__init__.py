@@ -176,7 +176,8 @@ def jpeg_entropy_decode(data: "np.ndarray | bytes"):
 
 def jpeg_entropy_info(data: "np.ndarray | bytes") -> dict:
     """Header-only parse: geometry and the per-component padded block grids
-    (``blocks``: (bh, bw) per component)."""
+    (``blocks``: (bh, bw) per component). Kept for parity with the
+    reference; the engine reads the geometry from its decodes."""
     info, blocks = _info(_need_lib(), _as_u8_buf(data))
     info["blocks"] = blocks
     return info
@@ -197,7 +198,8 @@ def jpeg_entropy_decode_packed(data: "np.ndarray | bytes", capacity: int):
     indices into the concatenated dense per-component layout (a scatter-add
     of ``val`` into zeros gives :func:`jpeg_entropy_decode`'s grids); the
     rest are zero. Returns ``None`` when the frame has more than
-    ``capacity`` nonzeros (the caller decodes dense instead)."""
+    ``capacity`` nonzeros (the caller decodes dense instead). Kept for
+    parity with the reference; the engine stages the block-packed form."""
     lib = _need_lib()
     buf = _as_u8_buf(data)
     info, blocks = _info(lib, buf)

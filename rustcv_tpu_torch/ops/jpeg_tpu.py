@@ -105,7 +105,8 @@ def upsample(c: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
 
 def unpack_coeffs(pos: torch.Tensor, val: torch.Tensor, total: int) -> torch.Tensor:
     """FLAT-packed nonzeros (..., cap) → dense coefficient vector (..., total)
-    int16: a scatter-add in int32 (zero-filled entries add 0 at 0)."""
+    int16: a scatter-add in int32 (zero-filled entries add 0 at 0). Kept for
+    parity with the reference; the engine unpacks the block-packed form."""
     out = torch.zeros((*pos.shape[:-1], total), dtype=torch.int32, device=pos.device)
     return out.scatter_add_(-1, pos.long(), val.to(torch.int32)).to(torch.int16)
 
@@ -174,7 +175,8 @@ def ycbcr_to_bgr(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.T
 def decode_jpeg_tpu(data, device="cuda") -> torch.Tensor:
     """Full hybrid decode of one baseline JPEG: the host entropy decode, then
     the reconstruction on ``device``. Returns (H, W, 3) u8 BGR (a gray JPEG
-    broadcast to three channels). The name is the reference's."""
+    broadcast to three channels). The name is the reference's; kept for
+    parity with it, since the engine decodes in batches."""
     from .. import native
 
     info, coeffs, qts = native.jpeg_entropy_decode(data)

@@ -81,14 +81,17 @@ class PipelineSpec:
 
     def raw_bytes(self) -> int:
         """Bytes of one stream's staging row: BGR for MJPEG (the full-host
-        decode stages BGR or RGB), else the wire format's size."""
+        decode stages BGR or RGB), else the wire format's size. The MJPEG
+        branch is kept for parity with the reference: the full-host decode
+        is not ported, so no engine stages MJPEG this way yet."""
         if self.pixel_format == PixelFormat.MJPEG:
             return self.width * self.height * 3
         return self.pixel_format.buffer_size(self.width, self.height)
 
     def staged_format(self) -> PixelFormat:
         """The format of the staged bytes (the full-host MJPEG decode's
-        output, else the wire format)."""
+        output, else the wire format). Kept for parity with the reference;
+        nothing in the port calls it until the full-host decode is ported."""
         if self.pixel_format == PixelFormat.MJPEG:
             return PixelFormat.BGR24 if self.mjpeg_staged_bgr else PixelFormat.RGB24
         return self.pixel_format

@@ -277,24 +277,45 @@ def test_gather_alternates_the_staging_slots():
     eng.close()
 
 
-def test_driver_shares_the_cycled_frames_between_its_sources(jax_cpu):
-    """n_unique_frames frames are made once per driver and configuration,
-    read-only, shared by its sources, and byte-identical to the JAX
-    package's frames."""
+def test_driver_shares_the_cycled_frames_between_its_sources(jax_cpu, monkeypatch):
+    """n_unique_frames frames are encoded once per driver and configuration
+    and shared by its sources as the encoding only: each source cycles its
+    own read-only copy (separate memory, as separate cameras' buffers), and
+    the bytes are the JAX package's frames."""
     from rustcv_tpu.capture.simulation import synth_raw as jax_synth_raw
+    from rustcv_tpu_torch.capture import simulation
 
+    encoded = []
+    synth = simulation.synth_raw
+    monkeypatch.setattr(simulation, "synth_raw",
+                        lambda w, h, fmt, seq: encoded.append(seq) or synth(w, h, fmt, seq))
     drv = SimulationDriver(device_count=3, paced=False, n_unique_frames=2)
-    srcs = [drv.open_simple(f"sim:{i}", _cfg(64, 48))[0] for i in range(2)]
+    srcs = [drv.open_simple(f"sim:{i}", _cfg(64, 48))[0] for i in range(3)]
+    assert encoded == [0, 1]
     frames = []
     for src in srcs:
         src.start()
         frames.append([src.next_frame().data for _ in range(3)])
-    assert frames[0][0] is frames[1][0] and not frames[0][0].flags.writeable
     assert frames[0][2] is frames[0][0]  # a cycle of two
-    for seq in (0, 1):
-        np.testing.assert_array_equal(
-            frames[1][seq], jax_synth_raw(64, 48, jax_core.PixelFormat.YUYV, seq))
+    for a in range(3):
+        assert not frames[a][0].flags.writeable
+        for b in range(a):
+            for seq in (0, 1):
+                assert not np.shares_memory(frames[a][seq], frames[b][seq])
+    for a in range(3):
+        for seq in (0, 1):
+            np.testing.assert_array_equal(
+                frames[a][seq], jax_synth_raw(64, 48, jax_core.PixelFormat.YUYV, seq))
     other = SimulationDriver(device_count=1, paced=False, n_unique_frames=2)
-    src = other.open_simple("sim:0", _cfg(64, 48))[0]
-    src.start()
-    assert src.next_frame().data is not frames[0][0]  # another driver makes its own
+    other.open_simple("sim:0", _cfg(64, 48))
+    assert encoded == [0, 1, 0, 1]  # another driver encodes its own
+
+
+def test_host_gather_ab_probe_refuses_bad_modes_and_a_missing_card():
+    """The shared-vs-separate frames probe runs only on a card, and only in
+    the engine's decode modes."""
+    from rustcv_tpu_torch.probes import host_gather_ab
+
+    assert host_gather_ab.main(["no_such_mode"]) == 2
+    if not torch.cuda.is_available():
+        assert host_gather_ab.main([]) == 1

@@ -33,6 +33,7 @@ _SCRIPT = textwrap.dedent(
     import rustcv_tpu_torch.ops.jpeg_encode
     import rustcv_tpu_torch.ops.resize
     import rustcv_tpu_torch.probes.mosaic_shuffle
+    import rustcv_tpu_torch.probes.host_gather_ab
     from rustcv_tpu_torch import native
 
     eng = MultiStreamEngine(
