@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Seven paths, each driven with the launch counts set to 0 just before it
+Eleven paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -33,7 +33,21 @@ and read just after:
   640×480 through ``get_model("config2_mjpeg_resize").engine()`` (host
   entropy decode into block-packed staging, the rest on the card), with
   one forced over-capacity tick on the dense program; and the same 8
-  MJPEG streams at 1080p with ``blur_sobel`` and the overlay: K1.
+  MJPEG streams at 1080p with ``blur_sobel`` and the overlay: K1;
+* every other wire format at 1920×1080 with ``blur_sobel`` and the
+  overlay: host-staged (2 streams) UYVY, NV12, YV12, BGRA32, RGB24, BGR24,
+  GRAY8 and the four Bayer patterns; device-sim (8 streams) NV12, BGRA32,
+  RGB24 and BGR24, and NV12 under ``pallas`` and ``pallas_tick`` too: K1
+  once per tick, never K4 or K5;
+* ``run_chained``'s CUDA graphs: configs 1 and 4 (default and ``pallas``),
+  one replay of a captured chain of 32 ticks: K6 and K4, counted by the
+  wrappers while the graph was captured (a replay calls no wrapper);
+* ``set_resolution``: the headline's 8 streams, device-sim and
+  host-staged, swapped 1080p → 720p → 1080p: K1;
+* BASELINE configs 1 (1 × 640×480, overlay), 3 (32 × 3840×2160,
+  blur_sobel, one batch as the zoo runs it and ``sub_batch=4``) and 5 (8 ×
+  3840×2160, blur_sobel and overlay) through the zoo, configs 1 and 5 in
+  every decode mode: K1, K4, K5.
 
 Phases:
 
@@ -63,7 +77,14 @@ Phases:
    streams within max |diff| <= 2 on < 1 % of bytes of the port's float64
    oracle ``decode_jpeg_numpy`` resized by the plain resize, its dense
    tick identical to the packed program's; the MJPEG ``blur_sobel``
-   engine identical to a plain one; and every kernel launched by its path;
+   engine identical to a plain one; each other format's 2 ticks identical
+   to a plain engine's and stream 0 to the CPU pipeline, in the reference's
+   layout; a graph replay of configs 1 and 4's chains with the probe and
+   clock of as many eager ticks (a 2-tick graph's with the CPU port's
+   chain), the launches captured equal to the chain's length times the
+   eager tick's; 2 ticks after each resolution swap identical to a fresh
+   engine's at that size; configs 1, 3 and 5 identical to a plain engine
+   and stream 0 to the CPU pipeline; and every kernel launched by its path;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -71,11 +92,21 @@ Phases:
    gather ms and idle share per mode, config 2's ms/tick, frames/s, H2D MB
    per tick and gather ms, and each kernel's time beside its plain
    version's at 8×1920×1080 (K1 at 8×640×480, the Harris forms at
-   1×1920×1080 too; K7 as its 13 cases per call).
+   1×1920×1080 too; K7 as its 13 cases per call); each other format
+   (NV12 device-sim in every mode), configs 1 and 4 eager against
+   ``run_chained``, config 3 with and without ``sub_batch`` in turns (and
+   its peak memory), config 5 per mode.
 
-It imports no jax and nothing of the JAX package. Any mismatch or error exits non-zero before
-the last line; the last line is the JSON verdict, and the line before it
-the JSON list of kernels with their launches, errors and times.
+Only deterministic checks decide the exit code: equality of outputs, exact
+launch counts from the kernel wrappers' counters, tolerances of values.
+Times, rates, memory peaks and the profiler's records are printed, with
+the card's name and power limit, and never gated.
+
+It imports no jax and nothing of the JAX package. A failing phase prints
+``chip_smoke: FAIL in <phase>: <message>`` and its traceback on stdout and
+stderr and exits non-zero before the last line; the last line is the JSON
+verdict, and the line before it the JSON list of kernels with their
+launches, errors and times.
 """
 
 from __future__ import annotations
@@ -86,6 +117,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -114,6 +146,24 @@ HOST_LAUNCHES = {"default": {"blur_sobel_mag": 1},
                  "pallas": {"blur_sobel_mag": 1, "yuyv_decode_interleave": 1},
                  "pallas_tick": {"yuyv_tick_fused": 1}}
 ORACLE_TOL = (2, 1e-2)  # config 2 vs the float64 oracle: max |diff|, share of bytes
+# Wire formats other than YUYV: every one the simulation encodes is staged
+# from the host; the device synthesizes four of them.
+HOST_FORMATS = ("UYVY", "NV12", "YV12", "BGRA32", "RGB24", "BGR24", "GRAY8",
+                "BAYER_BGGR", "BAYER_GBRG", "BAYER_GRBG", "BAYER_RGGB")
+SIM_FORMATS = ("NV12", "BGRA32", "RGB24", "BGR24")
+CHAIN = 32  # ticks per dispatch of run_chained, as bench_models.py calls it
+C1, C3, C5 = "config1_convert_overlay", "config3_blur_sobel_4k", "config5_end_to_end_4k"
+CHAIN_CASES = ((C1, "default"), (C4, "default"), (C4, "pallas"))
+# (model, its variants: (label, mode, engine overrides), ticks checked)
+ZOO_CASES = (
+    (C1, tuple((m, m, {}) for m in MODES), 4),
+    (C3, (("zoo: one batch", "default", {}), ("sub_batch=4", "default", {"sub_batch": 4})), 2),
+    (C5, tuple((m, m, {}) for m in MODES), 3),
+)
+# Launches per tick (per sub-batch) of a blur_sobel spec, per mode.
+ZOO_LAUNCHES = {"default": {"blur_sobel_mag": 1},
+                "pallas": {"blur_sobel_mag": 1, "yuyv_decode_interleave": 1},
+                "pallas_tick": {"yuyv_tick_fused": 1}}
 
 KERNELS = {  # name → (source, the Pallas kernel it replaces: file:line of pallas_call)
     "blur_sobel_mag": ("rustcv_tpu_torch/csrc/stencil.cu",
@@ -782,6 +832,318 @@ def run_config2() -> dict:
     return {k: counts[k] + mjpeg_counts[k] for k in counts}
 
 
+def format_engine(fmt, device_sim: bool, n: int, mode: str = "default", stencil_impl=None,
+                  w: int = W, h: int = H):
+    """``n`` streams of ``fmt`` at w×h, blur_sobel and the overlay, frames
+    made on the device or gathered on the host (each source cycling its own
+    2 frames)."""
+    from rustcv_tpu_torch.capture import ModeDescriptor, SimulationDriver
+    from rustcv_tpu_torch.core import SimpleConfig
+    from rustcv_tpu_torch.runtime import MultiStreamEngine
+
+    set_mode(mode)
+    sizes = {(w, h), (W, H), (1280, 720)}  # the sizes set_resolution may swap to
+    driver = SimulationDriver(device_count=n, paced=False, n_unique_frames=0 if device_sim else 2,
+                              modes=[ModeDescriptor(fmt, mw, mh, (60,)) for mw, mh in sizes])
+    return MultiStreamEngine(driver, n, SimpleConfig(width=w, height=h, fps=60, pixel_format=fmt),
+                             filter="blur_sobel", overlay=True, device_sim=device_sim,
+                             stencil_impl=stencil_impl)
+
+
+def cpu_reference(spec, seq: int, rects, colors) -> dict:
+    """``spec``'s plain pipeline on the CPU (one stream), fed the host
+    generator's frame of ``seq``."""
+    import torch
+
+    from rustcv_tpu_torch.capture.simulation import synth_raw
+    from rustcv_tpu_torch.runtime.pipeline import get_pipeline
+
+    set_mode("default")
+    fn = get_pipeline(dataclasses.replace(spec, stencil_impl="xla"))
+    raw = torch.from_numpy(synth_raw(spec.width, spec.height, spec.pixel_format, seq))[None]
+    return fn(raw, torch.from_numpy(np.asarray(rects)[:1]), torch.from_numpy(np.asarray(colors)[:1]),
+              THICKNESS)
+
+
+def same_ticks(got, want, keys, what: str) -> None:
+    import torch
+
+    for t, (a, b) in enumerate(zip(got, want)):
+        for key in keys:
+            expect(torch.equal(a.outputs[key], b.outputs[key]),
+                   f"{what} tick {t}: {key} differs from the plain engine")
+
+
+def run_formats() -> dict:
+    """Phase 3g: every wire format but YUYV (the headline's) at 1920×1080,
+    host-staged (2 streams) and, for those the device synthesizes, device-sim
+    (8 streams): 2 ticks each equal to a plain engine's on the card, stream
+    0 of its first tick equal to the plain pipeline on the CPU, the output in
+    the reference's layout, K1 once per tick; NV12 device-sim also under
+    ``pallas`` and ``pallas_tick``, which take the plain decode and K1.
+    Returns the path's launches."""
+    import torch
+
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.runtime.pipeline import packed_output
+
+    rects, colors = bench_overlay()
+    cases = [(PixelFormat[f], False, 2, "default") for f in HOST_FORMATS]
+    cases += [(PixelFormat[f], True, N, "default") for f in SIM_FORMATS]
+    cases += [(PixelFormat.NV12, True, N, m) for m in ("pallas", "pallas_tick")]
+    kernels.reset_launch_counts()  # the formats' path starts here
+    for fmt, device_sim, n, mode in cases:
+        what = f"{fmt.value} {'device-sim' if device_sim else 'host-staged'} {n}x1080p {mode}"
+        before = kernels.launch_counts()
+        plain = format_engine(fmt, device_sim, n, stencil_impl="xla")
+        ref = [plain.tick(rects=rects[:n], rect_colors=colors[:n]) for _ in range(2)]
+        plain.close()
+        eng = format_engine(fmt, device_sim, n, mode)
+        got = [eng.tick(rects=rects[:n], rect_colors=colors[:n]) for _ in range(2)]
+        torch.cuda.synchronize()
+        eng.close()
+        after = kernels.launch_counts()
+        per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        expect(per == {"blur_sobel_mag": 2}, f"{what}: launches {per}, K1 twice expected")
+        same_ticks(got, ref, ("bgr", "filtered"), what)
+        layout = (n, H, 3 * W) if packed_output(eng.spec) else (n, H, W, 3)
+        expect(tuple(got[0].outputs["bgr"].shape) == layout, f"{what}: bgr {got[0].outputs['bgr'].shape}")
+        expect(got[0].sequences.tolist() == [0] * n, f"{what}: sequences {got[0].sequences}")
+        cpu = cpu_reference(eng.spec, 0, rects, colors)
+        for key in ("bgr", "filtered"):
+            expect(torch.equal(got[0].outputs[key][:1].cpu(), cpu[key]),
+                   f"{what}: stream 0 {key} differs from the plain pipeline on the CPU")
+        expect(int(got[0].outputs["filtered"].max()) > 0, f"{what}: the filter output is all zero")
+        print(f"format {what}: 2 ticks identical to the plain engine, stream 0 to the CPU; bgr "
+              f"{tuple(got[0].outputs['bgr'].shape)}; launches {per}", flush=True)
+    return kernels.launch_counts()  # read just after the formats' run
+
+
+def chain_engine(name: str, mode: str, device="cuda"):
+    from rustcv_tpu_torch.models import get_model
+
+    set_mode(mode)
+    return get_model(name).engine(device=device)
+
+
+def run_chained_graphs() -> dict:
+    """Phase 3h: configs 1 and 4 (default and ``pallas``) chained as
+    ``bench_models.py`` runs one-stream models: one replay of the captured
+    graph of CHAIN ticks gives the probe and clock of CHAIN eager ticks on
+    the card, and the kernel wrappers counted CHAIN × the eager tick's
+    launches of each kernel while the graph was captured; a 2-tick graph's
+    probe and clock equal the CPU port's chain. Returns the path's launches
+    (a replay calls no wrapper: the graph's are counted at its capture)."""
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    rects, colors = (a[:1] for a in bench_overlay())
+    r_t, c_t = torch.from_numpy(rects).cuda(), torch.from_numpy(colors).cuda()
+    kernels.reset_launch_counts()  # the chained path starts here
+    for name, mode in CHAIN_CASES:
+        what = f"{name} mode {mode}"
+        eng = chain_engine(name, mode)
+        expect(eng.n == 1, f"{what}: {eng.n} streams")
+        before = kernels.launch_counts()
+        eng.tick(rects=rects, rect_colors=colors, thickness=THICKNESS)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        per_tick = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        for k in (CHAIN, 2):
+            ch = eng._chain(k)
+            expect(ch.graph is not None, f"{what}: no CUDA graph")
+            want = {label: k * v for label, v in per_tick.items()}
+            expect(ch.launches == want, f"{what}: launches captured in a graph of {k} ticks "
+                   f"{ch.launches}, {k} x the eager tick's {per_tick} expected")
+            ch.rects.copy_(r_t)
+            ch.colors.copy_(c_t)
+            ch.seqs.zero_()
+            ch.dispatch()
+            replay = ch.sync.clone()
+            expect(ch.seqs.tolist() == [k], f"{what}: the clock after a replay {ch.seqs.tolist()}")
+            eager = eng._build_sim_fn_chained(k)(torch.zeros(1, dtype=torch.int32, device="cuda"),
+                                                 r_t, c_t, THICKNESS)
+            expect(torch.equal(replay, eager["_sync"]) and eager["_next_seqs"].tolist() == [k],
+                   f"{what}: replay probe {replay.tolist()} != {k} eager ticks' "
+                   f"{eager['_sync'].tolist()}")
+            if k == 2:
+                cpu = chain_engine(name, "default", device="cpu")
+                ref = cpu._build_sim_fn_chained(2)(torch.zeros(1, dtype=torch.int32),
+                                                   torch.from_numpy(rects), torch.from_numpy(colors),
+                                                   THICKNESS)
+                expect(torch.equal(replay.cpu(), ref["_sync"]) and ref["_next_seqs"].tolist() == [2],
+                       f"{what}: the 2-tick graph's probe differs from the CPU port's chain")
+            else:
+                print(f"chained {what}: a replay of {k} ticks == {k} eager ticks (probe "
+                      f"{replay.item()}); launches captured {ch.launches}, eager tick {per_tick}",
+                      flush=True)
+        eng.close()
+    return kernels.launch_counts()  # read just after the chained path's run
+
+
+def run_set_resolution() -> dict:
+    """Phase 3i: the headline's 8 streams (device-sim and host-staged),
+    their 720p and 1080p buckets warmed (``warm_buckets``), swapped 1080p →
+    720p → 1080p; after each swap 2 ticks equal to a fresh engine's at that
+    size (device-sim: one resumed from the swapped engine's state, so the
+    clocks agree). Returns the path's launches."""
+    import torch
+
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.runtime import MultiStreamEngine
+
+    rects, colors = bench_overlay()
+    kernels.reset_launch_counts()  # the swap path starts here
+    for device_sim in (True, False):
+        what = "device-sim" if device_sim else "host-staged"
+        eng = format_engine(PixelFormat.YUYV, device_sim, N)
+        for _ in range(2):
+            eng.tick(rects=rects, rect_colors=colors)
+        warmed = eng.warm_buckets(buckets=[(1280, 720), (W, H)])
+        expect(warmed == 2, f"{what}: warm_buckets warmed {warmed} of 2 buckets")
+        for w, h in ((1280, 720), (W, H)):
+            t0 = time.perf_counter()
+            eng.set_resolution(w, h)
+            swap_ms = (time.perf_counter() - t0) * 1e3
+            if device_sim:
+                fresh = MultiStreamEngine.from_state(eng.export_state())
+            else:
+                fresh = format_engine(PixelFormat.YUYV, False, N, w=w, h=h)
+            got = [eng.tick(rects=rects, rect_colors=colors) for _ in range(2)]
+            want = [fresh.tick(rects=rects, rect_colors=colors) for _ in range(2)]
+            torch.cuda.synchronize()
+            fresh.close()
+            expect(all(tuple(r.outputs["bgr"].shape) == (N, h, 3 * w) for r in got),
+                   f"{what} at {w}x{h}: bgr {tuple(got[0].outputs['bgr'].shape)}")
+            expect(all(a.sequences.tolist() == b.sequences.tolist() for a, b in zip(got, want)),
+                   f"{what} at {w}x{h}: sequences differ from a fresh engine's")
+            same_ticks(got, want, ("bgr", "filtered"), f"{what} after the swap to {w}x{h}")
+            print(f"set_resolution {what} -> {w}x{h} in {swap_ms:.1f} ms: 2 ticks identical to a "
+                  f"fresh engine's", flush=True)
+        eng.close()
+    return kernels.launch_counts()  # read just after the swap path's run
+
+
+def zoo_engine(name: str, mode: str = "default", **overrides):
+    from rustcv_tpu_torch.models import get_model
+
+    set_mode(mode)
+    return get_model(name).engine(**overrides)
+
+
+def run_zoo_configs() -> dict:
+    """Phase 3j: BASELINE configs 1 (1 × 640×480, overlay), 3 (32 × 4K,
+    blur_sobel; one batch as the zoo runs it, and sub_batch=4) and 5 (8 × 4K,
+    blur_sobel and overlay; every decode mode) through the zoo at full size:
+    ticks equal to a plain engine's (``stencil_impl="xla"``, the default
+    mode, no sub-batch) on the card, stream 0 of seq 0 to the CPU port.
+    Returns the paths' launches."""
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    rects, colors = bench_overlay()
+    kernels.reset_launch_counts()  # the zoo configs' path starts here
+    for name, variants, ticks in ZOO_CASES:
+        plain = zoo_engine(name, stencil_impl="xla", sub_batch=None)
+        n = plain.n
+        ref = [plain.tick(rects=rects[:1].repeat(n, 0), rect_colors=colors[:1].repeat(n, 0))
+               for _ in range(ticks)]
+        torch.cuda.synchronize()
+        spec = plain.spec
+        plain.close()
+        cpu = cpu_reference(spec, 0, rects, colors)
+        keys = [k for k in ("bgr", "filtered") if k in ref[0].outputs]
+        for key in keys:
+            expect(torch.equal(ref[0].outputs[key][:1].cpu(), cpu[key]),
+                   f"{name}: the plain engine's stream 0 {key} differs from the CPU port")
+        for label, mode, overrides in variants:
+            before = kernels.launch_counts()
+            eng = zoo_engine(name, mode, **overrides)
+            got = [eng.tick(rects=rects[:1].repeat(n, 0), rect_colors=colors[:1].repeat(n, 0))
+                   for _ in range(ticks)]
+            torch.cuda.synchronize()
+            eng.close()
+            after = kernels.launch_counts()
+            per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            same_ticks(got, ref, keys, f"{name} {label}")
+            chunks = n // eng._sub_batch if eng._sub_batch else 1  # a launch per sub-batch
+            want = {k: v * ticks * chunks
+                    for k, v in (ZOO_LAUNCHES[mode] if "filtered" in keys else {}).items()}
+            expect(per == want, f"{name} {label}: launches {per}, expected {want}")
+            print(f"{name} {label}: {ticks} ticks identical to the plain engine (stream 0 of seq "
+                  f"0 to the CPU port); launches {per}", flush=True)
+        del ref
+        torch.cuda.empty_cache()
+    return kernels.launch_counts()  # read just after the zoo configs' run
+
+
+def time_new_paths(smi: str) -> None:
+    """Phase 4j: ms/tick (CUDA events) of every other wire format: device-sim
+    at 8 × 1080p (NV12 in every mode and beside the plain engine), host-staged
+    at 2 × 1080p (blocking ticks: the gather on the host clock inside them);
+    configs 1 and 4 eager and chained (``run_chained(512, chain=32)``,
+    ``bench_models.py``'s call); config 3 with and without sub_batch in turns
+    (with, without, without, with; each with its peak memory); config 5 per
+    mode."""
+    import torch
+
+    from rustcv_tpu_torch.core import PixelFormat
+
+    rects, colors = bench_overlay()
+    tag = f"[{smi}]"  # the card's name and power limit beside every time
+    sim_cases = [(PixelFormat.NV12, label, mode, impl) for label, mode, impl in (
+        ("plain", "default", "xla"), ("default", "default", None), ("pallas", "pallas", None),
+        ("pallas_tick", "pallas_tick", None))]
+    sim_cases += [(PixelFormat[f], "default", "default", None) for f in SIM_FORMATS[1:]]
+    for fmt, label, mode, impl in sim_cases:
+        eng = format_engine(fmt, True, N, mode, stencil_impl=impl)
+        ms = cuda_ms(lambda: eng.tick(rects=rects, rect_colors=colors), 20)
+        eng.close()
+        print(f"{tag} {fmt.value} device-sim 8x1080p {label}: {ms:.4f} ms/tick, "
+              f"{N * 1e3 / ms:.1f} frames/s", flush=True)
+    for f in HOST_FORMATS:
+        eng = format_engine(PixelFormat[f], False, 2)
+        r2, c2 = rects[:2], colors[:2]
+        ms = cuda_ms(lambda: eng.tick(rects=r2, rect_colors=c2, block=True), 10)
+        eng.close()
+        print(f"{tag} {f} host-staged 2x1080p: {ms:.4f} ms/tick, {2e3 / ms:.1f} frames/s",
+              flush=True)
+    for name, mode in CHAIN_CASES:
+        eng = chain_engine(name, mode)
+        r1, c1 = rects[:1], colors[:1]
+        ms = cuda_ms(lambda: eng.tick(rects=r1, rect_colors=c1), 50)
+        runs = [eng.run_chained(512, chain=CHAIN, warmup=1, rects=r1, rect_colors=c1)
+                for _ in range(2)]
+        eng.close()
+        print(f"{tag} {name} mode {mode}: eager {ms:.4f} ms/tick; chained " + ", ".join(
+            f"{r.wall_s / r.ticks * 1e3:.4f} ms/tick ({r.fps_total:.1f} frames/s)" for r in runs),
+            flush=True)
+    variants = (("sub_batch=4", {"sub_batch": 4}), ("one batch (zoo)", {}))
+    for label, overrides in variants + variants[::-1]:
+        eng = zoo_engine(C3, **overrides)
+        n = eng.n
+        args = dict(rects=rects[:1].repeat(n, 0), rect_colors=colors[:1].repeat(n, 0))
+        eng.tick(**args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: eng.tick(**args), 5)
+        peak = torch.cuda.max_memory_allocated()
+        eng.close()
+        torch.cuda.empty_cache()
+        print(f"{tag} config 3 {label}: {ms:.4f} ms/tick, {n * 1e3 / ms:.1f} frames/s, "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    for mode in MODES:
+        eng = zoo_engine(C5, mode)
+        ms = cuda_ms(lambda: eng.tick(rects=rects, rect_colors=colors), 10)
+        eng.close()
+        print(f"{tag} config 5 mode {mode}: {ms:.4f} ms/tick, {N * 1e3 / ms:.1f} frames/s",
+              flush=True)
+
+
 def time_engines() -> dict:
     """Phase 4a: ms/tick (CUDA events) and frames/s per mode, plain engine
     included, in two rounds of opposite order."""
@@ -1183,21 +1545,34 @@ def time_kernels() -> dict:
     return times
 
 
-def main() -> int:
-    import torch
+class PhaseFailure(Exception):
+    """A phase failed; its name and traceback are already printed."""
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
-        return 1
-    from rustcv_tpu_torch.ops.kernels import _build
 
-    smi = subprocess.run(
+def phase(label: str, fn, *args):
+    """``fn(*args)``; on any error print ``chip_smoke: FAIL in <label>:
+    <message>`` and the traceback on stdout and on stderr, then raise
+    PhaseFailure."""
+    try:
+        return fn(*args)
+    except Exception as e:  # the boundary of a phase: report which one failed
+        tb = traceback.format_exc()
+        for stream in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: FAIL in {label}: {e}", file=stream, flush=True)
+            print(tb, file=stream, flush=True)
+        raise PhaseFailure(label) from e
+
+
+def read_smi() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    print(smi, flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}", flush=True)
+
+
+def build_kernels() -> None:
+    """Phase 1: build (nvcc) or load the CUDA kernels."""
+    from rustcv_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
     _build.library()
@@ -1208,41 +1583,55 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas: " + line.strip(), flush=True)
 
-    dev = torch.device("cuda")
 
-    def done(phase: str) -> None:
-        print(f"[{time.perf_counter() - t0:.1f} s] {phase} done", flush=True)
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+
+    def done(label: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] {label} done", flush=True)
 
     try:
-        build_native()
-        errs = check_kernels(dev)
-        k7_launches, errs["mosaic_shuffle"] = run_mosaic_probe(dev)
+        smi = phase("nvidia-smi", read_smi)
+        print(smi, flush=True)
+        print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+              f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}", flush=True)
+        phase("phase 1, kernel build", build_kernels)
+        phase("phase 1, native coder", build_native)
+        errs = phase("phase 2, kernels vs plain", check_kernels, dev)
+        k7_launches, errs["mosaic_shuffle"] = phase("phase 2, K7 probe", run_mosaic_probe, dev)
         done("phases 1-2")
         launches = {name: 0 for name in KERNELS}
         for label, path in (("headline", run_main_path), ("config 4", run_config4),
                             ("response surface", lambda: run_response_surface(dev)),
                             ("K7 probe", lambda: k7_launches), ("config 6", run_config6),
-                            ("host path", run_host_path), ("config 2", run_config2)):
-            for name, count in path().items():
+                            ("host path", run_host_path), ("config 2", run_config2),
+                            ("formats", run_formats), ("chained graphs", run_chained_graphs),
+                            ("set_resolution", run_set_resolution),
+                            ("configs 1, 3, 5", run_zoo_configs)):
+            for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
-        expect(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-        done("phase 3")
-        time_engines()
-        time_config4()
-        time_config4_stages()
-        profile_config4()
-        done("phase 4, headline and config 4")
-        time_config6()
-        time_config6_stages()
-        profile_config6()
-        time_host_path()
-        time_config2()
-        done("phase 4, config 6, host path and config 2")
-        times = time_kernels()
+        phase("phase 3, launches", lambda: expect(all(v > 0 for v in launches.values()),
+                                                  f"a kernel never launched: {launches}"))
+        for label, fn in (("headline", time_engines), ("config 4", time_config4),
+                          ("config 4 stages", time_config4_stages),
+                          ("config 4 profile", profile_config4), ("config 6", time_config6),
+                          ("config 6 stages", time_config6_stages),
+                          ("config 6 profile", profile_config6), ("host path", time_host_path),
+                          ("config 2", time_config2),
+                          ("formats, chained configs 1 and 4, configs 3 and 5",
+                           lambda: time_new_paths(smi))):
+            phase(f"phase 4, {label}", fn)
+            done(f"phase 4, {label}")
+        times = phase("phase 4, kernels", time_kernels)
         done("phase 4")
-    except SmokeFailure as e:
-        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+    except PhaseFailure:
         return 1
     finally:
         os.environ.pop("RUSTCV_DECODE", None)

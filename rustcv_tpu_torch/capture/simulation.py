@@ -10,8 +10,9 @@ pure function of ``(width, height, pixel_format, sequence)``. Tests can
 regenerate any frame independently and compare pipeline output pixel-exactly.
 
 Pattern: SMPTE-style color bars + a seq-animated diagonal gradient + a moving
-white square (motion for drop/latency eyeballing). Encoders to YUYV / NV12 /
-BGRA / RGB / MJPEG are frozen integer specs (forward BT.601:
+white square (motion for drop/latency eyeballing). Encoders to YUYV / UYVY / NV12 /
+YV12 / GRAY8 / BGRA / RGB / BGR / Bayer / MJPEG are frozen integer specs
+(forward BT.601:
 ``Y = ((66R+129G+25B+128)>>8)+16`` etc., chroma co-sited averaging).
 
 Ring-buffer semantics mirror the V4L2 mmap ring
@@ -192,12 +193,12 @@ def encode_mjpeg(bgr: np.ndarray, quality: int = 90) -> np.ndarray:
 
 
 def _bayer_encoder(pattern: str):
+    """BGR → the raw mosaic of a ``pattern`` sensor, flat (the frozen spec
+    ``ops.golden.mosaic_bayer``)."""
     def encode(bgr: np.ndarray) -> np.ndarray:
-        # The mosaic spec lives in rustcv_tpu.ops.golden, which imports jax.
-        raise NotImplementedError(
-            f"Bayer {pattern} simulation is not ported yet "
-            "(ROADMAP queue 1: other pixel formats)"
-        )
+        from ..ops.golden import mosaic_bayer
+
+        return mosaic_bayer(bgr, pattern).reshape(-1)
 
     return encode
 

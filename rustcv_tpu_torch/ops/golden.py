@@ -1,0 +1,68 @@
+"""Frozen numpy specs the port needs from ``rustcv_tpu.ops.golden`` (its
+own copy: the JAX package keeps them in a module that imports jax).
+
+The Bayer CFA patterns, the mosaic the simulated sensors send, and the
+integer bilinear demosaic oracle that :func:`.color.demosaic_bilinear`
+computes on the device: at each site the missing channels are the rounded
+means of their 2 or 4 nearest samples (avg2 = (a+b+1)>>1, avg4 = (Σ+2)>>2),
+borders mirrored about the edge pixel (reflect-101, which keeps each site's
+colour).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# Bayer CFA patterns: the (row % 2, col % 2) site of red and of blue; green
+# fills the other two. Keys match PixelFormat.BAYER_*.
+BAYER_PATTERNS = {
+    "BGGR": {"r": (1, 1), "b": (0, 0)},
+    "GBRG": {"r": (1, 0), "b": (0, 1)},
+    "GRBG": {"r": (0, 1), "b": (1, 0)},
+    "RGGB": {"r": (0, 0), "b": (1, 1)},
+}
+
+
+def _sites(h: int, w: int, pattern: str):
+    """Boolean (H, W) masks of the red and the blue sites, and the row
+    parity of each (``ys``, (H, 1))."""
+    spec = BAYER_PATTERNS[pattern]
+    ys = np.arange(h)[:, None] % 2
+    xs = np.arange(w)[None, :] % 2
+    r_site = (ys == spec["r"][0]) & (xs == spec["r"][1])
+    b_site = (ys == spec["b"][0]) & (xs == spec["b"][1])
+    return r_site, b_site, ys
+
+
+def mosaic_bayer(bgr: np.ndarray, pattern: str) -> np.ndarray:
+    """BGR (H, W, 3) → raw Bayer mosaic (H, W) u8 by sampling the site's
+    channel."""
+    r_site, b_site, _ = _sites(*bgr.shape[:2], pattern)
+    out = bgr[..., 1].copy()  # green everywhere else
+    out[r_site] = bgr[..., 2][r_site]
+    out[b_site] = bgr[..., 0][b_site]
+    return out
+
+
+def demosaic_bilinear(raw: np.ndarray, pattern: str) -> np.ndarray:
+    """Integer bilinear demosaic of a (H, W) u8 mosaic → BGR (H, W, 3) u8;
+    H, W >= 2."""
+    spec = BAYER_PATTERNS[pattern]
+    h, w = raw.shape
+    a = raw.astype(np.int32)
+    p = np.pad(a, 1, mode="reflect")
+    horiz = p[1:-1, :-2] + p[1:-1, 2:]
+    vert = p[:-2, 1:-1] + p[2:, 1:-1]
+    diag = p[:-2, :-2] + p[:-2, 2:] + p[2:, :-2] + p[2:, 2:]
+    g4 = (horiz + vert + 2) >> 2
+    h2 = (horiz + 1) >> 1
+    v2 = (vert + 1) >> 1
+    d4 = (diag + 2) >> 2
+
+    mr, mb, ys = _sites(h, w, pattern)
+    g_red_row = ~mr & ~mb & (ys == spec["r"][0])
+    g_blue_row = ~mr & ~mb & (ys == spec["b"][0])
+    r = np.where(mr, a, np.where(g_red_row, h2, np.where(g_blue_row, v2, d4)))
+    b = np.where(mb, a, np.where(g_blue_row, h2, np.where(g_red_row, v2, d4)))
+    g = np.where(mr | mb, g4, a)
+    return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.errors import SimulationError
 from ..core.pixel_format import PixelFormat
 
 from ..capture.simulation import _BAR_COLORS_BGR
@@ -78,12 +79,63 @@ def synth_yuyv(seqs: torch.Tensor, width: int, height: int) -> torch.Tensor:
     return out.reshape(seq.shape[0], height * width * 2)
 
 
+def _bgr_planes(seqs: torch.Tensor, width: int, height: int):
+    """The pattern's (b, g, r) int32 planes [N, H, W] for seqs [N]."""
+    dev = seqs.device
+    seq = seqs.to(torch.int32).reshape(-1, 1, 1)
+    ys = torch.arange(height, dtype=torch.int32, device=dev).reshape(height, 1)
+    xs = torch.arange(width, dtype=torch.int32, device=dev).reshape(1, width)
+    return _pattern_planes(seq, xs, ys, width, height)
+
+
+def synth_bgr(seqs: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Pattern frames: seqs [N] int → u8 [N, H, W, 3] on seqs' device."""
+    return torch.stack(_bgr_planes(seqs, width, height), dim=-1).to(torch.uint8)
+
+
+def encode_nv12(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) u8 → NV12 flat (..., H*W*3/2) u8: the Y plane, then U
+    and V interleaved, each the rounded mean of a 2×2 site."""
+    h, w = bgr.shape[-3], bgr.shape[-2]
+    batch = bgr.shape[:-3]
+    q = bgr.to(torch.int32)
+    y, u, v = _yuv(q[..., 0], q[..., 1], q[..., 2])
+    u4 = u.reshape(*batch, h // 2, 2, w // 2, 2).sum(dim=(-3, -1))
+    v4 = v.reshape(*batch, h // 2, 2, w // 2, 2).sum(dim=(-3, -1))
+    uv = torch.stack([(u4 + 2) >> 2, (v4 + 2) >> 2], dim=-1).to(torch.uint8)
+    return torch.cat([y.to(torch.uint8).reshape(*batch, h * w),
+                      uv.reshape(*batch, h * w // 2)], dim=-1)
+
+
+def encode_bgra(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) u8 → BGRA32 flat (..., H*W*4), alpha 255."""
+    h, w = bgr.shape[-3], bgr.shape[-2]
+    alpha = torch.full((*bgr.shape[:-1], 1), 255, dtype=torch.uint8, device=bgr.device)
+    return torch.cat([bgr, alpha], dim=-1).reshape(*bgr.shape[:-3], h * w * 4)
+
+
+def encode_rgb(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) u8 → RGB24 flat (..., H*W*3)."""
+    h, w = bgr.shape[-3], bgr.shape[-2]
+    return bgr.flip(-1).reshape(*bgr.shape[:-3], h * w * 3)
+
+
 def synth_raw(seqs: torch.Tensor, width: int, height: int,
               pixel_format: PixelFormat) -> torch.Tensor:
-    """Batched raw frames in wire format: [N] → u8 [N, raw_bytes]."""
+    """Batched raw frames in wire format: [N] → u8 [N, raw_bytes]. YUYV is
+    made at pixel-pair resolution; NV12, BGRA32, RGB24 and BGR24 encode the
+    BGR pattern. Other formats raise :class:`SimulationError`, as in the
+    reference, which cannot make them on the device either."""
     if pixel_format == PixelFormat.YUYV:
         return synth_yuyv(seqs, width, height)
-    raise NotImplementedError(
-        f"device simulation of {pixel_format} is not ported yet "
-        "(ROADMAP queue 1: other pixel formats)"
-    )
+    if pixel_format not in _ENCODERS:
+        raise SimulationError(f"device simulation cannot encode {pixel_format}")
+    return _ENCODERS[pixel_format](synth_bgr(seqs, width, height))
+
+
+_ENCODERS = {
+    PixelFormat.NV12: encode_nv12,
+    PixelFormat.BGRA32: encode_bgra,
+    PixelFormat.RGB24: encode_rgb,
+    PixelFormat.BGR24: lambda bgr: bgr.reshape(bgr.shape[0], -1),
+}

@@ -4,11 +4,13 @@ device (port of ``rustcv_tpu.runtime.engine``).
 Three ways a tick gets its frames:
 
 * ``device_sim=True``: each stream's wire-format frame is synthesized on
-  the device from its sequence number (:mod:`rustcv_tpu_torch.ops.synth`),
-  and the stream clock advances on the device: the next sequence numbers
-  are an output that the next tick takes as input, so a steady tick
-  uploads nothing.
-* the host-staged path (``device_sim=False``, YUYV): a thread pool pulls one
+  the device from its sequence number (:mod:`rustcv_tpu_torch.ops.synth`:
+  YUYV, NV12, BGRA32, RGB24, BGR24), and the stream clock advances on the
+  device: the next sequence numbers are an output that the next tick takes
+  as input, so a steady tick uploads nothing. :meth:`run_chained` runs
+  whole chains of such ticks per dispatch, as a CUDA graph on the card.
+* the host-staged path (``device_sim=False``, any uncompressed format): a
+  thread pool pulls one
   frame per stream into a staging block ``[N, raw_bytes]`` on the host,
   and one copy uploads it. The staging is double-buffered and, on a CUDA
   device, pinned: the copy is ``non_blocking`` and a CUDA event recorded
@@ -26,7 +28,8 @@ Three ways a tick gets its frames:
 A failing source does not end a host tick: its stream reuses its previous
 staging row, the fault is counted in ``stream_errors`` and the tick reports
 ``seq = -1`` for it. The overlay arguments are cached on the device by
-content.
+content. :meth:`set_resolution` hot-swaps every stream to a new size;
+:meth:`warm_buckets` readies the pipelines of the shape buckets first.
 
 The engine takes an explicit ``device`` (``"cuda"`` by default, which
 raises where CUDA is absent; tests pass ``"cpu"``). Its snapshot
@@ -54,11 +57,66 @@ from ..core.errors import CameraError, DecodeError
 from ..core.pixel_format import PixelFormat
 from ..ops import jpeg_encode as _jenc
 from ..ops import jpeg_tpu as _jpeg
+from ..ops import kernels as _kernels
 from ..ops import synth as _synth
+from . import buckets as _buckets
 from .pipeline import PipelineSpec, get_pipeline, make_dummy_overlay, not_ported
 
 _ENC_KEYS = ("enc_y", "enc_cb", "enc_cr")  # the dense coefficient rows, per component
+_CHAIN_THICKNESS = 2  # run_chained's overlay thickness, the reference's
 _log = logging.getLogger("rustcv_tpu_torch")
+
+
+class _Chain:
+    """One chain of ``k`` device-sim ticks with its own static inputs
+    (``seqs`` int32 [N], ``rects``, ``colors``) and output (``sync``, the
+    probe of the last dispatch). A dispatch runs the chain and writes the
+    advanced clock back into ``seqs``.
+
+    On a CUDA device the chain is captured once into a CUDA graph and a
+    dispatch is a replay. Before the capture, one eager chain on a side
+    stream builds everything made at first use (the kernels' library, the
+    pipeline, the resize tables, the DCT basis), so the captured region
+    issues only device work. On the CPU a dispatch calls the chain.
+
+    ``launches`` is what the kernel wrappers counted while the graph was
+    captured (kernel name → launches): the kernels every replay runs, since
+    a replay calls no wrapper. Empty on the CPU."""
+
+    def __init__(self, eng: "MultiStreamEngine", k: int):
+        dev = eng.device
+        self._fn = eng._build_sim_fn_chained(k)
+        self.seqs = torch.zeros(eng.n, dtype=torch.int32, device=dev)
+        self.rects = torch.zeros((eng.n, 4), dtype=torch.int32, device=dev)
+        self.colors = torch.zeros((eng.n, 3), dtype=torch.uint8, device=dev)
+        self.sync: Optional[torch.Tensor] = None
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        if dev.type == "cuda":
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = _kernels.launch_counts()
+            with torch.cuda.graph(graph):
+                self.sync = self._step()
+            after = _kernels.launch_counts()
+            self.launches = {name: n - before[name] for name, n in after.items()
+                             if n != before[name]}
+            self.graph = graph
+
+    def _step(self) -> torch.Tensor:
+        out = self._fn(self.seqs, self.rects, self.colors, _CHAIN_THICKNESS)
+        self.seqs.copy_(out["_next_seqs"])
+        return out["_sync"]
+
+    def dispatch(self) -> None:
+        if self.graph is None:
+            self.sync = self._step()
+        else:
+            self.graph.replay()
 
 
 @dataclass
@@ -123,7 +181,7 @@ class MultiStreamEngine:
         device="cuda",
     ):
         """``device_sim=True`` synthesizes frames on the device; otherwise
-        frames come from the sources through host staging (YUYV) or, for
+        frames come from the sources through host staging (raw formats) or, for
         MJPEG, through the host entropy decode (``mjpeg_backend="hybrid"``;
         the full-host decode, ``"host"``, is not ported). ``decode_workers``
         threads gather the streams. ``sub_batch`` (device-sim only) runs the
@@ -220,6 +278,7 @@ class MultiStreamEngine:
         self._overlay_cache = None  # (content key, device args)
         self._sim_t0 = time.monotonic()
         self._frame_pool = None
+        self._chains: Dict[int, _Chain] = {}  # run_chained's chains by length (CUDA graphs)
         # Host staging: two slots, each a list of (tensor, numpy view) pairs
         # (pinned on a CUDA device), and per slot the event recorded after
         # its last upload. The hybrid slots are sized by the first frame.
@@ -281,6 +340,87 @@ class MultiStreamEngine:
         out["_next_seqs"] = seqs + 1
         return out
 
+    def _build_sim_fn_chained(self, k: int):
+        """``k`` whole device-sim ticks as one function of the stream clock
+        (the reference's ``lax.scan`` chain): ``run(seqs, rects, colors,
+        thickness)`` → ``{"_sync": int32 [1], "_next_seqs": seqs + k}``.
+
+        ``_sync`` is the probe: the sum of every output of every tick, in
+        int32 with the reference's wrap, so no tick's work can be left out.
+        A tick's outputs are dropped once summed: the chain holds one tick's
+        memory, not k ticks'."""
+        def run(seqs, rects, rect_colors, thickness):
+            total = torch.zeros((), dtype=torch.int64, device=seqs.device)
+            for _ in range(k):
+                out = self._sim_tick(seqs, rects, rect_colors, thickness)
+                for key, v in out.items():
+                    if not key.startswith("_"):
+                        total = total + v.sum(dtype=torch.int64)
+                seqs = out["_next_seqs"]
+                del out
+            probe = torch.remainder(total + 2**31, 2**32) - 2**31  # int32 wrap
+            return {"_sync": probe.to(torch.int32).reshape(1), "_next_seqs": seqs}
+
+        return run
+
+    def _chain(self, k: int) -> "_Chain":
+        """The chain of ``k`` ticks of the current spec (captured as a CUDA
+        graph on a CUDA device), made at first use; :meth:`set_resolution`
+        drops the chains of the old spec. The decode mode needs no key of
+        its own: the engine's pipeline is fixed when the spec is made."""
+        if k not in self._chains:
+            self._chains[k] = _Chain(self, k)
+        return self._chains[k]
+
+    def run_chained(
+        self,
+        n_ticks: int,
+        *,
+        chain: int = 16,
+        warmup: int = 1,
+        rects: Optional[np.ndarray] = None,
+        rect_colors: Optional[np.ndarray] = None,
+    ) -> EngineStats:
+        """Dispatch-amortized throughput harness (device-sim only): each
+        dispatch runs ``chain`` whole ticks, ``max(1, n_ticks // chain)``
+        dispatches back to back after ``warmup`` (at least 1) synced ones,
+        and one fetch of the last probe bounds the run.
+
+        On a CUDA device a dispatch is one replay of a CUDA graph captured
+        once per chain length and spec: the host issues no op per tick, so
+        the rate is the device's own. Frames are made on the
+        device, so it leaves out the host ingest path (``run`` measures
+        that). On the CPU the same chain runs eagerly. A capture that fails
+        raises; nothing falls back to eager ticks on a CUDA device.
+
+        The caller's rects and colours (thickness 2, the reference's) are
+        copied into the chain's own tensors before the dispatches; the
+        stream clock advances on the device and is read once, at the end."""
+        if not self._device_sim:
+            raise CameraError("run_chained requires device_sim=True")
+        ch = self._chain(chain)
+        r, c = self._host_overlay(rects, rect_colors)
+        ch.rects.copy_(torch.from_numpy(r))
+        ch.colors.copy_(torch.from_numpy(c))
+        ch.seqs.copy_(torch.from_numpy(self._seqs.astype(np.int32)))
+        for _ in range(max(1, warmup)):
+            ch.dispatch()
+        ch.sync.cpu()
+        n_disp = max(1, n_ticks // chain)
+        t0 = time.perf_counter()
+        for _ in range(n_disp):
+            ch.dispatch()
+        ch.sync.cpu()  # one stream runs the dispatches in order
+        wall = time.perf_counter() - t0
+
+        self._seqs = ch.seqs.cpu().numpy().astype(np.int64)
+        self._seqs_dev = None
+        stats = EngineStats()
+        stats.ticks = n_disp * chain
+        stats.frames = stats.ticks * self.n
+        stats.wall_s = wall
+        return stats
+
     # ------------------------------------------------------------------
 
     def _open_all(self, config: SimpleConfig) -> None:
@@ -332,11 +472,14 @@ class MultiStreamEngine:
 
     def _upload(self, slot: int) -> list:
         """Start the host→device copy of staging ``slot`` and record the
-        event the slot's next gather waits for. On the CPU the staging
-        tensors are the inputs."""
+        event the slot's next gather waits for. On the CPU the inputs are
+        copies of the staging tensors."""
         hosts = [t for t, _ in self._staging[slot]]
         if self.device.type != "cuda":
-            return hosts
+            # A copy, as the device's: an output that is a view of its
+            # input (BGR24 with no overlay) must not change with a later
+            # gather into the same slot.
+            return [t.clone() for t in hosts]
         outs = [t.to(self.device, non_blocking=True) for t in hosts]
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
@@ -560,14 +703,19 @@ class MultiStreamEngine:
             thickness,
         )
         if self._overlay_cache is None or self._overlay_cache[0] != key:
-            r = np.zeros((self.n, 4), np.int32) if rects is None else rects
-            c = np.zeros((self.n, 3), np.uint8) if rect_colors is None else rect_colors
-            r = np.array(np.broadcast_to(np.asarray(r).astype(np.int32), (self.n, 4)))
-            c = np.array(np.broadcast_to(np.asarray(c).astype(np.uint8), (self.n, 3)))
+            r, c = self._host_overlay(rects, rect_colors)
             args = (torch.from_numpy(r).to(self.device), torch.from_numpy(c).to(self.device),
                     int(thickness))
             self._overlay_cache = (key, args)
         return self._overlay_cache[1]
+
+    def _host_overlay(self, rects, rect_colors) -> Tuple[np.ndarray, np.ndarray]:
+        """The caller's rects and colours (zeros where None) as int32 [N, 4]
+        and u8 [N, 3] host arrays."""
+        r = np.zeros((self.n, 4), np.int32) if rects is None else rects
+        c = np.zeros((self.n, 3), np.uint8) if rect_colors is None else rect_colors
+        return (np.array(np.broadcast_to(np.asarray(r).astype(np.int32), (self.n, 4))),
+                np.array(np.broadcast_to(np.asarray(c).astype(np.uint8), (self.n, 3))))
 
     def tick(
         self,
@@ -871,13 +1019,78 @@ class MultiStreamEngine:
         stats.frames = n_out * self.n
         return stats, payload_bytes / max(1, n_out) / 1e6
 
-    # -- not ported yet -------------------------------------------------
+    # -- resolution hot swap ---------------------------------------------
 
-    def run_chained(self, *args, **kwargs):
-        raise not_ported("run_chained")
+    def _spec_at(self, width: int, height: int, pixel_format: PixelFormat) -> PipelineSpec:
+        """This engine's spec at another frame size, as a swap makes it (the
+        reference's): a fresh spec of the same stages, the hybrid decode
+        dense until its first gather sizes the packing, and the encoder's
+        dense-row cap following the new size when there is no resize."""
+        spec = self.spec
+        pack_cap = spec.encode_dense_cap
+        if spec.encode_packed and spec.resize_to is None:
+            nbt = sum(bh * bw for bh, bw in
+                      _jenc._geometry(width, height, spec.encode_subsampling)["blocks"])
+            pack_cap = min(nbt, max(128, nbt // 16))
+        return PipelineSpec(
+            pixel_format=pixel_format, width=width, height=height,
+            resize_to=spec.resize_to, filter=spec.filter, overlay=spec.overlay,
+            emit_bgr=spec.emit_bgr, stencil_impl=spec.stencil_impl,
+            mjpeg_hybrid=spec.mjpeg_hybrid, mjpeg_staged_bgr=spec.mjpeg_staged_bgr,
+            encode_jpeg=spec.encode_jpeg, encode_subsampling=spec.encode_subsampling,
+            encode_packed=spec.encode_packed, encode_dense_cap=pack_cap,
+        )
+
+    def warm_buckets(self, buckets=None) -> int:
+        """Build this engine's pipeline for every shape bucket (default
+        :data:`.buckets.SHAPE_BUCKETS`; odd widths skipped for YUYV), the
+        spec a :meth:`set_resolution` to it makes, and run one synced tick
+        of each on zero frames, so the first tick after the swap finds its
+        pipeline and tables made and the allocator sized. Returns the
+        number of buckets warmed, as the reference counts them; a hybrid
+        MJPEG engine warms its dense program on 4:2:0 coefficient grids
+        (the reference's warm-up refuses hybrid engines)."""
+        fmt = self.spec.pixel_format
+        specs = [self._spec_at(w, h, fmt)
+                 for (w, h) in (buckets if buckets is not None else _buckets.SHAPE_BUCKETS)
+                 if fmt != PixelFormat.YUYV or w % 2 == 0]
+        return _buckets.warm(specs, self.n, self.device)
 
     def set_resolution(self, width: int, height: int) -> None:
-        raise not_ported("set_resolution")
+        """Hot-swap every stream to a new resolution (blocking), with the
+        reference's stop → renegotiate → restart semantics: the sources
+        reopen at the new size, a new spec is made (:meth:`_spec_at`), and
+        everything made for the old geometry is rebuilt or dropped: the
+        pipeline, the host staging and its events, the hybrid staging,
+        dense program and quant tables (remade by the next gather), the
+        overlay cache, the frame pool and the chained graphs."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # nothing in flight reads the old buffers
+        cfg = SimpleConfig(
+            width=width, height=height, fps=self._resolved.fps,
+            pixel_format=self._resolved.pixel_format, buffer_count=self._resolved.buffer_count,
+        )
+        self._open_all(cfg)
+        rc = self._sources[0].resolved_config()
+        self._resolved = rc
+        self.spec = self._spec_at(rc.width, rc.height, rc.pixel_format)
+        self._fn = get_pipeline(self.spec)
+        self._coeff_staging = None
+        self._fn_dense = None
+        self._qts = None
+        self._overlay_cache = None
+        self._chains = {}
+        self._staging_events = [None, None]
+        if self._device_sim:
+            if self._frame_pool is not None:
+                self._frame_pool = _synth.synth_raw(
+                    torch.arange(self._frame_pool.shape[0], dtype=torch.int32, device=self.device),
+                    rc.width, rc.height, rc.pixel_format)
+        elif self._mjpeg_hybrid:
+            self._staging = []
+        else:
+            shape = (self.n, self.spec.raw_bytes())
+            self._staging = [[self._host_buffer(shape, np.uint8)] for _ in range(2)]
 
     # ------------------------------------------------------------------
 

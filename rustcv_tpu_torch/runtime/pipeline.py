@@ -1,9 +1,13 @@
-"""Per-tick pipeline builder (port of ``rustcv_tpu.runtime.pipeline``: the
-YUYV device path and the hybrid MJPEG reconstruction).
+"""The per-tick pipeline (port of ``rustcv_tpu.runtime.pipeline``: every
+uncompressed wire format and the hybrid MJPEG reconstruction).
 
-``raw u8 [N, H*W*2] → decode → (resize) → (filter) → (overlay) → (JPEG
+``raw u8 [N, raw_bytes] → decode → (resize) → (filter) → (overlay) → (JPEG
 encode) → outputs`` for a batch of N streams, as a plain function on
-tensors. With ``mjpeg_hybrid`` the input is the host entropy decoder's
+tensors. The decode converts any uncompressed format (YUYV, UYVY, NV12,
+YV12, BGRA32, RGBA32, RGB24, BGR24, GRAY8, the four Bayer patterns); the
+BGR image is emitted as packed rows ``(N, H, W*3)`` exactly where the
+reference emits them, else as ``(N, H, W, 3)``: the same bytes. With
+``mjpeg_hybrid`` the input is the host entropy decoder's
 coefficients instead (block-packed with ``mjpeg_packed``, else dense
 grids), and the decode is :mod:`rustcv_tpu_torch.ops.jpeg_tpu`'s
 dequantize → IDCT → upsample → colour, resized in plane form. The filter
@@ -19,14 +23,15 @@ kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
 * ``RUSTCV_DECODE=pallas`` decodes with the fused decode+overlay kernel (K4)
   for the gray filters; ``RUSTCV_DECODE=pallas_tick`` runs the whole
   blur_sobel tick as one kernel (K5). Unset or ``xla``: the plain decode.
-  Neither kernel runs with ``resize_to``, ``encode_jpeg`` or MJPEG.
+  Both kernels read YUYV: neither runs for another format, with
+  ``resize_to``, with ``encode_jpeg`` or for MJPEG, as in the reference.
 * ``encode_jpeg`` > 0 adds the encoder's numeric half (``enc_y``,
   ``enc_cb``, ``enc_cr``: int16 coefficient rows) and, with
   ``encode_packed``, their block-packed form and its byte blob for the
   host Huffman coder; plain PyTorch, the DCT a float32 ``torch.matmul``.
 
-Specs this port does not run yet (the full-host MJPEG decode, pixel
-formats other than YUYV and MJPEG) raise ``NotImplementedError``.
+Specs this port does not run yet (the full-host MJPEG decode,
+``RUSTCV_DECODE=xla_fused``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 from ..core.pixel_format import PixelFormat
 
 from ..ops import color as _color
+from ..ops import decode as _decode
 from ..ops import draw as _draw
 from ..ops import features as _features
 from ..ops import filters as _filters
@@ -90,8 +96,7 @@ class PipelineSpec:
 
     def staged_format(self) -> PixelFormat:
         """The format of the staged bytes (the full-host MJPEG decode's
-        output, else the wire format). Kept for parity with the reference;
-        nothing in the port calls it until the full-host decode is ported."""
+        output, else the wire format)."""
         if self.pixel_format == PixelFormat.MJPEG:
             return PixelFormat.BGR24 if self.mjpeg_staged_bgr else PixelFormat.RGB24
         return self.pixel_format
@@ -107,15 +112,22 @@ def not_ported(what: str) -> NotImplementedError:
 
 
 def _check_ported(spec: PipelineSpec, mode: str) -> None:
-    if spec.pixel_format == PixelFormat.MJPEG:
+    fmt = spec.pixel_format
+    if fmt == PixelFormat.MJPEG:
         if spec.mjpeg_staged_bgr or not spec.mjpeg_hybrid:
             raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')")
         if spec.mjpeg_packed and len(spec.coeff_geometry) != 3:
             raise ValueError("mjpeg_packed needs coeff_geometry: (bh, bw) of Y, Cb and Cr")
-    elif spec.pixel_format != PixelFormat.YUYV:
-        raise not_ported(f"pixel format {spec.pixel_format.value}")
     elif spec.mjpeg_hybrid or spec.mjpeg_packed:
         raise ValueError("mjpeg_hybrid and mjpeg_packed need pixel_format MJPEG")
+    # What each wire format's layout allows: pixel pairs share chroma, 4:2:0
+    # shares it over 2×2 sites, the demosaic mirrors about an edge pixel.
+    if fmt in _PAIRWISE and spec.width % 2:
+        raise ValueError(f"{fmt.value} needs an even width, got {spec.width}")
+    if fmt in (PixelFormat.NV12, PixelFormat.YV12) and spec.height % 2:
+        raise ValueError(f"{fmt.value} needs an even height, got {spec.height}")
+    if fmt.is_bayer and min(spec.width, spec.height) < 2:
+        raise ValueError(f"{fmt.value} needs W, H >= 2, got {spec.width}x{spec.height}")
     if spec.resize_to is not None and min(spec.resize_to) < 1:
         raise ValueError(f"resize_to must be positive, got {spec.resize_to}")
     if spec.encode_jpeg and spec.encode_subsampling not in _jenc.SUBSAMPLINGS:
@@ -128,30 +140,57 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
         raise ValueError(f"unknown stencil_impl {spec.stencil_impl!r}")
     if mode == "xla_fused":
         raise not_ported("RUSTCV_DECODE=xla_fused")
-    if spec.pixel_format == PixelFormat.YUYV and spec.width % 2:
-        raise ValueError(f"YUYV needs an even width, got {spec.width}")
+
+
+# Formats whose pixel pairs share chroma: the reference decodes them in pair
+# form into packed rows at any (even) width.
+_PAIRWISE = (PixelFormat.YUYV, PixelFormat.UYVY, PixelFormat.NV12, PixelFormat.YV12)
+
+
+def packed_output(spec: PipelineSpec) -> bool:
+    """Whether the reference emits ``spec``'s BGR as packed rows (N, H, W*3)
+    rather than (N, H, W, 3) (its ``packed`` rule, which follows its word
+    tricks): the pairwise formats at any width, BGRA32, RGB24, BGR24 and
+    Bayer at a width that is a multiple of 4, a resize only between two such
+    widths, hybrid MJPEG at an output width that is; never GRAY8 or RGBA32."""
+    fmt = spec.staged_format()
+    if spec.mjpeg_hybrid:
+        return (spec.resize_to[0] if spec.resize_to else spec.width) % 4 == 0
+    return (
+        (fmt in _PAIRWISE + (PixelFormat.BGRA32, PixelFormat.RGB24, PixelFormat.BGR24)
+         or fmt.is_bayer)
+        and (fmt in _PAIRWISE or spec.width % 4 == 0)
+        and (spec.resize_to is None or (spec.width % 4 == 0 and spec.resize_to[0] % 4 == 0))
+    )
+
+
+# The gray plane straight from the raw bytes where the reference takes it so
+# (the same values as the luma of the decoded BGR).
+_RAW_GRAY = {
+    PixelFormat.YUYV: _color.yuyv_to_gray, PixelFormat.UYVY: _color.uyvy_to_gray,
+    PixelFormat.NV12: _color.nv12_to_gray, PixelFormat.YV12: _color.yv12_to_gray,
+    PixelFormat.RGB24: _color.rgb_to_gray_packed_rows,
+    PixelFormat.BGR24: _color.bgr_to_gray_packed_rows,
+}
 
 
 def _build(spec: PipelineSpec, mode: str):
     _check_ported(spec, mode)
     w, h = spec.width, spec.height
     hybrid = spec.mjpeg_hybrid
-    # K4 and K5 decode YUYV at the input size: neither runs with a resize
-    # or an encode, as in the reference.
-    plain_size = not hybrid and spec.resize_to is None and not spec.encode_jpeg
+    fmt = spec.staged_format()
+    # K4 and K5 decode YUYV at the input size: neither runs for another
+    # format, with a resize or with an encode, as in the reference.
+    plain_size = fmt == PixelFormat.YUYV and spec.resize_to is None and not spec.encode_jpeg
     fused_decode = plain_size and mode == "pallas" and spec.filter in GRAY_FILTERS
     fused_tick = (
         plain_size and mode == "pallas_tick" and spec.filter == "blur_sobel"
         and spec.emit_bgr and spec.emit_filtered
     )
     cur_w, cur_h = (w, h) if spec.resize_to is None else spec.resize_to
-    # The reference emits a resized YUYV image as packed rows only when both
-    # widths are multiples of 4, a hybrid MJPEG image only when the output
-    # width is, else as (N, H, W, 3): the same bytes.
-    if hybrid:
-        packed_out = cur_w % 4 == 0
-    else:
-        packed_out = spec.resize_to is None or (w % 4 == 0 and cur_w % 4 == 0)
+    # The image stays in packed rows throughout; the output takes the
+    # reference's layout (the same bytes either way).
+    packed_out = packed_output(spec)
 
     def reconstruct_mjpeg(x):
         """Coefficients → packed BGR rows at the output size. ``x`` is
@@ -196,7 +235,8 @@ def _build(spec: PipelineSpec, mode: str):
             bgr = reconstruct_mjpeg(raw)  # resized inside, in plane form
             gray = None
         else:
-            bgr = _color.yuyv_to_bgr_packed(raw, w, h)
+            hwc = _decode.convert_on_device(raw, fmt, w, h)
+            bgr = hwc.reshape(*hwc.shape[:-3], h, w * 3)  # a view: packed rows
             gray = None
         if spec.resize_to is not None and not hybrid:
             bgr = _resize.resize_bilinear_packed(bgr, w, h, cur_w, cur_h)
@@ -205,8 +245,8 @@ def _build(spec: PipelineSpec, mode: str):
         def gray_plane():
             if gray is not None:
                 return gray
-            if spec.resize_to is None and not hybrid:
-                return _color.yuyv_to_gray(raw, w, h)
+            if spec.resize_to is None and not hybrid and fmt in _RAW_GRAY:
+                return _RAW_GRAY[fmt](raw, w, h)
             return _color.bgr_to_gray_packed_rows(decoded, cur_w, cur_h)
 
         if spec.filter == "gaussian":

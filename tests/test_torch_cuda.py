@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same CUDA tensors (bit-exact; the float32 Harris
 response within the reference's rtol 2e-4, atol 1e-6), the Mosaic probe's
-cases (K7) against their numpy refs too, and the engine's decode modes and
-config 6's transcode against each other and against the CPU.
+cases (K7) against their numpy refs too, and the engine's decode modes,
+config 6's transcode, every wire format, the chained tick as a CUDA graph
+and the resolution swap against each other and against the CPU.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -17,6 +18,7 @@ import torch
 
 from rustcv_tpu_torch import native
 from rustcv_tpu_torch.capture import SimulationDriver
+from rustcv_tpu_torch.capture import simulation as sim
 from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
 from rustcv_tpu_torch.models import get_model
 from rustcv_tpu_torch.ops import kernels
@@ -361,4 +363,192 @@ def test_config2_on_the_card_matches_the_cpu(cuda):
         got, want = card.tick(block=True), cpu.tick(block=True)
         assert got.sequences.tolist() == want.sequences.tolist() == [t, t]
         _close_bytes(got.numpy("bgr"), want.numpy("bgr"))
+    card.close()
+
+
+# -- every wire format, run_chained as a CUDA graph, set_resolution ----------
+
+_FORMATS = [f for f in sim._ENCODERS if f != PixelFormat.MJPEG]
+_SIM_FORMATS = (PixelFormat.YUYV, PixelFormat.NV12, PixelFormat.BGRA32, PixelFormat.RGB24,
+                PixelFormat.BGR24)
+
+
+def _format_engine(device, fmt, w, h, device_sim, n=2, **kw):
+    from rustcv_tpu_torch.capture import ModeDescriptor
+
+    driver = SimulationDriver(device_count=n, paced=False,
+                              modes=[ModeDescriptor(fmt, w, h, (60,)),
+                                     ModeDescriptor(fmt, 160, 120, (60,))])
+    return MultiStreamEngine(driver, n, SimpleConfig(width=w, height=h, fps=60, pixel_format=fmt),
+                             device_sim=device_sim, device=device, **kw)
+
+
+@pytest.mark.parametrize("w,h", [(160, 120), (162, 122)])
+@pytest.mark.parametrize("fmt", _FORMATS, ids=lambda f: f.value)
+def test_each_format_on_the_card_matches_the_cpu(cuda, monkeypatch, fmt, w, h):
+    """Host-staged, and device-sim where the device makes the format: every
+    tick equal to the CPU's, in the same layout, K1 once per tick."""
+    rects = np.array([[20, 10, 60, 40], [-5, 50, 300, 20]], np.int32)
+    colors = np.array([[0, 255, 0], [9, 8, 7]], np.uint8)
+    for mode in ("xla", "pallas"):
+        monkeypatch.setenv("RUSTCV_DECODE", mode)
+        for device_sim in (False, True) if fmt in _SIM_FORMATS else (False,):
+            kw = dict(filter="blur_sobel", overlay=True)
+            card = _format_engine(cuda, fmt, w, h, device_sim, **kw)
+            cpu = _format_engine("cpu", fmt, w, h, device_sim, **kw)
+            kernels.reset_launch_counts()
+            for _ in range(2):
+                got = card.tick(rects=rects, rect_colors=colors, block=True)
+                want = cpu.tick(rects=rects, rect_colors=colors, block=True)
+                for key in ("bgr", "filtered"):
+                    assert got.outputs[key].shape == want.outputs[key].shape
+                    np.testing.assert_array_equal(got.outputs[key].cpu().numpy(),
+                                                  want.outputs[key].numpy())
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            fused = fmt == PixelFormat.YUYV and mode == "pallas"
+            assert counts == ({"blur_sobel_mag": 2, "yuyv_decode_interleave": 2} if fused
+                              else {"blur_sobel_mag": 2})
+            card.close()
+
+
+_CHAINED = [("config1_convert_overlay", "xla"), ("config4_harris_1080p", "xla"),
+            ("config4_harris_1080p", "pallas"), ("config5_end_to_end_4k", "pallas_tick")]
+
+
+def _tick_launches(fn):
+    """What the kernel wrappers counted in one synced call of ``fn``."""
+    before = kernels.launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("name,mode", _CHAINED)
+def test_chained_graph_replay_equals_eager_ticks(cuda, monkeypatch, name, mode):
+    """One replay of a captured chain of 4 ticks: the probe and clock of 4
+    eager ticks on the card and of the CPU's chain; the wrappers counted 4
+    × the eager tick's launches of each kernel while the graph was captured
+    (none for config 1's plain ops), and a replay calls no wrapper."""
+    monkeypatch.setenv("RUSTCV_DECODE", mode)
+    model = dataclasses.replace(get_model(name), width=160, height=120,
+                                n_streams=min(2, get_model(name).n_streams))
+    eng, cpu = model.engine(device=cuda), model.engine(device="cpu")
+    rects = np.array([[20, 10, 60, 40]] * eng.n, np.int32)
+    colors = np.array([[0, 255, 0]] * eng.n, np.uint8)
+    tick = _tick_launches(lambda: eng.tick(rects=rects, rect_colors=colors, thickness=2))
+    ch = eng._chain(4)
+    assert ch.graph is not None
+    assert ch.launches == {k: 4 * v for k, v in tick.items()}
+    if name.startswith("config1"):
+        assert ch.launches == {}
+    ch.rects.copy_(torch.from_numpy(rects))
+    ch.colors.copy_(torch.from_numpy(colors))
+    ch.seqs.fill_(3)
+    assert _tick_launches(ch.dispatch) == {}
+    args = (torch.from_numpy(rects), torch.from_numpy(colors), 2)
+    eager = eng._build_sim_fn_chained(4)(torch.full((eng.n,), 3, dtype=torch.int32, device=cuda),
+                                         *(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                                           for a in args))
+    want = cpu._build_sim_fn_chained(4)(torch.full((eng.n,), 3, dtype=torch.int32), *args)
+    assert torch.equal(ch.sync, eager["_sync"]) and torch.equal(ch.sync.cpu(), want["_sync"])
+    assert ch.seqs.tolist() == [7] * eng.n == want["_next_seqs"].tolist()
+    # a second replay continues the clock
+    ch.dispatch()
+    want = cpu._build_sim_fn_chained(4)(want["_next_seqs"], *args)
+    assert torch.equal(ch.sync.cpu(), want["_sync"]) and ch.seqs.tolist() == [11] * eng.n
+
+
+@pytest.mark.parametrize("name,mode", _CHAINED)
+def test_chained_capture_makes_no_host_sync(cuda, monkeypatch, name, mode):
+    """With PyTorch's sync debug mode at "error", any op that waits for the
+    device inside the chain (``.item()``, ``.cpu()``, a blocking copy)
+    raises: the capture and a replay of each chain go through."""
+    monkeypatch.setenv("RUSTCV_DECODE", mode)
+    model = dataclasses.replace(get_model(name), width=160, height=120,
+                                n_streams=min(2, get_model(name).n_streams))
+    eng = model.engine(device=cuda)
+    eng.tick(block=True)  # the kernels' build and the overlay's upload come first
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ch = eng._chain(3)
+        ch.dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ch.graph is not None and ch.seqs.tolist() == [6] * eng.n
+
+
+def test_run_chained_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    model = dataclasses.replace(get_model("config4_harris_1080p"), width=160, height=120)
+    card, cpu = model.engine(device=cuda), model.engine(device="cpu")
+    rects = np.array([[20, 10, 60, 40]], np.int32)
+    colors = np.array([[0, 255, 0]], np.uint8)
+    for eng in (card, cpu):
+        stats = eng.run_chained(20, chain=4, warmup=2, rects=rects, rect_colors=colors)
+        assert (stats.ticks, stats.frames) == (20, 20)
+    assert card._seqs.tolist() == cpu._seqs.tolist() == [28]
+    assert card._chain(4).graph is not None and cpu._chain(4).graph is None
+    assert torch.equal(card._chain(4).sync.cpu(), cpu._chain(4).sync)
+    got, want = card.tick(block=True), cpu.tick(block=True)
+    assert got.sequences.tolist() == want.sequences.tolist() == [28]
+    np.testing.assert_array_equal(got.numpy("filtered"), want.numpy("filtered"))
+
+
+_FAILED_CAPTURE = """
+import numpy as np, torch
+from rustcv_tpu_torch.capture import SimulationDriver
+from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
+from rustcv_tpu_torch.runtime import MultiStreamEngine
+eng = MultiStreamEngine(SimulationDriver(device_count=1, paced=False), 1,
+                        SimpleConfig(width=64, height=48, fps=60, pixel_format=PixelFormat.YUYV),
+                        device_sim=True, filter="blur_sobel", device="cuda")
+tick = eng._sim_tick
+def syncing_tick(*args, **kwargs):
+    out = tick(*args, **kwargs)
+    out["filtered"].sum().item()  # a host sync inside the captured region
+    return out
+eng._sim_tick = syncing_tick
+try:
+    eng.run_chained(8, chain=4)
+except RuntimeError as e:
+    print("RAISED", type(e).__name__, str(e).splitlines()[0][:200])
+else:
+    print("NO ERROR")
+"""
+
+
+def test_a_failed_capture_raises(cuda):
+    """A host sync in the chained tick fails the capture, and run_chained
+    raises instead of running eager ticks (in a process of its own: a
+    failed capture may leave an error on the context)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert "RAISED" in proc.stdout, (proc.stdout, proc.stderr[-2000:])
+
+
+@pytest.mark.parametrize("device_sim", [True, False])
+def test_set_resolution_on_the_card_matches_the_cpu(cuda, monkeypatch, device_sim):
+    monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    kw = dict(filter="blur_sobel", overlay=True)
+    card = _format_engine(cuda, PixelFormat.NV12, 64, 48, device_sim, **kw)
+    cpu = _format_engine("cpu", PixelFormat.NV12, 64, 48, device_sim, **kw)
+    assert card.warm_buckets(buckets=[(64, 48), (160, 120)]) == 2
+    for size in ((160, 120), (64, 48), (160, 120)):
+        for eng in (card, cpu):
+            eng.tick(block=True)
+            eng.set_resolution(*size)
+        got, want = card.tick(block=True), cpu.tick(block=True)
+        assert got.sequences.tolist() == want.sequences.tolist()
+        for key in ("bgr", "filtered"):
+            np.testing.assert_array_equal(got.numpy(key), want.numpy(key))
     card.close()

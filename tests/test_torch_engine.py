@@ -21,7 +21,7 @@ import rustcv_tpu.runtime.pipeline as jax_pipeline
 from rustcv_tpu.capture import SimulationDriver as JaxDriver
 from rustcv_tpu.runtime import MultiStreamEngine as JaxEngine
 from rustcv_tpu_torch import core, models
-from rustcv_tpu_torch.core import PixelFormat
+from rustcv_tpu_torch.core import PixelFormat, SimulationError
 from rustcv_tpu_torch.capture import SimulationDriver
 from rustcv_tpu_torch.ops import kernels
 from rustcv_tpu_torch.runtime import MultiStreamEngine
@@ -265,36 +265,36 @@ def _decode_xla_fused(monkeypatch):
     _port(64, 48, 1, filter="blur_sobel", overlay=True)
 
 
+def _device_sim_tick(fmt):
+    """One device-sim tick of ``fmt``, which the device cannot synthesize in
+    either package: the reference raises SimulationError at the first tick."""
+    return lambda mp: MultiStreamEngine(
+        SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48, fmt), device_sim=True,
+        device="cpu").tick(block=True)
+
+
 @pytest.mark.parametrize(
-    "make",
+    "make,error,match",
     [
         pytest.param(lambda mp: MultiStreamEngine(
             SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48, PixelFormat.MJPEG),
-            mjpeg_backend="host", device="cpu"), id="mjpeg_host"),
-        pytest.param(lambda mp: MultiStreamEngine(
-            SimulationDriver(device_count=2, paced=False), 2, _cfg(64, 48, PixelFormat.UYVY),
-            device="cpu"), id="host-staged-uyvy"),
-        pytest.param(lambda mp: _port(64, 48, 1, mesh=object()), id="mesh"),
-        pytest.param(lambda mp: _port(64, 48, 1).tick(text="hi"), id="text"),
-        pytest.param(lambda mp: _port(64, 48, 1).set_resolution(160, 120), id="set_resolution"),
-        pytest.param(lambda mp: _port(64, 48, 1).run_chained(4), id="run_chained"),
-        pytest.param(_decode_xla_fused, id="xla_fused"),
-        pytest.param(lambda mp: MultiStreamEngine(
-            SimulationDriver(device_count=1, paced=False), 1,
-            _cfg(64, 48, PixelFormat.UYVY), device_sim=True, device="cpu"), id="uyvy"),
-        pytest.param(lambda mp: MultiStreamEngine(
-            SimulationDriver(device_count=1, paced=False), 1,
-            _cfg(64, 48, PixelFormat.BGRA32), device_sim=True, device="cpu"), id="bgra32"),
-        pytest.param(lambda mp: MultiStreamEngine(
-            SimulationDriver(device_count=1, paced=False), 1,
-            _cfg(64, 48, PixelFormat.NV12), device_sim=True, device="cpu"), id="nv12"),
-        pytest.param(lambda mp: MultiStreamEngine(
-            SimulationDriver(device_count=1, paced=False), 1,
-            _cfg(64, 48, PixelFormat.YV12), device_sim=True, device="cpu"), id="yv12"),
+            mjpeg_backend="host", device="cpu"), NotImplementedError, "ROADMAP", id="mjpeg_host"),
+        pytest.param(lambda mp: _port(64, 48, 1, mesh=object()), NotImplementedError, "ROADMAP",
+                     id="mesh"),
+        pytest.param(lambda mp: _port(64, 48, 1).tick(text="hi"), NotImplementedError, "ROADMAP",
+                     id="text"),
+        pytest.param(_decode_xla_fused, NotImplementedError, "ROADMAP", id="xla_fused"),
+        pytest.param(_device_sim_tick(PixelFormat.UYVY), SimulationError, "cannot encode",
+                     id="uyvy"),
+        pytest.param(_device_sim_tick(PixelFormat.YV12), SimulationError, "cannot encode",
+                     id="yv12"),
     ],
 )
-def test_unported_specs_raise(monkeypatch, make):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_specs_raise(monkeypatch, make, error, match):
+    """What the port does not run raises NotImplementedError naming the
+    ROADMAP; what the reference cannot run either raises the reference's
+    own error."""
+    with pytest.raises(error, match=match):
         make(monkeypatch)
 
 
@@ -325,11 +325,18 @@ def _fields(model) -> dict:
             for k, v in dataclasses.asdict(model).items()}
 
 
+# The port's own values: config 3 runs as one batch on the H100, faster
+# than the reference's sub_batch=4 (PERF.md §6).
+PORT_FIELDS = {"config3_blur_sobel_4k": {"sub_batch": None}}
+
+
 def test_zoo_models_match_the_reference():
+    """Every model carries the reference's fields, but PORT_FIELDS."""
     assert list(models.MODELS) == list(jax_models.MODELS)
+    assert jax_models.get_model("config3_blur_sobel_4k").sub_batch == 4
     for name, ref in jax_models.MODELS.items():
         port = models.get_model(name)
-        assert _fields(port) == _fields(ref), name
+        assert _fields(port) == {**_fields(ref), **PORT_FIELDS.get(name, {})}, name
     with pytest.raises(KeyError, match="unknown model"):
         models.get_model("config9")
 

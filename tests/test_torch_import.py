@@ -1,7 +1,9 @@
 """The PyTorch port imports and ticks (the headline, configs 4 and 6
-through the zoo, config 6 with its JPEG payloads, the host-staged path and
-config 2's hybrid MJPEG decode) with jax, Pillow and the JAX package
-``rustcv_tpu`` absent.
+through the zoo, config 6 with its JPEG payloads, the host-staged path,
+config 2's hybrid MJPEG decode, NV12 and Bayer frames,
+``convert_on_device``, ``run_chained``, ``warm_buckets`` and
+``set_resolution``) with jax, Pillow and the JAX package ``rustcv_tpu``
+absent.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -34,6 +36,7 @@ _SCRIPT = textwrap.dedent(
     import rustcv_tpu_torch.ops.resize
     import rustcv_tpu_torch.probes.mosaic_shuffle
     import rustcv_tpu_torch.probes.host_gather_ab
+    import rustcv_tpu_torch.probes.chain_profile
     from rustcv_tpu_torch import native
 
     eng = MultiStreamEngine(
@@ -79,6 +82,30 @@ _SCRIPT = textwrap.dedent(
     from rustcv_tpu_torch.capture.simulation import synth_raw
     assert decode_jpeg_numpy(synth_raw(64, 48, PixelFormat.MJPEG, 0)).shape == (48, 64, 3)
     eng.close()
+    # every other wire format (device-sim NV12, a host-staged Bayer sensor),
+    # convert_on_device, run_chained, warm_buckets and set_resolution
+    from rustcv_tpu_torch.ops import decode
+    from rustcv_tpu_torch.runtime import buckets
+    assert buckets.bucket_for(1900, 1000) == (1920, 1080)
+    for fmt, device_sim in ((PixelFormat.NV12, True), (PixelFormat.BAYER_RGGB, False)):
+        eng = MultiStreamEngine(
+            SimulationDriver(device_count=2, paced=False), 2,
+            SimpleConfig(width=64, height=48, fps=60, pixel_format=fmt),
+            filter="blur_sobel", overlay=True, device_sim=device_sim, device="cpu",
+        )
+        assert eng.tick(block=True).numpy("bgr").shape == (2, 48, 64, 3)
+        assert eng.warm_buckets(buckets=[(64, 48), (160, 120)]) == 2
+        eng.set_resolution(160, 120)
+        assert eng.tick(block=True).numpy("filtered").shape == (2, 120, 160)
+        if device_sim:
+            stats = eng.run_chained(4, chain=2)
+            assert stats.ticks == 4 and eng.export_state()["sequences"] == [8, 8]
+        eng.close()
+    source = SimulationDriver(paced=False).open_simple(
+        "sim:0", SimpleConfig(width=64, height=48, pixel_format=PixelFormat.UYVY))[0]
+    source.start()
+    raw = torch.from_numpy(source.next_frame().data.reshape(-1))
+    assert decode.convert_on_device(raw, PixelFormat.UYVY, 64, 48).shape == (48, 64, 3)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
     assert not bad, bad

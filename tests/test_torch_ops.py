@@ -16,7 +16,7 @@ from rustcv_tpu.ops import draw as JD
 from rustcv_tpu.ops import filters as JF
 from rustcv_tpu.ops import synth as JS
 from rustcv_tpu_torch.capture import simulation as tsim
-from rustcv_tpu_torch.core import PixelFormat
+from rustcv_tpu_torch.core import PixelFormat, SimulationError
 from rustcv_tpu_torch.ops import color as TC
 from rustcv_tpu_torch.ops import draw as TD
 from rustcv_tpu_torch.ops import filters as TF
@@ -70,10 +70,14 @@ def test_host_generators_byte_identical(fmt):
 
 
 def test_synth_unported_formats_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.synth_raw(torch.zeros(1, dtype=torch.int32), 64, 48, PixelFormat.NV12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.synth_raw(64, 48, PixelFormat.BAYER_RGGB, 0)
+    """Formats neither package can simulate raise its SimulationError: on
+    the device, those the reference does not synthesize there; on the host,
+    a format with no encoder."""
+    for fmt in (PixelFormat.UYVY, PixelFormat.YV12, PixelFormat.BAYER_RGGB):
+        with pytest.raises(SimulationError, match="cannot encode"):
+            TS.synth_raw(torch.zeros(1, dtype=torch.int32), 64, 48, fmt)
+    with pytest.raises(SimulationError, match="cannot encode"):
+        tsim.synth_raw(64, 48, PixelFormat.RGBA32, 0)
 
 
 # -- color ------------------------------------------------------------------
