@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Eleven paths, each driven with the launch counts set to 0 just before it
+Twelve paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -47,7 +47,12 @@ and read just after:
 * BASELINE configs 1 (1 × 640×480, overlay), 3 (32 × 3840×2160,
   blur_sobel, one batch as the zoo runs it and ``sub_batch=4``) and 5 (8 ×
   3840×2160, blur_sobel and overlay) through the zoo, configs 1 and 5 in
-  every decode mode: K1, K4, K5.
+  every decode mode: K1, K4, K5;
+* the OpenCV-style facade, the README loop without ``put_text``:
+  ``VideoCapture`` at 1280×720 (host and device decode), the ``imgproc``
+  draws and ``harris_corners`` on a CUDA ``Mat``, JPEG ``imencode`` /
+  ``imdecode``, a ``VideoWriter`` → ``.avi`` → ``VideoCapture`` round trip
+  and ``highgui``: K6 (int32 form).
 
 Phases:
 
@@ -84,7 +89,11 @@ Phases:
    chain), the launches captured equal to the chain's length times the
    eager tick's; 2 ticks after each resolution swap identical to a fresh
    engine's at that size; configs 1, 3 and 5 identical to a plain engine
-   and stream 0 to the CPU pipeline; and every kernel launched by its path;
+   and stream 0 to the CPU pipeline; the facade's host and device reads
+   identical, its draws on a CUDA Mat identical to a host Mat's with no
+   blocking copy, ``harris_corners`` identical to the CPU's, its JPEG
+   coefficients, decodes and AVI frames within max |diff| <= 1 on < 0.5 %
+   of the CPU port's; and every kernel launched by its path;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -95,7 +104,9 @@ Phases:
    1×1920×1080 too; K7 as its 13 cases per call); each other format
    (NV12 device-sim in every mode), configs 1 and 4 eager against
    ``run_chained``, config 3 with and without ``sub_batch`` in turns (and
-   its peak memory), config 5 per mode.
+   its peak memory), config 5 per mode; the facade's ms per read and
+   frames/s (host and device decode, 1280×720 and 3840×2160) and ms per
+   draw on a CUDA Mat.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -1081,6 +1092,192 @@ def run_zoo_configs() -> dict:
     return kernels.launch_counts()  # read just after the zoo configs' run
 
 
+FACADE_W, FACADE_H = 1280, 720  # the README loop's set_resolution
+FACADE_READS = 8
+# Hybrid MJPEG decodes and JPEG coefficients of the card against the CPU
+# port: max |diff|, share of bytes (tests/test_torch_mjpeg.py and
+# tests/test_torch_encode.py).
+JPEG_TOL = (1, 5e-3)
+
+
+def facade_draws(ip, mat) -> None:
+    """The facade phase's drawing calls (the README's rectangle first), on
+    a 1280×720 Mat: edges over the frame, filled and ring shapes."""
+    ip.rectangle(mat, ip.Rect(60, 60, 200, 150), ip.Scalar(0, 255, 0), 2)
+    ip.rectangle(mat, ip.Rect(-9, -5, 400, 200), ip.Scalar(1, 2, 3), 4)
+    ip.line(mat, ip.Point(-20, 10), ip.Point(1300, 700), ip.Scalar(255, 0, 0), 3)
+    ip.circle(mat, ip.Point(640, 360), 100, ip.Scalar(0, 0, 255), -1)
+    ip.circle(mat, ip.Point(1250, 20), 90, ip.Scalar(0, 9, 255), 2)
+    ip.fill_poly(mat, [(100, 600), (600, 400), (1279, 719), (300, 650)], ip.Scalar(7, 8, 9))
+    ip.ellipse(mat, ip.Point(900, 300), (300, 120), 30.0, ip.Scalar(9, 9, 9), 2)
+
+
+def within(got, want, tol, what: str) -> None:
+    d = np.abs(np.asarray(got).astype(np.int64) - np.asarray(want).astype(np.int64))
+    expect(d.shape == np.asarray(want).shape, f"{what}: shape {d.shape}")
+    share = float((d > 0).mean())
+    expect(int(d.max()) <= tol[0] and share < tol[1],
+           f"{what}: max |diff| {int(d.max())}, share {share:.2e} beyond {tol}")
+
+
+def run_facade() -> dict:
+    """Phase 3k: the OpenCV-style facade, the README loop without
+    ``put_text``: ``VideoCapture(0, SimulationDriver(paced=False))`` at
+    1280×720 read 8 times by the host decode and 8 times with
+    ``decode_on_device=True`` on the card, equal byte for byte; rectangle,
+    line, circle, fill_poly and ellipse on the CUDA Mat equal to the same
+    calls on a host Mat, with no blocking host-to-device copy (the sync
+    debug mode raises on one); ``harris_corners`` on the CUDA Mat (K6's
+    int32 form) equal to the CPU Mat's; ``imencode``/``imdecode`` on the
+    card within JPEG_TOL of the CPU port; ``VideoWriter`` → ``.avi`` →
+    ``VideoCapture(path, decode_on_device=True, mjpeg_hybrid=True)``: the
+    frame count, and each frame within JPEG_TOL of the CPU decode of the
+    same bytes; ``imshow`` → ``get_window_frame`` equal to the Mat, and
+    ``push_key``/``wait_key``. Returns the path's launches."""
+    import tempfile
+
+    import torch
+
+    from rustcv_tpu_torch import highgui, imgcodecs, imgproc, native
+    from rustcv_tpu_torch.capture import AviMjpegReader, SimulationDriver
+    from rustcv_tpu_torch.ops import jpeg_tpu, kernels
+    from rustcv_tpu_torch.prelude import Mat, VideoCapture, VideoWriter
+
+    os.environ["RUSTCV_GUI"] = "0"  # highgui's headless sink
+    kernels.reset_launch_counts()  # the facade's path starts here
+    drv = SimulationDriver(paced=False, n_unique_frames=UNIQUE)
+    host, card = VideoCapture(0, drv), VideoCapture(0, drv, decode_on_device=True)
+    frames = []
+    try:
+        for cap in (host, card):
+            expect(cap.set_resolution(FACADE_W, FACADE_H), f"set_resolution: {cap.last_error}")
+        a, b = Mat(), Mat()
+        for i in range(FACADE_READS):
+            expect(host.read(a) and card.read(b), f"read {i} failed")
+            expect(b.is_on_device and b.device().is_cuda and not a.is_on_device,
+                   f"read {i}: the decodes did not land where asked")
+            expect(np.array_equal(a.to_numpy(), b.to_numpy()),
+                   f"read {i}: the host and the device decode differ")
+            frames.append(b.device())
+    finally:
+        host.release()
+        card.release()
+    expect(b.shape == (FACADE_H, FACADE_W, 3), f"Mat {b.shape}")
+    print(f"facade: {FACADE_READS} reads at {FACADE_W}x{FACADE_H}, host and device decode "
+          "identical", flush=True)
+
+    on_host = Mat.from_array(b.to_numpy())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        facade_draws(imgproc, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    facade_draws(imgproc, on_host)
+    expect(b.is_on_device and np.array_equal(b.to_numpy(), on_host.to_numpy()),
+           "the draws on the CUDA Mat differ from the host Mat's")
+    corners = imgproc.harris_corners(b)
+    want = imgproc.harris_corners(Mat.from_array(b.to_numpy(), device="cpu"))
+    expect(corners.any() and np.array_equal(corners, want),
+           "harris_corners on the CUDA Mat differs from the CPU Mat's")
+    print(f"facade: draws on the CUDA Mat identical to the host Mat's, no blocking copy; "
+          f"harris_corners {int(corners.sum())} corners, identical to the CPU", flush=True)
+
+    data = imgcodecs.imencode(".jpg", b, 90)
+    cpu = imgcodecs.imencode(".jpg", Mat.from_array(b.to_numpy(), device="cpu"), 90)
+    got_c, want_c = native.jpeg_entropy_decode(data)[1], native.jpeg_entropy_decode(cpu)[1]
+    for i, (g, w) in enumerate(zip(got_c, want_c)):
+        within(g, w, JPEG_TOL, f"imencode component {i}")
+    same = all(np.array_equal(g, w) for g, w in zip(got_c, want_c))
+    expect(not same or data == cpu, "imencode: equal coefficients but other bytes")
+    dec = imgcodecs.imdecode(data)
+    expect(dec.device().is_cuda, "imdecode did not decode on the card")
+    within(dec.to_numpy(), imgcodecs.imdecode(data, device="cpu").to_numpy(), JPEG_TOL,
+           "imdecode on the card against the CPU")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "facade.avi")
+        with VideoWriter(path, fps=30, frame_size=(FACADE_W, FACADE_H)) as writer:
+            for t in frames:
+                writer.write(t)
+        reader = AviMjpegReader(path)
+        expect((len(reader), reader.width, reader.height) == (len(frames), FACADE_W, FACADE_H),
+               f"the AVI holds {len(reader)} frames of {reader.width}x{reader.height}")
+        cap = VideoCapture(path, decode_on_device=True, mjpeg_hybrid=True)
+        try:
+            m, n = Mat(), 0
+            while cap.read(m):
+                expect(m.device().is_cuda, "the AVI frame did not decode on the card")
+                within(m.to_numpy(), jpeg_tpu.decode_jpeg_tpu(reader.frame_bytes(n), "cpu").numpy(),
+                       JPEG_TOL, f"AVI frame {n} against the CPU decode")
+                n += 1
+            expect(n == len(frames) and cap.last_error is None,
+                   f"read {n} of {len(frames)} AVI frames ({cap.last_error})")
+        finally:
+            cap.release()
+    print(f"facade: JPEG imencode/imdecode and a {len(frames)}-frame AVI round trip within "
+          f"{JPEG_TOL} of the CPU", flush=True)
+
+    highgui.imshow("facade", b)
+    expect(np.array_equal(highgui.get_window_frame("facade"), b.to_numpy()),
+           "imshow: the window frame differs from the Mat")
+    highgui.push_key(highgui.KEY_ESC)
+    expect(highgui.wait_key(1) == highgui.KEY_ESC and highgui.wait_key(1) == -1,
+           "push_key/wait_key")
+    highgui.destroy_all_windows()
+    return kernels.launch_counts()  # read just after the facade's run
+
+
+def time_facade(smi: str) -> None:
+    """Phase 4k: ms per ``read`` and frames/s of the facade's host and
+    device decode (host clock over 20 reads after 8 warm ones, each read
+    synchronised; the sources cycle 8 frames encoded once), at 1280×720 and
+    at the default 3840×2160; ms per draw on a 1280×720 CUDA Mat (CUDA
+    events over 50 calls, the host's issue included)."""
+    import torch
+
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.capture import SimulationDriver
+    from rustcv_tpu_torch.prelude import Mat, VideoCapture
+
+    tag = f"[{smi}]"
+    for size in ((FACADE_W, FACADE_H), None):
+        for label, kwargs in (("host decode", {}), ("device decode", {"decode_on_device": True})):
+            cap = VideoCapture(0, SimulationDriver(paced=False, n_unique_frames=UNIQUE), **kwargs)
+            try:
+                if size:
+                    expect(cap.set_resolution(*size), f"set_resolution: {cap.last_error}")
+                mat = Mat()
+                for _ in range(UNIQUE):
+                    expect(cap.read(mat), "read failed")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    cap.read(mat)
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / 20
+                w, h = cap.get_width(), cap.get_height()
+            finally:
+                cap.release()
+            print(f"{tag} facade read, {label}, {w}x{h}: {ms:.4f} ms/read, {1e3 / ms:.1f} frames/s",
+                  flush=True)
+    img = np.random.default_rng(2).integers(0, 256, (FACADE_H, FACADE_W, 3), np.uint8)
+    mat = Mat.from_array(img)
+    mat.device()
+    draws = {
+        "rectangle": lambda: ip.rectangle(mat, ip.Rect(60, 60, 200, 150), ip.Scalar(0, 255, 0), 2),
+        "line": lambda: ip.line(mat, ip.Point(-20, 10), ip.Point(1300, 700), ip.Scalar(255, 0, 0), 3),
+        "circle": lambda: ip.circle(mat, ip.Point(640, 360), 100, ip.Scalar(0, 0, 255), -1),
+        "fill_poly": lambda: ip.fill_poly(mat, [(100, 600), (600, 400), (1279, 719), (300, 650)],
+                                          ip.Scalar(7, 8, 9)),
+        "ellipse": lambda: ip.ellipse(mat, ip.Point(900, 300), (300, 120), 30.0,
+                                      ip.Scalar(9, 9, 9), 2),
+    }
+    for name, draw in draws.items():
+        print(f"{tag} facade draw on a CUDA Mat, {name}, {FACADE_W}x{FACADE_H}: "
+              f"{cuda_ms(draw, 50):.4f} ms/call", flush=True)
+
+
 def time_new_paths(smi: str) -> None:
     """Phase 4j: ms/tick (CUDA events) of every other wire format: device-sim
     at 8 × 1080p (NV12 in every mode and beside the plain engine), host-staged
@@ -1613,7 +1810,7 @@ def main() -> int:
                             ("host path", run_host_path), ("config 2", run_config2),
                             ("formats", run_formats), ("chained graphs", run_chained_graphs),
                             ("set_resolution", run_set_resolution),
-                            ("configs 1, 3, 5", run_zoo_configs)):
+                            ("configs 1, 3, 5", run_zoo_configs), ("facade", run_facade)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -1626,7 +1823,7 @@ def main() -> int:
                           ("config 6 profile", profile_config6), ("host path", time_host_path),
                           ("config 2", time_config2),
                           ("formats, chained configs 1 and 4, configs 3 and 5",
-                           lambda: time_new_paths(smi))):
+                           lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

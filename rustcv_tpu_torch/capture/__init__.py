@@ -1,7 +1,10 @@
-"""Capture layer of the port: FrameSource protocol, simulation driver and
-negotiation (numpy-only, no torch). The ``Camera``/``VideoCapture`` facades
-and the AVI file driver are not ported yet (ROADMAP queue 1)."""
+"""Capture layer of the port: FrameSource protocol, simulation driver,
+negotiation, the ``Camera`` and ``VideoCapture`` facades and the MJPEG-AVI
+file driver and writer. Importing it loads no torch; decoding does. The
+V4L2 and native ring drivers are not ported yet (ROADMAP queue 1 item 11)."""
 
+from .avi import AviMjpegReader, FileDriver, FileSource, VideoWriter
+from .camera import Camera, default_driver
 from .negotiate import negotiate, negotiate_simple, resolve, score_mode, score_mode_msmf
 from .simulation import (
     SimulationDriver,
@@ -28,12 +31,15 @@ from .source import (
     TriggerMode,
     TriggerPolarity,
 )
+from .videocapture import VideoCapture, resolve_device_id
 
 __all__ = [
-    "DeviceControls", "DeviceInfo", "Driver", "FrameSource", "LensControl",
+    "AviMjpegReader", "Camera", "DeviceControls", "DeviceInfo", "Driver",
+    "FileDriver", "FileSource", "FrameSource", "LensControl",
     "ModeDescriptor", "SensorControl", "SimulationDriver", "SimulationSource",
     "SystemControl", "TriggerConfig", "TriggerMode", "TriggerPolarity",
-    "default_modes", "encode_bgra", "encode_mjpeg", "encode_nv12",
-    "encode_rgb", "encode_yuyv", "negotiate", "negotiate_simple", "resolve",
-    "score_mode", "score_mode_msmf", "synth_bgr", "synth_raw",
+    "VideoCapture", "VideoWriter", "default_driver", "default_modes",
+    "encode_bgra", "encode_mjpeg", "encode_nv12", "encode_rgb", "encode_yuyv",
+    "negotiate", "negotiate_simple", "resolve",
+    "resolve_device_id", "score_mode", "score_mode_msmf", "synth_bgr", "synth_raw",
 ]

@@ -1,9 +1,9 @@
-"""Core types of the port: configs, pixel formats, errors, frames,
-telemetry and the clock synchroniser (numpy-only).
+"""Core types of the port: configs, pixel formats, errors, frames, the
+``Mat`` image container, ``TickMeter``, telemetry and the clock
+synchroniser (numpy-only; a Mat's device side imports torch at first use).
 
 These are the port's own copies of the reference's core modules, with the
-same names and behaviour; ``Mat`` and ``TickMeter`` wait for the port's
-facade.
+same names and behaviour.
 """
 
 from .config import CameraConfig, Priority, ResolvedConfig, SimpleConfig
@@ -23,8 +23,10 @@ from .errors import (
     StreamNotStarted,
 )
 from .frame import Frame, FrameMetadata, OwnedFrame, Timestamp
+from .mat import Mat
 from .pixel_format import FourCC, PixelFormat, from_fourcc, to_fourcc
 from .telemetry import DeviceHealthStatus, DeviceTelemetry, HealthIssue, HealthLevel
+from .tick_meter import TickMeter
 from .time_sync import ClockSynchronizer
 
 __all__ = [
@@ -32,8 +34,8 @@ __all__ = [
     "BufferOverflow", "CameraConfig", "CameraError", "ClockSynchronizer",
     "DecodeError", "DeviceBusy", "DeviceHealthStatus", "DeviceNotFound",
     "DeviceTelemetry", "Disconnected", "FormatNotSupported", "FourCC",
-    "Frame", "FrameMetadata", "HealthIssue", "HealthLevel",
+    "Frame", "FrameMetadata", "HealthIssue", "HealthLevel", "Mat",
     "OwnedFrame", "PixelFormat", "Priority", "ResolvedConfig",
     "ResolutionNotSupported", "SimpleConfig", "SimulationError",
-    "StreamNotStarted", "Timestamp", "from_fourcc", "to_fourcc",
+    "StreamNotStarted", "TickMeter", "Timestamp", "from_fourcc", "to_fourcc",
 ]

@@ -97,3 +97,19 @@ class EndOfStream(CameraError):
     """A finite source (video file) ran out of frames — the exception form
     of the facade protocol's EndOfStream response (videoio/mod.rs:33);
     ``VideoCapture.read`` maps it to ``False`` without recording an error."""
+
+
+def not_ported(what: str, why: str = "", item: str = "") -> NotImplementedError:
+    """The error raised where the port does not run something the reference
+    does yet: it names what, why (``why``) and the ROADMAP Queue 1 item
+    that will port it (``item``)."""
+    reason = f": {why}" if why else ""
+    where = f"ROADMAP queue 1 item {item}" if item else "ROADMAP queue 1"
+    return NotImplementedError(f"{what} is not ported to rustcv_tpu_torch yet{reason} ({where})")
+
+
+#: ``why`` of what reaches Pillow in the reference.
+NEEDS_PILLOW = "the reference uses Pillow (PIL) here, which the port does not import"
+#: ``why`` of the full-host MJPEG decode.
+NEEDS_HOST_JPEG = ("the reference decodes with libjpeg-turbo or Pillow (PIL); "
+                   "the port has neither")

@@ -7,8 +7,7 @@ Reference parity:
   strobe_active}``.
 - ``rustcv-camera/src/frame.rs:52-233`` — lifetime-bound zero-copy ``Frame``
   whose borrow prevents double-dequeue, ``to_owned()`` deep copy,
-  ``OwnedFrame``. (``decode_bgr()``, which returns a ``Mat``, waits for the
-  port's ``Mat`` facade.)
+  ``OwnedFrame``, ``decode_bgr()`` into a ``Mat``.
 
 Rust enforces the ring-buffer contract with the borrow checker
 (``rustcv-camera/src/frame.rs:26-51``). Python cannot, so we enforce it at
@@ -115,6 +114,16 @@ class Frame:
             metadata=self.metadata,
             bottom_up=self.bottom_up,
         )
+
+    def decode_bgr(self):
+        """Decode to a host BGR Mat (frame.rs:186-190), by the port's
+        converters on the CPU."""
+        from ..ops import decode as _decode
+        from .mat import Mat
+
+        mat = Mat()
+        _decode.decode_frame_host(self, mat)
+        return mat
 
 
 @dataclass

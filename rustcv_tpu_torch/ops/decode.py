@@ -1,20 +1,59 @@
-"""Frame decode on the device: raw pixel formats → BGR (port of
-``rustcv_tpu.ops.decode``'s ``convert_on_device``).
+"""Frame decode dispatch: raw pixel formats → BGR (port of
+``rustcv_tpu.ops.decode``; ``rustcv-camera/src/decode.rs:36-86``).
 
 :func:`convert_on_device` dispatches on the wire format to the converters
-of :mod:`.color`, returning the (..., H, W, 3) BGR image; the engine's
-pipeline decodes every uncompressed format with it. MJPEG takes the hybrid
-decode of :mod:`.jpeg_tpu` in the pipeline; the host-decode entry points of
-the reference are not ported.
+of :mod:`.color`, returning the (..., H, W, 3) BGR image on the input's
+device; the engine's pipeline decodes every uncompressed format with it.
+
+- :func:`decode_frame_host` decodes a Frame into a host Mat: the same
+  converters on a CPU tensor over the frame's bytes, written through the
+  Mat's (stride-aware) buffer. The reference runs its numpy oracles
+  (``golden``) there; the bytes are the same.
+- :func:`decode_to_device` decodes a Frame to a (H, W, 3) u8 tensor on a
+  device: the raw bytes are uploaded and converted there. MJPEG takes the
+  hybrid decode (:mod:`.jpeg_tpu`) with ``mjpeg_hybrid=True``.
+
+The full-host MJPEG decode (PIL or libjpeg-turbo in the reference) is not
+ported and raises ``not_ported``.
 """
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
-from ..core.errors import DecodeError
+from ..core.errors import NEEDS_HOST_JPEG, DecodeError, not_ported
 from ..core.pixel_format import PixelFormat
 from . import color
+
+
+def _full_host_mjpeg() -> NotImplementedError:
+    return not_ported("the full-host MJPEG decode", NEEDS_HOST_JPEG, "8")
+
+
+def _raw_tensor(frame) -> torch.Tensor:
+    """The frame's bytes as a flat u8 CPU tensor, without a copy where they
+    are contiguous. Ring slots are read-only views; nothing writes to them."""
+    flat = np.ascontiguousarray(frame.data).reshape(-1)
+    fmt = frame.pixel_format
+    if fmt in (PixelFormat.BGR24, PixelFormat.GRAY8) or fmt.is_bayer:
+        flat = flat[: fmt.buffer_size(frame.width, frame.height)]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        return torch.from_numpy(flat)
+
+
+def _check_bottom_up(frame) -> bool:
+    """Whether the frame is bottom-up; raises where the format's rows are not
+    local (planar 4:2:0 and the Bayer mosaic), as the reference does."""
+    fmt = frame.pixel_format
+    if not getattr(frame, "bottom_up", False):
+        return False
+    if fmt in (PixelFormat.NV12, PixelFormat.YV12) or fmt.is_bayer:
+        raise DecodeError(f"bottom-up layout unsupported for planar/CFA format {fmt}")
+    return True
 
 
 def convert_on_device(raw: torch.Tensor, fmt: PixelFormat, width: int,
@@ -43,3 +82,39 @@ def convert_on_device(raw: torch.Tensor, fmt: PixelFormat, width: int,
     if fmt.is_bayer:
         return color.demosaic_bilinear(raw, fmt.value.split("_")[1], width, height)
     raise DecodeError(f"unsupported device format: {fmt}")
+
+
+def decode_frame_host(frame, mat) -> None:
+    """Decode a Frame into a host Mat (reference decode.rs:36-86 semantics)."""
+    w, h = frame.width, frame.height
+    fmt = frame.pixel_format
+    if fmt == PixelFormat.MJPEG:
+        raise _full_host_mjpeg()
+    flip = _check_bottom_up(frame)
+    bgr = convert_on_device(_raw_tensor(frame), fmt, w, h)
+    mat.ensure_size(h, w, 3)
+    # Negative-pitch sources deliver rows bottom-to-top
+    # (rustcv-backend-msmf/src/stream.rs:317-410): row-local decodes
+    # commute with the flip, so flipping the decoded image is exact.
+    torch.from_numpy(mat.array).copy_(bgr.flip(0) if flip else bgr)
+
+
+def decode_to_device(frame, device="cuda", mjpeg_hybrid: bool = False) -> torch.Tensor:
+    """Decode one Frame to a (H, W, 3) u8 BGR tensor on ``device``.
+
+    ``mjpeg_hybrid=True`` decodes MJPEG by the coefficient-level path: the
+    C++ entropy decode on the host, dequantization, IDCT, upsampling and
+    colour on ``device`` (:mod:`.jpeg_tpu`)."""
+    from ..core.mat import torch_device
+
+    dev = torch_device(device)
+    fmt = frame.pixel_format
+    if fmt == PixelFormat.MJPEG:
+        if mjpeg_hybrid:
+            from . import jpeg_tpu
+
+            return jpeg_tpu.decode_jpeg_tpu(frame.data, dev)
+        raise _full_host_mjpeg()
+    flip = _check_bottom_up(frame)
+    out = convert_on_device(_raw_tensor(frame).to(dev), fmt, frame.width, frame.height)
+    return out.flip(-3) if flip else out

@@ -1,16 +1,82 @@
-"""Rectangle overlay on packed-rows BGR (port of
-``rustcv_tpu.ops.draw.rectangle_packed``).
+"""Drawing on BGR images (port of ``rustcv_tpu.ops.draw``'s rectangle,
+line, circle, mask-paint and filled-polygon ops).
 
-Semantics match the reference for all in-bounds cases, including its edge
-overdraw when ``thickness`` exceeds the rectangle's size. The one deviation
-the reference package also makes: writes past the last column are clipped
-at the column boundary instead of bleeding into the next row.
-Arithmetic is int32 and wraps like the reference's.
+Each op is a masked select over the whole image that returns a new image:
+the per-pixel mask is computed on an (H, W) grid and painted on the (H, W,
+3) view of the image, which for packed rows (..., H, W*3) is the same
+bytes. Parameters with leading batch dims draw per image.
+
+Semantics are the reference's frozen integer specs (``golden.line_mask``,
+``circle_mask``, ``fill_poly_mask``), all int32 wrapping like the
+reference's; the rectangle matches it for all in-bounds cases, including
+its edge overdraw when ``thickness`` exceeds the rectangle's size. The one
+deviation the reference's device ops also make: writes past the last
+column are clipped at the column boundary instead of bleeding into the
+next row, as ``golden.rectangle``'s flat-index check lets them.
+
+Python numbers (and sequences of them) are filled on the image's device
+one by one: copying them from the host would wait for all the work queued
+on the stream.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .filters import isqrt_exact
+
+
+def _on(v, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """``v`` as a tensor on ``dev``: a tensor is moved; numbers, sequences
+    and numpy arrays are filled on the device, element by element."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=dtype)
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return torch.full((), a.item(), dtype=dtype, device=dev)
+    items = [torch.full((), x, dtype=dtype, device=dev) for x in a.reshape(-1).tolist()]
+    return torch.stack(items).reshape(a.shape)
+
+
+def _ex(v: torch.Tensor) -> torch.Tensor:
+    """Lift (...,) params to image rank (..., 1, 1)."""
+    return v[..., None, None]
+
+
+def _grid(h: int, w: int, dev: torch.device):
+    """int32 pixel coordinates: ys (H, 1), xs (1, W)."""
+    ys = torch.arange(h, dtype=torch.int32, device=dev).reshape(h, 1)
+    xs = torch.arange(w, dtype=torch.int32, device=dev).reshape(1, w)
+    return ys, xs
+
+
+def _paint(img: torch.Tensor, mask: torch.Tensor, color_bgr) -> torch.Tensor:
+    """Pixels of packed-rows ``img`` (..., H, W*3) under ``mask`` (..., H,
+    W) take ``color_bgr`` ((3,) shared or (..., 3) per image)."""
+    h, w3 = img.shape[-2], img.shape[-1]
+    color = _on(color_bgr, torch.uint8, img.device)
+    img3 = img.reshape(*img.shape[:-1], w3 // 3, 3)
+    out = torch.where(mask[..., None], color[..., None, None, :], img3)
+    return out.reshape(*out.shape[:-3], h, w3)
+
+
+def _stroke(xs, ys, ax, ay, bx, by, t):
+    """The exact INT32-safe line-stroke spec (golden.line_mask): the floored
+    perpendicular distance (2|cross|)//isqrt(|AB|²) against ``t``, round
+    caps 4·|P−A|² ≤ t², caps alone where A == B."""
+    abx, aby = bx - ax, by - ay
+    apx, apy = xs - ax, ys - ay
+    bpx, bpy = xs - bx, ys - by
+    ab2 = abx * abx + aby * aby
+    t2 = t * t
+    dot = apx * abx + apy * aby
+    cross = (apx * aby - apy * abx).abs()
+    s = isqrt_exact(ab2).clamp(min=1)
+    perp = torch.div(2 * cross, s, rounding_mode="floor")
+    body = (dot >= 0) & (dot <= ab2) & (perp <= t)
+    caps = (4 * (apx * apx + apy * apy) <= t2) | (4 * (bpx * bpx + bpy * bpy) <= t2)
+    return torch.where(ab2 == 0, caps, body | caps)
 
 
 def _edge_masks(xs, ys, rect_xywh, thickness, w, h):
@@ -43,6 +109,19 @@ def _edge_masks(xs, ys, rect_xywh, thickness, w, h):
     return mask & ~expand(degenerate), expand
 
 
+def rectangle(img: torch.Tensor, rect_xywh, color_bgr, thickness) -> torch.Tensor:
+    """Rectangle outline on BGR u8 (..., H, W, 3); ``rect_xywh`` int (...,
+    4), ``color_bgr`` u8 (..., 3), ``thickness`` int or (...,): leading
+    batch dims apply per image. Returns a new image."""
+    dev = img.device
+    h, w = img.shape[-3], img.shape[-2]
+    ys, xs = _grid(h, w, dev)
+    rect = _on(rect_xywh, torch.int32, dev)
+    mask, _ = _edge_masks(xs, ys, rect, _on(thickness, torch.int32, dev), w, h)
+    color = _on(color_bgr, torch.uint8, dev)
+    return torch.where(mask[..., None], color[..., None, None, :], img)
+
+
 def rectangle_packed(img: torch.Tensor, rect_xywh, color_bgr, thickness) -> torch.Tensor:
     """Rectangle outline on packed-rows BGR u8 (..., H, W*3); ``rect_xywh``
     int (..., 4), ``color_bgr`` u8 (..., 3), ``thickness`` int or (...,).
@@ -69,3 +148,67 @@ def rectangle_packed(img: torch.Tensor, rect_xywh, color_bgr, thickness) -> torc
     r = expand(color_bgr[..., 2])
     lane_color = torch.where(ch == 0, b, torch.where(ch == 1, g, r))
     return torch.where(mask, lane_color, img)
+
+
+def line_packed(img: torch.Tensor, p1, p2, color_bgr, thickness) -> torch.Tensor:
+    """Line stroke on packed-rows BGR u8 (..., H, W*3), the exact integer
+    distance-field spec (golden.line_mask); ``p1``/``p2`` (x, y) int (...,
+    2), ``thickness`` int or (...,)."""
+    dev = img.device
+    ys, xs = _grid(img.shape[-2], img.shape[-1] // 3, dev)
+    p1, p2 = _on(p1, torch.int32, dev), _on(p2, torch.int32, dev)
+    t = _ex(_on(thickness, torch.int32, dev))
+    mask = _stroke(xs, ys, _ex(p1[..., 0]), _ex(p1[..., 1]), _ex(p2[..., 0]), _ex(p2[..., 1]), t)
+    return _paint(img, mask, color_bgr)
+
+
+def circle_packed(img: torch.Tensor, center, radius, color_bgr, thickness) -> torch.Tensor:
+    """Circle on packed-rows BGR u8 (..., H, W*3), the exact integer spec
+    (golden.circle_mask): filled where ``thickness`` < 0 (|P−C|² ≤ R²),
+    else the ring 2|P−C| within [max(0, 2R−t), 2R+t]."""
+    dev = img.device
+    ys, xs = _grid(img.shape[-2], img.shape[-1] // 3, dev)
+    center = _on(center, torch.int32, dev)
+    r = _ex(_on(radius, torch.int32, dev))
+    t = _ex(_on(thickness, torch.int32, dev))
+    dx, dy = xs - _ex(center[..., 0]), ys - _ex(center[..., 1])
+    # all magnitudes fit int32 up to 8K coordinates (d² ≤ 1.3e8, hi² ≤ 7e7)
+    d2 = dx * dx + dy * dy
+    lo = (2 * r - t).clamp(min=0)
+    hi = 2 * r + t
+    ring = (4 * d2 >= lo * lo) & (4 * d2 <= hi * hi)
+    return _paint(img, torch.where(t < 0, d2 <= r * r, ring), color_bgr)
+
+
+def paint_mask_packed(img: torch.Tensor, mask, color_bgr) -> torch.Tensor:
+    """Paint a full-frame (H, W) u8 mask onto packed-rows BGR u8 (..., H,
+    W*3): pixels where mask > 0 take ``color_bgr``. A host (numpy) mask is
+    uploaded from pinned memory without waiting for the stream."""
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.from_numpy(np.ascontiguousarray(mask))
+        if img.device.type == "cuda":
+            mask = mask.pin_memory()
+    return _paint(img, mask.to(img.device, non_blocking=True) > 0, color_bgr)
+
+
+def fill_poly_packed(img: torch.Tensor, pts, color_bgr, include_edges: bool = True) -> torch.Tensor:
+    """Filled polygon on packed-rows BGR u8 (..., H, W*3), bit-identical to
+    golden.fill_poly_mask: the exact-integer even-odd +x ray crossing per
+    pixel, OR'd with the thickness-1 stroke of every edge. ``pts`` [K, 2]
+    int (x, y) vertices."""
+    dev = img.device
+    ys, xs = _grid(img.shape[-2], img.shape[-1] // 3, dev)
+    p = _on(pts, torch.int32, dev).reshape(-1, 2)
+    k = p.shape[0]
+    inside = torch.zeros(ys.shape[0], xs.shape[1], dtype=torch.bool, device=dev)
+    edge = torch.zeros_like(inside)
+    for i in range(k):
+        x1, y1 = p[i, 0], p[i, 1]
+        x2, y2 = p[(i + 1) % k, 0], p[(i + 1) % k, 1]
+        d = y2 - y1
+        straddle = (y1 > ys) != (y2 > ys)
+        t = (ys - y1) * (x2 - x1) - (xs - x1) * d
+        inside = inside ^ (straddle & ((t > 0) == (d > 0)) & (d != 0))
+        if include_edges:
+            edge = edge | _stroke(xs, ys, x1, y1, x2, y2, 1)
+    return _paint(img, inside | edge, color_bgr)

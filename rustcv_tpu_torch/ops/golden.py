@@ -1,9 +1,10 @@
 """Frozen numpy specs the port needs from ``rustcv_tpu.ops.golden`` (its
 own copy: the JAX package keeps them in a module that imports jax).
 
-The Bayer CFA patterns, the mosaic the simulated sensors send, and the
-integer bilinear demosaic oracle that :func:`.color.demosaic_bilinear`
-computes on the device: at each site the missing channels are the rounded
+The rotated-ellipse mask that ``imgproc.ellipse`` paints; the Bayer CFA
+patterns, the mosaic the simulated sensors send, and the integer bilinear
+demosaic oracle that :func:`.color.demosaic_bilinear` computes on the
+device: at each site the missing channels are the rounded
 means of their 2 or 4 nearest samples (avg2 = (a+b+1)>>1, avg4 = (Σ+2)>>2),
 borders mirrored about the edge pixel (reflect-101, which keeps each site's
 colour).
@@ -66,3 +67,38 @@ def demosaic_bilinear(raw: np.ndarray, pattern: str) -> np.ndarray:
     b = np.where(mb, a, np.where(g_blue_row, h2, np.where(g_red_row, v2, d4)))
     g = np.where(mr | mb, g4, a)
     return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)
+
+
+def ellipse_mask(h: int, w: int, center, axes, angle_deg: float,
+                 thickness: int = 1) -> np.ndarray:
+    """Frozen rotated-ellipse mask (OpenCV ``ellipse`` role, full arc):
+    float64 spec — rotate into the ellipse frame with exact-radian
+    cos/sin, test u² + v² ≤ 1 with u = x'/a, v = y'/b. ``thickness < 0``
+    fills; a ring is inside the (a+⌈t/2⌉, b+⌈t/2⌉) ellipse and outside
+    the (a−⌊(t+1)/2⌋, b−⌊(t+1)/2⌋) one (axes clamped at 0). Host-only
+    spec: the device path paints this exact mask."""
+    import math
+
+    cx, cy = float(center[0]), float(center[1])
+    a0, b0 = int(axes[0]), int(axes[1])
+    th = math.radians(float(angle_deg))
+    c, s = math.cos(th), math.sin(th)
+    ys, xs = np.mgrid[0:h, 0:w]
+    dx = xs.astype(np.float64) - cx
+    dy = ys.astype(np.float64) - cy
+    rx = dx * c + dy * s
+    ry = -dx * s + dy * c
+
+    def inside(a, b):
+        if a <= 0 or b <= 0:
+            return np.zeros((h, w), bool)
+        return (rx / a) ** 2 + (ry / b) ** 2 <= 1.0
+
+    if thickness < 0:
+        m = inside(a0, b0)
+    else:
+        t = int(thickness)
+        outer = inside(a0 + (t + 1) // 2, b0 + (t + 1) // 2)
+        inner = inside(a0 - (t + 1) // 2, b0 - (t + 1) // 2)
+        m = outer & ~inner
+    return m.astype(np.uint8) * 255

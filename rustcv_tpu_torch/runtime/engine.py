@@ -53,14 +53,14 @@ import torch
 from .. import native
 from ..capture.source import Driver, FrameSource
 from ..core.config import ResolvedConfig, SimpleConfig
-from ..core.errors import CameraError, DecodeError
+from ..core.errors import NEEDS_HOST_JPEG, NEEDS_PILLOW, CameraError, DecodeError, not_ported
 from ..core.pixel_format import PixelFormat
 from ..ops import jpeg_encode as _jenc
 from ..ops import jpeg_tpu as _jpeg
 from ..ops import kernels as _kernels
 from ..ops import synth as _synth
 from . import buckets as _buckets
-from .pipeline import PipelineSpec, get_pipeline, make_dummy_overlay, not_ported
+from .pipeline import PipelineSpec, get_pipeline, make_dummy_overlay
 
 _ENC_KEYS = ("enc_y", "enc_cb", "enc_cr")  # the dense coefficient rows, per component
 _CHAIN_THICKNESS = 2  # run_chained's overlay thickness, the reference's
@@ -200,7 +200,7 @@ class MultiStreamEngine:
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
         if mesh is not None:
-            raise not_ported("mesh (multi-device) execution")
+            raise not_ported("mesh (multi-device) execution", item="12")
         if mjpeg_backend not in ("host", "hybrid"):
             raise ValueError(f"unknown mjpeg_backend {mjpeg_backend!r}")
         self.device = torch.device(device)
@@ -218,7 +218,8 @@ class MultiStreamEngine:
             raise CameraError("device_sim does not support MJPEG streams")
         self._mjpeg_hybrid = mjpeg and mjpeg_backend == "hybrid"
         if mjpeg and not self._mjpeg_hybrid:
-            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')")
+            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')",
+                              NEEDS_HOST_JPEG, "8")
         if self._mjpeg_hybrid and not native.available():
             raise CameraError(f"mjpeg_backend='hybrid' needs the native coder: {native.build_error()}")
         if stencil_impl is None:
@@ -734,7 +735,7 @@ class MultiStreamEngine:
         Overlay args are cached by content: a changed value is uploaded
         again, an unchanged one costs no transfer."""
         if text is not None:
-            raise not_ported("text overlay (text=)")
+            raise not_ported("text overlay (text=)", NEEDS_PILLOW + " (glyph rasterization)", "8")
         r, c, th = self._overlay_args(rects, rect_colors, thickness)
         if self._device_sim:
             if getattr(self._driver, "paced", False):

@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.errors import NEEDS_HOST_JPEG, not_ported
 from ..core.pixel_format import PixelFormat
 
 from ..ops import color as _color
@@ -107,15 +108,12 @@ def decode_mode() -> str:
     return os.environ.get("RUSTCV_DECODE", "xla")
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to rustcv_tpu_torch yet (ROADMAP queue 1)")
-
-
 def _check_ported(spec: PipelineSpec, mode: str) -> None:
     fmt = spec.pixel_format
     if fmt == PixelFormat.MJPEG:
         if spec.mjpeg_staged_bgr or not spec.mjpeg_hybrid:
-            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')")
+            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')",
+                              NEEDS_HOST_JPEG, "8")
         if spec.mjpeg_packed and len(spec.coeff_geometry) != 3:
             raise ValueError("mjpeg_packed needs coeff_geometry: (bh, bw) of Y, Cb and Cr")
     elif spec.mjpeg_hybrid or spec.mjpeg_packed:
@@ -139,7 +137,7 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
     if spec.stencil_impl not in STENCIL_IMPLS:
         raise ValueError(f"unknown stencil_impl {spec.stencil_impl!r}")
     if mode == "xla_fused":
-        raise not_ported("RUSTCV_DECODE=xla_fused")
+        raise not_ported("RUSTCV_DECODE=xla_fused", item="9")
 
 
 # Formats whose pixel pairs share chroma: the reference decodes them in pair

@@ -12,10 +12,6 @@ import pytest
 import rustcv_tpu.core as ref
 from rustcv_tpu_torch import core
 
-# The port leaves these two for its facade.
-NOT_YET = {"Mat", "TickMeter"}
-
-
 def _plain(v):
     """An enum as its (class name, value); dataclasses and containers
     element by element; anything else as it is."""
@@ -31,7 +27,7 @@ def _plain(v):
 
 
 def test_exports_the_reference_names():
-    assert set(core.__all__) == set(ref.__all__) - NOT_YET
+    assert set(core.__all__) == set(ref.__all__)
     for name in core.__all__:
         assert hasattr(core, name), name
 

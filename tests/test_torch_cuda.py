@@ -3,7 +3,10 @@ PyTorch version on the same CUDA tensors (bit-exact; the float32 Harris
 response within the reference's rtol 2e-4, atol 1e-6), the Mosaic probe's
 cases (K7) against their numpy refs too, and the engine's decode modes,
 config 6's transcode, every wire format, the chained tick as a CUDA graph
-and the resolution swap against each other and against the CPU.
+and the resolution swap against each other and against the CPU; and the
+OpenCV-style facade: a Mat's device round trip, draws on a CUDA Mat
+against a host Mat (with no blocking copy), ``harris_corners`` on a CUDA
+Mat through K6, ``VideoCapture``'s device decode and the JPEG codecs.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -552,3 +555,102 @@ def test_set_resolution_on_the_card_matches_the_cpu(cuda, monkeypatch, device_si
         for key in ("bgr", "filtered"):
             np.testing.assert_array_equal(got.numpy(key), want.numpy(key))
     card.close()
+
+
+# -- the OpenCV-style facade on the card -------------------------------------------
+
+
+def _facade_draws(mat):
+    """The drawing calls of chip_smoke.py's facade phase."""
+    from rustcv_tpu_torch import imgproc as ip
+
+    ip.rectangle(mat, ip.Rect(60, 60, 200, 150), ip.Scalar(0, 255, 0), 2)
+    ip.rectangle(mat, ip.Rect(-9, -5, 40, 20), ip.Scalar(1, 2, 3), 4)
+    ip.line(mat, ip.Point(-20, 10), ip.Point(150, 100), ip.Scalar(255, 0, 0), 3)
+    ip.circle(mat, ip.Point(80, 60), 25, ip.Scalar(0, 0, 255), -1)
+    ip.circle(mat, ip.Point(150, 10), 30, ip.Scalar(0, 9, 255), 2)
+    ip.fill_poly(mat, [(10, 100), (60, 70), (150, 119), (40, 90)], ip.Scalar(7, 8, 9))
+    ip.ellipse(mat, ip.Point(80, 60), (50, 20), 30.0, ip.Scalar(9, 9, 9), 2)
+
+
+def test_mat_device_round_trip(cuda):
+    from rustcv_tpu_torch.core import Mat
+
+    img = np.random.default_rng(3).integers(0, 256, (120, 160, 3), np.uint8)
+    mat = Mat.new(120, 160, 3, step=160 * 3 + 11)
+    mat.array[:] = img
+    t = mat.device()  # a Mat's device is the card unless the caller names another
+    assert t.is_cuda and mat.is_on_device and np.array_equal(t.cpu().numpy(), img)
+    mat.array[0, 0] = (1, 2, 3)
+    assert not mat.is_on_device and mat.device()[0, 0].tolist() == [1, 2, 3]
+    mat.set_device(t)
+    assert mat.step == 480 and np.array_equal(mat.data.reshape(120, 160, 3), img)
+    assert np.array_equal(Mat.from_device(t).to_numpy(), img)
+
+
+def test_draws_on_a_cuda_mat_match_a_host_mat(cuda):
+    """Every draw on a CUDA Mat equals the same draw on a host Mat, and
+    makes no blocking host-to-device copy (the sync debug mode raises on
+    one)."""
+    from rustcv_tpu_torch.core import Mat
+
+    img = np.random.default_rng(4).integers(0, 256, (120, 160, 3), np.uint8)
+    host, dev = Mat.from_array(img.copy()), Mat.from_array(img.copy())
+    dev.device()
+    _facade_draws(dev)  # warm: the first calls build nothing, but load modules
+    dev = Mat.from_array(img.copy())
+    dev.device()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _facade_draws(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _facade_draws(host)
+    assert dev.is_on_device and dev.device().is_cuda and not host.is_on_device
+    np.testing.assert_array_equal(dev.to_numpy(), host.to_numpy())
+
+
+def test_harris_corners_on_a_cuda_mat_runs_k6(cuda):
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.core import Mat
+
+    img = synth_bgr(160, 120, 7)
+    dev = Mat.from_array(img)
+    dev.device()
+    kernels.reset_launch_counts()
+    got = imgproc.harris_corners(dev)
+    assert kernels.launch_counts()["harris_response_i32"] == 1
+    want = imgproc.harris_corners(Mat.from_array(img, device="cpu"))
+    assert got.any() and np.array_equal(got, want)
+
+
+def test_videocapture_and_codecs_on_the_card(cuda):
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.prelude import VideoCapture
+
+    drv = SimulationDriver(paced=False)
+    host = VideoCapture(0, drv)
+    card = VideoCapture(0, drv, decode_on_device=True)
+    try:
+        for cap in (host, card):
+            assert cap.set_resolution(160, 120)
+        a, b = Mat(), Mat()
+        for _ in range(3):
+            assert host.read(a) and card.read(b)
+            assert b.device().is_cuda and not a.is_on_device
+            np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
+    finally:
+        host.release()
+        card.release()
+    data = imgcodecs.imencode(".jpg", b, 90)
+    cpu = imgcodecs.imencode(".jpg", Mat.from_array(a.to_numpy(), device="cpu"), 90)
+    for got, want in zip(native.jpeg_entropy_decode(data)[1], native.jpeg_entropy_decode(cpu)[1]):
+        d = np.abs(got.astype(np.int64) - want)
+        assert d.max() <= 1 and (d > 0).mean() < 5e-3
+    dec = imgcodecs.imdecode(data)
+    assert dec.device().is_cuda
+    d = np.abs(dec.to_numpy().astype(np.int64) - imgcodecs.imdecode(data, device="cpu").to_numpy())
+    assert d.max() <= 1 and (d > 0).mean() < 5e-3

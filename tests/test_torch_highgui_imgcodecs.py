@@ -1,0 +1,217 @@
+"""The port's ``highgui`` and JPEG ``imgcodecs`` against ``rustcv_tpu`` on
+the CPU.
+
+highgui: the same calls on both packages' headless sinks (the suite's
+conftest sets ``RUSTCV_GUI=0``) give the same window frames, names and
+keys. imgcodecs: the port encodes on the Mat's device (here a CPU tensor)
+and codes with its own C++ coder; its quantized coefficients are held to
+the reference encoder's own tolerance, as in ``tests/test_torch_encode.py``
+(max |diff| <= 1 on a share < 5e-3), and its bytes are the reference's
+wherever the coefficients are equal. Its decode agrees with the reference's
+hybrid decode of the same bytes within ``tests/test_torch_mjpeg.py``'s
+tolerance (max |diff| <= 1 on < 0.5 % of bytes)."""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import rustcv_tpu.core as jax_core
+import rustcv_tpu.highgui as jax_hg
+import rustcv_tpu.imgcodecs as jax_codecs
+from rustcv_tpu import native as jax_native
+from rustcv_tpu_torch import highgui, imgcodecs, native
+from rustcv_tpu_torch.capture.simulation import synth_bgr
+from rustcv_tpu_torch.core import CameraError, Mat
+
+torch.set_num_threads(2)
+
+COEFF_TOL = (1, 5e-3)
+CLOSE = (1, 5e-3)
+
+
+def _within(got, want, bound):
+    d = np.abs(np.asarray(got).astype(np.int64) - np.asarray(want).astype(np.int64))
+    assert d.shape == np.asarray(want).shape
+    assert d.max() <= bound[0] and (d > 0).mean() < bound[1], (d.max(), (d > 0).mean())
+    return d
+
+
+def _img(h, w, seed):
+    """A smooth image with grain (upsampled noise), as tests/test_torch_encode.py's."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 3)).astype(np.float64)
+    img = coarse.repeat(8, 0).repeat(8, 1)[:h, :w] + rng.normal(0, 6, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@pytest.fixture(autouse=True)
+def fresh_windows():
+    for mod in (highgui, jax_hg):
+        mod.destroy_all_windows()
+        while mod.wait_key(0) != -1:
+            pass
+    yield
+    for mod in (highgui, jax_hg):
+        mod.destroy_all_windows()
+
+
+# -- highgui -----------------------------------------------------------------------
+
+
+def test_windows_match_the_reference():
+    a, b = _img(48, 64, 1), _img(24, 32, 2)
+    for hg, M in ((highgui, Mat), (jax_hg, jax_core.Mat)):
+        assert hg.get_window_frame("a") is None and hg.window_names() == ()
+        hg.imshow("a", M.from_array(a))
+        hg.imshow("b", M.from_array(b))
+        hg.imshow("a", M.from_array(b))  # a size change replaces the buffer
+        assert hg.window_names() == ("a", "b")
+        np.testing.assert_array_equal(hg.get_window_frame("a"), b)
+        frame = hg.get_window_frame("b")
+        frame[:] = 0  # a copy: the window keeps its frame
+        np.testing.assert_array_equal(hg.get_window_frame("b"), b)
+        hg.destroy_window("a")
+        hg.destroy_window("missing")
+        assert hg.window_names() == ("b",)
+        hg.destroy_all_windows()
+        assert hg.window_names() == ()
+    assert (highgui.KEY_ESC, highgui.KEY_SPACE, highgui.KEY_ENTER, highgui.KEY_Q) == (
+        jax_hg.KEY_ESC, jax_hg.KEY_SPACE, jax_hg.KEY_ENTER, jax_hg.KEY_Q) == (27, 32, 13, 113)
+
+
+def test_imshow_of_a_device_and_a_padded_mat():
+    dev = Mat.from_device(torch.from_numpy(_img(48, 64, 3)))
+    highgui.imshow("dev", dev)
+    np.testing.assert_array_equal(highgui.get_window_frame("dev"), dev.to_numpy())
+    padded = Mat.new(48, 64, 3, step=200, device="cpu")
+    padded.array[:] = _img(48, 64, 4)
+    highgui.imshow("padded", padded)
+    np.testing.assert_array_equal(highgui.get_window_frame("padded"), _img(48, 64, 4))
+
+
+def test_keys_match_the_reference():
+    for hg in (highgui, jax_hg):
+        assert hg.wait_key(0) == -1
+        for k in (113, 27, 32):
+            hg.push_key(k)
+        assert [hg.wait_key(1) for _ in range(4)] == [113, 27, 32, -1]
+        t0 = time.monotonic()
+        assert hg.wait_key(20) == -1
+        assert time.monotonic() - t0 >= 0.019
+        hg.push_key(13)
+        t0 = time.monotonic()
+        assert hg.wait_key(5000) == 13 and time.monotonic() - t0 < 1.0
+
+
+def test_mat_to_u32_buffer_matches_the_reference():
+    a = _img(5, 7, 6)
+    got = highgui.mat_to_u32_buffer(Mat.from_array(a))
+    np.testing.assert_array_equal(got, jax_hg.mat_to_u32_buffer(jax_core.Mat.from_array(a)))
+    assert got.dtype == np.uint32 and got[0, 0] == (int(a[0, 0, 2]) << 16 | int(a[0, 0, 1]) << 8 | int(a[0, 0, 0]))
+
+
+def test_png_dump_is_not_ported(monkeypatch, tmp_path):
+    monkeypatch.setenv("RUSTCV_TPU_DISPLAY_DIR", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="Pillow.*ROADMAP queue 1 item 8"):
+        highgui.imshow("x", Mat.from_array(_img(8, 8, 0)))
+    assert highgui.window_names() == () and not list(tmp_path.iterdir())
+
+
+# -- imgcodecs ---------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def coders():
+    assert native.available(), native.build_error()
+    if not jax_native.available():
+        pytest.skip(f"the reference's native library is unavailable: {jax_native.build_error()}")
+
+
+@pytest.mark.parametrize("quality", [75, 95])
+@pytest.mark.parametrize("w,h", [(64, 48), (160, 120), (70, 50)])
+def test_imencode_matches_the_reference(coders, w, h, quality):
+    img = _img(h, w, w + quality)
+    got = imgcodecs.imencode(".jpg", Mat.from_array(img, device="cpu"), quality)
+    want = jax_codecs.imencode(".jpg", jax_core.Mat.from_array(img), quality, backend="tpu")
+    g_info, g_coeffs, g_qts = native.jpeg_entropy_decode(got)
+    w_info, w_coeffs, w_qts = native.jpeg_entropy_decode(want)
+    assert g_info == w_info and (g_info["width"], g_info["height"]) == (w, h)
+    for a, b in zip(g_qts, w_qts):
+        np.testing.assert_array_equal(a, b)
+    diffs = [_within(a, b, COEFF_TOL) for a, b in zip(g_coeffs, w_coeffs)]
+    if all(d.max() == 0 for d in diffs):
+        assert got == want
+
+
+def test_imencode_gray_and_padded_and_device_mats(coders):
+    img = _img(48, 64, 8)
+    padded = Mat.new(48, 64, 3, step=64 * 3 + 9, device="cpu")
+    padded.array[:] = img
+    dev = Mat.from_device(torch.from_numpy(img))
+    assert imgcodecs.imencode(".jpg", padded) == imgcodecs.imencode(".jpeg", dev)
+    gray = img[..., 1].copy()
+    got = imgcodecs.imencode(".jpg", Mat.from_array(gray, device="cpu"), 90)
+    want = jax_codecs.imencode(".jpg", jax_core.Mat.from_array(gray[..., None].repeat(3, -1)), 90,
+                               backend="tpu")
+    info, coeffs, _ = native.jpeg_entropy_decode(got)
+    assert info["ncomp"] == 1
+    _within(coeffs[0], native.jpeg_entropy_decode(want)[1][0], COEFF_TOL)
+
+
+@pytest.mark.parametrize("w,h", [(64, 48), (160, 120)])
+def test_imdecode_matches_the_reference(coders, w, h):
+    data = imgcodecs.imencode(".jpg", Mat.from_array(synth_bgr(w, h, 4), device="cpu"), 90)
+    got = imgcodecs.imdecode(data, device="cpu")
+    assert got.is_on_device and got.device().device.type == "cpu" and got.shape == (h, w, 3)
+    _within(got.to_numpy(), jax_codecs.imdecode(data, backend="tpu").to_numpy(), CLOSE)
+    loss = np.abs(got.to_numpy().astype(np.int64) - synth_bgr(w, h, 4))
+    assert np.median(loss) <= 1 and loss.mean() < 10  # q90 4:2:0 codec loss
+
+
+def test_imwrite_and_imread(coders, tmp_path):
+    img = _img(48, 64, 12)
+    mat = Mat.from_array(img, device="cpu")
+    for name in ("a.jpg", "b.JPEG"):
+        path = str(tmp_path / name)
+        assert imgcodecs.imwrite(path, mat)
+        assert (tmp_path / name).read_bytes() == imgcodecs.imencode(".jpg", mat, 75)
+        back = imgcodecs.imread(path, device="cpu")
+        _within(back.to_numpy(), jax_codecs.imdecode((tmp_path / name).read_bytes(),
+                                                     backend="tpu").to_numpy(), CLOSE)
+    assert not imgcodecs.imwrite(str(tmp_path / "empty.jpg"), Mat.empty())
+    assert not imgcodecs.imwrite(str(tmp_path / "no_dir" / "x.jpg"), mat)
+    with pytest.raises(CameraError):
+        imgcodecs.imread(str(tmp_path / "missing.jpg"), device="cpu")
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8\xff\xe0garbage")
+    with pytest.raises(CameraError):
+        imgcodecs.imread(str(tmp_path / "bad.jpg"), device="cpu")
+    with pytest.raises(CameraError):
+        imgcodecs.imencode(".jpg", Mat.empty())
+
+
+def test_what_is_not_ported_raises(tmp_path):
+    mat = Mat.from_array(_img(8, 8, 0), device="cpu")
+    cases = [
+        lambda: imgcodecs.imencode(".png", mat),
+        lambda: imgcodecs.imencode(".jpg", mat, backend="host"),
+        lambda: imgcodecs.imdecode(b"\x89PNG\r\n\x1a\n", device="cpu"),
+        lambda: imgcodecs.imdecode(b"\xff\xd8", backend="host"),
+        lambda: imgcodecs.imwrite(str(tmp_path / "x.png"), mat),
+        lambda: imgcodecs.imread(str(tmp_path / "x.bmp")),
+    ]
+    for call in cases:
+        with pytest.raises(NotImplementedError, match="Pillow.*ROADMAP queue 1 item 8"):
+            call()
+    with pytest.raises(ValueError):
+        imgcodecs.imencode(".jpg", mat, backend="gpu")
+    assert not list(tmp_path.iterdir())
+
+
+def test_device_codec_without_the_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        imgcodecs.imencode(".jpg", Mat.from_array(_img(8, 8, 0)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        imgcodecs.imdecode(b"\xff\xd8")

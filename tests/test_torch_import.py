@@ -2,8 +2,10 @@
 through the zoo, config 6 with its JPEG payloads, the host-staged path,
 config 2's hybrid MJPEG decode, NV12 and Bayer frames,
 ``convert_on_device``, ``run_chained``, ``warm_buckets`` and
-``set_resolution``) with jax, Pillow and the JAX package ``rustcv_tpu``
-absent.
+``set_resolution``), and its OpenCV-style facade imports and runs the
+README loop without ``put_text`` (``prelude``, ``imgproc``, ``highgui``,
+``imgcodecs``, ``videoio``), with jax, Pillow and the JAX package
+``rustcv_tpu`` absent.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -113,6 +115,50 @@ _SCRIPT = textwrap.dedent(
     """
 )
 
+_FACADE_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import torch
+    torch.set_num_threads(1)
+    from rustcv_tpu_torch.prelude import Camera, Mat, PixelFormat, SimpleConfig, TickMeter, VideoCapture, VideoWriter
+    from rustcv_tpu_torch import highgui, imgcodecs, imgproc, videoio
+    from rustcv_tpu_torch.imgproc import Point, Rect, Scalar
+    from rustcv_tpu_torch.capture import SimulationDriver
+    assert not torch.cuda.is_initialized()
+
+    # The README loop without put_text: the host decode, then the device
+    # decode on the CPU, each reading 3 frames until Esc.
+    for kwargs, mat in (({}, Mat()), ({"decode_on_device": True, "device": "cpu"}, Mat(device="cpu"))):
+        cap = VideoCapture(0, SimulationDriver(paced=False), **kwargs)
+        try:
+            assert cap.set_resolution(1280, 720)
+            tm, shown = TickMeter(), 0
+            while cap.read(mat):
+                tm.start()
+                imgproc.rectangle(mat, Rect(60, 60, 200, 150), Scalar(0, 255, 0), 2)
+                tm.stop()
+                highgui.imshow("demo", mat)
+                shown += 1
+                if shown == 3:
+                    highgui.push_key(highgui.KEY_ESC)
+                if highgui.wait_key(1) == highgui.KEY_ESC:
+                    break
+        finally:
+            cap.release()
+        assert shown == 3 and tm.get_counter() == 3 and mat.shape == (720, 1280, 3)
+        assert (highgui.get_window_frame("demo")[60, 60:260] == (0, 255, 0)).all()
+    assert imgcodecs.imdecode(imgcodecs.imencode(".jpg", mat), device="cpu").shape == (720, 1280, 3)
+    assert isinstance(videoio.create_driver("simulation"), SimulationDriver)
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
 
 def test_port_imports_and_ticks_without_jax_or_pil():
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -124,11 +170,23 @@ def test_port_imports_and_ticks_without_jax_or_pil():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_facade_imports_and_runs_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _FACADE_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_package_import_is_light():
-    """``import rustcv_tpu_torch`` alone loads neither torch nor jax."""
+    """``import rustcv_tpu_torch`` alone loads neither torch nor jax, nor do
+    the capture layer, ``videoio``, ``highgui`` and ``imgcodecs``."""
     script = (
         "import sys; sys.modules['jax'] = None; import rustcv_tpu_torch; "
-        "import rustcv_tpu_torch.capture; "
+        "import rustcv_tpu_torch.capture, rustcv_tpu_torch.videoio, rustcv_tpu_torch.prelude; "
+        "import rustcv_tpu_torch.highgui, rustcv_tpu_torch.imgcodecs; "
         "assert 'torch' not in sys.modules, 'torch imported'; print('OK')"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
