@@ -1094,6 +1094,7 @@ def run_zoo_configs() -> dict:
 
 FACADE_W, FACADE_H = 1280, 720  # the README loop's set_resolution
 FACADE_READS = 8
+FACADE_TIMED = (20, 8)  # timed reads per decode at 1280×720 and at 3840×2160
 # Hybrid MJPEG decodes and JPEG coefficients of the card against the CPU
 # port: max |diff|, share of bytes (tests/test_torch_mjpeg.py and
 # tests/test_torch_encode.py).
@@ -1123,8 +1124,9 @@ def within(got, want, tol, what: str) -> None:
 def run_facade() -> dict:
     """Phase 3k: the OpenCV-style facade, the README loop without
     ``put_text``: ``VideoCapture(0, SimulationDriver(paced=False))`` at
-    1280×720 read 8 times by the host decode and 8 times with
-    ``decode_on_device=True`` on the card, equal byte for byte; rectangle,
+    1280×720 read 8 times by the host decode (``decode_on_device=False``)
+    and 8 times with ``decode_on_device=True`` on the card, equal byte for
+    byte; rectangle,
     line, circle, fill_poly and ellipse on the CUDA Mat equal to the same
     calls on a host Mat, with no blocking host-to-device copy (the sync
     debug mode raises on one); ``harris_corners`` on the CUDA Mat (K6's
@@ -1146,7 +1148,8 @@ def run_facade() -> dict:
     os.environ["RUSTCV_GUI"] = "0"  # highgui's headless sink
     kernels.reset_launch_counts()  # the facade's path starts here
     drv = SimulationDriver(paced=False, n_unique_frames=UNIQUE)
-    host, card = VideoCapture(0, drv), VideoCapture(0, drv, decode_on_device=True)
+    host = VideoCapture(0, drv, decode_on_device=False)
+    card = VideoCapture(0, drv, decode_on_device=True)
     frames = []
     try:
         for cap in (host, card):
@@ -1229,11 +1232,13 @@ def run_facade() -> dict:
 
 
 def time_facade(smi: str) -> None:
-    """Phase 4k: ms per ``read`` and frames/s of the facade's host and
-    device decode (host clock over 20 reads after 8 warm ones, each read
-    synchronised; the sources cycle 8 frames encoded once), at 1280×720 and
-    at the default 3840×2160; ms per draw on a 1280×720 CUDA Mat (CUDA
-    events over 50 calls, the host's issue included)."""
+    """Phase 4k: ms per ``read`` and frames/s of the facade's host decode
+    (``decode_on_device=False``) and of its default, which decodes where
+    ``Mat()`` is, on the card (host clock over FACADE_TIMED reads after 2
+    warm ones, each read synchronised; one driver, so each resolution's 8
+    cycled frames are made once), at 1280×720 and at the default
+    3840×2160; ms per draw on a 1280×720 CUDA Mat (CUDA events over 50
+    calls, the host's issue included)."""
     import torch
 
     from rustcv_tpu_torch import imgproc as ip
@@ -1241,21 +1246,25 @@ def time_facade(smi: str) -> None:
     from rustcv_tpu_torch.prelude import Mat, VideoCapture
 
     tag = f"[{smi}]"
+    drv = SimulationDriver(paced=False, n_unique_frames=UNIQUE)
     for size in ((FACADE_W, FACADE_H), None):
-        for label, kwargs in (("host decode", {}), ("device decode", {"decode_on_device": True})):
-            cap = VideoCapture(0, SimulationDriver(paced=False, n_unique_frames=UNIQUE), **kwargs)
+        reads = FACADE_TIMED[size is None]
+        for label, kwargs in (("host decode", {"decode_on_device": False}), ("device decode", {})):
+            cap = VideoCapture(0, drv, **kwargs)
             try:
                 if size:
                     expect(cap.set_resolution(*size), f"set_resolution: {cap.last_error}")
                 mat = Mat()
-                for _ in range(UNIQUE):
+                for _ in range(2):
                     expect(cap.read(mat), "read failed")
+                expect(mat.is_on_device == (label == "device decode"),
+                       f"{label}: the frame did not land where asked")
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for _ in range(20):
+                for _ in range(reads):
                     cap.read(mat)
                     torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3 / 20
+                ms = (time.perf_counter() - t0) * 1e3 / reads
                 w, h = cap.get_width(), cap.get_height()
             finally:
                 cap.release()

@@ -16,9 +16,13 @@ thread. Semantics preserved here with a Python worker thread + two
 - Degraded open: if the initial open fails the worker stays alive so a later
   ``set_resolution`` can recover (mod.rs:76-79).
 
-``decode_on_device=True`` decodes on ``device`` (default the card) instead
-of the host (identical pixels — parity-tested); MJPEG needs
-``mjpeg_hybrid=True`` there, and the host decode of MJPEG is not ported.
+``read`` decodes where the frame is wanted: on ``device`` when the caller
+names one, else on the Mat's own device (the card for ``Mat()``), and on
+the host when that device is the CPU. ``decode_on_device=False`` always
+takes the host decode; ``decode_on_device=True`` always decodes on the
+device (the card unless ``device`` names another). Both give identical
+pixels (parity-tested). MJPEG needs ``mjpeg_hybrid=True`` on the device,
+and the host decode of MJPEG is not ported.
 The batched multi-stream executor in :mod:`rustcv_tpu_torch.runtime` is the
 high-throughput path.
 """
@@ -109,9 +113,9 @@ class VideoCapture:
         index: Union[int, str] = 0,
         driver: Optional[Driver] = None,
         config: Optional[CameraConfig] = None,
-        decode_on_device: bool = False,
+        decode_on_device: Optional[bool] = None,
         mjpeg_hybrid: bool = False,
-        device="cuda",
+        device=None,
     ):
         if driver is None:
             from .avi import FileDriver, is_video_file
@@ -126,7 +130,9 @@ class VideoCapture:
         self._mjpeg_hybrid = mjpeg_hybrid
         # Checked here, before the worker starts: asking for the card where
         # there is none raises instead of decoding on the CPU.
-        self._device = torch_device(device) if decode_on_device else None
+        if device is None and decode_on_device:
+            device = "cuda"
+        self._device = None if device is None else torch_device(device)
         self._cmd: "queue.Queue" = queue.Queue(maxsize=1)
         self._res: "queue.Queue" = queue.Queue(maxsize=1)
         self._opened = threading.Event()
@@ -226,13 +232,23 @@ class VideoCapture:
         fd: _FrameData = res
         from ..ops import decode as _decode
 
-        if self._decode_on_device:
-            mat.set_device(_decode.decode_to_device(fd, self._device, self._mjpeg_hybrid))
+        dev = self._decode_device(mat)
+        if dev is not None:
+            mat.set_device(_decode.decode_to_device(fd, dev, self._mjpeg_hybrid))
             return True
 
         # Host decode on the caller thread (mod.rs:192-257 semantics).
         self._decode_host(fd, mat)
         return True
+
+    def _decode_device(self, mat: Mat):
+        """The device ``read`` decodes on, or None for the host decode."""
+        if self._decode_on_device is False:
+            return None
+        dev = self._device if self._device is not None else torch_device(mat.target)
+        if self._decode_on_device is None and dev.type == "cpu":
+            return None
+        return dev
 
     @staticmethod
     def _decode_host(fd: _FrameData, mat: Mat) -> None:

@@ -14,9 +14,10 @@ deviation the reference's device ops also make: writes past the last
 column are clipped at the column boundary instead of bleeding into the
 next row, as ``golden.rectangle``'s flat-index check lets them.
 
-Python numbers (and sequences of them) are filled on the image's device
-one by one: copying them from the host would wait for all the work queued
-on the stream.
+No parameter is copied from the host with a wait for the work queued on
+the stream: a Python number is filled on the image's device (a fill is a
+kernel, so it also runs inside a CUDA graph capture), and a sequence or
+numpy array is uploaded from pinned memory without blocking.
 """
 
 from __future__ import annotations
@@ -28,15 +29,18 @@ from .filters import isqrt_exact
 
 
 def _on(v, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
-    """``v`` as a tensor on ``dev``: a tensor is moved; numbers, sequences
-    and numpy arrays are filled on the device, element by element."""
+    """``v`` as a tensor on ``dev``: a tensor is moved; a number is filled
+    on the device; a sequence or numpy array is uploaded from pinned memory
+    without waiting for the stream."""
     if isinstance(v, torch.Tensor):
         return v.to(device=dev, dtype=dtype)
     a = np.asarray(v)
     if a.ndim == 0:
         return torch.full((), a.item(), dtype=dtype, device=dev)
-    items = [torch.full((), x, dtype=dtype, device=dev) for x in a.reshape(-1).tolist()]
-    return torch.stack(items).reshape(a.shape)
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    if dev.type == "cuda":
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=True)
 
 
 def _ex(v: torch.Tensor) -> torch.Tensor:
@@ -110,32 +114,22 @@ def _edge_masks(xs, ys, rect_xywh, thickness, w, h):
 
 
 def rectangle(img: torch.Tensor, rect_xywh, color_bgr, thickness) -> torch.Tensor:
-    """Rectangle outline on BGR u8 (..., H, W, 3); ``rect_xywh`` int (...,
-    4), ``color_bgr`` u8 (..., 3), ``thickness`` int or (...,): leading
-    batch dims apply per image. Returns a new image."""
-    dev = img.device
-    h, w = img.shape[-3], img.shape[-2]
-    ys, xs = _grid(h, w, dev)
-    rect = _on(rect_xywh, torch.int32, dev)
-    mask, _ = _edge_masks(xs, ys, rect, _on(thickness, torch.int32, dev), w, h)
-    color = _on(color_bgr, torch.uint8, dev)
-    return torch.where(mask[..., None], color[..., None, None, :], img)
+    """Rectangle outline on BGR u8 (..., H, W, 3); the parameters as
+    :func:`rectangle_packed`'s. Returns a new image."""
+    packed = img.reshape(*img.shape[:-2], img.shape[-2] * 3)
+    return rectangle_packed(packed, rect_xywh, color_bgr, thickness).reshape(img.shape)
 
 
 def rectangle_packed(img: torch.Tensor, rect_xywh, color_bgr, thickness) -> torch.Tensor:
     """Rectangle outline on packed-rows BGR u8 (..., H, W*3); ``rect_xywh``
-    int (..., 4), ``color_bgr`` u8 (..., 3), ``thickness`` int or (...,).
-    Returns a new image."""
+    int (..., 4), ``color_bgr`` u8 (..., 3), ``thickness`` int or (...,):
+    leading batch dims apply per image. Returns a new image."""
     dev = img.device
     h, w3 = img.shape[-2], img.shape[-1]
     w = w3 // 3
-    rect_xywh = torch.as_tensor(rect_xywh, dtype=torch.int32, device=dev)
-    # A Python int is filled on the device: copying it from the host would
-    # wait for all the work queued on the stream (once per tick).
-    if isinstance(thickness, int):
-        thickness = torch.full((), thickness, dtype=torch.int32, device=dev)
-    thickness = torch.as_tensor(thickness, dtype=torch.int32, device=dev)
-    color_bgr = torch.as_tensor(color_bgr, dtype=torch.uint8, device=dev)
+    rect_xywh = _on(rect_xywh, torch.int32, dev)
+    thickness = _on(thickness, torch.int32, dev)
+    color_bgr = _on(color_bgr, torch.uint8, dev)
 
     ys = torch.arange(h, dtype=torch.int32, device=dev).reshape(h, 1)
     cs = torch.arange(w3, dtype=torch.int32, device=dev).reshape(1, w3)
@@ -185,10 +179,8 @@ def paint_mask_packed(img: torch.Tensor, mask, color_bgr) -> torch.Tensor:
     W*3): pixels where mask > 0 take ``color_bgr``. A host (numpy) mask is
     uploaded from pinned memory without waiting for the stream."""
     if not isinstance(mask, torch.Tensor):
-        mask = torch.from_numpy(np.ascontiguousarray(mask))
-        if img.device.type == "cuda":
-            mask = mask.pin_memory()
-    return _paint(img, mask.to(img.device, non_blocking=True) > 0, color_bgr)
+        mask = _on(mask, torch.uint8, img.device)
+    return _paint(img, mask.to(img.device) > 0, color_bgr)
 
 
 def fill_poly_packed(img: torch.Tensor, pts, color_bgr, include_edges: bool = True) -> torch.Tensor:

@@ -632,19 +632,22 @@ def test_videocapture_and_codecs_on_the_card(cuda):
     from rustcv_tpu_torch.prelude import VideoCapture
 
     drv = SimulationDriver(paced=False)
-    host = VideoCapture(0, drv)
+    host = VideoCapture(0, drv, decode_on_device=False)
     card = VideoCapture(0, drv, decode_on_device=True)
+    default = VideoCapture(0, drv)  # follows Mat(): the card
     try:
-        for cap in (host, card):
+        for cap in (host, card, default):
             assert cap.set_resolution(160, 120)
-        a, b = Mat(), Mat()
+        a, b, c = Mat(), Mat(), Mat()
         for _ in range(3):
-            assert host.read(a) and card.read(b)
-            assert b.device().is_cuda and not a.is_on_device
+            assert host.read(a) and card.read(b) and default.read(c)
+            assert b.device().is_cuda and c.device().is_cuda and not a.is_on_device
             np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
+            np.testing.assert_array_equal(a.to_numpy(), c.to_numpy())
     finally:
         host.release()
         card.release()
+        default.release()
     data = imgcodecs.imencode(".jpg", b, 90)
     cpu = imgcodecs.imencode(".jpg", Mat.from_array(a.to_numpy(), device="cpu"), 90)
     for got, want in zip(native.jpeg_entropy_decode(data)[1], native.jpeg_entropy_decode(cpu)[1]):

@@ -131,7 +131,7 @@ _FACADE_SCRIPT = textwrap.dedent(
 
     # The README loop without put_text: the host decode, then the device
     # decode on the CPU, each reading 3 frames until Esc.
-    for kwargs, mat in (({}, Mat()), ({"decode_on_device": True, "device": "cpu"}, Mat(device="cpu"))):
+    for kwargs, mat in (({}, Mat(device="cpu")), ({"decode_on_device": True, "device": "cpu"}, Mat(device="cpu"))):
         cap = VideoCapture(0, SimulationDriver(paced=False), **kwargs)
         try:
             assert cap.set_resolution(1280, 720)

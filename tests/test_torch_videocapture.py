@@ -121,7 +121,7 @@ def test_videocapture_host_decode_matches_the_reference(fmt):
     also into a reused Mat whose padded step it keeps."""
     drv, jdrv = _drivers(fmt)
     with _opened(VideoCapture, 0, drv) as cap, _opened(jax_capture.VideoCapture, 0, jdrv) as jcap:
-        mat = Mat.new(48, 64, 3, step=64 * 3 + 5)
+        mat = Mat.new(48, 64, 3, step=64 * 3 + 5, device="cpu")
         got = _read_n(cap, 3, mat)
         want = _read_n(jcap, 3, jax_core.Mat())
         assert mat.step == 197 and not mat.is_on_device
@@ -150,7 +150,7 @@ def test_host_and_device_decode_agree_on_yuyv():
             _opened(VideoCapture, 0, drv, decode_on_device=True, device="cpu") as dev:
         for cap in (host, dev):
             assert _bounded(cap.set_resolution, 160, 120)
-        a, b = _read_n(host, 2, Mat()), _read_n(dev, 2, Mat(device="cpu"))
+        a, b = _read_n(host, 2, Mat(device="cpu")), _read_n(dev, 2, Mat(device="cpu"))
         assert a[0].shape == (120, 160, 3)
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
@@ -164,17 +164,17 @@ def test_set_resolution_matches_the_reference():
         for w, h in ((160, 120), (64, 48)):
             assert _bounded(cap.set_resolution, w, h) and _bounded(jcap.set_resolution, w, h)
             assert (cap.get_width(), cap.get_height()) == (w, h) == (jcap.get_width(), jcap.get_height())
-            got, want = _read_n(cap, 1, Mat()), _read_n(jcap, 1, jax_core.Mat())
+            got, want = _read_n(cap, 1, Mat(device="cpu")), _read_n(jcap, 1, jax_core.Mat())
             np.testing.assert_array_equal(got[0], want[0])
         # a resolution no mode has fails the REQUIRED renegotiation in both
         assert not _bounded(cap.set_resolution, 12345, 7)
         assert not _bounded(jcap.set_resolution, 12345, 7)
         assert type(cap.last_error).__name__ == type(jcap.last_error).__name__
         assert not cap.is_opened() and not jcap.is_opened()
-        assert not _bounded(cap.read, Mat()) and not _bounded(jcap.read, jax_core.Mat())
+        assert not _bounded(cap.read, Mat(device="cpu")) and not _bounded(jcap.read, jax_core.Mat())
         # ...and a later one recovers
         assert _bounded(cap.set_resolution, 64, 48) and cap.is_opened()
-        assert _bounded(cap.read, Mat())
+        assert _bounded(cap.read, Mat(device="cpu"))
 
 
 def test_degraded_open_recovers():
@@ -187,9 +187,9 @@ def test_degraded_open_recovers():
         assert not cap.wait_until_resolved() and not jcap.wait_until_resolved()
         assert type(cap.last_error).__name__ == type(jcap.last_error).__name__
         assert cap._worker.is_alive() and cap.get_width() == 0
-        assert not _bounded(cap.read, Mat())
+        assert not _bounded(cap.read, Mat(device="cpu"))
         assert _bounded(cap.set_resolution, 64, 48) and cap.is_opened()
-        assert _bounded(cap.read, Mat())
+        assert _bounded(cap.read, Mat(device="cpu"))
 
 
 def test_unknown_device_and_release():
@@ -203,10 +203,10 @@ def test_unknown_device_and_release():
         assert isinstance(cap.last_error, core.DeviceNotFound)
     cap = VideoCapture(0, drv)
     try:
-        assert _bounded(cap.read, Mat())
+        assert _bounded(cap.read, Mat(device="cpu"))
     finally:
         cap.release()
-    assert not cap._worker.is_alive() and not cap.read(Mat()) and not cap.set_resolution(64, 48)
+    assert not cap._worker.is_alive() and not cap.read(Mat(device="cpu")) and not cap.set_resolution(64, 48)
     cap.release()  # twice is harmless
 
 
@@ -214,6 +214,30 @@ def test_device_decode_without_the_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         VideoCapture(0, SimulationDriver(paced=False), decode_on_device=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        VideoCapture(0, SimulationDriver(paced=False), device="cuda")
+
+
+def test_read_decodes_where_the_mat_is(monkeypatch):
+    """By default ``read`` decodes on the Mat's device: the host decode for
+    a CPU Mat, the card for ``Mat()``, which raises where there is no card.
+    ``decode_on_device=False`` takes the host decode into any Mat, and a
+    ``device`` named by the caller overrides the Mat's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    drv = SimulationDriver(paced=False, modes=[ModeDescriptor(PixelFormat.YUYV, 64, 48, (60,))])
+    with _opened(VideoCapture, 0, drv) as cap, \
+            _opened(VideoCapture, 0, drv, decode_on_device=False) as host, \
+            _opened(VideoCapture, 0, drv, device="cpu") as named:
+        cpu_mat = Mat(device="cpu")
+        got = _read_n(cap, 1, cpu_mat)
+        assert not cpu_mat.is_on_device and cpu_mat.target == "cpu"
+        card_mat = Mat()
+        with pytest.raises(RuntimeError, match="cuda"):
+            _bounded(cap.read, card_mat)
+        for c in (host, named):
+            mat = Mat()
+            assert _read_n(c, 1, mat)[0].shape == got[0].shape == (48, 64, 3)
+            assert not mat.is_on_device and mat.target == "cuda"
 
 
 # -- AVI files ----------------------------------------------------------------
