@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Twelve paths, each driven with the launch counts set to 0 just before it
+Thirteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -48,17 +48,23 @@ and read just after:
   blur_sobel, one batch as the zoo runs it and ``sub_batch=4``) and 5 (8 ×
   3840×2160, blur_sobel and overlay) through the zoo, configs 1 and 5 in
   every decode mode: K1, K4, K5;
-* the OpenCV-style facade, the README loop without ``put_text``:
-  ``VideoCapture`` at 1280×720 (host and device decode), the ``imgproc``
-  draws and ``harris_corners`` on a CUDA ``Mat``, JPEG ``imencode`` /
-  ``imdecode``, a ``VideoWriter`` → ``.avi`` → ``VideoCapture`` round trip
-  and ``highgui``: K6 (int32 form).
+* the OpenCV-style facade: ``VideoCapture`` at 1280×720 (host and device
+  decode), the ``imgproc`` draws and ``harris_corners`` on a CUDA ``Mat``,
+  JPEG ``imencode`` / ``imdecode``, a ``VideoWriter(encoder="tpu")`` →
+  ``.avi`` → ``VideoCapture`` round trip and ``highgui``: K6 (int32 form);
+* what Pillow does in the reference, after the facade, its launches counted
+  apart from the kernels line: the frozen ``put_text`` masks, the README
+  loop with ``put_text`` on a CUDA Mat, the headline engine with
+  ``tick(text=[8 strings])`` in every decode mode (K1, K4, K5), PNG and the
+  ``highgui`` dump, config 2 with ``mjpeg_backend="host"`` and
+  ``VideoWriter()``'s host encoder.
 
 Phases:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
    the build of the CUDA kernels from ``rustcv_tpu_torch/csrc`` and of the
-   port's C++ JPEG coder ``rustcv_tpu_torch.native`` (g++);
+   port's host C++ ``rustcv_tpu_torch.native`` (g++: the JPEG coder, the
+   host JPEG decode, the PNG unfilter, the glyph rasterizer);
 2. each kernel (K1 stencil, K4 decode+interleave, K5 fused tick, both
    Harris forms) against its plain PyTorch version on the card, at
    8×1920×1080 and at small ragged shapes, on aligned and misaligned
@@ -93,7 +99,13 @@ Phases:
    identical, its draws on a CUDA Mat identical to a host Mat's with no
    blocking copy, ``harris_corners`` identical to the CPU's, its JPEG
    coefficients, decodes and AVI frames within max |diff| <= 1 on < 0.5 %
-   of the CPU port's; and every kernel launched by its path;
+   of the CPU port's; and every kernel launched by its path; then the
+   frozen masks' hashes, the README loop with ``put_text`` on a CUDA Mat
+   identical to a CPU Mat's with no blocking copy, each headline tick with
+   text identical to the untexted tick plus ``golden.blend_mask``, PNG and
+   the dump lossless, config 2's host backend identical to the CPU host
+   decode resized, the host-encoded AVI read back as its payloads' host
+   decode;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -106,7 +118,9 @@ Phases:
    ``run_chained``, config 3 with and without ``sub_batch`` in turns (and
    its peak memory), config 5 per mode; the facade's ms per read and
    frames/s (host and device decode, 1280×720 and 3840×2160) and ms per
-   draw on a CUDA Mat.
+   draw on a CUDA Mat; ms/tick with and without text, ms per ``put_text``,
+   the rasterizer's ms per string, config 2's host backend beside its
+   hybrid.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -1287,6 +1301,238 @@ def time_facade(smi: str) -> None:
               f"{cuda_ms(draw, 50):.4f} ms/call", flush=True)
 
 
+# The three frozen put_text masks: tests/test_spec_freeze.py:119-121
+# (SHA-256 prefix, shape, dx, dy).
+FROZEN_MASKS = {
+    ("FPS: 42.0", 1.0): ("ee52d0a2ba9dbb36", (24, 128), 0, -19),
+    ("Hello, RustCV!", 0.75): ("56b219d91ce6f70f", (18, 128), 0, -14),
+    ("XyZ 089", 2.0): ("d4ad8f4689ecea68", (48, 256), 0, -38),
+}
+TEXT_READS = 4  # README loop frames with put_text, on the card and on the CPU
+TEXT_TICKS = 2  # headline ticks with text per mode (the strings change between them)
+TEXT_ORG, TEXT_COLOR = (20, 60), (0, 255, 255)
+C2_HOST_TICKS = 6
+
+
+def text_strings(t: int) -> list:
+    """Per-stream overlay strings of tick ``t``: camera names and FPS
+    counters, ligatures and kerning pairs among them."""
+    return [f"cam {i} | FPS {59.94 - t - i / 10:.2f} fi AV" for i in range(N)]
+
+
+def readme_loop(cap, mat, put_text_on_card: bool) -> list:
+    """The README loop's body for TEXT_READS frames: read, rectangle,
+    put_text; returns the drawn frames on the host. On the card the draws
+    run under the sync debug mode, which raises on a blocking copy."""
+    import torch
+
+    from rustcv_tpu_torch import imgproc as ip
+
+    out = []
+    for i in range(TEXT_READS):
+        expect(cap.read(mat), f"README loop read {i}: {cap.last_error}")
+        if put_text_on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ip.rectangle(mat, ip.Rect(60, 60, 200, 150), ip.Scalar(0, 255, 0), 2)
+            ip.put_text(mat, f"FPS: {30 - i * 0.25:.2f} frame {i}", ip.Point(10, 30), 1.0,
+                        ip.Scalar(0, 255, 255))
+            ip.put_text(mat, "Wavy fjord AV", ip.Point(1200, 715), 2.0, ip.Scalar(255, 0, 9))
+        finally:
+            if put_text_on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        out.append(mat.to_numpy())
+    return out
+
+
+def run_text_and_codecs() -> dict:
+    """Phase 3l: what Pillow does in the reference. The three frozen masks
+    against their constants (this machine has neither jax nor Pillow); the
+    README loop with ``put_text`` at 1280×720 on a CUDA Mat equal to the
+    same loop on a CPU Mat (the card's draws under the sync debug mode);
+    the headline engine, 8 × 1080p, with ``tick(text=[8 strings])`` in
+    every decode mode, each tick equal to the host oracle: the same
+    engine's tick without text plus ``golden.blend_mask`` of the port's
+    masks; PNG through ``imwrite``/``imread`` and the ``highgui`` dump;
+    config 2 with ``mjpeg_backend="host"`` byte-equal to the host decode of
+    the same frames on the CPU, resized there; ``VideoWriter()`` (the
+    host encoder) → ``.avi`` → ``VideoCapture`` on a CPU Mat. Returns the
+    phase's launches, which the kernels line does not add."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from rustcv_tpu_torch import highgui, imgcodecs, native
+    from rustcv_tpu_torch.capture import AviMjpegReader, SimulationDriver
+    from rustcv_tpu_torch.capture.simulation import synth_raw
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import golden, kernels, resize, text
+    from rustcv_tpu_torch.prelude import Mat, VideoCapture, VideoWriter
+
+    for (s, scale), want in FROZEN_MASKS.items():
+        mask, dx, dy = text.rasterize(s, scale)
+        got = (hashlib.sha256(mask.tobytes()).hexdigest()[:16], mask.shape, dx, dy)
+        expect(got == want, f"frozen mask {s!r} at {scale}: {got} != {want}")
+    print("text: the three frozen put_text masks match their hashes", flush=True)
+
+    kernels.reset_launch_counts()  # this phase's paths start here
+    drv = SimulationDriver(paced=False, n_unique_frames=UNIQUE)
+    card = VideoCapture(0, drv, decode_on_device=True)
+    host = VideoCapture(0, drv, decode_on_device=False)
+    try:
+        for cap in (card, host):
+            expect(cap.set_resolution(FACADE_W, FACADE_H), f"set_resolution: {cap.last_error}")
+        on_card = readme_loop(card, Mat(), True)
+        on_cpu = readme_loop(host, Mat(device="cpu"), False)
+    finally:
+        card.release()
+        host.release()
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        expect(a.shape == (FACADE_H, FACADE_W, 3) and np.array_equal(a, b),
+               f"README loop frame {i}: the CUDA Mat differs from the CPU Mat")
+    print(f"text: the README loop with put_text, {TEXT_READS} frames at {FACADE_W}x{FACADE_H}, "
+          "CUDA Mat identical to the CPU Mat, no blocking copy", flush=True)
+
+    rects, colors = bench_overlay()
+    for mode in MODES:
+        plain, texted = make_engine(mode), make_engine(mode)
+        try:
+            for t in range(TEXT_TICKS):
+                strings = text_strings(t)
+                base = plain.tick(rects=rects, rect_colors=colors, block=True).numpy("bgr")
+                got = texted.tick(rects=rects, rect_colors=colors, block=True, text=strings,
+                                  text_org=TEXT_ORG, text_scale=1.5,
+                                  text_color=TEXT_COLOR).numpy("bgr")
+                for i, s in enumerate(strings):
+                    mask, dx, dy = text.rasterize(s, 1.5)
+                    want = base[i].copy()
+                    golden.blend_mask(want, mask, TEXT_ORG[0] + dx, TEXT_ORG[1] + dy, TEXT_COLOR)
+                    expect(np.array_equal(got[i], want) and not np.array_equal(want, base[i]),
+                           f"{mode} tick {t} stream {i}: text differs from the host oracle")
+        finally:
+            plain.close()
+            texted.close()
+    set_mode("default")
+    print(f"text: headline {N} x {W}x{H} tick(text=[{N} strings]) in modes {MODES}, "
+          f"{TEXT_TICKS} ticks each, identical to decode + golden.blend_mask", flush=True)
+
+    frame = Mat.from_device(torch.from_numpy(on_card[-1]).cuda())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frame.png")
+        expect(imgcodecs.imwrite(path, frame), "imwrite of a PNG failed")
+        back = imgcodecs.imread(path)
+        expect(back.device().is_cuda and np.array_equal(back.to_numpy(), on_card[-1]),
+               "PNG imwrite/imread changed the pixels")
+        os.environ["RUSTCV_TPU_DISPLAY_DIR"] = tmp
+        try:
+            highgui.imshow("text phase", frame)
+        finally:
+            del os.environ["RUSTCV_TPU_DISPLAY_DIR"]
+            highgui.destroy_all_windows()
+        dumped = imgcodecs.imread(os.path.join(tmp, "text_phase.png"), device="cpu")
+        expect(np.array_equal(dumped.to_numpy(), on_card[-1]), "the highgui dump changed the pixels")
+
+        avi = os.path.join(tmp, "host.avi")
+        frames = on_cpu[:3]
+        with VideoWriter(avi, fps=30, frame_size=(FACADE_W, FACADE_H)) as writer:
+            for f in frames:
+                writer.write(Mat.from_array(f, device="cpu"))
+        reader = AviMjpegReader(avi)
+        expect(len(reader) == len(frames), f"the AVI holds {len(reader)} frames")
+        cap = VideoCapture(avi)
+        try:
+            m, n = Mat(device="cpu"), 0
+            while cap.read(m):
+                payload = reader.frame_bytes(n).tobytes()
+                expect(payload == jpeg_encode_cpu(frames[n]), f"AVI frame {n}: not the host encode")
+                expect(np.array_equal(m.to_numpy(), native.jpeg_decode_bgr(payload)),
+                       f"AVI frame {n}: the read is not the host decode")
+                n += 1
+            expect(n == len(frames) and cap.last_error is None, f"read {n} AVI frames")
+        finally:
+            cap.release()
+    print("codecs: PNG imwrite/imread and the highgui dump lossless; a 3-frame "
+          "VideoWriter(encoder='host') AVI read back as the host decode of its payloads", flush=True)
+
+    eng = make_c2(mjpeg_backend="host")
+    try:
+        expect(eng._mjpeg_host and eng.spec.resize_to == (C6_W, C6_H), "config 2 host spec")
+        for t in range(C2_HOST_TICKS):
+            res = eng.tick(block=True)
+            got = res.numpy("bgr")
+            for i in range(N):
+                seq = int(res.sequences[i])
+                bgr = native.jpeg_decode_bgr(synth_raw(W, H, PixelFormat.MJPEG, seq))
+                want = resize.resize_bilinear(torch.from_numpy(bgr), C6_W, C6_H).numpy()
+                expect(np.array_equal(got[i], want),
+                       f"config 2 host tick {t} stream {i}: not the CPU decode resized")
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()  # read just after this phase's paths
+    print(f"config 2, mjpeg_backend='host': {C2_HOST_TICKS} ticks of {N} streams identical to "
+          f"the CPU host decode resized; launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    return counts
+
+
+def jpeg_encode_cpu(bgr) -> bytes:
+    """The host encoder's payload of ``bgr``: the port's encoder on a CPU
+    tensor at VideoWriter's default quality."""
+    import torch
+
+    from rustcv_tpu_torch.ops.jpeg_encode import encode_jpeg
+
+    return encode_jpeg(torch.from_numpy(np.ascontiguousarray(bgr)), quality=90)
+
+
+def time_text_and_codecs(smi: str) -> None:
+    """Phase 4l: the headline engine's ms/tick with and without
+    ``text=[8 strings]`` (CUDA events over 20 ticks, default mode); ms per
+    ``put_text`` on a 1280×720 CUDA Mat (the mask cached; CUDA events over
+    50 calls); the rasterizer's ms per string (host clock, uncached, 20
+    strings of 20-30 characters at scale 1.5); config 2's ms/tick and
+    frames/s with ``mjpeg_backend="host"`` beside the hybrid's (run(10)
+    after a warm run of 3, in turns)."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import text
+    from rustcv_tpu_torch.prelude import Mat
+
+    tag = f"[{smi}]"
+    rects, colors = bench_overlay()
+    eng = make_engine("default")
+    try:
+        for label, kw in (("without text", {}), ("with text", {"text": text_strings(0)})):
+            ms = cuda_ms(lambda: eng.tick(rects=rects, rect_colors=colors, **kw), TICKS)
+            print(f"{tag} headline {N} x {W}x{H} default mode {label}: {ms:.4f} ms/tick", flush=True)
+    finally:
+        eng.close()
+    mat = Mat.from_array(np.random.default_rng(3).integers(0, 256, (FACADE_H, FACADE_W, 3), np.uint8))
+    mat.device()
+    ms = cuda_ms(lambda: ip.put_text(mat, "FPS: 29.97", ip.Point(10, 30), 1.0,
+                                     ip.Scalar(0, 255, 255)), 50)
+    print(f"{tag} put_text on a {FACADE_W}x{FACADE_H} CUDA Mat: {ms:.4f} ms/call", flush=True)
+    strings = [f"rasterizer {i}: fjord AV Wa {i * 7.3:.1f}" for i in range(20)]
+    t0 = time.perf_counter()
+    for s in strings:
+        text.rasterize.__wrapped__(s, 1.5)
+    print(f"{tag} text rasterizer (host): {(time.perf_counter() - t0) * 1e3 / len(strings):.4f} "
+          "ms/string", flush=True)
+    engines = {"host": make_c2(mjpeg_backend="host"), "hybrid": make_c2()}
+    try:
+        for eng in engines.values():
+            eng.run(3, warmup=0, measure_latency=False)
+        for label in ("host", "hybrid", "hybrid", "host"):
+            r = engines[label].run(10, warmup=0, measure_latency=False)
+            print(f"{tag} config 2, mjpeg_backend={label!r}: {r.wall_s / r.ticks * 1e3:.4f} ms/tick, "
+                  f"{r.fps_total:.2f} frames/s, gather {r.host_gather_ms:.4f} ms", flush=True)
+    finally:
+        for eng in engines.values():
+            eng.close()
+
+
 def time_new_paths(smi: str) -> None:
     """Phase 4j: ms/tick (CUDA events) of every other wire format: device-sim
     at 8 × 1080p (NV12 in every mode and beside the plain engine), host-staged
@@ -1825,6 +2071,10 @@ def main() -> int:
             done(f"phase 3, {label}")
         phase("phase 3, launches", lambda: expect(all(v > 0 for v in launches.values()),
                                                   f"a kernel never launched: {launches}"))
+        text_launches = phase("phase 3, text and host codecs", run_text_and_codecs)
+        print(f"phase 3, text and host codecs: launches apart from the kernels line "
+              f"{ {k: v for k, v in text_launches.items() if v} }", flush=True)
+        done("phase 3, text and host codecs")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -1832,7 +2082,8 @@ def main() -> int:
                           ("config 6 profile", profile_config6), ("host path", time_host_path),
                           ("config 2", time_config2),
                           ("formats, chained configs 1 and 4, configs 3 and 5",
-                           lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi))):
+                           lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi)),
+                          ("text and host codecs", lambda: time_text_and_codecs(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

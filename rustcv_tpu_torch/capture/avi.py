@@ -7,9 +7,9 @@ The reference captures only live cameras; OpenCV users also expect
 natural container here because both halves reuse the device JPEG codec:
 
 - **write**: frames encode through :mod:`rustcv_tpu_torch.ops.jpeg_encode`
-  (device FDCT → the port's host Huffman coder) and land in a standard
-  RIFF-AVI ('MJPG') any player/OpenCV build can read. The reference's
-  host (PIL) encoder is not ported.
+  (FDCT on a CPU tensor for the default ``encoder="host"``, on the device
+  for ``"tpu"`` → the port's host Huffman coder) and land in a standard
+  RIFF-AVI ('MJPG') any player/OpenCV build can read.
 - **read**: :class:`FileSource` emits the stored JPEG bytes as
   ``PixelFormat.MJPEG`` frames through the standard ``FrameSource``
   protocol, so the whole stack — ``VideoCapture`` facade AND the batched
@@ -33,14 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..core.config import CameraConfig, ResolvedConfig
-from ..core.errors import (
-    NEEDS_PILLOW,
-    CameraError,
-    DecodeError,
-    DeviceNotFound,
-    EndOfStream,
-    not_ported,
-)
+from ..core.errors import CameraError, DecodeError, DeviceNotFound, EndOfStream
 from ..core.frame import Frame, Timestamp
 from ..core.mat import Mat
 from ..core.pixel_format import PixelFormat
@@ -61,11 +54,12 @@ class VideoWriter:
 
     ``VideoWriter(path, fourcc="MJPG", fps=30, frame_size=(w, h))`` then
     ``write(mat_or_bgr_array)`` per frame and ``release()`` (or use as a
-    context manager). ``encoder="tpu"`` (the reference's name, kept so that
-    code written for it runs unchanged; the port's default) routes each
-    frame through the device FDCT encoder on ``device`` — the frame's own
-    device where it is a tensor or a device Mat. The reference's
-    ``"host"`` (PIL) encoder raises ``not_ported``. For device-resident
+    context manager). The default ``encoder="host"`` encodes each frame on
+    the host: the port's encoder on a CPU tensor and its C++ Huffman coder
+    (the reference's is Pillow; the bytes differ, the decoded frames agree
+    within the encoder's tolerance). ``encoder="tpu"`` (the reference's
+    name) routes each frame through the FDCT encoder on ``device``, the
+    frame's own device where it is a tensor or a device Mat. For device-resident
     batches, encode with :func:`rustcv_tpu_torch.ops.jpeg_encode.encode_jpeg_batch`
     and append the payloads with :meth:`write_encoded`.
     """
@@ -77,13 +71,12 @@ class VideoWriter:
         fps: float = 30.0,
         frame_size: Tuple[int, int] = (640, 480),
         quality: int = 90,
-        encoder: str = "tpu",
+        encoder: str = "host",
         device="cuda",
     ):
-        if encoder == "host":
-            raise not_ported("VideoWriter's host encoder", NEEDS_PILLOW, "8")
-        if encoder != "tpu":
+        if encoder not in ("host", "tpu"):
             raise ValueError(f"VideoWriter: unknown encoder {encoder!r}")
+        self._encoder = encoder
         if fourcc.upper() != "MJPG":
             raise CameraError(
                 f"VideoWriter: only MJPG is supported, got {fourcc!r}"
@@ -177,7 +170,9 @@ class VideoWriter:
                 f"VideoWriter: frame is {bgr.shape[1]}x{bgr.shape[0]}, "
                 f"writer was opened for {self._w}x{self._h}"
             )
-        if bgr.device.type == "cpu":
+        if self._encoder == "host":
+            bgr = bgr.cpu()
+        elif bgr.device.type == "cpu":
             bgr = bgr.to(torch_device(self._device))
         self.write_encoded(encode_jpeg(bgr, quality=self._quality))
 

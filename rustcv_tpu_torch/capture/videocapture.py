@@ -21,8 +21,9 @@ names one, else on the Mat's own device (the card for ``Mat()``), and on
 the host when that device is the CPU. ``decode_on_device=False`` always
 takes the host decode; ``decode_on_device=True`` always decodes on the
 device (the card unless ``device`` names another). Both give identical
-pixels (parity-tested). MJPEG needs ``mjpeg_hybrid=True`` on the device,
-and the host decode of MJPEG is not ported.
+pixels (parity-tested), except MJPEG: the host decode is libjpeg-turbo's
+(the reference's), and ``mjpeg_hybrid=True`` takes the device's hybrid
+decode instead, within its stated bound of it.
 The batched multi-stream executor in :mod:`rustcv_tpu_torch.runtime` is the
 high-throughput path.
 """
@@ -254,7 +255,7 @@ class VideoCapture:
     def _decode_host(fd: _FrameData, mat: Mat) -> None:
         """The reference facade's host dispatch: YUYV, BGRA32, NV12 and RGB24
         convert (the port's converters on the CPU, as decode_frame_host;
-        MJPEG raises there, not ported); every other raw format is copied
+        MJPEG through the host JPEG decode); every other raw format is copied
         as raw bytes (mod.rs:255-257)."""
         import torch
 

@@ -107,9 +107,3 @@ def not_ported(what: str, why: str = "", item: str = "") -> NotImplementedError:
     where = f"ROADMAP queue 1 item {item}" if item else "ROADMAP queue 1"
     return NotImplementedError(f"{what} is not ported to rustcv_tpu_torch yet{reason} ({where})")
 
-
-#: ``why`` of what reaches Pillow in the reference.
-NEEDS_PILLOW = "the reference uses Pillow (PIL) here, which the port does not import"
-#: ``why`` of the full-host MJPEG decode.
-NEEDS_HOST_JPEG = ("the reference decodes with libjpeg-turbo or Pillow (PIL); "
-                   "the port has neither")

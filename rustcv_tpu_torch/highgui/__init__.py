@@ -11,8 +11,10 @@ abstraction:
 - default: an in-memory framebuffer (inspectable via :func:`get_window_frame`
   — what a test or notebook polls instead of a screen); ``imshow`` of a Mat
   on the card downloads it;
-- ``RUSTCV_TPU_DISPLAY_DIR=/path`` (the reference writes ``{name}.png`` per
-  imshow with Pillow) raises ``not_ported``;
+- ``RUSTCV_TPU_DISPLAY_DIR=/path``: each imshow also writes
+  ``{name}.png`` there (the port's PNG writer, :mod:`..imgcodecs.host`),
+  through a temporary file and ``os.replace``, so a reader never sees half
+  a file;
 - key events come from :func:`push_key` (tests/automation) — ``wait_key``
   sleeps the requested delay and pops the injected queue, returning -1 when
   empty, exactly like the reference with no key down;
@@ -35,7 +37,6 @@ from typing import Deque, Dict, Optional, Tuple
 
 import numpy as np
 
-from ..core.errors import NEEDS_PILLOW, not_ported
 from ..core.mat import Mat
 
 # Key mapping (highgui/mod.rs:85-112)
@@ -130,14 +131,22 @@ def mat_to_u32_buffer(mat: Mat) -> np.ndarray:
 def imshow(winname: str, mat: Mat) -> None:
     """Present a frame. Size changes just replace the buffer (the reference
     recreates the OS window, mod.rs:36-70 — here the sink is elastic)."""
-    if os.environ.get("RUSTCV_TPU_DISPLAY_DIR"):
-        raise not_ported("imshow's PNG dump (RUSTCV_TPU_DISPLAY_DIR)", NEEDS_PILLOW, "8")
     frame = mat.to_numpy()
     with _lock:
         _windows[winname] = frame
         gui = _get_gui()
         if gui is not None:
             gui.show(winname, frame)
+    out_dir = os.environ.get("RUSTCV_TPU_DISPLAY_DIR")
+    if out_dir:
+        from ..imgcodecs import host as _codecs
+
+        os.makedirs(out_dir, exist_ok=True)
+        safe = "".join(c if c.isalnum() or c in "-_." else "_" for c in winname)
+        tmp = os.path.join(out_dir, f".{safe}.tmp.png")
+        with open(tmp, "wb") as f:
+            f.write(_codecs.write_png(_codecs.from_mat_array(frame)))
+        os.replace(tmp, os.path.join(out_dir, f"{safe}.png"))
 
 
 def get_window_frame(winname: str) -> Optional[np.ndarray]:

@@ -1,91 +1,217 @@
 """imgcodecs — imread / imwrite / imencode / imdecode with BGR discipline
 (port of ``rustcv_tpu.imgcodecs``; ``rustcv/src/imgcodecs/mod.rs:9-76``).
 
-JPEG only, through the reference's ``"tpu"`` backend, which here means the
-port's device codec: :mod:`..ops.jpeg_encode` (colour, subsampling, FDCT
-and quantization on the Mat's device, the Huffman coding in the port's C++
-coder) and :mod:`..ops.jpeg_tpu` (entropy decode on the host,
-dequantization, IDCT, upsampling and colour on the device). It is the
-default backend, since the port has no other. The reference's ``"host"``
-backend and every other format go through Pillow there, and raise
-``not_ported`` here; so do ``imreadmulti``, ``imwritemulti``, ``imcount``
-and the metadata forms.
+Two backends, the reference's names:
+
+* ``"host"`` (the default, as in the reference, where it is Pillow): PNG,
+  BMP and PPM/PGM through :mod:`.host` (no Pillow), JPEG decoded by the
+  port's C++ host decoder (:func:`..native.jpeg_decode_bgr`, libjpeg-turbo's
+  default decode: the same pixels as the reference's Pillow) and encoded by
+  the port's encoder on a CPU tensor plus its C++ Huffman coder (other bytes
+  than Pillow's, within the encoder's tolerance once decoded).
+* ``"tpu"``: JPEG only, the port's device codec: :mod:`..ops.jpeg_encode`
+  (colour, subsampling, FDCT and quantization on the Mat's device, Huffman
+  coding in the C++ coder) and :mod:`..ops.jpeg_tpu` (entropy decode on the
+  host, the rest on the device).
+
+Whatever decodes, the Mat lands on ``device`` ("cuda" unless the caller
+names another). TIFF, GIF and WebP, ``imreadmulti``, ``imwritemulti``,
+``imcount`` and EXIF raise ``not_ported``.
 """
 
 from __future__ import annotations
 
 import os
 
-from ..core.errors import NEEDS_PILLOW, CameraError, not_ported
+import numpy as np
+
+from ..core.errors import CameraError, not_ported
 from ..core.mat import Mat
+from . import host as _host
 
 _JPEG = ("jpg", "jpeg")
-
-
-def _check(backend: str, ext: str, what: str) -> None:
-    if backend == "host":
-        raise not_ported(f"{what}'s host backend", NEEDS_PILLOW, "8")
-    if backend != "tpu":
-        raise ValueError(f"{what}: unknown backend {backend!r}")
-    if ext not in _JPEG:
-        raise not_ported(f"{what} of {ext!r} images", NEEDS_PILLOW, "8")
+_QUALITY_DEFAULT = 75  # the quality of the reference's Pillow save
 
 
 def _suffix(path: str) -> str:
     return os.path.splitext(path)[1].lower().lstrip(".")
 
 
-def imencode(ext: str, mat: Mat, quality: int = 95, backend: str = "tpu") -> bytes:
-    """Encode a BGR (or gray) Mat to baseline JFIF bytes (OpenCV
-    ``imencode``), 4:2:0, on the Mat's device (a host Mat is uploaded to
-    its device first)."""
+def _format_of(ext: str, what: str) -> str:
+    e = ext.lower().lstrip(".")
+    if e in _host.NOT_PORTED_EXTENSIONS:
+        raise not_ported(f"{what} of {_host.NOT_PORTED_EXTENSIONS[e]} images", item=_host.LEFTOVERS)
+    fmt = _host.EXTENSIONS.get(e)
+    if fmt is None:
+        raise CameraError(f"{what}: unknown image format {ext!r}")
+    return fmt
+
+
+def _backend(backend: str, what: str) -> None:
+    if backend not in ("host", "tpu"):
+        raise ValueError(f"{what}: unknown backend {backend!r}")
+
+
+def _host_bytes(mat: Mat) -> np.ndarray:
+    """The Mat's pixels on the host, (H, W, C)."""
+    if mat.is_on_device:
+        return mat.device().cpu().numpy().reshape(mat.rows, mat.cols, mat.channels)
+    return mat.to_numpy()
+
+
+def _encode(fmt: str, mat: Mat, quality: int) -> bytes:
+    """Host encode of a non-empty Mat to ``fmt``."""
+    import torch
+
     from ..ops.jpeg_encode import encode_jpeg
 
-    _check(backend, ext.lower().lstrip("."), "imencode")
+    a = _host_bytes(mat)
+    if fmt == "jpeg":
+        if a.shape[2] not in (1, 3):
+            raise CameraError(f"imencode: cannot write {a.shape[2]}-channel images as JPEG")
+        return encode_jpeg(torch.from_numpy(a[..., 0] if a.shape[2] == 1 else a), quality=quality)
+    try:
+        return _host.ENCODERS[fmt](_host.from_mat_array(a))
+    except _host.CodecError as e:
+        raise CameraError(f"imencode: {e}") from e
+
+
+def imencode(ext: str, mat: Mat, quality: int = 95, backend: str = "host") -> bytes:
+    """Encode a BGR (or gray) Mat to in-memory image bytes (OpenCV
+    ``imencode``). ``ext`` picks the format (".png", ".jpg", ".bmp",
+    ".ppm", ...); ``quality`` is JPEG's. ``backend="tpu"`` encodes JPEG on
+    the Mat's device (a host Mat is uploaded to its device first), 4:2:0."""
+    from ..ops.jpeg_encode import encode_jpeg
+
+    _backend(backend, "imencode")
+    fmt = _format_of(ext, "imencode")
     if mat.is_empty():
         raise CameraError("imencode: empty Mat")
-    img = mat.device()
-    if img.ndim == 3 and img.shape[-1] == 1:
-        img = img[..., 0]
-    return encode_jpeg(img, quality=quality)
+    if backend == "tpu":
+        if fmt != "jpeg":
+            raise ValueError(f"imencode: backend='tpu' supports JPEG only, not {ext!r}")
+        img = mat.device()
+        if img.ndim == 3 and img.shape[-1] == 1:
+            img = img[..., 0]
+        return encode_jpeg(img, quality=quality)
+    return _encode(fmt, mat, quality)
 
 
-def imdecode(data: bytes, backend: str = "tpu", device="cuda") -> Mat:
-    """Decode JPEG bytes to a BGR Mat on ``device`` (OpenCV ``imdecode``)."""
+def _decode_host(data: bytes) -> np.ndarray:
+    """Host decode of any supported format → (H, W, 3) BGR."""
+    from .. import native
+
+    fmt = _host.sniff(data)
+    if fmt == "jpeg":
+        return native.jpeg_decode_bgr(data)
+    return _host.to_bgr(_host.DECODERS[fmt](data))
+
+
+def _on_device(bgr: np.ndarray, device) -> Mat:
+    import torch
+
+    from ..core.mat import torch_device
+
+    return Mat.from_device(torch.from_numpy(bgr).to(torch_device(device)))
+
+
+def imdecode(data: bytes, backend: str = "host", device="cuda") -> Mat:
+    """Decode in-memory image bytes to a BGR Mat on ``device`` (OpenCV
+    ``imdecode``). ``backend="tpu"`` takes JPEG through the hybrid decode
+    (entropy decode on the host, the rest on the device)."""
     from ..core.mat import torch_device
     from ..ops.jpeg_tpu import decode_jpeg_tpu
 
-    _check(backend, "jpg" if bytes(data[:2]) == b"\xff\xd8" else "non-JPEG", "imdecode")
-    return Mat.from_device(decode_jpeg_tpu(data, torch_device(device)))
+    _backend(backend, "imdecode")
+    if backend == "tpu":
+        if bytes(data[:2]) != b"\xff\xd8":
+            raise ValueError("imdecode: backend='tpu' supports JPEG only")
+        return Mat.from_device(decode_jpeg_tpu(data, torch_device(device)))
+    try:
+        bgr = _decode_host(bytes(data))
+    except ValueError as e:  # corrupt or truncated (the codecs' and the decoder's)
+        raise CameraError(f"imdecode: cannot decode buffer: {e}") from e
+    return _on_device(bgr, device)
+
+
+def _read(path: str, what: str) -> bytes:
+    if not os.path.exists(path):
+        raise CameraError(f"{what}: no such file: {path}")
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def imread(path: str, device="cuda") -> Mat:
-    """Load a JPEG file as a BGR Mat on ``device``. Raises on missing or
+    """Load an image file as a BGR Mat on ``device``. Raises on missing or
     corrupt files."""
-    _check("tpu", _suffix(path), "imread")
-    if not os.path.exists(path):
-        raise CameraError(f"imread: no such file: {path}")
-    with open(path, "rb") as f:
-        data = f.read()
+    data = _read(path, "imread")
     try:
-        return imdecode(data, device=device)
-    except ValueError as e:  # the entropy decoder's: corrupt or unsupported
+        bgr = _decode_host(data)
+    except ValueError as e:
         raise CameraError(f"imread: cannot decode {path}: {e}") from e
+    return _on_device(bgr, device)
 
 
-def imwrite(path: str, mat: Mat) -> bool:
-    """Write a BGR Mat to a JPEG file (format from the extension), at
-    quality 75, the default of the reference's Pillow save."""
-    _check("tpu", _suffix(path), "imwrite")
-    if mat.is_empty():
-        return False
-    data = imencode(".jpg", mat, 75)
+def _write(path: str, data: bytes) -> bool:
     try:
         with open(path, "wb") as f:
             f.write(data)
     except OSError:
         return False
     return True
+
+
+def imwrite(path: str, mat: Mat) -> bool:
+    """Write a BGR Mat to an image file, the format from the extension
+    (JPEG at quality 75, the reference's Pillow default). False where the
+    Mat is empty, the format unknown or the file cannot be written."""
+    if mat.is_empty():
+        return False
+    try:
+        data = _encode(_format_of(_suffix(path), "imwrite"), mat, _QUALITY_DEFAULT)
+    except CameraError:
+        return False
+    return _write(path, data)
+
+
+def imread_with_metadata(path: str, device="cuda"):
+    """Metadata-aware read (OpenCV ``imreadWithMetadata`` role): → (Mat,
+    dict) with a PNG's text chunks. Other formats' metadata and EXIF are
+    not ported."""
+    data = _read(path, "imread_with_metadata")
+    try:
+        fmt = _host.sniff(data)
+        if fmt != "png":
+            raise not_ported(f"metadata of {fmt.upper()} files", item=_host.LEFTOVERS)
+        img, meta = _host.read_png(data)
+    except ValueError as e:
+        raise CameraError(f"imread_with_metadata: cannot decode {path}: {e}") from e
+    return _on_device(_host.to_bgr(img), device), meta
+
+
+def imwrite_with_metadata(path: str, mat: Mat, metadata: dict) -> bool:
+    """Metadata-aware write (OpenCV ``imwriteWithMetadata`` role): a PNG
+    gets ``metadata`` as text chunks; another format is written without."""
+    if _suffix(path) != "png":
+        return imwrite(path, mat)
+    if mat.is_empty():
+        return False
+    return _write(path, _host.write_png(_host.from_mat_array(_host_bytes(mat)), metadata))
+
+
+def imreadmulti(path: str):
+    """Multi-page read (OpenCV ``imreadmulti``): not ported (TIFF, GIF)."""
+    raise not_ported("imreadmulti (multi-page TIFF and GIF)", item=_host.LEFTOVERS)
+
+
+def imwritemulti(path: str, mats) -> bool:
+    """Multi-page write (OpenCV ``imwritemulti``): not ported."""
+    raise not_ported("imwritemulti (multi-page TIFF and GIF)", item=_host.LEFTOVERS)
+
+
+def imcount(path: str) -> int:
+    """Pages in a file (OpenCV ``imcount``): not ported."""
+    raise not_ported("imcount (multi-page TIFF and GIF)", item=_host.LEFTOVERS)
 
 
 __all__ = ["imread", "imwrite", "imencode", "imdecode"]

@@ -16,8 +16,10 @@ on a CPU tensor over its (stride-aware) buffer, in place; the reference
 paints its golden masks there, and the bytes are the same. Processing ops
 return a new Mat on the input's side (device or host).
 
-Not ported yet: ``put_text`` (it rasterizes glyphs with Pillow; ROADMAP
-Queue 1 item 8), ``resize``'s nearest, area and cubic modes and
+``put_text`` rasterizes its glyphs on the host without Pillow
+(:mod:`..ops.text`) and blends the mask where the Mat is.
+
+Not ported yet: ``resize``'s nearest, area and cubic modes and
 ``gaussian_blur`` with another ``ksize`` or ``sigma`` (items 10 and 14),
 and the rest of the reference module (item 14). They raise ``not_ported``
 or are absent.
@@ -30,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.errors import NEEDS_PILLOW, not_ported
+from ..core.errors import not_ported
 from ..core.mat import Mat
 from ..ops import color as _color
 from ..ops import draw as _draw
@@ -38,6 +40,8 @@ from ..ops import features as _features
 from ..ops import filters as _filters
 from ..ops import golden
 from ..ops import resize as _resize
+from ..ops import text as _text
+from ..ops.text import get_text_size
 
 
 @dataclass(frozen=True)
@@ -180,9 +184,19 @@ def rectangle(mat: Mat, rect: Rect, color: Scalar, thickness: int = 1) -> None:
 
 
 def put_text(mat: Mat, text: str, org: Point, font_scale: float, color: Scalar) -> None:
-    """Render text (drawing.rs:123-163): not ported, the reference
-    rasterizes its glyphs with Pillow."""
-    raise not_ported("imgproc.put_text", NEEDS_PILLOW + " (glyph rasterization)", "8")
+    """Render text with ``org`` as the baseline origin (drawing.rs:123-163):
+    the glyph mask from the host rasterizer, blended on the device for a
+    device Mat (the mask uploaded from pinned memory, no blocking copy) and
+    in place for a host Mat."""
+    if mat.is_empty():
+        return
+    mask, dx, dy = _text.rasterize(text, font_scale)
+    if mat.is_on_device:
+        if mat.channels != 3:
+            raise ValueError(f"drawing requires a 3-channel BGR Mat (got {mat.channels} channels)")
+        mat.set_device(_draw.blend_mask_at(mat.device(), mask, org.x + dx, org.y + dy, color.bgr))
+        return
+    golden.blend_mask(mat.array, mask, org.x + dx, org.y + dy, color.bgr)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +272,6 @@ def harris_corners(mat: Mat, k: float = 0.04, threshold_rel: float = 0.01,
 
 __all__ = [
     "Point", "Rect", "Scalar", "arrowed_line", "canny", "circle", "cvt_gray",
-    "ellipse", "fill_poly", "gaussian_blur", "harris_corners", "line",
+    "ellipse", "fill_poly", "gaussian_blur", "get_text_size", "harris_corners", "line",
     "polylines", "put_text", "rectangle", "resize", "sobel_magnitude",
 ]

@@ -36,8 +36,9 @@ from ..core.pixel_format import PixelFormat
 
 def default_mjpeg_backend() -> str:
     """Backend of the MJPEG models: the block-packed hybrid decode, which
-    needs the port's native coder. The reference falls back to the
-    full-host decode without it; the port has none, so it raises."""
+    needs the port's native library. The reference falls back to the
+    full-host decode without it; the port's full-host decode is in the same
+    library, so it raises."""
     from .. import native
 
     if not native.available():

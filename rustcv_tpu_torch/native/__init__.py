@@ -1,11 +1,15 @@
-"""The host JPEG entropy coder (C++), built with g++ at first use and bound
-with ctypes.
+"""The port's host C++ (the JPEG entropy coder, the full host JPEG decode
+and the glyph rasterizer), built with g++ at first use and bound with
+ctypes.
 
-Two self-contained sources: ``jpeg_encode.cpp`` (quantized coefficient
-grids, dense or block-packed, → baseline JFIF bytes, Annex K Huffman
-tables) and ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and
-quant tables, which checks a payload exactly: Huffman coding is lossless; and
-the flat- and block-packed forms that feed the hybrid MJPEG decode).
+Five sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
+block-packed, → baseline JFIF bytes, Annex K Huffman tables),
+``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
+which checks a payload exactly: Huffman coding is lossless; and the flat-
+and block-packed forms that feed the hybrid MJPEG decode), ``jpeg_host.cpp``
+(the full decode to BGR on the host, libjpeg-turbo's default decode without
+libjpeg), ``png_filter.cpp`` (the PNG reader's scanline unfiltering) and
+``text_raster.cpp`` (put_text's glyph rasterizer).
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -28,7 +32,8 @@ from typing import Optional
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp")
+SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp", _HERE / "jpeg_host.cpp",
+           _HERE / "png_filter.cpp", _HERE / "text_raster.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "rustcv_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -85,6 +90,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         i16p, i16p, i16p, ctypes.c_int, intp, intp, intp, intp,
         ctypes.c_int, ctypes.c_int, u16p, u16p, u8p, ctypes.c_long,
     ]
+    lib.rcv_text_glyph.restype = ctypes.c_int
+    lib.rcv_text_glyph.argtypes = [i32p, u8p, ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.rcv_png_unfilter.restype = ctypes.c_int
+    lib.rcv_png_unfilter.argtypes = [u8p, ctypes.c_long, ctypes.c_int, ctypes.c_long, ctypes.c_int,
+                                     u8p]
+    lib.rcv_jpeg_decode_bgr.restype = ctypes.c_int
+    lib.rcv_jpeg_decode_bgr.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, ctypes.c_int,
+                                        ctypes.c_int]
     lib.rcv_jpeg_entropy_encode_packed.restype = ctypes.c_long
     lib.rcv_jpeg_entropy_encode_packed.argtypes = [
         u8p, i16p, ctypes.c_int, i32p, i16p, ctypes.c_int,
@@ -184,6 +199,7 @@ def jpeg_entropy_info(data: "np.ndarray | bytes") -> dict:
 
 
 _OVER_CAPACITY = -24  # the decoder's return code when the packed buffers are full
+_UNSUPPORTED_SAMPLING = -40  # jpeg_host.cpp's, for sampling it does not upsample
 
 
 def _u16_tables():
@@ -361,3 +377,73 @@ def jpeg_entropy_encode_packed(idx: np.ndarray, val: np.ndarray, dense_ids: np.n
     if n < 0:
         raise ValueError(f"JPEG packed entropy encode failed (rc={n})")
     return out[:n].tobytes()
+
+
+def text_glyph(points: np.ndarray, on_curve: np.ndarray, ends: np.ndarray, canvas: np.ndarray,
+               org: tuple, clip: tuple) -> None:
+    """Rasterize one glyph outline (``text_raster.cpp``) and compose it over
+    ``canvas`` (C-contiguous (H, W) u8, in place) as Pillow composes glyphs.
+
+    ``points`` int32 [P, 2] 26.6, ``on_curve`` u8 [P], ``ends`` int32 [C]
+    (each contour's last point); the outline's origin is put at canvas
+    column ``org[0]``, on the baseline under row ``org[1] - 1``; only
+    ``clip`` = (x0, y0, x1, y1) is written."""
+    lib = _need_lib()
+    if canvas.dtype != np.uint8 or canvas.ndim != 2 or not canvas.flags.c_contiguous:
+        raise ValueError("canvas must be a C-contiguous (H, W) uint8 array")
+    pts = np.ascontiguousarray(points, np.int32)
+    on = np.ascontiguousarray(on_curve, np.uint8)
+    e = np.ascontiguousarray(ends, np.int32)
+    rc = lib.rcv_text_glyph(_ptr(pts, ctypes.c_int32), _ptr(on), len(pts), _ptr(e, ctypes.c_int32),
+                            len(e), int(org[0]), int(org[1]), _ptr(canvas), canvas.shape[1],
+                            canvas.shape[0], *map(int, clip))
+    if rc != 0:
+        raise ValueError(f"malformed glyph outline (rcv_text_glyph rc={rc})")
+
+
+def jpeg_size(data: "np.ndarray | bytes") -> tuple:
+    """(width, height) from a baseline JPEG's frame header."""
+    info, _ = _info(_need_lib(), _as_u8_buf(data))
+    return info["width"], info["height"]
+
+
+def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Full host decode of a baseline JPEG (``jpeg_host.cpp``: the port's
+    entropy decoder, the integer islow IDCT, fancy upsampling, the integer
+    YCbCr tables; no libjpeg) → BGR (H, W, 3) u8.
+
+    ``out`` (optional) is written in place: an (H, W, 3) u8 array whose
+    rows may be strided (a Mat's padded rows), with unit pixel and channel
+    strides. Raises ValueError for a corrupt or unsupported stream."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    w, h = jpeg_size(buf)
+    if out is None:
+        out = np.empty((h, w, 3), np.uint8)
+    if (out.shape != (h, w, 3) or out.dtype != np.uint8 or out.strides[1:] != (3, 1)
+            or not out.flags.writeable):
+        raise ValueError(f"out must be a writable ({h}, {w}, 3) uint8 array with packed pixels")
+    rc = lib.rcv_jpeg_decode_bgr(_ptr(buf), buf.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                 out.strides[0], w, h)
+    if rc == _UNSUPPORTED_SAMPLING:
+        from ..core.errors import not_ported
+
+        raise not_ported("the host JPEG decode of sampling factors other than 1x1, 2x1 and 2x2",
+                         item="16")
+    if rc != 0:
+        raise ValueError(f"JPEG decode failed (rcv_jpeg_decode_bgr rc={rc})")
+    return out
+
+
+def png_unfilter(raw: bytes, height: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Undo PNG's per-row filters (``png_filter.cpp``): ``raw`` is the
+    inflated image data, ``height`` rows of a filter byte and ``row_bytes``
+    bytes; returns (height, row_bytes) u8. Raises ValueError for a bad
+    filter type or short data."""
+    lib = _need_lib()
+    buf = _as_u8_buf(raw)
+    out = np.empty((height, row_bytes), np.uint8)
+    rc = lib.rcv_png_unfilter(_ptr(buf), buf.size, height, row_bytes, bpp, _ptr(out))
+    if rc != 0:
+        raise ValueError("corrupt PNG image data" if rc == -2 else "unknown PNG filter type")
+    return out

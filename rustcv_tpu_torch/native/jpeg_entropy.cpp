@@ -229,6 +229,9 @@ struct Decoder {
               comp[c].v > 4 || comp[c].tq > 3)
             return -6;
         }
+        // A lone component's scan is not interleaved: its MCU is one block
+        // whatever sampling factors the frame header gives it.
+        if (ncomp == 1) comp[0].h = comp[0].v = 1;
       } else if (m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
         return -7;  // progressive/arithmetic unsupported
       } else if (m == 0xC4) {  // DHT

@@ -11,10 +11,13 @@ device; the engine's pipeline decodes every uncompressed format with it.
   (``golden``) there; the bytes are the same.
 - :func:`decode_to_device` decodes a Frame to a (H, W, 3) u8 tensor on a
   device: the raw bytes are uploaded and converted there. MJPEG takes the
-  hybrid decode (:mod:`.jpeg_tpu`) with ``mjpeg_hybrid=True``.
+  hybrid decode (:mod:`.jpeg_tpu`) with ``mjpeg_hybrid=True``, else the
+  full host decode, uploaded.
 
-The full-host MJPEG decode (PIL or libjpeg-turbo in the reference) is not
-ported and raises ``not_ported``.
+The full host decode of MJPEG (:func:`decode_mjpeg_host`) is the port's C++
+decoder (:func:`..native.jpeg_decode_bgr`): libjpeg-turbo's default decode,
+which the reference gets from libjpeg-turbo or Pillow, with no libjpeg. It
+writes BGR rows straight into the destination, at its stride.
 """
 
 from __future__ import annotations
@@ -24,13 +27,34 @@ import warnings
 import numpy as np
 import torch
 
-from ..core.errors import NEEDS_HOST_JPEG, DecodeError, not_ported
+from ..core.errors import DecodeError
 from ..core.pixel_format import PixelFormat
 from . import color
 
 
-def _full_host_mjpeg() -> NotImplementedError:
-    return not_ported("the full-host MJPEG decode", NEEDS_HOST_JPEG, "8")
+def decode_mjpeg_host(data, out=None) -> np.ndarray:
+    """MJPEG → (H, W, 3) BGR u8 on the host, into ``out`` when given (an
+    (H, W, 3) array whose rows may be strided, e.g. a Mat's ``array``).
+    A corrupt frame raises DecodeError."""
+    from .. import native
+
+    try:
+        return native.jpeg_decode_bgr(data, out=out)
+    except ValueError as e:
+        raise DecodeError(f"JPEG decompress: {e}") from e
+
+
+def decode_mjpeg_into_mat(data, mat) -> None:
+    """MJPEG → BGR decoded straight into the Mat's (stride-aware) host
+    buffer, the Mat sized from the JPEG header."""
+    from .. import native
+
+    try:
+        w, h = native.jpeg_size(data)
+    except ValueError as e:
+        raise DecodeError(f"JPEG decompress: {e}") from e
+    mat.ensure_size(h, w, 3)
+    decode_mjpeg_host(data, out=mat.array)
 
 
 def _raw_tensor(frame) -> torch.Tensor:
@@ -89,7 +113,8 @@ def decode_frame_host(frame, mat) -> None:
     w, h = frame.width, frame.height
     fmt = frame.pixel_format
     if fmt == PixelFormat.MJPEG:
-        raise _full_host_mjpeg()
+        decode_mjpeg_into_mat(frame.data, mat)
+        return
     flip = _check_bottom_up(frame)
     bgr = convert_on_device(_raw_tensor(frame), fmt, w, h)
     mat.ensure_size(h, w, 3)
@@ -104,7 +129,8 @@ def decode_to_device(frame, device="cuda", mjpeg_hybrid: bool = False) -> torch.
 
     ``mjpeg_hybrid=True`` decodes MJPEG by the coefficient-level path: the
     C++ entropy decode on the host, dequantization, IDCT, upsampling and
-    colour on ``device`` (:mod:`.jpeg_tpu`)."""
+    colour on ``device`` (:mod:`.jpeg_tpu`); otherwise MJPEG is decoded on
+    the host and uploaded, as in the reference."""
     from ..core.mat import torch_device
 
     dev = torch_device(device)
@@ -114,7 +140,7 @@ def decode_to_device(frame, device="cuda", mjpeg_hybrid: bool = False) -> torch.
             from . import jpeg_tpu
 
             return jpeg_tpu.decode_jpeg_tpu(frame.data, dev)
-        raise _full_host_mjpeg()
+        return torch.from_numpy(decode_mjpeg_host(frame.data)).to(dev)
     flip = _check_bottom_up(frame)
     out = convert_on_device(_raw_tensor(frame).to(dev), fmt, frame.width, frame.height)
     return out.flip(-3) if flip else out

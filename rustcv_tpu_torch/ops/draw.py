@@ -1,5 +1,5 @@
 """Drawing on BGR images (port of ``rustcv_tpu.ops.draw``'s rectangle,
-line, circle, mask-paint and filled-polygon ops).
+line, circle, mask-paint, filled-polygon and text-blend ops).
 
 Each op is a masked select over the whole image that returns a new image:
 the per-pixel mask is computed on an (H, W) grid and painted on the (H, W,
@@ -13,6 +13,13 @@ its edge overdraw when ``thickness`` exceeds the rectangle's size. The one
 deviation the reference's device ops also make: writes past the last
 column are clipped at the column boundary instead of bleeding into the
 next row, as ``golden.rectangle``'s flat-index check lets them.
+
+The text blends (:func:`blend_mask_at`, :func:`blend_mask_packed_batch`,
+:func:`blend_masks_packed_batch`) compute what the reference's do, the
+frozen integer blend ``(color*a + old*(255-a)) // 255`` of a coverage mask
+at a per-image origin, clipped at the borders, by gathering the mask's
+window, blending it and writing it back (the reference pads a canvas
+instead).
 
 No parameter is copied from the host with a wait for the work queued on
 the stream: a Python number is filled on the image's device (a fill is a
@@ -204,3 +211,76 @@ def fill_poly_packed(img: torch.Tensor, pts, color_bgr, include_edges: bool = Tr
         if include_edges:
             edge = edge | _stroke(xs, ys, x1, y1, x2, y2, 1)
     return _paint(img, inside | edge, color_bgr)
+
+
+def _blend_windows(img: torch.Tensor, masks3: torch.Tensor, orgs: torch.Tensor,
+                   color: torch.Tensor) -> torch.Tensor:
+    """The clipped text blend on packed rows: ``img`` (N, H, W*3) u8,
+    ``masks3`` (N or 1, mh, mw*3) u8 coverage repeated per channel,
+    ``orgs`` (N, 2) int64 top-left (x, y) pixels, ``color`` (3,) int32.
+    Returns a new image."""
+    n, h, w3 = img.shape
+    mh, mw3 = masks3.shape[-2], masks3.shape[-1]
+    dev = img.device
+    rows = orgs[:, 1:2] + torch.arange(mh, device=dev)  # (N, mh)
+    cols = orgs[:, 0:1] * 3 + torch.arange(mw3, device=dev)  # (N, mw3)
+    inside = (((rows >= 0) & (rows < h))[:, :, None]
+              & ((cols >= 0) & (cols < w3))[:, None, :])  # (N, mh, mw3)
+    src = ((torch.arange(n, device=dev)[:, None, None] * h + rows.clamp(0, h - 1)[:, :, None]) * w3
+           + cols.clamp(0, w3 - 1)[:, None, :])
+    flat = img.reshape(-1)
+    region = flat[src].to(torch.int32)
+    a = masks3.to(torch.int32)
+    lane_color = color[torch.arange(mw3, device=dev) % 3]
+    blended = ((lane_color * a + region * (255 - a)) // 255).to(torch.uint8)
+    # Pixels off the image go to scratch slots past the end, one each, so
+    # every index written is distinct.
+    total = flat.numel()
+    scratch = total + torch.arange(src.numel(), device=dev).reshape(src.shape)
+    out = torch.empty(total + src.numel(), dtype=torch.uint8, device=dev)
+    out[:total].copy_(flat)
+    out.index_copy_(0, torch.where(inside, src, scratch).reshape(-1), blended.reshape(-1))
+    return out[:total].reshape(img.shape)
+
+
+def _mask3(mask, dev: torch.device) -> torch.Tensor:
+    """A (..., mh, mw) coverage mask repeated ×3 along columns for packed
+    rows, on ``dev`` (a host mask is repeated on the host and uploaded
+    from pinned memory without waiting for the stream)."""
+    if isinstance(mask, torch.Tensor):
+        return mask.to(dev).repeat_interleave(3, dim=-1)
+    return _on(np.repeat(np.asarray(mask, np.uint8), 3, axis=-1), torch.uint8, dev)
+
+
+def blend_mask_packed_batch(img: torch.Tensor, mask3, orgs, color_bgr) -> torch.Tensor:
+    """Batched text blend on packed-rows BGR (N, H, W*3) with one mask for
+    every stream: ``mask3`` (mh, mw*3) u8, the coverage repeated ×3 along
+    columns; ``orgs`` (N, 2) top-left (x, y) pixels per stream;
+    ``color_bgr`` (3,). The frozen integer blend, clipped at the borders."""
+    dev = img.device
+    m = mask3 if isinstance(mask3, torch.Tensor) else _on(mask3, torch.uint8, dev)
+    return _blend_windows(img, m.to(dev)[None], _on(orgs, torch.int64, dev).reshape(-1, 2),
+                          _on(color_bgr, torch.int32, dev))
+
+
+def blend_masks_packed_batch(img: torch.Tensor, masks3, orgs, color_bgr) -> torch.Tensor:
+    """Per-stream text blend: :func:`blend_mask_packed_batch` with a mask
+    per stream (``masks3`` (N, mh, mw*3) u8; differing strings padded to a
+    common canvas)."""
+    dev = img.device
+    m = masks3 if isinstance(masks3, torch.Tensor) else _on(masks3, torch.uint8, dev)
+    return _blend_windows(img, m.to(dev), _on(orgs, torch.int64, dev).reshape(-1, 2),
+                          _on(color_bgr, torch.int32, dev))
+
+
+def blend_mask_at(img: torch.Tensor, mask, x0: int, y0: int, color_bgr) -> torch.Tensor:
+    """Blend a (mh, mw) u8 coverage mask onto BGR (..., H, W, 3) u8 with its
+    top-left corner at (x0, y0) in every image: the frozen integer blend
+    (golden.blend_mask), clipped at the borders. Returns a new image."""
+    dev = img.device
+    h, w = img.shape[-3], img.shape[-2]
+    packed = img.reshape(-1, h, w * 3)
+    orgs = np.tile(np.array([[int(x0), int(y0)]], np.int64), (packed.shape[0], 1))
+    out = _blend_windows(packed, _mask3(mask, dev)[None], _on(orgs, torch.int64, dev),
+                         _on(color_bgr, torch.int32, dev))
+    return out.reshape(img.shape)

@@ -1,7 +1,9 @@
 """Frozen numpy specs the port needs from ``rustcv_tpu.ops.golden`` (its
 own copy: the JAX package keeps them in a module that imports jax).
 
-The rotated-ellipse mask that ``imgproc.ellipse`` paints; the Bayer CFA
+The rotated-ellipse mask that ``imgproc.ellipse`` paints; the text
+blend (:func:`blend_mask`) that ``put_text`` makes on a host Mat and the
+device blends of :mod:`.draw` are held against; the Bayer CFA
 patterns, the mosaic the simulated sensors send, and the integer bilinear
 demosaic oracle that :func:`.color.demosaic_bilinear` computes on the
 device: at each site the missing channels are the rounded
@@ -102,3 +104,24 @@ def ellipse_mask(h: int, w: int, center, axes, angle_deg: float,
         inner = inside(a0 - (t + 1) // 2, b0 - (t + 1) // 2)
         m = outer & ~inner
     return m.astype(np.uint8) * 255
+
+
+def blend_mask(img: np.ndarray, mask: np.ndarray, x0: int, y0: int, color_bgr: tuple) -> None:
+    """Alpha-blend a coverage mask onto a BGR image, in place: the frozen
+    integer blend ``new = (color*a + old*(255-a)) // 255`` with a in
+    [0, 255] (``drawing.rs:123-163``'s float blend, truncated).
+
+    ``img``: (rows, cols, 3) u8 view; ``mask``: (mh, mw) u8 coverage;
+    (x0, y0): top-left placement. Parts off the image are clipped."""
+    rows, cols = img.shape[:2]
+    mh, mw = mask.shape
+    sy, sx = max(0, -y0), max(0, -x0)
+    ey = min(mh, rows - y0)
+    ex = min(mw, cols - x0)
+    if sy >= ey or sx >= ex:
+        return
+    sub = img[y0 + sy : y0 + ey, x0 + sx : x0 + ex].astype(np.int32)
+    a = mask[sy:ey, sx:ex].astype(np.int32)[..., None]
+    color = np.array(color_bgr, dtype=np.int32)
+    blended = (color * a + sub * (255 - a)) // 255
+    img[y0 + sy : y0 + ey, x0 + sx : x0 + ex] = blended.astype(np.uint8)

@@ -1,7 +1,7 @@
 """MultiStreamEngine — batched execution of N capture streams on one CUDA
 device (port of ``rustcv_tpu.runtime.engine``).
 
-Three ways a tick gets its frames:
+Four ways a tick gets its frames:
 
 * ``device_sim=True``: each stream's wire-format frame is synthesized on
   the device from its sequence number (:mod:`rustcv_tpu_torch.ops.synth`:
@@ -24,6 +24,11 @@ Three ways a tick gets its frames:
   the device does the rest (:mod:`rustcv_tpu_torch.ops.jpeg_tpu`). A tick
   whose busy blocks overflow the escape runs a second program on the
   dense coefficient grids.
+* the full-host MJPEG path (``mjpeg_backend="host"``): the gather pool
+  decodes each stream's frame to BGR with the port's C++ decoder
+  (:func:`rustcv_tpu_torch.native.jpeg_decode_bgr`) straight into its row
+  of the pinned staging, and one ``non_blocking`` upload per tick follows,
+  as on the host-staged path.
 
 A failing source does not end a host tick: its stream reuses its previous
 staging row, the fault is counted in ``stream_errors`` and the tick reports
@@ -53,7 +58,7 @@ import torch
 from .. import native
 from ..capture.source import Driver, FrameSource
 from ..core.config import ResolvedConfig, SimpleConfig
-from ..core.errors import NEEDS_HOST_JPEG, NEEDS_PILLOW, CameraError, DecodeError, not_ported
+from ..core.errors import CameraError, DecodeError, not_ported
 from ..core.pixel_format import PixelFormat
 from ..ops import jpeg_encode as _jenc
 from ..ops import jpeg_tpu as _jpeg
@@ -182,8 +187,9 @@ class MultiStreamEngine:
     ):
         """``device_sim=True`` synthesizes frames on the device; otherwise
         frames come from the sources through host staging (raw formats) or, for
-        MJPEG, through the host entropy decode (``mjpeg_backend="hybrid"``;
-        the full-host decode, ``"host"``, is not ported). ``decode_workers``
+        MJPEG, through the full host decode to BGR staging
+        (``mjpeg_backend="host"``) or the host entropy decode
+        (``mjpeg_backend="hybrid"``). ``decode_workers``
         threads gather the streams. ``sub_batch`` (device-sim only) runs the
         stream batch as chunks of that size, one after another, writing into
         preallocated outputs (must divide ``n_streams``). ``stencil_impl=None``
@@ -217,11 +223,12 @@ class MultiStreamEngine:
         if mjpeg and device_sim:
             raise CameraError("device_sim does not support MJPEG streams")
         self._mjpeg_hybrid = mjpeg and mjpeg_backend == "hybrid"
-        if mjpeg and not self._mjpeg_hybrid:
-            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')",
-                              NEEDS_HOST_JPEG, "8")
-        if self._mjpeg_hybrid and not native.available():
-            raise CameraError(f"mjpeg_backend='hybrid' needs the native coder: {native.build_error()}")
+        # The full-host decode: the gather pool decodes each frame to BGR
+        # straight into its pinned staging row (native.jpeg_decode_bgr).
+        self._mjpeg_host = mjpeg and not self._mjpeg_hybrid
+        if mjpeg and not native.available():
+            raise CameraError(f"mjpeg_backend={mjpeg_backend!r} needs the native coder: "
+                              f"{native.build_error()}")
         if stencil_impl is None:
             stencil_impl = "pallas" if self.device.type == "cuda" else "xla"
         pack_k = pack_cap = 0
@@ -244,6 +251,7 @@ class MultiStreamEngine:
             emit_bgr=emit_bgr,
             stencil_impl=stencil_impl,
             mjpeg_hybrid=self._mjpeg_hybrid,
+            mjpeg_staged_bgr=self._mjpeg_host,
             encode_jpeg=int(encode_jpeg_quality),
             encode_subsampling=encode_subsampling,
             encode_packed=pack_k,
@@ -277,6 +285,8 @@ class MultiStreamEngine:
         self._seqs = np.zeros(self.n, np.int64)  # the device-sim stream clock
         self._seqs_dev = None
         self._overlay_cache = None  # (content key, device args)
+        self._text_cache = None  # ((text, scale), (device masks, dx, dy))
+        self._text_params = None  # ((x, y, colour), (device origins, device colour))
         self._sim_t0 = time.monotonic()
         self._frame_pool = None
         self._chains: Dict[int, _Chain] = {}  # run_chained's chains by length (CUDA graphs)
@@ -495,7 +505,17 @@ class MultiStreamEngine:
         try:
             frame = self._sources[i].next_frame()
             seqs[i] = frame.sequence
-            staging[i] = frame.data.reshape(-1)
+            if self._mjpeg_host:
+                w, h = self._resolved.width, self._resolved.height
+                try:
+                    got = native.jpeg_size(frame.data)
+                    if got != (w, h):
+                        raise CameraError(f"stream {i} geometry {got} != negotiated ({w}, {h})")
+                    native.jpeg_decode_bgr(frame.data, out=staging[i].reshape(h, w, 3))
+                except ValueError as e:  # a corrupt frame: a stream fault
+                    raise DecodeError(str(e)) from e
+            else:
+                staging[i] = frame.data.reshape(-1)
         except CameraError as e:
             self.stream_errors[i] += 1
             seqs[i] = -1
@@ -724,18 +744,21 @@ class MultiStreamEngine:
         rect_colors: Optional[np.ndarray] = None,
         thickness: int = 2,
         block: bool = False,
-        text: Optional[str] = None,
+        text=None,
+        text_org: Tuple[int, int] = (10, 30),
+        text_scale: float = 1.0,
+        text_color: Tuple[int, int, int] = (0, 255, 255),
         pregathered=None,
     ) -> TickResult:
         """One batched step. ``block=False`` leaves the outputs in flight on
         the device's stream; ``block=True`` waits for them by fetching the
         one-element ``_sync`` output. ``pregathered`` (host paths) is a
         gather made ahead, as :meth:`run`'s prefetch thread makes it.
+        ``text`` (a string for every stream, or a list of N) is blended onto
+        the BGR output with its baseline at ``text_org`` (:meth:`_apply_text`).
 
         Overlay args are cached by content: a changed value is uploaded
         again, an unchanged one costs no transfer."""
-        if text is not None:
-            raise not_ported("text overlay (text=)", NEEDS_PILLOW + " (glyph rasterization)", "8")
         r, c, th = self._overlay_args(rects, rect_colors, thickness)
         if self._device_sim:
             if getattr(self._driver, "paced", False):
@@ -757,11 +780,57 @@ class MultiStreamEngine:
         else:
             fn, x, seqs = self._staged_inputs(pregathered)
             out = fn(x, r, c, th)
+        if text is not None and "bgr" in out and out["bgr"].ndim == 3:
+            out = dict(out)
+            out["bgr"] = self._apply_text(out["bgr"], text, text_org, text_scale, text_color)
         if block:
             out["_sync"].cpu()  # a device→host copy waits for the tick
         res = TickResult(out, seqs, self._tick_index)
         self._tick_index += 1
         return res
+
+    def _apply_text(self, bgr_packed: torch.Tensor, text, org, scale, color) -> torch.Tensor:
+        """Text overlay on packed-rows BGR (N, H, W*3), after the pipeline.
+
+        ``text`` is one string for every stream or a list of N (per-camera
+        FPS counters, names). Masks are rasterized on the host per (text,
+        scale) with bucketed canvases, repeated ×3 for the packed layout and
+        kept on the device in a one-entry cache; the origins and the colour
+        in another. A change uploads from pinned memory without waiting for
+        the stream; an unchanged overlay uploads nothing."""
+        from ..ops import draw as _draw
+        from ..ops import text as _text
+
+        per_stream = isinstance(text, (list, tuple))
+        key = (tuple(text) if per_stream else text, float(scale))
+        if self._text_cache is None or self._text_cache[0] != key:
+            self._text_cache = None  # keep one live mask set (bounded memory)
+            if per_stream:
+                if len(text) != self.n:
+                    raise ValueError(f"need {self.n} strings, got {len(text)}")
+                rendered = [_text.rasterize(t, scale) for t in text]
+                mh = max(m.shape[0] for m, _, _ in rendered)
+                mw = max(m.shape[1] for m, _, _ in rendered)
+                stack = np.zeros((self.n, mh, mw), np.uint8)
+                for i, (m, _, _) in enumerate(rendered):
+                    stack[i, : m.shape[0], : m.shape[1]] = m
+                mask3 = np.repeat(stack, 3, axis=2)
+                dx, dy = rendered[0][1], rendered[0][2]
+            else:
+                mask, dx, dy = _text.rasterize(text, scale)
+                mask3 = np.repeat(mask, 3, axis=1)
+            self._text_cache = (key, (_draw._on(mask3, torch.uint8, self.device), dx, dy))
+        mask3_dev, dx, dy = self._text_cache[1]
+        pkey = (int(org[0]) + dx, int(org[1]) + dy, tuple(int(v) for v in color))
+        if self._text_params is None or self._text_params[0] != pkey:
+            orgs = np.tile(np.array([pkey[:2]], np.int64), (self.n, 1))
+            self._text_params = (pkey, (_draw._on(orgs, torch.int64, self.device),
+                                        _draw._on(np.array(color, np.int32), torch.int32,
+                                                  self.device)))
+        orgs_dev, color_dev = self._text_params[1]
+        if per_stream:
+            return _draw.blend_masks_packed_batch(bgr_packed, mask3_dev, orgs_dev, color_dev)
+        return _draw.blend_mask_packed_batch(bgr_packed, mask3_dev, orgs_dev, color_dev)
 
     def run(
         self,

@@ -1,5 +1,6 @@
 """The per-tick pipeline (port of ``rustcv_tpu.runtime.pipeline``: every
-uncompressed wire format and the hybrid MJPEG reconstruction).
+uncompressed wire format, the full-host MJPEG decode's BGR staging and the
+hybrid MJPEG reconstruction).
 
 ``raw u8 [N, raw_bytes] → decode → (resize) → (filter) → (overlay) → (JPEG
 encode) → outputs`` for a batch of N streams, as a plain function on
@@ -30,8 +31,10 @@ kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
   ``encode_packed``, their block-packed form and its byte blob for the
   host Huffman coder; plain PyTorch, the DCT a float32 ``torch.matmul``.
 
-Specs this port does not run yet (the full-host MJPEG decode,
-``RUSTCV_DECODE=xla_fused``) raise ``NotImplementedError``.
+For the full-host MJPEG decode the staged bytes are already BGR24 (or
+RGB24), decoded on the host, and go through that format's decode.
+``RUSTCV_DECODE=xla_fused``, which this port does not run yet, raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.errors import NEEDS_HOST_JPEG, not_ported
+from ..core.errors import not_ported
 from ..core.pixel_format import PixelFormat
 
 from ..ops import color as _color
@@ -88,9 +91,7 @@ class PipelineSpec:
 
     def raw_bytes(self) -> int:
         """Bytes of one stream's staging row: BGR for MJPEG (the full-host
-        decode stages BGR or RGB), else the wire format's size. The MJPEG
-        branch is kept for parity with the reference: the full-host decode
-        is not ported, so no engine stages MJPEG this way yet."""
+        decode stages BGR or RGB), else the wire format's size."""
         if self.pixel_format == PixelFormat.MJPEG:
             return self.width * self.height * 3
         return self.pixel_format.buffer_size(self.width, self.height)
@@ -111,9 +112,6 @@ def decode_mode() -> str:
 def _check_ported(spec: PipelineSpec, mode: str) -> None:
     fmt = spec.pixel_format
     if fmt == PixelFormat.MJPEG:
-        if spec.mjpeg_staged_bgr or not spec.mjpeg_hybrid:
-            raise not_ported("the full-host MJPEG decode (mjpeg_backend='host')",
-                              NEEDS_HOST_JPEG, "8")
         if spec.mjpeg_packed and len(spec.coeff_geometry) != 3:
             raise ValueError("mjpeg_packed needs coeff_geometry: (bh, bw) of Y, Cb and Cr")
     elif spec.mjpeg_hybrid or spec.mjpeg_packed:

@@ -6,7 +6,9 @@ config 6's transcode, every wire format, the chained tick as a CUDA graph
 and the resolution swap against each other and against the CPU; and the
 OpenCV-style facade: a Mat's device round trip, draws on a CUDA Mat
 against a host Mat (with no blocking copy), ``harris_corners`` on a CUDA
-Mat through K6, ``VideoCapture``'s device decode and the JPEG codecs.
+Mat through K6, ``VideoCapture``'s device decode and the JPEG codecs; the
+text blends, ``put_text`` on a CUDA Mat (no blocking copy), the engine's
+text overlay and ``mjpeg_backend="host"`` against their CPU forms.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -648,12 +650,112 @@ def test_videocapture_and_codecs_on_the_card(cuda):
         host.release()
         card.release()
         default.release()
-    data = imgcodecs.imencode(".jpg", b, 90)
+    data = imgcodecs.imencode(".jpg", b, 90, backend="tpu")
     cpu = imgcodecs.imencode(".jpg", Mat.from_array(a.to_numpy(), device="cpu"), 90)
     for got, want in zip(native.jpeg_entropy_decode(data)[1], native.jpeg_entropy_decode(cpu)[1]):
         d = np.abs(got.astype(np.int64) - want)
         assert d.max() <= 1 and (d > 0).mean() < 5e-3
-    dec = imgcodecs.imdecode(data)
+    dec = imgcodecs.imdecode(data, backend="tpu")
     assert dec.device().is_cuda
-    d = np.abs(dec.to_numpy().astype(np.int64) - imgcodecs.imdecode(data, device="cpu").to_numpy())
+    want = imgcodecs.imdecode(data, backend="tpu", device="cpu").to_numpy()
+    d = np.abs(dec.to_numpy().astype(np.int64) - want)
     assert d.max() <= 1 and (d > 0).mean() < 5e-3
+    host = imgcodecs.imdecode(data)  # the host decode, uploaded to the card
+    assert host.device().is_cuda
+    np.testing.assert_array_equal(host.to_numpy(), native.jpeg_decode_bgr(data))
+
+
+# -- text and the host codecs (what Pillow does in the reference) ---------------------
+
+
+def test_text_blends_on_the_card_match_the_host(cuda):
+    """The three device blends on CUDA tensors equal golden.blend_mask, and
+    make no blocking copy (the masks, origins and colour come from pinned
+    memory)."""
+    from rustcv_tpu_torch.ops import draw, golden
+
+    rng = np.random.default_rng(7)
+    n, h, w = 3, 40, 70
+    imgs = rng.integers(0, 256, (n, h, w, 3), np.uint8)
+    masks = rng.integers(0, 256, (n, 12, 33), np.uint8)
+    orgs = np.array([[5, 4], [-10, -3], [60, 35]], np.int64)
+    color = (3, 200, 77)
+    dev = torch.from_numpy(imgs).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        at = draw.blend_mask_at(dev, masks[0], -4, 30, color)
+        one = draw.blend_mask_packed_batch(dev.reshape(n, h, w * 3), np.repeat(masks[0], 3, 1),
+                                           orgs, color)
+        per = draw.blend_masks_packed_batch(dev.reshape(n, h, w * 3), np.repeat(masks, 3, 2),
+                                            orgs, color)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i in range(n):
+        for got, m, (x0, y0) in ((at, masks[0], (-4, 30)), (one, masks[0], orgs[i]),
+                                 (per, masks[i], orgs[i])):
+            want = imgs[i].copy()
+            golden.blend_mask(want, m, int(x0), int(y0), color)
+            np.testing.assert_array_equal(got.reshape(n, h, w, 3)[i].cpu().numpy(), want)
+
+
+def test_put_text_on_a_cuda_mat_matches_a_host_mat(cuda):
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.core import Mat
+
+    img = np.random.default_rng(8).integers(0, 256, (120, 160, 3), np.uint8)
+    dev, host = Mat.from_array(img), Mat.from_array(img, device="cpu")
+    dev.device()
+    for mat, sync in ((dev, True), (host, False)):
+        if sync:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for org, scale in (((5, 30), 1.0), ((-9, 118), 2.0), ((140, 10), 0.6)):
+                imgproc.put_text(mat, "FPS: 29.97 fi AV", imgproc.Point(*org), scale,
+                                 imgproc.Scalar(0, 255, 255))
+        finally:
+            if sync:
+                torch.cuda.set_sync_debug_mode(0)
+    assert dev.is_on_device and dev.device().is_cuda
+    np.testing.assert_array_equal(dev.to_numpy(), host.to_numpy())
+
+
+@pytest.mark.parametrize("mode", [None, "pallas", "pallas_tick"])
+def test_engine_text_on_the_card_matches_the_cpu(cuda, monkeypatch, mode):
+    if mode is None:
+        monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    else:
+        monkeypatch.setenv("RUSTCV_DECODE", mode)
+    cfg = SimpleConfig(width=160, height=120, fps=60, pixel_format=PixelFormat.YUYV)
+
+    def make(device):
+        return MultiStreamEngine(SimulationDriver(device_count=2, paced=False), 2, cfg,
+                                 filter="blur_sobel", overlay=True, device_sim=True, device=device)
+
+    card, cpu = make("cuda"), make("cpu")
+    try:
+        for text in ("FPS 60.0", ["cam 0 fi", "cam 1 AV"], ["x", "Wa"]):
+            a = card.tick(block=True, text=text, text_org=(4, 40)).numpy("bgr")
+            b = cpu.tick(block=True, text=text, text_org=(4, 40)).numpy("bgr")
+            np.testing.assert_array_equal(a, b)
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_mjpeg_backend_host_on_the_card_matches_the_cpu(cuda):
+    cfg = SimpleConfig(width=160, height=120, fps=30, pixel_format=PixelFormat.MJPEG)
+
+    def make(device):
+        return MultiStreamEngine(SimulationDriver(device_count=2, paced=False), 2, cfg,
+                                 mjpeg_backend="host", resize_to=(64, 48), device=device)
+
+    card, cpu = make("cuda"), make("cpu")
+    try:
+        for _ in range(3):
+            np.testing.assert_array_equal(card.tick(block=True).numpy("bgr"),
+                                          cpu.tick(block=True).numpy("bgr"))
+    finally:
+        card.close()
+        cpu.close()

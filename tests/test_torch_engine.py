@@ -21,7 +21,7 @@ import rustcv_tpu.runtime.pipeline as jax_pipeline
 from rustcv_tpu.capture import SimulationDriver as JaxDriver
 from rustcv_tpu.runtime import MultiStreamEngine as JaxEngine
 from rustcv_tpu_torch import core, models
-from rustcv_tpu_torch.core import PixelFormat, SimulationError
+from rustcv_tpu_torch.core import CameraError, PixelFormat, SimulationError
 from rustcv_tpu_torch.capture import SimulationDriver
 from rustcv_tpu_torch.ops import kernels
 from rustcv_tpu_torch.runtime import MultiStreamEngine
@@ -278,11 +278,12 @@ def _device_sim_tick(fmt):
     [
         pytest.param(lambda mp: MultiStreamEngine(
             SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48, PixelFormat.MJPEG),
-            mjpeg_backend="host", device="cpu"), NotImplementedError, "ROADMAP", id="mjpeg_host"),
+            mjpeg_backend="host", device_sim=True, device="cpu"), CameraError,
+            "device_sim does not support MJPEG", id="mjpeg_host"),
         pytest.param(lambda mp: _port(64, 48, 1, mesh=object()), NotImplementedError, "ROADMAP",
                      id="mesh"),
-        pytest.param(lambda mp: _port(64, 48, 1).tick(text="hi"), NotImplementedError, "ROADMAP",
-                     id="text"),
+        pytest.param(lambda mp: _port(64, 48, 1).tick(text="héllo"), NotImplementedError,
+                     "ROADMAP queue 1 item 16", id="text"),
         pytest.param(_decode_xla_fused, NotImplementedError, "ROADMAP", id="xla_fused"),
         pytest.param(_device_sim_tick(PixelFormat.UYVY), SimulationError, "cannot encode",
                      id="uyvy"),

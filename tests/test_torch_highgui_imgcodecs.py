@@ -3,13 +3,16 @@ the CPU.
 
 highgui: the same calls on both packages' headless sinks (the suite's
 conftest sets ``RUSTCV_GUI=0``) give the same window frames, names and
-keys. imgcodecs: the port encodes on the Mat's device (here a CPU tensor)
-and codes with its own C++ coder; its quantized coefficients are held to
-the reference encoder's own tolerance, as in ``tests/test_torch_encode.py``
-(max |diff| <= 1 on a share < 5e-3), and its bytes are the reference's
-wherever the coefficients are equal. Its decode agrees with the reference's
-hybrid decode of the same bytes within ``tests/test_torch_mjpeg.py``'s
-tolerance (max |diff| <= 1 on < 0.5 % of bytes)."""
+keys. imgcodecs' JPEG: the port encodes with its encoder on a CPU tensor
+(the default host backend) or the Mat's device (``"tpu"``, here a CPU
+tensor too) and codes with its own C++ coder; its quantized coefficients
+are held to the reference encoder's own tolerance, as in
+``tests/test_torch_encode.py`` (max |diff| <= 1 on a share < 5e-3), and its
+bytes are the reference's wherever the coefficients are equal. Its ``"tpu"``
+decode agrees with the reference's hybrid decode of the same bytes within
+``tests/test_torch_mjpeg.py``'s tolerance (max |diff| <= 1 on < 0.5 % of
+bytes); its default host decode equals the reference's default (Pillow)
+decode. The other formats are ``tests/test_torch_codecs_host.py``'s."""
 
 import time
 
@@ -113,10 +116,14 @@ def test_mat_to_u32_buffer_matches_the_reference():
 
 
 def test_png_dump_is_not_ported(monkeypatch, tmp_path):
+    """The dump is ported now: each imshow writes ``{name}.png``, which the
+    reference reads back as the frame, and leaves no temporary file."""
     monkeypatch.setenv("RUSTCV_TPU_DISPLAY_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Pillow.*ROADMAP queue 1 item 8"):
-        highgui.imshow("x", Mat.from_array(_img(8, 8, 0)))
-    assert highgui.window_names() == () and not list(tmp_path.iterdir())
+    img = _img(8, 8, 0)
+    highgui.imshow("x", Mat.from_array(img))
+    assert highgui.window_names() == ("x",)
+    assert [p.name for p in tmp_path.iterdir()] == ["x.png"]
+    np.testing.assert_array_equal(jax_codecs.imread(str(tmp_path / "x.png")).to_numpy(), img)
 
 
 # -- imgcodecs ---------------------------------------------------------------------
@@ -163,9 +170,12 @@ def test_imencode_gray_and_padded_and_device_mats(coders):
 @pytest.mark.parametrize("w,h", [(64, 48), (160, 120)])
 def test_imdecode_matches_the_reference(coders, w, h):
     data = imgcodecs.imencode(".jpg", Mat.from_array(synth_bgr(w, h, 4), device="cpu"), 90)
-    got = imgcodecs.imdecode(data, device="cpu")
+    got = imgcodecs.imdecode(data, backend="tpu", device="cpu")
     assert got.is_on_device and got.device().device.type == "cpu" and got.shape == (h, w, 3)
     _within(got.to_numpy(), jax_codecs.imdecode(data, backend="tpu").to_numpy(), CLOSE)
+    host = imgcodecs.imdecode(data, device="cpu")
+    assert host.is_on_device and host.device().device.type == "cpu"
+    np.testing.assert_array_equal(host.to_numpy(), jax_codecs.imdecode(data).to_numpy())
     loss = np.abs(got.to_numpy().astype(np.int64) - synth_bgr(w, h, 4))
     assert np.median(loss) <= 1 and loss.mean() < 10  # q90 4:2:0 codec loss
 
@@ -178,8 +188,7 @@ def test_imwrite_and_imread(coders, tmp_path):
         assert imgcodecs.imwrite(path, mat)
         assert (tmp_path / name).read_bytes() == imgcodecs.imencode(".jpg", mat, 75)
         back = imgcodecs.imread(path, device="cpu")
-        _within(back.to_numpy(), jax_codecs.imdecode((tmp_path / name).read_bytes(),
-                                                     backend="tpu").to_numpy(), CLOSE)
+        np.testing.assert_array_equal(back.to_numpy(), jax_codecs.imread(path).to_numpy())
     assert not imgcodecs.imwrite(str(tmp_path / "empty.jpg"), Mat.empty())
     assert not imgcodecs.imwrite(str(tmp_path / "no_dir" / "x.jpg"), mat)
     with pytest.raises(CameraError):
@@ -192,26 +201,37 @@ def test_imwrite_and_imread(coders, tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
+    """What stays not ported of imgcodecs (TIFF, GIF, WebP, the multi-page
+    calls) names its ROADMAP item; PNG and the host backend are ported."""
     mat = Mat.from_array(_img(8, 8, 0), device="cpu")
     cases = [
-        lambda: imgcodecs.imencode(".png", mat),
-        lambda: imgcodecs.imencode(".jpg", mat, backend="host"),
-        lambda: imgcodecs.imdecode(b"\x89PNG\r\n\x1a\n", device="cpu"),
-        lambda: imgcodecs.imdecode(b"\xff\xd8", backend="host"),
-        lambda: imgcodecs.imwrite(str(tmp_path / "x.png"), mat),
-        lambda: imgcodecs.imread(str(tmp_path / "x.bmp")),
+        lambda: imgcodecs.imencode(".tiff", mat),
+        lambda: imgcodecs.imencode(".gif", mat),
+        lambda: imgcodecs.imdecode(b"GIF89a" + b"\x00" * 20, device="cpu"),
+        lambda: imgcodecs.imdecode(b"RIFF\x00\x00\x00\x00WEBPVP8 ", device="cpu"),
+        lambda: imgcodecs.imwrite(str(tmp_path / "x.webp"), mat),
+        lambda: imgcodecs.imreadmulti(str(tmp_path / "x.tif")),
     ]
     for call in cases:
-        with pytest.raises(NotImplementedError, match="Pillow.*ROADMAP queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
             call()
+    assert imgcodecs.imencode(".png", mat)[:8] == b"\x89PNG\r\n\x1a\n"
+    assert imgcodecs.imencode(".jpg", mat, backend="host")[:2] == b"\xff\xd8"
+    with pytest.raises(ValueError):
+        imgcodecs.imencode(".png", mat, backend="tpu")
     with pytest.raises(ValueError):
         imgcodecs.imencode(".jpg", mat, backend="gpu")
     assert not list(tmp_path.iterdir())
 
 
 def test_device_codec_without_the_card_raises(monkeypatch):
+    """The device codec, and a decode that lands on the default device,
+    raise where there is no card; the host encode needs none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        imgcodecs.imencode(".jpg", Mat.from_array(_img(8, 8, 0)))
+        imgcodecs.imencode(".jpg", Mat.from_array(_img(8, 8, 0)), backend="tpu")
     with pytest.raises(RuntimeError, match="cuda"):
-        imgcodecs.imdecode(b"\xff\xd8")
+        imgcodecs.imdecode(b"\xff\xd8", backend="tpu")
+    data = imgcodecs.imencode(".jpg", Mat.from_array(_img(8, 8, 0)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        imgcodecs.imdecode(data)

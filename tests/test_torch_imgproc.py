@@ -236,8 +236,9 @@ def test_processing_on_a_gray_mat():
 
 def test_what_is_not_ported_raises():
     m = Mat.from_array(_img(8, 8, seed=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Pillow.*ROADMAP queue 1 item 8"):
-        port_ip.put_text(m, "hi", port_ip.Point(1, 6), 1.0, port_ip.Scalar.all(255))
+    for text, scale in (("hi", 4.0), ("naïve", 1.0)):  # outside the font data
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+            port_ip.put_text(m, text, port_ip.Point(1, 6), scale, port_ip.Scalar.all(255))
     for mode in ("nearest", "area", "cubic"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10 and 14"):
             port_ip.resize(m, 4, 4, mode)

@@ -3,9 +3,11 @@ through the zoo, config 6 with its JPEG payloads, the host-staged path,
 config 2's hybrid MJPEG decode, NV12 and Bayer frames,
 ``convert_on_device``, ``run_chained``, ``warm_buckets`` and
 ``set_resolution``), and its OpenCV-style facade imports and runs the
-README loop without ``put_text`` (``prelude``, ``imgproc``, ``highgui``,
-``imgcodecs``, ``videoio``), with jax, Pillow and the JAX package
-``rustcv_tpu`` absent.
+README loop with ``put_text`` (``prelude``, ``imgproc``, ``highgui``,
+``imgcodecs``, ``videoio``), the text overlay, the host codecs and the
+PNG dump, the host MJPEG decode and ``mjpeg_backend="host"``, with jax,
+Pillow and the JAX package ``rustcv_tpu`` absent. The font data's
+generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -129,8 +131,8 @@ _FACADE_SCRIPT = textwrap.dedent(
     from rustcv_tpu_torch.capture import SimulationDriver
     assert not torch.cuda.is_initialized()
 
-    # The README loop without put_text: the host decode, then the device
-    # decode on the CPU, each reading 3 frames until Esc.
+    # The README loop: the host decode, then the device decode on the CPU,
+    # each reading 3 frames until Esc.
     for kwargs, mat in (({}, Mat(device="cpu")), ({"decode_on_device": True, "device": "cpu"}, Mat(device="cpu"))):
         cap = VideoCapture(0, SimulationDriver(paced=False), **kwargs)
         try:
@@ -139,6 +141,8 @@ _FACADE_SCRIPT = textwrap.dedent(
             while cap.read(mat):
                 tm.start()
                 imgproc.rectangle(mat, Rect(60, 60, 200, 150), Scalar(0, 255, 0), 2)
+                imgproc.put_text(mat, f"FPS: {tm.get_fps():.1f}", Point(10, 30), 1.0,
+                                 Scalar(0, 255, 255))
                 tm.stop()
                 highgui.imshow("demo", mat)
                 shown += 1
@@ -151,6 +155,27 @@ _FACADE_SCRIPT = textwrap.dedent(
         assert shown == 3 and tm.get_counter() == 3 and mat.shape == (720, 1280, 3)
         assert (highgui.get_window_frame("demo")[60, 60:260] == (0, 255, 0)).all()
     assert imgcodecs.imdecode(imgcodecs.imencode(".jpg", mat), device="cpu").shape == (720, 1280, 3)
+    assert (imgcodecs.imdecode(imgcodecs.imencode(".png", mat), device="cpu").to_numpy()
+            == mat.to_numpy()).all()
+    import os, tempfile
+    from rustcv_tpu_torch.ops import text
+    from rustcv_tpu_torch.imgcodecs import host
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["RUSTCV_TPU_DISPLAY_DIR"] = d
+        highgui.imshow("demo", mat)
+        del os.environ["RUSTCV_TPU_DISPLAY_DIR"]
+        back = imgcodecs.imread(os.path.join(d, "demo.png"), device="cpu")
+        assert (back.to_numpy() == mat.to_numpy()).all()
+        for ext in ("bmp", "ppm"):
+            assert imgcodecs.imwrite(os.path.join(d, "x." + ext), mat)
+    assert text.rasterize("FPS: 42.0", 1.0)[0].shape == (24, 128)
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.runtime import MultiStreamEngine
+    eng = MultiStreamEngine(SimulationDriver(device_count=2, paced=False), 2,
+                            SimpleConfig(width=64, height=48, fps=30, pixel_format=PixelFormat.MJPEG),
+                            mjpeg_backend="host", device="cpu")
+    assert eng.tick(block=True, text=["a", "b"]).numpy("bgr").shape == (2, 48, 64, 3)
+    eng.close()
     assert isinstance(videoio.create_driver("simulation"), SimulationDriver)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
@@ -193,3 +218,20 @@ def test_package_import_is_light():
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_font_data_generator_is_not_a_module_of_the_port():
+    """``tools/make_text_data.py`` needs Pillow with raqm; nothing of
+    ``rustcv_tpu_torch`` reaches it, and the package ships its output."""
+    import importlib.util
+
+    assert (REPO / "tools" / "make_text_data.py").is_file()
+    assert (REPO / "rustcv_tpu_torch" / "assets" / "dejavusans_text.npz").is_file()
+    for name in ("rustcv_tpu_torch.make_text_data", "rustcv_tpu_torch.assets.make_text_data",
+                 "rustcv_tpu_torch.tools.make_text_data"):
+        try:
+            spec = importlib.util.find_spec(name)
+        except ModuleNotFoundError:
+            spec = None
+        assert spec is None, name
+    assert not list((REPO / "rustcv_tpu_torch").rglob("make_text_data*"))

@@ -224,11 +224,15 @@ def test_decode_to_device_matches_the_host_decode():
 
 
 def test_mjpeg_host_decode_is_not_ported():
+    """The host decode of MJPEG is ported now: ``decode_bgr`` and the
+    non-hybrid ``decode_to_device`` give the reference's host decode
+    (libjpeg-turbo's, through Pillow) of the same bytes."""
+    from rustcv_tpu.ops.decode import decode_mjpeg_host_rgb
     from rustcv_tpu_torch.ops.decode import decode_to_device
 
-    port = core.Frame(synth_raw(64, 48, PixelFormat.MJPEG, 0), 64, 48, PixelFormat.MJPEG, 0,
-                      core.Timestamp(0, 0.0))
-    for call in (port.decode_bgr, lambda: decode_to_device(port, "cpu")):
-        with pytest.raises(NotImplementedError, match="libjpeg-turbo.*ROADMAP queue 1 item 8"):
-            call()
+    raw = synth_raw(64, 48, PixelFormat.MJPEG, 0)
+    port = core.Frame(raw, 64, 48, PixelFormat.MJPEG, 0, core.Timestamp(0, 0.0))
+    want = decode_mjpeg_host_rgb(raw)[..., ::-1]
+    np.testing.assert_array_equal(port.decode_bgr().to_numpy(), want)
+    np.testing.assert_array_equal(decode_to_device(port, "cpu").numpy(), want)
     assert decode_to_device(port, "cpu", mjpeg_hybrid=True).shape == (48, 64, 3)

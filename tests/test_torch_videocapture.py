@@ -329,17 +329,23 @@ def test_writer_rejects_as_the_reference(tmp_path):
 
 
 def test_mjpeg_decodes_that_are_not_ported(tmp_path, coders):
-    """The host decode of MJPEG (libjpeg-turbo or Pillow in the reference)
-    and the device decode without the hybrid path raise not_ported."""
+    """Ported now: the host decode of MJPEG, and the device decode without
+    the hybrid path (the host decode, uploaded), both the reference's host
+    decode; and ``VideoWriter(encoder="host")``, the default."""
+    from rustcv_tpu.ops.decode import decode_mjpeg_host_rgb
+
     path = str(tmp_path / "clip.avi")
     with VideoWriter(path, frame_size=(64, 48), device="cpu") as w:
         w.write(_clip_frames(1)[0])
+    want = decode_mjpeg_host_rgb(AviMjpegReader(path).frame_bytes(0))[..., ::-1]
     for kwargs in ({}, {"decode_on_device": True, "device": "cpu"}):
         with _opened(VideoCapture, path, **kwargs) as cap:
-            with pytest.raises(NotImplementedError, match="libjpeg-turbo.*ROADMAP queue 1 item 8"):
-                _bounded(cap.read, Mat(device="cpu"))
-    with pytest.raises(NotImplementedError, match="Pillow.*item 8"):
-        VideoWriter(str(tmp_path / "h.avi"), encoder="host")
+            mat = Mat(device="cpu")
+            assert _bounded(cap.read, mat)
+            np.testing.assert_array_equal(mat.to_numpy(), want)
+    with VideoWriter(str(tmp_path / "h.avi"), frame_size=(64, 48), encoder="host") as w:
+        w.write(_clip_frames(1)[0])
+    assert (tmp_path / "h.avi").read_bytes() == (tmp_path / "clip.avi").read_bytes()
 
 
 # -- videoio --------------------------------------------------------------------
