@@ -29,7 +29,6 @@ from ..core.errors import CameraError, not_ported
 from ..core.mat import Mat
 from . import host as _host
 
-_JPEG = ("jpg", "jpeg")
 _QUALITY_DEFAULT = 75  # the quality of the reference's Pillow save
 
 
@@ -52,20 +51,13 @@ def _backend(backend: str, what: str) -> None:
         raise ValueError(f"{what}: unknown backend {backend!r}")
 
 
-def _host_bytes(mat: Mat) -> np.ndarray:
-    """The Mat's pixels on the host, (H, W, C)."""
-    if mat.is_on_device:
-        return mat.device().cpu().numpy().reshape(mat.rows, mat.cols, mat.channels)
-    return mat.to_numpy()
-
-
 def _encode(fmt: str, mat: Mat, quality: int) -> bytes:
     """Host encode of a non-empty Mat to ``fmt``."""
     import torch
 
     from ..ops.jpeg_encode import encode_jpeg
 
-    a = _host_bytes(mat)
+    a = mat.to_numpy()
     if fmt == "jpeg":
         if a.shape[2] not in (1, 3):
             raise CameraError(f"imencode: cannot write {a.shape[2]}-channel images as JPEG")
@@ -196,7 +188,7 @@ def imwrite_with_metadata(path: str, mat: Mat, metadata: dict) -> bool:
         return imwrite(path, mat)
     if mat.is_empty():
         return False
-    return _write(path, _host.write_png(_host.from_mat_array(_host_bytes(mat)), metadata))
+    return _write(path, _host.write_png(_host.from_mat_array(mat.to_numpy()), metadata))
 
 
 def imreadmulti(path: str):

@@ -181,6 +181,8 @@ def read_bmp(data: bytes) -> np.ndarray:
     w, h, _planes, bpp, comp = struct.unpack("<iiHHI", data[18:34])
     colors = struct.unpack("<I", data[46:50])[0]
     top_down, h = h < 0, abs(h)
+    if w <= 0 or h == 0:
+        raise CodecError(f"bad BMP size {w}x{h}")
     if bpp not in (8, 24, 32) or comp not in (0, 3) or (comp == 3 and bpp != 32):
         raise not_ported(f"{bpp}-bit BMP with compression {comp}", item=LEFTOVERS)
     stride = (w * bpp // 8 + 3) & ~3
@@ -246,6 +248,8 @@ def read_pnm(data: bytes) -> np.ndarray:
         vals.append(int(m.group(1)))
         p = m.end()
     w, h, maxval = vals
+    if w <= 0 or h <= 0:
+        raise CodecError(f"bad PNM size {w}x{h}")
     if not 0 < maxval < 256:
         raise not_ported(f"PNM with maxval {maxval}", item=LEFTOVERS)
     p += 1  # the one whitespace byte before the samples

@@ -244,7 +244,10 @@ def test_corrupt_and_unknown_files(tmp_path):
     good = host.write_png(_img((5, 6, 3), 1))
     bad_crc = bytearray(good)
     bad_crc[40] ^= 0xFF
-    for data in (bytes(bad_crc), good[:30], b"BM" + b"\x00" * 30, b"P6\n4 4\n255\n\x00", b"nope"):
+    bad_size = bytearray(host.write_bmp(_img((2, 3, 3), 2)))
+    bad_size[18:22] = (-3).to_bytes(4, "little", signed=True)
+    for data in (bytes(bad_crc), good[:30], b"BM" + b"\x00" * 30, b"P6\n4 4\n255\n\x00",
+                 bytes(bad_size), b"P6\n0 4\n255\n", b"nope"):
         with pytest.raises(core.CameraError):
             imgcodecs.imdecode(data, device="cpu")
     assert not imgcodecs.imwrite(str(tmp_path / "x.unknownext"), _mat(_img((4, 4, 3), 0)))
