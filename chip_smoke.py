@@ -57,7 +57,7 @@ and read just after:
   loop with ``put_text`` on a CUDA Mat, the headline engine with
   ``tick(text=[8 strings])`` in every decode mode (K1, K4, K5), PNG and the
   ``highgui`` dump, config 2 with ``mjpeg_backend="host"`` and
-  ``VideoWriter()``'s host encoder.
+  ``VideoWriter(encoder="host")``.
 
 Phases:
 
@@ -1200,21 +1200,23 @@ def run_facade() -> dict:
     print(f"facade: draws on the CUDA Mat identical to the host Mat's, no blocking copy; "
           f"harris_corners {int(corners.sum())} corners, identical to the CPU", flush=True)
 
-    data = imgcodecs.imencode(".jpg", b, 90)
-    cpu = imgcodecs.imencode(".jpg", Mat.from_array(b.to_numpy(), device="cpu"), 90)
+    data = imgcodecs.imencode(".jpg", b, 90, backend="tpu")
+    expect(imgcodecs.imencode(".jpg", b, 90) == data,
+           "imencode: the default encode of a CUDA Mat is not the card's")
+    cpu = imgcodecs.imencode(".jpg", Mat.from_array(b.to_numpy(), device="cpu"), 90, backend="host")
     got_c, want_c = native.jpeg_entropy_decode(data)[1], native.jpeg_entropy_decode(cpu)[1]
     for i, (g, w) in enumerate(zip(got_c, want_c)):
         within(g, w, JPEG_TOL, f"imencode component {i}")
     same = all(np.array_equal(g, w) for g, w in zip(got_c, want_c))
     expect(not same or data == cpu, "imencode: equal coefficients but other bytes")
-    dec = imgcodecs.imdecode(data)
+    dec = imgcodecs.imdecode(data, backend="tpu")
     expect(dec.device().is_cuda, "imdecode did not decode on the card")
-    within(dec.to_numpy(), imgcodecs.imdecode(data, device="cpu").to_numpy(), JPEG_TOL,
+    within(dec.to_numpy(), imgcodecs.imdecode(data, backend="tpu", device="cpu").to_numpy(), JPEG_TOL,
            "imdecode on the card against the CPU")
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "facade.avi")
-        with VideoWriter(path, fps=30, frame_size=(FACADE_W, FACADE_H)) as writer:
+        with VideoWriter(path, fps=30, frame_size=(FACADE_W, FACADE_H), encoder="tpu") as writer:
             for t in frames:
                 writer.write(t)
         reader = AviMjpegReader(path)
@@ -1356,8 +1358,8 @@ def run_text_and_codecs() -> dict:
     engine's tick without text plus ``golden.blend_mask`` of the port's
     masks; PNG through ``imwrite``/``imread`` and the ``highgui`` dump;
     config 2 with ``mjpeg_backend="host"`` byte-equal to the host decode of
-    the same frames on the CPU, resized there; ``VideoWriter()`` (the
-    host encoder) → ``.avi`` → ``VideoCapture`` on a CPU Mat. Returns the
+    the same frames on the CPU, resized there; ``VideoWriter(encoder="host")``
+    → ``.avi`` → ``VideoCapture`` on a CPU Mat. Returns the
     phase's launches, which the kernels line does not add."""
     import hashlib
     import tempfile
@@ -1436,7 +1438,7 @@ def run_text_and_codecs() -> dict:
 
         avi = os.path.join(tmp, "host.avi")
         frames = on_cpu[:3]
-        with VideoWriter(avi, fps=30, frame_size=(FACADE_W, FACADE_H)) as writer:
+        with VideoWriter(avi, fps=30, frame_size=(FACADE_W, FACADE_H), encoder="host") as writer:
             for f in frames:
                 writer.write(Mat.from_array(f, device="cpu"))
         reader = AviMjpegReader(avi)

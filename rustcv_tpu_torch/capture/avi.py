@@ -7,9 +7,10 @@ The reference captures only live cameras; OpenCV users also expect
 natural container here because both halves reuse the device JPEG codec:
 
 - **write**: frames encode through :mod:`rustcv_tpu_torch.ops.jpeg_encode`
-  (FDCT on a CPU tensor for the default ``encoder="host"``, on the device
-  for ``"tpu"`` → the port's host Huffman coder) and land in a standard
-  RIFF-AVI ('MJPG') any player/OpenCV build can read.
+  (FDCT where the frame is by default, on a CPU tensor for
+  ``encoder="host"``, on the device for ``"tpu"`` → the port's host Huffman
+  coder) and land in a standard RIFF-AVI ('MJPG') any player/OpenCV build
+  can read.
 - **read**: :class:`FileSource` emits the stored JPEG bytes as
   ``PixelFormat.MJPEG`` frames through the standard ``FrameSource``
   protocol, so the whole stack — ``VideoCapture`` facade AND the batched
@@ -54,12 +55,13 @@ class VideoWriter:
 
     ``VideoWriter(path, fourcc="MJPG", fps=30, frame_size=(w, h))`` then
     ``write(mat_or_bgr_array)`` per frame and ``release()`` (or use as a
-    context manager). The default ``encoder="host"`` encodes each frame on
-    the host: the port's encoder on a CPU tensor and its C++ Huffman coder
-    (the reference's is Pillow; the bytes differ, the decoded frames agree
-    within the encoder's tolerance). ``encoder="tpu"`` (the reference's
-    name) routes each frame through the FDCT encoder on ``device``, the
-    frame's own device where it is a tensor or a device Mat. For device-resident
+    context manager). By default each frame encodes where it is: on its
+    device for a CUDA tensor or a device Mat, on the CPU for a host frame.
+    ``encoder="host"`` (the reference's default, Pillow there) encodes every
+    frame on a CPU tensor; the bytes differ from Pillow's, the decoded
+    frames agree within the encoder's tolerance. ``encoder="tpu"`` (the
+    reference's name) uploads host frames to ``device`` and encodes there.
+    The Huffman coding is the port's C++ coder's in each case. For device-resident
     batches, encode with :func:`rustcv_tpu_torch.ops.jpeg_encode.encode_jpeg_batch`
     and append the payloads with :meth:`write_encoded`.
     """
@@ -71,10 +73,10 @@ class VideoWriter:
         fps: float = 30.0,
         frame_size: Tuple[int, int] = (640, 480),
         quality: int = 90,
-        encoder: str = "host",
+        encoder: Optional[str] = None,
         device="cuda",
     ):
-        if encoder not in ("host", "tpu"):
+        if encoder not in (None, "host", "tpu"):
             raise ValueError(f"VideoWriter: unknown encoder {encoder!r}")
         self._encoder = encoder
         if fourcc.upper() != "MJPG":
@@ -172,7 +174,7 @@ class VideoWriter:
             )
         if self._encoder == "host":
             bgr = bgr.cpu()
-        elif bgr.device.type == "cpu":
+        elif self._encoder == "tpu" and bgr.device.type == "cpu":
             bgr = bgr.to(torch_device(self._device))
         self.write_encoded(encode_jpeg(bgr, quality=self._quality))
 

@@ -3,20 +3,23 @@
 
 Two backends, the reference's names:
 
-* ``"host"`` (the default, as in the reference, where it is Pillow): PNG,
-  BMP and PPM/PGM through :mod:`.host` (no Pillow), JPEG decoded by the
-  port's C++ host decoder (:func:`..native.jpeg_decode_bgr`, libjpeg-turbo's
-  default decode: the same pixels as the reference's Pillow) and encoded by
-  the port's encoder on a CPU tensor plus its C++ Huffman coder (other bytes
-  than Pillow's, within the encoder's tolerance once decoded).
+* ``"host"``: PNG, BMP and PPM/PGM through :mod:`.host` (no Pillow), JPEG
+  decoded by the port's C++ host decoder (:func:`..native.jpeg_decode_bgr`,
+  libjpeg-turbo's default decode: the same pixels as the reference's
+  Pillow) and encoded by the port's encoder on a CPU tensor plus its C++
+  Huffman coder (other bytes than Pillow's, within the encoder's tolerance
+  once decoded).
 * ``"tpu"``: JPEG only, the port's device codec: :mod:`..ops.jpeg_encode`
   (colour, subsampling, FDCT and quantization on the Mat's device, Huffman
   coding in the C++ coder) and :mod:`..ops.jpeg_tpu` (entropy decode on the
   host, the rest on the device).
 
-Whatever decodes, the Mat lands on ``device`` ("cuda" unless the caller
-names another). TIFF, GIF and WebP, ``imreadmulti``, ``imwritemulti``,
-``imcount`` and EXIF raise ``not_ported``.
+By default (no backend named) a JPEG encodes where the Mat is: on its
+device for a device Mat, on the CPU for a host Mat; every other format
+encodes on the host, and every decode is the host's, libjpeg's exact
+pixels. Whatever decodes, the Mat lands on ``device`` ("cuda" unless the
+caller names another). TIFF, GIF and WebP, ``imreadmulti``,
+``imwritemulti``, ``imcount`` and EXIF raise ``not_ported``.
 """
 
 from __future__ import annotations
@@ -46,47 +49,44 @@ def _format_of(ext: str, what: str) -> str:
     return fmt
 
 
-def _backend(backend: str, what: str) -> None:
-    if backend not in ("host", "tpu"):
+def _backend(backend, what: str) -> None:
+    if backend not in (None, "host", "tpu"):
         raise ValueError(f"{what}: unknown backend {backend!r}")
 
 
-def _encode(fmt: str, mat: Mat, quality: int) -> bytes:
-    """Host encode of a non-empty Mat to ``fmt``."""
+def _encode(fmt: str, mat: Mat, quality: int, backend=None) -> bytes:
+    """Encode of a non-empty Mat to ``fmt``. A JPEG encodes on the Mat's
+    device for ``backend="tpu"`` (a host Mat is uploaded first) and, with
+    no backend named, for a device Mat; on a CPU tensor otherwise."""
     import torch
 
     from ..ops.jpeg_encode import encode_jpeg
 
-    a = mat.to_numpy()
     if fmt == "jpeg":
-        if a.shape[2] not in (1, 3):
-            raise CameraError(f"imencode: cannot write {a.shape[2]}-channel images as JPEG")
-        return encode_jpeg(torch.from_numpy(a[..., 0] if a.shape[2] == 1 else a), quality=quality)
+        on_device = backend == "tpu" or (backend is None and mat.is_on_device)
+        img = mat.device() if on_device else torch.from_numpy(mat.to_numpy())
+        if img.ndim == 3 and img.shape[-1] not in (1, 3):
+            raise CameraError(f"imencode: cannot write {img.shape[-1]}-channel images as JPEG")
+        return encode_jpeg(img[..., 0] if img.ndim == 3 and img.shape[-1] == 1 else img,
+                           quality=quality)
+    if backend == "tpu":
+        raise ValueError(f"imencode: backend='tpu' supports JPEG only, not {fmt.upper()}")
     try:
-        return _host.ENCODERS[fmt](_host.from_mat_array(a))
+        return _host.ENCODERS[fmt](_host.from_mat_array(mat.to_numpy()))
     except _host.CodecError as e:
         raise CameraError(f"imencode: {e}") from e
 
 
-def imencode(ext: str, mat: Mat, quality: int = 95, backend: str = "host") -> bytes:
+def imencode(ext: str, mat: Mat, quality: int = 95, backend=None) -> bytes:
     """Encode a BGR (or gray) Mat to in-memory image bytes (OpenCV
     ``imencode``). ``ext`` picks the format (".png", ".jpg", ".bmp",
-    ".ppm", ...); ``quality`` is JPEG's. ``backend="tpu"`` encodes JPEG on
-    the Mat's device (a host Mat is uploaded to its device first), 4:2:0."""
-    from ..ops.jpeg_encode import encode_jpeg
-
+    ".ppm", ...); ``quality`` is JPEG's. A JPEG (4:2:0) encodes where the
+    Mat is unless ``backend`` names the host or the device ("tpu")."""
     _backend(backend, "imencode")
     fmt = _format_of(ext, "imencode")
     if mat.is_empty():
         raise CameraError("imencode: empty Mat")
-    if backend == "tpu":
-        if fmt != "jpeg":
-            raise ValueError(f"imencode: backend='tpu' supports JPEG only, not {ext!r}")
-        img = mat.device()
-        if img.ndim == 3 and img.shape[-1] == 1:
-            img = img[..., 0]
-        return encode_jpeg(img, quality=quality)
-    return _encode(fmt, mat, quality)
+    return _encode(fmt, mat, quality, backend)
 
 
 def _decode_host(data: bytes) -> np.ndarray:
@@ -109,8 +109,9 @@ def _on_device(bgr: np.ndarray, device) -> Mat:
 
 def imdecode(data: bytes, backend: str = "host", device="cuda") -> Mat:
     """Decode in-memory image bytes to a BGR Mat on ``device`` (OpenCV
-    ``imdecode``). ``backend="tpu"`` takes JPEG through the hybrid decode
-    (entropy decode on the host, the rest on the device)."""
+    ``imdecode``): on the host, then uploaded. ``backend="tpu"`` takes JPEG
+    through the hybrid decode (entropy decode on the host, the rest on the
+    device)."""
     from ..core.mat import torch_device
     from ..ops.jpeg_tpu import decode_jpeg_tpu
 
@@ -155,8 +156,9 @@ def _write(path: str, data: bytes) -> bool:
 
 def imwrite(path: str, mat: Mat) -> bool:
     """Write a BGR Mat to an image file, the format from the extension
-    (JPEG at quality 75, the reference's Pillow default). False where the
-    Mat is empty, the format unknown or the file cannot be written."""
+    (JPEG at quality 75, the reference's Pillow default, encoded where the
+    Mat is). False where the Mat is empty, the format unknown or the file
+    cannot be written."""
     if mat.is_empty():
         return False
     try:

@@ -44,15 +44,21 @@ def decode_mjpeg_host(data, out=None) -> np.ndarray:
         raise DecodeError(f"JPEG decompress: {e}") from e
 
 
-def decode_mjpeg_into_mat(data, mat) -> None:
-    """MJPEG → BGR decoded straight into the Mat's (stride-aware) host
-    buffer, the Mat sized from the JPEG header."""
+def mjpeg_size(data) -> tuple:
+    """(width, height) from an MJPEG frame's header; a corrupt header
+    raises DecodeError."""
     from .. import native
 
     try:
-        w, h = native.jpeg_size(data)
+        return native.jpeg_size(data)
     except ValueError as e:
         raise DecodeError(f"JPEG decompress: {e}") from e
+
+
+def decode_mjpeg_into_mat(data, mat) -> None:
+    """MJPEG → BGR decoded straight into the Mat's (stride-aware) host
+    buffer, the Mat sized from the JPEG header."""
+    w, h = mjpeg_size(data)
     mat.ensure_size(h, w, 3)
     decode_mjpeg_host(data, out=mat.array)
 

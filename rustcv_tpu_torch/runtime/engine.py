@@ -60,6 +60,7 @@ from ..capture.source import Driver, FrameSource
 from ..core.config import ResolvedConfig, SimpleConfig
 from ..core.errors import CameraError, DecodeError, not_ported
 from ..core.pixel_format import PixelFormat
+from ..ops import decode as _decode
 from ..ops import jpeg_encode as _jenc
 from ..ops import jpeg_tpu as _jpeg
 from ..ops import kernels as _kernels
@@ -507,13 +508,10 @@ class MultiStreamEngine:
             seqs[i] = frame.sequence
             if self._mjpeg_host:
                 w, h = self._resolved.width, self._resolved.height
-                try:
-                    got = native.jpeg_size(frame.data)
-                    if got != (w, h):
-                        raise CameraError(f"stream {i} geometry {got} != negotiated ({w}, {h})")
-                    native.jpeg_decode_bgr(frame.data, out=staging[i].reshape(h, w, 3))
-                except ValueError as e:  # a corrupt frame: a stream fault
-                    raise DecodeError(str(e)) from e
+                got = _decode.mjpeg_size(frame.data)  # a corrupt frame: a stream fault
+                if got != (w, h):
+                    raise CameraError(f"stream {i} geometry {got} != negotiated ({w}, {h})")
+                _decode.decode_mjpeg_host(frame.data, out=staging[i].reshape(h, w, 3))
             else:
                 staging[i] = frame.data.reshape(-1)
         except CameraError as e:

@@ -8,11 +8,12 @@ for all of them.
   reference's pixels; the bytes may differ.
 * The host JPEG decode equals ``rustcv_tpu.ops.decode.decode_mjpeg_host_rgb``
   (libjpeg-turbo's default decode, through Pillow) byte for byte, BGR order.
-* The host JPEG encoders (``imencode(".jpg")`` and ``VideoWriter()`` by
-  default) are the port's encoder on a CPU tensor: other bytes than
-  Pillow's, held to the encoder's stated tolerance against Pillow's own
-  encode at the same settings (``tests/test_jpeg_encode.py:141-165``:
-  PSNR at most 0.5 dB below it).
+* The host JPEG encoders (``imencode(".jpg")`` and ``VideoWriter()`` with
+  the host named, and by default for a host frame; a device frame encodes
+  on its device by default) are the port's encoder on a CPU tensor: other
+  bytes than Pillow's, held to the encoder's stated tolerance against
+  Pillow's own encode at the same settings
+  (``tests/test_jpeg_encode.py:141-165``: PSNR at most 0.5 dB below it).
 
 Inputs are made from seeds; sizes are small."""
 
@@ -330,7 +331,6 @@ def test_frame_and_videocapture_host_decode_of_mjpeg(jax_cpu, monkeypatch):
             np.testing.assert_array_equal(mat.to_numpy(), rmat.to_numpy())
     finally:
         cap.release()
-        ref.release()
 
 
 # -- mjpeg_backend="host" -----------------------------------------------------------
@@ -430,3 +430,50 @@ def test_videowriter_default_encoder_round_trip(jax_cpu, tmp_path):
                                           _pillow_reads(ours.frame_bytes(i).tobytes()))
     finally:
         cap.release()
+
+
+def test_default_jpeg_encode_runs_where_the_frame_is(monkeypatch, tmp_path):
+    """With no backend or encoder named, a JPEG encodes where the frame is:
+    a device Mat's or tensor's own tensor goes to the encoder (no host
+    copy), a host Mat's pixels go as a CPU tensor (no upload). ``"host"``
+    always hands the encoder a CPU copy, ``"tpu"`` the Mat's device tensor.
+    Here the device is the CPU, or "meta", where a tensor has no bytes to
+    copy to the host."""
+    seen = []
+
+    def encode(img, quality=90, subsampling="4:2:0"):
+        seen.append(img)
+        return b"\xff\xd8\xff\xd9"
+
+    monkeypatch.setattr(jpeg_encode, "encode_jpeg", encode)
+    bgr = _smooth(48, 64, 0)
+    on_dev = Mat.from_device(torch.from_numpy(bgr.copy()))
+    imgcodecs.imencode(".jpg", on_dev)
+    assert seen[-1] is on_dev.device()
+    imgcodecs.imencode(".jpg", on_dev, backend="tpu")
+    assert seen[-1] is on_dev.device()
+    imgcodecs.imencode(".jpg", on_dev, backend="host")
+    assert seen[-1] is not on_dev.device() and seen[-1].device.type == "cpu"
+    assert imgcodecs.imwrite(str(tmp_path / "d.jpg"), on_dev) and seen[-1] is on_dev.device()
+    on_host = Mat.from_array(bgr)  # its device is the card, never reached
+    imgcodecs.imencode(".jpg", on_host)
+    assert seen[-1].device.type == "cpu" and not on_host.is_on_device
+    gray = Mat.from_device(torch.from_numpy(bgr[..., 0].copy()))
+    imgcodecs.imencode(".jpg", gray)
+    assert seen[-1] is gray.device() and seen[-1].ndim == 2
+
+    meta = torch.empty((48, 64, 3), dtype=torch.uint8, device="meta")
+    with VideoWriter(str(tmp_path / "m.avi"), frame_size=(64, 48)) as w:
+        w.write(meta)
+        assert seen[-1] is meta
+        w.write(Mat.from_device(meta))
+        assert seen[-1] is meta
+        w.write(Mat.from_array(bgr))
+        assert seen[-1].device.type == "cpu"
+    with VideoWriter(str(tmp_path / "h.avi"), frame_size=(64, 48), encoder="host") as w:
+        w.write(on_dev)
+        assert seen[-1].device.type == "cpu"
+        with pytest.raises(NotImplementedError):  # "host" copies the frame to the CPU
+            w.write(meta)
+    with pytest.raises(ValueError, match="unknown encoder"):
+        VideoWriter(str(tmp_path / "x.avi"), encoder="gpu")

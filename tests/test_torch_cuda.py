@@ -651,6 +651,7 @@ def test_videocapture_and_codecs_on_the_card(cuda):
         card.release()
         default.release()
     data = imgcodecs.imencode(".jpg", b, 90, backend="tpu")
+    assert imgcodecs.imencode(".jpg", b, 90) == data  # the default encodes where the Mat is
     cpu = imgcodecs.imencode(".jpg", Mat.from_array(a.to_numpy(), device="cpu"), 90)
     for got, want in zip(native.jpeg_entropy_decode(data)[1], native.jpeg_entropy_decode(cpu)[1]):
         d = np.abs(got.astype(np.int64) - want)

@@ -4,8 +4,9 @@ the CPU.
 highgui: the same calls on both packages' headless sinks (the suite's
 conftest sets ``RUSTCV_GUI=0``) give the same window frames, names and
 keys. imgcodecs' JPEG: the port encodes with its encoder on a CPU tensor
-(the default host backend) or the Mat's device (``"tpu"``, here a CPU
-tensor too) and codes with its own C++ coder; its quantized coefficients
+(the host backend, and the default for a host Mat) or the Mat's device
+(``"tpu"``, and the default for a device Mat; here a CPU tensor too) and
+codes with its own C++ coder; its quantized coefficients
 are held to the reference encoder's own tolerance, as in
 ``tests/test_torch_encode.py`` (max |diff| <= 1 on a share < 5e-3), and its
 bytes are the reference's wherever the coefficients are equal. Its ``"tpu"``

@@ -331,7 +331,8 @@ def test_writer_rejects_as_the_reference(tmp_path):
 def test_mjpeg_decodes_that_are_not_ported(tmp_path, coders):
     """Ported now: the host decode of MJPEG, and the device decode without
     the hybrid path (the host decode, uploaded), both the reference's host
-    decode; and ``VideoWriter(encoder="host")``, the default."""
+    decode; and ``VideoWriter(encoder="host")``, which is what the default
+    does with a host frame."""
     from rustcv_tpu.ops.decode import decode_mjpeg_host_rgb
 
     path = str(tmp_path / "clip.avi")
