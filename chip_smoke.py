@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Thirteen paths, each driven with the launch counts set to 0 just before it
+Fourteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -57,7 +57,14 @@ and read just after:
   loop with ``put_text`` on a CUDA Mat, the headline engine with
   ``tick(text=[8 strings])`` in every decode mode (K1, K4, K5), PNG and the
   ``highgui`` dump, config 2 with ``mjpeg_backend="host"`` and
-  ``VideoWriter(encoder="host")``.
+  ``VideoWriter(encoder="host")``;
+* multi-device execution on a one-rank NCCL mesh over the card
+  (``rustcv_tpu_torch.parallel``): the headline engine with
+  ``mesh=stream_mesh("cuda")`` in the default and ``pallas`` modes (K1, K4),
+  the spatial route's row bands with their halos through
+  ``band_blur_sobel`` at R = 2, 4 and 8 and ``blur_sobel_mag_spatial`` on
+  the one-rank rows mesh (K1 per band), ``corner_counts_psum``, and
+  ``python -m rustcv_tpu_torch.parallel.launch`` in a process of its own.
 
 Phases:
 
@@ -105,7 +112,11 @@ Phases:
    text identical to the untexted tick plus ``golden.blend_mask``, PNG and
    the dump lossless, config 2's host backend identical to the CPU host
    decode resized, the host-encoded AVI read back as its payloads' host
-   decode;
+   decode; the mesh engine's 3 ticks per mode identical to the meshless
+   engine's (``bgr``, ``filtered``, sequences), the band route identical to
+   K1 on the whole batch and to the plain chain, with exact launch counts,
+   ``corner_counts_psum`` 9, and the launcher's one process, one chip and
+   ``fleet_fps == local_fps``;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -120,7 +131,8 @@ Phases:
    frames/s (host and device decode, 1280×720 and 3840×2160) and ms per
    draw on a CUDA Mat; ms/tick with and without text, ms per ``put_text``,
    the rasterizer's ms per string, config 2's host backend beside its
-   hybrid.
+   hybrid; the headline with and without the one-rank mesh in turns, and
+   the band route at R = 2, 4, 8 beside K1 on the whole batch.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -332,7 +344,7 @@ def check_kernels(dev) -> dict:
     return errs
 
 
-def make_engine(mode: str, stencil_impl=None):
+def make_engine(mode: str, stencil_impl=None, mesh=None):
     from rustcv_tpu_torch.capture import SimulationDriver
     from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
     from rustcv_tpu_torch.runtime import MultiStreamEngine
@@ -341,7 +353,7 @@ def make_engine(mode: str, stencil_impl=None):
     return MultiStreamEngine(
         SimulationDriver(device_count=N, paced=False), N,
         SimpleConfig(width=W, height=H, fps=60, pixel_format=PixelFormat.YUYV),
-        filter="blur_sobel", overlay=True, device_sim=True, stencil_impl=stencil_impl,
+        filter="blur_sobel", overlay=True, device_sim=True, stencil_impl=stencil_impl, mesh=mesh,
     )
 
 
@@ -1999,6 +2011,165 @@ def time_kernels() -> dict:
     return times
 
 
+MESH_TICKS = 3  # mesh engine ticks held against the meshless engine's, per mode
+MESH_MODES = ("default", "pallas")
+MESH_LAUNCHES = {"default": {"blur_sobel_mag": MESH_TICKS},
+                 "pallas": {"blur_sobel_mag": MESH_TICKS, "yuyv_decode_interleave": MESH_TICKS}}
+BANDS = (2, 4, 8)  # row bands of the spatial route, one process
+LAUNCH_TIMEOUT_S = 300
+
+
+def gray_batch(dev):
+    import torch
+
+    rng = np.random.default_rng(11)
+    return torch.from_numpy(rng.integers(0, 256, (N, H, W), np.uint8)).to(dev)
+
+
+def band_route(gray, n_bands: int):
+    """The spatial route in one process: ``n_bands`` row bands, each with
+    its neighbours' HALO rows sliced off the batch, through
+    ``band_blur_sobel`` (K1 per band), concatenated."""
+    import torch
+
+    from rustcv_tpu_torch.parallel.spatial import HALO, band_blur_sobel
+
+    b = gray.shape[1] // n_bands
+    out = []
+    for r in range(n_bands):
+        lo, hi = r * b, (r + 1) * b
+        out.append(band_blur_sobel(gray[:, lo:hi], gray[:, lo - HALO:lo] if r > 0 else None,
+                                   gray[:, hi:hi + HALO] if r < n_bands - 1 else None))
+    return torch.cat(out, 1)
+
+
+def run_launcher(ticks: int) -> dict:
+    """``python -m rustcv_tpu_torch.parallel.launch --ticks <ticks>`` as a
+    user starts it on one card; returns its summary line (rank 0's last)."""
+    set_mode("default")
+    proc = subprocess.Popen([sys.executable, "-m", "rustcv_tpu_torch.parallel.launch",
+                             "--ticks", str(ticks)], cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    expect(proc.returncode == 0, f"the launcher exited {proc.returncode}: {err[-2000:]}")
+    return json.loads([x for x in out.splitlines() if x.startswith("{")][-1])
+
+
+def run_mesh() -> dict:
+    """Phase 3m: multi-device execution on a one-rank NCCL mesh over the
+    card. The headline engine with ``mesh=stream_mesh("cuda")`` in the
+    default and ``pallas`` modes, each tick's ``bgr``, ``filtered`` and
+    sequences identical to the meshless engine's; the spatial route (row
+    bands with sliced halos through ``band_blur_sobel``, K1 per band) at
+    R = 2, 4, 8 and ``blur_sobel_mag_spatial`` on the one-rank rows mesh,
+    identical to K1 on the whole batch and to the plain chain;
+    ``corner_counts_psum`` (the reference test's 9); the launcher's summary
+    (one process, one chip, the fleet's frames/s its own). Returns the
+    path's launches; the meshless engine and whole-batch K1 run before the
+    counts are set to 0."""
+    import torch
+
+    from rustcv_tpu_torch import parallel
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.ops.kernels import stencil
+
+    mesh = parallel.stream_mesh("cuda")
+    expect(mesh.size() == 1 and mesh.device_type == "cuda", f"mesh {mesh}")
+    mask = np.zeros((8, 16, 16), bool)  # the reference test's (tests/test_runtime.py:216-228)
+    mask[:, 4, 4] = True
+    mask[0, 8, 8] = True
+    total = parallel.corner_counts_psum(parallel.shard_batch(mask, mesh), mesh)  # NCCL's first
+    expect(int(total) == 9 and total.device.type == "cuda", f"corner_counts_psum gave {total}")
+    rects, colors = bench_overlay()
+    refs = {}
+    for mode in MESH_MODES:
+        eng = make_engine(mode)
+        refs[mode] = [eng.tick(rects=rects, rect_colors=colors) for _ in range(MESH_TICKS)]
+        eng.close()
+    gray = gray_batch(torch.device("cuda"))
+    whole = stencil.blur_sobel_mag(gray)
+    expect(torch.equal(whole, stencil.blur_sobel_mag_plain(gray)), "K1 differs from plain")
+    rows = parallel.stream_mesh("cuda", axis="rows")
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()  # the mesh path starts here
+    for mode in MESH_MODES:
+        before = kernels.launch_counts()
+        eng = make_engine(mode, mesh=mesh)
+        expect((eng.n, eng.first_stream, eng.device) == (N, 0, torch.device("cuda", 0)),
+               f"mesh engine: {eng.n} streams from {eng.first_stream} on {eng.device}")
+        for t, ref in enumerate(refs[mode]):
+            res = eng.tick(rects=rects, rect_colors=colors)
+            for key in ("bgr", "filtered"):
+                expect(torch.equal(parallel.gather_streams(res.outputs[key], mesh),
+                                   ref.outputs[key]),
+                       f"mesh {mode} tick {t}: {key} differs from the meshless engine")
+            expect((parallel.gather_streams(res.sequences, mesh) == ref.sequences).all(),
+                   f"mesh {mode} tick {t}: sequences differ")
+        torch.cuda.synchronize()
+        eng.close()
+        after = kernels.launch_counts()
+        per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        expect(per == MESH_LAUNCHES[mode], f"mesh {mode}: launches {per}")
+        print(f"mesh engine ({mode}, one-rank NCCL stream mesh): {MESH_TICKS} ticks of "
+              f"{N} x {W}x{H} identical to the meshless engine; launches {per}", flush=True)
+    before = kernels.launch_counts()["blur_sobel_mag"]
+    for n_bands in BANDS:
+        expect(torch.equal(band_route(gray, n_bands), whole),
+               f"the band route at R={n_bands} differs from K1 on the whole batch")
+    expect(torch.equal(parallel.blur_sobel_mag_spatial(gray, rows), whole),
+           "blur_sobel_mag_spatial on the one-rank rows mesh differs from K1")
+    torch.cuda.synchronize()
+    band_launches = kernels.launch_counts()["blur_sobel_mag"] - before
+    expect(band_launches == sum(BANDS) + 1, f"the band route launched K1 {band_launches} times")
+    totals = kernels.launch_counts()  # read just after the mesh path's run
+    print(f"band route: R = {BANDS} and the rows mesh identical to K1 on the whole batch and to "
+          f"the plain chain; K1 launches {band_launches}", flush=True)
+    del refs
+    torch.cuda.empty_cache()
+
+    summary = run_launcher(TICKS)
+    print("launcher: " + json.dumps(summary), flush=True)
+    expect(summary["processes"] == 1 and summary["chips"] == 1, f"launcher: {summary}")
+    expect(summary["fleet_fps"] == summary["local_fps"] and summary["streams"] == N,
+           f"launcher: the fleet's frames/s is not the one rank's: {summary}")
+    return totals
+
+
+def time_mesh(smi: str) -> None:
+    """Phase 4m: headline ms/tick (CUDA events, 50 ticks, default mode) on
+    the meshless engine and on the one-rank mesh in turns (meshless, mesh,
+    mesh, meshless), and the band route at R = 2, 4, 8 beside K1 on the
+    whole batch (device time)."""
+    import torch
+
+    from rustcv_tpu_torch import parallel
+    from rustcv_tpu_torch.ops.kernels import stencil
+
+    mesh = parallel.stream_mesh("cuda")
+    rects, colors = bench_overlay()
+    ms = {"meshless": [], "mesh": []}
+    for label in ("meshless", "mesh", "mesh", "meshless"):
+        eng = make_engine("default", mesh=mesh if label == "mesh" else None)
+        for _ in range(5):
+            eng.tick(rects=rects, rect_colors=colors)
+        ms[label].append(cuda_ms(lambda: eng.tick(rects=rects, rect_colors=colors), 50))
+        eng.close()
+    print(f"headline default ms/tick: meshless {ms['meshless'][0]:.4f}, {ms['meshless'][1]:.4f}; "
+          f"one-rank mesh {ms['mesh'][0]:.4f}, {ms['mesh'][1]:.4f} ({smi})", flush=True)
+    gray = gray_batch(torch.device("cuda"))
+    k1 = device_ms(stencil.blur_sobel_mag, [gray], 50)
+    bands = {r: device_ms(lambda g: band_route(g, r), [gray], 20) for r in BANDS}
+    print(f"band route ms at {N} x {W}x{H}: " + ", ".join(
+        f"R={r} {v:.4f}" for r, v in bands.items()) + f"; K1 on the whole batch {k1:.4f} ({smi})",
+        flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -2067,7 +2238,8 @@ def main() -> int:
                             ("host path", run_host_path), ("config 2", run_config2),
                             ("formats", run_formats), ("chained graphs", run_chained_graphs),
                             ("set_resolution", run_set_resolution),
-                            ("configs 1, 3, 5", run_zoo_configs), ("facade", run_facade)):
+                            ("configs 1, 3, 5", run_zoo_configs), ("facade", run_facade),
+                            ("mesh", run_mesh)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -2085,7 +2257,8 @@ def main() -> int:
                           ("config 2", time_config2),
                           ("formats, chained configs 1 and 4, configs 3 and 5",
                            lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi)),
-                          ("text and host codecs", lambda: time_text_and_codecs(smi))):
+                          ("text and host codecs", lambda: time_text_and_codecs(smi)),
+                          ("mesh", lambda: time_mesh(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)
@@ -2094,6 +2267,10 @@ def main() -> int:
         return 1
     finally:
         os.environ.pop("RUSTCV_DECODE", None)
+        import torch.distributed as dist
+
+        if dist.is_initialized():  # the mesh phase's one-rank NCCL group
+            dist.destroy_process_group()
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [

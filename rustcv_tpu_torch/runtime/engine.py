@@ -40,6 +40,13 @@ The engine takes an explicit ``device`` (``"cuda"`` by default, which
 raises where CUDA is absent; tests pass ``"cpu"``). Its snapshot
 (:meth:`export_state` / :meth:`from_state`) has the reference engine's
 keys, so a stream clock continues across the two packages tick for tick.
+
+With ``mesh=`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` of
+:mod:`rustcv_tpu_torch.parallel`, one rank per device) the engine of rank
+r owns the streams ``[r·k, (r+1)·k)`` of the ``n_streams``, ``k = n_streams
+/ shards`` of the mesh's first axis, on the rank's device. Everything it
+returns is its own streams', in stream order; no frame data crosses ranks.
+:func:`rustcv_tpu_torch.parallel.gather_streams` gathers them.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import torch
 from .. import native
 from ..capture.source import Driver, FrameSource
 from ..core.config import ResolvedConfig, SimpleConfig
-from ..core.errors import CameraError, DecodeError, not_ported
+from ..core.errors import CameraError, DecodeError
 from ..core.pixel_format import PixelFormat
 from ..ops import decode as _decode
 from ..ops import jpeg_encode as _jenc
@@ -203,17 +210,34 @@ class MultiStreamEngine:
         per stream with the host coder. ``encode_packed`` (default: when the
         native coder is available) block-packs the coefficients on the
         device with the reference's K = 10 slots per block and
-        ``min(blocks, max(128, blocks // 16))`` dense rows."""
+        ``min(blocks, max(128, blocks // 16))`` dense rows.
+
+        ``mesh`` splits the streams over the mesh's first axis: this rank's
+        engine runs its ``n_streams / shards`` streams (``self.n``) from
+        stream ``self.first_stream`` on, on the rank's device (``device``
+        must name it, or be its type). ``n_streams`` must divide by the
+        mesh's size, and ``sub_batch`` does not go with a mesh, as in the
+        reference. Callers pass per-stream arguments (rects, colours, text)
+        for all ``n_streams``; each rank takes its own rows."""
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
-        if mesh is not None:
-            raise not_ported("mesh (multi-device) execution", item="12")
         if mjpeg_backend not in ("host", "hybrid"):
             raise ValueError(f"unknown mjpeg_backend {mjpeg_backend!r}")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        self.n_streams = n_streams
+        self.mesh = mesh
+        self.first_stream = 0
+        if mesh is not None:
+            self.device = self._rank_device(mesh, self.device)
+            if n_streams % mesh.size():
+                raise ValueError(f"n_streams={n_streams} not divisible by mesh size {mesh.size()}")
+            if sub_batch is not None:
+                raise ValueError("sub_batch is per-chip; shards on a mesh are already narrow")
+            n_streams //= mesh.size(0)
+            self.first_stream = mesh.get_local_rank(0) * n_streams
+        elif self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but torch.cuda.is_available() is False")
-        self.n = n_streams
+        self.n = n_streams  # this engine's streams
         self._driver = driver
         self._sources: List[FrameSource] = []
         self._open_all(config)
@@ -319,6 +343,15 @@ class MultiStreamEngine:
                 self._gather_pool = ThreadPoolExecutor(max_workers=decode_workers,
                                                        thread_name_prefix="rustcv-decode")
         self._tick_index = 0
+
+    @staticmethod
+    def _rank_device(mesh, device: torch.device) -> torch.device:
+        from ..parallel.mesh import mesh_device
+
+        dev = mesh_device(mesh)
+        if device.type != dev.type or device.index not in (None, dev.index):
+            raise ValueError(f"device {str(device)!r} is not this rank's device {dev} in the mesh")
+        return dev
 
     def _one_tick(self, seqs, rects, colors, thickness):
         spec = self.spec
@@ -439,7 +472,7 @@ class MultiStreamEngine:
         for s in self._sources:
             s.stop()
         self._sources = []
-        for i in range(self.n):
+        for i in range(self.first_stream, self.first_stream + self.n):
             src, _ = self._driver.open_simple(f"sim:{i}", config)
             src.start()
             self._sources.append(src)
@@ -518,7 +551,8 @@ class MultiStreamEngine:
             self.stream_errors[i] += 1
             seqs[i] = -1
             staging[i] = prev[i]
-            _log.warning("stream %d capture failed (reusing last frame): %s", i, e)
+            _log.warning("stream %d capture failed (reusing last frame): %s",
+                         self.first_stream + i, e)
 
     def _map_streams(self, fn, first: int = 0) -> None:
         """``fn(i)`` for streams ``first``..N-1, on the gather pool when there
@@ -640,7 +674,8 @@ class MultiStreamEngine:
             seqs[i] = -1
             for cur, prev in zip(staging, prev_staging):
                 cur[i] = prev[i]  # the last good packed rows
-            _log.warning("stream %d hybrid capture failed (reusing last frame): %s", i, e)
+            _log.warning("stream %d hybrid capture failed (reusing last frame): %s",
+                         self.first_stream + i, e)
 
     def gather_hybrid(self) -> Tuple[str, int, np.ndarray]:
         """One frame per stream → block-packed coefficient staging (the host
@@ -728,13 +763,18 @@ class MultiStreamEngine:
             self._overlay_cache = (key, args)
         return self._overlay_cache[1]
 
+    def _own_rows(self, a, dtype, width: int) -> np.ndarray:
+        """This engine's streams' rows of a per-stream argument given for
+        all ``n_streams`` (or broadcast to them), as a fresh host array."""
+        a = np.broadcast_to(np.asarray(a).astype(dtype), (self.n_streams, width))
+        return np.array(a[self.first_stream:self.first_stream + self.n], order="C")
+
     def _host_overlay(self, rects, rect_colors) -> Tuple[np.ndarray, np.ndarray]:
-        """The caller's rects and colours (zeros where None) as int32 [N, 4]
-        and u8 [N, 3] host arrays."""
-        r = np.zeros((self.n, 4), np.int32) if rects is None else rects
-        c = np.zeros((self.n, 3), np.uint8) if rect_colors is None else rect_colors
-        return (np.array(np.broadcast_to(np.asarray(r).astype(np.int32), (self.n, 4))),
-                np.array(np.broadcast_to(np.asarray(c).astype(np.uint8), (self.n, 3))))
+        """The caller's rects and colours (zeros where None) as this
+        engine's int32 [n, 4] and u8 [n, 3] host arrays."""
+        r = np.zeros(4, np.int32) if rects is None else rects
+        c = np.zeros(3, np.uint8) if rect_colors is None else rect_colors
+        return self._own_rows(r, np.int32, 4), self._own_rows(c, np.uint8, 3)
 
     def tick(
         self,
@@ -790,9 +830,10 @@ class MultiStreamEngine:
     def _apply_text(self, bgr_packed: torch.Tensor, text, org, scale, color) -> torch.Tensor:
         """Text overlay on packed-rows BGR (N, H, W*3), after the pipeline.
 
-        ``text`` is one string for every stream or a list of N (per-camera
-        FPS counters, names). Masks are rasterized on the host per (text,
-        scale) with bucketed canvases, repeated ×3 for the packed layout and
+        ``text`` is one string for every stream or a list of ``n_streams``
+        (per-camera FPS counters, names; each rank blends its own). Masks
+        are rasterized on the host per (text, scale) with bucketed canvases,
+        repeated ×3 for the packed layout and
         kept on the device in a one-entry cache; the origins and the colour
         in another. A change uploads from pinned memory without waiting for
         the stream; an unchanged overlay uploads nothing."""
@@ -804,9 +845,10 @@ class MultiStreamEngine:
         if self._text_cache is None or self._text_cache[0] != key:
             self._text_cache = None  # keep one live mask set (bounded memory)
             if per_stream:
-                if len(text) != self.n:
-                    raise ValueError(f"need {self.n} strings, got {len(text)}")
-                rendered = [_text.rasterize(t, scale) for t in text]
+                if len(text) != self.n_streams:
+                    raise ValueError(f"need {self.n_streams} strings, got {len(text)}")
+                own = text[self.first_stream:self.first_stream + self.n]
+                rendered = [_text.rasterize(t, scale) for t in own]
                 mh = max(m.shape[0] for m, _, _ in rendered)
                 mw = max(m.shape[1] for m, _, _ in rendered)
                 stack = np.zeros((self.n, mh, mw), np.uint8)
@@ -1166,10 +1208,12 @@ class MultiStreamEngine:
         """JSON-serializable snapshot of the configuration and stream
         positions, with the reference engine's keys. ``sequences`` is the
         device-sim stream clock; a host path's positions are its sources'
-        own, as in the reference."""
+        own, as in the reference. On a mesh, ``n_streams`` is the whole
+        count and ``sequences`` this rank's streams': the ranks' lists
+        gathered in stream order make the whole snapshot."""
         rc = self._resolved
         return {
-            "n_streams": self.n,
+            "n_streams": self.n_streams,
             "width": rc.width,
             "height": rc.height,
             "fps": rc.fps,
@@ -1184,14 +1228,15 @@ class MultiStreamEngine:
         }
 
     @classmethod
-    def from_state(cls, state: dict, driver=None, device="cuda",
+    def from_state(cls, state: dict, driver=None, device="cuda", mesh=None,
                    **overrides) -> "MultiStreamEngine":
         """Rebuild an engine from an :meth:`export_state` snapshot of this
         engine or of the reference's; device-sim stream clocks resume where
         it left, a host path opens its sources anew. The snapshot holds no
         encode or MJPEG settings (the reference's keys): ``overrides`` (e.g.
         ``encode_jpeg_quality=85``, ``mjpeg_backend="hybrid"``) go to the
-        engine."""
+        engine. With ``mesh``, ``state`` is the whole snapshot (every
+        stream's position) and each rank resumes its own streams."""
         from ..capture import SimulationDriver
 
         if driver is None:
@@ -1208,9 +1253,14 @@ class MultiStreamEngine:
             overlay=state["overlay"],
             device_sim=state["device_sim"],
             device=device,
+            mesh=mesh,
             **overrides,
         )
-        eng._seqs = np.array(state["sequences"], np.int64)
+        seqs = np.array(state["sequences"], np.int64)
+        if seqs.shape != (eng.n_streams,):
+            raise ValueError(f"the snapshot holds {seqs.size} stream positions, "
+                             f"not n_streams={eng.n_streams}")
+        eng._seqs = seqs[eng.first_stream:eng.first_stream + eng.n]
         eng._seqs_dev = None
         eng._tick_index = state["tick_index"]
         return eng

@@ -760,3 +760,62 @@ def test_mjpeg_backend_host_on_the_card_matches_the_cpu(cuda):
     finally:
         card.close()
         cpu.close()
+
+
+@pytest.mark.parametrize("n_bands", [2, 4, 8])
+def test_band_route_through_k1_equals_k1_on_the_whole_batch(cuda, n_bands):
+    """The spatial route: each row band with its neighbours' HALO rows
+    through ``band_blur_sobel`` (K1 once per band), cropped and
+    concatenated, equals K1 on the whole batch and the plain chain."""
+    from rustcv_tpu_torch.parallel.spatial import HALO, band_blur_sobel
+
+    gray = torch.from_numpy(np.random.default_rng(n_bands).integers(
+        0, 256, (2, 1080, 256), np.uint8)).to(cuda)
+    whole = stencil.blur_sobel_mag(gray)
+    assert torch.equal(whole, stencil.blur_sobel_mag_plain(gray))
+    b = 1080 // n_bands
+    kernels.reset_launch_counts()
+    out = []
+    for r in range(n_bands):
+        lo, hi = r * b, (r + 1) * b
+        out.append(band_blur_sobel(gray[:, lo:hi], gray[:, lo - HALO:lo] if r else None,
+                                   gray[:, hi:hi + HALO] if r < n_bands - 1 else None))
+    assert torch.equal(torch.cat(out, 1), whole)
+    assert kernels.launch_counts()["blur_sobel_mag"] == n_bands
+
+
+def test_one_rank_nccl_mesh_engine_equals_meshless(cuda, monkeypatch):
+    """A one-rank NCCL mesh over the card: the engine's ticks equal the
+    meshless engine's, the rows mesh's stencil equals K1, the fleet sum is
+    the reference test's 9."""
+    import torch.distributed as dist
+
+    from rustcv_tpu_torch import parallel
+
+    monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+    cfg = SimpleConfig(width=320, height=240, fps=60, pixel_format=PixelFormat.YUYV)
+    rects = np.array([[10, 20, 100, 80]] * 4, np.int32)
+    colors = np.array([[0, 255, 0]] * 4, np.uint8)
+    mesh = parallel.stream_mesh("cuda")
+    try:
+        def make(m):
+            return MultiStreamEngine(SimulationDriver(device_count=4, paced=False), 4, cfg,
+                                     filter="blur_sobel", overlay=True, device_sim=True, mesh=m)
+
+        with make(mesh) as eng, make(None) as ref:
+            for _ in range(3):
+                a = eng.tick(rects=rects, rect_colors=colors)
+                b = ref.tick(rects=rects, rect_colors=colors)
+                for key in ("bgr", "filtered"):
+                    assert torch.equal(parallel.gather_streams(a.outputs[key], mesh), b.outputs[key])
+                assert (parallel.gather_streams(a.sequences, mesh) == b.sequences).all()
+        gray = torch.from_numpy(np.random.default_rng(3).integers(
+            0, 256, (2, 240, 320), np.uint8)).to(cuda)
+        rows = parallel.stream_mesh("cuda", axis="rows")
+        assert torch.equal(parallel.blur_sobel_mag_spatial(gray, rows), stencil.blur_sobel_mag(gray))
+        mask = np.zeros((8, 16, 16), bool)
+        mask[:, 4, 4] = True
+        mask[0, 8, 8] = True
+        assert int(parallel.corner_counts_psum(parallel.shard_batch(mask, mesh), mesh)) == 9
+    finally:
+        dist.destroy_process_group()

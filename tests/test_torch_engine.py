@@ -273,6 +273,21 @@ def _device_sim_tick(fmt):
         device="cpu").tick(block=True)
 
 
+def _mesh_with_sub_batch(mp):
+    """``sub_batch`` on a mesh, which the reference refuses too (``mesh=``
+    itself runs: tests/test_torch_parallel.py)."""
+    import torch.distributed as dist
+
+    from rustcv_tpu_torch.parallel import stream_mesh
+
+    made = not dist.is_initialized()
+    try:
+        _port(64, 48, 2, mesh=stream_mesh("cpu"), sub_batch=1)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 @pytest.mark.parametrize(
     "make,error,match",
     [
@@ -280,8 +295,7 @@ def _device_sim_tick(fmt):
             SimulationDriver(device_count=1, paced=False), 1, _cfg(64, 48, PixelFormat.MJPEG),
             mjpeg_backend="host", device_sim=True, device="cpu"), CameraError,
             "device_sim does not support MJPEG", id="mjpeg_host"),
-        pytest.param(lambda mp: _port(64, 48, 1, mesh=object()), NotImplementedError, "ROADMAP",
-                     id="mesh"),
+        pytest.param(_mesh_with_sub_batch, ValueError, "sub_batch is per-chip", id="mesh"),
         pytest.param(lambda mp: _port(64, 48, 1).tick(text="héllo"), NotImplementedError,
                      "ROADMAP queue 1 item 16", id="text"),
         pytest.param(_decode_xla_fused, NotImplementedError, "ROADMAP", id="xla_fused"),

@@ -5,8 +5,10 @@ config 2's hybrid MJPEG decode, NV12 and Bayer frames,
 ``set_resolution``), and its OpenCV-style facade imports and runs the
 README loop with ``put_text`` (``prelude``, ``imgproc``, ``highgui``,
 ``imgcodecs``, ``videoio``), the text overlay, the host codecs and the
-PNG dump, the host MJPEG decode and ``mjpeg_backend="host"``, with jax,
-Pillow and the JAX package ``rustcv_tpu`` absent. The font data's
+PNG dump, the host MJPEG decode and ``mjpeg_backend="host"``, and its
+``parallel`` (a one-rank mesh engine, the band stencil) and ``utils``
+layers and top-level names, with jax, Pillow and the JAX package
+``rustcv_tpu`` absent. The font data's
 generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
@@ -185,6 +187,49 @@ _FACADE_SCRIPT = textwrap.dedent(
 )
 
 
+_PARALLEL_SCRIPT = textwrap.dedent(
+    """
+    import sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import rustcv_tpu_torch
+    from rustcv_tpu_torch import Mat, TickMeter, __version__
+    assert __version__ == "0.2.0" and Mat is rustcv_tpu_torch.core.Mat and TickMeter().get_counter() == 0
+    from rustcv_tpu_torch import parallel, utils
+    import rustcv_tpu_torch.parallel.launch, rustcv_tpu_torch.parallel.rehearse_2d
+    import rustcv_tpu_torch.probes.engine_ab, rustcv_tpu_torch.probes.mesh_fleet
+    from rustcv_tpu_torch.capture import SimulationDriver
+    from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
+    from rustcv_tpu_torch.runtime import MultiStreamEngine
+    mesh = parallel.stream_mesh("cpu")
+    eng = MultiStreamEngine(
+        SimulationDriver(device_count=2, paced=False), 2,
+        SimpleConfig(width=64, height=48, fps=60, pixel_format=PixelFormat.YUYV),
+        filter="blur_sobel", overlay=True, device_sim=True, mesh=mesh, device="cpu")
+    with tempfile.TemporaryDirectory() as d, utils.profile_trace(d) as path:
+        res = eng.tick(block=True)
+    assert parallel.gather_streams(res.outputs["filtered"], mesh).shape == (2, 48, 64)
+    gray = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 48, 64), np.uint8))
+    rows = parallel.stream_mesh("cpu", axis="rows")
+    assert parallel.blur_sobel_mag_spatial(gray, rows).shape == (1, 48, 64)
+    mask = np.ones((2, 4, 4), bool)
+    assert int(parallel.corner_counts_psum(parallel.shard_batch(mask, mesh), mesh)) == 32
+    eng.close()
+    stats = utils.CaptureStats()
+    stats.record(0, 1.0)
+    assert utils.get_logger().name == "rustcv_tpu_torch" and stats.report()["frames"] == 1
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
 def test_port_imports_and_ticks_without_jax_or_pil():
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
@@ -205,13 +250,25 @@ def test_facade_imports_and_runs_without_jax_or_pil():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_parallel_and_utils_run_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_package_import_is_light():
     """``import rustcv_tpu_torch`` alone loads neither torch nor jax, nor do
-    the capture layer, ``videoio``, ``highgui`` and ``imgcodecs``."""
+    the capture layer, ``videoio``, ``highgui``, ``imgcodecs`` and the
+    top-level ``__version__``, ``Mat`` and ``TickMeter``."""
     script = (
         "import sys; sys.modules['jax'] = None; import rustcv_tpu_torch; "
         "import rustcv_tpu_torch.capture, rustcv_tpu_torch.videoio, rustcv_tpu_torch.prelude; "
         "import rustcv_tpu_torch.highgui, rustcv_tpu_torch.imgcodecs; "
+        "from rustcv_tpu_torch import Mat, TickMeter, __version__; "
         "assert 'torch' not in sys.modules, 'torch imported'; print('OK')"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
