@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Fourteen paths, each driven with the launch counts set to 0 just before it
+Fifteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -71,7 +71,8 @@ Phases:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions,
    the build of the CUDA kernels from ``rustcv_tpu_torch/csrc`` and of the
    port's host C++ ``rustcv_tpu_torch.native`` (g++: the JPEG coder, the
-   host JPEG decode, the PNG unfilter, the glyph rasterizer);
+   host JPEG decode, the PNG unfilter, the glyph rasterizer, the frame ring
+   and the V4L2 driver, whose branch it prints);
 2. each kernel (K1 stencil, K4 decode+interleave, K5 fused tick, both
    Harris forms) against its plain PyTorch version on the card, at
    8×1920×1080 and at small ragged shapes, on aligned and misaligned
@@ -116,7 +117,19 @@ Phases:
    engine's (``bgr``, ``filtered``, sequences), the band route identical to
    K1 on the whole batch and to the plain chain, with exact launch counts,
    ``corner_counts_psum`` 9, and the launcher's one process, one chip and
-   ``fleet_fps == local_fps``;
+   ``fleet_fps == local_fps``; (3n) each slice call on the 1080p CUDA Mat
+   equal to the same call on a host Mat (the CPU port), byte for byte or
+   within the reference's ±1 LSB (Lab, general float kernels) and 1e-3 px
+   (``corner_sub_pix``), with ``median_blur`` at k = 3, 5, 7, ``resize`` in
+   all four modes to 640×480 and 3840×2160, ``gaussian_blur`` at ksize 3,
+   5 with σ and 9; 3 ``xla_fused`` headline ticks identical to the default
+   mode's, with exactly K1 3, K4 0, K5 0; the native ring (unpaced and
+   paced) for 20 reads: frames equal to ``synth_raw``, rising sequences, a
+   re-queued slot's Frame raising, the card's decode equal to the host's,
+   drops under a stalled consumer; V4L2's ``DeviceNotFound`` and
+   ``CameraError`` and, without a node, ``default_backend() ==
+   "simulation"`` (with a capture device: 5 frames of its shape with
+   rising sequences);
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -132,7 +145,11 @@ Phases:
    draw on a CUDA Mat; ms/tick with and without text, ms per ``put_text``,
    the rasterizer's ms per string, config 2's host backend beside its
    hybrid; the headline with and without the one-rank mesh in turns, and
-   the band route at R = 2, 4, 8 beside K1 on the whole batch.
+   the band route at R = 2, 4, 8 beside K1 on the whole batch; (4n) ms per
+   call of each slice call on the 1080p CUDA Mat, slowest first, the
+   ``xla_fused`` headline's ms/tick beside the default mode's in turns, and
+   ms per ``Camera`` read of the native ring at 1080p (host and card
+   decode).
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -535,16 +552,20 @@ def run_response_surface(dev) -> dict:
 
 
 def build_native() -> None:
-    """Phase 1b: build (g++) or load the port's C++ JPEG coder; config 6
-    cannot finish its payloads without it."""
+    """Phase 1b: build (g++) or load the port's host C++ library (config 6
+    cannot finish its payloads without it, the native ring needs it), and
+    print which V4L2 branch it holds."""
     t0 = time.perf_counter()
     from rustcv_tpu_torch import native
 
     ok = native.available()
-    print(f"native coder {'built or loaded' if ok else 'UNAVAILABLE'} in "
+    print(f"native library {'built or loaded' if ok else 'UNAVAILABLE'} in "
           f"{time.perf_counter() - t0:.2f} s (g++ {native.build_info.get('seconds', 0.0):.2f} s): "
           f"{native.build_info.get('path')}", flush=True)
     expect(ok, f"rustcv_tpu_torch.native is unavailable: {native.build_error()}")
+    print("native library's V4L2 branch: " + (
+        "the driver (linux/videodev2.h found)" if native.v4l2_available()
+        else "the stub (rcv_v4l2_available() == 0)"), flush=True)
 
 
 def run_mosaic_probe(dev) -> tuple:
@@ -2170,6 +2191,345 @@ def time_mesh(smi: str) -> None:
         flush=True)
 
 
+# -- the capture backends and the first group of device ops (phases 3n, 4n) --------
+
+RING_FRAMES = 20  # Camera reads of the native ring per pacing
+SLICE_TICKS = 3  # headline ticks of RUSTCV_DECODE=xla_fused
+LSB = 1  # ±1 LSB: Lab and general float kernels (the reference's tolerance)
+SUBPIX_TOL = 1e-3  # px: corner_sub_pix (the reference's tolerance)
+
+
+def slice_calls(ip) -> dict:
+    """name → (call on a Mat, tolerance, "bgr" or "gray") for every
+    ``imgproc`` wrapper of the slice and the ops without one; each call
+    returns a Mat, an array, a tensor or a dict (moments)."""
+    import torch
+
+    from rustcv_tpu_torch.ops import color, filters
+
+    se = ip.get_structuring_element("ellipse", 5)
+    general = np.random.default_rng(7).normal(size=(3, 5))
+    exact = {
+        "cvt_hsv": ip.cvt_hsv, "cvt_hsv_to_bgr": ip.cvt_hsv_to_bgr, "cvt_ycrcb": ip.cvt_ycrcb,
+        "cvt_ycrcb_to_bgr": ip.cvt_ycrcb_to_bgr,
+        "in_range": lambda m: ip.in_range(m, (20, 30, 40), (180, 200, 220)),
+        "moments": ip.moments, "pyr_down": ip.pyr_down, "pyr_up": ip.pyr_up,
+        "stack_blur": lambda m: ip.stack_blur(m, 7, 15), "box_blur": lambda m: ip.box_blur(m, 5),
+        "gaussian_blur k5": lambda m: ip.gaussian_blur(m, 5),
+        "threshold": lambda m: ip.threshold(m, 100, 200, "trunc"),
+        "erode": lambda m: ip.erode(m, 3), "dilate": lambda m: ip.dilate(m, 5),
+        "erode_kernel": lambda m: ip.erode_kernel(m, se),
+        "dilate_kernel": lambda m: ip.dilate_kernel(m, se),
+        "morphology_ex": lambda m: ip.morphology_ex(m, "gradient", 3),
+        "median_blur k3": lambda m: ip.median_blur(m, 3),
+        "median_blur k5": lambda m: ip.median_blur(m, 5),
+        "median_blur k7": lambda m: ip.median_blur(m, 7),
+        "filter2d dyadic": lambda m: ip.filter2d(m, np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]]) / 2),
+        "integral": ip.integral, "sobel": lambda m: ip.sobel(m, 1, 1, 5),
+        "laplacian": ip.laplacian, "scharr": lambda m: ip.scharr(m, 1, 0),
+        "good_features_to_track": lambda m: ip.good_features_to_track(m, 256),
+        "moments_rows": lambda m: color.moments_rows(m.device() if m.is_on_device
+                                                     else torch.from_numpy(m.to_numpy())),
+    }
+    lsb = {
+        "cvt_lab": ip.cvt_lab, "cvt_lab_to_bgr": ip.cvt_lab_to_bgr,
+        "gaussian_blur k3": lambda m: ip.gaussian_blur(m, 3),
+        "gaussian_blur k5 sigma 1.5": lambda m: ip.gaussian_blur(m, 5, 1.5),
+        "gaussian_blur k9": lambda m: ip.gaussian_blur(m, 9),
+        "filter2d general": lambda m: ip.filter2d(m, general),
+        "sep_filter_2d": lambda m: ip.sep_filter_2d(m, [0.2, 0.5, 0.3], [0.1, 0.8, 0.1]),
+    }
+    calls = {k: (v, 0, "bgr") for k, v in exact.items()}
+    calls.update({k: (v, LSB, "bgr") for k, v in lsb.items()})
+    for mode in ("bilinear", "nearest", "area", "cubic"):
+        for dw, dh in ((640, 480), (3840, 2160)):
+            calls[f"resize {mode} {dw}x{dh}"] = (
+                lambda m, a=(dw, dh, mode): ip.resize(m, *a), 0, "bgr")
+    calls["adaptive_threshold"] = (lambda m: ip.adaptive_threshold(m, 255, "mean", 11, 2), 0,
+                                   "gray")
+    calls["bilateral_filter"] = (lambda m: ip.bilateral_filter(m, 25), 0, "gray")
+    calls["median3_u8 gray"] = (lambda m: filters.median3_u8(m.device() if m.is_on_device
+                                                             else torch.from_numpy(m.to_numpy())),
+                                0, "gray")
+    return calls
+
+
+def slice_mats():
+    """(bgr, gray) Mats on the card and the same on the host: a seeded
+    1920×1080 frame of the test pattern with noise rows."""
+    import torch
+
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.ops.color import bgr_to_gray
+    from rustcv_tpu_torch.prelude import Mat
+
+    img = synth_bgr(W, H, 11)
+    img[::5] = np.random.default_rng(12).integers(0, 256, img[::5].shape, np.uint8)
+    gray = bgr_to_gray(torch.from_numpy(img)).numpy()[..., None]
+    mats = {}
+    for kind, a in (("bgr", img), ("gray", gray)):
+        dev = Mat.from_array(a.copy())
+        dev.device()
+        mats[kind] = (dev, Mat.from_array(a.copy(), device="cpu"))
+    return mats
+
+
+def _plain(x):
+    if hasattr(x, "to_numpy"):
+        return x.to_numpy()
+    if hasattr(x, "cpu"):
+        return x.cpu().numpy()
+    return x
+
+
+def check_slice_ops(ip) -> None:
+    """Phase 3n, ops: every call of :func:`slice_calls` on the 1080p CUDA
+    Mat against the same call on the host Mat (the CPU port): byte-equal,
+    or within LSB where the reference's tolerance is ±1 LSB; a call that
+    returns a Mat returns a CUDA Mat; corner_sub_pix of the CPU's corners
+    within SUBPIX_TOL."""
+    import torch
+
+    mats = slice_mats()
+    worst = {}
+    for name, (call, tol, kind) in slice_calls(ip).items():
+        dev_mat, host_mat = mats[kind]
+        got = call(dev_mat)
+        want = call(host_mat)
+        if hasattr(got, "is_on_device"):
+            expect(got.is_on_device and got.device().is_cuda, f"{name}: the result left the card")
+        if isinstance(want, dict):
+            expect(got == want, f"{name}: {got} != {want}")
+            continue
+        got, want = _plain(got), _plain(want)
+        expect(got.shape == want.shape and got.dtype == want.dtype,
+               f"{name}: {got.shape} {got.dtype} != {want.shape} {want.dtype}")
+        err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max(initial=0))
+        expect(err <= tol, f"{name}: max |diff| {err} > {tol}")
+        worst[name] = err
+    pts = ip.good_features_to_track(mats["bgr"][1], 256) + np.float32(0.3)
+    expect(len(pts) > 8, f"only {len(pts)} corners")
+    got = ip.corner_sub_pix(mats["bgr"][0], pts)
+    want = ip.corner_sub_pix(mats["bgr"][1], pts)
+    err = float(np.abs(got - want).max())
+    expect(err <= SUBPIX_TOL, f"corner_sub_pix: max |diff| {err} px")
+    torch.cuda.synchronize()
+    print(f"slice ops at {W}x{H}: {len(worst) + 1} calls on the card == the CPU port "
+          f"(max |diff| {max(worst.values())} LSB where {LSB} is allowed; corner_sub_pix "
+          f"{err:.2e} px on {len(pts)} corners)", flush=True)
+
+
+def run_xla_fused_headline() -> dict:
+    """Phase 3n, the xla_fused headline: 8 × 1080p device-sim YUYV with
+    blur_sobel and the overlay for SLICE_TICKS ticks, equal to the default
+    mode's ticks; K1 once per tick, never K4 or K5. Returns the launches of
+    its ticks."""
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    rects, colors = bench_overlay()
+    base = make_engine("default")
+    ref = [base.tick(rects=rects, rect_colors=colors) for _ in range(SLICE_TICKS)]
+    base.close()
+    kernels.reset_launch_counts()
+    eng = make_engine("xla_fused")
+    got = [eng.tick(rects=rects, rect_colors=colors) for _ in range(SLICE_TICKS)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    eng.close()
+    set_mode("default")
+    want = {name: 0 for name in counts}
+    want["blur_sobel_mag"] = SLICE_TICKS
+    expect(counts == want, f"xla_fused launches {counts}, expected {want}")
+    for t, (a, b) in enumerate(zip(got, ref)):
+        for key in ("bgr", "filtered"):
+            expect(torch.equal(a.outputs[key], b.outputs[key]),
+                   f"xla_fused tick {t}: {key} differs from the default mode")
+    print(f"xla_fused headline: {SLICE_TICKS} ticks of {N} x {W}x{H} identical to the default "
+          f"mode; launches {counts}", flush=True)
+    return counts
+
+
+def ring_source(paced: bool, buffers: int = 4):
+    from rustcv_tpu_torch.capture.native_source import NativeSimulationSource
+    from rustcv_tpu_torch.core import PixelFormat, ResolvedConfig
+
+    return NativeSimulationSource(ResolvedConfig(W, H, 60, PixelFormat.YUYV, buffers), paced=paced)
+
+
+def run_native_ring() -> None:
+    """Phase 3n, the native ring: a NativeSimulationSource at 1920×1080,
+    unpaced and paced at 60 fps, in a Camera, for RING_FRAMES frames: each
+    frame equal to synth_raw for its sequence number, sequences rising, a
+    re-queued slot's Frame raising, ``read_decoded_device("cuda")`` equal to
+    the host decode of the same frame; then a stalled consumer shows
+    drops."""
+    import torch
+
+    from rustcv_tpu_torch.capture import Camera
+    from rustcv_tpu_torch.capture.simulation import synth_raw
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.ops import decode
+    from rustcv_tpu_torch.prelude import Mat
+
+    for paced in (False, True):
+        src = ring_source(paced)
+        cam = Camera(src, None)
+        try:
+            seqs, prev = [], None
+            for i in range(RING_FRAMES):
+                if i % 2 == 0:
+                    frame = cam.next_frame()
+                else:
+                    got = cam.read_decoded_device("cuda")
+                    frame = src._prev_frame  # the frame the read decoded
+                    mat = Mat(device="cpu")
+                    decode.decode_frame_host(frame, mat)
+                    expect(got.is_cuda and np.array_equal(got.cpu().numpy(), mat.to_numpy()),
+                           f"ring read {i}: the card's decode differs from the host's")
+                expect(np.array_equal(frame.data, synth_raw(W, H, PixelFormat.YUYV, frame.sequence)),
+                       f"ring frame {frame.sequence} differs from synth_raw")
+                if prev is not None:
+                    try:
+                        prev.data
+                        raise SmokeFailure("a re-queued slot's Frame did not raise")
+                    except RuntimeError:
+                        pass
+                seqs.append(frame.sequence)
+                prev = frame
+            expect(seqs == sorted(set(seqs)), f"sequences do not rise: {seqs}")
+            print(f"native ring {'paced' if paced else 'unpaced'}: {RING_FRAMES} frames equal to "
+                  f"synth_raw, sequences {seqs[0]}..{seqs[-1]}, drops "
+                  f"{src.telemetry().dropped_frames}", flush=True)
+        finally:
+            cam.close()
+            src.close()
+    src = ring_source(True, buffers=2)
+    src.start()
+    try:
+        src.next_frame()
+        time.sleep(0.2)  # both slots held: the 60 fps sensor drops ~12 frames
+        dropped = src.telemetry().dropped_frames
+        expect(dropped > 0, "a stalled consumer showed no drops")
+        print(f"native ring, stalled consumer: {dropped} frames dropped in 0.2 s", flush=True)
+    finally:
+        src.close()
+    torch.cuda.synchronize()
+
+
+def run_v4l2() -> None:
+    """Phase 3n, V4L2: the driver's branch and the nodes, printed; a missing
+    node raises DeviceNotFound, /dev/null a CameraError; without a node
+    the default backend is simulation; with a capture device, 5 frames of
+    its shape with rising sequences."""
+    from rustcv_tpu_torch import native, videoio
+    from rustcv_tpu_torch.capture.v4l2 import V4L2Driver, enumerate_modes, list_video_devices
+    from rustcv_tpu_torch.core import CameraError, DeviceNotFound, SimpleConfig
+
+    nodes = list_video_devices()
+    print(f"V4L2: rcv_v4l2_available() = {int(native.v4l2_available())}, "
+          f"list_video_devices() = {nodes}", flush=True)
+    for path, error in (("/dev/video255", DeviceNotFound), ("/dev/null", CameraError)):
+        try:
+            enumerate_modes(path)
+            raise SmokeFailure(f"enumerate_modes({path!r}) did not raise")
+        except error as e:
+            print(f"V4L2: enumerate_modes({path!r}) raised {type(e).__name__}: {e}", flush=True)
+    backend = videoio.default_backend()
+    if not nodes:
+        expect(backend == "simulation", f"default_backend() is {backend!r} without a node")
+        return
+    devs = V4L2Driver().list_devices()
+    print(f"V4L2: default_backend() = {backend!r}, capture devices {[d.id for d in devs]}",
+          flush=True)
+    if not devs:
+        return
+    src, _ = V4L2Driver().open_simple(devs[0].id, SimpleConfig(width=640, height=480))
+    try:
+        cfg = src.resolved_config()
+        seqs = []
+        for _ in range(5):
+            f = src.next_frame()
+            expect((f.width, f.height) == (cfg.width, cfg.height) and f.data.size > 0,
+                   f"V4L2 frame {f.width}x{f.height}, {f.data.size} bytes")
+            seqs.append(f.sequence)
+        expect(seqs == sorted(seqs), f"V4L2 sequences {seqs}")
+        print(f"V4L2: 5 frames {cfg.width}x{cfg.height} {cfg.pixel_format}, sequences {seqs}",
+              flush=True)
+    finally:
+        src.close()
+
+
+def run_slice() -> dict:
+    """Phase 3n: the slice's ops at 1080p, the xla_fused headline, the
+    native ring and V4L2. Returns the launches of the phase's run."""
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    check_slice_ops(imgproc)
+    ops_counts = kernels.launch_counts()
+    expect(ops_counts["harris_response_i32"] > 0, "good_features_to_track never launched K6")
+    headline = run_xla_fused_headline()
+    run_native_ring()
+    run_v4l2()
+    return {k: ops_counts[k] + headline[k] for k in ops_counts}
+
+
+def time_slice(smi: str) -> None:
+    """Phase 4n: ms per call of each slice call on the 1080p CUDA Mat (CUDA
+    events, 20 calls), slowest first; the xla_fused headline's ms/tick
+    beside the default mode's, in turns; ms per Camera read of the native
+    ring at 1080p, the host decode and the card's (host clock, 20 reads,
+    unpaced)."""
+    import torch
+
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.capture import Camera
+    from rustcv_tpu_torch.prelude import Mat
+
+    mats = slice_mats()
+    times = {}
+    for name, (call, _tol, kind) in slice_calls(imgproc).items():
+        times[name] = cuda_ms(lambda: call(mats[kind][0]), 20)
+    pts = imgproc.good_features_to_track(mats["bgr"][1], 256) + np.float32(0.3)
+    times["corner_sub_pix"] = cuda_ms(lambda: imgproc.corner_sub_pix(mats["bgr"][0], pts), 20)
+    print(f"slice ms per call on a {W}x{H} CUDA Mat ({smi}), slowest first: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])), flush=True)
+    rects, colors = bench_overlay()
+    ms = {"default": [], "xla_fused": []}
+    for mode in ("default", "xla_fused", "xla_fused", "default"):
+        eng = make_engine(mode)
+        for _ in range(5):
+            eng.tick(rects=rects, rect_colors=colors)
+        ms[mode].append(cuda_ms(lambda: eng.tick(rects=rects, rect_colors=colors), 50))
+        eng.close()
+    set_mode("default")
+    print(f"headline ms/tick ({smi}): default {ms['default'][0]:.4f}, {ms['default'][1]:.4f}; "
+          f"xla_fused {ms['xla_fused'][0]:.4f}, {ms['xla_fused'][1]:.4f}", flush=True)
+    src = ring_source(False)
+    cam = Camera(src, None)
+    try:
+        reads = {}
+        mat = Mat(device="cpu")
+        for label, read in (("host decode", lambda: cam.read_decoded(mat)),
+                            ("card decode", lambda: cam.read_decoded_device("cuda"))):
+            for _ in range(2):
+                read()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                read()
+                torch.cuda.synchronize()
+            reads[label] = (time.perf_counter() - t0) * 1e3 / 20
+    finally:
+        cam.close()
+        src.close()
+    print(f"native ring at {W}x{H}, ms per Camera read ({smi}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in reads.items()), flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -2227,7 +2587,7 @@ def main() -> int:
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}", flush=True)
         phase("phase 1, kernel build", build_kernels)
-        phase("phase 1, native coder", build_native)
+        phase("phase 1, native library", build_native)
         errs = phase("phase 2, kernels vs plain", check_kernels, dev)
         k7_launches, errs["mosaic_shuffle"] = phase("phase 2, K7 probe", run_mosaic_probe, dev)
         done("phases 1-2")
@@ -2239,7 +2599,7 @@ def main() -> int:
                             ("formats", run_formats), ("chained graphs", run_chained_graphs),
                             ("set_resolution", run_set_resolution),
                             ("configs 1, 3, 5", run_zoo_configs), ("facade", run_facade),
-                            ("mesh", run_mesh)):
+                            ("mesh", run_mesh), ("slice ops, xla_fused, ring, V4L2", run_slice)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -2258,7 +2618,8 @@ def main() -> int:
                           ("formats, chained configs 1 and 4, configs 3 and 5",
                            lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi)),
                           ("text and host codecs", lambda: time_text_and_codecs(smi)),
-                          ("mesh", lambda: time_mesh(smi))):
+                          ("mesh", lambda: time_mesh(smi)),
+                          ("slice ops, xla_fused, ring", lambda: time_slice(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

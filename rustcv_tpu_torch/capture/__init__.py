@@ -1,7 +1,8 @@
 """Capture layer of the port: FrameSource protocol, simulation driver,
-negotiation, the ``Camera`` and ``VideoCapture`` facades and the MJPEG-AVI
-file driver and writer. Importing it loads no torch; decoding does. The
-V4L2 and native ring drivers are not ported yet (ROADMAP queue 1 item 11)."""
+negotiation, the ``Camera`` and ``VideoCapture`` facades, the MJPEG-AVI
+file driver and writer, and (as submodules, imported where used) the
+V4L2 driver ``capture.v4l2`` and the native ring source
+``capture.native_source``. Importing it loads no torch; decoding does."""
 
 from .avi import AviMjpegReader, FileDriver, FileSource, VideoWriter
 from .camera import Camera, default_driver

@@ -22,16 +22,25 @@ from ..core.telemetry import DeviceTelemetry
 from .simulation import SimulationDriver
 from .source import DeviceControls, Driver, FrameSource
 
-_DEFAULT_DRIVER: Optional[SimulationDriver] = None
+_DEFAULT_DRIVER: Optional[Driver] = None
 
 
-def default_driver():
-    """The simulation driver (one per process). The reference prefers a
-    V4L2 camera when one is present; the port's V4L2 driver waits for
-    ROADMAP Queue 1 item 11."""
+def default_driver() -> Driver:
+    """A V4L2 driver when a capture device is present, else the simulation
+    driver (one per process): the run-time analog of the reference's
+    compile-time backend switch.
+
+    Without a ``/dev/video*`` node nothing is built. With one, a node that
+    turns out to be no capture device (a ``CameraError`` from the node) is
+    skipped, and simulation serves when none is left; a native library
+    that did not build raises (the reference falls back to simulation on
+    any error)."""
     global _DEFAULT_DRIVER
     if _DEFAULT_DRIVER is None:
-        _DEFAULT_DRIVER = SimulationDriver()
+        from .v4l2 import V4L2Driver, list_video_devices
+
+        drv = V4L2Driver() if list_video_devices() else None
+        _DEFAULT_DRIVER = drv if drv is not None and drv.list_devices() else SimulationDriver()
     return _DEFAULT_DRIVER
 
 

@@ -19,10 +19,13 @@ return a new Mat on the input's side (device or host).
 ``put_text`` rasterizes its glyphs on the host without Pillow
 (:mod:`..ops.text`) and blends the mask where the Mat is.
 
-Not ported yet: ``resize``'s nearest, area and cubic modes and
-``gaussian_blur`` with another ``ksize`` or ``sigma`` (items 10 and 14),
-and the rest of the reference module (item 14). They raise ``not_ported``
-or are absent.
+The processing ops of ``ops.color``, ``ops.filters``, ``ops.resize`` and
+``ops.features`` have their wrappers here: resize in every mode, the
+blurs, pyramids, thresholds, morphology, medians, derivatives,
+``filter2d``, integral images, colour conversions, range masks, moments,
+corner seeds and their sub-pixel refinement. Each runs where the Mat is.
+The rest of the reference module arrives with the ops it wraps (ROADMAP
+Queue 1 items 3–7); its names are absent here.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.errors import not_ported
 from ..core.mat import Mat
 from ..ops import color as _color
 from ..ops import draw as _draw
@@ -41,6 +43,7 @@ from ..ops import filters as _filters
 from ..ops import golden
 from ..ops import resize as _resize
 from ..ops import text as _text
+from ..ops.filters import get_structuring_element
 from ..ops.text import get_text_size
 
 
@@ -207,18 +210,128 @@ def put_text(mat: Mat, text: str, org: Point, font_scale: float, color: Scalar) 
 def _apply(mat: Mat, fn) -> Mat:
     """``fn`` on the Mat's tensor: a device Mat gives a device Mat, a host
     Mat a host Mat (computed on a CPU tensor)."""
+    return _from_tensor(mat, fn(_tensor(mat)))
+
+
+def _from_tensor(mat: Mat, out: torch.Tensor) -> Mat:
+    """A Mat of ``out`` on ``mat``'s side: a device Mat, or a host Mat made
+    from the CPU tensor."""
     if mat.is_on_device:
-        return Mat.from_device(fn(mat.device()))
-    out = fn(torch.from_numpy(mat.to_numpy()))
+        return Mat.from_device(out)
     return Mat.from_array(out.numpy(), device=mat.target)
 
 
-def _gray(img: torch.Tensor) -> torch.Tensor:
-    """The single-channel plane of an (H, W, 3) BGR (exact luma) or (H, W[,
-    1]) gray image."""
+def _tensor(mat: Mat) -> torch.Tensor:
+    """The Mat's pixels as a tensor: its device tensor, or a CPU tensor of
+    its host bytes."""
+    return mat.device() if mat.is_on_device else torch.from_numpy(mat.to_numpy())
+
+
+def _gray(img: torch.Tensor, allow_bgr: bool = True) -> torch.Tensor:
+    """The single-channel (H, W) plane of an (H, W), (H, W, 1) or BGR (H, W,
+    3) image. BGR converts by the exact luma when ``allow_bgr``, else
+    raises (ops whose spec is gray only)."""
+    if img.ndim == 3 and img.shape[-1] == 1:
+        return img[..., 0]
     if img.ndim == 3 and img.shape[-1] == 3:
+        if not allow_bgr:
+            raise ValueError("gray (single-channel) input required")
         return _color.bgr_to_gray(img)
-    return img.squeeze()
+    if img.ndim != 2:
+        raise ValueError(f"unsupported image shape {tuple(img.shape)}")
+    return img
+
+
+_RESIZE = {"bilinear": _resize.resize_bilinear, "nearest": _resize.resize_nearest,
+           "area": _resize.resize_area, "cubic": _resize.resize_bicubic}
+
+
+def resize(mat: Mat, width: int, height: int, interpolation: str = "bilinear") -> Mat:
+    """Resize with a frozen spec per mode (OpenCV's INTER_* modes):
+    "bilinear" (11-bit fixed point, golden.resize_bilinear), "nearest"
+    (half-pixel-centre taps), "area" (exact box mean for integer
+    downscales, bilinear otherwise) and "cubic" (a = −0.75, 11-bit)."""
+    if interpolation not in _RESIZE:
+        raise ValueError(
+            f"unknown interpolation {interpolation!r} "
+            "(bilinear, nearest, area, cubic)"
+        )
+    fn = _RESIZE[interpolation]
+    return _apply(mat, lambda img: fn(img, width, height))
+
+
+def gaussian_blur(mat: Mat, ksize: int = 5, sigma: float = -1.0) -> Mat:
+    """Gaussian blur, replicate border. The default 5×5 runs the frozen
+    integer spec (golden.gaussian5_u8); another ``ksize`` or ``sigma``
+    goes through :func:`get_gaussian_kernel` and :func:`sep_filter_2d`
+    (the float-kernel path, ±1 LSB)."""
+    if ksize == 5 and sigma < 0:
+        return _apply(mat, _filters.gaussian5_u8)
+    k = get_gaussian_kernel(ksize, sigma)
+    return sep_filter_2d(mat, k, k)
+
+
+def get_gaussian_kernel(ksize: int, sigma: float = -1.0) -> np.ndarray:
+    """1-D Gaussian taps (OpenCV ``getGaussianKernel``): float64 [k]
+    normalized to sum 1; sigma <= 0 takes OpenCV's 0.3*((k-1)*0.5-1)+0.8."""
+    if ksize < 1 or ksize % 2 == 0:
+        raise ValueError("ksize must be odd and positive")
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    t = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2
+    k = np.exp(-(t * t) / (2.0 * sigma * sigma))
+    return k / k.sum()
+
+
+def sep_filter_2d(mat: Mat, kx, ky) -> Mat:
+    """Separable correlation (OpenCV ``sepFilter2D``): outer(ky, kx) through
+    :func:`filter2d` (which runs a rank-1 kernel separably)."""
+    return filter2d(mat, np.outer(np.asarray(ky, np.float64), np.asarray(kx, np.float64)))
+
+
+def filter2d(mat: Mat, kernel) -> Mat:
+    """Arbitrary-kernel correlation (OpenCV ``filter2D``): u8 saturate,
+    replicate border; ``kernel`` a host (odd, odd) array
+    (ops.filters.filter2d_u8)."""
+    return _apply(mat, lambda img: _filters.filter2d_u8(img, kernel))
+
+
+def adaptive_threshold(mat: Mat, maxval: int = 255, method: str = "mean",
+                       block: int = 11, c: int = 2, inv: bool = False) -> Mat:
+    """OpenCV ``adaptiveThreshold``: T = the block×block mean (or the 5×5
+    Gaussian spec) − c; gray input only (a BGR Mat raises)."""
+    g = _gray(_tensor(mat), allow_bgr=False)
+    return _from_tensor(mat, _filters.adaptive_threshold_u8(g, maxval, method, block, c, inv))
+
+
+def bilateral_filter(mat: Mat, sigma: int = 25) -> Mat:
+    """Edge-preserving 5×5 bilateral filter (OpenCV ``bilateralFilter``
+    role; the integer quadratic-ramp range kernel of golden.bilateral5_u8).
+    Gray input only."""
+    return _from_tensor(mat, _filters.bilateral5_u8(_gray(_tensor(mat), allow_bgr=False), sigma))
+
+
+def pyr_down(mat: Mat) -> Mat:
+    """Image-pyramid downsample: 5×5 Gaussian and even-index decimation
+    (OpenCV pyrDown's shapes; golden.pyr_down)."""
+    return _apply(mat, _filters.pyr_down)
+
+
+def pyr_up(mat: Mat) -> Mat:
+    """Image-pyramid upsample to (2H, 2W) (OpenCV pyrUp role;
+    golden.pyr_up)."""
+    return _apply(mat, _filters.pyr_up)
+
+
+def stack_blur(mat: Mat, kw: int, kh: int = None) -> Mat:
+    """StackBlur (separable triangle, replicate border, the stackblur
+    fixed-point divider; golden.stack_blur_u8)."""
+    return _apply(mat, lambda img: _filters.stack_blur_u8(img, kw, kw if kh is None else kh))
+
+
+def box_blur(mat: Mat, ksize: int = 3) -> Mat:
+    """k×k box blur, replicate border, the rounded integer mean."""
+    return _apply(mat, lambda img: _filters.box_blur_u8(img, ksize))
 
 
 def cvt_gray(mat: Mat) -> Mat:
@@ -226,26 +339,151 @@ def cvt_gray(mat: Mat) -> Mat:
     return _apply(mat, _color.bgr_to_gray)
 
 
-def resize(mat: Mat, width: int, height: int, interpolation: str = "bilinear") -> Mat:
-    """Resize, "bilinear" (11-bit fixed-point, golden.resize_bilinear). The
-    reference's "nearest", "area" and "cubic" modes are not ported."""
-    if interpolation in ("nearest", "area", "cubic"):
-        raise not_ported(f"resize(interpolation={interpolation!r})", item="10 and 14")
-    if interpolation != "bilinear":
-        raise ValueError(
-            f"unknown interpolation {interpolation!r} "
-            "(bilinear, nearest, area, cubic)"
-        )
-    return _apply(mat, lambda img: _resize.resize_bilinear(img, width, height))
+def cvt_hsv(mat: Mat) -> Mat:
+    """BGR → HSV u8 (OpenCV 8-bit convention, H ∈ [0, 180)); the exact
+    all-integer spec golden.bgr_to_hsv."""
+    return _apply(mat, _color.bgr_to_hsv)
 
 
-def gaussian_blur(mat: Mat, ksize: int = 5, sigma: float = -1.0) -> Mat:
-    """Gaussian blur, replicate border: the default 5×5 frozen integer spec
-    (golden.gaussian5_u8). Another ``ksize`` or ``sigma`` (the reference's
-    float-kernel path) is not ported."""
-    if ksize != 5 or sigma >= 0:
-        raise not_ported(f"gaussian_blur(ksize={ksize}, sigma={sigma})", item="14")
-    return _apply(mat, _filters.gaussian5_u8)
+def cvt_hsv_to_bgr(mat: Mat) -> Mat:
+    """HSV u8 (H ∈ [0, 180)) → BGR (golden.hsv_to_bgr); round-trips
+    :func:`cvt_hsv` within ±4 LSB (H is quantized to 2°)."""
+    return _apply(mat, _color.hsv_to_bgr)
+
+
+def cvt_ycrcb(mat: Mat) -> Mat:
+    """BGR → YCrCb u8 (14-bit fixed point; golden.bgr_to_ycrcb)."""
+    return _apply(mat, _color.bgr_to_ycrcb)
+
+
+def cvt_ycrcb_to_bgr(mat: Mat) -> Mat:
+    """YCrCb u8 → BGR (golden.ycrcb_to_bgr)."""
+    return _apply(mat, _color.ycrcb_to_bgr)
+
+
+def cvt_lab(mat: Mat) -> Mat:
+    """BGR → CIE L*a*b* u8 (OpenCV 8-bit convention; golden.bgr_to_lab
+    within ±1 LSB)."""
+    return _apply(mat, _color.bgr_to_lab)
+
+
+def cvt_lab_to_bgr(mat: Mat) -> Mat:
+    """Lab u8 → BGR (golden.lab_to_bgr within ±1 LSB)."""
+    return _apply(mat, _color.lab_to_bgr)
+
+
+def in_range(mat: Mat, lower, upper) -> Mat:
+    """Per-channel inclusive range mask → u8 {0, 255} Mat (OpenCV
+    ``inRange``)."""
+    return _apply(mat, lambda img: _color.in_range(img, lower, upper))
+
+
+def moments(mat: Mat) -> dict:
+    """Raw spatial moments m00/m10/m01 (and the centroid when nonempty) of a
+    u8 mask or gray Mat (OpenCV ``moments``), exact: int64 row partials
+    where the Mat is, summed on the host."""
+    return _color.moments(_tensor(mat))
+
+
+def threshold(mat: Mat, thresh: int, maxval: int = 255, type: str = "binary") -> Mat:
+    """Element-wise threshold (binary, binary_inv, trunc, tozero,
+    tozero_inv)."""
+    return _apply(mat, lambda img: _filters.threshold_u8(img, thresh, maxval, type=type))
+
+
+def erode(mat: Mat, ksize: int = 3) -> Mat:
+    """k×k erosion (window minimum), replicate border."""
+    return _apply(mat, lambda img: _filters.erode_u8(img, ksize))
+
+
+def dilate(mat: Mat, ksize: int = 3) -> Mat:
+    """k×k dilation (window maximum), replicate border."""
+    return _apply(mat, lambda img: _filters.dilate_u8(img, ksize))
+
+
+def erode_kernel(mat: Mat, kernel) -> Mat:
+    """Erosion over an arbitrary bool structuring element (see
+    :func:`get_structuring_element`)."""
+    return _apply(mat, lambda img: _filters.erode_kernel_u8(img, kernel))
+
+
+def dilate_kernel(mat: Mat, kernel) -> Mat:
+    """Dilation over an arbitrary bool structuring element."""
+    return _apply(mat, lambda img: _filters.dilate_kernel_u8(img, kernel))
+
+
+def morphology_ex(mat: Mat, op: str, ksize: int = 3) -> Mat:
+    """Compound morphology (OpenCV ``morphologyEx``): op in ("open",
+    "close", "gradient", "tophat", "blackhat")."""
+    return _apply(mat, lambda img: _filters.morphology_ex_u8(img, op, ksize))
+
+
+def median_blur(mat: Mat, ksize: int = 3) -> Mat:
+    """k×k median filter (odd k, exact): the exchange network at k = 3,
+    the windows' order statistic otherwise."""
+    if ksize == 3:
+        return _apply(mat, _filters.median3_u8)
+    return _apply(mat, lambda img: _filters.median_u8(img, ksize))
+
+
+def integral(mat: Mat) -> np.ndarray:
+    """Summed-area table (OpenCV ``integral``): (H+1, W+1) int64 with a zero
+    top row and left column (a BGR Mat is summed as its gray)."""
+    return _filters.integral_u8(_gray(_tensor(mat))).cpu().numpy()
+
+
+def sobel(mat: Mat, dx: int = 1, dy: int = 0, ksize: int = 3) -> np.ndarray:
+    """Directional derivative (OpenCV ``Sobel`` role, signed output): gray
+    (a BGR Mat converts by the exact luma) → int32 (H, W), the exact
+    integer separable kernels of ``getDerivKernels``."""
+    return _filters.sobel_xy(_gray(_tensor(mat)), dx, dy, ksize).cpu().numpy()
+
+
+def laplacian(mat: Mat) -> np.ndarray:
+    """3×3 Laplacian (OpenCV ``Laplacian`` ksize=1 role): gray → signed
+    int32 (H, W), replicate border (golden.laplacian3)."""
+    return _filters.laplacian3(_gray(_tensor(mat))).cpu().numpy()
+
+
+def scharr(mat: Mat, dx: int = 1, dy: int = 0) -> np.ndarray:
+    """Scharr 3×3 derivative (OpenCV ``Scharr``): (dx, dy) = (1, 0) or
+    (0, 1); signed int32 (H, W) (golden.scharr3_gray)."""
+    if (dx, dy) not in ((1, 0), (0, 1)):
+        raise ValueError("scharr requires (dx, dy) of (1, 0) or (0, 1)")
+    gx, gy = _filters.scharr3_gray(_gray(_tensor(mat)))
+    return (gx if dx else gy).cpu().numpy()
+
+
+def corner_sub_pix(mat: Mat, pts, win: int = 11, iters: int = 10) -> np.ndarray:
+    """Sub-pixel corner refinement (OpenCV ``cornerSubPix``): float32
+    [K, 2] (x, y) in → refined out, all points at once where the Mat is
+    (ops.features.corner_sub_pix)."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 2)
+    return _features.corner_sub_pix(_gray(_tensor(mat)), pts, win=win, iters=iters).cpu().numpy()
+
+
+def good_features_to_track(mat: Mat, max_corners: int = 256, **kw) -> np.ndarray:
+    """Corner seeds for tracking (OpenCV ``goodFeaturesToTrack`` role,
+    Harris scoring): float32 [K, 2] (x, y), K ≤ max_corners, strongest
+    first, equal responses in row-major order. On a CUDA Mat the response
+    is the Harris kernel (K6)."""
+    gray = _gray(_tensor(mat))
+    h, w = gray.shape
+    coords, valid = _features.harris_corner_list(gray, max_corners=min(max_corners, h * w), **kw)
+    coords = coords[valid].cpu().numpy()
+    return coords[:, ::-1].astype(np.float32)
+
+
+def good_features_to_track_with_quality(mat: Mat, max_corners: int = 256, **kw):
+    """OpenCV ``goodFeaturesToTrackWithQuality`` role → (points float32
+    [K, 2] (x, y), quality float32 [K]: the fixed-point Harris response at
+    each corner)."""
+    pts = good_features_to_track(mat, max_corners=max_corners, **kw)
+    resp = _features.harris_response_i32(_gray(_tensor(mat)),
+                                          k_num=int(round(kw.get("k", 0.04) * 1024)))
+    xs = pts[:, 0].astype(np.int64)
+    ys = pts[:, 1].astype(np.int64)
+    return pts, resp.cpu().numpy()[ys, xs].astype(np.float32)
 
 
 def sobel_magnitude(mat: Mat) -> Mat:
@@ -264,14 +502,19 @@ def harris_corners(mat: Mat, k: float = 0.04, threshold_rel: float = 0.01,
                    nms_radius: int = 1) -> np.ndarray:
     """Corner mask (H, W) bool (golden.harris_corners). On a CUDA Mat the
     fixed-point response is the Harris kernel (K6)."""
-    img = mat.device() if mat.is_on_device else torch.from_numpy(mat.to_numpy())
-    corners = _features.harris_corners(_gray(img), k=k, threshold_rel=threshold_rel,
+    corners = _features.harris_corners(_gray(_tensor(mat)), k=k, threshold_rel=threshold_rel,
                                        nms_radius=nms_radius)
     return corners.cpu().numpy()
 
 
 __all__ = [
-    "Point", "Rect", "Scalar", "arrowed_line", "canny", "circle", "cvt_gray",
-    "ellipse", "fill_poly", "gaussian_blur", "get_text_size", "harris_corners", "line",
-    "polylines", "put_text", "rectangle", "resize", "sobel_magnitude",
+    "Point", "Rect", "Scalar", "adaptive_threshold", "arrowed_line", "bilateral_filter",
+    "box_blur", "canny", "circle", "corner_sub_pix", "cvt_gray", "cvt_hsv", "cvt_hsv_to_bgr",
+    "cvt_lab", "cvt_lab_to_bgr", "cvt_ycrcb", "cvt_ycrcb_to_bgr", "dilate", "dilate_kernel",
+    "ellipse", "erode", "erode_kernel", "fill_poly", "filter2d", "gaussian_blur",
+    "get_gaussian_kernel", "get_structuring_element", "get_text_size",
+    "good_features_to_track", "good_features_to_track_with_quality", "harris_corners",
+    "in_range", "integral", "laplacian", "line", "median_blur", "moments", "morphology_ex",
+    "polylines", "put_text", "pyr_down", "pyr_up", "rectangle", "resize", "scharr",
+    "sep_filter_2d", "sobel", "sobel_magnitude", "stack_blur", "threshold",
 ]

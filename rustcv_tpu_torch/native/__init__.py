@@ -1,21 +1,25 @@
-"""The port's host C++ (the JPEG entropy coder, the full host JPEG decode
-and the glyph rasterizer), built with g++ at first use and bound with
-ctypes.
+"""The port's host C++ (the JPEG entropy coder, the full host JPEG decode,
+the glyph rasterizer, the frame ring and the V4L2 driver), built with g++
+at first use and bound with ctypes.
 
-Five sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
+Seven sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
 block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
 which checks a payload exactly: Huffman coding is lossless; and the flat-
 and block-packed forms that feed the hybrid MJPEG decode), ``jpeg_host.cpp``
 (the full decode to BGR on the host, libjpeg-turbo's default decode without
-libjpeg), ``png_filter.cpp`` (the PNG reader's scanline unfiltering) and
-``text_raster.cpp`` (put_text's glyph rasterizer).
+libjpeg), ``png_filter.cpp`` (the PNG reader's scanline unfiltering),
+``text_raster.cpp`` (put_text's glyph rasterizer), ``capture.cpp`` (the
+threaded frame ring behind :class:`NativeRing`: a ``std::thread`` producer
+writes the frozen test pattern as YUYV into its slots) and ``v4l2.cpp``
+(the direct-ioctl V4L2 driver behind ``capture.v4l2``; a host without
+``linux/videodev2.h`` builds its stub, ``rcv_v4l2_available() == 0``).
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
-:func:`available` is False when the build failed; every coder function
-then raises with the compiler's output (:func:`build_error`).
+:func:`available` is False when the build failed; every function of the
+library then raises with the compiler's output (:func:`build_error`).
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp", _HERE / "jpeg_host.cpp",
-           _HERE / "png_filter.cpp", _HERE / "text_raster.cpp")
+           _HERE / "png_filter.cpp", _HERE / "text_raster.cpp", _HERE / "capture.cpp",
+           _HERE / "v4l2.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "rustcv_tpu_torch"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -72,9 +77,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     u16p = ctypes.POINTER(ctypes.c_uint16)
     i32p = ctypes.POINTER(ctypes.c_int32)
     intp = ctypes.POINTER(ctypes.c_int)
+    longp = ctypes.POINTER(ctypes.c_long)
     lib.rcv_jpeg_info.restype = ctypes.c_int
     lib.rcv_jpeg_info.argtypes = [u8p, ctypes.c_long, intp, intp, intp, intp, intp, intp, intp]
-    longp = ctypes.POINTER(ctypes.c_long)
     lib.rcv_jpeg_coeffs.restype = ctypes.c_int
     lib.rcv_jpeg_coeffs.argtypes = [u8p, ctypes.c_long, i16p, i16p, i16p, u16p, u16p, u16p]
     lib.rcv_jpeg_coeffs_packed.restype = ctypes.c_int
@@ -106,6 +111,48 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, intp, intp, intp, intp,
         ctypes.c_int, ctypes.c_int, u16p, u16p, u8p, ctypes.c_long,
     ]
+    # capture.cpp: the frame ring (its producer runs rcv_synth_yuyv).
+    lib.rcv_ring_create.restype = ctypes.c_void_p
+    lib.rcv_ring_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.rcv_ring_start.restype = ctypes.c_int
+    lib.rcv_ring_start.argtypes = [ctypes.c_void_p, ctypes.c_double, ctypes.c_int]
+    lib.rcv_ring_stop.restype = None
+    lib.rcv_ring_stop.argtypes = [ctypes.c_void_p]
+    lib.rcv_ring_destroy.restype = None
+    lib.rcv_ring_destroy.argtypes = [ctypes.c_void_p]
+    lib.rcv_ring_dequeue.restype = ctypes.c_long
+    lib.rcv_ring_dequeue.argtypes = [ctypes.c_void_p, ctypes.POINTER(u8p), longp, longp,
+                                     ctypes.c_long]
+    lib.rcv_ring_requeue.restype = None
+    lib.rcv_ring_requeue.argtypes = [ctypes.c_void_p, ctypes.c_long]
+    lib.rcv_ring_dropped.restype = ctypes.c_long
+    lib.rcv_ring_dropped.argtypes = [ctypes.c_void_p]
+    lib.rcv_ring_slot_bytes.restype = ctypes.c_long
+    lib.rcv_ring_slot_bytes.argtypes = [ctypes.c_void_p]
+    # v4l2.cpp: the direct-ioctl driver (or its stub).
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.rcv_v4l2_available.restype = ctypes.c_int
+    lib.rcv_v4l2_available.argtypes = []
+    lib.rcv_v4l2_open.restype = ctypes.c_void_p
+    lib.rcv_v4l2_open.argtypes = [ctypes.c_char_p, intp]
+    lib.rcv_v4l2_enum_modes.restype = ctypes.c_long
+    lib.rcv_v4l2_enum_modes.argtypes = [ctypes.c_void_p, u32p, intp, intp, intp, ctypes.c_long]
+    lib.rcv_v4l2_setup.restype = ctypes.c_int
+    lib.rcv_v4l2_setup.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, u32p, intp, intp, intp, longp]
+    lib.rcv_v4l2_dequeue.restype = ctypes.c_long
+    lib.rcv_v4l2_dequeue.argtypes = [ctypes.c_void_p, ctypes.POINTER(u8p), longp, longp, longp]
+    lib.rcv_v4l2_set_ctrl.restype = ctypes.c_int
+    lib.rcv_v4l2_set_ctrl.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int32]
+    lib.rcv_v4l2_get_ctrl.restype = ctypes.c_int
+    lib.rcv_v4l2_get_ctrl.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                      ctypes.POINTER(ctypes.c_int32)]
+    lib.rcv_v4l2_restart.restype = ctypes.c_int
+    lib.rcv_v4l2_restart.argtypes = [ctypes.c_void_p]
+    lib.rcv_v4l2_stop.restype = ctypes.c_int
+    lib.rcv_v4l2_stop.argtypes = [ctypes.c_void_p]
+    lib.rcv_v4l2_close.restype = None
+    lib.rcv_v4l2_close.argtypes = [ctypes.c_void_p]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -134,7 +181,7 @@ def build_error() -> Optional[str]:
 def _need_lib() -> ctypes.CDLL:
     lib = get_lib()
     if lib is None:
-        raise RuntimeError(f"native coder unavailable: {_build_error}")
+        raise RuntimeError(f"native library unavailable: {_build_error}")
     return lib
 
 
@@ -429,7 +476,7 @@ def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None
         from ..core.errors import not_ported
 
         raise not_ported("the host JPEG decode of sampling factors other than 1x1, 2x1 and 2x2",
-                         item="16")
+                         item="8")
     if rc != 0:
         raise ValueError(f"JPEG decode failed (rcv_jpeg_decode_bgr rc={rc})")
     return out
@@ -447,3 +494,67 @@ def png_unfilter(raw: bytes, height: int, row_bytes: int, bpp: int) -> np.ndarra
     if rc != 0:
         raise ValueError("corrupt PNG image data" if rc == -2 else "unknown PNG filter type")
     return out
+
+
+def v4l2_available() -> bool:
+    """Whether the library was built with the V4L2 driver (a Linux host
+    with ``linux/videodev2.h``) rather than its stub. Raises RuntimeError
+    when the library did not build."""
+    return bool(_need_lib().rcv_v4l2_available())
+
+
+class NativeRing:
+    """Threaded producer ring, the native capture front end
+    (``capture.cpp``).
+
+    The producer thread writes the frozen test pattern as YUYV frames into
+    the ring's slots, at ``fps`` when paced, else as fast as it can;
+    :meth:`dequeue` blocks like DQBUF and returns a zero-copy view of a
+    slot. A consumer holds at most ``slots - 1`` slots and hands each back
+    with :meth:`requeue`; while it holds all of them the producer drops
+    frames (sequence gaps, :attr:`dropped`). The ``Frame`` invalidation
+    contract is kept one level up, in ``capture.native_source``."""
+
+    def __init__(self, slots: int, width: int, height: int):
+        self._lib = _need_lib()
+        self._ring = self._lib.rcv_ring_create(slots, width, height)
+        self.width = width
+        self.height = height
+        self.slot_bytes = self._lib.rcv_ring_slot_bytes(self._ring)
+
+    def start(self, fps: float, paced: bool = True) -> None:
+        if self._lib.rcv_ring_start(self._ring, float(fps), 1 if paced else 0) != 0:
+            raise RuntimeError("the ring's producer is already running")
+
+    def stop(self) -> None:
+        self._lib.rcv_ring_stop(self._ring)
+
+    def dequeue(self, timeout_ms: int = 2000):
+        """→ (slot, data view (slot_bytes,) u8, seq, ts_ns), or None on a
+        timeout or when the ring stopped."""
+        data = ctypes.POINTER(ctypes.c_uint8)()
+        seq = ctypes.c_long()
+        ts = ctypes.c_long()
+        slot = self._lib.rcv_ring_dequeue(self._ring, ctypes.byref(data), ctypes.byref(seq),
+                                          ctypes.byref(ts), timeout_ms)
+        if slot < 0:
+            return None
+        view = np.ctypeslib.as_array(data, shape=(self.slot_bytes,))
+        return int(slot), view, int(seq.value), int(ts.value)
+
+    def requeue(self, slot: int) -> None:
+        self._lib.rcv_ring_requeue(self._ring, slot)
+
+    @property
+    def dropped(self) -> int:
+        return int(self._lib.rcv_ring_dropped(self._ring))
+
+    def close(self) -> None:
+        """Stop the producer and free the ring (idempotent)."""
+        if self._ring:
+            self._lib.rcv_ring_destroy(self._ring)
+            self._ring = None
+
+    def __del__(self):
+        if getattr(self, "_ring", None):
+            self.close()

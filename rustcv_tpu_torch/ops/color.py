@@ -1,6 +1,10 @@
-"""Colour conversions of every staged wire format to BGR, and the
-packed-BGR helpers (port of the engine's subset of ``rustcv_tpu.ops.color``),
-bit-exact with the reference's integer BT.601, luma and Bayer demosaic.
+"""Colour conversions (port of ``rustcv_tpu.ops.color``): every staged wire
+format to BGR and the packed-BGR helpers, bit-exact with the reference's
+integer BT.601, luma and Bayer demosaic; HSV and YCrCb both ways
+(bit-exact), Lab both ways (float32, within ±1 LSB of the float64 spec),
+range masks and exact moments; the decode with the rectangle overlay on
+the pixel pairs (``RUSTCV_DECODE=xla_fused``); and the host numpy forms
+``*_cv`` that reproduce OpenCV's own fixed-point tables.
 
 All arithmetic is int32. Each converter reads its bytes through a u8 view
 (a YUYV word as ``(..., H, W/2, 4)``, an NV12 luma pair as ``(..., H, W/2,
@@ -20,9 +24,12 @@ bytes)``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .golden import BAYER_PATTERNS
+from .golden import _LAB_M, _LAB_WHITE, BAYER_PATTERNS
+
+_LAB_MINV = np.linalg.inv(_LAB_M)  # XYZ → linear sRGB
 
 
 def _batch(src: torch.Tensor, frame_bytes: int):
@@ -313,3 +320,266 @@ def interleave_bgr_planes(b, g, r, width: int, height: int) -> torch.Tensor:
     (..., H, W*3)."""
     packed = torch.stack([b, g, r], dim=-1).to(torch.uint8)
     return packed.reshape(*packed.shape[:-3], height, width * 3)
+
+
+# -- HSV, YCrCb, Lab, range masks and moments (the frozen specs of
+#    golden.bgr_to_hsv & co.) ----------------------------------------------------
+
+
+def _bgr_int(bgr: torch.Tensor):
+    """(b, g, r) int32 planes of BGR (..., 3)."""
+    q = bgr.to(torch.int32)
+    return q[..., 0], q[..., 1], q[..., 2]
+
+
+def _floor_div(a: torch.Tensor, b) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def bgr_to_hsv(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 BGR → HSV u8 (H ∈ [0, 180)), the frozen all-integer spec
+    golden.bgr_to_hsv: S = (510·diff + V) // (2V), H = (T + diff) //
+    (2·diff) mod 180 with exact integer floor division."""
+    b, g, r = _bgr_int(bgr)
+    v = torch.maximum(torch.maximum(b, g), r)
+    diff = v - torch.minimum(torch.minimum(b, g), r)
+    zero = torch.zeros_like(v)
+    s = torch.where(v == 0, zero, _floor_div(510 * diff + v, (2 * v).clamp(min=1)))
+    r_is = r == v
+    g_is = (g == v) & ~r_is
+    num = torch.where(r_is, g - b, torch.where(g_is, b - r, r - g))
+    base = torch.where(r_is, zero, torch.where(g_is, zero + 120, zero + 240))
+    t = base * diff + 60 * num
+    t = torch.where(t < 0, t + 360 * diff, t)
+    h = torch.where(diff == 0, zero, _floor_div(t + diff, (2 * diff).clamp(min=1)) % 180)
+    return torch.stack([h, s, v], dim=-1).to(torch.uint8)
+
+
+def hsv_to_bgr(hsv: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 HSV (H ∈ [0, 180)) → BGR u8, the frozen integer spec
+    golden.hsv_to_bgr: round-half-up rational divisions, the (v, p, q, t)
+    table per 30° sector; S == 0 gives (V, V, V)."""
+    h, s, v = _bgr_int(hsv)
+    sector = (h // 30) % 6
+    rem = h % 30
+
+    def rdiv(a, d):
+        return _floor_div(2 * a + d, 2 * d)
+
+    p = rdiv(v * (255 - s), 255)
+    q = rdiv(v * (255 * 30 - s * rem), 255 * 30)
+    t = rdiv(v * (255 * 30 - s * (30 - rem)), 255 * 30)
+    # (B, G, R) per sector, as indices into (v, p, q, t): golden's table.
+    tabs = torch.tensor([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]],
+                        dtype=torch.int64, device=hsv.device)
+    vpqt = torch.stack([v, p, q, t], dim=-1)
+    out = torch.gather(vpqt, -1, tabs[sector.to(torch.int64)])
+    out = torch.where((s == 0)[..., None], v[..., None], out)
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def bgr_to_ycrcb(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 BGR → YCrCb u8, the frozen 14-bit fixed-point spec
+    golden.bgr_to_ycrcb (arithmetic-shift descale)."""
+    b, g, r = _bgr_int(bgr)
+    y = (4899 * r + 9617 * g + 1868 * b + 8192) >> 14
+    cr = ((r - y) * 11682 + (128 << 14) + 8192) >> 14
+    cb = ((b - y) * 9241 + (128 << 14) + 8192) >> 14
+    return torch.stack([y, cr.clamp(0, 255), cb.clamp(0, 255)], dim=-1).to(torch.uint8)
+
+
+def ycrcb_to_bgr(ycrcb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 YCrCb → BGR u8 (golden.ycrcb_to_bgr)."""
+    y, cr, cb = _bgr_int(ycrcb)
+    cr = cr - 128
+    cb = cb - 128
+    r = y + ((22987 * cr + 8192) >> 14)
+    g = y + ((-11698 * cr - 5638 * cb + 8192) >> 14)
+    b = y + ((29049 * cb + 8192) >> 14)
+    return torch.stack([b, g, r], dim=-1).clamp(0, 255).to(torch.uint8)
+
+
+def _mat3(m, x0, x1, x2):
+    """Rows of the host 3×3 ``m`` applied to three float32 planes, as
+    explicit multiply-adds (a matmul on the card may run in TF32)."""
+    return [float(m[i][0]) * x0 + float(m[i][1]) * x1 + float(m[i][2]) * x2 for i in range(3)]
+
+
+def bgr_to_lab(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 BGR → CIE L*a*b* u8 (OpenCV's 8-bit convention), float32
+    for the frozen float64 spec golden.bgr_to_lab: within ±1 LSB."""
+    srgb = bgr.flip(-1).to(torch.float32) / 255.0
+    lin = torch.where(srgb > 0.04045, ((srgb + 0.055) / 1.055) ** 2.4, srgb / 12.92)
+    xyz = _mat3(_LAB_M, lin[..., 0], lin[..., 1], lin[..., 2])
+    d = 6.0 / 29.0
+    fx, fy, fz = (torch.where(t > d ** 3, t.clamp(min=0) ** (1.0 / 3.0), t / (3 * d * d) + 4.0 / 29.0)
+                  for t in (c / wt for c, wt in zip(xyz, _LAB_WHITE)))
+    out = torch.stack([torch.round((116.0 * fy - 16.0) * (255.0 / 100.0)),
+                       torch.round(500.0 * (fx - fy)) + 128.0,
+                       torch.round(200.0 * (fy - fz)) + 128.0], dim=-1)
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def lab_to_bgr(lab: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 Lab → BGR u8, the inverse (golden.lab_to_bgr), within
+    ±1 LSB."""
+    q = lab.to(torch.float32)
+    ell = q[..., 0] * (100.0 / 255.0)
+    fy = (ell + 16.0) / 116.0
+    fx = fy + (q[..., 1] - 128.0) / 500.0
+    fz = fy - (q[..., 2] - 128.0) / 200.0
+    d = 6.0 / 29.0
+    xyz = [torch.where(f > d, f ** 3, 3 * d * d * (f - 4.0 / 29.0)) * wt
+           for f, wt in zip((fx, fy, fz), _LAB_WHITE)]
+    lin = torch.stack(_mat3(_LAB_MINV, *xyz), dim=-1)
+    srgb = torch.where(lin > 0.0031308, 1.055 * lin.clamp(min=0.0) ** (1.0 / 2.4) - 0.055,
+                       12.92 * lin)
+    return torch.round(srgb.flip(-1) * 255.0).clamp(0, 255).to(torch.uint8)
+
+
+def in_range(img: torch.Tensor, lower, upper) -> torch.Tensor:
+    """Per-channel inclusive range mask → u8 {0, 255} (OpenCV inRange;
+    golden.in_range)."""
+    a = img.to(torch.int32)
+    lo = torch.as_tensor(lower, dtype=torch.int32, device=img.device)
+    hi = torch.as_tensor(upper, dtype=torch.int32, device=img.device)
+    ok = ((a >= lo) & (a <= hi)).all(dim=-1)
+    return ok.to(torch.uint8) * 255
+
+
+def moments_rows(mask: torch.Tensor) -> torch.Tensor:
+    """Per-row moment partials (H, 2) int64 of a u8 mask (H, W) or (H, W,
+    C) (its first channel): (Σ value, Σ value·x) per row, exact."""
+    a = mask.to(torch.int64)
+    if a.ndim == 3:
+        a = a[..., 0]
+    xs = torch.arange(a.shape[-1], dtype=torch.int64, device=a.device)
+    return torch.stack([a.sum(dim=-1), (a * xs).sum(dim=-1)], dim=-1)
+
+
+def moments(mask: torch.Tensor) -> dict:
+    """Raw moments m00/m10/m01 (and the centroid when m00 > 0) of a u8
+    mask, exact at any size (golden.moments): the row partials in int64
+    where the mask is, then three sums on the host."""
+    rows = moments_rows(mask).cpu().numpy()
+    m00 = int(rows[:, 0].sum())
+    m10 = int(rows[:, 1].sum())
+    m01 = int((rows[:, 0] * np.arange(rows.shape[0], dtype=np.int64)).sum())
+    out = {"m00": m00, "m10": m10, "m01": m01}
+    if m00 > 0:
+        out["centroid"] = (m10 / m00, m01 / m00)
+    return out
+
+
+def yuyv_to_bgr_packed_overlay(src: torch.Tensor, width: int, height: int,
+                               rects, colors, thickness) -> torch.Tensor:
+    """YUYV → packed BGR with the rectangle overlay painted on the pixel-pair
+    planes before the byte interleave: the same bytes as
+    ``rectangle_packed(yuyv_to_bgr_packed(...))``. ``src`` (N, H·W·2) u8,
+    ``rects`` (N, 4) int32, ``colors`` (N, 3) u8, ``thickness`` int or
+    (N,)."""
+    from . import draw as _draw
+
+    dev = src.device
+    y0, u, y1, v = _unpack_yuyv_words(src, width, height)
+    b0, g0, r0, b1, g1, r1 = _bt601_pair(y0, y1, u, v)
+    rects = _draw._on(rects, torch.int32, dev)
+    colors = _draw._on(colors, torch.int32, dev)
+    thickness = _draw._on(thickness, torch.int32, dev)
+    ys = torch.arange(height, dtype=torch.int32, device=dev).reshape(height, 1)
+    xs_e = torch.arange(width // 2, dtype=torch.int32, device=dev).reshape(1, width // 2) * 2
+    mask_e, expand = _draw._edge_masks(xs_e, ys, rects, thickness, width, height)
+    mask_o, _ = _draw._edge_masks(xs_e + 1, ys, rects, thickness, width, height)
+    cb, cg, cr = (expand(colors[..., i]) for i in range(3))
+    planes = (torch.where(mask_e, cb, b0), torch.where(mask_e, cg, g0),
+              torch.where(mask_e, cr, r0), torch.where(mask_o, cb, b1),
+              torch.where(mask_o, cg, g1), torch.where(mask_o, cr, r1))
+    return _interleave_pair_bgr(*planes, width, height)
+
+
+# -- OpenCV-exact u8 conversions on the host (numpy; the cv2 facade's) ---------
+#
+# OpenCV 5.0's fixed-point table arithmetic, digit for digit, kept apart
+# from the frozen specs above (the capture pipeline's).
+
+
+def _cv_hsv_tables():
+    hsv_shift = 12
+    i = np.arange(256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << hsv_shift) / i[1:]).astype(np.int64)
+    hdiv = np.zeros(256, np.int64)
+    hdiv[1:] = np.rint((180 << hsv_shift) / (6.0 * i[1:])).astype(np.int64)
+    return sdiv, hdiv
+
+
+_CV_HSV_SDIV, _CV_HSV_HDIV = _cv_hsv_tables()
+
+
+def bgr_to_gray_cv(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV 5.0 COLOR_BGR2GRAY u8: 15-bit fixed point
+    (9798 R + 19235 G + 3735 B + 2^14) >> 15."""
+    b = bgr[..., 0].astype(np.int64)
+    g = bgr[..., 1].astype(np.int64)
+    r = bgr[..., 2].astype(np.int64)
+    return ((3735 * b + 19235 * g + 9798 * r + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def bgr_to_hsv_cv(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV COLOR_BGR2HSV u8: the hsv_shift=12 division-table double
+    rounding (color_hsv's sdiv/hdiv tables)."""
+    b = bgr[..., 0].astype(np.int64)
+    g = bgr[..., 1].astype(np.int64)
+    r = bgr[..., 2].astype(np.int64)
+    v = np.maximum(b, np.maximum(g, r))
+    diff = v - np.minimum(b, np.minimum(g, r))
+    s = (diff * _CV_HSV_SDIV[v] + (1 << 11)) >> 12
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _CV_HSV_HDIV[diff] + (1 << 11)) >> 12
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
+
+
+def _cv_lab_tables():
+    # sRGB gamma table 0..255 -> 0..2040 (gamma_shift = 3)
+    i = np.arange(256, dtype=np.float64) / 255.0
+    gam = np.where(i <= 0.04045, i / 12.92, ((i + 0.055) / 1.055) ** 2.4)
+    gtab = np.rint(255.0 * 8 * gam).astype(np.int64)
+    # f(t) table on the descaled XYZ grid (lab_shift2 = 15)
+    x = np.arange(3072, dtype=np.float64) / (255.0 * 8)
+    ctab = np.rint((1 << 15) * np.where(
+        x < 216.0 / 24389.0, x * (841.0 / 108.0) + 16.0 / 116.0, np.cbrt(x))).astype(np.int64)
+    # two entries where OpenCV's softfloat table construction rounds the
+    # other way (FMA in the linear branch at 49, cbrt ULP at 628)
+    ctab[49] -= 1
+    ctab[628] += 1
+    d65 = (0.950456, 1.0, 1.088754)
+    srgb2xyz = ((0.412453, 0.357580, 0.180423),
+                (0.212671, 0.715160, 0.072169),
+                (0.019334, 0.119193, 0.950227))
+    coef = np.array([[int(np.rint((1 << 12) * srgb2xyz[i][j] / d65[i])) for j in range(3)]
+                     for i in range(3)], np.int64)
+    return gtab, ctab, coef
+
+
+_CV_LAB_GTAB, _CV_LAB_CTAB, _CV_LAB_COEF = _cv_lab_tables()
+
+
+def bgr_to_lab_cv(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV COLOR_BGR2Lab u8: gamma and cube-root tables with
+    lab_shift=12 / lab_shift2=15 descales."""
+    rr = _CV_LAB_GTAB[bgr[..., 2].astype(np.int64)]
+    gg = _CV_LAB_GTAB[bgr[..., 1].astype(np.int64)]
+    bb = _CV_LAB_GTAB[bgr[..., 0].astype(np.int64)]
+    c = _CV_LAB_COEF
+
+    def desc(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    f_x = _CV_LAB_CTAB[desc(rr * c[0, 0] + gg * c[0, 1] + bb * c[0, 2], 12)]
+    f_y = _CV_LAB_CTAB[desc(rr * c[1, 0] + gg * c[1, 1] + bb * c[1, 2], 12)]
+    f_z = _CV_LAB_CTAB[desc(rr * c[2, 0] + gg * c[2, 1] + bb * c[2, 2], 12)]
+    lum = desc(296 * f_y - 1336934, 15)  # (116*255+50)//100, 16*255<<15
+    a = desc(500 * (f_x - f_y) + (128 << 15), 15)
+    b = desc(200 * (f_y - f_z) + (128 << 15), 15)
+    return np.clip(np.stack([lum, a, b], axis=-1), 0, 255).astype(np.uint8)

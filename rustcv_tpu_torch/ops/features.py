@@ -1,5 +1,6 @@
 """Harris corner detection + non-max suppression (port of
-``rustcv_tpu.ops.features``; BASELINE config 4).
+``rustcv_tpu.ops.features``; BASELINE config 4), and sub-pixel corner
+refinement (``corner_sub_pix``).
 
 The corners are defined by the frozen fixed-point response
 :func:`harris_response_i32`; masks and corner lists are integer throughout
@@ -13,6 +14,7 @@ and the top-K on the response are plain PyTorch on either device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import kernels
@@ -99,3 +101,100 @@ def _top_corners(resp: torch.Tensor, mask: torch.Tensor, max_corners: int):
     idx = (h * w - 1) - (top_key - top * 2**32)
     coords = torch.stack([idx // w, idx % w], dim=-1).to(torch.int32)
     return coords, top > I32_MIN
+
+
+def corner_sub_pix(gray_u8: torch.Tensor, pts, win: int = 11, iters: int = 10) -> torch.Tensor:
+    """Sub-pixel corner refinement (OpenCV ``cornerSubPix``): for each corner
+    q, solve Σ wᵢ ∇Iᵢ∇Iᵢᵀ (q − pᵢ) = 0 over a win×win window (Gaussian-ish
+    weights exp(−2r²/half²)) and iterate ``iters`` times, all points at
+    once: each iteration gathers every point's (win+3)² patch (its origin
+    clamped into the image) and interpolates it bilinearly.
+
+    ``gray_u8`` (H, W) u8; ``pts`` [K, 2] (x, y) → refined [K, 2] float32
+    on the image's device. A point whose window leaves the image, or that
+    moves more than ``win``, is returned unrefined. Oracle:
+    :func:`corner_sub_pix_numpy` (float64; agreement about 1e-3)."""
+    h, w = gray_u8.shape
+    dev = gray_u8.device
+    half = win // 2
+    size = win + 2
+    a = gray_u8.to(torch.float32)
+    p0 = torch.as_tensor(pts, dtype=torch.float32, device=dev).reshape(-1, 2)
+    off = torch.arange(-half, half + 1, dtype=torch.float32, device=dev)
+    oy, ox = torch.meshgrid(off, off, indexing="ij")
+    wgt = torch.exp(-2.0 * (ox * ox + oy * oy) / float(max(half, 1) ** 2))
+    span = torch.arange(size + 1, device=dev)
+
+    def patches(ty, tx):
+        """(K, size, size) bilinear patches with top-left corners (ty, tx)."""
+        y0, x0 = torch.floor(ty), torch.floor(tx)
+        fy, fx = (ty - y0)[:, None, None], (tx - x0)[:, None, None]
+        yi = y0.to(torch.int64).clamp(0, h - (size + 1))[:, None] + span
+        xi = x0.to(torch.int64).clamp(0, w - (size + 1))[:, None] + span
+        p = a[yi[:, :, None], xi[:, None, :]]
+        top = p[:, :size, :size] * (1 - fx) + p[:, :size, 1:] * fx
+        bot = p[:, 1:, :size] * (1 - fx) + p[:, 1:, 1:] * fx
+        return top * (1 - fy) + bot * fy
+
+    q = p0
+    for _ in range(iters):
+        big = patches(q[:, 1] - half - 1.0, q[:, 0] - half - 1.0)
+        gx = (big[:, 1:-1, 2:] - big[:, 1:-1, :-2]) * 0.5
+        gy = (big[:, 2:, 1:-1] - big[:, :-2, 1:-1]) * 0.5
+        proj = gx * ox + gy * oy
+        axx, axy, ayy = ((wgt * u).sum(dim=(1, 2)) for u in (gx * gx, gx * gy, gy * gy))
+        bx, by = ((wgt * u * proj).sum(dim=(1, 2)) for u in (gx, gy))
+        det = axx * ayy - axy * axy
+        inv = torch.where(det.abs() > 1e-6, 1.0 / det, torch.zeros_like(det))
+        q = q + torch.stack([(ayy * bx - axy * by) * inv, (-axy * bx + axx * by) * inv], dim=-1)
+    inside = ((p0[:, 0] - half - 1 >= 0) & (p0[:, 0] + half + 1 <= w - 1)
+              & (p0[:, 1] - half - 1 >= 0) & (p0[:, 1] + half + 1 <= h - 1))
+    moved = (q - p0).abs().amax(dim=-1)
+    return torch.where((inside & (moved <= win))[:, None], q, p0)
+
+
+def corner_sub_pix_numpy(gray: np.ndarray, pts: np.ndarray, win: int = 11, iters: int = 10):
+    """Float64 oracle for :func:`corner_sub_pix` (the same algorithm:
+    origin-clamped patches, Gaussian window, Gauss-Newton updates)."""
+    h, w = gray.shape
+    half = win // 2
+    a = gray.astype(np.float64)
+    off = np.arange(-half, half + 1, dtype=np.float64)
+    oy, ox = np.meshgrid(off, off, indexing="ij")
+    wgt = np.exp(-2.0 * (ox * ox + oy * oy) / float(max(half, 1) ** 2))
+
+    def patch(ty, tx, size):
+        y0 = int(np.floor(ty))
+        x0 = int(np.floor(tx))
+        fy = ty - y0
+        fx = tx - x0
+        y0 = min(max(y0, 0), h - (size + 1))
+        x0 = min(max(x0, 0), w - (size + 1))
+        p = a[y0:y0 + size + 1, x0:x0 + size + 1]
+        top = p[:size, :size] * (1 - fx) + p[:size, 1:] * fx
+        bot = p[1:, :size] * (1 - fx) + p[1:, 1:] * fx
+        return top * (1 - fy) + bot * fy
+
+    out = np.array(pts, np.float64).reshape(-1, 2).copy()
+    for k in range(len(out)):
+        px, py = out[k]
+        if not (px - half - 1 >= 0 and px + half + 1 <= w - 1
+                and py - half - 1 >= 0 and py + half + 1 <= h - 1):
+            continue
+        q = out[k].copy()
+        for _ in range(iters):
+            big = patch(q[1] - half - 1.0, q[0] - half - 1.0, win + 2)
+            gx = (big[1:-1, 2:] - big[1:-1, :-2]) * 0.5
+            gy = (big[2:, 1:-1] - big[:-2, 1:-1]) * 0.5
+            axx = (wgt * gx * gx).sum()
+            axy = (wgt * gx * gy).sum()
+            ayy = (wgt * gy * gy).sum()
+            bx = (wgt * gx * (gx * ox + gy * oy)).sum()
+            by = (wgt * gy * (gx * ox + gy * oy)).sum()
+            det = axx * ayy - axy * axy
+            if abs(det) <= 1e-6:
+                break
+            q = q + np.array([(ayy * bx - axy * by) / det, (-axy * bx + axx * by) / det])
+        if np.abs(q - out[k]).max() <= win:
+            out[k] = q
+    return out.astype(np.float32)

@@ -1,5 +1,7 @@
 """Frozen numpy specs the port needs from ``rustcv_tpu.ops.golden`` (its
-own copy: the JAX package keeps them in a module that imports jax).
+own copy: the JAX package keeps them in a module that imports jax): the
+constants and tables below, and the Lab matrix and white point, the
+bicubic and nearest-neighbour resize tables.
 
 The rotated-ellipse mask that ``imgproc.ellipse`` paints; the text
 blend (:func:`blend_mask`) that ``put_text`` makes on a host Mat and the
@@ -125,3 +127,56 @@ def blend_mask(img: np.ndarray, mask: np.ndarray, x0: int, y0: int, color_bgr: t
     color = np.array(color_bgr, dtype=np.int32)
     blended = (color * a + sub * (255 - a)) // 255
     img[y0 + sy : y0 + ey, x0 + sx : x0 + ex] = blended.astype(np.uint8)
+
+
+# CIE L*a*b*: the frozen spec's sRGB → XYZ (D65) matrix, rows applied to
+# (R, G, B), and its white point (rustcv_tpu/ops/golden.py:235-243).
+_LAB_M = np.array(
+    [
+        [0.412453, 0.357580, 0.180423],
+        [0.212671, 0.715160, 0.072169],
+        [0.019334, 0.119193, 0.950227],
+    ],
+    np.float64,
+)
+_LAB_WHITE = (0.950456, 1.0, 1.088754)  # Xn, Yn, Zn
+
+RESIZE_SHIFT = 11  # 11-bit fixed-point resize weights
+RESIZE_ONE = 1 << RESIZE_SHIFT
+
+
+def resize_bicubic_coeffs(src_size: int, dst_size: int):
+    """Per-output-pixel 4-tap tables for INTER_CUBIC (a = −0.75, OpenCV's
+    kernel), frozen spec. Half-pixel centres; taps at ix−1..ix+2 clamped to
+    [0, src−1] (replicate border). Weights w(x) for |x|≤1: (a+2)|x|³ −
+    (a+3)|x|² + 1; 1<|x|<2: a(|x|³ − 5|x|² + 8|x| − 4); quantized to 11
+    bits with w1 = 2048 − (w0+w2+w3) so flat regions are exact. Returns
+    (tap_idx int32 [dst, 4], weights int32 [dst, 4])."""
+    a = -0.75
+    dx = np.arange(dst_size, dtype=np.float64)
+    fx = (dx + 0.5) * (src_size / dst_size) - 0.5
+    ix = np.floor(fx).astype(np.int64)
+    f = fx - ix
+
+    def k(x):
+        x = np.abs(x)
+        return np.where(
+            x <= 1.0,
+            (a + 2.0) * x**3 - (a + 3.0) * x**2 + 1.0,
+            np.where(x < 2.0, a * (x**3 - 5.0 * x**2 + 8.0 * x - 4.0), 0.0),
+        )
+
+    w = np.stack([k(f + 1.0), k(f), k(1.0 - f), k(2.0 - f)], axis=-1)
+    wq = np.round(w * RESIZE_ONE).astype(np.int64)
+    wq[:, 1] = RESIZE_ONE - (wq[:, 0] + wq[:, 2] + wq[:, 3])
+    taps = ix[:, None] + np.arange(-1, 3)[None, :]
+    taps = np.clip(taps, 0, src_size - 1)
+    return taps.astype(np.int32), wq.astype(np.int32)
+
+
+def resize_nearest_coeffs(src_size: int, dst_size: int) -> np.ndarray:
+    """Frozen nearest-neighbour tap table: half-pixel centres,
+    src = min(floor((d + 0.5) · src/dst), src − 1) in float64."""
+    d = np.arange(dst_size, dtype=np.float64)
+    ix = np.floor((d + 0.5) * (src_size / dst_size)).astype(np.int64)
+    return np.minimum(ix, src_size - 1).astype(np.int32)

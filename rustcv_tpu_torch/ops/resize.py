@@ -1,6 +1,7 @@
-"""Bilinear resize (port of ``rustcv_tpu.ops.resize``: the HWC, plane and
-packed-rows forms), bit-exact with the frozen fixed-point spec
-``golden.resize_bilinear``.
+"""Resize (port of ``rustcv_tpu.ops.resize``): bilinear in the HWC, plane
+and packed-rows forms, bicubic, nearest-neighbour and area, each bit-exact
+with its frozen spec (``golden.resize_bilinear``, ``resize_bicubic``,
+``resize_nearest``, ``resize_area``).
 
 Per output pixel the tables give a low source index and an 11-bit weight of
 the next one (half-pixel centres, float64 on the host). The device work is
@@ -17,10 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-# The frozen spec's constants (rustcv_tpu/ops/golden.py:660-661), copied
-# because importing the JAX package's ops loads jax.
-RESIZE_SHIFT = 11
-RESIZE_ONE = 1 << RESIZE_SHIFT
+from .golden import RESIZE_ONE, RESIZE_SHIFT, resize_bicubic_coeffs, resize_nearest_coeffs
+
 _ROUND = 1 << (2 * RESIZE_SHIFT - 1)
 
 
@@ -123,3 +122,52 @@ def resize_bilinear_packed(src: torch.Tensor, src_w: int, src_h: int, dst_w: int
                     a.index_select(-1, (hi[:, None] * 3 + lanes).reshape(-1)),
                     w.repeat_interleave(3))
     return _vertical(tmp, tmp.ndim - 2, src_h, dst_h)
+
+
+@lru_cache(maxsize=128)
+def _cubic_tables(src: int, dst: int, device: torch.device):
+    """The four (tap index int64, weight int32) pairs of
+    :func:`resize_bicubic_coeffs` on ``device``, made once per shape pair."""
+    taps, wts = resize_bicubic_coeffs(src, dst)
+    return [(torch.from_numpy(taps[:, j].astype(np.int64)).to(device),
+             torch.from_numpy(np.ascontiguousarray(wts[:, j])).to(device)) for j in range(4)]
+
+
+@lru_cache(maxsize=128)
+def _nearest_table(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(resize_nearest_coeffs(src, dst).astype(np.int64)).to(device)
+
+
+def resize_bicubic(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
+    """INTER_CUBIC resize (..., H, W, C) u8 → (..., dst_h, dst_w, C) u8,
+    bit-exact with golden.resize_bicubic (a = −0.75, 11-bit weights, one
+    final rounding; int32 sums). A 2-D input resizes a gray plane."""
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    a = img.to(torch.int32)
+    tmp = sum(a.index_select(-2, idx) * w[:, None]
+              for idx, w in _cubic_tables(img.shape[-2], dst_w, img.device))
+    acc = sum(tmp.index_select(-3, idx) * w[:, None, None]
+              for idx, w in _cubic_tables(img.shape[-3], dst_h, img.device))
+    out = ((acc + _ROUND) >> (2 * RESIZE_SHIFT)).clamp(0, 255).to(torch.uint8)
+    return out[..., 0] if squeeze else out
+
+
+def resize_nearest(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
+    """Nearest-neighbour resize (..., H, W, C) u8 (golden.resize_nearest)."""
+    return img.index_select(-3, _nearest_table(img.shape[-3], dst_h, img.device)).index_select(
+        -2, _nearest_table(img.shape[-2], dst_w, img.device))
+
+
+def resize_area(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
+    """Area (box-mean) resize (..., H, W, C) u8 (golden.resize_area): an
+    integer downscale is the exact k×k mean rounded half up; any other
+    ratio takes the bilinear spec."""
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    if not (dst_w <= src_w and dst_h <= src_h and src_w % dst_w == 0 and src_h % dst_h == 0):
+        return resize_bilinear(img, dst_w, dst_h)
+    ky, kx = src_h // dst_h, src_w // dst_w
+    a = img.to(torch.int32).reshape(*img.shape[:-3], dst_h, ky, dst_w, kx, img.shape[-1])
+    n = kx * ky
+    return ((a.sum(dim=(-4, -2)) + n // 2) // n).to(torch.uint8)

@@ -139,7 +139,7 @@ def _px_size(font_scale: float) -> int:
         raise not_ported(
             f"text at font_scale {font_scale} (pixel size {px})",
             f"the port's font data covers pixel sizes round(font_scale * 20) = "
-            f"{sizes[0]}-{sizes[-1]}", "16")
+            f"{sizes[0]}-{sizes[-1]}", "8")
     return px
 
 
@@ -147,7 +147,7 @@ def _check_text(text: str) -> None:
     bad = [c for c in text if not FIRST_CHAR <= ord(c) <= LAST_CHAR]
     if bad:
         raise not_ported(f"text with the character {bad[0]!r}",
-                         "the port's font data covers printable ASCII (0x20-0x7E)", "16")
+                         "the port's font data covers printable ASCII (0x20-0x7E)", "8")
 
 
 def _layout(text: str, px: int):

@@ -26,6 +26,12 @@ kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
   blur_sobel tick as one kernel (K5). Unset or ``xla``: the plain decode.
   Both kernels read YUYV: neither runs for another format, with
   ``resize_to``, with ``encode_jpeg`` or for MJPEG, as in the reference.
+* ``RUSTCV_DECODE=xla_fused`` paints the overlay on the YUYV decode's pixel
+  pairs before the interleave (``color.yuyv_to_bgr_packed_overlay``, plain
+  PyTorch) for a YUYV spec with the overlay and no resize; the filters then
+  read the painted image, as the reference's do. Any other spec takes the
+  plain decode. The blur_sobel stencil is still K1 where ``stencil_impl``
+  selects it.
 * ``encode_jpeg`` > 0 adds the encoder's numeric half (``enc_y``,
   ``enc_cb``, ``enc_cr``: int16 coefficient rows) and, with
   ``encode_packed``, their block-packed form and its byte blob for the
@@ -33,8 +39,6 @@ kernels of :mod:`rustcv_tpu_torch.ops.kernels`:
 
 For the full-host MJPEG decode the staged bytes are already BGR24 (or
 RGB24), decoded on the host, and go through that format's decode.
-``RUSTCV_DECODE=xla_fused``, which this port does not run yet, raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,7 +50,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.errors import not_ported
 from ..core.pixel_format import PixelFormat
 
 from ..ops import color as _color
@@ -134,8 +137,6 @@ def _check_ported(spec: PipelineSpec, mode: str) -> None:
         raise ValueError(f"unknown filter {spec.filter!r}")
     if spec.stencil_impl not in STENCIL_IMPLS:
         raise ValueError(f"unknown stencil_impl {spec.stencil_impl!r}")
-    if mode == "xla_fused":
-        raise not_ported("RUSTCV_DECODE=xla_fused", item="9")
 
 
 # Formats whose pixel pairs share chroma: the reference decodes them in pair
@@ -183,6 +184,9 @@ def _build(spec: PipelineSpec, mode: str):
         plain_size and mode == "pallas_tick" and spec.filter == "blur_sobel"
         and spec.emit_bgr and spec.emit_filtered
     )
+    # xla_fused: the overlay on the pair planes (YUYV at the input size).
+    overlay_on_pairs = (fmt == PixelFormat.YUYV and spec.resize_to is None and spec.overlay
+                        and mode == "xla_fused")
     cur_w, cur_h = (w, h) if spec.resize_to is None else spec.resize_to
     # The image stays in packed rows throughout; the output takes the
     # reference's layout (the same bytes either way).
@@ -230,13 +234,17 @@ def _build(spec: PipelineSpec, mode: str):
         elif hybrid:
             bgr = reconstruct_mjpeg(raw)  # resized inside, in plane form
             gray = None
+        elif overlay_on_pairs:
+            bgr = _color.yuyv_to_bgr_packed_overlay(raw, w, h, rects, rect_colors, thickness)
+            gray = None
+            overlay_done = True
         else:
             hwc = _decode.convert_on_device(raw, fmt, w, h)
             bgr = hwc.reshape(*hwc.shape[:-3], h, w * 3)  # a view: packed rows
             gray = None
         if spec.resize_to is not None and not hybrid:
             bgr = _resize.resize_bilinear_packed(bgr, w, h, cur_w, cur_h)
-        decoded = bgr  # the filters read the image before the overlay
+        decoded = bgr  # before the overlay, but xla_fused painted it already (as the reference)
 
         def gray_plane():
             if gray is not None:

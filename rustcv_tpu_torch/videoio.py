@@ -18,30 +18,35 @@ from .capture import (
     resolve_device_id,
 )
 from .capture.source import Driver
-from .core.errors import not_ported
 
 
 def create_driver(backend: str = "simulation", **kwargs) -> Driver:
     """Backend factory (the ``create_driver``/``BackendType`` analog,
-    ``rustcv/src/videoio/backend.rs:6-48``): "simulation" and "file". The
-    reference's "native" (C++ ring) and "v4l2" (direct-ioctl capture)
-    backends are not ported and raise."""
-    if backend == "simulation":
+    ``rustcv/src/videoio/backend.rs:6-48``): "simulation" (Python),
+    "native" (the C++ ring, ``capture.native_source``: its sources are opened
+    one by one, so the devices come from the simulation driver), "v4l2"
+    (direct-ioctl capture from ``/dev/video*`` on Linux, ``capture.v4l2``)
+    and "file"."""
+    if backend in ("simulation", "native"):
         return SimulationDriver(**kwargs)
+    if backend == "v4l2":
+        from .capture.v4l2 import V4L2Driver
+
+        return V4L2Driver(**kwargs)
     if backend == "file":
         return FileDriver(**kwargs)
-    if backend in ("native", "v4l2"):
-        raise not_ported(f"the {backend!r} capture backend",
-                         "it needs a copy of the reference's C++ capture source", "11")
     raise ValueError(
         f"unknown backend {backend!r} (available: simulation, native, v4l2, file)"
     )
 
 
 def default_backend() -> str:
-    """The backend :func:`default_driver` uses: "simulation" (the
-    reference prefers "v4l2" when a camera is present; not ported)."""
-    return "simulation"
+    """"v4l2" when a V4L2 capture device is present, else "simulation" (the
+    reference's compile-time OS switch, made at run time): the probe of
+    :func:`default_driver`."""
+    from .capture.v4l2 import V4L2Driver
+
+    return "v4l2" if isinstance(default_driver(), V4L2Driver) else "simulation"
 
 
 __all__ = [

@@ -8,7 +8,12 @@ OpenCV-style facade: a Mat's device round trip, draws on a CUDA Mat
 against a host Mat (with no blocking copy), ``harris_corners`` on a CUDA
 Mat through K6, ``VideoCapture``'s device decode and the JPEG codecs; the
 text blends, ``put_text`` on a CUDA Mat (no blocking copy), the engine's
-text overlay and ``mjpeg_backend="host"`` against their CPU forms.
+text overlay and ``mjpeg_backend="host"`` against their CPU forms; the
+one-rank NCCL mesh; and every ``imgproc`` wrapper of the colour, filter,
+resize and corner ops on a CUDA Mat against a host Mat (exact, or ±1 LSB
+for Lab and float kernels, 1e-3 px for ``corner_sub_pix``), the
+``xla_fused`` engine against the default mode and the CPU, and the native
+ring's device decode against its host decode.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -819,3 +824,163 @@ def test_one_rank_nccl_mesh_engine_equals_meshless(cuda, monkeypatch):
         assert int(parallel.corner_counts_psum(parallel.shard_batch(mask, mesh), mesh)) == 9
     finally:
         dist.destroy_process_group()
+
+
+# -- the capture backends and the first group of device ops on the card -----------
+
+_LSB = {"cvt_lab", "cvt_lab_to_bgr", "gaussian_blur_k3", "gaussian_blur_s", "gaussian_blur_k9",
+        "filter2d_general", "sep_filter_2d"}
+
+
+def _slice_wrappers(ip):
+    """name → call(mat) of every imgproc wrapper of the slice."""
+    se = ip.get_structuring_element("ellipse", 5)
+    general = np.random.default_rng(9).normal(size=(3, 5))
+    calls = {
+        "cvt_hsv": ip.cvt_hsv, "cvt_hsv_to_bgr": ip.cvt_hsv_to_bgr, "cvt_ycrcb": ip.cvt_ycrcb,
+        "cvt_ycrcb_to_bgr": ip.cvt_ycrcb_to_bgr, "cvt_lab": ip.cvt_lab,
+        "cvt_lab_to_bgr": ip.cvt_lab_to_bgr,
+        "in_range": lambda m: ip.in_range(m, (20, 30, 40), (180, 200, 220)),
+        "moments": ip.moments, "pyr_down": ip.pyr_down, "pyr_up": ip.pyr_up,
+        "stack_blur": lambda m: ip.stack_blur(m, 7, 3), "box_blur": lambda m: ip.box_blur(m, 5),
+        "gaussian_blur_k3": lambda m: ip.gaussian_blur(m, 3),
+        "gaussian_blur_s": lambda m: ip.gaussian_blur(m, 5, 1.3),
+        "gaussian_blur_k9": lambda m: ip.gaussian_blur(m, 9),
+        "threshold": lambda m: ip.threshold(m, 100, 200, "tozero"),
+        "erode": lambda m: ip.erode(m, 3), "dilate": lambda m: ip.dilate(m, 5),
+        "erode_kernel": lambda m: ip.erode_kernel(m, se),
+        "dilate_kernel": lambda m: ip.dilate_kernel(m, se),
+        "morphology_ex": lambda m: ip.morphology_ex(m, "tophat", 5),
+        "median_blur3": lambda m: ip.median_blur(m, 3), "median_blur5": lambda m: ip.median_blur(m, 5),
+        "median_blur7": lambda m: ip.median_blur(m, 7),
+        "filter2d_dyadic": lambda m: ip.filter2d(m, np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]]) / 2),
+        "filter2d_general": lambda m: ip.filter2d(m, general),
+        "sep_filter_2d": lambda m: ip.sep_filter_2d(m, [0.2, 0.5, 0.3], [0.1, 0.8, 0.1]),
+        "integral": ip.integral, "sobel": lambda m: ip.sobel(m, 1, 1, 5),
+        "laplacian": ip.laplacian, "scharr": lambda m: ip.scharr(m, 0, 1),
+        "good_features_to_track": lambda m: ip.good_features_to_track(m, 64),
+    }
+    for size, mode in (((64, 48), "nearest"), ((64, 48), "area"), ((64, 48), "cubic"),
+                       ((64, 48), "bilinear"), ((400, 300), "cubic"), ((400, 300), "area")):
+        calls[f"resize_{mode}_{size[0]}"] = lambda m, s=size, md=mode: ip.resize(m, *s, md)
+    return calls
+
+
+def _slice_out(x):
+    return x.to_numpy() if hasattr(x, "to_numpy") else x
+
+
+@pytest.mark.parametrize("name", list(_slice_wrappers(__import__("rustcv_tpu_torch.imgproc",
+                                                                 fromlist=["x"]))))
+def test_slice_wrappers_on_a_cuda_mat_match_a_host_mat(cuda, name):
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.core import Mat
+
+    img = synth_bgr(161, 120, 5)
+    img[::7] = np.random.default_rng(1).integers(0, 256, img[::7].shape, np.uint8)
+    call = _slice_wrappers(ip)[name]
+    dev = Mat.from_array(img.copy())
+    dev.device()
+    got = call(dev)
+    want = call(Mat.from_array(img.copy(), device="cpu"))
+    if isinstance(got, Mat):
+        assert got.is_on_device and got.device().is_cuda
+    if isinstance(want, dict):
+        assert got == want
+        return
+    got, want = _slice_out(got), _slice_out(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = 1 if name in _LSB else 0
+    assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max(initial=0) <= tol
+
+
+@pytest.mark.parametrize("name", ["adaptive_threshold", "bilateral_filter", "corner_sub_pix"])
+def test_slice_gray_wrappers_on_a_cuda_mat(cuda, name):
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.ops import golden
+
+    gray = np.ascontiguousarray(synth_bgr(161, 120, 5)[..., 1:2])
+    dev, host = Mat.from_array(gray.copy()), Mat.from_array(gray.copy(), device="cpu")
+    if name == "corner_sub_pix":
+        pts = ip.good_features_to_track(host, 32) + np.float32(0.3)
+        np.testing.assert_allclose(ip.corner_sub_pix(dev, pts), ip.corner_sub_pix(host, pts),
+                                   atol=1e-3)
+        return
+    call = {"adaptive_threshold": lambda m: ip.adaptive_threshold(m, 255, "mean", 9, 2),
+            "bilateral_filter": lambda m: ip.bilateral_filter(m, 25)}[name]
+    np.testing.assert_array_equal(call(dev).to_numpy(), call(host).to_numpy())
+
+
+def test_good_features_to_track_on_a_cuda_mat_runs_k6(cuda):
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.core import Mat
+
+    img = synth_bgr(160, 120, 3)
+    dev = Mat.from_array(img)
+    dev.device()
+    kernels.reset_launch_counts()
+    got = ip.good_features_to_track(dev, 32)
+    assert kernels.launch_counts()["harris_response_i32"] == 1
+    np.testing.assert_array_equal(got, ip.good_features_to_track(Mat.from_array(img, device="cpu"),
+                                                                 32))
+
+
+@pytest.mark.parametrize("mode", [None, "xla_fused"])
+def test_xla_fused_on_the_card_matches_the_default_and_the_cpu(cuda, monkeypatch, mode):
+    """xla_fused ticks equal the default mode's on the card and the CPU
+    port's, with one K1 launch per tick and no K4 or K5."""
+    def ticks(device, m):
+        if m is None:
+            monkeypatch.delenv("RUSTCV_DECODE", raising=False)
+        else:
+            monkeypatch.setenv("RUSTCV_DECODE", m)
+        eng = MultiStreamEngine(SimulationDriver(device_count=3, paced=False), 3,
+                                SimpleConfig(width=320, height=240, fps=60,
+                                             pixel_format=PixelFormat.YUYV),
+                                filter="blur_sobel", overlay=True, device_sim=True, device=device)
+        rects = np.array([[10, 20, 100, 80], [-5, -5, 400, 50], [300, 200, 40, 60]], np.int32)
+        colors = np.array([[0, 255, 0], [1, 2, 3], [255, 0, 255]], np.uint8)
+        out = []
+        for _ in range(3):
+            res = eng.tick(rects=rects, rect_colors=colors, block=True)
+            out.append((res.numpy("bgr"), res.numpy("filtered")))
+        eng.close()
+        return out
+
+    want = ticks("cpu", mode)
+    base = ticks("cuda", None)
+    kernels.reset_launch_counts()
+    got = ticks("cuda", mode)
+    counts = kernels.launch_counts()
+    assert counts["blur_sobel_mag"] == 3
+    assert counts["yuyv_decode_interleave"] == counts["yuyv_tick_fused"] == 0
+    for g, w, b in zip(got, want, base):
+        for x, y, z in zip(g, w, b):
+            np.testing.assert_array_equal(x, y)
+            np.testing.assert_array_equal(x, z)
+
+
+def test_native_ring_device_decode_matches_the_host_decode(cuda):
+    from rustcv_tpu_torch.capture import Camera
+    from rustcv_tpu_torch.capture.native_source import NativeSimulationSource
+    from rustcv_tpu_torch.core import Mat, ResolvedConfig
+    from rustcv_tpu_torch.ops import decode
+
+    src = NativeSimulationSource(ResolvedConfig(320, 240, 120, PixelFormat.YUYV, 4), paced=False)
+    cam = Camera(src, None)
+    try:
+        for _ in range(3):
+            got = cam.read_decoded_device("cuda")
+            frame = sim.synth_raw(320, 240, PixelFormat.YUYV, src._prev_frame.sequence)
+            mat = Mat(device="cpu")
+            decode.decode_frame_host(src._prev_frame, mat)
+            assert got.is_cuda
+            np.testing.assert_array_equal(got.cpu().numpy(), mat.to_numpy())
+            np.testing.assert_array_equal(src._prev_frame.data, frame)
+    finally:
+        cam.close()
+        src.close()

@@ -96,6 +96,36 @@ def test_engine_matches_jax_in_each_decode_mode(jax_cpu, monkeypatch, mode, w, h
     assert sum(kernels.launch_counts().values()) == 0
 
 
+@pytest.mark.parametrize("filt", ["blur_sobel", "gaussian", "harris_points"])
+@pytest.mark.parametrize("overlay", [True, False])
+@pytest.mark.parametrize("w,h,n", [(64, 48, 3), (34, 24, 2)])
+def test_xla_fused_matches_jax(jax_cpu, monkeypatch, filt, overlay, w, h, n):
+    """``RUSTCV_DECODE=xla_fused``: the overlay painted on the YUYV pixel
+    pairs (the filters then read the painted image, as the reference's
+    do); without the overlay the plain decode."""
+    _set_mode(monkeypatch, "xla_fused")
+    rects, colors = _overlay(n, seed=w + n)
+    kw = dict(filter=filt, overlay=overlay)
+    _assert_same(_ticks(_port(w, h, n, **kw), 3, rects, colors),
+                 _ticks(_jax(w, h, n, **kw), 3, rects, colors))
+
+
+def test_xla_fused_leaves_other_specs_on_the_plain_decode(jax_cpu, monkeypatch):
+    """A resize, or another wire format, takes the default path under
+    xla_fused, as in the reference."""
+    rects, colors = _overlay(2, seed=1)
+    kw = dict(filter="blur_sobel", overlay=True)
+    fused, plain = [], []
+    for mode, out in (("xla_fused", fused), (None, plain)):
+        _set_mode(monkeypatch, mode)
+        out.append(_ticks(_port(64, 48, 2, resize_to=(32, 24), **kw), 2, rects, colors))
+        out.append(_ticks(MultiStreamEngine(
+            SimulationDriver(device_count=2, paced=False), 2, _cfg(64, 48, PixelFormat.NV12),
+            device_sim=True, device="cpu", **kw), 2, rects, colors))
+    for a, b in zip(fused, plain):
+        _assert_same(a, b)
+
+
 @pytest.mark.parametrize("mode", ["pallas", "pallas_tick"])
 @pytest.mark.parametrize("impl", ["pallas", "pallas_v1", "pallas_v2"])
 def test_kernel_modes_and_stencil_impls_match_jax(jax_cpu, monkeypatch, mode, impl):
@@ -260,11 +290,6 @@ def test_pipeline_cache_keys_the_decode_mode(monkeypatch):
     assert a is not b and port_pipeline.get_pipeline(spec) is a
 
 
-def _decode_xla_fused(monkeypatch):
-    monkeypatch.setenv("RUSTCV_DECODE", "xla_fused")
-    _port(64, 48, 1, filter="blur_sobel", overlay=True)
-
-
 def _device_sim_tick(fmt):
     """One device-sim tick of ``fmt``, which the device cannot synthesize in
     either package: the reference raises SimulationError at the first tick."""
@@ -297,8 +322,7 @@ def _mesh_with_sub_batch(mp):
             "device_sim does not support MJPEG", id="mjpeg_host"),
         pytest.param(_mesh_with_sub_batch, ValueError, "sub_batch is per-chip", id="mesh"),
         pytest.param(lambda mp: _port(64, 48, 1).tick(text="héllo"), NotImplementedError,
-                     "ROADMAP queue 1 item 16", id="text"),
-        pytest.param(_decode_xla_fused, NotImplementedError, "ROADMAP", id="xla_fused"),
+                     "ROADMAP queue 1 item 8", id="text"),
         pytest.param(_device_sim_tick(PixelFormat.UYVY), SimulationError, "cannot encode",
                      id="uyvy"),
         pytest.param(_device_sim_tick(PixelFormat.YV12), SimulationError, "cannot encode",

@@ -12,7 +12,10 @@ and that case is held to the reference's device path.
 
 The processing ops (``cvt_gray``, bilinear ``resize``, the 5×5
 ``gaussian_blur``, ``sobel_magnitude``, ``canny``, ``harris_corners``)
-are bit-exact the same four ways."""
+are bit-exact the same four ways; the other resize modes, the other
+Gaussian kernels and the rest of the processing wrappers are held the
+same way in ``test_torch_color_ext.py``, ``test_torch_filters_ext.py`` and
+``test_torch_resize_ext.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -237,16 +240,10 @@ def test_processing_on_a_gray_mat():
 def test_what_is_not_ported_raises():
     m = Mat.from_array(_img(8, 8, seed=0), device="cpu")
     for text, scale in (("hi", 4.0), ("naïve", 1.0)):  # outside the font data
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
             port_ip.put_text(m, text, port_ip.Point(1, 6), scale, port_ip.Scalar.all(255))
-    for mode in ("nearest", "area", "cubic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10 and 14"):
-            port_ip.resize(m, 4, 4, mode)
     with pytest.raises(ValueError):
         port_ip.resize(m, 4, 4, "lanczos")
-    for kwargs in ({"ksize": 3}, {"sigma": 1.5}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            port_ip.gaussian_blur(m, **kwargs)
 
 
 # -- the draw ops under the facade, with per-image params ---------------------------

@@ -5,10 +5,12 @@ config 2's hybrid MJPEG decode, NV12 and Bayer frames,
 ``set_resolution``), and its OpenCV-style facade imports and runs the
 README loop with ``put_text`` (``prelude``, ``imgproc``, ``highgui``,
 ``imgcodecs``, ``videoio``), the text overlay, the host codecs and the
-PNG dump, the host MJPEG decode and ``mjpeg_backend="host"``, and its
+PNG dump, the host MJPEG decode and ``mjpeg_backend="host"``, its
 ``parallel`` (a one-rank mesh engine, the band stencil) and ``utils``
-layers and top-level names, with jax, Pillow and the JAX package
-``rustcv_tpu`` absent. The font data's
+layers and top-level names, and its capture backends (the V4L2 driver,
+the native ring behind a ``Camera``), the colour, filter, resize and
+corner ops with their ``imgproc`` wrappers and ``RUSTCV_DECODE=xla_fused``,
+with jax, Pillow and the JAX package ``rustcv_tpu`` absent. The font data's
 generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
@@ -230,6 +232,75 @@ _PARALLEL_SCRIPT = textwrap.dedent(
 )
 
 
+_SLICE_SCRIPT = textwrap.dedent(
+    """
+    import os, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from rustcv_tpu_torch import imgproc, native, videoio
+    from rustcv_tpu_torch.capture import Camera, SimulationDriver
+    from rustcv_tpu_torch.capture.native_source import NativeSimulationSource
+    from rustcv_tpu_torch.capture.v4l2 import V4L2Driver, enumerate_modes, list_video_devices
+    from rustcv_tpu_torch.core import CameraError, Mat, PixelFormat, ResolvedConfig, SimpleConfig
+    from rustcv_tpu_torch.ops import color, features, filters, resize
+    from rustcv_tpu_torch.runtime import MultiStreamEngine
+
+    assert isinstance(videoio.create_driver("v4l2"), V4L2Driver)
+    try:
+        enumerate_modes("/dev/video255")
+        raise AssertionError("no error")
+    except CameraError:
+        pass
+    if not list_video_devices():
+        assert videoio.default_backend() == "simulation"
+    src = NativeSimulationSource(ResolvedConfig(64, 48, 120, PixelFormat.YUYV, 3), paced=False)
+    cam = Camera(src, None)
+    mat = Mat(device="cpu")
+    cam.read_decoded(mat)
+    assert mat.shape == (48, 64, 3) and cam.read_decoded_device("cpu").shape == (48, 64, 3)
+    cam.close()
+    src.close()
+    img = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (24, 35, 3), np.uint8))
+    for fn in (color.bgr_to_hsv, color.bgr_to_lab, color.bgr_to_ycrcb, filters.pyr_up,
+               lambda x: filters.median_u8(x, 5), lambda x: filters.stack_blur_u8(x, 5),
+               lambda x: resize.resize_bicubic(x, 17, 9), lambda x: resize.resize_area(x, 7, 8)):
+        assert fn(img).dtype == torch.uint8
+    gray = color.bgr_to_gray(img)
+    assert features.corner_sub_pix(gray, [[17.0, 12.0]], win=5).shape == (1, 2)
+    m = Mat.from_array(img.numpy(), device="cpu")
+    for out in (imgproc.cvt_hsv(m), imgproc.resize(m, 9, 7, "cubic"), imgproc.median_blur(m, 5),
+                imgproc.gaussian_blur(m, 3), imgproc.morphology_ex(m, "open")):
+        assert isinstance(out, Mat)
+    assert imgproc.integral(m).shape == (25, 36) and imgproc.moments(m)["m00"] > 0
+    os.environ["RUSTCV_DECODE"] = "xla_fused"
+    eng = MultiStreamEngine(
+        SimulationDriver(device_count=2, paced=False), 2,
+        SimpleConfig(width=64, height=48, fps=60, pixel_format=PixelFormat.YUYV),
+        filter="blur_sobel", overlay=True, device_sim=True, device="cpu")
+    assert eng.tick(block=True).numpy("bgr").shape == (2, 48, 64, 3)
+    eng.close()
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_slice_ops_and_capture_backends_run_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SLICE_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_port_imports_and_ticks_without_jax_or_pil():
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
@@ -262,12 +333,14 @@ def test_parallel_and_utils_run_without_jax_or_pil():
 
 def test_package_import_is_light():
     """``import rustcv_tpu_torch`` alone loads neither torch nor jax, nor do
-    the capture layer, ``videoio``, ``highgui``, ``imgcodecs`` and the
-    top-level ``__version__``, ``Mat`` and ``TickMeter``."""
+    the capture layer (the V4L2 driver and the native ring source too),
+    ``videoio``, ``highgui``, ``imgcodecs`` and the top-level
+    ``__version__``, ``Mat`` and ``TickMeter``."""
     script = (
         "import sys; sys.modules['jax'] = None; import rustcv_tpu_torch; "
         "import rustcv_tpu_torch.capture, rustcv_tpu_torch.videoio, rustcv_tpu_torch.prelude; "
         "import rustcv_tpu_torch.highgui, rustcv_tpu_torch.imgcodecs; "
+        "import rustcv_tpu_torch.capture.v4l2, rustcv_tpu_torch.capture.native_source; "
         "from rustcv_tpu_torch import Mat, TickMeter, __version__; "
         "assert 'torch' not in sys.modules, 'torch imported'; print('OK')"
     )

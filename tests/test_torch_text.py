@@ -130,9 +130,9 @@ def test_empty_and_tiny_strings(text, scale):
 @pytest.mark.parametrize("text,scale", [("hi", 0.35), ("hi", 3.3), ("hi", 0.2), ("héllo", 1.0),
                                         ("tab\there", 1.0), ("two\nlines", 1.0)])
 def test_outside_the_data_raises_not_ported(text, scale):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         P.rasterize(text, scale)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         P.get_text_size(text, scale)
 
 
