@@ -129,7 +129,14 @@ Phases:
    drops under a stalled consumer; V4L2's ``DeviceNotFound`` and
    ``CameraError`` and, without a node, ``default_backend() ==
    "simulation"`` (with a capture device: 5 frames of its shape with
-   rising sequences);
+   rising sequences); (3o) each call of the second block of ops on 1080p
+   card inputs (47: arithmetic, ``normalize``, histograms, CLAHE,
+   backprojection, the warps in both modes and borders, ``remap``,
+   ``warp_polar`` both ways, thinning, diffusion, the multi-band blend,
+   the float32 core ops) equal to the same call on the host, byte for byte,
+   within ±1 LSB where the reference documents it, or within a relative
+   tolerance for float results, with no result back on the host before
+   the comparison but the numbers and counts the reference returns;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -149,7 +156,7 @@ Phases:
    call of each slice call on the 1080p CUDA Mat, slowest first, the
    ``xla_fused`` headline's ms/tick beside the default mode's in turns, and
    ms per ``Camera`` read of the native ring at 1080p (host and card
-   decode).
+   decode); (4o) ms per call of each phase-3o call, slowest first.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -2530,6 +2537,210 @@ def time_slice(smi: str) -> None:
         f"{k} {v:.4f}" for k, v in reads.items()), flush=True)
 
 
+# Phase 3o: the second block of ops. Relative tolerances of the float
+# results: norm L1's exact sum rounded once to float32 on the card (the
+# host's is float64, 2**-24 apart past 2**24), float32 sums in another
+# order on the card, mean_std_dev's one-pass variance E[x²] − m² (which
+# cancels), and the float32 core ops.
+BLOCK2_RTOL = {"norm l1": 1e-7, "norm l2": 1e-5, "mean_std_dev": 1e-4, "psnr": 1e-5,
+               "magnitude": 2e-6,
+               "phase": 2e-6, "phase degrees": 2e-6, "cart_to_polar": 2e-6,
+               "fast_atan2": 2e-6, "cube_root": 2e-6}
+BLOCK2_ATOL = 1e-5  # for angles near 0
+THIN_LEVEL = 128  # the thinning mask: gray > THIN_LEVEL
+
+
+def block2_sides():
+    """The inputs of phase 3o on the card and the same on the host: the
+    seeded 1080p BGR frame of phase 3n and its gray, a second frame (the
+    first shifted), its HSV, the thresholded gray mask; as Mats (a CUDA Mat,
+    a host Mat), and as tensors for the ops that take tensors (CUDA, CPU):
+    both frames, a ramp blend mask, and Sobel x/y of the gray in float32;
+    and the hue model of the HSV frame under the mask."""
+    import torch
+
+    from rustcv_tpu_torch.ops import color, filters, hist
+    from rustcv_tpu_torch.prelude import Mat
+
+    mats = slice_mats()
+    img = mats["bgr"][1].to_numpy()
+    gray = mats["gray"][1].to_numpy()
+    arrays = {"bgr2": np.ascontiguousarray(np.roll(img, (13, 29), axis=(0, 1))),
+              "hsv": color.bgr_to_hsv(torch.from_numpy(img)).numpy(),
+              "mask": ((gray > THIN_LEVEL) * 255).astype(np.uint8)}
+    ramp = np.clip(np.arange(W, dtype=np.float32) / (W - 1) * 2 - 0.5, 0, 1)
+    sides = {"card": {}, "host": {}}
+    for kind in ("bgr", "gray"):
+        sides["card"][kind], sides["host"][kind] = mats[kind]
+    for kind, a in arrays.items():
+        sides["host"][kind] = Mat.from_array(a.copy(), device="cpu")
+        dev = Mat.from_array(a.copy())
+        dev.device()
+        sides["card"][kind] = dev
+    model = hist.calc_hue_hist(arrays["hsv"], arrays["mask"])  # back_project's model
+    for side, device in (("card", "cuda"), ("host", "cpu")):
+        t = sides[side]
+        t["hue_model"] = model
+        t["bgr_t"] = torch.from_numpy(img).to(device)
+        t["bgr2_t"] = torch.from_numpy(arrays["bgr2"]).to(device)
+        t["ramp_t"] = torch.from_numpy(np.broadcast_to(ramp, (H, W)).copy()).to(device)
+        gx, gy = filters.sobel3_gray(torch.from_numpy(gray[..., 0]).to(device))
+        t["gx"], t["gy"] = gx.to(torch.float32), gy.to(torch.float32)
+    return sides
+
+
+def block2_calls(ip) -> dict:
+    """name → (call on a side of :func:`block2_sides`, tolerance): 0 for
+    byte-equal, LSB where the reference documents ±1 LSB (add_weighted at
+    non-dyadic weights, normalize, anisotropic_diffusion,
+    multi_band_blend), "rel" for the float results (BLOCK2_RTOL)."""
+    from rustcv_tpu_torch.ops import warp
+
+    c = ((W - 1) / 2.0, (H - 1) / 2.0)
+    rot = warp.get_rotation_matrix_2d(c, 30.0, 0.9)
+    hom = np.array([[0.92, 0.06, 40.0], [-0.03, 0.95, 25.0], [2e-5, 4e-5, 1.0]])
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    r2 = ((xs - c[0]) ** 2 + (ys - c[1]) ** 2) / (c[0] ** 2 + c[1] ** 2)
+    k = 1 + 0.12 * r2 - 0.03 * r2 * r2  # an undistortion-like radial field
+    map_x = ((xs - c[0]) * k + c[0]).astype(np.float32)
+    map_y = ((ys - c[1]) * k + c[1]).astype(np.float32)
+    lut = (255 * (np.arange(256) / 255.0) ** 0.5).astype(np.uint8)
+    calls = {
+        "add": (lambda s: ip.add(s["bgr"], s["bgr2"]), 0),
+        "subtract": (lambda s: ip.subtract(s["bgr"], s["bgr2"]), 0),
+        "absdiff": (lambda s: ip.absdiff(s["bgr"], s["bgr2"]), 0),
+        "add_weighted dyadic": (lambda s: ip.add_weighted(s["bgr"], 0.75, s["bgr2"], 0.25, 2.0), 0),
+        "add_weighted": (lambda s: ip.add_weighted(s["bgr"], 0.3, s["bgr2"], 0.6, 7.0), LSB),
+        "convert_scale_abs": (lambda s: ip.convert_scale_abs(s["bgr"], -1.3, 40.0), 0),
+        "bitwise_and": (lambda s: ip.bitwise_and(s["bgr"], s["bgr2"]), 0),
+        "bitwise_or": (lambda s: ip.bitwise_or(s["bgr"], s["bgr2"]), 0),
+        "bitwise_xor": (lambda s: ip.bitwise_xor(s["bgr"], s["bgr2"]), 0),
+        "bitwise_not": (lambda s: ip.bitwise_not(s["bgr"]), 0),
+        "count_non_zero": (lambda s: ip.count_non_zero(s["mask"]), 0),
+        "norm l1": (lambda s: ip.norm(s["bgr"], "l1"), "rel"),
+        "norm l2": (lambda s: ip.norm(s["bgr"], "l2"), "rel"),
+        "norm inf": (lambda s: ip.norm(s["gray"], "inf"), 0),
+        "mean_std_dev": (lambda s: ip.mean_std_dev(s["bgr"]), "rel"),
+        "psnr": (lambda s: ip.psnr(s["bgr"], s["bgr2"]), "rel"),
+        "calc_hist": (lambda s: ip.calc_hist(s["bgr"]), 0),
+        "equalize_hist": (lambda s: ip.equalize_hist(s["gray"]), 0),
+        "lut": (lambda s: ip.lut(s["bgr"], lut), 0),
+        "apply_color_map": (lambda s: ip.apply_color_map(s["gray"], "jet"), 0),
+        "clahe": (lambda s: ip.clahe(s["gray"], 40, (8, 8)), 0),
+        "back_project": (lambda s: ip.back_project(s["hsv"], s["hue_model"]), 0),
+        "remap": (lambda s: ip.remap(s["bgr"], map_x, map_y), 0),
+        "remap replicate": (lambda s: ip.remap(s["bgr"], map_x, map_y, "replicate"), 0),
+        "warp_polar": (lambda s: ip.warp_polar(s["bgr"], c, 540.0, (720, 540)), 0),
+        "warp_polar inverse": (lambda s: ip.warp_polar(s["bgr"], c, 540.0, (H, W), False, True),
+                               0),
+        "thinning": (lambda s: ip.thinning(s["mask"]), 0),
+        "anisotropic_diffusion": (lambda s: ip.anisotropic_diffusion(s["bgr"], niters=10), LSB),
+        "multi_band_blend": (lambda s: ip.multi_band_blend(s["bgr_t"], s["bgr2_t"], s["ramp_t"], 5),
+                             LSB),
+        "magnitude": (lambda s: ip.magnitude(s["gx"], s["gy"]), "rel"),
+        "phase": (lambda s: ip.phase(s["gx"], s["gy"]), "rel"),
+        "phase degrees": (lambda s: ip.phase(s["gx"], s["gy"], True), "rel"),
+        "cart_to_polar": (lambda s: ip.cart_to_polar(s["gx"], s["gy"]), "rel"),
+        "fast_atan2": (lambda s: ip.fast_atan2(s["gy"], s["gx"]), "rel"),
+        "cube_root": (lambda s: ip.cube_root(s["gx"] * s["gy"]), "rel"),
+    }
+    for kind in ("minmax", "l1", "l2", "inf"):
+        alpha = {"minmax": 20.0, "l1": 2.5e8, "l2": 2.5e5, "inf": 240.0}[kind]
+        calls[f"normalize {kind}"] = (
+            lambda s, a=alpha, k=kind: ip.normalize(s["bgr"], a, 230.0, k), LSB)
+    for mode in ("bilinear", "nearest"):
+        for border in ("constant", "replicate"):
+            calls[f"warp_affine {mode} {border}"] = (
+                lambda s, m=mode, b=border: ip.warp_affine(s["bgr"], rot, (W, H), m, b), 0)
+            calls[f"warp_perspective {mode} {border}"] = (
+                lambda s, m=mode, b=border: ip.warp_perspective(s["bgr"], hom, (W, H), m, b), 0)
+    return calls
+
+
+def _block2_plain(x):
+    """A result as numpy for the comparison: a Mat's bytes, a tensor's
+    values, a number as a 0-dim array; a tuple of them as a tuple."""
+    if isinstance(x, tuple):
+        return tuple(_block2_plain(v) for v in x)
+    if hasattr(x, "to_numpy"):
+        return x.to_numpy()
+    if hasattr(x, "cpu"):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def _on_card(x) -> bool:
+    if isinstance(x, tuple):
+        return all(_on_card(v) for v in x)
+    if hasattr(x, "is_on_device"):
+        return x.is_on_device and x.device().is_cuda
+    if hasattr(x, "is_cuda"):
+        return x.is_cuda
+    return True  # a number or a numpy array, as the reference returns
+
+
+def _block2_err(name, got, want, tol) -> float:
+    if isinstance(want, tuple):
+        return max(_block2_err(name, g, w, tol) for g, w in zip(got, want))
+    expect(got.shape == want.shape and got.dtype == want.dtype,
+           f"{name}: {got.shape} {got.dtype} != {want.shape} {want.dtype}")
+    if tol == "rel":
+        g, w = got.astype(np.float64), want.astype(np.float64)
+        rtol = BLOCK2_RTOL[name]
+        ok = np.abs(g - w) <= BLOCK2_ATOL + rtol * np.abs(w)
+        expect(bool(ok.all()), f"{name}: {int((~ok).sum())} values beyond rtol {rtol}")
+        return float((np.abs(g - w) / (BLOCK2_ATOL + np.abs(w))).max(initial=0))
+    err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max(initial=0))
+    expect(err <= tol, f"{name}: max |diff| {err} > {tol}")
+    return err
+
+
+def run_block2() -> dict:
+    """Phase 3o: every call of :func:`block2_calls` on the 1080p card inputs
+    against the same call on the host inputs (the CPU port: a host Mat
+    takes the reference's numpy form, a CPU tensor the port's op). Results
+    stay on the card until the comparison (a Mat on the card, a CUDA
+    tensor; only numbers and ``calc_hist``'s counts come back, as the
+    reference returns them). Prints the largest difference of each call
+    that is not byte-equal and the thinning's passes. Returns the launches
+    of the card's calls (no kernel runs here)."""
+    import torch
+
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.ops import kernels, morphx
+
+    sides = block2_sides()
+    calls = block2_calls(imgproc)
+    kernels.reset_launch_counts()
+    got = {name: call(sides["card"]) for name, (call, _tol) in calls.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    diffs = {}
+    for name, (call, tol) in calls.items():
+        expect(_on_card(got[name]), f"{name}: the result left the card")
+        err = _block2_err(name, _block2_plain(got[name]), _block2_plain(call(sides["host"])), tol)
+        if err:
+            diffs[name] = err
+    mask = sides["card"]["mask"].device()[..., 0]
+    _, passes = morphx.thinning_passes(mask)
+    print(f"second block at {W}x{H}: {len(calls)} calls on the card == the CPU port; "
+          f"thinning took {passes} double passes; largest differences: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in sorted(diffs.items())), flush=True)
+    return counts
+
+
+def time_block2(smi: str) -> None:
+    """Phase 4o: ms per call of each phase-3o call on the 1080p card inputs
+    (CUDA events, 20 calls), slowest first. Never gated."""
+    from rustcv_tpu_torch import imgproc
+
+    sides = block2_sides()
+    times = {name: cuda_ms(lambda c=call: c(sides["card"]), 20)
+             for name, (call, _tol) in block2_calls(imgproc).items()}
+    print(f"second block ms per call on {W}x{H} card inputs ({smi}), slowest first: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])), flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -2599,7 +2810,8 @@ def main() -> int:
                             ("formats", run_formats), ("chained graphs", run_chained_graphs),
                             ("set_resolution", run_set_resolution),
                             ("configs 1, 3, 5", run_zoo_configs), ("facade", run_facade),
-                            ("mesh", run_mesh), ("slice ops, xla_fused, ring, V4L2", run_slice)):
+                            ("mesh", run_mesh), ("slice ops, xla_fused, ring, V4L2", run_slice),
+                            ("second block of ops (3o)", run_block2)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -2619,7 +2831,8 @@ def main() -> int:
                            lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi)),
                           ("text and host codecs", lambda: time_text_and_codecs(smi)),
                           ("mesh", lambda: time_mesh(smi)),
-                          ("slice ops, xla_fused, ring", lambda: time_slice(smi))):
+                          ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
+                          ("second block of ops (4o)", lambda: time_block2(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

@@ -24,8 +24,21 @@ The processing ops of ``ops.color``, ``ops.filters``, ``ops.resize`` and
 blurs, pyramids, thresholds, morphology, medians, derivatives,
 ``filter2d``, integral images, colour conversions, range masks, moments,
 corner seeds and their sub-pixel refinement. Each runs where the Mat is.
-The rest of the reference module arrives with the ops it wraps (ROADMAP
-Queue 1 items 3–7); its names are absent here.
+
+So do the wrappers of the second block: the arithmetic of ``ops.arith``
+(saturating add/subtract, ``addWeighted``, bitwise ops, norms,
+``normalize``), the histograms of ``ops.hist`` (``calcHist``,
+``equalizeHist``, ``LUT``, colormaps, CLAHE, hue backprojection), the
+warps of ``ops.warp`` (affine, perspective, ``remap``, polar), thinning and
+anisotropic diffusion (``ops.morphx``), ``flip``, the contour and
+chessboard draws; a device Mat takes the tensor op, a host Mat the
+reference's numpy form. ``ops.core_ops`` (``split``/``merge``, polar
+coordinates, reductions, small linear algebra, ``RNG``), ``ops.blend``'s
+multi-band blend and gains and the host modules (contour geometry,
+``emd``, epipolar geometry, homographies, barcodes, k-NN, Delaunay, TSDF,
+octree) are re-exported as the reference does. The rest of the reference
+module arrives with the ops it wraps (ROADMAP Queue 1 items 4–7); its
+names are absent here.
 """
 
 from __future__ import annotations
@@ -36,13 +49,18 @@ import numpy as np
 import torch
 
 from ..core.mat import Mat
+from ..ops import arith as _arith
 from ..ops import color as _color
 from ..ops import draw as _draw
 from ..ops import features as _features
 from ..ops import filters as _filters
+from ..ops import geometry as _geometry
 from ..ops import golden
+from ..ops import hist as _hist
+from ..ops import morphx as _morphx
 from ..ops import resize as _resize
 from ..ops import text as _text
+from ..ops import warp as _warp
 from ..ops.filters import get_structuring_element
 from ..ops.text import get_text_size
 
@@ -507,6 +525,626 @@ def harris_corners(mat: Mat, k: float = 0.04, threshold_rel: float = 0.01,
     return corners.cpu().numpy()
 
 
+# ---------------------------------------------------------------------------
+# The second block of ops (arith, hist, warp, morphx, blend, core_ops and the
+# host modules). Each wrapper runs where the Mat is, as the reference's
+# ``_apply(mat, device_fn, host_fn)``: a device Mat takes the port's tensor
+# op on its tensor, a host Mat the reference's numpy form on its bytes.
+# ---------------------------------------------------------------------------
+
+
+def _dispatch(mat: Mat, device_fn, host_fn) -> Mat:
+    if mat.is_on_device:
+        return Mat.from_device(device_fn(mat.device()))
+    return Mat.from_array(np.ascontiguousarray(host_fn(mat.to_numpy())), device=mat.target)
+
+
+def _gray_of_mat(mat: Mat, allow_bgr: bool = True):
+    """The single-channel plane of a Mat: a tensor on the Mat's device, or
+    a host numpy array. BGR converts by the exact luma when ``allow_bgr``,
+    else raises (ops whose spec is gray only)."""
+    if mat.is_on_device:
+        return _gray(mat.device(), allow_bgr)
+    return _gray(torch.from_numpy(mat.to_numpy()), allow_bgr).numpy()
+
+
+def _squeeze1(a):
+    return a[..., 0] if a.ndim == 3 and a.shape[-1] == 1 else a
+
+
+def _pair(a: Mat, b: Mat):
+    """Aligned tensors of two Mats (on the device Mat's device if either
+    is on one, else CPU tensors of the host bytes), trailing 1-channels
+    squeezed, and whether the result goes back to a device Mat."""
+    on_device = a.is_on_device or b.is_on_device
+    dev = (a if a.is_on_device else b).device().device if on_device else torch.device("cpu")
+    x, y = (_squeeze1(m.device() if m.is_on_device else torch.from_numpy(m.to_numpy())).to(dev)
+            for m in (a, b))
+    return x, y, on_device
+
+
+def _binary(a: Mat, b: Mat, fn) -> Mat:
+    x, y, dev = _pair(a, b)
+    out = fn(x, y)
+    return Mat.from_device(out) if dev else Mat.from_array(out.numpy(), device=a.target)
+
+
+def add(a: Mat, b: Mat) -> Mat:
+    """Saturating u8 add (ops.arith)."""
+    return _binary(a, b, _arith.add_u8)
+
+
+def subtract(a: Mat, b: Mat) -> Mat:
+    """Saturating u8 subtract."""
+    return _binary(a, b, _arith.subtract_u8)
+
+
+def absdiff(a: Mat, b: Mat) -> Mat:
+    """|a − b| per element."""
+    return _binary(a, b, _arith.absdiff_u8)
+
+
+def add_weighted(a: Mat, alpha: float, b: Mat, beta: float,
+                 gamma: float = 0.0) -> Mat:
+    """αa + βb + γ with u8 saturation (OpenCV ``addWeighted``)."""
+    return _binary(a, b, lambda x, y: _arith.add_weighted_u8(
+        x, float(alpha), y, float(beta), float(gamma)))
+
+
+def convert_scale_abs(mat: Mat, alpha: float = 1.0, beta: float = 0.0) -> Mat:
+    """|αx + β| saturated to u8 (OpenCV ``convertScaleAbs``)."""
+    return _dispatch(
+        mat,
+        lambda d: _arith.convert_scale_abs_u8(d, float(alpha), float(beta)),
+        lambda h: _arith.convert_scale_abs_numpy(h, alpha, beta),
+    )
+
+
+def bitwise_and(a: Mat, b: Mat) -> Mat:
+    return _binary(a, b, _arith.bitwise_and)
+
+
+def bitwise_or(a: Mat, b: Mat) -> Mat:
+    return _binary(a, b, _arith.bitwise_or)
+
+
+def bitwise_xor(a: Mat, b: Mat) -> Mat:
+    return _binary(a, b, _arith.bitwise_xor)
+
+
+def bitwise_not(mat: Mat) -> Mat:
+    return _dispatch(mat, _arith.bitwise_not, lambda h: ~h)
+
+
+def count_non_zero(mat: Mat) -> int:
+    if mat.is_on_device:
+        return int(_arith.count_non_zero(mat.device()))
+    return int(np.count_nonzero(mat.to_numpy()))
+
+
+def norm(mat: Mat, kind: str = "l2") -> float:
+    """L1 / L2 / inf norm (OpenCV ``norm`` NORM_L1/L2/INF)."""
+    if mat.is_on_device:
+        return float(_arith.norm_u8(mat.device(), kind=kind))
+    return _arith.norm_numpy(mat.to_numpy(), kind=kind)
+
+
+def mean_std_dev(mat: Mat):
+    """(mean, population stddev) as floats (OpenCV ``meanStdDev``):
+    float32 on a device Mat, float64 on a host Mat."""
+    if mat.is_on_device:
+        m, s = _arith.mean_stddev_u8(mat.device())
+        return float(m), float(s)
+    f = mat.to_numpy().astype(np.float64)
+    return float(f.mean()), float(f.std())
+
+
+def psnr(a: Mat, b: Mat) -> float:
+    """PSNR in dB (OpenCV ``PSNR``)."""
+    x, y, _ = _pair(a, b)
+    return _arith.psnr_u8(x, y)
+
+
+def normalize(mat: Mat, alpha: float = 0.0, beta: float = 255.0,
+              norm_type: str = "minmax") -> Mat:
+    """Normalize a u8 Mat (OpenCV ``normalize`` role; frozen f64 spec
+    golden.normalize_u8 on a host Mat, float32 ±1 LSB on a device Mat):
+    ``minmax`` maps the value range to [alpha, beta]; ``inf``/``l1``/``l2``
+    scale the norm to ``alpha``."""
+    return _dispatch(
+        mat,
+        lambda d: _arith.normalize_u8(d, alpha, beta, norm_type),
+        lambda h: golden.normalize_u8(h, alpha, beta, norm_type),
+    )
+
+
+def accumulate_weighted(acc, mat: Mat, alpha: float):
+    """Running average (OpenCV ``accumulateWeighted``): returns the new
+    float32 accumulator (1−α)·acc + α·mat, a tensor on a device Mat's
+    device or a numpy array for a host Mat. ``acc`` None starts from the
+    frame."""
+    if mat.is_on_device:
+        src = mat.device()
+        if acc is None:
+            return src.to(torch.float32)
+        return _arith.accumulate_weighted(acc, src, alpha)
+    src = mat.to_numpy()
+    if acc is None:
+        return src.astype(np.float32)
+    return _arith.accumulate_weighted_numpy(np.asarray(acc), src, alpha)
+
+
+def calc_hist(mat: Mat) -> np.ndarray:
+    """256-bin histogram (int32 counts) of a u8 gray Mat (BGR converts by
+    the exact luma) — OpenCV ``calcHist`` for the single-channel case,
+    counted where the Mat is; the counts come back as numpy."""
+    g = _gray_of_mat(mat)
+    if mat.is_on_device:
+        return _hist.calc_hist(g).cpu().numpy()
+    return _hist.calc_hist_numpy(g)
+
+
+def equalize_hist(mat: Mat) -> Mat:
+    """Histogram equalization of a u8 gray Mat (OpenCV ``equalizeHist``;
+    device and host agree bit for bit)."""
+    return _dispatch(
+        mat,
+        lambda d: _hist.equalize_hist(_gray(d, allow_bgr=False)),
+        lambda h: _hist.equalize_hist_numpy(_gray(h, allow_bgr=False)),
+    )
+
+
+def lut(mat: Mat, table) -> Mat:
+    """Apply a 256-entry u8 lookup table per byte (OpenCV ``LUT`` — gamma
+    and tone curves): a gather where the Mat is."""
+    t = np.asarray(table, np.uint8).reshape(256)
+    return _dispatch(mat, lambda d: _hist.apply_lut(d, t), lambda h: t[h])
+
+
+def apply_color_map(mat: Mat, colormap: str = "jet") -> Mat:
+    """Map a gray (or BGR-via-luma) Mat through a 256-entry colour table
+    (OpenCV ``applyColorMap`` role; golden.colormap_table). Returns a BGR
+    Mat where the input is."""
+    table = golden.colormap_table(colormap)  # [256, 3] BGR
+    g = _gray_of_mat(mat)
+    if mat.is_on_device:
+        return Mat.from_device(torch.from_numpy(table).to(g.device)[g.to(torch.int64)])
+    return Mat.from_array(table[g], device=mat.target)
+
+
+def calc_hue_hist(mat_hsv: Mat, mask=None) -> np.ndarray:
+    """Normalized 180-bin hue histogram of an HSV Mat (host; the model for
+    :func:`back_project`)."""
+    return _hist.calc_hue_hist(mat_hsv.to_numpy(), mask)
+
+
+def back_project(mat_hsv: Mat, hue_hist) -> Mat:
+    """Histogram backprojection (OpenCV ``calcBackProject``, hue channel):
+    per-pixel likelihood u8 — the CamShift/mean-shift weight image — where
+    the Mat is."""
+    return _dispatch(mat_hsv, lambda d: _hist.back_project_hue(d, hue_hist),
+                     lambda h: _hist.back_project_hue(h, hue_hist))
+
+
+def _host_plane(g) -> np.ndarray:
+    """A plane of :func:`_gray_of_mat` on the host (mean_shift and
+    cam_shift are host numpy, as in the reference)."""
+    return g.cpu().numpy() if torch.is_tensor(g) else g
+
+
+def mean_shift(prob_mat: Mat, window, max_iter: int = 20):
+    """OpenCV ``meanShift`` over a weight image (e.g. :func:`back_project`
+    output): (iterations, (x, y, w, h)); host numpy, as the reference."""
+    g = _gray_of_mat(prob_mat, allow_bgr=False)
+    return _hist.mean_shift(_host_plane(g), tuple(window), max_iter=max_iter)
+
+
+def cam_shift(prob_mat: Mat, window, max_iter: int = 20):
+    """OpenCV ``CamShift`` (simplified, axis-aligned): ((cx, cy, w, h),
+    next window) — meanShift + moment-driven window resize."""
+    g = _gray_of_mat(prob_mat, allow_bgr=False)
+    return _hist.cam_shift(_host_plane(g), tuple(window), max_iter=max_iter)
+
+
+def clahe(mat: Mat, clip_limit: int = 40, grid=(8, 8)) -> Mat:
+    """Contrast-limited adaptive histogram equalization (OpenCV
+    ``createCLAHE`` role) on a u8 gray Mat — exact-integer frozen spec,
+    host == device bit for bit (ops.hist.clahe)."""
+    g = tuple(grid)
+    gray = _gray_of_mat(mat, allow_bgr=False)
+    if mat.is_on_device:
+        return Mat.from_device(_hist.clahe(gray, clip_limit, g))
+    return Mat.from_array(_hist.clahe_numpy(gray, clip_limit, g), device=mat.target)
+
+
+def get_rotation_matrix_2d(center, angle_deg: float, scale: float = 1.0):
+    """OpenCV ``getRotationMatrix2D`` (2×3 float64)."""
+    return _warp.get_rotation_matrix_2d(tuple(center), angle_deg, scale)
+
+
+def warp_affine(mat: Mat, m, dst_size, mode: str = "bilinear",
+                border: str = "constant") -> Mat:
+    """OpenCV ``warpAffine``: M (2×3) maps src→dst; ``dst_size`` = (w, h);
+    bilinear (11-bit fixed point, the resize spec's rounding) or nearest;
+    constant-0 or replicate border (ops.warp)."""
+    return _dispatch(
+        mat,
+        lambda d: _warp.warp_affine(d, m, dst_size, mode, border),
+        lambda h: _warp.warp_affine_numpy(h, m, dst_size, mode, border),
+    )
+
+
+def get_perspective_transform(src_pts, dst_pts):
+    """OpenCV ``getPerspectiveTransform`` (exact 4-point 3×3 homography)."""
+    return _warp.get_perspective_transform(src_pts, dst_pts)
+
+
+def warp_perspective(mat: Mat, h_mat, dst_size, mode: str = "bilinear",
+                     border: str = "constant") -> Mat:
+    """OpenCV ``warpPerspective``: 3×3 homography (src→dst), the sampling
+    spec of :func:`warp_affine` (ops.warp)."""
+    return _dispatch(
+        mat,
+        lambda d: _warp.warp_perspective(d, h_mat, dst_size, mode, border),
+        lambda h: _warp.warp_perspective_numpy(h, h_mat, dst_size, mode, border),
+    )
+
+
+def remap(mat: Mat, map_x, map_y, border: str = "constant") -> Mat:
+    """OpenCV ``remap``: sample at float32 per-pixel source coordinates
+    (the undistort/rectify primitive); the fixed-point bilinear spec of
+    warp_affine (ops.warp.remap). Host maps are uploaded to a device Mat's
+    device; tensor maps stay where they are."""
+    if torch.is_tensor(map_x):
+        return _dispatch(mat, lambda d: _warp.remap(d, map_x, map_y, border),
+                         lambda h: _warp.remap_numpy(h, map_x.cpu().numpy(),
+                                                     map_y.cpu().numpy(), border))
+    mx = np.asarray(map_x, np.float32)
+    my = np.asarray(map_y, np.float32)
+    return _dispatch(mat, lambda d: _warp.remap(d, mx, my, border),
+                     lambda h: _warp.remap_numpy(h, mx, my, border))
+
+
+def rotate(mat: Mat, angle_deg: float, center=None, scale: float = 1.0) -> Mat:
+    """Rotate about ``center`` (default: image centre) by ``angle_deg``
+    (counter-clockwise for y-down images), same canvas size."""
+    h, w = mat.rows, mat.cols
+    if center is None:
+        center = ((w - 1) / 2.0, (h - 1) / 2.0)
+    m = get_rotation_matrix_2d(center, angle_deg, scale)
+    return warp_affine(mat, m, (w, h))
+
+
+def warp_polar(mat: Mat, center, max_radius: float, dst_size,
+               semilog: bool = False, inverse: bool = False,
+               border: str = "constant") -> Mat:
+    """Polar/semilog-polar warp (OpenCV ``warpPolar`` role): rows =
+    angle, cols = radius; ``inverse`` maps back to cartesian. Host map
+    build + remap where the Mat is (ops.warp polar spec)."""
+
+    def run(a):
+        squeeze = a.ndim == 3 and a.shape[-1] == 1
+        out = _warp.warp_polar(a[..., 0] if squeeze else a, center, max_radius,
+                               dst_size, semilog, inverse, border)
+        return out[..., None] if squeeze else out
+
+    return _dispatch(mat, run, run)
+
+
+def linear_polar(mat: Mat, center, max_radius: float,
+                 inverse: bool = False) -> Mat:
+    """Legacy OpenCV ``linearPolar`` (dst = src size)."""
+    return warp_polar(mat, center, max_radius, (mat.rows, mat.cols),
+                      False, inverse)
+
+
+def log_polar(mat: Mat, center, max_radius: float,
+              inverse: bool = False) -> Mat:
+    """Legacy OpenCV ``logPolar`` (semilog radius axis, dst = src size)."""
+    return warp_polar(mat, center, max_radius, (mat.rows, mat.cols),
+                      True, inverse)
+
+
+def thinning(mat: Mat) -> Mat:
+    """Zhang-Suen skeletonization (OpenCV ximgproc ``thinning`` role;
+    frozen spec in ops.morphx, device == oracle bit for bit). Input: u8
+    mask (non-zero = set); returns a 255/0 u8 Mat (OpenCV's convention)."""
+    if mat.is_on_device:
+        d = mat.device()
+        g = d.squeeze() if d.ndim == 3 else d
+        return Mat.from_device(_morphx.thinning(g) * 255)
+    h = mat.to_numpy().squeeze()
+    return Mat.from_array(_morphx.thinning_numpy(h) * np.uint8(255), device=mat.target)
+
+
+def anisotropic_diffusion(mat: Mat, alpha: float = 0.15, k: float = 20.0,
+                          niters: int = 10) -> Mat:
+    """Perona-Malik edge-preserving diffusion (OpenCV ximgproc
+    ``anisotropicDiffusion`` role; float32 on a device Mat, the float64
+    oracle on a host Mat, ±1 LSB apart)."""
+    return _dispatch(
+        mat,
+        lambda d: _morphx.anisotropic_diffusion(d, alpha=alpha, k=k, niters=niters),
+        lambda h: _morphx.anisotropic_diffusion_numpy(h, alpha=alpha, k=k, niters=niters),
+    )
+
+
+def flip(mat: Mat, flip_code: int = 0) -> Mat:
+    """Flip: 0 = vertical (x-axis), 1 = horizontal, -1 = both (cv2 codes)."""
+    dims = (0,) if flip_code == 0 else (1,) if flip_code > 0 else (0, 1)
+    return _dispatch(mat, lambda d: torch.flip(d, dims=dims), lambda h: np.flip(h, axis=dims))
+
+
+def draw_contours(mat: Mat, contours, contour_idx: int, color: Scalar,
+                  thickness: int = 1) -> None:
+    """Draw contours in place (OpenCV ``drawContours`` role):
+    ``contour_idx < 0`` draws all; ``thickness < 0`` fills each polygon
+    (fill_poly spec), else strokes it closed (polylines spec)."""
+    sel = contours if contour_idx < 0 else [contours[contour_idx]]
+    for c in sel:
+        p = np.asarray(c, np.int64).reshape(-1, 2)
+        if len(p) < 2:
+            continue
+        if thickness < 0 and len(p) >= 3:
+            fill_poly(mat, p, color)
+        else:
+            polylines(mat, p, color, max(thickness, 1), closed=True)
+
+
+def draw_chessboard_corners(mat: Mat, pattern_size, corners,
+                            found: bool) -> None:
+    """Overlay detected corners in place (OpenCV
+    ``drawChessboardCorners`` role): found → colour-cycled circles
+    chained row by row; not found → red circles only."""
+    pts = np.asarray(corners, np.float64).reshape(-1, 2)
+    if not found:
+        for p in pts:
+            circle(mat, Point(int(round(p[0])), int(round(p[1]))), 4,
+                   Scalar(0, 0, 255), 1)
+        return
+    colors = [(0, 0, 255), (0, 128, 255), (0, 255, 255), (0, 255, 0),
+              (255, 128, 0), (255, 0, 0), (255, 0, 255)]
+    cols = int(pattern_size[0])
+    prev = None
+    for i, p in enumerate(pts):
+        c = Scalar(*colors[(i // cols) % len(colors)])
+        cur = Point(int(round(p[0])), int(round(p[1])))
+        circle(mat, cur, 4, c, 1)
+        if prev is not None:
+            line(mat, prev, cur, c, 1)
+        prev = cur
+
+
+def hu_moments(mat: Mat) -> np.ndarray:
+    """The seven Hu invariants of a u8 mask Mat (OpenCV ``HuMoments``;
+    float64 on the host, as the reference)."""
+    return golden.hu_moments(mat.to_numpy())
+
+
+def match_shapes(mat_a: Mat, mat_b: Mat) -> float:
+    """Shape-similarity distance from Hu moments (OpenCV ``matchShapes``
+    I1 method; 0 = identical up to translation/scale/rotation)."""
+    return golden.match_shapes(mat_a.to_numpy(), mat_b.to_numpy())
+
+
+def get_gabor_kernel(ksize, sigma: float, theta: float, lambd: float,
+                     gamma: float, psi: float = 3.14159265358979 / 2) -> np.ndarray:
+    """Gabor filter taps (OpenCV ``getGaborKernel``): float64 (kh, kw),
+    g = exp(−(x'² + γ²y'²)/2σ²)·cos(2πx'/λ + ψ) with x', y' the
+    θ-rotated coordinates; ``ksize`` int or (width, height), each
+    dimension auto-sized from σ when ≤ 0 (OpenCV's 3·max(σ, σ/γ)
+    half-extent rule)."""
+    if np.isscalar(ksize):
+        kw = kh = int(ksize)
+    else:
+        kw, kh = int(ksize[0]), int(ksize[1])
+    sigma_x = float(sigma)
+    sigma_y = sigma_x / float(gamma)
+    c, s = np.cos(theta), np.sin(theta)
+    if kw <= 0:
+        kw = 2 * int(round(max(abs(3 * sigma_x * c), abs(3 * sigma_y * s)))) + 1
+    if kh <= 0:
+        kh = 2 * int(round(max(abs(3 * sigma_x * s), abs(3 * sigma_y * c)))) + 1
+    xs = np.arange(kw, dtype=np.float64) - (kw - 1) / 2
+    ys = np.arange(kh, dtype=np.float64) - (kh - 1) / 2
+    x, y = np.meshgrid(xs, ys)
+    xr = x * c + y * s
+    yr = -x * s + y * c
+    ex = -0.5 / (sigma_x * sigma_x)
+    ey = -0.5 / (sigma_y * sigma_y)
+    return np.exp(ex * xr * xr + ey * yr * yr) * np.cos(
+        2.0 * np.pi / float(lambd) * xr + float(psi))
+
+
+def cvt_color_two_plane(y_plane, uv_plane) -> np.ndarray:
+    """NV12 two-plane → BGR (OpenCV ``cvtColorTwoPlane`` with
+    COLOR_YUV2BGR_NV12 role): separate (H, W) Y and (H/2, W/2, 2) or
+    (H/2, W) interleaved UV planes through the BT.601 NV12 decode, on the
+    host."""
+    y = np.asarray(y_plane)
+    uv = np.asarray(uv_plane)
+    h, w = y.shape
+    buf = np.concatenate([y.reshape(-1), uv.reshape(-1)]).astype(np.uint8)
+    return _color.nv12_to_bgr(torch.from_numpy(buf), w, h).numpy()
+
+
+def estimate_affine_partial_2d(src_pts, dst_pts, **kw):
+    """RANSAC similarity estimation (OpenCV ``estimateAffinePartial2D``):
+    (M 2×3 or None, inlier mask). See ops.geometry."""
+    return _geometry.estimate_affine_partial_2d(src_pts, dst_pts, **kw)
+
+
+def estimate_affine_2d(src_pts, dst_pts, **kw):
+    """RANSAC full-affine estimation (OpenCV ``estimateAffine2D``)."""
+    return _geometry.estimate_affine_2d(src_pts, dst_pts, **kw)
+
+
+# --- the host modules and core_ops, re-exported as the reference does -----
+from ..ops.barcode import detect_and_decode as detect_barcodes  # noqa: E402
+from ..ops.barcode import encode_ean13  # noqa: E402
+from ..ops.blend import gain_compensation, multi_band_blend  # noqa: E402
+from ..ops.core_ops import (  # noqa: E402  (re-exports)
+    RNG,
+    accumulate,
+    accumulate_product,
+    accumulate_square,
+    apply_ccm,
+    batch_distance,
+    blend_linear,
+    blur,
+    border_interpolate,
+    box_filter,
+    build_mst,
+    calc_covar_matrix,
+    cart_to_polar,
+    check_range,
+    color_correction_matrix,
+    compare,
+    compare_hist,
+    complete_symm,
+    convert_points_from_homogeneous,
+    convert_points_to_homogeneous,
+    copy_make_border,
+    copy_to,
+    create_hanning_window,
+    cube_root,
+    determinant,
+    div_spectrums,
+    eigen,
+    eigen_non_symmetric,
+    extract_channel,
+    fast_atan2,
+    find_non_zero,
+    finite_mask,
+    flip_nd,
+    gemm,
+    get_affine_transform,
+    get_rect_sub_pix,
+    has_non_zero,
+    hconcat,
+    insert_channel,
+    integral2,
+    integral3,
+    invert,
+    invert_affine_transform,
+    magnitude,
+    mahalanobis,
+    mat_mul_deriv,
+    mix_channels,
+    mul_transposed,
+    patch_nans,
+    pca_back_project,
+    pca_compute,
+    pca_project,
+    perspective_transform,
+    phase,
+    polar_to_cart,
+    rand_shuffle,
+    rectangle_intersection_area,
+    reduce_arg_max,
+    reduce_arg_min,
+    scale_add,
+    set_identity,
+    solve,
+    solve_cubic,
+    solve_lp,
+    solve_poly,
+    sort_idx,
+    split,
+    sqr_box_filter,
+    sum_elems,
+    sv_back_subst,
+    sv_decomp,
+    threshold_with_mask,
+    trace,
+    transpose_nd,
+    vconcat,
+)
+from ..ops.core_ops import divide_u8 as divide  # noqa: E402
+from ..ops.core_ops import merge_channels as merge  # noqa: E402
+from ..ops.core_ops import multiply_u8 as multiply  # noqa: E402
+from ..ops.core_ops import reduce_mat as reduce  # noqa: E402
+from ..ops.core_ops import repeat_mat as repeat  # noqa: E402
+from ..ops.core_ops import sort_mat as sort  # noqa: E402
+from ..ops.core_ops import transform_points as transform  # noqa: E402
+from ..ops.core_ops import transpose_mat as transpose  # noqa: E402
+from ..ops.emd import emd  # noqa: E402
+from ..ops.epipolar import (  # noqa: E402  (re-exports)
+    compute_correspond_epilines,
+    correct_matches,
+    decompose_essential_mat,
+    find_essential_mat,
+    find_fundamental_mat,
+    recover_pose,
+    triangulate_points,
+)
+from ..ops.geometry import find_homography  # noqa: E402
+from ..ops.knn_index import KnnIndex, radius_search  # noqa: E402
+from ..ops.octree import Octree  # noqa: E402
+from ..ops.shape import (  # noqa: E402  (re-exports)
+    approx_poly_dp,
+    approx_poly_n,
+    arc_length,
+    bounding_rect,
+    box_points,
+    contour_area,
+    convex_hull,
+    convex_hull_indices,
+    convexity_defects,
+    fit_ellipse,
+    fit_ellipse_ams,
+    fit_ellipse_direct,
+    fit_line,
+    intersect_convex_convex,
+    is_contour_convex,
+    min_area_rect,
+    min_enclosing_circle,
+    min_enclosing_convex_polygon,
+    min_enclosing_triangle,
+    point_polygon_test,
+    rotated_rectangle_intersection,
+)
+from ..ops.subdiv import Subdiv2D  # noqa: E402
+from ..ops.tsdf import TsdfVolume  # noqa: E402
+from ..ops.warp import convert_maps  # noqa: E402
+
+_SLICE2 = [
+    "add", "subtract", "absdiff", "add_weighted", "convert_scale_abs", "bitwise_and",
+    "bitwise_or", "bitwise_xor", "bitwise_not", "count_non_zero", "norm", "mean_std_dev",
+    "psnr", "normalize", "accumulate_weighted", "calc_hist", "equalize_hist", "lut",
+    "apply_color_map", "calc_hue_hist", "back_project", "mean_shift", "cam_shift", "clahe",
+    "get_rotation_matrix_2d", "warp_affine", "get_perspective_transform", "warp_perspective",
+    "remap", "rotate", "warp_polar", "linear_polar", "log_polar", "thinning",
+    "anisotropic_diffusion", "flip", "draw_contours", "draw_chessboard_corners", "hu_moments",
+    "match_shapes", "get_gabor_kernel", "cvt_color_two_plane", "estimate_affine_partial_2d",
+    "estimate_affine_2d", "detect_barcodes", "encode_ean13", "gain_compensation",
+    "multi_band_blend", "RNG", "accumulate", "accumulate_product", "accumulate_square",
+    "apply_ccm", "batch_distance", "blend_linear", "blur", "border_interpolate", "box_filter",
+    "build_mst", "calc_covar_matrix", "cart_to_polar", "check_range",
+    "color_correction_matrix", "compare", "compare_hist", "complete_symm",
+    "convert_points_from_homogeneous", "convert_points_to_homogeneous", "copy_make_border",
+    "copy_to", "create_hanning_window", "cube_root", "determinant", "div_spectrums", "eigen",
+    "eigen_non_symmetric", "extract_channel", "fast_atan2", "find_non_zero", "finite_mask",
+    "flip_nd", "gemm", "get_affine_transform", "get_rect_sub_pix", "has_non_zero", "hconcat",
+    "insert_channel", "integral2", "integral3", "invert", "invert_affine_transform",
+    "magnitude", "mahalanobis", "mat_mul_deriv", "mix_channels", "mul_transposed",
+    "patch_nans", "pca_back_project", "pca_compute", "pca_project", "perspective_transform",
+    "phase", "polar_to_cart", "rand_shuffle", "rectangle_intersection_area", "reduce_arg_max",
+    "reduce_arg_min", "scale_add", "set_identity", "solve", "solve_cubic", "solve_lp",
+    "solve_poly", "sort_idx", "split", "sqr_box_filter", "sum_elems", "sv_back_subst",
+    "sv_decomp", "threshold_with_mask", "trace", "transpose_nd", "vconcat", "divide", "merge",
+    "multiply", "reduce", "repeat", "sort", "transform", "transpose", "emd",
+    "compute_correspond_epilines", "correct_matches", "decompose_essential_mat",
+    "find_essential_mat", "find_fundamental_mat", "recover_pose", "triangulate_points",
+    "find_homography", "KnnIndex", "radius_search", "Octree", "approx_poly_dp",
+    "approx_poly_n", "arc_length", "bounding_rect", "box_points", "contour_area",
+    "convex_hull", "convex_hull_indices", "convexity_defects", "fit_ellipse",
+    "fit_ellipse_ams", "fit_ellipse_direct", "fit_line", "intersect_convex_convex",
+    "is_contour_convex", "min_area_rect", "min_enclosing_circle",
+    "min_enclosing_convex_polygon", "min_enclosing_triangle", "point_polygon_test",
+    "rotated_rectangle_intersection", "Subdiv2D", "TsdfVolume", "convert_maps",
+]
+
 __all__ = [
     "Point", "Rect", "Scalar", "adaptive_threshold", "arrowed_line", "bilateral_filter",
     "box_blur", "canny", "circle", "corner_sub_pix", "cvt_gray", "cvt_hsv", "cvt_hsv_to_bgr",
@@ -517,4 +1155,4 @@ __all__ = [
     "in_range", "integral", "laplacian", "line", "median_blur", "moments", "morphology_ex",
     "polylines", "put_text", "pyr_down", "pyr_up", "rectangle", "resize", "scharr",
     "sep_filter_2d", "sobel", "sobel_magnitude", "stack_blur", "threshold",
-]
+] + _SLICE2

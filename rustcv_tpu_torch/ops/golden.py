@@ -11,7 +11,9 @@ demosaic oracle that :func:`.color.demosaic_bilinear` computes on the
 device: at each site the missing channels are the rounded
 means of their 2 or 4 nearest samples (avg2 = (a+b+1)>>1, avg4 = (Σ+2)>>2),
 borders mirrored about the edge pixel (reflect-101, which keeps each site's
-colour).
+colour). The Hu moments and ``matchShapes`` of a mask, the colormap
+tables of ``imgproc.apply_color_map`` and the float64 ``normalize`` that a
+host Mat runs (the device form is float32, ±1 LSB).
 """
 
 from __future__ import annotations
@@ -180,3 +182,188 @@ def resize_nearest_coeffs(src_size: int, dst_size: int) -> np.ndarray:
     d = np.arange(dst_size, dtype=np.float64)
     ix = np.floor((d + 0.5) * (src_size / dst_size)).astype(np.int64)
     return np.minimum(ix, src_size - 1).astype(np.int32)
+
+
+def hu_moments(mask: np.ndarray) -> np.ndarray:
+    """The seven Hu invariant moments of a u8 mask/gray image (OpenCV
+    ``HuMoments``): translation/scale/rotation invariants from normalized
+    central moments (float64; raw sums exact int64)."""
+    a = mask.astype(np.int64)
+    if a.ndim == 3:
+        a = a[..., 0]
+    h, w = a.shape
+    xs = np.arange(w, dtype=np.int64)[None, :]
+    ys = np.arange(h, dtype=np.int64)[:, None]
+    m00 = a.sum()
+    if m00 == 0:
+        return np.zeros(7)
+    xb = (a * xs).sum() / m00
+    yb = (a * ys).sum() / m00
+    xc = xs - xb
+    yc = ys - yb
+
+    def mu(p, q):
+        return float((a * xc**p * yc**q).sum())
+
+    n = float(m00)
+
+    def eta(p, q):
+        return mu(p, q) / n ** (1 + (p + q) / 2.0)
+
+    n20, n02, n11 = eta(2, 0), eta(0, 2), eta(1, 1)
+    n30, n03 = eta(3, 0), eta(0, 3)
+    n21, n12 = eta(2, 1), eta(1, 2)
+    h1 = n20 + n02
+    h2 = (n20 - n02) ** 2 + 4 * n11**2
+    h3 = (n30 - 3 * n12) ** 2 + (3 * n21 - n03) ** 2
+    h4 = (n30 + n12) ** 2 + (n21 + n03) ** 2
+    h5 = (n30 - 3 * n12) * (n30 + n12) * (
+        (n30 + n12) ** 2 - 3 * (n21 + n03) ** 2
+    ) + (3 * n21 - n03) * (n21 + n03) * (
+        3 * (n30 + n12) ** 2 - (n21 + n03) ** 2
+    )
+    h6 = (n20 - n02) * ((n30 + n12) ** 2 - (n21 + n03) ** 2) + 4 * n11 * (
+        n30 + n12
+    ) * (n21 + n03)
+    h7 = (3 * n21 - n03) * (n30 + n12) * (
+        (n30 + n12) ** 2 - 3 * (n21 + n03) ** 2
+    ) - (n30 - 3 * n12) * (n21 + n03) * (
+        3 * (n30 + n12) ** 2 - (n21 + n03) ** 2
+    )
+    return np.array([h1, h2, h3, h4, h5, h6, h7])
+
+
+def match_shapes(mask_a: np.ndarray, mask_b: np.ndarray) -> float:
+    """OpenCV ``matchShapes`` (I1 method): Σ |1/sgn·log|hA| − 1/sgn·log|hB||
+    over the Hu moments — 0 for identical shapes, small for similar."""
+    ha = hu_moments(mask_a)
+    hb = hu_moments(mask_b)
+    eps = 1e-30
+    sa = np.sign(ha)
+    sb = np.sign(hb)
+    ma = sa * np.log10(np.abs(ha) + eps)
+    mb = sb * np.log10(np.abs(hb) + eps)
+    use = (np.abs(ha) > 1e-12) & (np.abs(hb) > 1e-12)
+    if not use.any():
+        return 0.0
+    return float(np.abs(1.0 / ma[use] - 1.0 / mb[use]).sum())
+
+
+#: reference has no colormaps; OpenCV's tables are GNU-Octave formulas.
+#: Ours are linear anchor interpolation, pinned by spec-freeze hash).
+#: Each anchor is (position in [0,1], (R, G, B) in [0,1]).
+# RGB anchors of the classic GNU-Octave/Matlab colormap FORMULAS (public
+# closed forms, verified against OpenCV's output — see colormap_table for
+# the construction that reproduces cv2's corner-flattening).
+COLORMAP_ANCHORS = {
+    "autumn": [(0.0, (1, 0, 0)), (1.0, (1, 1, 0))],
+    "bone": [(0.0, (0, 0, 0)), (0.375, (0.3281, 0.3281, 0.4531)),
+             (0.75, (0.6562, 0.7812, 0.7812)), (1.0, (1, 1, 1))],
+    "cool": [(0.0, (0, 1, 1)), (1.0, (1, 0, 1))],
+    "hot": [(0.0, (0, 0, 0)), (0.4, (1, 0, 0)), (0.8, (1, 1, 0)),
+            (1.0, (1, 1, 1))],
+    "hsv": [(0.0, (1, 0, 0)), (1 / 6, (1, 1, 0)), (2 / 6, (0, 1, 0)),
+            (3 / 6, (0, 1, 1)), (4 / 6, (0, 0, 1)), (5 / 6, (1, 0, 1)),
+            (1.0, (1, 0, 0))],
+    "jet": [(0.0, (0, 0, 0.5)), (0.125, (0, 0, 1)), (0.375, (0, 1, 1)),
+            (0.625, (1, 1, 0)), (0.875, (1, 0, 0)), (1.0, (0.5, 0, 0))],
+    "ocean": [(0.0, (0, 0, 0)), (1 / 3, (0, 0, 1 / 3)),
+              (2 / 3, (0, 0.5, 2 / 3)), (1.0, (1, 1, 1))],
+    "rainbow": [(0.0, (1, 0, 0)), (0.4, (1, 1, 0)), (0.6, (0, 1, 0)),
+                (0.8, (0, 0, 1)), (1.0, (2 / 3, 0, 1))],
+    "spring": [(0.0, (1, 0, 1)), (1.0, (1, 1, 0))],
+    "summer": [(0.0, (0, 0.5, 0.4)), (1.0, (1, 1, 0.4))],
+    "winter": [(0.0, (0, 0, 1)), (1.0, (0, 1, 0.5))],
+    "gray": [(0.0, (0, 0, 0)), (1.0, (1, 1, 1))],
+    "pink": None,  # sqrt((2x + hot_matlab(x)) / 3) — built in colormap_table
+}
+
+#: Matplotlib-table maps that OpenCV ships verbatim (cv2's tables match
+#: matplotlib's 256-entry data bit-for-bit; twilight pair within ±2 —
+#: tests/test_cv2_shim.py). Kept out of COLORMAP_ANCHORS: they are data,
+#: not formulas, and require matplotlib at call time.
+COLORMAP_MPL = ("viridis", "turbo", "magma", "inferno", "plasma",
+                "cividis", "twilight", "twilight_shifted")
+
+
+def _colormap_rgb64(name: str) -> np.ndarray:
+    """The 64-sample RGB curve (float in [0,1]) of colormap ``name`` —
+    OpenCV builds its tables by sampling the Octave formula at n=64 and
+    linearly interpolating to 256, which flattens corners that miss the
+    64-grid; reproducing the construction reproduces its tables."""
+    x = np.arange(64, dtype=np.float64) / 63.0
+    if name == "pink":
+        # matlab pink = sqrt((2·gray + hot)/3) with matlab hot
+        # (breakpoints 3/8, 3/4)
+        hot = np.stack([
+            np.clip(8 * x / 3, 0, 1),
+            np.clip(8 * (x - 3 / 8) / 3, 0, 1),
+            np.clip(4 * (x - 3 / 4), 0, 1),
+        ], axis=1)
+        return np.sqrt((2 * x[:, None] + hot) / 3)
+    anchors = COLORMAP_ANCHORS[name]
+    xs = np.array([a[0] for a in anchors], np.float64)
+    rgb = np.array([a[1] for a in anchors], np.float64)
+    return np.stack([np.interp(x, xs, rgb[:, c]) for c in range(3)], axis=1)
+
+
+def colormap_table(name: str) -> np.ndarray:
+    """256×3 u8 **BGR** lookup table for colormap ``name``.
+
+    Formula maps (:data:`COLORMAP_ANCHORS`): cv2's construction —
+    64-sample the formula, lerp to 256, round half-away. Matches
+    cv2.applyColorMap bit-for-bit for autumn/spring/cool/hsv/pink, ±1 LSB
+    for the rest (cv2 rounds through float32). ``jet`` keeps the direct
+    256-point anchor interpolation (±1 of cv2; the matlab jet(64) stepped
+    construction differs from its continuous form by up to 3).
+    Matplotlib-table maps (:data:`COLORMAP_MPL`): sampled from matplotlib
+    (bit-identical to cv2 for the viridis family + turbo; twilight ±2)."""
+    t = np.arange(256, dtype=np.float64) / 255.0
+    if name in COLORMAP_MPL:
+        try:
+            from matplotlib import colormaps as _mpl_maps
+        except Exception as e:  # pragma: no cover
+            raise ValueError(
+                f"colormap {name!r} needs matplotlib (not available)"
+            ) from e
+        out = np.asarray(_mpl_maps[name](t), np.float64)[:, :3]
+    elif name == "jet":
+        anchors = COLORMAP_ANCHORS[name]
+        xs = np.array([a[0] for a in anchors], np.float64)
+        rgb = np.array([a[1] for a in anchors], np.float64)
+        out = np.stack([np.interp(t, xs, rgb[:, c]) for c in range(3)],
+                       axis=1)
+    elif name in COLORMAP_ANCHORS:
+        v64 = _colormap_rgb64(name)
+        pos = t * 63.0
+        j = np.minimum(pos.astype(np.int64), 62)
+        f = (pos - j)[:, None]
+        out = v64[j] * (1 - f) + v64[j + 1] * f
+    else:
+        have = sorted(k for k in COLORMAP_ANCHORS) + sorted(COLORMAP_MPL)
+        raise ValueError(f"unknown colormap {name!r} (have {have})")
+    u8 = np.floor(out * 255.0 + 0.5).astype(np.uint8)
+    return u8[:, ::-1].copy()  # RGB -> BGR table
+
+
+def normalize_u8(img: np.ndarray, alpha: float = 0.0, beta: float = 255.0,
+                 kind: str = "minmax") -> np.ndarray:
+    """Frozen u8 normalize (OpenCV ``normalize`` role): ``minmax`` maps
+    [min, max] → [alpha, beta] (flat image → alpha); ``inf``/``l1``/``l2``
+    scale so the chosen norm equals ``alpha``. float64 math, round
+    half-away, saturate to u8. Device twin is f32 — documented ±1 LSB."""
+    a = img.astype(np.float64)
+    if kind == "minmax":
+        lo, hi = float(a.min()), float(a.max())
+        scale = 0.0 if hi == lo else (beta - alpha) / (hi - lo)
+        out = (a - lo) * scale + alpha
+    elif kind in ("inf", "l1", "l2"):
+        n = {
+            "inf": np.abs(a).max(),
+            "l1": np.abs(a).sum(),
+            "l2": np.sqrt((a * a).sum()),
+        }[kind]
+        out = a * (0.0 if n == 0 else alpha / n)
+    else:
+        raise ValueError(f"unknown norm kind {kind!r}")
+    return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)

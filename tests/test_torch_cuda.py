@@ -13,7 +13,11 @@ one-rank NCCL mesh; and every ``imgproc`` wrapper of the colour, filter,
 resize and corner ops on a CUDA Mat against a host Mat (exact, or ±1 LSB
 for Lab and float kernels, 1e-3 px for ``corner_sub_pix``), the
 ``xla_fused`` engine against the default mode and the CPU, and the native
-ring's device decode against its host decode.
+ring's device decode against its host decode; and every device wrapper of
+the second block (arithmetic, histograms, warps, thinning, diffusion,
+blend, the float32 core ops) on a CUDA Mat or CUDA tensors against the
+same call on the host (exact, ±1 LSB where the reference documents it, a
+relative tolerance for float results).
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -984,3 +988,126 @@ def test_native_ring_device_decode_matches_the_host_decode(cuda):
     finally:
         cam.close()
         src.close()
+
+
+# -- the second block of ops: every device wrapper on a CUDA Mat (or CUDA
+#    tensors) against the same call on a host Mat (the CPU port) -------------
+
+_BLOCK2_LSB = {"add_weighted", "normalize_minmax", "normalize_l1", "normalize_l2", "normalize_inf",
+               "anisotropic_diffusion", "multi_band_blend"}
+_BLOCK2_REL = {"norm_l2": 1e-5, "mean_std_dev": 1e-4, "psnr": 1e-5, "magnitude": 2e-6,
+               "phase": 2e-6, "cart_to_polar": 2e-6, "fast_atan2": 2e-6, "cube_root": 2e-6}
+
+
+def _block2_inputs(device):
+    """Mats (a CUDA Mat or a host Mat) and tensors of one seeded frame."""
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.ops import color, filters
+
+    img = synth_bgr(161, 120, 5)
+    img[::7] = np.random.default_rng(1).integers(0, 256, img[::7].shape, np.uint8)
+    gray = color.bgr_to_gray(torch.from_numpy(img)).numpy()
+    arrays = {"bgr": img, "bgr2": np.ascontiguousarray(np.roll(img, 9, axis=1)),
+              "gray": gray[..., None], "hsv": color.bgr_to_hsv(torch.from_numpy(img)).numpy(),
+              "mask": ((gray > 128) * 255).astype(np.uint8)[..., None]}
+    side = {}
+    for k, a in arrays.items():
+        m = Mat.from_array(a.copy(), device=device)
+        if device == "cuda":
+            m.device()
+        side[k] = m
+    gx, gy = filters.sobel3_gray(torch.from_numpy(gray).to(device))
+    side["gx"], side["gy"] = gx.float(), gy.float()
+    side["bgr_t"] = torch.from_numpy(img).to(device)
+    side["bgr2_t"] = torch.from_numpy(arrays["bgr2"]).to(device)
+    side["ramp"] = torch.linspace(0, 1, 161).expand(120, 161).contiguous().to(device)
+    return side
+
+
+def _block2_wrappers(ip):
+    rot = ip.get_rotation_matrix_2d((80, 59.5), 30, 0.9)
+    hom = np.array([[0.92, 0.06, 4.0], [-0.03, 0.95, 2.5], [2e-4, 4e-4, 1.0]])
+    ys, xs = np.mgrid[0:120, 0:161].astype(np.float32)
+    mx, my = xs * 1.02 - 1.5, ys * 0.97 + 1.25
+    model = np.bincount(np.arange(180) % 30, minlength=180)[:180].astype(np.float64)
+    calls = {
+        "add": lambda s: ip.add(s["bgr"], s["bgr2"]),
+        "subtract": lambda s: ip.subtract(s["bgr"], s["bgr2"]),
+        "absdiff": lambda s: ip.absdiff(s["bgr"], s["bgr2"]),
+        "add_weighted_dyadic": lambda s: ip.add_weighted(s["bgr"], 0.75, s["bgr2"], 0.25),
+        "add_weighted": lambda s: ip.add_weighted(s["bgr"], 0.3, s["bgr2"], 0.6, 7.0),
+        "convert_scale_abs": lambda s: ip.convert_scale_abs(s["bgr"], -1.3, 40.0),
+        "bitwise_and": lambda s: ip.bitwise_and(s["bgr"], s["bgr2"]),
+        "bitwise_or": lambda s: ip.bitwise_or(s["bgr"], s["bgr2"]),
+        "bitwise_xor": lambda s: ip.bitwise_xor(s["bgr"], s["bgr2"]),
+        "bitwise_not": lambda s: ip.bitwise_not(s["bgr"]),
+        "count_non_zero": lambda s: ip.count_non_zero(s["mask"]),
+        "norm_l1": lambda s: ip.norm(s["bgr"], "l1"),
+        "norm_l2": lambda s: ip.norm(s["bgr"], "l2"),
+        "norm_inf": lambda s: ip.norm(s["gray"], "inf"),
+        "mean_std_dev": lambda s: ip.mean_std_dev(s["bgr"]),
+        "psnr": lambda s: ip.psnr(s["bgr"], s["bgr2"]),
+        "calc_hist": lambda s: ip.calc_hist(s["bgr"]),
+        "equalize_hist": lambda s: ip.equalize_hist(s["gray"]),
+        "lut": lambda s: ip.lut(s["bgr"], np.arange(256)[::-1]),
+        "apply_color_map": lambda s: ip.apply_color_map(s["gray"], "jet"),
+        "clahe": lambda s: ip.clahe(s["gray"], 40, (8, 8)),
+        "back_project": lambda s: ip.back_project(s["hsv"], model),
+        "remap": lambda s: ip.remap(s["bgr"], mx, my),
+        "remap_replicate": lambda s: ip.remap(s["bgr"], mx, my, "replicate"),
+        "warp_polar": lambda s: ip.warp_polar(s["bgr"], (80, 60), 60.0, (90, 70)),
+        "warp_polar_inverse": lambda s: ip.warp_polar(s["bgr"], (80, 60), 60.0, (120, 161), True,
+                                                      True),
+        "rotate": lambda s: ip.rotate(s["gray"], 90),
+        "flip": lambda s: ip.flip(s["bgr"], -1),
+        "thinning": lambda s: ip.thinning(s["mask"]),
+        "anisotropic_diffusion": lambda s: ip.anisotropic_diffusion(s["bgr"]),
+        "multi_band_blend": lambda s: ip.multi_band_blend(s["bgr_t"], s["bgr2_t"], s["ramp"], 5),
+        "magnitude": lambda s: ip.magnitude(s["gx"], s["gy"]),
+        "phase": lambda s: ip.phase(s["gx"], s["gy"]),
+        "cart_to_polar": lambda s: ip.cart_to_polar(s["gx"], s["gy"], True),
+        "fast_atan2": lambda s: ip.fast_atan2(s["gy"], s["gx"]),
+        "cube_root": lambda s: ip.cube_root(s["gx"] * s["gy"]),
+    }
+    for kind in ("minmax", "l1", "l2", "inf"):
+        calls[f"normalize_{kind}"] = lambda s, k=kind: ip.normalize(s["bgr"], 200.0, 10.0, k)
+    for mode in ("bilinear", "nearest"):
+        for border in ("constant", "replicate"):
+            calls[f"warp_affine_{mode}_{border}"] = (
+                lambda s, m=mode, b=border: ip.warp_affine(s["bgr"], rot, (161, 120), m, b))
+            calls[f"warp_perspective_{mode}_{border}"] = (
+                lambda s, m=mode, b=border: ip.warp_perspective(s["bgr"], hom, (150, 130), m, b))
+    return calls
+
+
+def _block2_np(x):
+    if isinstance(x, tuple):
+        return tuple(_block2_np(v) for v in x)
+    if hasattr(x, "to_numpy"):
+        assert not x.is_on_device or x.device().is_cuda
+        return x.to_numpy()
+    if torch.is_tensor(x):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+@pytest.mark.parametrize("name", list(_block2_wrappers(__import__("rustcv_tpu_torch.imgproc",
+                                                                  fromlist=["x"]))))
+def test_block2_wrappers_on_the_card_match_the_cpu_port(cuda, name):
+    from rustcv_tpu_torch import imgproc as ip
+
+    call = _block2_wrappers(ip)[name]
+    got = call(_block2_inputs("cuda"))
+    want = call(_block2_inputs("cpu"))
+    if hasattr(got, "is_on_device"):
+        assert got.is_on_device and got.device().is_cuda
+    got, want = _block2_np(got), _block2_np(want)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if name in _BLOCK2_REL:
+            np.testing.assert_allclose(g, w, rtol=_BLOCK2_REL[name], atol=1e-5)
+        else:
+            tol = 1 if name in _BLOCK2_LSB else 0
+            assert np.abs(g.astype(np.int64) - w.astype(np.int64)).max(initial=0) <= tol

@@ -10,6 +10,8 @@ PNG dump, the host MJPEG decode and ``mjpeg_backend="host"``, its
 layers and top-level names, and its capture backends (the V4L2 driver,
 the native ring behind a ``Camera``), the colour, filter, resize and
 corner ops with their ``imgproc`` wrappers and ``RUSTCV_DECODE=xla_fused``,
+and the second block of ops (arithmetic, histograms, warps, thinning and
+diffusion, blending, ``core_ops`` and the host modules) with theirs,
 with jax, Pillow and the JAX package ``rustcv_tpu`` absent. The font data's
 generator (``tools/make_text_data.py``) is no module of the package.
 
@@ -289,6 +291,60 @@ _SLICE_SCRIPT = textwrap.dedent(
     print("OK")
     """
 )
+
+
+_BLOCK2_SCRIPT = textwrap.dedent(
+    """
+    import importlib, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    for mod in ("arith", "hist", "warp", "morphx", "blend", "core_ops", "barcode", "draw_cv",
+                "emd", "epipolar", "geometry", "knn_index", "octree", "resize_cv", "shape",
+                "subdiv", "tsdf"):
+        importlib.import_module("rustcv_tpu_torch.ops." + mod)
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.core import Mat
+
+    img = np.random.default_rng(0).integers(0, 256, (24, 35, 3), np.uint8)
+    for m in (Mat.from_array(img, device="cpu"), Mat.from_device(torch.from_numpy(img))):
+        g = imgproc.cvt_gray(m)
+        outs = [imgproc.add(m, m), imgproc.add_weighted(m, 0.3, m, 0.7), imgproc.normalize(m),
+                imgproc.lut(m, np.arange(256)[::-1]), imgproc.apply_color_map(g),
+                imgproc.equalize_hist(g), imgproc.clahe(g, 40, (4, 4)),
+                imgproc.warp_affine(m, imgproc.get_rotation_matrix_2d((17, 12), 30), (35, 24)),
+                imgproc.warp_perspective(m, np.eye(3), (35, 24)),
+                imgproc.warp_polar(m, (17, 12), 10.0, (20, 30)), imgproc.thinning(g),
+                imgproc.anisotropic_diffusion(m, niters=2), imgproc.flip(m, 1)]
+        assert all(isinstance(o, Mat) and o.is_on_device == m.is_on_device for o in outs)
+        assert imgproc.calc_hist(m).sum() == 24 * 35
+        assert imgproc.norm(m, "l1") > 0 and imgproc.count_non_zero(g) > 0
+    t = torch.from_numpy(img).float()
+    assert imgproc.magnitude(t[..., 0], t[..., 1]).shape == (24, 35)
+    assert imgproc.multi_band_blend(img, img, np.ones((24, 35)), 3).shape == (24, 35, 3)
+    assert imgproc.RNG(7).randu((2, 3), 0, 10, np.int32).shape == (2, 3)
+    assert imgproc.detect_barcodes(
+        importlib.import_module("rustcv_tpu_torch.ops.barcode").draw_barcode(
+            imgproc.encode_ean13("400638133393"))) == ["4006381333931"]
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_second_block_of_ops_runs_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCK2_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_slice_ops_and_capture_backends_run_without_jax_or_pil():
