@@ -36,9 +36,15 @@ reference's numpy form. ``ops.core_ops`` (``split``/``merge``, polar
 coordinates, reductions, small linear algebra, ``RNG``), ``ops.blend``'s
 multi-band blend and gains and the host modules (contour geometry,
 ``emd``, epipolar geometry, homographies, barcodes, k-NN, Delaunay, TSDF,
-octree) are re-exported as the reference does. The rest of the reference
-module arrives with the ops it wraps (ROADMAP Queue 1 items 4–7); its
-names are absent here.
+octree) are re-exported as the reference does.
+
+The features and flow of group 2 follow the same rule: corner responses,
+FAST, BRIEF/ORB, SIFT, AKAZE, HOG, Lucas–Kanade, Farnebäck, DIS with its
+variational refinement, TV-L1, template matching, the DFT/DCT, phase
+correlation and ECC; keypoint, flow and response wrappers return numpy
+arrays as the reference's do. The rest of the reference module arrives
+with the ops it wraps (ROADMAP Queue 1 items 5–7); its names are absent
+here.
 """
 
 from __future__ import annotations
@@ -1108,6 +1114,286 @@ from ..ops.subdiv import Subdiv2D  # noqa: E402
 from ..ops.tsdf import TsdfVolume  # noqa: E402
 from ..ops.warp import convert_maps  # noqa: E402
 
+
+# ---------------------------------------------------------------------------
+# Group 2: features and flow (corner responses, FAST, BRIEF/ORB, SIFT, AKAZE,
+# HOG, LK, Farnebäck, DIS, variational refinement, TV-L1, template matching,
+# the DFT/DCT, phase correlation, ECC). A device Mat runs the tensor op on its
+# device, a host Mat the reference's numpy form; keypoint, flow and response
+# wrappers return numpy arrays, as the reference's do.
+# ---------------------------------------------------------------------------
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _pair_grays(a: Mat, b: Mat):
+    """Gray planes of two Mats as tensors on the device Mat's device when
+    either is on one (the other uploaded there), else host numpy arrays,
+    and whether the pair is on a device."""
+    on_device = a.is_on_device or b.is_on_device
+    ga, gb = _gray_of_mat(a), _gray_of_mat(b)
+    if not on_device:
+        return ga, gb, False
+    dev = (a if a.is_on_device else b).device().device
+    return torch.as_tensor(ga, device=dev), torch.as_tensor(gb, device=dev), True
+
+
+def fast_corners(mat: Mat, threshold: int = 20, n: int = 9, max_corners: int = 256,
+                 nms: bool = True):
+    """FAST-n corners (features2d ``FastFeatureDetector`` role): float32
+    [K, 2] (x, y) points, strongest first (ops.fast; equal scores lowest
+    flat index first on either side)."""
+    g = _gray_of_mat(mat)
+    if mat.is_on_device:
+        coords, valid = _fast.fast_corner_list(g, threshold=threshold, n=n,
+                                               max_corners=max_corners, nms=nms)
+        coords = _host(coords[valid])
+    else:
+        mask, score = _fast.fast_corners_numpy(g, threshold=threshold, n=n, nms=nms)
+        ys, xs = np.nonzero(mask)
+        order = np.argsort(-score[ys, xs], kind="stable")[:max_corners]
+        coords = np.stack([ys[order], xs[order]], axis=-1)
+    return coords[:, ::-1].astype(np.float32)
+
+
+def compute_brief(mat: Mat, pts):
+    """BRIEF-256 descriptors at float32 (x, y) keypoints → (u32 [K, 8],
+    valid bool [K]); upright, frozen pair pattern (ops.brief)."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 2)
+    g = _gray_of_mat(mat)
+    if mat.is_on_device:
+        desc, valid = _brief.brief_descriptors(g, pts)
+        return _host(desc), _host(valid)
+    return _brief.brief_descriptors_numpy(g, pts)
+
+
+def match_descriptors(d1, d2, valid1=None, valid2=None, ratio: float = 0.8):
+    """Hamming matching (XOR + popcount, Lowe ratio + cross-check) → int32
+    [M, 2] (index into d1, index into d2). See ops.brief."""
+    return _brief.match_descriptors(d1, d2, valid1, valid2, ratio)
+
+
+def orb_features(mat: Mat, max_keypoints: int = 512, threshold: int = 20):
+    """ORB-style features (OpenCV ``ORB`` role): FAST corners → intensity-
+    centroid orientation → steered BRIEF-256. Returns (pts float32 [K, 2]
+    (x, y), angles float32 [K] radians, desc u32 [K, 8], valid bool [K])."""
+    g = _gray_of_mat(mat)
+    if mat.is_on_device:
+        yx, vk = _fast.fast_corner_list(g, threshold=threshold, max_corners=max_keypoints)
+        pts = torch.stack([yx[:, 1], yx[:, 0]], dim=-1).to(torch.float32)
+        ang = _brief.orb_orientations(g, pts)
+        desc, vd = _brief.orb_descriptors(g, pts, ang)
+        return _host(pts), _host(ang), _host(desc), _host(vk & vd)
+    mask, score = _fast.fast_corners_numpy(g, threshold=threshold)
+    ys, xs = np.nonzero(mask)
+    order = np.argsort(-score[ys, xs], kind="stable")[:max_keypoints]
+    pts = np.stack([xs[order], ys[order]], axis=-1).astype(np.float32)
+    ang = _brief.orb_orientations_numpy(g, pts)
+    desc, vd = _brief.orb_descriptors_numpy(g, pts, ang)
+    return pts, ang.astype(np.float32), desc, vd
+
+
+def calc_optical_flow_pyr_lk(prev: Mat, nxt: Mat, pts, win: int = 21, levels: int = 3,
+                             iters: int = 10):
+    """Pyramidal Lucas–Kanade sparse flow (OpenCV ``calcOpticalFlowPyrLK``):
+    track float32 (x, y) points from ``prev`` to ``nxt`` → (next_pts [N, 2]
+    float32, status [N] bool). All points track at once on the device
+    (ops.optflow)."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 2)
+    gp, gn, on_device = _pair_grays(prev, nxt)
+    if on_device:
+        nxt_pts, st = _optflow.calc_optical_flow_pyr_lk(gp, gn, pts, win=win, levels=levels,
+                                                        iters=iters)
+        return _host(nxt_pts), _host(st)
+    nxt_pts, st = _optflow.calc_optical_flow_pyr_lk_numpy(gp, gn, pts, win=win, levels=levels,
+                                                          iters=iters)
+    return nxt_pts.astype(np.float32), st
+
+
+def calc_optical_flow_farneback(prev: Mat, nxt: Mat, levels: int = 3, winsize: int = 13,
+                                iterations: int = 3, poly_n: int = 5,
+                                poly_sigma: float = 1.1):
+    """Dense flow by polynomial expansion (OpenCV
+    ``calcOpticalFlowFarneback`` role) → float32 (H, W, 2) [fx, fy] with
+    prev(p) ~ next(p + flow(p)) (ops.farneback)."""
+    gp, gn, on_device = _pair_grays(prev, nxt)
+    kw = dict(levels=levels, winsize=winsize, iterations=iterations, poly_n=poly_n,
+              poly_sigma=poly_sigma)
+    if on_device:
+        return _host(_farneback.farneback_flow(gp, gn, **kw))
+    return _farneback.farneback_flow_numpy(gp, gn, **kw)
+
+
+_DIS_PRESETS = {"ultrafast": (2, 5, False), "fast": (2, 8, False),
+                "medium": (1, 12, True)}
+
+
+def calc_optical_flow_dis(prev: Mat, nxt: Mat, finest_scale: int = 1, iters: int = 8,
+                          refine: bool = False, preset: str = None):
+    """DIS dense optical flow (OpenCV ``DISOpticalFlow`` role, ops.disflow);
+    ``refine=True`` adds the variational polish (ops.varref), ``preset``
+    ("ultrafast"/"fast"/"medium", OpenCV's DIS presets) overrides the
+    scale/iteration/refinement knobs. Returns float32 flow [H, W, 2] (u, v)
+    with I1(x+u) ~= I0(x). On a device Mat the flow and its refinement run
+    on the device (the reference refines on the host; the two agree within
+    its device-vs-oracle tolerance)."""
+    if preset is not None:
+        finest_scale, iters, refine = _DIS_PRESETS[preset]
+    g0 = _gray_of_mat(prev)
+    g1 = _gray_of_mat(nxt)
+    if prev.is_on_device:
+        g1 = torch.as_tensor(g1, device=g0.device)
+        flow = _disflow.dis_flow(g0, g1, finest_scale, iters)
+        if refine:
+            flow = _varref.variational_refine(g0, g1, flow)
+        return _host(flow)
+    g1 = _host(g1)
+    flow = _disflow.dis_flow_numpy(g0, g1, finest_scale, iters)
+    if refine:
+        flow = _varref.variational_refine_numpy(g0, g1, flow).astype(np.float32)
+    return flow
+
+
+def match_template(mat: Mat, tmpl: Mat, method: str = "ccoeff_normed"):
+    """OpenCV ``matchTemplate``: grayscale correlation search (BGR inputs
+    converted by the exact luma) → float32 response map (H−th+1, W−tw+1)
+    as a numpy array; feed it to :func:`min_max_loc` (ops.template)."""
+    g, t, on_device = _pair_grays(mat, tmpl)
+    if on_device:
+        return _host(_template.match_template(g, t, method))
+    return _template.match_template_numpy(g, t, method).astype(np.float32)
+
+
+def min_max_loc(resp):
+    """(min_val, max_val, (min_x, min_y), (max_x, max_y)) — OpenCV
+    ``minMaxLoc`` over a response map (first extremum in raster order)."""
+    return _template.min_max_loc(resp)
+
+
+def denoise_tvl1(observations, lam: float = 1.0, niters: int = 30):
+    """Multi-observation TV-L1 denoising (OpenCV ``denoise_TVL1`` role):
+    list of u8 frames → u8 numpy image; device Mats run the tensor loop on
+    their device (ops.tvl1)."""
+    dev_mats = [m for m in observations if getattr(m, "is_on_device", False)]
+    if dev_mats:
+        dev = dev_mats[0].device().device
+        stack = torch.stack([torch.as_tensor(_gray_of_mat(m) if isinstance(m, Mat)
+                                             else np.asarray(m), device=dev)
+                             for m in observations])
+        return _host(_tvl1.denoise_tvl1(stack, lam=lam, niters=niters))
+    arrays = [m.to_numpy() if hasattr(m, "to_numpy") else np.asarray(m) for m in observations]
+    return _tvl1.denoise_tvl1_numpy(arrays, lam=lam, niters=niters)
+
+
+def hog_descriptor(mat: Mat):
+    """HOG block grid (OpenCV ``HOGDescriptor.compute`` role) of a gray Mat
+    with 8-multiple dims → float32 [H/8−1, W/8−1, 36] (ops.hog)."""
+    g = _gray_of_mat(mat)
+    if mat.is_on_device:
+        return _host(_hog.hog_blocks(g))
+    return _hog.hog_blocks_numpy(g).astype(np.float32)
+
+
+def hog_detect_multi_scale(mat: Mat, svm_weights, svm_bias: float, threshold: float = 0.0,
+                           scale: float = 1.2):
+    """Sliding-window linear-SVM detection over a scale pyramid (OpenCV
+    ``HOGDescriptor.detectMultiScale`` role) → (boxes [N, 4] xywh, scores);
+    a device Mat scores on its device."""
+    return _hog.detect_multi_scale(_gray_of_mat(mat), svm_weights, svm_bias,
+                                   threshold=threshold, scale=scale)
+
+
+def akaze_features(mat: Mat, n_octaves: int = 4, n_sublevels: int = 4,
+                   threshold: float = 0.001, max_keypoints: int = 2000):
+    """AKAZE keypoints + descriptors (OpenCV ``AKAZE`` role) → (keypoints
+    float32 [N, 6], descriptors u8 [N, 64]); a device Mat builds the FED
+    scale space on its device, the sparse stage is host float64
+    (ops.akaze). Match with :func:`match_descriptors_hamming_any`."""
+    return _akaze.detect_and_compute(
+        _gray_of_mat(mat), n_octaves=n_octaves, n_sublevels=n_sublevels,
+        threshold=threshold, max_keypoints=max_keypoints,
+        backend="device" if mat.is_on_device else "host")
+
+
+def match_descriptors_hamming_any(d1, d2, ratio: float = 0.8):
+    """Hamming matcher for byte descriptors of any width (AKAZE's 64 bytes,
+    BRIEF/ORB's 32): ratio + cross-check (ops.akaze)."""
+    return _akaze.match_descriptors_hamming(d1, d2, ratio=ratio)
+
+
+def sift_features(mat: Mat, n_features: int = 0, contrast_threshold: float = 0.04,
+                  edge_threshold: float = 10.0, sigma: float = 1.6,
+                  double_image: bool = True):
+    """SIFT keypoints + descriptors (OpenCV ``SIFT`` role) → (keypoints
+    float32 [N, 6], descriptors u8 [N, 128]); a device Mat builds the
+    pyramids on its device, the sparse stage is host float64 (ops.sift).
+    Match with :func:`match_descriptors_l2`."""
+    return _sift.detect_and_compute(
+        _gray_of_mat(mat), n_features=n_features, contrast_threshold=contrast_threshold,
+        edge_threshold=edge_threshold, sigma=sigma, double_image=double_image)
+
+
+def phase_correlate(prev: Mat, nxt: Mat, window: bool = True):
+    """Global translation by phase correlation (OpenCV ``phaseCorrelate``)
+    → ((dx, dy) float32, peak response); content moved by +d from prev to
+    nxt (ops.registration)."""
+    gp, gn, on_device = _pair_grays(prev, nxt)
+    if on_device:
+        d, resp = _registration.phase_correlate(gp, gn, window=window)
+        return _host(d), float(resp)
+    return _registration.phase_correlate_numpy(gp, gn, window=window)
+
+
+from ..ops import akaze as _akaze  # noqa: E402
+from ..ops import brief as _brief  # noqa: E402
+from ..ops import disflow as _disflow  # noqa: E402
+from ..ops import farneback as _farneback  # noqa: E402
+from ..ops import fast as _fast  # noqa: E402
+from ..ops import hog as _hog  # noqa: E402
+from ..ops import optflow as _optflow  # noqa: E402
+from ..ops import registration as _registration  # noqa: E402
+from ..ops import sift as _sift  # noqa: E402
+from ..ops import template as _template  # noqa: E402
+from ..ops import tvl1 as _tvl1  # noqa: E402
+from ..ops import varref as _varref  # noqa: E402
+from ..ops.asift import affine_detect_and_compute  # noqa: E402
+from ..ops.corner import (  # noqa: E402  (re-exports)
+    corner_eigen_vals_and_vecs,
+    corner_min_eigen_val,
+    pre_corner_detect,
+    spatial_gradient,
+)
+from ..ops.decolor import decolor  # noqa: E402
+from ..ops.ecc import compute_ecc, find_transform_ecc, find_transform_ecc_multiscale  # noqa: E402
+from ..ops.optflow import build_optical_flow_pyramid  # noqa: E402
+from ..ops.registration import phase_correlate_iterative  # noqa: E402
+from ..ops.rotwarp import RotationWarper  # noqa: E402
+from ..ops.sift import match_descriptors_l2  # noqa: E402
+from ..ops.transform import (  # noqa: E402  (re-exports)
+    dct,
+    dft,
+    get_optimal_dft_size,
+    idct,
+    idft,
+    mul_spectrums,
+)
+from ..ops.varref import variational_refine  # noqa: E402
+
+_GROUP2 = [
+    "fast_corners", "compute_brief", "match_descriptors", "orb_features",
+    "calc_optical_flow_pyr_lk", "build_optical_flow_pyramid", "calc_optical_flow_farneback",
+    "calc_optical_flow_dis", "variational_refine", "match_template", "min_max_loc",
+    "denoise_tvl1", "hog_descriptor", "hog_detect_multi_scale", "akaze_features",
+    "match_descriptors_hamming_any", "sift_features", "match_descriptors_l2",
+    "affine_detect_and_compute", "RotationWarper", "phase_correlate",
+    "phase_correlate_iterative", "compute_ecc", "find_transform_ecc",
+    "find_transform_ecc_multiscale", "dct", "idct", "dft", "idft", "mul_spectrums",
+    "get_optimal_dft_size", "spatial_gradient", "corner_min_eigen_val",
+    "corner_eigen_vals_and_vecs", "pre_corner_detect", "decolor",
+]
+
 _SLICE2 = [
     "add", "subtract", "absdiff", "add_weighted", "convert_scale_abs", "bitwise_and",
     "bitwise_or", "bitwise_xor", "bitwise_not", "count_non_zero", "norm", "mean_std_dev",
@@ -1155,4 +1441,4 @@ __all__ = [
     "in_range", "integral", "laplacian", "line", "median_blur", "moments", "morphology_ex",
     "polylines", "put_text", "pyr_down", "pyr_up", "rectangle", "resize", "scharr",
     "sep_filter_2d", "sobel", "sobel_magnitude", "stack_blur", "threshold",
-] + _SLICE2
+] + _SLICE2 + _GROUP2

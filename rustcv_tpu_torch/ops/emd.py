@@ -102,17 +102,25 @@ def emd(signature1, signature2, dist: str = "l2",
         dist_v = np.full(n, np.inf)
         dist_v[src] = 0.0
         prev_arc = np.full(n, -1, np.int64)
+        settled = np.zeros(n, bool)
         pq = [(0.0, src)]
         while pq:
             d, u = heapq.heappop(pq)
-            if d > dist_v[u] + 1e-15:
+            # Each node settles once, and a label moves only by more than
+            # a relative slack: two nodes whose distances differ in the
+            # last bits cannot keep relaxing each other's arcs, so
+            # prev_arc stays a tree rooted at the source.
+            if settled[u] or d > dist_v[u] + 1e-12 * max(1.0, abs(d)):
                 continue
+            settled[u] = True
             for a in graph[u]:
                 if cap[a] <= eps:
                     continue
                 v = to[a]
+                if settled[v]:
+                    continue
                 nd = d + cst[a] + pot[u] - pot[v]
-                if nd < dist_v[v] - 1e-15:
+                if nd < dist_v[v] - 1e-12 * max(1.0, abs(nd)):
                     dist_v[v] = nd
                     prev_arc[v] = a
                     heapq.heappush(pq, (nd, v))
@@ -122,7 +130,11 @@ def emd(signature1, signature2, dist: str = "l2",
         # bottleneck along the path
         push = flow_left
         v = snk
+        steps = 0
         while v != src:
+            steps += 1
+            if steps > n:
+                raise RuntimeError("emd: the augmenting path does not reach the source")
             a = int(prev_arc[v])
             push = min(push, cap[a])
             v = to[a ^ 1]

@@ -13,7 +13,10 @@ means of their 2 or 4 nearest samples (avg2 = (a+b+1)>>1, avg4 = (Σ+2)>>2),
 borders mirrored about the edge pixel (reflect-101, which keeps each site's
 colour). The Hu moments and ``matchShapes`` of a mask, the colormap
 tables of ``imgproc.apply_color_map`` and the float64 ``normalize`` that a
-host Mat runs (the device form is float32, ±1 LSB).
+host Mat runs (the device form is float32, ±1 LSB). The oracles the
+feature and flow modules call on a host Mat: the 5×5 Gaussian and
+``pyr_down`` (BRIEF/ORB, LK, ECC), the fixed-point bilinear resize (the
+HOG pyramid) and the Lab round trip (``decolor``).
 """
 
 from __future__ import annotations
@@ -367,3 +370,107 @@ def normalize_u8(img: np.ndarray, alpha: float = 0.0, beta: float = 255.0,
     else:
         raise ValueError(f"unknown norm kind {kind!r}")
     return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+
+
+def bgr_to_lab(bgr: np.ndarray) -> np.ndarray:
+    """Frozen CIE L*a*b* spec, u8 in/out (OpenCV 8-bit convention:
+    L·255/100, a+128, b+128), float64: sRGB gamma linearization → XYZ
+    (D65) → f(t) = t^(1/3) for t > (6/29)³ else t/(3·(6/29)²) + 4/29 →
+    L = 116·fy − 16, a = 500(fx−fy), b = 200(fy−fz); round-half-even,
+    clipped to u8."""
+    srgb = bgr[..., ::-1].astype(np.float64) / 255.0
+    lin = np.where(
+        srgb > 0.04045, ((srgb + 0.055) / 1.055) ** 2.4, srgb / 12.92
+    )
+    xyz = lin @ _LAB_M.T
+    d = 6.0 / 29.0
+    t = xyz / np.array(_LAB_WHITE)
+    f = np.where(t > d**3, np.cbrt(t), t / (3 * d * d) + 4.0 / 29.0)
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    ell = 116.0 * fy - 16.0
+    a = 500.0 * (fx - fy)
+    b = 200.0 * (fy - fz)
+    out = np.stack(
+        [np.round(ell * 255.0 / 100.0), np.round(a) + 128.0, np.round(b) + 128.0],
+        axis=-1,
+    )
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def lab_to_bgr(lab: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`bgr_to_lab` (same frozen conventions)."""
+    ell = lab[..., 0].astype(np.float64) * 100.0 / 255.0
+    a = lab[..., 1].astype(np.float64) - 128.0
+    b = lab[..., 2].astype(np.float64) - 128.0
+    fy = (ell + 16.0) / 116.0
+    fx = fy + a / 500.0
+    fz = fy - b / 200.0
+    d = 6.0 / 29.0
+
+    def finv(f):
+        return np.where(f > d, f**3, 3 * d * d * (f - 4.0 / 29.0))
+
+    xyz = np.stack([finv(fx), finv(fy), finv(fz)], axis=-1) * np.array(_LAB_WHITE)
+    lin = xyz @ np.linalg.inv(_LAB_M).T
+    srgb = np.where(
+        lin > 0.0031308, 1.055 * np.maximum(lin, 0.0) ** (1 / 2.4) - 0.055,
+        12.92 * lin,
+    )
+    out = np.round(srgb[..., ::-1] * 255.0)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_coeffs(src_size: int, dst_size: int):
+    """Per-output-pixel (lo_index, weight_hi) tables of the bilinear
+    resize: half-pixel centers fx = (dx + 0.5)·src/dst − 0.5, ix = floor(fx)
+    clamped to [0, src−2], w_hi = round(frac·2048) from the clamped
+    position."""
+    dx = np.arange(dst_size, dtype=np.float64)
+    fx = (dx + 0.5) * (src_size / dst_size) - 0.5
+    ix = np.floor(fx).astype(np.int64)
+    ix = np.clip(ix, 0, max(src_size - 2, 0))
+    fx_clamped = np.minimum(fx, src_size - 1)
+    frac = np.clip(fx_clamped - ix, 0.0, 1.0)
+    w_hi = np.round(frac * RESIZE_ONE).astype(np.int32)
+    return ix.astype(np.int32), w_hi
+
+
+def resize_bilinear(img: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
+    """Fixed-point separable bilinear resize of (H, W, C) u8: unshifted
+    11-bit horizontal sums, one rounding after the vertical pass,
+    ``(Σ + 2^21) >> 22``."""
+    src_h, src_w = img.shape[:2]
+    x_lo, x_whi = resize_coeffs(src_w, dst_w)
+    y_lo, y_whi = resize_coeffs(src_h, dst_h)
+    x_hi = np.minimum(x_lo + 1, src_w - 1)
+    y_hi = np.minimum(y_lo + 1, src_h - 1)
+
+    a = img.astype(np.int32)
+    tmp = a[:, x_lo] * (RESIZE_ONE - x_whi)[None, :, None] + a[:, x_hi] * x_whi[None, :, None]
+    acc = (
+        tmp[y_lo] * (RESIZE_ONE - y_whi)[:, None, None]
+        + tmp[y_hi] * y_whi[:, None, None]
+    )
+    out = (acc + (1 << (2 * RESIZE_SHIFT - 1))) >> (2 * RESIZE_SHIFT)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+GAUSS5 = np.array([1, 4, 6, 4, 1], dtype=np.int32)  # per-axis, sum 16
+
+
+def gaussian5_u8(img: np.ndarray) -> np.ndarray:
+    """5×5 Gaussian ([1,4,6,4,1]⊗[1,4,6,4,1] / 256), replicate border,
+    single final rounding (Σ + 128) >> 8. Works on (H,W) or (H,W,C) u8."""
+    a = img.astype(np.int32)
+    pad = [(2, 2), (2, 2)] + [(0, 0)] * (a.ndim - 2)
+    p = np.pad(a, pad, mode="edge")
+    h, w = img.shape[:2]
+    tmp = sum(int(GAUSS5[k]) * p[:, k : k + w] for k in range(5))
+    acc = sum(int(GAUSS5[k]) * tmp[k : k + h] for k in range(5))
+    return ((acc + 128) >> 8).astype(np.uint8)
+
+
+def pyr_down(img: np.ndarray) -> np.ndarray:
+    """Pyramid downsample: :func:`gaussian5_u8` then even-index decimation
+    (output ceil(H/2) × ceil(W/2), OpenCV's pyrDown shape)."""
+    return gaussian5_u8(img)[::2, ::2]

@@ -17,7 +17,13 @@ ring's device decode against its host decode; and every device wrapper of
 the second block (arithmetic, histograms, warps, thinning, diffusion,
 blend, the float32 core ops) on a CUDA Mat or CUDA tensors against the
 same call on the host (exact, ±1 LSB where the reference documents it, a
-relative tolerance for float results).
+relative tolerance for float results); and every call of group 2 (corner
+responses, FAST, BRIEF/ORB and matching, LK, Farnebäck, DIS, TV-L1,
+template matching, phase correlation, the DFT/DCT, ECC's device twin, HOG,
+SIFT, AKAZE) on a CUDA Mat or CUDA tensors against the same call on the
+host with the reference's device-vs-oracle tolerances, with no kernel
+launched, ECC's loop with no host read, and the full-float32 guard holding
+with TF32 switched on.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -1111,3 +1117,230 @@ def test_block2_wrappers_on_the_card_match_the_cpu_port(cuda, name):
         else:
             tol = 1 if name in _BLOCK2_LSB else 0
             assert np.abs(g.astype(np.int64) - w.astype(np.int64)).max(initial=0) <= tol
+
+
+# -- group 2, features and flow: every device call on a CUDA Mat or CUDA
+#    tensors against the same call on the host (a host Mat runs the
+#    reference's numpy form, a CPU-tensor Mat or tensor the port's op), with
+#    the reference's device-vs-oracle tolerances; and the full-float32 guard
+#    against TF32 ------------------------------------------------------------
+
+_G2_W, _G2_H = 160, 136
+_G2_MOTION = np.array([[1.0, 0.0005, 1.6], [-0.0005, 1.0, -0.9]])
+
+
+def _g2_inputs(device):
+    """A CUDA side or a host side of one seeded textured frame, the frame
+    moved by _G2_MOTION, three noisy copies and a unit-normal plane."""
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.ops import golden, warp
+
+    rng = np.random.default_rng(3)
+    gray = golden.gaussian5_u8(golden.gaussian5_u8(rng.integers(0, 256, (_G2_H, _G2_W), np.uint8)))
+    gray2 = warp.warp_affine_numpy(gray, _G2_MOTION, (_G2_W, _G2_H), border="replicate")
+    obs = [np.clip(gray + rng.normal(0, 20, gray.shape), 0, 255).astype(np.uint8) for _ in range(3)]
+    card = device == "cuda"
+
+    def mat(a):
+        m = Mat.from_array(a[..., None].copy(), device=device)
+        if card:
+            m.device()
+        return m
+
+    def tmat(a):
+        return mat(a) if card else Mat.from_device(torch.from_numpy(a.copy()))
+
+    return {"host": not card, "dev": device, "gray": mat(gray), "gray2": mat(gray2),
+            "gray_c": tmat(gray), "gray2_c": tmat(gray2), "obs_c": [tmat(o) for o in obs],
+            "tmpl_c": tmat(gray[40:52, 60:74]), "tmpl_fft_c": tmat(gray[30:62, 50:82]),
+            "gray_t": torch.from_numpy(gray).to(device), "gray2_t": torch.from_numpy(gray2).to(device),
+            "gray_np": gray, "plane_t": torch.from_numpy(rng.normal(0, 1, (96, 128)).astype(
+                np.float32)).to(device)}
+
+
+def _g2_points(n, seed):
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(20, _G2_W - 21, n), rng.uniform(20, _G2_H - 21, n)], 1)
+    edge = [[3.0, 60.0], [_G2_W - 5.0, 40.0], [80.0, 2.5], [70.0, _G2_H - 4.0], [12.0, 14.0]]
+    return np.concatenate([pts, edge]).astype(np.float32)
+
+
+def _g2_brief_match(ip, s):
+    pts = _g2_points(40, 5)
+    d1, v1 = ip.compute_brief(s["gray"], pts)
+    d2, v2 = ip.compute_brief(s["gray2"], pts @ _G2_MOTION[:, :2].T.astype(np.float32)
+                              + _G2_MOTION[:, 2].astype(np.float32))
+    on = (lambda a: a) if s["host"] else (lambda a: torch.from_numpy(a).to(s["dev"]))
+    return d1, v1, d2, v2, ip.match_descriptors(on(d1), on(d2), on(v1), on(v2))
+
+
+def _g2_calls(ip):
+    """name → (call on a side, tolerance): 0 exact; ("scaled", r) |Δ| ≤
+    r·max(1, max |host|); ("abs", a); ("flow", max, border); "lk"; "orb";
+    "ecc"; ("lsb", n); ("keypoints", rule)."""
+    from rustcv_tpu_torch.ops import hog, template
+
+    svm = np.random.default_rng(4).normal(0, 0.05, 3780).astype(np.float32)
+    lk_pts = _g2_points(60, 6)
+    calls = {}
+    for k in (3, 5):
+        calls[f"spatial_gradient_k{k}"] = (lambda s, k=k: ip.spatial_gradient(s["gray_t"], k), 0)
+        for name in ("corner_min_eigen_val", "pre_corner_detect"):
+            args = (3, k) if name == "corner_min_eigen_val" else (k,)
+            calls[f"{name}_k{k}"] = (lambda s, n=name, a=args: getattr(ip, n)(s["gray_t"], *a),
+                                     ("scaled", 3e-6))
+        calls[f"corner_eigen_vals_and_vecs_k{k}"] = (
+            lambda s, k=k: ip.corner_eigen_vals_and_vecs(s["gray_t"], 3, k)[..., :2], ("scaled", 3e-6))
+    calls.update({
+        "fast_corners": (lambda s: ip.fast_corners(s["gray"], 10, max_corners=400), 0),
+        "orb_features": (lambda s: ip.orb_features(s["gray"], 64, 10), "orb"),
+        "brief_match": (lambda s: _g2_brief_match(ip, s), 0),
+        "lk": (lambda s: ip.calc_optical_flow_pyr_lk(s["gray"], s["gray2"], lk_pts, 15, 2), "lk"),
+        "farneback": (lambda s: ip.calc_optical_flow_farneback(s["gray_c"], s["gray2_c"]),
+                      ("flow", 0.05, 0)),
+        "dis": (lambda s: ip.calc_optical_flow_dis(s["gray_c"], s["gray2_c"]), ("flow", 0.05, 16)),
+        "dis_refine": (lambda s: ip.calc_optical_flow_dis(s["gray_c"], s["gray2_c"], refine=True),
+                       ("flow", 0.05, 16)),
+        "denoise_tvl1": (lambda s: np.squeeze(ip.denoise_tvl1(s["obs_c"], 1.0, 30)), ("lsb", 1)),
+        "phase_correlate": (lambda s: ip.phase_correlate(s["gray"], s["gray2"]), ("abs", 1e-3)),
+        "phase_correlate_no_window": (lambda s: ip.phase_correlate(s["gray"], s["gray2"], False),
+                                      ("abs", 1e-3)),
+        "dft": (lambda s: ip.dft(s["plane_t"]), ("abs", 2e-5 * 200)),
+        "idft": (lambda s: ip.idft(ip.dft(s["plane_t"])).real, ("abs", 1e-3)),
+        "dct": (lambda s: ip.dct(s["plane_t"]), ("abs", 1e-4)),
+        "idct": (lambda s: ip.idct(ip.dct(s["plane_t"])), ("abs", 1e-4)),
+        "hog_descriptor": (lambda s: ip.hog_descriptor(s["gray"]), ("abs", 2e-4)),
+        "hog_score_map": (lambda s: hog.hog_score_map_numpy(s["gray_np"], svm, 0.1) if s["host"]
+                          else hog.hog_score_map(s["gray_t"], svm, 0.1), ("abs", 1e-2)),
+        "sift": (lambda s: ip.sift_features(s["gray"]), ("keypoints", "count")),
+        "akaze": (lambda s: ip.akaze_features(s["gray"], 3, 3), ("keypoints", "shared")),
+        "min_max_loc": (lambda s: template.min_max_loc(template.match_template(
+            s["gray_t"], s["gray_t"][40:52, 60:74], "sqdiff")), "minmax"),
+    })
+    for m in ("ccoeff_normed", "ccorr_normed", "sqdiff"):
+        for t in ("tmpl_c", "tmpl_fft_c"):
+            calls[f"match_template_{t}_{m}"] = (
+                lambda s, t=t, m=m: ip.match_template(s["gray_c"], s[t], m), ("template", 1e-4))
+    for motion in ("affine", "homography"):
+        calls[f"ecc_{motion}"] = (lambda s, m=motion: ip.find_transform_ecc(
+            s["gray_t"], s["gray2_t"], m, iterations=50, backend="device"), "ecc")
+    return calls
+
+
+def _g2_np(x):
+    if isinstance(x, tuple):
+        return tuple(_g2_np(v) for v in x)
+    if hasattr(x, "to_numpy"):
+        return x.to_numpy()
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _g2_check(name, tol, got, want):
+    if tol == 0:
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            np.testing.assert_array_equal(g, w)
+    elif tol == "orb":
+        for i in (0, 2, 3):
+            np.testing.assert_array_equal(got[i], want[i])
+        assert np.abs(got[1] - want[1]).max() < 1e-3
+    elif tol == "lk":
+        np.testing.assert_array_equal(got[1], want[1])
+        assert np.abs(got[0] - want[0]).max() < 1e-3
+    elif tol == "ecc":
+        assert abs(float(got[0]) - float(want[0])) < 1e-3
+        assert np.abs(got[1] - want[1]).max() < 0.05
+    elif tol == "minmax":
+        assert got[2] == want[2] == (60, 40)
+    elif tol[0] == "scaled":
+        assert np.abs(got - want).max() <= tol[1] * max(1.0, float(np.abs(want).max()))
+    elif tol[0] == "abs":
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert np.abs(np.asarray(g) - np.asarray(w)).max() <= tol[1], name
+    elif tol[0] == "flow":
+        b = tol[2]
+        sl = np.s_[b:got.shape[0] - b, b:got.shape[1] - b]
+        assert got.shape == want.shape and np.abs(got[sl] - want[sl]).max() < tol[1]
+    elif tol[0] == "lsb":
+        assert np.abs(got.astype(np.int64) - want).max() <= tol[1]
+    elif tol[0] == "template":
+        assert np.abs(got - want).max() / max(1.0, float(np.abs(want).max())) < tol[1]
+    elif tol[0] == "keypoints":
+        sg = {tuple(np.round(k[:2], 1)) for k in got[0]}
+        sw = {tuple(np.round(k[:2], 1)) for k in want[0]}
+        if tol[1] == "count":
+            assert abs(len(got[0]) - len(want[0])) <= max(3, 0.15 * len(want[0])) and len(want[0])
+        else:
+            assert len(sg & sw) > 0.9 * max(len(sg), len(sw)) and len(sw)
+
+
+@pytest.mark.parametrize("name", list(_g2_calls(__import__("rustcv_tpu_torch.imgproc",
+                                                           fromlist=["x"]))))
+def test_group2_on_the_card_matches_the_cpu_port(cuda, name):
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import kernels
+
+    call, tol = _g2_calls(ip)[name]
+    kernels.reset_launch_counts()
+    got = call(_g2_inputs("cuda"))
+    assert not any(kernels.launch_counts().values())  # group 2 runs no kernel
+    if hasattr(got, "is_cuda"):
+        assert got.is_cuda
+    want = call(_g2_inputs("cpu"))
+    _g2_check(name, tol, _g2_np(got), _g2_np(want))
+
+
+def test_ecc_device_twin_reads_nothing_back_before_its_end(cuda, monkeypatch):
+    """The twin's 50 iterations freeze on the device: no ``.item()`` or
+    host copy of a CUDA tensor inside the loop."""
+    from rustcv_tpu_torch.ops import ecc
+
+    s = _g2_inputs("cuda")
+    calls = []
+    real = torch.Tensor.item
+
+    def spy(self):
+        calls.append(self.device.type)
+        return real(self)
+
+    monkeypatch.setattr(torch.Tensor, "item", spy)
+    rho, p = ecc._ecc_core(s["gray_t"], s["gray2_t"], torch.tensor([1.0, 0, 0, 0, 1.0, 0]),
+                           "affine", 50, 1e-6)
+    assert calls == [] and rho.is_cuda and p.is_cuda
+
+
+def test_full_f32_guard_holds_under_tf32(cuda):
+    """TF32 switched on globally (cuDNN's default, and what
+    ``torch.set_float32_matmul_precision("high")`` does): the DCT's basis
+    products, template matching's correlation and ECC's normal equations
+    still meet the float64 oracles at the reference's tolerances, and the
+    flags are as the caller left them afterwards. The raw product under
+    TF32 is shown to miss the DCT's tolerance, so this test can see TF32."""
+    from rustcv_tpu_torch.ops import template, transform
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        a = np.random.default_rng(7).normal(0, 1, (512, 768)).astype(np.float32)
+        want = transform.dct_numpy(a)
+        t = torch.from_numpy(a).to(cuda)
+        bh = torch.as_tensor(transform._dct_basis(512), dtype=torch.float32, device=cuda)
+        bw = torch.as_tensor(transform._dct_basis(768), dtype=torch.float32, device=cuda)
+        raw = ((bh @ t) @ bw.T).cpu().numpy()
+        assert np.abs(raw - want).max() > 1e-4  # a bare product under TF32 misses the tolerance
+        assert np.abs(transform.dct(t).cpu().numpy() - want).max() < 1e-4
+        assert np.abs(transform.idct(transform.dct(t)).cpu().numpy() - a).max() < 1e-4
+        s = _g2_inputs("cuda")
+        img, tm = s["gray_np"], s["gray_np"][40:52, 60:74]
+        for m in template.METHODS:
+            got = template.match_template(s["gray_t"], torch.from_numpy(tm).to(cuda), m).cpu().numpy()
+            ref = template.match_template_numpy(img, tm, m)
+            assert np.abs(got - ref).max() / max(1.0, float(np.abs(ref).max())) < 1e-4
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

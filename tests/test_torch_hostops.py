@@ -389,3 +389,109 @@ def test_block_host_names_equal_the_references():
     for name in ("estimate_affine_2d", "estimate_affine_partial_2d"):
         _equal(getattr(port_ip, name)(*_matches(70), iters=50),
                getattr(jax_ip, name)(*_matches(70), iters=50))
+
+
+# --- emd: the repaired augmenting loop (ROADMAP Queue 3) --------------------
+
+
+def _queue3_signatures(dtype, normalized):
+    """ROADMAP Queue 3's input: 6 and 5 weighted 2-D points; with the
+    weights divided by their sums the two totals differ in the last bits."""
+    w1, w2 = rng(9).uniform(0, 1, (6, 1)), rng(11).uniform(0, 1, (5, 1))
+    if normalized:
+        w1, w2 = w1 / w1.sum(), w2 / w2.sum()
+    return (np.concatenate([w1, _pts(6, 10)], 1).astype(dtype),
+            np.concatenate([w2, _pts(5, 12)], 1).astype(dtype))
+
+
+def _transport_optimum(s1, s2, dist="l2"):
+    """The same unbalanced transport problem as a linear program:
+    min Σ c·f over f ≥ 0 with row sums ≤ w1, column sums ≤ w2 and
+    Σ f = min(Σw1, Σw2); EMD = optimum / total."""
+    from scipy.optimize import linprog
+
+    a, b = np.asarray(s1, np.float64), np.asarray(s2, np.float64)
+    w1, w2 = a[:, 0], b[:, 0]
+    d = a[:, None, 1:] - b[None, :, 1:]
+    cost = {"l1": np.abs(d).sum(-1), "l2": np.sqrt((d * d).sum(-1)), "l2sq": (d * d).sum(-1)}[dist]
+    n1, n2 = len(w1), len(w2)
+    rows = np.kron(np.eye(n1), np.ones(n2))
+    cols = np.kron(np.ones(n1), np.eye(n2))
+    total = min(w1.sum(), w2.sum())
+    res = linprog(cost.ravel(), A_ub=np.vstack([rows, cols]), b_ub=np.concatenate([w1, w2]),
+                  A_eq=np.ones((1, n1 * n2)), b_eq=[total], method="highs")
+    assert res.status == 0
+    return res.fun / total
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("normalized", [False, True])
+def test_emd_ends_on_float_weights_at_the_transport_optimum(dtype, normalized):
+    """Queue 3's input used to loop forever: two nodes whose distances
+    differ by less than an ulp kept relaxing each other's arcs, leaving a
+    cycle in the path tree. Each node now settles once, labels move only by
+    a relative slack, and a path walk longer than the graph raises. The
+    result must come within 5 s and equal linprog's optimum to 1e-9
+    relative."""
+    import signal
+    import time
+
+    from rustcv_tpu_torch.ops.emd import emd
+
+    s1, s2 = _queue3_signatures(dtype, normalized)
+
+    def _timeout(*_):
+        raise TimeoutError("emd did not end within 5 s")
+
+    old = signal.signal(signal.SIGALRM, _timeout)
+    signal.alarm(5)
+    try:
+        t0 = time.perf_counter()
+        got, flow = emd(s1, s2, return_flow=True)
+        assert time.perf_counter() - t0 < 5.0
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    want = _transport_optimum(s1, s2)
+    assert abs(got - want) <= 1e-9 * abs(want)
+    total = min(float(s1[:, 0].astype(np.float64).sum()), float(s2[:, 0].astype(np.float64).sum()))
+    assert abs(flow.sum() - total) <= 1e-9 * total and (flow >= -1e-12).all()
+
+
+# Integer-weight cases on which the reference's loop does not end either
+# (its copy of the fault: near-equal distances of float coordinates).
+REFERENCE_DOES_NOT_END = {(1, "l2"), (1, "l2sq"), (2, "l1"), (2, "l2"), (3, "l2sq")}
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("dist", ["l1", "l2", "l2sq"])
+def test_emd_integer_weights_match_linprog_and_the_reference(seed, dist):
+    """Every case equals linprog's optimum to 1e-9 relative; where the
+    reference ends, the port's result and flow equal its own."""
+    import signal
+
+    from rustcv_tpu_torch.ops.emd import emd
+
+    n1, n2 = 3 + seed, 7 - seed % 3
+    s1 = np.concatenate([rng(seed).integers(1, 6, (n1, 1)), _pts(n1, seed + 20)], 1)
+    s2 = np.concatenate([rng(seed + 40).integers(1, 6, (n2, 1)), _pts(n2, seed + 60)], 1)
+
+    def _timeout(*_):
+        raise TimeoutError("emd did not end within 5 s")
+
+    old = signal.signal(signal.SIGALRM, _timeout)
+    signal.alarm(5)
+    try:
+        got, flow = emd(s1, s2, dist, None, True)
+        if (seed, dist) not in REFERENCE_DOES_NOT_END:
+            from rustcv_tpu.ops.emd import emd as ref_emd
+
+            want, want_flow = ref_emd(s1, s2, dist, None, True)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    opt = _transport_optimum(s1, s2, dist)
+    assert abs(got - opt) <= 1e-9 * abs(opt)
+    if (seed, dist) not in REFERENCE_DOES_NOT_END:
+        assert got == pytest.approx(want, rel=1e-12, abs=1e-12)
+        np.testing.assert_allclose(flow, want_flow, atol=1e-9)

@@ -10,9 +10,13 @@ PNG dump, the host MJPEG decode and ``mjpeg_backend="host"``, its
 layers and top-level names, and its capture backends (the V4L2 driver,
 the native ring behind a ``Camera``), the colour, filter, resize and
 corner ops with their ``imgproc`` wrappers and ``RUSTCV_DECODE=xla_fused``,
-and the second block of ops (arithmetic, histograms, warps, thinning and
-diffusion, blending, ``core_ops`` and the host modules) with theirs,
-with jax, Pillow and the JAX package ``rustcv_tpu`` absent. The font data's
+the second block of ops (arithmetic, histograms, warps, thinning and
+diffusion, blending, ``core_ops`` and the host modules) with theirs, and
+the features and flow of group 2 (corner responses, FAST, BRIEF/ORB,
+SIFT, AKAZE, HOG, LK, Farnebäck, DIS, TV-L1, template matching, the
+DFT/DCT, phase correlation, ECC, and the ``canny_cv``, ``color_cv2`` and
+``decolor`` copies) with theirs, with jax, Pillow and the JAX package
+``rustcv_tpu`` absent. The font data's
 generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
@@ -336,6 +340,62 @@ _BLOCK2_SCRIPT = textwrap.dedent(
     """
 )
 
+
+_GROUP2_SCRIPT = textwrap.dedent(
+    """
+    import importlib, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    for mod in ("transform", "registration", "template", "corner", "fast", "brief", "optflow",
+                "farneback", "disflow", "varref", "tvl1", "ecc", "hog", "sift", "akaze",
+                "asift", "rotwarp", "canny_cv", "color_cv2", "decolor", "tensors"):
+        importlib.import_module("rustcv_tpu_torch.ops." + mod)
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.core import Mat
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (48, 64), np.uint8)
+    shifted = np.roll(img, (1, 2), (0, 1))
+    for mk in (lambda a: Mat.from_array(a, device="cpu"),
+               lambda a: Mat.from_device(torch.from_numpy(a))):
+        m, m2 = mk(img), mk(shifted)
+        assert imgproc.fast_corners(m, max_corners=16).shape[1] == 2
+        pts, ang, desc, valid = imgproc.orb_features(m, max_keypoints=16)
+        assert desc.dtype == np.uint32 and desc.shape == (16, 8)
+        nxt, st = imgproc.calc_optical_flow_pyr_lk(m, m2, [[32.0, 24.0]], win=9, levels=1)
+        assert nxt.shape == (1, 2)
+        assert imgproc.calc_optical_flow_farneback(m, m2).shape == (48, 64, 2)
+        assert imgproc.calc_optical_flow_dis(m, m2, refine=True).shape == (48, 64, 2)
+        assert imgproc.match_template(m, mk(img[8:16, 8:20])).shape == (41, 53)
+        assert imgproc.hog_descriptor(m).shape == (5, 7, 36)
+        assert abs(imgproc.phase_correlate(m, m2, window=False)[0][0] - 2) < 1e-3
+        assert imgproc.denoise_tvl1([m, m2], niters=2).shape[:2] == (48, 64)
+    t = torch.from_numpy(img)
+    assert imgproc.dct(t).shape == (48, 64) and imgproc.spatial_gradient(t)[0].dtype == torch.int32
+    rho, warp = imgproc.find_transform_ecc(t, torch.from_numpy(shifted), "translation",
+                                           iterations=5, backend="device")
+    assert warp.shape == (2, 3)
+    assert imgproc.decolor(rng.integers(0, 256, (24, 32, 3), np.uint8))[0].shape == (24, 32)
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_features_and_flow_run_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _GROUP2_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 def test_second_block_of_ops_runs_without_jax_or_pil():
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
