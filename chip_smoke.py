@@ -146,7 +146,18 @@ Phases:
    meanwhile in spawned CPU processes: exact for FAST, ORB and BRIEF bits,
    matches and ``min_max_loc`` places, else within the reference's
    device-vs-oracle tolerances (LK at its stable points, DIS where its
-   flow is determined), launching no kernel;
+   flow is determined), launching no kernel; (3q) group 3 and the
+   segmentation head of group 4 (22 calls: MOG2 on gray and BGR, with and
+   without shadows, and KNN over a 16-frame 1080p clip; MOSSE, KCF and
+   CSRT alone and as a bank of 4; ``filter_scan`` of 1,024 Kalman
+   trackers over 100 steps; mean shift, k-means, watershed, SLIC, the
+   components with stats, contours, both distance transforms, blobs and
+   the Voronoi seam) on the card against the same call on the host in
+   spawned CPU processes, at the sizes it prints: masks equal on 99.99 %
+   of pixels with the model within 1e-4, tracker centres and ``ok``
+   equal with scores within 5e-3, Kalman within 1e-5 of the scale, mean
+   shift ±1 on 99 %, k-means' palette ±1 on 99.9 % of pixels, SLIC's
+   97 % boundary band, the rest exact, launching no kernel;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -167,7 +178,10 @@ Phases:
    ``xla_fused`` headline's ms/tick beside the default mode's in turns, and
    ms per ``Camera`` read of the native ring at 1080p (host and card
    decode); (4o) ms per call of each phase-3o call, slowest first; (4p)
-   the same for each phase-3p call.
+   the same for each phase-3p call; (4q) ms per frame of MOG2 and KNN at
+   1080p, per ``update`` of each tracker and per step of a bank of 16, per
+   ``filter_scan`` step at 1,024 trackers, and per call of the
+   segmentation ops at 1080p (the host ones included).
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -3169,6 +3183,491 @@ def time_group2(smi: str) -> None:
         f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])), flush=True)
 
 
+# Phase 3q: group 3 (stateful analytics) and the segmentation head of group
+# 4. The frame of phase 3n, a 16-frame clip made from it with numpy (a
+# textured 64×64 bright square moving 3 px a frame, a band of rows darkened
+# from frame 8 for MOG2's shadows, ±2 of noise per frame), seeded markers
+# and masks. Each call runs on the card inputs here and on the host inputs
+# in spawned CPU workers, as 3p's: the port's tensor op on CPU tensors for
+# the device ops, the same host code for the host ops. MOG2 and KNN are
+# per pixel, so the host runs them on the band of rows G3_BAND of the clip
+# and holds the card's band; the ops whose host side would take minutes at
+# 1080p run at G3_CROP on both sides (their 1080p times are phase 4q's).
+G3_FRAMES, G3_SQUARE, G3_STEP = 16, 64, 3
+G3_SQUARE_AT = (490, 300)  # (y, x) of the square in frame 0
+G3_SHADOW_ROWS, G3_SHADOW_FROM = (570, 600), 8
+G3_BAND = (480, 608)  # rows that hold the square's path and the shadow band
+G3_CROP = (400, 200, 270, 480)  # (y, x, h, w) of the crop, 480×270
+G3_MS_CROP = (400, 200, 180, 320)  # mean-shift's crop, 320×180
+G3_STATIC = ((1200, 300), (1500, 700), (800, 800))  # the bank's other targets (x, y)
+G3_BANK16 = 16  # phase 4q's bank
+G3_KALMAN = (1024, 100)  # trackers, steps
+G3_SEEDS, G3_MASK_SEED, G3_BLOB_SEED, G3_KALMAN_SEED = 50, 51, 52, 53
+G3_WORKERS = 4
+
+
+def group3_frame() -> np.ndarray:
+    """Phase 3n's seeded 1080p BGR frame (the test pattern, every fifth
+    row noise)."""
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+
+    img = synth_bgr(W, H, 11)
+    img[::5] = np.random.default_rng(12).integers(0, 256, img[::5].shape, np.uint8)
+    return img
+
+
+def group3_clip(frame: np.ndarray) -> np.ndarray:
+    """The 16-frame BGR clip [T, H, W, 3] made from ``frame``."""
+    rng = np.random.default_rng(G3_SEEDS)
+    tex = rng.integers(160, 256, (G3_SQUARE, G3_SQUARE, 3), np.uint8)
+    y0, x0 = G3_SQUARE_AT
+    out = np.empty((G3_FRAMES,) + frame.shape, np.uint8)
+    for t in range(G3_FRAMES):
+        f = frame.astype(np.int16) + rng.integers(-2, 3, frame.shape, np.int16)
+        f = np.clip(f, 0, 255).astype(np.uint8)
+        if t >= G3_SHADOW_FROM:
+            r0, r1 = G3_SHADOW_ROWS
+            f[r0:r1] = (f[r0:r1] * 0.6).astype(np.uint8)
+        x = x0 + G3_STEP * t
+        f[y0:y0 + G3_SQUARE, x:x + G3_SQUARE] = tex
+        out[t] = f
+    return out
+
+
+def group3_mask() -> np.ndarray:
+    """A seeded 1080p u8 mask of 300 overlapping rectangles and discs."""
+    rng = np.random.default_rng(G3_MASK_SEED)
+    m = np.zeros((H, W), np.uint8)
+    yy, xx = np.ogrid[:H, :W]
+    for _ in range(300):
+        cy, cx = int(rng.integers(0, H)), int(rng.integers(0, W))
+        r = int(rng.integers(4, 40))
+        if rng.random() < 0.5:
+            m[max(cy - r, 0):cy + r, max(cx - r // 2, 0):cx + r] = 255
+        else:
+            m[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 255
+    return m
+
+
+def group3_blobs() -> np.ndarray:
+    """A seeded 1080p gray blob scene: 40 dark discs on a bright ground."""
+    rng = np.random.default_rng(G3_BLOB_SEED)
+    g = np.full((H, W), 220, np.uint8)
+    yy, xx = np.ogrid[:H, :W]
+    for _ in range(40):
+        cy, cx, r = int(rng.integers(40, H - 40)), int(rng.integers(40, W - 40)), int(
+            rng.integers(6, 30))
+        g[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = int(rng.integers(10, 120))
+    return g
+
+
+def group3_markers(h: int, w: int, n: int = 12) -> np.ndarray:
+    rng = np.random.default_rng(G3_SEEDS + 1)
+    m = np.zeros((h, w), np.int32)
+    m[rng.integers(0, h, n), rng.integers(0, w, n)] = np.arange(1, n + 1)
+    return m
+
+
+def _crop(a, box):
+    y, x, h, w = box
+    return a[..., y:y + h, x:x + w, :] if a.ndim == 3 and a.shape[-1] == 3 else a[..., y:y + h,
+                                                                                  x:x + w]
+
+
+def group3_sides(side: str) -> dict:
+    """Phase 3q's inputs on one side: "card" (CUDA tensors and Mats) or
+    "host" (CPU tensors and Mats; the BGR clip only on G3_BAND). SLIC takes
+    the test pattern without its noise rows: on them the reference's host
+    finish (``enforce_connectivity``) merges thousands of fragments and
+    takes minutes at 480×270."""
+    import torch
+
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.ops.color import bgr_to_gray
+    from rustcv_tpu_torch.prelude import Mat
+
+    card = side == "card"
+    dev = "cuda" if card else "cpu"
+    frame = group3_frame()
+    clip = group3_clip(frame)
+    gray_clip = bgr_to_gray(torch.from_numpy(clip)).numpy()
+    band = slice(*G3_BAND)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def mat(a):
+        return Mat.from_device(t(a if a.ndim == 3 else a[..., None]))
+
+    mask, blobs = group3_mask(), group3_blobs()
+    rng = np.random.default_rng(G3_KALMAN_SEED)
+    n, steps = G3_KALMAN
+    truth = np.cumsum(np.full((steps, n, 2), 0.5), 0) + rng.uniform(0, 500, (1, n, 2))
+    s = {"host": not card, "dev": dev, "band": band if card else slice(None),
+         "clip": t(clip if card else clip[:, band]),
+         "gray_clip": t(gray_clip if card else gray_clip[:, band]),
+         "track_clip": t(gray_clip),
+         "frame_mat": mat(frame), "frame_crop_ms": t(_crop(frame, G3_MS_CROP)),
+         "gray_crop": mat(_crop(gray_clip[0], G3_CROP)),
+         "pattern_crop": t(_crop(synth_bgr(W, H, 11), G3_CROP)),
+         "markers_crop": group3_markers(*G3_CROP[2:]),
+         "mask_mat": mat(mask), "mask_t": t(mask), "mask_crop": t(_crop(mask, G3_CROP)),
+         "blobs_mat": mat(blobs),
+         "kalman_z": t((truth + rng.normal(0, 2.0, truth.shape)).astype(np.float32)),
+         "kalman_x0": t(np.concatenate([truth[0], np.zeros((n, 2))], 1).astype(np.float32))}
+    return s
+
+
+def _g3_track_boxes(n_static: int):
+    y0, x0 = G3_SQUARE_AT
+    boxes = [(x0, y0, G3_SQUARE, G3_SQUARE)]
+    boxes += [(x, y, G3_SQUARE, G3_SQUARE) for x, y in G3_STATIC[:n_static]]
+    return boxes if n_static else boxes[0]
+
+
+def _g3_subtract(s, which: str, gray: bool, shadows: bool):
+    """A subtractor over the clip → (masks [T, band], its model in the
+    band) as numpy."""
+    from rustcv_tpu_torch import imgproc as ip
+
+    frames = s["gray_clip"] if gray else s["clip"]
+    sub = (ip.create_background_subtractor_mog2(detect_shadows=shadows) if which == "mog2"
+           else ip.create_background_subtractor_knn())
+    masks = [sub.apply(f)[s["band"]] for f in frames]
+    import torch
+
+    state = (tuple(v[:, s["band"]] for v in sub._state) if which == "mog2"
+             else (sub._state.samples[:, s["band"]],))
+    return torch.stack(masks), state
+
+
+def _g3_track(s, mod_name: str, n_static: int):
+    """Init on frame 0, step over the other 15 → per step [centres, ok,
+    scores] of the bank."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module("rustcv_tpu_torch.ops." + mod_name)
+    frames = s["track_clip"]
+    st = mod.init(frames[0], _g3_track_boxes(n_static))
+    rows = []
+    for f in frames[1:]:
+        st, ok, score = mod.step(st, f)
+        rows.append(torch.cat([st.center.reshape(-1).to(torch.float64), ok.to(torch.float64),
+                               score.to(torch.float64)]))
+    return torch.stack(rows)
+
+
+def _g3_filter_scan(s):
+    from rustcv_tpu_torch.ops import kalman
+
+    dev = s["dev"]
+    import torch
+
+    n, _ = G3_KALMAN
+    a = torch.eye(4, device=dev)
+    a[0, 2] = a[1, 3] = 1.0
+    xs, _, _ = kalman.filter_scan(s["kalman_x0"], torch.eye(4, device=dev).repeat(n, 1, 1) * 10,
+                                  s["kalman_z"], a, torch.eye(2, 4, device=dev),
+                                  torch.eye(4, device=dev) * 0.01, torch.eye(2, device=dev) * 4.0)
+    return xs
+
+
+def group3_calls() -> dict:
+    """name → (call on a side of :func:`group3_sides`, check). A check takes
+    (name, card result, host result) as numpy and raises on a mismatch;
+    it returns the largest difference, or a note."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import ccl, meanshift_filter, slic
+
+    calls = {}
+    for gray in (True, False):
+        for shadows in (False, True):
+            if gray and shadows:
+                continue
+            name = f"mog2 {'gray' if gray else 'bgr'}" + (" shadows" if shadows else "")
+            calls[name] = (lambda s, g=gray, sh=shadows: _g3_subtract(s, "mog2", g, sh), g3_bgsub)
+    calls["knn bgr"] = (lambda s: _g3_subtract(s, "knn", False, False), g3_bgsub)
+    for mod in ("tracker", "kcf", "csrt"):
+        label = "mosse" if mod == "tracker" else mod
+        calls[label] = (lambda s, m=mod: _g3_track(s, m, 0), g3_track(1))
+        calls[label + " bank4"] = (lambda s, m=mod: _g3_track(s, m, 3), g3_track(4))
+    calls["filter_scan 1024x100"] = (_g3_filter_scan, g3_kalman)
+    calls["pyr_mean_shift 320x180"] = (
+        lambda s: meanshift_filter.pyr_mean_shift(s["frame_crop_ms"]), g3_mean_shift)
+    calls["kmeans_quantize k8"] = (lambda s: ip.kmeans_quantize(s["frame_mat"], 8), g3_kmeans)
+    calls["watershed 480x270"] = (lambda s: ip.watershed(s["gray_crop"], s["markers_crop"]),
+                                  g3_exact)
+    calls["slic 480x270"] = (lambda s: (slic.slic_device(s["pattern_crop"]),)
+                             + ip.slic_superpixels(s["pattern_crop"]), g3_slic)
+    calls["connected_components_with_stats"] = (
+        lambda s: ip.connected_components_with_stats(s["mask_mat"]), g3_exact)
+    calls["connected_components 8"] = (
+        lambda s: ccl.connected_components(s["mask_t"], connectivity=8), g3_exact)
+    calls["find_contours"] = (lambda s: tuple(ip.find_contours(s["mask_mat"])), g3_exact)
+    calls["distance_transform"] = (lambda s: ip.distance_transform(s["mask_mat"]), g3_exact)
+    calls["distance_transform_l2_with_labels 480x270"] = (
+        lambda s: ccl.distance_transform_l2_with_labels(s["mask_crop"]), g3_exact)
+    calls["detect_blobs"] = (lambda s: ip.detect_blobs(s["blobs_mat"]), g3_exact)
+    calls["voronoi_seam 480x270"] = (
+        lambda s: ip.voronoi_seam(s["mask_crop"], 255 - s["mask_crop"].flip(1)), g3_exact)
+    return calls
+
+
+# -- phase 3q's checks: the reference's own tolerances ------------------------
+
+def g3_exact(name, got, want):
+    if isinstance(want, (tuple, list)):
+        expect(len(got) == len(want), f"{name}: {len(got)} parts != {len(want)}")
+        for g, w in zip(got, want):
+            g3_exact(name, g, w)
+        return 0
+    got, want = np.asarray(got), np.asarray(want)
+    expect(got.shape == want.shape and np.array_equal(got, want), f"{name}: not equal")
+    return 0
+
+
+def g3_bgsub(name, got, want):
+    """Masks equal on at least 99.99 % of pixels (a pixel on the float32
+    match gate may flip), the model within 1e-4 (KNN's samples 1e-5)."""
+    (masks, state), (wmasks, wstate) = got, want
+    expect(masks.shape == wmasks.shape, f"{name}: {masks.shape} != {wmasks.shape}")
+    differ = int((masks != wmasks).sum())
+    expect(differ <= 1e-4 * masks.size, f"{name}: {differ} of {masks.size} pixels differ")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(state, wstate))
+    expect(err <= 1e-4, f"{name}: model |diff| {err:.3g}")
+    fg = float((masks > 0).mean())
+    return f"{differ}/{masks.size} pixels differ, model {err:.3g}, fg share {fg:.4f}"
+
+
+def g3_track(n):
+    """Centres and ``ok`` equal at every step, the peak (PSR for MOSSE)
+    within 5e-3 (the reference's device-vs-oracle tolerance)."""
+    def check(name, got, want):
+        expect(np.array_equal(got[:, :3 * n], want[:, :3 * n]),
+               f"{name}: centres or ok differ: {got[-1, :3 * n]} vs {want[-1, :3 * n]}")
+        err = float(np.abs(got[:, 3 * n:] - want[:, 3 * n:]).max())
+        expect(err < 5e-3, f"{name}: score |diff| {err:.3g}")
+        return f"{err:.3g}, ok {int(got[:, 2 * n:3 * n].sum())}/{got[:, 2 * n:3 * n].size}"
+    return check
+
+
+def g3_kalman(name, got, want):
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max()) / scale
+    expect(err <= 1e-5, f"{name}: max |diff| / scale {err:.3g}")
+    return err
+
+
+def g3_mean_shift(name, got, want):
+    d = np.abs(got.astype(np.int64) - want)
+    share = float((d <= 1).all(-1).mean())
+    expect(share >= 0.99, f"{name}: {share:.4f} of pixels within ±1")
+    return f"{share:.5f} within 1, max {int(d.max())}"
+
+
+def g3_kmeans(name, got, want):
+    """The reference's contract (centres within 1e-3, over 99.9 % of
+    labels equal) on the quantized output: the palettes within ±1 (a
+    rounded centre), and over 99.9 % of pixels within ±1 (the same
+    label)."""
+    (img, pal), (wimg, wpal) = got, want
+    dp = int(np.abs(pal.astype(np.int64) - wpal).max())
+    share = float((np.abs(img.astype(np.int64) - wimg) <= 1).all(-1).mean())
+    expect(dp <= 1 and share >= 0.999, f"{name}: palette |diff| {dp}, {share:.5f} of pixels "
+                                       f"within 1")
+    return f"palette {dp}, {share:.5f} of pixels within 1"
+
+
+def g3_slic(name, got, want):
+    """Raw labels: over 97 % agreement, every disagreement within 3 px of a
+    host label boundary; the connected labels and their count printed."""
+    raw, wraw = got[0], want[0]
+    agree = float((raw == wraw).mean())
+    expect(agree > 0.97, f"{name}: raw agreement {agree:.4f}")
+    dis = raw != wraw
+    bnd = np.zeros_like(dis)
+    bnd[1:] |= wraw[1:] != wraw[:-1]
+    bnd[:-1] |= wraw[1:] != wraw[:-1]
+    bnd[:, 1:] |= wraw[:, 1:] != wraw[:, :-1]
+    bnd[:, :-1] |= wraw[:, 1:] != wraw[:, :-1]
+    for _ in range(3):
+        g = bnd.copy()
+        g[1:] |= bnd[:-1]
+        g[:-1] |= bnd[1:]
+        g[:, 1:] |= bnd[:, :-1]
+        g[:, :-1] |= bnd[:, 1:]
+        bnd = g
+    expect(not (dis & ~bnd).any(), f"{name}: a disagreement off the boundary band")
+    return f"raw agreement {agree:.5f}, {int(got[2])}/{int(want[2])} superpixels"
+
+
+def _g3_plain(x):
+    if isinstance(x, (tuple, list)):
+        return tuple(_g3_plain(v) for v in x)
+    if hasattr(x, "to_numpy"):
+        return x.to_numpy()
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return x if isinstance(x, np.ndarray) else np.asarray(x)
+
+
+_G3_HOST = {}  # a worker's host inputs and calls, made at its first call
+
+
+def group3_host(name: str):
+    """One call of phase 3q on the host inputs, in a worker process: the
+    result as numpy, and its seconds."""
+    import torch
+
+    if not _G3_HOST:
+        torch.set_num_threads(2)
+        _G3_HOST["sides"] = group3_sides("host")
+        _G3_HOST["calls"] = group3_calls()
+    t0 = time.perf_counter()
+    out = _g3_plain(_G3_HOST["calls"][name][0](_G3_HOST["sides"]))
+    return out, time.perf_counter() - t0
+
+
+def run_group3() -> dict:
+    """Phase 3q: every call of :func:`group3_calls` on the card inputs
+    against the same call on the host inputs, computed meanwhile by
+    G3_WORKERS spawned CPU processes (stopped before this returns). Prints
+    each size, each call's largest difference and the trackers' distance
+    from the square's true path. Launches no kernel: returns the (zero)
+    launches of the card's calls."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    calls = group3_calls()
+    heavy = ["watershed 480x270", "pyr_mean_shift 320x180", "slic 480x270", "mog2 bgr shadows",
+             "mog2 bgr", "voronoi_seam 480x270", "detect_blobs", "find_contours"]
+    order = heavy + [n for n in calls if n not in heavy]
+    pool = ProcessPoolExecutor(max_workers=G3_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {name: pool.submit(group3_host, name) for name in order}
+        sides = group3_sides("card")
+        kernels.reset_launch_counts()
+        got, card_s = {}, {}
+        for name, (call, _check) in calls.items():
+            t0 = time.perf_counter()
+            got[name] = call(sides)
+            torch.cuda.synchronize()
+            card_s[name] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        expect(not any(counts.values()), f"phase 3q launched a kernel: {counts}")
+        notes, host_s = {}, {}
+        for name, (call, check) in calls.items():
+            want, host_s[name] = futures[name].result(timeout=600)
+            notes[name] = check(name, _g3_plain(got[name]), want)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    y0, x0 = G3_SQUARE_AT
+    truth = np.array([[y0 + G3_SQUARE // 2, x0 + G3_SQUARE // 2 + G3_STEP * t]
+                      for t in range(1, G3_FRAMES)])
+    path = {k: float(np.abs(_g3_plain(got[k])[:, :2] - truth).max())
+            for k in ("mosse", "kcf", "csrt")}
+    print(f"group 3 and segmentation at {W}x{H} (MOG2/KNN host side on rows {G3_BAND}, "
+          f"watershed, SLIC, L2 distance and the Voronoi seam at {G3_CROP[3]}x{G3_CROP[2]}, "
+          f"mean shift at {G3_MS_CROP[3]}x{G3_MS_CROP[2]}, Kalman {G3_KALMAN[0]} trackers x "
+          f"{G3_KALMAN[1]} steps, {G3_FRAMES}-frame clip): {len(calls)} calls on the card == the "
+          f"CPU port, no kernel launched; " + "; ".join(
+              f"{k} {v:.3g}" if not isinstance(v, str) else f"{k} {v}" for k, v in notes.items()),
+          flush=True)
+    print("group 3 trackers' max |centre - the square's path| px: " + ", ".join(
+        f"{k} {v:.0f}" for k, v in path.items()) + "; card seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(card_s.items(), key=lambda kv: -kv[1])[:6])
+        + "; host seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(host_s.items(), key=lambda kv: -kv[1])[:6]), flush=True)
+    return counts
+
+
+def time_group3(smi: str) -> None:
+    """Phase 4q: on the card (CUDA events): ms per frame of MOG2 and KNN at
+    1080p, ms per ``update`` of each tracker alone and per ``step`` of a
+    bank of G3_BANK16, ms per ``filter_scan`` step at 1,024 trackers, ms
+    per call of the segmentation ops at 1080p (the host ones included; L2
+    distance, the Voronoi seam and SLIC's host finish at 480×270), with the
+    card's name and power limit, slowest first. Never gated."""
+    import importlib
+
+    import torch
+
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import ccl, kalman, meanshift_filter, slic
+    from rustcv_tpu_torch.prelude import Mat
+
+    s = group3_sides("card")
+    clip, gray = s["clip"], s["gray_clip"]
+    times = {}
+    for label, frames, make in (
+            ("mog2 gray", gray, lambda: ip.create_background_subtractor_mog2()),
+            ("mog2 bgr", clip, lambda: ip.create_background_subtractor_mog2()),
+            ("mog2 bgr shadows", clip,
+             lambda: ip.create_background_subtractor_mog2(detect_shadows=True)),
+            ("knn bgr", clip, lambda: ip.create_background_subtractor_knn())):
+        sub = make()
+        sub.apply(frames[0])
+        it = iter(range(10 ** 9))
+        times[label + " per frame"] = cuda_ms(
+            lambda: sub.apply(frames[1 + next(it) % (G3_FRAMES - 1)]), 30, warm=False)
+    frames = s["track_clip"]
+    mats = [Mat.from_device(f[..., None]) for f in frames]
+    y0, x0 = G3_SQUARE_AT
+    bank = [(x0 + 100 * (i % 8), y0 - 200 + 300 * (i // 8), G3_SQUARE, G3_SQUARE)
+            for i in range(G3_BANK16)]
+    for mod_name, cls in (("tracker", "TrackerMOSSE"), ("kcf", "TrackerKCF"),
+                          ("csrt", "TrackerCSRT")):
+        mod = importlib.import_module("rustcv_tpu_torch.ops." + mod_name)
+        trk = getattr(mod, cls)()
+        trk.init(mats[0], _g3_track_boxes(0))
+        it = iter(range(10 ** 9))
+        times[f"{cls} update"] = cuda_ms(lambda: trk.update(mats[1 + next(it) % 15]), 15,
+                                         warm=False)
+        st = [mod.init(frames[0], bank)]
+        it = iter(range(10 ** 9))
+
+        def step(st=st, mod=mod, it=it):
+            st[0] = mod.step(st[0], frames[1 + next(it) % 15])[0]
+        times[f"{mod_name} bank{G3_BANK16} step"] = cuda_ms(step, 15)
+    n, steps = G3_KALMAN
+    times[f"filter_scan step, {n} trackers"] = cuda_ms(lambda: _g3_filter_scan(s), 3) / steps
+    crop = f"{G3_CROP[3]}x{G3_CROP[2]}"
+    frame_t = s["frame_mat"].device()
+    gray_mat = Mat.from_device(gray[0][..., None])
+    markers = group3_markers(H, W)
+    one = {  # label → (call, timed calls)
+        "pyr_mean_shift 1080p": (lambda: meanshift_filter.pyr_mean_shift(frame_t), 1),
+        "kmeans_quantize k8": (lambda: ip.kmeans_quantize(s["frame_mat"], 8), 5),
+        "watershed 1080p": (lambda: ip.watershed(gray_mat, markers), 2),
+        "slic_device 1080p": (lambda: slic.slic_device(frame_t), 3),
+        f"slic_superpixels {crop}": (lambda: ip.slic_superpixels(s["pattern_crop"]), 2),
+        "connected_components": (lambda: ip.connected_components(s["mask_mat"]), 5),
+        "connected_components 8": (lambda: ccl.connected_components(s["mask_t"], connectivity=8),
+                                   5),
+        "connected_components_with_stats": (
+            lambda: ip.connected_components_with_stats(s["mask_mat"]), 3),
+        "find_contours": (lambda: ip.find_contours(s["mask_mat"]), 3),
+        "distance_transform (L1)": (lambda: ip.distance_transform(s["mask_mat"]), 10),
+        f"distance_transform_l2_with_labels {crop}": (
+            lambda: ccl.distance_transform_l2_with_labels(s["mask_crop"]), 2),
+        "detect_blobs": (lambda: ip.detect_blobs(s["blobs_mat"]), 1),
+        f"voronoi_seam {crop}": (
+            lambda: ip.voronoi_seam(s["mask_crop"], 255 - s["mask_crop"].flip(1)), 1),
+    }
+    for label, (call, reps) in one.items():
+        times[label] = cuda_ms(call, reps, warm=reps > 1)
+    print(f"group 3 and segmentation ms on card inputs at {W}x{H} ({smi}), slowest first: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])),
+          flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -3240,7 +3739,8 @@ def main() -> int:
                             ("configs 1, 3, 5", run_zoo_configs), ("facade", run_facade),
                             ("mesh", run_mesh), ("slice ops, xla_fused, ring, V4L2", run_slice),
                             ("second block of ops (3o)", run_block2),
-                            ("group 2, features and flow (3p)", run_group2)):
+                            ("group 2, features and flow (3p)", run_group2),
+                            ("group 3 and segmentation (3q)", run_group3)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -3262,7 +3762,8 @@ def main() -> int:
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),
-                          ("group 2, features and flow (4p)", lambda: time_group2(smi))):
+                          ("group 2, features and flow (4p)", lambda: time_group2(smi)),
+                          ("group 3 and segmentation (4q)", lambda: time_group3(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

@@ -42,9 +42,12 @@ The features and flow of group 2 follow the same rule: corner responses,
 FAST, BRIEF/ORB, SIFT, AKAZE, HOG, Lucas–Kanade, Farnebäck, DIS with its
 variational refinement, TV-L1, template matching, the DFT/DCT, phase
 correlation and ECC; keypoint, flow and response wrappers return numpy
-arrays as the reference's do. The rest of the reference module arrives
-with the ops it wraps (ROADMAP Queue 1 items 5–7); its names are absent
-here.
+arrays as the reference's do. So do those of group 3 and the head of
+group 4: the MOG2 and KNN background subtractors (their masks stay on a
+device frame's device), mean-shift filtering, connected components,
+contours, flood fill, the distance transforms, blobs, k-means, watershed,
+SLIC and the Voronoi seam. The rest of the reference module arrives with
+the ops it wraps (ROADMAP Queue 1 items 6–7); its names are absent here.
 """
 
 from __future__ import annotations
@@ -1346,7 +1349,151 @@ def phase_correlate(prev: Mat, nxt: Mat, window: bool = True):
     return _registration.phase_correlate_numpy(gp, gn, window=window)
 
 
+# ---------------------------------------------------------------------------
+# Group 3 (stateful analytics) and the segmentation head of group 4: the
+# background subtractors and mean-shift filtering; the components, contours,
+# flood fill and distance transforms (ops.ccl, the native union-find); blobs,
+# k-means, watershed, SLIC and the Voronoi seam. A device Mat runs the tensor
+# op, a host Mat the reference's numpy form (ops.ccl is host code with a
+# device L1 distance: its device Mats cost one fetch).
+# ---------------------------------------------------------------------------
+
+
+def create_background_subtractor_mog2(k: int = 4, **kw):
+    """Per-pixel Gaussian-mixture background model (OpenCV
+    ``createBackgroundSubtractorMOG2`` role; ops.bgsub): the model stays on
+    the frame's device; ``apply`` on a device Mat or tensor returns a tensor
+    mask there, on a numpy frame numpy. ``kw`` forwards to MOG2Params
+    (alpha, var_threshold, ratio, ...) and the subtractor
+    (``detect_shadows=True`` marks chromatic shadows 127, ``shadow_tau``,
+    ``device`` for numpy frames)."""
+    return _bgsub.BackgroundSubtractorMOG2(k=k, **kw)
+
+
+def create_background_subtractor_knn(n_samples: int = 7, **kw):
+    """Per-pixel sample-consensus background model (OpenCV
+    ``createBackgroundSubtractorKNN`` role; ops.knn_bgsub): deterministic
+    cyclic-slot bank on the frame's device. ``kw`` forwards to KNNParams
+    (dist2_threshold, k_nn, ...) and ``device``."""
+    return _knn_bgsub.BackgroundSubtractorKNN(n_samples=n_samples, **kw)
+
+
+def pyr_mean_shift_filtering(mat: Mat, sp: int = 10, sr: float = 25.0,
+                             max_level: int = 1, max_iter: int = 5) -> Mat:
+    """Mean-shift posterization (OpenCV ``pyrMeanShiftFiltering`` role):
+    per-pixel joint spatial-color mode seeking over a decimation pyramid
+    (ops.meanshift_filter): the float32 twin for a device Mat, the float64
+    oracle for a host Mat."""
+    kw = dict(sp=sp, sr=float(sr), max_level=max_level, max_iter=max_iter)
+    return _dispatch(mat, lambda t: _meanshift.pyr_mean_shift(t, **kw),
+                     lambda a: _meanshift.pyr_mean_shift_numpy(a, **kw))
+
+
+def _mask_of_mat(mat: Mat):
+    """The first channel of a Mat: its device tensor or host numpy."""
+    a = mat.device() if mat.is_on_device else mat.to_numpy()
+    return a[..., 0] if a.ndim == 3 else a
+
+
+def connected_components(mat: Mat, max_rounds: int = 256):
+    """4-connectivity labeling of a u8 mask Mat (OpenCV
+    ``connectedComponents``): (count, labels int32 (H, W)), background 0,
+    components numbered in raster order of their first pixel (ops.ccl, the
+    native union-find)."""
+    return _ccl.connected_components(_mask_of_mat(mat), max_rounds=max_rounds)
+
+
+def connected_components_with_stats(mat: Mat, max_rounds: int = 256):
+    """OpenCV ``connectedComponentsWithStats``: (count, labels, stats,
+    centroids) — see :func:`connected_components` and ops.ccl."""
+    return _ccl.connected_components_with_stats(_mask_of_mat(mat), max_rounds=max_rounds)
+
+
+def find_contours(mat: Mat, max_rounds: int = 256):
+    """External contours of a u8 mask Mat (OpenCV ``findContours``
+    RETR_EXTERNAL role): list of int32 [K, 2] (x, y) boundary polylines,
+    one per 4-connected component (native labeling + host Moore tracing;
+    ops.ccl)."""
+    return _ccl.find_contours(_mask_of_mat(mat), max_rounds=max_rounds)
+
+
+def distance_transform(mat: Mat) -> np.ndarray:
+    """Exact L1 (city-block) distance of each nonzero pixel to the nearest
+    zero (OpenCV ``distanceTransform`` DIST_L1): int32 (H, W) numpy. Four
+    min-plus scans where the Mat is (exact int32 on either side;
+    ops.ccl.distance_l1)."""
+    g = _gray_of_mat(mat, allow_bgr=False)
+    return _host(_ccl.distance_l1(torch.as_tensor(g)))
+
+
+def flood_fill(mat: Mat, seed, new_val: int, lo_diff: int = 0, up_diff: int = 0):
+    """OpenCV ``floodFill`` (fixed-range): returns (filled Mat on the
+    input's side, count, mask). See ops.ccl.flood_fill (host)."""
+    out, count, mask = _ccl.flood_fill(_mask_of_mat(mat), seed, new_val, lo_diff, up_diff)
+    if mat.is_on_device:
+        return Mat.from_device(torch.from_numpy(out).to(mat.device().device)), count, mask
+    return Mat.from_array(out, device=mat.target), count, mask
+
+
+def detect_blobs(mat: Mat, params=None):
+    """Blob detection (OpenCV ``SimpleBlobDetector``): [K, 3] float64
+    (cx, cy, diameter). Thresholds + native labeling + host contour
+    geometry, merged across levels (ops.blob)."""
+    return _blob.detect_blobs(_host(_gray_of_mat(mat)),
+                              params if params is not None else _blob.BlobParams())
+
+
+def kmeans(data, k: int, iters: int = 10):
+    """Generic k-means (OpenCV ``kmeans`` role): (N, D) float data →
+    (compactness, labels (N,), centers (K, D)) as numpy. Deterministic
+    k-means++ init (ops.kmeans); a tensor runs on its device, numpy on the
+    card."""
+    x = data.to(torch.float32) if isinstance(data, torch.Tensor) else np.asarray(data, np.float32)
+    centers, labels, inertia = _kmeans.kmeans(x, k, iters=iters)
+    return float(inertia), _host(labels), _host(centers)
+
+
+def _kmeans_quantize_host(a: np.ndarray, k: int, iters: int):
+    """The float64 oracle's quantization (ops.kmeans.kmeans_numpy from the
+    same k-means++ init)."""
+    h, w = a.shape[:2]
+    flat = a.reshape(-1, 3).astype(np.float32)
+    c, lab, _ = _kmeans.kmeans_numpy(flat, k, iters, init_centers=_kmeans.kmeans_pp_init(flat, k))
+    pal = np.clip(np.round(c), 0, 255).astype(np.uint8)
+    return pal[lab].reshape(h, w, 3), pal
+
+
+def kmeans_quantize(mat: Mat, k: int = 8, iters: int = 10):
+    """Color quantization via k-means (OpenCV ``kmeans`` role): (quantized
+    Mat with ≤ k colors, palette [k, 3] u8) — the float32 twin on a device
+    Mat (ops.kmeans), the float64 oracle on a host Mat."""
+    if mat.is_on_device:
+        out, pal = _kmeans.kmeans_quantize(mat.device(), k=k, iters=iters)
+        return Mat.from_device(out), pal
+    out, pal = _kmeans_quantize_host(mat.to_numpy(), k, iters)
+    return Mat.from_array(out, device=mat.target), pal
+
+
+def watershed(mat: Mat, markers) -> np.ndarray:
+    """Marker-based watershed (OpenCV ``watershed``): int32 markers
+    (0 unknown, >0 seeds) → int32 labels with −1 watershed lines, numpy.
+    Bottleneck-semiring scans to a fixed point on a device Mat's device
+    (ops.watershed), the oracle's Jacobi relaxation on a host Mat: the
+    same unique fixed point."""
+    g = _gray_of_mat(mat)
+    if mat.is_on_device:
+        return _host(_watershed.watershed(g, torch.as_tensor(_host(markers), device=g.device)))
+    return _watershed.watershed_numpy(g, _host(markers))
+
+
 from ..ops import akaze as _akaze  # noqa: E402
+from ..ops import bgsub as _bgsub  # noqa: E402
+from ..ops import blob as _blob  # noqa: E402
+from ..ops import ccl as _ccl  # noqa: E402
+from ..ops import kmeans as _kmeans  # noqa: E402
+from ..ops import knn_bgsub as _knn_bgsub  # noqa: E402
+from ..ops import meanshift_filter as _meanshift  # noqa: E402
+from ..ops import watershed as _watershed  # noqa: E402
 from ..ops import brief as _brief  # noqa: E402
 from ..ops import disflow as _disflow  # noqa: E402
 from ..ops import farneback as _farneback  # noqa: E402
@@ -1359,6 +1506,8 @@ from ..ops import template as _template  # noqa: E402
 from ..ops import tvl1 as _tvl1  # noqa: E402
 from ..ops import varref as _varref  # noqa: E402
 from ..ops.asift import affine_detect_and_compute  # noqa: E402
+from ..ops.blend import voronoi_seam  # noqa: E402
+from ..ops.ccl import distance_transform_l2_with_labels  # noqa: E402
 from ..ops.corner import (  # noqa: E402  (re-exports)
     corner_eigen_vals_and_vecs,
     corner_min_eigen_val,
@@ -1366,11 +1515,13 @@ from ..ops.corner import (  # noqa: E402  (re-exports)
     spatial_gradient,
 )
 from ..ops.decolor import decolor  # noqa: E402
+from ..ops.dsst_scale import ScaleEstimator  # noqa: E402
 from ..ops.ecc import compute_ecc, find_transform_ecc, find_transform_ecc_multiscale  # noqa: E402
 from ..ops.optflow import build_optical_flow_pyramid  # noqa: E402
 from ..ops.registration import phase_correlate_iterative  # noqa: E402
 from ..ops.rotwarp import RotationWarper  # noqa: E402
 from ..ops.sift import match_descriptors_l2  # noqa: E402
+from ..ops.slic import slic_superpixels  # noqa: E402
 from ..ops.transform import (  # noqa: E402  (re-exports)
     dct,
     dft,
@@ -1392,6 +1543,14 @@ _GROUP2 = [
     "find_transform_ecc_multiscale", "dct", "idct", "dft", "idft", "mul_spectrums",
     "get_optimal_dft_size", "spatial_gradient", "corner_min_eigen_val",
     "corner_eigen_vals_and_vecs", "pre_corner_detect", "decolor",
+]
+
+_GROUP3 = [
+    "create_background_subtractor_mog2", "create_background_subtractor_knn",
+    "pyr_mean_shift_filtering", "ScaleEstimator", "connected_components",
+    "connected_components_with_stats", "find_contours", "distance_transform", "flood_fill",
+    "distance_transform_l2_with_labels", "detect_blobs", "kmeans", "kmeans_quantize",
+    "watershed", "slic_superpixels", "voronoi_seam",
 ]
 
 _SLICE2 = [
@@ -1441,4 +1600,4 @@ __all__ = [
     "in_range", "integral", "laplacian", "line", "median_blur", "moments", "morphology_ex",
     "polylines", "put_text", "pyr_down", "pyr_up", "rectangle", "resize", "scharr",
     "sep_filter_2d", "sobel", "sobel_magnitude", "stack_blur", "threshold",
-] + _SLICE2 + _GROUP2
+] + _SLICE2 + _GROUP2 + _GROUP3

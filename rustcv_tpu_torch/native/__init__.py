@@ -1,8 +1,9 @@
 """The port's host C++ (the JPEG entropy coder, the full host JPEG decode,
-the glyph rasterizer, the frame ring and the V4L2 driver), built with g++
-at first use and bound with ctypes.
+the glyph rasterizer, the frame ring, the V4L2 driver and the
+connected-components union-find), built with g++ at first use and bound
+with ctypes.
 
-Seven sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
+Eight sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
 block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
 which checks a payload exactly: Huffman coding is lossless; and the flat-
@@ -13,7 +14,9 @@ libjpeg), ``png_filter.cpp`` (the PNG reader's scanline unfiltering),
 threaded frame ring behind :class:`NativeRing`: a ``std::thread`` producer
 writes the frozen test pattern as YUYV into its slots) and ``v4l2.cpp``
 (the direct-ioctl V4L2 driver behind ``capture.v4l2``; a host without
-``linux/videodev2.h`` builds its stub, ``rcv_v4l2_available() == 0``).
+``linux/videodev2.h`` builds its stub, ``rcv_v4l2_available() == 0``)
+and ``unionfind.cpp`` (min-root union-find and the two-pass component
+labeling behind ``ops.ccl``: :func:`ccl_label`, :func:`union_find`).
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -38,7 +41,7 @@ import numpy as np
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp", _HERE / "jpeg_host.cpp",
            _HERE / "png_filter.cpp", _HERE / "text_raster.cpp", _HERE / "capture.cpp",
-           _HERE / "v4l2.cpp")
+           _HERE / "v4l2.cpp", _HERE / "unionfind.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "rustcv_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -153,6 +156,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rcv_v4l2_stop.argtypes = [ctypes.c_void_p]
     lib.rcv_v4l2_close.restype = None
     lib.rcv_v4l2_close.argtypes = [ctypes.c_void_p]
+    # unionfind.cpp: the connected-components host half.
+    lib.rcv_union_find.restype = ctypes.c_long
+    lib.rcv_union_find.argtypes = [i32p, ctypes.c_long, i32p, i32p, ctypes.c_long]
+    for fn in (lib.rcv_ccl_label, lib.rcv_ccl_label8):
+        fn.restype = ctypes.c_long
+        fn.argtypes = [u8p, ctypes.c_long, ctypes.c_long, i32p]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -494,6 +503,43 @@ def png_unfilter(raw: bytes, height: int, row_bytes: int, bpp: int) -> np.ndarra
     if rc != 0:
         raise ValueError("corrupt PNG image data" if rc == -2 else "unknown PNG filter type")
     return out
+
+
+def ccl_label(mask: np.ndarray, connectivity: int = 4) -> tuple:
+    """Two-pass union-find connected components (4- or 8-connectivity)
+    over a u8 mask (``unionfind.cpp``): returns ``(count, labels int32
+    (H, W))``, components numbered 1..count by raster-first pixel,
+    background 0. Raises RuntimeError when the library did not build."""
+    lib = _need_lib()
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    m = np.ascontiguousarray(mask, np.uint8)
+    if m.ndim != 2:
+        raise ValueError(f"ccl_label: 2-D mask required, got {m.shape}")
+    labels = np.empty(m.shape, np.int32)
+    fn = lib.rcv_ccl_label8 if connectivity == 8 else lib.rcv_ccl_label
+    n = fn(_ptr(m), m.shape[0], m.shape[1], _ptr(labels, ctypes.c_int32))
+    if n < 0:
+        raise ValueError(f"ccl_label failed (rc={n})")
+    return int(n), labels
+
+
+def union_find(n: int, edges_a: np.ndarray, edges_b: np.ndarray) -> tuple:
+    """Min-root union-find over ``n`` nodes with undirected edges
+    ``(edges_a[i], edges_b[i])``: returns ``(count, root)`` where
+    ``root[i]`` is the SMALLEST node id in i's component. Raises
+    RuntimeError when the library did not build."""
+    lib = _need_lib()
+    ea = np.ascontiguousarray(edges_a, np.int32)
+    eb = np.ascontiguousarray(edges_b, np.int32)
+    if ea.shape != eb.shape or ea.ndim != 1:
+        raise ValueError(f"edge arrays must be 1-D and equal: {ea.shape} vs {eb.shape}")
+    parent = np.empty(int(n), np.int32)
+    cnt = lib.rcv_union_find(_ptr(parent, ctypes.c_int32), int(n), _ptr(ea, ctypes.c_int32),
+                             _ptr(eb, ctypes.c_int32), int(ea.shape[0]))
+    if cnt < 0:
+        raise ValueError(f"union_find failed (rc={cnt}; edge id out of range?)")
+    return int(cnt), parent
 
 
 def v4l2_available() -> bool:

@@ -1,7 +1,8 @@
 """Stitching detail components (port of ``rustcv_tpu.ops.blend``: OpenCV
-``detail::MultiBandBlender`` / ``detail::GainCompensator`` roles):
-multi-band Laplacian blending on tensors where the caller's tensor is, and
-least-squares exposure gains on the host.
+``detail::MultiBandBlender`` / ``detail::GainCompensator`` /
+``detail::VoronoiSeamFinder`` roles): multi-band Laplacian blending on
+tensors where the caller's tensor is, least-squares exposure gains and the
+Voronoi seam on the host.
 
 Frozen specs (float64 oracles):
 - multi_band_blend: Laplacian pyramids of both images + Gaussian
@@ -14,14 +15,14 @@ Frozen specs (float64 oracles):
   ``Σ_ij N_ij ((g_i Ī_ij − g_j Ī_ji)/σ_N)² + Σ_i N_i (1−g_i)²/σ_g²``
   with σ_N = 10.1, σ_g = 0.1 (the published constants), closed-form
   linear solve.
-
-The reference's ``voronoi_seam`` needs the exact L2 distance transform of
-its ``ccl`` module and arrives with it (ROADMAP Queue 1 item 6).
+- voronoi_seam: each overlap pixel goes to the mask it lies deeper in
+  (exact L2 distance to the mask's outside, :mod:`.ccl`; ties to the
+  first).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -179,3 +180,22 @@ def gain_compensation(images: Sequence[np.ndarray],
     if not a.any():
         return np.ones(n)
     return np.linalg.solve(a + 1e-12 * np.eye(n), b)
+
+
+def voronoi_seam(mask1, mask2) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV ``detail::VoronoiSeamFinder`` role: split the overlap by
+    which image's valid region owns the pixel more deeply (exact L2
+    distance to the region border) → adjusted (mask1, mask2), bool numpy.
+    Masks on a device are fetched once."""
+    from .ccl import _host_mask, distance_transform_l2_with_labels
+
+    m1 = _host_mask(mask1).astype(bool)
+    m2 = _host_mask(mask2).astype(bool)
+    # distance to the OUTSIDE of each region (zero pixels = ~mask)
+    d1, _ = distance_transform_l2_with_labels(m1.astype(np.uint8))
+    d2, _ = distance_transform_l2_with_labels(m2.astype(np.uint8))
+    overlap = m1 & m2
+    keep1 = d1 >= d2
+    out1 = m1 & (~overlap | keep1)
+    out2 = m2 & (~overlap | ~keep1)
+    return out1, out2

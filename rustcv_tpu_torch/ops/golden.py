@@ -16,7 +16,11 @@ tables of ``imgproc.apply_color_map`` and the float64 ``normalize`` that a
 host Mat runs (the device form is float32, ±1 LSB). The oracles the
 feature and flow modules call on a host Mat: the 5×5 Gaussian and
 ``pyr_down`` (BRIEF/ORB, LK, ECC), the fixed-point bilinear resize (the
-HOG pyramid) and the Lab round trip (``decolor``).
+HOG pyramid) and the Lab round trip (``decolor``). The integer luma
+(:func:`bgr_to_gray`) that the trackers take of a BGR frame, the float64
+Kalman updates that ``kalman.KalmanFilter`` runs, and the MOSSE tracker's
+spec, which ``tracker.TrackerMOSSE(backend="host")`` runs and the
+``kcf``/``csrt`` oracles crop with.
 """
 
 from __future__ import annotations
@@ -474,3 +478,178 @@ def pyr_down(img: np.ndarray) -> np.ndarray:
     """Pyramid downsample: :func:`gaussian5_u8` then even-index decimation
     (output ceil(H/2) × ceil(W/2), OpenCV's pyrDown shape)."""
     return gaussian5_u8(img)[::2, ::2]
+
+
+def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
+    """Frozen integer BT.601 luma: (77R + 150G + 29B + 128) >> 8."""
+    b = bgr[..., 0].astype(np.int32)
+    g = bgr[..., 1].astype(np.int32)
+    r = bgr[..., 2].astype(np.int32)
+    return ((77 * r + 150 * g + 29 * b + 128) >> 8).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Kalman filter (float64 frozen spec)
+# ---------------------------------------------------------------------------
+
+
+def kalman_predict(x, P, A, Q, B=None, u=None):
+    """Kalman time update (OpenCV ``KalmanFilter::predict`` semantics,
+    modules/video/src/kalman.cpp): x' = A·x (+ B·u), P' = A·P·Aᵀ + Q.
+    float64 frozen spec. Returns (x', P')."""
+    x = np.asarray(x, np.float64)
+    P = np.asarray(P, np.float64)
+    A = np.asarray(A, np.float64)
+    xp = A @ x
+    if B is not None and u is not None:
+        xp = xp + np.asarray(B, np.float64) @ np.asarray(u, np.float64)
+    Pp = A @ P @ A.T + np.asarray(Q, np.float64)
+    return xp, Pp
+
+
+def kalman_correct(x, P, z, H, R):
+    """Kalman measurement update (OpenCV ``KalmanFilter::correct``):
+    S = H·P·Hᵀ + R, K = (solve(S, H·P))ᵀ, x⁺ = x + K(z − H·x),
+    P⁺ = P − K·H·P. Returns (x⁺, P⁺, K)."""
+    x = np.asarray(x, np.float64)
+    P = np.asarray(P, np.float64)
+    H = np.asarray(H, np.float64)
+    HP = H @ P
+    S = HP @ H.T + np.asarray(R, np.float64)
+    K = np.linalg.solve(S, HP).T
+    innov = np.asarray(z, np.float64) - H @ x
+    return x + K @ innov, P - K @ HP, K
+
+
+# ---------------------------------------------------------------------------
+# MOSSE correlation-filter tracker (frozen float64 spec)
+# ---------------------------------------------------------------------------
+# OpenCV ``legacy::TrackerMOSSE`` role (Bolme et al. 2010). All arithmetic
+# is float64 + numpy rfft2; the tensor twin (ops/tracker.py) is float32 and
+# is bounded against this spec.
+
+MOSSE_EPS = 1e-5
+MOSSE_SIGMA = 2.0
+#: Fixed init perturbations (angle_rad, scale) about the patch centre —
+#: deterministic stand-ins for OpenCV's 8 random warps.
+MOSSE_WARPS = (
+    (0.0, 1.0), (0.05, 1.0), (-0.05, 1.0), (0.10, 1.0),
+    (-0.10, 1.0), (0.18, 1.0), (0.0, 0.95), (0.0, 1.05),
+)
+
+
+def mosse_hann(h: int, w: int) -> np.ndarray:
+    """Outer product of 1-D Hann windows (0.5 − 0.5·cos(2πk/(n−1));
+    all-ones when an axis has a single sample)."""
+    def hann1(n):
+        if n == 1:
+            return np.ones(1)
+        k = np.arange(n, dtype=np.float64)
+        return 0.5 - 0.5 * np.cos(2.0 * np.pi * k / (n - 1))
+    return np.outer(hann1(h), hann1(w))
+
+
+def mosse_preprocess(patch: np.ndarray) -> np.ndarray:
+    """log(1+p), zero-mean / unit-std normalize (ε=1e-5), Hann-windowed."""
+    p = np.log1p(patch.astype(np.float64))
+    p = (p - p.mean()) / (p.std() + MOSSE_EPS)
+    return p * mosse_hann(*p.shape)
+
+
+def mosse_gauss(h: int, w: int, sigma: float = MOSSE_SIGMA) -> np.ndarray:
+    """Desired response: unit-peak Gaussian at (h//2, w//2)."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    d2 = (ys - h // 2) ** 2.0 + (xs - w // 2) ** 2.0
+    return np.exp(-d2 / (2.0 * sigma * sigma))
+
+
+def _mosse_warp_patch(patch: np.ndarray, angle: float, scale: float) -> np.ndarray:
+    """Rotate+scale the patch about its centre, clamped bilinear sampling
+    (replicate border)."""
+    h, w = patch.shape
+    c, s = np.cos(angle) / scale, np.sin(angle) / scale
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    sx = c * (xs - cx) + s * (ys - cy) + cx
+    sy = -s * (xs - cx) + c * (ys - cy) + cy
+    x0 = np.clip(np.floor(sx), 0, w - 1).astype(np.int64)
+    y0 = np.clip(np.floor(sy), 0, h - 1).astype(np.int64)
+    x1 = np.minimum(x0 + 1, w - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    fx = np.clip(sx - x0, 0.0, 1.0)
+    fy = np.clip(sy - y0, 0.0, 1.0)
+    p = patch.astype(np.float64)
+    top = p[y0, x0] * (1 - fx) + p[y0, x1] * fx
+    bot = p[y1, x0] * (1 - fx) + p[y1, x1] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _mosse_crop(frame: np.ndarray, cy: int, cx: int, h: int, w: int):
+    """Clamped h×w crop centred at (cy, cx); returns (patch, oy, ox)."""
+    fh, fw = frame.shape
+    oy = int(np.clip(cy - h // 2, 0, fh - h))
+    ox = int(np.clip(cx - w // 2, 0, fw - w))
+    return frame[oy:oy + h, ox:ox + w], oy, ox
+
+
+def mosse_init(frame: np.ndarray, bbox):
+    """Train the filter on the bbox patch over :data:`MOSSE_WARPS`.
+    ``bbox`` = (x, y, w, h) ints. Returns state dict with complex A/B
+    numerator/denominator spectra (rfft2 half-plane), the desired-response
+    spectrum G, integer centre (cy, cx) and window (h, w)."""
+    x, y, w, h = (int(v) for v in bbox)
+    if h < 4 or w < 4:
+        raise ValueError("MOSSE window must be at least 4x4")
+    cy, cx = y + h // 2, x + w // 2
+    patch, _, _ = _mosse_crop(np.asarray(frame, np.float64), cy, cx, h, w)
+    G = np.fft.rfft2(mosse_gauss(h, w))
+    A = np.zeros_like(G)
+    B = np.zeros(G.shape, np.float64)
+    for ang, sc in MOSSE_WARPS:
+        F = np.fft.rfft2(mosse_preprocess(_mosse_warp_patch(patch, ang, sc)))
+        A += G * np.conj(F)
+        B += (F * np.conj(F)).real
+    return {"A": A, "B": B, "G": G, "center": (cy, cx), "size": (h, w)}
+
+
+def mosse_psr(resp: np.ndarray, py: int, px: int, excl: int = 5) -> float:
+    """Peak-to-sidelobe ratio: peak vs mean/std outside the (2·excl+1)²
+    exclusion square around the peak."""
+    h, w = resp.shape
+    mask = np.ones((h, w), bool)
+    mask[max(py - excl, 0):py + excl + 1, max(px - excl, 0):px + excl + 1] = False
+    side = resp[mask]
+    return float((resp[py, px] - side.mean()) / (side.std() + MOSSE_EPS))
+
+
+def mosse_step(state: dict, frame: np.ndarray, lr: float = 0.2,
+               psr_threshold: float = 5.7):
+    """One tracking step: correlate at the last centre, move to the
+    response peak, compute PSR; when PSR clears the threshold, re-crop at
+    the new centre and blend the filter with rate ``lr``. Returns
+    (new_state, ok, psr). On failure the state (incl. centre) is frozen —
+    OpenCV's legacy tracker likewise reports failure and stops adapting."""
+    h, w = state["size"]
+    cy, cx = state["center"]
+    f64 = np.asarray(frame, np.float64)
+    patch, oy, ox = _mosse_crop(f64, cy, cx, h, w)
+    F = np.fft.rfft2(mosse_preprocess(patch))
+    resp = np.fft.irfft2(F * state["A"] / (state["B"] + MOSSE_EPS), s=(h, w))
+    py, px = np.unravel_index(int(resp.argmax()), resp.shape)
+    psr = mosse_psr(resp, int(py), int(px))
+    if psr < psr_threshold:
+        return state, False, psr
+    # displacement of the peak from the response origin (h//2, w//2),
+    # re-anchored to the actual (clamped) crop origin
+    ncy = oy + h // 2 + (int(py) - h // 2)
+    ncx = ox + w // 2 + (int(px) - w // 2)
+    fh, fw = f64.shape
+    ncy = int(np.clip(ncy, h // 2, fh - h + h // 2))
+    ncx = int(np.clip(ncx, w // 2, fw - w + w // 2))
+    patch2, _, _ = _mosse_crop(f64, ncy, ncx, h, w)
+    F2 = np.fft.rfft2(mosse_preprocess(patch2))
+    A = lr * (state["G"] * np.conj(F2)) + (1.0 - lr) * state["A"]
+    B = lr * (F2 * np.conj(F2)).real + (1.0 - lr) * state["B"]
+    new = {"A": A, "B": B, "G": state["G"], "center": (ncy, ncx),
+           "size": (h, w)}
+    return new, True, psr

@@ -322,8 +322,13 @@ def get_pipeline(spec: PipelineSpec):
     return _cached(spec, decode_mode())
 
 
-def make_dummy_overlay(n: int, device="cpu"):
-    """Placeholder overlay args for specs with overlay=False."""
+def make_dummy_overlay(n: int, device="cuda"):
+    """Placeholder overlay args for specs with overlay=False, on ``device``
+    (the card unless the caller names another; raises where that is the
+    card and there is none)."""
+    from ..core.mat import torch_device
+
+    device = torch_device(device)
     return (
         torch.zeros((n, 4), dtype=torch.int32, device=device),
         torch.zeros((n, 3), dtype=torch.uint8, device=device),

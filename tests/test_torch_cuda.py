@@ -23,7 +23,14 @@ template matching, phase correlation, the DFT/DCT, ECC's device twin, HOG,
 SIFT, AKAZE) on a CUDA Mat or CUDA tensors against the same call on the
 host with the reference's device-vs-oracle tolerances, with no kernel
 launched, ECC's loop with no host read, and the full-float32 guard holding
-with TF32 switched on.
+with TF32 switched on; and group 3 with the segmentation head of group 4
+(the background subtractors, the trackers alone and in banks, Kalman's
+``filter_scan``, mean shift, k-means, watershed, SLIC, the components,
+contours, distance transforms, blobs, the Voronoi seam) on CUDA inputs
+against CPU inputs, with the subtractors' and trackers' state staying on
+the card (one host read per ``update``), a bank stepping as one batch, and
+``full_f32`` in force around k-means' and Kalman's products; and
+``make_dummy_overlay``'s default device, the card.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -39,7 +46,7 @@ import torch
 from rustcv_tpu_torch import native
 from rustcv_tpu_torch.capture import SimulationDriver
 from rustcv_tpu_torch.capture import simulation as sim
-from rustcv_tpu_torch.core import PixelFormat, SimpleConfig
+from rustcv_tpu_torch.core import Mat, PixelFormat, SimpleConfig
 from rustcv_tpu_torch.models import get_model
 from rustcv_tpu_torch.ops import kernels
 from rustcv_tpu_torch.ops.kernels import decode_interleave, harris, mosaic_shuffle, stencil, tick_fused
@@ -1341,6 +1348,250 @@ def test_full_f32_guard_holds_under_tf32(cuda):
             got = template.match_template(s["gray_t"], torch.from_numpy(tm).to(cuda), m).cpu().numpy()
             ref = template.match_template_numpy(img, tm, m)
             assert np.abs(got - ref).max() / max(1.0, float(np.abs(ref).max())) < 1e-4
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+# -- group 3 and the segmentation head of group 4: each call on CUDA inputs
+#    against the same call on CPU inputs ---------------------------------------
+
+def test_make_dummy_overlay_defaults_to_the_card(cuda):
+    from rustcv_tpu_torch.runtime.pipeline import make_dummy_overlay
+
+    rects, colors, _ = make_dummy_overlay(4)
+    assert rects.device.type == colors.device.type == "cuda"
+    assert make_dummy_overlay(4, device="cpu")[0].device.type == "cpu"
+
+
+def _g3_clip(n=6, h=72, w=96, seed=30):
+    """A seeded gray clip: a bright square moving 3 px a frame, a darkened
+    band from frame 3 (MOG2's shadows)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(60, 200, (h, w, 3)).astype(np.uint8)
+    out = []
+    for t in range(n):
+        f = np.clip(base.astype(int) + rng.integers(-2, 3, base.shape), 0, 255).astype(np.uint8)
+        f[20:36, 10 + 3 * t:26 + 3 * t] = 250
+        if t >= 3:
+            f[50:62] = (f[50:62] * 0.6).astype(np.uint8)
+        out.append(f)
+    return np.stack(out)
+
+
+def _g3_calls():
+    """name → (call on a device name, check(got, want) on numpy)."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import bgsub, ccl, csrt, kalman, kcf, meanshift_filter, tracker
+
+    clip = _g3_clip()
+    gray = clip[..., 1].copy()
+    rng = np.random.default_rng(31)
+    mask = (rng.random((72, 96)) < 0.45).astype(np.uint8) * 255
+
+    def t(a, dev):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def mog2(frames, shadows):
+        def call(dev):
+            sub = bgsub.BackgroundSubtractorMOG2(detect_shadows=shadows)
+            return np.stack([sub.apply(t(f, dev)).cpu().numpy() for f in frames])
+        return call
+
+    def knn(dev):
+        sub = ip.create_background_subtractor_knn()
+        return np.stack([sub.apply(t(f, dev)).cpu().numpy() for f in clip])
+
+    def track(mod, boxes):
+        def call(dev):
+            st = mod.init(t(gray[0], dev), boxes)
+            out = []
+            for f in gray[1:]:
+                st, ok, score = mod.step(st, t(f, dev))
+                out.append(np.concatenate([st.center.cpu().numpy().ravel(),
+                                           ok.cpu().numpy().ravel(), score.cpu().numpy().ravel()]))
+            assert st.center.device.type == torch.device(dev).type
+            return np.stack(out)
+        return call
+
+    def scan(dev):
+        n = 64
+        a = np.eye(4, dtype=np.float32)
+        a[0, 2] = a[1, 3] = 1
+        zs = np.random.default_rng(32).normal(0, 1, (20, n, 2)).astype(np.float32)
+        xs, xf, pf = kalman.filter_scan(t(np.zeros((n, 4), np.float32), dev),
+                                        t(np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)), dev),
+                                        t(zs, dev), t(a, dev), t(np.eye(2, 4, dtype=np.float32), dev),
+                                        t(np.eye(4, dtype=np.float32) * 0.01, dev),
+                                        t(np.eye(2, dtype=np.float32) * 0.5, dev))
+        return xs.cpu().numpy()
+
+    def track_check(n):
+        """Centres and ``ok`` equal, the scores within 5e-3, per step."""
+        def check(got, want):
+            assert np.array_equal(got[:, :3 * n], want[:, :3 * n])
+            assert np.abs(got[:, 3 * n:] - want[:, 3 * n:]).max() < 5e-3
+        return check
+
+    def within1(got, want):
+        assert (np.abs(got.astype(int) - want) <= 1).mean() > 0.99
+
+    def share(rate):
+        def check(got, want):
+            assert got.shape == want.shape and (got == want).mean() >= rate
+        return check
+
+    def exact(got, want):
+        if isinstance(want, tuple):
+            for g, w in zip(got, want):
+                exact(g, w)
+            return
+        assert np.array_equal(np.asarray(got), np.asarray(want))
+
+    boxes4 = [(10, 20, 16, 16), (40, 10, 16, 16), (60, 40, 16, 16), (20, 46, 16, 16)]
+    markers = np.zeros((72, 96), np.int32)
+    markers[5, 5], markers[60, 90], markers[36, 48] = 1, 2, 3
+    return {
+        "mog2 gray": (mog2(gray, False), share(0.9999)),
+        "mog2 bgr": (mog2(clip, False), share(0.9999)),
+        "mog2 bgr shadows": (mog2(clip, True), share(0.9999)),
+        "knn": (knn, exact),
+        "mosse": (track(tracker, (20, 18, 24, 24)), track_check(1)),
+        "kcf": (track(kcf, (10, 20, 16, 16)), track_check(1)),
+        "csrt": (track(csrt, (10, 20, 16, 16)), track_check(1)),
+        "mosse bank": (track(tracker, [(x, y, 24, 24) for x, y, _, _ in boxes4]), track_check(4)),
+        "kcf bank": (track(kcf, boxes4), track_check(4)),
+        "csrt bank": (track(csrt, boxes4), track_check(4)),
+        "filter_scan": (scan, lambda g, w: np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)),
+        "pyr_mean_shift": (lambda dev: meanshift_filter.pyr_mean_shift(
+            t(clip[0, :32, :40], dev), sp=3, sr=25.0, max_iter=3).cpu().numpy(), within1),
+        "kmeans_quantize": (lambda dev: ip.kmeans_quantize(Mat.from_device(t(clip[0], dev)), 8)[0]
+                            .to_numpy(), share(0.999)),
+        "watershed": (lambda dev: ip.watershed(Mat.from_device(t(gray[0][..., None], dev)),
+                                               markers), exact),
+        "slic": (lambda dev: ip.slic_superpixels(t(clip[0], dev), region_size=16)[0], share(0.97)),
+        "components": (lambda dev: ip.connected_components_with_stats(
+            Mat.from_device(t(mask[..., None], dev)))[1:], exact),
+        "components 8": (lambda dev: ccl.connected_components(t(mask, dev), connectivity=8), exact),
+        "find_contours": (lambda dev: tuple(ip.find_contours(Mat.from_device(t(mask[..., None],
+                                                                               dev)))), exact),
+        "distance_transform": (lambda dev: ip.distance_transform(
+            Mat.from_device(t(mask[..., None], dev))), exact),
+        "distance_l2": (lambda dev: ccl.distance_transform_l2_with_labels(t(mask, dev)), exact),
+        "detect_blobs": (lambda dev: ip.detect_blobs(Mat.from_device(t(np.where(
+            mask[..., None] > 0, 40, 220).astype(np.uint8), dev))), exact),
+        "voronoi_seam": (lambda dev: ip.voronoi_seam(t(mask, dev), t(255 - mask, dev)), exact),
+    }
+
+
+@pytest.mark.parametrize("name", list(_g3_calls()))
+def test_group3_on_the_card_matches_the_cpu(cuda, name):
+    call, check = _g3_calls()[name]
+    kernels.reset_launch_counts()
+    got = call("cuda")
+    assert not any(kernels.launch_counts().values())  # this slice runs no kernel
+    check(got, call("cpu"))
+
+
+def test_subtractor_and_tracker_state_stays_on_the_card(cuda, monkeypatch):
+    """The models and filters live on the card between frames; a frame
+    costs the trackers one host read (``ok``, the score, the centre) and
+    the subtractors none."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import csrt, kcf, tracker
+
+    clip = _g3_clip()
+    mog2 = ip.create_background_subtractor_mog2(detect_shadows=True)
+    knn = ip.create_background_subtractor_knn()
+    reads = []
+    real = torch.Tensor.cpu
+
+    def spy(self, *a, **k):
+        reads.append(self.device.type)
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", spy)
+    for f in clip:
+        m = Mat.from_device(torch.from_numpy(f).to(cuda))
+        assert mog2.apply(m).is_cuda and knn.apply(m).is_cuda
+    assert all(s.is_cuda for s in mog2._state) and knn._state.samples.is_cuda
+    assert knn._state.clock.is_cuda and reads == []
+    for cls in (tracker.TrackerMOSSE, kcf.TrackerKCF, csrt.TrackerCSRT):
+        trk = cls()
+        trk.init(Mat.from_device(torch.from_numpy(clip[0]).to(cuda)), (10, 20, 16, 16))
+        reads.clear()
+        for f in clip[1:]:
+            trk.update(Mat.from_device(torch.from_numpy(f).to(cuda)))
+        assert all(v.is_cuda for v in trk._state) and reads == ["cuda"] * (len(clip) - 1)
+    monkeypatch.setattr(torch.Tensor, "cpu", real)
+    fresh = ip.create_background_subtractor_mog2()  # a numpy frame goes to the card
+    assert isinstance(fresh.apply(clip[0]), np.ndarray) and fresh._state[0].is_cuda
+
+
+def test_a_bank_runs_as_one_batch(cuda):
+    """A bank of 4 steps once for all 4 (one call, every field with a bank
+    axis of 4) and equals 4 lone trackers."""
+    from rustcv_tpu_torch.ops import csrt, kcf, tracker
+
+    gray = torch.from_numpy(_g3_clip()[..., 1].copy()).to(cuda)
+    boxes = [(10, 20, 16, 16), (40, 10, 16, 16), (60, 40, 16, 16), (20, 46, 16, 16)]
+    for mod in (tracker, kcf, csrt):
+        bank = mod.init(gray[0], boxes)
+        lone = [mod.init(gray[0], b) for b in boxes]
+        for f in gray[1:]:
+            bank, ok, score = mod.step(bank, f)
+            assert all(v.shape[0] == 4 for v in bank) and ok.shape == score.shape == (4,)
+            steps = [mod.step(s, f) for s in lone]
+            lone = [s for s, _, _ in steps]
+            assert torch.equal(bank.center, torch.cat([s.center for s in lone]))
+            assert torch.allclose(score, torch.cat([sc for _, _, sc in steps]), atol=1e-5)
+
+
+def test_full_f32_is_in_force_around_kmeans_and_kalman(cuda, monkeypatch):
+    """With TF32 switched on globally, every product k-means and the Kalman
+    banks run sees it off (``ops/tensors.full_f32``), and the results meet
+    the float64 oracles at the reference's tolerances."""
+    from rustcv_tpu_torch.ops import golden, kalman, kmeans
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    seen = []
+    real_einsum, real_matmul = torch.einsum, torch.Tensor.__matmul__
+
+    def einsum(*a, **k):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real_einsum(*a, **k)
+
+    def matmul(self, other):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real_matmul(self, other)
+
+    try:
+        monkeypatch.setattr(torch, "einsum", einsum)
+        monkeypatch.setattr(torch.Tensor, "__matmul__", matmul)
+        rng = np.random.default_rng(33)
+        pts = np.concatenate([rng.normal(m, 3.0, (4000, 3)) for m in (20, 120, 220)]
+                             ).astype(np.float32)
+        init = kmeans.kmeans_pp_init(pts, 3)
+        c, lab, _ = kmeans.kmeans(torch.from_numpy(pts).to(cuda), 3, 10, init_centers=init)
+        oc, ol, _ = kmeans.kmeans_numpy(pts, 3, 10, init_centers=init)
+        assert np.abs(c.cpu().numpy() - oc).max() < 1e-3
+        assert (lab.cpu().numpy() == ol).mean() > 0.999
+        A = np.array([[1.0, 1.0], [0.0, 1.0]])
+        H, Q, R = np.array([[1.0, 0.0]]), np.eye(2) * 1e-2, np.array([[0.5]])
+        x = rng.normal(size=(16, 2)) * 100
+        P = np.stack([np.eye(2) * (1 + i) for i in range(16)])
+        z = rng.normal(size=(16, 1)) * 100
+        on = [torch.from_numpy(v).to(cuda) for v in (x, P, A, Q)]
+        xp, Pp = kalman.predict_batch(*on)
+        xn, Pn, K = kalman.correct_batch(xp, Pp, *[torch.from_numpy(v).to(cuda) for v in (z, H, R)])
+        for i in range(16):
+            gx, gP = golden.kalman_predict(x[i], P[i], A, Q)
+            gxc, gPc, gK = golden.kalman_correct(gx, gP, z[i], H, R)
+            np.testing.assert_allclose(xn[i].cpu().numpy(), gxc, rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(K[i].cpu().numpy(), gK, rtol=1e-4, atol=1e-5)
+        assert seen and not any(seen)
         assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

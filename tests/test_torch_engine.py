@@ -411,3 +411,18 @@ def test_zoo_config2_builds_its_hybrid_engine_and_ticks():
         assert eng.spec.mjpeg_packed and len(eng.spec.coeff_geometry) == 3
         assert res.numpy("bgr").shape == (2, 24, 32, 3) and res.sequences.tolist() == [0, 0]
         assert eng.export_state()["device_sim"] is False
+
+
+def test_dummy_overlay_defaults_to_the_card(monkeypatch):
+    """``make_dummy_overlay`` uses the card unless the caller names another
+    device (as ``Mat()`` does): with no card its default raises instead of
+    making CPU tensors; ``device="cpu"`` still makes them, with the
+    reference's values."""
+    rects, colors, thickness = port_pipeline.make_dummy_overlay(3, device="cpu")
+    want = jax_pipeline.make_dummy_overlay(3)
+    assert rects.device.type == colors.device.type == "cpu"
+    assert np.array_equal(rects.numpy(), np.asarray(want[0]))
+    assert np.array_equal(colors.numpy(), np.asarray(want[1])) and thickness == want[2]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_pipeline.make_dummy_overlay(3)

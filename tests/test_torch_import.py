@@ -15,7 +15,11 @@ diffusion, blending, ``core_ops`` and the host modules) with theirs, and
 the features and flow of group 2 (corner responses, FAST, BRIEF/ORB,
 SIFT, AKAZE, HOG, LK, Farnebäck, DIS, TV-L1, template matching, the
 DFT/DCT, phase correlation, ECC, and the ``canny_cv``, ``color_cv2`` and
-``decolor`` copies) with theirs, with jax, Pillow and the JAX package
+``decolor`` copies) with theirs, and group 3 and the segmentation head
+of group 4 (the background subtractors, Kalman banks, the trackers,
+mean-shift filtering, components, contours, distance transforms, blobs,
+k-means, watershed, SLIC, the Voronoi seam) with theirs, with jax, Pillow
+and the JAX package
 ``rustcv_tpu`` absent. The font data's
 generator (``tools/make_text_data.py``) is no module of the package.
 
@@ -386,6 +390,74 @@ _GROUP2_SCRIPT = textwrap.dedent(
     print("OK")
     """
 )
+
+
+_GROUP3_SCRIPT = textwrap.dedent(
+    """
+    import importlib, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    for mod in ("bgsub", "knn_bgsub", "kalman", "tracker", "kcf", "csrt", "mil", "dsst_scale",
+                "meanshift_filter", "ccl", "blob", "kmeans", "watershed", "slic", "blend"):
+        importlib.import_module("rustcv_tpu_torch.ops." + mod)
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.ops import csrt, kalman, kcf, mil, tracker
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (48, 64), np.uint8)
+    bgr = rng.integers(0, 256, (48, 64, 3), np.uint8)
+    for sub in (imgproc.create_background_subtractor_mog2(detect_shadows=True),
+                imgproc.create_background_subtractor_knn()):
+        assert sub.apply(Mat.from_array(bgr, device="cpu")).shape == (48, 64)
+        assert sub.apply(torch.from_numpy(bgr)).shape == (48, 64)
+    for mod in (tracker, kcf, csrt):
+        st = mod.init(torch.from_numpy(img), [(10, 10, 16, 16), (30, 20, 16, 16)])
+        st, ok, score = mod.step(st, torch.from_numpy(img))
+        assert ok.shape == (2,) and bool(ok.all())
+    t = mil.TrackerMIL()
+    t.init(img, (10, 10, 16, 16))
+    assert t.update(img)[1][2:] == (16, 16)
+    xs, xf, pf = kalman.filter_scan(torch.zeros(3, 2), torch.eye(2).repeat(3, 1, 1),
+                                    torch.ones(4, 3, 1), torch.eye(2), torch.eye(1, 2),
+                                    torch.eye(2), torch.eye(1))
+    assert xs.shape == (4, 3, 2)
+    mask = (img > 128).astype(np.uint8)
+    for mk in (lambda a: Mat.from_array(a, device="cpu"),
+               lambda a: Mat.from_device(torch.from_numpy(a))):
+        n, lab = imgproc.connected_components(mk(mask))
+        assert lab.shape == (48, 64) and n == lab.max()
+        assert len(imgproc.find_contours(mk(mask))) == n
+        assert imgproc.distance_transform(mk(mask)).dtype == np.int32
+        assert imgproc.pyr_mean_shift_filtering(mk(bgr[:16, :16].copy()), sp=2,
+                                                max_iter=1).shape == (16, 16, 3)
+        assert imgproc.kmeans_quantize(mk(bgr), k=4)[1].shape == (4, 3)
+        markers = np.zeros((48, 64), np.int32)
+        markers[5, 5], markers[40, 60] = 1, 2
+        assert set(np.unique(imgproc.watershed(mk(img), markers))) <= {-1, 1, 2}
+    assert imgproc.detect_blobs(Mat.from_array(img, device="cpu")).shape[1] == 3
+    assert imgproc.slic_superpixels(torch.from_numpy(bgr), region_size=16)[0].shape == (48, 64)
+    assert imgproc.voronoi_seam(mask, 1 - mask)[0].dtype == bool
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_group3_and_segmentation_run_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _GROUP3_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_features_and_flow_run_without_jax_or_pil():

@@ -150,8 +150,24 @@ def test_gain_compensation(n):
     np.testing.assert_array_equal(PB.gain_compensation(images[:2], disjoint), np.ones(2))
 
 
-def test_voronoi_seam_is_left_for_the_ccl_module():
-    assert not hasattr(PB, "voronoi_seam") and not hasattr(port_ip, "voronoi_seam")
+def test_voronoi_seam_is_left_for_the_ccl_module(monkeypatch):
+    """``voronoi_seam`` arrived with the ``ccl`` module: it splits the
+    overlap by ``ccl``'s exact L2 distance, as the reference's does, and
+    ``imgproc`` re-exports it."""
+    from rustcv_tpu_torch.ops import ccl
+
+    m1 = np.zeros((30, 40), np.uint8)
+    m1[:, :28] = 1
+    m2 = np.zeros((30, 40), np.uint8)
+    m2[4:, 12:] = 255
+    calls = []
+    real = ccl.distance_transform_l2_with_labels
+    monkeypatch.setattr(ccl, "distance_transform_l2_with_labels",
+                        lambda m: calls.append(m.shape) or real(m))
+    got, want = PB.voronoi_seam(m1, m2), JB.voronoi_seam(m1, m2)
+    assert calls == [(30, 40), (30, 40)]
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert port_ip.voronoi_seam is PB.voronoi_seam
 
 
 # -- the imgproc wrappers: the port's host and device (CPU tensor) Mats against

@@ -3,7 +3,11 @@ the C++ sources, built with g++ into ``build/rustcv_tpu_torch/``) against
 the reference's ``rustcv_tpu.native``: for seeded quantized coefficients
 both write byte-identical JFIF, from dense grids and from block-packed
 rows, and each payload entropy-decodes back to the coefficients and
-tables exactly (Huffman coding is lossless)."""
+tables exactly (Huffman coding is lossless). The union-find of the
+components (``unionfind.cpp``: ``ccl_label``, ``union_find``) equals the
+reference's on seeded masks and edge lists, and a library that does not
+build raises with the compiler's output, where the reference's ``ccl``
+falls back to Python."""
 
 import numpy as np
 import pytest
@@ -107,3 +111,69 @@ def test_bad_input_raises(coders):
         native.jpeg_entropy_encode_packed(np.zeros((3, 4), np.uint8), np.zeros((3, 4), np.int16),
                                           np.zeros(1, np.int32), np.zeros((1, 64), np.int16),
                                           g["blocks"], [qy, qc, qc], 16, 16, [1] * 3, [1] * 3)
+
+
+def _ccl_masks():
+    rng = np.random.default_rng(21)
+    masks = {"empty": np.zeros((9, 13), np.uint8), "full": np.ones((9, 13), np.uint8) * 255,
+             "one_row": (rng.random((1, 40)) < 0.5).astype(np.uint8),
+             "one_col": (rng.random((40, 1)) < 0.5).astype(np.uint8)}
+    for d in (0.05, 0.45, 0.6, 0.9):  # sparse and dense speckle
+        masks[f"speckle{d}"] = (rng.random((57, 71)) < d).astype(np.uint8) * 7
+    stripes = np.zeros((30, 30), np.uint8)
+    stripes[:, ::2] = 1
+    stripes[::7] = 1
+    masks["stripes"] = stripes
+    masks["checker"] = (np.indices((16, 16)).sum(0) % 2).astype(np.uint8)
+    return masks
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("name", sorted(_ccl_masks()))
+def test_ccl_label_is_the_references(coders, name, conn):
+    m = _ccl_masks()[name]
+    n, lab = native.ccl_label(m, conn)
+    rn, rlab = ref.ccl_label(m, conn)
+    assert n == rn and lab.dtype == np.int32 and np.array_equal(lab, rlab)
+    if name == "checker":
+        assert n == (128 if conn == 4 else 1)
+    if name in ("empty", "full"):
+        assert n == (0 if name == "empty" else 1)
+
+
+def test_union_find_is_the_references(coders):
+    rng = np.random.default_rng(22)
+    for n, m in ((1, 0), (10, 0), (50, 30), (400, 900)):
+        ea = rng.integers(0, n, m).astype(np.int32)
+        eb = rng.integers(0, n, m).astype(np.int32)
+        cnt, root = native.union_find(n, ea, eb)
+        rcnt, rroot = ref.union_find(n, ea, eb)
+        assert cnt == rcnt and np.array_equal(root, rroot)
+        assert (root <= np.arange(n)).all()  # min-root: each root the smallest id
+    with pytest.raises(ValueError, match="out of range"):
+        native.union_find(3, np.array([0, 5]), np.array([1, 2]))
+    with pytest.raises(ValueError, match="equal"):
+        native.union_find(3, np.array([0]), np.array([1, 2]))
+    with pytest.raises(ValueError, match="connectivity"):
+        native.ccl_label(np.ones((2, 2), np.uint8), 6)
+
+
+def test_a_library_that_does_not_build_raises(monkeypatch, tmp_path):
+    """A source g++ refuses leaves no library: the components raise with
+    the compiler's output, and no Python fallback labels anything."""
+    from rustcv_tpu_torch.ops import ccl
+
+    broken = tmp_path / "unionfind.cpp"
+    broken.write_text("extern \"C\" long rcv_union_find( { not C++ }\n")
+    monkeypatch.setattr(native, "SOURCES", (broken,))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_error", None)
+    assert not native.available()
+    assert "g++ failed" in native.build_error()
+    for call in (lambda: native.ccl_label(np.ones((3, 3), np.uint8)),
+                 lambda: native.union_find(2, np.array([0]), np.array([1])),
+                 lambda: ccl.connected_components(np.ones((3, 3), np.uint8)),
+                 lambda: ccl.find_contours(np.ones((3, 3), np.uint8))):
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            call()
