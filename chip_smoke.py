@@ -3668,6 +3668,398 @@ def time_group3(smi: str) -> None:
           flush=True)
 
 
+# Phase 3r: group 4a (Hough, stereo, NL-means, the domain-transform and
+# guided filters, Poisson editing, inpainting, HDR, cascades and the host
+# modules). Each call runs on the card inputs here and on the host inputs in
+# spawned CPU workers, as 3q's: the port's tensor twin on CPU tensors for the
+# device ops, the same host code for the host ops. Sizes: 1080p for the
+# Hough transforms, the guided filter, Poisson cloning (a 200×200 patch),
+# the diffusion inpaint, Mertens fusion (three exposures of the test pattern)
+# and the cascade scorer; a rectified 1280×720 pair for stereo (D = 64, two
+# known disparities); G4_CROP (480×270) for NL-means and the
+# domain-transform family, whose host sides would take minutes at 1080p
+# (their 1080p times are phase 4r's); small crops for the host modules.
+G4_STEREO = (1280, 720, 64)  # width, height, disparities
+G4_DISP = (12, 40)  # true disparity of the pair's left and right halves
+G4_CROP = (400, 200, 270, 480)  # (y, x, h, w)
+G4_SMALL = (420, 700, 120, 160)  # (y, x, h, w) of the host modules' crop
+G4_CASCADE = (300, 500, 270, 480)  # (y, x, h, w): the multi-scale crop, two targets in it
+G4_PAIR_CROP = (0, 0, 270, 480)  # (y, x, h, w) of the pair for the stereo wrapper
+G4_CLONE = ((100, 100), 200, (960, 700))  # patch origin (y, x), side, centre (x, y)
+G4_DISCS, G4_SEED = 8, 60
+G4_QR = "rustcv_tpu_torch group 4a"
+G4_WORKERS = 4
+
+
+def group4a_sides(side: str) -> dict:
+    """Phase 3r's inputs on one side: "card" (CUDA tensors and Mats) or
+    "host" (CPU tensors and Mats)."""
+    import torch
+
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.ops import cascade, filters, ghough, golden, qr
+    from rustcv_tpu_torch.ops.color import bgr_to_gray
+    from rustcv_tpu_torch.prelude import Mat
+
+    dev = "cuda" if side == "card" else "cpu"
+    rng = np.random.default_rng(G4_SEED)
+    frame = group3_frame()
+    pattern = synth_bgr(W, H, 11)
+    pgray = bgr_to_gray(torch.from_numpy(pattern)).numpy()
+    discs = pgray.copy()
+    yy, xx = np.ogrid[:H, :W]
+    for _ in range(G4_DISCS):
+        cy, cx, r = int(rng.integers(60, H - 60)), int(rng.integers(60, W - 60)), int(
+            rng.integers(14, 50))
+        discs[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = int(rng.integers(0, 60))
+    edges = filters.canny_u8(torch.from_numpy(pgray)).numpy()
+    sw, sh, nd = G4_STEREO
+    base = golden.gaussian5_u8(rng.integers(0, 256, (sh, sw + nd), np.uint8))
+    left = np.ascontiguousarray(base[:, :sw])
+    right = np.empty_like(left)
+    d1, d2 = G4_DISP
+    right[:, :sw // 2] = base[:, d1:sw // 2 + d1]
+    right[:, sw // 2:] = base[:, sw // 2 + d2:sw + d2]
+    y, x, h, w = G4_CROP
+    crop = np.ascontiguousarray(frame[y:y + h, x:x + w])
+    crop_gray = bgr_to_gray(torch.from_numpy(crop)).numpy()
+    crop_frames = np.stack([np.clip(crop_gray.astype(np.int16) + rng.integers(
+        -6, 7, crop_gray.shape, np.int16), 0, 255).astype(np.uint8) for _ in range(3)])
+    exposures = np.stack([np.clip(pattern.astype(np.float32) * s, 0, 255).astype(np.uint8)
+                          for s in (0.35, 1.0, 2.4)])
+    (py, px), side_px, centre = G4_CLONE
+    patch = np.ascontiguousarray(frame[py:py + side_px, px:px + side_px])
+    hole = np.zeros((H, W), bool)  # a horizontal and a vertical scratch
+    hole[H * 25 // 54:H // 2, W * 5 // 16:W * 25 // 48] = True
+    hole[H * 5 // 18:H * 35 // 54, W * 5 // 8:W * 41 // 64] = True
+    sy, sx, shh, sww = G4_SMALL
+    small = np.ascontiguousarray(frame[sy:sy + shh, sx:sx + sww])
+    small_hole = np.zeros((shh, sww), bool)
+    small_hole[50:60, 30:130] = True
+    win = 24
+    pos = rng.integers(90, 130, (40, win, win))
+    pos[:, 4:10, 3:21] = rng.integers(20, 50, (40, 6, 18))
+    pos[:, 14:22, 6:18] = rng.integers(170, 220, (40, 8, 12))
+    model = cascade.train_cascade(pos.astype(np.uint8),
+                                  rng.integers(0, 256, (200, win, win)).astype(np.uint8),
+                                  n_stages=3, n_stumps=6)
+    scene = bgr_to_gray(torch.from_numpy(frame)).numpy()
+    for k in range(6):  # six targets on a diagonal
+        ty, tx = H * (2 + k) // 10, W * (2 + k) // 10
+        scene[ty:ty + win, tx:tx + win] = pos[k]
+    qr_img = qr.draw(qr.encode(G4_QR, 4, "M", 2), 6)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def mat(a):
+        return Mat.from_device(t(a if a.ndim == 3 else a[..., None]))
+
+    return {
+        "dev": dev, "frame": t(frame), "frame_mat": mat(frame), "gray": t(pgray),
+        "edges": t(edges), "edges_mat": mat(edges), "discs": t(discs), "discs_mat": mat(discs),
+        "r_table": ghough.build_r_table(discs[H * 4 // 9:H * 4 // 9 + 64,
+                                              W * 15 // 32:W * 15 // 32 + 64]),
+        "left": t(left), "right": t(right), "left_mat": mat(left), "right_mat": mat(right),
+        "crop": t(crop), "crop_mat": mat(crop), "crop_gray": t(crop_gray),
+        "crop_gray_mat": mat(crop_gray), "crop_frames": t(crop_frames),
+        "exposures": t(exposures), "exposure_mats": [mat(e) for e in exposures],
+        "patch": patch, "clone_mask": np.ones((side_px, side_px), bool), "centre": centre,
+        "pattern": t(pattern), "pattern_mat": mat(pattern), "hole": hole,
+        "small_mat": mat(small), "small_hole": small_hole, "model": model,
+        "scene": t(scene), "scene_mat": mat(scene), "qr_mat": mat(qr_img),
+        "chart": _g4_chart(),
+    }
+
+
+def _g4_chart() -> np.ndarray:
+    """The 24-patch colour checker drawn on a 300×420 card."""
+    from rustcv_tpu_torch.ops.colorchecker import REFERENCE_SRGB
+
+    img = np.full((300, 420, 3), 190, np.uint8)
+    x0, y0, cw, chh, sep, frame = 60, 50, 48, 44, 6, 10
+    wt, ht = 6 * cw + 7 * sep, 4 * chh + 5 * sep
+    img[y0 - frame:y0 + ht + frame, x0 - frame:x0 + wt + frame] = 20
+    img[y0:y0 + ht, x0:x0 + wt] = 250
+    for r in range(4):
+        for c in range(6):
+            y, x = y0 + sep + r * (chh + sep), x0 + sep + c * (cw + sep)
+            img[y:y + chh, x:x + cw] = REFERENCE_SRGB[r * 6 + c][::-1]
+    return img
+
+
+def group4a_calls() -> dict:
+    """name → (call on a side of :func:`group4a_sides`, check). A check
+    takes (name, card result, host result) as numpy and raises on a
+    mismatch; it returns the largest difference, or a note."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import (cascade, dtfilter, ghough, hdr, hough, inpaint, nlmeans,
+                                      poisson, sgbm, stereo)
+
+    nd = G4_STEREO[2]
+    c = {
+        "hough_lines": (lambda s: hough.hough_lines(s["edges"], max_points=1 << 20), g3_exact),
+        "hough_lines_p": (lambda s: hough.hough_lines_p(s["edges"]), g3_exact),
+        "hough_circles": (lambda s: hough.hough_circles(s["discs"]), g3_exact),
+        "ghough_accumulate": (lambda s: ghough.ghough_accumulate(s["discs"], s["r_table"]),
+                              g3_exact),
+        "stereo_bm 720p D64": (lambda s: stereo.stereo_bm(s["left"], s["right"], nd),
+                               g4_disparity(1e-4)),
+        "stereo_sgbm 720p D64 4 dirs": (lambda s: sgbm.stereo_sgbm(
+            s["left"], s["right"], nd, num_dirs=4), g4_disparity(1e-3)),
+        "stereo_sgbm 720p D64 8 dirs": (lambda s: sgbm.stereo_sgbm(s["left"], s["right"], nd),
+                                        g4_disparity(1e-3)),
+        "nl_means 480x270": (lambda s: nlmeans.nl_means(s["crop_gray"]), g4_within(1)),
+        "nl_means_colored 480x270": (lambda s: nlmeans.nl_means_colored(s["crop"]),
+                                     g4_within(1)),
+        "nl_means_multi 480x270": (lambda s: nlmeans.nl_means_multi(s["crop_frames"], 1, 3),
+                                   g4_within(1)),
+        "dt_filter 480x270": (lambda s: dtfilter.dt_filter(s["crop"], s["crop"]),
+                              g4_within(1)),
+        "detail_enhance 480x270": (lambda s: dtfilter.detail_enhance(s["crop"]), g4_within(2)),
+        "stylization 480x270": (lambda s: dtfilter.stylization(s["crop"]), g4_within(2)),
+        "pencil_sketch 480x270": (lambda s: dtfilter.pencil_sketch(s["crop"]), g4_within(2)),
+        "guided_filter": (lambda s: dtfilter.guided_filter(s["gray"], s["frame"]),
+                          g4_within(1)),
+        "seamless_clone normal": (lambda s: poisson.seamless_clone(
+            s["patch"], s["pattern"], s["clone_mask"], s["centre"]), g4_within(1)),
+        "seamless_clone mixed": (lambda s: poisson.seamless_clone(
+            s["patch"], s["pattern"], s["clone_mask"], s["centre"], poisson.MIXED_CLONE),
+            g4_within(1)),
+        "inpaint_diffusion": (lambda s: inpaint.inpaint_diffusion(s["frame"], s["hole"]),
+                              g4_within(1)),
+        "merge_mertens": (lambda s: hdr.merge_mertens(s["exposures"]), g4_within(2e-3)),
+        "cascade score_windows": (lambda s: cascade.score_windows_device(s["scene"], s["model"]),
+                                  g4_cascade),
+        "cascade_detect_multi_scale 480x270": (lambda s: ip.cascade_detect_multi_scale(
+            mat_crop(s["scene_mat"], G4_CASCADE), s["model"]), g4_boxes),
+        # the wrappers on a CUDA Mat (a CPU-tensor Mat on the host side)
+        "imgproc.hough_circles": (lambda s: ip.hough_circles(s["discs_mat"]), g3_exact),
+        "imgproc.stereo_bm 480x270": (lambda s: ip.stereo_bm(
+            mat_crop(s["left_mat"], G4_PAIR_CROP), mat_crop(s["right_mat"], G4_PAIR_CROP), nd),
+            g4_disparity(1e-4, (G4_DISP[0], G4_DISP[0]))),
+        "imgproc.fast_nl_means_denoising 480x270": (
+            lambda s: ip.fast_nl_means_denoising(s["crop_gray_mat"]), g4_within(1)),
+        "imgproc.edge_preserving_filter 480x270": (
+            lambda s: ip.edge_preserving_filter(s["crop_mat"]), g4_within(1)),
+        "imgproc.inpaint diffusion 480x270": (lambda s: ip.inpaint(
+            mat_crop(s["frame_mat"], G4_CROP), _crop(s["hole"], G4_CROP), method="diffusion"),
+            g4_within(1)),
+        "imgproc.merge_mertens 480x270": (lambda s: ip.merge_mertens(
+            [mat_crop(m, G4_CROP) for m in s["exposure_mats"]]), g4_within(2e-3)),
+        # the host modules, on CUDA Mats (downloaded by the wrappers)
+        "qr_detect_and_decode": (lambda s: ip.qr_detect_and_decode(s["qr_mat"]), g4_qr),
+        "detect_mser_regions 480x270": (lambda s: ip.detect_mser_regions(s["crop_gray_mat"]),
+                                        g3_exact),
+        "detect_line_segments 480x270": (lambda s: ip.detect_line_segments(s["crop_gray_mat"]),
+                                         g3_exact),
+        "grab_cut 160x120": (lambda s: ip.grab_cut(s["small_mat"], rect=(30, 20, 100, 80),
+                                                   iter_count=2), g3_exact),
+        "inpaint telea 160x120": (lambda s: ip.inpaint(s["small_mat"], s["small_hole"]),
+                                  g3_exact),
+        "color_change 160x120": (lambda s: ip.color_change(s["small_mat"], s["small_hole"]),
+                                 g3_exact),
+        "align_mtb 480x270": (lambda s: ip.align_mtb([mat_crop(m, G4_CROP)
+                                                      for m in s["exposure_mats"]]), g3_exact),
+        "merge_robertson 160x120": (lambda s: ip.merge_robertson(
+            [mat_crop(m, G4_SMALL) for m in s["exposure_mats"]], np.array([0.35, 1.0, 2.4],
+                                                                          np.float32)),
+            g3_exact),
+        "tonemap_mantiuk 160x120": (lambda s: ip.tonemap_mantiuk(
+            mat_crop(s["exposure_mats"][1], G4_SMALL).to_numpy().astype(np.float32) / 64 + 0.01),
+            g3_exact),
+        "detect_color_checker": (lambda s: ip.detect_color_checker(s["chart"]), g3_exact),
+        "IntelligentScissors 80x60": (lambda s: _g4_scissors(s["small_mat"]), g3_exact),
+    }
+    return c
+
+
+def mat_crop(mat, box):
+    """A crop (y, x, h, w) of a Mat, on its side."""
+    from rustcv_tpu_torch.prelude import Mat
+
+    y, x, h, w = box
+    a = mat.device()[y:y + h, x:x + w].contiguous()
+    return Mat.from_device(a)
+
+
+def _g4_scissors(mat):
+    from rustcv_tpu_torch import imgproc as ip
+
+    tool = ip.IntelligentScissors().apply_image(mat.to_numpy()[:60, :80, 1])
+    tool.build_map((10, 30))
+    return tool.get_contour((70, 20))
+
+
+# -- phase 3r's checks: the reference's own tolerances ------------------------
+
+def g4_within(tol):
+    def check(name, got, want):
+        parts = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for g, w in zip(parts, wants):
+            expect(g.shape == w.shape, f"{name}: {g.shape} != {w.shape}")
+            err = max(err, float(np.abs(g.astype(np.float64) - w).max()))
+        expect(err <= tol, f"{name}: max |diff| {err:.3g} > {tol}")
+        return err
+    return check
+
+
+def g4_disparity(tol, truth=G4_DISP):
+    """``valid`` equal, ``floor(disp + 0.5)`` equal, disparity within
+    ``tol``; the note has each half's median against its true disparity."""
+    def check(name, got, want):
+        (d, v), (wd, wv) = got, want
+        expect(np.array_equal(v, wv), f"{name}: valid differs at {int((v != wv).sum())} px")
+        expect(np.array_equal(np.floor(d + 0.5), np.floor(wd + 0.5)), f"{name}: rounded differs")
+        err = float(np.abs(d - wd).max())
+        expect(err <= tol, f"{name}: max |diff| {err:.3g}")
+        w = d.shape[1]
+        halves = [np.median(d[:, a:b][v[:, a:b]]) for a, b in ((G4_STEREO[2], w // 2 - 16),
+                                                                 (w // 2 + 48, w - 8))]
+        return (f"{err:.3g}, valid {v.mean():.3f}, medians {halves[0]:.2f}/{halves[1]:.2f} "
+                f"(true {truth[0]}/{truth[1]})")
+    return check
+
+
+def g4_cascade(name, got, want, eps=1e-3):
+    """``ok`` equal wherever the host margin is clear of a stage threshold
+    by more than ``eps`` (float32 either side); margins within 1e-3; the
+    note counts the windows in the band."""
+    (ok, m), (wok, wm) = got, want
+    outside = np.abs(wm) > eps
+    expect(np.array_equal(ok[outside], wok[outside]), f"{name}: ok differs outside the band")
+    err = float(np.abs(m - wm).max())
+    expect(err <= 1e-3, f"{name}: margin |diff| {err:.3g}")
+    return (f"margin {err:.3g}, {int((~outside).sum())} of {ok.size} windows in the "
+            f"|margin| <= {eps} band ({int((ok != wok)[~outside].sum())} of them differ), "
+            f"{int(ok.sum())} pass")
+
+
+def g4_boxes(name, got, want):
+    (b, sc), (wb, wsc) = got, want
+    expect(np.array_equal(b, wb), f"{name}: boxes differ")
+    err = float(np.abs(sc - wsc).max()) if len(sc) else 0.0
+    expect(err <= 1e-3, f"{name}: scores |diff| {err:.3g}")
+    return f"{len(b)} boxes, scores {err:.3g}"
+
+
+def g4_qr(name, got, want):
+    expect(got[0] == want[0] == G4_QR, f"{name}: decoded {got[0]!r} / {want[0]!r}")
+    expect(np.array_equal(got[1], want[1]), f"{name}: corners differ")
+    return "decoded"
+
+
+_G4_HOST = {}  # a worker's host inputs and calls, made at its first call
+
+
+def group4a_host(name: str):
+    """One call of phase 3r on the host inputs, in a worker process: the
+    result as numpy, and its seconds."""
+    import torch
+
+    if not _G4_HOST:
+        torch.set_num_threads(2)
+        _G4_HOST["sides"] = group4a_sides("host")
+        _G4_HOST["calls"] = group4a_calls()
+    t0 = time.perf_counter()
+    out = _g3_plain(_G4_HOST["calls"][name][0](_G4_HOST["sides"]))
+    return out, time.perf_counter() - t0
+
+
+def run_group4a() -> dict:
+    """Phase 3r: every call of :func:`group4a_calls` on the card inputs
+    against the same call on the host inputs, computed meanwhile by
+    G4_WORKERS spawned CPU processes (stopped before this returns). Prints
+    each size, each call's largest difference, the stereo medians against
+    the true disparities and SGBM's scan steps. Launches no kernel: returns
+    the (zero) launches of the card's calls."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels, sgbm
+
+    calls = group4a_calls()
+    heavy = ["stereo_sgbm 720p D64 8 dirs", "stereo_sgbm 720p D64 4 dirs", "inpaint_diffusion",
+             "stereo_bm 720p D64", "seamless_clone mixed", "seamless_clone normal",
+             "merge_mertens", "nl_means_colored 480x270"]
+    order = heavy + [n for n in calls if n not in heavy]
+    pool = ProcessPoolExecutor(max_workers=G4_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {name: pool.submit(group4a_host, name) for name in order}
+        sides = group4a_sides("card")
+        kernels.reset_launch_counts()
+        got, card_s, steps = {}, {}, 0
+        for name, (call, _check) in calls.items():
+            t0 = time.perf_counter()
+            got[name] = call(sides)
+            torch.cuda.synchronize()
+            card_s[name] = time.perf_counter() - t0
+            if name.startswith("stereo_sgbm") and name.endswith("8 dirs"):
+                steps = sgbm.last_steps
+        counts = kernels.launch_counts()
+        expect(not any(counts.values()), f"phase 3r launched a kernel: {counts}")
+        notes, host_s = {}, {}
+        for name, (call, check) in calls.items():
+            want, host_s[name] = futures[name].result(timeout=600)
+            notes[name] = check(name, _g3_plain(got[name]), want)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    sw, sh, nd = G4_STEREO
+    print(f"group 4a at {W}x{H} (stereo {sw}x{sh} D={nd}; NL-means and the domain-transform "
+          f"family at {G4_CROP[3]}x{G4_CROP[2]}; the host modules at their stated sizes; clone "
+          f"patch {G4_CLONE[1]}x{G4_CLONE[1]}): {len(calls)} calls on the card == the CPU port "
+          f"within the reference's tolerances, no kernel launched; SGBM 8 dirs {steps} scan "
+          f"steps; " + "; ".join(f"{k} {v:.3g}" if not isinstance(v, str) else f"{k} {v}"
+                                 for k, v in notes.items()), flush=True)
+    print("group 4a card seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(card_s.items(), key=lambda kv: -kv[1])[:8])
+        + "; host seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(host_s.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    return counts
+
+
+def time_group4a(smi: str) -> None:
+    """Phase 4r: ms per call on the card (CUDA events) of every device call
+    of phase 3r at its size, and of NL-means and the domain-transform family
+    at 1080p too, with the card's name and power limit, slowest first.
+    Never gated."""
+    from rustcv_tpu_torch.ops import color, dtfilter, nlmeans, sgbm
+
+    s = group4a_sides("card")
+    host_only = ("qr_detect_and_decode", "detect_mser", "detect_line_segments", "grab_cut",
+                 "inpaint telea", "color_change", "align_mtb", "merge_robertson",
+                 "tonemap_mantiuk", "detect_color_checker", "IntelligentScissors")
+    reps = {"stereo_sgbm 720p D64 8 dirs": 1, "stereo_sgbm 720p D64 4 dirs": 1,
+            "seamless_clone normal": 1, "seamless_clone mixed": 1, "inpaint_diffusion": 1,
+            "imgproc.inpaint diffusion 480x270": 2, "nl_means_colored 480x270": 3,
+            "cascade_detect_multi_scale 480x270": 2}
+    times = {}
+    for name, (call, _check) in group4a_calls().items():
+        if name.startswith(host_only):
+            continue
+        times[name] = cuda_ms(lambda c=call: c(s), reps.get(name, 5))
+    gray = color.bgr_to_gray(s["frame"])
+    full = {"nl_means 1080p": lambda: nlmeans.nl_means(gray),
+            "nl_means_colored 1080p": lambda: nlmeans.nl_means_colored(s["frame"]),
+            "dt_filter 1080p": lambda: dtfilter.dt_filter(s["frame"], s["frame"]),
+            "detail_enhance 1080p": lambda: dtfilter.detail_enhance(s["frame"]),
+            "stylization 1080p": lambda: dtfilter.stylization(s["frame"]),
+            "pencil_sketch 1080p": lambda: dtfilter.pencil_sketch(s["frame"])}
+    for name, call in full.items():
+        times[name] = cuda_ms(call, 2)
+    sw, sh, nd = G4_STEREO
+    sgbm.stereo_sgbm(s["left"], s["right"], nd)
+    print(f"group 4a ms per call on card inputs ({smi}; SGBM 8 dirs {sgbm.last_steps} scan "
+          f"steps at {sw}x{sh}), slowest first: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])),
+          flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -3740,7 +4132,8 @@ def main() -> int:
                             ("mesh", run_mesh), ("slice ops, xla_fused, ring, V4L2", run_slice),
                             ("second block of ops (3o)", run_block2),
                             ("group 2, features and flow (3p)", run_group2),
-                            ("group 3 and segmentation (3q)", run_group3)):
+                            ("group 3 and segmentation (3q)", run_group3),
+                            ("group 4a (3r)", run_group4a)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -3763,7 +4156,8 @@ def main() -> int:
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),
                           ("group 2, features and flow (4p)", lambda: time_group2(smi)),
-                          ("group 3 and segmentation (4q)", lambda: time_group3(smi))):
+                          ("group 3 and segmentation (4q)", lambda: time_group3(smi)),
+                          ("group 4a (4r)", lambda: time_group4a(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

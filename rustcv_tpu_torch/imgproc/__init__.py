@@ -46,8 +46,14 @@ arrays as the reference's do. So do those of group 3 and the head of
 group 4: the MOG2 and KNN background subtractors (their masks stay on a
 device frame's device), mean-shift filtering, connected components,
 contours, flood fill, the distance transforms, blobs, k-means, watershed,
-SLIC and the Voronoi seam. The rest of the reference module arrives with
-the ops it wraps (ROADMAP Queue 1 items 6–7); its names are absent here.
+SLIC and the Voronoi seam. And so do those of group 4a: the Hough
+transforms (lines, segments, circles, the generalized Hough), stereo BM
+and SGBM, NL-means, the guided and domain-transform filters with the photo
+ops, Poisson editing, inpainting, HDR fusion, merges and tonemaps, Haar
+cascades, QR codes, MSER, line segments, GrabCut, intelligent scissors,
+the colour checker and the drawing helpers of ``ops.viz``. The rest of the
+reference module arrives with the ops it wraps (ROADMAP Queue 1 items
+6b–7); its names are absent here.
 """
 
 from __future__ import annotations
@@ -1486,6 +1492,422 @@ def watershed(mat: Mat, markers) -> np.ndarray:
     return _watershed.watershed_numpy(g, _host(markers))
 
 
+# ---------------------------------------------------------------------------
+# Group 4a: Hough, stereo, NL-means, the domain-transform and guided
+# filters, Poisson editing, inpainting, HDR, cascades and the host modules.
+# A device Mat takes the port's tensor twin on its device; a host Mat takes
+# what the reference's wrapper runs there (its numpy oracle, or its twin on
+# a CPU tensor where the reference runs the twin on host arrays).
+# ---------------------------------------------------------------------------
+
+
+def _channel0(mat: Mat) -> torch.Tensor:
+    """The Mat's first channel as an (H, W) tensor (a CPU tensor for a host
+    Mat): the edge mask the Hough transforms take."""
+    a = _tensor(mat)
+    return a[..., 0] if a.ndim == 3 else a
+
+
+def hough_lines(mat: Mat, threshold: int = 50, max_lines: int = 32,
+                n_thetas: int = 180, rho_bins: int = 2048,
+                max_points: int = None):
+    """Standard Hough line transform on a binary edge Mat (OpenCV
+    ``HoughLines``): float32 [K, 2] (rho, theta) pairs, strongest first,
+    numpy. The accumulator is an integer ``bincount`` where the Mat is
+    (ops.hough). Pair with :func:`canny`.
+
+    ``max_points`` caps the edge list; by default it is the next power of
+    two ≥ 65536 that holds every edge point, so no vote is dropped."""
+    a = _channel0(mat)
+    if max_points is None:
+        n_edges = int(torch.count_nonzero(a))
+        max_points = 65536
+        while max_points < n_edges:
+            max_points *= 2
+    lines, valid, _ = _hough.hough_lines(a, n_thetas=n_thetas, rho_bins=rho_bins,
+                                         max_points=max_points, max_lines=max_lines,
+                                         threshold=threshold)
+    return _host(lines[valid])
+
+
+def hough_lines_p(mat: Mat, threshold: int = 50, min_line_length: float = 30.0,
+                  max_line_gap: float = 5.0, max_segments: int = 64, **kw):
+    """Line segments on a binary edge Mat (OpenCV ``HoughLinesP`` role;
+    deterministic spec: accumulator peaks where the Mat is, host inlier-run
+    extraction, ops.hough.hough_lines_p). Returns int32 [M, 4]
+    (x1, y1, x2, y2)."""
+    return _hough.hough_lines_p(_channel0(mat), threshold=threshold,
+                                min_line_length=min_line_length, max_line_gap=max_line_gap,
+                                max_segments=max_segments, **kw)
+
+
+def hough_circles(mat: Mat, dp: int = 4, min_dist: float = 20.0, min_radius: int = 10,
+                  max_radius: int = 60, edge_threshold: int = 60, vote_threshold: int = 20,
+                  max_circles: int = 16):
+    """Gradient Hough circle transform (OpenCV ``HoughCircles``): u8 gray
+    → float32 [K, 3] (cx, cy, r), vote-sorted, greedily suppressing
+    centres within ``min_dist`` of a stronger circle. The tensor twin on a
+    device Mat, the numpy oracle on a host Mat (ops.hough)."""
+    g = _gray_of_mat(mat)
+    kw = dict(dp=dp, min_radius=min_radius, max_radius=max_radius,
+              edge_threshold=edge_threshold, vote_threshold=vote_threshold,
+              max_circles=max_circles)
+    if mat.is_on_device:
+        circ, valid, votes = _hough.hough_circles(g, **kw)
+        circ, votes = _host(circ[valid]), _host(votes[valid])
+    else:
+        circ, votes = _hough.hough_circles_numpy(g, **kw)
+    keep = []
+    for i in np.argsort(-votes, kind="stable"):
+        c = circ[i]
+        if all(np.hypot(c[0] - circ[j][0], c[1] - circ[j][1]) >= min_dist for j in keep):
+            keep.append(i)
+    return circ[keep].reshape(-1, 3)
+
+
+def stereo_bm(left: Mat, right: Mat, num_disparities: int = 64, block_size: int = 15,
+              texture: int = 10, uniqueness: int = 10):
+    """Stereo block matching (OpenCV ``StereoBM`` role) over a rectified
+    gray pair: (disparity float32 (H, W), valid bool), numpy. The cost
+    volume is built where the pair is (ops.stereo)."""
+    gl, gr, _ = _pair_grays(left, right)
+    disp, valid = _stereo.stereo_bm(torch.as_tensor(gl), torch.as_tensor(gr),
+                                    num_disparities=num_disparities, block_size=block_size,
+                                    texture=texture, uniqueness=uniqueness)
+    return _host(disp), _host(valid)
+
+
+def stereo_sgbm(left: Mat, right: Mat, num_disparities: int = 64, block_size: int = 5,
+                p1=None, p2=None, uniqueness: int = 10, disp12_max_diff: int = 1,
+                num_dirs: int = 8, prefilter_cap: int = 63):
+    """Semi-global stereo matching (OpenCV ``StereoSGBM`` role) over a
+    rectified gray pair: (disparity float32 (H, W), valid bool), numpy.
+    Birchfield–Tomasi costs on the clipped-Sobel prefilter, 4 or 8 path
+    directions, uniqueness, sub-pixel and the L–R check where the pair is
+    (ops.sgbm)."""
+    gl, gr, _ = _pair_grays(left, right)
+    disp, valid = _sgbm.stereo_sgbm(torch.as_tensor(gl), torch.as_tensor(gr),
+                                    num_disparities=num_disparities, block_size=block_size,
+                                    p1=p1, p2=p2, uniqueness=uniqueness,
+                                    disp12_max_diff=disp12_max_diff, num_dirs=num_dirs,
+                                    prefilter_cap=prefilter_cap)
+    return _host(disp), _host(valid)
+
+
+def fast_nl_means_denoising(mat: Mat, h: float = 10.0, template_window_size: int = 7,
+                            search_window_size: int = 21) -> Mat:
+    """Non-local means denoising (OpenCV ``fastNlMeansDenoising`` role) on
+    a gray image: the float32 twin on a device Mat, the float64 oracle on a
+    host Mat (ops.nlmeans; ±1 LSB)."""
+    def plane(a):
+        return a if a.ndim == 2 else a[..., 0]
+
+    return _dispatch(
+        mat,
+        lambda d: _nlmeans.nl_means(plane(d), h, template_window_size, search_window_size),
+        lambda a: _nlmeans.nl_means_numpy(plane(a), h, template_window_size,
+                                          search_window_size),
+    )
+
+
+def fast_nl_means_denoising_colored(mat: Mat, h: float = 10.0, h_color: float = 10.0,
+                                    template_window_size: int = 7,
+                                    search_window_size: int = 21) -> Mat:
+    """Coloured NL-means (OpenCV ``fastNlMeansDenoisingColored`` role):
+    denoise L with ``h``, a/b with ``h_color`` in CIE Lab, convert back;
+    the tensor twin where the Mat is (a CPU tensor for a host Mat, as the
+    reference runs its twin there)."""
+    out = _nlmeans.nl_means_colored(_tensor(mat), h, h_color, template_window_size,
+                                    search_window_size)
+    return _from_tensor(mat, out)
+
+
+def _arrays(mats) -> list:
+    return [m.to_numpy() if hasattr(m, "to_numpy") else np.asarray(m) for m in mats]
+
+
+def _device_stack(mats):
+    """The mats' device tensors stacked on the first device Mat's device, or
+    None when none is on a device."""
+    dev = next((m.device().device for m in mats if getattr(m, "is_on_device", False)), None)
+    if dev is None:
+        return None
+    return torch.stack([m.device().to(dev) if getattr(m, "is_on_device", False)
+                        else torch.as_tensor(a, device=dev) for m, a in zip(mats, _arrays(mats))])
+
+
+def fast_nl_means_denoising_multi(frames, img_index: int, temporal_window: int,
+                                  h: float = 10.0, template: int = 7, search: int = 21):
+    """Temporal NL-means (OpenCV ``fastNlMeansDenoisingMulti`` role):
+    denoise one frame of a u8 gray stack with a temporal window of
+    neighbours → u8 numpy. Stacks with a device Mat run the tensor twin
+    there, host stacks the float64 oracle (ops.nlmeans)."""
+    stack = _device_stack(frames)
+    if stack is not None:
+        return _host(_nlmeans.nl_means_multi(_squeeze1(stack), img_index, temporal_window,
+                                             h=h, template=template, search=search))
+    arrays = np.stack([_squeeze1(a) for a in _arrays(frames)])
+    return _nlmeans.nl_means_multi_numpy(arrays, img_index, temporal_window, h=h,
+                                         template=template, search=search)
+
+
+def fast_nl_means_denoising_colored_multi(frames, img_index: int, temporal_window: int,
+                                          h: float = 10.0, h_color: float = 10.0,
+                                          template: int = 7, search: int = 21):
+    """Coloured temporal NL-means (OpenCV
+    ``fastNlMeansDenoisingColoredMulti`` role): the Lab split over the
+    temporal spec, float64 on the host (ops.nlmeans)."""
+    return _nlmeans.nl_means_colored_multi_numpy(np.stack(_arrays(frames)), img_index,
+                                                 temporal_window, h=h, h_color=h_color,
+                                                 template=template, search=search)
+
+
+def guided_filter(guide_mat: Mat, src_mat: Mat, radius: int = 8, eps: float = 1e-3) -> Mat:
+    """Guided filter (He et al.; OpenCV ximgproc ``guidedFilter`` role):
+    box-filter-only edge-preserving smoothing of ``src`` steered by a gray
+    ``guide``: float32 on the guide's device for a device guide, the
+    float64 oracle for a host guide (ops.dtfilter). The result is on
+    ``src``'s side."""
+    g = _gray_of_mat(guide_mat)
+    if guide_mat.is_on_device:
+        s = _squeeze1(_tensor(src_mat)).to(g.device)
+    else:
+        s = _squeeze1(src_mat.to_numpy())
+    out = _dtfilter.guided_filter(g, s, radius, eps)
+    if out.ndim == 2:
+        out = out[..., None]
+    if src_mat.is_on_device:
+        return Mat.from_device(torch.as_tensor(out).to(src_mat.device().device))
+    return Mat.from_array(_host(out), device=src_mat.target)
+
+
+def _three(a):
+    """A 1-channel (H, W, 1) image repeated to 3 channels."""
+    if isinstance(a, np.ndarray):
+        return np.repeat(a, 3, -1)
+    return a.repeat(1, 1, 3)
+
+
+def _photo_op(mat: Mat, name: str, sigma_s: float, sigma_r: float) -> Mat:
+    a = mat.device() if mat.is_on_device else mat.to_numpy()
+    squeeze = a.ndim == 3 and a.shape[-1] == 1
+    out = getattr(_dtfilter, name)(_three(a) if squeeze else a, sigma_s, sigma_r)
+    if squeeze:
+        out = out[..., :1]
+    return Mat.from_device(out) if mat.is_on_device else Mat.from_array(out, device=mat.target)
+
+
+def edge_preserving_filter(mat: Mat, sigma_s: float = 60.0, sigma_r: float = 0.4) -> Mat:
+    """Domain-transform recursive edge-preserving smoothing (OpenCV
+    ``edgePreservingFilter`` role): doubling scans on a device Mat, the
+    float64 oracle on a host Mat (ops.dtfilter)."""
+    return _photo_op(mat, "edge_preserving_filter", sigma_s, sigma_r)
+
+
+def detail_enhance(mat: Mat, sigma_s: float = 10.0, sigma_r: float = 0.15) -> Mat:
+    """OpenCV ``detailEnhance`` role: DT base + 3× detail."""
+    return _photo_op(mat, "detail_enhance", sigma_s, sigma_r)
+
+
+def stylization(mat: Mat, sigma_s: float = 60.0, sigma_r: float = 0.45) -> Mat:
+    """OpenCV ``stylization`` role: DT-flattened regions + dark edges."""
+    return _photo_op(mat, "stylization", sigma_s, sigma_r)
+
+
+def pencil_sketch(mat: Mat, sigma_s: float = 60.0, sigma_r: float = 2.0,
+                  shade_factor: float = 0.05):
+    """OpenCV ``pencilSketch`` role → (gray sketch Mat, colour Mat)."""
+    a = mat.device() if mat.is_on_device else mat.to_numpy()
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.shape[-1] == 1:
+        a = _three(a)
+    sk, co = _dtfilter.pencil_sketch(a, sigma_s, sigma_r, shade_factor)
+    if mat.is_on_device:
+        return Mat.from_device(sk[..., None]), Mat.from_device(co)
+    return (Mat.from_array(sk[..., None], device=mat.target),
+            Mat.from_array(co, device=mat.target))
+
+
+def seamless_clone(src_mat: Mat, dst_mat: Mat, mask, center, mixed: bool = False) -> Mat:
+    """Poisson blending (OpenCV ``seamlessClone`` role): the guided Laplace
+    equation inside the mask, by the fixed-iteration Jacobi twin on a
+    device destination's device, the float64 oracle for a host
+    destination (ops.poisson). ``mixed`` = MIXED_CLONE."""
+    flags = _poisson.MIXED_CLONE if mixed else _poisson.NORMAL_CLONE
+    s = _squeeze1(src_mat.to_numpy() if hasattr(src_mat, "to_numpy") else np.asarray(src_mat))
+    d = dst_mat.device() if dst_mat.is_on_device else dst_mat.to_numpy()
+    squeeze = d.ndim == 3 and d.shape[-1] == 1
+    out = _poisson.seamless_clone(s, d[..., 0] if squeeze else d, _host(mask), center, flags)
+    if squeeze:
+        out = out[..., None]
+    return Mat.from_device(out) if dst_mat.is_on_device else Mat.from_array(
+        out, device=dst_mat.target)
+
+
+def color_change(mat: Mat, mask, mul=(1.5, 1.0, 1.0)) -> Mat:
+    """Seamless per-channel gradient scaling (OpenCV ``colorChange`` role;
+    host float64, ops.poisson) → a host Mat."""
+    return Mat.from_array(_poisson.color_change(mat.to_numpy(), _host(mask), mul),
+                          device=mat.target)
+
+
+def illumination_change(mat: Mat, mask, alpha: float = 0.2, beta: float = 0.4) -> Mat:
+    """Seamless illumination attenuation (OpenCV ``illuminationChange``
+    role; host float64, ops.poisson) → a host Mat."""
+    return Mat.from_array(_poisson.illumination_change(mat.to_numpy(), _host(mask), alpha,
+                                                       beta), device=mat.target)
+
+
+def texture_flattening(mat: Mat, mask, low_threshold: float = 30.0) -> Mat:
+    """Seamless texture removal keeping strong edges (OpenCV
+    ``textureFlattening`` role; host float64, ops.poisson) → a host Mat."""
+    return Mat.from_array(_poisson.texture_flattening(mat.to_numpy(), _host(mask),
+                                                      low_threshold), device=mat.target)
+
+
+def inpaint(mat: Mat, mask, radius: int = 3, method: str = "telea") -> Mat:
+    """Inpaint holes (OpenCV ``inpaint`` role): ``telea`` = host Fast
+    Marching; ``diffusion`` = harmonic fill, the Jacobi twin on a device
+    Mat's device and the float64 oracle on the host (ops.inpaint). Telea
+    and host runs give a host Mat."""
+    if mat.is_on_device and method == "diffusion":
+        return Mat.from_device(_inpaint.inpaint_diffusion(mat.device(), _host(mask).astype(bool)))
+    a = mat.to_numpy()
+    squeeze = a.ndim == 3 and a.shape[-1] == 1
+    out = _inpaint.inpaint(a[..., 0] if squeeze else a, _host(mask), radius, method)
+    return Mat.from_array(out[..., None] if squeeze else out, device=mat.target)
+
+
+def align_mtb(mats, max_bits: int = 6, exclude_range: int = 4):
+    """Median-threshold-bitmap exposure alignment (OpenCV ``AlignMTB``
+    role): translation-register a u8 stack to its middle image (host,
+    ops.hdr). Returns host Mats."""
+    return [Mat.from_array(a) for a in _hdr.align_mtb(_arrays(mats), max_bits, exclude_range)]
+
+
+def merge_mertens(mats):
+    """Exposure fusion (OpenCV ``MergeMertens`` role): u8 BGR exposure
+    stack → float32 [0, 1] fused image, numpy. Stacks with a device Mat
+    run the tensor twin there, host stacks the float64 oracle (ops.hdr)."""
+    stack = _device_stack(mats)
+    if stack is not None:
+        return _host(_hdr.merge_mertens(stack))
+    return _hdr.merge_mertens_numpy(_arrays(mats))
+
+
+def merge_robertson(mats, times, response=None):
+    """Robertson radiance merge (OpenCV ``MergeRobertson`` role): u8 BGR
+    stack + exposure times → float32 radiance (host, ops.hdr)."""
+    return _hdr.merge_robertson_numpy(_arrays(mats), times, response)
+
+
+def calibrate_robertson(mats, times, max_iter: int = 30, threshold: float = 0.01):
+    """Robertson EM response recovery (OpenCV ``CalibrateRobertson`` role)
+    → (3, 256), g(128) = 1 per channel (host, ops.hdr)."""
+    return _hdr.calibrate_robertson(_arrays(mats), times, max_iter, threshold)
+
+
+def tonemap_drago(hdr_img, gamma: float = 1.0, saturation: float = 1.0, bias: float = 0.85):
+    """Drago'03 adaptive-logarithmic tonemap (OpenCV ``TonemapDrago``
+    role): float radiance → float32 [0, 1] (host, ops.hdr)."""
+    return _hdr.tonemap_drago_numpy(hdr_img, gamma, saturation, bias)
+
+
+def tonemap_mantiuk(hdr_img, gamma: float = 1.0, scale: float = 0.7, saturation: float = 1.0):
+    """Mantiuk gradient-domain tonemap (OpenCV ``TonemapMantiuk`` role):
+    contrast scaling of the log-luminance gradients + exact DCT Poisson
+    reintegration (host, ops.hdr)."""
+    return _hdr.tonemap_mantiuk_numpy(hdr_img, gamma, scale, saturation)
+
+
+def cascade_detect_multi_scale(mat: Mat, cascade_model, scale_step: float = 1.2,
+                               min_size: int = 0):
+    """Haar cascade detection (OpenCV ``CascadeClassifier
+    .detectMultiScale`` role) → (boxes [N, 4] xywh, margins). Train or
+    load models with ops.cascade (``train_cascade`` /
+    ``Cascade.from_json``); a device Mat's windows are scored on its
+    device, a host Mat's by the float64 oracle."""
+    g = _host(_gray_of_mat(mat))
+    dev = mat.device().device if mat.is_on_device else None
+    return _cascade.detect_multi_scale(g, cascade_model, scale_step=scale_step,
+                                       min_size=min_size, use_device=mat.is_on_device,
+                                       device=dev)
+
+
+def qr_detect_and_decode(mat: Mat, thresh=None):
+    """QR detection + decode (OpenCV ``QRCodeDetector.detectAndDecode``
+    role): model-2 versions 1-4, byte mode, every ECC level and mask, full
+    Reed-Solomon correction → (text or None, corners or None) (host,
+    ops.qr; make codes with ``qr.encode`` + ``qr.draw``)."""
+    return _qr.detect_and_decode(_host(_gray_of_mat(mat)), thresh=thresh)
+
+
+def _gray_any(mat):
+    """Gray numpy plane of a Mat or of an array (BGR by the exact luma)."""
+    if isinstance(mat, Mat):
+        return _host(_gray_of_mat(mat))
+    a = np.asarray(mat)
+    return golden.bgr_to_gray(a) if a.ndim == 3 else a
+
+
+def detect_mser_regions(mat, delta: int = 5, min_area: int = 60, max_area: int = 14400,
+                        max_variation: float = 0.25, min_diversity: float = 0.2,
+                        polarity: str = "both"):
+    """Maximally stable extremal regions (OpenCV ``MSER.detectRegions``
+    role; the native component tree, ops.mser). Returns (regions: list of
+    int32 (K, 2) (x, y) arrays, bboxes: int32 (N, 4) (x, y, w, h))."""
+    return _mser.mser_regions(_gray_any(mat), delta=delta, min_area=min_area,
+                              max_area=max_area, max_variation=max_variation,
+                              min_diversity=min_diversity, polarity=polarity)
+
+
+def detect_line_segments(mat, **kw):
+    """Line segments (OpenCV ximgproc ``FastLineDetector`` role; the
+    chain-trace + Douglas-Peucker spec, ops.lsd) → float64 (N, 4) rows
+    (x1, y1, x2, y2). Pass ``edges=`` to reuse an edge map."""
+    if kw.get("edges") is not None:
+        return _lsd.detect_line_segments(None, **kw)
+    return _lsd.detect_line_segments(_gray_any(mat), **kw)
+
+
+GC_BGD, GC_FGD, GC_PR_BGD, GC_PR_FGD = 0, 1, 2, 3
+
+
+def grab_cut(mat: Mat, mask=None, rect=None, iter_count: int = 5, seed: int = 0):
+    """GrabCut foreground extraction (OpenCV ``grabCut``): GMM colour
+    models + a real min-cut (the native Dinic solver over the 8-connected
+    grid, ops.grabcut). Returns the GC_* mask."""
+    a = mat.to_numpy()
+    if a.ndim == 2 or a.shape[-1] != 3:
+        raise ValueError("grab_cut needs a BGR image")
+    return _grabcut.grab_cut(a, mask=mask, rect=rect, iter_count=iter_count, seed=seed)
+
+
+from ..ops import cascade as _cascade  # noqa: E402
+from ..ops import dtfilter as _dtfilter  # noqa: E402
+from ..ops import grabcut as _grabcut  # noqa: E402
+from ..ops import hdr as _hdr  # noqa: E402
+from ..ops import hough as _hough  # noqa: E402
+from ..ops import inpaint as _inpaint  # noqa: E402
+from ..ops import lsd as _lsd  # noqa: E402
+from ..ops import mser as _mser  # noqa: E402
+from ..ops import nlmeans as _nlmeans  # noqa: E402
+from ..ops import poisson as _poisson  # noqa: E402
+from ..ops import qr as _qr  # noqa: E402
+from ..ops import sgbm as _sgbm  # noqa: E402
+from ..ops import stereo as _stereo  # noqa: E402
+from ..ops.colorchecker import color_checker_ccm, detect_color_checker  # noqa: E402
+from ..ops.ghough import build_r_table, ghough_detect, ghough_detect_guil  # noqa: E402
+from ..ops.scissors import IntelligentScissors  # noqa: E402
+from ..ops.viz import (  # noqa: E402  (re-exports)
+    clip_line,
+    draw_keypoints,
+    draw_marker,
+    draw_matches,
+    ellipse2poly,
+)
+
 from ..ops import akaze as _akaze  # noqa: E402
 from ..ops import bgsub as _bgsub  # noqa: E402
 from ..ops import blob as _blob  # noqa: E402
@@ -1553,6 +1975,20 @@ _GROUP3 = [
     "watershed", "slic_superpixels", "voronoi_seam",
 ]
 
+_GROUP4A = [
+    "hough_lines", "hough_lines_p", "hough_circles", "build_r_table", "ghough_detect",
+    "ghough_detect_guil", "stereo_bm", "stereo_sgbm", "fast_nl_means_denoising",
+    "fast_nl_means_denoising_colored", "fast_nl_means_denoising_multi",
+    "fast_nl_means_denoising_colored_multi", "guided_filter", "edge_preserving_filter",
+    "detail_enhance", "stylization", "pencil_sketch", "seamless_clone", "color_change",
+    "illumination_change", "texture_flattening", "inpaint", "align_mtb", "merge_mertens",
+    "merge_robertson", "calibrate_robertson", "tonemap_drago", "tonemap_mantiuk",
+    "cascade_detect_multi_scale", "qr_detect_and_decode", "detect_mser_regions",
+    "detect_line_segments", "grab_cut", "IntelligentScissors", "detect_color_checker",
+    "color_checker_ccm", "clip_line", "ellipse2poly", "draw_keypoints", "draw_matches",
+    "draw_marker",
+]
+
 _SLICE2 = [
     "add", "subtract", "absdiff", "add_weighted", "convert_scale_abs", "bitwise_and",
     "bitwise_or", "bitwise_xor", "bitwise_not", "count_non_zero", "norm", "mean_std_dev",
@@ -1600,4 +2036,4 @@ __all__ = [
     "in_range", "integral", "laplacian", "line", "median_blur", "moments", "morphology_ex",
     "polylines", "put_text", "pyr_down", "pyr_up", "rectangle", "resize", "scharr",
     "sep_filter_2d", "sobel", "sobel_magnitude", "stack_blur", "threshold",
-] + _SLICE2 + _GROUP2 + _GROUP3
+] + _SLICE2 + _GROUP2 + _GROUP3 + _GROUP4A

@@ -1,9 +1,9 @@
 """The port's host C++ (the JPEG entropy coder, the full host JPEG decode,
-the glyph rasterizer, the frame ring, the V4L2 driver and the
-connected-components union-find), built with g++ at first use and bound
-with ctypes.
+the glyph rasterizer, the frame ring, the V4L2 driver, the
+connected-components union-find, the MSER component tree and the grid
+max-flow), built with g++ at first use and bound with ctypes.
 
-Eight sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
+Ten sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
 block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
 which checks a payload exactly: Huffman coding is lossless; and the flat-
@@ -15,8 +15,11 @@ threaded frame ring behind :class:`NativeRing`: a ``std::thread`` producer
 writes the frozen test pattern as YUYV into its slots) and ``v4l2.cpp``
 (the direct-ioctl V4L2 driver behind ``capture.v4l2``; a host without
 ``linux/videodev2.h`` builds its stub, ``rcv_v4l2_available() == 0``)
-and ``unionfind.cpp`` (min-root union-find and the two-pass component
-labeling behind ``ops.ccl``: :func:`ccl_label`, :func:`union_find`).
+``unionfind.cpp`` (min-root union-find and the two-pass component
+labeling behind ``ops.ccl``: :func:`ccl_label`, :func:`union_find`),
+``mser.cpp`` (the MSER component-tree pass behind ``ops.mser``:
+:func:`mser_triples`) and ``maxflow.cpp`` (Dinic max-flow on the
+8-connected pixel grid behind ``ops.grabcut``: :func:`maxflow_grid`).
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -41,7 +44,8 @@ import numpy as np
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp", _HERE / "jpeg_host.cpp",
            _HERE / "png_filter.cpp", _HERE / "text_raster.cpp", _HERE / "capture.cpp",
-           _HERE / "v4l2.cpp", _HERE / "unionfind.cpp")
+           _HERE / "v4l2.cpp", _HERE / "unionfind.cpp", _HERE / "mser.cpp",
+           _HERE / "maxflow.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "rustcv_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -162,6 +166,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.rcv_ccl_label, lib.rcv_ccl_label8):
         fn.restype = ctypes.c_long
         fn.argtypes = [u8p, ctypes.c_long, ctypes.c_long, i32p]
+    # mser.cpp and maxflow.cpp: the MSER triples and the GrabCut min-cut.
+    lib.rcv_mser.restype = ctypes.c_long
+    lib.rcv_mser.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_double, ctypes.c_double, i32p, ctypes.c_long]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.rcv_maxflow_grid.restype = ctypes.c_int64
+    lib.rcv_maxflow_grid.argtypes = [ctypes.c_int32, ctypes.c_int32, i64p, i64p, i64p, i64p,
+                                     i64p, i64p, u8p]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -540,6 +552,47 @@ def union_find(n: int, edges_a: np.ndarray, edges_b: np.ndarray) -> tuple:
     if cnt < 0:
         raise ValueError(f"union_find failed (rc={cnt}; edge id out of range?)")
     return int(cnt), parent
+
+
+def mser_triples(gray: np.ndarray, delta: int, min_area: int, max_area: int,
+                 max_variation: float, min_diversity: float) -> np.ndarray:
+    """MSER (seed, level, area) triples (``mser.cpp``), bit-identical to
+    the frozen Python spec ``ops.mser._mser_triples_spec``: int32 (N, 3)
+    sorted by (seed, level). Raises RuntimeError when the library did not
+    build (the reference returns None there and its caller falls back)."""
+    lib = _need_lib()
+    g = np.ascontiguousarray(gray, np.uint8)
+    if g.ndim != 2:
+        raise ValueError(f"mser_triples: 2-D gray required, got {g.shape}")
+    cap = 4096
+    while True:
+        out = np.empty((cap, 3), np.int32)
+        cnt = lib.rcv_mser(_ptr(g), g.shape[0], g.shape[1], int(delta), int(min_area),
+                           int(max_area), float(max_variation), float(min_diversity),
+                           _ptr(out, ctypes.c_int32), cap)
+        if cnt < 0:
+            raise ValueError(f"rcv_mser failed (rc={cnt})")
+        if cnt <= cap:
+            return out[:cnt].copy()
+        cap = int(cnt)
+
+
+def maxflow_grid(cap_src: np.ndarray, cap_snk: np.ndarray, right: np.ndarray,
+                 down: np.ndarray, down_right: np.ndarray, down_left: np.ndarray) -> np.ndarray:
+    """Min cut of the 8-connected pixel grid (``maxflow.cpp``, Dinic):
+    int64 (H, W) terminal capacities and the four n-link planes (right,
+    down, down-right, down-left) → (max-flow value, u8 (H, W) labels, 1
+    where the pixel stays on the source side). Raises RuntimeError when
+    the library did not build."""
+    lib = _need_lib()
+    h, w = cap_src.shape
+    planes = [np.ascontiguousarray(a, np.int64).reshape(-1)
+              for a in (cap_src, cap_snk, right, down, down_right, down_left)]
+    if any(p.size != h * w for p in planes):
+        raise ValueError("maxflow_grid: every plane must be (H, W)")
+    labels = np.zeros(h * w, np.uint8)
+    flow = lib.rcv_maxflow_grid(h, w, *(_ptr(p, ctypes.c_int64) for p in planes), _ptr(labels))
+    return int(flow), labels.reshape(h, w)
 
 
 def v4l2_available() -> bool:

@@ -509,6 +509,8 @@ def distance_transform_l2_with_labels(mask):
     the reference's BFS oracle)."""
     m = _host_mask(mask)
     h, w = m.shape
+    if h * w == 0:
+        return np.zeros((h, w), np.float32), np.zeros((h, w), np.int32)
     big = 1e18
 
     # per-column 1-D distance to nearest zero in that column + its row

@@ -20,7 +20,10 @@ HOG pyramid) and the Lab round trip (``decolor``). The integer luma
 (:func:`bgr_to_gray`) that the trackers take of a BGR frame, the float64
 Kalman updates that ``kalman.KalmanFilter`` runs, and the MOSSE tracker's
 spec, which ``tracker.TrackerMOSSE(backend="host")`` runs and the
-``kcf``/``csrt`` oracles crop with.
+``kcf``/``csrt`` oracles crop with. The integer Sobel pair and the Canny
+spec (the generalized Hough's R-tables, the line detector, intelligent
+scissors and the Hough oracles), and the line and circle stroke masks that
+``viz`` draws with.
 """
 
 from __future__ import annotations
@@ -653,3 +656,133 @@ def mosse_step(state: dict, frame: np.ndarray, lr: float = 0.2,
     new = {"A": A, "B": B, "G": state["G"], "center": (ncy, ncx),
            "size": (h, w)}
     return new, True, psr
+
+
+# ---------------------------------------------------------------------------
+# Sobel, Canny and the stroke masks (rustcv_tpu/ops/golden.py:847-1049)
+# ---------------------------------------------------------------------------
+
+
+def line_mask(h: int, w: int, p1: tuple, p2: tuple, thickness: int = 1) -> np.ndarray:
+    """Frozen line-stroke mask (exact int32-safe spec):
+
+    - body: 0 ≤ dot(AP, AB) ≤ |AB|² and (2·|cross(AP, AB)|) // isqrt(|AB|²)
+      ≤ thickness (the floored perpendicular-distance test);
+    - caps: 4·|P−A|² ≤ t² or 4·|P−B|² ≤ t² (round endpoints);
+    - degenerate (A == B): caps only.
+    """
+    ax, ay = int(p1[0]), int(p1[1])
+    bx, by = int(p2[0]), int(p2[1])
+    ys, xs = np.mgrid[0:h, 0:w]
+    px = xs.astype(np.int64)
+    py = ys.astype(np.int64)
+    abx, aby = bx - ax, by - ay
+    apx, apy = px - ax, py - ay
+    ab2 = abx * abx + aby * aby
+    t = int(thickness)
+    t2 = t * t
+    bpx, bpy = px - bx, py - by
+    caps = (4 * (apx * apx + apy * apy) <= t2) | (4 * (bpx * bpx + bpy * bpy) <= t2)
+    if ab2 == 0:
+        return caps.astype(np.uint8) * 255
+    s = int(np.floor(np.sqrt(ab2)))  # isqrt(|AB|²)
+    dot = apx * abx + apy * aby
+    cross = np.abs(apx * aby - apy * abx)
+    body = (dot >= 0) & (dot <= ab2) & ((2 * cross) // s <= t)
+    return ((body | caps).astype(np.uint8)) * 255
+
+
+def circle_mask(h: int, w: int, center: tuple, radius: int, thickness: int = 1) -> np.ndarray:
+    """Frozen circle mask: filled when thickness < 0 (|P−C|² ≤ R²), else a
+    ring (2|P−C| within [2R−t, 2R+t], exact via squared comparisons)."""
+    cx, cy = int(center[0]), int(center[1])
+    r = int(radius)
+    ys, xs = np.mgrid[0:h, 0:w]
+    d2 = (xs.astype(np.int64) - cx) ** 2 + (ys.astype(np.int64) - cy) ** 2
+    if thickness < 0:
+        return (d2 <= r * r).astype(np.uint8) * 255
+    t = int(thickness)
+    lo = max(0, 2 * r - t)
+    hi = 2 * r + t
+    return ((4 * d2 >= lo * lo) & (4 * d2 <= hi * hi)).astype(np.uint8) * 255
+
+
+def sobel3_gray(gray: np.ndarray):
+    """Sobel 3×3 gx/gy on u8 gray, replicate border → int32 (range ±1020).
+    gx = [[-1,0,1],[-2,0,2],[-1,0,1]], gy = gxᵀ (y increasing downward)."""
+    a = gray.astype(np.int32)
+    p = np.pad(a, 1, mode="edge")
+    h, w = gray.shape
+    smooth_v = p[0:h, :] + 2 * p[1:h + 1, :] + p[2:h + 2, :]
+    diff_v = p[2:h + 2, :] - p[0:h, :]
+    gx = smooth_v[:, 2:w + 2] - smooth_v[:, 0:w]
+    gy = diff_v[:, 0:w] + 2 * diff_v[:, 1:w + 1] + diff_v[:, 2:w + 2]
+    return gx, gy
+
+
+def _isqrt(x: np.ndarray) -> np.ndarray:
+    """Exact floor integer sqrt for x ≤ ~2.1e9."""
+    s = np.sqrt(x.astype(np.float64)).astype(np.int64)
+    s = np.where((s + 1) * (s + 1) <= x, s + 1, s)
+    return np.where(s * s > x, s - 1, s)
+
+
+def _dilate3(mask: np.ndarray) -> np.ndarray:
+    """3×3 window maximum of a bool mask, replicate border."""
+    p = np.pad(mask, 1, mode="edge")
+    h, w = mask.shape
+    out = np.zeros_like(mask)
+    for dy in range(3):
+        for dx in range(3):
+            out |= p[dy:dy + h, dx:dx + w]
+    return out
+
+
+CANNY_HYST_ROUNDS = 16  # bounded 8-connected hysteresis propagation
+
+
+def canny(gray_u8: np.ndarray, low: int = 40, high: int = 90) -> np.ndarray:
+    """Canny edge detector, frozen integer spec: gray → Gaussian5 → Sobel →
+    full-range isqrt magnitude → gradient-direction NMS with fixed-point
+    sector quantization (tan 22.5° ≈ 27146/65536, tan 67.5° ≈
+    158218/65536; out-of-image neighbours are 0; ties kept with ≥) →
+    double threshold (strict >) → bounded hysteresis (CANNY_HYST_ROUNDS
+    rounds of 3×3 dilation of the strong set masked by the weak set).
+    Output: u8 mask (255/0)."""
+    blurred = gaussian5_u8(gray_u8)
+    gx, gy = sobel3_gray(blurred)
+    mag = _isqrt(gx.astype(np.int64) ** 2 + gy.astype(np.int64) ** 2).astype(np.int32)
+
+    a = np.abs(gx)
+    b = np.abs(gy)
+    sector0 = (b << 16) <= a * 27146
+    sector2 = (b << 16) >= a * 158218
+    diag_main = (~sector0) & (~sector2) & (gx * gy >= 0)
+    diag_anti = (~sector0) & (~sector2) & (gx * gy < 0)
+
+    h, w = mag.shape
+    p = np.zeros((h + 2, w + 2), np.int32)
+    p[1:-1, 1:-1] = mag
+
+    def nb(dy, dx):
+        return p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+    n1 = np.where(sector0, nb(0, -1), 0)
+    n2 = np.where(sector0, nb(0, 1), 0)
+    n1 = np.where(sector2, nb(-1, 0), n1)
+    n2 = np.where(sector2, nb(1, 0), n2)
+    n1 = np.where(diag_main, nb(-1, -1), n1)
+    n2 = np.where(diag_main, nb(1, 1), n2)
+    n1 = np.where(diag_anti, nb(-1, 1), n1)
+    n2 = np.where(diag_anti, nb(1, -1), n2)
+    keep = (mag >= n1) & (mag >= n2)
+    nms = np.where(keep, mag, 0)
+    strong = nms > high
+    weak = nms > low
+    for _ in range(CANNY_HYST_ROUNDS):
+        new_strong = strong | (weak & _dilate3(strong))
+        if (new_strong == strong).all():
+            strong = new_strong
+            break
+        strong = new_strong
+    return (strong * 255).astype(np.uint8)

@@ -30,7 +30,13 @@ contours, distance transforms, blobs, the Voronoi seam) on CUDA inputs
 against CPU inputs, with the subtractors' and trackers' state staying on
 the card (one host read per ``update``), a bank stepping as one batch, and
 ``full_f32`` in force around k-means' and Kalman's products; and
-``make_dummy_overlay``'s default device, the card.
+``make_dummy_overlay``'s default device, the card; and group 4a (the Hough
+transforms, stereo BM/SGBM, NL-means, the domain-transform and guided
+filters, Poisson cloning, the diffusion inpaint, Mertens fusion, the
+cascade scorer and their wrappers) on CUDA inputs against CPU inputs at
+the reference's tolerances (the cascade's ``ok`` outside a 1e-3 margin
+band), with their results on the card and no kernel launched, and
+``mser``/``grabcut`` raising when the native build fails.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -38,6 +44,7 @@ Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1595,3 +1602,176 @@ def test_full_f32_is_in_force_around_kmeans_and_kalman(cuda, monkeypatch):
         assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@functools.lru_cache(maxsize=1)
+def _g4a_inputs():
+    """Seeded inputs of group 4a (made once): a textured gray image, a
+    scene of discs, a noisy step, a BGR stack of the three, a cascade
+    trained on seeded patches."""
+    from rustcv_tpu_torch.ops import cascade, golden
+
+    rng = np.random.default_rng(40)
+    tex = golden.gaussian5_u8(rng.integers(0, 256, (72, 140), np.uint8))
+    h, w = 72, 96
+    yy, xx = np.mgrid[0:h, 0:w]
+    discs = np.full((h, w), 30, np.uint8)
+    for cy, cx, r in ((24, 30, 14), (48, 70, 18)):
+        discs[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 200
+    discs = np.clip(discs.astype(int) + rng.integers(-8, 8, (h, w)), 0, 255).astype(np.uint8)
+    step = np.full((h, w), 60, np.uint8)
+    step[:, w // 2:] = 190
+    step = np.clip(step + rng.normal(0, 12, (h, w)), 0, 255).astype(np.uint8)
+    bgr = np.stack([step, discs, tex[:, :w]], -1)
+    pos = rng.integers(90, 130, (30, 24, 24))
+    pos[:, 4:10, 3:21] = 30
+    pos[:, 14:22, 6:18] = 200
+    model = cascade.train_cascade(pos.astype(np.uint8),
+                                  rng.integers(0, 256, (60, 24, 24)).astype(np.uint8),
+                                  n_stages=2, n_stumps=4, stride=8)
+    return tex, discs, step, bgr, model
+
+
+def _g4a_calls():
+    """name → (call on a device name, check(got, want) on numpy)."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import (cascade, dtfilter, ghough, hdr, hough, inpaint, nlmeans,
+                                      poisson, sgbm, stereo)
+
+    tex, discs, step, bgr, model = _g4a_inputs()
+    left, right = tex[:, :96].copy(), tex[:, 7:103].copy()
+    edges = np.where(discs > 120, 255, 0).astype(np.uint8)
+    hole = np.zeros(step.shape, bool)
+    hole[20:30, 10:80] = True
+
+    def t(a, dev):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def host(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(host(v) for v in x)
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    def exact(got, want):
+        if isinstance(want, tuple):
+            for g, w in zip(got, want):
+                exact(g, w)
+            return
+        assert np.array_equal(np.asarray(got), np.asarray(want))
+
+    def within(n):
+        def check(got, want):
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert np.abs(np.asarray(g).astype(np.float64) - np.asarray(w)).max() <= n
+        return check
+
+    def disparity(tol):
+        def check(got, want):
+            assert np.array_equal(got[1], want[1])
+            assert np.array_equal(np.floor(got[0] + 0.5), np.floor(want[0] + 0.5))
+            assert np.abs(got[0] - want[0]).max() <= tol
+        return check
+
+    def band(got, want, eps=1e-3):
+        """``ok`` equal wherever the CPU margin is clear of the stage
+        threshold by more than ``eps``; margins within 1e-3."""
+        outside = np.abs(want[1]) > eps
+        assert np.array_equal(got[0][outside], want[0][outside])
+        assert np.abs(got[1] - want[1]).max() <= 1e-3
+
+    stack = np.stack([bgr // 4, bgr // 2, bgr])
+    return {
+        "hough_lines": (lambda dev: host(hough.hough_lines(t(edges, dev), threshold=10)), exact),
+        "hough_lines_p": (lambda dev: hough.hough_lines_p(t(edges, dev), threshold=10), exact),
+        "hough_circles": (lambda dev: host(hough.hough_circles(
+            t(discs, dev), min_radius=8, max_radius=24, vote_threshold=10)), exact),
+        "ghough": (lambda dev: host(ghough.ghough_accumulate(
+            t(discs, dev), ghough.build_r_table(discs[10:40, 14:46]))), exact),
+        "stereo_bm": (lambda dev: host(stereo.stereo_bm(t(left, dev), t(right, dev), 16, 9)),
+                      disparity(1e-4)),
+        "stereo_sgbm 4": (lambda dev: host(sgbm.stereo_sgbm(t(left, dev), t(right, dev), 16,
+                                                            num_dirs=4)), disparity(1e-3)),
+        "stereo_sgbm 8": (lambda dev: host(sgbm.stereo_sgbm(t(left, dev), t(right, dev), 16)),
+                          disparity(1e-3)),
+        "nl_means": (lambda dev: host(nlmeans.nl_means(t(step, dev), 12.0, 5, 11)), within(1)),
+        "nl_means_colored": (lambda dev: host(nlmeans.nl_means_colored(t(bgr, dev), 10, 10, 5, 9)),
+                             within(1)),
+        "nl_means_multi": (lambda dev: host(nlmeans.nl_means_multi(
+            t(np.stack([step, discs, step]), dev), 1, 3, 12.0, 5, 9)), within(1)),
+        "dt_filter": (lambda dev: host(dtfilter.dt_filter(t(bgr, dev), t(bgr, dev))), within(1)),
+        "detail_enhance": (lambda dev: host(dtfilter.detail_enhance(t(bgr, dev))), within(2)),
+        "stylization": (lambda dev: host(dtfilter.stylization(t(bgr, dev))), within(2)),
+        "pencil_sketch": (lambda dev: host(dtfilter.pencil_sketch(t(bgr, dev))), within(2)),
+        "guided_filter": (lambda dev: host(dtfilter.guided_filter(t(step, dev), t(bgr, dev), 5)),
+                          within(1)),
+        "seamless_clone": (lambda dev: host(poisson.seamless_clone(
+            bgr[10:40, 10:50], t(bgr[:, ::-1], dev), np.ones((30, 40), bool), (48, 36), 1, 800)),
+            within(1)),
+        "seamless_clone mixed": (lambda dev: host(poisson.seamless_clone(
+            bgr[10:40, 10:50], t(bgr[:, ::-1], dev), np.ones((30, 40), bool), (48, 36), 2, 800)),
+            within(1)),
+        "inpaint_diffusion": (lambda dev: host(inpaint.inpaint_diffusion(t(bgr, dev), hole, 800)),
+                              within(1)),
+        "merge_mertens": (lambda dev: host(hdr.merge_mertens(t(stack, dev))), within(2e-3)),
+        "cascade": (lambda dev: cascade.score_windows_device(t(tex, dev), model), band),
+        "wrappers": (lambda dev: (ip.hough_circles(Mat.from_device(t(discs[..., None], dev)),
+                                                   min_radius=8, max_radius=24,
+                                                   vote_threshold=10),
+                                  ip.fast_nl_means_denoising(Mat.from_device(t(step[..., None], dev)),
+                                                             12.0, 5, 9).to_numpy(),
+                                  ip.edge_preserving_filter(Mat.from_device(t(bgr, dev))).to_numpy(),
+                                  ip.inpaint(Mat.from_device(t(bgr, dev)), hole,
+                                             method="diffusion").to_numpy()),
+                     within(1)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_g4a_calls()))
+def test_group4a_on_the_card_matches_the_cpu(cuda, name):
+    call, check = _g4a_calls()[name]
+    kernels.reset_launch_counts()
+    got = call("cuda")
+    assert not any(kernels.launch_counts().values())  # this slice runs no kernel
+    check(got, call("cpu"))
+
+
+def test_group4a_results_stay_on_the_card(cuda):
+    """The device twins take CUDA tensors and return CUDA tensors; a device
+    Mat's wrapper returns a device Mat."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import (dtfilter, ghough, hdr, hough, inpaint, nlmeans, poisson,
+                                      sgbm, stereo)
+
+    tex, discs, step, bgr, _ = _g4a_inputs()
+    g = torch.from_numpy(discs).to(cuda)
+    c = torch.from_numpy(bgr).to(cuda)
+    outs = [*hough.hough_lines(g), *hough.hough_circles(g), *stereo.stereo_bm(g, g, 16, 9),
+            *sgbm.stereo_sgbm(g, g, 16, num_dirs=4), nlmeans.nl_means(g, 10.0, 3, 7),
+            dtfilter.dt_filter(c, c), dtfilter.guided_filter(g, c, 4),
+            poisson.seamless_clone(bgr[:8, :8], c, np.ones((8, 8), bool), (40, 30), 1, 10),
+            inpaint.inpaint_diffusion(c, discs > 120, 10), hdr.merge_mertens(c[None].repeat(2, 1, 1, 1)),
+            ghough.ghough_accumulate(g, ghough.build_r_table(discs[10:40, 14:46]))]
+    assert all(o.is_cuda for o in outs)
+    m = Mat.from_device(c)
+    for out in (ip.fast_nl_means_denoising_colored(m, 10, 10, 3, 7), ip.detail_enhance(m),
+                ip.seamless_clone(Mat.from_array(bgr[:8, :8], device="cpu"), m,
+                                  np.ones((8, 8), bool), (40, 30))):
+        assert out.is_on_device and out.device().is_cuda
+
+
+def test_mser_and_grabcut_raise_without_the_native_library(cuda, monkeypatch, tmp_path):
+    from rustcv_tpu_torch.ops import grabcut, mser
+
+    broken = tmp_path / "mser.cpp"
+    broken.write_text("extern \"C\" long rcv_mser( { not C++ }\n")
+    monkeypatch.setattr(native, "SOURCES", (broken,))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_error", None)
+    img = np.zeros((20, 24, 3), np.uint8)
+    img[5:15, 6:18] = 200
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        mser.mser_regions(img[..., 0])
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        grabcut.grab_cut(img, rect=(4, 3, 16, 14), iter_count=1)

@@ -18,9 +18,12 @@ DFT/DCT, phase correlation, ECC, and the ``canny_cv``, ``color_cv2`` and
 ``decolor`` copies) with theirs, and group 3 and the segmentation head
 of group 4 (the background subtractors, Kalman banks, the trackers,
 mean-shift filtering, components, contours, distance transforms, blobs,
-k-means, watershed, SLIC, the Voronoi seam) with theirs, with jax, Pillow
-and the JAX package
-``rustcv_tpu`` absent. The font data's
+k-means, watershed, SLIC, the Voronoi seam) with theirs, and group 4a
+(Hough, stereo BM/SGBM, NL-means, the domain-transform and guided filters,
+Poisson editing, inpainting, HDR, cascades, and the host modules
+``poisson_cv``, ``lsd``, ``scissors``, ``viz``, ``qr``, ``colorchecker``,
+``mser`` and ``grabcut`` over the native ``mser.cpp`` and ``maxflow.cpp``)
+with theirs, with jax, Pillow and the JAX package ``rustcv_tpu`` absent. The font data's
 generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
@@ -448,6 +451,87 @@ _GROUP3_SCRIPT = textwrap.dedent(
     print("OK")
     """
 )
+
+
+_GROUP4A_SCRIPT = textwrap.dedent(
+    """
+    import importlib, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    for mod in ("hough", "ghough", "stereo", "sgbm", "nlmeans", "dtfilter", "poisson",
+                "inpaint", "hdr", "cascade", "poisson_cv", "lsd", "scissors", "viz", "qr",
+                "colorchecker", "mser", "grabcut"):
+        importlib.import_module("rustcv_tpu_torch.ops." + mod)
+    from rustcv_tpu_torch import imgproc, native
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.ops import cascade, ghough, qr
+
+    rng = np.random.default_rng(0)
+    gray = rng.integers(0, 256, (48, 64), np.uint8)
+    gray[10:30, 20:44] = 230
+    bgr = np.repeat(gray[..., None], 3, -1).copy()
+    mask = np.zeros((48, 64), bool)
+    mask[20:26, 10:50] = True
+    for mk in (lambda a: Mat.from_array(a, device="cpu"),
+               lambda a: Mat.from_device(torch.from_numpy(a.copy()))):
+        edges = imgproc.canny(mk(bgr))
+        assert imgproc.hough_lines(edges, threshold=10).shape[1] == 2
+        assert imgproc.hough_lines_p(edges, threshold=10).shape[1] == 4
+        assert imgproc.hough_circles(mk(gray), min_radius=5, max_radius=12).shape[1] == 3
+        d, v = imgproc.stereo_bm(mk(gray), mk(gray), 16, 9)
+        assert d.shape == v.shape == (48, 64)
+        d, v = imgproc.stereo_sgbm(mk(gray), mk(gray), num_disparities=16, num_dirs=4)
+        assert d.dtype == np.float32
+        assert imgproc.fast_nl_means_denoising(mk(gray), 10.0, 3, 7).shape == (48, 64, 1)
+        assert imgproc.fast_nl_means_denoising_colored(mk(bgr), 10, 10, 3, 7).shape == (48, 64, 3)
+        assert imgproc.guided_filter(mk(gray), mk(bgr), 4).shape == (48, 64, 3)
+        for name in ("edge_preserving_filter", "detail_enhance", "stylization"):
+            assert getattr(imgproc, name)(mk(bgr)).shape == (48, 64, 3)
+        assert imgproc.pencil_sketch(mk(bgr))[0].shape == (48, 64, 1)
+        out = imgproc.seamless_clone(mk(bgr[:16, :16].copy()), mk(bgr), np.ones((16, 16), bool),
+                                     (32, 24))
+        assert out.shape == (48, 64, 3)
+        assert imgproc.inpaint(mk(bgr), mask, method="diffusion").shape == (48, 64, 3)
+        assert imgproc.merge_mertens([mk(bgr), mk(bgr // 2)]).dtype == np.float32
+        assert imgproc.fast_nl_means_denoising_multi([mk(gray)] * 3, 1, 3, 10.0, 3, 7).shape == (48, 64)
+    assert imgproc.inpaint(Mat.from_array(bgr, device="cpu"), mask).shape == (48, 64, 3)
+    assert imgproc.color_change(Mat.from_array(bgr, device="cpu"), mask).shape == (48, 64, 3)
+    table = ghough.build_r_table(gray[5:37, 10:42])
+    assert ghough.ghough_accumulate(torch.from_numpy(gray), table).dtype == torch.int32
+    pos = rng.integers(90, 130, (6, 24, 24)).astype(np.uint8)
+    neg = rng.integers(0, 256, (12, 24, 24)).astype(np.uint8)
+    model = cascade.train_cascade(pos, neg, n_stages=1, n_stumps=2, stride=8)
+    assert cascade.score_windows_device(torch.from_numpy(gray), model)[0].shape == (25, 41)
+    code = qr.draw(qr.encode("ok", 1, "L", 0), 4)
+    assert imgproc.qr_detect_and_decode(Mat.from_array(code, device="cpu"))[0] == "ok"
+    assert len(native.mser_triples(gray, 5, 20, 2000, 0.25, 0.2)) >= 0
+    assert len(imgproc.detect_mser_regions(gray)[0]) >= 1
+    assert imgproc.detect_line_segments(gray, length_threshold=10).shape[1] == 4
+    assert set(np.unique(imgproc.grab_cut(Mat.from_array(bgr, device="cpu"),
+                                          rect=(16, 8, 32, 24), iter_count=1))) <= {0, 2, 3}
+    z = np.zeros((4, 5), np.int64)
+    assert native.maxflow_grid(z, z, z, z, z, z)[1].shape == (4, 5)
+    assert imgproc.draw_marker(bgr, (20, 20), (0, 255, 0)).shape == (48, 64, 3)
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_group4a_runs_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _GROUP4A_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_group3_and_segmentation_run_without_jax_or_pil():

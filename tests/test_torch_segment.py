@@ -186,6 +186,19 @@ def test_distance_transforms_are_exact(jax_cpu, density):
                           np.abs(ys - 7) + np.abs(xs - 13))
 
 
+@pytest.mark.parametrize("shape", [(0, 5), (4, 0), (0, 0)])
+def test_l2_distance_of_an_empty_mask_is_the_references_empty_pair(jax_cpu, shape):
+    """An empty mask gives the reference's empty float32 / int32 pair of its
+    shape, for numpy and for a CPU tensor (it raised in the labeling step:
+    the native scan refuses an empty mask)."""
+    mask = np.zeros(shape, np.uint8)
+    wd, wlab = JC.distance_transform_l2_with_labels(mask)
+    for m in (mask, torch.from_numpy(mask)):
+        d, lab = PC.distance_transform_l2_with_labels(m)
+        assert d.dtype == wd.dtype == np.float32 and lab.dtype == wlab.dtype == np.int32
+        assert d.shape == wd.shape == shape and lab.shape == wlab.shape == shape
+
+
 def _blob_scene(discs, h=120, w=160, bg=220, fg=40):
     img = np.full((h, w), bg, np.uint8)
     yy, xx = np.mgrid[0:h, 0:w]
