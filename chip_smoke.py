@@ -157,7 +157,22 @@ Phases:
    of pixels with the model within 1e-4, tracker centres and ``ok``
    equal with scores within 5e-3, Kalman within 1e-5 of the scale, mean
    shift ±1 on 99 %, k-means' palette ±1 on 99.9 % of pixels, SLIC's
-   97 % boundary band, the rest exact, launching no kernel;
+   97 % boundary band, the rest exact, launching no kernel; (3r) group 4a
+   (38 calls: Hough, stereo BM/SGBM, NL-means, the domain-transform and
+   guided filters, Poisson cloning, inpainting, Mertens, cascades, the
+   host modules) the same way; (3s) group 4b, the geometry chain (9
+   calls: 8 rendered 1080p board views detected by
+   ``find_chessboard_corners`` and by ``find_chessboard_corners_sb`` and
+   calibrated, fx and fy within 3 % of the truth; ``undistort`` and
+   ``fisheye_undistort`` of a 1080p BGR frame byte-equal; an ArUco
+   ``GridBoard`` at 720p detected and posed; a circles grid at 640×480;
+   ``rgbd_normals`` of a 640×480 depth map; ``triangle_rasterize`` of
+   5,000 triangles at 1280×720, held on a crop; two 640×360 crops
+   stitched as CUDA Mats within ±1) against the same calls in spawned CPU
+   processes, launching no kernel; and once, held to their truth alone,
+   the three host-only calls on that depth map: ``depth_to_3d``,
+   ``find_planes`` (its three planes) and ``rgbd_odometry`` (within 2e-3
+   of a known motion);
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -181,7 +196,10 @@ Phases:
    the same for each phase-3p call; (4q) ms per frame of MOG2 and KNN at
    1080p, per ``update`` of each tracker and per step of a bank of 16, per
    ``filter_scan`` step at 1,024 trackers, and per call of the
-   segmentation ops at 1080p (the host ones included).
+   segmentation ops at 1080p (the host ones included); (4r) ms per call
+   of group 4a; (4s) ms per call of group 4b (``undistort`` of one 1080p
+   frame whole and, apart, its host map build, the maps' upload and the
+   remap).
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -198,6 +216,7 @@ launches, errors and times.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -4060,6 +4079,579 @@ def time_group4a(smi: str) -> None:
           flush=True)
 
 
+# Phase 3s: group 4b, the geometry chain. The calibration path at 1080p: 8
+# views of a 9×6 inner-corner board rendered under a known K and
+# 5-coefficient distortion, detected with ``find_chessboard_corners`` (the
+# refinement on the card) and calibrated, then detected with
+# ``find_chessboard_corners_sb`` (the likelihood field and the refinement on
+# the card); ``undistort`` and ``fisheye_undistort`` of a 1080p BGR frame;
+# a 4×4 ArUco ``GridBoard`` warped into a 1280×720 frame, detected and
+# posed; a circles grid at 640×480; ``rgbd_normals`` of a 640×480 depth
+# map; ``triangle_rasterize`` of 5,000 triangles at 1280×720; two
+# overlapping 640×360 crops stitched as CUDA Mats (the device composite).
+# Each call runs on the card inputs here and on the host inputs in spawned
+# CPU workers (the port on CPU tensors and host arrays). ``depth_to_3d``,
+# ``find_planes`` and ``rgbd_odometry`` touch no tensor (numpy in and
+# out): they run once, here, held to the scene's truth. The
+# rasterizer's host side rasterizes only the G4B_RASTER_CROP window of the
+# mesh (the triangles that reach it, shifted): at 1280×720 the CPU would
+# take about a minute.
+G4B_K = np.array([[1650.0, 0, 968.0], [0, 1640.0, 532.0], [0, 0, 1.0]])
+G4B_DIST = np.array([-0.16, 0.05, 0.0007, -0.0011, -0.008])
+G4B_FISH = np.array([0.04, -0.01, 0.002, -0.0004])
+G4B_SQ, G4B_BOARD, G4B_VIEWS = 0.03, (10, 7), 8  # square (m), squares (cols, rows), views
+G4B_PATTERN = (G4B_BOARD[0] - 1, G4B_BOARD[1] - 1)
+G4B_MARKERS = (1280, 720)
+G4B_MARKER_POSE = (np.array([0.25, -0.2, 0.1]), np.array([-0.09, -0.08, 0.55]))
+G4B_CIRCLES = ((4, 11), (640, 480))  # asymmetric pattern (cols, rows), image size
+G4B_DEPTH_K = np.array([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1.0]])
+G4B_PLANES = ((np.array([0.0, 0, -1]), -3.0), (np.array([-1.0, 0, -0.2]), -2.0),
+              (np.array([0.0, -1, -0.1]), -1.2))  # the depth scene: n·p = d, a floor and 2 walls
+G4B_MOTION = (np.array([0.01, -0.02, 0.005]), np.array([0.01, 0.005, -0.02]))
+G4B_MESH = (5000, 1280, 720)  # triangles, width, height
+G4B_RASTER_CROP = (480, 270, 320, 180)  # (x, y, w, h)
+G4B_STITCH = ((300, 200), (300, 600), (640, 360))  # crop origins (y, x), size (w, h)
+G4B_WORKERS = 4
+
+
+def _g4b_board_view(rv, tv, seed: int, dev) -> np.ndarray:
+    """One 1080p view of the board at pose (rv, tv) under (G4B_K,
+    G4B_DIST): each pixel's ideal ray (10 fixed-point undistortion steps,
+    float64 on ``dev``) meets the board plane; seeded noise and a 5×5 box
+    blur."""
+    import torch
+
+    from rustcv_tpu_torch.ops import calib
+
+    k1, k2, p1, p2, k3 = (float(v) for v in G4B_DIST)
+    K = G4B_K
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=dev),
+                            torch.arange(W, dtype=torch.float64, device=dev), indexing="ij")
+    x0, y0 = (xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1]
+    x, y = x0, y0
+    for _ in range(10):
+        r2 = x * x + y * y
+        rad = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        xd = x * rad + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        yd = y * rad + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = x + (x0 - xd), y + (y0 - yd)
+    r = calib.rodrigues(np.asarray(rv, np.float64))
+    hinv = np.linalg.inv(np.column_stack([r[:, 0], r[:, 1], tv]))
+    bz = hinv[2, 0] * x + hinv[2, 1] * y + hinv[2, 2]
+    bx = (hinv[0, 0] * x + hinv[0, 1] * y + hinv[0, 2]) / bz / G4B_SQ
+    by = (hinv[1, 0] * x + hinv[1, 1] * y + hinv[1, 2]) / bz / G4B_SQ
+    inside = (bx >= 0) & (bx < G4B_BOARD[0]) & (by >= 0) & (by < G4B_BOARD[1])
+    black = ((torch.floor(bx) + torch.floor(by)) % 2 == 0) & inside
+    noise = torch.as_tensor(np.random.default_rng(seed).normal(0, 1.5, (H, W)), device=dev)
+    img = torch.where(black, 40.0, 200.0).to(torch.float64) + noise
+    img = torch.nn.functional.pad(img[None, None], (2, 2, 2, 2), mode="replicate")
+    img = torch.nn.functional.avg_pool2d(img, 5, stride=1)[0, 0]
+    return img.clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def _g4b_depth(rv, tv) -> np.ndarray:
+    """640×480 depth of two walls and a floor seen from (rv, tv)."""
+    from rustcv_tpu_torch.ops import calib
+
+    vs, us = np.mgrid[0:480, 0:640].astype(np.float64)
+    rays = np.stack([us, vs, np.ones_like(us)], -1) @ np.linalg.inv(G4B_DEPTH_K).T
+    cam_rays = rays @ calib.rodrigues(np.asarray(rv, np.float64)).T
+    origin = np.asarray(tv, np.float64)
+    depth = np.full((480, 640), np.inf)
+    for n, d in G4B_PLANES:
+        denom = cam_rays @ n
+        tt = (d - origin @ n) / np.where(np.abs(denom) > 1e-9, denom, 1e-9)
+        depth = np.where((tt > 0.1) & (np.abs(denom) > 1e-9) & (tt < depth), tt, depth)
+    return np.where(np.isinf(depth), 0.0, depth)
+
+
+def _g4b_mesh(rng):
+    """Two overlapping height-field grids of 50×25 cells, two triangles a
+    cell (5,000 triangles), in pixel coordinates with depth: (vertices
+    (V, 3), faces (T, 3), colours (V, 3))."""
+    verts, faces, base = [], [], 0
+    for (x0, y0, x1, y1), z0 in (((-20, -10, 900, 600), 2.0), ((380, 200, 1300, 740), 1.5)):
+        gy, gx = np.mgrid[0:26, 0:51].astype(np.float64)
+        gy, gx = gy / 25, gx / 50
+        x = x0 + gx * (x1 - x0) + rng.normal(0, 2.0, gx.shape)
+        y = y0 + gy * (y1 - y0) + rng.normal(0, 2.0, gx.shape)
+        z = z0 + 0.4 * np.sin(gx * 6.0) * np.cos(gy * 5.0)
+        verts.append(np.stack([x, y, z], -1).reshape(-1, 3))
+        i = (np.arange(25)[:, None] * 51 + np.arange(50)[None, :]).reshape(-1) + base
+        faces += [np.stack([i, i + 1, i + 51], -1), np.stack([i + 1, i + 52, i + 51], -1)]
+        base += 26 * 51
+    v = np.concatenate(verts).astype(np.float32)
+    return v, np.concatenate(faces).astype(np.int32), rng.uniform(0, 255, (len(v), 3)).astype(
+        np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def group4b_inputs() -> dict:
+    """Phase 3s's numpy inputs, made once in the main process (the board
+    views rendered on the card when there is one), pickled for the workers
+    and reused by phase 4s."""
+    import torch
+
+    from rustcv_tpu_torch.ops import aruco, circles_grid, sift, warp
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    rng = np.random.default_rng(80)
+    views, poses = [], []
+    for v in range(G4B_VIEWS):
+        rv = rng.uniform(-0.3, 0.3, 3)
+        tv = np.array([rng.uniform(-0.05, 0.05) - G4B_SQ * G4B_BOARD[0] / 2,
+                       rng.uniform(-0.03, 0.03) - G4B_SQ * G4B_BOARD[1] / 2,
+                       rng.uniform(0.55, 0.8)])
+        views.append(_g4b_board_view(rv, tv, v, dev))
+        poses.append((rv, tv))
+    pattern = synth_bgr(W, H, 11)
+    tex = sift._blur(rng.integers(0, 256, (H, W)).astype(np.float64), 2.0)
+    tex = (tex - tex.min()) / np.ptp(tex) * 255
+    scene = np.clip(0.5 * pattern + 0.5 * tex[..., None], 0, 255).astype(np.uint8)
+    frame = np.ascontiguousarray(scene)
+    frame[..., 1] = views[0]  # a board in one channel: straight lines to bend
+    # markers: a 4×4 GridBoard warped into a 1280×720 frame
+    dic = aruco.Dictionary.generate(24, 4, seed=7)
+    board = aruco.GridBoard((4, 4), 0.04, 0.02, dic)  # the gap a whole number of cells
+    bimg = board.draw(cell_px=12)
+    mk = np.array([[900.0, 0, 640], [0, 900.0, 360], [0, 0, 1]])
+    mrv, mtv = G4B_MARKER_POSE
+    from rustcv_tpu_torch.ops import calib
+
+    r = calib.rodrigues(mrv)
+    cell = 0.04 / (dic.bits + 2) / 12.0
+    shift = np.array([[1, 0, -12.0 + 0.5], [0, 1, -12.0 + 0.5], [0, 0, 1.0]])
+    hm = mk @ np.column_stack([r[:, 0], r[:, 1], mtv]) @ np.diag([cell, cell, 1.0]) @ shift
+    mw, mh = G4B_MARKERS
+    marker_frame = np.full((mh, mw), 255, np.uint8)
+    warped = warp.warp_perspective_numpy(bimg[..., None], hm, (mw, mh))[..., 0]
+    inside = warp.warp_perspective_numpy(np.full_like(bimg, 255)[..., None], hm,
+                                         (mw, mh))[..., 0] > 128
+    marker_frame[inside] = warped[inside]
+    # circles: an asymmetric grid at 640×480
+    (ccols, crows), (cw, chh) = G4B_CIRCLES
+    obj = circles_grid.circles_grid_object_points((ccols, crows), 1.0, asymmetric=True)[:, :2]
+    hc = np.array([[32.0, 2.5, 120.0], [-1.5, 32.0, 70.0], [1e-5, -1e-5, 1.0]])
+    pc = np.concatenate([obj, np.ones((len(obj), 1))], 1) @ hc.T
+    pc = pc[:, :2] / pc[:, 2:]
+    yy, xx = np.mgrid[0:chh, 0:cw]
+    circles = np.full((chh, cw), 215.0)
+    for cx, cy in pc:
+        circles[(xx - cx) ** 2 + (yy - cy) ** 2 <= 12.0 ** 2] = 35.0
+    circles = np.clip(circles + rng.normal(0, 2.0, circles.shape), 0, 255).astype(np.uint8)
+    # depth: frame 0 and the frame after the known motion
+    rv_m, tv_m = G4B_MOTION
+    rm = calib.rodrigues(rv_m)
+    d0 = _g4b_depth(np.zeros(3), np.zeros(3))
+    d1 = _g4b_depth(calib.rodrigues(rm.T), -rm.T @ tv_m)
+    (ya, xa), (yb, xb), (sw, sh) = G4B_STITCH
+    return {
+        "views": views, "poses": poses, "frame": frame, "dic": dic, "board": board,
+        "marker_k": mk, "marker_frame": marker_frame, "circles": circles, "d0": d0, "d1": d1,
+        "mesh": _g4b_mesh(rng),
+        "stitch": (np.ascontiguousarray(scene[ya:ya + sh, xa:xa + sw]),
+                   np.ascontiguousarray(scene[yb:yb + sh, xb:xb + sw])),
+    }
+
+
+def group4b_sides(inputs: dict, side: str) -> dict:
+    """Phase 3s's inputs on one side: "card" (CUDA tensors and Mats) or
+    "host" (CPU tensors and Mats)."""
+    import torch
+
+    from rustcv_tpu_torch.prelude import Mat
+
+    dev = "cuda" if side == "card" else "cpu"
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def mat(a):
+        return Mat.from_device(t(a if a.ndim == 3 else a[..., None]))
+
+    return dict(inputs, dev=dev, side=side, view_mats=[mat(v) for v in inputs["views"]],
+                frame_t=t(inputs["frame"]), frame_mat=mat(inputs["frame"]),
+                marker_mat=mat(inputs["marker_frame"]),
+                mesh_t=tuple(t(a) for a in inputs["mesh"]),
+                stitch_mats=[mat(a) for a in inputs["stitch"]])
+
+
+def _g4b_calibrate(s, detector: str):
+    """Detect the 8 views with ``detector``, order each found grid as the
+    object points (the detector's frame may be a flip of them), calibrate:
+    (found flags, corners, rms, K, dist)."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import calib
+
+    cols, rows = G4B_PATTERN
+    gx, gy = np.meshgrid(np.arange(1, cols + 1), np.arange(1, rows + 1))
+    obj = np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], 1) * G4B_SQ
+    found, corners, aligned = [], [], []
+    for m, (rv, tv) in zip(s["view_mats"], s["poses"]):
+        f, c = getattr(ip, detector)(m, G4B_PATTERN)
+        found.append(f)
+        corners.append(c)
+        if not f:
+            continue
+        truth = calib.project_points(obj, rv, tv, G4B_K, G4B_DIST).reshape(rows, cols, 2)
+        cg = c.reshape(rows, cols, 2)
+        err, best = min(((np.linalg.norm(g - truth, axis=2).max(), g)
+                         for g in (cg, cg[::-1, ::-1], cg[::-1, :], cg[:, ::-1])),
+                        key=lambda e: e[0])
+        expect(err < 1.5, f"{detector}: a grid {err:.3g} px off the truth")
+        aligned.append(best.reshape(-1, 2))
+    expect(len(aligned) >= 6, f"{detector}: only {len(aligned)} of {G4B_VIEWS} views found")
+    rms, k, dist, _, _ = calib.calibrate_camera([obj] * len(aligned), aligned, (W, H))
+    return np.array(found), np.concatenate(corners), rms, k, dist
+
+
+def _g4b_marker_pose(s):
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import aruco
+
+    corners, ids = ip.detect_aruco_markers(s["marker_mat"], s["dic"])
+    n, rv, tv = aruco.estimate_pose_board(corners, ids, s["board"], s["marker_k"])
+    return ids, np.concatenate(corners) if corners else np.zeros((0, 2)), n, rv, tv
+
+
+def _g4b_raster(s):
+    """The card rasterizes the whole mesh at 1280×720 and returns the crop;
+    the host rasterizes the crop's window of the mesh (the triangles whose
+    box reaches it, shifted into it). Returns (crop colour, crop depth,
+    the full frame's covered share)."""
+    import torch
+
+    from rustcv_tpu_torch.ops import threed
+
+    n_tris, w, h = G4B_MESH
+    x0, y0, cw, chh = G4B_RASTER_CROP
+    if s["side"] == "card":
+        color, depth = threed.triangle_rasterize(*s["mesh_t"], w, h)
+        share = float(torch.isfinite(depth).to(torch.float32).mean())
+        return (color[y0:y0 + chh, x0:x0 + cw], depth[y0:y0 + chh, x0:x0 + cw], share)
+    v, f, c = s["mesh"]
+    tri = v[f]
+    lo, hi = tri[..., :2].min(1), tri[..., :2].max(1)
+    keep = ((hi[:, 0] >= x0 - 2) & (lo[:, 0] <= x0 + cw + 1) & (hi[:, 1] >= y0 - 2)
+            & (lo[:, 1] <= y0 + chh + 1))
+    shifted = v - np.array([x0, y0, 0], np.float32)
+    color, depth = threed.triangle_rasterize(torch.from_numpy(shifted), f[keep], c, cw, chh)
+    return color, depth, float("nan")
+
+
+def group4b_calls() -> dict:
+    """name → (call on a side of :func:`group4b_sides`, check). A check
+    takes (name, card result, host result) as numpy and raises on a
+    mismatch; it returns the largest difference, or a note."""
+    import torch
+
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import calib, threed
+
+    fw, fh = G4B_MARKERS
+    return {
+        "calibration path 1080p (find_chessboard_corners x8, calibrate_camera)": (
+            lambda s: _g4b_calibrate(s, "find_chessboard_corners"), g4b_calibration),
+        "find_chessboard_corners_sb x8 1080p (+ calibrate_camera)": (
+            lambda s: _g4b_calibrate(s, "find_chessboard_corners_sb"), g4b_calibration),
+        "undistort 1080p BGR": (lambda s: ip.undistort(s["frame_mat"], G4B_K, G4B_DIST),
+                                g3_exact),
+        "fisheye_undistort 1080p BGR": (lambda s: calib.fisheye_undistort(
+            s["frame_t"], G4B_K, G4B_FISH, G4B_K * np.array([[0.7], [0.7], [1.0]])), g3_exact),
+        f"detect_aruco_markers + estimate_pose_board {fw}x{fh}": (_g4b_marker_pose, g4b_markers),
+        "find_circles_grid 640x480 asymmetric 4x11": (lambda s: ip.find_circles_grid(
+            s["circles"], G4B_CIRCLES[0], asymmetric=True), g4b_circles),
+        "rgbd_normals 640x480": (lambda s: threed.rgbd_normals(torch.as_tensor(
+            threed.depth_to_3d(s["d0"], G4B_DEPTH_K), device=s["dev"])), g4b_rtol(1e-5)),
+        "triangle_rasterize 5000 tris 1280x720": (_g4b_raster, g4b_raster),
+        "stitch_images 2x640x360 CUDA Mats": (lambda s: ip.stitch_images(s["stitch_mats"]),
+                                              g4b_stitch),
+    }
+
+
+# -- phase 3s's checks: the tolerances of the port's CPU tests ----------------
+
+def g4b_calibration(name, got, want):
+    """``found`` equal, corners within 1e-3 px, K within 1e-5 relative and
+    the distortion within 5e-3 of the CPU port's; the card's fx, fy within
+    3 % of the truth and its principal point within 15 px."""
+    (f, c, rms, k, d), (wf, wc, wrms, wk, wd) = got, want
+    expect(np.array_equal(f, wf), f"{name}: found {f} != {wf}")
+    err = float(np.abs(c - wc).max())
+    expect(err <= 1e-3, f"{name}: corners {err:.3g} px apart")
+    expect(np.allclose(k, wk, rtol=1e-5, atol=0), f"{name}: K {k} != {wk}")
+    expect(np.abs(d - wd).max() <= 5e-3, f"{name}: dist {d} != {wd}")
+    kerr = max(abs(k[i, i] - G4B_K[i, i]) / G4B_K[i, i] for i in (0, 1))
+    cerr = max(abs(k[i, 2] - G4B_K[i, 2]) for i in (0, 1))
+    expect(kerr < 0.03 and cerr < 15, f"{name}: K {k.tolist()} vs the truth {G4B_K.tolist()}")
+    return (f"corners {err:.3g} px, {int(f.sum())}/{len(f)} views found, rms {rms:.3f} px, "
+            f"fx,fy within {100 * kerr:.2f} % of the truth, cx,cy within {cerr:.2f} px, "
+            f"K vs CPU {float(np.abs(k - wk).max()):.3g}, dist vs CPU {float(np.abs(d - wd).max()):.3g}")
+
+
+def g4b_markers(name, got, want):
+    ids, corners, n, rv, tv = got
+    expect(all(np.array_equal(a, b) for a, b in zip(got, want)), f"{name}: differs from the CPU")
+    mrv, mtv = G4B_MARKER_POSE
+    err = (float(np.abs(rv - mrv).max()), float(np.abs(tv - mtv).max()))
+    expect(n >= 12 and err[0] < 0.02 and err[1] < 0.01, f"{name}: {n} markers, pose err {err}")
+    return f"{len(ids)} markers, pose within {err[0]:.3g} rad / {err[1]:.3g} m"
+
+
+def g4b_circles(name, got, want):
+    (f, c), (wf, wc) = got, want
+    expect(f and wf and np.array_equal(c, wc), f"{name}: differs from the CPU")
+    return f"{len(c)} centres equal"
+
+
+def g4b_rtol(rtol):
+    def check(name, got, want):
+        expect(got.shape == want.shape, f"{name}: {got.shape} != {want.shape}")
+        err = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-6)).max())
+        expect(np.allclose(got, want, rtol=rtol, atol=1e-6), f"{name}: rel |diff| {err:.3g}")
+        return err
+    return check
+
+
+def group4b_host_only_calls() -> dict:
+    """name → (call on the numpy inputs, check). These calls take and
+    return numpy and touch no tensor, so a CPU worker would repeat the same
+    float64 code: they run once, and a check takes (name, result) and holds
+    it to the scene's truth."""
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import threed
+
+    return {
+        "depth_to_3d 640x480": (lambda i: threed.depth_to_3d(i["d0"], G4B_DEPTH_K),
+                                g4b_points),
+        "find_planes 640x480": (lambda i: threed.find_planes(threed.depth_to_3d(
+            i["d0"], G4B_DEPTH_K), min_size=2000, threshold=0.02), g4b_planes),
+        "rgbd_odometry 640x480": (lambda i: ip.rgbd_odometry(i["d0"], i["d1"], G4B_DEPTH_K),
+                                  g4b_odometry),
+    }
+
+
+def g4b_points(name, got):
+    """z is the depth; x, y its ray through G4B_DEPTH_K, within float32."""
+    d = _G4B_HOST_ONLY_DEPTH["d0"]
+    vs, us = np.mgrid[0:d.shape[0], 0:d.shape[1]]
+    want = np.stack([(us - G4B_DEPTH_K[0, 2]) * d / G4B_DEPTH_K[0, 0],
+                     (vs - G4B_DEPTH_K[1, 2]) * d / G4B_DEPTH_K[1, 1], d], -1)
+    expect(got.shape == want.shape and got.dtype == np.float32, f"{name}: {got.shape}")
+    err = float(np.abs(got - want).max())
+    expect(err <= 1e-6 * float(np.abs(want).max()), f"{name}: {err:.3g} off the rays")
+    return f"{err:.3g} off the rays"
+
+
+def g4b_planes(name, got):
+    """The scene's three planes, each within 2e-3 of its truth, cover 99 %
+    of the pixels."""
+    labels, coeffs = got
+    truth = [np.append(n, -d) / np.linalg.norm(n) for n, d in G4B_PLANES]
+    expect(len(coeffs) == len(truth), f"{name}: {len(coeffs)} planes")
+    err = max(min(float(np.abs(c - t).max()) for t in truth) for c in coeffs)
+    cover = float((labels != 255).mean())
+    expect(err < 2e-3 and cover > 0.99, f"{name}: planes {err:.3g} off, cover {cover:.4f}")
+    return f"{len(coeffs)} planes within {err:.3g} of the truth, {100 * cover:.2f} % of pixels"
+
+
+def g4b_odometry(name, got):
+    ok, rv, tv = got
+    err = max(float(np.abs(rv - G4B_MOTION[0]).max()), float(np.abs(tv - G4B_MOTION[1]).max()))
+    expect(bool(ok) and err < 2e-3, f"{name}: motion {err:.3g} off the truth")
+    return f"{err:.3g} off the true motion"
+
+
+def g4b_raster(name, got, want):
+    """On the crop: cover differs on at most 0.1 % of pixels, depth within
+    1e-5 and colour within 1e-4 relative where both cover."""
+    (c, d, share), (wc, wd, _) = got, want
+    cover, wcover = np.isfinite(d), np.isfinite(wd)
+    mismatch = int((cover != wcover).sum())
+    expect(mismatch <= 0.001 * d.size, f"{name}: cover differs at {mismatch} px")
+    both = cover & wcover
+    expect(np.allclose(d[both], wd[both], rtol=1e-5, atol=0), f"{name}: depth differs")
+    expect(np.allclose(c[both], wc[both], rtol=1e-4, atol=1e-4), f"{name}: colour differs")
+    derr = float((np.abs(d[both] - wd[both]) / wd[both]).max())
+    return (f"crop {G4B_RASTER_CROP[2]}x{G4B_RASTER_CROP[3]}: cover differs at {mismatch} of "
+            f"{d.size} px, depth rel {derr:.3g}; {100 * share:.1f} % of the frame covered")
+
+
+def g4b_stitch(name, got, want):
+    expect(got.shape == want.shape, f"{name}: {got.shape} != {want.shape}")
+    diff = np.abs(got.astype(np.int64) - want)
+    expect(diff.max() <= 1, f"{name}: max |diff| {int(diff.max())}")
+    return f"{got.shape[1]}x{got.shape[0]} panorama, {int((diff > 0).sum())} values differ by 1"
+
+
+_G4B_HOST = {}  # a worker's host inputs and calls, loaded at its first call
+
+
+def _g4b_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(2)
+    from rustcv_tpu_torch import imgproc  # noqa: F401  (the imports, while the card works)
+
+
+def group4b_host(name: str, path: str):
+    """One call of phase 3s on the host inputs, in a worker process (the
+    inputs pickled at ``path``, loaded once): the result as numpy, and its
+    seconds."""
+    import pickle
+
+    if _G4B_HOST.get("path") != path:
+        with open(path, "rb") as f:
+            inputs = pickle.load(f)
+        _G4B_HOST.update(path=path, sides=group4b_sides(inputs, "host"), calls=group4b_calls())
+    t0 = time.perf_counter()
+    out = _g3_plain(_G4B_HOST["calls"][name][0](_G4B_HOST["sides"]))
+    return out, time.perf_counter() - t0
+
+
+_G4B_CARD_S = {}  # phase 3s's seconds per card call, which phase 4s prints
+_G4B_HOST_ONLY_S = {}  # phase 3s's seconds per host-only call, which phase 4s prints
+_G4B_HOST_ONLY_DEPTH = {}  # the depth map that g4b_points checks against
+
+
+def run_group4b() -> dict:
+    """Phase 3s: every call of :func:`group4b_calls` on the card inputs
+    against the same call on the host inputs, computed meanwhile by
+    G4B_WORKERS spawned CPU processes (stopped before this returns). Prints
+    each size and each call's largest difference. Then runs the
+    host-only calls once, against their truth. Launches no kernel:
+    returns the (zero) launches of the card's calls."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(max_workers=G4B_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_g4b_worker_init)
+    try:
+        for _ in range(G4B_WORKERS):  # start the workers now: torch imports while inputs build
+            pool.submit(time.sleep, 0)
+        inputs = group4b_inputs()
+        t_inputs = time.perf_counter() - t0
+        calls = group4b_calls()
+        heavy = [n for n in calls if n.startswith(("stitch", "calibration", "find_chessboard",
+                                                   "find_circles"))]
+        order = heavy + [n for n in calls if n not in heavy]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "inputs.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(inputs, f)
+            futures = {name: pool.submit(group4b_host, name, path) for name in order}
+            sides = group4b_sides(inputs, "card")
+            kernels.reset_launch_counts()
+            got = {}
+            for name, (call, _check) in calls.items():
+                t1 = time.perf_counter()
+                got[name] = call(sides)
+                torch.cuda.synchronize()
+                _G4B_CARD_S[name] = time.perf_counter() - t1
+            counts = kernels.launch_counts()
+            expect(not any(counts.values()), f"phase 3s launched a kernel: {counts}")
+            _G4B_HOST_ONLY_DEPTH["d0"] = inputs["d0"]
+            host_only = {}
+            for name, (call, check) in group4b_host_only_calls().items():
+                t1 = time.perf_counter()
+                out = call(inputs)
+                _G4B_HOST_ONLY_S[name] = time.perf_counter() - t1
+                host_only[name] = check(name, out)
+            t_card = time.perf_counter() - t0 - t_inputs
+            notes, host_s = {}, {}
+            for name, (call, check) in calls.items():
+                want, host_s[name] = futures[name].result(timeout=600)
+                notes[name] = check(name, _g3_plain(got[name]), want)
+            t_wait = time.perf_counter() - t0 - t_inputs - t_card
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"group 4b (the board views, the undistorted frames and the stitch crops' scene at "
+          f"{W}x{H}; the sizes in each name): {len(calls)} calls on the card == the CPU port "
+          f"within the CPU tests' tolerances, no kernel launched; " + "; ".join(
+              f"{k} {v:.3g}" if not isinstance(v, str) else f"{k}: {v}"
+              for k, v in notes.items()), flush=True)
+    print("group 4b host-only (numpy in and out, run once, held to the truth): " + "; ".join(
+        f"{k}: {v}" for k, v in host_only.items()), flush=True)
+    print(f"group 4b: inputs {t_inputs:.1f} s, card and host-only side {t_card:.1f} s, then "
+          f"waiting for the "
+          f"host side {t_wait:.1f} s", flush=True)
+    print("group 4b card seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(_G4B_CARD_S.items(), key=lambda kv: -kv[1]))
+        + "; host seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(host_s.items(), key=lambda kv: -kv[1])), flush=True)
+    return counts
+
+
+def time_group4b(smi: str) -> None:
+    """Phase 4s: ms per call of phase 3s. The device-bound calls are timed
+    here with CUDA events (``undistort`` of one 1080p frame whole, and
+    apart its host map build on the host clock, the upload of its two maps
+    and the remap on the card); the host-bound ones (detections,
+    calibration, markers, circles, stitching) are phase
+    3s's one card-side run on the host clock. The host-only calls
+    (``depth_to_3d``, planes, odometry) print on a line of their own.
+    Never gated."""
+    import torch
+
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import calib, chessboard, chessboard_sb, features, stitch, threed, warp
+
+    inputs = group4b_inputs()
+    s = group4b_sides(inputs, "card")
+    times = {}
+    frame = s["frame_t"]
+    times["undistort 1080p BGR (whole call)"] = cuda_ms(
+        lambda: ip.undistort(s["frame_mat"], G4B_K, G4B_DIST), 5)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mx, my = calib.init_undistort_rectify_map(G4B_K, G4B_DIST, None, (W, H))
+    times["undistort: host map build (host clock)"] = (time.perf_counter() - t0) / 3 * 1e3
+    times["undistort: map upload (2 x 8.3 MB)"] = cuda_ms(
+        lambda: (torch.as_tensor(mx, device="cuda"), torch.as_tensor(my, device="cuda")), 5)
+    mxt, myt = torch.as_tensor(mx, device="cuda"), torch.as_tensor(my, device="cuda")
+    times["undistort: remap on the card"] = cuda_ms(lambda: warp.remap(frame, mxt, myt), 10)
+    times["fisheye_undistort 1080p BGR"] = cuda_ms(lambda: calib.fisheye_undistort(
+        frame, G4B_K, G4B_FISH, G4B_K * np.array([[0.7], [0.7], [1.0]])), 5)
+    g = torch.as_tensor((inputs["views"][0] / np.float64(255.0)).astype(np.float32),
+                        device="cuda")
+    times["SB likelihood 1080p (16-channel conv2d, full float32)"] = cuda_ms(
+        lambda: chessboard_sb._likelihood(g), 10)
+    found, corners = chessboard.find_chessboard_corners(inputs["views"][0], G4B_PATTERN,
+                                                        refine=False)
+    gv = torch.as_tensor(inputs["views"][0], device="cuda")
+    times[f"corner_sub_pix {len(corners)} corners win 11 (one view's refinement)"] = cuda_ms(
+        lambda: features.corner_sub_pix(gv, corners.astype(np.float32), win=11), 10)
+    pts = torch.as_tensor(threed.depth_to_3d(inputs["d0"], G4B_DEPTH_K), device="cuda")
+    times["rgbd_normals 640x480"] = cuda_ms(lambda: threed.rgbd_normals(pts), 10)
+    n_tris, w, h = G4B_MESH
+    times[f"triangle_rasterize {n_tris} tris {w}x{h}"] = cuda_ms(
+        lambda: threed.triangle_rasterize(*s["mesh_t"], w, h), 2)
+    # the crops are a translation apart: that homography, the canvas of both
+    (_, xa), (_, xb), (sw, sh) = G4B_STITCH
+    hs = [np.eye(3), np.array([[1.0, 0, xb - xa], [0, 1, 0], [0, 0, 1]])]
+    a, b = (m.device() for m in s["stitch_mats"])
+    times["stitch device composite 2x640x360 (a known homography)"] = cuda_ms(
+        lambda: stitch._composite_device([a, b], hs, np.eye(3), sh, sw + xb - xa), 5)
+    for name, sec in _G4B_CARD_S.items():
+        if not name.startswith(("undistort", "fisheye", "rgbd_normals", "triangle")):
+            times[name + " (phase 3s, host clock)"] = sec * 1e3
+    print(f"group 4b ms per call on card inputs ({smi}), slowest first: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])), flush=True)
+    print("group 4b host-only ms per call (numpy in and out, no card work; phase 3s, host "
+          "clock), slowest first: " + ", ".join(
+              f"{k} {v * 1e3:.4f}"
+              for k, v in sorted(_G4B_HOST_ONLY_S.items(), key=lambda kv: -kv[1])), flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -4133,7 +4725,8 @@ def main() -> int:
                             ("second block of ops (3o)", run_block2),
                             ("group 2, features and flow (3p)", run_group2),
                             ("group 3 and segmentation (3q)", run_group3),
-                            ("group 4a (3r)", run_group4a)):
+                            ("group 4a (3r)", run_group4a),
+                            ("group 4b, the geometry chain (3s)", run_group4b)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -4157,7 +4750,8 @@ def main() -> int:
                           ("second block of ops (4o)", lambda: time_block2(smi)),
                           ("group 2, features and flow (4p)", lambda: time_group2(smi)),
                           ("group 3 and segmentation (4q)", lambda: time_group3(smi)),
-                          ("group 4a (4r)", lambda: time_group4a(smi))):
+                          ("group 4a (4r)", lambda: time_group4a(smi)),
+                          ("group 4b, the geometry chain (4s)", lambda: time_group4b(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

@@ -51,9 +51,12 @@ transforms (lines, segments, circles, the generalized Hough), stereo BM
 and SGBM, NL-means, the guided and domain-transform filters with the photo
 ops, Poisson editing, inpainting, HDR fusion, merges and tonemaps, Haar
 cascades, QR codes, MSER, line segments, GrabCut, intelligent scissors,
-the colour checker and the drawing helpers of ``ops.viz``. The rest of the
-reference module arrives with the ops it wraps (ROADMAP Queue 1 items
-6b–7); its names are absent here.
+the colour checker and the drawing helpers of ``ops.viz``. And so do those
+of group 4b, the geometry chain: the camera model, calibration, PnP and
+undistortion (``ops.calib``, ``ops.calib_ext``), the chessboard, SB and
+circle-grid detectors, ArUco markers, point clouds, meshes, the
+rasterizer and normals (``ops.threed``), RGB-D odometry and stitching.
+Every name of the reference module's ``__all__`` is here.
 """
 
 from __future__ import annotations
@@ -1954,6 +1957,153 @@ from ..ops.transform import (  # noqa: E402  (re-exports)
 )
 from ..ops.varref import variational_refine  # noqa: E402
 
+# ---------------------------------------------------------------------------
+# Group 4b: the geometry chain (camera model and calibration, chessboards,
+# circle grids, ArUco, 3-D, RGB-D odometry, stitching). The detectors are
+# host pipelines; their device steps (the chessboard refinements, the SB
+# likelihood, undistortion, the stitch composite) run on a device Mat's
+# device, on a CPU tensor for a host Mat, and on the card for an array.
+# ---------------------------------------------------------------------------
+
+
+def stitch_images(mats, min_matches: int = 12):
+    """Panorama stitching (OpenCV ``Stitcher`` role): SIFT registration
+    chained image-to-image, RANSAC homographies, feather-blended
+    compositing — the device remap composite for device Mats, the host
+    composite otherwise (ops.stitch). Returns a host Mat anchored at the
+    first image."""
+    arrays = []
+    for m in mats:
+        a = m.device() if getattr(m, "is_on_device", False) else (
+            m.to_numpy() if hasattr(m, "to_numpy") else np.asarray(m))
+        if a.ndim == 3 and a.shape[-1] == 1:
+            a = a[..., 0]
+        arrays.append(a)
+    return Mat.from_array(_stitch.stitch(arrays, min_matches=min_matches))
+
+
+def detect_aruco_markers(mat: Mat, dictionary, thresh=None):
+    """Fiducial marker detection (OpenCV ``aruco.detectMarkers`` role; host,
+    ops.aruco): → (corners list [4,2] CW from canonical top-left, ids int32
+    [N]). Build dictionaries with ``aruco.Dictionary.generate``; draw with
+    ``aruco.draw_marker``; pose via ``aruco.estimate_pose_single_markers``."""
+    return _aruco.detect_markers(_host(_gray_of_mat(mat)), dictionary, thresh=thresh)
+
+
+def _board_gray(mat):
+    """The gray plane of a Mat as a tensor (on a device Mat's device, a CPU
+    tensor for a host Mat: the detectors refine there), or of an array as
+    numpy (refined on the card)."""
+    if isinstance(mat, Mat):
+        return _gray(_tensor(mat))
+    a = np.asarray(mat)
+    return golden.bgr_to_gray(a) if a.ndim == 3 else a
+
+
+def find_chessboard_corners(mat, pattern_size, refine: bool = True):
+    """Inner chessboard corners (OpenCV ``findChessboardCorners`` role;
+    frozen pipeline spec in ops.chessboard). Accepts a Mat or array, gray
+    or BGR. Returns (found, corners float64 (rows·cols, 2) row-major — the
+    ``calibrate_camera`` object-point traversal)."""
+    return _chessboard.find_chessboard_corners(_board_gray(mat), pattern_size, refine=refine)
+
+
+def find_chessboard_corners_sb(mat, pattern_size, normalize: bool = False,
+                               refine: bool = True):
+    """Sector-based chessboard detection (OpenCV ``findChessboardCornersSB``
+    role; ops.chessboard_sb: the corner-likelihood convolution on the
+    device, host lattice growth). Same canonical ordering as
+    :func:`find_chessboard_corners`. ``normalize`` =
+    CALIB_CB_NORMALIZE_IMAGE role."""
+    return _chessboard_sb.find_chessboard_corners_sb(_board_gray(mat), pattern_size,
+                                                     normalize=normalize, refine=refine)
+
+
+def undistort(mat: Mat, K, dist, new_K=None) -> Mat:
+    """Undistort a u8 image (OpenCV ``undistort``): 5-coefficient
+    radial-tangential model; host map build + the remap where the Mat is
+    (ops.calib): a device Mat gives a device Mat, a host Mat a host Mat."""
+    if mat.is_on_device:
+        return Mat.from_device(_calib.undistort(mat.device(), K, dist, new_K))
+    out = _calib.undistort(torch.from_numpy(mat.to_numpy()), K, dist, new_K)
+    return Mat.from_array(out.numpy(), device=mat.target)
+
+
+def solve_pnp_refine(obj_pts, img_pts, k, dist, rvec, tvec, iterations: int = 20):
+    """OpenCV ``solvePnPRefineLM``/``VVS`` role: Gauss-Newton refinement of
+    an existing pose through the full distortion model (the same minimizer
+    solve_pnp ends with; ops.calib)."""
+    return _calib.refine_pose(
+        np.asarray(obj_pts, np.float64).reshape(-1, 3),
+        np.asarray(img_pts, np.float64).reshape(-1, 2),
+        np.asarray(k, np.float64), dist,
+        np.asarray(rvec, np.float64).ravel(),
+        np.asarray(tvec, np.float64).ravel(), iterations)
+
+
+from ..ops import aruco as _aruco  # noqa: E402
+from ..ops import calib as _calib  # noqa: E402
+from ..ops import chessboard as _chessboard  # noqa: E402
+from ..ops import chessboard_sb as _chessboard_sb  # noqa: E402
+from ..ops import stitch as _stitch  # noqa: E402
+from ..ops.calib import (  # noqa: E402  (re-exports)
+    calibrate_camera,
+    decompose_homography_mat,
+    estimate_affine_3d,
+    fisheye_init_undistort_rectify_map,
+    fisheye_project_points,
+    fisheye_undistort,
+    fisheye_undistort_points,
+    get_optimal_new_camera_matrix,
+    init_undistort_rectify_map,
+    project_points,
+    reproject_image_to_3d,
+    rodrigues,
+    solve_pnp,
+    solve_pnp_ransac,
+    stereo_calibrate,
+    stereo_rectify,
+    undistort_points,
+)
+from ..ops.calib_ext import (  # noqa: E402  (re-exports)
+    calibrate_camera_extended,
+    calibration_matrix_values,
+    compose_rt,
+    decompose_projection_matrix,
+    draw_frame_axes,
+    estimate_translation_2d,
+    estimate_translation_3d,
+    filter_homography_decomp_by_visible_refpoints,
+    filter_speckles,
+    init_camera_matrix_2d,
+    init_inverse_rectification_map,
+    read_optical_flow,
+    register_cameras,
+    sampson_distance,
+    solve_p3p,
+    solve_pnp_epnp,
+    solve_pnp_generic,
+    stereo_rectify_uncalibrated,
+    write_optical_flow,
+)
+from ..ops.chessboard import estimate_chessboard_sharpness  # noqa: E402
+from ..ops.circles_grid import circles_grid_object_points, find_circles_grid  # noqa: E402
+from ..ops.odometry import rgbd_odometry  # noqa: E402
+from ..ops.threed import (  # noqa: E402  (re-exports)
+    depth_to_3d,
+    depth_to_3d_sparse,
+    find_planes,
+    load_mesh,
+    load_point_cloud,
+    register_depth,
+    rescale_depth,
+    rgbd_normals,
+    save_mesh,
+    save_point_cloud,
+    triangle_rasterize,
+    warp_frame,
+)
+
 _GROUP2 = [
     "fast_corners", "compute_brief", "match_descriptors", "orb_features",
     "calc_optical_flow_pyr_lk", "build_optical_flow_pyramid", "calc_optical_flow_farneback",
@@ -1987,6 +2137,25 @@ _GROUP4A = [
     "detect_line_segments", "grab_cut", "IntelligentScissors", "detect_color_checker",
     "color_checker_ccm", "clip_line", "ellipse2poly", "draw_keypoints", "draw_matches",
     "draw_marker",
+]
+
+_GROUP4B = [
+    "stitch_images", "detect_aruco_markers", "calibrate_camera", "solve_pnp",
+    "solve_pnp_ransac", "stereo_rectify", "reproject_image_to_3d", "fisheye_project_points",
+    "fisheye_undistort_points", "fisheye_init_undistort_rectify_map", "fisheye_undistort",
+    "stereo_calibrate", "decompose_homography_mat", "estimate_affine_3d",
+    "find_chessboard_corners", "get_optimal_new_camera_matrix", "init_undistort_rectify_map",
+    "project_points", "rodrigues", "undistort", "undistort_points", "find_circles_grid",
+    "circles_grid_object_points", "compose_rt", "decompose_projection_matrix",
+    "calibration_matrix_values", "sampson_distance", "estimate_translation_2d",
+    "estimate_translation_3d", "init_camera_matrix_2d", "stereo_rectify_uncalibrated",
+    "filter_speckles", "read_optical_flow", "write_optical_flow", "save_point_cloud",
+    "load_point_cloud", "depth_to_3d", "find_planes", "triangle_rasterize", "solve_p3p",
+    "solve_pnp_refine", "register_depth", "warp_frame", "rescale_depth",
+    "estimate_chessboard_sharpness", "calibrate_camera_extended", "register_cameras",
+    "solve_pnp_generic", "draw_frame_axes", "filter_homography_decomp_by_visible_refpoints",
+    "save_mesh", "load_mesh", "depth_to_3d_sparse", "rgbd_normals", "rgbd_odometry",
+    "solve_pnp_epnp", "init_inverse_rectification_map",
 ]
 
 _SLICE2 = [
@@ -2036,4 +2205,4 @@ __all__ = [
     "in_range", "integral", "laplacian", "line", "median_blur", "moments", "morphology_ex",
     "polylines", "put_text", "pyr_down", "pyr_up", "rectangle", "resize", "scharr",
     "sep_filter_2d", "sobel", "sobel_magnitude", "stack_blur", "threshold",
-] + _SLICE2 + _GROUP2 + _GROUP3 + _GROUP4A
+] + _SLICE2 + _GROUP2 + _GROUP3 + _GROUP4A + _GROUP4B

@@ -36,7 +36,11 @@ filters, Poisson cloning, the diffusion inpaint, Mertens fusion, the
 cascade scorer and their wrappers) on CUDA inputs against CPU inputs at
 the reference's tolerances (the cascade's ``ok`` outside a 1e-3 margin
 band), with their results on the card and no kernel launched, and
-``mser``/``grabcut`` raising when the native build fails.
+``mser``/``grabcut`` raising when the native build fails; and group 4b
+(the undistortions, byte-equal to the CPU port and staying on the card;
+the SB likelihood in full float32 with TF32 on; the chessboard refinements
+on the card for a numpy board; the rasterizer, the normals and the stitch
+composite against the CPU port at the reference's bars).
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -1775,3 +1779,137 @@ def test_mser_and_grabcut_raise_without_the_native_library(cuda, monkeypatch, tm
         mser.mser_regions(img[..., 0])
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         grabcut.grab_cut(img, rect=(4, 3, 16, 14), iter_count=1)
+
+
+def _g4b_board(h=240, w=320, angle=0.12, sq=22.0, origin=(50.0, 40.0)):
+    """A 10×7-square board rotated by ``angle``, two 3×3 box blurs."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    c, s = np.cos(angle), np.sin(angle)
+    bx = (c * (xs - origin[0]) + s * (ys - origin[1])) / sq
+    by = (-s * (xs - origin[0]) + c * (ys - origin[1])) / sq
+    inside = (bx >= 0) & (bx < 10) & (by >= 0) & (by < 7)
+    img = np.where(inside & ((np.floor(bx) + np.floor(by)) % 2 == 0), 40.0, 200.0)
+    for _ in range(2):
+        p = np.pad(img, 1, mode="edge")
+        img = sum(p[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)) / 9.0
+    return img.astype(np.uint8)
+
+
+_G4B_K = np.array([[300.0, 0, 162.0], [0, 296.0, 118.0], [0, 0, 1.0]])
+_G4B_DIST = np.array([-0.18, 0.06, 0.0008, -0.0012, -0.01])
+
+
+def _g4b_frame(h=240, w=320, seed=50):
+    rng = np.random.default_rng(seed)
+    return np.stack([_g4b_board(h, w), rng.integers(0, 256, (h, w), np.uint8),
+                     _g4b_board(h, w, angle=-0.3)], -1)
+
+
+@pytest.mark.parametrize("fisheye", [False, True])
+def test_undistort_on_the_card_equals_the_cpu_port(cuda, fisheye):
+    from rustcv_tpu_torch.ops import calib
+
+    frame = _g4b_frame()
+
+    def fn(a):
+        if fisheye:
+            return calib.fisheye_undistort(a, _G4B_K, _G4B_DIST[:4] * 0.5, _G4B_K * 0.8)
+        return calib.undistort(a, _G4B_K, _G4B_DIST)
+
+    kernels.reset_launch_counts()
+    got = fn(torch.from_numpy(frame).to(cuda))
+    assert got.is_cuda and not any(kernels.launch_counts().values())
+    assert torch.equal(got.cpu(), fn(torch.from_numpy(frame)))
+    assert fn(frame).is_cuda  # a numpy frame goes to the card
+
+
+def test_imgproc_undistort_on_a_cuda_mat(cuda):
+    from rustcv_tpu_torch import imgproc as ip
+
+    frame = _g4b_frame()
+    out = ip.undistort(Mat.from_device(torch.from_numpy(frame).to(cuda)), _G4B_K, _G4B_DIST)
+    assert out.is_on_device and out.device().is_cuda
+    host = ip.undistort(Mat.from_array(frame, device="cpu"), _G4B_K, _G4B_DIST)
+    assert not host.is_on_device and np.array_equal(out.to_numpy(), host.to_numpy())
+
+
+def test_sb_likelihood_on_the_card_is_full_float32(cuda):
+    """Within 1e-5 of the float64 oracle with both TF32 flags on: the
+    convolution runs inside ``full_f32``, which restores the flags."""
+    from rustcv_tpu_torch.ops import chessboard_sb
+
+    img = np.random.default_rng(3).uniform(0, 1, (120, 160))
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = chessboard_sb._likelihood(torch.as_tensor(img, dtype=torch.float32, device=cuda))
+        assert got.is_cuda
+        assert np.abs(got.cpu().numpy() - chessboard_sb._likelihood_numpy(img)).max() < 1e-5
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("sb", [False, True])
+def test_board_refinement_runs_on_the_card_for_numpy_input(cuda, sb, monkeypatch):
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import chessboard, chessboard_sb, features
+
+    seen = []
+    real = features.corner_sub_pix
+
+    def spy(gray, pts, win=11, iters=10):
+        seen.append(gray.device.type)
+        return real(gray, pts, win, iters)
+
+    monkeypatch.setattr(features, "corner_sub_pix", spy)
+    board = _g4b_board()
+    fn = chessboard_sb.find_chessboard_corners_sb if sb else chessboard.find_chessboard_corners
+    found, corners = fn(board, (9, 6))
+    assert found and seen and set(seen) == {"cuda"}
+    f_cpu, c_cpu = fn(torch.from_numpy(board), (9, 6))
+    assert f_cpu and np.abs(corners - c_cpu).max() <= 1e-3
+    wrapper = ip.find_chessboard_corners_sb if sb else ip.find_chessboard_corners
+    seen.clear()
+    f_mat, c_mat = wrapper(Mat.from_device(torch.from_numpy(board[..., None]).to(cuda)), (9, 6))
+    assert f_mat and set(seen) == {"cuda"} and np.abs(c_mat - c_cpu).max() <= 1e-3
+
+
+def test_triangle_rasterize_and_normals_on_the_card(cuda):
+    from rustcv_tpu_torch.ops import threed
+
+    rng = np.random.default_rng(60)
+    verts = np.concatenate([rng.uniform(-10, 330, (900, 2)), rng.uniform(0.2, 3, (900, 1))],
+                           1).astype(np.float32)
+    idx = rng.integers(0, 900, (600, 3)).astype(np.int32)
+    cols = rng.uniform(0, 255, (900, 3)).astype(np.float32)
+    c, d = threed.triangle_rasterize(*(torch.from_numpy(a).to(cuda) for a in (verts, idx, cols)),
+                                     320, 240)
+    assert c.is_cuda and d.is_cuda
+    wc, wd = threed.triangle_rasterize(torch.from_numpy(verts), idx, cols, 320, 240)
+    c, d, wc, wd = (t.cpu().numpy() for t in (c, d, wc, wd))
+    cover, wcover = np.isfinite(d), np.isfinite(wd)
+    assert (cover != wcover).sum() <= 0.001 * d.size
+    both = cover & wcover
+    np.testing.assert_allclose(d[both], wd[both], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(c[both], wc[both], rtol=1e-4, atol=1e-4)
+    depth = (2.0 + 0.3 * np.sin(np.mgrid[0:60, 0:80][1] / 9.0)).astype(np.float32)
+    pts = threed.depth_to_3d(depth, _G4B_K / 4 + np.diag([0, 0, 0.75]))
+    n = threed.rgbd_normals(torch.from_numpy(pts).to(cuda))
+    assert n.is_cuda and threed.rgbd_normals(pts).is_cuda
+    np.testing.assert_allclose(n.cpu().numpy(), threed.rgbd_normals(torch.from_numpy(pts)).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_stitch_device_composite_on_the_card(cuda):
+    from rustcv_tpu_torch.ops import stitch
+    from rustcv_tpu_torch.ops.sift import _blur
+
+    rng = np.random.default_rng(11)
+    img = _blur(rng.integers(0, 256, (140, 300)).astype(np.float64), 2.0)
+    wide = ((img - img.min()) / (np.ptp(img) + 1e-9) * 255).astype(np.uint8)
+    left, right = wide[10:130, 0:170].copy(), wide[10:130, 110:300].copy()
+    got = stitch.stitch([torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)])
+    want = stitch.stitch([torch.from_numpy(left), torch.from_numpy(right)])
+    assert isinstance(got, np.ndarray) and got.shape == want.shape
+    assert np.abs(got.astype(int) - want).max() <= 1

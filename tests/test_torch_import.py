@@ -23,8 +23,10 @@ k-means, watershed, SLIC, the Voronoi seam) with theirs, and group 4a
 Poisson editing, inpainting, HDR, cascades, and the host modules
 ``poisson_cv``, ``lsd``, ``scissors``, ``viz``, ``qr``, ``colorchecker``,
 ``mser`` and ``grabcut`` over the native ``mser.cpp`` and ``maxflow.cpp``)
-with theirs, with jax, Pillow and the JAX package ``rustcv_tpu`` absent. The font data's
-generator (``tools/make_text_data.py``) is no module of the package.
+with theirs, and group 4b, the geometry chain (``calib``, ``calib_ext``,
+the chessboard, SB and circle-grid detectors, ArUco, ``threed``, RGB-D
+odometry and stitching) with theirs, with jax, Pillow and the JAX package
+``rustcv_tpu`` absent. The font data's generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -58,6 +60,7 @@ _SCRIPT = textwrap.dedent(
     import rustcv_tpu_torch.probes.mosaic_shuffle
     import rustcv_tpu_torch.probes.host_gather_ab
     import rustcv_tpu_torch.probes.chain_profile
+    import rustcv_tpu_torch.probes.template_rounding
     from rustcv_tpu_torch import native
 
     eng = MultiStreamEngine(
@@ -522,6 +525,84 @@ _GROUP4A_SCRIPT = textwrap.dedent(
     print("OK")
     """
 )
+
+
+_GROUP4B_SCRIPT = textwrap.dedent(
+    """
+    import importlib, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    for mod in ("calib", "calib_ext", "chessboard", "chessboard_sb", "circles_grid", "threed",
+                "aruco", "odometry", "stitch"):
+        importlib.import_module("rustcv_tpu_torch.ops." + mod)
+    from rustcv_tpu_torch import imgproc
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.ops import aruco, calib, chessboard, chessboard_sb, stitch, threed
+
+    k = np.array([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]])
+    dist = np.array([-0.1, 0.01, 0.0, 0.0, 0.0])
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (48, 64, 3), np.uint8)
+    for m in (Mat.from_array(img, device="cpu"), Mat.from_device(torch.from_numpy(img.copy()))):
+        out = imgproc.undistort(m, k, dist)
+        assert out.shape == (48, 64, 3) and out.is_on_device == m.is_on_device
+    assert calib.fisheye_undistort(torch.from_numpy(img), k, dist[:4]).shape == (48, 64, 3)
+    obj = np.stack(np.meshgrid(np.arange(4.0), np.arange(3.0)), -1).reshape(-1, 2) * 0.1
+    obj = np.concatenate([obj, np.zeros((12, 1))], 1)
+    px = calib.project_points(obj, np.array([0.1, -0.1, 0.0]), np.array([0.0, 0.0, 1.0]), k)
+    rv, tv = imgproc.solve_pnp(obj, px, k)
+    assert np.abs(tv - [0.0, 0.0, 1.0]).max() < 1e-6
+    board = np.kron((np.indices((7, 10)).sum(0) % 2) * 160.0 + 40, np.ones((20, 20)))
+    board = np.pad(board, 20, constant_values=200.0)
+    for _ in range(2):  # two 3x3 box blurs: the SB likelihood needs soft edges
+        p = np.pad(board, 1, mode="edge")
+        board = sum(p[dy:dy + 180, dx:dx + 240] for dy in range(3) for dx in range(3)) / 9.0
+    board = board.astype(np.uint8)
+    for fn in (chessboard.find_chessboard_corners, chessboard_sb.find_chessboard_corners_sb):
+        found, corners = fn(torch.from_numpy(board), (9, 6))
+        assert found and corners.shape == (54, 2)
+    assert imgproc.find_chessboard_corners(Mat.from_array(board, device="cpu"), (9, 6))[0]
+    dic = aruco.Dictionary.generate(8, 4, seed=7)
+    scene = np.full((96, 96), 200, np.uint8)
+    scene[24:72, 24:72] = aruco.draw_marker(dic, 3, 8)
+    assert list(imgproc.detect_aruco_markers(Mat.from_array(scene, device="cpu"), dic)[1]) == [3]
+    assert imgproc.find_circles_grid(np.full((60, 80), 220, np.uint8), (3, 2))[0] is False
+    depth = np.full((24, 32), 2.0, np.float32)
+    pts = imgproc.depth_to_3d(depth, k)
+    assert imgproc.rgbd_normals(torch.from_numpy(pts)).shape == (24, 32, 3)
+    verts = np.array([[2, 2, 1], [30, 3, 1], [10, 20, 1]], np.float32)
+    color, zbuf = threed.triangle_rasterize(torch.from_numpy(verts), np.array([[0, 1, 2]]),
+                                            verts * 50, 32, 24)
+    assert bool(torch.isfinite(zbuf).any())
+    assert imgproc.rgbd_odometry(depth.astype(np.float64), depth.astype(np.float64), k,
+                                 levels=1, iters=1)[0] in (True, False)
+    with tempfile.TemporaryDirectory() as d:
+        imgproc.save_point_cloud(os.path.join(d, "c.ply"), pts.reshape(-1, 3)[:5])
+        assert imgproc.load_point_cloud(os.path.join(d, "c.ply")).shape == (5, 3)
+    try:
+        stitch.stitch([img[..., 0], img[..., 1]])
+    except stitch.StitchError:
+        pass
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_group4b_geometry_runs_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _GROUP4B_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_group4a_runs_without_jax_or_pil():
