@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Fifteen paths, each driven with the launch counts set to 0 just before it
+Sixteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -64,7 +64,12 @@ and read just after:
   the spatial route's row bands with their halos through
   ``band_blur_sobel`` at R = 2, 4 and 8 and ``blur_sobel_mag_spatial`` on
   the one-rank rows mesh (K1 per band), ``corner_counts_psum``, and
-  ``python -m rustcv_tpu_torch.parallel.launch`` in a process of its own.
+  ``python -m rustcv_tpu_torch.parallel.launch`` in a process of its own;
+* the cv2 facade, ``import rustcv_tpu_torch.cv2 as cv2``, at 1920×1080
+  with numpy in and out: ``VideoWriter`` → ``VideoCapture`` of an 8-frame
+  clip, per frame colour, blurs, Sobel, Canny, threshold, resize,
+  ``cornerHarris`` (K6 float32) and ``goodFeaturesToTrack`` (K6 int32),
+  draws and the JPEG codecs, ORB and MOG2 over the clip, ``FileStorage``.
 
 Phases:
 
@@ -172,7 +177,11 @@ Phases:
    processes, launching no kernel; and once, held to their truth alone,
    the three host-only calls on that depth map: ``depth_to_3d``,
    ``find_planes`` (its three planes) and ``rgbd_odometry`` (within 2e-3
-   of a known motion);
+   of a known motion); (3t) the cv2 script above, its 112 results held
+   against the same calls on CPU tensors in spawned CPU processes (equal;
+   the float Harris response at the reference's bar, ORB angles within
+   1e-3 rad, JPEG coefficients within their tolerance), gated on both K6
+   forms launching;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -199,7 +208,9 @@ Phases:
    segmentation ops at 1080p (the host ones included); (4r) ms per call
    of group 4a; (4s) ms per call of group 4b (``undistort`` of one 1080p
    frame whole and, apart, its host map build, the maps' upload and the
-   remap).
+   remap); (4t) ms per cv2 call at 1080p, numpy in and out, and the
+   host-only calls (cv2's host algorithms, draws on numpy, FileStorage)
+   on a line of their own.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -4652,6 +4663,376 @@ def time_group4b(smi: str) -> None:
               for k, v in sorted(_G4B_HOST_ONLY_S.items(), key=lambda kv: -kv[1])), flush=True)
 
 
+# ----------------------------------------------------------------------------------
+# Phase 3t: the cv2 facade (rustcv_tpu_torch.cv2), one cv2 user's script at 1080p
+
+CV2_FRAMES = 8  # the clip phase 3t writes, reads back and processes
+CV2_SMALL = (640, 360)  # resize's target (INTER_AREA)
+CV2_SQUARE = (96, 400, 300, 24)  # the moving square: side, x0, y, px per frame
+CV2_WORKERS = 4
+CV2_REPS = 3  # phase 4t's timed calls per cv2 call
+# Bars of phase 3t, card against CPU, as the CPU tests hold them: the float
+# Harris response at HARRIS_TOL, ORB angles within 1e-3 rad, the JPEG
+# payloads' coefficients at JPEG_TOL (card encoder against the CPU's);
+# everything else equal.
+
+
+def cv2_clip(w: int, h: int, n: int) -> list:
+    """Phase 3t's clip: the test pattern at w×h with a textured square
+    moving right, n BGR frames."""
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+
+    side, x0, y, step = CV2_SQUARE
+    side, y = min(side, h // 3), min(y, h // 3)
+    base = synth_bgr(w, h, 11)
+    tex = np.random.default_rng(19).integers(0, 256, (side, side, 3), np.uint8)
+    out = []
+    for t in range(n):
+        f = base.copy()
+        x = (min(x0, w // 4) + step * t) % max(1, w - side)
+        f[y:y + side, x:x + side] = tex
+        out.append(f)
+    return out
+
+
+def cv2_write_read(cv2, frames, img, path: str) -> dict:
+    """``cv2.VideoWriter`` (MJPG) writes the frames (``img`` makes what
+    this side passes: numpy on the card's side, a CPU tensor on the CPU's),
+    ``cv2.VideoCapture(path)`` reads them back."""
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (w, h))
+    expect(writer.isOpened(), f"VideoWriter did not open {path}")
+    for f in frames:
+        writer.write(img(f))
+    writer.release()
+    cap = cv2.VideoCapture(path)
+    try:
+        expect(cap.isOpened(), f"VideoCapture did not open {path}")
+        size = (cap.get(cv2.CAP_PROP_FRAME_WIDTH), cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        decoded = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            decoded.append(f)
+    finally:
+        cap.release()
+    return {"size": size, "decoded": decoded}
+
+
+def cv2_frame_calls(cv2, frame, payload: bytes, img) -> dict:
+    """The per-frame calls of phase 3t's script on one decoded BGR frame,
+    by name; ``payload`` is the JPEG the frame was decoded from, which
+    ``imdecode`` decodes again; ``img`` as in :func:`cv2_write_read`."""
+    out = {}
+    f = img(frame)
+    gray = cv2.cvtColor(f, cv2.COLOR_BGR2GRAY)
+    g = img(gray)
+    out["cvtColor BGR2GRAY"] = gray
+    out["GaussianBlur 5x5"] = cv2.GaussianBlur(f, (5, 5), 0)
+    out["GaussianBlur 7x7 sigma 1.5"] = cv2.GaussianBlur(f, (7, 7), 1.5)
+    out["Sobel CV_16S dx"] = cv2.Sobel(g, cv2.CV_16S, 1, 0)
+    out["Canny 50 150"] = cv2.Canny(g, 50, 150)
+    out["threshold 127 binary"] = cv2.threshold(g, 127, 255, cv2.THRESH_BINARY)[1]
+    out["resize 640x360 area"] = cv2.resize(f, CV2_SMALL, interpolation=cv2.INTER_AREA)
+    out["cornerHarris 2 3 0.04"] = cv2.cornerHarris(g, 2, 3, 0.04)
+    out["goodFeaturesToTrack 500 0.01 10"] = cv2.goodFeaturesToTrack(g, 500, 0.01, 10)
+    canvas = img(frame.copy())
+    cv2.rectangle(canvas, (100, 100), (500, 400), (0, 255, 0), 2)
+    cv2.circle(canvas, (960, 540), 120, (0, 0, 255), -1)
+    cv2.putText(canvas, "rustcv_tpu_torch.cv2", (60, 1000), cv2.FONT_HERSHEY_SIMPLEX, 1.5,
+                (255, 255, 0), 2)
+    out["rectangle, circle, putText"] = canvas
+    ok, jpg = cv2.imencode(".jpg", f)
+    expect(ok, "imencode('.jpg') failed")
+    out["imencode .jpg"] = jpg
+    out["imdecode"] = cv2.imdecode(np.frombuffer(payload, np.uint8), cv2.IMREAD_COLOR)
+    return out
+
+
+def cv2_clip_calls(cv2, frames, img, which=("ORB", "MOG2")) -> dict:
+    """The calls of phase 3t's script over the whole clip: ORB's
+    ``detectAndCompute`` and MOG2's ``apply`` on every frame."""
+    out = {}
+    if "ORB" in which:
+        orb = cv2.ORB_create()
+        for t, frame in enumerate(frames):
+            kps, desc = orb.detectAndCompute(img(frame), None)
+            out[f"ORB {t}"] = (np.array([k.pt for k in kps], np.float64).reshape(-1, 2),
+                               np.array([k.angle for k in kps], np.float64), desc)
+    if "MOG2" in which:
+        mog2 = cv2.createBackgroundSubtractorMOG2()
+        for t, frame in enumerate(frames):
+            out[f"MOG2 {t}"] = mog2.apply(img(frame))
+    return out
+
+
+def cv2_filestorage(cv2, corners, tmp: str) -> dict:
+    """``FileStorage`` writes the corners and reads them back, in each
+    format this machine reads (YAML needs PyYAML)."""
+    import importlib.util
+
+    exts = ["json", "xml"] + (["yml"] if importlib.util.find_spec("yaml") else [])
+    out = {}
+    for ext in exts:
+        path = os.path.join(tmp, f"corners.{ext}")
+        fs = cv2.FileStorage(path, cv2.FILE_STORAGE_WRITE)
+        fs.write("frame", 0)
+        fs.write("corners", corners)
+        fs.release()
+        back = cv2.FileStorage(path, cv2.FILE_STORAGE_READ)
+        expect(back.isOpened(), f"FileStorage did not read {path}")
+        out[ext] = (back.getNode("corners").mat(), open(path, "rb").read())
+        back.release()
+    return out
+
+
+_CV2_HOST = {}  # a worker's decoded clip, loaded at its first call
+
+
+def cv2_host(job: str, path: str):
+    """One job of phase 3t's CPU side in a worker process, on CPU tensors:
+    ``"clip"`` writes and reads the clip, ``"frame <t>"`` runs the
+    per-frame calls on the card's decoded frame t, ``"ORB"`` and ``"MOG2"``
+    the clip's calls. Returns the outputs as numpy, and its seconds."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    torch.set_num_threads(2)
+    import rustcv_tpu_torch.cv2 as cv2
+
+    if _CV2_HOST.get("path") != path:
+        with open(path, "rb") as f:
+            _CV2_HOST.update(pickle.load(f), path=path)
+    t0 = time.perf_counter()
+    cpu = torch.from_numpy
+    if job == "clip":
+        with tempfile.TemporaryDirectory() as tmp:
+            avi = os.path.join(tmp, "clip.avi")
+            out = cv2_write_read(cv2, _CV2_HOST["frames"], cpu, avi)
+            out["payloads"] = cv2_payloads(avi)
+    elif job in ("ORB", "MOG2"):
+        out = cv2_clip_calls(cv2, _CV2_HOST["decoded"], cpu, (job,))
+    else:
+        t = int(job.split()[1])
+        out = cv2_frame_calls(cv2, _CV2_HOST["decoded"][t], _CV2_HOST["payloads"][t], cpu)
+    return out, time.perf_counter() - t0
+
+
+def cv2_payloads(avi: str) -> list:
+    from rustcv_tpu_torch.capture import AviMjpegReader
+
+    reader = AviMjpegReader(avi)
+    return [reader.frame_bytes(i).tobytes() for i in range(len(reader))]
+
+
+def cv2_jpeg_within(got: bytes, want: bytes, what: str) -> None:
+    """Two JPEG payloads of the same image (the card's encoder and the
+    CPU's): equal quantized coefficients within JPEG_TOL, equal tables."""
+    from rustcv_tpu_torch import native
+
+    g_info, g_coeffs, g_qts = native.jpeg_entropy_decode(bytes(got))
+    w_info, w_coeffs, w_qts = native.jpeg_entropy_decode(bytes(want))
+    expect(g_info == w_info, f"{what}: {g_info} against {w_info}")
+    for a, b in zip(g_qts, w_qts):
+        expect(np.array_equal(a, b), f"{what}: other quantization tables")
+    for i, (a, b) in enumerate(zip(g_coeffs, w_coeffs)):
+        within(a, b, JPEG_TOL, f"{what} component {i}")
+
+
+def cv2_check(name: str, got, want) -> str:
+    """Phase 3t's bar for one output, card against CPU; a note to print."""
+    if name.startswith("cornerHarris"):
+        import torch
+
+        a, r = harris_f32_errs(torch.from_numpy(got), torch.from_numpy(want))
+        expect(np.allclose(got, want, **HARRIS_TOL), f"{name}: {a:.3g} abs, {r:.3g} rel")
+        return f"{a:.3g}"
+    if name.startswith("imencode"):
+        cv2_jpeg_within(got, want, name)
+        return "coefficients within JPEG_TOL"
+    if name.startswith("ORB"):
+        expect(np.array_equal(got[0], want[0]), f"{name}: other keypoints")
+        ang = np.abs((got[1] - want[1] + 180) % 360 - 180).max(initial=0)
+        expect(ang <= np.degrees(1e-3), f"{name}: angles {ang:.3g} deg apart")
+        expect(np.array_equal(got[2], want[2]), f"{name}: other descriptors")
+        return f"{len(got[0])} keypoints"
+    expect(np.asarray(got).shape == np.asarray(want).shape
+           and np.asarray(got).dtype == np.asarray(want).dtype
+           and np.array_equal(got, want), f"{name}: card and CPU differ")
+    return "equal"
+
+
+_CV2_CARD = {}  # phase 3t's inputs and results on the card, which phase 4t reuses
+
+
+def run_cv2() -> dict:
+    """Phase 3t: one cv2 user's script through ``import rustcv_tpu_torch.cv2
+    as cv2`` at 1920×1080, numpy in and out (a numpy image goes to the
+    card): ``VideoWriter`` writes the 8-frame clip, ``VideoCapture`` reads
+    it back (its size from ``get``); per frame ``cvtColor``, two
+    ``GaussianBlur``s, ``Sobel``, ``Canny``, ``threshold``, ``resize``,
+    ``cornerHarris`` (K6 float32), ``goodFeaturesToTrack`` (K6 int32), the
+    draws and ``imencode``/``imdecode``; over the clip ORB and MOG2; then
+    ``FileStorage`` writes the corners and reads them back. Every result is
+    held against the same call on CPU tensors in CV2_WORKERS spawned CPU
+    processes (stopped before this returns). Fails unless both K6 forms
+    launched. Returns the launches of the card's run."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    import rustcv_tpu_torch.cv2 as cv2
+    from rustcv_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(max_workers=CV2_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        for _ in range(CV2_WORKERS):  # the workers import torch while the card works
+            pool.submit(time.sleep, 0)
+        frames = cv2_clip(W, H, CV2_FRAMES)
+        with tempfile.TemporaryDirectory() as tmp:
+            avi = os.path.join(tmp, "clip.avi")
+            kernels.reset_launch_counts()  # the cv2 path starts here
+            clip = cv2_write_read(cv2, frames, lambda a: a, avi)
+            decoded = clip["decoded"]
+            payloads = cv2_payloads(avi)
+            path = os.path.join(tmp, "clip.pkl")  # the CPU side starts on the card's frames
+            with open(path, "wb") as f:
+                pickle.dump({"frames": frames, "decoded": decoded, "payloads": payloads}, f)
+            jobs = ["MOG2", "ORB", "clip"] + [f"frame {t}" for t in range(len(decoded))]
+            futures = {job: pool.submit(cv2_host, job, path) for job in jobs}
+            got = {}
+            for t, frame in enumerate(decoded):
+                for name, out in cv2_frame_calls(cv2, frame, payloads[t], lambda a: a).items():
+                    got[f"{name} {t}"] = out
+            got.update(cv2_clip_calls(cv2, decoded, lambda a: a))
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()  # read just after the cv2 path
+            t_card = time.perf_counter() - t0
+            corners = got["goodFeaturesToTrack 500 0.01 10 0"]
+            stored = cv2_filestorage(cv2, corners, tmp)
+            expect(clip["size"] == (float(W), float(H)) and len(decoded) == CV2_FRAMES,
+                   f"VideoCapture read {len(decoded)} frames of {clip['size']}")
+            expect(counts["harris_response_f32"] >= 1 and counts["harris_response_i32"] >= 1,
+                   f"phase 3t: cornerHarris / goodFeaturesToTrack did not reach K6: {counts}")
+            for ext, (mat, _raw) in stored.items():
+                expect(mat.dtype == corners.dtype and np.array_equal(mat.reshape(corners.shape),
+                                                                     corners),
+                       f"FileStorage .{ext} did not read the corners back")
+            notes, host_s = {}, {}
+            want_clip, host_s["clip"] = futures["clip"].result(timeout=600)
+            expect(want_clip["size"] == clip["size"]
+                   and len(want_clip["payloads"]) == len(payloads), "the CPU clip differs")
+            for t, (a, b) in enumerate(zip(payloads, want_clip["payloads"])):
+                cv2_jpeg_within(a, b, f"VideoWriter frame {t}")
+            notes["VideoWriter payloads"] = "coefficients within JPEG_TOL"
+            want = {}
+            for job in (j for j in jobs if j != "clip"):
+                out, host_s[job] = futures[job].result(timeout=600)
+                suffix = " " + job.split()[1] if job.startswith("frame") else ""
+                want.update({f"{k}{suffix}": v for k, v in out.items()})
+            expect(sorted(want) == sorted(got), "the CPU side ran other calls")
+            for name in got:
+                base = name.rsplit(" ", 1)[0]
+                note = cv2_check(name, _g3_plain(got[name]), want[name])
+                notes.setdefault(base, note)
+            cpu_corners = want["goodFeaturesToTrack 500 0.01 10 0"]
+            cpu_stored = cv2_filestorage(cv2, cpu_corners, tmp)
+            for ext in stored:
+                expect(stored[ext][1] == cpu_stored[ext][1],
+                       f"FileStorage .{ext}: other bytes for the CPU's corners")
+            t_wait = time.perf_counter() - t0 - t_card
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    _CV2_CARD.update(frames=frames, decoded=decoded, payloads=payloads, corners=corners)
+    print(f"cv2 facade at {W}x{H}, {CV2_FRAMES} frames (numpy in, numpy out): "
+          f"{len(got)} results on the card == the CPU port on CPU tensors: " + "; ".join(
+              f"{k}: {v}" for k, v in notes.items()) + f"; FileStorage {sorted(stored)} read "
+          f"the corners back, the same bytes as the CPU's", flush=True)
+    print(f"cv2 facade: card side {t_card:.1f} s, then waiting for the CPU side "
+          f"{t_wait:.1f} s; launches {({k: v for k, v in counts.items() if v})}; host seconds "
+          "per job: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              host_s.items(), key=lambda kv: -kv[1])), flush=True)
+    return counts
+
+
+def time_cv2(smi: str) -> None:
+    """Phase 4t: ms per cv2 call at 1080p, numpy in and numpy out (the
+    uploads and downloads included; CUDA events over CV2_REPS calls after a
+    warm one), slowest first, with the card's name and power limit. The
+    host-only calls (cv2's own host algorithms: the u8 BGR2GRAY tables,
+    Canny, the u8 area resize and the JPEG decode; the in-place draws on a
+    numpy frame; FileStorage) print on a line of their own, on the host
+    clock. Never gated."""
+    import tempfile
+
+    import rustcv_tpu_torch.cv2 as cv2
+
+    frame = _CV2_CARD["decoded"][0]
+    gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
+    jpg = np.frombuffer(_CV2_CARD["payloads"][0], np.uint8)
+    calls = {
+        "GaussianBlur 5x5": lambda: cv2.GaussianBlur(frame, (5, 5), 0),
+        "GaussianBlur 7x7 sigma 1.5": lambda: cv2.GaussianBlur(frame, (7, 7), 1.5),
+        "Sobel CV_16S dx": lambda: cv2.Sobel(gray, cv2.CV_16S, 1, 0),
+        "threshold 127": lambda: cv2.threshold(gray, 127, 255, cv2.THRESH_BINARY),
+        "cornerHarris (K6 f32)": lambda: cv2.cornerHarris(gray, 2, 3, 0.04),
+        "goodFeaturesToTrack (K6 i32)": lambda: cv2.goodFeaturesToTrack(gray, 500, 0.01, 10),
+        "imencode .jpg": lambda: cv2.imencode(".jpg", frame),
+        "ORB detectAndCompute": lambda: cv2.ORB_create().detectAndCompute(frame, None),
+    }
+    # host code, as the reference's (cv2's own tables and algorithms)
+    host_calls = {
+        "cvtColor BGR2GRAY": lambda: cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY),
+        "Canny 50 150": lambda: cv2.Canny(gray, 50, 150),
+        "resize 640x360 area": lambda: cv2.resize(frame, CV2_SMALL, interpolation=cv2.INTER_AREA),
+        "imdecode": lambda: cv2.imdecode(jpg, cv2.IMREAD_COLOR),
+    }
+    mog2 = cv2.createBackgroundSubtractorMOG2()
+    calls["MOG2 apply"] = lambda: mog2.apply(frame)
+    times = {name: cuda_ms(fn, CV2_REPS) for name, fn in calls.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        clip = cv2_write_read(cv2, _CV2_CARD["frames"], lambda a: a,
+                              os.path.join(tmp, "clip.avi"))
+        n = len(clip["decoded"])
+        times["VideoWriter write + VideoCapture read, per frame (host clock)"] = (
+            (time.perf_counter() - t0) / n * 1e3)
+        host = {}
+        for name, fn in host_calls.items():
+            fn()
+            t0 = time.perf_counter()
+            fn()
+            host[name] = (time.perf_counter() - t0) * 1e3
+        canvas = frame.copy()
+        for name, draw in (
+                ("rectangle", lambda: cv2.rectangle(canvas, (100, 100), (500, 400), (0, 255, 0), 2)),
+                ("circle filled", lambda: cv2.circle(canvas, (960, 540), 120, (0, 0, 255), -1)),
+                ("putText", lambda: cv2.putText(canvas, "rustcv_tpu_torch.cv2", (60, 1000),
+                                                cv2.FONT_HERSHEY_SIMPLEX, 1.5, (255, 255, 0), 2))):
+            draw()
+            t0 = time.perf_counter()
+            for _ in range(CV2_REPS):
+                draw()
+            host[name + " on a numpy frame"] = (time.perf_counter() - t0) / CV2_REPS * 1e3
+        t0 = time.perf_counter()
+        stored = cv2_filestorage(cv2, _CV2_CARD["corners"], tmp)
+        host[f"FileStorage write + read {len(_CV2_CARD['corners'])} corners, "
+             f"{len(stored)} formats"] = (time.perf_counter() - t0) * 1e3
+    print(f"cv2 facade ms per call at {W}x{H}, numpy in and out ({smi}), slowest first: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    print(f"cv2 facade host-only ms per call (no card work; host clock; {smi}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(host.items(), key=lambda kv: -kv[1])), flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -4726,7 +5107,8 @@ def main() -> int:
                             ("group 2, features and flow (3p)", run_group2),
                             ("group 3 and segmentation (3q)", run_group3),
                             ("group 4a (3r)", run_group4a),
-                            ("group 4b, the geometry chain (3s)", run_group4b)):
+                            ("group 4b, the geometry chain (3s)", run_group4b),
+                            ("the cv2 facade (3t)", run_cv2)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -4751,7 +5133,8 @@ def main() -> int:
                           ("group 2, features and flow (4p)", lambda: time_group2(smi)),
                           ("group 3 and segmentation (4q)", lambda: time_group3(smi)),
                           ("group 4a (4r)", lambda: time_group4a(smi)),
-                          ("group 4b, the geometry chain (4s)", lambda: time_group4b(smi))):
+                          ("group 4b, the geometry chain (4s)", lambda: time_group4b(smi)),
+                          ("the cv2 facade (4t)", lambda: time_cv2(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

@@ -40,7 +40,11 @@ band), with their results on the card and no kernel launched, and
 (the undistortions, byte-equal to the CPU port and staying on the card;
 the SB likelihood in full float32 with TF32 on; the chessboard refinements
 on the card for a numpy board; the rasterizer, the normals and the stitch
-composite against the CPU port at the reference's bars).
+composite against the CPU port at the reference's bars); and the cv2
+facade's core (``rustcv_tpu_torch.cv2``): every wrapper with numpy images
+(on the card where it hands them to a Mat or a device op) against CPU
+tensors, ``cornerHarris`` and ``goodFeaturesToTrack`` launching each K6
+form once, CUDA tensors against CPU tensors, and draws on a CUDA tensor.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -1913,3 +1917,159 @@ def test_stitch_device_composite_on_the_card(cuda):
     want = stitch.stitch([torch.from_numpy(left), torch.from_numpy(right)])
     assert isinstance(got, np.ndarray) and got.shape == want.shape
     assert np.abs(got.astype(int) - want).max() <= 1
+
+
+# -- the cv2 facade (rustcv_tpu_torch.cv2) -------------------------------------
+
+
+def _cv2_core_functions():
+    import inspect
+
+    import rustcv_tpu_torch.cv2 as P
+
+    return sorted(n for n in dir(P) if not n.startswith("_")
+                  and n not in ("builtins_max", "builtins_min")
+                  and inspect.isfunction(getattr(P, n))
+                  and getattr(P, n).__module__.startswith("rustcv_tpu_torch.cv2"))
+
+
+def _cv2_plan(name, fn, tmp_path):
+    """cv2_callcov's synthesized arguments, with a PNG of the port's own
+    writing where the synthesizer takes Pillow's, and its fixed /tmp paths
+    moved under ``tmp_path``."""
+    from cv2_callcov import OVERRIDES, build_call, img_u8
+
+    import rustcv_tpu_torch.cv2 as P
+
+    png = str(tmp_path / "in.png")
+    P.imwrite(png, img_u8())
+    local = {"imread": ((png, 1), {}), "imreadWithMetadata": ((png, 1), {}),
+             "haveImageReader": ((png,), {}), "imcount": ((png,), {}),
+             "imreadmulti": ((png,), {}),
+             "imdecode": ((np.fromfile(png, np.uint8), 1), {})}
+    if name in local:
+        return local[name]
+    plan = build_call(fn, name, OVERRIDES)
+    assert not isinstance(plan, str), plan
+    args, kwargs = plan
+
+    def move(v):
+        return str(tmp_path / v.rsplit("/", 1)[1]) if isinstance(v, str) and v.startswith(
+            "/tmp/rcv_callcov") else v
+
+    return tuple(move(v) for v in args), {k: move(v) for k, v in kwargs.items()}
+
+
+@pytest.mark.parametrize("name", _cv2_core_functions())
+def test_cv2_numpy_on_the_card_equals_cpu_tensors(cuda, name, tmp_path):
+    """Every wrapper of the cv2 core with numpy images (which go to the card
+    where the wrapper hands them to a Mat or a device op) against the same
+    call with CPU tensors: the same exception class, or results equal
+    within the CPU tests' bars (tests/cv2_torch_parity.py)."""
+    from cv2_torch_parity import BARS, CHECKS, port_args, same
+
+    import rustcv_tpu_torch.cv2 as P
+
+    fn = getattr(P, name)
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card_args = _cv2_plan(name, fn, tmp_path / "card")
+    cpu_args = port_args(fn, *_cv2_plan(name, fn, tmp_path / "cpu"))
+    outs = []
+    for args, kwargs in (card_args, cpu_args):
+        P.setRNGSeed(19)  # theRNG's state is global: the same stream for both runs
+        try:
+            outs.append((fn(*args, **kwargs), None))
+        except Exception as e:  # noqa: BLE001 - the class is what is compared
+            outs.append((None, e))
+    (card, card_err), (cpu, cpu_err) = outs
+    assert type(card_err).__name__ == type(cpu_err).__name__, (card_err, cpu_err)
+    if card_err is not None or name in ("getTickCount", "getCPUTickCount"):
+        return
+    if name == "imencode" and bytes(cpu[1][:2]) == b"\xff\xd8":
+        # JPEG: the card's encoder against the CPU's, coefficients within JPEG_TOL
+        g, w = native.jpeg_entropy_decode(bytes(card[1])), native.jpeg_entropy_decode(bytes(cpu[1]))
+        assert g[0] == w[0]
+        for a, b in zip(g[1], w[1]):
+            d = np.abs(np.asarray(a).astype(np.int64) - np.asarray(b).astype(np.int64))
+            assert d.max() <= 1 and (d > 0).mean() < 5e-3, (d.max(), (d > 0).mean(), d.size)
+        return
+    if name in CHECKS:
+        CHECKS[name](cpu, card, cpu_args[0], card_args[0])
+        return
+    same(cpu, card, BARS.get(name, (0, ""))[0])
+
+
+def test_cv2_numpy_in_is_computed_on_the_card(cuda, monkeypatch):
+    """A numpy image handed to a Mat is uploaded: the op sees a CUDA Mat,
+    and the result comes back as numpy."""
+    import rustcv_tpu_torch.cv2 as P
+    from rustcv_tpu_torch import imgproc
+
+    seen = []
+    real = imgproc.gaussian_blur
+    monkeypatch.setattr(imgproc, "gaussian_blur",
+                        lambda mat, *a, **k: seen.append(mat.device().device) or real(mat, *a, **k))
+    img = np.random.default_rng(3).integers(0, 256, (120, 160, 3), np.uint8)
+    out = P.GaussianBlur(img, (5, 5), 0)
+    assert seen and all(d.type == "cuda" for d in seen)
+    assert isinstance(out, np.ndarray)
+    np.testing.assert_array_equal(out, P.GaussianBlur(torch.from_numpy(img), (5, 5), 0))
+
+
+@pytest.mark.parametrize("dev", ["numpy", "cuda tensor"])
+def test_cv2_harris_routes_launch_k6_once_each(cuda, dev):
+    """``cornerHarris`` launches the float32 form of K6 once, and
+    ``goodFeaturesToTrack`` the int32 form once, on a 1080p gray frame."""
+    import rustcv_tpu_torch.cv2 as P
+
+    g = sim.synth_bgr(1920, 1080, 11)[..., 1].copy()
+    x = g if dev == "numpy" else torch.from_numpy(g).to(cuda)
+    kernels.reset_launch_counts()
+    resp = P.cornerHarris(x, 2, 3, 0.04)
+    counts = kernels.launch_counts()
+    assert counts["harris_response_f32"] == 1 and counts["harris_response_i32"] == 0
+    np.testing.assert_allclose(resp, P.cornerHarris(torch.from_numpy(g), 2, 3, 0.04),
+                               rtol=2e-4, atol=1e-6)
+    kernels.reset_launch_counts()
+    pts = P.goodFeaturesToTrack(x, 500, 0.01, 10)
+    counts = kernels.launch_counts()
+    assert counts["harris_response_i32"] == 1 and counts["harris_response_f32"] == 0
+    np.testing.assert_array_equal(pts, P.goodFeaturesToTrack(torch.from_numpy(g), 500, 0.01, 10))
+
+
+def test_cv2_on_cuda_tensors_equals_cpu_tensors(cuda):
+    """The port's cv2 on a CUDA tensor equals it on the CPU tensor, and a
+    draw on a CUDA tensor stays there."""
+    import rustcv_tpu_torch.cv2 as P
+
+    img = sim.synth_bgr(640, 360, 5)
+    gray = np.ascontiguousarray(img[..., 2])
+    calls = {
+        "GaussianBlur": lambda f, g: P.GaussianBlur(f, (7, 7), 1.5),
+        "Sobel": lambda f, g: P.Sobel(g, P.CV_16S, 1, 1, ksize=5),
+        "threshold otsu": lambda f, g: P.threshold(g, 0, 255, P.THRESH_BINARY | P.THRESH_OTSU),
+        "cvtColor HSV2BGR": lambda f, g: P.cvtColor(f, P.COLOR_HSV2BGR),
+        "morphologyEx": lambda f, g: P.morphologyEx(g, P.MORPH_GRADIENT, np.ones((5, 5), np.uint8)),
+        "medianBlur": lambda f, g: P.medianBlur(f, 5),
+        "equalizeHist": lambda f, g: P.equalizeHist(g),
+        "filter2D": lambda f, g: P.filter2D(f, -1, np.ones((3, 3), np.float32) / 9),
+        "connectedComponents": lambda f, g: P.connectedComponentsWithStats(
+            P.threshold(g, 128, 255, 0)[1]),
+        "MOG2": lambda f, g: [P.createBackgroundSubtractorMOG2().apply(f) for _ in range(3)],
+    }
+    for name, call in calls.items():
+        got = call(torch.from_numpy(img).to(cuda), torch.from_numpy(gray).to(cuda))
+        want = call(torch.from_numpy(img), torch.from_numpy(gray))
+        from cv2_torch_parity import same
+
+        same(want, got, 0, name)
+    t = torch.from_numpy(img.copy()).to(cuda)
+    ptr = t.data_ptr()
+    P.rectangle(t, (10, 10), (200, 100), (0, 255, 0), 3)
+    P.putText(t, "cv2", (20, 300), 0, 2.0, (255, 0, 255))
+    host = img.copy()
+    P.rectangle(host, (10, 10), (200, 100), (0, 255, 0), 3)
+    P.putText(host, "cv2", (20, 300), 0, 2.0, (255, 0, 255))
+    assert t.is_cuda and t.data_ptr() == ptr
+    np.testing.assert_array_equal(t.cpu().numpy(), host)

@@ -25,8 +25,9 @@ Poisson editing, inpainting, HDR, cascades, and the host modules
 ``mser`` and ``grabcut`` over the native ``mser.cpp`` and ``maxflow.cpp``)
 with theirs, and group 4b, the geometry chain (``calib``, ``calib_ext``,
 the chessboard, SB and circle-grid detectors, ArUco, ``threed``, RGB-D
-odometry and stitching) with theirs, with jax, Pillow and the JAX package
-``rustcv_tpu`` absent. The font data's generator (``tools/make_text_data.py``) is no module of the package.
+odometry and stitching) with theirs, and the core of the cv2 facade
+(``rustcv_tpu_torch.cv2``) on CPU tensors, with jax, Pillow and the JAX
+package ``rustcv_tpu`` absent. The font data's generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -594,6 +595,79 @@ _GROUP4B_SCRIPT = textwrap.dedent(
     """
 )
 
+
+_CV2_SCRIPT = textwrap.dedent(
+    """
+    import os
+    import sys
+    import tempfile
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import rustcv_tpu_torch.cv2 as cv2
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    t = torch.from_numpy(img.copy())
+    gray = cv2.cvtColor(t, cv2.COLOR_BGR2GRAY)
+    assert gray.shape == (48, 64) and isinstance(gray, np.ndarray)
+    g = torch.from_numpy(gray)
+    assert cv2.GaussianBlur(t, (5, 5), 0).shape == (48, 64, 3)
+    assert cv2.Canny(g, 50, 150).dtype == np.uint8
+    assert cv2.cornerHarris(g, 2, 3, 0.04).dtype == np.float32
+    assert cv2.goodFeaturesToTrack(g, 20, 0.01, 5).shape[1:] == (1, 2)
+    canvas = img.copy()
+    cv2.rectangle(canvas, (2, 2), (30, 20), (0, 255, 0), 2)
+    assert (canvas[2, 2:30] == (0, 255, 0)).all()
+    ok, buf = cv2.imencode(".png", t)
+    assert ok and (cv2.imdecode(buf, 1) == img).all()
+    ok, buf = cv2.imencode(".jpg", t)
+    assert ok and cv2.imdecode(buf, 1).shape == img.shape
+    fs = cv2.FileStorage(".json", cv2.FILE_STORAGE_WRITE | cv2.FILE_STORAGE_MEMORY)
+    fs.write("m", np.eye(3, dtype=np.float32))
+    text = fs.releaseAndGetString()
+    back = cv2.FileStorage(text, cv2.FILE_STORAGE_READ | cv2.FILE_STORAGE_MEMORY)
+    assert (back.getNode("m").mat() == np.eye(3)).all()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "c.avi")
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (64, 48))
+        for _ in range(2):
+            w.write(t)
+        w.release()
+        cap = cv2.VideoCapture(path)
+        assert cap.isOpened() and cap.get(cv2.CAP_PROP_FRAME_WIDTH) == 64
+        ok, frame = cap.read()
+        cap.release()
+        assert ok and frame.shape == (48, 64, 3)
+    assert "torch" in cv2.getBuildInformation()
+    try:
+        cv2.aruco
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("cv2.aruco is item 7b")
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+
+def test_cv2_facade_runs_without_jax_or_pil():
+    """``import rustcv_tpu_torch.cv2`` and a cv2 user's calls on CPU tensors
+    (colour, blur, edges, both Harris routes, a draw on a numpy image, PNG
+    and JPEG codecs, FileStorage, an AVI written and read back)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CV2_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 def test_group4b_geometry_runs_without_jax_or_pil():
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
