@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Sixteen paths, each driven with the launch counts set to 0 just before it
+Seventeen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * the headline tick: 8 simulated streams of 1920×1080 YUYV through
@@ -69,7 +69,16 @@ and read just after:
   with numpy in and out: ``VideoWriter`` → ``VideoCapture`` of an 8-frame
   clip, per frame colour, blurs, Sobel, Canny, threshold, resize,
   ``cornerHarris`` (K6 float32) and ``goodFeaturesToTrack`` (K6 int32),
-  draws and the JPEG codecs, ORB and MOG2 over the clip, ``FileStorage``.
+  draws and the JPEG codecs, ORB and MOG2 over the clip, ``FileStorage``;
+* the rest of the cv2 facade (its later modules and submodules) on that
+  clip, numpy in and out: ``GFTTDetector.detect`` per frame (K6 int32),
+  ``goodFeaturesToTrackWithQuality(useHarrisDetector=True)`` (K6 int32 and
+  float32), the Farnebäck and sparse LK objects, ``fisheye.undistortImage``,
+  ``dnn.blobFromImage``, ``addText``, and host copies at the sizes it
+  prints (DIS, ECC, the blob, MSER and line-segment detectors, QR encode
+  and decode, ArUco markers, ``Subdiv2D``, the ``detail`` blenders,
+  ``dnn.NMSBoxes``, ``thresholdWithMask``, ``calibrateCameraExtended`` and
+  ``solvePnPGeneric``).
 
 Phases:
 
@@ -181,7 +190,13 @@ Phases:
    against the same calls on CPU tensors in spawned CPU processes (equal;
    the float Harris response at the reference's bar, ORB angles within
    1e-3 rad, JPEG coefficients within their tolerance), gated on both K6
-   forms launching;
+   forms launching; (3u) the rest of the cv2 facade, its 28 results held
+   against the same calls on CPU tensors in spawned CPU processes (equal;
+   Farnebäck within the flow bar, LK within 1e-3 px with equal status, the
+   Harris quality at the reference's bar), the QR text, the four markers
+   and the calibration's K (within 1 % of fx) against their truth, gated
+   on exactly one K6 int32 launch per ``GFTTDetector.detect`` and one of
+   each form per ``goodFeaturesToTrackWithQuality(useHarrisDetector=True)``;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -210,7 +225,7 @@ Phases:
    frame whole and, apart, its host map build, the maps' upload and the
    remap); (4t) ms per cv2 call at 1080p, numpy in and out, and the
    host-only calls (cv2's host algorithms, draws on numpy, FileStorage)
-   on a line of their own.
+   on a line of their own; (4u) the same for phase 3u's calls.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -5033,6 +5048,452 @@ def time_cv2(smi: str) -> None:
         f"{k} {v:.4f}" for k, v in sorted(host.items(), key=lambda kv: -kv[1])), flush=True)
 
 
+# ----------------------------------------------------------------------------------
+# Phase 3u: the rest of the cv2 facade (Queue 1 item 7b), one cv2 user's script
+
+CV2L_SMALL = (640, 360)  # the host copies' frame: frame 0 resized (INTER_AREA)
+CV2L_MARKERS = (1280, 720, 160)  # the aruco page: width, height, marker side
+CV2L_MARKER_IDS = (0, 7, 19, 42)  # DICT_4X4_50
+CV2L_GFTT = (500, 0.01, 10)  # maxCorners, qualityLevel, minDistance
+CV2L_FISHEYE = (np.array([[1100.0, 0, 960], [0, 1100.0, 540], [0, 0, 1]]),
+                np.array([0.05, -0.01, 0.002, -0.0004]))  # K, D
+CV2L_BOARD = (9, 6, 0.025)  # inner corners (cols, rows), square side (m)
+CV2L_CALIB_K = np.array([[1400.0, 0, 960], [0, 1400.0, 540], [0, 0, 1]])
+CV2L_CALIB_DIST = np.array([-0.12, 0.04, 0.0005, -0.0008, 0.0])
+CV2L_VIEWS = 8
+CV2L_QR = "rustcv_tpu_torch.cv2 item 7b"
+CV2L_NMS = 200  # seeded boxes
+CV2L_DETAIL = (400, 240)  # the crops' width, the second crop's x: an overlap of 160 px
+# Jobs of phase 3u: the card side runs them all in one process, the CPU side
+# one per worker call. "gftt <t>" per clip frame; the rest once.
+CV2L_CARD_JOBS = ("quality", "farneback", "lk", "fisheye", "thresholdWithMask")
+CV2L_HOST_JOBS = ("blobFromImage", "addText", "dis", "ecc", "detectors", "qr", "aruco",
+                  "subdiv", "detail", "nms", "calibration")
+CV2L_JOB_CALLS = {  # what phase 4u prints for a host job
+    "blobFromImage": "dnn.blobFromImage 640x640", "addText": "addText",
+    "dis": "DISOpticalFlow.calc fast", "ecc": "findTransformECC",
+    "detectors": "SimpleBlobDetector.detect + MSER.detectRegions + LineSegmentDetector.detect",
+    "qr": "QRCodeEncoder.encode + paste + QRCodeDetector.detectAndDecode",
+    "aruco": "aruco generateImageMarker x4 + ArucoDetector.detectMarkers",
+    "subdiv": "GFTTDetector.detect + Subdiv2D.insert + getTriangleList",
+    "detail": "detail.FeatherBlender + detail.MultiBandBlender",
+    "nms": f"dnn.NMSBoxes ({CV2L_NMS} boxes)",
+    "calibration": "calibrateCameraExtended + solvePnPGeneric",
+}
+
+
+def cv2l_jobs(n_frames: int) -> list:
+    return [f"gftt {t}" for t in range(n_frames)] + list(CV2L_CARD_JOBS + CV2L_HOST_JOBS)
+
+
+def cv2l_flow_pair(cv2, frames) -> tuple:
+    """Frames 0 and 1 of the clip in gray with the same seeded texture
+    added to both (smoothed normal noise, σ 10): the clip's colour bars are
+    flat, and Farnebäck's flow there is undetermined (thousands of px at
+    1080p, on the card and on the CPU alike)."""
+    h, w = frames[0].shape[:2]
+    n = np.random.default_rng(41).normal(0, 30, (h + 2, w + 2))
+    tex = sum(n[i:i + h, j:j + w] for i in range(3) for j in range(3)) / 9
+    return tuple(np.clip(cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) + tex, 0, 255).astype(np.uint8)
+                 for f in frames[:2])
+
+
+def _cv2l_kps(kps) -> np.ndarray:
+    return np.array([(k.pt[0], k.pt[1], k.size, k.angle, k.response) for k in kps],
+                    np.float64).reshape(-1, 5)
+
+
+def _cv2l_views():
+    """The 9×6 board's object points and its projections in CV2L_VIEWS
+    known poses, seeded."""
+    cols, rows, side = CV2L_BOARD
+    obj = np.zeros((cols * rows, 3), np.float32)
+    obj[:, :2] = np.mgrid[0:cols, 0:rows].T.reshape(-1, 2) * side
+    rng = np.random.default_rng(23)
+    objs, imgs = [], []
+    for _ in range(CV2L_VIEWS):
+        rv = rng.uniform(-0.35, 0.35, 3)
+        tv = np.array([rng.uniform(-0.12, 0.02), rng.uniform(-0.08, 0.0), rng.uniform(0.45, 0.7)])
+        cam = obj.astype(np.float64) @ _rodrigues(rv).T + tv
+        x, y = cam[:, 0] / cam[:, 2], cam[:, 1] / cam[:, 2]
+        k1, k2, p1, p2, k3 = CV2L_CALIB_DIST
+        r2 = x * x + y * y
+        rad = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+        xd = x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        yd = y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        K = CV2L_CALIB_K
+        uv = np.stack([K[0, 0] * xd + K[0, 2], K[1, 1] * yd + K[1, 2]], 1)
+        objs.append(obj.reshape(-1, 1, 3))
+        imgs.append(uv.astype(np.float32).reshape(-1, 1, 2))
+    return objs, imgs
+
+
+def _rodrigues(rv) -> np.ndarray:
+    th = float(np.linalg.norm(rv))
+    k = rv / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * (kx @ kx)
+
+
+def _cv2l_marker_page(cv2) -> np.ndarray:
+    w, h, side = CV2L_MARKERS
+    d = cv2.aruco.getPredefinedDictionary(cv2.aruco.DICT_4X4_50)
+    page = np.full((h, w), 255, np.uint8)
+    for i, mid in enumerate(CV2L_MARKER_IDS):  # a 2×2 grid
+        y, x = h // 9 + (i // 2) * (h // 2), w // 8 + (i % 2) * (w // 2)
+        page[y:y + side, x:x + side] = cv2.aruco.generateImageMarker(d, mid, side)
+    return page
+
+
+def _cv2l_qr_page(cv2, small) -> np.ndarray:
+    """The QR code of CV2L_QR with a 4-module quiet zone, pasted into the
+    frame at up to 6 px a module."""
+    code = cv2.QRCodeEncoder_create().encode(CV2L_QR)  # 255 marks a dark module
+    px = min(6, (min(small.shape[:2]) - 20) // (code.shape[0] + 8))
+    big = np.kron(code, np.ones((px, px), np.uint8))
+    q, z = big.shape[0] + 8 * px, 4 * px
+    page = small.copy()
+    page[10:10 + q, 10:10 + q] = 255
+    page[10 + z:10 + z + big.shape[0], 10 + z:10 + z + big.shape[1]] = (255 - big)[..., None]
+    return page
+
+
+def cv2l_call(cv2, job: str, frames, img) -> dict:
+    """One job of phase 3u's script on ``frames`` (numpy BGR at the clip's
+    size), by name → output (numpy, or tuples of numpy and numbers); ``img``
+    makes what this side passes (numpy on the card's side, a CPU tensor on
+    the CPU's)."""
+    out = {}
+    f0 = frames[0]
+    g0 = cv2.cvtColor(f0, cv2.COLOR_BGR2GRAY)
+    if job.startswith("gftt"):
+        t = int(job.split()[1])
+        kps = cv2.GFTTDetector_create(*CV2L_GFTT).detect(img(frames[t]))
+        out[f"GFTTDetector.detect {t}"] = _cv2l_kps(kps)
+    elif job == "quality":
+        pts, q = cv2.goodFeaturesToTrackWithQuality(img(g0), *CV2L_GFTT, useHarrisDetector=True)
+        out["goodFeaturesToTrackWithQuality harris"] = (pts, q)
+    elif job in ("farneback", "lk"):
+        t0, t1 = cv2l_flow_pair(cv2, frames)
+        if job == "farneback":
+            out["FarnebackOpticalFlow.calc"] = cv2.FarnebackOpticalFlow_create().calc(
+                img(t0), img(t1), None)
+        else:
+            kps = cv2.GFTTDetector_create(*CV2L_GFTT).detect(img(t0))
+            pts = cv2.KeyPoint_convert(kps).reshape(-1, 1, 2)
+            nxt, st, _err = cv2.SparsePyrLKOpticalFlow_create().calc(img(t0), img(t1), pts, None)
+            out["SparsePyrLKOpticalFlow.calc"] = (nxt, st)
+    elif job == "fisheye":
+        K, D = CV2L_FISHEYE
+        out["fisheye.undistortImage"] = cv2.fisheye.undistortImage(img(f0), K, D, Knew=K)
+    elif job == "blobFromImage":
+        out["dnn.blobFromImage 640x640"] = cv2.dnn.blobFromImage(img(f0), 1 / 255, (640, 640),
+                                                                swapRB=True)
+    elif job == "addText":
+        canvas = img(f0.copy())
+        cv2.addText(canvas, "rustcv_tpu_torch.cv2 item 7b", (10, f0.shape[0] * 9 // 10),
+                    "DejaVu Sans", 28, (0, 255, 255))
+        out["addText"] = canvas
+    else:
+        small = cv2.resize(f0, CV2L_SMALL, interpolation=cv2.INTER_AREA)
+        s1 = cv2.resize(frames[1], CV2L_SMALL, interpolation=cv2.INTER_AREA)
+        sg0 = cv2.cvtColor(small, cv2.COLOR_BGR2GRAY)
+        sg1 = cv2.cvtColor(s1, cv2.COLOR_BGR2GRAY)
+        if job == "thresholdWithMask":
+            mask = np.zeros(sg0.shape, np.uint8)
+            mask[60:300, 100:540] = 1
+            dst = img(sg1.copy())
+            cv2.thresholdWithMask(img(sg0), dst, mask, 127, 255, cv2.THRESH_BINARY)
+            out["thresholdWithMask"] = dst
+        elif job == "dis":
+            dis = cv2.DISOpticalFlow_create(cv2.DISOpticalFlow_PRESET_FAST)
+            out["DISOpticalFlow.calc fast"] = dis.calc(img(sg0), img(sg1), None)
+        elif job == "ecc":
+            out["findTransformECC"] = cv2.findTransformECC(img(sg0), img(sg1))
+        elif job == "detectors":
+            out["SimpleBlobDetector.detect"] = _cv2l_kps(
+                cv2.SimpleBlobDetector_create().detect(img(sg0)))
+            regions, boxes = cv2.MSER_create().detectRegions(img(sg0))
+            out["MSER.detectRegions"] = (tuple(regions), boxes)
+            out["LineSegmentDetector.detect"] = cv2.createLineSegmentDetector().detect(img(sg0))
+        elif job == "qr":
+            page = _cv2l_qr_page(cv2, small)
+            text, pts, _ = cv2.QRCodeDetector().detectAndDecode(img(page))
+            out["QRCodeEncoder.encode + QRCodeDetector.detectAndDecode"] = (text, pts)
+        elif job == "aruco":
+            d = cv2.aruco.getPredefinedDictionary(cv2.aruco.DICT_4X4_50)
+            corners, ids, _ = cv2.aruco.ArucoDetector(d).detectMarkers(
+                img(_cv2l_marker_page(cv2)))
+            out["aruco.ArucoDetector.detectMarkers"] = (tuple(corners), ids)
+        elif job == "subdiv":
+            kps = cv2.GFTTDetector_create(*CV2L_GFTT).detect(img(f0))
+            sd = cv2.Subdiv2D((0, 0, f0.shape[1], f0.shape[0]))
+            sd.insert([k.pt for k in kps])
+            out["Subdiv2D over the GFTT corners"] = sd.getTriangleList()
+        elif job == "detail":
+            w, x1 = CV2L_DETAIL
+            crops = [small[:, :w].copy(), small[:, x1:x1 + w].copy()]
+            corners, sizes = [(0, 0), (x1, 0)], [(w, small.shape[0])] * 2
+            mask = np.full((small.shape[0], w), 255, np.uint8)
+            for name, blender in (("detail.FeatherBlender", cv2.detail.FeatherBlender()),
+                                  ("detail.MultiBandBlender", cv2.detail.MultiBandBlender())):
+                blender.prepare(corners, sizes)
+                for c, tl in zip(crops, corners):
+                    blender.feed(img(c), mask, tl)
+                out[name] = blender.blend()
+        elif job == "nms":
+            rng = np.random.default_rng(31)
+            xy = rng.uniform(0, 600, (CV2L_NMS, 2))
+            wh = rng.uniform(20, 120, (CV2L_NMS, 2))
+            boxes = [tuple(b) for b in np.concatenate([xy, wh], 1).round(1)]
+            scores = rng.uniform(0, 1, CV2L_NMS).round(4).tolist()
+            out["dnn.NMSBoxes"] = cv2.dnn.NMSBoxes(boxes, scores, 0.3, 0.45)
+        elif job == "calibration":
+            objs, imgs = _cv2l_views()
+            size = (int(2 * CV2L_CALIB_K[0, 2]), int(2 * CV2L_CALIB_K[1, 2]))
+            rms, K, dist, rvs, tvs, *_rest, pve = cv2.calibrateCameraExtended(
+                objs, imgs, size, None, None)
+            out["calibrateCameraExtended"] = (rms, K, dist, tuple(rvs), tuple(tvs), pve)
+            n, rv, tv, err = cv2.solvePnPGeneric(objs[0], imgs[0], K, dist)
+            out["solvePnPGeneric"] = (n, tuple(rv), tuple(tv), err)
+        else:
+            raise ValueError(job)
+    return out
+
+
+def cv2l_check(name: str, got, want) -> str:
+    """Phase 3u's bar for one output, card against CPU, as the CPU tests
+    hold it; a note to print."""
+    if name.startswith("FarnebackOpticalFlow"):
+        d = np.abs(got.astype(np.float64) - want)
+        expect(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape or dtype")
+        expect(np.quantile(d, 0.99) < 1e-3 and d.max() < 0.05,
+               f"{name}: 99th pct {np.quantile(d, 0.99):.3g}, max {d.max():.3g} px")
+        return f"{d.max():.3g} px"
+    if name.startswith("SparsePyrLK"):
+        (pts, st), (wpts, wst) = got, want
+        expect(np.array_equal(st, wst), f"{name}: status differs at {int((st != wst).sum())}")
+        d = np.abs(pts - wpts).max(initial=0)
+        expect(d < 1e-3, f"{name}: max |diff| {d:.3g} px")
+        return f"{d:.3g} px on {int(st.sum())} tracked of {len(st)}"
+    if name.startswith("goodFeaturesToTrackWithQuality"):
+        (pts, q), (wpts, wq) = got, want
+        expect(np.array_equal(pts, wpts), f"{name}: other corners")
+        expect(q.dtype == wq.dtype and np.allclose(q, wq, **HARRIS_TOL),
+               f"{name}: quality {np.abs(q - wq).max():.3g} apart")
+        return f"{len(pts)} corners, quality {np.abs(q - wq).max(initial=0):.3g} apart"
+    _cv2l_equal(name, got, want)
+    return "equal"
+
+
+def _cv2l_equal(name, got, want) -> None:
+    if isinstance(want, (tuple, list)):
+        expect(isinstance(got, (tuple, list)) and len(got) == len(want), f"{name}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _cv2l_equal(f"{name}[{i}]", g, w)
+        return
+    if isinstance(want, np.ndarray):
+        expect(isinstance(got, np.ndarray) and got.shape == want.shape
+               and got.dtype == want.dtype and np.array_equal(got, want, equal_nan=True),
+               f"{name}: card and CPU differ")
+        return
+    expect(type(got) is type(want) and got == want, f"{name}: {got!r} against {want!r}")
+
+
+_CV2L_HOST = {}  # a worker's frames, loaded at its first call
+
+
+def cv2l_host(job: str, path: str):
+    """One job of phase 3u's CPU side in a worker process, on CPU tensors.
+    Returns its outputs as numpy, and its seconds."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(2)
+    import rustcv_tpu_torch.cv2 as cv2
+
+    if _CV2L_HOST.get("path") != path:
+        with open(path, "rb") as f:
+            _CV2L_HOST.update(frames=pickle.load(f), path=path)
+    t0 = time.perf_counter()
+    out = cv2l_call(cv2, job, _CV2L_HOST["frames"], torch.from_numpy)
+    return {k: _cv2l_plain(v) for k, v in out.items()}, time.perf_counter() - t0
+
+
+def _cv2l_plain(x):
+    """Outputs as numpy: a tensor written in place comes home."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_cv2l_plain(v) for v in x)
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return x
+
+
+_CV2L_CARD = {}  # phase 3u's frames and host seconds, which phase 4u reuses
+
+
+def run_cv2_later() -> dict:
+    """Phase 3u: the rest of the cv2 facade (item 7b) through ``import
+    rustcv_tpu_torch.cv2 as cv2``, numpy in and out, on phase 3t's clip at
+    1920×1080: ``GFTTDetector.detect`` per frame (K6 int32),
+    ``goodFeaturesToTrackWithQuality(useHarrisDetector=True)`` (K6 int32
+    and float32), the Farnebäck and sparse LK objects between frames 0 and
+    1 (textured: :func:`cv2l_flow_pair`), ``fisheye.undistortImage``, ``dnn.blobFromImage`` and ``addText``;
+    then host copies on a 640×360 resize of frame 0 (DIS, ECC, the blob,
+    MSER and line-segment detectors, a QR code encoded, pasted and read
+    back, ``Subdiv2D`` over the corners, the ``detail`` blenders on two
+    crops, ``dnn.NMSBoxes``, ``thresholdWithMask``), four ArUco markers on a
+    1280×720 page, and ``calibrateCameraExtended`` / ``solvePnPGeneric`` on
+    a 9×6 board's projections in 8 known poses. Every result is held against
+    the same call on CPU tensors in CV2_WORKERS spawned CPU processes; the
+    markers, the QR text and the calibration against their truth too.
+    Fails unless both K6 forms launched from these calls. Returns the
+    launches of the card's run."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    import rustcv_tpu_torch.cv2 as cv2
+    from rustcv_tpu_torch.ops import kernels
+
+    print(f"cv2 later: 1080p calls at {W}x{H}; host copies on frame 0 resized to "
+          f"{CV2L_SMALL[0]}x{CV2L_SMALL[1]} (1080p takes over 2 s a call there)", flush=True)
+    print(f"cv2 later: ArUco page {CV2L_MARKERS[0]}x{CV2L_MARKERS[1]}, markers "
+          f"{CV2L_MARKERS[2]} px", flush=True)
+    print(f"cv2 later: calibration on a {CV2L_BOARD[0]}x{CV2L_BOARD[1]} board's projections in "
+          f"{CV2L_VIEWS} poses (no detection)", flush=True)
+    t0 = time.perf_counter()
+    frames = cv2_clip(W, H, CV2_FRAMES)
+    jobs = cv2l_jobs(len(frames))
+    pool = ProcessPoolExecutor(max_workers=CV2_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "frames.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(frames, f)
+            futures = {job: pool.submit(cv2l_host, job, path) for job in jobs}
+            # K6 through the 7b wrappers: exactly one int32 launch per GFTT
+            # detect, one of each form for the quality call
+            kernels.reset_launch_counts()
+            cv2.GFTTDetector_create(*CV2L_GFTT).detect(frames[0])
+            torch.cuda.synchronize()
+            k_gftt = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            cv2.goodFeaturesToTrackWithQuality(cv2.cvtColor(frames[0], cv2.COLOR_BGR2GRAY),
+                                               *CV2L_GFTT, useHarrisDetector=True)
+            torch.cuda.synchronize()
+            k_quality = kernels.launch_counts()
+            expect(k_gftt["harris_response_i32"] == 1 and k_gftt["harris_response_f32"] == 0,
+                   f"GFTTDetector.detect launched {k_gftt}")
+            expect(k_quality["harris_response_i32"] == 1
+                   and k_quality["harris_response_f32"] == 1,
+                   f"goodFeaturesToTrackWithQuality(useHarrisDetector=True) launched {k_quality}")
+            got, card_s = {}, {}
+            kernels.reset_launch_counts()  # the 7b path starts here
+            for job in jobs:
+                tj = time.perf_counter()
+                got.update(cv2l_call(cv2, job, frames, lambda a: a))
+                torch.cuda.synchronize()
+                card_s[job] = time.perf_counter() - tj
+            counts = kernels.launch_counts()  # read just after the 7b path
+            t_card = time.perf_counter() - t0
+            expect(counts["harris_response_f32"] >= 1 and counts["harris_response_i32"] >= 1,
+                   f"phase 3u: the 7b calls did not reach both K6 forms: {counts}")
+            want, host_s = {}, {}
+            for job in jobs:
+                out, host_s[job] = futures[job].result(timeout=600)
+                want.update(out)
+            t_wait = time.perf_counter() - t0 - t_card
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    expect(sorted(want) == sorted(got), "the CPU side ran other calls")
+    notes = {}
+    for name in got:
+        base = name.rsplit(" ", 1)[0] if name.startswith("GFTTDetector") else name
+        note = cv2l_check(name, _cv2l_plain(got[name]), want[name])
+        notes.setdefault(base, note)
+    # the truth of what has one
+    text = got["QRCodeEncoder.encode + QRCodeDetector.detectAndDecode"][0]
+    expect(text == CV2L_QR, f"the QR code read back {text!r}")
+    ids = got["aruco.ArucoDetector.detectMarkers"][1]
+    expect(ids is not None and sorted(ids.ravel().tolist()) == sorted(CV2L_MARKER_IDS),
+           f"ArUco found {None if ids is None else ids.ravel().tolist()}")
+    K = got["calibrateCameraExtended"][1]
+    kerr = float(np.abs(K[:2, :3] - CV2L_CALIB_K[:2, :3]).max() / CV2L_CALIB_K[0, 0])
+    expect(kerr < 0.01, f"calibrateCameraExtended: K {kerr:.3g} of fx off the truth")
+    expect(got["solvePnPGeneric"][0] >= 1, "solvePnPGeneric found no pose")
+    _CV2L_CARD.update(frames=frames, card_s=card_s)
+    print(f"cv2 later (item 7b) at {W}x{H}, numpy in and out: {len(got)} results on the card "
+          "== the CPU port on CPU tensors: " + "; ".join(f"{k}: {v}" for k, v in notes.items())
+          + f"; QR read back, {len(CV2L_MARKER_IDS)} markers found, calibration K within "
+          f"{kerr:.2g} of fx of the truth", flush=True)
+    print(f"cv2 later: K6 per call: GFTTDetector.detect {k_gftt['harris_response_i32']} int32; "
+          f"goodFeaturesToTrackWithQuality(useHarrisDetector=True) "
+          f"{k_quality['harris_response_i32']} int32 + {k_quality['harris_response_f32']} "
+          f"float32", flush=True)
+    print(f"cv2 later: card side {t_card:.1f} s, then waiting for the CPU side {t_wait:.1f} s; "
+          f"launches {({k: v for k, v in counts.items() if v})}; card seconds per job: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(card_s.items(), key=lambda kv: -kv[1]))
+          + "; host seconds per job: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(host_s.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    return counts
+
+
+def time_cv2_later(smi: str) -> None:
+    """Phase 4u: ms per call of phase 3u's card calls at their sizes, numpy
+    in and out (CUDA events over CV2_REPS calls after a warm one), slowest
+    first, with the card's name and power limit; the host-only calls (one
+    call each after phase 3u's warm one, host clock) on a line of their
+    own. Never gated."""
+    import rustcv_tpu_torch.cv2 as cv2
+
+    frames = _CV2L_CARD["frames"]
+    f0 = frames[0]
+    g0 = cv2.cvtColor(f0, cv2.COLOR_BGR2GRAY)
+    t0, t1 = cv2l_flow_pair(cv2, frames)
+    sg0 = cv2.cvtColor(cv2.resize(f0, CV2L_SMALL, interpolation=cv2.INTER_AREA),
+                       cv2.COLOR_BGR2GRAY)
+    mask = np.zeros(sg0.shape, np.uint8)
+    mask[60:300, 100:540] = 1
+    dst = sg0.copy()
+    gftt = cv2.GFTTDetector_create(*CV2L_GFTT)
+    pts = cv2.KeyPoint_convert(gftt.detect(t0)).reshape(-1, 1, 2)
+    fb = cv2.FarnebackOpticalFlow_create()
+    lk = cv2.SparsePyrLKOpticalFlow_create()
+    K, D = CV2L_FISHEYE
+    calls = {
+        "GFTTDetector.detect (K6 i32)": lambda: gftt.detect(f0),
+        "goodFeaturesToTrackWithQuality harris (K6 i32 + f32)": lambda: (
+            cv2.goodFeaturesToTrackWithQuality(g0, *CV2L_GFTT, useHarrisDetector=True)),
+        "FarnebackOpticalFlow.calc": lambda: fb.calc(t0, t1, None),
+        f"SparsePyrLKOpticalFlow.calc ({len(pts)} points)": lambda: lk.calc(t0, t1, pts, None),
+        "fisheye.undistortImage": lambda: cv2.fisheye.undistortImage(f0, K, D, Knew=K),
+        f"thresholdWithMask {CV2L_SMALL[0]}x{CV2L_SMALL[1]}": lambda: cv2.thresholdWithMask(
+            sg0, dst, mask, 127, 255, cv2.THRESH_BINARY),
+    }
+    times = {name: cuda_ms(fn, CV2_REPS) for name, fn in calls.items()}
+    host = {}
+    for job in CV2L_HOST_JOBS:  # once each, the CPU workers gone
+        t0 = time.perf_counter()
+        cv2l_call(cv2, job, frames, lambda a: a)
+        host[CV2L_JOB_CALLS.get(job, job)] = (time.perf_counter() - t0) * 1e3
+    print(f"cv2 later ms per call at {W}x{H} (thresholdWithMask at {CV2L_SMALL[0]}x"
+          f"{CV2L_SMALL[1]}), numpy in and out ({smi}), slowest first: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    print(f"cv2 later host-only ms per call (one call each; host clock; {smi}; "
+          f"blobFromImage and addText at {W}x{H}, the ArUco page at {CV2L_MARKERS[0]}x"
+          f"{CV2L_MARKERS[1]}, the rest at {CV2L_SMALL[0]}x{CV2L_SMALL[1]}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(host.items(), key=lambda kv: -kv[1])),
+          flush=True)
+
+
 class PhaseFailure(Exception):
     """A phase failed; its name and traceback are already printed."""
 
@@ -5108,7 +5569,8 @@ def main() -> int:
                             ("group 3 and segmentation (3q)", run_group3),
                             ("group 4a (3r)", run_group4a),
                             ("group 4b, the geometry chain (3s)", run_group4b),
-                            ("the cv2 facade (3t)", run_cv2)):
+                            ("the cv2 facade (3t)", run_cv2),
+                            ("the rest of the cv2 facade (3u)", run_cv2_later)):
             for name, count in phase(f"phase 3, {label}", path).items():
                 launches[name] += count
             done(f"phase 3, {label}")
@@ -5134,7 +5596,8 @@ def main() -> int:
                           ("group 3 and segmentation (4q)", lambda: time_group3(smi)),
                           ("group 4a (4r)", lambda: time_group4a(smi)),
                           ("group 4b, the geometry chain (4s)", lambda: time_group4b(smi)),
-                          ("the cv2 facade (4t)", lambda: time_cv2(smi))):
+                          ("the cv2 facade (4t)", lambda: time_cv2(smi)),
+                          ("the rest of the cv2 facade (4u)", lambda: time_cv2_later(smi))):
             phase(f"phase 4, {label}", fn)
             done(f"phase 4, {label}")
         times = phase("phase 4, kernels", time_kernels)

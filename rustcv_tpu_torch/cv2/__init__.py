@@ -17,8 +17,9 @@ array.
 Coverage policy: the high-traffic cv2 surface is wrapped 1:1; exotic
 argument combinations the facade does not model raise ``ValueError`` /
 ``NotImplementedError`` with the supported alternatives named, never
-silently diverge. The reference's calib3d, algorithm, extra and submodule
-names (ROADMAP Queue 1 item 7b) raise ``not_ported``.
+silently diverge. The reference's multi-page, animated and metadata image
+files (read and written with Pillow there) raise ``not_ported`` (ROADMAP
+Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -29,7 +30,6 @@ from ._constants import *  # noqa: F401,F403
 from . import _constants as _C
 from ._device import _a, _copyto, _host_mat, _hwc, _m, _o, _t
 from ._device import bind as _bind
-from ..core.errors import not_ported as _not_ported
 from ..core.mat import Mat as _CoreMat
 from .. import imgproc as _ip
 from ..ops import color as _color_ops
@@ -2422,100 +2422,23 @@ from ._classes import (  # noqa: E402,F401
     resizeWindow, setWindowTitle, getWindowProperty, VideoCapture,
 )
 from ._util import *  # noqa: E402,F401,F403
+from ._calib3d import *  # noqa: E402,F401,F403
+from ._algos import *  # noqa: E402,F401,F403
 from ._filestorage import FileNode, FileStorage  # noqa: E402,F401
+from ._extras import *  # noqa: E402,F401,F403
+from ._misc3 import *  # noqa: E402,F401,F403
+from . import barcode, ccm, data, fisheye, flann  # noqa: E402,F401
+from . import mcc, segmentation, videoio_registry  # noqa: E402,F401
+from . import detail  # noqa: E402
+from . import dnn, parallel, samples, utils  # noqa: E402,F401
+from . import typing  # noqa: E402,F401
 
-# The names the reference's calib3d, algorithm, extra and misc modules and
-# its submodules bring (``_calib3d``, ``_algos``, ``_extras``, ``_misc3``,
-# ``aruco``, ``detail`` and its ``detail_*`` aliases, ``dnn``, ``fisheye``,
-# ...): ROADMAP Queue 1 item 7b. Each raises ``not_ported``.
-_ITEM_7B = frozenset("""
-ALIKED ALIKED_Params ALIKED_create ANNIndex ANNIndex_create AffineFeature
-AffineFeature_create AlignExposures AlignMTB Animation AsyncArray
-BFMatcher_create BackgroundSubtractor CV_16BFC CV_16FC CV_16SC CV_16UC
-CV_32FC CV_32SC CV_32UC CV_64FC CV_64SC CV_64UC CV_8SC CV_8UC CV_MAKETYPE
-CalibrateCRF CalibrateDebevec CalibrateRobertson CirclesGridFinderParameters
-DISK DISK_create DISK_createFromMemory DISOpticalFlow
-DISOpticalFlow_PRESET_FAST DISOpticalFlow_PRESET_MEDIUM
-DISOpticalFlow_PRESET_ULTRAFAST DISOpticalFlow_create DenseOpticalFlow
-DescriptorMatcher DescriptorMatcher_create ECCParameters EMD FaceDetectorYN
-FaceDetectorYN_create FaceRecognizerSF FaceRecognizerSF_create
-FarnebackOpticalFlow FarnebackOpticalFlow_create Feature2D FlannBasedMatcher
-FlannBasedMatcher_create FontFace GFTTDetector GFTTDetector_create
-GeneralizedHough GeneralizedHoughBallard GeneralizedHoughGuil
-GraphicalCodeDetector HoughCirclesWithAccumulator HoughLinesPointSet
-HoughLinesWithAccumulator IStreamReader KeyPoint_convert KeyPoint_overlap
-LightGlueMatcher LightGlueMatcher_create LightGlueMatcher_createFromMemory
-LineSegmentDetector MSER MSER_create MSTEdge MergeDebevec MergeExposures
-MergeMertens MergeRobertson Octree Octree_createWithDepth
-Octree_createWithResolution Odometry OdometryFrame OdometrySettings
-PCACompute2 PyRotationWarper QRCodeDetectorAruco QRCodeDetectorAruco_Params
-QRCodeEncoder QRCodeEncoder_Params QRCodeEncoder_create RQDecomp3x3
-RgbdNormals RgbdNormals_create SimpleBlobDetector SimpleBlobDetector_Params
-SimpleBlobDetector_create SparseOpticalFlow SparsePyrLKOpticalFlow
-SparsePyrLKOpticalFlow_create StereoMatcher Stitcher Stitcher_create
-Subdiv2D TermCriteria Tonemap TonemapDrago TonemapMantiuk TonemapReinhard
-Tracker TrackerDaSiamRPN TrackerDaSiamRPN_Params TrackerDaSiamRPN_create
-TrackerMIL_Params TrackerNano TrackerNano_Params TrackerNano_create
-TrackerVit TrackerVit_Params TrackerVit_create TriangleRasterizeSettings
-UsacParams VariationalRefinement VariationalRefinement_create
-VideoCapture_waitAny Volume VolumeSettings WarperCreator addText aruco
-aruco_ArucoDetector aruco_Board aruco_CharucoBoard aruco_CharucoDetector
-aruco_CharucoParameters aruco_DetectorParameters aruco_Dictionary
-aruco_GridBoard aruco_RefineParameters barcode barcode_BarcodeDetector
-bootstrap broadcast buildMST calibrateCameraExtended calibrateCameraRO
-calibrateCameraROExtended calibrateMultiview calibrateMultiviewExtended
-calibrationMatrixValues ccm ccm_ColorCorrectionModel checkChessboard
-composeRT computeECC connectedComponentsWithAlgorithm
-connectedComponentsWithStatsWithAlgorithm correctChromaticAberration
-correctMatches createButton createGeneralizedHoughBallard
-createGeneralizedHoughGuil createLineSegmentDetector createTrackbar data
-decomposeProjectionMatrix depthTo3d depthTo3dSparse detail
-detail_AffineBasedEstimator detail_AffineBestOf2NearestMatcher
-detail_BFMatcher detail_BestOf2NearestMatcher
-detail_BestOf2NearestRangeMatcher detail_Blender
-detail_BlocksChannelsCompensator detail_BlocksCompensator
-detail_BlocksGainCompensator detail_BundleAdjusterAffine
-detail_BundleAdjusterAffinePartial detail_BundleAdjusterBase
-detail_BundleAdjusterRay detail_BundleAdjusterReproj detail_CameraParams
-detail_ChannelsCompensator detail_DMatch detail_DpSeamFinder
-detail_Estimator detail_ExposureCompensator detail_FeatherBlender
-detail_FeaturesMatcher detail_GainCompensator detail_GraphCutSeamFinder
-detail_HomographyBasedEstimator detail_ImageFeatures detail_KeyPoint
-detail_MatchesInfo detail_MultiBandBlender detail_NoBundleAdjuster
-detail_NoExposureCompensator detail_NoSeamFinder detail_PairwiseSeamFinder
-detail_SeamFinder detail_Timelapser detail_TimelapserCrop
-detail_VoronoiSeamFinder displayOverlay displayStatusBar dnn drawMatchesKnn
-estimateAffine3D estimateChessboardSharpness estimateTranslation2D
-estimateTranslation3D fastNlMeansDenoisingColoredMulti
-fastNlMeansDenoisingMulti filter2Dp filterHomographyDecompByVisibleRefpoints
-filterSpeckles find4QuadCornerSubpix findChessboardCornersSBWithMeta
-findCirclesGrid findContoursLinkRuns findPlanes findTransformECC
-findTransformECCMultiScale findTransformECCWithMask fisheye flann
-flann_Index getClosestEllipsePoints getDefaultAlgorithmHint getTrackbarPos
-getValidDisparityROI getWindowImageRect goodFeaturesToTrackWithQuality
-imdecodeWithMetadata imdecodeanimation imdecodemulti imencodeWithMetadata
-imencodeanimation imencodemulti imreadanimation imwriteanimation
-initCameraMatrix2D initInverseRectificationMap loadChromaticAberrationParams
-loadMesh loadPointCloud matMulDeriv mcc mcc_CChecker mcc_CCheckerDetector
-mcc_DetectorParametersMCC minEnclosingConvexPolygon parallel
-phaseCorrelateIterative projectPointsSepJ readOpticalFlow
-rectangleIntersectionArea redirectError registerCameras
-registerCamerasExtended registerDepth reprojectImageTo3D rescaleDepth
-rgbdNormals samples sampsonDistance saveMesh savePointCloud segmentation
-segmentation_IntelligentScissorsMB selectROI selectROIs setMouseCallback
-setTrackbarMax setTrackbarMin setTrackbarPos setWindowProperty solveCubic
-solveLP solveP3P solvePnPGeneric solvePnPRefineLM solvePnPRefineVVS
-solvePoly startWindowThread stereoCalibrate stereoCalibrateExtended
-stereoRectifyUncalibrated thresholdWithMask triangleRasterize
-triangleRasterizeColor triangleRasterizeDepth typing undistortImagePoints
-utils validateDisparity videoio_registry warpFrame writeOpticalFlow
-""".split())
-
-
-def __getattr__(name):
-    if name in _ITEM_7B:
-        raise _not_ported(f"cv2.{name}", item="7")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+# flat detail_* aliases (cv2 exposes both spellings)
+for _n in dir(detail):
+    if _n[0].isupper():
+        globals()[f"detail_{_n}"] = getattr(detail, _n)
+del _n
+from . import aruco  # noqa: E402,F401
 
 
 class Mat(np.ndarray):

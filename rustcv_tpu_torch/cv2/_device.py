@@ -156,6 +156,6 @@ def _copyto(dst, src) -> None:
     if isinstance(dst, torch.Tensor):
         # numpy's broadcasting rule, and its ValueError where it fails
         src = np.broadcast_to(_a(src), tuple(dst.shape))
-        dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+        dst.copy_(torch.tensor(src))
     else:
         np.copyto(dst, src)

@@ -13,7 +13,10 @@
   CPU tensors;
 * :data:`BARS` and :data:`CHECKS`: the names whose port result is not
   bit-equal to the reference's (the reference's host form against the
-  port's tensor op), with their bars.
+  port's tensor op), with their bars;
+* :func:`later_callables` and :func:`later_plan`: item 7b's callables of
+  either facade and their arguments, made for one side without the other
+  (the card's tests sweep the port's alone).
 
 It imports no jax at import time (``tests/test_torch_cuda.py`` runs it on
 the card's machine, which has none).
@@ -28,7 +31,47 @@ import types
 import numpy as np
 import torch
 
+from cv2_callcov import camK, dist5, img_u8, pts2f, pts3f
+
 LATER_MODULES = ("_calib3d", "_algos", "_extras", "_misc3")
+
+
+# The submodules whose public callables the 7b sweeps call, and the
+# functions the reference runs with Pillow (item 8 in the port).
+SUBMODULES = ("aruco", "barcode", "detail", "dnn", "fisheye", "mcc", "parallel", "samples",
+              "utils", "utils.logging", "videoio_registry")
+PILLOW_BOUND = frozenset({"imencodemulti", "imdecodemulti", "imdecodeWithMetadata",
+                          "imencodeWithMetadata", "imreadanimation", "imwriteanimation",
+                          "imdecodeanimation", "imencodeanimation"})
+
+
+def facade_get(cv, dotted):
+    """``cv.a.b`` of ``"a.b"``."""
+    obj = cv
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def later_callables(cv) -> list:
+    """The 7b callables of the facade ``cv`` (the reference's or the port's),
+    read from ``cv`` alone: the four later modules' ``__all__`` callables,
+    the ``detail_*`` aliases, and (dotted) the public callables each of
+    :data:`SUBMODULES` defines."""
+    import importlib
+
+    out = set()
+    for mod in LATER_MODULES:
+        m = importlib.import_module(f"{cv.__name__}.{mod}")
+        out |= {n for n in m.__all__ if callable(getattr(cv, n, None))}
+    out |= {n for n in dir(cv) if n.startswith("detail_")}
+    subs = []
+    for mod in SUBMODULES:
+        m = facade_get(cv, mod)
+        subs += [f"{mod}.{n}" for n, v in sorted(vars(m).items())
+                 if not n.startswith("_") and callable(v) and not isinstance(v, types.ModuleType)
+                 and getattr(v, "__module__", None) == m.__name__]
+    return sorted(out) + subs
 
 
 def later_names() -> set:
@@ -181,6 +224,14 @@ for _n in ("cornerMinEigenVal", "preCornerDetect"):
                 "atol 3e-6 · max(1, max |response|) (tests/test_corner.py)")
 
 
+# The calls of ROADMAP Queue 1 item 7b that reach the ones above.
+BARS["find4QuadCornerSubpix"] = (1e-3, "cornerSubPix's bar: 1e-3 px")
+BARS["goodFeaturesToTrackWithQuality"] = (
+    lambda ref: 3e-6 * max(1.0, float(np.abs(ref).max())),
+    "the corners equal (integer pixels), the quality cornerMinEigenVal's or "
+    "cornerHarris's value at each: atol 3e-6 · max(1, max |response|)")
+
+
 def _kmeans_check(ref, port, ra, pa):
     """k-means: the float32 twin against JAX's: centers within 1e-3,
     labels 99.9 % equal, compactness within 1e-3 relative
@@ -209,14 +260,14 @@ CHECKS = {"kmeans": _kmeans_check, "cornerEigenValsAndVecs": _eigen_check}
 
 # The one rule for which arguments the port receives as CPU tensors: an
 # image (a 2-D or 3-D array) passed under one of the image parameter names
-# of the cv2 signatures (or in an ``images`` list), or k-means' data. Points, matrices, masks,
-# kernels, tables, output buffers and lists go to both sides as the same
-# numpy values.
+# of the cv2 signatures (or in an ``images`` or ``srcImgs`` list), or
+# k-means' data. Points, matrices, masks, kernels, tables, output buffers
+# and lists go to both sides as the same numpy values.
 IMAGE_PARAMS = {
     "src", "src1", "src2", "image", "img", "img1", "img2", "frame", "mat",
     "prevImg", "nextImg", "prev", "next", "left", "right", "templ",
     "probImage", "gray", "inputImage", "templateImage", "array", "m",
-    "data",
+    "data", "distorted", "input_image", "disparity", "depth",
 }
 
 
@@ -231,10 +282,182 @@ def port_args(func, args, kwargs):
     def conv(name, v):
         if name in IMAGE_PARAMS and isinstance(v, np.ndarray) and v.ndim in (2, 3):
             return torch.from_numpy(v.copy())
-        if name == "images" and isinstance(v, list):
+        if name in ("images", "srcImgs") and isinstance(v, list):
             return [conv("image", x) for x in v]
         return v
 
     return (tuple(conv(names[i] if i < len(names) else "", v)
                   for i, v in enumerate(args)),
             {k: conv(k, v) for k, v in kwargs.items()})
+
+
+# Per-name arguments of the 7b callables, made for one side (``cv`` is the
+# reference's facade or the port's) where the shared synthesizer makes the
+# reference's objects (dictionaries, boards, trackbars), writes fixed paths
+# under /tmp or needs Pillow (neither is on the card's machine).
+def _dict(cv):
+    return cv.aruco.getPredefinedDictionary(0)
+
+
+def _charuco(cv):
+    return cv.aruco.CharucoBoard((4, 3), 0.08, 0.05, _dict(cv))
+
+
+def _marker(cv):
+    """Marker 0 of the dictionary on a white margin, 96×96."""
+    out = np.full((96, 96), 255, np.uint8)
+    out[16:80, 16:80] = cv.aruco.generateImageMarker(_dict(cv), 0, 64)
+    return out
+
+
+def _charuco_image(cv):
+    """The ChArUco board of :func:`_charuco` on a white margin: markers
+    that its detector finds, and inner corners to refine."""
+    out = np.full((200, 260), 255, np.uint8)
+    out[20:180, 20:240] = _charuco(cv).generateImage((220, 160))
+    return out
+
+
+def _marker_quads(cv):
+    corners, ids, _ = cv.aruco.detectMarkers(_charuco_image(cv), _dict(cv))
+    return [np.asarray(c) for c in corners], ids
+
+
+def _trackbar(cv, *extra):
+    cv.namedWindow("callcov")
+    cv.createTrackbar("tb", "callcov", 0, 10, lambda *_: None)
+    return ("tb", "callcov") + tuple(extra)
+
+
+LATER_LOCAL = {
+    "aruco.detectMarkers": lambda tmp, cv: ((_marker(cv), _dict(cv)), {}),
+    "aruco.estimatePoseBoard": lambda tmp, cv: (
+        ([pts2f(4).reshape(1, 4, 2)], np.array([[0]], np.int32),
+         cv.aruco.GridBoard((2, 2), 0.05, 0.01, _dict(cv)), camK(), dist5(), np.zeros(3),
+         np.zeros(3)), {}),
+    "aruco.generateImageMarker": lambda tmp, cv: ((_dict(cv), 0, 64), {}),
+    "aruco.interpolateCornersCharuco": lambda tmp, cv: (
+        (*_marker_quads(cv), _charuco_image(cv), _charuco(cv)), {}),
+    "aruco_ArucoDetector": lambda tmp, cv: ((_dict(cv),), {}),
+    "aruco.ArucoDetector": lambda tmp, cv: ((_dict(cv),), {}),
+    "aruco_Board": lambda tmp, cv: (
+        ([pts3f(4).reshape(4, 3)], _dict(cv), np.array([[0]], np.int32)), {}),
+    "aruco.Board": lambda tmp, cv: (
+        ([pts3f(4).reshape(4, 3)], _dict(cv), np.array([[0]], np.int32)), {}),
+    "aruco_CharucoBoard": lambda tmp, cv: (((4, 3), 0.08, 0.05, _dict(cv)), {}),
+    "aruco.CharucoBoard": lambda tmp, cv: (((4, 3), 0.08, 0.05, _dict(cv)), {}),
+    "aruco_CharucoDetector": lambda tmp, cv: ((_charuco(cv),), {}),
+    "aruco.CharucoDetector": lambda tmp, cv: ((_charuco(cv),), {}),
+    "aruco_GridBoard": lambda tmp, cv: (((2, 2), 0.05, 0.01, _dict(cv)), {}),
+    "aruco.GridBoard": lambda tmp, cv: (((2, 2), 0.05, 0.01, _dict(cv)), {}),
+    "aruco.Dictionary": lambda tmp, cv: ((_dict(cv)._d,), {}),
+    "getTrackbarPos": lambda tmp, cv: (_trackbar(cv), {}),
+    "setTrackbarPos": lambda tmp, cv: (_trackbar(cv, 1), {}),
+    "setTrackbarMin": lambda tmp, cv: (_trackbar(cv, 0), {}),
+    "setTrackbarMax": lambda tmp, cv: (_trackbar(cv, 10), {}),
+    "readOpticalFlow": lambda tmp, cv: ((_flo(tmp, cv),), {}),
+    "loadMesh": lambda tmp, cv: ((_mesh(tmp, cv),), {}),
+    "loadPointCloud": lambda tmp, cv: ((_cloud(tmp, cv),), {}),
+    "imdecodemulti": lambda tmp, cv: ((_png_bytes(cv),), {}),
+    "imdecodeWithMetadata": lambda tmp, cv: ((_png_bytes(cv), 1), {}),
+    "imdecodeanimation": lambda tmp, cv: ((_png_bytes(cv),), {}),
+    "imreadanimation": lambda tmp, cv: ((_png_file(tmp, cv),), {}),
+    "imencodeanimation": lambda tmp, cv: ((".gif", _animation(cv)), {}),
+    "imwriteanimation": lambda tmp, cv: ((str(tmp / "a.gif"), _animation(cv)), {}),
+    "KeyPoint_overlap": lambda tmp, cv: ((cv.KeyPoint(10, 10, 8), cv.KeyPoint(13, 11, 6)), {}),
+    "Animation": lambda tmp, cv: ((), {}),
+    "loadChromaticAberrationParams": lambda tmp, cv: ((_ca_node(tmp, cv),), {}),
+    "detail.computeImageFeatures": lambda tmp, cv: (
+        (cv.ORB_create(), [img_u8(3, 96, 128), img_u8(3, 96, 128)[::-1].copy()]), {}),
+    "detail.computeImageFeatures2": lambda tmp, cv: ((cv.ORB_create(), img_u8(3, 96, 128)), {}),
+    "detail.leaveBiggestComponent": lambda tmp, cv: (
+        ([cv.detail.ImageFeatures(i, (40, 32)) for i in range(4)], _matches(cv), 1.0), {}),
+    "detail.matchesGraphAsString": lambda tmp, cv: (
+        (["a.png", "b.png", "c.png", "d.png"], _matches(cv), 1.0), {}),
+}
+
+
+def _ca_node(tmp, cv):
+    path = str(tmp / "ca.json")
+    fs = cv.FileStorage(path, cv.FILE_STORAGE_WRITE)
+    fs.write("coefficients", np.arange(12, dtype=np.float32).reshape(4, 3))
+    fs.write("image_width", 640)
+    fs.write("image_height", 480)
+    fs.write("degree", 1)
+    fs.release()
+    return cv.FileStorage(path, cv.FILE_STORAGE_READ).root()
+
+
+def _matches(cv):
+    """Pairwise matches of four images: 0-1 and 2-3 confident, 1-2 not."""
+    out = []
+    for (i, j), conf in (((0, 1), 2.5), ((1, 2), 0.4), ((2, 3), 1.7), ((1, 0), 2.5)):
+        mi = cv.detail.MatchesInfo()
+        mi.src_img_idx, mi.dst_img_idx, mi.confidence = i, j, conf
+        mi.matches = [cv.DMatch(k, k, 0, float(k)) for k in range(3 + i)]
+        mi.num_inliers = 2 + j
+        out.append(mi)
+    return out
+
+
+def _flo(tmp, cv):
+    path = str(tmp / "in.flo")
+    cv.writeOpticalFlow(path, np.random.default_rng(3).normal(0, 2, (32, 40, 2)).astype(np.float32))
+    return path
+
+
+def _mesh(tmp, cv):
+    path = str(tmp / "mesh.ply")
+    cv.saveMesh(path, pts3f(4).reshape(-1, 3), np.array([[0, 1, 2]], np.int32))
+    return path
+
+
+def _cloud(tmp, cv):
+    path = str(tmp / "cloud.ply")
+    cv.savePointCloud(path, pts3f(4).reshape(-1, 3))
+    return path
+
+
+def _host_image(cv, a):
+    """``a`` as the side passes an image it means to stay on the host: the
+    reference's numpy array, the port's CPU tensor (a numpy image would go
+    to the card)."""
+    return a if cv.__name__ == "rustcv_tpu.cv2" else torch.from_numpy(a)
+
+
+def _png_bytes(cv):
+    return cv.imencode(".png", _host_image(cv, img_u8()))[1]
+
+
+def _png_file(tmp, cv):
+    path = str(tmp / "in.png")
+    cv.imwrite(path, _host_image(cv, img_u8()))
+    return path
+
+
+def _animation(cv):
+    a = cv.Animation()
+    a.frames = [img_u8(), img_u8()[::-1].copy()]
+    a.durations = [100, 100]
+    return a
+
+
+def later_plan(name, func, tmp_path, cv):
+    """``(args, kwargs)`` for the 7b callable ``name`` of the facade ``cv``
+    (the reference's or the port's): cv2_callcov's synthesized arguments
+    (32×40 images), or :data:`LATER_LOCAL`'s, with the synthesizer's fixed
+    /tmp paths moved under ``tmp_path``."""
+    from cv2_callcov import OVERRIDES, build_call
+
+    if name in LATER_LOCAL:
+        return LATER_LOCAL[name](tmp_path, cv)
+    plan = build_call(func, name, OVERRIDES)
+    assert not isinstance(plan, str), f"{name}: {plan}"
+    args, kwargs = plan
+
+    def relocate(v):
+        if isinstance(v, str) and v.startswith("/tmp/rcv_callcov"):
+            return str(tmp_path / v.rsplit("/", 1)[1])
+        return v
+
+    return tuple(relocate(v) for v in args), {k: relocate(v) for k, v in kwargs.items()}

@@ -41,10 +41,12 @@ band), with their results on the card and no kernel launched, and
 the SB likelihood in full float32 with TF32 on; the chessboard refinements
 on the card for a numpy board; the rasterizer, the normals and the stitch
 composite against the CPU port at the reference's bars); and the cv2
-facade's core (``rustcv_tpu_torch.cv2``): every wrapper with numpy images
-(on the card where it hands them to a Mat or a device op) against CPU
-tensors, ``cornerHarris`` and ``goodFeaturesToTrack`` launching each K6
-form once, CUDA tensors against CPU tensors, and draws on a CUDA tensor.
+facade (``rustcv_tpu_torch.cv2``), its core and its later modules and
+submodules: every function with numpy images (on the card where it hands
+them to a Mat or a device op) against CPU tensors, ``cornerHarris``,
+``goodFeaturesToTrack``, ``GFTTDetector.detect`` and
+``goodFeaturesToTrackWithQuality`` launching each K6 form once per form
+they reach, CUDA tensors against CPU tensors, and draws on a CUDA tensor.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -1927,10 +1929,13 @@ def _cv2_core_functions():
 
     import rustcv_tpu_torch.cv2 as P
 
+    core = {"rustcv_tpu_torch.cv2", "rustcv_tpu_torch.cv2._classes",
+            "rustcv_tpu_torch.cv2._util", "rustcv_tpu_torch.cv2._filestorage",
+            "rustcv_tpu_torch.cv2._color_dispatch"}
     return sorted(n for n in dir(P) if not n.startswith("_")
                   and n not in ("builtins_max", "builtins_min")
                   and inspect.isfunction(getattr(P, n))
-                  and getattr(P, n).__module__.startswith("rustcv_tpu_torch.cv2"))
+                  and getattr(P, n).__module__ in core)
 
 
 def _cv2_plan(name, fn, tmp_path):
@@ -2036,6 +2041,144 @@ def test_cv2_harris_routes_launch_k6_once_each(cuda, dev):
     counts = kernels.launch_counts()
     assert counts["harris_response_i32"] == 1 and counts["harris_response_f32"] == 0
     np.testing.assert_array_equal(pts, P.goodFeaturesToTrack(torch.from_numpy(g), 500, 0.01, 10))
+
+
+def _cv2_later_functions():
+    import rustcv_tpu_torch.cv2 as P
+    from cv2_torch_parity import facade_get, later_callables
+
+    return [n for n in later_callables(P) if not isinstance(facade_get(P, n), type)]
+
+
+@pytest.mark.parametrize("name", _cv2_later_functions())
+def test_cv2_later_numpy_on_the_card_equals_cpu_tensors(cuda, name, tmp_path):
+    """Every function of the rest of the facade (item 7b) with numpy images
+    (which go to the card where the wrapper hands them to a Mat or a device
+    op) against the same call with CPU tensors: the same exception class,
+    or results equal within the CPU tests' bars."""
+    from cv2_torch_parity import BARS, CHECKS, facade_get, later_plan, port_args, same
+
+    import rustcv_tpu_torch.cv2 as P
+
+    fn = facade_get(P, name)
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card_args = later_plan(name, fn, tmp_path / "card", P)
+    cpu_args = port_args(fn, *later_plan(name, fn, tmp_path / "cpu", P))
+    outs = []
+    level = P.utils.logging.getLogLevel()
+    for args, kwargs in (card_args, cpu_args):
+        P.utils.logging.setLogLevel(level)  # global state: both runs start from the same
+        try:
+            outs.append((fn(*args, **kwargs), None))
+        except Exception as e:  # noqa: BLE001 - the class is what is compared
+            outs.append((None, e))
+    (card, card_err), (cpu, cpu_err) = outs
+    assert type(card_err).__name__ == type(cpu_err).__name__, (card_err, cpu_err)
+    if card_err is not None:
+        return
+    if name in ("detail.computeImageFeatures", "detail.computeImageFeatures2"):
+        for c, p in zip(card if isinstance(card, list) else [card],
+                        cpu if isinstance(cpu, list) else [cpu]):
+            assert (c.img_idx, c.img_size) == (p.img_idx, p.img_size)
+            np.testing.assert_array_equal([k.pt for k in c.keypoints], [k.pt for k in p.keypoints])
+            same(p.descriptors, c.descriptors, 0)
+        return
+    if name in CHECKS:
+        CHECKS[name](cpu, card, cpu_args[0], card_args[0])
+        return
+    if name == "goodFeaturesToTrackWithQuality":
+        np.testing.assert_array_equal(card[0], cpu[0])
+        np.testing.assert_allclose(card[1], cpu[1], rtol=2e-4, atol=1e-6)  # HARRIS_TOL
+        return
+    same(cpu, card, BARS.get(name, (0, ""))[0])
+    for i, (c, p) in enumerate(zip(*(a[0] for a in (card_args, cpu_args)))):
+        if isinstance(c, np.ndarray):  # arguments written in place
+            same(p.numpy() if isinstance(p, torch.Tensor) else p, c, 0, f"argument {i}")
+
+
+@pytest.mark.parametrize("dev", ["numpy", "cuda tensor"])
+def test_cv2_later_k6_routes(cuda, dev):
+    """``GFTTDetector.detect`` moves K6 int32's launch count by one;
+    ``goodFeaturesToTrackWithQuality(useHarrisDetector=True)`` moves each
+    K6 form by one, on a 1080p gray frame; the results equal the CPU's."""
+    import rustcv_tpu_torch.cv2 as P
+
+    g = sim.synth_bgr(1920, 1080, 11)[..., 1].copy()
+    x = g if dev == "numpy" else torch.from_numpy(g).to(cuda)
+    kernels.reset_launch_counts()
+    kps = P.GFTTDetector_create(500, 0.01, 10).detect(x)
+    counts = kernels.launch_counts()
+    assert counts["harris_response_i32"] == 1 and counts["harris_response_f32"] == 0
+    want = P.GFTTDetector_create(500, 0.01, 10).detect(torch.from_numpy(g))
+    assert [k.pt for k in kps] == [k.pt for k in want] and len(kps) > 0
+    kernels.reset_launch_counts()
+    pts, q = P.goodFeaturesToTrackWithQuality(x, 500, 0.01, 10, useHarrisDetector=True)
+    counts = kernels.launch_counts()
+    assert counts["harris_response_i32"] == 1 and counts["harris_response_f32"] == 1
+    wpts, wq = P.goodFeaturesToTrackWithQuality(torch.from_numpy(g), 500, 0.01, 10,
+                                                useHarrisDetector=True)
+    np.testing.assert_array_equal(pts, wpts)
+    np.testing.assert_allclose(q, wq, rtol=2e-4, atol=1e-6)
+
+
+def test_cv2_later_on_cuda_tensors_equals_cpu_tensors(cuda):
+    """The 7b wrappers that reach a Mat or a device op give on a CUDA tensor
+    what they give on the CPU tensor; ``addText`` and ``thresholdWithMask``
+    write into a CUDA tensor where it lives."""
+    import rustcv_tpu_torch.cv2 as P
+
+    img = sim.synth_bgr(640, 360, 5)
+    gray = np.ascontiguousarray(img[..., 1])
+    rng = np.random.default_rng(8)
+    tex = np.clip(gray + rng.normal(0, 12, gray.shape), 0, 255).astype(np.uint8)
+    tex2 = np.roll(tex, (1, 2), (0, 1))
+    pts = P.goodFeaturesToTrack(torch.from_numpy(tex), 200, 0.01, 5)
+    K = np.array([[500.0, 0, 320], [0, 500.0, 180], [0, 0, 1]])
+    D = np.array([0.05, -0.01, 0.002, -0.0004])
+    mask = np.zeros(gray.shape, np.uint8)
+    mask[40:300, 60:500] = 1
+    arrays = {"f": img, "g": gray, "t": tex, "t2": tex2,
+              "b": ((gray > 128) * 255).astype(np.uint8)}
+    calls = {
+        "GFTTDetector": lambda a: [k.pt for k in P.GFTTDetector_create(200, 0.01, 5).detect(
+            a["f"])],
+        "goodFeaturesToTrackWithQuality": lambda a: P.goodFeaturesToTrackWithQuality(
+            a["g"], 200, 0.01, 5)[0],
+        "FarnebackOpticalFlow": lambda a: P.FarnebackOpticalFlow_create().calc(
+            a["t"], a["t2"], None),
+        "SparsePyrLKOpticalFlow": lambda a: P.SparsePyrLKOpticalFlow_create().calc(
+            a["t"], a["t2"], pts, None)[:2],
+        "fisheye.undistortImage": lambda a: P.fisheye.undistortImage(a["f"], K, D),
+        "checkChessboard": lambda a: P.checkChessboard(a["g"], (7, 5)),
+        "connectedComponentsWithAlgorithm": lambda a: P.connectedComponentsWithAlgorithm(
+            a["b"], 8, 4, 0),
+        "filter2Dp": lambda a: P.filter2Dp(a["f"], np.ones((3, 3), np.float32) / 9),
+        "find4QuadCornerSubpix": lambda a: P.find4QuadCornerSubpix(a["t"], pts[:20], (5, 5)),
+    }
+    from cv2_torch_parity import same
+
+    for name, call in calls.items():
+        got = call({k: torch.from_numpy(v).to(cuda) for k, v in arrays.items()})
+        want = call({k: torch.from_numpy(v) for k, v in arrays.items()})
+        if name in ("FarnebackOpticalFlow", "SparsePyrLKOpticalFlow", "find4QuadCornerSubpix"):
+            same(want, got, 1e-3, name)  # the flow and sub-pixel bars: 1e-3 px
+        else:
+            same(want, got, 0, name)
+    t = torch.from_numpy(img.copy()).to(cuda)
+    ptr = t.data_ptr()
+    P.addText(t, "7b", (20, 300), "DejaVu Sans", 30, (255, 0, 255))
+    host = img.copy()
+    P.addText(host, "7b", (20, 300), "DejaVu Sans", 30, (255, 0, 255))
+    assert t.is_cuda and t.data_ptr() == ptr
+    np.testing.assert_array_equal(t.cpu().numpy(), host)
+    dst = torch.from_numpy(gray.copy()).to(cuda)
+    ptr = dst.data_ptr()
+    P.thresholdWithMask(torch.from_numpy(tex).to(cuda), dst, mask, 127, 255, P.THRESH_BINARY)
+    want = gray.copy()
+    P.thresholdWithMask(torch.from_numpy(tex), want, mask, 127, 255, P.THRESH_BINARY)
+    assert dst.is_cuda and dst.data_ptr() == ptr
+    np.testing.assert_array_equal(dst.cpu().numpy(), want)
 
 
 def test_cv2_on_cuda_tensors_equals_cpu_tensors(cuda):

@@ -1,11 +1,16 @@
 """The port's cv2 namespace (``rustcv_tpu_torch.cv2``) against the
 reference's (``rustcv_tpu.cv2``): every constant the reference defines is
-in the port with an equal value and type; the port has no public name the
-reference lacks; and each name the reference's later modules bring
-(ROADMAP Queue 1 item 7b) raises ``not_ported`` in the port, from a frozen
-list of the port's own that equals the reference's set."""
+in the port with an equal value and type; the two have the same public
+names; and each name the reference's later modules bring (ROADMAP Queue 1
+item 7b, once a frozen list of names that raised ``not_ported``) resolves
+in the port to the reference's kind of object, a callable with the
+reference's parameter names. Of those, the eight that the reference runs
+with Pillow raise ``not_ported`` (item 8) when called."""
+import importlib
+import inspect
 import types
 
+import numpy as np
 import pytest
 
 import rustcv_tpu.cv2 as R
@@ -33,21 +38,74 @@ def test_the_port_has_no_public_name_the_reference_lacks():
     port = {n for n in dir(P) if not n.startswith("_")}
     ref = {n for n in dir(R) if not n.startswith("_")}
     assert port - ref == set()
-    # the core's names are all there; what is missing is item 7b
-    assert ref - port == later_names()
+    # and the reference has none the port lacks: item 7b is ported
+    assert ref - port == set()
 
 
 def test_the_frozen_item_7b_list_is_the_references():
-    assert P._ITEM_7B == frozenset(later_names())
-    assert len(P._ITEM_7B) == 300
+    """The frozen list and the module ``__getattr__`` that raised from it
+    are gone; the 300 names the reference's later modules bring are the
+    port's own attributes."""
+    assert not hasattr(P, "_ITEM_7B") and "__getattr__" not in vars(P)
+    later = later_names()
+    assert len(later) == 300
+    assert later <= set(vars(P))
+
+
+def _kind(v):
+    if isinstance(v, types.ModuleType):
+        return "module"
+    if isinstance(v, type):
+        return "class"
+    return "function" if callable(v) else type(v).__name__
+
+
+def _params(f):
+    return list(inspect.signature(f).parameters)
+
+
+def _buf(head):
+    return np.frombuffer(head + bytes(24), np.uint8)
+
+
+PILLOW_BOUND = {
+    "imencodemulti": ((".tiff", []), {}), "imdecodemulti": ((_buf(b"II*\x00"),), {}),
+    "imdecodeWithMetadata": ((_buf(b"\x89PNG\r\n\x1a\n"),), {}),
+    "imencodeWithMetadata": ((".png", np.zeros((4, 4, 3), np.uint8)), {}),
+    "imreadanimation": ((__file__,), {}), "imwriteanimation": (("a.gif", None), {}),
+    "imdecodeanimation": ((_buf(b"GIF89a"),), {}),
+    "imencodeanimation": ((".gif", None), {}),
+}
 
 
 @pytest.mark.parametrize("name", sorted(later_names()))
-def test_an_item_7b_name_raises_not_ported(name):
-    with pytest.raises(NotImplementedError, match=r"item 7\)"):
-        getattr(P, name)
-    with pytest.raises(NotImplementedError):
-        hasattr(P, name)
+def test_an_item_7b_name_raises_not_ported(name, tmp_path):
+    """Item 7b's names no longer raise ``not_ported`` on access: each
+    resolves to the reference's kind (module, class, function or
+    constant), a constant to its value, a callable with the reference's
+    parameter names (a class: its constructor's and the same public
+    members). Only the eight Pillow-bound functions raise ``not_ported``,
+    item 8, when called."""
+    ref, port = getattr(R, name), getattr(P, name)
+    assert _kind(port) == _kind(ref), (name, _kind(port), _kind(ref))
+    if isinstance(ref, types.ModuleType):
+        assert port.__name__ == ref.__name__.replace("rustcv_tpu.", "rustcv_tpu_torch.", 1)
+    elif isinstance(ref, type):
+        assert _params(port) == _params(ref)
+        assert sorted(n for n in dir(port) if not n.startswith("_")) == \
+            sorted(n for n in dir(ref) if not n.startswith("_"))
+    elif callable(ref):
+        assert _params(port) == _params(ref)
+    else:
+        assert type(port) is type(ref) and port == ref
+    if name in PILLOW_BOUND:
+        args, kwargs = PILLOW_BOUND[name]
+        if name == "imreadanimation":
+            path = tmp_path / "a.gif"
+            path.write_bytes(b"GIF89a" + bytes(20))
+            args = (str(path),)
+        with pytest.raises(NotImplementedError, match=r"item 8\)"):
+            port(*args, **kwargs)
 
 
 def test_an_unknown_name_is_an_attribute_error():
@@ -57,7 +115,14 @@ def test_an_unknown_name_is_an_attribute_error():
 
 
 def test_the_submodules_are_item_7b():
+    """The reference's submodules (item 7b) are the port's: each module of
+    ``rustcv_tpu.cv2`` has its ``rustcv_tpu_torch.cv2`` counterpart, the
+    same object under both of the port's spellings (``cv2.aruco`` and
+    ``cv2.aruco_*``'s module)."""
     subs = {n for n in dir(R) if not n.startswith("_")
             and isinstance(getattr(R, n), types.ModuleType)
             and getattr(R, n).__name__.startswith("rustcv_tpu.cv2.")}
-    assert {"aruco", "detail", "dnn", "fisheye"} <= subs <= P._ITEM_7B
+    assert {"aruco", "detail", "dnn", "fisheye"} <= subs <= later_names()
+    for n in subs:
+        assert getattr(P, n).__name__ == f"rustcv_tpu_torch.cv2.{n}"
+        assert getattr(P, n) is importlib.import_module(f"rustcv_tpu_torch.cv2.{n}")

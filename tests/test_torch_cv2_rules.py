@@ -10,7 +10,12 @@ pinned (``rustcv_tpu_torch/cv2/_device.py``):
   buffer) or CPU tensor;
 * the reference's swallow-all wrappers keep cv2's False / 0 for a missing
   or unreadable file and let ``not_ported`` through;
-* a name of ROADMAP Queue 1 item 7b raises ``not_ported``.
+* the later modules (ROADMAP Queue 1 item 7b) follow the same rules: which
+  of their wrappers send a numpy image to the card is frozen in
+  :data:`LATER_CARD_NAMES`, ``addText`` and ``thresholdWithMask`` write
+  into the caller's buffer, and the eight Pillow-bound functions raise
+  ``not_ported`` (item 8), also through the three that swallow errors in
+  the reference.
 """
 import numpy as np
 import pytest
@@ -181,8 +186,193 @@ def test_video_writer_open_is_false_for_a_bad_path_or_codec(tmp_path):
 
 
 def test_item_7b_names_raise_not_ported():
+    """Item 7b's names are ported: none raises ``not_ported`` on access any
+    more, and the only ones that raise it when called are item 8's."""
     for name in ("aruco", "solveP3P", "detail_Blender", "DISOpticalFlow_create"):
-        if name in P._ITEM_7B:
-            with pytest.raises(NotImplementedError, match=r"item 7\)"):
-                getattr(P, name)
-    assert "aruco" in P._ITEM_7B
+        getattr(P, name)
+    assert not hasattr(P, "_ITEM_7B")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        P.imencodemulti(".tiff", [np.zeros((8, 8, 3), np.uint8)])
+
+
+# ------------------------------------------------------------ item 7b
+
+from cv2_torch_parity import facade_get, later_plan  # noqa: E402
+from test_torch_cv2_later_calls import FUNCTIONS as LATER_FUNCTIONS  # noqa: E402
+
+# The 7b wrappers that send a numpy image to the card (with the synthesized
+# arguments of tests/test_torch_cv2_later_calls.py): where the reference's
+# wrapper makes a Mat, calls one of the core wrappers above, or reaches a
+# device op (the chessboard and ChArUco refinements, the fisheye remap).
+LATER_CARD_NAMES = frozenset("""
+    checkChessboard connectedComponentsWithAlgorithm
+    connectedComponentsWithStatsWithAlgorithm filter2Dp find4QuadCornerSubpix
+    findChessboardCornersSBWithMeta goodFeaturesToTrackWithQuality
+    thresholdWithMask aruco.interpolateCornersCharuco detail.computeImageFeatures
+    detail.computeImageFeatures2 fisheye.undistortImage
+""".split())
+
+
+def test_the_later_card_names_are_wrappers():
+    assert LATER_CARD_NAMES <= set(LATER_FUNCTIONS)
+
+
+@pytest.mark.parametrize("name", LATER_FUNCTIONS)
+def test_a_later_wrapper_sends_numpy_to_the_card_exactly_where_the_reference_does(
+        name, tmp_path, no_card):
+    args, kwargs = later_plan(name, facade_get(R, name), tmp_path, P)
+    try:
+        facade_get(P, name)(*args, **kwargs)
+    except RuntimeError as e:  # NotImplementedError (not_ported, the guards) too
+        if "is_available() is False" not in str(e):
+            return
+        assert name in LATER_CARD_NAMES, (name, e)
+        return
+    except Exception:  # noqa: BLE001 - the sweep holds the classes; here only the device
+        pass
+    assert name not in LATER_CARD_NAMES, f"{name} ran on the host"
+
+
+def _spy(monkeypatch, dotted, ran):
+    import importlib
+
+    mod, fn = dotted.rsplit(".", 1)
+    m = importlib.import_module("rustcv_tpu_torch." + mod)
+    monkeypatch.setattr(m, fn, lambda *a, _n=dotted, **k: ran.append(_n))
+
+
+@pytest.mark.parametrize("call,spies", [
+    (lambda g: P.GFTTDetector_create(50, 0.01, 5).detect(g),
+     ["imgproc.good_features_to_track", "ops.features.harris_corner_list"]),
+    (lambda g: P.goodFeaturesToTrackWithQuality(g, 50, 0.01, 5, useHarrisDetector=True),
+     ["imgproc.good_features_to_track", "ops.features.harris_corner_list",
+      "ops.features.harris_response"]),
+    (lambda g: P.FarnebackOpticalFlow_create().calc(g, g[::-1].copy(), None),
+     ["imgproc.calc_optical_flow_farneback", "ops.farneback.farneback_flow",
+      "ops.farneback.farneback_flow_numpy"]),
+    (lambda g: P.SparsePyrLKOpticalFlow_create().calc(
+        g, g[::-1].copy(), np.array([[[20.0, 20.0]]], np.float32)),
+     ["imgproc.calc_optical_flow_pyr_lk"]),
+    (lambda g: P.fisheye.undistortImage(g, np.array([[40.0, 0, 32], [0, 40.0, 24], [0, 0, 1]]),
+                                        np.zeros(4)),
+     ["ops.warp.remap"]),
+], ids=["GFTTDetector.detect", "goodFeaturesToTrackWithQuality", "FarnebackOpticalFlow.calc",
+        "SparsePyrLKOpticalFlow.calc", "fisheye.undistortImage"])
+def test_a_later_numpy_call_without_a_card_raises_before_any_cpu_work(call, spies, no_card,
+                                                                     monkeypatch):
+    ran = []
+    for dotted in spies:
+        _spy(monkeypatch, dotted, ran)
+    g = np.random.default_rng(0).integers(0, 256, (48, 64), dtype=np.uint8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        call(g)
+    assert ran == []
+
+
+def _add_text(cv, im):
+    return cv.addText(im, "Hi 7b", (3, 25), "DejaVu", 14, (0, 200, 255))
+
+
+def _threshold_with_mask(cv, im):
+    """``src`` a numpy image for the reference, a CPU tensor for the port:
+    without a card the port's threshold runs on the CPU, and only ``dst``
+    (``im``) is the caller's numpy array or tensor."""
+    mask = np.zeros(im.shape[:2], np.uint8)
+    mask[4:20, 6:30] = 1
+    src = np.random.default_rng(2).integers(0, 256, im.shape, dtype=np.uint8)
+    if cv is P:
+        src = torch.from_numpy(src)
+    return cv.thresholdWithMask(src, im, mask, 120, 255, cv.THRESH_BINARY)[1]
+
+
+IN_PLACE = [("addText", _add_text), ("thresholdWithMask", _threshold_with_mask)]
+
+
+@pytest.mark.parametrize("name,write", IN_PLACE, ids=[n for n, _ in IN_PLACE])
+def test_later_in_place_writes_land_in_the_callers_array(name, write, no_card):
+    base = np.random.default_rng(1).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    img = base[..., 0].copy() if name == "thresholdWithMask" else base.copy()
+    want = img.copy()
+    write(R, want)
+    out = write(P, img)  # no card: addText draws on the host, in the caller's buffer
+    assert out is img
+    np.testing.assert_array_equal(img, want)
+    assert not np.array_equal(img, base[..., 0] if img.ndim == 2 else base)
+
+
+@pytest.mark.parametrize("name,write", IN_PLACE, ids=[n for n, _ in IN_PLACE])
+def test_later_in_place_writes_land_in_the_callers_tensor(name, write):
+    base = np.random.default_rng(1).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    img = base[..., 0].copy() if name == "thresholdWithMask" else base.copy()
+    want = img.copy()
+    write(R, want)
+    t = torch.from_numpy(img.copy())
+    ptr = t.data_ptr()
+    out = write(P, t)
+    assert out is t and t.data_ptr() == ptr
+    np.testing.assert_array_equal(t.numpy(), want)
+
+
+def test_add_text_on_a_contiguous_array_copies_nothing_back(monkeypatch):
+    from rustcv_tpu_torch.cv2 import _device
+
+    copies = []
+    monkeypatch.setattr(_device.np, "copyto", lambda *a, **k: copies.append(a))
+    img = np.zeros((24, 48, 3), np.uint8)
+    P.addText(img, "Hi", (2, 18), "DejaVu", 14, (0, 255, 0))
+    assert img.any() and copies == []
+
+
+PILLOW_BOUND = [
+    ("imencodemulti", lambda tmp, gif: P.imencodemulti(".gif", [np.zeros((8, 8, 3), np.uint8)])),
+    ("imdecodemulti", lambda tmp, gif: P.imdecodemulti(gif)),
+    ("imdecodeWithMetadata", lambda tmp, gif: P.imdecodeWithMetadata(gif)),
+    ("imencodeWithMetadata", lambda tmp, gif: P.imencodeWithMetadata(
+        ".png", np.zeros((8, 8, 3), np.uint8), ["Title"], ["x"])),
+    ("imreadanimation", lambda tmp, gif: P.imreadanimation(_gif_file(tmp, gif))),
+    ("imwriteanimation", lambda tmp, gif: P.imwriteanimation(str(tmp / "b.gif"), _anim())),
+    ("imdecodeanimation", lambda tmp, gif: P.imdecodeanimation(gif)),
+    ("imencodeanimation", lambda tmp, gif: P.imencodeanimation(".gif", _anim())),
+]
+
+
+def _gif():
+    """A real two-frame GIF, written by the reference (Pillow)."""
+    a = R.Animation()
+    a.frames = [np.zeros((8, 8, 3), np.uint8), np.full((8, 8, 3), 200, np.uint8)]
+    a.durations = [50, 50]
+    ok, buf = R.imencodeanimation(".gif", a)
+    assert ok
+    return buf
+
+
+def _gif_file(tmp, gif):
+    path = tmp / "a.gif"
+    path.write_bytes(gif.tobytes())
+    return str(path)
+
+
+def _anim():
+    a = P.Animation()
+    a.frames = [np.zeros((8, 8, 3), np.uint8)]
+    return a
+
+
+@pytest.mark.parametrize("name,call", PILLOW_BOUND, ids=[n for n, _ in PILLOW_BOUND])
+def test_each_pillow_bound_name_raises_not_ported_item_8(name, call, tmp_path):
+    gif = _gif()
+    assert R.imdecodemulti(gif)[0] is True and len(R.imdecodemulti(gif)[1]) == 2
+    with pytest.raises(NotImplementedError, match=r"item 8\)"):
+        call(tmp_path, gif)
+
+
+def test_the_swallowing_wrappers_keep_false_for_what_is_no_image(tmp_path):
+    junk = np.frombuffer(b"not an image at all, not even close", np.uint8)
+    (tmp_path / "junk.gif").write_bytes(junk.tobytes())
+    for path in (str(tmp_path / "missing.gif"), str(tmp_path / "junk.gif")):
+        ok, anim = P.imreadanimation(path)
+        assert ok is R.imreadanimation(path)[0] is False
+        assert type(anim).__name__ == "Animation" and anim.frames == []
+    assert P.imdecodemulti(junk) == R.imdecodemulti(junk) == (False, [])
+    ok, anim = P.imdecodeanimation(junk)
+    assert ok is R.imdecodeanimation(junk)[0] is False and anim.frames == []
