@@ -197,6 +197,18 @@ Phases:
    and the calibration's K (within 1 % of fx) against their truth, gated
    on exactly one K6 int32 launch per ``GFTTDetector.detect`` and one of
    each form per ``goodFeaturesToTrackWithQuality(useHarrisDetector=True)``;
+   (3v) the formats the port reads without Pillow (ROADMAP Queue 1 item
+   8a), launching no kernel: ``decode_mjpeg_host_rgb`` of three 1080p MJPEG
+   frames the channel swap of the host decode; 60 files made here with
+   numpy, ``zlib`` and small writers at 641x361 (PNG at every depth and
+   colour type, plain and Adam7, and with an eXIf chunk; P1-P6 at maxvals
+   1, 255, 1000, 65535 and PFM; BMP 1-, 4- and 16-bit, RLE8 and RLE4;
+   4:4:0 and 4:1:1 JPEG; a 4:2:0 JPEG in one scan per component) and a
+   677-byte progressive JPEG written by Pillow, read by ``imread`` onto the
+   card equal to the CPU read, and to their numpy truth, Pillow's hash and
+   the reference's metadata; ``put_text`` of a Latin-1 string at 4, 100 and
+   160 px on a 1080p CUDA Mat equal to the CPU Mat, masks to the
+   reference's hashes;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -225,7 +237,10 @@ Phases:
    frame whole and, apart, its host map build, the maps' upload and the
    remap); (4t) ms per cv2 call at 1080p, numpy in and out, and the
    host-only calls (cv2's host algorithms, draws on numpy, FileStorage)
-   on a line of their own; (4u) the same for phase 3u's calls.
+   on a line of their own; (4u) the same for phase 3u's calls; (4v) ms per
+   ``imread`` onto the card at 1080p of a 16-bit PNG, an Adam7 PNG, a 4:4:0
+   JPEG, a JPEG in one scan per component and the progressive JPEG, and
+   ``put_text`` and the rasterizer at 160 px.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -1645,6 +1660,436 @@ def time_text_and_codecs(smi: str) -> None:
     finally:
         for eng in engines.values():
             eng.close()
+
+
+# -- phases 3v and 4v: the formats the port reads without Pillow (ROADMAP
+# Queue 1 item 8a). The files are made here with numpy, zlib and small
+# writers; their truth is Pillow's reading rule, computed in numpy
+# (tests/test_torch_image_formats.py holds these writers and truths, and
+# the constants below, against Pillow).
+
+# A 32x24 progressive 4:2:0 JPEG (quality 60, 677 bytes), written by Pillow
+# 12.1, and the SHA-256 prefix of Pillow's decode of it (BGR bytes).
+PROGRESSIVE_JPEG = bytes.fromhex(
+    "ffd8ffe000104a46494600010100000100010000ffdb0043000d090a0b0a080d0b0a0b0e0e0d0f13201513121213271c"
+    "1e17202e2931302e292d2c333a4a3e333646372c2d405741464c4e525352323e5a615a50604a51524fffdb0043010e0e"
+    "0e131113261515264f352d354f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f4f"
+    "4f4f4f4f4f4f4f4f4f4f4f4f4f4fffc20011080018002003012200021101031101ffc400190000020301000000000000"
+    "000000000000000402030501ffc40017010100030000000000000000000000000004010203ffda000c03010002100310"
+    "000001622973145ee6230d2ed44072b5e153ff00ffc400191000030101010000000000000000000000000102031112ff"
+    "da00080101000105029d915b216cbab7494e4cac98b27d59b25c94e4f5288727ffc4001b110002020301000000000000"
+    "00000000000003020412132123ffda0008010301013f0162d7acaaa5e4323e6548f4ffc4001911000203010000000000"
+    "00000000000000000301021104ffda0008010201013f014a69a3e28b589a469d91b7c3ffc40014100100000000000000"
+    "000000000000000030ffda0008010100063f024fffc400191000030101010000000000000000000000000111102071ff"
+    "da0008010100013f219b8c99976932fc26ccc111ffda000c0301000200030000001065d7c1ffc4001811000301010000"
+    "000000000000000000000001411131ffda0008010301013f10ae3fd89b17a3ffc4001c11010002010500000000000000"
+    "0000000001002111104161b1f0ffda0008010201013f10dfe67e36d1ee349c4b683b9fffc40019100003010101000000"
+    "0000000000000000000111213141ffda0008010100013f109ba899ea3d445855788978c978cf09918acc12f84be159e5"
+    "e22570ffd9")
+PROGRESSIVE_SHA = "cae0a84d03bffd15"
+# put_text's Latin-1 string (the soft hyphen among it) and the SHA-256
+# prefix, shape, dx and dy of the reference's mask at pixel sizes 4, 100, 160.
+LATIN1_TEXT = "Ça fait 3½°C, déjà vu? «Ærø» fi\xadne"
+LATIN1_MASKS = {4: ("29ebf4483f4795ac", (5, 128), 0, -4),
+                100: ("ad78e4349b87cb14", (117, 1792), 0, -93),
+                160: ("74bfd26d65da4734", (187, 2816), 0, -149)}
+# The metadata of the phase's PNG with an eXIf chunk (png_exif()), as the
+# reference reports it: Pillow's set order of the tags.
+PNG_EXIF_META = {"exif:36864": "b'0230'", "exif:274": "6", "exif:282": "72.0", "exif:271": "card"}
+FORMAT_TIMED = 5  # imreads per timing at 1080p
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _png_rows(s, depth) -> list:
+    """Samples (n, w, ch) → unfiltered PNG rows, filter byte 0 first."""
+    n, w, ch = s.shape
+    if depth >= 8:
+        dt = ">u2" if depth == 16 else np.uint8
+        return [b"\x00" + r.astype(dt).tobytes() for r in s.reshape(n, w * ch)]
+    per = 8 // depth
+    pad = np.zeros((n, -(-w // per) * per), np.uint8)
+    pad[:, :w] = s[..., 0]
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    packed = np.bitwise_or.reduce(pad.reshape(n, -1, per) << shifts, axis=2).astype(np.uint8)
+    return [b"\x00" + r.tobytes() for r in packed]
+
+
+def png_file(s, depth: int, ctype: int, interlace: bool = False, plte=None, extra=b"") -> bytes:
+    """A PNG of samples ``s`` (H, W, channels), plain or Adam7."""
+    import struct
+    import zlib
+
+    h, w = s.shape[:2]
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    rows = [r for x0, y0, dx, dy in passes if s[y0::dy, x0::dx].size
+            for r in _png_rows(s[y0::dy, x0::dx], depth)]
+    out = [b"\x89PNG\r\n\x1a\n",
+           _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))]
+    if plte is not None:
+        out.append(_png_chunk(b"PLTE", plte))
+    out += [extra, _png_chunk(b"IDAT", zlib.compress(b"".join(rows))), _png_chunk(b"IEND", b"")]
+    return b"".join(out)
+
+
+def png_truth(s, depth: int, ctype: int, plte=None) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of those samples, as BGR: sub-byte gray
+    scaled by 255 / (2^d - 1), 16-bit gray clipped at 255, the other
+    16-bit types' high byte, palette indices past the PLTE black."""
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte) // 3] = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+        rgb = pal[s[..., 0]]
+    else:
+        if depth == 16:
+            v = np.minimum(s, 255) if ctype == 0 else s >> 8
+        else:
+            v = s * (255 // ((1 << depth) - 1))
+        v = v.astype(np.uint8)
+        rgb = np.repeat(v[..., :1], 3, axis=2) if ctype in (0, 4) else v[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def exif_tiff(entries) -> bytes:
+    """Little-endian TIFF IFD0 of ``[(tag, type, count, value bytes)]``."""
+    import struct
+
+    body = struct.pack("<2sHLH", b"II", 42, 8, len(entries))
+    data_at = 8 + 2 + 12 * len(entries) + 4
+    tail = b""
+    for tag, typ, count, value in entries:
+        if len(value) <= 4:
+            body += struct.pack("<HHL", tag, typ, count) + value.ljust(4, b"\x00")
+        else:
+            body += struct.pack("<HHLL", tag, typ, count, data_at + len(tail))
+            tail += value
+    return body + struct.pack("<L", 0) + tail
+
+
+def png_exif(s) -> bytes:
+    """An 8-bit RGB PNG with an eXIf chunk: Make, Orientation, XResolution
+    and ExifVersion (PNG_EXIF_META)."""
+    import struct
+
+    ifd = exif_tiff([(0x010F, 2, 5, b"card\x00"), (0x0112, 3, 1, struct.pack("<H", 6)),
+                     (0x011A, 5, 1, struct.pack("<LL", 72, 1)), (36864, 7, 4, b"0230")])
+    return png_file(s, 8, 2, extra=_png_chunk(b"eXIf", ifd))
+
+
+def bmp_file(w: int, h: int, bits: int, body: bytes, comp: int = 0, palette: bytes = b"") -> bytes:
+    """A bottom-up BMP with a 40-byte header."""
+    import struct
+
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, bits, comp, len(body), 2835, 2835,
+                       len(palette) // 4, 0)
+    off = 14 + 40 + len(palette)
+    return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + info + palette + body
+
+
+def bmp_cases(w: int, h: int, rng) -> list:
+    """(name, bytes, BGR truth): 1- and 4-bit palettes, 16-bit 5-5-5, RLE8
+    and RLE4 (encoded runs, an absolute run, end of line and of bitmap)."""
+    out = []
+    for bits in (1, 4):
+        n = 1 << bits
+        pal = rng.integers(0, 256, (n, 4)).astype(np.uint8)
+        idx = rng.integers(0, n, (h, w, 1)).astype(np.uint8)
+        stride = ((w * bits + 31) >> 3) & ~3
+        rows = [r[1:].ljust(stride, b"\x00") for r in _png_rows(idx[::-1], bits)]
+        out.append((f"BMP {bits}-bit", bmp_file(w, h, bits, b"".join(rows), 0, pal.tobytes()),
+                    pal[idx[..., 0], :3]))
+    v = rng.integers(0, 1 << 15, (h, w)).astype(np.uint16)
+    stride = (w * 2 + 3) & ~3
+    rows = [r.astype("<u2").tobytes().ljust(stride, b"\x00") for r in v[::-1]]
+    rgb555 = np.stack([(v >> 10) & 31, (v >> 5) & 31, v & 31], -1).astype(np.uint32) * 255 // 31
+    out.append(("BMP 16-bit", bmp_file(w, h, 16, b"".join(rows)), rgb555[..., ::-1].astype(np.uint8)))
+    pal = rng.integers(0, 256, (16, 4)).astype(np.uint8)
+    for rle4 in (False, True):
+        idx = np.zeros((h, w), np.uint8)
+        body = bytearray()
+        for y in range(h - 1, -1, -1):  # bottom-up
+            x = 0
+            if w >= 4:  # an absolute run of four pixels
+                run = [(y + i) % 16 for i in range(4)]
+                idx[y, :4] = run
+                body += bytes([0, 4]) + (bytes([run[0] << 4 | run[1], run[2] << 4 | run[3]])
+                                         if rle4 else bytes(run))
+                x = 4
+            while x < w:
+                n, c = min(w - x, 9), (x * 7 + y) % 16
+                idx[y, x:x + n] = c if not rle4 else [c, (c + 1) % 16] * (n // 2) + [c] * (n % 2)
+                body += bytes([n, (c << 4 | (c + 1) % 16) if rle4 else c])
+                x += n
+            body += b"\x00\x00"
+        body += b"\x00\x01"
+        out.append((f"BMP RLE{4 if rle4 else 8}", bmp_file(w, h, 4 if rle4 else 8, bytes(body),
+                                                             2 if rle4 else 1, pal.tobytes()),
+                    pal[idx, :3]))
+    return out
+
+
+def pnm_cases(w: int, h: int, rng) -> list:
+    """(name, bytes, BGR truth): P1-P6 at maxvals 1, 255, 1000 and 65535
+    (gray above 255 clips, colour scales), and a PFM."""
+    out = []
+    bits = rng.integers(0, 2, (h, w))
+    gray = ((1 - bits) * 255).astype(np.uint8)
+    head = b"# made by chip_smoke\n%d %d\n" % (w, h)
+    out.append(("P1", b"P1\n" + head + b"\n".join(b" ".join(b"%d" % x for x in r) for r in bits),
+                gray))
+    out.append(("P4", b"P4\n" + head + np.packbits(bits.astype(np.uint8), axis=1).tobytes(), gray))
+    for magic, ch in ((b"P2", 1), (b"P3", 3), (b"P5", 1), (b"P6", 3)):
+        for maxval in (1, 255, 1000, 65535):
+            v = rng.integers(0, maxval + 1, (h, w, ch)).astype(np.int64)
+            if magic in (b"P2", b"P3"):
+                body = b"\n".join(b" ".join(b"%d" % x for x in r) for r in v.reshape(h, -1))
+            else:
+                body = v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+            out_max = 65535 if ch == 1 and maxval > 255 else 255
+            t = v if (maxval == 255 or (magic == b"P5" and maxval == 65535)) else \
+                np.rint(v / maxval * out_max).astype(np.int64)
+            t = np.minimum(t, 255).astype(np.uint8)
+            out.append((f"{magic.decode()} maxval {maxval}", magic + b"\n" + head + b"%d\n" % maxval
+                        + body, t.repeat(3, axis=2) if ch == 1 else t[..., ::-1]))
+    f = rng.normal(120, 100, (h, w)).astype(np.float32)
+    t = np.clip(np.trunc(f[::-1].astype(np.float64)), 0, 255).astype(np.uint8)
+    out.append(("PFM", b"Pf\n%d %d\n-1.0\n" % (w, h) + f.astype("<f4").tobytes(), t))
+    return [(n, d, t if t.ndim == 3 else np.repeat(t[..., None], 3, axis=2)) for n, d, t in out]
+
+
+def jpeg_uniform(w: int, h: int, hs, vs, dc) -> tuple:
+    """A JPEG of one colour per component (DC ``dc``, quant table all 8, so
+    each sample is 128 + dc) at sampling factors hs x vs, and its BGR truth
+    through JFIF's YCbCr → RGB in libjpeg's integer tables."""
+    from rustcv_tpu_torch import native
+
+    mx, my = -(-w // (8 * max(hs))), -(-h // (8 * max(vs)))
+    q = np.full(64, 8, np.uint16)
+    coeffs = []
+    for c in range(3):
+        blocks = np.zeros((my * vs[c], mx * hs[c], 64), np.int16)
+        blocks[..., 0] = dc[c]
+        coeffs.append(blocks)
+    data = native.jpeg_entropy_encode(coeffs, [q, q, q], w, h, list(hs), list(vs))
+    y, cb, cr = (128 + d for d in dc)
+    fix = lambda x: int(x * 65536 + 0.5)  # noqa: E731
+    r = y + ((fix(1.402) * (cr - 128) + 32768) >> 16)
+    g = y + ((-fix(0.34414) * (cb - 128) + 32768 - fix(0.71414) * (cr - 128)) >> 16)
+    b = y + ((fix(1.772) * (cb - 128) + 32768) >> 16)
+    bgr = np.clip(np.array([b, g, r]), 0, 255).astype(np.uint8)
+    return data, np.broadcast_to(bgr, (h, w, 3)).copy()
+
+
+def jpeg_textured(w: int, h: int, hs, vs, seed: int) -> bytes:
+    """A JPEG of smooth seeded planes at sampling factors hs x vs, FDCT'd
+    and quantized in numpy, entropy-coded by the port's coder."""
+    from rustcv_tpu_torch import native
+
+    dct = np.array([[np.sqrt((1 if k == 0 else 2) / 8) * np.cos((2 * n + 1) * k * np.pi / 16)
+                     for n in range(8)] for k in range(8)])
+    mx, my = -(-w // (8 * max(hs))), -(-h // (8 * max(vs)))
+    rng = np.random.default_rng(seed)
+    qs = [np.full(64, 4, np.uint16), np.full(64, 6, np.uint16)]
+    coeffs = []
+    for c in range(3):
+        bw, bh = mx * hs[c], my * vs[c]
+        yy, xx = np.mgrid[0:bh * 8, 0:bw * 8]
+        plane = 128 + 60 * np.sin(xx / (9.0 + c)) * np.cos(yy / (7.0 + c)) + rng.normal(0, 6, yy.shape)
+        blocks = np.clip(plane, 0, 255).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128
+        d = np.einsum("ij,abjk,lk->abil", dct, blocks, dct)
+        coeffs.append(np.round(d / qs[min(c, 1)].reshape(8, 8)).astype(np.int16).reshape(bh, bw, 64))
+    return native.jpeg_entropy_encode(coeffs, [qs[0], qs[1], qs[1]], w, h, list(hs), list(vs))
+
+
+def jpeg_one_scan_per_component(data: bytes, order=(0, 1, 2)) -> bytes:
+    """A baseline stream re-cut into one non-interleaved scan per component,
+    in ``order`` (each the port's coder's gray stream of that component's
+    coefficients over its own block extent)."""
+    import struct
+
+    from rustcv_tpu_torch import native
+
+    def segments(d):
+        p, out = 2, []
+        while True:
+            m, n = d[p + 1], struct.unpack(">H", d[p + 2:p + 4])[0]
+            out.append((m, d[p + 4:p + 2 + n]))
+            p += 2 + n
+            if m == 0xDA:
+                return out, d[p:]
+
+    def seg(m, body):
+        return b"\xff" + bytes([m]) + struct.pack(">H", len(body) + 2) + body
+
+    info, coefs, qts = native.jpeg_entropy_decode(data)
+    w, h, hs, vs = info["width"], info["height"], info["h_samp"], info["v_samp"]
+    segs, _ = segments(data)
+    sof = [b for m, b in segs if m == 0xC0][0]
+    out = [b"\xff\xd8"] + [seg(m, b) for m, b in segs if m not in (0xDA, 0xC4)]
+    for i, c in enumerate(order):
+        cw, ch = -(-w * hs[c] // max(hs)), -(-h * vs[c] // max(vs))
+        bx, by = -(-cw // 8), -(-ch // 8)
+        gray = native.jpeg_entropy_encode([coefs[c][:by, :bx].reshape(by, bx, 64)], [qts[c]],
+                                          cw, ch, [1], [1])
+        gsegs, entropy = segments(gray)
+        if i == 0:
+            out += [seg(m, b) for m, b in gsegs if m == 0xC4]
+        out += [seg(0xDA, bytes([1, sof[6 + 3 * c], 0x00, 0, 63, 0])), entropy[:-2]]
+    return b"".join(out + [b"\xff\xd9"])
+
+
+def format_cases(w: int, h: int, seed: int = 21) -> list:
+    """(name, bytes, BGR truth or None) of phase 3v at w x h: PNG at every
+    depth and colour type, plain and Adam7, and with an eXIf chunk; P1-P6
+    and PFM; BMP 1-, 4- and 16-bit, RLE8 and RLE4; 4:4:0 and 4:1:1 JPEG of
+    one colour (truth) and textured (held to the CPU read), and a 4:2:0
+    stream cut into one scan per component."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ctype, depths in ((0, (1, 2, 4, 8, 16)), (2, (8, 16)), (3, (1, 2, 4, 8)), (4, (8, 16)),
+                          (6, (8, 16))):
+        for depth in depths:
+            for interlace in (False, True):
+                s = rng.integers(0, 1 << depth, (h, w, {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]))
+                plte = rng.integers(0, 256, 3 * max(1, (1 << depth) // 2)).astype(np.uint8).tobytes() \
+                    if ctype == 3 else None
+                out.append((f"PNG type {ctype} {depth}-bit{' Adam7' if interlace else ''}",
+                            png_file(s, depth, ctype, interlace, plte), png_truth(s, depth, ctype, plte)))
+    s = rng.integers(0, 256, (h, w, 3))
+    out.append(("PNG eXIf", png_exif(s), png_truth(s, 8, 2)))
+    out += pnm_cases(w, h, rng) + bmp_cases(w, h, rng)
+    for name, hs, vs in (("4:4:0", (1, 1, 1), (2, 1, 1)), ("4:1:1", (4, 1, 1), (1, 1, 1))):
+        data, truth = jpeg_uniform(w, h, hs, vs, (40, -30, 25))
+        out.append((f"JPEG {name} one colour", data, truth))
+        out.append((f"JPEG {name}", jpeg_textured(w, h, hs, vs, seed), None))
+    out.append(("JPEG 4:2:0 one scan per component",
+                jpeg_one_scan_per_component(jpeg_textured(w, h, (2, 1, 1), (2, 1, 1), seed)), None))
+    return out
+
+
+def run_formats_8a(dev: str = "cuda", w: int = 641, h: int = 361) -> dict:
+    """Phase 3v: the formats of item 8a on the card's machine, with no
+    Pillow. ``decode_mjpeg_host_rgb`` of the smoke's MJPEG frames is the
+    channel swap of ``decode_mjpeg_host``; every file of
+    :func:`format_cases` read by ``imread`` onto ``dev`` equals the CPU
+    read and its numpy truth (where it has one); the PNG eXIf's metadata
+    is the reference's dict; the progressive JPEG constant decodes to
+    Pillow's hash, on ``dev`` and on the CPU; ``put_text`` of a Latin-1
+    string at 4, 100 and 160 px on a ``dev`` Mat equals the same on a CPU
+    Mat, its masks the reference's hashes. Returns the phase's launches
+    (none expected)."""
+    import hashlib
+    import tempfile
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.capture.simulation import synth_raw
+    from rustcv_tpu_torch.core import PixelFormat
+    from rustcv_tpu_torch.imgcodecs import exif
+    from rustcv_tpu_torch.ops import decode, kernels, text
+    from rustcv_tpu_torch.prelude import Mat
+
+    kernels.reset_launch_counts()
+    for seq in range(3):
+        frame = synth_raw(W, H, PixelFormat.MJPEG, seq)
+        expect(np.array_equal(decode.decode_mjpeg_host_rgb(frame),
+                              decode.decode_mjpeg_host(frame)[..., ::-1]),
+               f"decode_mjpeg_host_rgb of MJPEG frame {seq} is not the host decode swapped")
+    cases = format_cases(w, h)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, data, truth) in enumerate(cases + [("progressive JPEG", PROGRESSIVE_JPEG, None)]):
+            path = os.path.join(tmp, f"{i}.img")
+            with open(path, "wb") as f:
+                f.write(data)
+            on_dev = imgcodecs.imread(path, device=dev)
+            cpu = imgcodecs.imread(path, device="cpu").to_numpy()
+            expect(on_dev.device().device.type == dev, f"{name}: imread landed on {on_dev.device().device}")
+            expect(np.array_equal(on_dev.to_numpy(), cpu), f"{name}: the {dev} read differs from the CPU's")
+            if truth is not None:
+                expect(cpu.shape == truth.shape and np.array_equal(cpu, truth),
+                       f"{name}: the read differs from its numpy truth")
+            if name == "progressive JPEG":
+                digest = hashlib.sha256(np.ascontiguousarray(cpu).tobytes()).hexdigest()[:16]
+                expect(digest == PROGRESSIVE_SHA, f"progressive JPEG: {digest} != {PROGRESSIVE_SHA}")
+            if name == "PNG eXIf":
+                meta = imgcodecs.imread_with_metadata(path, device=dev)[1]
+                expect(meta == PNG_EXIF_META and list(meta) == list(PNG_EXIF_META),
+                       f"PNG eXIf metadata {meta}")
+                expect(exif.metadata(data) == meta, "exif.metadata differs from imread_with_metadata")
+    print(f"formats: {len(cases) + 1} files ({', '.join(n for n, _, _ in cases)}, a "
+          f"{len(PROGRESSIVE_JPEG)}-byte progressive JPEG) read onto {dev} at {w}x{h} equal to the "
+          f"CPU read, {sum(t is not None for _, _, t in cases)} to their numpy truth; the "
+          "progressive JPEG to Pillow's hash; the PNG eXIf's metadata the reference's", flush=True)
+
+    base = np.random.default_rng(5).integers(0, 256, (H, W, 3), np.uint8)
+    on_dev, on_cpu = Mat.from_array(base.copy(), device=dev), Mat.from_array(base.copy(), device="cpu")
+    on_dev.device()
+    for i, px in enumerate(sorted(LATIN1_MASKS)):
+        mask, dx, dy = text.rasterize(LATIN1_TEXT, px / 20)
+        got = (hashlib.sha256(mask.tobytes()).hexdigest()[:16], mask.shape, dx, dy)
+        expect(got == LATIN1_MASKS[px], f"Latin-1 mask at {px} px: {got} != {LATIN1_MASKS[px]}")
+        for mat in (on_dev, on_cpu):
+            ip.put_text(mat, LATIN1_TEXT, ip.Point(10 + 40 * i, 60 + 300 * i), px / 20,
+                        ip.Scalar(0, 255 - 60 * i, 255))
+    expect(on_dev.is_on_device and np.array_equal(on_dev.to_numpy(), on_cpu.to_numpy())
+           and not np.array_equal(on_cpu.to_numpy(), base),
+           f"put_text of Latin-1 on a {dev} Mat differs from the CPU Mat")
+    print(f"text: put_text of {LATIN1_TEXT!r} at {sorted(LATIN1_MASKS)} px on a {W}x{H} {dev} Mat "
+          "identical to the CPU Mat, masks equal to the reference's hashes", flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3v launched kernels: {counts}")
+    return counts
+
+
+def time_formats_8a(smi: str, dev: str = "cuda") -> None:
+    """Phase 4v: ms per ``imread`` onto the card at 1920x1080 (CUDA events
+    over FORMAT_TIMED reads, the file in the page cache) of a 16-bit RGB
+    PNG, an 8-bit RGB Adam7 PNG, a 4:4:0 JPEG, a 4:2:0 JPEG in one scan per
+    component and the 32x24 progressive JPEG; ``put_text`` at 160 px on a
+    1080p CUDA Mat (the mask cached) and the rasterizer at 160 px (host
+    clock, uncached)."""
+    import tempfile
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch import imgproc as ip
+    from rustcv_tpu_torch.ops import text
+    from rustcv_tpu_torch.prelude import Mat
+
+    tag = f"[{smi}]"
+    yy, xx = np.mgrid[0:H, 0:W]
+    smooth = np.stack([xx * 34 + yy * 3, yy * 60, (xx ^ yy) * 257], -1) % 65536
+    files = {
+        "16-bit RGB PNG": png_file(smooth, 16, 2),
+        "Adam7 8-bit RGB PNG": png_file(smooth >> 8, 8, 2, interlace=True),
+        "4:4:0 JPEG": jpeg_textured(W, H, (1, 1, 1), (2, 1, 1), 3),
+        "4:2:0 JPEG, one scan per component": jpeg_one_scan_per_component(
+            jpeg_textured(W, H, (2, 1, 1), (2, 1, 1), 3)),
+        "32x24 progressive JPEG": PROGRESSIVE_JPEG,
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in files.items():
+            path = os.path.join(tmp, "x.img")
+            with open(path, "wb") as f:
+                f.write(data)
+            ms = cuda_ms(lambda: imgcodecs.imread(path, device=dev), FORMAT_TIMED)
+            print(f"{tag} imread of a {name} ({len(data)} bytes) onto the card: {ms:.4f} ms", flush=True)
+    mat = Mat.from_array(np.random.default_rng(3).integers(0, 256, (H, W, 3), np.uint8), device=dev)
+    mat.device()
+    ms = cuda_ms(lambda: ip.put_text(mat, LATIN1_TEXT, ip.Point(10, 200), 8.0,
+                                     ip.Scalar(0, 255, 255)), 20)
+    print(f"{tag} put_text at 160 px on a {W}x{H} {dev} Mat: {ms:.4f} ms/call", flush=True)
+    t0 = time.perf_counter()
+    for i in range(5):
+        text.rasterize.__wrapped__(f"{LATIN1_TEXT} {i}", 8.0)
+    print(f"{tag} text rasterizer at 160 px (host): {(time.perf_counter() - t0) * 1e3 / 5:.4f} "
+          "ms/string", flush=True)
 
 
 def time_new_paths(smi: str) -> None:
@@ -5580,6 +6025,8 @@ def main() -> int:
         print(f"phase 3, text and host codecs: launches apart from the kernels line "
               f"{ {k: v for k, v in text_launches.items() if v} }", flush=True)
         done("phase 3, text and host codecs")
+        phase("phase 3v, the formats of item 8a", run_formats_8a)
+        done("phase 3v, the formats of item 8a")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -5589,6 +6036,7 @@ def main() -> int:
                           ("formats, chained configs 1 and 4, configs 3 and 5",
                            lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi)),
                           ("text and host codecs", lambda: time_text_and_codecs(smi)),
+                          ("the formats of item 8a (4v)", lambda: time_formats_8a(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

@@ -6,9 +6,12 @@ reference's, but for the facade calls it makes (``connectedComponents``,
 device.
 
 The reference reads and writes multi-page, animated and metadata image
-files with Pillow; the port does not yet (ROADMAP Queue 1 item 8): those
-eight functions raise ``not_ported``, and the three that answer False for
-a file or buffer that is no image keep that answer.
+files with Pillow. The port reads and writes the metadata of PNG, JPEG,
+BMP and PNM with its own codecs (``imdecodeWithMetadata``,
+``imencodeWithMetadata``); multi-page and animated files wait on ROADMAP
+Queue 1 items 8b and 8c: those six functions raise ``not_ported``, and the
+three that answer False for a file or buffer that is no image keep that
+answer.
 Held call for call against the reference in
 ``tests/test_torch_cv2_later_calls.py``.
 """
@@ -370,12 +373,59 @@ def imdecodemulti(buf, flags=1, mats=None, range=None):
 
 def imdecodeWithMetadata(buf, metadataTypes=None, flags=1, img=None,
                          metadatas=None):
-    raise _pillow_bound("imdecodeWithMetadata")
+    """(BGR image, keys, values) of Pillow's ``info`` as the reference
+    shows it (str, int and float values, as str; no EXIF)."""
+    from ..core.errors import CameraError
+    from ..imgcodecs import _decode_host
+    from ..imgcodecs import exif as _exif
+
+    data = _a(buf, np.uint8).tobytes()
+    try:
+        meta = _exif.info_metadata(data)
+        bgr = _decode_host(data)
+    except ValueError as e:
+        raise CameraError(f"imdecodeWithMetadata: cannot decode buffer: {e}") from e
+    return bgr, list(meta.keys()), list(meta.values())
+
+
+# imencodeWithMetadata's formats: the reference's Pillow format names
+_ENCODE_FORMATS = {"png": "png", "jpg": "jpeg", "jpeg": "jpeg", "bmp": "bmp", "ppm": "pnm"}
 
 
 def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
                          params=None):
-    raise _pillow_bound("imencodeWithMetadata")
+    """(True, bytes) of ``img`` (BGR or gray) as ``ext``: a PNG with
+    ``metadata`` as text chunks (a dict, or values under
+    ``metadataTypes``), other formats through the port's writers (a JPEG
+    at quality 75, the reference's Pillow default)."""
+    import torch
+
+    from ..core.errors import CameraError
+    from ..imgcodecs import host as _host
+    from ..ops.jpeg_encode import encode_jpeg
+
+    a = _a(img)
+    e = str(ext).lower().lstrip(".")
+    if e in _host.NOT_PORTED_EXTENSIONS:
+        raise _pillow_bound("imencodeWithMetadata of " + _host.NOT_PORTED_EXTENSIONS[e])
+    fmt = _ENCODE_FORMATS.get(e)
+    if fmt is None:
+        raise CameraError(f"imencodeWithMetadata: unknown image format {ext!r}")
+    if a.dtype != np.uint8:  # Pillow writes 16-bit and float images; the port's writers 8-bit
+        raise _pillow_bound(f"imencodeWithMetadata of {a.dtype} images")
+    rgb = a[..., ::-1] if a.ndim == 3 else a
+    try:
+        if fmt == "png" and metadata:
+            md = metadata if isinstance(metadata, dict) else \
+                dict(zip(map(str, metadataTypes or []), metadata))
+            data = _host.write_png(rgb, {str(k): str(v) for k, v in md.items()})
+        elif fmt == "jpeg":
+            data = encode_jpeg(torch.from_numpy(np.ascontiguousarray(a, np.uint8)), quality=75)
+        else:
+            data = _host.ENCODERS[fmt](rgb)
+    except _host.CodecError as err:
+        raise CameraError(f"imencodeWithMetadata: {err}") from err
+    return True, np.frombuffer(data, np.uint8)
 
 
 # ------------------------------------------------------------ animation IO

@@ -3,12 +3,14 @@
 
 Two backends, the reference's names:
 
-* ``"host"``: PNG, BMP and PPM/PGM through :mod:`.host` (no Pillow), JPEG
-  decoded by the port's C++ host decoder (:func:`..native.jpeg_decode_bgr`,
-  libjpeg-turbo's default decode: the same pixels as the reference's
-  Pillow) and encoded by the port's encoder on a CPU tensor plus its C++
-  Huffman coder (other bytes than Pillow's, within the encoder's tolerance
-  once decoded).
+* ``"host"``: PNG (every depth, Adam7), BMP (every header, depth and
+  compression Pillow reads) and PNM (P1-P6 at every maxval, PFM) through
+  :mod:`.host` (no Pillow), JPEG (baseline, multi-scan and progressive, any
+  integral sampling) decoded by the port's C++ host decoder
+  (:func:`..native.jpeg_decode_bgr`, libjpeg-turbo's default decode: the
+  same pixels as the reference's Pillow) and encoded by the port's encoder
+  on a CPU tensor plus its C++ Huffman coder (other bytes than Pillow's,
+  within the encoder's tolerance once decoded).
 * ``"tpu"``: JPEG only, the port's device codec: :mod:`..ops.jpeg_encode`
   (colour, subsampling, FDCT and quantization on the Mat's device, Huffman
   coding in the C++ coder) and :mod:`..ops.jpeg_tpu` (entropy decode on the
@@ -18,8 +20,12 @@ By default (no backend named) a JPEG encodes where the Mat is: on its
 device for a device Mat, on the CPU for a host Mat; every other format
 encodes on the host, and every decode is the host's, libjpeg's exact
 pixels. Whatever decodes, the Mat lands on ``device`` ("cuda" unless the
-caller names another). TIFF, GIF and WebP, ``imreadmulti``,
-``imwritemulti``, ``imcount`` and EXIF raise ``not_ported``.
+caller names another). ``imread_with_metadata`` gives the reference's
+dict (Pillow's ``info`` and the EXIF tags, :mod:`.exif`) for all four
+formats. TIFF, GIF and WebP, ``imreadmulti``, ``imwritemulti`` and
+``imcount`` raise ``not_ported``, as do the JPEG forms the host decoder
+does not read yet (CMYK/YCCK, lossless, arithmetic-coded, and progressive
+streams left unrefined).
 """
 
 from __future__ import annotations
@@ -170,17 +176,18 @@ def imwrite(path: str, mat: Mat) -> bool:
 
 def imread_with_metadata(path: str, device="cuda"):
     """Metadata-aware read (OpenCV ``imreadWithMetadata`` role): → (Mat,
-    dict) with a PNG's text chunks. Other formats' metadata and EXIF are
-    not ported."""
+    dict), the dict the reference reports: Pillow's ``info`` (str, int and
+    float values, as str), then ``exif:<tag>`` per EXIF tag
+    (:func:`.exif.metadata`)."""
+    from . import exif
+
     data = _read(path, "imread_with_metadata")
     try:
-        fmt = _host.sniff(data)
-        if fmt != "png":
-            raise not_ported(f"metadata of {fmt.upper()} files", item=_host.LEFTOVERS)
-        img, meta = _host.read_png(data)
+        meta = exif.metadata(data)
+        bgr = _decode_host(data)
     except ValueError as e:
         raise CameraError(f"imread_with_metadata: cannot decode {path}: {e}") from e
-    return _on_device(_host.to_bgr(img), device), meta
+    return _on_device(bgr, device), meta
 
 
 def imwrite_with_metadata(path: str, mat: Mat, metadata: dict) -> bool:

@@ -1,30 +1,47 @@
-"""Host image codecs without Pillow: PNG, BMP and PPM/PGM, for the
-``"host"`` backend of :mod:`rustcv_tpu_torch.imgcodecs` and the highgui
-PNG dump.
+"""Host image codecs without Pillow: PNG, BMP and PNM (PBM, PGM, PPM,
+PFM), for the ``"host"`` backend of :mod:`rustcv_tpu_torch.imgcodecs` and
+the highgui PNG dump.
 
-Images are numpy arrays in the file's channel order: (H, W) gray, (H, W,
-3) RGB or (H, W, 4) RGBA; the facade turns them into BGR Mats as the
-reference's ``Image.convert("RGB")`` does (gray repeated, alpha dropped,
-palettes looked up).
+A read gives what the reference gets from Pillow 12's ``Image.open(...)
+.convert("RGB")``, byte for byte, as a numpy array in the file's channel
+order: (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA, already in 8 bits;
+the facade turns it into a BGR Mat (gray repeated, alpha dropped).
+Pillow's ``info`` for the file (the metadata the reference reports) comes
+from :func:`png_info`, :func:`bmp_info` and :func:`pnm_info`.
 
-* PNG: read 8-bit gray, gray+alpha, RGB, RGBA and palette images,
-  non-interlaced, every filter type (``native.png_unfilter``), with the
-  ``tEXt``/``zTXt``/``iTXt`` text; write 8-bit gray, RGB and RGBA with
-  filter None and the standard library's ``zlib``, text as ``tEXt`` (or
-  ``iTXt`` when it is not Latin-1). Chunk CRCs are checked.
-* BMP: read 8-bit palette, 24-bit and 32-bit (``BI_RGB`` or
-  ``BI_BITFIELDS``), bottom-up or top-down; write 8-bit gray (a gray
-  palette), 24-bit and 32-bit, as Pillow writes them.
-* PPM/PGM: read and write binary ``P5``/``P6`` with maxval up to 255.
+* PNG: every bit depth and colour type the format allows, plain or Adam7
+  interlaced, every filter type (``native.png_unfilter``, per pass), chunk
+  CRCs checked before the image data as Pillow checks them. Pillow's
+  conversions: 1-, 2- and 4-bit gray scale by 255 / (2^d - 1); 16-bit gray
+  is Pillow's ``I;16`` and clips at 255; 16-bit RGB, RGBA and gray+alpha
+  keep the high byte; palette indices past the PLTE are black. Writes
+  8-bit gray, RGB and RGBA with filter None and the standard library's
+  ``zlib``, text as ``tEXt`` (or ``iTXt`` when it is not Latin-1).
+* BMP: the OS/2 12-byte core header (3-byte palette entries) and the 40,
+  52, 56, 64, 108 and 124-byte headers; 1-, 4- and 8-bit palettes (gray
+  palettes as Pillow's ``1`` and ``L`` modes), 16-bit 5-5-5, 24 and 32-bit,
+  the bit-field layouts Pillow accepts (16-bit 5-6-5 and 5-5-5, 24-bit,
+  eight 32-bit ones), RLE8 and RLE4 as Pillow's decoder reads them
+  (absolute runs, end of line, delta, end of bitmap); bottom-up or
+  top-down. Writes 8-bit gray (a gray palette), 24-bit and 32-bit, as
+  Pillow writes them.
+* PNM: ``P1``-``P3`` (ASCII) and ``P4``-``P6`` (binary), comments in the
+  header and in ASCII samples as Pillow takes them, every maxval 1-65535
+  with Pillow's split: gray above 255 is its ``I`` mode and clips, colour
+  scales; a sample above maxval in an ASCII file raises. PFM ``Pf`` (gray
+  float32, rows bottom-up, little-endian for a negative scale), clipped
+  and truncated to 0-255 as Pillow converts ``F``. Writes binary ``P5`` and
+  ``P6``.
 
-The bytes may differ from Pillow's (zlib level, filters, chunks); the
-pixels each side reads from the other's files are the same. 16-bit
-samples, interlaced PNGs, other BMP depths and compressions, ASCII PNM,
-EXIF, and TIFF, GIF and WebP raise ``not_ported``.
+What Pillow refuses raises :class:`CodecError` (the facade's
+``CameraError``); TIFF, GIF, WebP, animated PNG and Pillow's own PNM
+extensions raise ``not_ported``.
 """
 
 from __future__ import annotations
 
+import io
+import math
 import re
 import struct
 import zlib
@@ -36,12 +53,17 @@ from ..core.errors import not_ported
 
 LEFTOVERS = "8"  # the ROADMAP Queue 1 item of what stays not ported
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels
+# PNG colour type -> channels, and the bit depths the format allows for it
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))  # (x0, y0, dx, dy) of each pass
+_TEXT_LIMIT = 1 << 20  # Pillow's MAX_TEXT_CHUNK: the largest inflated text chunk
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w")
 
 
 class CodecError(ValueError):
-    """A corrupt or truncated file."""
+    """A corrupt or truncated file, or one Pillow refuses."""
 
 
 def sniff(data: bytes) -> str:
@@ -52,7 +74,7 @@ def sniff(data: bytes) -> str:
         return "png"
     if head.startswith(b"BM"):
         return "bmp"
-    if head[:1] == b"P" and head[1:2] in b"123456":
+    if head[:1] == b"P" and head[1:2] and head[1] in b"0123456fy":  # Pillow's PPM test
         return "pnm"
     if head.startswith(b"\xff\xd8"):
         return "jpeg"
@@ -68,73 +90,236 @@ def sniff(data: bytes) -> str:
 
 
 def _chunks(data: bytes):
+    """(type, body, before the first IDAT) of each chunk up to IEND."""
     if not data.startswith(_PNG_SIG):
         raise CodecError("not a PNG file")
-    p = len(_PNG_SIG)
+    p, before = len(_PNG_SIG), True
     while p + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[p:p + 8])
+        if not _CHUNK_TYPE.match(kind):
+            raise CodecError(f"broken PNG file (chunk {kind!r})")
         body = data[p + 8:p + 8 + n]
         crc = data[p + 8 + n:p + 12 + n]
         if len(body) != n or len(crc) != 4:
             raise CodecError("truncated PNG chunk")
-        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+        if kind == b"IDAT":
+            before = False
+        # Pillow checks the CRCs of the chunks it reads before the image data
+        if before and zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
             raise CodecError(f"bad CRC in PNG chunk {kind!r}")
-        yield kind, body
+        yield kind, body, before
         if kind == b"IEND":
             return
         p += 12 + n
     raise CodecError("PNG without IEND")
 
 
-def _text_chunk(kind: bytes, body: bytes) -> Tuple[str, str]:
-    key, _, rest = body.partition(b"\x00")
-    if kind == b"tEXt":
-        return key.decode("latin-1"), rest.decode("latin-1")
+def _inflate_text(blob: bytes) -> bytes:
+    d = zlib.decompressobj()
+    out = d.decompress(blob, _TEXT_LIMIT)
+    if d.unconsumed_tail:
+        raise CodecError("decompressed PNG text chunk too large")
+    return out
+
+
+def _text_chunk(kind: bytes, body: bytes, info: dict) -> None:
+    """A tEXt, zTXt or iTXt chunk into ``info`` as Pillow's PNG reader puts
+    it there (iTXt's XMP also as bytes under ``"xmp"``)."""
+    if kind == b"iTXt":
+        key, sep, r = body.partition(b"\x00")
+        if not sep or len(r) < 2:
+            return
+        flag, method, r = r[0], r[1], r[2:]
+        parts = r.split(b"\x00", 2)
+        if len(parts) < 3:
+            return
+        lang, tkey, value = parts
+        if flag:
+            if method:
+                return
+            try:
+                value = _inflate_text(value)
+            except zlib.error:
+                return
+        if key == b"XML:com.adobe.xmp":
+            info["xmp"] = value
+        try:
+            k, _l, _t, v = (key.decode("latin-1"), lang.decode("utf-8"), tkey.decode("utf-8"),
+                            value.decode("utf-8"))
+        except UnicodeError:
+            return
+        info[k] = v
+        return
+    key, _, value = body.partition(b"\x00")
     if kind == b"zTXt":
-        return key.decode("latin-1"), zlib.decompress(rest[1:]).decode("latin-1")
-    compressed, rest = rest[0], rest[2:]  # iTXt: flag, method, language, translated key
-    _lang, _, rest = rest.partition(b"\x00")
-    _tkey, _, text = rest.partition(b"\x00")
-    return key.decode("latin-1"), (zlib.decompress(text) if compressed else text).decode("utf-8")
+        if value and value[0] != 0:
+            raise CodecError(f"unknown compression method {value[0]} in zTXt chunk")
+        try:
+            value = _inflate_text(value[1:])
+        except zlib.error:
+            value = b""
+    if key:
+        text = value.decode("latin-1", "replace")
+        info[key.decode("latin-1")] = value if kind == b"tEXt" and key == b"exif" else text
+
+
+class _Png:
+    """One parse of a PNG: header, palette, transparency, image data, and
+    Pillow's ``info`` before the image data (``info``, what ``Image.open``
+    gives) and after it (``late``, what ``load()`` adds)."""
+
+    def __init__(self, data: bytes):
+        try:
+            self._parse(bytes(data))
+        except (struct.error, IndexError) as e:  # a chunk too short for its fields
+            raise CodecError(f"broken PNG chunk: {e}") from e
+
+    def _parse(self, data: bytes) -> None:
+        self.header = self.palette = None
+        self.idat, self.info, self.late = [], {}, {}
+        i16, i32 = (lambda b: struct.unpack(">H", b[:2])[0]), (lambda b: struct.unpack(">I", b[:4])[0])
+        for kind, body, before in _chunks(data):
+            info = self.info if before else self.late
+            if kind == b"IHDR":
+                if len(body) < 13:
+                    raise CodecError("truncated IHDR chunk")
+                self.header = struct.unpack(">IIBBBBB", body[:13])
+                if body[12]:
+                    info["interlace"] = 1
+                if body[11]:
+                    raise CodecError("unknown filter category")
+            elif kind == b"IDAT":
+                self.idat.append(body)
+            elif kind in (b"acTL", b"fcTL", b"fdAT"):
+                raise not_ported("animated PNG (APNG)", item=LEFTOVERS)
+            elif self.header is None or kind == b"IEND":
+                continue
+            elif kind == b"PLTE":
+                if before and self.header[3] == 3:
+                    self.palette = body
+            elif kind == b"tRNS":
+                depth, ctype = self.header[2:4]
+                if ctype == 3:
+                    if re.match(rb"^\xff*\x00\xff*$", body):
+                        if body.find(b"\x00") >= 0:
+                            info["transparency"] = body.find(b"\x00")
+                    else:
+                        info["transparency"] = body
+                elif ctype == 0:
+                    info["transparency"] = (255 if i16(body) else 0) if depth == 1 else i16(body)
+                elif ctype == 2 and depth == 8:
+                    info["transparency"] = (i16(body), i16(body[2:]), i16(body[4:]))
+            elif kind == b"gAMA":
+                info["gamma"] = i32(body) / 100000.0
+            elif kind == b"sRGB":
+                if not body:
+                    raise CodecError("truncated sRGB chunk")
+                info["srgb"] = body[0]
+            elif kind == b"cHRM":
+                info["chromaticity"] = tuple(v / 100000.0 for v in
+                                             struct.unpack(f">{len(body) // 4}I", body[:len(body) // 4 * 4]))
+            elif kind == b"pHYs":
+                if len(body) < 9:
+                    raise CodecError("truncated pHYs chunk")
+                px, py = struct.unpack(">II", body[:8])
+                if body[8] == 1:
+                    info["dpi"] = (px * 0.0254, py * 0.0254)
+                elif body[8] == 0:
+                    info["aspect"] = (px, py)
+            elif kind == b"iCCP":
+                i = body.find(b"\x00")
+                if i + 1 >= len(body) or body[i + 1] != 0:
+                    raise CodecError("unknown compression method in iCCP chunk")
+                info["icc_profile"] = body[i + 2:]  # bytes: left out of the metadata either way
+            elif kind in (b"tEXt", b"zTXt", b"iTXt"):
+                _text_chunk(kind, body, info)
+            elif kind == b"eXIf":
+                info["exif"] = b"Exif\x00\x00" + body
+        if self.header is None:
+            raise CodecError("PNG without IHDR")
+        w, h, depth, ctype = self.header[:4]
+        if ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype] or w == 0 or h == 0:
+            raise CodecError(f"bad PNG header: {w}x{h}, {depth}-bit colour type {ctype}")
+        if not self.idat:
+            raise CodecError("PNG without image data")
+
+    def samples(self) -> np.ndarray:
+        """The samples, (H, W, channels), u8 or u16 (16-bit)."""
+        from .. import native
+
+        w, h, depth, ctype, _comp, _filt, interlace = self.header
+        ch = _PNG_CHANNELS[ctype]
+        try:
+            raw = zlib.decompressobj().decompress(b"".join(self.idat))
+        except zlib.error as e:
+            raise CodecError(f"corrupt PNG image data: {e}") from e
+        bpp = max(1, depth * ch // 8)
+        if not interlace:
+            return _png_rows(native.png_unfilter(raw, h, (w * ch * depth + 7) // 8, bpp), w, ch,
+                             depth)
+        out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        p = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx) if w > x0 else 0, -(-(h - y0) // dy) if h > y0 else 0
+            if pw == 0 or ph == 0:
+                continue
+            rb = (pw * ch * depth + 7) // 8
+            need = ph * (rb + 1)
+            if p + need > len(raw):
+                raise CodecError("corrupt PNG image data")
+            rows = native.png_unfilter(raw[p:p + need], ph, rb, bpp)
+            out[y0::dy, x0::dx] = _png_rows(rows, pw, ch, depth)
+            p += need
+        return out
+
+    def rgb(self) -> np.ndarray:
+        """What Pillow's ``convert("RGB")`` reads: (H, W) gray or (H, W, 3)
+        RGB, u8."""
+        depth, ctype = self.header[2:4]
+        px = self.samples()
+        if ctype == 3:
+            pal = np.zeros((256, 3), np.uint8)  # Pillow's: past the PLTE is black
+            if self.palette is None:
+                raise CodecError("palette PNG without PLTE")
+            n = min(256, len(self.palette) // 3)
+            pal[:n] = np.frombuffer(self.palette, np.uint8, n * 3).reshape(n, 3)
+            return pal[px[..., 0]]
+        if depth == 16:
+            if ctype == 0:  # Pillow's I;16: convert("RGB") clips
+                return np.minimum(px[..., 0], 255).astype(np.uint8)
+            px = (px >> 8).astype(np.uint8)  # the high byte
+        elif depth < 8:
+            px = (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        if ctype in (0, 4):
+            return px[..., 0]
+        return px[..., :3]
+
+
+def _png_rows(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (n, row bytes) → samples (n, w, ch)."""
+    n = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * ch].reshape(n, w, ch)
+    if depth == 16:
+        return rows[:, :2 * w * ch].copy().view(">u2").astype(np.uint16).reshape(n, w, ch)
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(n, rows.shape[1] * per)[:, :w].reshape(n, w, 1)
 
 
 def read_png(data: bytes) -> Tuple[np.ndarray, Dict[str, str]]:
-    """PNG bytes → (image in the file's channels, text metadata)."""
-    from .. import native
+    """PNG bytes → (what Pillow reads in 8 bits: (H, W) gray or (H, W, 3)
+    RGB, the text chunks before the image data)."""
+    png = _Png(data)
+    return png.rgb(), {k: v for k, v in png.info.items() if isinstance(v, str)}
 
-    data = bytes(data)
-    header, palette, idat, text = None, None, [], {}
-    for kind, body in _chunks(data):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind in (b"tEXt", b"zTXt", b"iTXt"):
-            key, value = _text_chunk(kind, body)
-            text[key] = value
-        elif kind == b"eXIf":
-            raise not_ported("EXIF metadata", item=LEFTOVERS)
-    if header is None:
-        raise CodecError("PNG without IHDR")
-    w, h, depth, ctype, _comp, _filt, interlace = header
-    if ctype not in _PNG_CHANNELS:
-        raise CodecError(f"bad PNG colour type {ctype}")
-    if depth != 8 or interlace:
-        raise not_ported(f"PNG with {depth}-bit samples{' interlaced' if interlace else ''}",
-                         item=LEFTOVERS)
-    ch = _PNG_CHANNELS[ctype]
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise CodecError(f"corrupt PNG image data: {e}") from e
-    px = native.png_unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
-    if ctype == 3:
-        if palette is None:
-            raise CodecError("palette PNG without PLTE")
-        return palette[np.minimum(px[..., 0], len(palette) - 1)], text
-    return (px[..., 0] if ch == 1 else px), text
+
+def png_info(data: bytes) -> Tuple[dict, dict]:
+    """Pillow's ``info`` of a PNG after ``Image.open`` (the chunks before
+    the image data) and what ``load()`` adds after it."""
+    png = _Png(data)
+    return png.info, png.late
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -165,44 +350,178 @@ def write_png(img: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
 
 # -- BMP ----------------------------------------------------------------------
 
+# Bit-field masks Pillow accepts → the byte of each of R, G, B in a pixel
+# (32 and 24-bit), or its 16-bit layout.
+_BMP_FIELDS32 = {
+    (0xFF0000, 0xFF00, 0xFF, 0x0): (2, 1, 0), (0xFF000000, 0xFF0000, 0xFF00, 0x0): (3, 2, 1),
+    (0xFF000000, 0xFF00, 0xFF, 0x0): (3, 1, 0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF): (3, 2, 1),
+    (0xFF, 0xFF00, 0xFF0000, 0xFF000000): (0, 1, 2), (0xFF0000, 0xFF00, 0xFF, 0xFF000000): (2, 1, 0),
+    (0xFF000000, 0xFF00, 0xFF, 0xFF0000): (3, 1, 0), (0x0, 0x0, 0x0, 0x0): (2, 1, 0),
+}
+_BMP_FIELDS16 = {(0xF800, 0x7E0, 0x1F): 565, (0x7C00, 0x3E0, 0x1F): 555}
+
+
+class _Bmp:
+    """Pillow's reading of a BMP header (``BmpImagePlugin._bitmap``)."""
+
+    def __init__(self, data: bytes):
+        d = self.data = bytes(data)
+        if len(d) < 18 or not d.startswith(b"BM"):
+            raise CodecError("not a BMP file")
+        u16 = lambda p: struct.unpack("<H", d[p:p + 2])[0]  # noqa: E731
+        u32 = lambda p: struct.unpack("<I", d[p:p + 4])[0]  # noqa: E731
+        offset, hsize = u32(10), u32(14)
+        if len(d) < 14 + hsize:
+            raise CodecError("truncated BMP header")
+        self.info, self.masks = {}, None
+        pos = 14 + hsize  # where the file is read next
+        self.colors = 0
+        if hsize == 12:
+            w, h, bits, comp, pad, self.top_down = u16(18), u16(20), u16(24), 0, 3, False
+        elif hsize in (40, 52, 56, 64, 108, 124):
+            self.top_down = d[25] == 0xFF
+            w, h = u32(18), u32(22)
+            if self.top_down:
+                h = 2 ** 32 - h
+            bits, comp, pad = u16(28), u32(30), 4
+            ppm = (u32(38), u32(42))
+            self.colors = u32(46)
+            self.info["dpi"] = tuple(x / 39.3701 for x in ppm)
+            if comp == 3:
+                if hsize - 4 >= 48:
+                    n = 4 if hsize - 4 >= 52 else 3
+                    self.masks = tuple(u32(54 + 4 * i) for i in range(n)) + (0,) * (4 - n)
+                else:
+                    if len(d) < pos + 12:
+                        raise CodecError("truncated BMP bit fields")
+                    self.masks = tuple(u32(pos + 4 * i) for i in range(3)) + (0,)
+                    pos += 12
+        else:
+            raise CodecError(f"unsupported BMP header type ({hsize})")
+        self.w, self.h, self.bits, self.comp = w, h, bits, comp
+        self.colors = self.colors or (1 << bits)
+        if offset == 14 + hsize and bits <= 8:
+            offset += 4 * self.colors
+        if bits not in (1, 4, 8, 16, 24, 32):
+            raise CodecError(f"unsupported BMP pixel depth ({bits})")
+        if comp == 3:
+            if not ((bits == 32 and self.masks in _BMP_FIELDS32)
+                    or (bits in (24, 16) and self.masks[:3] in (_BMP_FIELDS16 if bits == 16 else
+                                                                {(0xFF0000, 0xFF00, 0xFF): 0}))):
+                raise CodecError("unsupported BMP bitfields layout")
+        elif comp not in (0, 1, 2):
+            raise CodecError(f"unsupported BMP compression ({comp})")
+        self.mode, self.palette = ("P" if bits <= 8 else "RGB"), None
+        if bits <= 8:
+            if not 0 < self.colors <= 65536:
+                raise CodecError(f"unsupported BMP palette size ({self.colors})")
+            raw = d[pos:pos + pad * self.colors]
+            gray = all(raw[i * pad:i * pad + 3] == bytes([v]) * 3 for i, v in
+                       enumerate((0, 255) if self.colors == 2 else range(self.colors)))
+            if gray:
+                self.mode = "1" if self.colors == 2 else "L"
+            else:
+                pal = np.zeros((256, 3), np.uint8)  # Pillow's: past the palette is black
+                n = min(256, len(raw) // pad)
+                pal[:n] = np.frombuffer(raw, np.uint8, n * pad).reshape(n, pad)[:, 2::-1]
+                self.palette = pal
+        self.info["compression"] = comp
+        if not offset:  # Pillow reads on from where the header ends
+            offset = pos + (pad * self.colors if bits <= 8 else 0)
+        self.offset = offset
+        if comp in (1, 2) and bits > 8:
+            raise CodecError(f"RLE compression of a {bits}-bit BMP")
+        if w == 0 or h == 0 or w >= 1 << 31 or h >= 1 << 31:
+            raise CodecError(f"bad BMP size {w}x{h}")
+
+    def rgb(self) -> np.ndarray:
+        """What Pillow's ``convert("RGB")`` reads: (H, W) gray or (H, W, 3)
+        RGB, u8."""
+        if self.comp in (1, 2):
+            return self._rle()
+        w, h, bits = self.w, self.h, self.bits
+        stride = ((w * bits + 31) >> 3) & ~3
+        if len(self.data) < self.offset + stride * h:
+            raise CodecError("truncated BMP pixel data")
+        rows = np.frombuffer(self.data, np.uint8, stride * h, self.offset).reshape(h, stride)
+        if not self.top_down:
+            rows = rows[::-1]
+        if self.mode == "1":  # a black and white palette: Pillow unpacks bits, whatever the depth
+            return (np.unpackbits(rows, axis=1)[:, :w] * 255).astype(np.uint8)
+        if self.mode == "L":  # a gray ramp palette: Pillow reads bytes, if a row has enough
+            if w > stride:
+                raise CodecError(f"{bits}-bit BMP with a gray ramp palette: codec configuration")
+            return rows[:, :w].copy()
+        if bits <= 8:
+            return self.palette[_png_rows(rows, w, 1, bits)[..., 0]]
+        if bits == 16:
+            v = rows[:, :2 * w].copy().view("<u2").astype(np.uint32)
+            if self.comp == 3 and _BMP_FIELDS16[self.masks[:3]] == 565:
+                r, g, b = (v >> 11) & 31, (v >> 5) & 63, v & 31
+                return np.stack([r * 255 // 31, g * 255 // 63, b * 255 // 31], -1).astype(np.uint8)
+            r, g, b = (v >> 10) & 31, (v >> 5) & 31, v & 31
+            return np.stack([r * 255 // 31, g * 255 // 31, b * 255 // 31], -1).astype(np.uint8)
+        px = rows[:, :w * bits // 8].reshape(h, w, bits // 8)
+        order = _BMP_FIELDS32[self.masks] if self.comp == 3 and bits == 32 else (2, 1, 0)
+        return px[..., list(order)]
+
+    def _rle(self) -> np.ndarray:
+        """Pillow's ``BmpRleDecoder``, step for step (its delta reads two
+        bytes more than the spec's), then the palette."""
+        if self.mode == "1":
+            raise not_ported("RLE BMP with a black and white palette", item=LEFTOVERS)
+        rle4, w, h = self.comp == 2, self.w, self.h
+        f = io.BytesIO(self.data)
+        f.seek(self.offset)
+        out, x, total = bytearray(), 0, w * h
+        while len(out) < total:
+            pixels, byte = f.read(1), f.read(1)
+            if not pixels or not byte:
+                break
+            n, b = pixels[0], byte[0]
+            if n:
+                n = min(n, max(0, w - x)) if x + n > w else n
+                out += bytes([b >> 4, b & 15] * (n // 2) + [b >> 4] * (n % 2)) if rle4 else byte * n
+                x += n
+            elif b == 0:  # end of line
+                out += bytes(-len(out) % w)
+                x = 0
+            elif b == 1:  # end of bitmap
+                break
+            elif b == 2:  # delta
+                if len(f.read(2)) < 2:
+                    break
+                step = f.read(2)
+                if len(step) < 2:
+                    raise CodecError("truncated BMP RLE delta")
+                out += bytes(step[0] + step[1] * w)
+                x = len(out) % w
+            else:  # an absolute run of b pixels
+                count = b // 2 if rle4 else b
+                got = f.read(count)
+                out += bytes(v for c in got for v in (c >> 4, c & 15)) if rle4 else got
+                if len(got) < count:
+                    break
+                x += b
+                if f.tell() % 2:
+                    f.seek(1, io.SEEK_CUR)
+        if len(out) < total:
+            raise CodecError("not enough BMP image data")
+        idx = np.frombuffer(bytes(out[:total]), np.uint8).reshape(h, w)
+        if not self.top_down:
+            idx = idx[::-1]
+        return idx.copy() if self.mode == "L" else self.palette[idx]
+
 
 def read_bmp(data: bytes) -> np.ndarray:
-    """BMP bytes → (H, W, 3) RGB (or (H, W, 4) RGBA for 32-bit)."""
-    data = bytes(data)
-    if len(data) < 26 or not data.startswith(b"BM"):
-        raise CodecError("not a BMP file")
-    offset, dib = struct.unpack("<I", data[10:14])[0], struct.unpack("<I", data[14:18])[0]
-    if dib in (12, 16, 64):  # the OS/2 headers
-        raise not_ported(f"BMP with a {dib}-byte header", item=LEFTOVERS)
-    if dib not in (40, 52, 56, 108, 124):
-        raise CodecError(f"bad BMP header size {dib}")
-    if len(data) < 14 + dib:
-        raise CodecError("truncated BMP header")
-    w, h, _planes, bpp, comp = struct.unpack("<iiHHI", data[18:34])
-    colors = struct.unpack("<I", data[46:50])[0]
-    top_down, h = h < 0, abs(h)
-    if w <= 0 or h == 0:
-        raise CodecError(f"bad BMP size {w}x{h}")
-    if bpp not in (8, 24, 32) or comp not in (0, 3) or (comp == 3 and bpp != 32):
-        raise not_ported(f"{bpp}-bit BMP with compression {comp}", item=LEFTOVERS)
-    stride = (w * bpp // 8 + 3) & ~3
-    if len(data) < offset + stride * h:
-        raise CodecError("truncated BMP pixel data")
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
-    if not top_down:
-        rows = rows[::-1]
-    if bpp == 8:
-        n = colors or 256
-        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + dib).reshape(n, 4)[:, 2::-1]
-        return pal[np.minimum(rows[:, :w], n - 1)]
-    px = rows[:, : w * bpp // 8].reshape(h, w, bpp // 8)
-    if bpp == 24:
-        return px[..., ::-1]
-    if comp == 3:
-        masks = struct.unpack("<III", data[54:66])
-        if masks != (0xFF0000, 0xFF00, 0xFF):
-            raise not_ported(f"BMP bit fields {masks}", item=LEFTOVERS)
-    return px[..., [2, 1, 0, 3]]
+    """BMP bytes → what Pillow reads in 8 bits: (H, W) gray or (H, W, 3) RGB."""
+    return _Bmp(data).rgb()
+
+
+def bmp_info(data: bytes) -> dict:
+    """Pillow's ``info`` of a BMP: ``dpi`` (not the 12-byte header) and
+    ``compression``."""
+    return _Bmp(data).info
 
 
 def write_bmp(img: np.ndarray) -> bytes:
@@ -229,37 +548,195 @@ def write_bmp(img: np.ndarray) -> bytes:
     return b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info + pal + body
 
 
-# -- PPM / PGM ------------------------------------------------------------------
+# -- PNM ------------------------------------------------------------------------
 
-_PNM_TOKEN = re.compile(rb"(?:\s|#[^\n]*\n)*(\S+)")
+_WHITESPACE = b" \t\n\x0b\x0c\r"
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+              b"Pf": "F"}
+_PILLOW_PNM = (b"P0CMYK", b"PyP", b"PyRGBA", b"PyCMYK")  # Pillow's own extensions
+_SAFEBLOCK = 1 << 16  # Pillow's block of ASCII samples
+
+
+class _Pnm:
+    """Pillow's reading of a PNM header (``PpmImagePlugin``): byte for
+    byte, comments and token limits included."""
+
+    def __init__(self, data: bytes):
+        self.f = f = io.BytesIO(bytes(data))
+        magic = b""
+        for _ in range(6):
+            c = f.read(1)
+            if not c or c in _WHITESPACE:
+                break
+            magic += c
+        if magic in _PILLOW_PNM:
+            raise not_ported(f"Pillow's {magic.decode()} images", item=LEFTOVERS)
+        if magic not in _PNM_MODES:
+            raise CodecError("not a PPM file")
+        self.magic, self.mode, self.info = magic, _PNM_MODES[magic], {}
+        try:
+            self.w, self.h = int(self._token()), int(self._token())
+            if self.mode == "F":
+                scale = float(self._token())
+                if scale == 0.0 or not math.isfinite(scale):
+                    raise CodecError("scale must be finite and non-zero")
+                self.info["scale"] = abs(scale)
+                self.little = scale < 0
+            elif self.mode != "1":
+                self.maxval = int(self._token())
+                if not 0 < self.maxval < 65536:
+                    raise CodecError("maxval must be greater than 0 and less than 65536")
+        except ValueError as e:  # int() and float() of a bad token
+            raise CodecError(str(e)) from e
+        if self.w <= 0 or self.h <= 0:
+            raise CodecError(f"bad PNM size {self.w}x{self.h}")
+        self.start = f.tell()
+
+    def _token(self) -> bytes:
+        f, token = self.f, b""
+        while len(token) <= 10:
+            c = f.read(1)
+            if not c:
+                break
+            if c in _WHITESPACE:
+                if not token:
+                    continue
+                break
+            if c == b"#":
+                while f.read(1) not in b"\r\n":
+                    pass
+                continue
+            token += c
+        if not token:
+            raise CodecError("reached EOF while reading the PNM header")
+        if len(token) > 10:
+            raise CodecError("token too long in the PNM header")
+        return token
+
+    def rgb(self) -> np.ndarray:
+        """What Pillow's ``convert("RGB")`` reads: (H, W) gray or (H, W, 3)
+        RGB, u8."""
+        w, h, f = self.w, self.h, self.f
+        bands = 3 if self.mode == "RGB" else 1
+        f.seek(self.start)
+        if self.mode == "F":
+            raw = f.read(4 * w * h)
+            if len(raw) < 4 * w * h:
+                raise CodecError("truncated PFM samples")
+            v = np.frombuffer(raw, "<f4" if self.little else ">f4").reshape(h, w)[::-1]
+            v = np.nan_to_num(v.astype(np.float64), nan=0.0, posinf=255.0, neginf=0.0)
+            return np.clip(np.trunc(v), 0, 255).astype(np.uint8)  # Pillow's F → L
+        if self.magic == b"P4":
+            stride = (w + 7) // 8
+            raw = f.read(stride * h)
+            if len(raw) < stride * h:
+                raise CodecError("truncated PBM samples")
+            bits = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(h, stride), axis=1)[:, :w]
+            return ((1 - bits) * 255).astype(np.uint8)  # a 1 bit is black
+        if self.magic in (b"P1", b"P2", b"P3"):
+            v = self._plain(w * h * bands)
+        else:
+            wide = self.maxval > 255
+            n = w * h * bands
+            raw = f.read(n * (2 if wide else 1))
+            if len(raw) < n * (2 if wide else 1):
+                raise CodecError("not enough PNM image data")
+            v = np.frombuffer(raw, ">u2" if wide else np.uint8).astype(np.int64)
+            if self.maxval != 255:
+                out_max = 65535 if self.mode == "L" and wide else 255
+                if not (self.mode == "L" and self.maxval == 65535):
+                    v = np.minimum(out_max, np.rint(v / self.maxval * out_max)).astype(np.int64)
+        if self.mode == "L" and self.maxval > 255:  # Pillow's I: convert("RGB") clips
+            v = np.minimum(v, 255)
+        return v.astype(np.uint8).reshape((h, w, 3) if bands == 3 else (h, w))
+
+    def _plain(self, total: int) -> np.ndarray:
+        """Pillow's ``PpmPlainDecoder`` over the ASCII samples: block by
+        block, comments cut up to and with their line end."""
+        f, spans = self.f, [False]
+
+        def block():
+            return f.read(_SAFEBLOCK)
+
+        def comment_end(b, start=0):
+            a, c = b.find(b"\n", start), b.find(b"\r", start)
+            return min(a, c) if a * c > 0 else max(a, c)
+
+        def uncomment(b):
+            if spans[0]:
+                while b:
+                    e = comment_end(b)
+                    if e != -1:
+                        b = b[e + 1:]
+                        break
+                    b = block()
+            spans[0] = False
+            while True:
+                s = b.find(b"#")
+                if s == -1:
+                    break
+                e = comment_end(b, s)
+                if e != -1:
+                    b = b[:s] + b[e + 1:]
+                else:
+                    b, spans[0] = b[:s], True
+                    break
+            return b
+
+        if self.mode == "1":
+            data = bytearray()
+            while len(data) != total:
+                b = block()
+                if not b:
+                    break
+                tokens = b"".join(uncomment(b).split())
+                if any(t not in (48, 49) for t in tokens):
+                    raise CodecError("invalid token in a plain PBM")
+                data = (data + tokens)[:total]
+            if len(data) < total:
+                raise CodecError("not enough PNM image data")
+            return np.where(np.frombuffer(bytes(data), np.uint8) == 49, 0, 255)
+        maxval, out_max = self.maxval, (65535 if self.mode == "L" and self.maxval > 255 else 255)
+        values, half = [], b""
+        while len(values) != total:
+            b = block()
+            if not b:
+                if not half:
+                    break
+                b = b" "
+            b = uncomment(b)
+            if half:
+                b, half = half + b, b""
+            tokens = b.split()
+            if b and not b[-1:].isspace():
+                half = tokens.pop()
+                if len(half) > 10:
+                    raise CodecError("token too long in PNM samples")
+            for t in tokens:
+                if len(t) > 10:
+                    raise CodecError("token too long in PNM samples")
+                try:
+                    v = int(t)
+                except ValueError as e:
+                    raise CodecError(str(e)) from e
+                if v < 0 or v > maxval:
+                    raise CodecError(f"PNM sample {v} outside 0-{maxval}")
+                values.append(round(v / maxval * out_max))
+                if len(values) == total:
+                    break
+        if len(values) < total:
+            raise CodecError("not enough PNM image data")
+        return np.array(values, np.int64)
 
 
 def read_pnm(data: bytes) -> np.ndarray:
-    """Binary P5/P6 bytes → (H, W) gray or (H, W, 3) RGB."""
-    data = bytes(data)
-    magic = data[:2]
-    if magic not in (b"P5", b"P6"):
-        raise not_ported(f"PNM type {magic.decode('latin-1', 'replace')}", item=LEFTOVERS)
-    p, vals = 2, []
-    for _ in range(3):
-        m = _PNM_TOKEN.match(data, p)
-        if m is None:
-            raise CodecError("truncated PNM header")
-        vals.append(int(m.group(1)))
-        p = m.end()
-    w, h, maxval = vals
-    if w <= 0 or h <= 0:
-        raise CodecError(f"bad PNM size {w}x{h}")
-    if not 0 < maxval < 256:
-        raise not_ported(f"PNM with maxval {maxval}", item=LEFTOVERS)
-    p += 1  # the one whitespace byte before the samples
-    ch = 1 if magic == b"P5" else 3
-    if len(data) < p + w * h * ch:
-        raise CodecError("truncated PNM samples")
-    px = np.frombuffer(data, np.uint8, w * h * ch, p).reshape(h, w, ch)
-    if maxval != 255:
-        px = ((px.astype(np.uint32) * 255 + maxval // 2) // maxval).astype(np.uint8)
-    return px[..., 0] if ch == 1 else px
+    """PNM bytes → what Pillow reads in 8 bits: (H, W) gray or (H, W, 3) RGB."""
+    return _Pnm(data).rgb()
+
+
+def pnm_info(data: bytes) -> dict:
+    """Pillow's ``info`` of a PNM: ``scale`` for a PFM, else nothing."""
+    return _Pnm(data).info
 
 
 def write_pnm(img: np.ndarray) -> bytes:
@@ -292,9 +769,9 @@ def from_mat_array(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a[..., ::-1])
 
 
-DECODERS = {"png": lambda d: read_png(d)[0], "bmp": read_bmp, "pnm": read_pnm}
+DECODERS = {"png": lambda d: _Png(d).rgb(), "bmp": read_bmp, "pnm": read_pnm}
 ENCODERS = {"png": write_png, "bmp": write_bmp, "pnm": write_pnm}
 EXTENSIONS = {"png": "png", "bmp": "bmp", "dib": "bmp", "ppm": "pnm", "pgm": "pnm",
-              "pnm": "pnm", "pbm": "pnm", "jpg": "jpeg", "jpeg": "jpeg", "jpe": "jpeg",
-              "jfif": "jpeg"}
+              "pnm": "pnm", "pbm": "pnm", "pfm": "pnm", "jpg": "jpeg", "jpeg": "jpeg",
+              "jpe": "jpeg", "jfif": "jpeg"}
 NOT_PORTED_EXTENSIONS = {"tif": "TIFF", "tiff": "TIFF", "gif": "GIF", "webp": "WebP"}

@@ -6,8 +6,9 @@ max-flow), built with g++ at first use and bound with ctypes.
 Ten sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
 block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
-which checks a payload exactly: Huffman coding is lossless; and the flat-
-and block-packed forms that feed the hybrid MJPEG decode), ``jpeg_host.cpp``
+which checks a payload exactly: Huffman coding is lossless; the flat-
+and block-packed forms that feed the hybrid MJPEG decode; and, for the
+host decode alone, progressive and multi-scan streams), ``jpeg_host.cpp``
 (the full decode to BGR on the host, libjpeg-turbo's default decode without
 libjpeg), ``png_filter.cpp`` (the PNG reader's scanline unfiltering),
 ``text_raster.cpp`` (put_text's glyph rasterizer), ``capture.cpp`` (the
@@ -87,6 +88,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     longp = ctypes.POINTER(ctypes.c_long)
     lib.rcv_jpeg_info.restype = ctypes.c_int
     lib.rcv_jpeg_info.argtypes = [u8p, ctypes.c_long, intp, intp, intp, intp, intp, intp, intp]
+    lib.rcv_jpeg_host_info.restype = ctypes.c_int
+    lib.rcv_jpeg_host_info.argtypes = [u8p, ctypes.c_long, intp, intp, intp, intp, intp, intp, intp,
+                                       intp]
     lib.rcv_jpeg_coeffs.restype = ctypes.c_int
     lib.rcv_jpeg_coeffs.argtypes = [u8p, ctypes.c_long, i16p, i16p, i16p, u16p, u16p, u16p]
     lib.rcv_jpeg_coeffs_packed.restype = ctypes.c_int
@@ -267,7 +271,12 @@ def jpeg_entropy_info(data: "np.ndarray | bytes") -> dict:
 
 
 _OVER_CAPACITY = -24  # the decoder's return code when the packed buffers are full
-_UNSUPPORTED_SAMPLING = -40  # jpeg_host.cpp's, for sampling it does not upsample
+# The host decode's codes for what libjpeg reads and it does not yet
+# (jpeg_entropy.cpp): a CMYK/YCCK, lossless or arithmetic-coded frame; a
+# progressive stream left unrefined at EOI (libjpeg smooths it).
+_NOT_PORTED = {-50: "CMYK/YCCK, lossless and arithmetic-coded JPEG",
+               -51: "progressive JPEG whose coefficients are not refined to their last bit "
+                    "(libjpeg's block smoothing)"}
 
 
 def _u16_tables():
@@ -469,20 +478,38 @@ def text_glyph(points: np.ndarray, on_curve: np.ndarray, ends: np.ndarray, canva
         raise ValueError(f"malformed glyph outline (rcv_text_glyph rc={rc})")
 
 
+def _not_ported(rc: int):
+    from ..core.errors import not_ported
+
+    return not_ported(f"the host JPEG decode of {_NOT_PORTED[rc]}", item="8")
+
+
 def jpeg_size(data: "np.ndarray | bytes") -> tuple:
-    """(width, height) from a baseline JPEG's frame header."""
-    info, _ = _info(_need_lib(), _as_u8_buf(data))
-    return info["width"], info["height"]
+    """(width, height) from the frame header of a JPEG the host decode
+    reads (baseline, extended sequential, progressive)."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    w, h, nc, flags = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    arrs = [(ctypes.c_int * 3)() for _ in range(4)]
+    rc = lib.rcv_jpeg_host_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h),
+                                ctypes.byref(nc), *arrs, ctypes.byref(flags))
+    if rc in _NOT_PORTED:
+        raise _not_ported(rc)
+    if rc != 0:
+        raise ValueError(f"unsupported or corrupt JPEG (rcv_jpeg_host_info rc={rc})")
+    return w.value, h.value
 
 
 def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Full host decode of a baseline JPEG (``jpeg_host.cpp``: the port's
-    entropy decoder, the integer islow IDCT, fancy upsampling, the integer
-    YCbCr tables; no libjpeg) → BGR (H, W, 3) u8.
+    """Full host decode of a JPEG (``jpeg_host.cpp``: the port's entropy
+    decoder over every scan, the integer islow IDCT, libjpeg's upsampler
+    per component, the integer YCbCr tables; no libjpeg) → BGR (H, W, 3)
+    u8: what libjpeg-turbo gives with its default settings.
 
     ``out`` (optional) is written in place: an (H, W, 3) u8 array whose
     rows may be strided (a Mat's padded rows), with unit pixel and channel
-    strides. Raises ValueError for a corrupt or unsupported stream."""
+    strides. Raises ValueError for a corrupt stream or one libjpeg refuses,
+    ``not_ported`` for one libjpeg reads and the port does not yet."""
     lib = _need_lib()
     buf = _as_u8_buf(data)
     w, h = jpeg_size(buf)
@@ -493,11 +520,8 @@ def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None
         raise ValueError(f"out must be a writable ({h}, {w}, 3) uint8 array with packed pixels")
     rc = lib.rcv_jpeg_decode_bgr(_ptr(buf), buf.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                                  out.strides[0], w, h)
-    if rc == _UNSUPPORTED_SAMPLING:
-        from ..core.errors import not_ported
-
-        raise not_ported("the host JPEG decode of sampling factors other than 1x1, 2x1 and 2x2",
-                         item="8")
+    if rc in _NOT_PORTED:
+        raise _not_ported(rc)
     if rc != 0:
         raise ValueError(f"JPEG decode failed (rcv_jpeg_decode_bgr rc={rc})")
     return out

@@ -11,11 +11,28 @@
 // Supports baseline sequential DCT, 8-bit, 1 or 3 components, interleaved
 // single-scan, restart markers. Emits the full padded MCU block grid per
 // component, coefficients in natural (row-major) order.
+//
+// The full host decode (jpeg_host.cpp) also reads what libjpeg reads in
+// several scans into one coefficient image (rcv_jpeg_host_info,
+// rcv_jpeg_host_coeffs): progressive streams (SOF2: DC first and refine,
+// AC first and refine with EOB runs, restart markers resetting the run)
+// and sequential streams whose scans hold fewer components than the
+// frame. The hybrid path's entry points refuse both, as before.
 
 #include <cstdint>
 #include <cstring>
 
 namespace {
+
+// The host decode's return codes beside the parse's: a frame libjpeg reads
+// that the host decode does not yet (CMYK/YCCK, lossless,
+// arithmetic-coded), a progressive stream that leaves bits of some
+// coefficient unrefined at EOI (libjpeg would smooth its blocks), and a
+// scan header libjpeg refuses.
+constexpr int kNotPorted = -50;
+constexpr int kUnrefined = -51;
+constexpr int kBadScan = -52;
+constexpr int kMaxBlocksInMcu = 10;  // libjpeg's D_MAX_BLOCKS_IN_MCU
 
 const uint8_t ZIGZAG[64] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -178,12 +195,28 @@ struct Decoder {
   int restart_interval = 0;
   long scan_pos = -1;  // offset of entropy data
 
+  // The host decode's reading (host == true): progressive frames, scans of
+  // fewer components than the frame, and the markers that set the colour
+  // space. Left false, the parse refuses what the hybrid path cannot take.
+  bool host = false;
+  bool progressive = false;
+  bool saw_sof = false, saw_jfif = false, saw_adobe = false;
+  int adobe_transform = -1;
+  int scans_seen = 0;
+  int scan_ns = 0, scan_comp[3] = {0, 0, 0};  // the current scan's components
+  int ss = 0, se = 63, ah = 0, al = 0;         // its spectral band and bit positions
+
   int u16(long p) { return (data[p] << 8) | data[p + 1]; }
 
   // Parse headers up to (and including) SOS. Returns 0 ok.
   int parse() {
     if (len < 4 || data[0] != 0xFF || data[1] != 0xD8) return -1;
-    long p = 2;
+    return parse_segments(2);
+  }
+
+  // Parse marker segments from the marker at `p` up to (and including) the
+  // next SOS: 0 there, 1 at an EOI after a scan (host), < 0 for an error.
+  int parse_segments(long p) {
     while (p + 4 <= len) {
       if (data[p] != 0xFF) return -2;
       uint8_t m = data[p + 1];
@@ -212,12 +245,16 @@ struct Decoder {
           }
           qt_defined[tq] = true;
         }
-      } else if (m == 0xC0 || m == 0xC1) {  // SOF0/1 (baseline huffman)
+      } else if (m == 0xC0 || m == 0xC1 || (host && m == 0xC2)) {  // SOF0/1 (and 2)
+        if (host && saw_sof) return -5;  // a second frame header
+        saw_sof = true;
+        progressive = m == 0xC2;
         if (seg + 6 > segend) return -5;
-        if (data[seg] != 8) return -5;  // 8-bit precision only
+        if (data[seg] != 8) return -5;  // 8-bit precision only (Pillow refuses 12-bit too)
         height = u16(seg + 1);
         width = u16(seg + 3);
         ncomp = data[seg + 5];
+        if (host && ncomp == 4) return kNotPorted;  // CMYK / YCCK
         if (ncomp != 1 && ncomp != 3) return -6;
         if (seg + 6 + 3 * (long)ncomp > segend) return -5;
         for (int c = 0; c < ncomp; ++c) {
@@ -233,6 +270,9 @@ struct Decoder {
         // whatever sampling factors the frame header gives it.
         if (ncomp == 1) comp[0].h = comp[0].v = 1;
       } else if (m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+        // lossless and arithmetic-coded frames: libjpeg reads them, the
+        // host decode does not yet; hierarchical ones libjpeg refuses too
+        if (host && (m == 0xC3 || m == 0xC9 || m == 0xCA || m == 0xCB)) return kNotPorted;
         return -7;  // progressive/arithmetic unsupported
       } else if (m == 0xC4) {  // DHT
         long q = seg;
@@ -289,30 +329,55 @@ struct Decoder {
       } else if (m == 0xDD) {  // DRI
         if (seg + 2 > segend) return -3;
         restart_interval = u16(seg);
+      } else if (m == 0xE0) {  // APP0: JFIF implies YCbCr
+        if (segend - seg >= 14 && memcmp(data + seg, "JFIF\0", 5) == 0) saw_jfif = true;
+      } else if (m == 0xEE) {  // APP14: Adobe's transform flag
+        if (segend - seg >= 12 && memcmp(data + seg, "Adobe", 5) == 0) {
+          saw_adobe = true;
+          adobe_transform = data[seg + 11];
+        }
       } else if (m == 0xDA) {  // SOS
         if (seg + 1 > segend) return -9;
         int ns = data[seg];
-        if (ns != ncomp) return -9;  // interleaved single-scan only
-        if (seg + 1 + 2 * (long)ns > segend) return -9;
+        if (host ? (ns < 1 || ns > ncomp) : ns != ncomp) return -9;  // interleaved single-scan only
+        if (seg + 1 + 2 * (long)ns + (host ? 3 : 0) > segend) return -9;
         for (int s = 0; s < ns; ++s) {
           int cid = data[seg + 1 + s * 2];
           int tabs = data[seg + 2 + s * 2];
           int td = tabs >> 4, ta = tabs & 15;
           if (td > 3 || ta > 3) return -9;  // hdc/hac are 4-entry arrays
+          int found = -1;
           for (int c = 0; c < ncomp; ++c) {
             if (comp[c].id == cid) {
               comp[c].td = td;
               comp[c].ta = ta;
+              found = c;
             }
           }
+          if (host) {
+            if (found < 0) return -9;
+            for (int t = 0; t < s; ++t)
+              if (scan_comp[t] == found) return -9;
+            scan_comp[s] = found;
+          }
+        }
+        if (host) {
+          long b = seg + 1 + 2 * (long)ns;
+          scan_ns = ns;
+          ss = data[b];
+          se = data[b + 1];
+          ah = data[b + 2] >> 4;
+          al = data[b + 2] & 15;
         }
         scan_pos = segend;
         return 0;
       } else if (m == 0xD9) {
-        return -10;  // EOI before SOS
+        return scans_seen ? 1 : -10;  // EOI before SOS
       }
       p = segend;
     }
+    // an EOI in the stream's last two bytes, after a scan (host)
+    if (scans_seen && p + 2 <= len && data[p] == 0xFF && data[p + 1] == 0xD9) return 1;
     return -11;
   }
 
@@ -359,6 +424,283 @@ struct Decoder {
   long bp_dense_n = 0;
   long comp_block_base[3] = {0, 0, 0};
 
+  // One block of a sequential scan (zeroed first).
+  static int block_seq(BitReader& br, Component& co, const HuffTable& dct,
+                       const HuffTable& act, int16_t* block) {
+    memset(block, 0, 64 * sizeof(int16_t));
+    int t = huff_decode(br, dct);
+    if (t < 0 || t > 15) return -21;  // DC category <= 11 in 8-bit
+    co.dc_pred += receive_extend(br, t);
+    block[0] = (int16_t)co.dc_pred;
+    int k = 1;
+    while (k < 64) {
+      int rs = huff_decode(br, act);
+      if (rs < 0) return -22;
+      int r = rs >> 4, s = rs & 15;
+      if (s == 0) {
+        if (r == 15) {
+          k += 16;
+          continue;
+        }
+        break;  // EOB
+      }
+      k += r;
+      if (k > 63) return -23;
+      block[ZIGZAG[k]] = (int16_t)receive_extend(br, s);
+      k++;
+    }
+    return 0;
+  }
+
+  // Byte-align and consume the RSTn marker; the caller resets its
+  // predictors.
+  static void restart(BitReader& br) {
+    br.align();
+    if (!br.hit_marker) {
+      // marker bytes are still in the stream
+      while (br.pos + 1 < br.len && !(br.data[br.pos] == 0xFF && br.data[br.pos + 1] >= 0xD0 &&
+                                      br.data[br.pos + 1] <= 0xD7))
+        br.pos++;
+      if (br.pos + 1 < br.len) br.pos += 2;
+    } else {
+      br.hit_marker = false;  // marker already consumed by reader
+    }
+  }
+
+  // -- the host decode's scans ------------------------------------------------
+
+  int coef_bits[3][64];  // per coefficient, the low bit its last scan left (-1: none yet)
+  uint16_t q_latched[3][64];  // each component's table when it first came in a scan
+  bool latched[3] = {false, false, false};
+  int64_t eobrun = 0;
+
+  // A progressive block of the current scan, in place.
+  int block_prog(BitReader& br, Component& co, int16_t* blk) {
+    if (ss == 0) {  // DC: first scan or refinement
+      if (ah == 0) {
+        int t = huff_decode(br, hdc[co.td]);
+        if (t < 0 || t > 15) return -21;
+        co.dc_pred += receive_extend(br, t);
+        blk[0] = (int16_t)(co.dc_pred * (int64_t(1) << al));
+      } else {
+        int b = br.get_bits(1);
+        if (b < 0) return -21;
+        if (b) blk[0] = (int16_t)(blk[0] | (1 << al));
+      }
+      return 0;
+    }
+    const HuffTable& act = hac[co.ta];
+    int k = ss;
+    if (ah == 0) {  // AC first scan
+      if (eobrun > 0) {
+        eobrun--;
+        return 0;
+      }
+      for (; k <= se; k++) {
+        int rs = huff_decode(br, act);
+        if (rs < 0) return -22;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          if (k > se) return -23;
+          blk[ZIGZAG[k]] = (int16_t)(receive_extend(br, s) * (1 << al));
+        } else if (r == 15) {
+          k += 15;  // sixteen zeros
+        } else {
+          eobrun = int64_t(1) << r;
+          if (r) {
+            int e = br.get_bits(r);
+            if (e < 0) return -22;
+            eobrun += e;
+          }
+          eobrun--;  // this block ends the band
+          break;
+        }
+      }
+      return 0;
+    }
+    // AC refinement: a correction bit for each coefficient already nonzero,
+    // new coefficients of magnitude 1 << al
+    const int p1 = 1 << al, m1 = -(1 << al);
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = huff_decode(br, act);
+        if (rs < 0) return -22;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          int b = br.get_bits(1);
+          if (b < 0) return -22;
+          s = b ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = int64_t(1) << r;
+          if (r) {
+            int e = br.get_bits(r);
+            if (e < 0) return -22;
+            eobrun += e;
+          }
+          break;  // the rest of the block is the EOB run's
+        }
+        do {  // past the nonzero coefficients (refining them) and r zeros
+          int16_t* c = blk + ZIGZAG[k];
+          if (*c != 0) {
+            int b = br.get_bits(1);
+            if (b < 0) return -22;
+            if (b && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+          } else if (--r < 0) {
+            break;  // the zero that becomes nonzero
+          }
+          k++;
+        } while (k <= se);
+        if (s) {
+          if (k > se) return -23;
+          blk[ZIGZAG[k]] = (int16_t)s;
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* c = blk + ZIGZAG[k];
+        if (*c != 0) {
+          int b = br.get_bits(1);
+          if (b < 0) return -22;
+          if (b && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+        }
+      }
+      eobrun--;
+    }
+    return 0;
+  }
+
+  // Decode the scan whose header parse_segments just read into the
+  // padded grids `out` (zeroed before the first scan).
+  int decode_scan(int16_t* out[3]) {
+    scans_seen++;
+    if (progressive) {  // libjpeg's JERR_BAD_PROGRESSION
+      if (ss == 0 ? se != 0 : (ss > se || se > 63 || scan_ns != 1)) return kBadScan;
+      if ((ah != 0 && al != ah - 1) || al > 13) return kBadScan;
+    }
+    int blocks = 0;
+    for (int i = 0; i < scan_ns; ++i) {
+      Component& co = comp[scan_comp[i]];
+      blocks += scan_ns == 1 ? 1 : co.h * co.v;
+      if (!latched[scan_comp[i]]) {
+        if (!qt_defined[co.tq]) return -30;
+        memcpy(q_latched[scan_comp[i]], qt[co.tq], sizeof(qt[0]));
+        latched[scan_comp[i]] = true;
+      }
+      bool dc_first = !progressive || (ss == 0 && ah == 0);
+      if ((dc_first && !hdc[co.td].defined) || ((!progressive || ss > 0) && !hac[co.ta].defined))
+        return -20;
+      for (int k = progressive ? ss : 0; k <= (progressive ? se : 63); ++k)
+        coef_bits[scan_comp[i]][k] = progressive ? al : 0;
+      co.dc_pred = 0;
+    }
+    if (blocks > kMaxBlocksInMcu) return kBadScan;
+    int hmax, vmax, mx, my;
+    grid_dims(&hmax, &vmax, &mx, &my);
+    // A scan of one component is not interleaved: one block per MCU over
+    // the component's own block extent, not the padded MCU grid.
+    if (scan_ns == 1) {
+      Component& co = comp[scan_comp[0]];
+      mx = (width * co.h + 8 * hmax - 1) / (8 * hmax);
+      my = (height * co.v + 8 * vmax - 1) / (8 * vmax);
+    }
+    BitReader br{data + scan_pos, len - scan_pos};
+    eobrun = 0;
+    long mcu_count = 0;
+    int16_t block[64];
+    for (int myi = 0; myi < my; ++myi) {
+      for (int mxi = 0; mxi < mx; ++mxi) {
+        if (restart_interval && mcu_count && mcu_count % restart_interval == 0) {
+          restart(br);
+          for (int i = 0; i < scan_ns; ++i) comp[scan_comp[i]].dc_pred = 0;
+          eobrun = 0;
+        }
+        for (int i = 0; i < scan_ns; ++i) {
+          int c = scan_comp[i];
+          Component& co = comp[c];
+          int nv = scan_ns == 1 ? 1 : co.v, nh = scan_ns == 1 ? 1 : co.h;
+          for (int v = 0; v < nv; ++v) {
+            for (int h = 0; h < nh; ++h) {
+              int by = myi * nv + v, bx = mxi * nh + h;
+              int16_t* dst = out[c] + ((long)by * co.bw + bx) * 64;
+              int rc;
+              if (progressive) {
+                rc = block_prog(br, co, dst);
+              } else {
+                rc = block_seq(br, co, hdc[co.td], hac[co.ta], block);
+                memcpy(dst, block, sizeof(block));
+              }
+              if (rc != 0) return rc;
+            }
+          }
+        }
+        mcu_count++;
+      }
+    }
+    return 0;
+  }
+
+  // The next marker after the current scan's entropy data, or -1.
+  long next_marker() const {
+    long q = scan_pos;
+    while (q + 1 < len) {
+      if (data[q] == 0xFF) {
+        uint8_t b = data[q + 1];
+        if (b == 0x00 || (b >= 0xD0 && b <= 0xD7)) {
+          q += 2;  // a stuffed byte or a restart marker
+          continue;
+        }
+        if (b != 0xFF) return q;
+      }
+      q++;
+    }
+    return -1;
+  }
+
+  // The host decode after parse(): every scan up to EOI into the padded
+  // grids `out` (each bh*bw*64, zeroed here), the tables each component
+  // latched into `qs`. A single interleaved sequential scan takes decode().
+  int decode_host(int16_t* out[3], uint16_t* qs[3]) {
+    int hmax, vmax, mx, my;
+    grid_dims(&hmax, &vmax, &mx, &my);
+    for (int c = 0; c < ncomp; ++c) {
+      comp[c].bw = mx * comp[c].h;
+      comp[c].bh = my * comp[c].v;
+    }
+    if (!progressive && scan_ns == ncomp) {
+      int blocks = 0;
+      for (int c = 0; c < ncomp; ++c) blocks += ncomp == 1 ? 1 : comp[c].h * comp[c].v;
+      if (blocks > kMaxBlocksInMcu) return kBadScan;
+      int rc = decode(out);
+      if (rc != 0) return rc;
+      for (int c = 0; c < ncomp; ++c) {
+        if (!qt_defined[comp[c].tq]) return -30;
+        memcpy(qs[c], qt[comp[c].tq], 64 * sizeof(uint16_t));
+      }
+      return 0;
+    }
+    for (int c = 0; c < ncomp; ++c) {
+      memset(out[c], 0, (size_t)comp[c].bw * comp[c].bh * 64 * sizeof(int16_t));
+      for (int k = 0; k < 64; ++k) coef_bits[c][k] = -1;
+    }
+    for (;;) {
+      int rc = decode_scan(out);
+      if (rc != 0) return rc;
+      long p = next_marker();
+      if (p < 0) return -11;
+      if (data[p + 1] == 0xD9) break;
+      rc = parse_segments(p);
+      if (rc == 1) break;
+      if (rc != 0) return rc;
+    }
+    for (int c = 0; c < ncomp; ++c)
+      for (int k = 0; k < 64; ++k)
+        if (coef_bits[c][k] != 0) return kUnrefined;
+    for (int c = 0; c < ncomp; ++c) memcpy(qs[c], q_latched[c], 64 * sizeof(uint16_t));
+    return 0;
+  }
+
   // Entropy-decode all MCUs into per-component coefficient grids
   // (natural order within each 64-coeff block).
   int decode(int16_t* out[3]) {
@@ -375,18 +717,7 @@ struct Decoder {
     for (int myi = 0; myi < my; ++myi) {
       for (int mxi = 0; mxi < mx; ++mxi) {
         if (restart_interval && mcu_count && mcu_count % restart_interval == 0) {
-          // Byte-align and consume the RSTn marker; reset DC predictors.
-          br.align();
-          if (!br.hit_marker) {
-            // marker bytes are still in the stream
-            while (br.pos + 1 < br.len && !(br.data[br.pos] == 0xFF &&
-                                            br.data[br.pos + 1] >= 0xD0 &&
-                                            br.data[br.pos + 1] <= 0xD7))
-              br.pos++;
-            if (br.pos + 1 < br.len) br.pos += 2;
-          } else {
-            br.hit_marker = false;  // marker already consumed by reader
-          }
+          restart(br);  // and reset the DC predictors
           for (int c = 0; c < ncomp; ++c) comp[c].dc_pred = 0;
         }
         for (int c = 0; c < ncomp; ++c) {
@@ -396,28 +727,8 @@ struct Decoder {
           if (!dct.defined || !act.defined) return -20;
           for (int v = 0; v < co.v; ++v) {
             for (int h = 0; h < co.h; ++h) {
-              memset(block, 0, sizeof(block));
-              int t = huff_decode(br, dct);
-              if (t < 0 || t > 15) return -21;  // DC category <= 11 in 8-bit
-              co.dc_pred += receive_extend(br, t);
-              block[0] = (int16_t)co.dc_pred;
-              int k = 1;
-              while (k < 64) {
-                int rs = huff_decode(br, act);
-                if (rs < 0) return -22;
-                int r = rs >> 4, s = rs & 15;
-                if (s == 0) {
-                  if (r == 15) {
-                    k += 16;
-                    continue;
-                  }
-                  break;  // EOB
-                }
-                k += r;
-                if (k > 63) return -23;
-                block[ZIGZAG[k]] = (int16_t)receive_extend(br, s);
-                k++;
-              }
+              int rc = block_seq(br, co, dct, act, block);
+              if (rc != 0) return rc;
               int by = myi * co.v + v, bx = mxi * co.h + h;
               if (bp_idx != nullptr) {
                 long blk = comp_block_base[c] + (long)by * co.bw + bx;
@@ -569,6 +880,52 @@ int rcv_jpeg_coeffs_blockpacked(const uint8_t* data, long len, uint8_t* idx,
   }
   *dense_n = d.bp_dense_n;
   return 0;
+}
+
+// The host decode's header parse: rcv_jpeg_info's geometry for any frame
+// the host decode reads (progressive and multi-scan too); *flags bit 0 is
+// set for a progressive frame, bit 1 where libjpeg takes three components
+// as RGB (no JFIF marker and Adobe's transform 0, or neither marker and
+// the component ids 'R', 'G', 'B'). -50: a frame it does not read yet.
+int rcv_jpeg_host_info(const uint8_t* data, long len, int* width, int* height, int* ncomp,
+                       int* h_samp, int* v_samp, int* blocks_w, int* blocks_h, int* flags) {
+  Decoder d{data, len};
+  d.host = true;
+  int rc = d.parse();
+  if (rc != 0) return rc;
+  int hmax, vmax, mx, my;
+  d.grid_dims(&hmax, &vmax, &mx, &my);
+  *width = d.width;
+  *height = d.height;
+  *ncomp = d.ncomp;
+  for (int c = 0; c < 3; ++c) {
+    bool on = c < d.ncomp;
+    h_samp[c] = on ? d.comp[c].h : 0;
+    v_samp[c] = on ? d.comp[c].v : 0;
+    blocks_w[c] = on ? mx * d.comp[c].h : 0;
+    blocks_h[c] = on ? my * d.comp[c].v : 0;
+  }
+  bool rgb = false;
+  if (d.ncomp == 3 && !d.saw_jfif) {
+    rgb = d.saw_adobe ? d.adobe_transform == 0
+                      : (d.comp[0].id == 'R' && d.comp[1].id == 'G' && d.comp[2].id == 'B');
+  }
+  *flags = (d.progressive ? 1 : 0) | (rgb ? 2 : 0);
+  return 0;
+}
+
+// The host decode's entropy decode: every scan into caller buffers (each
+// bh*bw*64 int16, natural order, as rcv_jpeg_host_info sizes them) and the
+// quant table each component used. -51: a coefficient left unrefined.
+int rcv_jpeg_host_coeffs(const uint8_t* data, long len, int16_t* out0, int16_t* out1,
+                         int16_t* out2, uint16_t* q0, uint16_t* q1, uint16_t* q2) {
+  Decoder d{data, len};
+  d.host = true;
+  int rc = d.parse();
+  if (rc != 0) return rc;
+  int16_t* outs[3] = {out0, out1, out2};
+  uint16_t* qs[3] = {q0, q1, q2};
+  return d.decode_host(outs, qs);
 }
 
 // Entropy-decode into caller buffers (each bh*bw*64 int16, natural order)

@@ -1,26 +1,35 @@
-// Full baseline JPEG decode on the host, to BGR, with no libjpeg: the
-// decode that libjpeg-turbo makes with its default settings, which is what
-// the reference gets from Pillow (and from its own libjpeg-turbo binding).
+// Full JPEG decode on the host, to BGR, with no libjpeg: the decode that
+// libjpeg-turbo makes with its default settings, which is what the
+// reference gets from Pillow (and from its own libjpeg-turbo binding).
 //
-//   entropy decode   the port's decoder (jpeg_entropy.cpp, rcv_jpeg_coeffs)
+//   entropy decode   the port's decoder (jpeg_entropy.cpp,
+//                    rcv_jpeg_host_coeffs): baseline and extended
+//                    sequential, in one scan or several, and progressive
+//                    streams whose every coefficient is refined to its
+//                    last bit
 //   dequantize       coefficient x quant table entry
 //   IDCT             the integer "islow" 8x8 inverse DCT: a column pass
 //                    kept with 2 extra fraction bits, a row pass, 13-bit
 //                    fixed-point constants, each result rounded and
 //                    clamped to 0..255 after the +128 level shift
-//   upsample         "fancy" (triangle) upsampling of the chroma planes:
-//                    h2v1 weighs the nearer sample 3/4 and the further 1/4
-//                    across the row; h2v2 does that down the column first
-//                    (sums of 3 near + 1 far), then across with 3/4, 1/4
-//                    weights and alternating rounding biases (8 and 7 of
-//                    16); planes end by repeating their last real sample.
-//                    A chroma plane 2 or fewer samples wide is box-upsampled
+//   upsample         libjpeg's choice per component, by its expansion
+//                    against the largest factors: none at full size;
+//                    "fancy" (triangle) h2v1, which weighs the nearer
+//                    sample 3/4 and the further 1/4 across the row; h1v2
+//                    (4:4:0), the same down the column with biases 1 and 2
+//                    of 4; h2v2, down the column first (sums of 3 near + 1
+//                    far), then across with 3/4, 1/4 weights and
+//                    alternating rounding biases (8 and 7 of 16); planes
+//                    end by repeating their last real sample. h2v1 and
+//                    h2v2 of a plane 2 or fewer samples wide, and every
+//                    other integral ratio (4:1:1, 4:1:0, ...), replicate
+//                    samples (box)
 //   colour           YCbCr -> RGB with the integer tables of JFIF's
-//                    coefficients (16 fraction bits)
+//                    coefficients (16 fraction bits), or none where libjpeg
+//                    takes the components as RGB
 //
-// Sampling factors: 1x1 (4:4:4 and gray), 2x1 (4:2:2) and 2x2 (4:2:0) of
-// the luma against both chroma planes. Output: rows of B, G, R bytes (gray
-// repeated three times) into a caller's buffer at any stride.
+// Output: rows of B, G, R bytes (gray repeated three times) into a
+// caller's buffer at any stride.
 //
 // Built with g++ at first use (see __init__.py); plain C interface.
 
@@ -29,10 +38,10 @@
 #include <vector>
 
 extern "C" {
-int rcv_jpeg_info(const uint8_t* data, long len, int* width, int* height, int* ncomp,
-                  int* h_samp, int* v_samp, int* bw, int* bh);
-int rcv_jpeg_coeffs(const uint8_t* data, long len, int16_t* out0, int16_t* out1,
-                    int16_t* out2, uint16_t* q0, uint16_t* q1, uint16_t* q2);
+int rcv_jpeg_host_info(const uint8_t* data, long len, int* width, int* height, int* ncomp,
+                       int* h_samp, int* v_samp, int* bw, int* bh, int* flags);
+int rcv_jpeg_host_coeffs(const uint8_t* data, long len, int16_t* out0, int16_t* out1,
+                         int16_t* out2, uint16_t* q0, uint16_t* q1, uint16_t* q2);
 }
 
 namespace {
@@ -185,38 +194,53 @@ void up_h2v2(const uint8_t* near, const uint8_t* far, int n, uint8_t* out) {
   out[2 * n - 1] = uint8_t((this_sum * 4 + 7) >> 4);
 }
 
+// libjpeg's upsampler of one component (jdsample.c), by its expansion
+// against the largest sampling factors.
+enum Upsample { kFull, kH2V1, kH1V2, kH2V2, kBox };
+
+Upsample upsampler(int hx, int vy, int dw) {
+  if (hx == 1 && vy == 1) return kFull;
+  if (hx == 2 && vy == 1) return dw > 2 ? kH2V1 : kBox;
+  if (hx == 1 && vy == 2) return kH1V2;
+  if (hx == 2 && vy == 2) return dw > 2 ? kH2V2 : kBox;
+  return kBox;  // int_upsample: every other integral ratio
+}
+
 struct Scratch {
   std::vector<int16_t> coef[3];
   std::vector<uint8_t> plane[3];
-  std::vector<uint8_t> row_cb, row_cr;
+  std::vector<uint8_t> row[3];
 };
 
 }  // namespace
 
 extern "C" {
 
-// Decode baseline JFIF `data` into `out`: height rows of width*3 B, G, R
-// bytes, row r at out + r*stride. `width`/`height` must be the frame's.
-// Returns 0, a negative decoder code for a corrupt or unsupported stream,
-// -40 for sampling factors other than 1x1, 2x1 and 2x2, -41 for a size
-// mismatch.
+// Decode JFIF `data` into `out`: height rows of width*3 B, G, R bytes, row
+// r at out + r*stride. `width`/`height` must be the frame's. Returns 0, a
+// negative decoder code for a corrupt or unsupported stream, -42 for
+// sampling factors that are not integral ratios (libjpeg refuses them),
+// -41 for a size mismatch, and rcv_jpeg_host_info's and
+// rcv_jpeg_host_coeffs' codes (-50, -51) for what it does not read yet.
 int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride, int width,
                         int height) {
-  int w, h, nc, hs[3], vs[3], bw[3], bh[3];
-  int rc = rcv_jpeg_info(data, len, &w, &h, &nc, hs, vs, bw, bh);
+  int w, h, nc, hs[3], vs[3], bw[3], bh[3], flags;
+  int rc = rcv_jpeg_host_info(data, len, &w, &h, &nc, hs, vs, bw, bh, &flags);
   if (rc != 0) return rc;
   if (w != width || h != height) return -41;
-  for (int c = 1; c < nc; c++)
-    if (hs[c] != 1 || vs[c] != 1) return -40;
-  int sh = hs[0], sv = nc == 3 ? vs[0] : 1;
-  if (nc == 1) sh = 1;
-  if (!((sh == 1 && sv == 1) || (sh == 2 && sv == 1) || (sh == 2 && sv == 2))) return -40;
+  int hmax = 1, vmax = 1;
+  for (int c = 0; c < nc; c++) {
+    hmax = hs[c] > hmax ? hs[c] : hmax;
+    vmax = vs[c] > vmax ? vs[c] : vmax;
+  }
+  for (int c = 0; c < nc; c++)
+    if (hmax % hs[c] || vmax % vs[c]) return -42;
 
   thread_local Scratch s;
   uint16_t q[3][64];
   for (int c = 0; c < 3; c++) s.coef[c].resize(c < nc ? size_t(bw[c]) * bh[c] * 64 : 64);
-  rc = rcv_jpeg_coeffs(data, len, s.coef[0].data(), s.coef[1].data(), s.coef[2].data(), q[0],
-                       q[1], q[2]);
+  rc = rcv_jpeg_host_coeffs(data, len, s.coef[0].data(), s.coef[1].data(), s.coef[2].data(), q[0],
+                            q[1], q[2]);
   if (rc != 0) return rc;
   long pw[3], ph[3];
   for (int c = 0; c < nc; c++) {
@@ -228,54 +252,71 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
         idct_islow(s.coef[c].data() + (size_t(by) * bw[c] + bx) * 64, q[c],
                    s.plane[c].data() + size_t(by) * 8 * pw[c] + bx * 8, pw[c]);
   }
-  const uint8_t* y_plane = s.plane[0].data();
   if (nc == 1) {
     for (int r = 0; r < height; r++) {
-      const uint8_t* yr = y_plane + size_t(r) * pw[0];
+      const uint8_t* yr = s.plane[0].data() + size_t(r) * pw[0];
       uint8_t* o = out + size_t(r) * stride;
       for (int x = 0; x < width; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = yr[x];
     }
     return 0;
   }
-  // The chroma planes' real extent: samples past it are never read, the
-  // upsampler repeats the last real one.
-  int cw = (width * 1 + sh - 1) / sh, chh = (height + sv - 1) / sv;
-  s.row_cb.resize(size_t(cw) * 2 + 2);
-  s.row_cr.resize(size_t(cw) * 2 + 2);
+  // Each component's real extent (libjpeg's downsampled size): samples past
+  // it are never read, the upsamplers repeat the last real one.
+  int hx[3], vy[3], dw[3], dh[3];
+  Upsample how[3];
+  for (int c = 0; c < nc; c++) {
+    hx[c] = hmax / hs[c];
+    vy[c] = vmax / vs[c];
+    dw[c] = int((long(width) * hs[c] + hmax - 1) / hmax);
+    dh[c] = int((long(height) * vs[c] + vmax - 1) / vmax);
+    how[c] = upsampler(hx[c], vy[c], dw[c]);
+    s.row[c].resize(size_t(dw[c]) * hx[c] + 2);
+  }
   const ColorTables& t = tables();
+  const bool rgb = flags & 2;
+  const uint8_t* rows[3];
   for (int r = 0; r < height; r++) {
-    const uint8_t *cb, *cr;
-    if (sh == 1) {
-      cb = s.plane[1].data() + size_t(r) * pw[1];
-      cr = s.plane[2].data() + size_t(r) * pw[2];
-    } else if (cw <= 2) {  // too narrow for the triangle filter: box upsampling
-      const uint8_t* b = s.plane[1].data() + size_t(r / sv) * pw[1];
-      const uint8_t* c = s.plane[2].data() + size_t(r / sv) * pw[2];
-      for (int i = 0; i < cw; i++) {
-        s.row_cb[2 * i] = s.row_cb[2 * i + 1] = b[i];
-        s.row_cr[2 * i] = s.row_cr[2 * i + 1] = c[i];
+    for (int c = 0; c < nc; c++) {
+      const uint8_t* plane = s.plane[c].data();
+      uint8_t* buf = s.row[c].data();
+      int cy = r / vy[c];
+      // the neighbouring row of the triangle filters: above for the upper
+      // output row of a pair, below for the lower, the edge row repeated
+      int fy = (r & 1) ? (cy + 1 < dh[c] ? cy + 1 : dh[c] - 1) : (cy > 0 ? cy - 1 : 0);
+      const uint8_t* near = plane + size_t(cy) * pw[c];
+      const uint8_t* far = plane + size_t(fy) * pw[c];
+      switch (how[c]) {
+        case kFull:
+          rows[c] = near;
+          continue;
+        case kH2V1:
+          up_h2v1(near, dw[c], buf);
+          break;
+        case kH1V2: {
+          int bias = (r & 1) ? 2 : 1;
+          for (int x = 0; x < dw[c]; x++) buf[x] = uint8_t((near[x] * 3 + far[x] + bias) >> 2);
+          break;
+        }
+        case kH2V2:
+          up_h2v2(near, far, dw[c], buf);
+          break;
+        case kBox:
+          for (int x = 0; x < width; x++) buf[x] = near[x / hx[c]];
+          break;
       }
-      cb = s.row_cb.data();
-      cr = s.row_cr.data();
-    } else if (sv == 1) {
-      up_h2v1(s.plane[1].data() + size_t(r) * pw[1], cw, s.row_cb.data());
-      up_h2v1(s.plane[2].data() + size_t(r) * pw[2], cw, s.row_cr.data());
-      cb = s.row_cb.data();
-      cr = s.row_cr.data();
-    } else {
-      int cy = r / 2;
-      int fy = (r & 1) ? (cy + 1 < chh ? cy + 1 : chh - 1) : (cy > 0 ? cy - 1 : 0);
-      up_h2v2(s.plane[1].data() + size_t(cy) * pw[1], s.plane[1].data() + size_t(fy) * pw[1], cw,
-              s.row_cb.data());
-      up_h2v2(s.plane[2].data() + size_t(cy) * pw[2], s.plane[2].data() + size_t(fy) * pw[2], cw,
-              s.row_cr.data());
-      cb = s.row_cb.data();
-      cr = s.row_cr.data();
+      rows[c] = buf;
     }
-    const uint8_t* yr = y_plane + size_t(r) * pw[0];
     uint8_t* o = out + size_t(r) * stride;
+    if (rgb) {
+      for (int x = 0; x < width; x++) {
+        o[3 * x + 2] = rows[0][x];
+        o[3 * x + 1] = rows[1][x];
+        o[3 * x + 0] = rows[2][x];
+      }
+      continue;
+    }
     for (int x = 0; x < width; x++) {
-      int yv = yr[x], b = cb[x], rr = cr[x];
+      int yv = rows[0][x], b = rows[1][x], rr = rows[2][x];
       o[3 * x + 2] = clamp_u8(yv + t.cr_r[rr]);
       o[3 * x + 1] = clamp_u8(yv + int((t.cb_g[b] + t.cr_g[rr]) >> 16));
       o[3 * x + 0] = clamp_u8(yv + t.cb_b[b]);

@@ -14,9 +14,10 @@ device; the engine's pipeline decodes every uncompressed format with it.
   hybrid decode (:mod:`.jpeg_tpu`) with ``mjpeg_hybrid=True``, else the
   full host decode, uploaded.
 
-The full host decode of MJPEG (:func:`decode_mjpeg_host`) is the port's C++
-decoder (:func:`..native.jpeg_decode_bgr`): libjpeg-turbo's default decode,
-which the reference gets from libjpeg-turbo or Pillow, with no libjpeg. It
+The full host decode of MJPEG (:func:`decode_mjpeg_host`, and
+:func:`decode_mjpeg_host_rgb` in RGB order) is the port's C++ decoder
+(:func:`..native.jpeg_decode_bgr`): libjpeg-turbo's default decode, which
+the reference gets from libjpeg-turbo or Pillow, with no libjpeg. It
 writes BGR rows straight into the destination, at its stride.
 """
 
@@ -42,6 +43,13 @@ def decode_mjpeg_host(data, out=None) -> np.ndarray:
         return native.jpeg_decode_bgr(data, out=out)
     except ValueError as e:
         raise DecodeError(f"JPEG decompress: {e}") from e
+
+
+def decode_mjpeg_host_rgb(data) -> np.ndarray:
+    """MJPEG → (H, W, 3) RGB u8 on the host: the host decode's channels
+    swapped, what the reference gets from Pillow's ``convert("RGB")``. A
+    corrupt frame raises DecodeError."""
+    return np.ascontiguousarray(decode_mjpeg_host(data)[..., ::-1])
 
 
 def mjpeg_size(data) -> tuple:

@@ -6,20 +6,25 @@ raqm (HarfBuzz), rasterized by FreeType's smooth renderer and composed
 glyph over glyph. Its masks are the spec (``tests/test_spec_freeze.py``
 pins three by hash). The port reproduces them from its own data and code:
 
-* ``assets/dejavusans_text.npz`` holds, per pixel size, the vendored
-  DejaVuSans' hinted outlines of every glyph printable ASCII shapes to,
-  HarfBuzz's advances and pair kerning, the ligature rules and the
-  ascent/descent (written by ``tools/make_text_data.py``, which runs only
-  where Pillow with raqm is present);
+* ``assets/dejavusans_text.npz`` holds, per pixel size 1-160, the
+  vendored DejaVuSans' hinted outlines of every glyph that printable ASCII
+  and Latin-1 (U+00A0-U+00FF) shape to, HarfBuzz's advances and pair
+  kerning, the ligature rules and the ascent/descent (written by
+  ``tools/make_text_data.py``, which runs only where Pillow with raqm is
+  present);
 * the layout is Pillow's: pen positions in 26.6, each glyph drawn at its
   pen rounded to whole pixels (``(x + 32) >> 6``), the text box from the
   pixel control boxes at those positions and the pen line, glyphs clipped
-  to that box;
+  to that box. The soft hyphen (U+00AD) is default-ignorable: the text is
+  shaped without it (ligatures and kerning reach across it) and it comes
+  back as the space glyph with no advance, after the glyph that holds the
+  character before it, as HarfBuzz places it;
 * ``native/text_raster.cpp`` rasterizes each outline and composes it over
   the canvas as Pillow does.
 
-A size outside the data (``round(font_scale * 20)`` not in it) or a
-character outside printable ASCII raises ``not_ported``: nothing is
+A size outside the data (``round(font_scale * 20)`` above 160) or a
+character outside printable ASCII and Latin-1 (a control character such as
+``\n`` or ``\t``, another script) raises ``not_ported``: nothing is
 approximated. Masks are padded to bucketed widths (as the reference's), so
 changing strings keep a few stable shapes.
 """
@@ -36,7 +41,8 @@ import numpy as np
 from ..core.errors import not_ported
 
 DATA = Path(__file__).resolve().parents[1] / "assets" / "dejavusans_text.npz"
-FIRST_CHAR, LAST_CHAR = 0x20, 0x7E
+FIRST_CHAR, LAST_CHAR = 0x20, 0xFF  # the cmap's range; its -1s (0x7F-0x9F) are not in the data
+SOFT_HYPHEN = "\xad"
 
 # Canvas width buckets, the reference's.
 _WIDTH_BUCKETS = (64, 128, 256, 512, 1024)
@@ -113,18 +119,32 @@ class _FontData:
         return got
 
     def glyphs(self, text: str) -> List[int]:
-        """Glyph indices of ``text``: ligatures first, longest rule first."""
-        out, i = [], 0
-        while i < len(text):
+        """Glyph indices of ``text``: soft hyphens set aside, ligatures
+        first, longest rule first; each soft hyphen back as the space glyph
+        after the glyph that holds the character before it."""
+        plain = text.replace(SOFT_HYPHEN, "")
+        runs, i = [], 0  # (glyph, characters it takes)
+        while i < len(plain):
             for lig, g in self.ligatures:
-                if text.startswith(lig, i):
-                    out.append(g)
-                    i += len(lig)
+                if plain.startswith(lig, i):
+                    runs.append((g, len(lig)))
                     break
             else:
-                out.append(int(self.cmap[ord(text[i]) - FIRST_CHAR]))
-                i += 1
-        return out
+                runs.append((int(self.cmap[ord(plain[i]) - FIRST_CHAR]), 1))
+            i += runs[-1][1]
+        if len(plain) == len(text):
+            return [g for g, _ in runs]
+        out, k, start, seen = [], 0, 0, 0
+        for c in text:
+            if c != SOFT_HYPHEN:
+                seen += 1
+                continue
+            while k < len(runs) and start < seen:
+                out.append(runs[k][0])
+                start += runs[k][1]
+                k += 1
+            out.append(-1)  # the soft hyphen's place
+        return out + [g for g, _ in runs[k:]]
 
 
 @lru_cache(maxsize=1)
@@ -144,10 +164,12 @@ def _px_size(font_scale: float) -> int:
 
 
 def _check_text(text: str) -> None:
-    bad = [c for c in text if not FIRST_CHAR <= ord(c) <= LAST_CHAR]
+    cmap = _data().cmap
+    bad = [c for c in text if not FIRST_CHAR <= ord(c) <= LAST_CHAR or cmap[ord(c) - FIRST_CHAR] < 0]
     if bad:
         raise not_ported(f"text with the character {bad[0]!r}",
-                         "the port's font data covers printable ASCII (0x20-0x7E)", "8")
+                         "the port's font data covers printable ASCII (0x20-0x7E) and Latin-1 "
+                         "(0xA0-0xFF)", "8")
 
 
 def _layout(text: str, px: int):
@@ -157,13 +179,21 @@ def _layout(text: str, px: int):
     _check_text(text)
     data = _data()
     size = data.size(px)
-    gl = data.glyphs(text)
-    pens = []
-    position = x_min = x_max = y_min = y_max = 0
-    for i, g in enumerate(gl):
+    placed = data.glyphs(text)
+    shaped = [g for g in placed if g >= 0]  # kerning pairs skip the soft hyphens
+    space = int(data.cmap[ord(" ") - FIRST_CHAR])
+    gl, pens = [], []
+    position = x_min = x_max = y_min = y_max = k = 0
+    for g in placed:
         p = _pixel(position)
         pens.append(p)
-        position += int(size.advance[g]) + (size.kern.get((g, gl[i + 1]), 0) if i + 1 < len(gl) else 0)
+        if g < 0:  # a soft hyphen: the space glyph, no advance
+            g = space
+        else:
+            k += 1
+            position += int(size.advance[g]) + (size.kern.get((g, shaped[k]), 0)
+                                                if k < len(shaped) else 0)
+        gl.append(g)
         x_max = max(x_max, _pixel(position))
         x0, y0, x1, y1 = size.cbox[g]
         x_min, x_max = min(x_min, x0 + p), max(x_max, x1 + p)

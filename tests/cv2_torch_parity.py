@@ -37,12 +37,12 @@ LATER_MODULES = ("_calib3d", "_algos", "_extras", "_misc3")
 
 
 # The submodules whose public callables the 7b sweeps call, and the
-# functions the reference runs with Pillow (item 8 in the port).
+# functions the reference runs with Pillow for multi-page and animated
+# files (items 8b and 8c in the port; the metadata ones, item 8a, run).
 SUBMODULES = ("aruco", "barcode", "detail", "dnn", "fisheye", "mcc", "parallel", "samples",
               "utils", "utils.logging", "videoio_registry")
-PILLOW_BOUND = frozenset({"imencodemulti", "imdecodemulti", "imdecodeWithMetadata",
-                          "imencodeWithMetadata", "imreadanimation", "imwriteanimation",
-                          "imdecodeanimation", "imencodeanimation"})
+PILLOW_BOUND = frozenset({"imencodemulti", "imdecodemulti", "imreadanimation",
+                          "imwriteanimation", "imdecodeanimation", "imencodeanimation"})
 
 
 def facade_get(cv, dotted):
@@ -255,7 +255,26 @@ def _eigen_check(ref, port, ra, pa):
         assert dot[sep].min() > 0.999
 
 
-CHECKS = {"kmeans": _kmeans_check, "cornerEigenValsAndVecs": _eigen_check}
+def _decoded_check(ref, port, ra, pa):
+    """imdecodeWithMetadata of each side's own PNG bytes (other bytes of
+    the same pixels): the same image, keys and values."""
+    same(ref[0], port[0], 0)
+    assert list(ref[1:]) == list(port[1:])
+
+
+def _encoded_check(ref, port, ra, pa):
+    """imencodeWithMetadata's bytes differ (zlib level, filters); read back
+    by the port's own decoder (held to Pillow's in
+    tests/test_torch_image_formats.py) they give the same image and text."""
+    from rustcv_tpu_torch.cv2._extras import imdecodeWithMetadata
+
+    assert ref[0] is port[0] is True
+    _decoded_check(imdecodeWithMetadata(_host(ref[1])), imdecodeWithMetadata(_host(port[1])),
+                   ra, pa)
+
+
+CHECKS = {"kmeans": _kmeans_check, "cornerEigenValsAndVecs": _eigen_check,
+          "imdecodeWithMetadata": _decoded_check, "imencodeWithMetadata": _encoded_check}
 
 
 # The one rule for which arguments the port receives as CPU tensors: an

@@ -10,9 +10,10 @@ as numpy and to the port with their images as CPU tensors (the one rule:
 :func:`port_args`), with ``np.asarray`` of a tensor refused as on the card;
 the results and the arguments written in place are held equal, or within
 the bar that :data:`BARS` states for the name. A reference call that raises
-must raise the same exception class (by name) in the port. The eight
-functions the reference runs with Pillow (multi-page, animated and metadata
-image files) raise ``not_ported`` (ROADMAP Queue 1 item 8) in the port.
+must raise the same exception class (by name) in the port. The six
+functions the reference runs with Pillow for multi-page and animated image
+files raise ``not_ported`` (ROADMAP Queue 1 item 8) in the port; the two
+metadata ones are held by :data:`CHECKS` (their bytes differ).
 """
 from __future__ import annotations
 

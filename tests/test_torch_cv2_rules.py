@@ -13,9 +13,10 @@ pinned (``rustcv_tpu_torch/cv2/_device.py``):
 * the later modules (ROADMAP Queue 1 item 7b) follow the same rules: which
   of their wrappers send a numpy image to the card is frozen in
   :data:`LATER_CARD_NAMES`, ``addText`` and ``thresholdWithMask`` write
-  into the caller's buffer, and the eight Pillow-bound functions raise
-  ``not_ported`` (item 8), also through the three that swallow errors in
-  the reference.
+  into the caller's buffer, and the six Pillow-bound functions raise
+  ``not_ported`` (items 8b and 8c), also through the three that swallow
+  errors in the reference; ``imdecodeWithMetadata`` and
+  ``imencodeWithMetadata`` (item 8a) run the port's own codecs.
 """
 import numpy as np
 import pytest
@@ -326,9 +327,6 @@ def test_add_text_on_a_contiguous_array_copies_nothing_back(monkeypatch):
 PILLOW_BOUND = [
     ("imencodemulti", lambda tmp, gif: P.imencodemulti(".gif", [np.zeros((8, 8, 3), np.uint8)])),
     ("imdecodemulti", lambda tmp, gif: P.imdecodemulti(gif)),
-    ("imdecodeWithMetadata", lambda tmp, gif: P.imdecodeWithMetadata(gif)),
-    ("imencodeWithMetadata", lambda tmp, gif: P.imencodeWithMetadata(
-        ".png", np.zeros((8, 8, 3), np.uint8), ["Title"], ["x"])),
     ("imreadanimation", lambda tmp, gif: P.imreadanimation(_gif_file(tmp, gif))),
     ("imwriteanimation", lambda tmp, gif: P.imwriteanimation(str(tmp / "b.gif"), _anim())),
     ("imdecodeanimation", lambda tmp, gif: P.imdecodeanimation(gif)),
@@ -364,6 +362,26 @@ def test_each_pillow_bound_name_raises_not_ported_item_8(name, call, tmp_path):
     assert R.imdecodemulti(gif)[0] is True and len(R.imdecodemulti(gif)[1]) == 2
     with pytest.raises(NotImplementedError, match=r"item 8\)"):
         call(tmp_path, gif)
+
+
+def _png_text(C):
+    return C.imencodeWithMetadata(".png", np.zeros((8, 8, 3), np.uint8), ["Title"], ["x"])
+
+
+METADATA = [
+    ("imdecodeWithMetadata", lambda C: C.imdecodeWithMetadata(_png_text(R)[1])),
+    ("imencodeWithMetadata", lambda C: R.imdecodeWithMetadata(_png_text(C)[1])),
+]
+
+
+@pytest.mark.parametrize("name,call", METADATA, ids=[n for n, _ in METADATA])
+def test_the_metadata_names_run_the_ports_codecs(name, call):
+    """Of the eight functions that were Pillow-bound, the two metadata ones
+    (item 8a) now answer as the reference does: a PNG's text comes back,
+    in order, with the same pixels. Six stay Pillow-bound."""
+    assert len(PILLOW_BOUND) == 6 and name not in dict(PILLOW_BOUND)
+    got, want = call(P), call(R)
+    assert got[1:] == want[1:] == (["Title"], ["x"]) and np.array_equal(got[0], want[0])
 
 
 def test_the_swallowing_wrappers_keep_false_for_what_is_no_image(tmp_path):

@@ -321,7 +321,7 @@ def _mesh_with_sub_batch(mp):
             mjpeg_backend="host", device_sim=True, device="cpu"), CameraError,
             "device_sim does not support MJPEG", id="mjpeg_host"),
         pytest.param(_mesh_with_sub_batch, ValueError, "sub_batch is per-chip", id="mesh"),
-        pytest.param(lambda mp: _port(64, 48, 1).tick(text="héllo"), NotImplementedError,
+        pytest.param(lambda mp: _port(64, 48, 1).tick(text="tab\there"), NotImplementedError,
                      "ROADMAP queue 1 item 8", id="text"),
         pytest.param(_device_sim_tick(PixelFormat.UYVY), SimulationError, "cannot encode",
                      id="uyvy"),

@@ -238,10 +238,19 @@ def test_processing_on_a_gray_mat():
 
 
 def test_what_is_not_ported_raises():
+    """Text outside the font data (a size past 160 px, a character outside
+    ASCII and Latin-1) raises; what once was outside it (80 px, "naïve")
+    draws as the reference draws."""
     m = Mat.from_array(_img(8, 8, seed=0), device="cpu")
-    for text, scale in (("hi", 4.0), ("naïve", 1.0)):  # outside the font data
+    for text, scale in (("hi", 8.5), ("na\u012dve", 1.0), ("two\nlines", 1.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
             port_ip.put_text(m, text, port_ip.Point(1, 6), scale, port_ip.Scalar.all(255))
+    for text, scale in (("hi", 4.0), ("naïve", 1.0)):
+        a = _img(120, 200, seed=1)
+        got, want = Mat.from_array(a.copy(), device="cpu"), jax_core.Mat.from_array(a.copy())
+        port_ip.put_text(got, text, port_ip.Point(3, 90), scale, port_ip.Scalar(0, 200, 255))
+        jax_ip.put_text(want, text, jax_ip.Point(3, 90), scale, jax_ip.Scalar(0, 200, 255))
+        np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
     with pytest.raises(ValueError):
         port_ip.resize(m, 4, 4, "lanczos")
 

@@ -29,7 +29,10 @@ odometry and stitching) with theirs, and the whole cv2 facade
 (``rustcv_tpu_torch.cv2``, its core and its later modules and submodules
 ``aruco``, ``detail``, ``dnn`` and ``fisheye``) on CPU tensors, with jax,
 Pillow and the JAX
-package ``rustcv_tpu`` absent. The font data's generator (``tools/make_text_data.py``) is no module of the package.
+package ``rustcv_tpu`` absent. The formats of item 8a (every PNG depth and Adam7,
+BMP RLE, ASCII PNM, PFM, progressive JPEG), their metadata and Latin-1
+text run the same way. The font data's generator
+(``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -856,3 +859,106 @@ def test_font_data_generator_is_not_a_module_of_the_port():
             spec = None
         assert spec is None, name
     assert not list((REPO / "rustcv_tpu_torch").rglob("make_text_data*"))
+
+
+_FORMATS_SCRIPT = textwrap.dedent(
+    """
+    import json, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    from pathlib import Path
+    import numpy as np
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.imgcodecs import exif
+    from rustcv_tpu_torch.ops import decode, text
+    d = Path(sys.argv[1])
+    want = json.loads((d / "want.json").read_text())
+    for name in want["images"]:
+        got = imgcodecs.imread(str(d / name), device="cpu").to_numpy()
+        assert np.array_equal(got, np.load(d / (name + ".npy"))), name
+    rgb = decode.decode_mjpeg_host_rgb((d / "progressive.jpg").read_bytes())
+    assert np.array_equal(rgb, np.load(d / "progressive.jpg.npy")[..., ::-1])
+    for name, meta in want["metadata"].items():
+        assert list(exif.metadata((d / name).read_bytes()).items()) == [tuple(kv) for kv in meta]
+        assert imgcodecs.imread_with_metadata(str(d / name), device="cpu")[1] == dict(meta)
+    for (s, scale), digest in want["masks"]:
+        import hashlib
+        assert hashlib.sha256(text.rasterize(s, scale)[0].tobytes()).hexdigest() == digest, s
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_formats_metadata_and_text_run_without_jax_or_pil(tmp_path):
+    """``imgcodecs`` (a 16-bit Adam7 PNG, an RLE8 BMP, an ASCII PGM, a PFM
+    and a progressive JPEG), ``imgcodecs.exif`` (a JPEG's and a PNG's EXIF),
+    ``ops.decode.decode_mjpeg_host_rgb`` and ``ops.text`` (Latin-1 at pixel
+    sizes 3 and 150) run with jax, Pillow and the JAX package blocked; the
+    files and what Pillow reads of them are made here, with Pillow."""
+    import hashlib
+    import io
+    import json
+    import struct
+    import zlib
+
+    import numpy as np
+    from PIL import Image
+
+    from rustcv_tpu.ops import text as ref_text
+
+    rng = np.random.default_rng(0)
+
+    def chunk(k, b):
+        return struct.pack(">I", len(b)) + k + b + struct.pack(">I", zlib.crc32(k + b))
+
+    s16 = rng.integers(0, 65536, (9, 13, 3)).astype(">u2")
+    rows = []
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+                           (1, 0, 2, 2), (0, 1, 1, 2)):
+        sub = s16[y0::dy, x0::dx]
+        rows += [b"\x00" + r.tobytes() for r in sub] if sub.size else []
+    files = {
+        "adam7.png": b"".join([b"\x89PNG\r\n\x1a\n",
+                               chunk(b"IHDR", struct.pack(">IIBBBBB", 13, 9, 16, 2, 0, 0, 1)),
+                               chunk(b"IDAT", zlib.compress(b"".join(rows))), chunk(b"IEND", b"")]),
+        "gray.pgm": b"P2\n# c\n3 2\n1000\n0 256 1000\n999 1 500\n",
+        "float.pfm": b"Pf\n3 2\n-1.0\n" + np.array([1.5, 300, -2, 7.9, 0, 255], "<f4").tobytes(),
+    }
+    pal = bytes(rng.integers(0, 256, 64).astype(np.uint8))
+    body = bytes([3, 1, 0, 4, 5, 6, 7, 8, 0, 0]) * 3 + b"\x00\x01"
+    hdr = struct.pack("<IiiHHIIiiII", 40, 7, 3, 1, 8, 1, 0, 0, 0, 16, 0)
+    off = 14 + 40 + len(pal)
+    files["rle8.bmp"] = b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + hdr + pal + body
+    a = rng.integers(0, 256, (17, 23, 3), np.uint8)
+    ex = Image.Exif()
+    ex[0x010F], ex[0x0112], ex[0x011A] = "maker", 6, 72.0
+    for name, fmt, kw in (("progressive.jpg", "JPEG", {"progressive": True, "quality": 80}),
+                          ("exif.jpg", "JPEG", {"exif": ex}), ("exif.png", "PNG", {"exif": ex})):
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, fmt, **kw)
+        files[name] = buf.getvalue()
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        np.save(tmp_path / (name + ".npy"),
+                np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))[..., ::-1])
+    want = {"images": sorted(files), "metadata": {}, "masks": []}
+    for name in ("exif.jpg", "exif.png"):
+        with Image.open(tmp_path / name) as img:
+            meta = {str(k): str(v) for k, v in img.info.items() if isinstance(v, (str, int, float))}
+            meta.update({f"exif:{k}": str(v) for k, v in img.getexif().items()})
+        want["metadata"][name] = list(meta.items())
+    for s, scale in (("héllo wörld", 0.15), ("ÆØÅ\xadfi «½»", 7.5)):
+        want["masks"].append(((s, scale), hashlib.sha256(
+            ref_text.rasterize(s, scale)[0].tobytes()).hexdigest()))
+    (tmp_path / "want.json").write_text(json.dumps(want))
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _FORMATS_SCRIPT, str(tmp_path)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")

@@ -6,28 +6,37 @@ it loads the FreeType and HarfBuzz libraries that Pillow's wheel bundles,
 with ctypes, and reads from them what Pillow's raqm layout uses. The port
 never runs it, and nothing at run time needs Pillow, FreeType or HarfBuzz.
 
-    python tools/make_text_data.py [--out PATH] [--min-size 8] [--max-size 64]
+    python tools/make_text_data.py [--out PATH] [--min-size 1] [--max-size 160] [--jobs 8]
 
+The characters are printable ASCII and Latin-1's U+00A0-U+00FF (``CHARS``).
 Per pixel size (``round(font_scale * 20)``), the tables are:
 
 * ``metrics``: ascent and descent as ``ImageFont.getmetrics()`` gives them;
-* every glyph that HarfBuzz makes from printable ASCII, ligatures
+* every glyph that HarfBuzz makes from those characters, ligatures
   included, as its hinted outline (``FT_LOAD_DEFAULT``): 26.6 points,
   on-curve flags and contour ends;
 * ``advance``: HarfBuzz's advance of each glyph (26.6), and ``kern``: its
-  adjustment of every glyph pair where it is not zero;
+  adjustment of every glyph pair where it is not zero (every pair of
+  characters and ligatures is shaped at every size);
 * the ligature rules (``lig_seq`` → ``lig_out``), in the order they apply.
 
+The soft hyphen (U+00AD) is default-ignorable: HarfBuzz shapes the text as
+if it were not there (ligatures and kerning reach across it) and shows it
+as the space glyph with no advance, right after the glyph of the character
+before it (``Layout``).
+
 Before it writes the file, the script checks that these tables reproduce
-HarfBuzz's glyphs and positions on random strings at every size, and that
-the port's rasterizer (``rustcv_tpu_torch.native.text_glyph``) renders
-every glyph at every size as FreeType's ``FT_Render_Glyph`` does, byte for
-byte; it prints the counts.
+HarfBuzz's glyphs and positions on random strings at every size (soft
+hyphens among them), and that the port's rasterizer
+(``rustcv_tpu_torch.native.text_glyph``) renders every glyph at every size
+as FreeType's ``FT_Render_Glyph`` does, byte for byte; it prints the
+counts. The sizes run in ``--jobs`` processes.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import glob
 import itertools
@@ -41,6 +50,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FONT = os.path.join(ROOT, "rustcv_tpu_torch", "assets", "DejaVuSans.ttf")
 OUT = os.path.join(ROOT, "rustcv_tpu_torch", "assets", "dejavusans_text.npz")
 ASCII = "".join(chr(c) for c in range(0x20, 0x7F))
+CHARS = ASCII + "".join(chr(c) for c in range(0xA0, 0x100))
+SOFT_HYPHEN = "\xad"
+SHAPED = CHARS.replace(SOFT_HYPHEN, "")  # the characters that shape to a glyph of their own
+FIRST, LAST = 0x20, 0xFF  # the cmap's range; -1 where a code is not in CHARS
 
 
 def _libs():
@@ -193,22 +206,37 @@ def _bind(ft, hb):
     ft.FT_Render_Glyph.argtypes = [ctypes.POINTER(_Slot), c_int]
 
 
-def find_ligatures(font: Font) -> list:
-    """Every string of printable ASCII that HarfBuzz shapes to fewer glyphs
-    than characters, up to 4 characters long (``(string, glyph)``, longest
-    first). Longer strings are searched only from the shorter ones' heads."""
-    ligs = {}
-    for n in (2, 3):
-        for t in itertools.product(ASCII, repeat=n):
-            s = "".join(t)
-            g = font.shape(s)
-            if len(g) == 1:
-                ligs[s] = g[0][0]
-            elif len(g) != n and not any(s[i:] in ligs or s[:i] in ligs for i in range(1, n)):
-                raise ValueError(f"{s!r} shapes to {len(g)} glyphs")
-    heads = {s[:2] for s in ligs}
-    for h in heads:
-        for t in itertools.product(ASCII, repeat=2):
+def _lig_worker(first: str) -> tuple:
+    """The strings of two and three characters from ``first`` that shape to
+    one glyph, and those that shape to neither one glyph nor one per
+    character."""
+    font = _worker_font(20)
+    whole, odd = {}, []
+    for t in itertools.chain(((c,) for c in SHAPED), itertools.product(SHAPED, repeat=2)):
+        s = first + "".join(t)
+        g = font.shape(s)
+        if len(g) == 1:
+            whole[s] = g[0][0]
+        elif len(g) != len(s):
+            odd.append(s)
+    return whole, odd
+
+
+def find_ligatures(pool) -> list:
+    """Every string of the characters (but the soft hyphen) that HarfBuzz
+    shapes to fewer glyphs than characters, up to 4 characters long
+    (``(string, glyph)``, longest first): every string of 2 and 3, then 4
+    from the heads of those found."""
+    ligs, odd = {}, []
+    for whole, o in pool.map(_lig_worker, SHAPED):
+        ligs.update(whole)
+        odd += o
+    for s in odd:
+        if not any(s[i:] in ligs or s[:i] in ligs for i in range(1, len(s))):
+            raise ValueError(f"{s!r} shapes to neither one glyph nor one per character")
+    font = _worker_font(20)
+    for h in {s[:2] for s in ligs}:
+        for t in itertools.product(SHAPED, repeat=2):
             s = h + "".join(t)
             g = font.shape(s)
             if len(g) == 1:
@@ -218,45 +246,81 @@ def find_ligatures(font: Font) -> list:
 
 class Layout:
     """The tables' layout of a string, as ``rustcv_tpu_torch.ops.text`` does
-    it: greedy ligatures, then each glyph's advance plus the kerning of the
-    pair it starts."""
+    it: soft hyphens set aside, greedy ligatures, then each glyph's advance
+    plus the kerning of the pair it starts; each soft hyphen comes back as
+    the space glyph with no advance, after the glyph that holds the
+    character before it."""
 
     def __init__(self, cmap, ligs, advance, kern):
         self.cmap, self.ligs, self.advance, self.kern = cmap, ligs, advance, kern
 
-    def glyphs(self, text: str):
+    def glyphs(self, plain: str):
+        """[(glyph, characters it takes)] of a string with no soft hyphen."""
         out, i = [], 0
-        while i < len(text):
+        while i < len(plain):
             for s, g in self.ligs:
-                if text.startswith(s, i):
-                    out.append(g)
-                    i += len(s)
+                if plain.startswith(s, i):
+                    out.append((g, len(s)))
                     break
             else:
-                out.append(self.cmap[text[i]])
-                i += 1
+                out.append((self.cmap[plain[i]], 1))
+            i += out[-1][1]
         return out
 
     def positions(self, text: str):
-        gl = self.glyphs(text)
+        runs = self.glyphs(text.replace(SOFT_HYPHEN, ""))
+        gl = [g for g, _ in runs]
         adv = [self.advance[g] + (self.kern.get((g, gl[i + 1]), 0) if i + 1 < len(gl) else 0)
                for i, g in enumerate(gl)]
-        return gl, adv
+        out_g, out_a, k, start, seen = [], [], 0, 0, 0
+        for c in text:
+            if c != SOFT_HYPHEN:
+                seen += 1
+                continue
+            while k < len(gl) and start < seen:  # the glyphs that start before it
+                out_g.append(gl[k])
+                out_a.append(adv[k])
+                start += runs[k][1]
+                k += 1
+            out_g.append(self.cmap[" "])
+            out_a.append(0)
+        return out_g + gl[k:], out_a + adv[k:]
 
 
-def extract(ft, hb, library, px: int, ligs_ascii, rng):
+_WORKER = {}
+
+
+def _worker_font(px: int) -> "Font":
+    """This process's Font at ``px`` (the libraries loaded once per process)."""
+    if "library" not in _WORKER:
+        ft, hb = _libs()
+        _bind(ft, hb)
+        library = c_void_p()
+        if ft.FT_Init_FreeType(ctypes.byref(library)):
+            raise OSError("FT_Init_FreeType failed")
+        _WORKER.update(ft=ft, hb=hb, library=library)
+    return Font(_WORKER["ft"], _WORKER["hb"], _WORKER["library"], px)
+
+
+def extract(px: int, ligs) -> dict:
+    """One size's tables, checked against HarfBuzz and FreeType."""
     from PIL import ImageFont
 
-    font = Font(ft, hb, library, px)
-    cmap = {c: font.shape(c)[0][0] for c in ASCII}
-    glyphs = sorted(set(cmap.values()) | {g for _, g in ligs_ascii})
+    font = _worker_font(px)
+    rng = random.Random(px)
+    cmap = {c: font.shape(c)[0][0] for c in SHAPED}
+    glyphs = sorted(set(cmap.values()) | {g for _, g in ligs})
     advance = {}
-    units = list(ASCII) + [s for s, _ in ligs_ascii]
+    units = list(SHAPED) + [s for s, _ in ligs]
     for u in units:
         (g, xa, ya, xo, yo), = font.shape(u)
         if (ya, xo, yo) != (0, 0, 0):
             raise ValueError(f"{u!r} at {px}px: y advance or offsets {(ya, xo, yo)}")
-        advance[g] = xa
+        if advance.setdefault(g, xa) != xa:
+            raise ValueError(f"{u!r} at {px}px: glyph {g} with two advances")
+    (g, xa, *_), = font.shape(SOFT_HYPHEN)
+    if (g, xa) != (cmap[" "], 0):
+        raise ValueError(f"the soft hyphen at {px}px shapes to {font.shape(SOFT_HYPHEN)}")
     glyph_of = {u: font.shape(u)[0][0] for u in units}
     kern = {}
     for u1, u2 in itertools.product(units, repeat=2):
@@ -268,20 +332,23 @@ def extract(ft, hb, library, px: int, ligs_ascii, rng):
             raise ValueError(f"{u1 + u2!r} at {px}px: positioning beyond pair kerning")
         if sh[0][1] != advance[g1]:
             kern[(g1, g2)] = sh[0][1] - advance[g1]
-    lay = Layout(cmap, ligs_ascii, advance, kern)
-    probe = ["ffi", "ffl", "fff", "fffi", "AVAV", "To", "Wa", "Ty", " f i ", "office"]
-    probe += ["".join(rng.choice(ASCII) for _ in range(rng.randint(1, 24))) for _ in range(300)]
-    probe += ["".join(rng.choice("fil AVTWoayr.,") for _ in range(rng.randint(1, 12))) for _ in range(300)]
+    lay = Layout(dict(cmap, **{SOFT_HYPHEN: cmap[" "]}), ligs, advance, kern)
+    probe = ["ffi", "ffl", "fff", "fffi", "AVAV", "To", "Wa", "Ty", " f i ", "office", "\xad",
+             "A\xadV", "f\xadi", "f\xadf\xadi", "\xad\xadfi\xad", "T\xad\xado", "é\xadà ÿ"]
+    probe += ["".join(rng.choice(CHARS) for _ in range(rng.randint(1, 24))) for _ in range(300)]
+    probe += ["".join(rng.choice("fil AVTWoayr.,\xad\xc0\xe9\xfd") for _ in range(rng.randint(1, 12)))
+              for _ in range(300)]
     for s in probe:
         sh = font.shape(s)
         gl, adv = lay.positions(s)
-        if [x[0] for x in sh] != gl or [x[1] for x in sh] != adv:
+        if [x[0] for x in sh] != gl or [x[1] for x in sh] != adv or any(x[2:] != (0, 0, 0)
+                                                                       for x in sh):
             raise ValueError(f"the tables do not reproduce HarfBuzz on {s!r} at {px}px")
     asc, desc = ImageFont.truetype(FONT, px).getmetrics()
     outlines = {g: font.outline(g) for g in glyphs}
     raster_diffs = sum(not _renders_as_freetype(font, g, *outlines[g]) for g in glyphs)
     return dict(cmap=cmap, glyphs=glyphs, advance=advance, kern=kern, metrics=(asc, desc),
-                outlines=outlines, raster_diffs=raster_diffs)
+                outlines=outlines, raster_diffs=raster_diffs, probes=len(probe))
 
 
 def _renders_as_freetype(font: Font, glyph: int, points, on_curve, ends) -> bool:
@@ -290,7 +357,7 @@ def _renders_as_freetype(font: Font, glyph: int, points, on_curve, ends) -> bool
     sys.path.insert(0, ROOT)
     from rustcv_tpu_torch import native
 
-    pad = 4 * font.px
+    pad = 4 * font.px + 8
     want = np.zeros((2 * pad, 2 * pad), np.uint8)
     bitmap, left, top = font.render(glyph)
     want[pad - top:pad - top + bitmap.shape[0], pad + left:pad + left + bitmap.shape[1]] = bitmap
@@ -303,18 +370,14 @@ def _renders_as_freetype(font: Font, glyph: int, points, on_curve, ends) -> bool
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=OUT)
-    ap.add_argument("--min-size", type=int, default=8)
-    ap.add_argument("--max-size", type=int, default=64)
+    ap.add_argument("--min-size", type=int, default=1)
+    ap.add_argument("--max-size", type=int, default=160)
+    ap.add_argument("--jobs", type=int, default=min(8, os.cpu_count() or 1))
     args = ap.parse_args(argv)
-    ft, hb = _libs()
-    _bind(ft, hb)
-    library = c_void_p()
-    if ft.FT_Init_FreeType(ctypes.byref(library)):
-        raise OSError("FT_Init_FreeType failed")
-    ligs_ascii = find_ligatures(Font(ft, hb, library, 20))
     sizes = list(range(args.min_size, args.max_size + 1))
-    rng = random.Random(0)
-    per = [extract(ft, hb, library, px, ligs_ascii, rng) for px in sizes]
+    with concurrent.futures.ProcessPoolExecutor(args.jobs) as pool:
+        ligs = find_ligatures(pool)
+        per = list(pool.map(extract, sizes, [ligs] * len(sizes)))
     glyphs = per[0]["glyphs"]
     if any(p["glyphs"] != glyphs or p["cmap"] != per[0]["cmap"] for p in per):
         raise ValueError("the glyph set changes with the size")
@@ -340,9 +403,10 @@ def main(argv=None) -> int:
         sizes=np.array(sizes, np.int16),
         metrics=np.array([p["metrics"] for p in per], np.int16),
         glyph_ids=np.array(glyphs, np.int32),
-        cmap=np.array([gi[per[0]["cmap"][c]] for c in ASCII], np.int16),
-        lig_text=np.array([s for s, _ in ligs_ascii]),
-        lig_out=np.array([gi[g] for _, g in ligs_ascii], np.int16),
+        cmap=np.array([gi[per[0]["cmap"][" " if chr(c) == SOFT_HYPHEN else chr(c)]]
+                       if chr(c) in CHARS else -1 for c in range(FIRST, LAST + 1)], np.int16),
+        lig_text=np.array([s for s, _ in ligs]),
+        lig_out=np.array([gi[g] for _, g in ligs], np.int16),
         advance=np.array([[p["advance"][g] for g in glyphs] for p in per], np.int32),
         kern_pairs=np.array([(gi[a], gi[b]) for a, b in pairs], np.int16).reshape(-1, 2),
         kern=np.array([[p["kern"].get(k, 0) for k in pairs] for p in per], np.int16),
@@ -358,8 +422,10 @@ def main(argv=None) -> int:
           f"{renders} glyph renders (every glyph at every size)")
     if bad:
         raise ValueError("the port's rasterizer does not render as FreeType does")
-    print(f"make_text_data: {len(sizes)} sizes, {len(glyphs)} glyphs, {len(ligs_ascii)} ligatures "
-          f"{[s for s, _ in ligs_ascii]}, {len(pairs)} kerning pairs, {len(points)} points -> "
+    print(f"make_text_data: the tables reproduce HarfBuzz on {sum(p['probes'] for p in per)} "
+          f"strings ({per[0]['probes']} per size)")
+    print(f"make_text_data: {len(sizes)} sizes, {len(glyphs)} glyphs, {len(ligs)} ligatures "
+          f"{[s for s, _ in ligs]}, {len(pairs)} kerning pairs, {len(points)} points -> "
           f"{args.out} ({os.path.getsize(args.out)} bytes)")
     return 0
 
