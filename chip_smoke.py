@@ -2092,6 +2092,572 @@ def time_formats_8a(smi: str, dev: str = "cuda") -> None:
           "ms/string", flush=True)
 
 
+# -- phases 3w and 4w: TIFF and GIF, every page and frame (ROADMAP Queue 1
+# item 8b). The files are made here without Pillow: TIFF by tiff_file (raw,
+# PackBits, MSB-first LZW and both Deflate codes, II and MM, BigTIFF, strips
+# and tiles, planar 2, predictor 2, every photometric and depth the port
+# reads), GIF by gif_file (local palettes, interlace, offsets, transparency,
+# each disposal, LZW minimum code sizes 2-8) and by the port's own writers;
+# their truths are Pillow's reading rules computed in numpy
+# (tests/test_torch_multipage_formats.py holds the writers and truths
+# against Pillow).
+
+MULTI_TIMED = 3  # calls per timing at 1080p
+GIF_CODE_SIZES = (2, 3, 5, 8)
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes, the early change, a clear code first and
+    whenever the table fills, the end code last)."""
+    out, acc, nacc = bytearray(), 0, 0
+    width, table, nxt = 9, {}, 258
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+
+    put(256)
+    if data:
+        cur = data[0]  # the code of the string matched so far
+        for b in data[1:]:
+            nb = cur << 8 | b
+            if nb in table:
+                cur = table[nb]
+                continue
+            put(cur)
+            table[nb] = nxt
+            nxt += 1
+            if nxt >= 4094:  # libtiff's encoder: a clear before the table fills
+                put(256)
+                table, nxt, width = {}, 258, 9
+            elif nxt >= 1 << width:
+                width += 1
+            cur = b
+        put(cur)
+        if nxt + 1 >= 1 << width and width < 12:  # the decoder adds one more entry
+            width += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more as repeats, the rest as literals."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_pack(v: np.ndarray, bits: int, e: str) -> bytes:
+    """Samples (rows, width, per) → packed rows (sub-byte samples MSB first,
+    each row on a byte)."""
+    n = v.shape[0]
+    if bits < 8:
+        flat = v.reshape(n, -1).astype(np.uint8)
+        per = 8 // bits
+        pad = np.zeros((n, -(-flat.shape[1] // per) * per), np.uint8)
+        pad[:, :flat.shape[1]] = flat
+        shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+        return np.bitwise_or.reduce(pad.reshape(n, -1, per) << shifts, axis=2).astype(
+            np.uint8).tobytes()
+    return v.astype(v.dtype.newbyteorder(e)).tobytes()
+
+
+def _tiff_diff(v: np.ndarray) -> np.ndarray:
+    """Predictor 2: each sample minus the one to its left, modulo 2^bits."""
+    u = v.view(v.dtype.str.replace("i", "u").replace("f", "u"))
+    d = u.copy()
+    d[:, 1:] = u[:, 1:] - u[:, :-1]
+    return d.view(v.dtype)
+
+
+def tiff_file(pages, order: str = "II", big: bool = False) -> bytes:
+    """A TIFF of ``pages``, each a dict: ``samples`` (H, W, spp) in their
+    dtype (u8 for 1-8 bits, u16, i32 or f32), ``photo``, and optionally
+    ``bits``, ``fmt`` (SampleFormat), ``extra``, ``colormap``, ``comp`` (1,
+    5, 8, 32773, 32946), ``predictor``, ``planar``, ``tile`` (tw, th) or
+    ``rows`` per strip, ``fill`` (FillOrder), ``tags`` ({tag: (type,
+    values)})."""
+    import struct
+    import zlib
+
+    e = "<" if order == "II" else ">"
+    head = (b"II" if order == "II" else b"MM") + struct.pack(e + "H", 43 if big else 42)
+    out = bytearray(head + (struct.pack(e + "HHQ", 8, 0, 0) if big else b"\x00" * 4))
+    link = 8 if big else 4
+    fmts = {1: "B", 2: "B", 3: "H", 4: "L", 5: "L", 7: "B", 11: "f", 16: "Q"}
+    for pg in pages:
+        v = np.asarray(pg["samples"])
+        h, w, spp = v.shape
+        bits = pg.get("bits", v.dtype.itemsize * 8)
+        comp, planar = pg.get("comp", 1), pg.get("planar", 1)
+        chunks, counts = [], []
+        tw, th = pg["tile"] if "tile" in pg else (w, pg.get("rows", h))
+        planes = [v[..., i:i + 1] for i in range(spp)] if planar == 2 else [v]
+        for plane in planes:
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    if "tile" in pg:
+                        blk = np.zeros((th, tw, plane.shape[2]), v.dtype)
+                        part = plane[y:y + th, x:x + tw]
+                        blk[:part.shape[0], :part.shape[1]] = part
+                    else:
+                        blk = plane[y:y + th]
+                    if pg.get("predictor", 1) == 2:
+                        blk = _tiff_diff(blk)
+                    raw = _tiff_pack(blk, bits, e)
+                    data = {1: raw, 5: tiff_lzw(raw), 32773: packbits(raw)}.get(comp)
+                    if data is None:
+                        data = zlib.compress(raw)
+                    if pg.get("fill", 1) == 2:  # the stored bytes, each bit-reversed
+                        data = np.unpackbits(np.frombuffer(data, np.uint8)).reshape(-1, 8)[:, ::-1]
+                        data = np.packbits(data).tobytes()
+                    chunks.append(data)
+                    counts.append(len(data))
+        tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [comp]),
+                262: (3, [pg["photo"]]), 277: (3, [spp]), 284: (3, [planar])}
+        if pg.get("fmt", 1) != 1:
+            tags[339] = (3, [pg["fmt"]] * spp)
+        if pg.get("extra"):
+            tags[338] = (3, list(pg["extra"]))
+        if pg.get("predictor", 1) != 1:
+            tags[317] = (3, [pg["predictor"]])
+        if pg.get("fill", 1) != 1:
+            tags[266] = (3, [pg["fill"]])
+        if pg.get("colormap") is not None:
+            tags[320] = (3, list(pg["colormap"]))
+        if "tile" in pg:
+            tags[322], tags[323] = (3, [tw]), (3, [th])
+            tags[324], tags[325] = (16 if big else 4, [0] * len(chunks)), (4, counts)
+        else:
+            tags[278] = (3, [th])
+            tags[273], tags[279] = (16 if big else 4, [0] * len(chunks)), (4, counts)
+        tags.update(pg.get("tags", {}))
+        while len(out) % 2:
+            out.append(0)
+        at = len(out)
+        for c in chunks:  # the image data before its IFD
+            out += c
+        starts = list(np.cumsum([at] + counts[:-1]))
+        tags[324 if "tile" in pg else 273] = (16 if big else 4, [int(x) for x in starts])
+        while len(out) % 2:
+            out.append(0)
+        ifd = len(out)
+        struct.pack_into(e + ("Q" if big else "L"), out, link, ifd)
+        inline, entry = (8, 20) if big else (4, 12)
+        tail_at = ifd + (8 if big else 2) + entry * len(tags) + inline
+        body = bytearray(struct.pack(e + ("Q" if big else "H"), len(tags)))
+        tail = bytearray()
+        for tag in sorted(tags):
+            typ, vals = tags[tag]
+            raw = struct.pack(f"{e}{len(vals)}{fmts[typ]}", *vals) if typ != 2 else bytes(vals)
+            if len(raw) <= inline:
+                value = raw.ljust(inline, b"\x00")
+            else:
+                value = struct.pack(e + ("Q" if big else "L"), tail_at + len(tail))
+                tail += raw + (b"\x00" if len(raw) % 2 else b"")
+            count = len(vals) // 2 if typ == 5 else len(vals)  # a rational is two longs
+            body += struct.pack(e + ("HHQ" if big else "HHL"), tag, typ, count) + value
+        link = ifd + len(body)
+        body += b"\x00" * inline
+        out += body + tail
+    return bytes(out)
+
+
+def tiff_truth(pg) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of a page's samples, as BGR: gray at 1-4
+    bits scaled by 255 / (2^d - 1) (inverted for photometric 0, but not at
+    16 bits), 16-bit and 32-bit gray clipped, float truncated, RGB at 16 bits
+    its high bytes, associated alpha un-premultiplied, a palette's colour
+    map's high bytes, CMYK by Pillow's integer formula; the orientation tag
+    applied."""
+    v = np.asarray(pg["samples"])
+    photo, bits = pg["photo"], pg.get("bits", v.dtype.itemsize * 8)
+    if photo in (0, 1) and v.shape[2] <= 2 and bits <= 8:
+        g = v[..., 0].astype(np.int64) * (255 // ((1 << bits) - 1))
+        g = 255 - g if photo == 0 else g
+    elif photo in (0, 1) and v.shape[2] == 1:
+        f = np.nan_to_num(v[..., 0].astype(np.float64), nan=0.0, posinf=255.0, neginf=0.0)
+        g = np.clip(np.trunc(f), 0, 255)
+    else:
+        g = None
+    if g is not None:
+        rgb = np.repeat(g.astype(np.uint8)[..., None], 3, axis=2)
+    elif photo == 3:
+        cm = np.asarray(pg["colormap"]).reshape(3, -1).T // 256
+        rgb = cm[v[..., 0]].astype(np.uint8)
+    elif photo == 5:
+        c = v.astype(np.int64)
+        nk = 255 - c[..., 3:4]
+        t = c[..., :3] * nk + 128
+        rgb = np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    else:
+        c = (v >> 8).astype(np.int64) if bits == 16 else v.astype(np.int64)
+        rgb = c[..., :3]
+        if tuple(pg.get("extra", ()))[:1] == (1,) and pg.get("planar", 1) == 1:
+            a = c[..., 3:4]
+            rgb = np.where(a == 0, 0, np.where(a == 255, rgb,
+                                               np.clip(rgb * 255 // np.maximum(a, 1), 0, 255)))
+        rgb = rgb.astype(np.uint8)
+    o = pg.get("tags", {}).get(274, (3, [1]))[1][0]
+    rgb = {1: rgb, 3: rgb[::-1, ::-1], 6: np.rot90(rgb, -1), 8: np.rot90(rgb, 1)}[o]
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def tiff_cases(w: int, h: int, seed: int = 22) -> list:
+    """(name, bytes, [BGR truth per page]) of phase 3w at w x h: each
+    compression, predictor 2, II and MM, strips and tiles, planar 2, every
+    photometric and depth the port reads, fill order 2, an orientation, a
+    three-page file and a BigTIFF."""
+    rng = np.random.default_rng(seed)
+    u8 = lambda *c: rng.integers(0, 256, (h, w) + c).astype(np.uint8)  # noqa: E731
+    cmap4 = rng.integers(0, 65536, 48)
+    cmap8 = rng.integers(0, 65536, 768)
+    pages = {
+        "raw RGB, 64-row strips": dict(samples=u8(3), photo=2, rows=64),
+        "PackBits gray": dict(samples=u8(1) // 64 * 64, photo=1, comp=32773),
+        "LZW RGB": dict(samples=u8(3) // 16 * 16, photo=2, comp=5, rows=32),
+        "LZW RGB, predictor 2": dict(samples=u8(3), photo=2, comp=5, predictor=2, rows=40),
+        "LZW 16-bit gray, predictor 2": dict(samples=rng.integers(0, 700, (h, w, 1)).astype(
+            np.uint16), photo=1, comp=5, predictor=2),
+        "Deflate RGBA, predictor 2": dict(samples=u8(4), photo=2, comp=8, predictor=2, extra=(2,)),
+        "Deflate (32946) CMYK": dict(samples=u8(4), photo=5, comp=32946),
+        "raw 16-bit RGB": dict(samples=rng.integers(0, 65536, (h, w, 3)).astype(np.uint16), photo=2),
+        "LZW RGB tiles": dict(samples=u8(3), photo=2, comp=5, tile=(64, 48)),
+        "raw planar RGB": dict(samples=u8(3), photo=2, planar=2, rows=50),
+        "Deflate planar RGB, predictor 2": dict(samples=u8(3), photo=2, planar=2, comp=8,
+                                                predictor=2, tile=(32, 32)),
+        "bilevel, WhiteIsZero": dict(samples=rng.integers(0, 2, (h, w, 1)).astype(np.uint8),
+                                     photo=0, bits=1),
+        "2-bit gray, PackBits": dict(samples=rng.integers(0, 4, (h, w, 1)).astype(np.uint8),
+                                     photo=1, bits=2, comp=32773),
+        "4-bit WhiteIsZero, LZW": dict(samples=rng.integers(0, 16, (h, w, 1)).astype(np.uint8),
+                                       photo=0, bits=4, comp=5),
+        "4-bit palette": dict(samples=rng.integers(0, 16, (h, w, 1)).astype(np.uint8), photo=3,
+                              bits=4, colormap=cmap4),
+        "8-bit palette, Deflate": dict(samples=u8(1), photo=3, colormap=cmap8, comp=8),
+        "float32 gray": dict(samples=rng.normal(120, 110, (h, w, 1)).astype(np.float32), photo=1,
+                             fmt=3, comp=8),
+        "int32 gray, predictor 2": dict(samples=rng.integers(-300, 600, (h, w, 1)).astype(np.int32),
+                                        photo=1, fmt=2, comp=5, predictor=2),
+        "gray + alpha": dict(samples=u8(2), photo=1, extra=(2,)),
+        "associated alpha": dict(samples=u8(4), photo=2, extra=(1,), comp=5),
+        "fill order 2, LZW gray": dict(samples=u8(1) // 32 * 32, photo=1, comp=5, fill=2),
+        "orientation 6": dict(samples=u8(3), photo=2, comp=8, tags={274: (3, [6])}),
+    }
+    big_endian = ("PackBits gray", "LZW RGB, predictor 2", "raw 16-bit RGB", "raw planar RGB",
+                  "4-bit WhiteIsZero, LZW", "8-bit palette, Deflate", "associated alpha")
+    out = [(name, tiff_file([pg], "MM" if name in big_endian else "II"), [tiff_truth(pg)])
+           for name, pg in pages.items()]
+    three = [pages["LZW RGB, predictor 2"], pages["4-bit palette"], pages["Deflate (32946) CMYK"]]
+    out.append(("three pages", tiff_file(three), [tiff_truth(pg) for pg in three]))
+    out.append(("BigTIFF", tiff_file([pages["LZW RGB tiles"]], big=True),
+                [tiff_truth(pages["LZW RGB tiles"])]))
+    return out
+
+
+def gif_lzw(idx: np.ndarray, bits: int) -> bytes:
+    """GIF LZW of colour indices at minimum code size ``bits`` (LSB-first,
+    a clear first and whenever the table fills), cut into sub-blocks."""
+    clear, eoi = 1 << bits, (1 << bits) + 1
+    out, acc, nacc = bytearray(), 0, 0
+    width, table, nxt = bits + 1, {}, eoi + 1
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    put(clear)
+    data = bytes(np.asarray(idx, np.uint8).ravel())
+    cur = data[0] if data else None  # the code of the string matched so far
+    for b in data[1:]:
+        nb = cur << 8 | b
+        if nb in table:
+            cur = table[nb]
+            continue
+        put(cur)
+        if nxt < 4096:
+            table[nb] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+        else:
+            put(clear)
+            table, nxt, width = {}, eoi + 1, bits + 1
+        cur = b
+    if cur is not None:
+        put(cur)
+        if len(data) > 1 and nxt < 4096 and nxt + 1 > (1 << width) and width < 12:
+            width += 1
+    put(eoi)
+    if nacc:
+        out.append(acc & 255)
+    blocks = b"".join(bytes([len(out[i:i + 255])]) + out[i:i + 255] for i in range(0, len(out), 255))
+    return bytes([bits]) + blocks + b"\x00"
+
+
+def gif_file(size, global_palette, frames, loop=None) -> bytes:
+    """A GIF89a: ``frames`` dicts of ``idx`` (h, w), ``at`` (x, y), and
+    optionally ``palette`` (local, n x 3), ``transparency``, ``disposal``,
+    ``duration`` (ms), ``interlace``, ``bits`` (LZW minimum code size),
+    ``comment``."""
+    import struct
+
+    def table(p):
+        n = max(2, 1 << int(np.ceil(np.log2(max(2, len(p))))))
+        return n.bit_length() - 2, np.asarray(p, np.uint8).tobytes() + bytes(3 * (n - len(p)))
+
+    gsize, gbytes = table(global_palette)
+    out = bytearray(b"GIF89a" + struct.pack("<HHBBB", size[0], size[1], 128 | gsize, 0, 0) + gbytes)
+    if loop is not None:
+        out += b"!\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) + b"\x00"
+    for f in frames:
+        if f.get("comment"):
+            out += b"!\xfe" + bytes([len(f["comment"])]) + f["comment"] + b"\x00"
+        tr = f.get("transparency")
+        out += b"!\xf9\x04" + bytes([(f.get("disposal", 0) << 2) | (tr is not None)]) + \
+            struct.pack("<H", f.get("duration", 0) // 10) + bytes([tr or 0, 0])
+        idx = np.asarray(f["idx"], np.uint8)
+        h, w = idx.shape
+        flags = 64 if f.get("interlace") else 0
+        local = b""
+        if f.get("palette") is not None:
+            lsize, local = table(f["palette"])
+            flags |= 128 | lsize
+        out += b"," + struct.pack("<HHHHB", f["at"][0], f["at"][1], w, h, flags) + local
+        if f.get("interlace"):
+            idx = idx[np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                      np.arange(2, h, 4), np.arange(1, h, 2)])]
+        out += gif_lzw(idx, f.get("bits", 8))
+    return bytes(out + b";")
+
+
+def gif_truth(size, global_palette, frames) -> list:
+    """Pillow's frames (BGR) of a ``gif_file`` whose first frame covers the
+    screen without transparency: each later frame pasted over the one
+    before but where it is transparent; disposal 2 paints the frame's
+    extent with its transparent colour (else the background's) in its own
+    palette, disposal 3 restores what was under it, both before the next."""
+    w, h = size
+    out, canvas, pending = [], None, None
+    for k, f in enumerate(frames):
+        pal = np.asarray(f["palette"] if f.get("palette") is not None else global_palette, np.uint8)
+        full = np.zeros((256, 3), np.uint8)  # black past the palette
+        full[:len(pal)] = pal
+        x, y = f["at"]
+        fh, fw = np.asarray(f["idx"]).shape
+        if pending is not None:
+            canvas[pending[1]:pending[1] + pending[2].shape[0],
+                   pending[0]:pending[0] + pending[2].shape[1]] = pending[2]
+            pending = None
+        if canvas is None:
+            canvas = np.zeros((h, w, 3), np.uint8)
+        before = canvas[y:y + fh, x:x + fw].copy()
+        tr = f.get("transparency")
+        if f.get("disposal") == 2:
+            pending = (x, y, np.broadcast_to(full[tr if tr is not None else 0], before.shape).copy())
+        elif f.get("disposal") == 3:
+            pending = (x, y, before)
+        rgb = full[np.asarray(f["idx"], np.uint8)]
+        keep = np.zeros((fh, fw), bool) if tr is None or k == 0 else np.asarray(f["idx"]) == tr
+        canvas[y:y + fh, x:x + fw] = np.where(keep[..., None], before, rgb)
+        out.append(np.ascontiguousarray(canvas[..., ::-1]))
+    return out
+
+
+def gif_cases(w: int, h: int, seed: int = 22) -> list:
+    """(name, bytes, [BGR truth per frame], durations, loop) of phase 3w:
+    hand-built files at each LZW minimum code size (local palettes,
+    interlace, offsets, transparency, disposals 1, 2 and 3, a comment)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for bits in GIF_CODE_SIZES:
+        n = 1 << bits
+        gp = rng.integers(0, 256, (n, 3))
+        lp = rng.integers(0, 256, (n, 3))
+        fw, fh, x, y = w // 2, h // 3, w // 5, h // 4
+        frames = [
+            dict(idx=rng.integers(0, n, (h, w)), at=(0, 0), duration=40, comment=b"3w"),
+            dict(idx=rng.integers(0, n, (fh, fw)), at=(x, y), palette=lp, transparency=1,
+                 disposal=2, interlace=True, duration=70, bits=bits),
+            dict(idx=rng.integers(0, n, (fh + 5, fw - 7)), at=(x + 9, y + 3), transparency=0,
+                 disposal=3, duration=100),
+            dict(idx=rng.integers(0, n, (fh, fw)), at=(3, 2), palette=lp, disposal=1,
+                 interlace=True),
+        ]
+        for f in frames:
+            f["bits"] = bits
+        data = gif_file((w, h), gp, frames, loop=bits)
+        out.append((f"GIF, {n} colours, LZW code size {bits}", data,
+                    gif_truth((w, h), gp, frames), [40, 70, 100, 0], bits))
+    return out
+
+
+def run_formats_8b(dev: str = "cuda", w: int = 641, h: int = 361) -> dict:
+    """Phase 3w: TIFF and GIF on the card's machine, with no Pillow. Every
+    file of :func:`tiff_cases` and :func:`gif_cases` read by ``imread`` and
+    ``imreadmulti`` onto ``dev`` equals the CPU read and its numpy truth,
+    page for page and frame for frame, and ``imcount`` counts them; the
+    port's own TIFF and GIF writes of ``dev`` Mats (``imwritemulti``, the
+    GIF's nearest-entry mapping on ``dev``) read back exactly (at most 256
+    colours) or as the CPU writes them; cv2's nine multi-page and animation
+    calls give the frame counts, durations and loops written. Returns the
+    phase's launches (none expected)."""
+    import tempfile
+
+    import rustcv_tpu_torch.cv2 as cv2
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.prelude import Mat
+
+    kernels.reset_launch_counts()
+    tiffs, gifs = tiff_cases(w, h), gif_cases(w, h)
+    pages = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, data, truths) in enumerate([(n, d, t) for n, d, t in tiffs]
+                                                 + [(n, d, t) for n, d, t, _, _ in gifs]):
+            path = os.path.join(tmp, f"{i}.img")
+            with open(path, "wb") as f:
+                f.write(data)
+            expect(imgcodecs.imcount(path) == len(truths), f"{name}: imcount {imgcodecs.imcount(path)}")
+            on_dev = imgcodecs.imreadmulti(path, device=dev)
+            cpu = [m.to_numpy() for m in imgcodecs.imreadmulti(path, device="cpu")]
+            expect(len(on_dev) == len(cpu) == len(truths), f"{name}: {len(on_dev)} pages")
+            for k, (m, c, t) in enumerate(zip(on_dev, cpu, truths)):
+                expect(m.device().device.type == dev, f"{name} page {k}: on {m.device().device}")
+                expect(np.array_equal(m.to_numpy(), c), f"{name} page {k}: the {dev} read differs")
+                expect(c.shape == t.shape and np.array_equal(c, t),
+                       f"{name} page {k}: the read differs from its numpy truth")
+            expect(np.array_equal(imgcodecs.imread(path, device=dev).to_numpy(), truths[0]),
+                   f"{name}: imread is not the first page")
+            pages += len(truths)
+        for name, data, truths, durations, loop in gifs:
+            ok, anim = cv2.imdecodeanimation(np.frombuffer(data, np.uint8))
+            expect(ok and anim.durations == durations and anim.loop_count == loop
+                   and all(np.array_equal(a, t) for a, t in zip(anim.frames, truths)),
+                   f"{name}: imdecodeanimation {anim.durations} loop {anim.loop_count}")
+        print(f"formats 8b: {len(tiffs)} TIFF and {len(gifs)} GIF files ({pages} pages and frames) "
+              f"read onto {dev} at {w}x{h} equal to the CPU read and to their numpy truths: "
+              f"{', '.join(n for n, _, _ in tiffs)}; {', '.join(n for n, *_ in gifs)}", flush=True)
+
+        rng = np.random.default_rng(8)
+        pal = rng.integers(0, 256, (200, 3), np.uint8)
+        few = [pal[rng.integers(0, 200, (h, w))] for _ in range(3)]
+        few.insert(2, few[1].copy())  # equal to the frame before: merged
+        many = [rng.integers(0, 256, (h, w, 3), np.uint8) for _ in range(2)]
+        gray = [rng.integers(0, 256, (h, w), np.uint8) for _ in range(2)]
+        for label, frames, exact in (("<= 256 colours", few, True), ("gray", gray, True),
+                                     ("> 256 colours", many, False)):
+            for ext in (".tiff", ".gif"):
+                written = {}
+                for side in (dev, "cpu"):
+                    path = os.path.join(tmp, f"w_{side}{ext}")
+                    mats = [Mat.from_array(f.copy(), device=side) for f in frames]
+                    expect(imgcodecs.imwritemulti(path, mats), f"imwritemulti {label} {ext} on {side}")
+                    with open(path, "rb") as f:
+                        written[side] = f.read()
+                back = [m.to_numpy() for m in imgcodecs.imreadmulti(path, device="cpu")]
+                want = len(frames) - (1 if label == "<= 256 colours" and ext == ".gif" else 0)
+                expect(len(back) == want, f"{label} {ext}: {len(back)} frames")
+                expect(written[dev] == written["cpu"], f"{label} {ext}: the {dev} write differs")
+                if exact or ext == ".tiff":
+                    kept = [f for i, f in enumerate(frames) if not (ext == ".gif" and label ==
+                                                                     "<= 256 colours" and i == 2)]
+                    expect(all(np.array_equal(b, f if f.ndim == 3 else np.repeat(f[..., None], 3, 2))
+                               for b, f in zip(back, kept)), f"{label} {ext}: not read back exactly")
+        anim = cv2.Animation(5)
+        anim.frames, anim.durations = few, [40, 80, 80, 160]
+        for ext, frames_back, durs, loop in ((".gif", 3, [40, 160, 160], 5),
+                                             (".tiff", 4, [100] * 4, 0)):
+            ok, buf = cv2.imencodeanimation(ext, anim)
+            got = cv2.imdecodeanimation(buf)[1]
+            path = os.path.join(tmp, "a" + ext)
+            expect(ok and cv2.imwriteanimation(path, anim), f"imencodeanimation {ext}")
+            read = cv2.imreadanimation(path)[1]
+            for a in (got, read):
+                expect(len(a.frames) == frames_back and a.durations == durs and a.loop_count == loop,
+                       f"{ext} animation: {len(a.frames)} frames {a.durations} loop {a.loop_count}")
+            ok, buf = cv2.imencodemulti(ext, few)
+            ok2, back = cv2.imdecodemulti(buf)
+            expect(ok and ok2 and len(back) == frames_back, f"imencodemulti {ext}: {len(back)}")
+            expect(cv2.imwritemulti(path, few) and cv2.imcount(path) == frames_back
+                   and len(cv2.imreadmulti(path)[1]) == frames_back, f"imwritemulti {ext}")
+        expect(cv2.imencodemulti(".png", few)[0] is False, "imencodemulti .png")
+    print("formats 8b: imwritemulti of <= 256-colour, gray and > 256-colour frames from "
+          f"{dev} Mats writes the CPU's bytes and reads back (exactly where <= 256 colours); "
+          "cv2's nine multi-page and animation calls give the counts, durations and loops "
+          "written", flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3w launched kernels: {counts}")
+    return counts
+
+
+def time_formats_8b(smi: str, dev: str = "cuda") -> None:
+    """Phase 4w: ms per call at 1920x1080 (CUDA events over MULTI_TIMED
+    calls, the file in the page cache): ``imread`` onto the card of a raw,
+    an LZW + predictor 2 and a Deflate RGB TIFF; ``imreadmulti`` of an
+    8-page TIFF and an 8-frame GIF; ``imwritemulti`` of 8 frames of the
+    test pattern (card Mats) to TIFF and to GIF (the GIF's nearest-entry
+    mapping on the card)."""
+    import tempfile
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.prelude import Mat
+
+    tag = f"[{smi}]"
+    frames = [synth_bgr(W, H, t) for t in range(8)]
+    rgb = np.ascontiguousarray(frames[0][..., ::-1])
+    files = {
+        "raw RGB TIFF": tiff_file([dict(samples=rgb, photo=2)]),
+        "LZW + predictor 2 RGB TIFF": tiff_file([dict(samples=rgb, photo=2, comp=5, predictor=2,
+                                                       rows=16)]),
+        "Deflate RGB TIFF": tiff_file([dict(samples=rgb, photo=2, comp=8, rows=16)]),
+    }
+    mats = [Mat.from_array(f, device=dev) for f in frames]
+    for m in mats:
+        m.device()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in files.items():
+            path = os.path.join(tmp, "x.tiff")
+            with open(path, "wb") as f:
+                f.write(data)
+            ms = cuda_ms(lambda: imgcodecs.imread(path, device=dev), MULTI_TIMED)
+            print(f"{tag} imread of a {W}x{H} {name} ({len(data)} bytes) onto the card: {ms:.4f} ms",
+                  flush=True)
+        for ext in (".tiff", ".gif"):
+            path = os.path.join(tmp, "m" + ext)
+            ms = cuda_ms(lambda: imgcodecs.imwritemulti(path, mats), MULTI_TIMED)
+            size = os.path.getsize(path)
+            print(f"{tag} imwritemulti of 8 {W}x{H} test-pattern frames to {ext} ({size} bytes) "
+                  f"from card Mats: {ms:.4f} ms", flush=True)
+            ms = cuda_ms(lambda: imgcodecs.imreadmulti(path, device=dev), MULTI_TIMED)
+            print(f"{tag} imreadmulti of that 8-frame {ext} onto the card: {ms:.4f} ms", flush=True)
+
+
 def time_new_paths(smi: str) -> None:
     """Phase 4j: ms/tick (CUDA events) of every other wire format: device-sim
     at 8 × 1080p (NV12 in every mode and beside the plain engine), host-staged
@@ -6027,6 +6593,8 @@ def main() -> int:
         done("phase 3, text and host codecs")
         phase("phase 3v, the formats of item 8a", run_formats_8a)
         done("phase 3v, the formats of item 8a")
+        phase("phase 3w, TIFF and GIF (item 8b)", run_formats_8b)
+        done("phase 3w, TIFF and GIF (item 8b)")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -6037,6 +6605,7 @@ def main() -> int:
                            lambda: time_new_paths(smi)), ("facade", lambda: time_facade(smi)),
                           ("text and host codecs", lambda: time_text_and_codecs(smi)),
                           ("the formats of item 8a (4v)", lambda: time_formats_8a(smi)),
+                          ("TIFF and GIF (4w)", lambda: time_formats_8b(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

@@ -18,8 +18,9 @@ Coverage policy: the high-traffic cv2 surface is wrapped 1:1; exotic
 argument combinations the facade does not model raise ``ValueError`` /
 ``NotImplementedError`` with the supported alternatives named, never
 silently diverge. The reference's multi-page, animated and metadata image
-files (read and written with Pillow there) raise ``not_ported`` (ROADMAP
-Queue 1 item 8).
+files (read and written with Pillow there) run on the port's own codecs
+for TIFF and GIF; WebP and animated PNG raise ``not_ported`` (ROADMAP Queue
+1 item 8).
 """
 from __future__ import annotations
 

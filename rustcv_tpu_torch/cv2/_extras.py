@@ -6,12 +6,12 @@ reference's, but for the facade calls it makes (``connectedComponents``,
 device.
 
 The reference reads and writes multi-page, animated and metadata image
-files with Pillow. The port reads and writes the metadata of PNG, JPEG,
-BMP and PNM with its own codecs (``imdecodeWithMetadata``,
-``imencodeWithMetadata``); multi-page and animated files wait on ROADMAP
-Queue 1 items 8b and 8c: those six functions raise ``not_ported``, and the
-three that answer False for a file or buffer that is no image keep that
-answer.
+files with Pillow. The port does so with its own codecs
+(``imgcodecs.tiff``, ``imgcodecs.gif``, ``imgcodecs.exif``): multi-page
+TIFF and animated GIF both ways, every still format's one frame, the
+metadata of all six formats. Animated PNG and WebP wait on ROADMAP Queue
+1 item 8 and raise ``not_ported``, also through the calls that answer False
+for a file or buffer that is no image.
 Held call for call against the reference in
 ``tests/test_torch_cv2_later_calls.py``.
 """
@@ -343,32 +343,33 @@ def registerCamerasExtended(objectPoints1, objectPoints2, imagePoints1,
 
 # ----------------------------------------------------------- image buffers
 
-def _pillow_bound(name):
-    return _not_ported(f"cv2.{name}", "multi-page, animated and metadata image files",
-                       item="8")
-
-
-def _image_bytes(data: bytes) -> None:
-    """Raises ValueError where ``data`` is no image file the port's codecs
-    know (cv2's False); an image file goes on to ``not_ported``."""
-    from ..imgcodecs import host as _host
-
-    try:
-        _host.sniff(data)
-    except NotImplementedError:
-        pass  # TIFF, GIF, WebP: image files all the same
+_MULTI = {"tif": "tiff", "tiff": "tiff", "gif": "gif"}  # imencodemulti's formats
 
 
 def imencodemulti(ext, imgs, params=None):
-    raise _pillow_bound("imencodemulti")
+    """(True, bytes) of a multi-page TIFF or an animated GIF of ``imgs``
+    (BGR or gray); (False, empty) for any other extension or no images."""
+    from ..imgcodecs import encode_frames
+
+    frames = [_a(x) for x in imgs]
+    fmt = _MULTI.get(str(ext).lower().lstrip("."))
+    if fmt is None or not frames:
+        return False, np.zeros((0,), np.uint8)
+    return True, np.frombuffer(encode_frames(fmt, frames), np.uint8)
 
 
 def imdecodemulti(buf, flags=1, mats=None, range=None):
+    """(ok, every page or frame as BGR) of an encoded buffer; (False, [])
+    where the reference's ``Image.open`` fails."""
+    from ..imgcodecs import decode_frames, open_check
+
+    data = _a(buf, np.uint8).tobytes()
     try:
-        _image_bytes(_a(buf, np.uint8).tobytes())
-    except (OSError, ValueError):
+        open_check(data)
+    except ValueError:
         return False, []
-    raise _pillow_bound("imdecodemulti")
+    out = decode_frames(data)
+    return bool(out), out
 
 
 def imdecodeWithMetadata(buf, metadataTypes=None, flags=1, img=None,
@@ -389,7 +390,8 @@ def imdecodeWithMetadata(buf, metadataTypes=None, flags=1, img=None,
 
 
 # imencodeWithMetadata's formats: the reference's Pillow format names
-_ENCODE_FORMATS = {"png": "png", "jpg": "jpeg", "jpeg": "jpeg", "bmp": "bmp", "ppm": "pnm"}
+_ENCODE_FORMATS = {"png": "png", "jpg": "jpeg", "jpeg": "jpeg", "bmp": "bmp", "ppm": "pnm",
+                   "tiff": "tiff", "gif": "gif"}
 
 
 def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
@@ -407,12 +409,13 @@ def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
     a = _a(img)
     e = str(ext).lower().lstrip(".")
     if e in _host.NOT_PORTED_EXTENSIONS:
-        raise _pillow_bound("imencodeWithMetadata of " + _host.NOT_PORTED_EXTENSIONS[e])
+        raise _not_ported("cv2.imencodeWithMetadata of " + _host.NOT_PORTED_EXTENSIONS[e],
+                          item="8")
     fmt = _ENCODE_FORMATS.get(e)
     if fmt is None:
         raise CameraError(f"imencodeWithMetadata: unknown image format {ext!r}")
     if a.dtype != np.uint8:  # Pillow writes 16-bit and float images; the port's writers 8-bit
-        raise _pillow_bound(f"imencodeWithMetadata of {a.dtype} images")
+        raise _not_ported(f"cv2.imencodeWithMetadata of {a.dtype} images", item="8")
     rgb = a[..., ::-1] if a.ndim == 3 else a
     try:
         if fmt == "png" and metadata:
@@ -442,29 +445,79 @@ class Animation:
         self.still_image = None
 
 
+def _read_animation(data: bytes, start, count):
+    """The reference's ``imreadanimation`` over bytes: (False, an empty
+    Animation) where the file is no image or cannot be read."""
+    from ..imgcodecs import animation_of
+
+    anim = Animation()
+    try:
+        frames, durations, loop = animation_of(data)
+    except ValueError:
+        return False, anim
+    anim.loop_count = int(loop)
+    for i, (frame, ms) in enumerate(zip(frames, durations)):
+        if i < start:
+            continue
+        if len(anim.frames) >= count:
+            break
+        anim.frames.append(frame)
+        anim.durations.append(int(ms))
+    return bool(anim.frames), anim
+
+
 def imreadanimation(filename, start=0, count=32767, animation=None):
     try:
         with open(filename, "rb") as f:
-            _image_bytes(f.read(16))
-    except (OSError, ValueError):
+            data = f.read()
+    except OSError:
         return False, Animation()
-    raise _pillow_bound("imreadanimation")
+    return _read_animation(data, start, count)
+
+
+def _encode_animation(ext: str, animation):
+    """The bytes the reference's ``imwriteanimation`` writes for a file
+    named ``*ext``, or None where it answers False."""
+    from ..core.errors import CameraError
+    from ..imgcodecs import _format_of, encode_frames
+
+    if not animation.frames:
+        return None
+    frames = [_a(f) for f in animation.frames]
+    durations = animation.durations or [100] * len(frames)
+    try:
+        fmt = _format_of(str(ext), "imwriteanimation")
+    except CameraError:  # Pillow: "unknown file extension", a ValueError
+        return None
+    try:
+        return encode_frames(fmt, frames, duration=durations, loop=animation.loop_count)
+    except ValueError:  # a frame Pillow cannot write: the reference's save raises, it answers False
+        return None
 
 
 def imwriteanimation(filename, animation, params=None):
-    raise _pillow_bound("imwriteanimation")
+    import os
+
+    data = _encode_animation(os.path.splitext(str(filename))[1], animation)
+    if data is None:
+        return False
+    try:
+        with open(filename, "wb") as f:
+            f.write(data)
+    except OSError:
+        return False
+    return True
 
 
 def imdecodeanimation(buf, animation=None, start=0, count=32767):
-    try:
-        _image_bytes(_a(buf, np.uint8).tobytes())
-    except (OSError, ValueError):
-        return False, Animation()
-    raise _pillow_bound("imdecodeanimation")
+    return _read_animation(_a(buf, np.uint8).tobytes(), start, count)
 
 
 def imencodeanimation(ext, animation, params=None):
-    raise _pillow_bound("imencodeanimation")
+    data = _encode_animation(ext if str(ext).startswith(".") else "." + str(ext), animation)
+    if data is None:
+        return False, np.zeros((0,), np.uint8)
+    return True, np.frombuffer(data, np.uint8)
 
 
 # ---------------------------------------------------------------- ANNIndex

@@ -356,15 +356,14 @@ _READ_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".gif", ".tif", ".tiff",
 
 
 def haveImageReader(filename: str) -> bool:
-    """True where the port's own codecs recognise the file's header; a
-    format the port does not read yet (TIFF, GIF, WebP) raises
+    """True where the port's codecs open the file as the reference's
+    ``Image.open`` does (its header; a TIFF's first IFD, a GIF's blocks); a
+    form the port does not read yet (WebP, the TIFF forms of item 8) raises
     ``not_ported``."""
-    from ..imgcodecs import host as _host
-
     try:
         with open(filename, "rb") as f:
-            head = f.read(16)
-        _host.sniff(head)
+            data = f.read()
+        _icodec.open_check(data)
     except (OSError, ValueError):
         return False
     return True
@@ -387,7 +386,7 @@ def imreadmulti(filename: str, mats=None, flags=1, start=None, count=None):
     if not os.path.isfile(filename):
         return False, []
     try:
-        frames = _icodec.imreadmulti(filename)
+        frames = _icodec.imreadmulti(filename, device="cpu")
     except (OSError, ValueError, CameraError):
         return False, []
     out = [m.to_numpy() for m in frames]
@@ -405,8 +404,8 @@ def imwritemulti(filename: str, img, params=None) -> bool:
     if not os.path.isdir(os.path.dirname(os.path.abspath(filename))):
         return False
     try:
-        return _icodec.imwritemulti(filename, list(img))
-    except (OSError, ValueError, CameraError):
+        return _icodec.imwritemulti(filename, [_a(x) for x in img])
+    except (OSError, ValueError, KeyError, CameraError):  # KeyError: no multi-frame writer
         return False
 
 

@@ -5,7 +5,11 @@ Two backends, the reference's names:
 
 * ``"host"``: PNG (every depth, Adam7), BMP (every header, depth and
   compression Pillow reads) and PNM (P1-P6 at every maxval, PFM) through
-  :mod:`.host` (no Pillow), JPEG (baseline, multi-scan and progressive, any
+  :mod:`.host`, TIFF (:mod:`.tiff`: strips and tiles, raw, PackBits, LZW and
+  Deflate, every depth and photometric Pillow reads but YCbCr and CIELab;
+  written uncompressed) and GIF (:mod:`.gif`: every frame composited as
+  Pillow composites it; written with the port's median cut,
+  :mod:`.quantize`), all without Pillow; JPEG (baseline, multi-scan and progressive, any
   integral sampling) decoded by the port's C++ host decoder
   (:func:`..native.jpeg_decode_bgr`, libjpeg-turbo's default decode: the
   same pixels as the reference's Pillow) and encoded by the port's encoder
@@ -21,11 +25,14 @@ device for a device Mat, on the CPU for a host Mat; every other format
 encodes on the host, and every decode is the host's, libjpeg's exact
 pixels. Whatever decodes, the Mat lands on ``device`` ("cuda" unless the
 caller names another). ``imread_with_metadata`` gives the reference's
-dict (Pillow's ``info`` and the EXIF tags, :mod:`.exif`) for all four
-formats. TIFF, GIF and WebP, ``imreadmulti``, ``imwritemulti`` and
-``imcount`` raise ``not_ported``, as do the JPEG forms the host decoder
-does not read yet (CMYK/YCCK, lossless, arithmetic-coded, and progressive
-streams left unrefined).
+dict (Pillow's ``info`` and the EXIF tags, :mod:`.exif`) for all six
+formats. ``imreadmulti`` and ``imcount`` read every page of a TIFF and
+every frame of a GIF (one of any other format); ``imwritemulti`` writes
+TIFF and GIF, raises ``KeyError`` for JPEG, BMP and PNM (Pillow has no
+multi-frame writer for them) and ``not_ported`` for animated PNG and WebP.
+WebP raises ``not_ported``, as do the JPEG forms the host decoder does not
+read yet (CMYK/YCCK, lossless, arithmetic-coded, and progressive streams
+left unrefined) and the TIFF forms :mod:`.tiff` names.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ def _suffix(path: str) -> str:
 
 def _format_of(ext: str, what: str) -> str:
     e = ext.lower().lstrip(".")
+    if what == "imencode" and e == "tif":  # the reference's Pillow has no format "TIF"
+        raise CameraError(f"imencode: cannot encode {ext!r}: unknown format 'TIF'")
     if e in _host.NOT_PORTED_EXTENSIONS:
         raise not_ported(f"{what} of {_host.NOT_PORTED_EXTENSIONS[e]} images", item=_host.LEFTOVERS)
     fmt = _host.EXTENSIONS.get(e)
@@ -78,6 +87,8 @@ def _encode(fmt: str, mat: Mat, quality: int, backend=None) -> bytes:
     if backend == "tpu":
         raise ValueError(f"imencode: backend='tpu' supports JPEG only, not {fmt.upper()}")
     try:
+        if fmt == "gif":
+            return _host.write_gif(_frame_of(mat))
         return _host.ENCODERS[fmt](_host.from_mat_array(mat.to_numpy()))
     except _host.CodecError as e:
         raise CameraError(f"imencode: {e}") from e
@@ -200,19 +211,134 @@ def imwrite_with_metadata(path: str, mat: Mat, metadata: dict) -> bool:
     return _write(path, _host.write_png(_host.from_mat_array(mat.to_numpy()), metadata))
 
 
-def imreadmulti(path: str):
-    """Multi-page read (OpenCV ``imreadmulti``): not ported (TIFF, GIF)."""
-    raise not_ported("imreadmulti (multi-page TIFF and GIF)", item=_host.LEFTOVERS)
+def decode_frames(data: bytes) -> list:
+    """Every page or frame of encoded image bytes as BGR (H, W, 3) u8 on the
+    host, as the reference's ``ImageSequence`` gives them: a TIFF's pages, a
+    GIF's frames, one image of any other format."""
+    from . import exif, gif, tiff
+
+    fmt = _host.sniff(data)
+    if fmt == "tiff":
+        return [_host.to_bgr(p) for p in tiff.read_pages(data)]
+    if fmt == "gif":
+        return [_host.to_bgr(f) for f in gif.read_frames(data)]
+    if fmt == "jpeg":
+        exif.jpeg_info(data)  # a multi-picture (MPO) JPEG raises not_ported
+    return [_decode_host(data)]
 
 
-def imwritemulti(path: str, mats) -> bool:
-    """Multi-page write (OpenCV ``imwritemulti``): not ported."""
-    raise not_ported("imwritemulti (multi-page TIFF and GIF)", item=_host.LEFTOVERS)
+def open_check(data: bytes) -> str:
+    """What the reference's ``Image.open`` reads of encoded image bytes (the
+    header, a TIFF's first IFD and its setup, a GIF's blocks); returns the
+    format, raises where it raises (ValueError) or ``not_ported``."""
+    from . import exif, gif, tiff
+
+    fmt = _host.sniff(data)
+    if fmt == "tiff":
+        tiff.Tiff(data).setup(0)
+    elif fmt == "gif":
+        gif.Gif(data)
+    else:
+        exif.info_metadata(data)  # an MPO JPEG raises not_ported
+    return fmt
+
+
+def animation_of(data: bytes):
+    """(frames BGR, durations ms, loop) as the reference's
+    ``imreadanimation`` reads them: a GIF's frames with each frame's
+    duration (100 where it has none) and its NETSCAPE loop (0 without);
+    a TIFF's pages, or one image of any other format, at 100 ms, loop 0."""
+    from . import gif
+
+    if _host.sniff(data) == "gif":
+        g = gif.Gif(data)
+        frames = [_host.to_bgr(f) for f in g.rgb_frames()]
+        return frames, [100 if d is None else d for d in g.durations()], g.info.get("loop", 0)
+    open_check(data)
+    frames = decode_frames(data)
+    return frames, [100] * len(frames), 0
+
+
+def count_frames(data: bytes) -> int:
+    """Pillow's ``n_frames`` of encoded image bytes (1 for a still format
+    whose header ``Image.open`` reads)."""
+    from . import gif, tiff
+
+    fmt = _host.sniff(data)
+    if fmt == "tiff":
+        return tiff.count(data)
+    if fmt == "gif":
+        return gif.count(data)
+    open_check(data)
+    return 1
+
+
+def imreadmulti(path: str, device="cuda") -> list:
+    """Multi-page read (OpenCV ``imreadmulti`` role): every page of a TIFF
+    and every frame of a GIF as BGR Mats on ``device``; one Mat of any
+    other format."""
+    data = _read(path, "imreadmulti")
+    try:
+        frames = decode_frames(data)
+    except ValueError as e:
+        raise CameraError(f"imreadmulti: cannot decode {path}: {e}") from e
+    return [_on_device(f, device) for f in frames]
 
 
 def imcount(path: str) -> int:
-    """Pages in a file (OpenCV ``imcount``): not ported."""
-    raise not_ported("imcount (multi-page TIFF and GIF)", item=_host.LEFTOVERS)
+    """Pages or frames in a file (OpenCV ``imcount`` role): Pillow's
+    ``n_frames``."""
+    data = _read(path, "imcount")
+    try:
+        return count_frames(data)
+    except ValueError as e:
+        raise CameraError(f"imcount: cannot decode {path}: {e}") from e
 
 
-__all__ = ["imread", "imwrite", "imencode", "imdecode"]
+def _frame_of(m):
+    """A Mat or array as the reference hands it to Pillow (RGB from BGR,
+    gray as (H, W)): a device Mat's as a tensor on its device (the GIF
+    writer quantizes there), else numpy."""
+    import torch
+
+    if isinstance(m, Mat):
+        m = m.device() if m.is_on_device else m.to_numpy()
+    if not isinstance(m, torch.Tensor):
+        a = np.asarray(m)
+        return _host.from_mat_array(a) if a.ndim == 3 else a
+    if m.ndim == 3 and m.shape[2] == 1:
+        return m[..., 0]
+    return m.flip(-1) if m.ndim == 3 else m
+
+
+def encode_frames(fmt: str, frames: list, duration=None, loop=None) -> bytes:
+    """Frames (Mats or arrays, BGR or gray) → one multi-frame file, as the
+    reference's ``save(save_all=True, ...)`` writes it: ``fmt`` "tiff" or
+    "gif"; "png" (animated PNG) raises ``not_ported``, any other
+    ``KeyError`` (Pillow has no multi-frame writer for it)."""
+    from . import gif, tiff
+
+    if fmt == "tiff":
+        pages = [f.cpu().numpy() if not isinstance(f, np.ndarray) else f
+                 for f in map(_frame_of, frames)]
+        return tiff.write_tiff(pages)
+    if fmt == "gif":
+        return gif.write_gif([_frame_of(f) for f in frames], duration=duration, loop=loop)
+    if fmt == "png":
+        raise not_ported("writing animated PNG files", item=_host.LEFTOVERS)
+    raise KeyError(fmt.upper())
+
+
+def imwritemulti(path: str, mats) -> bool:
+    """Multi-page write (OpenCV ``imwritemulti`` role): a multi-page TIFF or
+    an animated GIF by the extension; False for no frames. JPEG, BMP and
+    PNM raise ``KeyError`` as the reference's Pillow does, animated PNG and
+    WebP ``not_ported``."""
+    frames = list(mats)
+    if not frames:
+        return False
+    return _write(path, encode_frames(_format_of(_suffix(path), "imwritemulti"), frames))
+
+
+__all__ = ["imread", "imwrite", "imencode", "imdecode", "imreadmulti", "imcount",
+           "imwritemulti", "imread_with_metadata", "imwrite_with_metadata"]

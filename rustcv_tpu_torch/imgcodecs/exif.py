@@ -11,11 +11,14 @@ gives the same dict, in the same order:
   ``gamma``, ``srgb``, ``transparency``, the text chunks); for JPEG the
   markers before the first scan (``jfif``, ``jfif_unit``, ``adobe``,
   ``adobe_transform``, ``progressive``, ``progression``); for BMP
-  ``compression``; for PFM ``scale`` (``imgcodecs.host`` and
-  :func:`jpeg_info`);
+  ``compression``; for PFM ``scale``; for TIFF ``compression`` by Pillow's
+  name; for GIF ``background``, ``loop``, ``transparency`` and the first
+  frame's ``duration`` (``imgcodecs.host``, :func:`jpeg_info`,
+  ``imgcodecs.tiff.tiff_info``, ``imgcodecs.gif.gif_info``);
 * EXIF: a TIFF-structured IFD0 from a JPEG's APP1 ``Exif\\0\\0``, a PNG's
   ``eXIf`` or its ``Raw profile type exif`` text (read from the chunks
-  after the image data too, as ``getexif()`` loads the image first), read
+  after the image data too, as ``getexif()`` loads the image first), a
+  TIFF file's own first IFD (BigTIFF too); read
   as Pillow's ``ImageFileDirectory_v2`` reads it: a scalar for one value
   (and for a tag the TIFF tables give one value) and a tuple otherwise,
   ASCII without its NUL, rationals as ``IFDRational`` prints them,
@@ -34,17 +37,10 @@ from typing import List, Optional, Tuple
 
 from ..core.errors import not_ported
 from . import host as _host
+from .tiff import ONE_VALUE, TYPES, XMP_ORIENTATION, directory
 
-# TIFF tags whose count is one in Pillow's tag table (TiffTags.TAGS_V2): a
-# longer value of one of them reads as its first element.
-_ONE_VALUE = frozenset((
-    254, 255, 256, 257, 259, 262, 263, 264, 265, 266, 269, 270, 271, 272, 274, 277, 278, 282,
-    283, 284, 285, 286, 287, 288, 289, 290, 292, 293, 296, 305, 306, 315, 316, 317, 322, 323,
-    332, 333, 334, 337, 347, 512, 513, 514, 515, 531, 32995, 32997, 32998, 33432, 33723, 34665,
-    34675, 34853, 36864, 37724, 40960, 40965, 41730, 45056, 45057, 45058, 45060, 45313, 45569,
-    45570, 45571, 45572, 45573, 45574, 45575, 45576, 45577, 45578, 45579, 45580, 45581, 50741,
-    50780, 50839))
-# The same table's names of values, which an ASCII value of these tags becomes.
+# The names of values in Pillow's tag table (TiffTags.TAGS_V2), which an ASCII
+# value of these tags becomes.
 _ENUMS = {
     259: {"Uncompressed": 1, "CCITT 1d": 2, "Group 3 Fax": 3, "Group 4 Fax": 4, "LZW": 5,
           "JPEG": 6, "PackBits": 32773},
@@ -55,13 +51,7 @@ _ENUMS = {
     317: {"none": 1, "Horizontal Differencing": 2},
     50741: {"Unsafe": 0, "Safe": 1},
 }
-# TIFF field type → (bytes per value, struct format); None: bytes or text
-_TYPES = {1: (1, None), 2: (1, None), 3: (2, "H"), 4: (4, "L"), 5: (8, "L"), 6: (1, "b"),
-          7: (1, None), 8: (2, "h"), 9: (4, "l"), 10: (8, "l"), 11: (4, "f"), 12: (8, "d"),
-          13: (4, "L"), 16: (8, "Q")}
-_TIFF_HEADS = (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*", b"MM\x00+", b"II+\x00")
 ORIENTATION, RESOLUTION_UNIT, X_RESOLUTION = 0x0112, 0x0128, 0x011A
-_XMP_ORIENTATION = r'tiff:Orientation(="|>)([0-9])'
 
 
 class _Rational:
@@ -87,37 +77,14 @@ def _ifd0(data: bytes) -> Tuple[dict, str]:
     directory's order, as Pillow's ``ImageFileDirectory_v2.load`` keeps it
     (a truncated directory keeps the entries before the cut)."""
     head = data[:8]
-    if head[:4] not in _TIFF_HEADS:
+    if head[:4] not in _host.TIFF_PREFIXES:
         raise _BadHeader("not a TIFF header")
     if head[2] == 43:  # BigTIFF: Pillow's 8-byte read of its header fails
         raise _BadHeader("BigTIFF header")
     e = ">" if head[:2] == b"MM" else "<"
     if len(head) < 8:
         raise _BadHeader("short TIFF header")
-    p = struct.unpack(e + "L", head[4:8])[0]
-    entries: dict = {}
-    if p + 2 > len(data):
-        return entries, e
-    count = struct.unpack(e + "H", data[p:p + 2])[0]
-    p += 2
-    for _ in range(count):
-        if p + 12 > len(data):
-            break
-        tag, typ, n, inline = struct.unpack(e + "HHL4s", data[p:p + 12])
-        p += 12
-        if typ not in _TYPES:
-            continue
-        size = n * _TYPES[typ][0]
-        if size > 4:
-            at = struct.unpack(e + "L", inline)[0]
-            if at + size > len(data):
-                break  # Pillow's read fails and ends the directory
-            raw = data[at:at + size]
-        else:
-            raw = inline[:size]
-        if raw:
-            entries[tag] = (typ, raw)
-    return entries, e
+    return directory(data, struct.unpack(e + "L", head[4:8])[0], e, False)[0], e
 
 
 def _value(tag: int, typ: int, raw: bytes, e: str):
@@ -127,24 +94,27 @@ def _value(tag: int, typ: int, raw: bytes, e: str):
     if typ == 2:
         text = (raw[:-1] if raw.endswith(b"\x00") else raw).decode("latin-1", "replace")
         return _ENUMS.get(tag, {}).get(text, text)
-    size, fmt = _TYPES[typ]
+    size, fmt = TYPES[typ]
     if typ in (5, 10):
         v = struct.unpack(f"{e}{len(raw) // 4}{fmt}", raw)
         vals = tuple(_Rational(a, b) for a, b in zip(v[::2], v[1::2]))
     else:
         vals = struct.unpack(f"{e}{len(raw) // size}{fmt}", raw)
-    return vals[0] if tag in _ONE_VALUE or len(vals) == 1 else vals
+    return vals[0] if tag in ONE_VALUE or len(vals) == 1 else vals
 
 
-def exif_entries(exif, xmp=None, read_first=()) -> List[Tuple[int, str]]:
+def exif_entries(exif, xmp=None, read_first=(), ifd=None) -> List[Tuple[int, str]]:
     """``[(tag, str(value))]`` of ``getexif().items()``, in Pillow's order.
 
     ``exif``: the EXIF bytes (a leading ``Exif\\0\\0`` is dropped) or None;
     ``xmp``: the XMP packet (str or bytes) or None; ``read_first``: tags
     read before the items (in order, up to the first absent one), which
-    Pillow keeps apart from the directory's and so iterates first."""
+    Pillow keeps apart from the directory's and so iterates first; ``ifd``:
+    a directory already read, ({tag: (type, bytes)}, byte order), in place
+    of ``exif`` (a TIFF file's own)."""
     found: dict = {}  # Pillow's Exif._data: values already read
-    entries, e = {}, "<"
+    entries, e = ifd if ifd is not None else ({}, "<")
+    entries = dict(entries)
     if exif is not None:
         if not isinstance(exif, bytes):
             return []
@@ -156,7 +126,7 @@ def exif_entries(exif, xmp=None, read_first=()) -> List[Tuple[int, str]]:
             except _BadHeader:
                 return []
     if ORIENTATION not in entries and xmp:
-        m = re.search(_XMP_ORIENTATION if isinstance(xmp, str) else _XMP_ORIENTATION.encode(), xmp)
+        m = re.search(XMP_ORIENTATION.decode() if isinstance(xmp, str) else XMP_ORIENTATION, xmp)
         if m:
             found[ORIENTATION] = int(m[2])
     for tag in read_first:
@@ -248,6 +218,16 @@ def _parts(data: bytes):
         info = jpeg_info(data)
         first = (RESOLUTION_UNIT, X_RESOLUTION) if "exif" in info and "dpi" not in info else ()
         return info, info, first
+    if fmt == "tiff":
+        from .tiff import tiff_info
+
+        info = tiff_info(data)
+        return info, info, ()
+    if fmt == "gif":
+        from .gif import gif_info
+
+        info = gif_info(data)
+        return info, info, ()
     info = _host.bmp_info(data) if fmt == "bmp" else _host.pnm_info(data)
     return info, info, ()
 
@@ -261,8 +241,17 @@ def info_metadata(data: bytes) -> dict:
 def metadata(data: bytes) -> dict:
     """The reference's ``imread_with_metadata`` dict of an image file:
     :func:`info_metadata`, then ``exif:<tag>`` for each EXIF tag."""
-    info, at_exif, first = _parts(bytes(data))
+    data = bytes(data)
+    info, at_exif, first = _parts(data)
     meta = _shown(info)
+    if _host.sniff(data) == "tiff":  # getexif() reads the file's own first IFD
+        from . import tiff
+
+        t = tiff.Tiff(data)
+        page = t.pages[0]
+        for tag, value in exif_entries(None, info.get("xmp"), ifd=(page.entries, t.e)):
+            meta[f"exif:{tag}"] = value
+        return meta
     exif = at_exif.get("exif")
     if exif is None and "Raw profile type exif" in at_exif:
         try:

@@ -1,6 +1,7 @@
 """Host image codecs without Pillow: PNG, BMP and PNM (PBM, PGM, PPM,
-PFM), for the ``"host"`` backend of :mod:`rustcv_tpu_torch.imgcodecs` and
-the highgui PNG dump.
+PFM) here, TIFF and GIF in :mod:`.tiff` and :mod:`.gif`, for the
+``"host"`` backend of :mod:`rustcv_tpu_torch.imgcodecs` and the highgui
+PNG dump.
 
 A read gives what the reference gets from Pillow 12's ``Image.open(...)
 .convert("RGB")``, byte for byte, as a numpy array in the file's channel
@@ -34,8 +35,8 @@ from :func:`png_info`, :func:`bmp_info` and :func:`pnm_info`.
   ``P6``.
 
 What Pillow refuses raises :class:`CodecError` (the facade's
-``CameraError``); TIFF, GIF, WebP, animated PNG and Pillow's own PNM
-extensions raise ``not_ported``.
+``CameraError``); WebP, animated PNG and Pillow's own PNM extensions raise
+``not_ported``.
 """
 
 from __future__ import annotations
@@ -66,9 +67,13 @@ class CodecError(ValueError):
     """A corrupt or truncated file, or one Pillow refuses."""
 
 
+TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
+                 b"II\x2b\x00")  # Pillow's TIFF prefixes
+
+
 def sniff(data: bytes) -> str:
-    """The format of encoded image bytes: "png", "bmp", "pnm", "jpeg", or
-    raises (not_ported for TIFF, GIF and WebP; CodecError for unknown)."""
+    """The format of encoded image bytes: "png", "bmp", "pnm", "jpeg",
+    "tiff", "gif", or raises (not_ported for WebP; CodecError for unknown)."""
     head = bytes(data[:12])
     if head.startswith(_PNG_SIG):
         return "png"
@@ -78,9 +83,10 @@ def sniff(data: bytes) -> str:
         return "pnm"
     if head.startswith(b"\xff\xd8"):
         return "jpeg"
-    for magic, name in ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF8", "GIF")):
-        if head.startswith(magic):
-            raise not_ported(f"reading {name} images", item=LEFTOVERS)
+    if head.startswith(TIFF_PREFIXES):
+        return "tiff"
+    if head.startswith((b"GIF87a", b"GIF89a")):
+        return "gif"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         raise not_ported("reading WebP images", item=LEFTOVERS)
     raise CodecError("unknown image format")
@@ -769,9 +775,40 @@ def from_mat_array(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a[..., ::-1])
 
 
-DECODERS = {"png": lambda d: _Png(d).rgb(), "bmp": read_bmp, "pnm": read_pnm}
-ENCODERS = {"png": write_png, "bmp": write_bmp, "pnm": write_pnm}
+def read_tiff(data: bytes) -> np.ndarray:
+    """A TIFF's first page (:mod:`.tiff`)."""
+    from . import tiff
+
+    return tiff.read_tiff(data)
+
+
+def read_gif(data: bytes) -> np.ndarray:
+    """A GIF's first frame (:mod:`.gif`)."""
+    from . import gif
+
+    return gif.read_gif(data)
+
+
+def write_tiff(img: np.ndarray) -> bytes:
+    """One page, uncompressed (:func:`.tiff.write_tiff`)."""
+    from . import tiff
+
+    return tiff.write_tiff([img])
+
+
+def write_gif(img) -> bytes:
+    """One frame (:func:`.gif.write_gif`): numpy, or a tensor quantized on
+    its device."""
+    from . import gif
+
+    return gif.write_gif([img])
+
+
+DECODERS = {"png": lambda d: _Png(d).rgb(), "bmp": read_bmp, "pnm": read_pnm, "tiff": read_tiff,
+            "gif": read_gif}
+ENCODERS = {"png": write_png, "bmp": write_bmp, "pnm": write_pnm, "tiff": write_tiff,
+            "gif": write_gif}
 EXTENSIONS = {"png": "png", "bmp": "bmp", "dib": "bmp", "ppm": "pnm", "pgm": "pnm",
               "pnm": "pnm", "pbm": "pnm", "pfm": "pnm", "jpg": "jpeg", "jpeg": "jpeg",
-              "jpe": "jpeg", "jfif": "jpeg"}
-NOT_PORTED_EXTENSIONS = {"tif": "TIFF", "tiff": "TIFF", "gif": "GIF", "webp": "WebP"}
+              "jpe": "jpeg", "jfif": "jpeg", "tif": "tiff", "tiff": "tiff", "gif": "gif"}
+NOT_PORTED_EXTENSIONS = {"webp": "WebP"}

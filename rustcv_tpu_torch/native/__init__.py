@@ -1,9 +1,9 @@
 """The port's host C++ (the JPEG entropy coder, the full host JPEG decode,
 the glyph rasterizer, the frame ring, the V4L2 driver, the
-connected-components union-find, the MSER component tree and the grid
-max-flow), built with g++ at first use and bound with ctypes.
+connected-components union-find, the MSER component tree, the grid
+max-flow and the LZW and PackBits loops of the TIFF and GIF codecs), built with g++ at first use and bound with ctypes.
 
-Ten sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
+Eleven sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
 block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
 which checks a payload exactly: Huffman coding is lossless; the flat-
@@ -19,8 +19,11 @@ writes the frozen test pattern as YUYV into its slots) and ``v4l2.cpp``
 ``unionfind.cpp`` (min-root union-find and the two-pass component
 labeling behind ``ops.ccl``: :func:`ccl_label`, :func:`union_find`),
 ``mser.cpp`` (the MSER component-tree pass behind ``ops.mser``:
-:func:`mser_triples`) and ``maxflow.cpp`` (Dinic max-flow on the
-8-connected pixel grid behind ``ops.grabcut``: :func:`maxflow_grid`).
+:func:`mser_triples`), ``maxflow.cpp`` (Dinic max-flow on the
+8-connected pixel grid behind ``ops.grabcut``: :func:`maxflow_grid`) and
+``lzw.cpp`` (GIF LZW decode and encode, TIFF LZW and PackBits decode behind
+``imgcodecs.gif`` and ``imgcodecs.tiff``: :func:`gif_lzw_decode`,
+:func:`gif_lzw_encode`, :func:`tiff_lzw_decode`, :func:`packbits_decode`).
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -46,7 +49,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp", _HERE / "jpeg_host.cpp",
            _HERE / "png_filter.cpp", _HERE / "text_raster.cpp", _HERE / "capture.cpp",
            _HERE / "v4l2.cpp", _HERE / "unionfind.cpp", _HERE / "mser.cpp",
-           _HERE / "maxflow.cpp")
+           _HERE / "maxflow.cpp", _HERE / "lzw.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "rustcv_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -178,6 +181,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rcv_maxflow_grid.restype = ctypes.c_int64
     lib.rcv_maxflow_grid.argtypes = [ctypes.c_int32, ctypes.c_int32, i64p, i64p, i64p, i64p,
                                      i64p, i64p, u8p]
+    # lzw.cpp: the TIFF and GIF codecs' bit-level loops.
+    for fn in (lib.rcv_gif_lzw_decode, lib.rcv_gif_lzw_encode):
+        fn.restype = ctypes.c_long
+        fn.argtypes = [u8p, ctypes.c_long, ctypes.c_int, u8p, ctypes.c_long]
+    for fn in (lib.rcv_tiff_lzw_decode, lib.rcv_packbits_decode):
+        fn.restype = ctypes.c_long
+        fn.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -539,6 +549,60 @@ def png_unfilter(raw: bytes, height: int, row_bytes: int, bpp: int) -> np.ndarra
     if rc != 0:
         raise ValueError("corrupt PNG image data" if rc == -2 else "unknown PNG filter type")
     return out
+
+
+def gif_lzw_decode(data: bytes, min_bits: int, n: int) -> np.ndarray:
+    """GIF image data (its sub-blocks joined) → up to ``n`` colour indices
+    (``lzw.cpp``): fewer when the end code or the data comes first. Raises
+    ValueError for a corrupt stream or a minimum code size outside 1-8."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    out = np.zeros(n, np.uint8)
+    got = lib.rcv_gif_lzw_decode(_ptr(buf), buf.size, int(min_bits), _ptr(out), n)
+    if got < 0:
+        raise ValueError("corrupt GIF image data" if got == -1 else
+                         f"bad GIF LZW minimum code size {min_bits}")
+    return out[:got]
+
+
+def gif_lzw_encode(idx: np.ndarray, min_bits: int) -> bytes:
+    """Colour indices (u8, each below ``1 << min_bits``) → GIF LZW codes,
+    clear code first and end code last, not yet cut into sub-blocks."""
+    lib = _need_lib()
+    buf = np.ascontiguousarray(idx, np.uint8).ravel()
+    cap = 64 + buf.size * 2  # at most 12 bits per index, plus the clears
+    out = np.empty(cap, np.uint8)
+    got = lib.rcv_gif_lzw_encode(_ptr(buf), buf.size, int(min_bits), _ptr(out), cap)
+    if got < 0:
+        raise ValueError(f"GIF LZW encode failed (rc={got})")
+    return out[:got].tobytes()
+
+
+def tiff_lzw_decode(data: bytes, n: int) -> np.ndarray:
+    """A TIFF LZW strip or tile → up to ``n`` bytes (fewer when the end
+    code or the data comes first). Raises ValueError for a corrupt stream,
+    ``not_ported`` for old-style LZW."""
+    from ..core.errors import not_ported
+
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    out = np.zeros(n, np.uint8)
+    got = lib.rcv_tiff_lzw_decode(_ptr(buf), buf.size, _ptr(out), n)
+    if got == -3:
+        raise not_ported("old-style (LSB-first) TIFF LZW", item="8")
+    if got < 0:
+        raise ValueError("corrupt TIFF LZW data")
+    return out[:got]
+
+
+def packbits_decode(data: bytes, n: int) -> np.ndarray:
+    """A PackBits strip or tile → up to ``n`` bytes (fewer when the data
+    ends first)."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    out = np.zeros(n, np.uint8)
+    got = lib.rcv_packbits_decode(_ptr(buf), buf.size, _ptr(out), n)
+    return out[:got]
 
 
 def ccl_label(mask: np.ndarray, connectivity: int = 4) -> tuple:

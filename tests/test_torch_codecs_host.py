@@ -212,17 +212,26 @@ def test_the_dump_writes_a_png_the_reference_reads(monkeypatch, tmp_path, jax_cp
 @pytest.mark.parametrize("call", ["tiff", "gif", "webp", "multi", "count", "writemulti", "exif",
                                   "png16", "ascii_pnm"])
 def test_what_stays_not_ported_raises(tmp_path, call, jax_cpu):
-    """TIFF, GIF, WebP and the multi-page calls raise ``not_ported``; EXIF,
-    16-bit PNG and ASCII PNM, which once did, read as the reference reads
-    them."""
+    """WebP and animated PNG writes raise ``not_ported``; TIFF, GIF, the
+    multi-page calls (item 8b), EXIF, 16-bit PNG and ASCII PNM, which once
+    did, read and write as the reference does."""
     a = _img((4, 4, 3), 0)
     buf = io.BytesIO()
-    if call in ("tiff", "gif", "webp"):
+    if call == "webp":
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
             imgcodecs.imwrite(str(tmp_path / f"x.{call}"), _mat(a))
         Image.fromarray(a).save(buf, call.upper())
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
             imgcodecs.imdecode(buf.getvalue(), device="cpu")
+        return
+    if call in ("tiff", "gif"):
+        path = tmp_path / f"x.{call}"
+        assert imgcodecs.imwrite(str(path), _mat(a))
+        assert jax_codecs.imwrite(str(tmp_path / f"r.{call}"), jax_core.Mat.from_array(a))
+        np.testing.assert_array_equal(jax_codecs.imread(str(path)).to_numpy(), a)
+        Image.fromarray(a).save(buf, call.upper())
+        np.testing.assert_array_equal(imgcodecs.imdecode(buf.getvalue(), device="cpu").to_numpy(),
+                                      jax_codecs.imdecode(buf.getvalue()).to_numpy())
         return
     if call == "exif":
         exif = Image.Exif()
@@ -245,11 +254,21 @@ def test_what_stays_not_ported_raises(tmp_path, call, jax_cpu):
                 else imgcodecs.imdecode(buf.getvalue(), device="cpu"))
         np.testing.assert_array_equal(read.to_numpy(), _pillow_reads(buf.getvalue()))
         return
-    fn = {"multi": lambda: imgcodecs.imreadmulti(str(path)),
-          "count": lambda: imgcodecs.imcount(str(path)),
-          "writemulti": lambda: imgcodecs.imwritemulti(str(path), [_mat(a)])}[call]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        fn()
+    if call == "writemulti":  # a multi-frame .png is an animated PNG: still not ported
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+            imgcodecs.imwritemulti(str(path), [_mat(a)])
+        assert imgcodecs.imwritemulti(str(tmp_path / "x.tiff"), [_mat(a), _mat(a[::-1])])
+        got = [m.to_numpy() for m in jax_codecs.imreadmulti(str(tmp_path / "x.tiff"))]
+        assert len(got) == 2 and np.array_equal(got[1], a[::-1])
+        return
+    Image.fromarray(a).save(path, "PNG")
+    if call == "count":
+        assert imgcodecs.imcount(str(path)) == jax_codecs.imcount(str(path)) == 1
+        return
+    got = imgcodecs.imreadmulti(str(path), device="cpu")
+    want = jax_codecs.imreadmulti(str(path))
+    assert len(got) == len(want) == 1
+    np.testing.assert_array_equal(got[0].to_numpy(), want[0].to_numpy())
 
 
 def test_corrupt_and_unknown_files(tmp_path):

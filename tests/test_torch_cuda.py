@@ -46,7 +46,9 @@ submodules: every function with numpy images (on the card where it hands
 them to a Mat or a device op) against CPU tensors, ``cornerHarris``,
 ``goodFeaturesToTrack``, ``GFTTDetector.detect`` and
 ``goodFeaturesToTrackWithQuality`` launching each K6 form once per form
-they reach, CUDA tensors against CPU tensors, and draws on a CUDA tensor.
+they reach, CUDA tensors against CPU tensors, and draws on a CUDA tensor;
+and TIFF and GIF read onto the card and written from CUDA Mats (the GIF's
+colour mapping on the card) against the CPU.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -703,6 +705,41 @@ def test_videocapture_and_codecs_on_the_card(cuda):
     host = imgcodecs.imdecode(data)  # the host decode, uploaded to the card
     assert host.device().is_cuda
     np.testing.assert_array_equal(host.to_numpy(), native.jpeg_decode_bgr(data))
+
+
+@pytest.mark.parametrize("colours", ["few", "many", "gray"])
+def test_tiff_and_gif_on_the_card_match_the_cpu(cuda, tmp_path, colours):
+    """TIFF and GIF (item 8b): ``imreadmulti`` onto the card equals the CPU
+    read page for page; ``imwritemulti`` of CUDA Mats (the GIF's
+    nearest-entry mapping on the card) writes the bytes CPU Mats write; an
+    ``imencode(".gif")`` of a CUDA Mat likewise."""
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.core import Mat
+
+    rng = np.random.default_rng(22)
+    if colours == "few":
+        pal = rng.integers(0, 256, (100, 3), np.uint8)
+        frames = [pal[rng.integers(0, 100, (61, 83))] for _ in range(3)]
+    elif colours == "many":
+        frames = [rng.integers(0, 256, (61, 83, 3), np.uint8) for _ in range(3)]
+    else:
+        frames = [rng.integers(0, 256, (61, 83), np.uint8) for _ in range(3)]
+    for ext in (".tiff", ".gif"):
+        written = []
+        for side in ("cuda", "cpu"):
+            path = tmp_path / f"{side}{ext}"
+            assert imgcodecs.imwritemulti(str(path), [Mat.from_array(f.copy(), device=side)
+                                                      for f in frames])
+            written.append(path.read_bytes())
+        assert written[0] == written[1]
+        card = imgcodecs.imreadmulti(str(path), device="cuda")
+        cpu = imgcodecs.imreadmulti(str(path), device="cpu")
+        assert len(card) == len(cpu) == 3
+        for a, b in zip(card, cpu):
+            assert a.device().is_cuda
+            np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
+    assert imgcodecs.imencode(".gif", Mat.from_array(frames[0].copy(), device="cuda")) == \
+        imgcodecs.imencode(".gif", Mat.from_array(frames[0].copy(), device="cpu"))
 
 
 # -- text and the host codecs (what Pillow does in the reference) ---------------------

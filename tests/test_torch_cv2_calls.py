@@ -56,10 +56,11 @@ TYPE_ONLY = {
 }
 
 # The reference's swallow-all wrappers return False / 0 / [] on any
-# exception; the port lets its own not_ported (multi-page files are
-# ROADMAP Queue 1 item 8) through: on an existing file here, where the
-# reference reads or writes one page.
-RAISES_WHERE_REFERENCE_SWALLOWS = {"imcount", "imreadmulti", "imwritemulti"}
+# exception; the port lets its own not_ported (animated PNG is ROADMAP
+# Queue 1 item 8) through: the synthesized imwritemulti writes a ".png",
+# which the reference writes as an animated PNG. imcount and imreadmulti
+# of the PNG answer as the reference's (item 8b).
+RAISES_WHERE_REFERENCE_SWALLOWS = {"imwritemulti"}
 
 
 def _psnr(a, b):

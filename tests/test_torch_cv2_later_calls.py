@@ -10,10 +10,10 @@ as numpy and to the port with their images as CPU tensors (the one rule:
 :func:`port_args`), with ``np.asarray`` of a tensor refused as on the card;
 the results and the arguments written in place are held equal, or within
 the bar that :data:`BARS` states for the name. A reference call that raises
-must raise the same exception class (by name) in the port. The six
-functions the reference runs with Pillow for multi-page and animated image
-files raise ``not_ported`` (ROADMAP Queue 1 item 8) in the port; the two
-metadata ones are held by :data:`CHECKS` (their bytes differ).
+must raise the same exception class (by name) in the port. The metadata
+functions and the multi-page and animated ones that decode each side's
+own PNG or encode a GIF (other bytes: the port's writers) are held by
+:data:`CHECKS` on what they decode to (item 8b).
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import pytest
 
 import rustcv_tpu.cv2 as R
 import rustcv_tpu_torch.cv2 as P
-from cv2_torch_parity import (BARS, CHECKS, PILLOW_BOUND, facade_get, later_callables,
+from cv2_torch_parity import (BARS, CHECKS, facade_get, later_callables,
                               later_names, later_plan, port_args, same)
 from test_torch_cv2_calls import _release, _run, _run_port
 
@@ -67,9 +67,6 @@ def test_call_matches_reference(name, tmp_path, monkeypatch):
     ra, rk, pa, pk = _plans(name, tmp_path)
     rout, rerr = _run(rf, ra, rk)
     pout, perr = _run_port(pf, pa, pk, monkeypatch)
-    if name in PILLOW_BOUND:
-        assert isinstance(perr, NotImplementedError) and "item 8" in str(perr), perr
-        return
     if rerr is not None:
         assert perr is not None, f"{name}: the reference raised {rerr!r}, the port returned"
         assert type(perr).__name__ == type(rerr).__name__, (name, rerr, perr)

@@ -9,14 +9,14 @@ pinned (``rustcv_tpu_torch/cv2/_device.py``):
 * in-place draws mutate the caller's numpy array (on the host, in its own
   buffer) or CPU tensor;
 * the reference's swallow-all wrappers keep cv2's False / 0 for a missing
-  or unreadable file and let ``not_ported`` through;
+  or unreadable file and let ``not_ported`` (animated PNG, WebP) through;
 * the later modules (ROADMAP Queue 1 item 7b) follow the same rules: which
   of their wrappers send a numpy image to the card is frozen in
   :data:`LATER_CARD_NAMES`, ``addText`` and ``thresholdWithMask`` write
-  into the caller's buffer, and the six Pillow-bound functions raise
-  ``not_ported`` (items 8b and 8c), also through the three that swallow
-  errors in the reference; ``imdecodeWithMetadata`` and
-  ``imencodeWithMetadata`` (item 8a) run the port's own codecs.
+  into the caller's buffer; the six functions the reference runs with
+  Pillow for multi-page and animated files (item 8b) and
+  ``imdecodeWithMetadata`` and ``imencodeWithMetadata`` (item 8a) run the
+  port's own codecs and answer as the reference's for TIFF and GIF.
 """
 import numpy as np
 import pytest
@@ -150,14 +150,21 @@ def test_a_contiguous_bgr_array_is_drawn_without_a_copy(monkeypatch):
 
 
 def test_multi_page_wrappers_let_not_ported_through(tmp_path):
+    """imcount and imreadmulti of a PNG and imwritemulti of a TIFF answer as
+    the reference's (item 8b); an animated PNG or a WebP written by
+    imwritemulti still raises not_ported through the swallowing wrapper."""
     png = str(tmp_path / "a.png")
     R.imwrite(png, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.imcount(png)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.imreadmulti(png)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.imwritemulti(str(tmp_path / "b.tiff"), [np.zeros((8, 8, 3), np.uint8)])
+    assert P.imcount(png) == R.imcount(png) == 1
+    got, want = P.imreadmulti(png), R.imreadmulti(png)
+    assert got[0] is want[0] is True and np.array_equal(got[1][0], want[1][0])
+    frames = [np.full((8, 8, 3), v, np.uint8) for v in (0, 90, 200)]
+    assert P.imwritemulti(str(tmp_path / "b.tiff"), frames) is \
+        R.imwritemulti(str(tmp_path / "r.tiff"), frames) is True
+    assert P.imcount(str(tmp_path / "b.tiff")) == R.imcount(str(tmp_path / "b.tiff")) == 3
+    for ext in (".png", ".webp"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            P.imwritemulti(str(tmp_path / f"c{ext}"), frames)
     # cv2's answers for a missing file or directory stay
     assert P.imcount(str(tmp_path / "none.tif")) == R.imcount(str(tmp_path / "none.tif")) == 0
     assert P.imreadmulti(str(tmp_path / "none.tif")) == (False, [])
@@ -168,12 +175,18 @@ def test_have_image_reader_asks_the_ports_codecs(tmp_path):
     png = str(tmp_path / "a.png")
     R.imwrite(png, np.zeros((8, 8, 3), np.uint8))
     (tmp_path / "junk.png").write_bytes(b"not an image at all")
-    (tmp_path / "a.tif").write_bytes(b"II*\x00" + bytes(60))
+    (tmp_path / "a.tif").write_bytes(b"II*\x00" + bytes(60))  # no IFD: Image.open fails
+    R.imwritemulti(str(tmp_path / "b.gif"), [np.zeros((8, 8, 3), np.uint8)])
+    R.imwrite(str(tmp_path / "c.webp"), np.zeros((8, 8, 3), np.uint8))
     assert P.haveImageReader(png) is R.haveImageReader(png) is True
     assert P.haveImageReader(str(tmp_path / "junk.png")) is False
     assert P.haveImageReader(str(tmp_path / "missing.png")) is False
+    tif = str(tmp_path / "a.tif")
+    assert P.haveImageReader(tif) is R.haveImageReader(tif) is False
+    gif = str(tmp_path / "b.gif")
+    assert P.haveImageReader(gif) is R.haveImageReader(gif) is True
     with pytest.raises(NotImplementedError, match="item 8"):
-        P.haveImageReader(str(tmp_path / "a.tif"))
+        P.haveImageReader(str(tmp_path / "c.webp"))
 
 
 def test_video_writer_open_is_false_for_a_bad_path_or_codec(tmp_path):
@@ -188,12 +201,14 @@ def test_video_writer_open_is_false_for_a_bad_path_or_codec(tmp_path):
 
 def test_item_7b_names_raise_not_ported():
     """Item 7b's names are ported: none raises ``not_ported`` on access any
-    more, and the only ones that raise it when called are item 8's."""
+    more, and item 8b's multi-page encode answers as the reference's."""
     for name in ("aruco", "solveP3P", "detail_Blender", "DISOpticalFlow_create"):
         getattr(P, name)
     assert not hasattr(P, "_ITEM_7B")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.imencodemulti(".tiff", [np.zeros((8, 8, 3), np.uint8)])
+    frames = [np.zeros((8, 8, 3), np.uint8)]
+    got, want = P.imencodemulti(".tiff", frames), R.imencodemulti(".tiff", frames)
+    assert got[0] is want[0] is True
+    assert np.array_equal(R.imdecodemulti(got[1])[1][0], R.imdecodemulti(want[1])[1][0])
 
 
 # ------------------------------------------------------------ item 7b
@@ -324,13 +339,19 @@ def test_add_text_on_a_contiguous_array_copies_nothing_back(monkeypatch):
     assert img.any() and copies == []
 
 
+# The six functions the reference runs with Pillow for multi-page and
+# animated files (item 8b): each call, on a two-frame GIF the reference
+# wrote, answers as the reference's.
 PILLOW_BOUND = [
-    ("imencodemulti", lambda tmp, gif: P.imencodemulti(".gif", [np.zeros((8, 8, 3), np.uint8)])),
-    ("imdecodemulti", lambda tmp, gif: P.imdecodemulti(gif)),
-    ("imreadanimation", lambda tmp, gif: P.imreadanimation(_gif_file(tmp, gif))),
-    ("imwriteanimation", lambda tmp, gif: P.imwriteanimation(str(tmp / "b.gif"), _anim())),
-    ("imdecodeanimation", lambda tmp, gif: P.imdecodeanimation(gif)),
-    ("imencodeanimation", lambda tmp, gif: P.imencodeanimation(".gif", _anim())),
+    ("imencodemulti", lambda C, tmp, gif: _decoded(C.imencodemulti(
+        ".gif", [np.zeros((8, 8, 3), np.uint8), np.full((8, 8, 3), 90, np.uint8)]))),
+    ("imdecodemulti", lambda C, tmp, gif: C.imdecodemulti(gif)),
+    ("imreadanimation", lambda C, tmp, gif: _fields(C.imreadanimation(_gif_file(tmp, gif)))),
+    ("imwriteanimation", lambda C, tmp, gif: (C.imwriteanimation(str(tmp / "b.gif"), _anim(C)),
+                                              _fields(R.imreadanimation(str(tmp / "b.gif"))))),
+    ("imdecodeanimation", lambda C, tmp, gif: _fields(C.imdecodeanimation(gif))),
+    ("imencodeanimation", lambda C, tmp, gif: _fields(R.imdecodeanimation(
+        C.imencodeanimation(".gif", _anim(C))[1]))),
 ]
 
 
@@ -350,18 +371,41 @@ def _gif_file(tmp, gif):
     return str(path)
 
 
-def _anim():
-    a = P.Animation()
-    a.frames = [np.zeros((8, 8, 3), np.uint8)]
+def _anim(C):
+    a = C.Animation(2)
+    a.frames = [np.zeros((8, 8, 3), np.uint8), np.full((8, 8, 3), 60, np.uint8)]
+    a.durations = [30, 70]
     return a
+
+
+def _decoded(out):
+    return out[0], R.imdecodemulti(out[1])[1]
+
+
+def _fields(out):
+    ok, anim = out
+    return ok, anim.frames, anim.durations, anim.loop_count
+
+
+def _equal(a, b):
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    return a == b
 
 
 @pytest.mark.parametrize("name,call", PILLOW_BOUND, ids=[n for n, _ in PILLOW_BOUND])
 def test_each_pillow_bound_name_raises_not_ported_item_8(name, call, tmp_path):
+    """Item 8b: each of the six answers as the reference's on a GIF (the
+    name is kept from when they raised not_ported; animated PNG and WebP
+    still do, tests/test_torch_multipage_formats.py)."""
     gif = _gif()
     assert R.imdecodemulti(gif)[0] is True and len(R.imdecodemulti(gif)[1]) == 2
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        call(tmp_path, gif)
+    (tmp_path / "p").mkdir()
+    (tmp_path / "r").mkdir()
+    got, want = call(P, tmp_path / "p", gif), call(R, tmp_path / "r", gif)
+    assert _equal(got, want), (got, want)
 
 
 def _png_text(C):
@@ -377,8 +421,8 @@ METADATA = [
 @pytest.mark.parametrize("name,call", METADATA, ids=[n for n, _ in METADATA])
 def test_the_metadata_names_run_the_ports_codecs(name, call):
     """Of the eight functions that were Pillow-bound, the two metadata ones
-    (item 8a) now answer as the reference does: a PNG's text comes back,
-    in order, with the same pixels. Six stay Pillow-bound."""
+    (item 8a) answer as the reference does: a PNG's text comes back, in
+    order, with the same pixels; the six multi-page ones are item 8b's."""
     assert len(PILLOW_BOUND) == 6 and name not in dict(PILLOW_BOUND)
     got, want = call(P), call(R)
     assert got[1:] == want[1:] == (["Title"], ["x"]) and np.array_equal(got[0], want[0])

@@ -202,19 +202,25 @@ def test_imwrite_and_imread(coders, tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """What stays not ported of imgcodecs (TIFF, GIF, WebP, the multi-page
-    calls) names its ROADMAP item; PNG and the host backend are ported."""
+    """What stays not ported of imgcodecs (WebP, animated PNG) names its
+    ROADMAP item; PNG, the host backend, TIFF, GIF and the multi-page calls
+    (item 8b) are ported: a TIFF or GIF encode decodes back to the Mat, a
+    GIF with no image and a missing file raise CameraError."""
     mat = Mat.from_array(_img(8, 8, 0), device="cpu")
     cases = [
-        lambda: imgcodecs.imencode(".tiff", mat),
-        lambda: imgcodecs.imencode(".gif", mat),
-        lambda: imgcodecs.imdecode(b"GIF89a" + b"\x00" * 20, device="cpu"),
         lambda: imgcodecs.imdecode(b"RIFF\x00\x00\x00\x00WEBPVP8 ", device="cpu"),
         lambda: imgcodecs.imwrite(str(tmp_path / "x.webp"), mat),
-        lambda: imgcodecs.imreadmulti(str(tmp_path / "x.tif")),
+        lambda: imgcodecs.imwritemulti(str(tmp_path / "x.png"), [mat, mat]),
     ]
     for call in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+            call()
+    for ext in (".tiff", ".gif"):
+        back = imgcodecs.imdecode(imgcodecs.imencode(ext, mat), device="cpu").to_numpy()
+        assert np.array_equal(back, mat.to_numpy())
+    for call in (lambda: imgcodecs.imdecode(b"GIF89a" + b"\x00" * 20, device="cpu"),
+                 lambda: imgcodecs.imreadmulti(str(tmp_path / "x.tif"))):
+        with pytest.raises(CameraError):
             call()
     assert imgcodecs.imencode(".png", mat)[:8] == b"\x89PNG\r\n\x1a\n"
     assert imgcodecs.imencode(".jpg", mat, backend="host")[:2] == b"\xff\xd8"

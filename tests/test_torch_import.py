@@ -695,12 +695,15 @@ _CV2_LATER_SCRIPT = textwrap.dedent(
     canvas = img.copy()
     cv2.addText(canvas, "7b", (2, 20), "DejaVu", 14, (0, 255, 0))
     assert (canvas != img).any()
+    ok, buf = cv2.imencodemulti(".tiff", [img, img[::-1]])
+    ok2, pages = cv2.imdecodemulti(buf)
+    assert ok and ok2 and len(pages) == 2 and np.array_equal(pages[1], img[::-1])
     try:
-        cv2.imencodemulti(".tiff", [img])
+        cv2.imwritemulti(os.path.join(tempfile.mkdtemp(), "a.webp"), [img])
     except NotImplementedError as e:
         assert "item 8" in str(e)
     else:
-        raise AssertionError("imencodemulti is item 8")
+        raise AssertionError("a WebP write is item 8")
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
     assert not bad, bad
@@ -714,7 +717,8 @@ def test_cv2_later_modules_run_without_jax_or_pil():
     jax, Pillow and the JAX package blocked: its submodules ``aruco``,
     ``detail``, ``dnn`` and ``fisheye``, the GFTT and Farnebäck objects,
     ``goodFeaturesToTrackWithQuality`` on both Harris routes, ``addText``,
-    and an item-8 name's ``not_ported``."""
+    a multi-page TIFF encoded and decoded (item 8b), and a WebP write's
+    ``not_ported``."""
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
         [sys.executable, "-c", _CV2_LATER_SCRIPT], cwd=REPO, env=env,
@@ -891,6 +895,96 @@ _FORMATS_SCRIPT = textwrap.dedent(
     print("OK")
     """
 )
+
+
+_MULTIPAGE_SCRIPT = textwrap.dedent(
+    """
+    import json, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    from pathlib import Path
+    import numpy as np
+    import rustcv_tpu_torch.cv2 as cv2
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.core import Mat
+    from rustcv_tpu_torch.imgcodecs import exif
+    d = Path(sys.argv[1])
+    want = json.loads((d / "want.json").read_text())
+    for name, n in want["counts"].items():
+        path = str(d / name)
+        assert imgcodecs.imcount(path) == n, name
+        got = [m.to_numpy() for m in imgcodecs.imreadmulti(path, device="cpu")]
+        truth = np.load(d / (name + ".npy"))
+        assert len(got) == n and all(np.array_equal(g, t) for g, t in zip(got, truth)), name
+        assert exif.metadata((d / name).read_bytes()) == want["metadata"][name], name
+    rng = np.random.default_rng(1)
+    frames = [rng.integers(0, 256, (20, 30, 3), np.uint8) for _ in range(2)]
+    for ext in (".tiff", ".gif"):
+        path = str(d / ("out" + ext))
+        assert imgcodecs.imwritemulti(path, [Mat.from_array(f, device="cpu") for f in frames])
+        back = [m.to_numpy() for m in imgcodecs.imreadmulti(path, device="cpu")]
+        assert len(back) == 2 and (ext == ".gif" or np.array_equal(back[0], frames[0]))
+    anim = cv2.Animation(3)
+    anim.frames, anim.durations = frames, [40, 60]
+    ok, buf = cv2.imencodeanimation(".gif", anim)
+    ok2, back = cv2.imdecodeanimation(buf)
+    assert ok and ok2 and back.durations == [40, 60] and back.loop_count == 3
+    try:
+        cv2.imencodeanimation(".webp", anim)
+    except NotImplementedError as e:
+        assert "item 8" in str(e)
+    else:
+        raise AssertionError("an animated WebP is item 8")
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_tiff_and_gif_run_without_jax_or_pil(tmp_path):
+    """Item 8b's codecs (``imgcodecs.tiff``, ``imgcodecs.gif``, the median
+    cut, the LZW loops) run with jax, Pillow and the JAX package blocked:
+    ``imcount``, ``imreadmulti`` and the metadata of a Pillow-written LZW
+    TIFF with predictor 2 and an animated GIF equal what Pillow and the
+    reference read (made here); ``imwritemulti`` to TIFF and GIF and cv2's
+    animation calls run; an animated WebP raises ``not_ported``."""
+    import io
+    import json
+
+    import numpy as np
+    from PIL import Image, ImageSequence
+
+    from rustcv_tpu import imgcodecs as jax_codecs
+
+    rng = np.random.default_rng(0)
+    pal = rng.integers(0, 256, (30, 3), np.uint8)
+    frames = [Image.fromarray(pal[rng.integers(0, 30, (17, 23))]) for _ in range(3)]
+    files = {}
+    buf = io.BytesIO()
+    frames[0].save(buf, "TIFF", save_all=True, append_images=frames[1:], compression="tiff_lzw",
+                   tiffinfo={317: 2})
+    files["pages.tif"] = buf.getvalue()
+    buf = io.BytesIO()
+    frames[0].save(buf, "GIF", save_all=True, append_images=frames[1:], duration=[30, 40, 50],
+                   loop=1)
+    files["anim.gif"] = buf.getvalue()
+    want = {"counts": {}, "metadata": {}}
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        im = Image.open(io.BytesIO(data))
+        truth = [np.asarray(f.convert("RGB"))[..., ::-1] for f in ImageSequence.Iterator(im)]
+        np.save(tmp_path / (name + ".npy"), np.stack(truth))
+        want["counts"][name] = len(truth)
+        want["metadata"][name] = jax_codecs.imread_with_metadata(str(tmp_path / name))[1]
+    (tmp_path / "want.json").write_text(json.dumps(want))
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _MULTIPAGE_SCRIPT, str(tmp_path)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_formats_metadata_and_text_run_without_jax_or_pil(tmp_path):
