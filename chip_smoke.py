@@ -208,7 +208,11 @@ Phases:
    card equal to the CPU read, and to their numpy truth, Pillow's hash and
    the reference's metadata; ``put_text`` of a Latin-1 string at 4, 100 and
    160 px on a 1080p CUDA Mat equal to the CPU Mat, masks to the
-   reference's hashes;
+   reference's hashes; (3w) TIFF and GIF (item 8b), every page and frame;
+   (3x) WebP reads (item 8c): the fixtures of ``tests/data/webp`` read onto
+   the card equal to the CPU read and to the reference's hashes in their
+   manifest, with its counts, durations, loops and metadata, no kernel
+   launched, and WebP writes raising ``not_ported``;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -240,7 +244,10 @@ Phases:
    on a line of their own; (4u) the same for phase 3u's calls; (4v) ms per
    ``imread`` onto the card at 1080p of a 16-bit PNG, an Adam7 PNG, a 4:4:0
    JPEG, a JPEG in one scan per component and the progressive JPEG, and
-   ``put_text`` and the rasterizer at 160 px.
+   ``put_text`` and the rasterizer at 160 px; (4w) TIFF and GIF reads and
+   writes at 1080p; (4x) ``imread`` onto the card of the 1080p lossy and
+   lossless WebP fixtures, ``imreadmulti`` of the 8-frame 640x360
+   animation, and the native decodes alone.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -2656,6 +2663,116 @@ def time_formats_8b(smi: str, dev: str = "cuda") -> None:
                   f"from card Mats: {ms:.4f} ms", flush=True)
             ms = cuda_ms(lambda: imgcodecs.imreadmulti(path, device=dev), MULTI_TIMED)
             print(f"{tag} imreadmulti of that 8-frame {ext} onto the card: {ms:.4f} ms", flush=True)
+
+
+# -- phases 3x and 4x: WebP reads (ROADMAP Queue 1 item 8c). The card's
+# machine has no Pillow and the port no WebP writer, so the phase reads the
+# fixtures committed in tests/data/webp (tools/make_webp_data.py, written by
+# libwebp 1.6's encoder where Pillow is) and holds every frame to the
+# SHA-256 of the reference's read in their manifest.
+
+WEBP_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "webp")
+
+
+def run_formats_8c(dev: str = "cuda") -> dict:
+    """Phase 3x: WebP on the card's machine, with no Pillow. Every fixture
+    (lossy with each filter type, segments and partitions; lossless with
+    each transform; alpha raw and VP8L under its filters; VP8X metadata;
+    animations with sub-rectangle, blended and disposed frames; the 1080p
+    files of phase 4x) read by ``imread`` and ``imreadmulti`` onto ``dev``
+    equals the CPU read and the manifest's hash frame for frame;
+    ``imcount``, cv2's ``imreadanimation`` durations and loop and
+    ``imread_with_metadata`` equal the manifest's; a WebP write raises
+    ``not_ported``. Returns the phase's launches (none expected)."""
+    import hashlib
+    import tempfile
+
+    import rustcv_tpu_torch.cv2 as cv2
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.prelude import Mat
+
+    kernels.reset_launch_counts()
+    with open(os.path.join(WEBP_DATA, "manifest.json")) as f:
+        manifest = json.load(f)
+    frames = 0
+    for name, m in sorted(manifest.items()):
+        path = os.path.join(WEBP_DATA, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        expect(hashlib.sha256(data).hexdigest() == m["sha256"], f"{name}: not the committed file")
+        expect(imgcodecs.imcount(path) == m["n_frames"], f"{name}: imcount {imgcodecs.imcount(path)}")
+        on_dev = imgcodecs.imreadmulti(path, device=dev)
+        cpu = [x.to_numpy() for x in imgcodecs.imreadmulti(path, device="cpu")]
+        expect(len(on_dev) == len(cpu) == m["n_frames"], f"{name}: {len(on_dev)} frames")
+        for k, (x, c, digest) in enumerate(zip(on_dev, cpu, m["frames"])):
+            expect(x.device().device.type == dev, f"{name} frame {k}: on {x.device().device}")
+            expect(np.array_equal(x.to_numpy(), c), f"{name} frame {k}: the {dev} read differs")
+            expect(list(c.shape) == m["shapes"][k]
+                   and hashlib.sha256(np.ascontiguousarray(c).tobytes()).hexdigest() == digest,
+                   f"{name} frame {k}: not the reference's read")
+        expect(np.array_equal(imgcodecs.imread(path, device=dev).to_numpy(), cpu[0]),
+               f"{name}: imread is not the first frame")
+        meta = imgcodecs.imread_with_metadata(path, device=dev)[1]
+        expect(meta == m["metadata"], f"{name}: metadata {meta}")
+        ok, anim = cv2.imreadanimation(path)
+        expect(ok and anim.durations == m["durations"] and anim.loop_count == m["loop"],
+               f"{name}: imreadanimation {anim.durations} loop {anim.loop_count}")
+        frames += len(cpu)
+    print(f"formats 8c: {len(manifest)} WebP files ({frames} frames) read onto {dev} equal to the "
+          f"CPU read and to the reference's hashes, with its counts, durations, loops and "
+          f"metadata: {', '.join(sorted(manifest))}", flush=True)
+    mat = Mat.from_array(np.zeros((8, 8, 3), np.uint8), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "x.webp")
+        for what, call in (("imwrite", lambda: imgcodecs.imwrite(out, mat)),
+                           ("imencode", lambda: imgcodecs.imencode(".webp", mat)),
+                           ("imwritemulti", lambda: imgcodecs.imwritemulti(out, [mat, mat]))):
+            try:
+                call()
+            except NotImplementedError as e:
+                expect("item 8" in str(e), f"{what} .webp: {e}")
+            else:
+                expect(False, f"{what} .webp wrote (WebP writes are item 8c-ii)")
+    print("formats 8c: imwrite, imencode and imwritemulti to .webp raise not_ported (item 8c-ii)",
+          flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3x launched kernels: {counts}")
+    return counts
+
+
+def time_formats_8c(smi: str, dev: str = "cuda") -> None:
+    """Phase 4x: ms per call (CUDA events over MULTI_TIMED calls, the file in
+    the page cache): ``imread`` onto the card of the 1080p lossy q80 and
+    lossless fixtures, ``imreadmulti`` of the 8-frame 640x360 animation, and
+    the native decode alone (``native.vp8_decode`` / ``vp8l_decode`` of the
+    image chunk into RGBA on the host)."""
+    from rustcv_tpu_torch import imgcodecs, native
+    from rustcv_tpu_torch.imgcodecs import webp
+
+    tag = f"[{smi}]"
+    for name, what in (("p1080_lossy_q80.webp", "lossy q80"), ("p1080_lossless.webp", "lossless")):
+        path = os.path.join(WEBP_DATA, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        ms = cuda_ms(lambda: imgcodecs.imread(path, device=dev), MULTI_TIMED)
+        print(f"{tag} imread of the 1920x1080 {what} WebP ({len(data)} bytes) onto the card: "
+              f"{ms:.4f} ms", flush=True)
+        w = webp.WebP(data)
+        f0 = w.frames[0]
+        body = w.data[f0.image[0] + 8:f0.image[0] + f0.image[1]]
+        decode = (lambda: native.vp8l_decode(body)) if f0.lossless else \
+            (lambda: native.vp8_decode(body))
+        decode()
+        t = time.perf_counter()
+        for _ in range(MULTI_TIMED):
+            decode()
+        ms = (time.perf_counter() - t) * 1e3 / MULTI_TIMED
+        print(f"{tag} the native {what} decode alone (host clock): {ms:.4f} ms", flush=True)
+    path = os.path.join(WEBP_DATA, "anim8_640x360.webp")
+    ms = cuda_ms(lambda: imgcodecs.imreadmulti(path, device=dev), MULTI_TIMED)
+    print(f"{tag} imreadmulti of the 8-frame 640x360 lossy WebP ({os.path.getsize(path)} bytes) "
+          f"onto the card: {ms:.4f} ms", flush=True)
 
 
 def time_new_paths(smi: str) -> None:
@@ -6595,6 +6712,8 @@ def main() -> int:
         done("phase 3v, the formats of item 8a")
         phase("phase 3w, TIFF and GIF (item 8b)", run_formats_8b)
         done("phase 3w, TIFF and GIF (item 8b)")
+        phase("phase 3x, WebP reads (item 8c)", run_formats_8c)
+        done("phase 3x, WebP reads (item 8c)")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -6606,6 +6725,7 @@ def main() -> int:
                           ("text and host codecs", lambda: time_text_and_codecs(smi)),
                           ("the formats of item 8a (4v)", lambda: time_formats_8a(smi)),
                           ("TIFF and GIF (4w)", lambda: time_formats_8b(smi)),
+                          ("WebP reads (4x)", lambda: time_formats_8c(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

@@ -7,11 +7,12 @@ device.
 
 The reference reads and writes multi-page, animated and metadata image
 files with Pillow. The port does so with its own codecs
-(``imgcodecs.tiff``, ``imgcodecs.gif``, ``imgcodecs.exif``): multi-page
-TIFF and animated GIF both ways, every still format's one frame, the
-metadata of all six formats. Animated PNG and WebP wait on ROADMAP Queue
-1 item 8 and raise ``not_ported``, also through the calls that answer False
-for a file or buffer that is no image.
+(``imgcodecs.tiff``, ``imgcodecs.gif``, ``imgcodecs.webp``,
+``imgcodecs.exif``): multi-page TIFF and animated GIF both ways, still and
+animated WebP read, every still format's one frame, the metadata of all
+seven formats. Animated PNG and WebP writes wait on ROADMAP Queue 1 item 8
+and raise ``not_ported``, also through the calls that answer False for a
+file or buffer that is no image.
 Held call for call against the reference in
 ``tests/test_torch_cv2_later_calls.py``.
 """

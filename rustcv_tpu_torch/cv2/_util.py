@@ -357,9 +357,9 @@ _READ_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".gif", ".tif", ".tiff",
 
 def haveImageReader(filename: str) -> bool:
     """True where the port's codecs open the file as the reference's
-    ``Image.open`` does (its header; a TIFF's first IFD, a GIF's blocks); a
-    form the port does not read yet (WebP, the TIFF forms of item 8) raises
-    ``not_ported``."""
+    ``Image.open`` does (its header; a TIFF's first IFD, a GIF's blocks, a
+    WebP's chunks); a form the port does not read yet (the TIFF forms of
+    item 8) raises ``not_ported``."""
     try:
         with open(filename, "rb") as f:
             data = f.read()

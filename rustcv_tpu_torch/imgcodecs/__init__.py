@@ -9,7 +9,10 @@ Two backends, the reference's names:
   Deflate, every depth and photometric Pillow reads but YCbCr and CIELab;
   written uncompressed) and GIF (:mod:`.gif`: every frame composited as
   Pillow composites it; written with the port's median cut,
-  :mod:`.quantize`), all without Pillow; JPEG (baseline, multi-scan and progressive, any
+  :mod:`.quantize`) and WebP (:mod:`.webp`, read only: lossy VP8 and
+  lossless VP8L decoded by the port's C++, alpha, every frame of an
+  animation composited as libwebp's animation decoder composites it), all
+  without Pillow; JPEG (baseline, multi-scan and progressive, any
   integral sampling) decoded by the port's C++ host decoder
   (:func:`..native.jpeg_decode_bgr`, libjpeg-turbo's default decode: the
   same pixels as the reference's Pillow) and encoded by the port's encoder
@@ -25,14 +28,15 @@ device for a device Mat, on the CPU for a host Mat; every other format
 encodes on the host, and every decode is the host's, libjpeg's exact
 pixels. Whatever decodes, the Mat lands on ``device`` ("cuda" unless the
 caller names another). ``imread_with_metadata`` gives the reference's
-dict (Pillow's ``info`` and the EXIF tags, :mod:`.exif`) for all six
+dict (Pillow's ``info`` and the EXIF tags, :mod:`.exif`) for all seven
 formats. ``imreadmulti`` and ``imcount`` read every page of a TIFF and
-every frame of a GIF (one of any other format); ``imwritemulti`` writes
-TIFF and GIF, raises ``KeyError`` for JPEG, BMP and PNM (Pillow has no
-multi-frame writer for them) and ``not_ported`` for animated PNG and WebP.
-WebP raises ``not_ported``, as do the JPEG forms the host decoder does not
-read yet (CMYK/YCCK, lossless, arithmetic-coded, and progressive streams
-left unrefined) and the TIFF forms :mod:`.tiff` names.
+every frame of a GIF or an animated WebP (one of any other format);
+``imwritemulti`` writes TIFF and GIF, raises ``KeyError`` for JPEG, BMP
+and PNM (Pillow has no multi-frame writer for them) and ``not_ported`` for
+animated PNG and WebP. Every WebP write raises ``not_ported``, as do the
+JPEG forms the host decoder does not read yet (CMYK/YCCK, lossless,
+arithmetic-coded, and progressive streams left unrefined) and the TIFF
+forms :mod:`.tiff` names.
 """
 
 from __future__ import annotations
@@ -214,14 +218,16 @@ def imwrite_with_metadata(path: str, mat: Mat, metadata: dict) -> bool:
 def decode_frames(data: bytes) -> list:
     """Every page or frame of encoded image bytes as BGR (H, W, 3) u8 on the
     host, as the reference's ``ImageSequence`` gives them: a TIFF's pages, a
-    GIF's frames, one image of any other format."""
-    from . import exif, gif, tiff
+    GIF's or a WebP's frames, one image of any other format."""
+    from . import exif, gif, tiff, webp
 
     fmt = _host.sniff(data)
     if fmt == "tiff":
         return [_host.to_bgr(p) for p in tiff.read_pages(data)]
     if fmt == "gif":
         return [_host.to_bgr(f) for f in gif.read_frames(data)]
+    if fmt == "webp":
+        return [_host.to_bgr(f) for f in webp.read_frames(data)]
     if fmt == "jpeg":
         exif.jpeg_info(data)  # a multi-picture (MPO) JPEG raises not_ported
     return [_decode_host(data)]
@@ -229,15 +235,18 @@ def decode_frames(data: bytes) -> list:
 
 def open_check(data: bytes) -> str:
     """What the reference's ``Image.open`` reads of encoded image bytes (the
-    header, a TIFF's first IFD and its setup, a GIF's blocks); returns the
-    format, raises where it raises (ValueError) or ``not_ported``."""
-    from . import exif, gif, tiff
+    header, a TIFF's first IFD and its setup, a GIF's blocks, a WebP's
+    chunks as libwebp's demuxer parses them); returns the format, raises
+    where it raises (ValueError) or ``not_ported``."""
+    from . import exif, gif, tiff, webp
 
     fmt = _host.sniff(data)
     if fmt == "tiff":
         tiff.Tiff(data).setup(0)
     elif fmt == "gif":
         gif.Gif(data)
+    elif fmt == "webp":
+        webp.WebP(data)
     else:
         exif.info_metadata(data)  # an MPO JPEG raises not_ported
     return fmt
@@ -246,14 +255,21 @@ def open_check(data: bytes) -> str:
 def animation_of(data: bytes):
     """(frames BGR, durations ms, loop) as the reference's
     ``imreadanimation`` reads them: a GIF's frames with each frame's
-    duration (100 where it has none) and its NETSCAPE loop (0 without);
-    a TIFF's pages, or one image of any other format, at 100 ms, loop 0."""
-    from . import gif
+    duration (100 where it has none) and its NETSCAPE loop (0 without); a
+    WebP's frames with each frame's duration (Pillow sets one on every
+    load: 0 for a still image) and its loop (1 for a still image); a TIFF's
+    pages, or one image of any other format, at 100 ms, loop 0."""
+    from . import gif, webp
 
-    if _host.sniff(data) == "gif":
+    fmt = _host.sniff(data)
+    if fmt == "gif":
         g = gif.Gif(data)
         frames = [_host.to_bgr(f) for f in g.rgb_frames()]
         return frames, [100 if d is None else d for d in g.durations()], g.info.get("loop", 0)
+    if fmt == "webp":
+        w = webp.WebP(data)
+        frames = [_host.to_bgr(f) for f in webp.decode_frames(w)]
+        return frames, [f.duration for f in w.frames], w.loop
     open_check(data)
     frames = decode_frames(data)
     return frames, [100] * len(frames), 0
@@ -262,21 +278,23 @@ def animation_of(data: bytes):
 def count_frames(data: bytes) -> int:
     """Pillow's ``n_frames`` of encoded image bytes (1 for a still format
     whose header ``Image.open`` reads)."""
-    from . import gif, tiff
+    from . import gif, tiff, webp
 
     fmt = _host.sniff(data)
     if fmt == "tiff":
         return tiff.count(data)
     if fmt == "gif":
         return gif.count(data)
+    if fmt == "webp":
+        return webp.count(data)
     open_check(data)
     return 1
 
 
 def imreadmulti(path: str, device="cuda") -> list:
     """Multi-page read (OpenCV ``imreadmulti`` role): every page of a TIFF
-    and every frame of a GIF as BGR Mats on ``device``; one Mat of any
-    other format."""
+    and every frame of a GIF or a WebP as BGR Mats on ``device``; one Mat
+    of any other format."""
     data = _read(path, "imreadmulti")
     try:
         frames = decode_frames(data)

@@ -13,11 +13,14 @@ gives the same dict, in the same order:
   ``adobe_transform``, ``progressive``, ``progression``); for BMP
   ``compression``; for PFM ``scale``; for TIFF ``compression`` by Pillow's
   name; for GIF ``background``, ``loop``, ``transparency`` and the first
-  frame's ``duration`` (``imgcodecs.host``, :func:`jpeg_info`,
-  ``imgcodecs.tiff.tiff_info``, ``imgcodecs.gif.gif_info``);
+  frame's ``duration``; for WebP ``loop`` and ``background`` (and the
+  ``icc_profile``, ``exif`` and ``xmp`` chunks, which are bytes)
+  (``imgcodecs.host``, :func:`jpeg_info`, ``imgcodecs.tiff.tiff_info``,
+  ``imgcodecs.gif.gif_info``, ``imgcodecs.webp.webp_info``);
 * EXIF: a TIFF-structured IFD0 from a JPEG's APP1 ``Exif\\0\\0``, a PNG's
   ``eXIf`` or its ``Raw profile type exif`` text (read from the chunks
   after the image data too, as ``getexif()`` loads the image first), a
+  WebP's ``EXIF`` chunk (with or without its ``Exif\\0\\0`` prefix), a
   TIFF file's own first IFD (BigTIFF too); read
   as Pillow's ``ImageFileDirectory_v2`` reads it: a scalar for one value
   (and for a tag the TIFF tables give one value) and a tuple otherwise,
@@ -227,6 +230,11 @@ def _parts(data: bytes):
         from .gif import gif_info
 
         info = gif_info(data)
+        return info, info, ()
+    if fmt == "webp":
+        from .webp import webp_info
+
+        info = webp_info(data)
         return info, info, ()
     info = _host.bmp_info(data) if fmt == "bmp" else _host.pnm_info(data)
     return info, info, ()

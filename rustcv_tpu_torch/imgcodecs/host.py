@@ -1,5 +1,6 @@
 """Host image codecs without Pillow: PNG, BMP and PNM (PBM, PGM, PPM,
-PFM) here, TIFF and GIF in :mod:`.tiff` and :mod:`.gif`, for the
+PFM) here, TIFF, GIF and WebP (read only) in :mod:`.tiff`, :mod:`.gif`
+and :mod:`.webp`, for the
 ``"host"`` backend of :mod:`rustcv_tpu_torch.imgcodecs` and the highgui
 PNG dump.
 
@@ -35,8 +36,8 @@ from :func:`png_info`, :func:`bmp_info` and :func:`pnm_info`.
   ``P6``.
 
 What Pillow refuses raises :class:`CodecError` (the facade's
-``CameraError``); WebP, animated PNG and Pillow's own PNM extensions raise
-``not_ported``.
+``CameraError``); animated PNG and Pillow's own PNM extensions raise
+``not_ported``, and so does a WebP write (``NOT_PORTED_EXTENSIONS``).
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"M
 
 def sniff(data: bytes) -> str:
     """The format of encoded image bytes: "png", "bmp", "pnm", "jpeg",
-    "tiff", "gif", or raises (not_ported for WebP; CodecError for unknown)."""
+    "tiff", "gif", "webp", or raises CodecError for an unknown one."""
     head = bytes(data[:12])
     if head.startswith(_PNG_SIG):
         return "png"
@@ -88,7 +89,7 @@ def sniff(data: bytes) -> str:
     if head.startswith((b"GIF87a", b"GIF89a")):
         return "gif"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise not_ported("reading WebP images", item=LEFTOVERS)
+        return "webp"
     raise CodecError("unknown image format")
 
 
@@ -789,6 +790,13 @@ def read_gif(data: bytes) -> np.ndarray:
     return gif.read_gif(data)
 
 
+def read_webp(data: bytes) -> np.ndarray:
+    """A WebP's first frame (:mod:`.webp`)."""
+    from . import webp
+
+    return webp.read_webp(data)
+
+
 def write_tiff(img: np.ndarray) -> bytes:
     """One page, uncompressed (:func:`.tiff.write_tiff`)."""
     from . import tiff
@@ -805,10 +813,10 @@ def write_gif(img) -> bytes:
 
 
 DECODERS = {"png": lambda d: _Png(d).rgb(), "bmp": read_bmp, "pnm": read_pnm, "tiff": read_tiff,
-            "gif": read_gif}
+            "gif": read_gif, "webp": read_webp}
 ENCODERS = {"png": write_png, "bmp": write_bmp, "pnm": write_pnm, "tiff": write_tiff,
             "gif": write_gif}
 EXTENSIONS = {"png": "png", "bmp": "bmp", "dib": "bmp", "ppm": "pnm", "pgm": "pnm",
               "pnm": "pnm", "pbm": "pnm", "pfm": "pnm", "jpg": "jpeg", "jpeg": "jpeg",
               "jpe": "jpeg", "jfif": "jpeg", "tif": "tiff", "tiff": "tiff", "gif": "gif"}
-NOT_PORTED_EXTENSIONS = {"webp": "WebP"}
+NOT_PORTED_EXTENSIONS = {"webp": "WebP"}  # read (:mod:`.webp`), not yet written

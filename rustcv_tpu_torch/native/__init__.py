@@ -1,9 +1,10 @@
 """The port's host C++ (the JPEG entropy coder, the full host JPEG decode,
 the glyph rasterizer, the frame ring, the V4L2 driver, the
 connected-components union-find, the MSER component tree, the grid
-max-flow and the LZW and PackBits loops of the TIFF and GIF codecs), built with g++ at first use and bound with ctypes.
+max-flow, the LZW and PackBits loops of the TIFF and GIF codecs and the
+WebP decodes), built with g++ at first use and bound with ctypes.
 
-Eleven sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
+Thirteen sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
 block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
 which checks a payload exactly: Huffman coding is lossless; the flat-
@@ -23,7 +24,11 @@ labeling behind ``ops.ccl``: :func:`ccl_label`, :func:`union_find`),
 8-connected pixel grid behind ``ops.grabcut``: :func:`maxflow_grid`) and
 ``lzw.cpp`` (GIF LZW decode and encode, TIFF LZW and PackBits decode behind
 ``imgcodecs.gif`` and ``imgcodecs.tiff``: :func:`gif_lzw_decode`,
-:func:`gif_lzw_encode`, :func:`tiff_lzw_decode`, :func:`packbits_decode`).
+:func:`gif_lzw_encode`, :func:`tiff_lzw_decode`, :func:`packbits_decode`),
+``vp8.cpp`` (the lossy WebP decode, a VP8 key frame to RGBA as libwebp
+gives it: :func:`vp8_info`, :func:`vp8_decode`) and ``vp8l.cpp`` (the
+lossless decode: :func:`vp8l_info`, :func:`vp8l_decode`; and the ALPH
+plane, which ``vp8_decode`` applies), behind ``imgcodecs.webp``.
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -49,7 +54,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp", _HERE / "jpeg_host.cpp",
            _HERE / "png_filter.cpp", _HERE / "text_raster.cpp", _HERE / "capture.cpp",
            _HERE / "v4l2.cpp", _HERE / "unionfind.cpp", _HERE / "mser.cpp",
-           _HERE / "maxflow.cpp", _HERE / "lzw.cpp")
+           _HERE / "maxflow.cpp", _HERE / "lzw.cpp", _HERE / "vp8.cpp", _HERE / "vp8l.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "rustcv_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -188,6 +193,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.rcv_tiff_lzw_decode, lib.rcv_packbits_decode):
         fn.restype = ctypes.c_long
         fn.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long]
+    # vp8.cpp and vp8l.cpp: the WebP decodes.
+    lib.rcv_vp8_info.restype = ctypes.c_int
+    lib.rcv_vp8_info.argtypes = [u8p, ctypes.c_long, intp, intp]
+    lib.rcv_vp8_decode.restype = ctypes.c_int
+    lib.rcv_vp8_decode.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, ctypes.c_void_p,
+                                   ctypes.c_long]
+    lib.rcv_vp8l_info.restype = ctypes.c_int
+    lib.rcv_vp8l_info.argtypes = [u8p, ctypes.c_long, intp, intp, intp]
+    lib.rcv_vp8l_decode.restype = ctypes.c_int
+    lib.rcv_vp8l_decode.argtypes = [u8p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -603,6 +618,79 @@ def packbits_decode(data: bytes, n: int) -> np.ndarray:
     out = np.zeros(n, np.uint8)
     got = lib.rcv_packbits_decode(_ptr(buf), buf.size, _ptr(out), n)
     return out[:got]
+
+
+_WEBP_ERRORS = {-1: "corrupt", -2: "truncated", -3: "corrupt alpha in a",
+                -4: "unsupported (not a displayable key frame)", -5: "too large a"}
+
+
+def _webp_error(rc: int, what: str) -> ValueError:
+    return ValueError(f"{_WEBP_ERRORS.get(rc, 'corrupt')} {what} bitstream")
+
+
+def vp8_info(data: "np.ndarray | bytes") -> tuple:
+    """(width, height) of a VP8 chunk's payload (libwebp's ``VP8GetInfo``
+    checks); raises ValueError where they fail."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    rc = lib.rcv_vp8_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h))
+    if rc != 0:
+        raise _webp_error(rc, "VP8")
+    return w.value, h.value
+
+
+def vp8l_info(data: "np.ndarray | bytes") -> tuple:
+    """(width, height, alpha bit) of a VP8L chunk's payload; raises
+    ValueError for a bad signature or version."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    w, h, a = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.rcv_vp8l_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h), ctypes.byref(a))
+    if rc != 0:
+        raise _webp_error(rc, "VP8L")
+    return w.value, h.value, a.value
+
+
+def _rgba_out(out: Optional[np.ndarray], w: int, h: int) -> np.ndarray:
+    if out is None:
+        return np.empty((h, w, 4), np.uint8)
+    if out.shape != (h, w, 4) or out.dtype != np.uint8 or out.strides[1:] != (4, 1):
+        raise ValueError(f"out must be ({h}, {w}, 4) u8 with packed pixels")
+    return out
+
+
+def vp8_decode(data: "np.ndarray | bytes", alpha: "np.ndarray | bytes | None" = None,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
+    """A VP8 chunk's payload (the pad byte too where the file has one) →
+    (H, W, 4) RGBA u8 (``vp8.cpp``: libwebp's default decode, fancy
+    upsampling), alpha from the ALPH chunk's payload ``alpha`` (255 without
+    one). ``out``: an (H, W, 4) u8 view to write into, such as a region of
+    a larger canvas. Raises ValueError for a corrupt or truncated stream."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    w, h = vp8_info(buf)
+    out = _rgba_out(out, w, h)
+    abuf = None if alpha is None else _as_u8_buf(alpha)
+    rc = lib.rcv_vp8_decode(_ptr(buf), buf.size, None if abuf is None else _ptr(abuf),
+                            0 if abuf is None else abuf.size, out.ctypes.data, out.strides[0])
+    if rc != 0:
+        raise _webp_error(rc, "VP8")
+    return out
+
+
+def vp8l_decode(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None) -> np.ndarray:
+    """A VP8L chunk's payload → (H, W, 4) RGBA u8 (``vp8l.cpp``); ``out`` as
+    for :func:`vp8_decode`. Raises ValueError for a corrupt or truncated
+    stream."""
+    lib = _need_lib()
+    buf = _as_u8_buf(data)
+    w, h, _ = vp8l_info(buf)
+    out = _rgba_out(out, w, h)
+    rc = lib.rcv_vp8l_decode(_ptr(buf), buf.size, out.ctypes.data, out.strides[0])
+    if rc != 0:
+        raise _webp_error(rc, "VP8L")
+    return out
 
 
 def ccl_label(mask: np.ndarray, connectivity: int = 4) -> tuple:

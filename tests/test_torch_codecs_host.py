@@ -213,16 +213,16 @@ def test_the_dump_writes_a_png_the_reference_reads(monkeypatch, tmp_path, jax_cp
                                   "png16", "ascii_pnm"])
 def test_what_stays_not_ported_raises(tmp_path, call, jax_cpu):
     """WebP and animated PNG writes raise ``not_ported``; TIFF, GIF, the
-    multi-page calls (item 8b), EXIF, 16-bit PNG and ASCII PNM, which once
-    did, read and write as the reference does."""
+    multi-page calls (item 8b), a WebP read (item 8c), EXIF, 16-bit PNG and
+    ASCII PNM, which once did, read and write as the reference does."""
     a = _img((4, 4, 3), 0)
     buf = io.BytesIO()
-    if call == "webp":
+    if call == "webp":  # the write is item 8c-ii; the read (item 8c) is the reference's
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
             imgcodecs.imwrite(str(tmp_path / f"x.{call}"), _mat(a))
         Image.fromarray(a).save(buf, call.upper())
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            imgcodecs.imdecode(buf.getvalue(), device="cpu")
+        np.testing.assert_array_equal(imgcodecs.imdecode(buf.getvalue(), device="cpu").to_numpy(),
+                                      jax_codecs.imdecode(buf.getvalue()).to_numpy())
         return
     if call in ("tiff", "gif"):
         path = tmp_path / f"x.{call}"

@@ -48,7 +48,9 @@ them to a Mat or a device op) against CPU tensors, ``cornerHarris``,
 ``goodFeaturesToTrackWithQuality`` launching each K6 form once per form
 they reach, CUDA tensors against CPU tensors, and draws on a CUDA tensor;
 and TIFF and GIF read onto the card and written from CUDA Mats (the GIF's
-colour mapping on the card) against the CPU.
+colour mapping on the card) against the CPU; and every WebP fixture of
+``tests/data/webp`` read onto the card against the CPU read and the
+reference's hashes in its manifest.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -57,6 +59,8 @@ Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
 
 import dataclasses
 import functools
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -2253,3 +2257,29 @@ def test_cv2_on_cuda_tensors_equals_cpu_tensors(cuda):
     P.putText(host, "cv2", (20, 300), 0, 2.0, (255, 0, 255))
     assert t.is_cuda and t.data_ptr() == ptr
     np.testing.assert_array_equal(t.cpu().numpy(), host)
+
+
+_WEBP = Path(__file__).resolve().parent / "data" / "webp"
+_WEBP_MANIFEST = json.loads((_WEBP / "manifest.json").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(_WEBP_MANIFEST))
+def test_webp_fixture_read_onto_the_card(cuda, name):
+    """Item 8c: each WebP fixture read by ``imreadmulti`` and ``imread``
+    onto the card equals the CPU read and the reference's hashes."""
+    import hashlib
+
+    from rustcv_tpu_torch import imgcodecs
+
+    m = _WEBP_MANIFEST[name]
+    path = str(_WEBP / name)
+    on_card = imgcodecs.imreadmulti(path, device=cuda)
+    cpu = [x.to_numpy() for x in imgcodecs.imreadmulti(path, device="cpu")]
+    assert len(on_card) == len(cpu) == m["n_frames"] == imgcodecs.imcount(path)
+    for x, c, digest in zip(on_card, cpu, m["frames"]):
+        assert x.device().is_cuda
+        np.testing.assert_array_equal(x.to_numpy(), c)
+        assert hashlib.sha256(np.ascontiguousarray(c).tobytes()).hexdigest() == digest
+    first = imgcodecs.imread(path, device=cuda)
+    assert first.device().is_cuda
+    np.testing.assert_array_equal(first.to_numpy(), cpu[0])

@@ -202,13 +202,17 @@ def test_imwrite_and_imread(coders, tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """What stays not ported of imgcodecs (WebP, animated PNG) names its
-    ROADMAP item; PNG, the host backend, TIFF, GIF and the multi-page calls
+    """What stays not ported of imgcodecs (WebP writes, animated PNG) names
+    its ROADMAP item; a WebP read is ported (item 8c); PNG, the host backend, TIFF, GIF and the multi-page calls
     (item 8b) are ported: a TIFF or GIF encode decodes back to the Mat, a
     GIF with no image and a missing file raise CameraError."""
     mat = Mat.from_array(_img(8, 8, 0), device="cpu")
+    # a WebP read is ported (item 8c): this truncated header is refused as the reference's is
+    with pytest.raises(CameraError):
+        imgcodecs.imdecode(b"RIFF\x00\x00\x00\x00WEBPVP8 ", device="cpu")
+    with pytest.raises(jax_core.CameraError):
+        jax_codecs.imdecode(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
     cases = [
-        lambda: imgcodecs.imdecode(b"RIFF\x00\x00\x00\x00WEBPVP8 ", device="cpu"),
         lambda: imgcodecs.imwrite(str(tmp_path / "x.webp"), mat),
         lambda: imgcodecs.imwritemulti(str(tmp_path / "x.png"), [mat, mat]),
     ]

@@ -31,8 +31,9 @@ odometry and stitching) with theirs, and the whole cv2 facade
 Pillow and the JAX
 package ``rustcv_tpu`` absent. The formats of item 8a (every PNG depth and Adam7,
 BMP RLE, ASCII PNM, PFM, progressive JPEG), their metadata and Latin-1
-text run the same way. The font data's generator
-(``tools/make_text_data.py``) is no module of the package.
+text run the same way, and so do the WebP reads of item 8c (a lossy, a
+lossless and an animated fixture of ``tests/data/webp``). The font data's
+generator (``tools/make_text_data.py``) is no module of the package.
 
 A GPU machine that runs the port need have neither jax nor Pillow, and the
 port imports nothing of the JAX package: its core types and its C++ coder
@@ -1056,3 +1057,53 @@ def test_formats_metadata_and_text_run_without_jax_or_pil(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+_WEBP_SCRIPT = textwrap.dedent(
+    """
+    import hashlib, json, sys
+    sys.modules["jax"] = None
+    sys.modules["PIL"] = None
+    sys.modules["rustcv_tpu"] = None
+    from pathlib import Path
+    import numpy as np
+    import rustcv_tpu_torch.cv2 as cv2
+    from rustcv_tpu_torch import imgcodecs
+    d = Path(sys.argv[1])
+    manifest = json.loads((d / "manifest.json").read_text())
+    for name in ("lossy_normal_seg4_part3.webp", "lossless_m6.webp", "anim_blend_dispose.webp"):
+        m, path = manifest[name], str(d / name)
+        got = [x.to_numpy() for x in imgcodecs.imreadmulti(path, device="cpu")]
+        assert imgcodecs.imcount(path) == len(got) == m["n_frames"], name
+        assert [hashlib.sha256(g.tobytes()).hexdigest() for g in got] == m["frames"], name
+        assert imgcodecs.imread_with_metadata(path, device="cpu")[1] == m["metadata"], name
+        ok, anim = cv2.imreadanimation(path)
+        assert ok and anim.durations == m["durations"] and anim.loop_count == m["loop"], name
+    try:
+        cv2.imencode(".webp", np.zeros((4, 4, 3), np.uint8))
+    except NotImplementedError as e:
+        assert "item 8" in str(e)
+    except RuntimeError:  # no card here: the numpy image goes to the card first
+        pass
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
+           if sys.modules[m] is not None]
+    assert not bad, bad
+    print("OK")
+    """
+)
+
+
+def test_webp_reads_run_without_jax_or_pil():
+    """Item 8c's reads (``imgcodecs.webp`` over ``native/vp8.cpp`` and
+    ``native/vp8l.cpp``) run with jax, Pillow and the JAX package blocked: a
+    lossy, a lossless and an animated fixture of ``tests/data/webp`` read
+    to the reference's hashes, counts, durations, loop and metadata in its
+    manifest; no module of the port loads libwebp or Pillow."""
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _WEBP_SCRIPT, str(REPO / "tests" / "data" / "webp")],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    for src in (REPO / "rustcv_tpu_torch").rglob("*.py"):  # no library of Pillow's wheel
+        text = src.read_text()
+        assert "pillow.libs" not in text and "libwebp-" not in text and "libwebp.so" not in text, src

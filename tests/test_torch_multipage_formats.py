@@ -25,7 +25,8 @@ against Pillow 12, which the JAX package's codecs reach, and against
   misses by one level is :func:`test_gif_write_max_error_where_the_port_misses`).
 * cv2's ``imcount``, ``imreadmulti``, ``imwritemulti``, ``haveImageReader``
   and the six multi-page and animation calls answer as ``rustcv_tpu.cv2``
-  does for TIFF, GIF and the still formats; animated PNG and WebP raise
+  does for TIFF, GIF and the still formats (and, since item 8c, for the
+  reads of an animated WebP); animated PNG and WebP writes raise
   ``not_ported``.
 
 Sizes are small and odd (23x17, 37x23); inputs come from numpy seeds.
@@ -880,12 +881,15 @@ def test_cv2_animated_png_and_webp_raise_not_ported(tmp_path):
         P.imdecodeanimation(apng)
     ok, webp = R.imencodeanimation(".webp", ra)
     assert ok
+    # the reads of an animated WebP are item 8c's: they answer as the reference's
+    path = str(tmp_path / "w.webp")
     (tmp_path / "w.webp").write_bytes(webp.tobytes())
-    for call in (lambda: P.imdecodemulti(webp), lambda: P.imreadanimation(str(tmp_path / "w.webp")),
-                 lambda: P.imcount(str(tmp_path / "w.webp")),
-                 lambda: P.haveImageReader(str(tmp_path / "w.webp"))):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    anim = (lambda r: (r[0], r[1].frames, r[1].durations, r[1].loop_count))
+    for call in (lambda C: C.imdecodemulti(webp), lambda C: anim(C.imreadanimation(path)),
+                 lambda C: C.imcount(path), lambda C: C.haveImageReader(path)):
+        got, want = call(P), call(R)
+        assert _same(got, want), (got, want)
+    assert P.imcount(path) == 2
 
 
 # -- chip_smoke.py's phase 3w ---------------------------------------------------------------
