@@ -212,7 +212,14 @@ Phases:
    (3x) WebP reads (item 8c): the fixtures of ``tests/data/webp`` read onto
    the card equal to the CPU read and to the reference's hashes in their
    manifest, with its counts, durations, loops and metadata, no kernel
-   launched, and WebP writes raising ``not_ported``;
+   launched; (3y) WebP writes (item 8c-ii): a 1080p BGR still, a 641x361
+   BGRA still and an 8-frame 640x360 animation written from CUDA Mats (the
+   YUV planes made on the card) and from host Mats, the same bytes, each
+   file read back by the port's reader within the bars of
+   ``tests/test_torch_webp_write.py`` against the reference's file
+   (``tests/data/webp/write_refs.json``: per frame PSNR at most 0.5 dB
+   below, size at most 1.25x, its mode, frame count, durations and loop,
+   alpha exact), no kernel launched;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -247,7 +254,10 @@ Phases:
    ``put_text`` and the rasterizer at 160 px; (4w) TIFF and GIF reads and
    writes at 1080p; (4x) ``imread`` onto the card of the 1080p lossy and
    lossless WebP fixtures, ``imreadmulti`` of the 8-frame 640x360
-   animation, and the native decodes alone.
+   animation, and the native decodes alone; (4y) at 1080p the RGB -> YUV
+   import on the card, the download of its planes, the native VP8 encode,
+   ``imwrite`` to .webp whole from a card Mat, and ``imwritemulti`` of
+   phase 3y's animation.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -2666,10 +2676,10 @@ def time_formats_8b(smi: str, dev: str = "cuda") -> None:
 
 
 # -- phases 3x and 4x: WebP reads (ROADMAP Queue 1 item 8c). The card's
-# machine has no Pillow and the port no WebP writer, so the phase reads the
-# fixtures committed in tests/data/webp (tools/make_webp_data.py, written by
-# libwebp 1.6's encoder where Pillow is) and holds every frame to the
-# SHA-256 of the reference's read in their manifest.
+# machine has no Pillow, so the phase reads the fixtures committed in
+# tests/data/webp (tools/make_webp_data.py, written by libwebp 1.6's encoder
+# where Pillow is) and holds every frame to the SHA-256 of the reference's
+# read in their manifest.
 
 WEBP_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "webp")
 
@@ -2682,15 +2692,13 @@ def run_formats_8c(dev: str = "cuda") -> dict:
     files of phase 4x) read by ``imread`` and ``imreadmulti`` onto ``dev``
     equals the CPU read and the manifest's hash frame for frame;
     ``imcount``, cv2's ``imreadanimation`` durations and loop and
-    ``imread_with_metadata`` equal the manifest's; a WebP write raises
-    ``not_ported``. Returns the phase's launches (none expected)."""
+    ``imread_with_metadata`` equal the manifest's. Returns the phase's
+    launches (none expected)."""
     import hashlib
-    import tempfile
 
     import rustcv_tpu_torch.cv2 as cv2
     from rustcv_tpu_torch import imgcodecs
     from rustcv_tpu_torch.ops import kernels
-    from rustcv_tpu_torch.prelude import Mat
 
     kernels.reset_launch_counts()
     with open(os.path.join(WEBP_DATA, "manifest.json")) as f:
@@ -2722,20 +2730,6 @@ def run_formats_8c(dev: str = "cuda") -> dict:
     print(f"formats 8c: {len(manifest)} WebP files ({frames} frames) read onto {dev} equal to the "
           f"CPU read and to the reference's hashes, with its counts, durations, loops and "
           f"metadata: {', '.join(sorted(manifest))}", flush=True)
-    mat = Mat.from_array(np.zeros((8, 8, 3), np.uint8), device=dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "x.webp")
-        for what, call in (("imwrite", lambda: imgcodecs.imwrite(out, mat)),
-                           ("imencode", lambda: imgcodecs.imencode(".webp", mat)),
-                           ("imwritemulti", lambda: imgcodecs.imwritemulti(out, [mat, mat]))):
-            try:
-                call()
-            except NotImplementedError as e:
-                expect("item 8" in str(e), f"{what} .webp: {e}")
-            else:
-                expect(False, f"{what} .webp wrote (WebP writes are item 8c-ii)")
-    print("formats 8c: imwrite, imencode and imwritemulti to .webp raise not_ported (item 8c-ii)",
-          flush=True)
     counts = kernels.launch_counts()
     expect(not any(counts.values()), f"phase 3x launched kernels: {counts}")
     return counts
@@ -2773,6 +2767,169 @@ def time_formats_8c(smi: str, dev: str = "cuda") -> None:
     ms = cuda_ms(lambda: imgcodecs.imreadmulti(path, device=dev), MULTI_TIMED)
     print(f"{tag} imreadmulti of the 8-frame 640x360 lossy WebP ({os.path.getsize(path)} bytes) "
           f"onto the card: {ms:.4f} ms", flush=True)
+
+
+# -- phases 3y and 4y: WebP writes (ROADMAP Queue 1 item 8c-ii). The card's
+# machine has no Pillow: the reference's sizes and PSNRs of the same inputs
+# are committed in tests/data/webp/write_refs.json
+# (tools/make_webp_write_refs.py, written with Pillow and its libwebp).
+
+WEBP_PSNR_SLACK_DB, WEBP_SIZE_RATIO = 0.5, 1.25  # the bars of tests/test_torch_webp_write.py
+WEBP_TIMED = 3  # calls per timing at 1080p
+
+
+def webp_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR (dB) of two u8 images over all their channels (inf where equal)."""
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * float(np.log10(255.0 ** 2 / mse))
+
+
+def webp_rgb(img: np.ndarray) -> np.ndarray:
+    """An image as the reference hands Pillow (gray, RGB or RGBA) → the RGB
+    that ``convert("RGB")`` of its WebP should give."""
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    return img[..., :3]
+
+
+def webp_write_inputs() -> dict:
+    """Phase 3y's inputs, seeded and made with integer arithmetic only (so
+    every numpy makes the same pixels), as the reference hands them to
+    Pillow (RGB or RGBA): a 1080p still, a 641x361 still with alpha (holes
+    and a soft edge) and 8 frames of 640x360 with moving boxes."""
+    rng = np.random.default_rng(24)
+
+    def scene(w: int, h: int) -> np.ndarray:
+        y, x = np.mgrid[0:h, 0:w]
+        img = np.stack([x * 255 // (w - 1), y * 255 // (h - 1),
+                        (x // 40 + y // 40) % 2 * 150 + 60], -1)
+        img[h // 3:h // 2, w // 4:w // 2] = (30, 200, 90)
+        img = img + rng.integers(-12, 13, (h, w, 3)) * (x > w // 2)[..., None]
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    y, x = np.mgrid[0:361, 0:641]
+    alpha = np.clip(255 - np.abs((x - 320) ** 2 + (y - 180) ** 2 - 150 ** 2) // 60, 0, 255)
+    alpha[(x // 16) % 3 == 0] = 0
+    base = scene(640, 360)
+    frames = []
+    for i in range(8):
+        f = base.copy()
+        f[40 + 12 * i:84 + 12 * i, 60 + 25 * i:120 + 25 * i] = (255, 40, 40)
+        frames.append(f)
+    return {"still_1920x1080_bgr": [scene(1920, 1080)],
+            "still_641x361_bgra": [np.dstack([scene(641, 361), alpha.astype(np.uint8)])],
+            "anim8_640x360_bgr": frames}
+
+
+def run_formats_8c_writes(dev: str = "cuda") -> dict:
+    """Phase 3y: WebP writes on the card's machine. Each input of
+    ``webp_write_inputs`` written from Mats on ``dev`` (``imencode`` of the
+    stills, ``imwritemulti`` of the animation; the planes are made on the
+    card) and from host Mats: identical bytes. Each file read back by the
+    port's reader meets the bars against the reference's file of the same
+    frames (``tests/data/webp/write_refs.json``): the mode, frame count,
+    durations and loop equal, per frame the PSNR of the RGB against the
+    input at most 0.5 dB below the reference's, the size at most 1.25x, the
+    alpha of the 4-channel still exact. Returns the phase's launches (none
+    expected)."""
+    import tempfile
+
+    import torch
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.imgcodecs import webp
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.prelude import Mat
+
+    kernels.reset_launch_counts()
+    with open(os.path.join(WEBP_DATA, "write_refs.json")) as f:
+        refs = json.load(f)
+    inputs = webp_write_inputs()
+    expect(sorted(refs) == sorted(inputs), f"write_refs.json holds {sorted(refs)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, frames in sorted(inputs.items()):
+            ref = refs[name]
+            arrays = [np.ascontiguousarray(f[..., ::-1]) for f in frames]  # the Mats' channels
+            on_dev = [Mat.from_device(torch.from_numpy(a).to(dev)) for a in arrays]
+            on_host = [Mat.from_array(a, device="cpu") for a in arrays]
+            if len(frames) == 1:
+                data = imgcodecs.imencode(".webp", on_dev[0])
+                host = imgcodecs.imencode(".webp", on_host[0])
+            else:
+                path, hpath = os.path.join(tmp, "d.webp"), os.path.join(tmp, "h.webp")
+                expect(imgcodecs.imwritemulti(path, on_dev) and
+                       imgcodecs.imwritemulti(hpath, on_host), f"{name}: imwritemulti failed")
+                with open(path, "rb") as f, open(hpath, "rb") as g:
+                    data, host = f.read(), g.read()
+            expect(data == host, f"{name}: the {dev} Mats and the host Mats give other bytes")
+            w = webp.WebP(data)
+            back = webp.decode_frames(w)
+            mode = "RGBA" if w.has_alpha() else "RGB"
+            got = {"mode": mode, "n_frames": len(w.frames),
+                   "durations": [f.duration for f in w.frames], "loop": w.loop}
+            want = {k: ref[k] for k in got}
+            expect(got == want, f"{name}: {got}, the reference's {want}")
+            psnrs = [webp_psnr(b[..., :3], webp_rgb(f)) for b, f in zip(back, frames)]
+            for k, (p, q) in enumerate(zip(psnrs, ref["psnr"])):
+                expect(p >= q - WEBP_PSNR_SLACK_DB,
+                       f"{name} frame {k}: PSNR {p:.3f} dB, the reference's {q:.3f}")
+            expect(len(data) <= WEBP_SIZE_RATIO * ref["bytes"],
+                   f"{name}: {len(data)} bytes, the reference's {ref['bytes']}")
+            if frames[0].shape[-1] == 4:
+                expect(np.array_equal(back[0][..., 3], frames[0][..., 3]),
+                       f"{name}: the alpha read back is not the input's")
+            print(f"formats 8c writes: {name} from {dev} and host Mats, the same {len(data)} "
+                  f"bytes ({len(data) / ref['bytes']:.3f}x the reference's), {mode}, "
+                  f"{len(w.frames)} frame(s), PSNR " + ", ".join(
+                      f"{p:.3f} ({q:.3f})" for p, q in zip(psnrs, ref["psnr"])) +
+                  " dB (the reference's)", flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3y launched kernels: {counts}")
+    return counts
+
+
+def time_formats_8c_writes(smi: str, dev: str = "cuda") -> None:
+    """Phase 4y: ms per call at 1080p: the RGB → YUV import on the card
+    (CUDA events), the download of its planes, the native VP8 encode (the
+    host clock), ``imwrite`` whole of a card Mat, and ``imwritemulti`` of
+    phase 3y's 8-frame 640x360 animation from card Mats (CUDA events)."""
+    import tempfile
+
+    import torch
+
+    from rustcv_tpu_torch import imgcodecs, native
+    from rustcv_tpu_torch.imgcodecs.webp_yuv import import_yuva
+    from rustcv_tpu_torch.prelude import Mat
+
+    tag = f"[{smi}]"
+    inputs = webp_write_inputs()
+    rgb = torch.from_numpy(inputs["still_1920x1080_bgr"][0]).to(dev)
+    ms = cuda_ms(lambda: import_yuva(rgb), WEBP_TIMED)
+    print(f"{tag} the 1920x1080 RGB -> YUV 4:2:0 import on the card: {ms:.4f} ms", flush=True)
+    planes = import_yuva(rgb)
+    ms = cuda_ms(lambda: [p.cpu() for p in planes], WEBP_TIMED)
+    print(f"{tag} the download of its planes ({sum(p.numel() for p in planes)} bytes): "
+          f"{ms:.4f} ms", flush=True)
+    y, u, v = (p.cpu().numpy() for p in planes)
+    native.vp8_encode(y, u, v)
+    t = time.perf_counter()
+    for _ in range(WEBP_TIMED):
+        data = native.vp8_encode(y, u, v)
+    ms = (time.perf_counter() - t) * 1e3 / WEBP_TIMED
+    print(f"{tag} the native VP8 encode of those planes ({len(data)} bytes, host clock): "
+          f"{ms:.4f} ms", flush=True)
+    mat = Mat.from_device(torch.from_numpy(
+        np.ascontiguousarray(inputs["still_1920x1080_bgr"][0][..., ::-1])).to(dev))
+    mats = [Mat.from_device(torch.from_numpy(np.ascontiguousarray(f[..., ::-1])).to(dev))
+            for f in inputs["anim8_640x360_bgr"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "x.webp")
+        ms = cuda_ms(lambda: imgcodecs.imwrite(path, mat), WEBP_TIMED)
+        print(f"{tag} imwrite of the 1920x1080 still to .webp ({os.path.getsize(path)} bytes) "
+              f"from a card Mat: {ms:.4f} ms", flush=True)
+        ms = cuda_ms(lambda: imgcodecs.imwritemulti(path, mats), WEBP_TIMED)
+        print(f"{tag} imwritemulti of the 8-frame 640x360 animation to .webp "
+              f"({os.path.getsize(path)} bytes) from card Mats: {ms:.4f} ms", flush=True)
 
 
 def time_new_paths(smi: str) -> None:
@@ -6714,6 +6871,8 @@ def main() -> int:
         done("phase 3w, TIFF and GIF (item 8b)")
         phase("phase 3x, WebP reads (item 8c)", run_formats_8c)
         done("phase 3x, WebP reads (item 8c)")
+        phase("phase 3y, WebP writes (item 8c-ii)", run_formats_8c_writes)
+        done("phase 3y, WebP writes (item 8c-ii)")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -6726,6 +6885,7 @@ def main() -> int:
                           ("the formats of item 8a (4v)", lambda: time_formats_8a(smi)),
                           ("TIFF and GIF (4w)", lambda: time_formats_8b(smi)),
                           ("WebP reads (4x)", lambda: time_formats_8c(smi)),
+                          ("WebP writes (4y)", lambda: time_formats_8c_writes(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

@@ -8,11 +8,11 @@ device.
 The reference reads and writes multi-page, animated and metadata image
 files with Pillow. The port does so with its own codecs
 (``imgcodecs.tiff``, ``imgcodecs.gif``, ``imgcodecs.webp``,
-``imgcodecs.exif``): multi-page TIFF and animated GIF both ways, still and
-animated WebP read, every still format's one frame, the metadata of all
-seven formats. Animated PNG and WebP writes wait on ROADMAP Queue 1 item 8
-and raise ``not_ported``, also through the calls that answer False for a
-file or buffer that is no image.
+``imgcodecs.exif``): multi-page TIFF, animated GIF and still and animated
+WebP both ways, every still format's one frame, the metadata of all seven
+formats. Animated PNG waits on ROADMAP Queue 1 item 8 and raises
+``not_ported``, also through the calls that answer False for a file or
+buffer that is no image.
 Held call for call against the reference in
 ``tests/test_torch_cv2_later_calls.py``.
 """
@@ -392,7 +392,7 @@ def imdecodeWithMetadata(buf, metadataTypes=None, flags=1, img=None,
 
 # imencodeWithMetadata's formats: the reference's Pillow format names
 _ENCODE_FORMATS = {"png": "png", "jpg": "jpeg", "jpeg": "jpeg", "bmp": "bmp", "ppm": "pnm",
-                   "tiff": "tiff", "gif": "gif"}
+                   "tiff": "tiff", "gif": "gif", "webp": "webp"}
 
 
 def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
@@ -400,7 +400,8 @@ def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
     """(True, bytes) of ``img`` (BGR or gray) as ``ext``: a PNG with
     ``metadata`` as text chunks (a dict, or values under
     ``metadataTypes``), other formats through the port's writers (a JPEG
-    at quality 75, the reference's Pillow default)."""
+    at quality 75, the reference's Pillow default; a WebP as Pillow's still,
+    without metadata, and Pillow's ValueError for a side above 16383)."""
     import torch
 
     from ..core.errors import CameraError
@@ -409,15 +410,14 @@ def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
 
     a = _a(img)
     e = str(ext).lower().lstrip(".")
-    if e in _host.NOT_PORTED_EXTENSIONS:
-        raise _not_ported("cv2.imencodeWithMetadata of " + _host.NOT_PORTED_EXTENSIONS[e],
-                          item="8")
     fmt = _ENCODE_FORMATS.get(e)
     if fmt is None:
         raise CameraError(f"imencodeWithMetadata: unknown image format {ext!r}")
     if a.dtype != np.uint8:  # Pillow writes 16-bit and float images; the port's writers 8-bit
         raise _not_ported(f"cv2.imencodeWithMetadata of {a.dtype} images", item="8")
     rgb = a[..., ::-1] if a.ndim == 3 else a
+    if fmt == "webp":  # the reference lets Pillow's errors through
+        return True, np.frombuffer(_host.ENCODERS[fmt](rgb), np.uint8)
     try:
         if fmt == "png" and metadata:
             md = metadata if isinstance(metadata, dict) else \

@@ -405,8 +405,10 @@ def imwritemulti(filename: str, img, params=None) -> bool:
         return False
     try:
         return _icodec.imwritemulti(filename, [_a(x) for x in img])
-    except (OSError, ValueError, KeyError, CameraError):  # KeyError: no multi-frame writer
-        return False
+    except NotImplementedError:  # not_ported goes through
+        raise
+    except (OSError, ValueError, KeyError, RuntimeError, CameraError):
+        return False  # KeyError: no multi-frame writer; RuntimeError: libwebp's frame errors
 
 
 def imreadWithMetadata(filename: str, metadataTypes=None, flags=1):

@@ -9,9 +9,11 @@ Two backends, the reference's names:
   Deflate, every depth and photometric Pillow reads but YCbCr and CIELab;
   written uncompressed) and GIF (:mod:`.gif`: every frame composited as
   Pillow composites it; written with the port's median cut,
-  :mod:`.quantize`) and WebP (:mod:`.webp`, read only: lossy VP8 and
-  lossless VP8L decoded by the port's C++, alpha, every frame of an
-  animation composited as libwebp's animation decoder composites it), all
+  :mod:`.quantize`) and WebP (:mod:`.webp`: lossy VP8 and lossless VP8L
+  decoded by the port's C++, alpha, every frame of an animation
+  composited as libwebp's animation decoder composites it; written as
+  Pillow writes it, lossy at quality 80, by the port's VP8 encoder and
+  lossless alpha coder, the planes made on the image's device), all
   without Pillow; JPEG (baseline, multi-scan and progressive, any
   integral sampling) decoded by the port's C++ host decoder
   (:func:`..native.jpeg_decode_bgr`, libjpeg-turbo's default decode: the
@@ -31,12 +33,11 @@ caller names another). ``imread_with_metadata`` gives the reference's
 dict (Pillow's ``info`` and the EXIF tags, :mod:`.exif`) for all seven
 formats. ``imreadmulti`` and ``imcount`` read every page of a TIFF and
 every frame of a GIF or an animated WebP (one of any other format);
-``imwritemulti`` writes TIFF and GIF, raises ``KeyError`` for JPEG, BMP
-and PNM (Pillow has no multi-frame writer for them) and ``not_ported`` for
-animated PNG and WebP. Every WebP write raises ``not_ported``, as do the
-JPEG forms the host decoder does not read yet (CMYK/YCCK, lossless,
-arithmetic-coded, and progressive streams left unrefined) and the TIFF
-forms :mod:`.tiff` names.
+``imwritemulti`` writes TIFF, GIF and animated WebP, raises ``KeyError``
+for JPEG, BMP and PNM (Pillow has no multi-frame writer for them) and
+``not_ported`` for animated PNG, as do the JPEG forms the host decoder
+does not read yet (CMYK/YCCK, lossless, arithmetic-coded, and progressive
+streams left unrefined) and the TIFF forms :mod:`.tiff` names.
 """
 
 from __future__ import annotations
@@ -60,8 +61,6 @@ def _format_of(ext: str, what: str) -> str:
     e = ext.lower().lstrip(".")
     if what == "imencode" and e == "tif":  # the reference's Pillow has no format "TIF"
         raise CameraError(f"imencode: cannot encode {ext!r}: unknown format 'TIF'")
-    if e in _host.NOT_PORTED_EXTENSIONS:
-        raise not_ported(f"{what} of {_host.NOT_PORTED_EXTENSIONS[e]} images", item=_host.LEFTOVERS)
     fmt = _host.EXTENSIONS.get(e)
     if fmt is None:
         raise CameraError(f"{what}: unknown image format {ext!r}")
@@ -91,8 +90,8 @@ def _encode(fmt: str, mat: Mat, quality: int, backend=None) -> bytes:
     if backend == "tpu":
         raise ValueError(f"imencode: backend='tpu' supports JPEG only, not {fmt.upper()}")
     try:
-        if fmt == "gif":
-            return _host.write_gif(_frame_of(mat))
+        if fmt in ("gif", "webp"):  # quantized, or made into planes, where the Mat is
+            return _host.ENCODERS[fmt](_frame_of(mat))
         return _host.ENCODERS[fmt](_host.from_mat_array(mat.to_numpy()))
     except _host.CodecError as e:
         raise CameraError(f"imencode: {e}") from e
@@ -178,8 +177,9 @@ def _write(path: str, data: bytes) -> bool:
 def imwrite(path: str, mat: Mat) -> bool:
     """Write a BGR Mat to an image file, the format from the extension
     (JPEG at quality 75, the reference's Pillow default, encoded where the
-    Mat is). False where the Mat is empty, the format unknown or the file
-    cannot be written."""
+    Mat is; WebP lossy at quality 80, its planes made where the Mat is).
+    False where the Mat is empty, the format unknown, the image one Pillow
+    refuses (a WebP side above 16383) or the file cannot be written."""
     if mat.is_empty():
         return False
     try:
@@ -331,10 +331,10 @@ def _frame_of(m):
 
 def encode_frames(fmt: str, frames: list, duration=None, loop=None) -> bytes:
     """Frames (Mats or arrays, BGR or gray) → one multi-frame file, as the
-    reference's ``save(save_all=True, ...)`` writes it: ``fmt`` "tiff" or
-    "gif"; "png" (animated PNG) raises ``not_ported``, any other
+    reference's ``save(save_all=True, ...)`` writes it: ``fmt`` "tiff",
+    "gif" or "webp"; "png" (animated PNG) raises ``not_ported``, any other
     ``KeyError`` (Pillow has no multi-frame writer for it)."""
-    from . import gif, tiff
+    from . import gif, tiff, webp
 
     if fmt == "tiff":
         pages = [f.cpu().numpy() if not isinstance(f, np.ndarray) else f
@@ -342,16 +342,19 @@ def encode_frames(fmt: str, frames: list, duration=None, loop=None) -> bytes:
         return tiff.write_tiff(pages)
     if fmt == "gif":
         return gif.write_gif([_frame_of(f) for f in frames], duration=duration, loop=loop)
+    if fmt == "webp":
+        return webp.write_animation([_frame_of(f) for f in frames], durations=duration,
+                                    loop=loop or 0)
     if fmt == "png":
         raise not_ported("writing animated PNG files", item=_host.LEFTOVERS)
     raise KeyError(fmt.upper())
 
 
 def imwritemulti(path: str, mats) -> bool:
-    """Multi-page write (OpenCV ``imwritemulti`` role): a multi-page TIFF or
-    an animated GIF by the extension; False for no frames. JPEG, BMP and
-    PNM raise ``KeyError`` as the reference's Pillow does, animated PNG and
-    WebP ``not_ported``."""
+    """Multi-page write (OpenCV ``imwritemulti`` role): a multi-page TIFF, an
+    animated GIF or an animated WebP (every duration 0, loop 0) by the
+    extension; False for no frames. JPEG, BMP and PNM raise ``KeyError`` as
+    the reference's Pillow does, animated PNG ``not_ported``."""
     frames = list(mats)
     if not frames:
         return False

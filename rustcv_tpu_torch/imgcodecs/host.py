@@ -1,6 +1,6 @@
 """Host image codecs without Pillow: PNG, BMP and PNM (PBM, PGM, PPM,
-PFM) here, TIFF, GIF and WebP (read only) in :mod:`.tiff`, :mod:`.gif`
-and :mod:`.webp`, for the
+PFM) here, TIFF, GIF and WebP in :mod:`.tiff`, :mod:`.gif` and
+:mod:`.webp`, for the
 ``"host"`` backend of :mod:`rustcv_tpu_torch.imgcodecs` and the highgui
 PNG dump.
 
@@ -37,7 +37,7 @@ from :func:`png_info`, :func:`bmp_info` and :func:`pnm_info`.
 
 What Pillow refuses raises :class:`CodecError` (the facade's
 ``CameraError``); animated PNG and Pillow's own PNM extensions raise
-``not_ported``, and so does a WebP write (``NOT_PORTED_EXTENSIONS``).
+``not_ported``.
 """
 
 from __future__ import annotations
@@ -812,11 +812,19 @@ def write_gif(img) -> bytes:
     return gif.write_gif([img])
 
 
+def write_webp(img) -> bytes:
+    """A still lossy WebP (:func:`.webp.write_webp`): numpy, or a tensor whose
+    planes are made on its device."""
+    from . import webp
+
+    return webp.write_webp(img)
+
+
 DECODERS = {"png": lambda d: _Png(d).rgb(), "bmp": read_bmp, "pnm": read_pnm, "tiff": read_tiff,
             "gif": read_gif, "webp": read_webp}
 ENCODERS = {"png": write_png, "bmp": write_bmp, "pnm": write_pnm, "tiff": write_tiff,
-            "gif": write_gif}
+            "gif": write_gif, "webp": write_webp}
 EXTENSIONS = {"png": "png", "bmp": "bmp", "dib": "bmp", "ppm": "pnm", "pgm": "pnm",
               "pnm": "pnm", "pbm": "pnm", "pfm": "pnm", "jpg": "jpeg", "jpeg": "jpeg",
-              "jpe": "jpeg", "jfif": "jpeg", "tif": "tiff", "tiff": "tiff", "gif": "gif"}
-NOT_PORTED_EXTENSIONS = {"webp": "WebP"}  # read (:mod:`.webp`), not yet written
+              "jpe": "jpeg", "jfif": "jpeg", "tif": "tiff", "tiff": "tiff", "gif": "gif",
+              "webp": "webp"}

@@ -444,3 +444,272 @@ def webp_info(data: bytes, loaded: Optional[int] = None) -> dict:
         info["timestamp"] = sum(f.duration for f in w.frames[:loaded])
         info["duration"] = w.frames[loaded].duration
     return info
+
+
+# -- writing -----------------------------------------------------------------------------
+#
+# What the reference's Pillow writes (WebPImagePlugin ``_save`` and
+# ``_save_all`` over libwebp): a still at quality 80, method 4; an animation
+# through ``WebPAnimEncoder`` at quality 80, method 0, kmin 3, kmax 5. The
+# VP8 key frames come from the port's encoder (``native.vp8_encode``), the
+# alpha planes from its lossless coder (``native.alph_encode``), the planes
+# from ``webp_yuv.import_yuva`` on the image's own device.
+
+QUALITY, STILL_METHOD, ANIM_METHOD, KMIN, KMAX = 80, 4, 0, 3, 5
+FILTER_STRENGTH = 60  # WebPConfigPreset's; a blended animation frame has none
+MAX_SIDE = 16383
+
+
+def _chunk(tag: bytes, body: bytes) -> bytes:
+    return tag + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")
+
+
+def _riff(chunks: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WEBP" + chunks
+
+
+def _put24(v: int) -> bytes:
+    return int(v).to_bytes(3, "little")
+
+
+def _rgba(frame):
+    """A frame as the reference hands it to Pillow (numpy or a tensor; gray
+    (H, W), (H, W, 2) gray and alpha, RGB or RGBA) → (H, W, 4) u8 RGBA on
+    its device, as Pillow's ``_convert_frame`` converts it."""
+    import torch
+
+    t = frame if isinstance(frame, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(frame))
+    if t.dtype != torch.uint8:
+        raise CodecError(f"cannot write {t.dtype} images as WebP")
+    if t.ndim == 3 and t.shape[2] == 1:
+        t = t[..., 0]
+    if t.ndim == 2:
+        t = t[..., None]
+    c = t.shape[2] if t.ndim == 3 else 0
+    if c not in (1, 2, 3, 4):
+        raise CodecError(f"cannot write {c}-channel images as WebP")
+    opaque = torch.full_like(t[..., :1], 255)
+    if c in (1, 2):  # L and LA: gray in each colour channel
+        return torch.cat([t[..., :1].expand(*t.shape[:2], 3), t[..., 1:] if c == 2 else opaque], -1)
+    return t if c == 4 else torch.cat([t, opaque], -1)
+
+
+def _check_size(w: int, h: int) -> None:
+    if w > MAX_SIDE or h > MAX_SIDE:
+        raise CodecError(f"encoding error 5: Image size exceeds WebP limit of {MAX_SIDE} pixels")
+
+
+def _encode_frame(rgba, method: int, filter_strength: int) -> Tuple[bytes, Optional[bytes]]:
+    """(H, W, 4) RGBA on any device → (the VP8 payload, the ALPH payload or
+    None where every pixel is opaque): the planes imported on the device,
+    then the host's coders."""
+    from .. import native
+    from .webp_yuv import import_yuva
+
+    alpha = rgba[..., 3]
+    transparent = bool((alpha != 255).any())
+    y, u, v = import_yuva(rgba[..., :3], alpha if transparent else None)
+    a = alpha.cpu().numpy() if transparent else None
+    vp8 = native.vp8_encode(y.cpu().numpy(), u.cpu().numpy(), v.cpu().numpy(), QUALITY, method,
+                            filter_strength, alpha=a)
+    return vp8, (native.alph_encode(a) if transparent else None)
+
+
+def _image_chunks(vp8: bytes, alph: Optional[bytes]) -> bytes:
+    return (_chunk(b"ALPH", alph) if alph is not None else b"") + _chunk(b"VP8 ", vp8)
+
+
+def _vp8x(flags: int, w: int, h: int) -> bytes:
+    return _chunk(b"VP8X", bytes([flags, 0, 0, 0]) + _put24(w - 1) + _put24(h - 1))
+
+
+def _still(vp8: bytes, alph: Optional[bytes], w: int, h: int, exif: bytes = b"",
+           icc: bytes = b"", xmp: bytes = b"") -> bytes:
+    if alph is None and not (exif or icc or xmp):
+        return _riff(_chunk(b"VP8 ", vp8))
+    flags = (ICCP_FLAG if icc else 0) | (ALPHA_FLAG if alph is not None else 0) | \
+        (EXIF_FLAG if exif else 0) | (XMP_FLAG if xmp else 0)
+    return _riff(_vp8x(flags, w, h) + (_chunk(b"ICCP", icc) if icc else b"") +
+                 _image_chunks(vp8, alph) + (_chunk(b"EXIF", exif) if exif else b"") +
+                 (_chunk(b"XMP ", xmp) if xmp else b""))
+
+
+def write_webp(frame, exif: bytes = b"", icc: bytes = b"", xmp: bytes = b"") -> bytes:
+    """One image → a still WebP, as Pillow's ``_save`` writes it (lossy,
+    quality 80, method 4): a bare ``VP8 `` chunk where every pixel is opaque
+    and there is no metadata, else ``VP8X`` (its flags and canvas), ``ICCP``,
+    ``ALPH`` and ``VP8 ``, ``EXIF``, ``XMP `` (libwebp's muxer order)."""
+    rgba = _rgba(frame)
+    h, w = rgba.shape[:2]
+    _check_size(w, h)
+    vp8, alph = _encode_frame(rgba, STILL_METHOD, FILTER_STRENGTH)
+    if exif.startswith(b"Exif\x00\x00"):
+        exif = exif[6:]
+    return _still(vp8, alph, w, h, exif, icc, xmp)
+
+
+# anim_encode.c: the changed rectangle, and the blocks blending can keep
+
+def _max_diff(quality: float) -> int:
+    """QualityToMaxDiff: how far a pixel may move and still count as kept."""
+    val = (quality / 100.0) ** 0.5
+    return int(31 * (1 - val) + 1 * val + 0.5)
+
+
+def _similar(src, dst, max_diff: int):
+    """PixelsAreSimilar per pixel of two (..., 4) RGBA tensors."""
+    import torch
+
+    s, d = src.to(torch.int32), dst.to(torch.int32)
+    da = d[..., 3:]
+    return (s[..., 3] == d[..., 3]) & ((s[..., :3] - d[..., :3]).abs() * da <= max_diff * 255).all(-1)
+
+
+def _changed_rect(prev, curr, max_diff: int) -> Optional[Tuple[int, int, int, int]]:
+    """MinimizeChangeRectangle then SnapToEvenOffsets: the box (x, y, w, h)
+    of the pixels that are not similar, its corner moved to even
+    coordinates; None where every pixel is."""
+    import torch
+
+    changed = ~_similar(prev, curr, max_diff)
+    rows = torch.nonzero(changed.any(1)).flatten()
+    if rows.numel() == 0:
+        return None
+    cols = torch.nonzero(changed.any(0)).flatten()
+    y0, y1 = int(rows[0]), int(rows[-1]) + 1
+    x0, x1 = int(cols[0]), int(cols[-1]) + 1
+    return x0 & ~1, y0 & ~1, x1 - (x0 & ~1), y1 - (y0 & ~1)
+
+
+def _flatten_similar_blocks(prev, curr, rect, max_diff: int):
+    """FlattenSimilarBlocks: each 8x8 block of the canvas grid inside the
+    rectangle (from the grid line after its top and left edges) whose pixels
+    are all opaque in ``prev`` and similar to ``curr`` becomes transparent,
+    coloured with the mean of ``prev`` there; returns the new ``curr``."""
+    import torch
+
+    x, y, w, h = rect
+    xs, xe = (x + 8) & ~7, (x + w) & ~7
+    ys, ye = (y + 8) & ~7, (y + h) & ~7
+    if xs >= xe or ys >= ye:
+        return curr
+    p, c = prev[ys:ye, xs:xe], curr[ys:ye, xs:xe]
+    nby, nbx = (ye - ys) // 8, (xe - xs) // 8
+    ok = (_similar(p, c, max_diff) & (p[..., 3] == 255)).reshape(nby, 8, nbx, 8).all(3).all(1)
+    if not bool(ok.any()):
+        return curr
+    mean = (p[..., :3].to(torch.int32).reshape(nby, 8, nbx, 8, 3).sum((1, 3)) // 64)
+    flat = torch.cat([mean, torch.zeros_like(mean[..., :1])], -1).to(torch.uint8)
+    block = flat[:, None, :, None].expand(nby, 8, nbx, 8, 4).reshape(ye - ys, xe - xs, 4)
+    mask = ok[:, None, :, None, None].expand(nby, 8, nbx, 8, 1).reshape(ye - ys, xe - xs, 1)
+    curr = curr.clone()
+    curr[ys:ye, xs:xe] = torch.where(mask, block, c)
+    return curr
+
+
+class _Frame:
+    def __init__(self, rect, blend: bool, vp8: bytes, alph: Optional[bytes]):
+        self.rect, self.blend, self.vp8, self.alph = rect, blend, vp8, alph
+        self.duration = 0
+        self.sub: Optional["_Frame"] = None  # a key frame's encoding as a sub-frame
+
+    @property
+    def size(self) -> int:
+        return len(self.vp8) + (len(self.alph) if self.alph is not None else 0)
+
+
+def _sub_frame(prev, curr, max_diff: int, first: bool) -> Optional[_Frame]:
+    """The frame as a rectangle of what changed (None where nothing did),
+    blended over the canvas before it with its kept blocks transparent (not
+    the first frame's, which is a key frame over a transparent canvas)."""
+    rect = _changed_rect(prev, curr, max_diff)
+    if rect is None:
+        if not first:
+            return None
+        rect = (0, 0, 1, 1)  # an empty first frame is 1x1
+    if not first:
+        curr = _flatten_similar_blocks(prev, curr, rect, max_diff)
+    x, y, w, h = rect
+    vp8, alph = _encode_frame(curr[y:y + h, x:x + w], ANIM_METHOD,
+                              0 if not first else FILTER_STRENGTH)
+    return _Frame(rect, not first, vp8, alph)
+
+
+def _key_frame(curr) -> _Frame:
+    h, w = curr.shape[:2]
+    vp8, alph = _encode_frame(curr, ANIM_METHOD, FILTER_STRENGTH)
+    return _Frame((0, 0, w, h), False, vp8, alph)
+
+
+def write_animation(frames: list, durations=None, loop: int = 0) -> bytes:
+    """Frames (as :func:`write_webp` takes them, one canvas size) → what
+    Pillow's ``_save_all`` writes through libwebp's ``WebPAnimEncoder``
+    (lossy, quality 80, method 0, kmin 3, kmax 5, background 0): one frame
+    in all is :func:`write_webp`'s still. Else each frame is compared with
+    the one before: one whose pixels all stay within ``QualityToMaxDiff`` of
+    it is merged into it (its duration added); any other is the rectangle
+    that changed, blended, with its unchanged 8x8 blocks transparent. From
+    the fourth frame after a key frame to the sixth, each frame is also
+    encoded whole, and the one of that window whose whole encoding costs
+    least over its rectangle's becomes a key frame (anim_encode.c's
+    CacheFrame). Where one frame is left after merging, it is written as a
+    still; else ``VP8X`` (animation, and alpha where a frame has an ALPH
+    chunk), ``ANIM`` and one ``ANMF`` per frame. ``durations``: ms per
+    frame (0 by default, as the reference's ``imwritemulti`` leaves them),
+    or one for all."""
+    import torch
+
+    if len(frames) == 1:
+        return write_webp(frames[0])
+    if not frames:
+        raise CodecError("no frames to write")
+    canvases = [_rgba(f) for f in frames]
+    h, w = canvases[0].shape[:2]
+    if any(tuple(c.shape[:2]) != (h, w) for c in canvases):  # WebPAnimEncoderAdd's errors
+        raise RuntimeError("ERROR adding frame: Invalid frame dimensions.")
+    if w > MAX_SIDE or h > MAX_SIDE:
+        raise RuntimeError("ERROR adding frame. WebPEncodingError: 5.")
+    if durations is None:
+        durations = 0
+    if not isinstance(durations, (list, tuple)):
+        durations = [durations] * len(frames)
+    max_diff = _max_diff(QUALITY)
+    out: List[_Frame] = []
+    prev = torch.zeros_like(canvases[0])  # the canvas starts transparent black
+    since_key, best_delta, window_key = 0, None, None
+    for i, curr in enumerate(canvases):
+        frame = _sub_frame(prev, curr, max_diff, first=i == 0)
+        if frame is None:  # merged into the frame before (and not counted)
+            out[-1].duration += int(durations[i])
+            continue
+        if i > 0:
+            since_key += 1
+            if since_key > KMIN:
+                key = _key_frame(curr)
+                delta = key.size - frame.size
+                if best_delta is None or delta <= best_delta:
+                    if window_key is not None:  # the window's earlier pick goes back to its rectangle
+                        out[window_key].sub.duration = out[window_key].duration
+                        out[window_key] = out[window_key].sub
+                    key.sub = frame
+                    frame, best_delta, window_key = key, delta, len(out)
+                if since_key >= KMAX:
+                    since_key, best_delta, window_key = 0, None, None
+        frame.duration = int(durations[i])
+        out.append(frame)
+        prev = curr
+    if len(out) == 1:  # OptimizeSingleFrame: the one frame left, as a still
+        f = out[0]
+        if f.rect != (0, 0, w, h):
+            f = _key_frame(canvases[0])
+        return _still(f.vp8, f.alph, w, h)
+    anim_alpha = any(f.alph is not None for f in out)
+    body = _vp8x(ANIMATION_FLAG | (ALPHA_FLAG if anim_alpha else 0), w, h)
+    body += _chunk(b"ANIM", struct.pack("<IH", 0, int(loop)))
+    for f in out:
+        x, y, fw, fh = f.rect
+        head = _put24(x // 2) + _put24(y // 2) + _put24(fw - 1) + _put24(fh - 1) + \
+            _put24(f.duration) + bytes([0 if f.blend else 2])
+        body += _chunk(b"ANMF", head + _image_chunks(f.vp8, f.alph))
+    return _riff(body)
+

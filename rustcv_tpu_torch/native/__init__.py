@@ -2,9 +2,9 @@
 the glyph rasterizer, the frame ring, the V4L2 driver, the
 connected-components union-find, the MSER component tree, the grid
 max-flow, the LZW and PackBits loops of the TIFF and GIF codecs and the
-WebP decodes), built with g++ at first use and bound with ctypes.
+WebP decodes and encodes), built with g++ at first use and bound with ctypes.
 
-Thirteen sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
+Fifteen sources: ``jpeg_encode.cpp`` (quantized coefficient grids, dense or
 block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
 which checks a payload exactly: Huffman coding is lossless; the flat-
@@ -26,9 +26,13 @@ labeling behind ``ops.ccl``: :func:`ccl_label`, :func:`union_find`),
 ``imgcodecs.gif`` and ``imgcodecs.tiff``: :func:`gif_lzw_decode`,
 :func:`gif_lzw_encode`, :func:`tiff_lzw_decode`, :func:`packbits_decode`),
 ``vp8.cpp`` (the lossy WebP decode, a VP8 key frame to RGBA as libwebp
-gives it: :func:`vp8_info`, :func:`vp8_decode`) and ``vp8l.cpp`` (the
+gives it: :func:`vp8_info`, :func:`vp8_decode`), ``vp8l.cpp`` (the
 lossless decode: :func:`vp8l_info`, :func:`vp8l_decode`; and the ALPH
-plane, which ``vp8_decode`` applies), behind ``imgcodecs.webp``.
+plane, which ``vp8_decode`` applies), ``vp8enc.cpp`` (the lossy encode, Y,
+U and V planes to a VP8 key frame as libwebp's encoder makes it for
+Pillow's default save: :func:`vp8_encode`; it shares ``vp8.cpp``'s
+tables, transforms and predictors) and ``vp8lenc.cpp`` (the ALPH plane's
+lossless coder: :func:`alph_encode`), behind ``imgcodecs.webp``.
 The library goes to ``build/rustcv_tpu_torch/`` beside the package, under a
 name made from a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -54,7 +58,8 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "jpeg_encode.cpp", _HERE / "jpeg_entropy.cpp", _HERE / "jpeg_host.cpp",
            _HERE / "png_filter.cpp", _HERE / "text_raster.cpp", _HERE / "capture.cpp",
            _HERE / "v4l2.cpp", _HERE / "unionfind.cpp", _HERE / "mser.cpp",
-           _HERE / "maxflow.cpp", _HERE / "lzw.cpp", _HERE / "vp8.cpp", _HERE / "vp8l.cpp")
+           _HERE / "maxflow.cpp", _HERE / "lzw.cpp", _HERE / "vp8.cpp", _HERE / "vp8l.cpp",
+           _HERE / "vp8enc.cpp", _HERE / "vp8lenc.cpp")
 BUILD_DIR = _HERE.parents[1] / "build" / "rustcv_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -203,6 +208,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rcv_vp8l_info.argtypes = [u8p, ctypes.c_long, intp, intp, intp]
     lib.rcv_vp8l_decode.restype = ctypes.c_int
     lib.rcv_vp8l_decode.argtypes = [u8p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long]
+    # vp8enc.cpp and vp8lenc.cpp: the WebP encodes.
+    lib.rcv_vp8_encode.restype = ctypes.c_long
+    lib.rcv_vp8_encode.argtypes = [u8p, ctypes.c_long, u8p, u8p, ctypes.c_long, u8p, ctypes.c_long,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, u8p, ctypes.c_long]
+    lib.rcv_alph_encode.restype = ctypes.c_long
+    lib.rcv_alph_encode.argtypes = [u8p, ctypes.c_long, ctypes.c_int, ctypes.c_int, u8p,
+                                    ctypes.c_long]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -691,6 +704,67 @@ def vp8l_decode(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None) ->
     if rc != 0:
         raise _webp_error(rc, "VP8L")
     return out
+
+
+def _plane(a: np.ndarray, name: str) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype != np.uint8 or a.ndim != 2:
+        raise ValueError(f"{name} must be a 2-D uint8 plane")
+    return a if a.strides[1] == 1 and a.strides[0] >= a.shape[1] else np.ascontiguousarray(a)
+
+
+def vp8_encode(y: np.ndarray, u: np.ndarray, v: np.ndarray, quality: int = 80, method: int = 4,
+               filter_strength: int = 60, alpha: Optional[np.ndarray] = None) -> bytes:
+    """Y (H, W), U and V ((H + 1) // 2, (W + 1) // 2) u8 planes → a VP8
+    chunk's payload, a key frame as libwebp's encoder makes it
+    (``vp8enc.cpp``): ``quality`` 0-100, ``method`` (4 and up weigh the
+    spectral distortion in the luma choices), ``filter_strength`` 0-100 (60
+    is Pillow's; 0 turns the loop filter off, as libwebp's animation encoder
+    does for a blended frame). With ``alpha`` (the (H, W) plane the ALPH
+    chunk carries), the colour under transparent pixels is flattened first,
+    as libwebp's ``WebPCleanupTransparentArea`` does. Raises ValueError for
+    bad planes or a side above 16383, RuntimeError when the library did
+    not build."""
+    lib = _need_lib()
+    y, u, v = _plane(y, "y"), _plane(u, "u"), _plane(v, "v")
+    h, w = y.shape
+    if not (1 <= w <= 16383 and 1 <= h <= 16383):
+        raise ValueError(f"vp8_encode: a {w}x{h} frame (each side must be 1-16383)")
+    if u.shape != ((h + 1) // 2, (w + 1) // 2) or v.shape != u.shape or u.strides != v.strides:
+        raise ValueError("vp8_encode: U and V must be (H + 1) // 2 x (W + 1) // 2, alike")
+    if alpha is not None:
+        alpha = _plane(alpha, "alpha")
+        if alpha.shape != (h, w):
+            raise ValueError("vp8_encode: alpha must be (H, W)")
+    mbs = ((w + 15) // 16) * ((h + 15) // 16)
+    cap = 4096 + 2400 * mbs  # above the largest frame the coder writes
+    out = np.empty(cap, np.uint8)
+    n = lib.rcv_vp8_encode(_ptr(y), y.strides[0], _ptr(u), _ptr(v), u.strides[0],
+                           None if alpha is None else _ptr(alpha),
+                           0 if alpha is None else alpha.strides[0], w, h, int(quality),
+                           int(method), int(filter_strength), _ptr(out), cap)
+    if n < 0:
+        raise ValueError(f"vp8_encode failed (code {n})")
+    return out[:n].tobytes()
+
+
+def alph_encode(alpha: np.ndarray) -> bytes:
+    """An (H, W) u8 alpha plane → an ALPH chunk's payload (``vp8lenc.cpp``):
+    VP8L-compressed under the alpha filter that gives the smallest stream,
+    or raw where that is smaller. Lossless:
+    ``vp8_decode``'s alpha reads it back exactly. Raises ValueError for a
+    bad plane, RuntimeError when the library did not build."""
+    lib = _need_lib()
+    a = _plane(alpha, "alpha")
+    h, w = a.shape
+    if not (1 <= w <= 16383 and 1 <= h <= 16383):
+        raise ValueError(f"alph_encode: a {w}x{h} plane (each side must be 1-16383)")
+    cap = 1 + w * h
+    out = np.empty(cap, np.uint8)
+    n = lib.rcv_alph_encode(_ptr(a), a.strides[0], w, h, _ptr(out), cap)
+    if n < 0:
+        raise ValueError(f"alph_encode failed (code {n})")
+    return out[:n].tobytes()
 
 
 def ccl_label(mask: np.ndarray, connectivity: int = 4) -> tuple:

@@ -105,6 +105,13 @@ struct BoolReader {
   }
 };
 
+}  // namespace
+
+// What vp8enc.cpp shares with the decoder (it declares them): RFC 6386's
+// tables, the inverse transforms and the intra predictors, with external
+// linkage in a namespace of their own.
+namespace rcv_vp8 {
+
 // -- RFC 6386's tables -----------------------------------------------------
 
 enum { B_DC_PRED = 0, B_TM_PRED, B_VE_PRED, B_HE_PRED, B_RD_PRED, B_VR_PRED, B_LD_PRED,
@@ -112,7 +119,7 @@ enum { B_DC_PRED = 0, B_TM_PRED, B_VE_PRED, B_HE_PRED, B_RD_PRED, B_VR_PRED, B_L
        DC_PRED = B_DC_PRED, V_PRED = B_VE_PRED, H_PRED = B_HE_PRED, TM_PRED = B_TM_PRED,
        B_DC_PRED_NOTOP = 4, B_DC_PRED_NOLEFT = 5, B_DC_PRED_NOTOPLEFT = 6 };
 
-const uint8_t kDcTable[128] = {
+extern const uint8_t kDcTable[128] = {
     4,   5,   6,   7,   8,   9,   10,  10,  11,  12,  13,  14,  15,  16,  17,  17,
     18,  19,  20,  20,  21,  21,  22,  22,  23,  23,  24,  25,  25,  26,  27,  28,
     29,  30,  31,  32,  33,  34,  35,  36,  37,  37,  38,  39,  40,  41,  42,  43,
@@ -122,7 +129,7 @@ const uint8_t kDcTable[128] = {
     91,  93,  95,  96,  98,  100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118,
     122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157};
 
-const uint16_t kAcTable[128] = {
+extern const uint16_t kAcTable[128] = {
     4,   5,   6,   7,   8,   9,   10,  11,  12,  13,  14,  15,  16,  17,  18,  19,
     20,  21,  22,  23,  24,  25,  26,  27,  28,  29,  30,  31,  32,  33,  34,  35,
     36,  37,  38,  39,  40,  41,  42,  43,  44,  45,  46,  47,  48,  49,  50,  51,
@@ -133,7 +140,7 @@ const uint16_t kAcTable[128] = {
     213, 217, 221, 225, 229, 234, 239, 245, 249, 254, 259, 264, 269, 274, 279, 284};
 
 // kf_bmode_probs, indexed [top][left] in libwebp's mode order (above)
-const uint8_t kBModesProba[NUM_BMODES][NUM_BMODES][NUM_BMODES - 1] = {
+extern const uint8_t kBModesProba[NUM_BMODES][NUM_BMODES][NUM_BMODES - 1] = {
     {{231, 120, 48, 89, 115, 113, 120, 152, 112}, {152, 179, 64, 126, 170, 118, 46, 70, 95},
      {175, 69, 143, 80, 85, 82, 72, 155, 103},    {56, 58, 10, 171, 218, 189, 17, 13, 152},
      {114, 26, 17, 163, 44, 195, 21, 10, 173},    {121, 24, 80, 195, 26, 62, 44, 64, 85},
@@ -192,7 +199,7 @@ const int8_t kYModesIntra4[18] = {-B_DC_PRED, 1,  -B_TM_PRED, 2,  -B_VE_PRED, 3,
 
 enum { NUM_TYPES = 4, NUM_BANDS = 8, NUM_CTX = 3, NUM_PROBAS = 11 };
 
-const uint8_t kCoeffsProba0[NUM_TYPES][NUM_BANDS][NUM_CTX][NUM_PROBAS] = {
+extern const uint8_t kCoeffsProba0[NUM_TYPES][NUM_BANDS][NUM_CTX][NUM_PROBAS] = {
     {{{128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128},
       {128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128},
       {128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128}},
@@ -290,7 +297,7 @@ const uint8_t kCoeffsProba0[NUM_TYPES][NUM_BANDS][NUM_CTX][NUM_PROBAS] = {
       {244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128},
       {238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128}}}};
 
-const uint8_t kCoeffsUpdateProba[NUM_TYPES][NUM_BANDS][NUM_CTX][NUM_PROBAS] = {
+extern const uint8_t kCoeffsUpdateProba[NUM_TYPES][NUM_BANDS][NUM_CTX][NUM_PROBAS] = {
     {{{255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
       {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
       {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}},
@@ -388,12 +395,12 @@ const uint8_t kCoeffsUpdateProba[NUM_TYPES][NUM_BANDS][NUM_CTX][NUM_PROBAS] = {
       {254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255},
       {255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255}}}};
 
-const uint8_t kBands[16 + 1] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
-const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
-const uint8_t kCat3[] = {173, 148, 140, 0};
-const uint8_t kCat4[] = {176, 155, 140, 135, 0};
-const uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
-const uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
+extern const uint8_t kBands[16 + 1] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
+extern const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
+extern const uint8_t kCat3[] = {173, 148, 140, 0};
+extern const uint8_t kCat4[] = {176, 155, 140, 135, 0};
+extern const uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
+extern const uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
 const uint8_t* const kCat3456[] = {kCat3, kCat4, kCat5, kCat6};
 
 // -- the work buffer and the transforms (dsp/dec.c) --------------------------
@@ -710,6 +717,12 @@ void pred4(uint8_t* dst, int mode) {
 #undef DST
 #undef AVG3
 #undef AVG2
+
+}  // namespace rcv_vp8
+
+namespace {
+
+using namespace rcv_vp8;
 
 // -- the loop filters (dsp/dec.c) ------------------------------------------
 

@@ -212,14 +212,18 @@ def test_the_dump_writes_a_png_the_reference_reads(monkeypatch, tmp_path, jax_cp
 @pytest.mark.parametrize("call", ["tiff", "gif", "webp", "multi", "count", "writemulti", "exif",
                                   "png16", "ascii_pnm"])
 def test_what_stays_not_ported_raises(tmp_path, call, jax_cpu):
-    """WebP and animated PNG writes raise ``not_ported``; TIFF, GIF, the
-    multi-page calls (item 8b), a WebP read (item 8c), EXIF, 16-bit PNG and
-    ASCII PNM, which once did, read and write as the reference does."""
+    """Animated PNG writes raise ``not_ported``; TIFF, GIF, the multi-page
+    calls (item 8b), WebP reads (item 8c) and writes (item 8c-ii), EXIF,
+    16-bit PNG and ASCII PNM, which once did, read and write as the
+    reference does."""
     a = _img((4, 4, 3), 0)
     buf = io.BytesIO()
-    if call == "webp":  # the write is item 8c-ii; the read (item 8c) is the reference's
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            imgcodecs.imwrite(str(tmp_path / f"x.{call}"), _mat(a))
+    if call == "webp":  # the write (item 8c-ii) is Pillow's size; the read (item 8c) the reference's
+        assert imgcodecs.imwrite(str(tmp_path / f"x.{call}"), _mat(a))
+        assert jax_codecs.imwrite(str(tmp_path / f"r.{call}"), jax_core.Mat.from_array(a))
+        with Image.open(tmp_path / f"x.{call}") as im:
+            assert im.size == (4, 4) and im.mode == "RGB"
+        assert (tmp_path / f"x.{call}").stat().st_size <= 1.25 * (tmp_path / f"r.{call}").stat().st_size
         Image.fromarray(a).save(buf, call.upper())
         np.testing.assert_array_equal(imgcodecs.imdecode(buf.getvalue(), device="cpu").to_numpy(),
                                       jax_codecs.imdecode(buf.getvalue()).to_numpy())

@@ -50,7 +50,8 @@ they reach, CUDA tensors against CPU tensors, and draws on a CUDA tensor;
 and TIFF and GIF read onto the card and written from CUDA Mats (the GIF's
 colour mapping on the card) against the CPU; and every WebP fixture of
 ``tests/data/webp`` read onto the card against the CPU read and the
-reference's hashes in its manifest.
+reference's hashes in its manifest, and WebP written from CUDA Mats equal
+to the bytes written from host Mats.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -2283,3 +2284,33 @@ def test_webp_fixture_read_onto_the_card(cuda, name):
     first = imgcodecs.imread(path, device=cuda)
     assert first.device().is_cuda
     np.testing.assert_array_equal(first.to_numpy(), cpu[0])
+
+
+@pytest.mark.parametrize("form", ["bgr", "bgra", "gray", "animation"])
+def test_webp_written_from_the_card(cuda, form):
+    """Item 8c-ii: a WebP written from CUDA Mats (the YUV planes made on the
+    card by exact integer arithmetic) is the same bytes as the one written
+    from host Mats of the same pixels, and reads back at their size."""
+    import torch
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.core import Mat
+
+    rng = np.random.default_rng(5)
+    y, x = np.mgrid[0:181, 0:321]
+    base = np.stack([x * 255 // 320, y * 255 // 180, (x + y) % 256], -1).astype(np.uint8)
+    base = np.clip(base + rng.integers(-9, 10, base.shape) * (x > 160)[..., None], 0,
+                   255).astype(np.uint8)
+    if form == "animation":
+        frames = [np.roll(base, 9 * i, axis=0) for i in range(4)]
+        host = imgcodecs.encode_frames("webp", [Mat.from_array(f, device="cpu") for f in frames])
+        card = imgcodecs.encode_frames("webp", [Mat.from_device(torch.from_numpy(f).to(cuda))
+                                                for f in frames])
+    else:
+        a = {"bgr": base, "gray": base[..., :1].copy(),
+             "bgra": np.dstack([base, ((x // 7 + y // 5) % 4 * 85).astype(np.uint8)])}[form]
+        host = imgcodecs.imencode(".webp", Mat.from_array(a, device="cpu"))
+        card = imgcodecs.imencode(".webp", Mat.from_device(torch.from_numpy(a).to(cuda)))
+    assert card == host
+    back = imgcodecs.imdecode(card, device="cpu").to_numpy()
+    assert back.shape == (181, 321, 3)

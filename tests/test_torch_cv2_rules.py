@@ -9,7 +9,7 @@ pinned (``rustcv_tpu_torch/cv2/_device.py``):
 * in-place draws mutate the caller's numpy array (on the host, in its own
   buffer) or CPU tensor;
 * the reference's swallow-all wrappers keep cv2's False / 0 for a missing
-  or unreadable file and let ``not_ported`` (animated PNG, WebP) through;
+  or unreadable file and let ``not_ported`` (animated PNG) through;
 * the later modules (ROADMAP Queue 1 item 7b) follow the same rules: which
   of their wrappers send a numpy image to the card is frozen in
   :data:`LATER_CARD_NAMES`, ``addText`` and ``thresholdWithMask`` write
@@ -151,8 +151,9 @@ def test_a_contiguous_bgr_array_is_drawn_without_a_copy(monkeypatch):
 
 def test_multi_page_wrappers_let_not_ported_through(tmp_path):
     """imcount and imreadmulti of a PNG and imwritemulti of a TIFF answer as
-    the reference's (item 8b); an animated PNG or a WebP written by
-    imwritemulti still raises not_ported through the swallowing wrapper."""
+    the reference's (item 8b), and of a WebP (item 8c-ii); an animated PNG
+    written by imwritemulti still raises not_ported through the swallowing
+    wrapper."""
     png = str(tmp_path / "a.png")
     R.imwrite(png, np.zeros((8, 8, 3), np.uint8))
     assert P.imcount(png) == R.imcount(png) == 1
@@ -162,9 +163,11 @@ def test_multi_page_wrappers_let_not_ported_through(tmp_path):
     assert P.imwritemulti(str(tmp_path / "b.tiff"), frames) is \
         R.imwritemulti(str(tmp_path / "r.tiff"), frames) is True
     assert P.imcount(str(tmp_path / "b.tiff")) == R.imcount(str(tmp_path / "b.tiff")) == 3
-    for ext in (".png", ".webp"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            P.imwritemulti(str(tmp_path / f"c{ext}"), frames)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        P.imwritemulti(str(tmp_path / "c.png"), frames)
+    assert P.imwritemulti(str(tmp_path / "c.webp"), frames) is \
+        R.imwritemulti(str(tmp_path / "r.webp"), frames) is True
+    assert P.imcount(str(tmp_path / "c.webp")) == R.imcount(str(tmp_path / "r.webp")) == 3
     # cv2's answers for a missing file or directory stay
     assert P.imcount(str(tmp_path / "none.tif")) == R.imcount(str(tmp_path / "none.tif")) == 0
     assert P.imreadmulti(str(tmp_path / "none.tif")) == (False, [])

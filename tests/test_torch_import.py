@@ -699,12 +699,9 @@ _CV2_LATER_SCRIPT = textwrap.dedent(
     ok, buf = cv2.imencodemulti(".tiff", [img, img[::-1]])
     ok2, pages = cv2.imdecodemulti(buf)
     assert ok and ok2 and len(pages) == 2 and np.array_equal(pages[1], img[::-1])
-    try:
-        cv2.imwritemulti(os.path.join(tempfile.mkdtemp(), "a.webp"), [img])
-    except NotImplementedError as e:
-        assert "item 8" in str(e)
-    else:
-        raise AssertionError("a WebP write is item 8")
+    path = os.path.join(tempfile.mkdtemp(), "a.webp")  # a WebP write (item 8c-ii)
+    assert cv2.imwritemulti(path, [img]) and cv2.imcount(path) == 1
+    assert cv2.imread(path).shape == img.shape
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
     assert not bad, bad
@@ -718,8 +715,8 @@ def test_cv2_later_modules_run_without_jax_or_pil():
     jax, Pillow and the JAX package blocked: its submodules ``aruco``,
     ``detail``, ``dnn`` and ``fisheye``, the GFTT and Farnebäck objects,
     ``goodFeaturesToTrackWithQuality`` on both Harris routes, ``addText``,
-    a multi-page TIFF encoded and decoded (item 8b), and a WebP write's
-    ``not_ported``."""
+    a multi-page TIFF encoded and decoded (item 8b), and a WebP written
+    (item 8c-ii)."""
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
         [sys.executable, "-c", _CV2_LATER_SCRIPT], cwd=REPO, env=env,
@@ -931,12 +928,9 @@ _MULTIPAGE_SCRIPT = textwrap.dedent(
     ok, buf = cv2.imencodeanimation(".gif", anim)
     ok2, back = cv2.imdecodeanimation(buf)
     assert ok and ok2 and back.durations == [40, 60] and back.loop_count == 3
-    try:
-        cv2.imencodeanimation(".webp", anim)
-    except NotImplementedError as e:
-        assert "item 8" in str(e)
-    else:
-        raise AssertionError("an animated WebP is item 8")
+    ok, buf = cv2.imencodeanimation(".webp", anim)  # an animated WebP (item 8c-ii)
+    ok2, back = cv2.imdecodeanimation(buf)
+    assert ok and ok2 and back.durations == [40, 60] and back.loop_count == 3
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
     assert not bad, bad
@@ -951,7 +945,7 @@ def test_tiff_and_gif_run_without_jax_or_pil(tmp_path):
     ``imcount``, ``imreadmulti`` and the metadata of a Pillow-written LZW
     TIFF with predictor 2 and an animated GIF equal what Pillow and the
     reference read (made here); ``imwritemulti`` to TIFF and GIF and cv2's
-    animation calls run; an animated WebP raises ``not_ported``."""
+    animation calls run, an animated WebP among them (item 8c-ii)."""
     import io
     import json
 
@@ -1079,12 +1073,15 @@ _WEBP_SCRIPT = textwrap.dedent(
         assert imgcodecs.imread_with_metadata(path, device="cpu")[1] == m["metadata"], name
         ok, anim = cv2.imreadanimation(path)
         assert ok and anim.durations == m["durations"] and anim.loop_count == m["loop"], name
-    try:
-        cv2.imencode(".webp", np.zeros((4, 4, 3), np.uint8))
-    except NotImplementedError as e:
-        assert "item 8" in str(e)
-    except RuntimeError:  # no card here: the numpy image goes to the card first
-        pass
+    import torch
+    img = torch.from_numpy(np.arange(4 * 6 * 3, dtype=np.uint8).reshape(4, 6, 3))
+    ok, buf = cv2.imencode(".webp", img)  # the writes of item 8c-ii, on a CPU tensor
+    assert ok and cv2.imdecode(buf).shape == (4, 6, 3)
+    anim = cv2.Animation(2)
+    anim.frames, anim.durations = [img, img.flip(0)], [30, 40]
+    ok, buf = cv2.imencodeanimation(".webp", anim)
+    ok2, back = cv2.imdecodeanimation(buf)
+    assert ok and ok2 and back.durations == [30, 40] and back.loop_count == 2
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "rustcv_tpu")
            if sys.modules[m] is not None]
     assert not bad, bad
@@ -1098,7 +1095,9 @@ def test_webp_reads_run_without_jax_or_pil():
     ``native/vp8l.cpp``) run with jax, Pillow and the JAX package blocked: a
     lossy, a lossless and an animated fixture of ``tests/data/webp`` read
     to the reference's hashes, counts, durations, loop and metadata in its
-    manifest; no module of the port loads libwebp or Pillow."""
+    manifest; a still and an animation written (item 8c-ii, the VP8 and
+    ALPH coders of ``native/vp8enc.cpp`` and ``native/vp8lenc.cpp``) read
+    back; no module of the port loads libwebp or Pillow."""
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", _WEBP_SCRIPT, str(REPO / "tests" / "data" / "webp")],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=120)

@@ -25,8 +25,8 @@ against Pillow 12, which the JAX package's codecs reach, and against
   misses by one level is :func:`test_gif_write_max_error_where_the_port_misses`).
 * cv2's ``imcount``, ``imreadmulti``, ``imwritemulti``, ``haveImageReader``
   and the six multi-page and animation calls answer as ``rustcv_tpu.cv2``
-  does for TIFF, GIF and the still formats (and, since item 8c, for the
-  reads of an animated WebP); animated PNG and WebP writes raise
+  does for TIFF, GIF and the still formats (and, since items 8c and 8c-ii,
+  for the reads and writes of an animated WebP); animated PNG raises
   ``not_ported``.
 
 Sizes are small and odd (23x17, 37x23); inputs come from numpy seeds.
@@ -863,16 +863,22 @@ def test_cv2_animation_writes_answer_as_the_references(ext, loop, tmp_path):
 
 
 def test_cv2_animated_png_and_webp_raise_not_ported(tmp_path):
+    """Animated PNG raises not_ported (item 8d); the WebP writes that once
+    did (item 8c-ii) write animations the reference reads with its frame
+    count (tests/test_torch_webp_write.py holds them to its files)."""
     frames = [f[..., ::-1].copy() for f in _palette_frames(2, 30, 75)]
     a = P.Animation()
     a.frames = frames
     for call in (lambda: P.imwriteanimation(str(tmp_path / "a.png"), a),
-                 lambda: P.imencodeanimation(".webp", a),
                  lambda: P.imencodeanimation(".png", a),
-                 lambda: P.imwritemulti(str(tmp_path / "b.png"), frames),
-                 lambda: P.imwritemulti(str(tmp_path / "b.webp"), frames)):
+                 lambda: P.imwritemulti(str(tmp_path / "b.png"), frames)):
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
+    ok, mine = P.imencodeanimation(".webp", a)
+    assert ok and P.imwritemulti(str(tmp_path / "b.webp"), frames)
+    for data in (mine.tobytes(), (tmp_path / "b.webp").read_bytes()):
+        with Image.open(io.BytesIO(data)) as im:
+            assert im.n_frames == 2 and im.size == (frames[0].shape[1], frames[0].shape[0])
     ra = R.Animation()
     ra.frames = frames
     ok, apng = R.imencodeanimation(".png", ra)

@@ -19,7 +19,8 @@ its libwebp 1.6, which the JAX package's codecs reach, and against
   corrupt stream never crashes the process.
 * The fixtures ``chip_smoke.py`` reads on the card (``tests/data/webp``)
   hold the truths of their manifest, and phase 3x runs here on the CPU.
-* WebP writes still raise ``not_ported`` (item 8c-ii).
+* WebP writes (item 8c-ii, once ``not_ported``) write what the port reads
+  back; tests/test_torch_webp_write.py holds them to the reference's.
 """
 
 import hashlib
@@ -465,21 +466,30 @@ def test_corrupt_streams_never_crash():
 
 
 def test_writes_still_raise_not_ported(tmp_path):
-    """Item 8c-ii: every WebP write raises ``not_ported`` (``imencodemulti``
-    answers False, as the reference's does)."""
-    mat = Mat.from_array(_img()[..., ::-1].copy(), device="cpu")
+    """Item 8c-ii, ported: every WebP write that once raised ``not_ported``
+    writes a WebP the port reads back at the image's size (the bars against
+    the reference's files are tests/test_torch_webp_write.py's);
+    ``imencodemulti`` still answers False, as the reference's does."""
+    img = _img()
+    mat = Mat.from_array(img[..., ::-1].copy(), device="cpu")
     a = P.Animation()
-    a.frames = [_img()]
-    for call in (lambda: imgcodecs.imwrite(str(tmp_path / "x.webp"), mat),
-                 lambda: imgcodecs.imencode(".webp", mat),
-                 lambda: imgcodecs.imwritemulti(str(tmp_path / "x.webp"), [mat, mat]),
-                 lambda: P.imwrite(str(tmp_path / "y.webp"), torch.from_numpy(_img())),
-                 lambda: P.imencode(".webp", torch.from_numpy(_img())),
-                 lambda: P.imwriteanimation(str(tmp_path / "a.webp"), a),
-                 lambda: P.imencodeanimation(".webp", a),
-                 lambda: P.imencodeWithMetadata(".webp", _img())):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    a.frames = [img, _img(seed=1)]
+    for what, call in (
+            ("imwrite", lambda: imgcodecs.imwrite(str(tmp_path / "x.webp"), mat)
+             and (tmp_path / "x.webp").read_bytes()),
+            ("imencode", lambda: imgcodecs.imencode(".webp", mat)),
+            ("imwritemulti", lambda: imgcodecs.imwritemulti(str(tmp_path / "m.webp"), [mat, mat])
+             and (tmp_path / "m.webp").read_bytes()),
+            ("cv2.imwrite", lambda: P.imwrite(str(tmp_path / "y.webp"), torch.from_numpy(img))
+             and (tmp_path / "y.webp").read_bytes()),
+            ("cv2.imencode", lambda: P.imencode(".webp", torch.from_numpy(img))[1].tobytes()),
+            ("cv2.imwriteanimation", lambda: P.imwriteanimation(str(tmp_path / "a.webp"), a)
+             and (tmp_path / "a.webp").read_bytes()),
+            ("cv2.imencodeanimation", lambda: P.imencodeanimation(".webp", a)[1].tobytes()),
+            ("cv2.imencodeWithMetadata", lambda: P.imencodeWithMetadata(".webp", img)[1].tobytes())):
+        data = call()
+        assert isinstance(data, bytes) and webp.accept(data), what
+        assert all(f.shape[:2] == (H, W) for f in webp.read_frames(data)), what
     # the reference's imencodemulti knows TIFF and GIF only: (False, empty) for WebP
     frames = [_img(), _img(seed=1)]
     got, want = P.imencodemulti(".webp", [torch.from_numpy(f) for f in frames]), \
