@@ -2932,6 +2932,227 @@ def time_formats_8c_writes(smi: str, dev: str = "cuda") -> None:
               f"({os.path.getsize(path)} bytes) from card Mats: {ms:.4f} ms", flush=True)
 
 
+# -- phases 3z and 4z: animated PNG both ways and the GIF writer's median cut
+# (ROADMAP Queue 1 item 8d-i). The card's machine has no Pillow: the
+# reference's reads and writes of the fixtures are committed in
+# tests/data/apng/manifest.json (tools/make_apng_data.py), Pillow's palettes
+# and index maps of quant_frames() in tests/data/gif/quant_refs.json
+# (tools/make_quant_refs.py).
+
+APNG_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "apng")
+QUANT_REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "gif",
+                          "quant_refs.json")
+
+
+def apng_timing_frames() -> list:
+    """Phase 4z's animation (``tests/data/apng/anim8_1920x1080.png``): 8 RGB
+    frames of 1920x1080, integer gradients with a box moving across them."""
+    y, x = np.mgrid[0:1080, 0:1920]
+    base = np.stack([x * 255 // 1919, y * 255 // 1079, (x + y) * 255 // 2997], -1).astype(np.uint8)
+    frames = []
+    for i in range(8):
+        f = base.copy()
+        f[200 + 40 * i:360 + 40 * i, 100 + 200 * i:400 + 200 * i] = (230, 40, 40)
+        frames.append(f)
+    return frames
+
+
+def quant_frames() -> dict:
+    """The GIF quantizer's frames (RGB), seeded and made with
+    ``np.random.default_rng(seed).integers`` and integer arithmetic only: a
+    noisy gradient, 641x361 of thousands of colours, 160x120 of exactly 256 and a
+    1080p noise frame of more than 65,536 (the coarse hash)."""
+    out = {}
+    rng = np.random.default_rng(251)
+    y, x = np.mgrid[0:96, 0:128]
+    g = np.stack([x * 2, y * 2, x + y], -1) + rng.integers(-6, 7, (96, 128, 3))
+    out["gradient_noise_128x96"] = np.clip(g, 0, 255).astype(np.uint8)
+    rng = np.random.default_rng(252)
+    pal = rng.integers(0, 256, (5000, 3)).astype(np.uint8)
+    out["many_colours_641x361"] = pal[rng.integers(0, 5000, (361, 641))]
+    rng = np.random.default_rng(253)
+    packed = rng.integers(0, 1 << 24, 256)
+    pal = np.stack([packed >> 16, (packed >> 8) & 255, packed & 255], 1).astype(np.uint8)
+    idx = rng.integers(0, 256, (120, 160))
+    idx.reshape(-1)[:256] = np.arange(256)
+    out["colours_256_160x120"] = pal[idx]
+    rng = np.random.default_rng(254)
+    out["noise_1920x1080"] = rng.integers(0, 256, (1080, 1920, 3)).astype(np.uint8)
+    return out
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def apng_controls(data: bytes) -> dict:
+    """acTL and every fcTL of PNG bytes, the fcTL without its sequence
+    number (what ``tests/data/apng/manifest.json`` holds of a write)."""
+    import struct
+
+    out, p = {"actl": None, "fctl": []}, 8
+    while p < len(data):
+        n, kind = struct.unpack(">I4s", data[p:p + 8])
+        body = data[p + 8:p + 8 + n]
+        if kind == b"acTL":
+            out["actl"] = list(struct.unpack(">II", body))
+        elif kind == b"fcTL":
+            out["fctl"].append(list(struct.unpack(">IIIIIHHBB", body)[1:]))
+        p += 12 + n
+    return out
+
+
+def run_formats_8d(dev: str = "cuda") -> dict:
+    """Phase 3z: animated PNG and the median cut on the card's machine.
+    Every ``tests/data/apng`` fixture read by ``imreadmulti``, ``imread``,
+    ``imcount``, ``imread_with_metadata`` and cv2's ``imreadanimation``
+    onto ``dev`` equals the CPU read and the manifest's hashes, counts,
+    durations, loop and metadata; its frames written from ``dev`` Mats by
+    ``imwritemulti`` and by ``imgcodecs.encode_frames("png", durations,
+    loop)`` (``imwriteanimation``'s write) give the host Mats' bytes, the
+    reference's acTL and fcTL fields, and read back to the reference's
+    frames. Each ``quant_frames`` frame quantized on ``dev`` gives
+    Pillow's palette and index map (``quant_refs.json``) and the CPU's.
+    Returns the phase's launches (none expected)."""
+    import tempfile
+
+    import torch
+
+    import rustcv_tpu_torch.cv2 as cv2
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.core.errors import CameraError
+    from rustcv_tpu_torch.imgcodecs import quantize
+    from rustcv_tpu_torch.ops import kernels
+    from rustcv_tpu_torch.prelude import Mat
+
+    kernels.reset_launch_counts()
+    with open(os.path.join(APNG_DATA, "manifest.json")) as f:
+        manifest = json.load(f)
+    expect(sorted(manifest) == sorted(n for n in os.listdir(APNG_DATA) if n.endswith(".png")),
+           f"manifest.json holds {sorted(manifest)}")
+    frames = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, m in sorted(manifest.items()):
+            path = os.path.join(APNG_DATA, name)
+            expect(imgcodecs.imcount(path) == m["n_frames"], f"{name}: imcount {imgcodecs.imcount(path)}")
+            ok, anim = cv2.imreadanimation(path)
+            expect(ok == (m["read_error"] is None) and anim.durations == m["durations"]
+                   and anim.loop_count == m["loop"],
+                   f"{name}: imreadanimation {ok} {anim.durations} loop {anim.loop_count}")
+            if m["read_error"] is None:
+                on_dev = imgcodecs.imreadmulti(path, device=dev)
+                cpu = [x.to_numpy() for x in imgcodecs.imreadmulti(path, device="cpu")]
+            else:  # the reference's read stops with an error: imreadmulti raises, as it does
+                try:
+                    imgcodecs.imreadmulti(path, device="cpu")
+                    expect(False, f"{name}: imreadmulti read past the reference's {m['read_error']}")
+                except CameraError:
+                    pass
+                cpu = anim.frames
+                on_dev = [imgcodecs.imread(path, device=dev)][:len(cpu)]
+            expect(len(on_dev) == len(cpu) == len(m["sha256"]), f"{name}: {len(on_dev)} frames")
+            for k, (x, c) in enumerate(zip(on_dev, cpu)):
+                expect(x.device().device.type == dev, f"{name} frame {k}: on {x.device().device}")
+                expect(np.array_equal(x.to_numpy(), c), f"{name} frame {k}: the {dev} read differs")
+                expect(list(c.shape) == m["shape"] and _sha(c) == m["sha256"][k],
+                       f"{name} frame {k}: not the reference's read")
+            expect(np.array_equal(imgcodecs.imread(path, device=dev).to_numpy(), cpu[0]),
+                   f"{name}: imread is not the first frame")
+            meta = imgcodecs.imread_with_metadata(path, device=dev)[1]
+            expect(meta == m["metadata"], f"{name}: metadata {meta}")
+            frames += len(cpu)
+            mats = {side: [Mat.from_device(torch.from_numpy(c).to(side)) for c in cpu]
+                    for side in (dev, "cpu")}
+            for how in ("writemulti", "writeanimation"):
+                written = {}
+                for side, ms in mats.items():
+                    p = os.path.join(tmp, f"{how}_{side}.png")
+                    if how == "writemulti":
+                        expect(imgcodecs.imwritemulti(p, ms), f"{name}: imwritemulti from {side}")
+                    else:
+                        with open(p, "wb") as f:
+                            f.write(imgcodecs.encode_frames("png", ms, duration=m["durations"],
+                                                            loop=m["loop"]))
+                    with open(p, "rb") as f:
+                        written[side] = f.read()
+                expect(written[dev] == written["cpu"], f"{name} {how}: the {dev} write differs")
+                got = apng_controls(written[dev])
+                want = {k: m[how][k] for k in ("actl", "fctl")}
+                expect(got == want, f"{name} {how}: controls {got}, the reference's {want}")
+                back = [x.to_numpy() for x in imgcodecs.imreadmulti(
+                    os.path.join(tmp, f"{how}_{dev}.png"), device="cpu")]
+                expect([_sha(b) for b in back] == m[how]["sha256"],
+                       f"{name} {how}: the frames read back are not the reference's")
+    print(f"formats 8d: {len(manifest)} animated PNG files ({frames} frames) read onto {dev} "
+          f"equal to the CPU read and to the reference's hashes, counts, durations, loops and "
+          f"metadata, and written from {dev} Mats with the reference's acTL and fcTL fields: "
+          f"{', '.join(sorted(manifest))}", flush=True)
+    with open(QUANT_REFS) as f:
+        refs = json.load(f)
+    qf = quant_frames()
+    expect(sorted(refs) == sorted(qf), f"quant_refs.json holds {sorted(refs)}")
+    for name, img in sorted(qf.items()):
+        idx, pal = quantize.quantize(torch.from_numpy(img).to(dev))
+        cidx, cpal = quantize.quantize(img)
+        expect(np.array_equal(idx, cidx) and np.array_equal(pal, cpal),
+               f"quantize {name}: the {dev} run differs from the CPU's")
+        got = {"entries": len(pal), "palette_sha256": _sha(pal), "index_sha256": _sha(idx)}
+        want = {k: refs[name][k] for k in got}
+        expect(got == want, f"quantize {name}: {got}, Pillow's {want}")
+        print(f"formats 8d: quantize {name} on {dev}: Pillow's {len(pal)}-entry palette and "
+              f"index map, the CPU's", flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3z launched kernels: {counts}")
+    return counts
+
+
+def time_formats_8d(smi: str, dev: str = "cuda") -> None:
+    """Phase 4z: ms per call at 1080p (CUDA events over MULTI_TIMED calls,
+    the file in the page cache): ``imread`` and ``imreadmulti`` onto the card
+    of the 8-frame 1920x1080 APNG fixture, ``imwritemulti`` of its frames
+    from card Mats to .png, the GIF write of the first frame from a card Mat
+    (``imencode``: Pillow's median cut, the mapping on the card) and the
+    quantizer alone on the 1080p noise frame on the card."""
+    import tempfile
+
+    import torch
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.imgcodecs import quantize
+    from rustcv_tpu_torch.prelude import Mat
+
+    tag = f"[{smi}]"
+    path = os.path.join(APNG_DATA, "anim8_1920x1080.png")
+    size = os.path.getsize(path)
+    ms = cuda_ms(lambda: imgcodecs.imread(path, device=dev), MULTI_TIMED)
+    print(f"{tag} imread of the 8-frame 1920x1080 APNG ({size} bytes) onto the card: {ms:.4f} ms",
+          flush=True)
+    ms = cuda_ms(lambda: imgcodecs.imreadmulti(path, device=dev), MULTI_TIMED)
+    print(f"{tag} imreadmulti of that APNG onto the card: {ms:.4f} ms", flush=True)
+    mats = imgcodecs.imreadmulti(path, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "m.png")
+        ms = cuda_ms(lambda: imgcodecs.imwritemulti(out, mats), MULTI_TIMED)
+        print(f"{tag} imwritemulti of its 8 frames to .png ({os.path.getsize(out)} bytes) from "
+              f"card Mats: {ms:.4f} ms", flush=True)
+    ms = cuda_ms(lambda: imgcodecs.imencode(".gif", mats[0]), MULTI_TIMED)
+    print(f"{tag} imencode of its first frame to .gif from a card Mat (Pillow's median cut): "
+          f"{ms:.4f} ms", flush=True)
+    noise = torch.from_numpy(quant_frames()["noise_1920x1080"]).to(dev)
+    ms = cuda_ms(lambda: quantize.quantize(noise), MULTI_TIMED)
+    print(f"{tag} quantize of the 1920x1080 noise frame (the coarse hash) on the card: "
+          f"{ms:.4f} ms", flush=True)
+    frames = [Mat.from_device(torch.from_numpy(np.ascontiguousarray(f[..., ::-1])).to(dev))
+              for f in apng_timing_frames()]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "m.gif")
+        ms = cuda_ms(lambda: imgcodecs.imwritemulti(out, frames), MULTI_TIMED)
+        print(f"{tag} imwritemulti of those 8 frames to .gif ({os.path.getsize(out)} bytes) from "
+              f"card Mats: {ms:.4f} ms", flush=True)
+
+
 def time_new_paths(smi: str) -> None:
     """Phase 4j: ms/tick (CUDA events) of every other wire format: device-sim
     at 8 × 1080p (NV12 in every mode and beside the plain engine), host-staged
@@ -6873,6 +7094,8 @@ def main() -> int:
         done("phase 3x, WebP reads (item 8c)")
         phase("phase 3y, WebP writes (item 8c-ii)", run_formats_8c_writes)
         done("phase 3y, WebP writes (item 8c-ii)")
+        phase("phase 3z, animated PNG and the median cut (item 8d-i)", run_formats_8d)
+        done("phase 3z, animated PNG and the median cut (item 8d-i)")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -6886,6 +7109,8 @@ def main() -> int:
                           ("TIFF and GIF (4w)", lambda: time_formats_8b(smi)),
                           ("WebP reads (4x)", lambda: time_formats_8c(smi)),
                           ("WebP writes (4y)", lambda: time_formats_8c_writes(smi)),
+                          ("animated PNG and the median cut (4z)",
+                           lambda: time_formats_8d(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

@@ -8,11 +8,12 @@ device.
 The reference reads and writes multi-page, animated and metadata image
 files with Pillow. The port does so with its own codecs
 (``imgcodecs.tiff``, ``imgcodecs.gif``, ``imgcodecs.webp``,
-``imgcodecs.exif``): multi-page TIFF, animated GIF and still and animated
-WebP both ways, every still format's one frame, the metadata of all seven
-formats. Animated PNG waits on ROADMAP Queue 1 item 8 and raises
-``not_ported``, also through the calls that answer False for a file or
-buffer that is no image.
+``imgcodecs.apng``, ``imgcodecs.exif``): multi-page TIFF, animated GIF,
+still and animated WebP and animated PNG both ways, every still format's
+one frame, the metadata of all seven formats. The forms of ROADMAP Queue 1
+item 8d-ii (4-channel GIF writes, CMYK and lossless JPEG, the TIFF forms
+``imgcodecs.tiff`` names) raise ``not_ported``, also through the calls that
+answer False for a file or buffer that is no image.
 Held call for call against the reference in
 ``tests/test_torch_cv2_later_calls.py``.
 """
@@ -349,7 +350,8 @@ _MULTI = {"tif": "tiff", "tiff": "tiff", "gif": "gif"}  # imencodemulti's format
 
 def imencodemulti(ext, imgs, params=None):
     """(True, bytes) of a multi-page TIFF or an animated GIF of ``imgs``
-    (BGR or gray); (False, empty) for any other extension or no images."""
+    (BGR or gray); (False, empty) for any other extension (a ".png" too, as
+    the reference's) or no images."""
     from ..imgcodecs import encode_frames
 
     frames = [_a(x) for x in imgs]
@@ -449,21 +451,22 @@ class Animation:
 def _read_animation(data: bytes, start, count):
     """The reference's ``imreadanimation`` over bytes: (False, an empty
     Animation) where the file is no image or cannot be read."""
-    from ..imgcodecs import animation_of
+    from ..imgcodecs import animation_frames
 
     anim = Animation()
     try:
-        frames, durations, loop = animation_of(data)
-    except ValueError:
+        frames, loop = animation_frames(data)
+        anim.loop_count = int(loop)
+        for i, read in enumerate(frames):  # each step a seek, as the reference's ImageSequence
+            if i < start:
+                continue
+            if len(anim.frames) >= count:  # the seek of the frame after the last one asked for ran
+                break
+            frame, ms = read()
+            anim.frames.append(frame)
+            anim.durations.append(int(ms))
+    except ValueError:  # the reference keeps the frames read before the one that fails
         return False, anim
-    anim.loop_count = int(loop)
-    for i, (frame, ms) in enumerate(zip(frames, durations)):
-        if i < start:
-            continue
-        if len(anim.frames) >= count:
-            break
-        anim.frames.append(frame)
-        anim.durations.append(int(ms))
     return bool(anim.frames), anim
 
 

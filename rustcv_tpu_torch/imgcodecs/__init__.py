@@ -3,12 +3,13 @@
 
 Two backends, the reference's names:
 
-* ``"host"``: PNG (every depth, Adam7), BMP (every header, depth and
+* ``"host"``: PNG (every depth, Adam7; animated PNG, :mod:`.apng`, read
+  and written as Pillow reads and writes it), BMP (every header, depth and
   compression Pillow reads) and PNM (P1-P6 at every maxval, PFM) through
   :mod:`.host`, TIFF (:mod:`.tiff`: strips and tiles, raw, PackBits, LZW and
   Deflate, every depth and photometric Pillow reads but YCbCr and CIELab;
   written uncompressed) and GIF (:mod:`.gif`: every frame composited as
-  Pillow composites it; written with the port's median cut,
+  Pillow composites it; written with Pillow's own median cut,
   :mod:`.quantize`) and WebP (:mod:`.webp`: lossy VP8 and lossless VP8L
   decoded by the port's C++, alpha, every frame of an animation
   composited as libwebp's animation decoder composites it; written as
@@ -32,12 +33,13 @@ pixels. Whatever decodes, the Mat lands on ``device`` ("cuda" unless the
 caller names another). ``imread_with_metadata`` gives the reference's
 dict (Pillow's ``info`` and the EXIF tags, :mod:`.exif`) for all seven
 formats. ``imreadmulti`` and ``imcount`` read every page of a TIFF and
-every frame of a GIF or an animated WebP (one of any other format);
-``imwritemulti`` writes TIFF, GIF and animated WebP, raises ``KeyError``
-for JPEG, BMP and PNM (Pillow has no multi-frame writer for them) and
-``not_ported`` for animated PNG, as do the JPEG forms the host decoder
-does not read yet (CMYK/YCCK, lossless, arithmetic-coded, and progressive
-streams left unrefined) and the TIFF forms :mod:`.tiff` names.
+every frame of a GIF, an animated WebP or an animated PNG (one of any
+other format); ``imwritemulti`` writes TIFF, GIF, animated WebP and
+animated PNG, and raises ``KeyError`` for JPEG, BMP and PNM (Pillow has no
+multi-frame writer for them). The forms of ROADMAP Queue 1 item 8d-ii
+raise ``not_ported``: the JPEG forms the host decoder does not read yet
+(CMYK/YCCK, lossless, arithmetic-coded, and progressive streams left
+unrefined), the TIFF forms :mod:`.tiff` names, 4-channel GIF writes.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import os
 
 import numpy as np
 
-from ..core.errors import CameraError, not_ported
+from ..core.errors import CameraError
 from ..core.mat import Mat
 from . import host as _host
 
@@ -113,9 +115,13 @@ def _decode_host(data: bytes) -> np.ndarray:
     """Host decode of any supported format → (H, W, 3) BGR."""
     from .. import native
 
+    from . import apng
+
     fmt = _host.sniff(data)
     if fmt == "jpeg":
         return native.jpeg_decode_bgr(data)
+    if fmt == "png":
+        return _host.to_bgr(apng.read_png(data))
     return _host.to_bgr(_host.DECODERS[fmt](data))
 
 
@@ -218,10 +224,14 @@ def imwrite_with_metadata(path: str, mat: Mat, metadata: dict) -> bool:
 def decode_frames(data: bytes) -> list:
     """Every page or frame of encoded image bytes as BGR (H, W, 3) u8 on the
     host, as the reference's ``ImageSequence`` gives them: a TIFF's pages, a
-    GIF's or a WebP's frames, one image of any other format."""
-    from . import exif, gif, tiff, webp
+    GIF's, a WebP's or an animated PNG's frames, one image of any other
+    format."""
+    from . import apng, exif, gif, tiff, webp
 
     fmt = _host.sniff(data)
+    png = _host._Png(data) if fmt == "png" else None
+    if png is not None and png.apng:
+        return [_host.to_bgr(f) for f in apng.Apng(png).frames()]
     if fmt == "tiff":
         return [_host.to_bgr(p) for p in tiff.read_pages(data)]
     if fmt == "gif":
@@ -252,35 +262,56 @@ def open_check(data: bytes) -> str:
     return fmt
 
 
-def animation_of(data: bytes):
-    """(frames BGR, durations ms, loop) as the reference's
-    ``imreadanimation`` reads them: a GIF's frames with each frame's
-    duration (100 where it has none) and its NETSCAPE loop (0 without); a
-    WebP's frames with each frame's duration (Pillow sets one on every
-    load: 0 for a still image) and its loop (1 for a still image); a TIFF's
-    pages, or one image of any other format, at 100 ms, loop 0."""
-    from . import gif, webp
+def animation_frames(data: bytes):
+    """(a step per frame, one at a time; the loop) as the reference's
+    ``imreadanimation`` reads them through Pillow's ``ImageSequence``. A
+    step is the frame's seek and yields a function that reads the frame,
+    → (frame BGR, duration ms); an animated PNG's frame is decoded when it
+    is read, and a step loads the frame before it where it was not read,
+    as Pillow's seek does. The frames: a GIF's with each frame's duration
+    (100 where it has none) and its NETSCAPE loop (0 without); a WebP's with
+    each frame's duration (Pillow sets one on every load: 0 for a still
+    image) and its loop (1 for a still image); an animated PNG's with each
+    fcTL's duration (a float; 100 for a default image) and acTL's loop; a
+    TIFF's pages, or one image of any other format, at 100 ms, loop 0. A
+    frame that cannot be sought raises at its step, one that cannot be
+    decoded when it is read, as Pillow's do."""
+    from . import apng, gif, webp
 
     fmt = _host.sniff(data)
+    png = _host._Png(data) if fmt == "png" else None
+    if png is not None and png.apng:
+        a = apng.Apng(png)
+
+        def read(w):
+            frame = _host.to_bgr(png.convert_rgb(w.load()))
+            return frame, w.info.get("duration", 100)
+
+        return ((lambda w=w: read(w)) for w in a.walk()), a.loop
     if fmt == "gif":
         g = gif.Gif(data)
         frames = [_host.to_bgr(f) for f in g.rgb_frames()]
-        return frames, [100 if d is None else d for d in g.durations()], g.info.get("loop", 0)
-    if fmt == "webp":
+        durations, loop = [100 if d is None else d for d in g.durations()], g.info.get("loop", 0)
+    elif fmt == "webp":
         w = webp.WebP(data)
         frames = [_host.to_bgr(f) for f in webp.decode_frames(w)]
-        return frames, [f.duration for f in w.frames], w.loop
-    open_check(data)
-    frames = decode_frames(data)
-    return frames, [100] * len(frames), 0
+        durations, loop = [f.duration for f in w.frames], w.loop
+    else:
+        open_check(data)
+        frames = decode_frames(data)
+        durations, loop = [100] * len(frames), 0
+    return ((lambda f=f, d=d: (f, d)) for f, d in zip(frames, durations)), loop
 
 
 def count_frames(data: bytes) -> int:
     """Pillow's ``n_frames`` of encoded image bytes (1 for a still format
-    whose header ``Image.open`` reads)."""
-    from . import gif, tiff, webp
+    whose header ``Image.open`` reads; acTL's count for an animated PNG, one
+    more with a default image)."""
+    from . import apng, gif, tiff, webp
 
     fmt = _host.sniff(data)
+    if fmt == "png":
+        return apng.count(data)
     if fmt == "tiff":
         return tiff.count(data)
     if fmt == "gif":
@@ -293,8 +324,8 @@ def count_frames(data: bytes) -> int:
 
 def imreadmulti(path: str, device="cuda") -> list:
     """Multi-page read (OpenCV ``imreadmulti`` role): every page of a TIFF
-    and every frame of a GIF or a WebP as BGR Mats on ``device``; one Mat
-    of any other format."""
+    and every frame of a GIF, a WebP or an animated PNG as BGR Mats on
+    ``device``; one Mat of any other format."""
     data = _read(path, "imreadmulti")
     try:
         frames = decode_frames(data)
@@ -332,9 +363,10 @@ def _frame_of(m):
 def encode_frames(fmt: str, frames: list, duration=None, loop=None) -> bytes:
     """Frames (Mats or arrays, BGR or gray) → one multi-frame file, as the
     reference's ``save(save_all=True, ...)`` writes it: ``fmt`` "tiff",
-    "gif" or "webp"; "png" (animated PNG) raises ``not_ported``, any other
-    ``KeyError`` (Pillow has no multi-frame writer for it)."""
-    from . import gif, tiff, webp
+    "gif", "webp" or "png" (animated PNG: a still PNG where one frame is
+    left); any other raises ``KeyError`` (Pillow has no multi-frame writer
+    for it)."""
+    from . import apng, gif, tiff, webp
 
     if fmt == "tiff":
         pages = [f.cpu().numpy() if not isinstance(f, np.ndarray) else f
@@ -346,15 +378,15 @@ def encode_frames(fmt: str, frames: list, duration=None, loop=None) -> bytes:
         return webp.write_animation([_frame_of(f) for f in frames], durations=duration,
                                     loop=loop or 0)
     if fmt == "png":
-        raise not_ported("writing animated PNG files", item=_host.LEFTOVERS)
+        return apng.write_apng([_frame_of(f) for f in frames], duration=duration, loop=loop)
     raise KeyError(fmt.upper())
 
 
 def imwritemulti(path: str, mats) -> bool:
     """Multi-page write (OpenCV ``imwritemulti`` role): a multi-page TIFF, an
-    animated GIF or an animated WebP (every duration 0, loop 0) by the
-    extension; False for no frames. JPEG, BMP and PNM raise ``KeyError`` as
-    the reference's Pillow does, animated PNG ``not_ported``."""
+    animated GIF, WebP or PNG (every duration 0, loop 0) by the extension;
+    False for no frames. JPEG, BMP and PNM raise ``KeyError`` as the
+    reference's Pillow does."""
     frames = list(mats)
     if not frames:
         return False

@@ -8,7 +8,9 @@ left out), then ``exif:<tag>`` for each item of ``getexif()``. This module
 gives the same dict, in the same order:
 
 * ``info``: for PNG the chunks before the image data (``interlace``,
-  ``gamma``, ``srgb``, ``transparency``, the text chunks); for JPEG the
+  ``gamma``, ``srgb``, ``transparency``, the text chunks; of an animated
+  PNG acTL's ``loop``, the first fcTL's ``duration``, ``disposal`` and
+  ``blend``, and ``default_image``); for JPEG the
   markers before the first scan (``jfif``, ``jfif_unit``, ``adobe``,
   ``adobe_transform``, ``progressive``, ``progression``); for BMP
   ``compression``; for PFM ``scale``; for TIFF ``compression`` by Pillow's
@@ -215,7 +217,9 @@ def _parts(data: bytes):
     """(info after Image.open, info when getexif() runs, tags read first)."""
     fmt = _host.sniff(data)
     if fmt == "png":
-        info, late = _host.png_info(data)
+        from .apng import png_info
+
+        info, late = png_info(data)
         return info, (info if "exif" in info else {**info, **late}), ()
     if fmt == "jpeg":
         info = jpeg_info(data)

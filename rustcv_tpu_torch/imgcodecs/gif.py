@@ -17,8 +17,9 @@ Pillow's ``info`` after ``Image.open``.
 
 A write is Pillow's ``_save`` / ``_write_multiple_frames`` with its
 defaults (``optimize``, no palette given): a gray frame keeps its used
-grays as its palette; an RGB frame of at most 256 colours its own colours,
-and of more colours the port's median cut (:mod:`.quantize`); frames equal
+grays as its palette; an RGB frame goes through Pillow's median cut
+(:mod:`.quantize`: Pillow's palette and indices; a frame of at most 256
+colours keeps them, in the cut's order); frames equal
 after quantization merge and add their durations; each later frame is
 cropped to where it differs from the one before, with a local palette and,
 where the palette has room, a transparent index over the pixels that did
@@ -389,7 +390,7 @@ class _Out:
 
 def _normalize(frame) -> _Out:
     """``_normalize_mode`` then ``_normalize_palette`` (optimize, no palette
-    given): gray → its used grays; RGB → its colours, or the median cut."""
+    given): gray → its used grays; RGB → Pillow's median cut."""
     from .quantize import quantize
 
     is_tensor = not isinstance(frame, np.ndarray)

@@ -9,7 +9,7 @@ A read gives what the reference gets from Pillow 12's ``Image.open(...)
 order: (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA, already in 8 bits;
 the facade turns it into a BGR Mat (gray repeated, alpha dropped).
 Pillow's ``info`` for the file (the metadata the reference reports) comes
-from :func:`png_info`, :func:`bmp_info` and :func:`pnm_info`.
+from :func:`.apng.png_info`, :func:`bmp_info` and :func:`pnm_info`.
 
 * PNG: every bit depth and colour type the format allows, plain or Adam7
   interlaced, every filter type (``native.png_unfilter``, per pass), chunk
@@ -35,8 +35,10 @@ from :func:`png_info`, :func:`bmp_info` and :func:`pnm_info`.
   and truncated to 0-255 as Pillow converts ``F``. Writes binary ``P5`` and
   ``P6``.
 
-What Pillow refuses raises :class:`CodecError` (the facade's
-``CameraError``); animated PNG and Pillow's own PNM extensions raise
+An animated PNG's chunks are kept, with acTL's frame count and ``loop``,
+for :mod:`.apng`, which reads its fcTL and its frames (a read gives frame
+0). What Pillow refuses raises :class:`CodecError`
+(the facade's ``CameraError``); Pillow's own PNM extensions raise
 ``not_ported``.
 """
 
@@ -109,7 +111,7 @@ def _chunks(data: bytes):
         crc = data[p + 8 + n:p + 12 + n]
         if len(body) != n or len(crc) != 4:
             raise CodecError("truncated PNG chunk")
-        if kind == b"IDAT":
+        if kind in (b"IDAT", b"fdAT"):  # the image data: Image.open reads up to it
             before = False
         # Pillow checks the CRCs of the chunks it reads before the image data
         if before and zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
@@ -184,8 +186,19 @@ class _Png:
     def _parse(self, data: bytes) -> None:
         self.header = self.palette = None
         self.idat, self.info, self.late = [], {}, {}
+        # for animated PNG (:mod:`.apng`): every chunk, where the image data
+        # starts, acTL's frame count, whether an fcTL came before the data
+        self.chunks, self.first_data, self.n_frames = [], None, None
+        self.apng = framed = loaded = False  # loaded: load() stops at the next frame's fcTL
         i16, i32 = (lambda b: struct.unpack(">H", b[:2])[0]), (lambda b: struct.unpack(">I", b[:4])[0])
         for kind, body, before in _chunks(data):
+            self.chunks.append((kind, body))
+            if kind in (b"IDAT", b"fdAT") and self.first_data is None:
+                self.first_data = len(self.chunks) - 1
+                if not framed and self.n_frames is not None:
+                    self.info["default_image"] = True
+            if loaded:
+                continue
             info = self.info if before else self.late
             if kind == b"IHDR":
                 if len(body) < 13:
@@ -198,7 +211,13 @@ class _Png:
             elif kind == b"IDAT":
                 self.idat.append(body)
             elif kind in (b"acTL", b"fcTL", b"fdAT"):
-                raise not_ported("animated PNG (APNG)", item=LEFTOVERS)
+                self.apng = True
+                if before:
+                    framed = framed or kind == b"fcTL"
+                    if kind == b"acTL":
+                        self._actl(body)
+                elif kind == b"fcTL" and self.frame_count() > 1:
+                    loaded = True
             elif self.header is None or kind == b"IEND":
                 continue
             elif kind == b"PLTE":
@@ -214,7 +233,7 @@ class _Png:
                         info["transparency"] = body
                 elif ctype == 0:
                     info["transparency"] = (255 if i16(body) else 0) if depth == 1 else i16(body)
-                elif ctype == 2 and depth == 8:
+                elif ctype == 2:
                     info["transparency"] = (i16(body), i16(body[2:]), i16(body[4:]))
             elif kind == b"gAMA":
                 info["gamma"] = i32(body) / 100000.0
@@ -247,43 +266,55 @@ class _Png:
         w, h, depth, ctype = self.header[:4]
         if ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype] or w == 0 or h == 0:
             raise CodecError(f"bad PNG header: {w}x{h}, {depth}-bit colour type {ctype}")
-        if not self.idat:
+        if self.first_data is None:
             raise CodecError("PNG without image data")
+
+    def _actl(self, body: bytes) -> None:
+        """An acTL before the image data, as Pillow's ``chunk_acTL`` reads
+        it: the frame count, and ``loop`` into ``info``."""
+        if len(body) < 8:
+            raise CodecError("APNG contains truncated acTL chunk")
+        n = struct.unpack(">I", body[:4])[0]
+        if self.n_frames is not None:  # a second acTL: Pillow falls back to the default image
+            self.n_frames = None
+        elif 0 < n <= 0x80000000:
+            self.n_frames = n
+            self.info["loop"] = struct.unpack(">I", body[4:8])[0]
+
+    def frame_count(self) -> int:
+        """Pillow's ``n_frames``: acTL's count (1 without a valid one), one
+        more where the image data is a default image outside the animation."""
+        return (self.n_frames or 1) + (1 if self.info.get("default_image") else 0)
 
     def samples(self) -> np.ndarray:
         """The samples, (H, W, channels), u8 or u16 (16-bit)."""
-        from .. import native
-
         w, h, depth, ctype, _comp, _filt, interlace = self.header
-        ch = _PNG_CHANNELS[ctype]
-        try:
-            raw = zlib.decompressobj().decompress(b"".join(self.idat))
-        except zlib.error as e:
-            raise CodecError(f"corrupt PNG image data: {e}") from e
-        bpp = max(1, depth * ch // 8)
-        if not interlace:
-            return _png_rows(native.png_unfilter(raw, h, (w * ch * depth + 7) // 8, bpp), w, ch,
-                             depth)
-        out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
-        p = 0
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = -(-(w - x0) // dx) if w > x0 else 0, -(-(h - y0) // dy) if h > y0 else 0
-            if pw == 0 or ph == 0:
-                continue
-            rb = (pw * ch * depth + 7) // 8
-            need = ph * (rb + 1)
-            if p + need > len(raw):
-                raise CodecError("corrupt PNG image data")
-            rows = native.png_unfilter(raw[p:p + need], ph, rb, bpp)
-            out[y0::dy, x0::dx] = _png_rows(rows, pw, ch, depth)
-            p += need
-        return out
+        return png_samples(self.idat, w, h, depth, ctype, interlace)
 
     def rgb(self) -> np.ndarray:
-        """What Pillow's ``convert("RGB")`` reads: (H, W) gray or (H, W, 3)
-        RGB, u8."""
+        """What Pillow's ``convert("RGB")`` reads of a still PNG: (H, W) gray
+        or (H, W, 3) RGB, u8 (an animated PNG's frames are :mod:`.apng`'s)."""
+        if self.apng:
+            raise CodecError("an animated PNG: its frames are read by imgcodecs.apng")
+        return self.convert_rgb(self.storage(self.samples()))
+
+    def storage(self, px: np.ndarray) -> np.ndarray:
+        """Samples → Pillow's storage of the file's mode, (H, W, C): palette
+        indices, gray scaled to 8 bits (16-bit gray stays u16, Pillow's
+        I;16), 16-bit colour and alpha by their high byte."""
         depth, ctype = self.header[2:4]
-        px = self.samples()
+        if ctype == 3:
+            return px
+        if depth == 16:
+            return px if ctype == 0 else (px >> 8).astype(np.uint8)
+        if depth < 8:
+            return (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        return px
+
+    def convert_rgb(self, px: np.ndarray) -> np.ndarray:
+        """Pillow's storage of the mode (:meth:`storage`, or an APNG's
+        composite) → ``convert("RGB")``'s (H, W) gray or (H, W, 3) RGB, u8."""
+        depth, ctype = self.header[2:4]
         if ctype == 3:
             pal = np.zeros((256, 3), np.uint8)  # Pillow's: past the PLTE is black
             if self.palette is None:
@@ -291,15 +322,42 @@ class _Png:
             n = min(256, len(self.palette) // 3)
             pal[:n] = np.frombuffer(self.palette, np.uint8, n * 3).reshape(n, 3)
             return pal[px[..., 0]]
-        if depth == 16:
-            if ctype == 0:  # Pillow's I;16: convert("RGB") clips
-                return np.minimum(px[..., 0], 255).astype(np.uint8)
-            px = (px >> 8).astype(np.uint8)  # the high byte
-        elif depth < 8:
-            px = (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        if depth == 16 and ctype == 0:  # Pillow's I;16: convert("RGB") clips
+            return np.minimum(px[..., 0], 255).astype(np.uint8)
         if ctype in (0, 4):
             return px[..., 0]
         return px[..., :3]
+
+
+def png_samples(idat, w: int, h: int, depth: int, ctype: int, interlace: int) -> np.ndarray:
+    """The samples of a (w, h) image in the zlib stream of the ``idat``
+    chunk bodies, (h, w, channels), u8 or u16 (16-bit): unfiltered, and
+    Adam7 passes put in place."""
+    from .. import native
+
+    ch = _PNG_CHANNELS[ctype]
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat))
+    except zlib.error as e:
+        raise CodecError(f"corrupt PNG image data: {e}") from e
+    bpp = max(1, depth * ch // 8)
+    if not interlace:
+        return _png_rows(native.png_unfilter(raw, h, (w * ch * depth + 7) // 8, bpp), w, ch,
+                         depth)
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    p = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx) if w > x0 else 0, -(-(h - y0) // dy) if h > y0 else 0
+        if pw == 0 or ph == 0:
+            continue
+        rb = (pw * ch * depth + 7) // 8
+        need = ph * (rb + 1)
+        if p + need > len(raw):
+            raise CodecError("corrupt PNG image data")
+        rows = native.png_unfilter(raw[p:p + need], ph, rb, bpp)
+        out[y0::dy, x0::dx] = _png_rows(rows, pw, ch, depth)
+        p += need
+    return out
 
 
 def _png_rows(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
@@ -316,21 +374,21 @@ def _png_rows(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
 
 
 def read_png(data: bytes) -> Tuple[np.ndarray, Dict[str, str]]:
-    """PNG bytes → (what Pillow reads in 8 bits: (H, W) gray or (H, W, 3)
-    RGB, the text chunks before the image data)."""
+    """Still PNG bytes → (what Pillow reads in 8 bits: (H, W) gray or
+    (H, W, 3) RGB, the text chunks before the image data)."""
     png = _Png(data)
     return png.rgb(), {k: v for k, v in png.info.items() if isinstance(v, str)}
 
 
-def png_info(data: bytes) -> Tuple[dict, dict]:
-    """Pillow's ``info`` of a PNG after ``Image.open`` (the chunks before
-    the image data) and what ``load()`` adds after it."""
-    png = _Png(data)
-    return png.info, png.late
-
-
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def unfiltered_rows(img: np.ndarray) -> bytes:
+    """The rows of an (H, W) or (H, W, C) u8 image as PNG image data before
+    zlib, each after its filter type byte 0 (None)."""
+    h = img.shape[0]
+    return np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1).tobytes()
 
 
 def write_png(img: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
@@ -341,7 +399,6 @@ def write_png(img: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
     if ctype is None:
         raise CodecError(f"cannot write {ch}-channel images as PNG")
     h, w = img.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * ch)], axis=1)
     out = [_PNG_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
     for key, value in (text or {}).items():
         key, value = str(key), str(value)
@@ -350,7 +407,7 @@ def write_png(img: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
         except UnicodeEncodeError:
             out.append(_chunk(b"iTXt", key.encode("latin-1") + b"\x00\x00\x00\x00\x00"
                               + value.encode("utf-8")))
-    out.append(_chunk(b"IDAT", zlib.compress(rows.tobytes())))
+    out.append(_chunk(b"IDAT", zlib.compress(unfiltered_rows(img))))
     out.append(_chunk(b"IEND", b""))
     return b"".join(out)
 
@@ -820,7 +877,8 @@ def write_webp(img) -> bytes:
     return webp.write_webp(img)
 
 
-DECODERS = {"png": lambda d: _Png(d).rgb(), "bmp": read_bmp, "pnm": read_pnm, "tiff": read_tiff,
+# PNG (still or animated) is :func:`.apng.read_png`'s
+DECODERS = {"bmp": read_bmp, "pnm": read_pnm, "tiff": read_tiff,
             "gif": read_gif, "webp": read_webp}
 ENCODERS = {"png": write_png, "bmp": write_bmp, "pnm": write_pnm, "tiff": write_tiff,
             "gif": write_gif, "webp": write_webp}

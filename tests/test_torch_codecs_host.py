@@ -212,9 +212,9 @@ def test_the_dump_writes_a_png_the_reference_reads(monkeypatch, tmp_path, jax_cp
 @pytest.mark.parametrize("call", ["tiff", "gif", "webp", "multi", "count", "writemulti", "exif",
                                   "png16", "ascii_pnm"])
 def test_what_stays_not_ported_raises(tmp_path, call, jax_cpu):
-    """Animated PNG writes raise ``not_ported``; TIFF, GIF, the multi-page
-    calls (item 8b), WebP reads (item 8c) and writes (item 8c-ii), EXIF,
-    16-bit PNG and ASCII PNM, which once did, read and write as the
+    """TIFF, GIF, the multi-page calls (item 8b), WebP reads (item 8c) and
+    writes (item 8c-ii), animated PNG writes (item 8d-i), EXIF, 16-bit PNG
+    and ASCII PNM, which once raised ``not_ported``, read and write as the
     reference does."""
     a = _img((4, 4, 3), 0)
     buf = io.BytesIO()
@@ -258,9 +258,15 @@ def test_what_stays_not_ported_raises(tmp_path, call, jax_cpu):
                 else imgcodecs.imdecode(buf.getvalue(), device="cpu"))
         np.testing.assert_array_equal(read.to_numpy(), _pillow_reads(buf.getvalue()))
         return
-    if call == "writemulti":  # a multi-frame .png is an animated PNG: still not ported
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            imgcodecs.imwritemulti(str(path), [_mat(a)])
+    if call == "writemulti":  # a .png of one frame is a still PNG, of more an animated one
+        ref = tmp_path / "r.png"
+        for frames in ([a], [a, a[::-1].copy()]):
+            assert imgcodecs.imwritemulti(str(path), [_mat(f) for f in frames])
+            assert jax_codecs.imwritemulti(str(ref), [jax_core.Mat.from_array(f) for f in frames])
+            got = [m.to_numpy() for m in jax_codecs.imreadmulti(str(path))]
+            want = [m.to_numpy() for m in jax_codecs.imreadmulti(str(ref))]
+            assert len(got) == len(want) == len(frames)
+            assert all(np.array_equal(x, y) for x, y in zip(got, want))
         assert imgcodecs.imwritemulti(str(tmp_path / "x.tiff"), [_mat(a), _mat(a[::-1])])
         got = [m.to_numpy() for m in jax_codecs.imreadmulti(str(tmp_path / "x.tiff"))]
         assert len(got) == 2 and np.array_equal(got[1], a[::-1])

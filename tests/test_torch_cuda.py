@@ -51,7 +51,11 @@ and TIFF and GIF read onto the card and written from CUDA Mats (the GIF's
 colour mapping on the card) against the CPU; and every WebP fixture of
 ``tests/data/webp`` read onto the card against the CPU read and the
 reference's hashes in its manifest, and WebP written from CUDA Mats equal
-to the bytes written from host Mats.
+to the bytes written from host Mats; and every animated PNG fixture of
+``tests/data/apng`` read onto the card against the CPU read and the
+reference's hashes, animated PNG written from CUDA Mats equal to the bytes
+written from host Mats, and the GIF quantizer on CUDA frames equal to
+Pillow's hashes (``tests/data/gif/quant_refs.json``) and the CPU's.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -2314,3 +2318,86 @@ def test_webp_written_from_the_card(cuda, form):
     assert card == host
     back = imgcodecs.imdecode(card, device="cpu").to_numpy()
     assert back.shape == (181, 321, 3)
+
+
+_APNG = Path(__file__).resolve().parent / "data" / "apng"
+_APNG_MANIFEST = json.loads((_APNG / "manifest.json").read_text())
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("name", sorted(_APNG_MANIFEST))
+def test_apng_fixture_read_onto_the_card(cuda, name):
+    """Item 8d-i: each animated PNG fixture read by ``imreadmulti`` (where
+    the reference reads every frame) and ``imread`` onto the card equals the
+    CPU read and the reference's hashes; ``imcount`` its count."""
+    from rustcv_tpu_torch import imgcodecs
+
+    m = _APNG_MANIFEST[name]
+    path = str(_APNG / name)
+    assert imgcodecs.imcount(path) == m["n_frames"]
+    first = imgcodecs.imread(path, device=cuda)
+    assert first.device().is_cuda and _sha(first.to_numpy()) == m["sha256"][0]
+    if m["read_error"] is not None:
+        return
+    on_card = imgcodecs.imreadmulti(path, device=cuda)
+    cpu = [x.to_numpy() for x in imgcodecs.imreadmulti(path, device="cpu")]
+    assert len(on_card) == len(cpu) == len(m["sha256"])
+    for x, c, digest in zip(on_card, cpu, m["sha256"]):
+        assert x.device().is_cuda
+        np.testing.assert_array_equal(x.to_numpy(), c)
+        assert _sha(c) == digest
+
+
+@pytest.mark.parametrize("form", ["bgr", "bgra", "gray"])
+def test_apng_written_from_the_card(cuda, form):
+    """Item 8d-i: an animated PNG written from CUDA Mats (the frames'
+    comparisons on the card) is the same bytes as the one written from host
+    Mats, and reads back to the frames written."""
+    from rustcv_tpu_torch import imgcodecs
+
+    rng = np.random.default_rng(8)
+    base = rng.integers(0, 256, (90, 160, 4)).astype(np.uint8)
+    frames = []
+    for i in range(5):
+        f = base.copy()
+        f[10 + 5 * i:40 + 5 * i, 20 * i:30 + 20 * i] = rng.integers(0, 256, 4)
+        frames.append({"bgr": f[..., :3], "bgra": f, "gray": f[..., :1]}[form].copy())
+    frames.insert(2, frames[1].copy())
+    host = imgcodecs.encode_frames("png", [Mat.from_array(f, device="cpu") for f in frames],
+                                   duration=[10, 20, 30, 40, 50, 60], loop=2)
+    card = imgcodecs.encode_frames("png", [Mat.from_device(torch.from_numpy(f).to(cuda))
+                                           for f in frames], duration=[10, 20, 30, 40, 50, 60],
+                                   loop=2)
+    assert card == host
+    back = imgcodecs.decode_frames(card)
+    keep = [f for i, f in enumerate(frames) if i != 2]
+    assert len(back) == len(keep) == 5
+    for b, f in zip(back, keep):
+        want = np.repeat(f, 3, 2) if form == "gray" else f[..., :3]
+        if form == "bgra":  # the reference hands Pillow a[..., ::-1]: A, R, G, B
+            want = f[..., ::-1][..., :3][..., ::-1]
+        np.testing.assert_array_equal(b, want)
+
+
+@pytest.mark.parametrize("name", ["gradient_noise_128x96", "many_colours_641x361",
+                                  "colours_256_160x120", "noise_1920x1080"])
+def test_quantize_on_the_card(cuda, name):
+    """Part A of item 8d-i: Pillow's median cut of a CUDA frame (the
+    histogram and the mapping on the card) is Pillow's (the committed
+    hashes) and the CPU's."""
+    import chip_smoke
+    from rustcv_tpu_torch.imgcodecs import quantize
+
+    ref = json.loads((Path(__file__).resolve().parent / "data" / "gif"
+                      / "quant_refs.json").read_text())[name]
+    frame = chip_smoke.quant_frames()[name]
+    idx, pal = quantize.quantize(torch.from_numpy(frame).to(cuda))
+    cidx, cpal = quantize.quantize(frame)
+    assert np.array_equal(idx, cidx) and np.array_equal(pal, cpal)
+    assert (len(pal), _sha(pal), _sha(idx)) == (ref["entries"], ref["palette_sha256"],
+                                               ref["index_sha256"])

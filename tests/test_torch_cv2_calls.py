@@ -56,11 +56,11 @@ TYPE_ONLY = {
 }
 
 # The reference's swallow-all wrappers return False / 0 / [] on any
-# exception; the port lets its own not_ported (animated PNG is ROADMAP
-# Queue 1 item 8) through: the synthesized imwritemulti writes a ".png",
-# which the reference writes as an animated PNG. imcount and imreadmulti
-# of the PNG answer as the reference's (item 8b).
-RAISES_WHERE_REFERENCE_SWALLOWS = {"imwritemulti"}
+# exception; the port lets its own not_ported through. None of the sweep's
+# calls reaches one any more: the synthesized imwritemulti writes a ".png",
+# an animated PNG on both sides (item 8d-i), and imcount and imreadmulti of
+# the PNG answer as the reference's (item 8b).
+RAISES_WHERE_REFERENCE_SWALLOWS: set = set()
 
 
 def _psnr(a, b):

@@ -9,7 +9,8 @@ pinned (``rustcv_tpu_torch/cv2/_device.py``):
 * in-place draws mutate the caller's numpy array (on the host, in its own
   buffer) or CPU tensor;
 * the reference's swallow-all wrappers keep cv2's False / 0 for a missing
-  or unreadable file and let ``not_ported`` (animated PNG) through;
+  or unreadable file and let ``not_ported`` (the forms of item 8d-ii, a
+  4-channel GIF write among them) through;
 * the later modules (ROADMAP Queue 1 item 7b) follow the same rules: which
   of their wrappers send a numpy image to the card is frozen in
   :data:`LATER_CARD_NAMES`, ``addText`` and ``thresholdWithMask`` write
@@ -151,9 +152,9 @@ def test_a_contiguous_bgr_array_is_drawn_without_a_copy(monkeypatch):
 
 def test_multi_page_wrappers_let_not_ported_through(tmp_path):
     """imcount and imreadmulti of a PNG and imwritemulti of a TIFF answer as
-    the reference's (item 8b), and of a WebP (item 8c-ii); an animated PNG
-    written by imwritemulti still raises not_ported through the swallowing
-    wrapper."""
+    the reference's (item 8b), of a WebP (item 8c-ii) and of an animated
+    PNG (item 8d-i); a 4-channel GIF written by imwritemulti (item 8d-ii)
+    still raises not_ported through the swallowing wrapper."""
     png = str(tmp_path / "a.png")
     R.imwrite(png, np.zeros((8, 8, 3), np.uint8))
     assert P.imcount(png) == R.imcount(png) == 1
@@ -163,8 +164,15 @@ def test_multi_page_wrappers_let_not_ported_through(tmp_path):
     assert P.imwritemulti(str(tmp_path / "b.tiff"), frames) is \
         R.imwritemulti(str(tmp_path / "r.tiff"), frames) is True
     assert P.imcount(str(tmp_path / "b.tiff")) == R.imcount(str(tmp_path / "b.tiff")) == 3
+    assert P.imwritemulti(str(tmp_path / "c.png"), frames) is \
+        R.imwritemulti(str(tmp_path / "r.png"), frames) is True
+    assert P.imcount(str(tmp_path / "c.png")) == R.imcount(str(tmp_path / "r.png")) == 3
+    got, want = P.imreadmulti(str(tmp_path / "c.png")), R.imreadmulti(str(tmp_path / "r.png"))
+    assert got[0] is want[0] is True and _equal(got[1], want[1])
+    bgra = [np.full((8, 8, 4), v, np.uint8) for v in (0, 90)]
+    assert R.imwritemulti(str(tmp_path / "r.gif"), bgra) is True
     with pytest.raises(NotImplementedError, match="item 8"):
-        P.imwritemulti(str(tmp_path / "c.png"), frames)
+        P.imwritemulti(str(tmp_path / "d.gif"), bgra)
     assert P.imwritemulti(str(tmp_path / "c.webp"), frames) is \
         R.imwritemulti(str(tmp_path / "r.webp"), frames) is True
     assert P.imcount(str(tmp_path / "c.webp")) == R.imcount(str(tmp_path / "r.webp")) == 3
@@ -343,33 +351,36 @@ def test_add_text_on_a_contiguous_array_copies_nothing_back(monkeypatch):
 
 
 # The six functions the reference runs with Pillow for multi-page and
-# animated files (item 8b): each call, on a two-frame GIF the reference
-# wrote, answers as the reference's.
+# animated files (items 8b and 8d-i): each call, on a two-frame GIF and on a
+# two-frame animated PNG the reference wrote, answers as the reference's.
 PILLOW_BOUND = [
-    ("imencodemulti", lambda C, tmp, gif: _decoded(C.imencodemulti(
-        ".gif", [np.zeros((8, 8, 3), np.uint8), np.full((8, 8, 3), 90, np.uint8)]))),
-    ("imdecodemulti", lambda C, tmp, gif: C.imdecodemulti(gif)),
-    ("imreadanimation", lambda C, tmp, gif: _fields(C.imreadanimation(_gif_file(tmp, gif)))),
-    ("imwriteanimation", lambda C, tmp, gif: (C.imwriteanimation(str(tmp / "b.gif"), _anim(C)),
-                                              _fields(R.imreadanimation(str(tmp / "b.gif"))))),
-    ("imdecodeanimation", lambda C, tmp, gif: _fields(C.imdecodeanimation(gif))),
-    ("imencodeanimation", lambda C, tmp, gif: _fields(R.imdecodeanimation(
-        C.imencodeanimation(".gif", _anim(C))[1]))),
+    ("imencodemulti", lambda C, tmp, buf, ext: _decoded(C.imencodemulti(
+        ext, [np.zeros((8, 8, 3), np.uint8), np.full((8, 8, 3), 90, np.uint8)]))),
+    ("imdecodemulti", lambda C, tmp, buf, ext: C.imdecodemulti(buf)),
+    ("imreadanimation", lambda C, tmp, buf, ext: _fields(C.imreadanimation(
+        _gif_file(tmp, buf, ext)))),
+    ("imwriteanimation", lambda C, tmp, buf, ext: (
+        C.imwriteanimation(str(tmp / f"b{ext}"), _anim(C)),
+        _fields(R.imreadanimation(str(tmp / f"b{ext}"))))),
+    ("imdecodeanimation", lambda C, tmp, buf, ext: _fields(C.imdecodeanimation(buf))),
+    ("imencodeanimation", lambda C, tmp, buf, ext: _fields(R.imdecodeanimation(
+        C.imencodeanimation(ext, _anim(C))[1]))),
 ]
 
 
-def _gif():
-    """A real two-frame GIF, written by the reference (Pillow)."""
+def _gif(ext=".gif"):
+    """A real two-frame GIF (or animated PNG), written by the reference
+    (Pillow)."""
     a = R.Animation()
     a.frames = [np.zeros((8, 8, 3), np.uint8), np.full((8, 8, 3), 200, np.uint8)]
     a.durations = [50, 50]
-    ok, buf = R.imencodeanimation(".gif", a)
+    ok, buf = R.imencodeanimation(ext, a)
     assert ok
     return buf
 
 
-def _gif_file(tmp, gif):
-    path = tmp / "a.gif"
+def _gif_file(tmp, gif, ext=".gif"):
+    path = tmp / f"a{ext}"
     path.write_bytes(gif.tobytes())
     return str(path)
 
@@ -382,7 +393,7 @@ def _anim(C):
 
 
 def _decoded(out):
-    return out[0], R.imdecodemulti(out[1])[1]
+    return out[0], R.imdecodemulti(out[1])[1] if out[0] else out[1].size
 
 
 def _fields(out):
@@ -400,15 +411,17 @@ def _equal(a, b):
 
 @pytest.mark.parametrize("name,call", PILLOW_BOUND, ids=[n for n, _ in PILLOW_BOUND])
 def test_each_pillow_bound_name_raises_not_ported_item_8(name, call, tmp_path):
-    """Item 8b: each of the six answers as the reference's on a GIF (the
-    name is kept from when they raised not_ported; animated PNG and WebP
-    still do, tests/test_torch_multipage_formats.py)."""
-    gif = _gif()
-    assert R.imdecodemulti(gif)[0] is True and len(R.imdecodemulti(gif)[1]) == 2
-    (tmp_path / "p").mkdir()
-    (tmp_path / "r").mkdir()
-    got, want = call(P, tmp_path / "p", gif), call(R, tmp_path / "r", gif)
-    assert _equal(got, want), (got, want)
+    """Items 8b and 8d-i: each of the six answers as the reference's on a
+    GIF and on an animated PNG (the name is kept from when they raised
+    not_ported)."""
+    for ext in (".gif", ".png"):
+        buf = _gif(ext)
+        assert R.imdecodemulti(buf)[0] is True and len(R.imdecodemulti(buf)[1]) == 2
+        (tmp_path / ext[1:] / "p").mkdir(parents=True)
+        (tmp_path / ext[1:] / "r").mkdir()
+        got = call(P, tmp_path / ext[1:] / "p", buf, ext)
+        want = call(R, tmp_path / ext[1:] / "r", buf, ext)
+        assert _equal(got, want), (ext, got, want)
 
 
 def _png_text(C):

@@ -202,20 +202,27 @@ def test_imwrite_and_imread(coders, tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """What stays not ported of imgcodecs (animated PNG) names its ROADMAP
-    item; WebP reads (item 8c) and writes (item 8c-ii) are ported; PNG, the
-    host backend, TIFF, GIF and the multi-page calls (item 8b) are ported: a
-    TIFF or GIF encode decodes back to the Mat, a WebP write reads back at
-    the Mat's size, a GIF with no image and a missing file raise
-    CameraError."""
+    """What stays not ported of imgcodecs (a 4-channel GIF write, item
+    8d-ii) names its ROADMAP item; WebP reads (item 8c) and writes (item
+    8c-ii) and animated PNG (item 8d-i) are ported; PNG, the host backend,
+    TIFF, GIF and the multi-page calls (item 8b) are ported: a TIFF or GIF
+    encode decodes back to the Mat, a WebP write and an animated PNG write
+    read back at the Mat's size, a GIF with no image and a missing file
+    raise CameraError."""
     mat = Mat.from_array(_img(8, 8, 0), device="cpu")
     # a WebP read is ported (item 8c): this truncated header is refused as the reference's is
     with pytest.raises(CameraError):
         imgcodecs.imdecode(b"RIFF\x00\x00\x00\x00WEBPVP8 ", device="cpu")
     with pytest.raises(jax_core.CameraError):
         jax_codecs.imdecode(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    bgra = Mat.from_array(np.dstack([_img(8, 8, 0), np.full((8, 8), 9, np.uint8)]), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        imgcodecs.imwritemulti(str(tmp_path / "x.png"), [mat, mat])
+        imgcodecs.imwritemulti(str(tmp_path / "x.gif"), [bgra, bgra])
+    assert imgcodecs.imwritemulti(str(tmp_path / "x.png"), [mat, mat])
+    assert [m.to_numpy().shape for m in imgcodecs.imreadmulti(str(tmp_path / "x.png"),
+                                                              device="cpu")] == \
+        [mat.to_numpy().shape] * 2
+    (tmp_path / "x.png").unlink()
     assert imgcodecs.imwrite(str(tmp_path / "x.webp"), mat)
     back = imgcodecs.imread(str(tmp_path / "x.webp"), device="cpu").to_numpy()
     assert back.shape == mat.to_numpy().shape

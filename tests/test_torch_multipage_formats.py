@@ -16,18 +16,20 @@ against Pillow 12, which the JAX package's codecs reach, and against
 * TIFF writes: Pillow reads them back to exactly the input, with the
   reference's ``n_frames``, mode and tags 256, 257, 258, 259, 262, 277 and
   284.
-* GIF writes (Pillow's C quantizer is not the port's): read back by Pillow,
-  the frame count, durations and loop equal the reference's write of the
-  same frames; where the reference's round trip is exact the port's is;
-  per frame and channel the max and mean |diff| against the input are no
-  larger than the reference's, the mean up to 10 % larger on a frame of
-  more than 256 colours (:data:`GIF_BAR_FRAMES`; the seeded frame the port
-  misses by one level is :func:`test_gif_write_max_error_where_the_port_misses`).
+* GIF writes (since item 8d-i with Pillow's own median cut,
+  tests/test_torch_quantize.py): read back by Pillow, the frame count,
+  durations and loop equal the reference's write of the same frames; where
+  the reference's round trip is exact the port's is; per frame and channel
+  the max and mean |diff| against the input are no larger than the
+  reference's (:data:`GIF_BAR_FRAMES`; the seeded frames the port's own cut
+  once missed by a level are
+  :func:`test_gif_write_max_error_where_the_port_misses` and the two after
+  it).
 * cv2's ``imcount``, ``imreadmulti``, ``imwritemulti``, ``haveImageReader``
   and the six multi-page and animation calls answer as ``rustcv_tpu.cv2``
-  does for TIFF, GIF and the still formats (and, since items 8c and 8c-ii,
-  for the reads and writes of an animated WebP); animated PNG raises
-  ``not_ported``.
+  does for TIFF, GIF and the still formats (and, since items 8c, 8c-ii
+  and 8d-i, for the reads and writes of an animated WebP and an animated
+  PNG, tests/test_torch_apng.py).
 
 Sizes are small and odd (23x17, 37x23); inputs come from numpy seeds.
 """
@@ -662,9 +664,10 @@ def test_gif_write_max_error_where_the_port_misses():
     assert len(np.unique(idx)) == len(pal) == 256
 
 
-@pytest.mark.xfail(strict=True, reason="the port's median cut is not Pillow's: on this noisy "
-                   "gradient its largest green |diff| is above Pillow's")
 def test_gif_write_error_bar_on_a_gradient_where_the_port_misses():
+    """The noisy gradient on which the port's own median cut once left its
+    largest green |diff| above Pillow's: with Pillow's cut the errors are
+    Pillow's."""
     a = _gradient(0, 48, 64)
     a[..., 2] = np.clip(128 + _rng(0).normal(0, 6, a.shape[:2]), 0, 255).astype(np.uint8)
     idx, pal = quantize.quantize(a)
@@ -674,10 +677,11 @@ def test_gif_write_error_bar_on_a_gradient_where_the_port_misses():
     assert (port.mean((0, 1)) <= ref.mean((0, 1)) * 1.1).all()
 
 
-@pytest.mark.xfail(strict=True, reason="Pillow writes a graphic control block, so a 0 ms "
-                   "duration, where its median cut leaves a palette entry unused; on the "
-                   "second of these frames it leaves two and the port's cut none")
 def test_gif_imwritemulti_durations_where_the_cuts_differ(tmp_path, jax_cpu):
+    """Pillow writes a graphic control block, so a 0 ms duration, where its
+    median cut leaves a palette entry unused (on the second of these frames
+    it leaves two), which the port's own cut once did not: with Pillow's cut
+    the durations read back equal."""
     frames = [_blob(np.random.default_rng(s)) for s in (0, 1)]
     port, ref = tmp_path / "p.gif", tmp_path / "r.gif"
     assert imgcodecs.imwritemulti(str(port), [Mat.from_array(f[..., ::-1].copy(), device="cpu")
@@ -701,19 +705,27 @@ def test_gif_single_frame_writes(tmp_path, jax_cpu):
 
 
 def test_quantize_keeps_up_to_256_colours_and_maps_to_the_nearest():
+    """A frame of 256 colours keeps them (in the cut's order, Pillow's); a
+    noisy one maps every pixel to a nearest entry, the one Pillow picks."""
     rng = _rng(41)
     pal = rng.integers(0, 256, (256, 3), np.uint8)
     a = pal[rng.integers(0, 256, (30, 40))]
     idx, got = quantize.quantize(a)
     assert np.array_equal(got[idx], a)
+    im = Image.fromarray(a).convert("P", palette=Image.Palette.ADAPTIVE)
+    assert np.array_equal(np.asarray(im), idx)
     noise = rng.integers(0, 256, (30, 40, 3), np.uint8)
     idx, pal = quantize.quantize(noise)
     d = ((noise.reshape(-1, 1, 3).astype(np.int64) - pal[None].astype(np.int64)) ** 2).sum(2)
-    assert len(pal) == 256 and np.array_equal(idx.ravel(), d.argmin(1))
+    assert len(pal) == 256
+    assert np.array_equal(d[np.arange(d.shape[0]), idx.ravel()], d.min(1))
+    im = Image.fromarray(noise).convert("P", palette=Image.Palette.ADAPTIVE)
+    assert np.array_equal(np.asarray(im), idx)
     import torch
 
-    t = quantize.nearest(torch.from_numpy(noise.reshape(-1, 3)), pal)
-    assert np.array_equal(t.numpy(), d.argmin(1))
+    box = torch.from_numpy(idx.ravel().astype(np.int64))  # each colour's own entry kept
+    t = quantize.nearest(torch.from_numpy(noise.reshape(-1, 3)), box, pal)
+    assert np.array_equal(t.numpy(), idx.ravel())
 
 
 def test_gif_write_refusals(tmp_path):
@@ -818,7 +830,8 @@ def test_cv2_reads_answer_as_the_references(ext, call, tmp_path):
     assert _same(got, want), (got, want)
 
 
-@pytest.mark.parametrize("ext", [".tiff", ".tif", ".gif", ".jpg", ".bmp", ".ppm", ".xyz"])
+@pytest.mark.parametrize("ext", [".tiff", ".tif", ".gif", ".jpg", ".bmp", ".ppm", ".xyz",
+                                 ".png"])
 @pytest.mark.parametrize("kind", ["colour", "gray"])
 def test_cv2_imwritemulti_answers_as_the_references(ext, kind, tmp_path):
     frames = _palette_frames(3, 30, 72)
@@ -842,7 +855,7 @@ def test_cv2_imencodemulti_answers_as_the_references(ext):
     assert P.imencodemulti(ext, [])[0] is R.imencodemulti(ext, [])[0] is False
 
 
-@pytest.mark.parametrize("ext", [".gif", ".tiff", ".tif", ".xyz"])
+@pytest.mark.parametrize("ext", [".gif", ".tiff", ".tif", ".xyz", ".png"])
 @pytest.mark.parametrize("loop", [0, 4])
 def test_cv2_animation_writes_answer_as_the_references(ext, loop, tmp_path):
     frames = [f[..., ::-1].copy() for f in _palette_frames(3, 30, 74)]
@@ -863,17 +876,23 @@ def test_cv2_animation_writes_answer_as_the_references(ext, loop, tmp_path):
 
 
 def test_cv2_animated_png_and_webp_raise_not_ported(tmp_path):
-    """Animated PNG raises not_ported (item 8d); the WebP writes that once
-    did (item 8c-ii) write animations the reference reads with its frame
-    count (tests/test_torch_webp_write.py holds them to its files)."""
+    """Animated PNG (item 8d-i) and the WebP writes (item 8c-ii), which once
+    raised not_ported, write animations the reference reads with its frame
+    count; the reference's animated PNG reads back through the port as
+    through the reference (tests/test_torch_apng.py holds them to its
+    files)."""
     frames = [f[..., ::-1].copy() for f in _palette_frames(2, 30, 75)]
     a = P.Animation()
     a.frames = frames
-    for call in (lambda: P.imwriteanimation(str(tmp_path / "a.png"), a),
-                 lambda: P.imencodeanimation(".png", a),
-                 lambda: P.imwritemulti(str(tmp_path / "b.png"), frames)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    assert P.imwriteanimation(str(tmp_path / "a.png"), a)
+    ok, png = P.imencodeanimation(".png", a)
+    assert ok and P.imwritemulti(str(tmp_path / "b.png"), frames)
+    for data in (png.tobytes(), (tmp_path / "a.png").read_bytes(),
+                 (tmp_path / "b.png").read_bytes()):
+        buf = np.frombuffer(data, np.uint8)
+        assert _same(P.imdecodemulti(buf), R.imdecodemulti(buf))
+        with Image.open(io.BytesIO(data)) as im:
+            assert im.n_frames == 2 and im.size == (frames[0].shape[1], frames[0].shape[0])
     ok, mine = P.imencodeanimation(".webp", a)
     assert ok and P.imwritemulti(str(tmp_path / "b.webp"), frames)
     for data in (mine.tobytes(), (tmp_path / "b.webp").read_bytes()):
@@ -883,8 +902,10 @@ def test_cv2_animated_png_and_webp_raise_not_ported(tmp_path):
     ra.frames = frames
     ok, apng = R.imencodeanimation(".png", ra)
     assert ok
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.imdecodeanimation(apng)
+    got, want = P.imdecodeanimation(apng), R.imdecodeanimation(apng)
+    assert got[0] is want[0] is True
+    assert _same((got[1].frames, got[1].durations, got[1].loop_count),
+                 (want[1].frames, want[1].durations, want[1].loop_count))
     ok, webp = R.imencodeanimation(".webp", ra)
     assert ok
     # the reads of an animated WebP are item 8c's: they answer as the reference's

@@ -76,8 +76,8 @@ def _reads(data, tmp_path, name="x.webp"):
         assert g.shape == w.shape and np.array_equal(g, w)
     assert np.array_equal(imgcodecs.imread(str(path), device="cpu").to_numpy(), want[0])
     assert np.array_equal(imgcodecs.imdecode(data, device="cpu").to_numpy(), want[0])
-    frames, durs, lp = imgcodecs.animation_of(data)
-    assert durs == durations and lp == loop
+    steps, lp = imgcodecs.animation_frames(data)
+    assert [read()[1] for read in steps] == durations and lp == loop
     return want
 
 
