@@ -219,7 +219,15 @@ Phases:
    ``tests/test_torch_webp_write.py`` against the reference's file
    (``tests/data/webp/write_refs.json``: per frame PSNR at most 0.5 dB
    below, size at most 1.25x, its mode, frame count, durations and loop,
-   alpha exact), no kernel launched;
+   alpha exact), no kernel launched; (3z) animated PNG (item 8d-i): the
+   fixtures of ``tests/data/apng`` read and written as the manifest says,
+   and Pillow's median cut; (3za) PNG writes (item 8d-ii-a): each case of
+   ``png_write_frames`` (1080p stills in every mode Pillow writes, tied
+   filter scores, odd widths, LA, I;16, mixed-mode and mixed-size
+   animations) written from card tensors and Mats (the row filters run on
+   the card) equal to the CPU's bytes and to Pillow's chunks, controls and
+   image data (``tests/data/png/write_refs.json``), at most 1.02x its size,
+   no kernel launched;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -257,7 +265,11 @@ Phases:
    animation, and the native decodes alone; (4y) at 1080p the RGB -> YUV
    import on the card, the download of its planes, the native VP8 encode,
    ``imwrite`` to .webp whole from a card Mat, and ``imwritemulti`` of
-   phase 3y's animation.
+   phase 3y's animation; (4z) APNG reads and writes and the GIF writer at
+   1080p; (4za) ``imencode(".png")`` of a 1080p card Mat whole and split
+   into the row filters on the card, the download and zlib,
+   ``imwrite_with_metadata``, and ``imwritemulti`` of the 8-frame 1080p
+   APNG, each file's size beside Pillow's.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -3151,6 +3163,238 @@ def time_formats_8d(smi: str, dev: str = "cuda") -> None:
         ms = cuda_ms(lambda: imgcodecs.imwritemulti(out, frames), MULTI_TIMED)
         print(f"{tag} imwritemulti of those 8 frames to .gif ({os.path.getsize(out)} bytes) from "
               f"card Mats: {ms:.4f} ms", flush=True)
+
+
+# -- phases 3za and 4za: PNG and animated PNG written with Pillow's row filters
+# (ROADMAP Queue 1 item 8d-ii-a). The card's machine has no Pillow: what
+# Pillow writes of png_write_frames()'s cases is committed in
+# tests/data/png/write_refs.json (tools/make_png_write_refs.py).
+
+PNG_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "png")
+PNG_SIZE_RATIO = 1.02  # the largest size of the port's file over Pillow's
+PNG_TIMED = 3  # calls per timing at 1080p
+
+
+def png_gradient(seed: int, w: int = 1920, h: int = 1080) -> np.ndarray:
+    """An RGB gradient (h, w, 3) u8 with every fifth row seeded noise."""
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                    (x + y) * 255 // max(w + h - 2, 1)], -1).astype(np.uint8)
+    img[::5] = np.random.default_rng(seed).integers(0, 256, img[::5].shape, np.uint8)
+    return img
+
+
+def _png_moving(rng, shape, n: int, top: int = 256, dtype=np.uint8) -> list:
+    """``n`` frames of ``shape``: one seeded noise frame, a box of new noise
+    moving across it, the last frame equal to the one before."""
+    base = rng.integers(0, top, shape).astype(dtype)
+    out = []
+    for i in range(n - 1):
+        f = base.copy()
+        box = f[2 + 3 * i:9 + 3 * i, 4 + 5 * i:14 + 5 * i]
+        box[...] = rng.integers(0, top, box.shape)
+        out.append(f)
+    return out + [out[-1].copy()]
+
+
+def png_write_frames() -> dict:
+    """Phase 3za's cases, {name: (frames, Pillow's save arguments, or None
+    for a still PNG)}: the frames as the reference hands them to
+    ``Image.fromarray`` (RGB order; u8 with 1-4 channels, bool, u16), made
+    from ``np.random.default_rng(seed)`` and integer arithmetic. The 1080p
+    gradient with noise rows in every still mode; rows where Pillow's
+    scores tie (Sub and Up, all four, Up and Paeth); small odd widths;
+    animations of LA, I;16 and 1 frames, of mixed modes (the sets whose
+    written mode Pillow fixes: with an RGB or RGBA frame), of mixed sizes
+    (a frame merged, a frame smaller than the one before) and phase 4z's 8
+    frames of 1080p."""
+    g = png_gradient(261)
+    gray = np.ascontiguousarray(g[..., 1])
+    y, x = np.mgrid[0:1080, 0:1920]
+    alpha = ((x * 7 + y * 3) % 256).astype(np.uint8)
+    out = {
+        "still_rgb_1920x1080": ([g], None),
+        "still_rgba_1920x1080": ([np.dstack([g, alpha])], None),
+        "still_l_1920x1080": ([gray], None),
+        "still_la_1920x1080": ([np.dstack([gray, alpha])], None),
+        "still_1_1920x1080": ([gray > 127], None),
+        "still_i16_1920x1080": ([gray.astype(np.uint16) * 256 + g[..., 0]], None),
+        "tie_sub_up_5x2": ([np.array([[0, 4, 4, 1, 0], [1, 2, 5, 5, 1]], np.uint8)], None),
+        "tie_all_four_3x2": ([np.array([[3, 0, 3], [0, 0, 5]], np.uint8)], None),
+        "tie_up_paeth_2x2": ([np.array([[5, 0], [3, 0]], np.uint8)], None),
+    }
+    rng = np.random.default_rng(262)
+    out["odd_rgb_13x7"] = ([rng.integers(0, 256, (7, 13, 3)).astype(np.uint8)], None)
+    out["odd_la_3x5"] = ([rng.integers(0, 256, (5, 3, 2)).astype(np.uint8)], None)
+    out["odd_1_9x4"] = ([rng.integers(0, 2, (4, 9)).astype(bool)], None)
+    out["odd_i16_7x3"] = ([rng.integers(0, 65536, (3, 7)).astype(np.uint16)], None)
+    out["odd_l_1x1"] = ([rng.integers(0, 256, (1, 1)).astype(np.uint8)], None)
+    rng = np.random.default_rng(263)
+    la = _png_moving(rng, (45, 61, 2), 4)
+    out["apng_la"] = (la, {"duration": [40, 60, 80, 100], "loop": 2})
+    # I;16 frames compare in RGBA clipped to 255: samples to 511, so some boxes show
+    out["apng_i16"] = (_png_moving(rng, (45, 61), 4, 512, np.uint16), {"duration": 50})
+    out["apng_1"] = ([f > 127 for f in _png_moving(rng, (45, 61), 3)], {})
+    rgb, rgba = _png_moving(rng, (45, 61, 3), 3), _png_moving(rng, (45, 61, 4), 3)
+    out["apng_l_rgb"] = ([rgb[0][..., 1].copy(), rgb[1], rgb[2][..., 0].copy()], {"duration": 30})
+    i16 = rng.integers(0, 65536, (45, 61)).astype(np.uint16)
+    out["apng_la_rgba_i16"] = ([la[0], rgba[1], i16], {"loop": 1})
+    out["apng_1_rgb"] = ([rgb[0][..., 0] > 127, rgb[1]], {})
+    big = rng.integers(0, 256, (60, 80, 3)).astype(np.uint8)
+    out["apng_sizes"] = ([rgb[0], big[:30, :40].copy(), big], {})
+    out["apng_sizes_merged"] = ([big[:30, :40].copy(), big, rgb[1]], {"duration": [20, 30, 40]})
+    out["apng_rgb_8x1920x1080"] = (apng_timing_frames(), {})
+    return out
+
+
+def png_summary(data: bytes) -> dict:
+    """What ``write_refs.json`` holds of a PNG file: its size, the kinds of
+    its chunks in order, IHDR, acTL and every fcTL and fdAT (with their
+    sequence numbers), and the SHA-256 of each frame's image data before
+    zlib (each run of IDAT or fdAT chunks, inflated)."""
+    import hashlib
+    import struct
+    import zlib
+
+    kinds, controls, runs, p = [], [], [], 8
+    while p < len(data):
+        n, kind = struct.unpack(">I4s", data[p:p + 8])
+        body = data[p + 8:p + 8 + n]
+        if kind in (b"IDAT", b"fdAT"):
+            if not kinds or kinds[-1] not in ("IDAT", "fdAT"):
+                runs.append([])
+            runs[-1].append(body if kind == b"IDAT" else body[4:])
+        fields = {b"IHDR": ">IIBBBBB", b"acTL": ">II", b"fcTL": ">IIIIIHHBB", b"fdAT": ">I"}
+        if kind in fields:
+            fmt = fields[kind]
+            controls.append([kind.decode()] + list(struct.unpack(fmt, body[:struct.calcsize(fmt)])))
+        kinds.append(kind.decode())
+        p += 12 + n
+    return {"bytes": len(data), "chunks": kinds, "controls": controls,
+            "frames_sha256": [hashlib.sha256(zlib.decompress(b"".join(r))).hexdigest()
+                              for r in runs]}
+
+
+def png_write(frames, kw) -> bytes:
+    """The port's write of a case: a still PNG (``kw`` None) or an animation."""
+    from rustcv_tpu_torch.imgcodecs import apng, host
+
+    return host.write_png(frames[0]) if kw is None else apng.write_apng(frames, **kw)
+
+
+def png_mat_write(frames, kw, dev: str) -> bytes:
+    """The same case through the facade from Mats on ``dev`` (u8 frames only:
+    BGR order, as the reference's Mats): ``imencode(".png")`` of a still,
+    ``encode_frames("png", ...)`` (``imwriteanimation``'s write) of an
+    animation."""
+    import torch
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.prelude import Mat
+
+    mats = [Mat.from_device(torch.from_numpy(np.ascontiguousarray(
+        f[..., ::-1] if f.ndim == 3 else f)).to(dev)) for f in frames]
+    if kw is None:
+        return imgcodecs.imencode(".png", mats[0])
+    return imgcodecs.encode_frames("png", mats, duration=kw.get("duration"), loop=kw.get("loop"))
+
+
+def run_formats_8d_writes(dev: str = "cuda") -> dict:
+    """Phase 3za: PNG and animated PNG writes with Pillow's row filters on
+    the card's machine. Each ``png_write_frames`` case written from tensors
+    on ``dev`` (the filters run there) equals its write from numpy on the
+    CPU byte for byte, and so do its u8 cases written from Mats on ``dev``
+    and on the CPU; the file has Pillow's chunks in Pillow's order, its
+    IHDR, acTL, fcTL and fdAT fields (sequence numbers too), each frame's
+    image data before zlib byte for byte (``write_refs.json``'s hashes),
+    and at most ``PNG_SIZE_RATIO`` times Pillow's size. Returns the
+    phase's launches (none expected)."""
+    import torch
+
+    from rustcv_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    with open(os.path.join(PNG_DATA, "write_refs.json")) as f:
+        refs = json.load(f)
+    cases = png_write_frames()
+    expect(sorted(refs) == sorted(cases), f"write_refs.json holds {sorted(refs)}")
+    for name, (frames, kw) in sorted(cases.items()):
+        ref = refs[name]
+        host = png_write(frames, kw)
+        card = png_write([torch.from_numpy(f).to(dev) for f in frames], kw)
+        expect(card == host, f"{name}: the {dev} tensors give other bytes than the CPU's")
+        how = "tensors"
+        if all(f.dtype == np.uint8 for f in frames):
+            expect(png_mat_write(frames, kw, dev) == host == png_mat_write(frames, kw, "cpu"),
+                   f"{name}: the {dev} and CPU Mats give other bytes than the arrays")
+            how = "tensors and Mats"
+        got = png_summary(card)
+        for key in ("chunks", "controls", "frames_sha256"):
+            expect(got[key] == ref[key], f"{name}: {key} {got[key]}, Pillow's {ref[key]}")
+        expect(got["bytes"] <= PNG_SIZE_RATIO * ref["bytes"],
+               f"{name}: {got['bytes']} bytes, Pillow's {ref['bytes']}")
+        print(f"formats 8d-ii-a: {name} from {dev} {how}: the CPU's bytes, Pillow's chunks, "
+              f"controls and image data of {len(got['frames_sha256'])} frame(s); "
+              f"{got['bytes']} bytes, Pillow's {ref['bytes']} "
+              f"({got['bytes'] / ref['bytes']:.4f}x)", flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3za launched kernels: {counts}")
+    return counts
+
+
+def time_formats_8d_writes(smi: str, dev: str = "cuda") -> None:
+    """Phase 4za: ms per call at 1080p: ``imencode(".png")`` of a card Mat
+    of the 1080p gradient with noise rows, whole (CUDA events) and split into
+    the row filters on the card (CUDA events), the download of the filtered
+    rows (CUDA events) and zlib (the host clock); ``imwrite_with_metadata``
+    of that Mat; phase 4z's ``imwritemulti`` of the 8-frame 1920x1080 APNG's
+    frames from card Mats, its size at most ``PNG_SIZE_RATIO`` times the
+    fixture's (Pillow's) size. Each size beside Pillow's."""
+    import tempfile
+
+    import torch
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.imgcodecs import host
+    from rustcv_tpu_torch.imgcodecs.png_filter import filter_rows
+    from rustcv_tpu_torch.prelude import Mat
+
+    tag = f"[{smi}]"
+    with open(os.path.join(PNG_DATA, "write_refs.json")) as f:
+        pillow = json.load(f)["still_rgb_1920x1080"]["bytes"]
+    g = png_write_frames()["still_rgb_1920x1080"][0][0]
+    rgb = torch.from_numpy(g).to(dev)
+    mat = Mat.from_device(torch.from_numpy(np.ascontiguousarray(g[..., ::-1])).to(dev))
+    ms = cuda_ms(lambda: imgcodecs.imencode(".png", mat), PNG_TIMED)
+    size = len(imgcodecs.imencode(".png", mat))
+    print(f"{tag} imencode of the 1920x1080 gradient with noise rows to .png ({size} bytes, "
+          f"Pillow's {pillow}) from a card Mat: {ms:.4f} ms", flush=True)
+    ms = cuda_ms(lambda: filter_rows(rgb, 8), PNG_TIMED)
+    print(f"{tag}   of which the row filters on the card: {ms:.4f} ms", flush=True)
+    rows = filter_rows(rgb, 8)
+    ms = cuda_ms(lambda: rows.cpu(), PNG_TIMED)
+    print(f"{tag}   the download of the filtered rows ({rows.numel()} bytes): {ms:.4f} ms",
+          flush=True)
+    raw = rows.cpu().numpy().tobytes()
+    host.deflate(raw)
+    t = time.perf_counter()
+    for _ in range(PNG_TIMED):
+        host.deflate(raw)
+    ms = (time.perf_counter() - t) * 1e3 / PNG_TIMED
+    print(f"{tag}   zlib of them (host clock): {ms:.4f} ms", flush=True)
+    fixture = os.path.join(APNG_DATA, "anim8_1920x1080.png")
+    mats = imgcodecs.imreadmulti(fixture, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "m.png")
+        ms = cuda_ms(lambda: imgcodecs.imwrite_with_metadata(out, mat, {"Title": "4za"}),
+                     PNG_TIMED)
+        print(f"{tag} imwrite_with_metadata of that Mat to .png ({os.path.getsize(out)} bytes): "
+              f"{ms:.4f} ms", flush=True)
+        ms = cuda_ms(lambda: imgcodecs.imwritemulti(out, mats), PNG_TIMED)
+        size, want = os.path.getsize(out), os.path.getsize(fixture)
+        print(f"{tag} imwritemulti of the 8-frame 1920x1080 APNG's frames to .png ({size} bytes, "
+              f"Pillow's {want}, {size / want:.4f}x) from card Mats: {ms:.4f} ms", flush=True)
+        expect(size <= PNG_SIZE_RATIO * want, f"the 8-frame APNG is {size} bytes, Pillow's {want}")
 
 
 def time_new_paths(smi: str) -> None:
@@ -7096,6 +7340,8 @@ def main() -> int:
         done("phase 3y, WebP writes (item 8c-ii)")
         phase("phase 3z, animated PNG and the median cut (item 8d-i)", run_formats_8d)
         done("phase 3z, animated PNG and the median cut (item 8d-i)")
+        phase("phase 3za, PNG writes with Pillow's filters (item 8d-ii-a)", run_formats_8d_writes)
+        done("phase 3za, PNG writes with Pillow's filters (item 8d-ii-a)")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -7111,6 +7357,8 @@ def main() -> int:
                           ("WebP writes (4y)", lambda: time_formats_8c_writes(smi)),
                           ("animated PNG and the median cut (4z)",
                            lambda: time_formats_8d(smi)),
+                          ("PNG writes with Pillow's filters (4za)",
+                           lambda: time_formats_8d_writes(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

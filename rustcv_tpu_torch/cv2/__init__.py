@@ -19,8 +19,8 @@ argument combinations the facade does not model raise ``ValueError`` /
 ``NotImplementedError`` with the supported alternatives named, never
 silently diverge. The reference's multi-page, animated and metadata image
 files (read and written with Pillow there) run on the port's own codecs
-for TIFF, GIF and WebP; animated PNG raises ``not_ported`` (ROADMAP Queue 1
-item 8).
+for TIFF, GIF, WebP and animated PNG; the forms those codecs do not write
+or read yet raise ``not_ported`` (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 

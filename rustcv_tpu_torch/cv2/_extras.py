@@ -395,6 +395,10 @@ def imdecodeWithMetadata(buf, metadataTypes=None, flags=1, img=None,
 # imencodeWithMetadata's formats: the reference's Pillow format names
 _ENCODE_FORMATS = {"png": "png", "jpg": "jpeg", "jpeg": "jpeg", "bmp": "bmp", "ppm": "pnm",
                    "tiff": "tiff", "gif": "gif", "webp": "webp"}
+# the modes of Image.fromarray's that Pillow's JPEG, BMP and PPM writers take (its OSError
+# for the others); PNG's are imgcodecs.host's, TIFF, GIF and WebP take every one
+_PILLOW_SAVES = {"jpeg": ("1", "L", "RGB"), "bmp": ("1", "L", "RGB", "RGBA"),
+                 "pnm": ("1", "L", "I;16", "I", "RGB", "RGBA", "F")}
 
 
 def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
@@ -403,7 +407,13 @@ def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
     ``metadata`` as text chunks (a dict, or values under
     ``metadataTypes``), other formats through the port's writers (a JPEG
     at quality 75, the reference's Pillow default; a WebP as Pillow's still,
-    without metadata, and Pillow's ValueError for a side above 16383)."""
+    without metadata, and Pillow's ValueError for a side above 16383).
+    ``img`` is what the reference hands ``Image.fromarray``: its TypeError
+    for a dtype or shape that has no mode, Pillow's OSError for a mode the
+    format's writer refuses. A PNG takes every mode but F; the other
+    formats' writers take u8 images, and a mode Pillow writes there but the
+    port does not yet (1 to JPEG or BMP, 16-bit, I and F to PPM, any of
+    them to TIFF, GIF or WebP) raises ``not_ported``."""
     import torch
 
     from ..core.errors import CameraError
@@ -415,9 +425,13 @@ def imencodeWithMetadata(ext, img, metadataTypes=None, metadata=None,
     fmt = _ENCODE_FORMATS.get(e)
     if fmt is None:
         raise CameraError(f"imencodeWithMetadata: unknown image format {ext!r}")
-    if a.dtype != np.uint8:  # Pillow writes 16-bit and float images; the port's writers 8-bit
-        raise _not_ported(f"cv2.imencodeWithMetadata of {a.dtype} images", item="8")
     rgb = a[..., ::-1] if a.ndim == 3 else a
+    mode = _host.pillow_mode(rgb)
+    if mode not in _PILLOW_SAVES.get(fmt, (mode,)):
+        raise OSError(f"cannot write mode {mode} as {fmt.upper()}")
+    if fmt != "png" and mode not in ("L", "LA", "RGB", "RGBA"):
+        raise _not_ported(f"cv2.imencodeWithMetadata of mode {mode} ({a.dtype}) images as "
+                          f"{fmt.upper()}", item="8")
     if fmt == "webp":  # the reference lets Pillow's errors through
         return True, np.frombuffer(_host.ENCODERS[fmt](rgb), np.uint8)
     try:
@@ -495,7 +509,7 @@ def _encode_animation(ext: str, animation):
         return None
     try:
         return encode_frames(fmt, frames, duration=durations, loop=animation.loop_count)
-    except ValueError:  # a frame Pillow cannot write: the reference's save raises, it answers False
+    except (ValueError, OSError):  # a frame Pillow cannot write: its save raises, it answers False
         return None
 
 

@@ -407,8 +407,9 @@ def imwritemulti(filename: str, img, params=None) -> bool:
         return _icodec.imwritemulti(filename, [_a(x) for x in img])
     except NotImplementedError:  # not_ported goes through
         raise
-    except (OSError, ValueError, KeyError, RuntimeError, CameraError):
-        return False  # KeyError: no multi-frame writer; RuntimeError: libwebp's frame errors
+    except (OSError, ValueError, TypeError, KeyError, RuntimeError, CameraError):
+        # TypeError: fromarray's; KeyError: no multi-frame writer; RuntimeError: libwebp's
+        return False
 
 
 def imreadWithMetadata(filename: str, metadataTypes=None, flags=1):

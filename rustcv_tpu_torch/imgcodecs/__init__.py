@@ -4,7 +4,8 @@
 Two backends, the reference's names:
 
 * ``"host"``: PNG (every depth, Adam7; animated PNG, :mod:`.apng`, read
-  and written as Pillow reads and writes it), BMP (every header, depth and
+  and written as Pillow reads and writes it; the rows filtered as Pillow
+  filters them, on the Mat's device, :mod:`.png_filter`), BMP (every header, depth and
   compression Pillow reads) and PNM (P1-P6 at every maxval, PFM) through
   :mod:`.host`, TIFF (:mod:`.tiff`: strips and tiles, raw, PackBits, LZW and
   Deflate, every depth and photometric Pillow reads but YCbCr and CIELab;
@@ -92,7 +93,7 @@ def _encode(fmt: str, mat: Mat, quality: int, backend=None) -> bytes:
     if backend == "tpu":
         raise ValueError(f"imencode: backend='tpu' supports JPEG only, not {fmt.upper()}")
     try:
-        if fmt in ("gif", "webp"):  # quantized, or made into planes, where the Mat is
+        if fmt in ("gif", "webp", "png"):  # quantized, planes or rows filtered where the Mat is
             return _host.ENCODERS[fmt](_frame_of(mat))
         return _host.ENCODERS[fmt](_host.from_mat_array(mat.to_numpy()))
     except _host.CodecError as e:
@@ -213,12 +214,13 @@ def imread_with_metadata(path: str, device="cuda"):
 
 def imwrite_with_metadata(path: str, mat: Mat, metadata: dict) -> bool:
     """Metadata-aware write (OpenCV ``imwriteWithMetadata`` role): a PNG
-    gets ``metadata`` as text chunks; another format is written without."""
+    gets ``metadata`` as text chunks (its rows filtered where the Mat is);
+    another format is written without."""
     if _suffix(path) != "png":
         return imwrite(path, mat)
     if mat.is_empty():
         return False
-    return _write(path, _host.write_png(_host.from_mat_array(mat.to_numpy()), metadata))
+    return _write(path, _host.write_png(_frame_of(mat), metadata))
 
 
 def decode_frames(data: bytes) -> list:

@@ -16,7 +16,8 @@ storage of the file's mode: the previous frame's disposal (``OP_NONE``,
 ``OP_SOURCE`` (the frame replaces its box) or ``OP_OVER`` (each byte of
 the box blended by the frame's alpha: an RGBA or LA alpha, a palette's
 ``tRNS`` alphas, RGB's ``tRNS`` colour; 1-, L- and P-mode indices blended
-as bytes, as Pillow's paste does). An image data that precedes every
+as bytes, as Pillow's paste does; a 16-bit gray frame raises, as Pillow's
+conversion of its box to RGBA does). An image data that precedes every
 fcTL is a default image: frame 0, and the canvas the animation starts on.
 A frame is then ``convert("RGB")``'s (:meth:`.host._Png.convert_rgb`).
 ``n_frames``, the durations (ms, floats: ``delay_num / delay_den``, a zero
@@ -28,37 +29,37 @@ interlaced animation raise at their load, as Pillow 12.1's decoder does on
 them.
 
 Writes (:func:`write_apng`): Pillow's ``_write_multiple_frames`` with what
-the port's callers pass it (durations and a loop). The mode is RGBA if a
-frame has 4 channels, else RGB if one has 3, else L; each frame is
-compared in RGBA with the frame before it: an equal frame adds its
-duration to the one before where both have one, else the frame is
-written cropped to the box of what changed. The comparisons run in torch
-on the frames' device. The control chunks (``acTL``, each ``fcTL``:
+the port's callers pass it (durations and a loop), for every mode
+``Image.fromarray`` makes: the written mode is RGBA if a frame is RGBA,
+else RGB if one is RGB, else one of the frames' modes (a fixed order where
+Pillow's choice hangs on string hashing), every frame converted to it as
+Pillow converts it; the canvas is the largest width and height. Each frame
+is compared in RGBA with the frame before it over their common top-left
+part: an equal frame adds its duration to the one before where both have
+one, else the frame is written cropped to the box of what changed. The
+comparisons run in torch on the frames' device, and so do the row filters
+(:mod:`.png_filter`). The control chunks (``acTL``, each ``fcTL``:
 sequence, size, offset, delay as
 ``Fraction(ms / 1000).limit_denominator(65535)``, dispose ``OP_NONE``,
-blend ``OP_SOURCE``) are Pillow's byte for byte; the image data is zlib of
-unfiltered rows (other bytes than Pillow's filtered ones, the same
-pixels), cut into chunks of Pillow's block size, so the sequence numbers
-agree.
+blend ``OP_SOURCE``) and the image data before zlib are Pillow's byte for
+byte, and the data is cut into chunks of Pillow's block size
+(:func:`.host.png_blocks`), so the sequence numbers agree.
 """
 
 from __future__ import annotations
 
 import struct
-import zlib
 from fractions import Fraction
 from typing import Optional, Tuple
 
 import numpy as np
 
-from ..core.errors import not_ported
 from . import host as _host
 from .host import CodecError, _chunk
 
 OP_NONE, OP_BACKGROUND, OP_PREVIOUS = 0, 1, 2  # dispose_op
 OP_SOURCE, OP_OVER = 0, 1  # blend_op
 _DATA = (b"IDAT", b"DDAT", b"fdAT")  # the chunks Pillow's load_read takes image data from
-_MAXBLOCK = 65536  # Pillow's ImageFile.MAXBLOCK: the least block its encoder writes at once
 
 
 def read_png(data: bytes) -> np.ndarray:
@@ -148,8 +149,8 @@ def _alpha(png, box: np.ndarray) -> Optional[np.ndarray]:
         return alphas[box[..., 0]]
     if ctype == 3 and isinstance(t, int):
         return np.where(box[..., 0] == t, 0, 255)
-    if ctype == 0 and depth == 16:
-        raise not_ported("OP_OVER frames of a 16-bit gray animated PNG", item=_host.LEFTOVERS)
+    if ctype == 0 and depth == 16:  # Pillow's load_end converts the box's core image to RGBA
+        raise CodecError("conversion from I;16 to RGBA not supported")
     return None
 
 
@@ -295,28 +296,50 @@ class _Walk:
 # -- the writer --------------------------------------------------------------------------------
 
 
-def _tensor(f):
+# The written mode from the frames' modes: Pillow takes RGBA, then RGB (then P, which
+# Image.fromarray never makes); among the rest it takes whatever set.pop() gives, which hangs
+# on Python's string hashing. The port takes the first of this order
+# (tests/test_torch_port_map.py's DEVIATIONS).
+_MODE_ORDER = ("RGBA", "RGB", "LA", "L", "I;16", "I", "F", "1")
+
+
+def _gray8(px, mode: str):
+    """Pillow's ``convert("L")`` of a one-band mode, or LA's gray band."""
     import torch
 
-    return f if isinstance(f, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(f))
+    if mode == "1":
+        return px.to(torch.uint8) * 255
+    if mode in ("L", "LA"):
+        return px[..., 0] if mode == "LA" else px
+    return px.clamp(0, 255).to(torch.uint8)  # I;16, I; F truncated
 
 
-def _channels(f) -> int:
-    return 1 if f.ndim == 2 else int(f.shape[2])
-
-
-def _in_mode(f, ch: int):
-    """A frame (H, W) or (H, W, C) u8 tensor → (H, W, ch) in the written
-    mode, as Pillow's ``convert`` makes it (gray repeated, alpha 255)."""
+def _convert(px, mode: str, to: str):
+    """Pillow's ``convert(to)`` of ``mode`` pixels (:func:`.host.pillow_image`)
+    where the mode order asks for it: to RGBA or RGB from any mode, to LA or
+    L from the gray ones, to I;16 from I (clipped), 1 or F (through L), to I
+    from 1 or F (truncated)."""
     import torch
 
-    f = f[..., None] if f.ndim == 2 else f
-    if f.shape[2] == ch:
-        return f
-    rgb = f.expand(-1, -1, 3) if f.shape[2] == 1 else f[..., :3]
-    if ch == 3:
+    if mode == to:
+        return px
+    if to == "I":
+        return px.to(torch.int32) * (255 if mode == "1" else 1)
+    if to == "I;16":
+        return px.clamp(0, 65535) if mode == "I" else _gray8(px, mode).to(torch.int32)
+    if mode in ("RGB", "RGBA"):
+        rgb, alpha = px[..., :3], (px[..., 3:] if mode == "RGBA" else None)
+    else:
+        g = _gray8(px, mode)
+        if to == "L":
+            return g
+        rgb = g[..., None].expand(*g.shape, 1 if to == "LA" else 3)
+        alpha = px[..., 1:] if mode == "LA" else None
+    if to == "RGB":
         return rgb
-    return torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], 2)
+    if alpha is None:
+        alpha = torch.full_like(rgb[..., :1], 255)
+    return torch.cat([rgb, alpha], -1)
 
 
 def _bbox(diff) -> Optional[tuple]:
@@ -327,56 +350,51 @@ def _bbox(diff) -> Optional[tuple]:
     return int(cols[0]), int(rows[0]), int(cols[-1]) + 1, int(rows[-1]) + 1
 
 
-def _blocks(img: np.ndarray) -> list:
-    """zlib of the unfiltered rows of an (H, W, C) u8 image, in the blocks
-    Pillow's encoder writes (``max(MAXBLOCK, 4 * width)`` bytes)."""
-    z = zlib.compress(_host.unfiltered_rows(img))
-    size = max(_MAXBLOCK, 4 * img.shape[1])
-    return [z[i:i + size] for i in range(0, len(z), size)] or [b""]
-
-
 def write_apng(frames, duration=None, loop: Optional[int] = None) -> bytes:
     """Frames → an animated PNG, as Pillow's ``save(save_all=True,
     append_images=..., duration=..., loop=...)`` writes it (one frame left
-    after merging: a still PNG). ``duration`` is ms, one for every frame or
-    a list, or None (no delay, no merging). A frame is an (H, W) gray,
-    (H, W, 3) RGB or (H, W, 4) RGBA u8 array, numpy or a tensor (compared on
-    its device); all of one size (2-channel, other than u8 and mixed sizes
-    raise ``not_ported``)."""
-    import torch
-
-    frames = [_tensor(f) for f in frames]
+    after merging: a still PNG on the animation's canvas). ``duration`` is
+    ms, one for every frame or a list, or None (no delay, no merging). A
+    frame is what ``Image.fromarray`` takes (:func:`.host.pillow_image`),
+    numpy or a tensor (compared and filtered on its device). Each frame is
+    converted to the written mode (:data:`_MODE_ORDER`; F raises Pillow's
+    OSError) and compared in RGBA with the frame kept before it over their
+    common top-left part: an equal frame adds its duration to the one
+    before where both have one, else the frame is written cropped to the box
+    of what changed (its own size where nothing did). The canvas is the
+    widest and the tallest frame; a smaller frame keeps its size, and Pillow
+    writes nothing of the canvas outside it."""
+    frames = [_host.pillow_image(f) for f in frames]
     if not frames:
         raise CodecError("no frames to write")
-    chans = {_channels(f) for f in frames}
-    if not chans <= {1, 3, 4} or any(f.dtype != torch.uint8 for f in frames):
-        raise not_ported(f"writing {sorted(chans)}-channel or other than u8 frames as animated "
-                         "PNG", item=_host.LEFTOVERS)
-    if len({tuple(f.shape[:2]) for f in frames}) > 1:
-        raise not_ported("writing animated PNG frames of different sizes", item=_host.LEFTOVERS)
-    ch = 4 if 4 in chans else 3 if 3 in chans else 1
-    h, w = frames[0].shape[:2]
+    modes = {m for m, _ in frames}
+    mode = next(m for m in _MODE_ORDER if m in modes)
+    if mode not in _host.PNG_MODES:
+        raise OSError(f"cannot write mode {mode} as PNG")
+    depth, ctype = _host.PNG_MODES[mode]
+    w, h = (max(int(px.shape[i]) for _, px in frames) for i in (1, 0))
     kept = []  # [frame in the mode, its RGBA, bbox, duration]
-    for n, f in enumerate(frames):
+    for n, (m, px) in enumerate(frames):
         ms = duration[n] if isinstance(duration, (list, tuple)) else duration
-        img = _in_mode(f, ch)
-        rgba = _in_mode(img, 4)
+        img = _convert(px, m, mode)
+        rgba = _convert(img, mode, "RGBA")
         bbox = None
         if kept:
-            bbox = _bbox((rgba != kept[-1][1]).any(2))
+            prev = kept[-1][1]
+            ch, cw = min(rgba.shape[0], prev.shape[0]), min(rgba.shape[1], prev.shape[1])
+            bbox = _bbox((rgba[:ch, :cw] != prev[:ch, :cw]).any(2))
             if bbox is None and ms is not None:
                 kept[-1][3] += ms
                 continue
         kept.append([img, rgba, bbox, ms])
     if len(kept) == 1:
-        img = kept[0][0].cpu().numpy()
-        return _host.write_png(img[..., 0] if ch == 1 else img)
-    out = [_host._PNG_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[ch],
-                                                       0, 0, 0)),
+        return _host.png_file(mode, kept[0][0], size=(w, h))
+    out = [_host._PNG_SIG,
+           _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)),
            _chunk(b"acTL", struct.pack(">II", len(kept), loop or 0))]
     seq = 0
     for k, (img, _rgba, bbox, ms) in enumerate(kept):
-        x0, y0, x1, y1 = bbox or (0, 0, w, h)
+        x0, y0, x1, y1 = bbox or (0, 0, int(img.shape[1]), int(img.shape[0]))
         delay = Fraction((ms or 0) / 1000).limit_denominator(65535)
         if delay.numerator > 65535:
             raise CodecError("cannot write duration")
@@ -384,7 +402,7 @@ def write_apng(frames, duration=None, loop: Optional[int] = None) -> bytes:
             ">IIIIIHHBB", seq, x1 - x0, y1 - y0, x0, y0, delay.numerator, delay.denominator,
             OP_NONE, OP_SOURCE)))
         seq += 1
-        blocks = _blocks(img[y0:y1, x0:x1].cpu().numpy())
+        blocks = _host.png_blocks(img[y0:y1, x0:x1], mode)
         if k == 0:
             out += [_chunk(b"IDAT", b) for b in blocks]
         else:

@@ -17,8 +17,12 @@ from :func:`.apng.png_info`, :func:`bmp_info` and :func:`pnm_info`.
   conversions: 1-, 2- and 4-bit gray scale by 255 / (2^d - 1); 16-bit gray
   is Pillow's ``I;16`` and clips at 255; 16-bit RGB, RGBA and gray+alpha
   keep the high byte; palette indices past the PLTE are black. Writes
-  8-bit gray, RGB and RGBA with filter None and the standard library's
-  ``zlib``, text as ``tEXt`` (or ``iTXt`` when it is not Latin-1).
+  what Pillow's ``save`` writes of every mode ``Image.fromarray`` makes
+  but ``F`` (:func:`pillow_image`: ``1``, ``L``, ``LA``, ``I;16``, ``I``
+  clipped to 16 bits, ``RGB``, ``RGBA``), its rows filtered as Pillow
+  chooses on the image's device (:mod:`.png_filter`), deflated at Pillow's
+  zlib settings and cut into its IDAT chunks, text as ``tEXt`` (or
+  ``iTXt`` when it is not Latin-1).
 * BMP: the OS/2 12-byte core header (3-byte palette entries) and the 40,
   52, 56, 64, 108 and 124-byte headers; 1-, 4- and 8-bit palettes (gray
   palettes as Pillow's ``1`` and ``L`` modes), 16-bit 5-5-5, 24 and 32-bit,
@@ -384,22 +388,100 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def unfiltered_rows(img: np.ndarray) -> bytes:
-    """The rows of an (H, W) or (H, W, C) u8 image as PNG image data before
-    zlib, each after its filter type byte 0 (None)."""
-    h = img.shape[0]
-    return np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1).tobytes()
+# Image.fromarray's modes (its _fromarray_typemap, in the machine's byte
+# order): (shape past (H, W), numpy type string) → mode
+_FROMARRAY = {((1, 1), "|b1"): "1", ((1, 1), "|u1"): "L", ((1, 1), "|i1"): "I",
+              ((1, 1), "<u2"): "I;16", ((1, 1), "<i2"): "I", ((1, 1), "<u4"): "I",
+              ((1, 1), "<i4"): "I", ((1, 1), "<f4"): "F", ((1, 1), "<f8"): "F",
+              ((1, 1, 2), "|u1"): "LA", ((1, 1, 3), "|u1"): "RGB", ((1, 1, 4), "|u1"): "RGBA"}
+_TORCH_TYPESTR = {"bool": "|b1", "uint8": "|u1", "int8": "|i1", "uint16": "<u2", "int16": "<i2",
+                  "uint32": "<u4", "int32": "<i4", "int64": "<i8", "float16": "<f2",
+                  "float32": "<f4", "float64": "<f8"}
+# Pillow's PNG _OUTMODES: mode → (bit depth, colour type); I is written as I;16, clipped
+PNG_MODES = {"1": (1, 0), "L": (8, 0), "LA": (8, 4), "I;16": (16, 0), "I": (16, 0),
+             "RGB": (8, 2), "RGBA": (8, 6)}
+_MAXBLOCK = 65536  # Pillow's ImageFile.MAXBLOCK: the least block its encoder writes at once
 
 
-def write_png(img: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
-    """(H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA u8 → PNG bytes."""
-    img = np.ascontiguousarray(img, np.uint8)
-    ch = 1 if img.ndim == 2 else img.shape[2]
-    ctype = {1: 0, 3: 2, 4: 6}.get(ch)
-    if ctype is None:
-        raise CodecError(f"cannot write {ch}-channel images as PNG")
-    h, w = img.shape[:2]
-    out = [_PNG_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
+def pillow_mode(a) -> str:
+    """The mode of ``Image.fromarray(a)`` (numpy, or a tensor as numpy would
+    hold it): ``1`` (bool), ``L``, ``LA``, ``RGB``, ``RGBA`` (u8 with 2, 3, 4
+    channels), ``I;16`` (u16), ``I`` (i8, i16, u32, i32), ``F`` (f32, f64);
+    Pillow's TypeError for any other dtype or shape."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        typestr = _TORCH_TYPESTR.get(str(a.dtype).rpartition(".")[2], str(a.dtype))
+    else:
+        a = np.asarray(a)
+        typestr = a.dtype.str.replace(">", "<")
+    key = ((1, 1) + tuple(a.shape[2:]), typestr)
+    mode = _FROMARRAY.get(key) if a.ndim in (2, 3) else None
+    if mode is None:
+        raise TypeError(f"Cannot handle this data type: {key[0]}, {key[1]}")
+    return mode
+
+
+def pillow_image(a):
+    """(mode, pixels) of ``Image.fromarray(a)``: pixels a tensor on ``a``'s
+    device (numpy on the CPU), bool for ``1``, u8 for ``L``, ``LA``,
+    ``RGB`` and ``RGBA``, int32 for ``I;16`` and ``I`` (i8 read as its
+    bytes, u32 as int32, as Pillow's raw modes read them), float32 for
+    ``F``."""
+    import torch
+
+    mode = pillow_mode(a)
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        a = a.astype(a.dtype.newbyteorder("="), copy=False)
+        kind = a.dtype.str[1:]
+        a = torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.int32) if kind == "u2" else a.view(np.int32) if kind == "u4" else a))
+    elif a.dtype == torch.uint32:
+        a = a.view(torch.int32)
+    elif a.dtype == torch.uint16:  # through int16: unsigned 16-bit tensors have few kernels
+        a = a.view(torch.int16).to(torch.int32) & 0xFFFF
+    if a.dtype == torch.int8:
+        a = a.view(torch.uint8)
+    if mode in ("I", "I;16"):
+        a = a.to(torch.int32)
+    elif mode == "F":
+        a = a.to(torch.float32)
+    return mode, a
+
+
+def deflate(raw: bytes) -> bytes:
+    """zlib of PNG image data with Pillow's settings (``ZipEncode.c``: level
+    6, its default ``compress_level``; memory level 9; ``Z_FILTERED``)."""
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    return z.compress(raw) + z.flush()
+
+
+def png_blocks(px, mode: str) -> list:
+    """The image data of ``px`` (a ``mode`` image, :func:`pillow_image`'s
+    pixels) as Pillow's encoder writes it: the rows filtered as Pillow
+    chooses (:func:`.png_filter.filter_rows`, on ``px``'s device), deflated
+    with its zlib settings, cut into the blocks it writes at once
+    (``max(MAXBLOCK, 4 * width)`` bytes), each an IDAT or fdAT body."""
+    from .png_filter import filter_rows
+
+    if mode == "I":  # Pillow's I → I;16B packer clips
+        px = px.clamp(0, 65535)
+    data = deflate(filter_rows(px, PNG_MODES[mode][0]).cpu().numpy().tobytes())
+    size = max(_MAXBLOCK, 4 * int(px.shape[1]))
+    return [data[i:i + size] for i in range(0, len(data), size)] or [b""]
+
+
+def png_file(mode: str, px, text: Optional[Dict[str, str]] = None, size=None) -> bytes:
+    """A still PNG of ``px`` in ``mode``, as Pillow's ``save`` writes it:
+    IHDR (of ``size``, (w, h), where given: an animation's canvas), the
+    text chunks, the IDAT chunks, IEND. A mode PNG has no writer for
+    (``F``) raises Pillow's OSError."""
+    if mode not in PNG_MODES:
+        raise OSError(f"cannot write mode {mode} as PNG")
+    depth, ctype = PNG_MODES[mode]
+    w, h = size or (int(px.shape[1]), int(px.shape[0]))
+    out = [_PNG_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))]
     for key, value in (text or {}).items():
         key, value = str(key), str(value)
         try:
@@ -407,9 +489,17 @@ def write_png(img: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
         except UnicodeEncodeError:
             out.append(_chunk(b"iTXt", key.encode("latin-1") + b"\x00\x00\x00\x00\x00"
                               + value.encode("utf-8")))
-    out.append(_chunk(b"IDAT", zlib.compress(unfiltered_rows(img))))
+    out += [_chunk(b"IDAT", b) for b in png_blocks(px, mode)]
     out.append(_chunk(b"IEND", b""))
     return b"".join(out)
+
+
+def write_png(img, text: Optional[Dict[str, str]] = None) -> bytes:
+    """An image as the reference hands it to Pillow (numpy, or a tensor
+    filtered on its device) → PNG bytes, as ``Image.fromarray(img).save``
+    writes them: every mode of :func:`pillow_image` but ``F`` (OSError);
+    what ``fromarray`` refuses raises its TypeError."""
+    return png_file(*pillow_image(img), text)
 
 
 # -- BMP ----------------------------------------------------------------------
@@ -804,8 +894,11 @@ def pnm_info(data: bytes) -> dict:
 
 
 def write_pnm(img: np.ndarray) -> bytes:
-    """(H, W) gray → P5, (H, W, 3) RGB → P6."""
+    """(H, W) gray → P5, (H, W, 3) RGB → P6; (H, W, 4) RGBA → P6 of its
+    RGB, as Pillow writes it."""
     img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = np.ascontiguousarray(img[..., :3])
     if img.ndim == 3 and img.shape[2] != 3:
         raise CodecError(f"cannot write {img.shape[2]}-channel images as PPM")
     h, w = img.shape[:2]

@@ -490,26 +490,41 @@ def test_broken_and_odd_streams_through_cv2_from_a_start_for_a_count(name, jax_c
     _same_cv2_reads(BROKEN[name](), [(0, 1), (0, 2), (1, 1), (0, 32767), (2, 1)])
 
 
-def test_what_the_writer_leaves_is_not_ported(tmp_path):
-    """Pillow writes 2-channel (LA), 16-bit and mixed-size frames; the port
-    raises not_ported (item 8d-ii) for them, through cv2's imwritemulti too."""
-    f = np.zeros((4, 5, 3), np.uint8)
-    for frames in ([f[..., :2], f[..., :2]], [f.astype(np.uint16), f.astype(np.uint16)],
-                   [f, f[:2]]):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            apng.write_apng(frames)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.imwritemulti(str(tmp_path / "la.png"), [f[..., :2], f[..., :2]])
-    assert not list(tmp_path.iterdir())
+def test_what_the_writer_leaves_is_not_ported(tmp_path, jax_cpu):
+    """The writes the port once refused (item 8d-ii-a), as Pillow makes them:
+    2-channel (LA) and mixed-size frames give Pillow's file, a u16 3-channel
+    frame Image.fromarray's TypeError; cv2's imwritemulti of LA frames
+    writes the reference's bytes, and of u16 3-channel frames answers False
+    as the reference's does."""
+    f = np.random.default_rng(7).integers(0, 256, (4, 5, 3), np.uint8)
+    for frames in ([f[..., :2], f[::-1, :, :2].copy()], [f, f[:2]]):
+        assert apng.write_apng(frames) == _reference_file(frames)
+    u16 = [f.astype(np.uint16), f.astype(np.uint16)]
+    with pytest.raises(TypeError, match="Cannot handle this data type"):
+        apng.write_apng(u16)
+    with pytest.raises(TypeError, match="Cannot handle this data type"):
+        _reference_file(u16)
+    for C in (P, R):
+        assert C.imwritemulti(str(tmp_path / f"{C.__name__}.png"), [f[..., :2], f[..., 1:]])
+        assert C.imwritemulti(str(tmp_path / f"{C.__name__}16.png"), u16) is False
+    assert (tmp_path / "rustcv_tpu_torch.cv2.png").read_bytes() == \
+        (tmp_path / "rustcv_tpu.cv2.png").read_bytes()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["rustcv_tpu.cv2.png",
+                                                          "rustcv_tpu_torch.cv2.png"]
 
 
 def test_a_16_bit_gray_blend_is_not_ported():
-    """Pillow pastes a 16-bit gray frame over the canvas a byte per pixel
-    (its paste's 1-byte branch); the port raises not_ported (item 8)."""
+    """Pillow's load of a 16-bit gray frame blended OP_OVER converts its box
+    to RGBA, which Pillow 12.1 cannot do for I;16: its frames stop there
+    with a ValueError, and the port's stop there too, after the same
+    frames."""
     data = AD.apng_stream((4, 3), 16, 0, [dict(samples=np.full((3, 4, 1), 500)),
                                           dict(samples=np.full((1, 2, 1), 9), xy=(1, 1),
                                                blend=1)])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    _same_reads(data)
+    frames = _pillow(data)[0]
+    assert len(frames) == 1 and isinstance(_pillow(data)[4], ValueError)
+    with pytest.raises(ValueError, match="I;16 to RGBA"):
         list(apng.Apng(data).frames())
 
 

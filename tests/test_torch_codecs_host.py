@@ -292,7 +292,10 @@ def test_corrupt_and_unknown_files(tmp_path):
         with pytest.raises(core.CameraError):
             imgcodecs.imdecode(data, device="cpu")
     assert not imgcodecs.imwrite(str(tmp_path / "x.unknownext"), _mat(_img((4, 4, 3), 0)))
-    assert not imgcodecs.imwrite(str(tmp_path / "x.ppm"), _mat(_img((4, 4, 4), 0)))  # Pillow can't either
+    # Pillow writes a 4-channel image to PPM as P6 of its first three channels
+    assert imgcodecs.imwrite(str(tmp_path / "x.ppm"), _mat(_img((4, 4, 4), 0)))
+    assert jax_codecs.imwrite(str(tmp_path / "j.ppm"), jax_core.Mat.from_array(_img((4, 4, 4), 0)))
+    assert (tmp_path / "x.ppm").read_bytes() == (tmp_path / "j.ppm").read_bytes()
 
 
 # -- the host JPEG decode ----------------------------------------------------------

@@ -55,7 +55,11 @@ to the bytes written from host Mats; and every animated PNG fixture of
 ``tests/data/apng`` read onto the card against the CPU read and the
 reference's hashes, animated PNG written from CUDA Mats equal to the bytes
 written from host Mats, and the GIF quantizer on CUDA frames equal to
-Pillow's hashes (``tests/data/gif/quant_refs.json``) and the CPU's.
+Pillow's hashes (``tests/data/gif/quant_refs.json``) and the CPU's; and
+PNG's row filters on CUDA tensors equal to the CPU's, and every case of
+phase 3za (``chip_smoke.png_write_frames``) written from CUDA tensors and
+CUDA Mats equal to the bytes written on the CPU and to Pillow's chunks,
+controls and image data (``tests/data/png/write_refs.json``).
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -2401,3 +2405,49 @@ def test_quantize_on_the_card(cuda, name):
     assert np.array_equal(idx, cidx) and np.array_equal(pal, cpal)
     assert (len(pal), _sha(pal), _sha(idx)) == (ref["entries"], ref["palette_sha256"],
                                                ref["index_sha256"])
+
+
+@pytest.mark.parametrize("mode,shape,depth", [
+    ("RGB", (1080, 1920, 3), 8), ("RGBA", (37, 41, 4), 8), ("L", (1080, 1920), 8),
+    ("LA", (9, 1, 2), 8), ("1", (1080, 1917), 1), ("I;16", (23, 7), 16)])
+def test_png_filters_on_the_card(cuda, mode, shape, depth):
+    """Item 8d-ii-a: Pillow's row filters run on a CUDA tensor, the CPU's
+    bytes, and no kernel of the port's launches."""
+    from rustcv_tpu_torch.imgcodecs import png_filter
+
+    rng = np.random.default_rng(len(shape) + shape[0])
+    top = {1: 2, 8: 256, 16: 65536}[depth]
+    a = torch.from_numpy(rng.integers(0, top, shape).astype(np.int32))
+    a = a.bool() if depth == 1 else a.to(torch.uint8) if depth == 8 else a
+    kernels.reset_launch_counts()
+    on_card = png_filter.filter_rows(a.to(cuda), depth)
+    assert on_card.is_cuda and torch.equal(on_card.cpu(), png_filter.filter_rows(a, depth))
+    assert not any(kernels.launch_counts().values())
+
+
+@functools.lru_cache(maxsize=1)
+def _png_cases():
+    import chip_smoke
+
+    return chip_smoke.png_write_frames()
+
+
+@pytest.mark.parametrize("name", sorted(json.loads(
+    (Path(__file__).resolve().parent / "data" / "png" / "write_refs.json").read_text())))
+def test_png_written_from_the_card(cuda, name):
+    """Item 8d-ii-a: each phase-3za case written from CUDA tensors (and, for
+    u8 frames, CUDA Mats) is the CPU's bytes, with Pillow's chunks,
+    controls and image data before zlib, at most 1.02x its size."""
+    import chip_smoke
+
+    ref = json.loads((Path(__file__).resolve().parent / "data" / "png"
+                      / "write_refs.json").read_text())[name]
+    frames, kw = _png_cases()[name]
+    host = chip_smoke.png_write(frames, kw)
+    assert chip_smoke.png_write([torch.from_numpy(f).to(cuda) for f in frames], kw) == host
+    if all(f.dtype == np.uint8 for f in frames):
+        assert chip_smoke.png_mat_write(frames, kw, "cuda") == host
+    got = chip_smoke.png_summary(host)
+    assert {k: got[k] for k in ("chunks", "controls", "frames_sha256")} == \
+        {k: ref[k] for k in ("chunks", "controls", "frames_sha256")}
+    assert got["bytes"] <= chip_smoke.PNG_SIZE_RATIO * ref["bytes"]

@@ -670,8 +670,10 @@ def test_imencode_with_metadata_reads_back_as_the_references(ext, gray):
 
 
 def test_metadata_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        P2.imencodeWithMetadata(".png", np.zeros((4, 4), np.uint16))
+    # a 16-bit gray PNG, once refused, is written (item 8d-ii-a): the reference's bytes
+    u16 = np.arange(16, dtype=np.uint16).reshape(4, 4) * 4099
+    ok, buf = P2.imencodeWithMetadata(".png", u16, None, {"k": "v"})
+    assert ok and buf.tobytes() == R2.imencodeWithMetadata(".png", u16, None, {"k": "v"})[1].tobytes()
     # a WebP, once refused, is written (item 8c-ii; its bars: tests/test_torch_webp_write.py)
     ok, buf = P2.imencodeWithMetadata(".webp", np.zeros((4, 4, 3), np.uint8))
     assert ok and imgcodecs.imdecode(buf.tobytes(), device="cpu").to_numpy().shape == (4, 4, 3)

@@ -251,8 +251,10 @@ def test_answers_that_are_not_files(case, tmp_path, jax_cpu):
     """False from imwrite where Pillow raises ValueError/OSError,
     CameraError from imencode, the reference's own exceptions elsewhere
     (libwebp's RuntimeError for an animation frame it refuses, Pillow's
-    ValueError through imencodeWithMetadata), not_ported for a 16-bit
-    imencodeWithMetadata, and imencodemulti's (False, empty)."""
+    ValueError through imencodeWithMetadata), Image.fromarray's TypeError
+    for a 16-bit colour imencodeWithMetadata and not_ported for a 16-bit
+    gray one (Pillow writes it; the port's WebP writer is 8-bit), and
+    imencodemulti's (False, empty)."""
     p, r = str(tmp_path / "p.webp"), str(tmp_path / "r.webp")
     if case in ("empty", "big", "big_bgra"):
         a = {"empty": np.zeros((0, 0, 3), np.uint8), "big": BIG,
@@ -272,9 +274,11 @@ def test_answers_that_are_not_files(case, tmp_path, jax_cpu):
         a = np.zeros((8, 8, 3), np.float32 if case == "float" else np.uint16)
         assert _answer(lambda: Mat.from_array(a, device="cpu")) is TypeError
         assert _answer(lambda: RMat.from_array(a)) is TypeError
-        if case == "uint16":  # Pillow writes 16-bit images; the port's writers 8-bit
+        if case == "uint16":  # fromarray refuses 16-bit colour; Pillow writes 16-bit gray
+            assert _answer(lambda: P.imencodeWithMetadata(".webp", a)) is \
+                _answer(lambda: R.imencodeWithMetadata(".webp", a)) is TypeError
             with pytest.raises(NotImplementedError, match="item 8"):
-                P.imencodeWithMetadata(".webp", a)
+                P.imencodeWithMetadata(".webp", a[..., 0].copy())
     elif case in ("anim_big", "anim_sizes", "anim_empty"):
         frames = {"anim_big": [BIG, BIG], "anim_empty": [],
                   "anim_sizes": [np.zeros((8, 8, 3), np.uint8), np.zeros((9, 8, 3), np.uint8)]}

@@ -12,13 +12,16 @@ alpha, L, P with a transparent index, a repeated frame (merged into the one
 before), ``default_image=True``, loops 0 and 3, and an 8-frame 1920x1080 RGB
 animation for phase 4z's timings. :func:`apng_stream` builds, chunk by
 chunk, what Pillow does not write: a 16-bit RGBA animation, an Adam7
-interlaced one, a zero delay denominator and an ``OP_PREVIOUS`` first frame.
+interlaced one, a zero delay denominator, an ``OP_PREVIOUS`` first frame
+and a 16-bit gray frame blended ``OP_OVER`` (Pillow 12.1 reads its first
+frame and fails on the blend).
 The manifest holds per file what the reference reads (``Image.open``, frame
 by frame ``convert("RGB")``, flipped to BGR): the SHA-256 of every frame's
 bytes, the shape, ``n_frames``, the durations and loop of its
 ``imreadanimation``, its ``imread_with_metadata`` dict, and the error
 that stops the frames where there is one (``read_error``: Pillow 12.1
-decodes only the first frame of an interlaced APNG); and the control
+decodes only the first frame of an interlaced APNG, and cannot convert a
+16-bit gray box to RGBA to blend it); and the control
 chunks of what the reference writes of those frames: ``imwritemulti``'s
 (no durations, loop 0) and ``imwriteanimation``'s (the durations and loop
 read), as ``acTL`` (frames, plays) and each ``fcTL`` (width, height, x, y,
@@ -174,6 +177,9 @@ def files() -> dict:
     out["previous_first.png"] = apng_stream((w, h), 8, 4, [
         dict(samples=g, dispose=2), dict(samples=g[:20, :30], xy=(10, 10), dispose=2, blend=1),
         dict(samples=g[5:25, 5:15], xy=(40, 5), dispose=0, blend=1)])
+    g16 = rng.integers(0, 65536, (h, w, 1))
+    out["gray16_blend.png"] = apng_stream((w, h), 16, 0, [
+        dict(samples=g16, dispose=1), dict(samples=g16[10:30, 5:40] // 3, xy=(12, 8), blend=1)])
     out["anim8_1920x1080.png"] = _pillow(chip_smoke.apng_timing_frames(), duration=40)
     return out
 
@@ -197,7 +203,7 @@ def read_truths(data: bytes) -> dict:
             for f in ImageSequence.Iterator(im):
                 frames.append(_bgr(f))
                 durations.append(int(f.info.get("duration", 100)))
-        except Exception as e:  # Pillow 12.1 fails on the later frames of an interlaced APNG
+        except Exception as e:  # Pillow 12.1 fails on an interlaced APNG's later frames, a 16-bit gray blend
             error = type(e).__name__
     return {"sha256": [hashlib.sha256(f.tobytes()).hexdigest() for f in frames],
             "shape": list(frames[0].shape), "n_frames": n, "durations": durations, "loop": loop,
