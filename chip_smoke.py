@@ -227,7 +227,13 @@ Phases:
    animations) written from card tensors and Mats (the row filters run on
    the card) equal to the CPU's bytes and to Pillow's chunks, controls and
    image data (``tests/data/png/write_refs.json``), at most 1.02x its size,
-   no kernel launched;
+   no kernel launched; (3zb) the JPEG forms of item 8d-ii-b: every fixture
+   of ``tests/data/jpeg`` (CMYK and YCCK, progressive streams left
+   unrefined and smoothed, lossless, arithmetic-coded, the forms that stay
+   refused) read by ``imread`` and ``imdecode`` onto the card equal to the
+   CPU read and the manifest's hash, ``decode_mjpeg_host_rgb`` and
+   ``decode_mjpeg_into_mat`` answering as the manifest says,
+   ``imread_with_metadata`` its dict, no kernel launched;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -269,7 +275,10 @@ Phases:
    1080p; (4za) ``imencode(".png")`` of a 1080p card Mat whole and split
    into the row filters on the card, the download and zlib,
    ``imwrite_with_metadata``, and ``imwritemulti`` of the 8-frame 1080p
-   APNG, each file's size beside Pillow's.
+   APNG, each file's size beside Pillow's; (4zb) ms per ``imread`` onto the
+   card of each JPEG form's 1080p fixture (CMYK, YCCK, smoothed
+   progressive, lossless, arithmetic sequential and progressive) beside a
+   baseline 4:2:0 one, each with the native decode alone.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -3395,6 +3404,118 @@ def time_formats_8d_writes(smi: str, dev: str = "cuda") -> None:
         print(f"{tag} imwritemulti of the 8-frame 1920x1080 APNG's frames to .png ({size} bytes, "
               f"Pillow's {want}, {size / want:.4f}x) from card Mats: {ms:.4f} ms", flush=True)
         expect(size <= PNG_SIZE_RATIO * want, f"the 8-frame APNG is {size} bytes, Pillow's {want}")
+
+
+# -- phases 3zb and 4zb: the JPEG forms of ROADMAP Queue 1 item 8d-ii-b. The
+# card's machine has no Pillow and no libjpeg, so the phase reads the
+# fixtures committed in tests/data/jpeg (tools/make_jpeg_data.py, written by
+# Pillow and libjpeg where they are) and holds each read to the reference's
+# answers in their manifest.
+
+JPEG_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+JPEG_FORMS_1080 = (("p1080_baseline_420.jpg", "baseline 4:2:0"), ("p1080_cmyk.jpg", "CMYK"),
+                   ("p1080_ycck.jpg", "YCCK 4:2:0"),
+                   ("p1080_smoothed.jpg", "progressive 4:2:0, refinements cut (smoothed)"),
+                   ("p1080_lossless.jpg", "lossless RGB, predictor 4"),
+                   ("p1080_arith_seq.jpg", "arithmetic sequential 4:2:0"),
+                   ("p1080_arith_prog.jpg", "arithmetic progressive 4:2:0"))
+
+
+def _outcome(fn) -> str:
+    """"read", or the class name of what ``fn`` raises."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the class is the answer
+        return type(e).__name__
+    return "read"
+
+
+def run_formats_8d_ii_b(dev: str = "cuda") -> dict:
+    """Phase 3zb: the JPEG forms on the card's machine, with no Pillow.
+    Every fixture (CMYK and YCCK, smoothed and unsmoothed progressive
+    streams, lossless, arithmetic-coded, the forms that stay refused) read
+    by ``imread`` and ``imdecode`` onto ``dev`` equals the CPU read and the
+    manifest's hash, or raises the reference's error class;
+    ``decode_mjpeg_host_rgb`` and ``decode_mjpeg_into_mat`` answer as the
+    manifest says (``decode_mjpeg_into_mat`` reads a lossless frame of one
+    or three components, which the reference's libjpeg-turbo 2.1 binding
+    refuses: a deviation in the port map); ``imread_with_metadata`` gives
+    the manifest's dict. Returns the phase's launches (none expected)."""
+    import hashlib
+
+    from rustcv_tpu_torch import imgcodecs, native
+    from rustcv_tpu_torch.core.mat import Mat
+    from rustcv_tpu_torch.ops import decode, kernels
+
+    kernels.reset_launch_counts()
+    with open(os.path.join(JPEG_DATA, "manifest.json")) as f:
+        manifest = json.load(f)
+    forms: dict = {}
+    for name, m in sorted(manifest.items()):
+        path = os.path.join(JPEG_DATA, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        expect(hashlib.sha256(data).hexdigest() == m["sha256"], f"{name}: not the committed file")
+        read = m["entry"]["imread"]
+        for what, call in (("imread", lambda: imgcodecs.imread(path, device=dev)),
+                           ("imdecode", lambda: imgcodecs.imdecode(data, device=dev))):
+            got = _outcome(call)
+            expect(got == read, f"{name}: {what} answers {got}, the reference {read}")
+        expect(_outcome(lambda: decode.decode_mjpeg_host_rgb(data))
+               == m["entry"]["decode_mjpeg_host_rgb"], f"{name}: decode_mjpeg_host_rgb")
+        into = m["entry"]["decode_mjpeg_into_mat"]
+        if m["form"] == "lossless" and read == "read" and native.jpeg_header(data)[2] != 4:
+            into = "read"  # the deviation: the reference's libjpeg-turbo 2.1 has no SOF3
+        expect(_outcome(lambda: decode.decode_mjpeg_into_mat(data, Mat(device="cpu"))) == into,
+               f"{name}: decode_mjpeg_into_mat")
+        if read != "read":
+            forms.setdefault(m["form"], []).append(name)
+            continue
+        cpu = imgcodecs.imread(path, device="cpu").to_numpy()
+        expect(list(cpu.shape) == m["shape"]
+               and hashlib.sha256(np.ascontiguousarray(cpu).tobytes()).hexdigest()
+               == m["bgr_sha256"], f"{name}: not the reference's read")
+        for what, mat in (("imread", imgcodecs.imread(path, device=dev)),
+                          ("imdecode", imgcodecs.imdecode(data, device=dev))):
+            expect(mat.device().device.type == dev, f"{name}: {what} on {mat.device().device}")
+            expect(np.array_equal(mat.to_numpy(), cpu), f"{name}: the {dev} {what} differs")
+        mat, meta = imgcodecs.imread_with_metadata(path, device=dev)
+        expect(meta == m["metadata"] and np.array_equal(mat.to_numpy(), cpu),
+               f"{name}: imread_with_metadata {meta}")
+        rgb = decode.decode_mjpeg_host_rgb(data)
+        expect(np.array_equal(rgb, cpu[..., ::-1]), f"{name}: decode_mjpeg_host_rgb differs")
+        forms.setdefault(m["form"], []).append(name)
+    print(f"formats 8d-ii-b: {len(manifest)} JPEG files read onto {dev} as the reference "
+          f"answers (its hashes, error classes and metadata), by form: "
+          f"{ {k: len(v) for k, v in sorted(forms.items())} }", flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3zb launched kernels: {counts}")
+    return counts
+
+
+def time_formats_8d_ii_b(smi: str, dev: str = "cuda") -> None:
+    """Phase 4zb: ms per ``imread`` onto the card (CUDA events over
+    MULTI_TIMED calls, the file in the page cache, read warm) of each JPEG
+    form's 1920x1080 fixture beside a baseline 4:2:0 one, and beside each
+    the native decode alone (``native.jpeg_decode_bgr`` into a host array,
+    the host clock)."""
+    from rustcv_tpu_torch import imgcodecs, native
+
+    tag = f"[{smi}]"
+    print(f"{tag} phase 4zb, JPEG forms at 1920x1080 (files read warm):", flush=True)
+    for name, what in JPEG_FORMS_1080:
+        path = os.path.join(JPEG_DATA, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        ms = cuda_ms(lambda: imgcodecs.imread(path, device=dev), MULTI_TIMED)
+        out = np.empty((1080, 1920, 3), np.uint8)
+        native.jpeg_decode_bgr(data, out=out)
+        t = time.perf_counter()
+        for _ in range(MULTI_TIMED):
+            native.jpeg_decode_bgr(data, out=out)
+        host = (time.perf_counter() - t) * 1e3 / MULTI_TIMED
+        print(f"{tag} imread of the 1920x1080 {what} JPEG ({len(data)} bytes) onto the card: "
+              f"{ms:.4f} ms; the native decode alone (host clock): {host:.4f} ms", flush=True)
 
 
 def time_new_paths(smi: str) -> None:
@@ -7342,6 +7463,8 @@ def main() -> int:
         done("phase 3z, animated PNG and the median cut (item 8d-i)")
         phase("phase 3za, PNG writes with Pillow's filters (item 8d-ii-a)", run_formats_8d_writes)
         done("phase 3za, PNG writes with Pillow's filters (item 8d-ii-a)")
+        phase("phase 3zb, JPEG forms (item 8d-ii-b)", run_formats_8d_ii_b)
+        done("phase 3zb, JPEG forms (item 8d-ii-b)")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -7359,6 +7482,7 @@ def main() -> int:
                            lambda: time_formats_8d(smi)),
                           ("PNG writes with Pillow's filters (4za)",
                            lambda: time_formats_8d_writes(smi)),
+                          ("JPEG forms (4zb)", lambda: time_formats_8d_ii_b(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

@@ -11,9 +11,11 @@ files with Pillow. The port does so with its own codecs
 ``imgcodecs.apng``, ``imgcodecs.exif``): multi-page TIFF, animated GIF,
 still and animated WebP and animated PNG both ways, every still format's
 one frame, the metadata of all seven formats. The forms of ROADMAP Queue 1
-item 8d-ii (4-channel GIF writes, CMYK and lossless JPEG, the TIFF forms
-``imgcodecs.tiff`` names) raise ``not_ported``, also through the calls that
-answer False for a file or buffer that is no image.
+item 8d-ii (4-channel GIF writes, the TIFF forms ``imgcodecs.tiff``
+names) raise ``not_ported``, also through the calls that answer False for a
+file or buffer that is no image; every JPEG Pillow reads (CMYK and YCCK,
+progressive streams left unrefined, lossless, arithmetic-coded) reads as
+Pillow reads it.
 Held call for call against the reference in
 ``tests/test_torch_cv2_later_calls.py``.
 """

@@ -17,9 +17,11 @@ Two backends, the reference's names:
   Pillow writes it, lossy at quality 80, by the port's VP8 encoder and
   lossless alpha coder, the planes made on the image's device), all
   without Pillow; JPEG (baseline, multi-scan and progressive, any
-  integral sampling) decoded by the port's C++ host decoder
-  (:func:`..native.jpeg_decode_bgr`, libjpeg-turbo's default decode: the
-  same pixels as the reference's Pillow) and encoded by the port's encoder
+  integral sampling, CMYK and YCCK, lossless, arithmetic-coded; a
+  progressive stream left unrefined smoothed as libjpeg smooths it)
+  decoded by the port's C++ host decoder (:func:`..native.jpeg_decode_bgr`,
+  libjpeg-turbo's default decode: the same pixels as the reference's
+  Pillow) and encoded by the port's encoder
   on a CPU tensor plus its C++ Huffman coder (other bytes than Pillow's,
   within the encoder's tolerance once decoded).
 * ``"tpu"``: JPEG only, the port's device codec: :mod:`..ops.jpeg_encode`
@@ -38,9 +40,8 @@ every frame of a GIF, an animated WebP or an animated PNG (one of any
 other format); ``imwritemulti`` writes TIFF, GIF, animated WebP and
 animated PNG, and raises ``KeyError`` for JPEG, BMP and PNM (Pillow has no
 multi-frame writer for them). The forms of ROADMAP Queue 1 item 8d-ii
-raise ``not_ported``: the JPEG forms the host decoder does not read yet
-(CMYK/YCCK, lossless, arithmetic-coded, and progressive streams left
-unrefined), the TIFF forms :mod:`.tiff` names, 4-channel GIF writes.
+raise ``not_ported``: the TIFF forms :mod:`.tiff` names, 4-channel GIF
+writes.
 """
 
 from __future__ import annotations

@@ -199,8 +199,13 @@ def jpeg_info(data: bytes) -> dict:
                         info["adobe_transform"] = s[11]
                 elif m == 0xFE:
                     info["comment"] = s
-                elif m in (0xC2, 0xC6, 0xCA, 0xCE):
-                    info["progressive"] = info["progression"] = 1
+                elif 0xC0 <= m <= 0xCF and m not in (0xC4, 0xCC):  # Pillow's SOF handler
+                    if s[0] != 8:
+                        raise _host.CodecError(f"cannot handle {s[0]}-bit layers")
+                    if s[5] not in (1, 3, 4):
+                        raise _host.CodecError(f"cannot handle {s[5]}-layer images")
+                    if m in (0xC2, 0xC6, 0xCA, 0xCE):
+                        info["progressive"] = info["progression"] = 1
                 elif m == 0xDA:
                     return info
             cur, p = data[p], p + 1

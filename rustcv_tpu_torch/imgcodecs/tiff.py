@@ -473,11 +473,10 @@ def _convert(v: np.ndarray, s: dict, page: _Page) -> np.ndarray:
         cm = (np.asarray(cmap[:3 * n], np.int64) // 256).astype(np.uint8).reshape(3, n).T
         pal[:min(n, 256)] = cm[:256]
         return pal[v[..., 0]]
-    if mode == "CMYK":
-        c = v[..., :4].astype(np.int32)
-        nk = 255 - c[..., 3:4]
-        t = c[..., :3] * nk + 128
-        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    if mode == "CMYK":  # Pillow's formula, the one copy the JPEG decode uses too
+        from .. import native
+
+        return native.cmyk_to_rgb(v[..., :4])
     rgb = v[..., :3].astype(np.int32)
     if raw.startswith("RGBa"):  # associated alpha: Pillow un-premultiplies
         a = v[..., 3:4].astype(np.int32)

@@ -9,9 +9,10 @@ block-packed, → baseline JFIF bytes, Annex K Huffman tables),
 ``jpeg_entropy.cpp`` (baseline JFIF → coefficient grids and quant tables,
 which checks a payload exactly: Huffman coding is lossless; the flat-
 and block-packed forms that feed the hybrid MJPEG decode; and, for the
-host decode alone, progressive and multi-scan streams), ``jpeg_host.cpp``
+host decode alone, progressive, multi-scan, four-component, lossless and
+arithmetic-coded streams), ``jpeg_host.cpp``
 (the full decode to BGR on the host, libjpeg-turbo's default decode without
-libjpeg), ``png_filter.cpp`` (the PNG reader's scanline unfiltering),
+libjpeg, and Pillow's CMYK → RGB), ``png_filter.cpp`` (the PNG reader's scanline unfiltering),
 ``text_raster.cpp`` (put_text's glyph rasterizer), ``capture.cpp`` (the
 threaded frame ring behind :class:`NativeRing`: a ``std::thread`` producer
 writes the frozen test pattern as YUYV into its slots) and ``v4l2.cpp``
@@ -129,6 +130,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rcv_jpeg_decode_bgr.restype = ctypes.c_int
     lib.rcv_jpeg_decode_bgr.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, ctypes.c_int,
                                         ctypes.c_int]
+    lib.rcv_cmyk_to_rgb.restype = None
+    lib.rcv_cmyk_to_rgb.argtypes = [u8p, ctypes.c_long, u8p]
     lib.rcv_jpeg_entropy_encode_packed.restype = ctypes.c_long
     lib.rcv_jpeg_entropy_encode_packed.argtypes = [
         u8p, i16p, ctypes.c_int, i32p, i16p, ctypes.c_int,
@@ -309,12 +312,6 @@ def jpeg_entropy_info(data: "np.ndarray | bytes") -> dict:
 
 
 _OVER_CAPACITY = -24  # the decoder's return code when the packed buffers are full
-# The host decode's codes for what libjpeg reads and it does not yet
-# (jpeg_entropy.cpp): a CMYK/YCCK, lossless or arithmetic-coded frame; a
-# progressive stream left unrefined at EOI (libjpeg smooths it).
-_NOT_PORTED = {-50: "CMYK/YCCK, lossless and arithmetic-coded JPEG",
-               -51: "progressive JPEG whose coefficients are not refined to their last bit "
-                    "(libjpeg's block smoothing)"}
 
 
 def _u16_tables():
@@ -516,50 +513,58 @@ def text_glyph(points: np.ndarray, on_curve: np.ndarray, ends: np.ndarray, canva
         raise ValueError(f"malformed glyph outline (rcv_text_glyph rc={rc})")
 
 
-def _not_ported(rc: int):
-    from ..core.errors import not_ported
-
-    return not_ported(f"the host JPEG decode of {_NOT_PORTED[rc]}", item="8")
-
-
-def jpeg_size(data: "np.ndarray | bytes") -> tuple:
-    """(width, height) from the frame header of a JPEG the host decode
-    reads (baseline, extended sequential, progressive)."""
+def jpeg_header(data: "np.ndarray | bytes") -> tuple:
+    """(width, height, components) from the frame header of a JPEG the host
+    decode reads: baseline, extended sequential, progressive, lossless and
+    arithmetic-coded, of one, three or four components. Raises ValueError
+    for one it does not read (libjpeg refuses it too, or Pillow does)."""
     lib = _need_lib()
     buf = _as_u8_buf(data)
     w, h, nc, flags = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    arrs = [(ctypes.c_int * 3)() for _ in range(4)]
+    arrs = [(ctypes.c_int * 4)() for _ in range(4)]
     rc = lib.rcv_jpeg_host_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h),
                                 ctypes.byref(nc), *arrs, ctypes.byref(flags))
-    if rc in _NOT_PORTED:
-        raise _not_ported(rc)
     if rc != 0:
         raise ValueError(f"unsupported or corrupt JPEG (rcv_jpeg_host_info rc={rc})")
-    return w.value, h.value
+    return w.value, h.value, nc.value
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's CMYK → RGB (``Convert.c``'s integer formula, the copy the
+    JPEG decode uses): (..., 4) u8 → (..., 3) u8."""
+    lib = _need_lib()
+    src = np.ascontiguousarray(cmyk, np.uint8)
+    out = np.empty(src.shape[:-1] + (3,), np.uint8)
+    lib.rcv_cmyk_to_rgb(_ptr(src), src.size // 4, _ptr(out))
+    return out
 
 
 def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None) -> np.ndarray:
     """Full host decode of a JPEG (``jpeg_host.cpp``: the port's entropy
-    decoder over every scan, the integer islow IDCT, libjpeg's upsampler
-    per component, the integer YCbCr tables; no libjpeg) → BGR (H, W, 3)
-    u8: what libjpeg-turbo gives with its default settings.
+    decoder over every scan, Huffman or arithmetic, libjpeg's block
+    smoothing of a progressive stream left unrefined, the integer islow
+    IDCT or a lossless frame's predictors, libjpeg's upsampler per
+    component, the integer YCbCr tables, Pillow's CMYK; no libjpeg) → BGR
+    (H, W, 3) u8: what Pillow's libjpeg-turbo and ``convert("RGB")`` give.
 
     ``out`` (optional) is written in place: an (H, W, 3) u8 array whose
     rows may be strided (a Mat's padded rows), with unit pixel and channel
-    strides. Raises ValueError for a corrupt stream or one libjpeg refuses,
-    ``not_ported`` for one libjpeg reads and the port does not yet."""
+    strides; the frame must be its size (the decode checks it, so the
+    header is parsed once). Raises ValueError for a corrupt stream, one
+    libjpeg or Pillow refuses, or an ``out`` of another size."""
     lib = _need_lib()
     buf = _as_u8_buf(data)
-    w, h = jpeg_size(buf)
     if out is None:
+        w, h, _ = jpeg_header(buf)
         out = np.empty((h, w, 3), np.uint8)
-    if (out.shape != (h, w, 3) or out.dtype != np.uint8 or out.strides[1:] != (3, 1)
-            or not out.flags.writeable):
-        raise ValueError(f"out must be a writable ({h}, {w}, 3) uint8 array with packed pixels")
+    if (out.ndim != 3 or out.shape[2] != 3 or out.dtype != np.uint8
+            or out.strides[1:] != (3, 1) or not out.flags.writeable):
+        raise ValueError("out must be a writable (H, W, 3) uint8 array with packed pixels")
+    h, w = out.shape[:2]
     rc = lib.rcv_jpeg_decode_bgr(_ptr(buf), buf.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                                  out.strides[0], w, h)
-    if rc in _NOT_PORTED:
-        raise _not_ported(rc)
+    if rc == -41:
+        raise ValueError(f"out must be the frame's size, not ({h}, {w}, 3)")
     if rc != 0:
         raise ValueError(f"JPEG decode failed (rcv_jpeg_decode_bgr rc={rc})")
     return out

@@ -4,9 +4,18 @@
 //
 //   entropy decode   the port's decoder (jpeg_entropy.cpp,
 //                    rcv_jpeg_host_coeffs): baseline and extended
-//                    sequential, in one scan or several, and progressive
-//                    streams whose every coefficient is refined to its
-//                    last bit
+//                    sequential, in one scan or several, progressive,
+//                    arithmetic-coded (sequential and progressive), one to
+//                    four components; lossless frames come out of it as
+//                    samples, and skip the next three steps
+//   smoothing        libjpeg's block smoothing (jdcoefct.c,
+//                    decompress_smooth_data) of a progressive frame whose
+//                    DC is known in every component and some of whose
+//                    first nine AC coefficients (zigzag 1..9) are not
+//                    refined to their last bit at EOI: each such
+//                    coefficient still zero is estimated from the DC values
+//                    of the 5x5 blocks around it, and where none of those
+//                    nine came at all, the DC is re-estimated too
 //   dequantize       coefficient x quant table entry
 //   IDCT             the integer "islow" 8x8 inverse DCT: a column pass
 //                    kept with 2 extra fraction bits, a row pass, 13-bit
@@ -21,12 +30,19 @@
 //                    far), then across with 3/4, 1/4 weights and
 //                    alternating rounding biases (8 and 7 of 16); planes
 //                    end by repeating their last real sample. h2v1 and
-//                    h2v2 of a plane 2 or fewer samples wide, and every
-//                    other integral ratio (4:1:1, 4:1:0, ...), replicate
-//                    samples (box)
+//                    h2v2 of a plane 2 or fewer samples wide, every other
+//                    integral ratio (4:1:1, 4:1:0, ...) and every ratio of
+//                    a lossless frame (whose samples are 1x1 "blocks")
+//                    replicate samples (box)
 //   colour           YCbCr -> RGB with the integer tables of JFIF's
 //                    coefficients (16 fraction bits), or none where libjpeg
-//                    takes the components as RGB
+//                    takes the components as RGB (a lossless frame in YCbCr
+//                    or YCCK libjpeg-turbo 3 refuses: it converts none); four components are
+//                    CMYK, or YCCK (an Adobe transform other than 0) made
+//                    CMYK with the same tables and 255 - each of C, M, Y;
+//                    Pillow reads every four-component JPEG inverted
+//                    ("CMYK;I") and makes RGB with its integer formula
+//                    (rcv_cmyk_to_rgb, which the TIFF reader calls too)
 //
 // Output: rows of B, G, R bytes (gray repeated three times) into a
 // caller's buffer at any stride.
@@ -40,8 +56,7 @@
 extern "C" {
 int rcv_jpeg_host_info(const uint8_t* data, long len, int* width, int* height, int* ncomp,
                        int* h_samp, int* v_samp, int* bw, int* bh, int* flags);
-int rcv_jpeg_host_coeffs(const uint8_t* data, long len, int16_t* out0, int16_t* out1,
-                         int16_t* out2, uint16_t* q0, uint16_t* q1, uint16_t* q2);
+int rcv_jpeg_host_coeffs(const uint8_t* data, long len, int16_t** outs, uint16_t** qs, int* bits);
 }
 
 namespace {
@@ -161,6 +176,13 @@ const ColorTables& tables() {
   return t;
 }
 
+// Pillow's CMYK -> RGB (Convert.c, cmyk2rgb) of one channel: `v` the
+// channel's ink, `nk` 255 - K.
+inline uint8_t cmyk_channel(int v, int nk) {
+  int t = v * nk + 128;
+  return clamp_u8(nk - (((t >> 8) + t) >> 8));
+}
+
 // Fancy h2v1: `n` (> 2) input samples -> 2n output samples.
 void up_h2v1(const uint8_t* in, int n, uint8_t* out) {
   out[0] = in[0];
@@ -195,36 +217,189 @@ void up_h2v2(const uint8_t* near, const uint8_t* far, int n, uint8_t* out) {
 }
 
 // libjpeg's upsampler of one component (jdsample.c), by its expansion
-// against the largest sampling factors.
+// against the largest sampling factors; `fancy` false for a lossless frame.
 enum Upsample { kFull, kH2V1, kH1V2, kH2V2, kBox };
 
-Upsample upsampler(int hx, int vy, int dw) {
+Upsample upsampler(int hx, int vy, int dw, bool fancy) {
   if (hx == 1 && vy == 1) return kFull;
+  if (!fancy) return kBox;
   if (hx == 2 && vy == 1) return dw > 2 ? kH2V1 : kBox;
   if (hx == 1 && vy == 2) return kH1V2;
   if (hx == 2 && vy == 2) return dw > 2 ? kH2V2 : kBox;
   return kBox;  // int_upsample: every other integral ratio
 }
 
+// Natural positions of the coefficients the smoothing estimates, in the
+// order of their zigzag indices 1..9.
+constexpr int kQ01 = 1, kQ10 = 8, kQ20 = 16, kQ11 = 9, kQ02 = 2, kQ03 = 3, kQ12 = 10, kQ21 = 17,
+              kQ30 = 24;
+
+// libjpeg's smoothing_ok: every component's DC at least partly known and
+// its DC and first nine AC quantizers nonzero, and some coefficient 1..9
+// of some component not refined to its last bit.
+bool smoothing_ok(int nc, const uint16_t q[4][64], const int* bits) {
+  bool useful = false;
+  for (int c = 0; c < nc; c++) {
+    const uint16_t* t = q[c];
+    if (!t[0] || !t[kQ01] || !t[kQ10] || !t[kQ20] || !t[kQ11] || !t[kQ02] || !t[kQ03] ||
+        !t[kQ12] || !t[kQ21] || !t[kQ30])
+      return false;
+    if (bits[c * 64] < 0) return false;
+    for (int k = 1; k < 10; k++) useful = useful || bits[c * 64 + k] != 0;
+  }
+  return useful;
+}
+
+// One estimate: `num` over the coefficient's quantizer, rounded half away
+// from zero, held below 2^Al where Al bits are still to come.
+inline int16_t estimate(i64 num, i64 qv, int al) {
+  i64 p = ((qv << 7) + (num >= 0 ? num : -num)) / (qv << 8);
+  if (al > 0 && p >= (i64(1) << al)) p = (i64(1) << al) - 1;
+  return int16_t(num >= 0 ? p : -p);
+}
+
+// One component's blocks, smoothed as libjpeg's decompress_smooth_data
+// smooths them, then through the IDCT into `plane` (row stride pw). `v`,
+// `imcu_rows`, `hib` and `wib` are libjpeg's vertical factor, iMCU rows
+// and block extent of the component; rows past the grid's `bh` read as
+// zero (a lone component whose frame header gives it v > 1). The
+// neighbour rows are libjpeg-turbo 3's; libjpeg-turbo 2.1 takes them from
+// the block row and the iMCU row instead, which differs in the second and
+// third rows from either end of a frame of v > 1 and in a component two
+// blocks wide.
+void smooth_idct(const int16_t* coef, int bw, int bh, const uint16_t* q, const int* bits, int v,
+                 int imcu_rows, int hib, int wib, uint8_t* plane, long pw) {
+  const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                         bits[5] == -1 && bits[6] == -1 && bits[7] == -1 && bits[8] == -1 &&
+                         bits[9] == -1;
+  const i64 Q00 = q[0], Q01 = q[kQ01], Q10 = q[kQ10], Q20 = q[kQ20], Q11 = q[kQ11], Q02 = q[kQ02],
+            Q03 = q[kQ03], Q12 = q[kQ12], Q21 = q[kQ21], Q30 = q[kQ30];
+  auto dc = [&](int row, int col) -> int {
+    return row < bh ? coef[(size_t(row) * bw + col) * 64] : 0;
+  };
+  int16_t ws[64];
+  for (int im = 0; im < imcu_rows; im++) {
+    const int block_rows = im < imcu_rows - 1 ? v : (hib % v ? hib % v : v);
+    const int image_block_rows = block_rows * imcu_rows;
+    for (int br = 0; br < block_rows; br++) {
+      const int row = im * v + br;
+      // libjpeg-turbo 3's neighbour rows, from its (last-row-skewed)
+      // image_block_row
+      const int ib = im * block_rows + br;
+      const int prev = ib > 0 ? row - 1 : row;
+      const int pprev = ib > 1 ? row - 2 : prev;
+      const int next = ib < image_block_rows - 1 ? row + 1 : row;
+      const int nnext = ib < image_block_rows - 2 ? row + 2 : next;
+      const int rows[5] = {pprev, prev, row, next, nnext};
+      int D[5][5];  // DC01..DC25: D[r][c], r and c from -2 to +2
+      for (int r = 0; r < 5; r++) D[r][0] = D[r][1] = D[r][2] = D[r][3] = D[r][4] = dc(rows[r], 0);
+      const int last_col = wib - 1;
+      for (int bx = 0; bx < wib; bx++) {
+        if (bx == 0 && bx < last_col)
+          for (int r = 0; r < 5; r++) D[r][3] = D[r][4] = dc(rows[r], 1);
+        if (bx + 1 < last_col)
+          for (int r = 0; r < 5; r++) D[r][4] = dc(rows[r], bx + 2);
+        const int16_t* blk = coef + (size_t(row) * bw + bx) * 64;
+        memcpy(ws, blk, sizeof(ws));
+        const int DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2], DC04 = D[0][3], DC05 = D[0][4];
+        const int DC06 = D[1][0], DC07 = D[1][1], DC08 = D[1][2], DC09 = D[1][3], DC10 = D[1][4];
+        const int DC11 = D[2][0], DC12 = D[2][1], DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4];
+        const int DC16 = D[3][0], DC17 = D[3][1], DC18 = D[3][2], DC19 = D[3][3], DC20 = D[3][4];
+        const int DC21 = D[4][0], DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3], DC25 = D[4][4];
+        int al;
+        if ((al = bits[1]) != 0 && ws[kQ01] == 0)
+          ws[kQ01] = estimate(
+              Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                                  3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 -
+                                  3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                                  DC24 + DC25)
+                               : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+              Q01, al);
+        if ((al = bits[2]) != 0 && ws[kQ10] == 0)
+          ws[kQ10] = estimate(
+              Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                  13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 -
+                                  38 * DC18 - 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 +
+                                  3 * DC24 + DC25)
+                               : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+              Q10, al);
+        if ((al = bits[3]) != 0 && ws[kQ20] == 0)
+          ws[kQ20] = estimate(
+              Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                                  5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                               : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+              Q20, al);
+        if ((al = bits[4]) != 0 && ws[kQ11] == 0)
+          ws[kQ11] = estimate(
+              Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                                  DC21 - DC25)
+                               : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                                  DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+              Q11, al);
+        if ((al = bits[5]) != 0 && ws[kQ02] == 0)
+          ws[kQ02] = estimate(
+              Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                                  7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                               : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+              Q02, al);
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && ws[kQ03] == 0)
+            ws[kQ03] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+          if ((al = bits[7]) != 0 && ws[kQ12] == 0)
+            ws[kQ12] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+          if ((al = bits[8]) != 0 && ws[kQ21] == 0)
+            ws[kQ21] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+          if ((al = bits[9]) != 0 && ws[kQ30] == 0)
+            ws[kQ30] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+          ws[0] = estimate(
+              Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+                     42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+                     42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                     6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+              Q00, 0);
+        }
+        idct_islow(ws, q, plane + size_t(row) * 8 * pw + bx * 8, pw);
+        for (int r = 0; r < 5; r++) {
+          D[r][0] = D[r][1];
+          D[r][1] = D[r][2];
+          D[r][2] = D[r][3];
+          D[r][3] = D[r][4];
+        }
+      }
+    }
+  }
+}
+
 struct Scratch {
-  std::vector<int16_t> coef[3];
-  std::vector<uint8_t> plane[3];
-  std::vector<uint8_t> row[3];
+  std::vector<int16_t> coef[4];
+  std::vector<uint8_t> plane[4];
+  std::vector<uint8_t> row[4];
 };
 
 }  // namespace
 
 extern "C" {
 
+// Pillow's CMYK (as Pillow holds it: a JPEG's inverted) -> RGB of `n`
+// pixels.
+void rcv_cmyk_to_rgb(const uint8_t* cmyk, long n, uint8_t* rgb) {
+  for (long i = 0; i < n; i++, cmyk += 4, rgb += 3) {
+    int nk = 255 - cmyk[3];
+    rgb[0] = cmyk_channel(cmyk[0], nk);
+    rgb[1] = cmyk_channel(cmyk[1], nk);
+    rgb[2] = cmyk_channel(cmyk[2], nk);
+  }
+}
+
 // Decode JFIF `data` into `out`: height rows of width*3 B, G, R bytes, row
 // r at out + r*stride. `width`/`height` must be the frame's. Returns 0, a
 // negative decoder code for a corrupt or unsupported stream, -42 for
 // sampling factors that are not integral ratios (libjpeg refuses them),
-// -41 for a size mismatch, and rcv_jpeg_host_info's and
-// rcv_jpeg_host_coeffs' codes (-50, -51) for what it does not read yet.
+// -43 for a lossless frame whose colour needs converting (libjpeg-turbo 3
+// refuses it) and -41 for a size mismatch.
 int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride, int width,
                         int height) {
-  int w, h, nc, hs[3], vs[3], bw[3], bh[3], flags;
+  int w, h, nc, hs[4], vs[4], bw[4], bh[4], flags;
   int rc = rcv_jpeg_host_info(data, len, &w, &h, &nc, hs, vs, bw, bh, &flags);
   if (rc != 0) return rc;
   if (w != width || h != height) return -41;
@@ -235,22 +410,55 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
   }
   for (int c = 0; c < nc; c++)
     if (hmax % hs[c] || vmax % vs[c]) return -42;
+  const bool lossless = flags & 4;
+  // libjpeg-turbo 3 converts no colour of a lossless frame: YCbCr to the
+  // RGB Pillow asks for, or YCCK to its CMYK, it refuses
+  if (lossless && ((nc == 3 && !(flags & 2)) || (nc == 4 && (flags & 16)))) return -43;
 
   thread_local Scratch s;
-  uint16_t q[3][64];
-  for (int c = 0; c < 3; c++) s.coef[c].resize(c < nc ? size_t(bw[c]) * bh[c] * 64 : 64);
-  rc = rcv_jpeg_host_coeffs(data, len, s.coef[0].data(), s.coef[1].data(), s.coef[2].data(), q[0],
-                            q[1], q[2]);
+  uint16_t q[4][64];
+  int bits[4 * 64];
+  int16_t* outs[4];
+  uint16_t* qs[4];
+  for (int c = 0; c < 4; c++) {
+    s.coef[c].resize(c < nc ? size_t(bw[c]) * bh[c] * (lossless ? 1 : 64) : 64);
+    outs[c] = s.coef[c].data();
+    qs[c] = q[c];
+  }
+  rc = rcv_jpeg_host_coeffs(data, len, outs, qs, bits);
   if (rc != 0) return rc;
-  long pw[3], ph[3];
+  long pw[4], ph[4];
+  const bool smooth = (flags & 1) && smoothing_ok(nc, q, bits);
+  // libjpeg's geometry of a lone component: its frame header's factor
+  const int fv = nc == 1 ? ((flags >> 8) & 15) : 0;
+  const int vlib = fv ? fv : vmax;
+  const int imcu_rows = int((long(height) + 8 * vlib - 1) / (8 * vlib));
   for (int c = 0; c < nc; c++) {
-    pw[c] = long(bw[c]) * 8;
-    ph[c] = long(bh[c]) * 8;
+    pw[c] = long(bw[c]) * (lossless ? 1 : 8);
+    ph[c] = long(bh[c]) * (lossless ? 1 : 8);
     s.plane[c].resize(size_t(pw[c]) * ph[c]);
-    for (int by = 0; by < bh[c]; by++)
+    uint8_t* plane = s.plane[c].data();
+    const int16_t* coef = s.coef[c].data();
+    if (lossless) {
+      for (size_t i = 0; i < s.plane[c].size(); i++) plane[i] = uint8_t(coef[i]);
+      continue;
+    }
+    int first = 0;  // block rows smoothed before the plain IDCT takes the rest
+    if (smooth) {
+      const int v = fv ? fv : vs[c];
+      const int hib = int(((long(height) * v + vlib - 1) / vlib + 7) / 8);
+      const int wib = int(((long(width) * hs[c] + hmax - 1) / hmax + 7) / 8);
+      smooth_idct(coef, bw[c], bh[c], q[c], bits + c * 64, v, imcu_rows, hib, wib, plane, pw[c]);
+      first = hib < bh[c] ? hib : bh[c];
+      for (int by = 0; by < first; by++)  // the padding columns of the smoothed rows
+        for (int bx = wib; bx < bw[c]; bx++)
+          idct_islow(coef + (size_t(by) * bw[c] + bx) * 64, q[c],
+                     plane + size_t(by) * 8 * pw[c] + bx * 8, pw[c]);
+    }
+    for (int by = first; by < bh[c]; by++)
       for (int bx = 0; bx < bw[c]; bx++)
-        idct_islow(s.coef[c].data() + (size_t(by) * bw[c] + bx) * 64, q[c],
-                   s.plane[c].data() + size_t(by) * 8 * pw[c] + bx * 8, pw[c]);
+        idct_islow(coef + (size_t(by) * bw[c] + bx) * 64, q[c],
+                   plane + size_t(by) * 8 * pw[c] + bx * 8, pw[c]);
   }
   if (nc == 1) {
     for (int r = 0; r < height; r++) {
@@ -262,19 +470,19 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
   }
   // Each component's real extent (libjpeg's downsampled size): samples past
   // it are never read, the upsamplers repeat the last real one.
-  int hx[3], vy[3], dw[3], dh[3];
-  Upsample how[3];
+  int hx[4], vy[4], dw[4], dh[4];
+  Upsample how[4];
   for (int c = 0; c < nc; c++) {
     hx[c] = hmax / hs[c];
     vy[c] = vmax / vs[c];
     dw[c] = int((long(width) * hs[c] + hmax - 1) / hmax);
     dh[c] = int((long(height) * vs[c] + vmax - 1) / vmax);
-    how[c] = upsampler(hx[c], vy[c], dw[c]);
+    how[c] = upsampler(hx[c], vy[c], dw[c], !lossless);
     s.row[c].resize(size_t(dw[c]) * hx[c] + 2);
   }
   const ColorTables& t = tables();
-  const bool rgb = flags & 2;
-  const uint8_t* rows[3];
+  const bool rgb = flags & 2, ycck = flags & 16;
+  const uint8_t* rows[4];
   for (int r = 0; r < height; r++) {
     for (int c = 0; c < nc; c++) {
       const uint8_t* plane = s.plane[c].data();
@@ -307,6 +515,22 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
       rows[c] = buf;
     }
     uint8_t* o = out + size_t(r) * stride;
+    if (nc == 4) {
+      for (int x = 0; x < width; x++) {
+        int nk = rows[3][x];  // 255 - K as Pillow holds it (inverted)
+        int cc = 255 - rows[0][x], mm = 255 - rows[1][x], yy = 255 - rows[2][x];
+        if (ycck) {  // libjpeg's YCC -> CMY, inverted: the YCbCr -> RGB values
+          int yv = rows[0][x], b = rows[1][x], rr = rows[2][x];
+          cc = clamp_u8(yv + t.cr_r[rr]);
+          mm = clamp_u8(yv + int((t.cb_g[b] + t.cr_g[rr]) >> 16));
+          yy = clamp_u8(yv + t.cb_b[b]);
+        }
+        o[3 * x + 2] = cmyk_channel(cc, nk);
+        o[3 * x + 1] = cmyk_channel(mm, nk);
+        o[3 * x + 0] = cmyk_channel(yy, nk);
+      }
+      continue;
+    }
     if (rgb) {
       for (int x = 0; x < width; x++) {
         o[3 * x + 2] = rows[0][x];

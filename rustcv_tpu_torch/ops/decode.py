@@ -17,8 +17,10 @@ device; the engine's pipeline decodes every uncompressed format with it.
 The full host decode of MJPEG (:func:`decode_mjpeg_host`, and
 :func:`decode_mjpeg_host_rgb` in RGB order) is the port's C++ decoder
 (:func:`..native.jpeg_decode_bgr`): libjpeg-turbo's default decode, which
-the reference gets from libjpeg-turbo or Pillow, with no libjpeg. It
-writes BGR rows straight into the destination, at its stride.
+the reference gets from Pillow, with no libjpeg. It writes BGR rows
+straight into the destination, at its stride. :func:`decode_mjpeg_into_mat`
+and the engine's host staging size a frame with :func:`mjpeg_size`, which
+refuses a four-component one as the reference's libjpeg BGR binding does.
 """
 
 from __future__ import annotations
@@ -53,19 +55,29 @@ def decode_mjpeg_host_rgb(data) -> np.ndarray:
 
 
 def mjpeg_size(data) -> tuple:
-    """(width, height) from an MJPEG frame's header; a corrupt header
-    raises DecodeError."""
+    """(width, height) from the header of an MJPEG frame that libjpeg
+    decodes to BGR; a corrupt header raises DecodeError, and so does a
+    four-component (CMYK or YCCK) frame: the reference's pitched decode
+    (its libjpeg-turbo binding, asked for BGR) has no BGR output of one."""
     from .. import native
 
     try:
-        return native.jpeg_size(data)
+        w, h, nc = native.jpeg_header(data)
     except ValueError as e:
         raise DecodeError(f"JPEG decompress: {e}") from e
+    if nc == 4:
+        raise DecodeError("JPEG decompress: no BGR output of a four-component "
+                          "(CMYK or YCCK) JPEG")
+    return w, h
 
 
 def decode_mjpeg_into_mat(data, mat) -> None:
     """MJPEG → BGR decoded straight into the Mat's (stride-aware) host
-    buffer, the Mat sized from the JPEG header."""
+    buffer, the Mat sized from the JPEG header (:func:`mjpeg_size`: a
+    CMYK or YCCK frame raises DecodeError, as in the reference's libjpeg
+    binding). Where that binding's libjpeg-turbo 2.1 differs from Pillow's
+    3.1 (lossless frames, some smoothed progressive ones), the port reads
+    as Pillow does (the port map's DEVIATIONS)."""
     w, h = mjpeg_size(data)
     mat.ensure_size(h, w, 3)
     decode_mjpeg_host(data, out=mat.array)

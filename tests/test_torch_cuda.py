@@ -59,7 +59,10 @@ Pillow's hashes (``tests/data/gif/quant_refs.json``) and the CPU's; and
 PNG's row filters on CUDA tensors equal to the CPU's, and every case of
 phase 3za (``chip_smoke.png_write_frames``) written from CUDA tensors and
 CUDA Mats equal to the bytes written on the CPU and to Pillow's chunks,
-controls and image data (``tests/data/png/write_refs.json``).
+controls and image data (``tests/data/png/write_refs.json``); and every
+JPEG fixture of ``tests/data/jpeg`` (CMYK and YCCK, smoothed progressive,
+lossless, arithmetic-coded, and the forms that stay refused) read onto the
+card against the CPU read and the reference's hashes in its manifest.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is false.
 Run on a machine with the card: ``python -m pytest tests/test_torch_cuda.py -q
@@ -2451,3 +2454,35 @@ def test_png_written_from_the_card(cuda, name):
     assert {k: got[k] for k in ("chunks", "controls", "frames_sha256")} == \
         {k: ref[k] for k in ("chunks", "controls", "frames_sha256")}
     assert got["bytes"] <= chip_smoke.PNG_SIZE_RATIO * ref["bytes"]
+
+
+_JPEG = Path(__file__).resolve().parent / "data" / "jpeg"
+_JPEG_MANIFEST = json.loads((_JPEG / "manifest.json").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(_JPEG_MANIFEST))
+def test_jpeg_form_fixture_read_onto_the_card(cuda, name):
+    """Item 8d-ii-b: each JPEG fixture (CMYK and YCCK, smoothed progressive,
+    lossless, arithmetic-coded) read by ``imread`` and ``imdecode`` onto the
+    card equals the CPU read and the reference's hash, and one the
+    reference refuses raises CameraError on both; no kernel launches."""
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.core import CameraError
+
+    m = _JPEG_MANIFEST[name]
+    path = str(_JPEG / name)
+    data = (_JPEG / name).read_bytes()
+    kernels.reset_launch_counts()
+    if m["entry"]["imread"] != "read":
+        for device in (cuda, "cpu"):
+            with pytest.raises(CameraError):
+                imgcodecs.imread(path, device=device)
+            with pytest.raises(CameraError):
+                imgcodecs.imdecode(data, device=device)
+        return
+    cpu = imgcodecs.imread(path, device="cpu").to_numpy()
+    assert list(cpu.shape) == m["shape"] and _sha(cpu) == m["bgr_sha256"]
+    for mat in (imgcodecs.imread(path, device=cuda), imgcodecs.imdecode(data, device=cuda)):
+        assert mat.device().is_cuda
+        np.testing.assert_array_equal(mat.to_numpy(), cpu)
+    assert not any(kernels.launch_counts().values())

@@ -10,7 +10,9 @@ JAX package's metadata calls.
   ``chip_smoke.jpeg_textured``: Pillow writes only 1x1, 2x1 and 2x2),
   libjpeg's RGB colour space;
   ``ops.decode.decode_mjpeg_host_rgb`` against the reference's. A
-  progressive stream left unrefined raises ``not_ported``; the hybrid path
+  progressive stream left unrefined reads as Pillow smooths it, CMYK and
+  arithmetic-coded frames as Pillow reads them (the forms of item 8d-ii-b,
+  held in full in ``tests/test_torch_jpeg_forms.py``); the hybrid path
   keeps refusing what it refused.
 * PNG at 1, 2, 4, 8 and 16 bits in every colour type, plain and Adam7;
   BMP in every header, depth, bit-field layout and RLE form Pillow reads;
@@ -145,9 +147,10 @@ def _scans(data):
 
 @pytest.mark.parametrize("cut", ["last refinement", "every refinement", "DC refinement"])
 def test_unrefined_progressive_jpeg_raises_not_ported(cut):
-    """Pillow smooths the blocks of a progressive stream whose last bits
-    never came (libjpeg's block smoothing): the port raises, it does not
-    return other pixels."""
+    """A progressive stream whose last bits never came: Pillow smooths its
+    blocks (libjpeg's block smoothing), and the port reads it as Pillow
+    does, byte for byte (ROADMAP Queue 1 item 8d-ii-b; before it, the port
+    raised ``not_ported`` here)."""
     data = _pillow_jpeg(_smooth(40, 56, 3), quality=80, progressive=True)
     scans = _scans(data)
     drop = {"last refinement": [s for s in scans if s[4]][-1:],
@@ -157,12 +160,10 @@ def test_unrefined_progressive_jpeg_raises_not_ported(cut):
     cut_data = data
     for start, end, *_ in sorted(drop, reverse=True):
         cut_data = cut_data[:start] + cut_data[end:]
-    _pillow(cut_data)  # Pillow reads it
-    for call in (lambda: native.jpeg_decode_bgr(cut_data),
-                 lambda: imgcodecs.imdecode(cut_data, device="cpu"),
-                 lambda: decode.decode_mjpeg_host_rgb(cut_data)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            call()
+    want = _pillow(cut_data)
+    np.testing.assert_array_equal(native.jpeg_decode_bgr(cut_data), want)
+    np.testing.assert_array_equal(imgcodecs.imdecode(cut_data, device="cpu").to_numpy(), want)
+    np.testing.assert_array_equal(decode.decode_mjpeg_host_rgb(cut_data), ref_rgb(cut_data))
 
 
 @pytest.mark.parametrize("order", [(0, 1, 2), (2, 0, 1)])
@@ -212,17 +213,20 @@ def test_rgb_colour_space_jpeg_is_libjpegs():
 
 
 def test_jpeg_forms_left_for_later_raise_not_ported():
-    """CMYK, arithmetic-coded and lossless frames: Pillow reads them, the
-    port raises ``not_ported`` (item 8) and not CameraError."""
+    """CMYK, arithmetic-coded and lossless frames: the port answers as
+    Pillow (ROADMAP Queue 1 item 8d-ii-b; before it, the port raised
+    ``not_ported``): Pillow's CMYK and a baseline stream relabelled SOF9
+    (arithmetic-coded) read byte for byte as Pillow reads them; the stream
+    relabelled SOF3 (lossless, in YCbCr) Pillow refuses, and the port
+    raises CameraError."""
     cmyk = io.BytesIO()
     Image.fromarray(_smooth(16, 16, 1)).convert("CMYK").save(cmyk, "JPEG")
     base = _pillow_jpeg(_smooth(16, 16, 1), quality=90)
     arith = base.replace(b"\xff\xc0", b"\xff\xc9", 1)
     lossless = base.replace(b"\xff\xc0", b"\xff\xc3", 1)
-    for data in (cmyk.getvalue(), arith, lossless):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            imgcodecs.imdecode(data, device="cpu")
-    _pillow(cmyk.getvalue())
+    for data in (cmyk.getvalue(), arith):
+        _same(data)
+    _both_refuse(lossless)
 
 
 def test_the_hybrid_path_keeps_refusing_progressive_streams():
