@@ -233,7 +233,12 @@ Phases:
    refused) read by ``imread`` and ``imdecode`` onto the card equal to the
    CPU read and the manifest's hash, ``decode_mjpeg_host_rgb`` and
    ``decode_mjpeg_into_mat`` answering as the manifest says,
-   ``imread_with_metadata`` its dict, no kernel launched;
+   ``imread_with_metadata`` its dict, no kernel launched; (3zc) TIFF pages
+   of JPEG compression and of the YCbCr photometric (item 8d-ii-c-i): every
+   fixture of ``tests/data/tiff`` read by ``imread``, ``imdecode`` and
+   ``imreadmulti`` onto the card equal to the CPU read and the manifest's
+   page hashes, ``imcount`` its count, the refused forms the reference's
+   error class and old-style JPEG ``not_ported``, no kernel launched;
 4. ms/tick (CUDA events) and frames/s per mode for the engines, config 6's
    delivered JPEG frames/s and payload MB/tick, configs 4 and 6's device
    time per tick and idle share (profiler), the host path's frames/s (one
@@ -278,7 +283,10 @@ Phases:
    APNG, each file's size beside Pillow's; (4zb) ms per ``imread`` onto the
    card of each JPEG form's 1080p fixture (CMYK, YCCK, smoothed
    progressive, lossless, arithmetic sequential and progressive) beside a
-   baseline 4:2:0 one, each with the native decode alone.
+   baseline 4:2:0 one, each with the native decode alone; (4zc) ms per
+   ``imread`` onto the card of a 1920x1080 YCbCr JPEG TIFF (4:2:0, 256x256
+   tiles, the port's encoder) and a 1080p YCbCr LZW page, each beside its
+   host decode alone.
 
 Only deterministic checks decide the exit code: equality of outputs, exact
 launch counts from the kernel wrappers' counters, tolerances of values.
@@ -2227,13 +2235,29 @@ def _tiff_diff(v: np.ndarray) -> np.ndarray:
     return d.view(v.dtype)
 
 
+def ycbcr_units(v: np.ndarray, h: int, vs: int) -> np.ndarray:
+    """YCbCr samples (rows, cols, 3) → TIFF data units of h x vs luma
+    samples, then one Cb and one Cr (the unit's top-left chroma), the block
+    padded at the right and bottom by repeating its last column and row:
+    (unit rows, units per row, h * vs + 2) u8."""
+    rows, cols = v.shape[:2]
+    pad = np.pad(v, ((0, -rows % vs), (0, -cols % h), (0, 0)), mode="edge")
+    ur, uc = pad.shape[0] // vs, pad.shape[1] // h
+    luma = pad[..., 0].reshape(ur, vs, uc, h).transpose(0, 2, 1, 3).reshape(ur, uc, h * vs)
+    return np.concatenate([luma, pad[::vs, ::h, 1:3]], axis=2).astype(np.uint8)
+
+
 def tiff_file(pages, order: str = "II", big: bool = False) -> bytes:
     """A TIFF of ``pages``, each a dict: ``samples`` (H, W, spp) in their
     dtype (u8 for 1-8 bits, u16, i32 or f32), ``photo``, and optionally
     ``bits``, ``fmt`` (SampleFormat), ``extra``, ``colormap``, ``comp`` (1,
-    5, 8, 32773, 32946), ``predictor``, ``planar``, ``tile`` (tw, th) or
+    5, 7, 8, 32773, 32946), ``predictor``, ``planar``, ``tile`` (tw, th) or
     ``rows`` per strip, ``fill`` (FillOrder), ``tags`` ({tag: (type,
-    values)})."""
+    values)}; None drops a tag the writer would add). ``ycbcr`` (h, v):
+    YCbCr samples packed in data units (:func:`ycbcr_units`) and tag 530;
+    with ``comp`` 7 it writes only the tag. ``jpeg``: with ``comp`` 7, a
+    function of a strip's or tile's samples (rows, cols, per) and its plane
+    that returns the chunk's JPEG bytes."""
     import struct
     import zlib
 
@@ -2250,7 +2274,7 @@ def tiff_file(pages, order: str = "II", big: bool = False) -> bytes:
         chunks, counts = [], []
         tw, th = pg["tile"] if "tile" in pg else (w, pg.get("rows", h))
         planes = [v[..., i:i + 1] for i in range(spp)] if planar == 2 else [v]
-        for plane in planes:
+        for pi, plane in enumerate(planes):
             for y in range(0, h, th):
                 for x in range(0, w, tw):
                     if "tile" in pg:
@@ -2259,7 +2283,20 @@ def tiff_file(pages, order: str = "II", big: bool = False) -> bytes:
                         blk[:part.shape[0], :part.shape[1]] = part
                     else:
                         blk = plane[y:y + th]
-                    if pg.get("predictor", 1) == 2:
+                    if comp == 7:
+                        chunks.append(pg["jpeg"](blk, pi))
+                        counts.append(len(chunks[-1]))
+                        continue
+                    if "ycbcr" in pg:
+                        units = ycbcr_units(blk, *pg["ycbcr"])
+                        blk = units.reshape(1, -1, 1)
+                        if pg.get("predictor", 1) == 2:  # libtiff's rows: a unit row / v, stride 3
+                            n = units[0].size // pg["ycbcr"][1]
+                            flat = units.reshape(-1)
+                            if n % 3 == 0:
+                                rows = flat[:flat.size // n * n].reshape(-1, n // 3, 3)
+                                flat[:rows.size] = _tiff_diff(rows).reshape(-1)
+                    elif pg.get("predictor", 1) == 2:
                         blk = _tiff_diff(blk)
                     raw = _tiff_pack(blk, bits, e)
                     data = {1: raw, 5: tiff_lzw(raw), 32773: packbits(raw)}.get(comp)
@@ -2288,7 +2325,10 @@ def tiff_file(pages, order: str = "II", big: bool = False) -> bytes:
         else:
             tags[278] = (3, [th])
             tags[273], tags[279] = (16 if big else 4, [0] * len(chunks)), (4, counts)
+        if "ycbcr" in pg:
+            tags[530] = (3, list(pg["ycbcr"]))
         tags.update(pg.get("tags", {}))
+        tags = {k: t for k, t in tags.items() if t is not None}
         while len(out) % 2:
             out.append(0)
         at = len(out)
@@ -3516,6 +3556,139 @@ def time_formats_8d_ii_b(smi: str, dev: str = "cuda") -> None:
         host = (time.perf_counter() - t) * 1e3 / MULTI_TIMED
         print(f"{tag} imread of the 1920x1080 {what} JPEG ({len(data)} bytes) onto the card: "
               f"{ms:.4f} ms; the native decode alone (host clock): {host:.4f} ms", flush=True)
+
+
+# -- phases 3zc and 4zc: TIFF pages of JPEG compression and of the YCbCr
+# photometric (ROADMAP Queue 1 item 8d-ii-c-i). The card's machine has no
+# Pillow, so 3zc reads the fixtures committed in tests/data/tiff
+# (tools/make_tiff_data.py, written with Pillow here) and holds each read to
+# the reference's answers in their manifest; 4zc builds its 1080p pages
+# with the port's own JPEG encoder and tiff_file.
+
+TIFF_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "tiff")
+
+
+def run_formats_8d_ii_c(dev: str = "cuda") -> dict:
+    """Phase 3zc: every fixture of ``tests/data/tiff`` (JPEG strips and
+    tiles, JPEGTables, every photometric, planar pages, YCbCr in data units
+    on PackBits, LZW and Deflate, the forms that fail) read by ``imread``,
+    ``imdecode`` and ``imreadmulti`` onto ``dev`` equals the CPU read and
+    the manifest's page hashes, with ``imcount`` its count; a file the
+    reference cannot load raises CameraError, old-style JPEG ``not_ported``.
+    Returns the phase's launches (none expected)."""
+    import hashlib
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    with open(os.path.join(TIFF_DATA, "manifest.json")) as f:
+        manifest = json.load(f)
+    forms: dict = {}
+    pages = 0
+    for name, m in sorted(manifest.items()):
+        path = os.path.join(TIFF_DATA, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        expect(hashlib.sha256(data).hexdigest() == m["sha256"], f"{name}: not the committed file")
+        forms[m["form"]] = forms.get(m["form"], 0) + 1
+        if m["form"] == "not_ported":
+            got = _outcome(lambda: imgcodecs.imread(path, device=dev))
+            expect(got == "NotImplementedError", f"{name}: imread answers {got}, not not_ported")
+            continue
+        expect(imgcodecs.imcount(path) == m["count"], f"{name}: imcount, not {m['count']}")
+        loads = [p for p in m["pages"] if "error" not in p]  # the pages before one that fails
+        reads = [("imread", lambda: [imgcodecs.imread(path, device=dev)]),
+                 ("imdecode", lambda: [imgcodecs.imdecode(data, device=dev)])]
+        if len(loads) < len(m["pages"]):  # a page Pillow opens but cannot load
+            got = _outcome(lambda: imgcodecs.imreadmulti(path, device=dev))
+            expect(got == "CameraError", f"{name}: imreadmulti answers {got}, not CameraError")
+            if not loads:
+                got = _outcome(lambda: imgcodecs.imdecode(data, device=dev))
+                expect(got == "CameraError", f"{name}: imdecode answers {got}, not CameraError")
+                continue
+            cpu = [imgcodecs.imread(path, device="cpu").to_numpy()]
+        else:
+            cpu = [mat.to_numpy() for mat in imgcodecs.imreadmulti(path, device="cpu")]
+            reads.append(("imreadmulti", lambda: imgcodecs.imreadmulti(path, device=dev)))
+        expect([(list(c.shape), hashlib.sha256(np.ascontiguousarray(c).tobytes()).hexdigest())
+                for c in cpu] == [(p["shape"], p["bgr_sha256"]) for p in loads[:len(cpu)]],
+               f"{name}: not the reference's pages")
+        for what, call in reads:
+            for mat, c in zip(call(), cpu):
+                expect(mat.device().device.type == dev, f"{name}: {what} on {mat.device().device}")
+                expect(np.array_equal(mat.to_numpy(), c), f"{name}: the {dev} {what} differs")
+        pages += len(cpu)
+    print(f"formats 8d-ii-c-i: {len(manifest)} TIFF files ({pages} pages) read onto {dev} as "
+          f"the reference answers (its page hashes, counts and error classes), by form: "
+          f"{dict(sorted(forms.items()))}", flush=True)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"phase 3zc launched kernels: {counts}")
+    return counts
+
+
+def tiff_jpeg_ycbcr_1080():
+    """Phase 4zc's pages of the 1920x1080 test pattern: {label: TIFF bytes}
+    for a YCbCr JPEG page of 256 x 256 tiles at 4:2:0 (the port's JPEG
+    encoder, its DQT and DHT moved into JPEGTables) and a YCbCr page of
+    2 x 2 data units on LZW in 16-row strips."""
+    import torch
+
+    from rustcv_tpu_torch.capture.simulation import synth_bgr
+    from rustcv_tpu_torch.ops.jpeg_encode import encode_jpeg
+
+    bgr = synth_bgr(W, H, 0)
+    tables = {}
+
+    def tile(blk, plane):
+        j = encode_jpeg(torch.from_numpy(np.ascontiguousarray(blk[..., ::-1])), quality=85)
+        p, head = 2, bytearray(b"\xff\xd8")
+        while j[p + 1] != 0xDA:  # keep SOF and the rest, move the tables out
+            n = int.from_bytes(j[p + 2:p + 4], "big")
+            if j[p + 1] in (0xDB, 0xC4):
+                tables.setdefault(bytes(j[p:p + 2 + n]), None)
+            else:
+                head += j[p:p + 2 + n]
+            p += 2 + n
+        return bytes(head + j[p:])
+
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    pg = dict(samples=rgb, photo=6, comp=7, ycbcr=(2, 2), tile=(256, 256), jpeg=tile)
+    tiff_file([pg])
+    pg["tags"] = {347: (7, list(b"\xff\xd8" + b"".join(tables) + b"\xff\xd9"))}
+    return {"JPEG 4:2:0, 256x256 tiles, JPEGTables": tiff_file([pg]),
+            "YCbCr 2x2 LZW, 16-row strips": tiff_file([dict(samples=rgb, photo=6, comp=5,
+                                                            ycbcr=(2, 2), rows=16)])}
+
+
+def time_formats_8d_ii_c(smi: str, dev: str = "cuda") -> None:
+    """Phase 4zc: ms per ``imread`` onto the card (CUDA events over
+    MULTI_TIMED calls, the file in the page cache, read warm) of the two
+    1920x1080 pages of :func:`tiff_jpeg_ycbcr_1080`, and beside each the
+    host decode alone (``imgcodecs.tiff.read_tiff``, the host clock)."""
+    import tempfile
+
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.imgcodecs import tiff
+
+    tag = f"[{smi}]"
+    print(f"{tag} phase 4zc, TIFF JPEG and YCbCr pages at {W}x{H} (files read warm):", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, data in tiff_jpeg_ycbcr_1080().items():
+            path = os.path.join(tmp, "x.tif")
+            with open(path, "wb") as f:
+                f.write(data)
+            expect(np.array_equal(imgcodecs.imread(path, device=dev).to_numpy(),
+                                  imgcodecs.imread(path, device="cpu").to_numpy()),
+                   f"{label}: the {dev} read differs")
+            ms = cuda_ms(lambda: imgcodecs.imread(path, device=dev), MULTI_TIMED)
+            tiff.read_tiff(data)
+            t = time.perf_counter()
+            for _ in range(MULTI_TIMED):
+                tiff.read_tiff(data)
+            host = (time.perf_counter() - t) * 1e3 / MULTI_TIMED
+            print(f"{tag} imread of the {W}x{H} {label} TIFF ({len(data)} bytes) onto the card: "
+                  f"{ms:.4f} ms; the host decode alone (host clock): {host:.4f} ms", flush=True)
 
 
 def time_new_paths(smi: str) -> None:
@@ -7465,6 +7638,8 @@ def main() -> int:
         done("phase 3za, PNG writes with Pillow's filters (item 8d-ii-a)")
         phase("phase 3zb, JPEG forms (item 8d-ii-b)", run_formats_8d_ii_b)
         done("phase 3zb, JPEG forms (item 8d-ii-b)")
+        phase("phase 3zc, TIFF JPEG and YCbCr pages (item 8d-ii-c-i)", run_formats_8d_ii_c)
+        done("phase 3zc, TIFF JPEG and YCbCr pages (item 8d-ii-c-i)")
         for label, fn in (("headline", time_engines), ("config 4", time_config4),
                           ("config 4 stages", time_config4_stages),
                           ("config 4 profile", profile_config4), ("config 6", time_config6),
@@ -7483,6 +7658,7 @@ def main() -> int:
                           ("PNG writes with Pillow's filters (4za)",
                            lambda: time_formats_8d_writes(smi)),
                           ("JPEG forms (4zb)", lambda: time_formats_8d_ii_b(smi)),
+                          ("TIFF JPEG and YCbCr pages (4zc)", lambda: time_formats_8d_ii_c(smi)),
                           ("mesh", lambda: time_mesh(smi)),
                           ("slice ops, xla_fused, ring", lambda: time_slice(smi)),
                           ("second block of ops (4o)", lambda: time_block2(smi)),

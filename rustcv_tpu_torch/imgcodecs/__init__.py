@@ -7,8 +7,8 @@ Two backends, the reference's names:
   and written as Pillow reads and writes it; the rows filtered as Pillow
   filters them, on the Mat's device, :mod:`.png_filter`), BMP (every header, depth and
   compression Pillow reads) and PNM (P1-P6 at every maxval, PFM) through
-  :mod:`.host`, TIFF (:mod:`.tiff`: strips and tiles, raw, PackBits, LZW and
-  Deflate, every depth and photometric Pillow reads but YCbCr and CIELab;
+  :mod:`.host`, TIFF (:mod:`.tiff`: strips and tiles, raw, PackBits, LZW,
+  Deflate and JPEG, every depth and photometric Pillow reads but CIELab;
   written uncompressed) and GIF (:mod:`.gif`: every frame composited as
   Pillow composites it; written with Pillow's own median cut,
   :mod:`.quantize`) and WebP (:mod:`.webp`: lossy VP8 and lossless VP8L
@@ -276,13 +276,23 @@ def animation_frames(data: bytes):
     each frame's duration (Pillow sets one on every load: 0 for a still
     image) and its loop (1 for a still image); an animated PNG's with each
     fcTL's duration (a float; 100 for a default image) and acTL's loop; a
-    TIFF's pages, or one image of any other format, at 100 ms, loop 0. A
+    TIFF's pages (each set up at its step), or one image of any other
+    format, at 100 ms, loop 0. A
     frame that cannot be sought raises at its step, one that cannot be
     decoded when it is read, as Pillow's do."""
-    from . import apng, gif, webp
+    from . import apng, gif, tiff, webp
 
     fmt = _host.sniff(data)
     png = _host._Png(data) if fmt == "png" else None
+    if fmt == "tiff":  # a page at a time: the pages before one that fails are read
+        t = tiff.Tiff(data)
+        t.setup(0)
+
+        def seek(k):
+            t.setup(k)
+            return lambda: (_host.to_bgr(t.rgb(k)), 100)
+
+        return (seek(k) for k in range(len(t))), 0
     if png is not None and png.apng:
         a = apng.Apng(png)
 

@@ -19,9 +19,24 @@ page (``ImageSequence``), byte for byte:
   alpha un-premultiplied as Pillow's ``RGBa`` unpacker does); the EXIF
   orientation applied as ``TiffImageFile.load_end`` applies it.
 
-What Pillow reads through libtiff beyond that (JPEG, CCITT, LZMA, ZSTD,
-WebP and JBIG compression, old-style LZW, predictor 3, YCbCr and CIELab,
-12-bit samples) raises ``not_ported`` (ROADMAP Queue 1 item 8); what Pillow
+* JPEG compression (code 7), as libtiff's JPEG codec reads it for Pillow:
+  each strip or tile a JPEG decoded by the port's host JPEG decode after
+  the tables libjpeg holds by then (JPEGTables, then those of the chunks
+  before); a YCbCr page of one plane converted by libjpeg, every other
+  page's components kept as they are; libtiff's checks (the chunk's size,
+  components and sampling factors, YCbCrSubsampling fixed up from the first
+  chunk where it is missing); a short stream leaves what Pillow's reused
+  strip buffer held;
+* the YCbCr photometric on PackBits, LZW and Deflate, as libtiff's RGBA
+  reader (which Pillow takes for it) reads it: data units of every
+  subsampling it reads, its 4x4 quirks, libtiff's integer conversion with
+  YCbCrCoefficients and ReferenceBlackWhite (``native.tiff_ycbcr_to_rgb``),
+  chunks that fail read on as libtiff reads on; uncompressed, Pillow's raw
+  read of four bytes a pixel.
+
+What Pillow reads through libtiff beyond that (old-style JPEG, CCITT, LZMA,
+ZSTD, WebP and JBIG compression, old-style LZW, predictor 3, CIELab, 12-bit
+samples) raises ``not_ported`` (ROADMAP Queue 1 item 8); what Pillow
 refuses raises :class:`~.host.CodecError`.
 
 A write is Pillow's ``_save`` without compression: one strip per page,
@@ -47,8 +62,10 @@ COMPRESSION_INFO = {
     32809: "tiff_thunderscan", 32946: "tiff_deflate", 34676: "tiff_sgilog",
     34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd", 50001: "webp",
 }
-_READ = ("raw", "packbits", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate")
+_READ = ("raw", "packbits", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "jpeg")
 _MAX_SAMPLES = 6  # Pillow's MAX_SAMPLESPERPIXEL
+# libtiff's YCbCr subsamplings (h, v) its RGBA reader converts (tif_getimage.c)
+_YCBCR_PUT = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 
 
 def _open_info() -> dict:
@@ -86,6 +103,7 @@ def _open_info() -> dict:
         (5, (1,), 1, (8, 8, 8, 8), (), "CMYK", "CMYK"),
         (5, (1,), 1, (8, 8, 8, 8, 8), (0,), "CMYK", "CMYKX"),
         (5, (1,), 1, (8, 8, 8, 8, 8, 8), (0, 0), "CMYK", "CMYKXX"),
+        (6, (1,), 1, (8,), (), "L", "L"), (6, (1,), 1, (8, 8, 8), (), "RGB", "RGBX"),
     ]
     table = {}
     for prefix in (b"II", b"MM"):
@@ -110,11 +128,10 @@ def _open_info() -> dict:
 
 
 OPEN_INFO = _open_info()
-# OPEN_INFO keys Pillow has that this module leaves to item 8 (12-bit gray,
-# YCbCr and CIELab)
+# OPEN_INFO keys Pillow has that this module leaves to item 8 (12-bit gray
+# and CIELab)
 _LATER = {(b"II", 1, (1,), 1, (12,), ()): "12-bit TIFF"}
 for _p in (b"II", b"MM"):
-    _LATER[(_p, 6, (1,), 1, (8,), ())] = _LATER[(_p, 6, (1,), 1, (8, 8, 8), ())] = "YCbCr TIFF"
     _LATER[(_p, 8, (1,), 1, (8, 8, 8), ())] = "CIELab TIFF"
 # Fill-order-2 raw modes Pillow has no unpacker for (its raw path raises)
 _NO_UNPACKER = ("L;IR", "P;1R", "P;2R", "P;4R")
@@ -276,7 +293,8 @@ class Tiff:
             raise CodecError(f"unknown TIFF pixel mode {key[1:]}")
         mode, raw = OPEN_INFO[key]
         if comp not in _READ:
-            raise not_ported(f"reading TIFF with {comp} compression", item=LEFTOVERS)
+            name = "old-style JPEG" if comp == "tiff_jpeg" else comp
+            raise not_ported(f"reading TIFF with {name} compression", item=LEFTOVERS)
         if comp == "raw" and fill == 2 and raw in _NO_UNPACKER:
             raise CodecError(f"unknown raw mode {raw} for given image mode")
         if planar == 2:
@@ -285,7 +303,7 @@ class Tiff:
                                  item=LEFTOVERS)
             if comp == "raw" and any(c not in _PLANAR_BANDS.get(mode, "") for c in raw[:spp]):
                 raise CodecError(f"unknown raw mode for the bands of {raw}")  # Pillow's band unpackers
-            if comp != "raw" and "X" in raw:
+            if comp != "raw" and "X" in raw and photo != 6:  # YCbCr: libtiff's RGBA reader
                 raise CodecError("planar TIFF with extra samples: decoder error")
         strips = 273 in t.entries
         if not strips and 324 not in t.entries:
@@ -297,30 +315,37 @@ class Tiff:
             if not isinstance(cw, int) or not isinstance(ch, int):
                 raise CodecError("invalid TIFF tile dimensions")
         counts = t.get(325 if not strips else 279, ())
-        predictor = t.get(317, 1)
-        if comp != "raw" and predictor not in (1, 2):
+        predictor = t.get(317, 1) if comp not in ("raw", "jpeg") else 1  # libtiff's JPEG has none
+        if predictor not in (1, 2):
             raise not_ported(f"TIFF predictor {predictor}", item=LEFTOVERS)
+        if comp == "raw" and photo == 6 and planar == 1 and not strips and cw and w % cw:
+            raise not_ported("reading uncompressed tiled YCbCr TIFF", item=LEFTOVERS)
         return dict(w=w, h=h, comp=comp, mode=mode, raw=raw, bits=bits, spp=spp, planar=planar,
                     fill=fill, strips=strips, offsets=offsets, counts=counts, cw=cw, ch=ch,
-                    predictor=predictor if comp != "raw" else 1, photo=photo)
+                    predictor=predictor, photo=photo)
 
     # -- pixels ---------------------------------------------------------------
 
-    def _chunk(self, s: dict, i: int, rows: int, row_bytes: int) -> np.ndarray:
-        """The bytes of strip or tile ``i``: ``rows`` rows of ``row_bytes``."""
+    def _blob(self, s: dict, i: int) -> bytes:
+        """The stored bytes of strip or tile ``i`` (its byte count's worth)."""
+        if i >= len(s["counts"]):
+            raise CodecError("TIFF strip without a byte count")
+        off = s["offsets"][i]
+        return self.data[off:off + s["counts"][i]]
+
+    def _chunk(self, s: dict, i: int, need: int, partial: bool = False) -> np.ndarray:
+        """The ``need`` bytes strip or tile ``i`` decompresses to (with
+        ``partial``, what it gives when its data ends first)."""
         from .. import native
 
-        off = s["offsets"][i]
-        need = rows * row_bytes
         if s["comp"] == "raw":  # Pillow's raw decoder: from the offset on, byte counts unread
+            off = s["offsets"][i]
             raw = self.data[off:off + need]
             if len(raw) < need:
                 raise CodecError("TIFF image file is truncated")
             raw = np.frombuffer(raw, np.uint8)
             return _reverse_bits(raw) if s["fill"] == 2 else raw
-        if i >= len(s["counts"]):
-            raise CodecError("TIFF strip without a byte count")
-        blob = self.data[off:off + s["counts"][i]]
+        blob = self._blob(s, i)
         if s["fill"] == 2:
             blob = _reverse_bits(np.frombuffer(blob, np.uint8)).tobytes()
         comp = s["comp"]
@@ -334,26 +359,41 @@ class Tiff:
                 out = np.frombuffer(d.decompress(blob, need), np.uint8)
         except zlib.error as err:
             raise CodecError(f"corrupt TIFF Deflate data: {err}") from err
-        if out.size < need:
+        if out.size < need and not partial:
             raise CodecError(f"not enough TIFF image data ({out.size} of {need} bytes)")
         return out
 
+    def _grid(self, s: dict) -> Tuple[int, int]:
+        """(chunks across, chunks down) of one plane."""
+        if s["strips"]:
+            return 1, (-(-s["h"] // s["ch"]) if s["ch"] > 0 else 1)
+        return -(-s["w"] // s["cw"]), -(-s["h"] // s["ch"])
+
     def samples(self, k: int) -> Tuple[np.ndarray, dict]:
         """Page ``k``'s samples (H, W, samples per pixel) in the file's
-        values (u8, u16, i32 or f32) and its setup."""
+        values (u8, u16, i32 or f32) and its setup; a YCbCr page outside
+        the raw path as RGB, converted as libtiff converts it."""
         s = self.setup(k)
+        if s["comp"] == "jpeg":
+            return self._jpeg_samples(s, k), s
+        if s["photo"] == 6 and s["comp"] != "raw":
+            return self._ycbcr_samples(s, k), s
+        return self._plain_samples(s), s
+
+    def _plain_samples(self, s: dict) -> np.ndarray:
+        """The samples of every page but the YCbCr and JPEG ones."""
         w, h, bits, spp = s["w"], s["h"], s["bits"][0], s["spp"]
         planes = spp if s["planar"] == 2 else 1
         per = 1 if s["planar"] == 2 else spp
+        if s["photo"] == 6 and s["planar"] == 1:
+            per = 4  # Pillow's raw mode RGBX: four bytes per pixel, no conversion
         cw, ch = s["cw"], s["ch"]
         dtype = _dtype(s["raw"], bits, self.e)
-        out = np.zeros((h, w, spp), dtype.newbyteorder("=") if dtype.itemsize > 1 else dtype)
+        out = np.zeros((h, w, max(spp, per)),
+                       dtype.newbyteorder("=") if dtype.itemsize > 1 else dtype)
         offsets = list(s["offsets"])
         raw_path = s["comp"] == "raw"
-        if s["strips"]:
-            across, down = 1, -(-h // ch) if ch > 0 else 1
-        else:
-            across, down = -(-w // cw), -(-h // ch)
+        across, down = self._grid(s)
         if raw_path and cw == w and ch == h and s["planar"] != 2:
             offsets = offsets[-1:]  # Pillow: "every tile covers the image", the last offset
             across = down = 1
@@ -371,7 +411,7 @@ class Tiff:
                         rows = min(ch, h - y0)
                     if rows <= 0:
                         continue
-                    chunk = self._chunk(s, i, rows, row_bytes)
+                    chunk = self._chunk(s, i, rows * row_bytes)
                     i += 1
                     v = _unpack(chunk[:rows * row_bytes].reshape(rows, row_bytes), cw, per, bits,
                                 dtype)
@@ -381,7 +421,169 @@ class Tiff:
                         v = _undo_predictor(v)
                     rh, rw = min(rows, h - y0), min(cw, w - x0)
                     out[y0:y0 + rh, x0:x0 + rw, p:p + per] = v[:rh, :rw]
-        return out, s
+        return out
+
+    def _ycbcr_samples(self, s: dict, k: int) -> np.ndarray:
+        """A YCbCr page of PackBits, LZW or Deflate as Pillow reads it,
+        through libtiff's RGBA reader: each strip's or tile's data units
+        (h x v luma samples, then Cb and Cr, padded at the right and bottom
+        edges) spread over their pixels, then libtiff's conversion with the
+        page's YCbCrCoefficients and ReferenceBlackWhite (or, planar, the
+        three planes at subsampling (1, 1), the only planar form it reads)."""
+        if s["bits"] != (8, 8, 8):
+            raise CodecError("TIFF YCbCr reader: can not handle format")
+        t = self.pages[k]
+        hs, vs = _subsampling(t)
+        if s["planar"] == 2:
+            if (hs, vs) != (1, 1):
+                raise CodecError("TIFF YCbCr reader: can not handle planar subsampled format")
+            return _ycbcr_to_rgb(self._plain_samples(s), t)
+        if (hs, vs) not in _YCBCR_PUT:
+            raise CodecError(f"TIFF YCbCr reader: can not handle subsampling {(hs, vs)}")
+        w, h, cw, ch = s["w"], s["h"], s["cw"], s["ch"]
+        unit = hs * vs + 2
+        uc = -(-cw // hs)
+        # libtiff reads a strip as whole scanlines of floor(unit row / v)
+        # bytes, so where v does not divide a unit row, the last bytes of
+        # each strip are not read: they keep what the buffer held
+        scan = uc * unit // vs
+        # the predictor's rows: a scanline on strips, tile width x 3 on tiles
+        pred_row = scan if s["strips"] else cw * 3
+        out = np.zeros((h, w, 3), np.uint8)
+        across, down = self._grid(s)
+        # Pillow reads a strip or a row of tiles per TIFFRGBAImageGet, which
+        # reads into a buffer of its own, made when its first chunk's data
+        # is read (where that fails, the page fails). A chunk that fails
+        # later leaves the reader going (Pillow asks it not to stop): one
+        # whose data cannot be read, or that decodes short, is zeros past
+        # what its codec wrote; one whose predictor rows are not whole
+        # samples keeps its differences.
+        for ty in range(down):
+            buf = None
+            for tx in range(across):
+                i = ty * across + tx
+                if i >= len(s["offsets"]):
+                    break
+                y0, x0 = ty * ch, tx * cw
+                rows = min(ch, h - y0) if s["strips"] else ch
+                rh, rw = min(ch, h - y0), min(cw, w - x0)
+                if rh <= 0:
+                    continue
+                ur = -(-rows // vs)
+                need = ur * vs * scan if s["strips"] else ur * uc * unit
+                count = s["counts"][i] if i < len(s["counts"]) else 0
+                if count <= 0 or s["offsets"][i] + count > len(self.data):  # TIFFFillStrip fails
+                    if buf is None:
+                        raise CodecError("TIFF strip or tile without its data")
+                    buf[:need] = 0
+                else:
+                    if buf is None:  # a strip's rows (RowsPerStrip may pass the height)
+                        buf = np.zeros(-(-(min(ch, h) if s["strips"] else ch) // vs) * uc * unit,
+                                       np.uint8)
+                    data = self._chunk(s, i, need, partial=True)[:need]
+                    buf[:data.size] = data
+                    buf[data.size:need] = 0
+                    if s["predictor"] == 2 and data.size == need and not (
+                            need % pred_row or pred_row % 3):
+                        buf[:need] = np.cumsum(buf[:need].reshape(-1, pred_row // 3, 3), axis=1,
+                                               dtype=np.uint8).reshape(-1)
+                # the units the put reads: ceil(rw / h) per unit row, then a
+                # skip past the rest of a tile's row, which libtiff's 4x4 put
+                # reckons in 4x2 units (10 bytes, not 18)
+                nu, nr = -(-rw // hs), -(-rh // vs)
+                skip = (cw - rw) // hs * (10 if (hs, vs) == (4, 4) else unit)
+                at = (np.arange(nr)[:, None, None] * (nu * unit + skip)
+                      + np.arange(nu)[None, :, None] * unit + np.arange(unit))
+                u = buf[at]
+                y = u[..., :hs * vs].reshape(nr, nu, vs, hs).transpose(0, 2, 1, 3)
+                full = np.empty((nr * vs, nu * hs, 3), np.uint8)
+                full[..., 0] = y.reshape(nr * vs, nu * hs)
+                full[..., 1:] = np.repeat(np.repeat(u[..., hs * vs:], vs, axis=0), hs, axis=1)
+                out[y0:y0 + rh, x0:x0 + rw] = full[:rh, :rw]
+        return _ycbcr_to_rgb(out, t)
+
+    def _jpeg_samples(self, s: dict, k: int) -> np.ndarray:
+        """A page of JPEG compression (code 7) as Pillow reads it through
+        libtiff's JPEG codec: each strip or tile a JPEG of its own, decoded
+        by the host JPEG decode after the tables libjpeg holds by then (the
+        JPEGTables tag's, then those of the chunks before it). A YCbCr page
+        of one plane is converted by libjpeg (libtiff's JPEGCOLORMODE_RGB),
+        every other page keeps its components (JCS_UNKNOWN), and a planar
+        YCbCr page goes through libtiff's RGBA reader and its conversion.
+        libtiff's checks raise CodecError: the chunk's size against the
+        strip's or tile's (a last strip may hold more rows), its components,
+        its sampling factors against YCbCrSubsampling (fixed up from the
+        first chunk where the tag is missing, as JPEGFixupTagsSubsampling
+        does). Rows and columns a chunk's JPEG leaves out keep what Pillow's
+        reused strip buffer held: the chunk before it, zeros at first."""
+        from .. import native
+
+        t = self.pages[k]
+        w, h, cw, ch, spp = s["w"], s["h"], s["cw"], s["ch"], s["spp"]
+        contig = s["planar"] != 2
+        ycc = s["photo"] == 6
+        if any(b != 8 for b in s["bits"]):
+            raise CodecError("improper JPEG data precision")
+        if ycc and contig and spp != 3:
+            raise CodecError("unknown raw mode for given image mode")  # Pillow's raw mode RGB
+        expect = (1, 1)
+        if ycc:
+            expect = _subsampling(t, None)
+            if expect is None and contig:
+                expect = _fixup_subsampling(self._blob(s, 0), spp)
+            expect = expect or (2, 2)
+            if not contig and expect != (1, 1):
+                raise CodecError("TIFF YCbCr reader: can not handle planar subsampled format")
+        tables = _jpeg_tables(t.entries[347][1]) if 347 in t.entries else []
+        per = spp if contig else 1
+        planes = 1 if contig else spp
+        across, down = self._grid(s)
+        out = np.zeros((h, w, spp), np.uint8)
+        buffers: dict = {}
+        for ty in range(down):  # Pillow's order: rows of chunks, then planes, then across
+            if ycc and not contig:  # libtiff's RGBA reader: buffers per strip or tile row
+                buffers = {}
+            for p in range(planes):
+                for tx in range(across):
+                    i = p * across * down + ty * across + tx
+                    if i >= len(s["offsets"]):
+                        raise CodecError("TIFF strip or tile out of range")
+                    y0, x0 = ty * ch, tx * cw
+                    seg_w, seg_h = (w, min(ch, h - y0)) if s["strips"] else (cw, ch)
+                    blob = self._blob(s, i)
+                    stream = blob
+                    if blob[:2] == b"\xff\xd8":  # the held tables spliced in after SOI
+                        stream = blob[:2] + b"".join(tables) + blob[2:]
+                    for seg in _jpeg_tables(blob, whole=False):  # a repeat overrides in place
+                        if seg in tables:
+                            tables.remove(seg)
+                        tables.append(seg)
+                    jw, jh, factors = _sof(stream)
+                    nc = len(factors)
+                    tall_last = s["strips"] and jw == seg_w and y0 + seg_h == h
+                    if jw > seg_w or (jh > seg_h and not tall_last):
+                        raise CodecError("JPEG strip/tile size exceeds expected dimensions")
+                    if nc != per:
+                        raise CodecError("improper JPEG component count")
+                    if factors[0] != (expect if contig else (1, 1)) or any(
+                            f != (1, 1) for f in factors[1:]):
+                        raise CodecError("improper JPEG sampling factors")
+                    try:
+                        dec = native.jpeg_decode_bgr(stream, colour="ycbcr" if ycc and contig
+                                                     else "none")
+                    except ValueError as err:
+                        raise CodecError(f"corrupt TIFF JPEG data: {err}") from err
+                    if ycc and contig:
+                        dec = dec[..., ::-1]
+                    # one buffer per plane in libtiff's RGBA reader, one in Pillow's
+                    buf = buffers.setdefault(p if ycc and not contig else 0,
+                                             np.zeros((min(ch, h) if s["strips"] else ch, cw, per),
+                                                      np.uint8))
+                    rows = min(jh, seg_h)
+                    buf[:rows, :jw] = dec[:rows]
+                    rh, rw = min(seg_h, h - y0), min(cw, w - x0)
+                    out[y0:y0 + rh, x0:x0 + rw, p:p + per] = buf[:rh, :rw]
+        return _ycbcr_to_rgb(out, t) if ycc and not contig else out
 
     def rgb(self, k: int) -> np.ndarray:
         """Page ``k`` as Pillow's ``convert("RGB")`` gives it after loading:
@@ -400,6 +602,127 @@ class Tiff:
             m = re.search(XMP_ORIENTATION, t.entries[700][1])
             o = int(m[2]) if m else None
         return o if isinstance(o, int) else 1
+
+
+def _subsampling(page: _Page, default=(2, 2)):
+    """YCbCrSubsampling (tag 530) as libtiff holds it: ``default`` where
+    the tag is missing or has not two values."""
+    v = page.get(530)
+    return tuple(v) if isinstance(v, tuple) and len(v) == 2 else default
+
+
+def _ycbcr_to_rgb(v: np.ndarray, page: _Page) -> np.ndarray:
+    """libtiff's YCbCr → RGB of (H, W, 3) samples with the page's
+    YCbCrCoefficients (tag 529, three values) and ReferenceBlackWhite (532,
+    six values); a tag of another count is ignored, as libtiff ignores it."""
+    from .. import native
+
+    luma, ref = page.get(529), page.get(532)
+    luma = luma if isinstance(luma, tuple) and len(luma) == 3 else (0.299, 0.587, 0.114)
+    ref = ref if isinstance(ref, tuple) and len(ref) == 6 else (0, 255, 128, 255, 128, 255)
+    try:
+        return native.tiff_ycbcr_to_rgb(v, luma, ref)
+    except ValueError as err:
+        raise CodecError(f"TIFF YCbCr reader: {err}") from err
+
+
+_MARKER = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")  # a marker in entropy-coded data
+
+
+def _jpeg_tables(data: bytes, whole: bool = True) -> List[bytes]:
+    """The DQT and DHT segments of a JPEG stream, in order: what libjpeg
+    keeps from one image to the next (DRI, DAC and the rest start again at
+    each SOI). ``whole``: a JPEGTables field, which must be a tables-only
+    stream (SOI, tables, EOI), else libtiff's "Bogus JPEGTables field"."""
+    out: List[bytes] = []
+    if data[:2] != b"\xff\xd8":
+        if whole:
+            raise CodecError("bogus JPEGTables field")
+        return out
+    p = 2
+    while p + 4 <= len(data):
+        if data[p] != 0xFF:
+            break
+        m = data[p + 1]
+        if m == 0xFF:  # fill byte
+            p += 1
+            continue
+        if m == 0xD9:
+            return out
+        n = struct.unpack(">H", data[p + 2:p + 4])[0]
+        if m in (0xDB, 0xC4):
+            out.append(data[p:p + 2 + n])
+        elif whole and m in (0xDA, 0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA, 0xCB):
+            raise CodecError("bogus JPEGTables field")
+        p += 2 + n
+        if m == 0xDA:  # past the scan's entropy-coded data to its next marker
+            found = _MARKER.search(data, p)
+            if found is None:
+                break
+            p = found.start()
+    return out  # cut short: libtiff's source ends it with a fake EOI
+
+
+def _sof(stream: bytes) -> Tuple[int, int, List[Tuple[int, int]]]:
+    """(width, height, each component's (h, v)) as a JPEG's frame header
+    gives them (libjpeg's ``comp_info``, which libtiff checks, a lone
+    component's factors too); CodecError where there is none."""
+    p = 2 if stream[:2] == b"\xff\xd8" else len(stream)
+    while p + 4 <= len(stream) and stream[p] == 0xFF:
+        m = stream[p + 1]
+        if m == 0xFF:
+            p += 1
+            continue
+        n = struct.unpack(">H", stream[p + 2:p + 4])[0]
+        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            head = stream[p + 5:p + 10]
+            if len(head) == 5:
+                h, w, nc = struct.unpack(">HHB", head)
+                f = stream[p + 11:p + 11 + 3 * nc:3]
+                if len(f) == nc:
+                    return w, h, [(b >> 4, b & 15) for b in f]
+            break
+        p += 2 + n
+    raise CodecError("corrupt TIFF JPEG data: no frame header")
+
+
+def _fixup_subsampling(blob: bytes, spp: int) -> Optional[Tuple[int, int]]:
+    """libtiff's JPEGFixupTagsSubsampling: the luma factors of the first
+    strip's or tile's frame header, where its other components are 1x1 and
+    both factors are 1, 2 or 4; None where it gives up (the default 2x2
+    stays)."""
+    p = 0
+    while True:
+        p = blob.find(b"\xff", p)
+        if p < 0:
+            return None
+        while p < len(blob) and blob[p] == 0xFF:
+            p += 1
+        if p >= len(blob):
+            return None
+        m = blob[p]
+        p += 1
+        if m == 0xD8:
+            continue
+        if m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF:
+            if p + 2 > len(blob):
+                return None
+            n = struct.unpack(">H", blob[p:p + 2])[0]
+            if n < 2:
+                return None
+            p += n
+            continue
+        if m not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            return None
+        sof = blob[p:p + 2 + 8 + 3 * spp]
+        if len(sof) < 2 + 8 + 3 * (spp - 1) or struct.unpack(">H", sof[:2])[0] != 8 + 3 * spp:
+            return None
+        ph, pv = sof[9] >> 4, sof[9] & 15
+        if any(sof[9 + 3 * o] != 0x11 for o in range(1, spp)):
+            return None
+        if ph not in (1, 2, 4) or pv not in (1, 2, 4):
+            return None
+        return ph, pv
 
 
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)

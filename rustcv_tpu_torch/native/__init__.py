@@ -12,7 +12,8 @@ and block-packed forms that feed the hybrid MJPEG decode; and, for the
 host decode alone, progressive, multi-scan, four-component, lossless and
 arithmetic-coded streams), ``jpeg_host.cpp``
 (the full decode to BGR on the host, libjpeg-turbo's default decode without
-libjpeg, and Pillow's CMYK → RGB), ``png_filter.cpp`` (the PNG reader's scanline unfiltering),
+libjpeg, with the colour rule libtiff sets for a TIFF page; Pillow's CMYK →
+RGB and libtiff's YCbCr → RGB), ``png_filter.cpp`` (the PNG reader's scanline unfiltering),
 ``text_raster.cpp`` (put_text's glyph rasterizer), ``capture.cpp`` (the
 threaded frame ring behind :class:`NativeRing`: a ``std::thread`` producer
 writes the frozen test pattern as YUYV into its slots) and ``v4l2.cpp``
@@ -129,9 +130,12 @@ def _bind(lib: ctypes.CDLL) -> None:
                                      u8p]
     lib.rcv_jpeg_decode_bgr.restype = ctypes.c_int
     lib.rcv_jpeg_decode_bgr.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, ctypes.c_int,
-                                        ctypes.c_int]
+                                        ctypes.c_int, ctypes.c_int]
     lib.rcv_cmyk_to_rgb.restype = None
     lib.rcv_cmyk_to_rgb.argtypes = [u8p, ctypes.c_long, u8p]
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.rcv_tiff_ycbcr_to_rgb.restype = ctypes.c_int
+    lib.rcv_tiff_ycbcr_to_rgb.argtypes = [u8p, ctypes.c_long, f32p, f32p, u8p]
     lib.rcv_jpeg_entropy_encode_packed.restype = ctypes.c_long
     lib.rcv_jpeg_entropy_encode_packed.argtypes = [
         u8p, i16p, ctypes.c_int, i32p, i16p, ctypes.c_int,
@@ -513,13 +517,8 @@ def text_glyph(points: np.ndarray, on_curve: np.ndarray, ends: np.ndarray, canva
         raise ValueError(f"malformed glyph outline (rcv_text_glyph rc={rc})")
 
 
-def jpeg_header(data: "np.ndarray | bytes") -> tuple:
-    """(width, height, components) from the frame header of a JPEG the host
-    decode reads: baseline, extended sequential, progressive, lossless and
-    arithmetic-coded, of one, three or four components. Raises ValueError
-    for one it does not read (libjpeg refuses it too, or Pillow does)."""
-    lib = _need_lib()
-    buf = _as_u8_buf(data)
+def _frame(lib, buf: np.ndarray) -> tuple:
+    """(width, height, components) of any frame the host decode parses."""
     w, h, nc, flags = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     arrs = [(ctypes.c_int * 4)() for _ in range(4)]
     rc = lib.rcv_jpeg_host_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h),
@@ -527,6 +526,17 @@ def jpeg_header(data: "np.ndarray | bytes") -> tuple:
     if rc != 0:
         raise ValueError(f"unsupported or corrupt JPEG (rcv_jpeg_host_info rc={rc})")
     return w.value, h.value, nc.value
+
+
+def jpeg_header(data: "np.ndarray | bytes") -> tuple:
+    """(width, height, components) from the frame header of a JPEG the host
+    decode reads: baseline, extended sequential, progressive, lossless and
+    arithmetic-coded, of one, three or four components. Raises ValueError
+    for one it does not read (libjpeg refuses it too, or Pillow does)."""
+    w, h, nc = _frame(_need_lib(), _as_u8_buf(data))
+    if nc == 2:  # read only with no colour conversion (jpeg_decode_bgr)
+        raise ValueError("unsupported or corrupt JPEG (rcv_jpeg_host_info rc=-6)")
+    return w, h, nc
 
 
 def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
@@ -539,7 +549,12 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     return out
 
 
-def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None) -> np.ndarray:
+# The colour rules of jpeg_decode_bgr, as the C decode numbers them
+_COLOUR = {"stream": 0, "ycbcr": 1, "none": 2}
+
+
+def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None,
+                    colour: str = "stream") -> np.ndarray:
     """Full host decode of a JPEG (``jpeg_host.cpp``: the port's entropy
     decoder over every scan, Huffman or arithmetic, libjpeg's block
     smoothing of a progressive stream left unrefined, the integer islow
@@ -547,26 +562,56 @@ def jpeg_decode_bgr(data: "np.ndarray | bytes", out: Optional[np.ndarray] = None
     component, the integer YCbCr tables, Pillow's CMYK; no libjpeg) → BGR
     (H, W, 3) u8: what Pillow's libjpeg-turbo and ``convert("RGB")`` give.
 
-    ``out`` (optional) is written in place: an (H, W, 3) u8 array whose
-    rows may be strided (a Mat's padded rows), with unit pixel and channel
-    strides; the frame must be its size (the decode checks it, so the
-    header is parsed once). Raises ValueError for a corrupt stream, one
-    libjpeg or Pillow refuses, or an ``out`` of another size."""
+    ``colour`` is the rule libjpeg's caller sets for the components:
+    ``"stream"`` the stream's own markers (Pillow's JPEG reads);
+    ``"ycbcr"`` YCbCr → RGB whatever the markers say (libtiff's
+    ``JPEGCOLORMODE_RGB`` on a YCbCr page; three components, else
+    ValueError); ``"none"`` no conversion (libtiff on every other page):
+    the upsampled components as they are, (H, W, components) in their
+    order, four not inverted.
+
+    ``out`` (optional) is written in place: an (H, W, 3) u8 array (H, W,
+    components for ``"none"``) whose rows may be strided (a Mat's padded
+    rows), with packed pixels; the frame must be its size (the decode
+    checks it, so the header is parsed once). Raises ValueError for a
+    corrupt stream, one libjpeg or Pillow refuses, or an ``out`` of
+    another size."""
     lib = _need_lib()
     buf = _as_u8_buf(data)
     if out is None:
-        w, h, _ = jpeg_header(buf)
-        out = np.empty((h, w, 3), np.uint8)
-    if (out.ndim != 3 or out.shape[2] != 3 or out.dtype != np.uint8
-            or out.strides[1:] != (3, 1) or not out.flags.writeable):
+        w, h, nc = _frame(lib, buf)
+        out = np.empty((h, w, nc if colour == "none" else 3), np.uint8)
+    n = out.shape[2] if out.ndim == 3 else 0
+    if (out.ndim != 3 or (n != 3 and colour != "none") or out.dtype != np.uint8
+            or out.strides[1:] != (n, 1) or not out.flags.writeable):
         raise ValueError("out must be a writable (H, W, 3) uint8 array with packed pixels")
     h, w = out.shape[:2]
     rc = lib.rcv_jpeg_decode_bgr(_ptr(buf), buf.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                                 out.strides[0], w, h)
+                                 out.strides[0], w, h, _COLOUR[colour])
     if rc == -41:
-        raise ValueError(f"out must be the frame's size, not ({h}, {w}, 3)")
+        raise ValueError(f"out must be the frame's size, not ({h}, {w}, {n})")
     if rc != 0:
         raise ValueError(f"JPEG decode failed (rcv_jpeg_decode_bgr rc={rc})")
+    return out
+
+
+def tiff_ycbcr_to_rgb(ycbcr: np.ndarray, luma=(0.299, 0.587, 0.114),
+                      ref_bw=(0.0, 255.0, 128.0, 255.0, 128.0, 255.0)) -> np.ndarray:
+    """libtiff's YCbCr → RGB (``tif_color.c``, which Pillow reaches through
+    ``TIFFRGBAImage``): (..., 3) u8 Y, Cb, Cr → (..., 3) u8 R, G, B with
+    the tables of the YCbCrCoefficients (``luma``) and ReferenceBlackWhite
+    (``ref_bw``) tags, made in single precision as libtiff makes them.
+    Raises ValueError where libtiff refuses the tags."""
+    lib = _need_lib()
+    src = np.ascontiguousarray(ycbcr, np.uint8)
+    out = np.empty(src.shape, np.uint8)
+    lu = np.asarray(luma, np.float32)
+    rb = np.asarray(ref_bw, np.float32)
+    if lu.size != 3 or rb.size != 6 or src.shape[-1:] != (3,):
+        raise ValueError("tiff_ycbcr_to_rgb takes (..., 3) samples, 3 coefficients, 6 references")
+    if lib.rcv_tiff_ycbcr_to_rgb(_ptr(src), src.size // 3, _ptr(lu, ctypes.c_float),
+                                 _ptr(rb, ctypes.c_float), _ptr(out)) != 0:
+        raise ValueError("invalid YCbCrCoefficients or ReferenceBlackWhite values")
     return out
 
 

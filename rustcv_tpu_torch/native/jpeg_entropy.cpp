@@ -370,7 +370,9 @@ struct Decoder {
         // libjpeg's JERR_EMPTY_IMAGE (it reads no DNL marker either)
         if (host && (width == 0 || height == 0)) return -5;
         ncomp = data[seg + 5];
-        if (ncomp != 1 && ncomp != 3 && !(host && ncomp == 4)) return -6;
+        // the host decode reads one to four components (two only with no
+        // colour conversion, as libtiff asks of libjpeg)
+        if (host ? (ncomp < 1 || ncomp > 4) : (ncomp != 1 && ncomp != 3)) return -6;
         if (seg + 6 + 3 * (long)ncomp > segend) return -5;
         for (int c = 0; c < ncomp; ++c) {
           comp[c].id = data[seg + 6 + c * 3];

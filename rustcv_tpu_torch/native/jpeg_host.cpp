@@ -42,10 +42,16 @@
 //                    CMYK with the same tables and 255 - each of C, M, Y;
 //                    Pillow reads every four-component JPEG inverted
 //                    ("CMYK;I") and makes RGB with its integer formula
-//                    (rcv_cmyk_to_rgb, which the TIFF reader calls too)
+//                    (rcv_cmyk_to_rgb, which the TIFF reader calls too).
+//                    That is the stream's own rule; a caller may set
+//                    another, as libtiff sets libjpeg's colour spaces: YCbCr
+//                    whatever the markers say (a TIFF page of the YCbCr
+//                    photometric), or none (every other TIFF page)
 //
 // Output: rows of B, G, R bytes (gray repeated three times) into a
-// caller's buffer at any stride.
+// caller's buffer at any stride; with no colour conversion, the components
+// as they are. Beside it, libtiff's own YCbCr -> RGB (rcv_tiff_ycbcr_to_rgb),
+// which the TIFF reader takes where libtiff's RGBA reader converts.
 //
 // Built with g++ at first use (see __init__.py); plain C interface.
 
@@ -391,18 +397,105 @@ void rcv_cmyk_to_rgb(const uint8_t* cmyk, long n, uint8_t* rgb) {
   }
 }
 
-// Decode JFIF `data` into `out`: height rows of width*3 B, G, R bytes, row
-// r at out + r*stride. `width`/`height` must be the frame's. Returns 0, a
-// negative decoder code for a corrupt or unsupported stream, -42 for
+}  // extern "C"
+
+namespace {
+
+// TIFF's YCbCr -> RGB (libtiff's tif_color.c, TIFFYCbCrToRGBInit and
+// TIFFYCbCrtoRGB, which Pillow reaches through TIFFRGBAImage): integer
+// tables made in single-precision floats from the YCbCrCoefficients
+// (`luma`) and ReferenceBlackWhite (`rbw`) tags, 16 fraction bits.
+struct TiffYCbCr {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y[256];
+  TiffYCbCr(const float* luma, const float* rbw) {
+    const int kShift = 16;
+    const int32_t half = int32_t(1) << (kShift - 1);
+    auto fix = [](float x) { return int32_t(double(x * 65536.0f) + 0.5); };
+    auto clampf = [](float v, float lo, float hi) { return v < lo ? lo : (v > hi ? hi : v); };
+    // libtiff's Code2V: ((c - (int32_t)RB) * (float)CR) / (float)(RW - RB or 1)
+    auto code2v = [](int32_t c, float rb, float rw, float cr) {
+      float d = rw - rb;
+      return float(c - int32_t(rb)) * cr / (d != 0 ? d : 1.0f);
+    };
+    // CLAMPw then the cast to int32_t, which truncates toward zero
+    auto clampw = [](float v) {
+      return int32_t(v < -128.0f * 32 ? -128.0f * 32 : (v > 128.0f * 32 ? 128.0f * 32 : v));
+    };
+    const float f1 = 2 - 2 * luma[0];
+    const int32_t d1 = fix(clampf(f1, 0.0f, 2.0f));
+    const float f2 = luma[0] * f1 / luma[1];
+    const int32_t d2 = -fix(clampf(f2, 0.0f, 2.0f));
+    const float f3 = 2 - 2 * luma[2];
+    const int32_t d3 = fix(clampf(f3, 0.0f, 2.0f));
+    const float f4 = luma[2] * f3 / luma[1];
+    const int32_t d4 = -fix(clampf(f4, 0.0f, 2.0f));
+    for (int i = 0, x = -128; i < 256; i++, x++) {
+      int32_t cr = clampw(code2v(x, rbw[4] - 128.0f, rbw[5] - 128.0f, 127));
+      int32_t cb = clampw(code2v(x, rbw[2] - 128.0f, rbw[3] - 128.0f, 127));
+      cr_r[i] = int32_t((int64_t(d1) * cr + half) >> kShift);
+      cb_b[i] = int32_t((int64_t(d3) * cb + half) >> kShift);
+      cr_g[i] = d2 * cr;
+      cb_g[i] = d4 * cb + half;
+      y[i] = clampw(code2v(x + 128, rbw[0], rbw[1], 255));
+    }
+  }
+};
+
+// The same integer YCbCr -> RGB the host decode makes of every YCbCr
+// frame, into B, G, R bytes.
+inline void ycbcr_bgr(const ColorTables& t, int yv, int b, int rr, uint8_t* o) {
+  o[2] = clamp_u8(yv + t.cr_r[rr]);
+  o[1] = clamp_u8(yv + int((t.cb_g[b] + t.cr_g[rr]) >> 16));
+  o[0] = clamp_u8(yv + t.cb_b[b]);
+}
+
+}  // namespace
+
+extern "C" {
+
+// libtiff's YCbCr -> RGB of `n` pixels (Y, Cb, Cr bytes each) into R, G,
+// B bytes, with the tables of `luma` (3 floats) and `rbw` (6 floats).
+// Returns -1 where libtiff refuses the tags (a NaN or zero green
+// coefficient, a reference value out of range), else 0.
+int rcv_tiff_ycbcr_to_rgb(const uint8_t* ycbcr, long n, const float* luma, const float* rbw,
+                          uint8_t* rgb) {
+  if (luma[0] != luma[0] || luma[1] != luma[1] || luma[2] != luma[2]) return -1;
+  if (luma[1] > -1e-6f && luma[1] < 1e-6f) return -1;  // libtiff's TIFF_FLOAT_EQ(.., 0.0)
+  for (int i = 0; i < 6; i++)
+    if (!(rbw[i] > float(-0x7FFFFFFF + 128) && rbw[i] < float(0x7FFFFFFF))) return -1;
+  const TiffYCbCr t(luma, rbw);
+  for (long i = 0; i < n; i++, ycbcr += 3, rgb += 3) {
+    const int32_t yv = t.y[ycbcr[0]];
+    const int cb = ycbcr[1], cr = ycbcr[2];
+    rgb[0] = clamp_u8(yv + t.cr_r[cr]);
+    rgb[1] = clamp_u8(yv + int32_t((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+    rgb[2] = clamp_u8(yv + t.cb_b[cb]);
+  }
+  return 0;
+}
+
+// Decode JFIF `data` into `out`, row r at out + r*stride. `width`/`height`
+// must be the frame's. `colour` is the rule for the components, as libjpeg
+// takes it from its caller: 0 the stream's own (its markers; libjpeg's
+// default, Pillow's JPEG reads) and 1 YCbCr (libtiff's JPEGCOLORMODE_RGB
+// of a YCbCr TIFF page: three components, whatever the markers say), both
+// into width*3 B, G, R bytes (gray repeated three times); 2 none (libtiff's
+// JCS_UNKNOWN: every other TIFF page), the upsampled components as they
+// are, width*ncomp bytes, a four-component frame not inverted. Returns 0,
+// a negative decoder code for a corrupt or unsupported stream, -42 for
 // sampling factors that are not integral ratios (libjpeg refuses them),
 // -43 for a lossless frame whose colour needs converting (libjpeg-turbo 3
-// refuses it) and -41 for a size mismatch.
+// refuses it), -44 for a frame of other than three components under rule
+// 1 (libjpeg's bogus colour space), -6 for two components under rules 0
+// and 1, and -41 for a size mismatch.
 int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride, int width,
-                        int height) {
+                        int height, int colour) {
   int w, h, nc, hs[4], vs[4], bw[4], bh[4], flags;
   int rc = rcv_jpeg_host_info(data, len, &w, &h, &nc, hs, vs, bw, bh, &flags);
   if (rc != 0) return rc;
   if (w != width || h != height) return -41;
+  if (colour == 1 && nc != 3) return -44;
+  if (colour != 2 && nc == 2) return -6;  // libjpeg converts no two-component frame
   int hmax = 1, vmax = 1;
   for (int c = 0; c < nc; c++) {
     hmax = hs[c] > hmax ? hs[c] : hmax;
@@ -411,9 +504,12 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
   for (int c = 0; c < nc; c++)
     if (hmax % hs[c] || vmax % vs[c]) return -42;
   const bool lossless = flags & 4;
+  // the stream's rule: RGB (flags & 2) and CMYK take no conversion
+  const bool rgb = colour == 0 && (flags & 2), ycck = colour == 0 && (flags & 16);
+  const bool convert = colour == 1 || (colour == 0 && ((nc == 3 && !rgb) || ycck));
   // libjpeg-turbo 3 converts no colour of a lossless frame: YCbCr to the
   // RGB Pillow asks for, or YCCK to its CMYK, it refuses
-  if (lossless && ((nc == 3 && !(flags & 2)) || (nc == 4 && (flags & 16)))) return -43;
+  if (lossless && convert) return -43;
 
   thread_local Scratch s;
   uint16_t q[4][64];
@@ -464,7 +560,10 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
     for (int r = 0; r < height; r++) {
       const uint8_t* yr = s.plane[0].data() + size_t(r) * pw[0];
       uint8_t* o = out + size_t(r) * stride;
-      for (int x = 0; x < width; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = yr[x];
+      if (colour == 2)
+        memcpy(o, yr, size_t(width));
+      else
+        for (int x = 0; x < width; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = yr[x];
     }
     return 0;
   }
@@ -481,7 +580,6 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
     s.row[c].resize(size_t(dw[c]) * hx[c] + 2);
   }
   const ColorTables& t = tables();
-  const bool rgb = flags & 2, ycck = flags & 16;
   const uint8_t* rows[4];
   for (int r = 0; r < height; r++) {
     for (int c = 0; c < nc; c++) {
@@ -515,15 +613,21 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
       rows[c] = buf;
     }
     uint8_t* o = out + size_t(r) * stride;
+    if (colour == 2) {
+      for (int x = 0; x < width; x++)
+        for (int c = 0; c < nc; c++) o[nc * x + c] = rows[c][x];
+      continue;
+    }
     if (nc == 4) {
       for (int x = 0; x < width; x++) {
         int nk = rows[3][x];  // 255 - K as Pillow holds it (inverted)
         int cc = 255 - rows[0][x], mm = 255 - rows[1][x], yy = 255 - rows[2][x];
         if (ycck) {  // libjpeg's YCC -> CMY, inverted: the YCbCr -> RGB values
-          int yv = rows[0][x], b = rows[1][x], rr = rows[2][x];
-          cc = clamp_u8(yv + t.cr_r[rr]);
-          mm = clamp_u8(yv + int((t.cb_g[b] + t.cr_g[rr]) >> 16));
-          yy = clamp_u8(yv + t.cb_b[b]);
+          uint8_t bgr[3];
+          ycbcr_bgr(t, rows[0][x], rows[1][x], rows[2][x], bgr);
+          cc = bgr[2];
+          mm = bgr[1];
+          yy = bgr[0];
         }
         o[3 * x + 2] = cmyk_channel(cc, nk);
         o[3 * x + 1] = cmyk_channel(mm, nk);
@@ -539,12 +643,7 @@ int rcv_jpeg_decode_bgr(const uint8_t* data, long len, uint8_t* out, long stride
       }
       continue;
     }
-    for (int x = 0; x < width; x++) {
-      int yv = rows[0][x], b = rows[1][x], rr = rows[2][x];
-      o[3 * x + 2] = clamp_u8(yv + t.cr_r[rr]);
-      o[3 * x + 1] = clamp_u8(yv + int((t.cb_g[b] + t.cr_g[rr]) >> 16));
-      o[3 * x + 0] = clamp_u8(yv + t.cb_b[b]);
-    }
+    for (int x = 0; x < width; x++) ycbcr_bgr(t, rows[0][x], rows[1][x], rows[2][x], o + 3 * x);
   }
   return 0;
 }

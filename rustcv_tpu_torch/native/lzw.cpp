@@ -229,8 +229,8 @@ long rcv_packbits_decode(const uint8_t* data, long n, uint8_t* out, long out_len
     const int h = int8_t(data[p++]);
     if (h >= 0) {
       long len = h + 1;
-      if (len > n - p) len = n - p;
       if (len > out_len - o) len = out_len - o;
+      if (len > n - p) break;  // libtiff drops a literal run its data cuts short
       std::memcpy(out + o, data + p, size_t(len));
       p += h + 1;
       o += len;

@@ -2486,3 +2486,43 @@ def test_jpeg_form_fixture_read_onto_the_card(cuda, name):
         assert mat.device().is_cuda
         np.testing.assert_array_equal(mat.to_numpy(), cpu)
     assert not any(kernels.launch_counts().values())
+
+
+_TIFF = Path(__file__).resolve().parent / "data" / "tiff"
+_TIFF_MANIFEST = json.loads((_TIFF / "manifest.json").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(_TIFF_MANIFEST))
+def test_tiff_jpeg_ycbcr_fixture_read_onto_the_card(cuda, name):
+    """Item 8d-ii-c-i: each TIFF fixture of JPEG compression or the YCbCr
+    photometric read by ``imread``, ``imdecode`` and ``imreadmulti`` onto
+    the card equals the CPU read and the reference's page hashes, with its
+    page count; one the reference refuses raises CameraError on both, and
+    old-style JPEG ``not_ported``; no kernel launches."""
+    from rustcv_tpu_torch import imgcodecs
+    from rustcv_tpu_torch.core import CameraError
+
+    m = _TIFF_MANIFEST[name]
+    path = str(_TIFF / name)
+    data = (_TIFF / name).read_bytes()
+    kernels.reset_launch_counts()
+    if m["form"] == "not_ported":
+        for device in (cuda, "cpu"):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+                imgcodecs.imread(path, device=device)
+        return
+    assert imgcodecs.imcount(path) == m["count"]
+    if "error" in m["pages"][-1]:
+        for device in (cuda, "cpu"):
+            with pytest.raises(CameraError):
+                imgcodecs.imreadmulti(path, device=device)
+        return
+    cpu = [mat.to_numpy() for mat in imgcodecs.imreadmulti(path, device="cpu")]
+    assert [(list(c.shape), _sha(c)) for c in cpu] == [
+        (p["shape"], p["bgr_sha256"]) for p in m["pages"]]
+    for got in (imgcodecs.imreadmulti(path, device=cuda), [imgcodecs.imread(path, device=cuda)],
+                [imgcodecs.imdecode(data, device=cuda)]):
+        for mat, c in zip(got, cpu):
+            assert mat.device().is_cuda
+            np.testing.assert_array_equal(mat.to_numpy(), c)
+    assert not any(kernels.launch_counts().values())

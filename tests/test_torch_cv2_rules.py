@@ -248,6 +248,7 @@ def test_the_later_card_names_are_wrappers():
 def test_a_later_wrapper_sends_numpy_to_the_card_exactly_where_the_reference_does(
         name, tmp_path, no_card):
     args, kwargs = later_plan(name, facade_get(R, name), tmp_path, P)
+    level = P.utils.logging.getLogLevel()  # global state setLogLevel changes: put back after
     try:
         facade_get(P, name)(*args, **kwargs)
     except RuntimeError as e:  # NotImplementedError (not_ported, the guards) too
@@ -257,6 +258,8 @@ def test_a_later_wrapper_sends_numpy_to_the_card_exactly_where_the_reference_doe
         return
     except Exception:  # noqa: BLE001 - the sweep holds the classes; here only the device
         pass
+    finally:
+        P.utils.logging.setLogLevel(level)
     assert name not in LATER_CARD_NAMES, f"{name} ran on the host"
 
 

@@ -226,7 +226,7 @@ def test_tiff_xmp_orientation_and_the_ifd_chain(tmp_path):
 
 
 LATER_TIFFS = {
-    "JPEG": lambda: _pillow_tiff(_mode_image("RGB", 9), compression="jpeg"),
+    "old-style JPEG": lambda: S.tiff_file([dict(_page(), photo=6, comp=6)]),
     "Group 4": lambda: _pillow_tiff(_mode_image("1", 9), compression="group4"),
     "Group 3": lambda: _pillow_tiff(_mode_image("1", 9), compression="group3"),
     "CCITT 1d": lambda: _pillow_tiff(_mode_image("1", 9), compression="tiff_ccitt"),
@@ -235,7 +235,6 @@ LATER_TIFFS = {
     "CIELab": lambda: _pillow_tiff(_mode_image("RGB", 9).convert("LAB")),
     "predictor 3": lambda: _pillow_tiff(_mode_image("F", 9), compression="tiff_adobe_deflate",
                                         tiffinfo={317: 3}),
-    "YCbCr": lambda: S.tiff_file([dict(_page(), photo=6)]),
     "12-bit gray": lambda: S.tiff_file([dict(_page(spp=1, dtype=np.uint16, hi=4096), photo=1,
                                              bits=16, tags={258: (3, [12])})]),
     "old-style LZW": lambda: _old_style_lzw(),
